@@ -1,0 +1,211 @@
+"""Checkpoint IO and parameter trees for the PyTorch port.
+
+Counterpart of ``bergen_tpu/models/convert.py``.  The port's machine has no
+``safetensors`` or ``transformers``, so checkpoints are read here directly:
+``config.json`` plus ``model.safetensors`` (or a sharded
+``model.safetensors.index.json``), parsed from the format's JSON header with
+``torch.frombuffer``.  ``bert_from_hf`` and ``llama_from_hf`` map HF state
+dicts onto the same parameter trees the JAX package uses (linear kernels
+stored [in, out]), and ``from_jax_params`` carries a JAX tree (numpy leaves)
+across unchanged, so both packages can be fed identical weights.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+from types import SimpleNamespace
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_ST_DTYPES = {
+    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "F64": torch.float64, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+# leaves kept in f32 whatever the compute dtype (as the JAX to_device_tree)
+NORM_KEYS = ("ln", "scale", "bias", "attn_norm", "mlp_norm", "final_norm")
+
+
+# --------------------------------------------------------------------------- #
+# safetensors
+# --------------------------------------------------------------------------- #
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file, on the CPU."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES.get(meta["dtype"])
+        if dtype is None:
+            raise NotImplementedError(f"safetensors dtype {meta['dtype']!r}")
+        start, end = meta["data_offsets"]
+        count = (end - start) // torch.empty((), dtype=dtype).element_size()
+        t = torch.frombuffer(data, dtype=dtype, count=count, offset=start) \
+            if count else torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(meta["shape"])
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
+    header, chunks, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().to("cpu").contiguous()
+        raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for raw in chunks:
+            f.write(raw)
+
+
+def load_checkpoint(model_dir: str):
+    """(config namespace, state dict) of a local HF checkpoint directory."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = SimpleNamespace(**json.load(f))
+    single = os.path.join(model_dir, "model.safetensors")
+    index = os.path.join(model_dir, "model.safetensors.index.json")
+    if os.path.exists(single):
+        return cfg, load_safetensors(single)
+    if os.path.exists(index):
+        with open(index) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+        sd: Dict[str, torch.Tensor] = {}
+        for name in files:
+            sd.update(load_safetensors(os.path.join(model_dir, name)))
+        return cfg, sd
+    raise FileNotFoundError(
+        f"{model_dir}: no model.safetensors or model.safetensors.index.json "
+        "(the port reads safetensors checkpoints from a local directory)")
+
+
+# --------------------------------------------------------------------------- #
+# HF state dicts -> parameter trees (kernels [in, out], as the JAX package)
+# --------------------------------------------------------------------------- #
+
+
+def _lin(sd: Mapping, prefix: str) -> Dict[str, Any]:
+    p = {"kernel": sd[f"{prefix}.weight"].T}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _ln(sd: Mapping, prefix: str) -> Dict[str, Any]:
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+
+def _strip_prefix(sd: Mapping, candidates=("bert.", "model.", "roberta.")):
+    for cand in candidates:
+        if any(k.startswith(cand + "embeddings") or k.startswith(cand + "encoder")
+               or k.startswith(cand + "embed_tokens")
+               or k.startswith(cand + "layers") for k in sd):
+            return {(k[len(cand):] if k.startswith(cand) else k): v
+                    for k, v in sd.items()}
+    return dict(sd)
+
+
+def bert_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
+    """HF BertModel / RobertaModel state dict -> bert tree (the standard
+    post-LN layout; the rope/ALiBi/gated remote-code layouts are not
+    ported yet)."""
+    sd = _strip_prefix(state_dict)
+    if "encoder.layer.0.attention.self.query.weight" not in sd:
+        raise NotImplementedError(
+            "bert_from_hf: only the standard BERT/RoBERTa layout is ported "
+            "(GTE, nomic, jina and DistilBERT layouts are not yet)")
+    p: Dict[str, Any] = {
+        "embeddings": {
+            "word": sd["embeddings.word_embeddings.weight"],
+            "position": sd["embeddings.position_embeddings.weight"],
+            "ln": _ln(sd, "embeddings.LayerNorm"),
+        },
+        "layers": [],
+    }
+    if "embeddings.token_type_embeddings.weight" in sd:
+        p["embeddings"]["token_type"] = sd[
+            "embeddings.token_type_embeddings.weight"]
+    for i in range(num_layers):
+        pre = f"encoder.layer.{i}"
+        p["layers"].append({
+            "attn": {
+                "q": _lin(sd, f"{pre}.attention.self.query"),
+                "k": _lin(sd, f"{pre}.attention.self.key"),
+                "v": _lin(sd, f"{pre}.attention.self.value"),
+                "o": _lin(sd, f"{pre}.attention.output.dense"),
+            },
+            "attn_ln": _ln(sd, f"{pre}.attention.output.LayerNorm"),
+            "mlp_in": _lin(sd, f"{pre}.intermediate.dense"),
+            "mlp_out": _lin(sd, f"{pre}.output.dense"),
+            "mlp_ln": _ln(sd, f"{pre}.output.LayerNorm"),
+        })
+    return p
+
+
+def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
+    """HF LlamaForCausalLM / MistralForCausalLM state dict -> llama tree."""
+    sd = _strip_prefix(state_dict, candidates=("model.",))
+    p: Dict[str, Any] = {
+        "embed": sd["embed_tokens.weight"],
+        "layers": [],
+        "final_norm": {"scale": sd["norm.weight"]},
+    }
+    for i in range(num_layers):
+        pre = f"layers.{i}"
+        p["layers"].append({
+            "attn": {n: {"kernel": sd[f"{pre}.self_attn.{n}_proj.weight"].T}
+                     for n in ("q", "k", "v", "o")},
+            "attn_norm": {"scale": sd[f"{pre}.input_layernorm.weight"]},
+            "mlp_norm": {"scale": sd[f"{pre}.post_attention_layernorm.weight"]},
+            "mlp": {n: {"kernel": sd[f"{pre}.mlp.{n}_proj.weight"].T}
+                    for n in ("gate", "up", "down")},
+        })
+    if "lm_head.weight" in state_dict:
+        p["lm_head"] = {"kernel": state_dict["lm_head.weight"].T}
+    return p
+
+
+# --------------------------------------------------------------------------- #
+# placement
+# --------------------------------------------------------------------------- #
+
+
+def to_device(tree, dtype: torch.dtype, device, _keep_f32: bool = False):
+    """Copy a tree onto ``device``: weights in ``dtype``, norm parameters
+    and biases in f32 (the JAX package's ``to_device_tree`` rule); every
+    leaf contiguous."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dtype, device, _keep_f32 or k in NORM_KEYS)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_device(v, dtype, device, _keep_f32) for v in tree]
+    t = torch.from_numpy(np.array(tree)) if not isinstance(
+        tree, torch.Tensor) else tree
+    if not t.is_floating_point():
+        return t.to(device).contiguous()
+    return t.to(device=device, dtype=torch.float32 if _keep_f32 else dtype
+                ).contiguous()
+
+
+def from_jax_params(tree, dtype: torch.dtype = torch.float32,
+                    device="cpu") -> Any:
+    """A JAX parameter tree (numpy or jax arrays) -> the port's tree."""
+    return to_device(tree, dtype, device)

@@ -1,0 +1,86 @@
+"""Shared transformer building blocks (the PyTorch port's counterpart of
+``bergen_tpu/models/core.py``): plain functions on tensors over the same
+parameter trees (``{"kernel" [in, out], "bias"}``, ``{"scale", "bias"}``).
+
+Products accumulate in f32 and round to the activation dtype; norms compute
+in f32 whatever the activation dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+Params = Dict[str, Any]
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W + b, rounded to x's dtype (f32 bias, as the JAX tree)."""
+    if "bias" not in p:
+        return x @ p["kernel"]
+    if x.dtype == torch.float32:
+        return x @ p["kernel"] + p["bias"]
+    return (torch.matmul(x, p["kernel"]).float() + p["bias"]).to(x.dtype)
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+ACT_FNS = {
+    "gelu": torch.nn.functional.gelu,
+    "gelu_new": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "relu": torch.relu,
+    "silu": torch.nn.functional.silu,
+}
+
+
+def mha(p: Params, x: torch.Tensor, mask: torch.Tensor,
+        num_heads: int) -> torch.Tensor:
+    """Bidirectional multi-head attention, plain PyTorch (x [B, S, D], mask
+    [B, S] with 1 = attend; a masked key scores -1e30)."""
+    B, S, D = x.shape
+    Dh = D // num_heads
+    q = dense(p["q"], x).reshape(B, S, num_heads, Dh).float()
+    k = dense(p["k"], x).reshape(B, S, num_heads, Dh).float()
+    v = dense(p["v"], x).reshape(B, S, num_heads, Dh).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(Dh)
+    bias = torch.where(mask.bool(), 0.0, -1e30).to(torch.float32)
+    probs = torch.softmax(s + bias[:, None, None, :], dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v).to(x.dtype)
+    return dense(p["o"], ctx.reshape(B, S, D))
+
+
+# --------------------------------------------------------------------------- #
+# batching helpers
+# --------------------------------------------------------------------------- #
+
+
+def length_bucket(length: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket >= length (last bucket if none fits)."""
+    for b in buckets:
+        if length <= b:
+            return b
+    return buckets[-1]
+
+
+def make_buckets(max_len: int, min_len: int = 32) -> tuple[int, ...]:
+    out = []
+    b = min_len
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return tuple(out)

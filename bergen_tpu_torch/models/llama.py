@@ -1,0 +1,199 @@
+"""Llama-family decoder (the PyTorch port's counterpart of
+``bergen_tpu/models/llama.py``; llama and mistral configurations only).
+
+Plain functions over the JAX package's parameter tree: RoPE (split-half),
+GQA, RMSNorm, SwiGLU, and a flat KV cache ``[n_layers, B, L, KH*Dh]``
+written at a cursor.  Prefill attention is plain PyTorch (the JAX package
+leaves it to XLA by default); every S=1 decode step goes through
+``ops.decode_attention.decode_attention`` (the CUDA kernel on the card).
+The cache is updated in place, where the JAX function returns a new one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from bergen_tpu_torch.models.core import rmsnorm
+from bergen_tpu_torch.ops.decode_attention import decode_attention
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    intermediate_size: int
+    max_position_embeddings: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def from_hf(cls, hf_cfg) -> "LlamaConfig":
+        model_type = getattr(hf_cfg, "model_type", "llama")
+        if model_type not in ("llama", "mistral"):
+            raise NotImplementedError(
+                f"generator model_type {model_type!r}: only llama/mistral is "
+                "ported (ROADMAP.md Queue 1, generation breadth)")
+        rs = getattr(hf_cfg, "rope_scaling", None) or {}
+        if rs.get("rope_type", rs.get("type")) not in (None, "default"):
+            raise NotImplementedError(f"rope_scaling {rs!r} is not ported")
+        act = getattr(hf_cfg, "hidden_act", "silu")
+        if act != "silu":
+            raise NotImplementedError(f"llama hidden_act {act!r}")
+        return cls(
+            vocab_size=hf_cfg.vocab_size,
+            hidden_size=hf_cfg.hidden_size,
+            num_layers=hf_cfg.num_hidden_layers,
+            num_heads=hf_cfg.num_attention_heads,
+            num_kv_heads=getattr(hf_cfg, "num_key_value_heads", None)
+            or hf_cfg.num_attention_heads,
+            intermediate_size=hf_cfg.intermediate_size,
+            max_position_embeddings=hf_cfg.max_position_embeddings,
+            rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+            rms_norm_eps=getattr(hf_cfg, "rms_norm_eps", None) or 1e-5,
+            tie_word_embeddings=getattr(hf_cfg, "tie_word_embeddings", False),
+        )
+
+
+def rope_frequencies(cfg: LlamaConfig, device=None) -> torch.Tensor:
+    dim = cfg.head_dim
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (cfg.rope_theta ** exps)  # [dim/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, Dh], positions [B, S]; HF llama's rotate-half pairing."""
+    angles = positions[..., None].float() * inv_freq  # [B, S, Dh/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Flat [n_layers, B, L, KH*Dh] K and V (the decode kernel's layout)
+    and a write cursor."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads * cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "cursor": 0}
+
+
+def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["kernel"]
+
+
+def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
+               positions: torch.Tensor, inv_freq: torch.Tensor,
+               cache: Dict[str, Any], li: int,
+               attn_mask: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = apply_rope(_proj(layer["attn"]["q"], x).reshape(B, S, H, Dh),
+                   positions, inv_freq)
+    k = apply_rope(_proj(layer["attn"]["k"], x).reshape(B, S, KH, Dh),
+                   positions, inv_freq)
+    v = _proj(layer["attn"]["v"], x)
+    cur = cache["cursor"]
+    k_cache, v_cache = cache["k"][li], cache["v"][li]
+    k_cache[:, cur:cur + S] = k.reshape(B, S, KH * Dh).to(k_cache.dtype)
+    v_cache[:, cur:cur + S] = v.reshape(B, S, KH * Dh).to(v_cache.dtype)
+    scale = 1.0 / math.sqrt(Dh)
+    if S == 1:
+        ctx = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                               attn_mask[:, -1], kv_heads=KH, sm_scale=scale)
+        return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
+    # prefill: keys are the cache slots written so far
+    Lk = cur + S
+    G = H // KH
+    k4 = k_cache[:, :Lk].reshape(B, Lk, KH, Dh).float()
+    v4 = v_cache[:, :Lk].reshape(B, Lk, KH, Dh).float()
+    qg = q.reshape(B, S, KH, G, Dh).float()
+    scores = torch.einsum("bskgd,blkd->bkgsl", qg, k4) * scale
+    bias = torch.where(attn_mask[:, None, None, :, :Lk], 0.0, -1e30)
+    probs = torch.softmax(scores + bias, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bkgsl,blkd->bskgd", probs.float(), v4).to(x.dtype)
+    return _proj(layer["attn"]["o"], ctx.reshape(B, S, H * Dh))
+
+
+def _mlp(layer: Params, x: torch.Tensor) -> torch.Tensor:
+    g = torch.nn.functional.silu(_proj(layer["mlp"]["gate"], x))
+    return _proj(layer["mlp"]["down"], g * _proj(layer["mlp"]["up"], x))
+
+
+def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
+            positions: torch.Tensor, cache: Dict[str, Any],
+            attn_mask: torch.Tensor, last_only: bool = False) -> torch.Tensor:
+    """One step (prefill: S = prompt length; decode: S = 1) writing K/V at
+    the cache cursor and advancing it.  attn_mask [B, S, L] bool over cache
+    slots.  Returns f32 logits [B, S, V] ([B, 1, V] with ``last_only``)."""
+    inv_freq = rope_frequencies(cfg, device=input_ids.device)
+    x = params["embed"][input_ids]
+    for li, layer in enumerate(params["layers"]):
+        h = rmsnorm(layer["attn_norm"], x, cfg.rms_norm_eps)
+        x = x + _attention(layer, cfg, h, positions, inv_freq, cache, li,
+                           attn_mask)
+        h = rmsnorm(layer["mlp_norm"], x, cfg.rms_norm_eps)
+        x = x + _mlp(layer, h)
+    cache["cursor"] += input_ids.shape[1]
+    if last_only:
+        x = x[:, -1:]
+    x = rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+    head = params.get("lm_head")
+    if head is None:  # tied embeddings
+        return (x @ params["embed"].T).float()
+    return _proj(head, x).float()
+
+
+@torch.inference_mode()
+def greedy_generate(params: Params, cfg: LlamaConfig,
+                    input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                    max_new_tokens: int, eos_token_id: int, pad_token_id: int,
+                    cache_dtype=torch.bfloat16) -> torch.Tensor:
+    """Batched greedy decoding over LEFT-padded prompts; per-row stop on EOS
+    (the EOS itself is emitted, then pads).  Returns [B, max_new_tokens]."""
+    B, S = input_ids.shape
+    dev = input_ids.device
+    L = S + max_new_tokens
+    cache = init_cache(cfg, B, L, dtype=cache_dtype, device=dev)
+    am = attention_mask.bool()
+    positions = (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp_min(0)
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+    prefill_mask = causal[None] & am[:, None, :]
+    logits = forward(params, cfg, input_ids, positions, cache, prefill_mask,
+                     last_only=True)
+    tok = logits[:, -1].argmax(dim=-1)
+    key_valid = torch.cat(
+        [am, torch.zeros(B, max_new_tokens, dtype=torch.bool, device=dev)],
+        dim=1)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    pos = positions[:, -1] + 1
+    out = []
+    for t in range(max_new_tokens):
+        out.append(torch.where(done, pad_token_id, tok))
+        if t + 1 == max_new_tokens:
+            break  # the last step's logits would be discarded
+        tok_in = torch.where(done, pad_token_id, tok)
+        done = done | (tok == eos_token_id)
+        key_valid[:, S + t] = True
+        logits = forward(params, cfg, tok_in[:, None], pos[:, None], cache,
+                         key_valid[:, None, :])
+        tok = logits[:, -1].argmax(dim=-1)
+        pos = pos + 1
+    return torch.stack(out, dim=1)

@@ -1,0 +1,133 @@
+"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into its own
+shared library with a plain C interface, loaded through ``ctypes``.  All
+sources build together (one nvcc process each, started at once) on the first
+CUDA launch of any kernel, into ``bergen_tpu_torch/_build/<hash>/``, keyed by
+a hash of every source; importing the package builds nothing, so the CPU
+path needs no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> (library, argtypes)
+SIGNATURES = {
+    "encoder_gemm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _P]),
+    "encoder_attention": ("encoder_layer", [_P, _P, _P, _I, _I, _I, _F, _P]),
+    "encoder_layernorm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _F,
+                                            _P]),
+    "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "decode_attention": ("decode_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
+                                              _I, _F, _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels need the CUDA toolkit to build")
+
+
+def build_all() -> str:
+    """Compile every ``csrc/*.cu`` not yet built, in parallel; returns the
+    build directory.  nvcc's resource report (-Xptxas -v) for each source is
+    kept beside its library as ``<name>.log``."""
+    out = os.path.join(BUILD_ROOT, _digest())
+    todo = [s for s in _sources() if not os.path.exists(
+        os.path.join(out, os.path.basename(s)[:-3] + ".so"))]
+    if not todo:
+        return out
+    os.makedirs(out, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in todo:
+        name = os.path.basename(src)[:-3]
+        tmp = os.path.join(out, f"{name}.{os.getpid()}.tmp.so")
+        log = open(os.path.join(out, f"{name}.log"), "w")
+        procs.append((name, tmp, log, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
+            stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, os.path.join(out, f"{name}.so"))
+    if failed:
+        logs = "\n".join(open(os.path.join(out, f"{n}.log")).read()[-4000:]
+                         for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return out
+
+
+def function(name: str):
+    """The ctypes function for C entry ``name``, building on first use."""
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
+    lib_name, argtypes = SIGNATURES[name]
+    with _lock:
+        lib = _libs.get(lib_name)
+        if lib is None:
+            lib = ctypes.CDLL(os.path.join(build_all(), f"{lib_name}.so"))
+            _libs[lib_name] = lib
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _fns[name] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

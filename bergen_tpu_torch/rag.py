@@ -1,0 +1,337 @@
+"""RAG orchestrator (the PyTorch port's counterpart of ``bergen_tpu/rag.py``).
+
+Holds the stage objects, enforces ``generation_top_k <= rerank_top_k <=
+retrieve_top_k``, caches every stage artifact under the JAX package's
+deterministic filenames (TREC runs, generated queries), evaluates rankings
+against qrels, and writes the per-experiment ``eval_{split}_out.json`` /
+``eval_{split}_metrics.json``.  Ported: ``eval()`` with query generation,
+dense retrieval and generation.  Reranking, context processing and training
+raise ``NotImplementedError`` naming the ROADMAP item that will port them.
+Every stage runs on ``device`` (default ``cuda``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+
+import numpy as np
+
+from bergen_tpu_torch import confy, utils
+from bergen_tpu_torch import device as _device
+from bergen_tpu_torch.data.processor import ProcessDatasets
+from bergen_tpu_torch.metrics import RAGMetrics
+from bergen_tpu_torch.pipeline.generate_query import GenerateQueries
+from bergen_tpu_torch.pipeline.retrieve import Retrieve
+
+
+class RAG:
+    def __init__(
+        self,
+        generator=None,
+        retriever=None,
+        reranker=None,
+        query_generator=None,
+        context_processor=None,
+        runs_folder=None,
+        run_name=None,
+        dataset=None,
+        processing_num_proc=1,
+        dataset_folder="datasets/",
+        index_folder="indexes/",
+        generated_query_folder="generated_queries/",
+        processed_context_folder="processed_contexts/",
+        experiments_folder="experiments/",
+        qrels_folder="qrels/",
+        overwrite_datasets=False,
+        overwrite_exp=False,
+        overwrite_index=False,
+        retrieve_top_k=1,
+        rerank_top_k=1,
+        generation_top_k=1,
+        pyserini_num_threads=1,
+        config=None,
+        debug=False,
+        continue_batch=None,
+        train=None,
+        prompt=None,
+        device=None,
+        **kwargs,
+    ):
+        cfg = config or {}
+        retriever = retriever if retriever is not None else cfg.get("retriever")
+        reranker = reranker if reranker is not None else cfg.get("reranker")
+        generator = generator if generator is not None else cfg.get("generator")
+        query_generator = (
+            query_generator if query_generator is not None
+            else cfg.get("query_generator")
+        )
+        context_processor = (
+            context_processor if context_processor is not None
+            else cfg.get("context_processor")
+        )
+        dataset = dataset if dataset is not None else cfg.get("dataset")
+        if query_generator is None:
+            query_generator = {
+                "init_args": {
+                    "_target_": "bergen_tpu.models.query_generators.copy.CopyQuery"
+                }
+            }
+
+        if reranker is not None:
+            raise NotImplementedError(
+                "reranking is not ported yet (ROADMAP.md Queue 1, item 7)")
+        if context_processor is not None:
+            raise NotImplementedError(
+                "context processing is not ported yet (ROADMAP.md Queue 1, "
+                "item 12)")
+        if train is not None:
+            raise NotImplementedError(
+                "training is not ported yet (ROADMAP.md Queue 1, item 13)")
+        self.device = _device.resolve(device)
+        self.debug = debug
+        self.dataset_folder = dataset_folder
+        self.experiments_folder = experiments_folder
+        self.runs_folder = runs_folder
+        self.generated_query_folder = generated_query_folder
+        self.processed_context_folder = processed_context_folder
+        self.qrels_folder = qrels_folder
+        self.processing_num_proc = processing_num_proc
+        self.index_folder = index_folder
+        self.config = config
+        self.retrieve_top_k = retrieve_top_k
+        self.rerank_top_k = rerank_top_k
+        self.generation_top_k = generation_top_k
+        self.pyserini_num_threads = pyserini_num_threads
+        self.overwrite_exp = overwrite_exp
+        self.overwrite_index = overwrite_index
+        self.oracle_provenance = (
+            retriever is not None
+            and retriever["init_args"].get("model_name") == "oracle_provenance"
+        )
+
+        assert self.generation_top_k <= self.rerank_top_k <= self.retrieve_top_k
+
+        self.run_name, self.experiment_folder = utils.init_experiment(
+            config, experiments_folder, index_folder, runs_folder, run_name,
+            overwrite_exp=overwrite_exp, continue_batch=continue_batch,
+        )
+
+        shuffle_labels = (
+            generator is not None
+            and generator["init_args"].get("model_name") == "random_answer"
+        )
+        self.datasets = ProcessDatasets.process(
+            dataset,
+            out_folder=dataset_folder,
+            num_proc=processing_num_proc,
+            overwrite=overwrite_datasets,
+            debug=debug,
+            shuffle_labels=shuffle_labels,
+            oracle_provenance=self.oracle_provenance,
+        )
+        self.metrics = {"train": RAGMetrics, "dev": RAGMetrics, "test": None}
+
+        self.retriever = (
+            Retrieve(
+                **retriever,
+                pyserini_num_threads=pyserini_num_threads,
+                continue_batch=continue_batch,
+                device=self.device,
+            )
+            if retriever is not None
+            else None
+        )
+        self.generator = (
+            confy.instantiate(generator["init_args"], prompt=prompt,
+                              device=self.device)
+            if generator is not None
+            else None
+        )
+        self.query_generator = GenerateQueries(
+            generator=self.generator, **query_generator
+        )
+
+    # ------------------------------------------------------------------ #
+
+    def eval(self, dataset_split: str) -> None:
+        dataset = self.datasets[dataset_split]
+        query_dataset_name = dataset["query"].name
+        doc_dataset_name = (
+            dataset["doc"].name if dataset.get("doc") is not None else None
+        )
+        timer = utils.StageTimer()
+
+        with utils.maybe_profile(self.experiment_folder):
+            if self.retriever is not None:
+                with timer.track("generate_query"):
+                    dataset = self.generate_query(
+                        dataset, query_dataset_name, dataset_split
+                    )
+                with timer.track("retrieve"):
+                    query_ids, doc_ids, _ = self.retrieve(
+                        dataset, query_dataset_name, doc_dataset_name,
+                        dataset_split, self.retrieve_top_k,
+                    )
+            else:
+                query_ids, doc_ids = None, None
+
+            if doc_ids is not None:
+                doc_ids = [d[: self.generation_top_k] for d in doc_ids]
+
+            gen_dataset = utils.prepare_dataset_from_ids(
+                dataset, query_ids, doc_ids, multi_doc=True,
+                query_field="content", oracle_provenance=self.oracle_provenance,
+            )
+
+            if self.generator is not None:
+                with timer.track("generate"):
+                    questions, _, predictions, references = self.generate(
+                        gen_dataset, dataset_split
+                    )
+                with timer.track("metrics"):
+                    self.eval_metrics(
+                        dataset_split, questions, predictions, references
+                    )
+
+        timer.write(self.experiment_folder, dataset_split)
+        utils.move_finished_experiment(self.experiment_folder)
+
+    # ------------------------------------------------------------------ #
+
+    def generate_query(self, dataset, query_dataset_name, dataset_split):
+        id2index = dataset["query"].id2index
+        if self.query_generator.get_clean_model_name() == "copy":
+            dataset["query"] = dataset["query"].add_column(
+                "generated_query", dataset["query"]["content"]
+            )
+        else:
+            fname = utils.get_query_generation_filename(
+                self.generated_query_folder, query_dataset_name,
+                self.query_generator.get_clean_model_name(), dataset_split,
+            )
+            if not os.path.exists(fname) or self.overwrite_exp or self.overwrite_index:
+                generated = self.query_generator.eval(dataset["query"])
+                os.makedirs(self.generated_query_folder, exist_ok=True)
+                with open(fname, "w") as fp:
+                    json.dump({"generated_queries": generated}, fp)
+            else:
+                with open(fname) as fp:
+                    generated = json.load(fp)["generated_queries"]
+            dataset["query"] = dataset["query"].add_column(
+                "generated_query", generated
+            )
+            shutil.copyfile(
+                fname,
+                os.path.join(self.experiment_folder, os.path.basename(fname)),
+            )
+        dataset["query"].id2index = id2index
+        return dataset
+
+    def retrieve(self, dataset, query_dataset_name, doc_dataset_name,
+                 dataset_split, retrieve_top_k, eval_ranking=True):
+        if self.oracle_provenance and "doc" in dataset["query"].features:
+            return dataset["query"]["id"], None, None
+
+        ranking_file = utils.get_ranking_filename(
+            self.runs_folder, query_dataset_name, doc_dataset_name,
+            self.retriever.get_clean_model_name(), dataset_split,
+            retrieve_top_k, self.query_generator.get_clean_model_name(),
+        )
+        doc_path = utils.get_index_path(
+            self.index_folder, doc_dataset_name,
+            self.retriever.get_clean_model_name(), "doc",
+        )
+        query_path = utils.get_index_path(
+            self.index_folder, query_dataset_name,
+            self.retriever.get_clean_model_name(), "query",
+            dataset_split=dataset_split,
+            query_generator_name=self.query_generator.get_clean_model_name(),
+        )
+        if not os.path.exists(ranking_file) or self.overwrite_exp or self.overwrite_index:
+            out = self.retriever.retrieve(
+                dataset, query_path, doc_path, retrieve_top_k
+            )
+            query_ids, doc_ids, scores = out["q_id"], out["doc_id"], out["score"]
+            scores = scores.tolist() if hasattr(scores, "tolist") else scores
+            utils.write_trec(ranking_file, query_ids, doc_ids, scores)
+            if "fidelity" in out:
+                # every approximate/quantized run documents its own measured
+                # approximation error (top-k overlap vs host fp32 exact)
+                with open(os.path.join(
+                    self.experiment_folder,
+                    f"eval_{dataset_split}_retrieval_fidelity.json",
+                ), "w") as f:
+                    json.dump(out["fidelity"], f, indent=2)
+        else:
+            query_ids, doc_ids, scores = utils.load_trec(ranking_file)
+        shutil.copyfile(
+            ranking_file,
+            os.path.join(self.experiment_folder, os.path.basename(ranking_file)),
+        )
+        if eval_ranking and "ranking_label" in self.datasets[dataset_split]["query"].features:
+            doc_ds = self.datasets[dataset_split]["doc"]
+            wiki_ids = (
+                [utils.get_by_id(doc_ds, d, "wikipedia_id") for d in doc_ids]
+                if "wikipedia_id" in doc_ds.features
+                else doc_ids
+            )
+            utils.eval_retrieval_kilt(
+                self.experiment_folder, self.qrels_folder, query_dataset_name,
+                doc_dataset_name, dataset_split, query_ids, wiki_ids, scores,
+                top_k=self.generation_top_k, debug=self.debug,
+            )
+        return query_ids, doc_ids, scores
+
+    def generate(self, gen_dataset, dataset_split):
+        t0 = time.time()
+        (query_ids, questions, instructions, predictions, references,
+         ranking_labels) = self.generator.eval(gen_dataset)
+        generation_time = time.time() - t0
+        utils.write_generated(
+            self.experiment_folder, f"eval_{dataset_split}_out.json",
+            query_ids, questions, instructions, predictions, references,
+            ranking_labels,
+        )
+        if hasattr(self.generator, "total_cost"):
+            utils.write_dict(
+                self.experiment_folder,
+                f"eval_{dataset_split}_generation_cost.json",
+                {
+                    "total_cost": self.generator.total_cost,
+                    "prompt_cost": self.generator.prompt_cost,
+                    "completion_cost": self.generator.completion_cost,
+                },
+            )
+        utils.write_dict(
+            self.experiment_folder,
+            f"eval_{dataset_split}_generation_time.json",
+            utils.format_time("Generation time", generation_time),
+        )
+        return questions, instructions, predictions, references
+
+    def eval_metrics(self, dataset_split, questions, predictions, references):
+        if predictions is None and references is None and questions is None:
+            return
+        metric_cls = self.metrics[dataset_split]
+        if metric_cls is None:
+            return
+        out_file = os.path.join(
+            self.experiment_folder, f"eval_{dataset_split}_out.json"
+        )
+        with open(out_file) as fd:
+            generated = json.load(fd)
+        metrics_out = metric_cls.compute(
+            predictions=predictions, references=references, questions=questions
+        )
+        for row_i, row in enumerate(generated):
+            for m in metrics_out:
+                row[m] = metrics_out[m][row_i]
+        avg = {m: float(np.mean(v)) for m, v in metrics_out.items()}
+        utils.write_dict(
+            self.experiment_folder, f"eval_{dataset_split}_metrics.json", avg
+        )
+        with open(out_file, "w") as fd:
+            json.dump(generated, fd, indent=2)

@@ -1,0 +1,104 @@
+"""The PyTorch port's package boundary: it imports neither JAX nor the JAX
+package, maps every config target of the ported slice, and refuses to fall
+back to the CPU when the card was asked for."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import pkgutil, importlib, sys, bergen_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "bergen_tpu_torch.__path__, 'bergen_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' "
+        "or k.startswith('jax.') or k == 'bergen_tpu' "
+        "or k.startswith('bergen_tpu.'))\n"
+        "print(len(mods), bad)\n"
+        "assert len(mods) >= 25 and not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _targets(node, found):
+    if isinstance(node, dict):
+        if "_target_" in node:
+            found.add(node["_target_"])
+        for v in node.values():
+            _targets(v, found)
+    elif isinstance(node, list):
+        for v in node:
+            _targets(v, found)
+    return found
+
+
+@pytest.mark.parametrize("retriever", ["bge-base-en-v1.5", "e5-base-v2",
+                                       "contriever"])
+def test_slice_targets_all_map(retriever):
+    from bergen_tpu_torch import confy
+
+    cfg = confy.compose(os.path.join(REPO, "config"), "rag_ut1", [
+        "dataset=ut1", f"retriever={retriever}", "generator=tinyllama-chat"])
+    found = _targets(cfg, set())
+    found.add("bergen_tpu.models.query_generators.copy.CopyQuery")
+    assert len(found) == 5
+    for target in found:
+        port = confy.resolve_target(target)
+        assert port.startswith("bergen_tpu_torch.")
+        assert confy._locate(port) is not None
+
+
+def test_unported_target_raises_with_its_name():
+    from bergen_tpu_torch import confy
+
+    with pytest.raises(NotImplementedError, match="CrossEncoder"):
+        confy.instantiate({
+            "_target_": "bergen_tpu.models.rerankers.crossencoder.CrossEncoder"})
+
+
+def test_config_is_not_rewritten():
+    """The experiment hash is the JAX package's for the same config."""
+    from bergen_tpu import confy as jconfy
+    from bergen_tpu import utils as jutils
+    from bergen_tpu_torch import confy, utils
+
+    ov = ["dataset=ut1", "retriever=bge-base-en-v1.5",
+          "generator=tinyllama-chat"]
+    a = confy.compose(os.path.join(REPO, "config"), "rag_ut1", ov)
+    b = jconfy.compose(os.path.join(REPO, "config"), "rag_ut1", ov)
+    assert utils.hash_config(a) == jutils.hash_config(b)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    import torch
+    from bergen_tpu_torch import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        device.resolve(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        device.resolve("cuda")
+    assert device.resolve("cpu").type == "cpu"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    import torch
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
+    from bergen_tpu_torch.pipeline.retrieve import Retrieve
+    from bergen_tpu_torch.rag import RAG
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for ctor in (lambda: LLM("unused"), lambda: DenseRetriever("unused"),
+                 lambda: Retrieve(model=object()),
+                 lambda: RAG(config={}, experiments_folder="/nonexistent")):
+        with pytest.raises(RuntimeError, match="device 'cuda'"):
+            ctor()
