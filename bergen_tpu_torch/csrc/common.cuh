@@ -1,18 +1,40 @@
 // Shared device helpers for the hand-written Hopper kernels: cp.async
-// copies, ldmatrix fragment loads, the bf16 m16n8k16 tensor-core MMA and
-// the 128 x 128 tile main loop that the encoder GEMM and the bin top-k share.
+// copies, ldmatrix fragment loads, the bf16 m16n8k16 and s8 m16n8k32
+// tensor-core MMAs, the encoder activations, and the 128 x 128 tile main
+// loop that the encoder GEMMs (bf16 and int8) and the bin top-k share.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): with g = lane / 4 and
 // t = lane % 4, an A fragment holds rows {g, g+8} x cols {2t, 2t+1, 2t+8,
 // 2t+9}; a B fragment holds k rows {2t, 2t+1, 2t+8, 2t+9} of column g; the
-// f32 accumulator holds rows {g, g+8} x cols {2t, 2t+1}.
+// f32 accumulator holds rows {g, g+8} x cols {2t, 2t+1}.  In bytes this is
+// the layout of mma.m16n8k32 .s8 too (A: rows {g, g+8} x bytes {4t..4t+3,
+// 16+4t..16+4t+3}; B: k bytes {4t..4t+3, 16+4t..} of column g; s32
+// accumulator as the f32 one), so one loop of 16-bit ldmatrix loads feeds
+// both: an int8 [rows, K] tile is read as a bf16 [rows, K / 2] tile.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
+
+enum { ACT_GELU = 0, ACT_GELU_TANH = 1, ACT_RELU = 2, ACT_SILU = 3 };
+
+__device__ __forceinline__ float act_fn(float x, int act) {
+  switch (act) {
+    case ACT_GELU:
+      return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
+    case ACT_GELU_TANH:
+      return 0.5f * x *
+             (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+    case ACT_RELU:
+      return fmaxf(x, 0.f);
+    default:
+      return x / (1.f + expf(-x));
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -60,6 +82,26 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a * b, s8 inputs, s32 accumulate (m16n8k32).
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_acc(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  mma_bf16(c, a, b);
+}
+
+__device__ __forceinline__ void mma_acc(int* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  mma_s8(c, a, b);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -81,13 +123,15 @@ constexpr int MMA_BK = 32;     // K slice per pipeline stage
 //      contiguous); columns at or past b_cols read as zero.
 //   otherwise: B is [K, cols] row-major with row stride ldb, from the tile's
 //      first column; every column of the tile must exist.
-// Needs K % 32 == 0.
-template <bool B_NK>
+// Needs K % 32 == 0.  Acc float: bf16 products (m16n8k16); Acc int: int8
+// products (m16n8k32) of int8 operands passed as bf16 pointers with K
+// counted in pairs of int8 (B_NK only).
+template <bool B_NK, typename Acc = float>
 __device__ __forceinline__ void mma_tile(const bf16* __restrict__ A,
                                          int a_rows,
                                          const bf16* __restrict__ B,
                                          int b_cols, int ldb, int K,
-                                         float (&acc)[4][4][4]) {
+                                         Acc (&acc)[4][4][4]) {
   constexpr int A_LD = MMA_BK + 8;
   constexpr int B_LD = B_NK ? MMA_BK + 8 : MMA_TILE + 8;
   constexpr int B_SIZE = B_NK ? MMA_TILE * B_LD : MMA_BK * B_LD;
@@ -125,7 +169,7 @@ __device__ __forceinline__ void mma_tile(const bf16* __restrict__ A,
 #pragma unroll
     for (int b = 0; b < 4; ++b)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = Acc(0);
 
   const int nk = K / MMA_BK;
   load_tile(0, 0);
@@ -169,7 +213,7 @@ __device__ __forceinline__ void mma_tile(const bf16* __restrict__ A,
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
+        for (int ni = 0; ni < 4; ++ni) mma_acc(acc[mi][ni], af[mi], bfr[ni]);
     }
     __syncthreads();
   }

@@ -27,10 +27,20 @@
 // device memory; its main loop is common.cuh's mma_tile, which the bin top-k
 // shares.  Attention keeps the [S, S] scores out of device memory:
 // one block per (sequence, head, 64-query tile) streams 64-key tiles with an
-// online softmax, so any bucket up to S 512 runs in ~27 KB of shared memory.
+// online softmax, so any bucket up to S 512 runs in ~37 KB of shared memory.
+// The attention takes head width 32 or 64 (a template parameter).
+//
+// It also serves bergen_tpu/ops/encoder_attention.py::encoder_layer_prebias
+// (Pallas body _layer_kernel_prebias): DeBERTa's layer from the scores on,
+// with qkv computed outside and a per-sequence [B, H, S, S] bf16 score bias
+// (the disentangled c2p + p2c terms, already divided by the scale).  The
+// bias is the largest operand there (B 256, S 512, H 12: 1.6 GB per layer,
+// against ~0.3 GB of activations), so it is streamed, never staged whole:
+// each attention block copies the bias tile of its 64 queries x 64 keys into
+// shared memory with cp.async beside each K/V tile and adds it in f32 after
+// s * scale + maskbias, as the TPU kernel does.  Read once, the bias bounds
+// that layer by bytes at short S; the GEMMs bound it by operations above.
 // wgmma/TMA pipelines are later work.
-#include <math.h>
-
 #include "common.cuh"
 
 namespace {
@@ -38,22 +48,6 @@ namespace {
 constexpr int BM = MMA_TILE, BN = MMA_TILE;
 
 enum { EPI_BIAS = 0, EPI_BIAS_ACT = 1, EPI_BIAS_RES = 2 };
-enum { ACT_GELU = 0, ACT_GELU_TANH = 1, ACT_RELU = 2, ACT_SILU = 3 };
-
-__device__ __forceinline__ float act_fn(float x, int act) {
-  switch (act) {
-    case ACT_GELU:
-      return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
-    case ACT_GELU_TANH:
-      return 0.5f * x *
-             (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
-    case ACT_RELU:
-      return fmaxf(x, 0.f);
-    default:
-      return x / (1.f + expf(-x));
-  }
-}
-
 // C[M, N] = A[M, K] @ B[K, N] (+ epilogue); A, B bf16 row-major, bias f32.
 // EPI_BIAS / EPI_BIAS_ACT write bf16; EPI_BIAS_RES adds a bf16 or f32
 // residual [M, N] and writes f32.  Needs N % 128 == 0 and K % 32 == 0.
@@ -110,33 +104,39 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-constexpr int DH = 64;           // head width this kernel is written for
-constexpr int ATT_Q = 64;        // query rows per block (16 per warp)
-constexpr int ATT_K = 64;        // keys per streamed tile
-constexpr int ATT_LD = DH + 8;   // padded smem row
+constexpr int ATT_Q = 64;         // query rows per block (16 per warp)
+constexpr int ATT_K = 64;         // keys per streamed tile
+constexpr int BIAS_LD = ATT_K + 8;  // padded smem row of the bias tile
 
 // Masked bidirectional attention over the natural qkv layout [B*S, 3D]
-// (q | k | v, heads contiguous inside each).  mask [B, S] int32, 1 = attend.
-// A masked key scores -1e30 (NEG_INF of the TPU kernel), so a fully masked
-// row averages V uniformly over the S keys; keys past S score -inf.
+// (q | k | v, heads contiguous inside each), head width DH.  mask [B, S]
+// int32, 1 = attend.  A masked key scores -1e30 (NEG_INF of the TPU kernel),
+// so a fully masked row averages V uniformly over the S keys; keys past S
+// score -inf.  BIAS: bias [B, H, S, S] bf16 is added to each score after
+// s * scale + maskbias (needs S % 8 == 0).
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(128)
     attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ mask,
-                     bf16* __restrict__ out, int S, int H, float scale) {
-  __shared__ __align__(16) bf16 Qs[ATT_Q * ATT_LD];
-  __shared__ __align__(16) bf16 Ks[ATT_K * ATT_LD];
-  __shared__ __align__(16) bf16 Vs[ATT_K * ATT_LD];
+                     const bf16* __restrict__ bias, bf16* __restrict__ out,
+                     int S, int H, float scale) {
+  constexpr int LD = DH + 8;  // padded smem row
+  __shared__ __align__(16) bf16 Qs[ATT_Q * LD];
+  __shared__ __align__(16) bf16 Ks[ATT_K * LD];
+  __shared__ __align__(16) bf16 Vs[ATT_K * LD];
+  __shared__ __align__(16) bf16 Bs[BIAS ? ATT_Q * BIAS_LD : 8];
   __shared__ float kbias[ATT_K];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_Q;
   const int D = H * DH;
   const size_t rs = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * S * rs;
+  const bf16* bbase = BIAS ? bias + ((size_t)b * H + h) * S * S : nullptr;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
   for (int i = tid; i < ATT_Q * (DH / 8); i += 128) {
     int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
     bool ok = q0 + r < S;
-    cp_async16(&Qs[r * ATT_LD + c], base + (ok ? q0 + r : 0) * rs + h * DH + c,
+    cp_async16(&Qs[r * LD + c], base + (ok ? q0 + r : 0) * rs + h * DH + c,
                ok);
   }
   cp_async_commit();
@@ -148,7 +148,7 @@ __global__ void __launch_bounds__(128)
   for (int ks = 0; ks < DH / 16; ++ks) {
     int r = warp * 16 + (lane & 15);
     int c = ks * 16 + (lane >> 4) * 8;
-    ldmatrix_x4(qf[ks], &Qs[r * ATT_LD + c]);
+    ldmatrix_x4(qf[ks], &Qs[r * LD + c]);
   }
 
   float o[DH / 8][4];
@@ -164,8 +164,16 @@ __global__ void __launch_bounds__(128)
       int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
       bool ok = k0 + r < S;
       const bf16* src = base + (ok ? k0 + r : 0) * rs + h * DH + c;
-      cp_async16(&Ks[r * ATT_LD + c], src + D, ok);
-      cp_async16(&Vs[r * ATT_LD + c], src + 2 * D, ok);
+      cp_async16(&Ks[r * LD + c], src + D, ok);
+      cp_async16(&Vs[r * LD + c], src + 2 * D, ok);
+    }
+    if (BIAS) {
+      for (int i = tid; i < ATT_Q * (ATT_K / 8); i += 128) {
+        int r = i / (ATT_K / 8), c = (i % (ATT_K / 8)) * 8;
+        bool ok = q0 + r < S && k0 + c < S;
+        cp_async16(&Bs[r * BIAS_LD + c],
+                   bbase + (ok ? (size_t)(q0 + r) * S + k0 + c : 0), ok);
+      }
     }
     cp_async_commit();
     if (tid < ATT_K) {
@@ -188,7 +196,7 @@ __global__ void __launch_bounds__(128)
         uint32_t kf[4];
         int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
         int c = ks * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(kf, &Ks[r * ATT_LD + c]);
+        ldmatrix_x4(kf, &Ks[r * LD + c]);
         mma_bf16(s[2 * np], qf[ks], kf);
         mma_bf16(s[2 * np + 1], qf[ks], kf + 2);
       }
@@ -200,9 +208,14 @@ __global__ void __launch_bounds__(128)
       float mt = -INFINITY;
 #pragma unroll
       for (int ni = 0; ni < ATT_K / 8; ++ni) {
+        float2 bb = make_float2(0.f, 0.f);
+        if (BIAS)
+          bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              &Bs[(warp * 16 + g + half * 8) * BIAS_LD + ni * 8 + t * 2]));
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           float v = s[ni][half * 2 + j] * scale + kbias[ni * 8 + t * 2 + j];
+          if (BIAS) v += j ? bb.y : bb.x;
           s[ni][half * 2 + j] = v;
           mt = fmaxf(mt, v);
         }
@@ -243,7 +256,7 @@ __global__ void __launch_bounds__(128)
         uint32_t vf[4];
         int r = kk * 16 + (lane & 15);
         int c = dp * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vf, &Vs[r * ATT_LD + c]);
+        ldmatrix_x4_trans(vf, &Vs[r * LD + c]);
         mma_bf16(o[2 * dp], pa, vf);
         mma_bf16(o[2 * dp + 1], pa, vf + 2);
       }
@@ -266,6 +279,19 @@ __global__ void __launch_bounds__(128)
                                 o[di][half * 2 + 1] * inv);
     }
   }
+}
+
+template <int DH>
+void launch_attention(const bf16* qkv, const int* mask, const bf16* bias,
+                      bf16* out, int B, int S, int H, float scale,
+                      cudaStream_t st) {
+  dim3 grid((S + ATT_Q - 1) / ATT_Q, H, B);
+  if (bias != nullptr)
+    attention_kernel<DH, true><<<grid, 128, 0, st>>>(qkv, mask, bias, out, S,
+                                                     H, scale);
+  else
+    attention_kernel<DH, false><<<grid, 128, 0, st>>>(qkv, mask, bias, out, S,
+                                                      H, scale);
 }
 
 // Row LayerNorm in f32: one warp per row, D % 128 == 0, D <= 1024.
@@ -351,12 +377,21 @@ int encoder_gemm(const void* A, const void* B, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-int encoder_attention(const void* qkv, const void* mask, void* out, int B,
-                      int S, int H, float scale, void* stream) {
-  dim3 grid((S + ATT_Q - 1) / ATT_Q, H, B);
-  attention_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const int*>(mask),
-      static_cast<bf16*>(out), S, H, scale);
+// bias: [B, H, S, S] bf16 or null; head_dim 32 or 64.
+int encoder_attention(const void* qkv, const void* mask, const void* bias,
+                      void* out, int B, int S, int H, int head_dim,
+                      float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int* m = static_cast<const int*>(mask);
+  const bf16* bs = static_cast<const bf16*>(bias);
+  bf16* o = static_cast<bf16*>(out);
+  if (head_dim == 64)
+    launch_attention<64>(q, m, bs, o, B, S, H, scale, st);
+  else if (head_dim == 32)
+    launch_attention<32>(q, m, bs, o, B, S, H, scale, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,11 +3,15 @@
 
 Post-LN BERT with learned absolute positions (or RoBERTa's pad-aware
 positions) and token-type embeddings, over the JAX package's parameter
-tree.  Every layer is ``ops.encoder_attention.encoder_layer``: the CUDA
-kernel chain on the card, its plain version on the CPU, on every sequence
-bucket (the TPU gates ``S >= 128`` and 128-lane head groups were TPU
-choices and are not inherited).  Rope/ALiBi positions and gated MLPs are not
-ported yet and raise.
+tree, with the sequence-classification head (``classify``) of the
+cross-encoder rerankers.  Every layer is ``ops.encoder_attention.
+encoder_layer``, or ``encoder_layer_q`` for a W8A8 tree
+(``convert.quantize_encoder_layers_w8a8``): the CUDA kernel chain on the
+card, its plain version on the CPU, on every sequence bucket (the TPU gates
+``S >= 128`` and 128-lane head groups, and the dequantized fallback for
+shapes outside the TPU kernel's envelope, were TPU choices and are not
+inherited).  Rope/ALiBi positions and gated MLPs are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Any, Dict
 
 import torch
 
-from bergen_tpu_torch.models.core import layernorm
+from bergen_tpu_torch.models.core import dense, layernorm
 from bergen_tpu_torch.ops import encoder_attention as ea
 
 
@@ -62,10 +66,16 @@ class BertConfig:
         )
 
 
+def _quantized(layer: Dict[str, Any]) -> bool:
+    return "kernel_q" in layer["attn"]["q"]
+
+
 def prepare(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Attach each layer's fused kernel operands (``fuse_layer``) once."""
+    """Attach each layer's kernel operands once (``fuse_layer``, or
+    ``fuse_layer_q`` for a W8A8 layer)."""
     for layer in params["layers"]:
-        layer["fused"] = ea.fuse_layer(layer)
+        layer["fused"] = (ea.fuse_layer_q(layer) if _quantized(layer)
+                          else ea.fuse_layer(layer))
     return params
 
 
@@ -88,9 +98,18 @@ def encode(params: Dict[str, Any], cfg: BertConfig, input_ids: torch.Tensor,
     x = layernorm(emb["ln"], x, cfg.layer_norm_eps)
     mask = attention_mask.to(torch.int32).contiguous()
     for layer in params["layers"]:
-        x = ea.encoder_layer(x, layer["fused"], mask, cfg.num_heads,
-                             cfg.layer_norm_eps, cfg.hidden_act)
+        fn = ea.encoder_layer_q if _quantized(layer) else ea.encoder_layer
+        x = fn(x, layer["fused"], mask, cfg.num_heads, cfg.layer_norm_eps,
+               cfg.hidden_act)
     return x
+
+
+def classify(params: Dict[str, Any], cfg: BertConfig, input_ids,
+             attention_mask, token_type_ids=None) -> torch.Tensor:
+    """BERT pooler (tanh over CLS) + classifier head -> [B, num_labels]."""
+    hidden = encode(params, cfg, input_ids, attention_mask, token_type_ids)
+    pooled = torch.tanh(dense(params["pooler"], hidden[:, 0]))
+    return dense(params["classifier"], pooled)
 
 
 # --------------------------------------------------------------------------- #

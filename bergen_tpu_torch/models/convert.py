@@ -6,8 +6,10 @@ Counterpart of ``bergen_tpu/models/convert.py``.  The port's machine has no
 ``model.safetensors.index.json``), parsed from the format's JSON header with
 ``torch.frombuffer``.  ``bert_from_hf`` and ``llama_from_hf`` map HF state
 dicts onto the same parameter trees the JAX package uses (linear kernels
-stored [in, out]), and ``from_jax_params`` carries a JAX tree (numpy leaves)
-across unchanged, so both packages can be fed identical weights.
+stored [in, out]), ``deberta_from_hf`` does the same for DeBERTa-v2/v3,
+``quantize_encoder_layers_w8a8`` makes the W8A8 layer trees of the
+JAX package bit for bit, and ``from_jax_params`` carries a JAX tree (numpy
+leaves) across unchanged, so both packages can be fed identical weights.
 """
 
 from __future__ import annotations
@@ -157,6 +159,55 @@ def bert_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
             "mlp_out": _lin(sd, f"{pre}.output.dense"),
             "mlp_ln": _ln(sd, f"{pre}.output.LayerNorm"),
         })
+    if "pooler.dense.weight" in sd:
+        p["pooler"] = _lin(sd, "pooler.dense")
+    # sequence-classification heads: BERT's pooler + classifier, and
+    # RoBERTa's classifier.dense (tanh) + out_proj mapped onto the same
+    if "classifier.weight" in sd:
+        p["classifier"] = _lin(sd, "classifier")
+    if "classifier.dense.weight" in sd:
+        p["pooler"] = _lin(sd, "classifier.dense")
+        p["classifier"] = _lin(sd, "classifier.out_proj")
+    return p
+
+
+def deberta_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
+    """HF DebertaV2Model / DebertaV2ForSequenceClassification state dict ->
+    the deberta tree of ``bergen_tpu/models/deberta.py::deberta_from_hf``."""
+    sd = {(k[len("deberta."):] if k.startswith("deberta.") else k): v
+          for k, v in state_dict.items()}
+    p: Dict[str, Any] = {
+        "embeddings": {"word": sd["embeddings.word_embeddings.weight"],
+                       "ln": _ln(sd, "embeddings.LayerNorm")},
+        "layers": [],
+    }
+    if "encoder.rel_embeddings.weight" in sd:
+        p["rel_embeddings"] = sd["encoder.rel_embeddings.weight"]
+    if "embeddings.position_embeddings.weight" in sd:
+        p["embeddings"]["position"] = sd["embeddings.position_embeddings.weight"]
+    if "embeddings.token_type_embeddings.weight" in sd:
+        p["embeddings"]["token_type"] = sd[
+            "embeddings.token_type_embeddings.weight"]
+    if "encoder.LayerNorm.weight" in sd:
+        p["rel_ln"] = _ln(sd, "encoder.LayerNorm")
+    for i in range(num_layers):
+        pre = f"encoder.layer.{i}"
+        p["layers"].append({
+            "attn": {
+                "q": _lin(sd, f"{pre}.attention.self.query_proj"),
+                "k": _lin(sd, f"{pre}.attention.self.key_proj"),
+                "v": _lin(sd, f"{pre}.attention.self.value_proj"),
+                "o": _lin(sd, f"{pre}.attention.output.dense"),
+            },
+            "attn_ln": _ln(sd, f"{pre}.attention.output.LayerNorm"),
+            "mlp_in": _lin(sd, f"{pre}.intermediate.dense"),
+            "mlp_out": _lin(sd, f"{pre}.output.dense"),
+            "mlp_ln": _ln(sd, f"{pre}.output.LayerNorm"),
+        })
+    if "pooler.dense.weight" in sd:
+        p["pooler"] = _lin(sd, "pooler.dense")
+    if "classifier.weight" in sd:
+        p["classifier"] = _lin(sd, "classifier")
     return p
 
 
@@ -181,6 +232,44 @@ def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
     if "lm_head.weight" in state_dict:
         p["lm_head"] = {"kernel": state_dict["lm_head.weight"].T}
     return p
+
+
+# --------------------------------------------------------------------------- #
+# W8A8 encoder layers (bergen_tpu/models/convert.py:442)
+# --------------------------------------------------------------------------- #
+
+
+def quantize_linear_w8a8(p: Mapping) -> Dict[str, Any]:
+    """int8 per-column codes of one linear: scale = max(max|W| / 127, 1e-8)
+    per output column in f32, codes round(W / scale) half to even (the JAX
+    package's codes and scales bit for bit)."""
+    kf = p["kernel"].float()
+    m = kf.abs().amax(dim=0)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which rounds differently
+    scale = (m / torch.full_like(m, 127.0)).clamp_min(1e-8)
+    return {"kernel_q": torch.round(kf / scale).to(torch.int8),
+            "kernel_scale_a8": scale, "bias": p["bias"].float()}
+
+
+def quantize_encoder_layers_w8a8(params: Mapping) -> Dict[str, Any]:
+    """A new tree whose encoder layers' linears (attn q/k/v/o, mlp_in,
+    mlp_out) are W8A8-quantized; embeddings, pooler and classifier are
+    shared with ``params``."""
+    layers = []
+    for layer in params["layers"]:
+        if "mlp_in" not in layer:
+            raise ValueError(
+                "w8a8 encoder quantization covers plain-MLP BERT layers "
+                "only (the W8A8 layer kernel's envelope)")
+        ql = dict(layer)
+        ql["attn"] = {n: quantize_linear_w8a8(layer["attn"][n])
+                      for n in ("q", "k", "v", "o")}
+        for n in ("mlp_in", "mlp_out"):
+            ql[n] = quantize_linear_w8a8(layer[n])
+        ql.pop("fused", None)
+        layers.append(ql)
+    return dict(params, layers=layers)
 
 
 # --------------------------------------------------------------------------- #

@@ -22,7 +22,15 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
         return x @ p["kernel"]
     if x.dtype == torch.float32:
         return x @ p["kernel"] + p["bias"]
-    return (torch.matmul(x, p["kernel"]).float() + p["bias"]).to(x.dtype)
+    # f32 sums plus the f32 bias, rounded once (the JAX package's dense):
+    # on the card the tensor cores write the f32 sums directly
+    w = p["kernel"]
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32) \
+            .view(*x.shape[:-1], w.shape[-1])
+    else:
+        y = x.float() @ w.float()
+    return (y + p["bias"]).to(x.dtype)
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

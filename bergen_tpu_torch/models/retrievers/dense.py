@@ -5,10 +5,16 @@ Reads a local HF checkpoint (tokenizer.json, config.json, safetensors) with
 the port's own readers, encodes length-sorted, length-bucketed batches
 through ``models.bert.encode`` on the device, pools (mean or CLS) and, for
 cosine similarity, L2-normalises.  Query and document prompts and an
-asymmetric query encoder work as in the JAX package.
+asymmetric query encoder work as in the JAX package, and so does
+``quantization="w8a8"``: documents are encoded through the W8A8 layer
+(``encoder_layer_q``), queries stay unquantized, and the first document
+batch is encoded both ways; below ``w8a8_guard`` mean cosine the run
+encodes its documents unquantized (the JAX package's quality rule).
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -40,14 +46,18 @@ class DenseRetriever(Retriever):
         query_encoder_name: str | None = None,
         batch_size: int = 128,
         dtype: str | None = None,  # 'f32'/'bf16' force; None = bf16 on cuda
-        quantization: str | None = None,
+        quantization: str | None = None,  # 'w8a8': W8A8 doc encoding
+        w8a8_guard: float = 0.995,  # min mean cos(unquantized, w8a8) docs
         device: str | torch.device | None = None,
         **_ignored,
     ):
-        if quantization is not None:
-            raise NotImplementedError(
-                f"DenseRetriever quantization={quantization!r} is not ported "
-                "yet (ROADMAP.md Queue 2: encoder_layer_q)")
+        if quantization not in (None, "w8a8"):
+            raise ValueError(
+                f"DenseRetriever quantization={quantization!r}: only 'w8a8' "
+                "(W8A8 corpus encoding) is supported")
+        self.quantization = quantization
+        self.w8a8_guard = w8a8_guard
+        self.w8a8_fidelity: dict | None = None
         self.device = _device.resolve(device)
         self.dtype = _device.default_dtype(self.device, dtype)
         self.model_name = model_name
@@ -66,6 +76,11 @@ class DenseRetriever(Retriever):
         self.query_params = (
             _load_encoder(query_encoder_name, self.dtype, self.device)[1]
             if query_encoder_name is not None else self.params)
+        self.doc_params = self.params
+        if quantization == "w8a8":
+            self.doc_params = bert.prepare(
+                convert.quantize_encoder_layers_w8a8(self.params))
+        self._w8a8_guard_pending = quantization == "w8a8"
         self.buckets = make_buckets(max_len)
 
     @property
@@ -100,12 +115,43 @@ class DenseRetriever(Retriever):
     def encode(self, texts: list[str], query_or_doc: str) -> np.ndarray:
         """Length-sorted, bucketed, batched encode -> [len(texts), D] f32."""
         prefix = self.prompt_q if query_or_doc == "query" else self.prompt_d
-        params = self.query_params if query_or_doc == "query" else self.params
+        params = (self.query_params if query_or_doc == "query"
+                  else self.doc_params)
         texts = [prefix + t for t in texts]
         order = np.argsort([len(t) for t in texts], kind="stable")
         out = np.zeros((len(texts), self.embedding_dim), dtype=np.float32)
         for s in range(0, len(texts), self.batch_size):
             idx = order[s: s + self.batch_size]
             ii, am = self._tokenize([texts[i] for i in idx])
+            if self._w8a8_guard_pending and query_or_doc == "doc":
+                params = self._w8a8_check(ii, am) or params
             out[idx] = self._encode_batch(params, ii, am)
         return out
+
+    def _w8a8_check(self, ii: np.ndarray, am: np.ndarray):
+        """Encode the first doc batch with both trees and measure the mean
+        cosine of the embeddings; below the guard, encode the run's docs
+        unquantized.  Returns the fallback params or None."""
+        self._w8a8_guard_pending = False
+        ref = self._encode_batch(self.params, ii, am)
+        q8 = self._encode_batch(self.doc_params, ii, am)
+        num = np.sum(ref * q8, axis=1)
+        den = np.clip(np.linalg.norm(ref, axis=1) * np.linalg.norm(q8, axis=1),
+                      1e-9, None)
+        cos = float(np.mean(num / den))
+        ok = cos >= self.w8a8_guard
+        self.w8a8_fidelity = {
+            "kind": "encoder_w8a8", "mean_cos_vs_bf16": round(cos, 6),
+            "guard": self.w8a8_guard, "passed": ok,
+            "n_docs": int(ii.shape[0]),
+        }
+        log = logging.getLogger("bergen_tpu_torch.retrieve")
+        if not ok:
+            log.warning("w8a8 doc-encoder guard: mean cos %.4f < %.4f — "
+                        "encoding unquantized for this run", cos,
+                        self.w8a8_guard)
+            self.doc_params = self.params
+            return self.params
+        log.info("w8a8 doc-encoder guard: mean cos %.4f (>= %.4f), W8A8 "
+                 "encoding live", cos, self.w8a8_guard)
+        return None

@@ -4,15 +4,21 @@ The port's machine has neither ``transformers`` nor ``tokenizers``, so the
 port carries the part of them its checkpoints use, with the same results as
 ``AutoTokenizer`` on those files:
 
-* models: WordPiece and WordLevel;
-* normalizers: Lowercase, StripAccents (and a Sequence of them);
+* models: WordPiece, WordLevel and Unigram (sentencepiece's Viterbi over
+  ``(piece, score)``, consecutive unknown characters fused into one
+  ``unk_id``), the family of DeBERTa-v3's tokenizer;
+* normalizers: Lowercase, StripAccents, Strip, Replace (and a Sequence of
+  them).  ``Precompiled`` (a serialized sentencepiece charsmap, which
+  DeBERTa-v3's published ``tokenizer.json`` carries) is not read yet;
 * pre-tokenizers: Whitespace, WhitespaceSplit, Punctuation (Removed or
-  Isolated), and a Sequence of them;
-* the TemplateProcessing post-processor (``[CLS] $A [SEP]``), with
-  truncation that leaves room for its special tokens;
+  Isolated), Metaspace, and a Sequence of them;
+* the TemplateProcessing post-processor, single (``[CLS] $A [SEP]``) and
+  pair (``[CLS] $A [SEP] $B:1 [SEP]:1``) with their type ids, and
+  truncation that leaves room for its special tokens (``only_second`` for
+  pairs, as ``tokenizers`` truncates a cross-encoder's documents);
 * added tokens, matched in the raw text before normalisation;
 * ``decode``/``batch_decode`` (no decoder: tokens joined by spaces, or the
-  WordPiece decoder), ``skip_special_tokens``;
+  WordPiece or Metaspace decoder), ``skip_special_tokens``;
 * ``apply_chat_template`` rendered with jinja2 as transformers renders it.
 
 Any other component raises ``NotImplementedError`` naming it.
@@ -54,28 +60,81 @@ def _normalizer(spec):
     if kind == "StripAccents":
         return lambda s: "".join(c for c in s
                                  if unicodedata.category(c) != "Mn")
+    if kind == "Strip":
+        left = spec.get("strip_left", True)
+        right = spec.get("strip_right", True)
+
+        def strip(s):
+            s = s.lstrip() if left else s
+            return s.rstrip() if right else s
+
+        return strip
+    if kind == "Replace":
+        pat, content = spec["pattern"], spec["content"]
+        if "Regex" in pat:
+            rx = re.compile(pat["Regex"])
+            return lambda s: rx.sub(lambda _: content, s)
+        return lambda s: s.replace(pat["String"], content)
     raise NotImplementedError(f"tokenizer normalizer {kind!r}")
 
 
+def _metaspace(spec):
+    """``tokenizers``' Metaspace: spaces become the replacement character,
+    which is prepended to the text (scheme ``always``, or ``first``: only
+    where the text starts the input) and, with ``split``, starts each
+    piece."""
+    rep = spec.get("replacement", "\u2581")
+    scheme = spec.get("prepend_scheme")
+    if scheme is None:  # the older add_prefix_space flag
+        scheme = "always" if spec.get("add_prefix_space", True) else "never"
+    split = spec.get("split", True)
+
+    def pre(pieces, at_start):
+        out = []
+        for n, p in enumerate(pieces):
+            p = p.replace(" ", rep)
+            if not p.startswith(rep) and (
+                    scheme == "always"
+                    or (scheme == "first" and at_start and n == 0)):
+                p = rep + p
+            if not split:
+                out.append(p)
+                continue
+            cur = ""
+            for c in p:
+                if c == rep and cur:
+                    out.append(cur)
+                    cur = ""
+                cur += c
+            if cur:
+                out.append(cur)
+        return out
+
+    return pre
+
+
 def _pre_tokenizer(spec):
-    """-> function: list of pieces -> list of pieces."""
+    """-> function: (list of pieces, whether the first piece starts the
+    input) -> list of pieces."""
     if spec is None:
-        return lambda pieces: pieces
+        return lambda pieces, at_start: pieces
     kind = spec["type"]
     if kind == "Sequence":
         steps = [_pre_tokenizer(p) for p in spec["pretokenizers"]]
 
-        def seq(pieces):
+        def seq(pieces, at_start):
             for f in steps:
-                pieces = f(pieces)
+                pieces = f(pieces, at_start)
             return pieces
 
         return seq
+    if kind == "Metaspace":
+        return _metaspace(spec)
     if kind == "Whitespace":
-        return lambda pieces: [m for p in pieces
-                               for m in _WHITESPACE_RE.findall(p)]
+        return lambda pieces, _: [m for p in pieces
+                                  for m in _WHITESPACE_RE.findall(p)]
     if kind == "WhitespaceSplit":
-        return lambda pieces: [m for p in pieces for m in p.split()]
+        return lambda pieces, _: [m for p in pieces for m in p.split()]
     if kind == "Punctuation":
         behavior = spec.get("behavior", "Isolated")
         if behavior not in ("Removed", "Isolated"):
@@ -83,7 +142,7 @@ def _pre_tokenizer(spec):
                 f"tokenizer Punctuation behavior {behavior!r}")
         keep = behavior == "Isolated"
 
-        def punct(pieces):
+        def punct(pieces, _):
             out = []
             for p in pieces:
                 cur = ""
@@ -144,6 +203,64 @@ class _WordLevel:
         return [self.vocab[self.unk]]
 
 
+class _Unigram:
+    """sentencepiece's unigram model as ``tokenizers`` runs it: the best
+    path over the pieces (highest total score, the first candidate kept on
+    a tie), a character no piece covers scored min_score - 10 as
+    ``unk_id``, and consecutive unknown characters fused into one token."""
+
+    UNK_PENALTY = 10.0
+
+    def __init__(self, spec):
+        if spec.get("byte_fallback"):
+            raise NotImplementedError("tokenizer Unigram byte_fallback")
+        pieces = spec["vocab"]
+        self.vocab = {p: i for i, (p, _) in enumerate(pieces)}
+        self.scores = [float(sc) for _, sc in pieces]
+        self.unk_id = spec.get("unk_id")
+        self.unk_score = min(self.scores) - self.UNK_PENALTY
+        self.max_len = max(len(p) for p, _ in pieces)
+
+    def tokenize(self, text: str) -> list[int]:
+        n = len(text)
+        if n == 0:
+            return []
+        best = [0.0] + [None] * n        # best score of a path ending here
+        back: list = [None] * (n + 1)    # (start, id) of its last token
+        for start in range(n):
+            base = best[start]
+            single = False
+            for end in range(start + 1, min(n, start + self.max_len) + 1):
+                i = self.vocab.get(text[start:end])
+                if i is None:
+                    continue
+                cand = base + self.scores[i]
+                if best[end] is None or cand > best[end]:
+                    best[end], back[end] = cand, (start, i)
+                single = single or end == start + 1
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError(f"Unigram: no piece for {text[start]!r} "
+                                     "and no unk_id")
+                cand = base + self.unk_score
+                if best[start + 1] is None or cand > best[start + 1]:
+                    best[start + 1], back[start + 1] = cand, (start, None)
+        toks, end, unk_end = [], n, None
+        while end > 0:
+            start, i = back[end]
+            if i is None or i == self.unk_id:
+                unk_end = end if unk_end is None else unk_end
+            else:
+                if unk_end is not None:
+                    toks.append(self.unk_id)
+                    unk_end = None
+                toks.append(i)
+            end = start
+        if unk_end is not None:
+            toks.append(self.unk_id)
+        return toks[::-1]
+
+
 def _token_str(v):
     return v.get("content") if isinstance(v, dict) else v
 
@@ -162,6 +279,8 @@ class Tokenizer:
             self.model = _WordPiece(model)
         elif model["type"] == "WordLevel":
             self.model = _WordLevel(model)
+        elif model["type"] == "Unigram":
+            self.model = _Unigram(model)
         else:
             raise NotImplementedError(f"tokenizer model {model['type']!r}")
         self.normalize = _normalizer(spec.get("normalizer"))
@@ -172,7 +291,7 @@ class Tokenizer:
                 f"tokenizer post-processor {post['type']!r}")
         self.template = post
         dec = spec.get("decoder")
-        if dec is not None and dec["type"] != "WordPiece":
+        if dec is not None and dec["type"] not in ("WordPiece", "Metaspace"):
             raise NotImplementedError(f"tokenizer decoder {dec['type']!r}")
         self.decoder = dec
         self.added = {t["content"]: t["id"] for t in spec.get("added_tokens", [])}
@@ -239,53 +358,100 @@ class Tokenizer:
         pos = 0
         if self._added_re is not None:
             for m in self._added_re.finditer(text):
-                segments.append((text[pos:m.start()], None))
-                segments.append((m.group(0), self.added[m.group(0)]))
+                segments.append((text[pos:m.start()], None, pos == 0))
+                segments.append((m.group(0), self.added[m.group(0)], False))
                 pos = m.end()
-        segments.append((text[pos:], None))
-        for seg, added_id in segments:
+        segments.append((text[pos:], None, pos == 0))
+        for seg, added_id, at_start in segments:
             if added_id is not None:
                 ids.append(added_id)
                 continue
             if not seg:
                 continue
-            for word in self.pre_tokenize([self.normalize(seg)]):
+            norm = self.normalize(seg)
+            if not norm:
+                continue
+            for word in self.pre_tokenize([norm], at_start):
                 ids.extend(self.model.tokenize(word))
         return ids
 
-    def _template_ids(self) -> tuple[list[int], list[int]]:
-        """(ids before $A, ids after $A) of the single-sequence template."""
-        before, after, seen = [], [], False
-        for piece in self.template["single"]:
+    def _post_process(self, a: list[int], b: list[int] | None):
+        """(ids, type ids) of the template around sequence a (and b)."""
+        if self.template is None:
+            ids = a + (b or [])
+            return ids, [0] * len(a) + [1] * len(b or [])
+        ids, types = [], []
+        for piece in self.template["pair" if b is not None else "single"]:
             if "Sequence" in piece:
-                seen = True
-                continue
-            name = piece["SpecialToken"]["id"]
-            ids = self.template["special_tokens"][name]["ids"]
-            (after if seen else before).extend(ids)
-        return before, after
+                seq = a if piece["Sequence"]["id"] == "A" else b
+                ids.extend(seq)
+                types.extend([piece["Sequence"]["type_id"]] * len(seq))
+            else:
+                name = piece["SpecialToken"]["id"]
+                sp = self.template["special_tokens"][name]["ids"]
+                ids.extend(sp)
+                types.extend([piece["SpecialToken"]["type_id"]] * len(sp))
+        return ids, types
+
+    def _n_added(self, pair: bool) -> int:
+        if self.template is None:
+            return 0
+        return sum(len(self.template["special_tokens"][
+            p["SpecialToken"]["id"]]["ids"])
+            for p in self.template["pair" if pair else "single"]
+            if "SpecialToken" in p)
+
+    def encode_plus(self, text: str, text_pair: str | None = None,
+                    add_special_tokens: bool = True, truncation=False,
+                    max_length: int | None = None):
+        """(ids, type ids) of one text or one (text, text_pair) pair.
+        truncation: True / "longest_first" for a single text,
+        "only_second" for a pair (the specials count against
+        max_length)."""
+        a = self._encode_raw(text)
+        b = self._encode_raw(text_pair) if text_pair is not None else None
+        if truncation and max_length is not None:
+            room = max_length - (self._n_added(b is not None)
+                                 if add_special_tokens else 0)
+            if b is None:
+                a = a[:max(0, room)]
+            elif truncation == "only_second":
+                over = len(a) + len(b) - room
+                if over > 0:
+                    if len(b) <= over:
+                        raise ValueError(
+                            "truncation only_second: the second sequence "
+                            f"has {len(b)} tokens, {over} must go")
+                    b = b[:len(b) - over]
+            else:
+                raise NotImplementedError(
+                    f"pair truncation {truncation!r} (only 'only_second')")
+        if not add_special_tokens:
+            ids = a + (b or [])
+            return ids, [0] * len(a) + [1] * len(b or [])
+        return self._post_process(a, b)
 
     def encode(self, text: str, add_special_tokens: bool = True,
                truncation: bool = False,
                max_length: int | None = None) -> list[int]:
-        ids = self._encode_raw(text)
-        before, after = ([], [])
-        if add_special_tokens and self.template is not None:
-            before, after = self._template_ids()
-        if truncation and max_length is not None:
-            ids = ids[:max(0, max_length - len(before) - len(after))]
-        return before + ids + after
+        return self.encode_plus(text, None, add_special_tokens, truncation,
+                                max_length)[0]
 
-    def __call__(self, texts, truncation: bool = False,
+    def __call__(self, texts, text_pair=None, truncation=False,
                  max_length: int | None = None,
                  add_special_tokens: bool = True):
-        """{"input_ids": ids} for one text, or a list of them (unpadded:
-        callers pad)."""
+        """{"input_ids", "token_type_ids"} for one text (or pair), or lists
+        of them (unpadded: callers pad)."""
         if isinstance(texts, str):
-            return {"input_ids": self.encode(texts, add_special_tokens,
-                                             truncation, max_length)}
-        return {"input_ids": [self.encode(t, add_special_tokens, truncation,
-                                          max_length) for t in texts]}
+            ids, types = self.encode_plus(texts, text_pair,
+                                          add_special_tokens, truncation,
+                                          max_length)
+            return {"input_ids": ids, "token_type_ids": types}
+        pairs = text_pair if text_pair is not None else [None] * len(texts)
+        out = [self.encode_plus(t, p, add_special_tokens, truncation,
+                                max_length) for t, p in zip(texts, pairs)]
+        return {"input_ids": [o[0] for o in out],
+                "token_type_ids": [o[1] for o in out]}
 
     # ----- decode ----------------------------------------------------------
 
@@ -300,6 +466,12 @@ class Tokenizer:
                 toks.append(tok)
         if self.decoder is None:
             text = " ".join(toks)
+        elif self.decoder["type"] == "Metaspace":
+            rep = self.decoder.get("replacement", "\u2581")
+            scheme = self.decoder.get("prepend_scheme", "always")
+            text = "".join(
+                tok.replace(rep, "" if n == 0 and scheme != "never" else " ")
+                for n, tok in enumerate(toks))
         else:
             prefix = self.decoder.get("prefix", "##")
             parts = []
@@ -363,17 +535,46 @@ def write_tokenizer(path: str, model: str, vocab: dict[str, int],
                     specials: dict[str, str], *, lowercase: bool = True,
                     strip_accents: bool = False,
                     template: tuple[str, str] | None = None,
-                    chat_template: str | None = None) -> None:
+                    chat_template: str | None = None,
+                    scores: dict[str, float] | None = None) -> None:
     """Write ``tokenizer.json`` + ``tokenizer_config.json`` in HF's format.
 
-    model: "WordPiece" or "WordLevel"; vocab: token -> id (special tokens
-    included); specials: e.g. {"pad_token": "[PAD]", "unk_token": ...};
-    template: (first, last) special tokens of a ``first $A last``
-    TemplateProcessing post-processor."""
+    model: "WordPiece", "WordLevel" or "Unigram"; vocab: token -> id
+    (special tokens included; for Unigram the ids are 0..n-1 and each piece
+    scores ``scores[piece]``, 0 by default); specials: e.g. {"pad_token":
+    "[PAD]", "unk_token": ...}; template: (first, last) special tokens of a
+    ``first $A last`` / ``first $A last $B:1 last:1`` TemplateProcessing
+    post-processor.  A Unigram tokenizer is written as DeBERTa-v3's is (Strip
+    and space-collapsing normalizers, Metaspace pre-tokenizer and decoder),
+    without its ``Precompiled`` charsmap."""
     os.makedirs(path, exist_ok=True)
     norms = ([{"type": "Lowercase"}] if lowercase else []) + (
         [{"type": "StripAccents"}] if strip_accents else [])
     special_set = set(specials.values())
+    pre = {"type": "Sequence", "pretokenizers": [
+        {"type": "Whitespace"},
+        {"type": "Punctuation", "behavior": "Removed"}]}
+    decoder = None
+    if model == "WordPiece":
+        mspec = {"type": "WordPiece", "unk_token": specials["unk_token"],
+                 "continuing_subword_prefix": "##",
+                 "max_input_chars_per_word": 100, "vocab": vocab}
+    elif model == "WordLevel":
+        mspec = {"type": "WordLevel", "vocab": vocab,
+                 "unk_token": specials["unk_token"]}
+    else:
+        scores = scores or {}
+        pieces = sorted(vocab, key=vocab.get)
+        assert [vocab[t] for t in pieces] == list(range(len(pieces)))
+        mspec = {"type": "Unigram", "unk_id": vocab[specials["unk_token"]],
+                 "vocab": [[t, float(scores.get(t, 0.0))] for t in pieces],
+                 "byte_fallback": False}
+        norms += [{"type": "Strip", "strip_left": True, "strip_right": True},
+                  {"type": "Replace", "pattern": {"Regex": " {2,}"},
+                   "content": " "}]
+        meta = {"type": "Metaspace", "replacement": "\u2581",
+                "prepend_scheme": "always", "split": True}
+        pre, decoder = meta, dict(meta)
     spec = {
         "version": "1.0", "truncation": None, "padding": None,
         "added_tokens": [
@@ -382,17 +583,10 @@ def write_tokenizer(path: str, model: str, vocab: dict[str, int],
              "special": True}
             for t in sorted(special_set, key=lambda t: vocab[t])],
         "normalizer": {"type": "Sequence", "normalizers": norms},
-        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
-            {"type": "Whitespace"},
-            {"type": "Punctuation", "behavior": "Removed"}]},
+        "pre_tokenizer": pre,
         "post_processor": None,
-        "decoder": None,
-        "model": ({"type": "WordPiece", "unk_token": specials["unk_token"],
-                   "continuing_subword_prefix": "##",
-                   "max_input_chars_per_word": 100, "vocab": vocab}
-                  if model == "WordPiece" else
-                  {"type": "WordLevel", "vocab": vocab,
-                   "unk_token": specials["unk_token"]}),
+        "decoder": decoder,
+        "model": mspec,
     }
     if template is not None:
         first, last = template

@@ -31,9 +31,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "encoder_gemm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _P]),
-    "encoder_attention": ("encoder_layer", [_P, _P, _P, _I, _I, _I, _F, _P]),
+    "encoder_attention": ("encoder_layer", [_P, _P, _P, _P, _I, _I, _I, _I,
+                                            _F, _P]),
     "encoder_layernorm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _F,
                                             _P]),
+    "encoder_rowquant": ("encoder_layer_q", [_P, _I, _P, _P, _I, _I, _P]),
+    "encoder_qgemm": ("encoder_layer_q", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                          _I, _I, _I, _I, _P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
                                               _I, _F, _P]),

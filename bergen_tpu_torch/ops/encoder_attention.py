@@ -1,17 +1,27 @@
-"""One post-LN encoder layer: the CUDA kernel chain and its plain version.
+"""Post-LN encoder layers: the CUDA kernel chains and their plain versions.
 
-Counterpart of ``bergen_tpu/ops/encoder_attention.py::encoder_layer``:
+Counterparts of three Pallas entry points of
+``bergen_tpu/ops/encoder_attention.py``:
 
-    y   = LN1(x + Wo . attn(Wqkv . x + bqkv) + bo)
-    out = LN2(y + W2 . act(W1 . y + b1) + b2)
+* ``encoder_layer`` (``encoder_layer`` :710)::
 
-with a [B, S] key mask (a masked key scores -1e30, so a fully masked row
-averages V uniformly).  On a CUDA tensor ``encoder_layer`` launches the
-hand-written kernels of ``csrc/encoder_layer.cu`` (three GEMM epilogue
-variants, a streaming masked attention, a row LayerNorm); on a CPU tensor it
-runs ``encoder_layer_plain``, which rounds where the kernels round (qkv, the
-attention probabilities and context, and the FFN hidden in the working
-dtype; residual sums and LayerNorms in f32).
+      y   = LN1(x + Wo . attn(Wqkv . x + bqkv) + bo)
+      out = LN2(y + W2 . act(W1 . y + b1) + b2)
+
+* ``encoder_layer_prebias`` (``encoder_layer_prebias`` :742): the same
+  layer from the scores on, for DeBERTa: qkv [B, S, 3D] comes precomputed
+  and a per-sequence [B, H, S, S] score bias is added after
+  ``s * scale + maskbias``, with an explicit ``scale``;
+* ``encoder_layer_q`` (``encoder_layer_q`` :477): the W8A8 layer, whose
+  four products quantize their input per row to int8 and multiply int8
+  weights with per-column f32 scales (``_qdot``).
+
+A masked key scores -1e30, so a fully masked row averages V uniformly.  On a
+CUDA tensor each wrapper launches the hand-written kernels of
+``csrc/encoder_layer.cu`` (GEMM epilogues, streaming masked attention with an
+optional bias tile, row LayerNorm) and ``csrc/encoder_layer_q.cu`` (row
+quantization, int8 GEMM epilogues); on a CPU tensor it runs its plain
+version, which rounds where the kernels round.
 """
 
 from __future__ import annotations
@@ -23,9 +33,10 @@ import torch
 from bergen_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 64  # the CUDA attention kernel's head width
+HEAD_DIMS = (32, 64)  # head widths the CUDA attention kernel is built for
 ACT_IDS = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 _EPI_BIAS, _EPI_BIAS_ACT, _EPI_BIAS_RES = 0, 1, 2
+_QEPI_BF16, _QEPI_ACT, _QEPI_RES = 0, 1, 2
 
 
 def act_fn(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -61,10 +72,70 @@ def fuse_layer(layer: dict) -> dict:
     }
 
 
+def fuse_layer_q(layer: dict) -> dict:
+    """The W8A8 kernel's operands from one quantized layer tree
+    (``convert.quantize_encoder_layers_w8a8``): each int8 kernel transposed
+    once to [out, in] (K-contiguous, the int8 GEMM's B layout), per-column
+    scales and biases in f32."""
+    attn = layer["attn"]
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+
+    def wt(p):
+        return p["kernel_q"].t().contiguous()
+
+    return {
+        "wqkv_t": torch.cat([wt(attn[n]) for n in ("q", "k", "v")], dim=0)
+        .contiguous(),
+        "sqkv": f32(torch.cat([attn[n]["kernel_scale_a8"]
+                               for n in ("q", "k", "v")])),
+        "bqkv": f32(torch.cat([attn[n]["bias"] for n in ("q", "k", "v")])),
+        "wo_t": wt(attn["o"]), "so": f32(attn["o"]["kernel_scale_a8"]),
+        "bo": f32(attn["o"]["bias"]),
+        "ln1_s": f32(layer["attn_ln"]["scale"]),
+        "ln1_b": f32(layer["attn_ln"]["bias"]),
+        "w1_t": wt(layer["mlp_in"]), "s1": f32(layer["mlp_in"]["kernel_scale_a8"]),
+        "b1": f32(layer["mlp_in"]["bias"]),
+        "w2_t": wt(layer["mlp_out"]),
+        "s2": f32(layer["mlp_out"]["kernel_scale_a8"]),
+        "b2": f32(layer["mlp_out"]["bias"]),
+        "ln2_s": f32(layer["mlp_ln"]["scale"]),
+        "ln2_b": f32(layer["mlp_ln"]["bias"]),
+    }
+
+
 def _ln(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _attention_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                     scale: float, dt, attn_bias=None) -> torch.Tensor:
+    """qkv [B, S, 3D] f32 (already rounded to ``dt``) -> ctx [B*S, D] f32
+    rounded to ``dt``: probabilities and context round to ``dt``."""
+    B, S, D3 = qkv.shape
+    D = D3 // 3
+    Dh = D // num_heads
+    q, k, v = (t.reshape(B, S, num_heads, Dh) for t in qkv.split(D, dim=2))
+    mbias = torch.where(mask.bool(), 0.0, NEG_INF).to(torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + mbias[:, None, None]
+    if attn_bias is not None:
+        s = s + attn_bias.float()
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(dt).float() \
+        .reshape(B * S, D)
+
+
+def _tail_plain(xf: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
+                act: str, dt) -> torch.Tensor:
+    """o proj + residual + LN1, FFN + residual + LN2 on [M, D] f32 rows
+    (the TPU kernels' ``_layer_tail``): LN1's output and the FFN hidden
+    round to ``dt`` before their products."""
+    o = ctx @ w["wo"].float() + w["bo"] + xf
+    y = _ln(o, w["ln1_s"], w["ln1_b"], eps)
+    h = act_fn(y.to(dt).float() @ w["w1"].float() + w["b1"], act).to(dt)
+    f = h.float() @ w["w2"].float() + w["b2"] + y
+    return _ln(f, w["ln2_s"], w["ln2_b"], eps).to(dt)
 
 
 def encoder_layer_plain(x: torch.Tensor, w: dict, mask: torch.Tensor,
@@ -73,73 +144,151 @@ def encoder_layer_plain(x: torch.Tensor, w: dict, mask: torch.Tensor,
     ``x.dtype`` at the kernel's rounding points)."""
     B, S, D = x.shape
     dt = x.dtype
-    Dh = D // num_heads
     xf = x.reshape(B * S, D).float()
     qkv = (xf @ w["wqkv"].float() + w["bqkv"]).to(dt).float()
-    q, k, v = (t.reshape(B, S, num_heads, Dh) for t in qkv.split(D, dim=1))
-    bias = torch.where(mask.bool(), 0.0, NEG_INF).to(torch.float32)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(Dh))
-    p = torch.softmax(s + bias[:, None, None, :], dim=-1).to(dt).float()
-    ctx = torch.einsum("bhqk,bkhd->bqhd", p, v).to(dt).float()
-    o = ctx.reshape(B * S, D) @ w["wo"].float() + w["bo"] + xf
+    ctx = _attention_plain(qkv.reshape(B, S, 3 * D), mask, num_heads,
+                           1.0 / math.sqrt(D // num_heads), dt)
+    return _tail_plain(xf, ctx, w, eps, act, dt).reshape(B, S, D)
+
+
+def encoder_layer_prebias_plain(x: torch.Tensor, qkv: torch.Tensor,
+                                attn_bias: torch.Tensor, w: dict,
+                                mask: torch.Tensor, num_heads: int,
+                                eps: float, act: str,
+                                scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the prebias layer: ``w`` from
+    ``fuse_layer`` (its qkv entries unused), qkv [B, S, 3D] and attn_bias
+    [B, H, S, S] in ``x.dtype``."""
+    B, S, D = x.shape
+    dt = x.dtype
+    xf = x.reshape(B * S, D).float()
+    ctx = _attention_plain(qkv.float(), mask, num_heads, scale, dt,
+                           attn_bias)
+    return _tail_plain(xf, ctx, w, eps, act, dt).reshape(B, S, D)
+
+
+def quantize_rows_plain(x: torch.Tensor):
+    """(int8 codes, f32 scales [M]) of x [M, K]: s = max(max|x|, 1e-8) /
+    127 per row, codes round(x / s) half to even (the TPU kernel's
+    ``_qdot``)."""
+    xf = x.float()
+    m = xf.abs().amax(dim=1, keepdim=True).clamp_min(1e-8)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which rounds differently
+    s = m / torch.full_like(m, 127.0)
+    return torch.round(xf / s).to(torch.int8), s[:, 0]
+
+
+def _qdot_plain(x: torch.Tensor, w_t: torch.Tensor, sw: torch.Tensor):
+    """x [M, K] f32 times int8 w_t [N, K] with per-row int8 activations:
+    the int32 sums computed exactly in f64, then * sx * sw in f32."""
+    xq, sx = quantize_rows_plain(x)
+    y = (xq.double() @ w_t.double().t()).float()
+    return y * sx[:, None] * sw
+
+
+def tail_q_plain(xf: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
+                 act: str, dt) -> dict:
+    """The W8A8 layer from the context on, on [M, D] f32 rows: y (LN1's
+    output) and the FFN hidden h stay f32; out [M, D] rounds to ``dt``."""
+    o = _qdot_plain(ctx, w["wo_t"], w["so"]) + w["bo"] + xf
     y = _ln(o, w["ln1_s"], w["ln1_b"], eps)
-    h = act_fn(y.to(dt).float() @ w["w1"].float() + w["b1"], act).to(dt)
-    f = h.float() @ w["w2"].float() + w["b2"] + y
-    return _ln(f, w["ln2_s"], w["ln2_b"], eps).to(dt).reshape(B, S, D)
+    h = act_fn(_qdot_plain(y, w["w1_t"], w["s1"]) + w["b1"], act)
+    f = _qdot_plain(h, w["w2_t"], w["s2"]) + w["b2"] + y
+    return {"y": y, "h": h, "out": _ln(f, w["ln2_s"], w["ln2_b"], eps).to(dt)}
+
+
+def encoder_layer_q_stages_plain(x: torch.Tensor, w: dict,
+                                 mask: torch.Tensor, num_heads: int,
+                                 eps: float, act: str) -> dict:
+    """``encoder_layer_q_plain`` with its intermediates: qkv and ctx
+    ([M, 3D], [M, D], rounded to ``x.dtype``), y, h and out [M, D]."""
+    B, S, D = x.shape
+    dt = x.dtype
+    xf = x.reshape(B * S, D).float()
+    qkv = (_qdot_plain(xf, w["wqkv_t"], w["sqkv"]) + w["bqkv"]).to(dt).float()
+    ctx = _attention_plain(qkv.reshape(B, S, 3 * D), mask, num_heads,
+                           1.0 / math.sqrt(D // num_heads), dt)
+    return {"qkv": qkv, "ctx": ctx, **tail_q_plain(xf, ctx, w, eps, act, dt)}
+
+
+def encoder_layer_q_plain(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                          num_heads: int, eps: float,
+                          act: str) -> torch.Tensor:
+    """Plain PyTorch version of the W8A8 layer (``w`` from
+    ``fuse_layer_q``): qkv rounds to ``x.dtype`` for the attention, the
+    context is ``x.dtype``, and y and the FFN hidden stay f32."""
+    return encoder_layer_q_stages_plain(x, w, mask, num_heads, eps,
+                                        act)["out"].reshape(x.shape)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         raise ValueError(
-            f"encoder_layer: {name} must be a contiguous {dtype} tensor of "
-            f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
-            f"contiguous={t.is_contiguous()}")
+            f"encoder layer kernel: {name} must be a contiguous {dtype} "
+            f"tensor of shape {tuple(shape)}, got {t.dtype} "
+            f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
-def encoder_layer(x: torch.Tensor, w: dict, mask: torch.Tensor,
-                  num_heads: int, eps: float, act: str) -> torch.Tensor:
-    """x [B, S, D]; w from ``fuse_layer``; mask [B, S] (1 = attend)."""
-    if x.device.type == "cpu":
-        return encoder_layer_plain(x, w, mask, num_heads, eps, act)
+def _on_card(fn: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"encoder_layer: unsupported device {x.device}")
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+
+
+def _check_layer(fn: str, x: torch.Tensor, mask: torch.Tensor,
+                 num_heads: int, act: str, I: int) -> None:
+    """The shapes the CUDA chain takes (raises on any other)."""
     B, S, D = x.shape
-    I = w["w1"].shape[1]
-    if D // num_heads != HEAD_DIM or D % 128 or I % 128 or D > 1024:
+    if D % num_heads or D // num_heads not in HEAD_DIMS or D % 128 \
+            or I % 128 or D > 1024:
         raise ValueError(
-            f"encoder_layer kernel needs head width {HEAD_DIM}, D % 128 == 0, "
+            f"{fn} kernel needs head width in {HEAD_DIMS}, D % 128 == 0, "
             f"D <= 1024 and I % 128 == 0; got D={D}, H={num_heads}, I={I}")
     if act not in ACT_IDS:
-        raise ValueError(f"encoder_layer kernel: unsupported act {act!r}")
-    bf, f32 = torch.bfloat16, torch.float32
-    _check(x, "x", bf, (B, S, D))
+        raise ValueError(f"{fn} kernel: unsupported act {act!r}")
+    _check(x, "x", torch.bfloat16, (B, S, D))
     _check(mask, "mask", torch.int32, (B, S))
-    for name, shape in (("wqkv", (D, 3 * D)), ("wo", (D, D)), ("w1", (D, I)),
-                        ("w2", (I, D))):
+
+
+def _check_tail(w: dict, D: int, I: int) -> None:
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, shape in (("wo", (D, D)), ("w1", (D, I)), ("w2", (I, D))):
         _check(w[name], name, bf, shape)
-    for name, n in (("bqkv", 3 * D), ("bo", D), ("ln1_s", D), ("ln1_b", D),
-                    ("b1", I), ("b2", D), ("ln2_s", D), ("ln2_b", D)):
+    for name, n in (("bo", D), ("ln1_s", D), ("ln1_b", D), ("b1", I),
+                    ("b2", D), ("ln2_s", D), ("ln2_b", D)):
         _check(w[name], name, f32, (n,))
-    M = B * S
-    dev = x.device
-    qkv = torch.empty(M, 3 * D, dtype=bf, device=dev)
-    ctx = torch.empty(M, D, dtype=bf, device=dev)
+
+
+def _attention_cuda(qkv, mask, bias, B: int, S: int, num_heads: int,
+                    scale: float, st: int) -> torch.Tensor:
+    """ctx [B*S, D] bf16 from qkv [B*S, 3D] or [B, S, 3D] (bias [B, H, S,
+    S] or None)."""
+    D = qkv.shape[-1] // 3
+    ctx = torch.empty(B * S, D, dtype=torch.bfloat16, device=qkv.device)
+    _build.check(_build.function("encoder_attention")(
+        qkv.data_ptr(), mask.data_ptr(),
+        None if bias is None else bias.data_ptr(), ctx.data_ptr(), B, S,
+        num_heads, D // num_heads, float(scale), st), "attention")
+    return ctx
+
+
+def _tail_cuda(x: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
+               act: str, st: int) -> torch.Tensor:
+    """o proj + residual + LN1, FFN + residual + LN2 (``_tail_plain``)."""
+    B, S, D = x.shape
+    I = w["w1"].shape[1]
+    M, dev = B * S, x.device
+    bf, f32 = torch.bfloat16, torch.float32
     acc = torch.empty(M, D, dtype=f32, device=dev)
     y32 = torch.empty(M, D, dtype=f32, device=dev)
     yb = torch.empty(M, D, dtype=bf, device=dev)
     h = torch.empty(M, I, dtype=bf, device=dev)
     out = torch.empty(B, S, D, dtype=bf, device=dev)
-    st = _build.stream_ptr(dev)
     gemm = _build.function("encoder_gemm")
-    attn = _build.function("encoder_attention")
     ln = _build.function("encoder_layernorm")
     a = ACT_IDS[act]
     chk = _build.check
-    chk(gemm(x.data_ptr(), w["wqkv"].data_ptr(), w["bqkv"].data_ptr(), None,
-             qkv.data_ptr(), M, 3 * D, D, _EPI_BIAS, a, 0, st), "qkv gemm")
-    chk(attn(qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), B, S,
-             num_heads, 1.0 / math.sqrt(HEAD_DIM), st), "attention")
     chk(gemm(ctx.data_ptr(), w["wo"].data_ptr(), w["bo"].data_ptr(),
              x.data_ptr(), acc.data_ptr(), M, D, D, _EPI_BIAS_RES, a, 0, st),
         "o gemm")
@@ -152,8 +301,128 @@ def encoder_layer(x: torch.Tensor, w: dict, mask: torch.Tensor,
         "ffn-out gemm")
     chk(ln(acc.data_ptr(), w["ln2_s"].data_ptr(), w["ln2_b"].data_ptr(),
            out.data_ptr(), None, M, D, eps, st), "layernorm 2")
+    return out
+
+
+def encoder_layer(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                  num_heads: int, eps: float, act: str) -> torch.Tensor:
+    """x [B, S, D]; w from ``fuse_layer``; mask [B, S] (1 = attend)."""
+    if x.device.type == "cpu":
+        return encoder_layer_plain(x, w, mask, num_heads, eps, act)
+    _on_card("encoder_layer", x)
+    I = w["w1"].shape[1]
+    _check_layer("encoder_layer", x, mask, num_heads, act, I)
+    B, S, D = x.shape
+    _check(w["wqkv"], "wqkv", torch.bfloat16, (D, 3 * D))
+    _check(w["bqkv"], "bqkv", torch.float32, (3 * D,))
+    _check_tail(w, D, I)
+    st = _build.stream_ptr(x.device)
+    qkv = torch.empty(B * S, 3 * D, dtype=torch.bfloat16, device=x.device)
+    _build.check(_build.function("encoder_gemm")(
+        x.data_ptr(), w["wqkv"].data_ptr(), w["bqkv"].data_ptr(), None,
+        qkv.data_ptr(), B * S, 3 * D, D, _EPI_BIAS, ACT_IDS[act], 0, st),
+        "qkv gemm")
+    ctx = _attention_cuda(qkv, mask, None, B, S, num_heads,
+                          1.0 / math.sqrt(D // num_heads), st)
+    out = _tail_cuda(x, ctx, w, eps, act, st)
     encoder_layer.launches += 1
     return out
 
 
+def encoder_layer_prebias(x: torch.Tensor, qkv: torch.Tensor,
+                          attn_bias: torch.Tensor, w: dict,
+                          mask: torch.Tensor, num_heads: int, eps: float,
+                          act: str, scale: float) -> torch.Tensor:
+    """x [B, S, D]; qkv [B, S, 3D] (bias added); attn_bias [B, H, S, S]
+    added to the scores after ``s * scale + maskbias``; w from
+    ``fuse_layer`` (its qkv entries unused); mask [B, S] (1 = attend)."""
+    if x.device.type == "cpu":
+        return encoder_layer_prebias_plain(x, qkv, attn_bias, w, mask,
+                                           num_heads, eps, act, scale)
+    _on_card("encoder_layer_prebias", x)
+    I = w["w1"].shape[1]
+    _check_layer("encoder_layer_prebias", x, mask, num_heads, act, I)
+    B, S, D = x.shape
+    if S % 8:
+        raise ValueError(f"encoder_layer_prebias kernel needs S % 8 == 0 "
+                         f"(16-byte bias rows); got S={S}")
+    _check(qkv, "qkv", torch.bfloat16, (B, S, 3 * D))
+    _check(attn_bias, "attn_bias", torch.bfloat16, (B, num_heads, S, S))
+    _check_tail(w, D, I)
+    st = _build.stream_ptr(x.device)
+    ctx = _attention_cuda(qkv, mask, attn_bias, B, S, num_heads, scale, st)
+    out = _tail_cuda(x, ctx, w, eps, act, st)
+    encoder_layer_prebias.launches += 1
+    return out
+
+
+def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                    num_heads: int, eps: float, act: str) -> torch.Tensor:
+    """x [B, S, D]; w from ``fuse_layer_q``; mask [B, S] (1 = attend)."""
+    if x.device.type == "cpu":
+        return encoder_layer_q_plain(x, w, mask, num_heads, eps, act)
+    _on_card("encoder_layer_q", x)
+    I = w["w1_t"].shape[0]
+    _check_layer("encoder_layer_q", x, mask, num_heads, act, I)
+    D = x.shape[2]
+    i8, f32 = torch.int8, torch.float32
+    for name, shape in (("wqkv_t", (3 * D, D)), ("wo_t", (D, D)),
+                        ("w1_t", (I, D)), ("w2_t", (D, I))):
+        _check(w[name], name, i8, shape)
+    for name, n in (("sqkv", 3 * D), ("bqkv", 3 * D), ("so", D), ("bo", D),
+                    ("ln1_s", D), ("ln1_b", D), ("s1", I), ("b1", I),
+                    ("s2", D), ("b2", D), ("ln2_s", D), ("ln2_b", D)):
+        _check(w[name], name, f32, (n,))
+    out = encoder_layer_q_stages(x, w, mask, num_heads, eps, act)["out"]
+    encoder_layer_q.launches += 1
+    return out
+
+
+def encoder_layer_q_stages(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                           num_heads: int, eps: float, act: str) -> dict:
+    """The W8A8 kernel chain of ``encoder_layer_q`` (operands checked
+    there) with its intermediates: qkv [M, 3D] and ctx [M, D] bf16, y
+    [M, D] and h [M, I] f32, out [B, S, D] bf16."""
+    B, S, D = x.shape
+    I = w["w1_t"].shape[0]
+    i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
+    M, dev = B * S, x.device
+    st = _build.stream_ptr(dev)
+    quant = _build.function("encoder_rowquant")
+    qgemm = _build.function("encoder_qgemm")
+    ln = _build.function("encoder_layernorm")
+    a = ACT_IDS[act]
+    chk = _build.check
+    codes = torch.empty(M, max(D, I), dtype=i8, device=dev)
+    sx = torch.empty(M, dtype=f32, device=dev)
+
+    def qdot(src, K, is_f32, wt, sw, b, out, N, epi, res=None, res_f32=0):
+        chk(quant(src.data_ptr(), is_f32, codes.data_ptr(), sx.data_ptr(), M,
+                  K, st), "row quantize")
+        chk(qgemm(codes.data_ptr(), wt.data_ptr(), sx.data_ptr(),
+                  sw.data_ptr(), b.data_ptr(),
+                  None if res is None else res.data_ptr(), out.data_ptr(), M,
+                  N, K, epi, a, res_f32, st), "int8 gemm")
+
+    qkv = torch.empty(M, 3 * D, dtype=bf, device=dev)
+    qdot(x, D, 0, w["wqkv_t"], w["sqkv"], w["bqkv"], qkv, 3 * D, _QEPI_BF16)
+    ctx = _attention_cuda(qkv, mask, None, B, S, num_heads,
+                          1.0 / math.sqrt(D // num_heads), st)
+    acc = torch.empty(M, D, dtype=f32, device=dev)
+    qdot(ctx, D, 0, w["wo_t"], w["so"], w["bo"], acc, D, _QEPI_RES, x)
+    y32 = torch.empty(M, D, dtype=f32, device=dev)
+    yb = torch.empty(M, D, dtype=bf, device=dev)
+    chk(ln(acc.data_ptr(), w["ln1_s"].data_ptr(), w["ln1_b"].data_ptr(),
+           yb.data_ptr(), y32.data_ptr(), M, D, eps, st), "layernorm 1")
+    h = torch.empty(M, I, dtype=f32, device=dev)
+    qdot(y32, D, 1, w["w1_t"], w["s1"], w["b1"], h, I, _QEPI_ACT)
+    qdot(h, I, 1, w["w2_t"], w["s2"], w["b2"], acc, D, _QEPI_RES, y32, 1)
+    out = torch.empty(B, S, D, dtype=bf, device=dev)
+    chk(ln(acc.data_ptr(), w["ln2_s"].data_ptr(), w["ln2_b"].data_ptr(),
+           out.data_ptr(), None, M, D, eps, st), "layernorm 2")
+    return {"qkv": qkv, "ctx": ctx, "y": y32, "h": h, "out": out}
+
+
 encoder_layer.launches = 0
+encoder_layer_prebias.launches = 0
+encoder_layer_q.launches = 0

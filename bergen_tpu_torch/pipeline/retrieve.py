@@ -255,6 +255,11 @@ class Retrieve:
             "doc_id": [[doc_id_col[j] for j in row] for row in idxs],
             "score": vals,
         }
+        enc_fid = getattr(self.model, "w8a8_fidelity", None)
+        if enc_fid is not None:
+            # the W8A8 doc-encoding guard (dense.py): another error source
+            # than the top-k guard, recorded beside it
+            fidelity.insert(0, enc_fid)
         if fidelity:
             out["fidelity"] = fidelity
         return out

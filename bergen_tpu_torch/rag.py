@@ -5,9 +5,9 @@ retrieve_top_k``, caches every stage artifact under the JAX package's
 deterministic filenames (TREC runs, generated queries), evaluates rankings
 against qrels, and writes the per-experiment ``eval_{split}_out.json`` /
 ``eval_{split}_metrics.json``.  Ported: ``eval()`` with query generation,
-dense retrieval and generation.  Reranking, context processing and training
-raise ``NotImplementedError`` naming the ROADMAP item that will port them.
-Every stage runs on ``device`` (default ``cuda``).
+dense retrieval, cross-encoder reranking and generation.  Context processing
+and training raise ``NotImplementedError`` naming the ROADMAP item that will
+port them.  Every stage runs on ``device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from bergen_tpu_torch import device as _device
 from bergen_tpu_torch.data.processor import ProcessDatasets
 from bergen_tpu_torch.metrics import RAGMetrics
 from bergen_tpu_torch.pipeline.generate_query import GenerateQueries
+from bergen_tpu_torch.pipeline.rerank import Rerank
 from bergen_tpu_torch.pipeline.retrieve import Retrieve
 
 
@@ -80,9 +81,6 @@ class RAG:
                 }
             }
 
-        if reranker is not None:
-            raise NotImplementedError(
-                "reranking is not ported yet (ROADMAP.md Queue 1, item 7)")
         if context_processor is not None:
             raise NotImplementedError(
                 "context processing is not ported yet (ROADMAP.md Queue 1, "
@@ -144,6 +142,8 @@ class RAG:
             if retriever is not None
             else None
         )
+        self.reranker = (Rerank(**reranker, device=self.device)
+                         if reranker is not None else None)
         self.generator = (
             confy.instantiate(generator["init_args"], prompt=prompt,
                               device=self.device)
@@ -177,6 +177,13 @@ class RAG:
                     )
             else:
                 query_ids, doc_ids = None, None
+
+            if self.reranker is not None and doc_ids is not None:
+                with timer.track("rerank"):
+                    query_ids, doc_ids, _ = self.rerank(
+                        dataset, query_dataset_name, doc_dataset_name,
+                        dataset_split, query_ids, doc_ids, self.rerank_top_k,
+                    )
 
             if doc_ids is not None:
                 doc_ids = [d[: self.generation_top_k] for d in doc_ids]
@@ -282,6 +289,55 @@ class RAG:
                 self.experiment_folder, self.qrels_folder, query_dataset_name,
                 doc_dataset_name, dataset_split, query_ids, wiki_ids, scores,
                 top_k=self.generation_top_k, debug=self.debug,
+            )
+        return query_ids, doc_ids, scores
+
+    def rerank(self, dataset, query_dataset_name, doc_dataset_name,
+               dataset_split, query_ids, doc_ids, rerank_top_k):
+        if self.oracle_provenance and "doc" in dataset["query"].features:
+            return dataset["query"]["id"], None, None
+
+        doc_ids = [d[:rerank_top_k] for d in doc_ids]
+        reranking_file = utils.get_reranking_filename(
+            self.runs_folder, query_dataset_name, doc_dataset_name,
+            dataset_split, self.retriever.get_clean_model_name(),
+            self.retrieve_top_k, self.reranker.get_clean_model_name(),
+            self.rerank_top_k, self.query_generator.get_clean_model_name(),
+        )
+        if not os.path.exists(reranking_file) or self.overwrite_exp:
+            rerank_dataset = utils.prepare_dataset_from_ids(
+                dataset, query_ids, doc_ids, multi_doc=False,
+                query_field="generated_query",
+            )
+            out = self.reranker.eval(rerank_dataset)
+            query_ids, doc_ids, scores = out["q_id"], out["doc_id"], out["score"]
+            utils.write_trec(reranking_file, query_ids, doc_ids, scores)
+            rr_fid = getattr(self.reranker.model, "w8a8_fidelity", None)
+            if rr_fid is not None:
+                # every quantized run documents its measured approximation
+                # error (the W8A8 reranker guard)
+                with open(os.path.join(
+                    self.experiment_folder,
+                    f"eval_{dataset_split}_rerank_fidelity.json",
+                ), "w") as f:
+                    json.dump(rr_fid, f, indent=2)
+        else:
+            query_ids, doc_ids, scores = utils.load_trec(reranking_file)
+        shutil.copyfile(
+            reranking_file,
+            os.path.join(self.experiment_folder, os.path.basename(reranking_file)),
+        )
+        if "ranking_label" in self.datasets[dataset_split]["query"].features:
+            doc_ds = dataset["doc"]
+            wiki_ids = (
+                [utils.get_by_id(doc_ds, d, "wikipedia_id") for d in doc_ids]
+                if "wikipedia_id" in doc_ds.features
+                else doc_ids
+            )
+            utils.eval_retrieval_kilt(
+                self.experiment_folder, self.qrels_folder, query_dataset_name,
+                doc_dataset_name, dataset_split, query_ids, wiki_ids, scores,
+                top_k=self.generation_top_k, reranking=True, debug=self.debug,
             )
         return query_ids, doc_ids, scores
 

@@ -145,6 +145,18 @@ def get_ranking_filename(
     )
 
 
+def get_reranking_filename(
+    runs_folder, query_dataset, doc_dataset, dataset_split, retriever_name,
+    retrieve_top_k, reranker_name, rerank_top_k, query_generator_name,
+):
+    query_gen_add = "" if query_generator_name == "copy" else f".{query_generator_name}"
+    return (
+        f"{runs_folder}/run.rerank.retriever.top_{retrieve_top_k}.{retriever_name}."
+        f"rerank.top_{rerank_top_k}.{query_dataset}.{doc_dataset}.{dataset_split}."
+        f"{reranker_name}{query_gen_add}.trec"
+    )
+
+
 def get_query_generation_filename(
     query_generation_folder, query_dataset, query_generator_name, split
 ):

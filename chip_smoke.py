@@ -4,24 +4,28 @@
 
 Phases (each prints one JSON line):
   1. the card (nvidia-smi name and power limit) and the kernel build time;
-  2. two seeded random-weight HF checkpoints at full published widths:
-     BERT-base (bge-base-en-v1.5) and TinyLlama-1.1B-Chat, with tokenizers
-     over the tests/utdata vocabulary, written by the port's own writers;
+  2. seeded random-weight HF checkpoints at full published widths, with
+     tokenizers over the tests/utdata vocabulary, written by the port's own
+     writers: BERT-base (bge-base-en-v1.5), TinyLlama-1.1B-Chat,
+     DeBERTa-v3-base (the debertav3 reranker; a Unigram tokenizer), a
+     BERT-large cross-encoder (bge-large-en's width) and MiniLM-L6;
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
-     library time and the card's lower bound for the same work;
-  4. the main path: ``python -m bergen_tpu_torch`` (the rag_ut1 config, dense
-     retriever, TinyLlama generator) on dataset ut1 with the two checkpoints,
-     then the same models on the card against the port's f32 CPU path on a
-     small input (64 docs, two questions: prefill and one decode step);
+     library time and the card's lower bound for the same work; one
+     DeBERTa-v3 layer split into qkv product, bias products and kernel;
+  4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
+     dataset ut1, each part in a fresh folder: the dense eval (retriever,
+     TinyLlama generator), the same with the DeBERTa-v3 reranker, W8A8 doc
+     encoding with the W8A8 BERT-large reranker, and the MiniLM reranker;
+     then the card against the port's f32 CPU path on small inputs (64
+     docs, 64 DeBERTa pairs, two questions: prefill and one decode step);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel);
   6. one ``kernels`` line with every kernel's numbers and launch counts.
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 before it.  Kernel launch counts are zeroed just before each part of the
-main path (the ut1 eval of phase 4, the retrieval of phase 5) and read just
-after it, so the comparisons of phase 3 do not count; a kernel that a part
-runs must show launches there.
+main path and read just after it, so the comparisons of phase 3 do not
+count; a kernel that a part runs must show launches there.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 
@@ -44,6 +49,12 @@ KERNELS = {
     "encoder_layer": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer.cu",
         "replaces": "bergen_tpu/ops/encoder_attention.py:710"},
+    "encoder_layer_prebias": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer.cu",
+        "replaces": "bergen_tpu/ops/encoder_attention.py:742"},
+    "encoder_layer_q": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer_q.cu",
+        "replaces": "bergen_tpu/ops/encoder_attention.py:477"},
     "bin_topk": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/bin_topk.cu",
         "replaces": "bergen_tpu/ops/fused_topk.py:145"},
@@ -52,10 +63,31 @@ KERNELS = {
         "replaces": "bergen_tpu/ops/decode_attention.py:115"},
 }
 # the kernels each part of the main path must launch: ut1's 1,000 docs are
-# below the fused top-k's 131,072-doc threshold, and the at-scale retrieval
-# reads precomputed embeddings and generates nothing
-PATH_KERNELS = {"ut1_eval": ("encoder_layer", "decode_attention"),
-                "retrieval_at_scale": ("bin_topk",)}
+# below the fused top-k's 131,072-doc threshold, the at-scale retrieval
+# reads precomputed embeddings and generates nothing, and each rerank path
+# encodes its own index (queries stay unquantized under W8A8)
+PATH_KERNELS = {
+    "ut1_eval": ("encoder_layer", "decode_attention"),
+    "retrieval_at_scale": ("bin_topk",),
+    "ut1_rerank": ("encoder_layer", "encoder_layer_prebias",
+                   "decode_attention"),
+    "ut1_rerank_w8a8": ("encoder_layer", "encoder_layer_q"),
+    "ut1_rerank_minilm": ("encoder_layer",),
+}
+# the W8A8 reranker guard of ut1_rerank_w8a8: random weights bunch the
+# scores, so bf16 and W8A8 ranks agree less than a trained model's (a
+# Spearman of 0.9499 over the guard batch, below the config's 0.99);
+# lowered so that the W8A8 tree scores the run
+W8A8_RERANK_GUARD = 0.9
+# ut1_rerank_w8a8's W8A8 layers before the reranker scores: the doc
+# encoder's guard batch and two doc batches (3 x 12 layers) and the
+# reranker's guard batch (24); the W8A8 scoring must add to them
+W8A8_GUARD_LAUNCHES = 3 * 12 + 24
+# DeBERTa-v3 layer shapes: the debertav3 config's own batch 256 at its
+# max_len 512 (the kernels line reports it) and at S 128, then the ut1
+# rerank batches (500 pairs of 32 to 40 tokens: buckets 32 and 64)
+PREBIAS_SHAPES = ((256, 512), (256, 128), (256, 64), (244, 64), (256, 32))
+DEBERTA_SPLIT_SHAPES = ((256, 512), (256, 128))
 
 
 def emit(obj) -> None:
@@ -125,17 +157,18 @@ def library_encoder_layer(w: dict, num_heads: int, eps: float):
     return run
 
 
-def check_encoder_layer(results: dict, dev) -> None:
+def _rnd(gen, dev):
     import torch
-    from bergen_tpu_torch.ops import encoder_attention as ea
-
-    D, H, I, eps, act = 768, 12, 3072, 1e-12, "gelu"
-    gen = torch.Generator(device=dev).manual_seed(1)
 
     def rnd(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * std
 
-    layer = {
+    return rnd
+
+
+def _random_layer(rnd, D: int, I: int) -> dict:
+    """One post-LN layer tree with seeded random weights (kernels bf16)."""
+    return {
         "attn": {n: {"kernel": rnd(D, D, std=0.02).bfloat16(),
                      "bias": rnd(D, std=0.02)} for n in "qkvo"},
         "attn_ln": {"scale": 1 + rnd(D, std=0.1), "bias": rnd(D, std=0.1)},
@@ -145,54 +178,403 @@ def check_encoder_layer(results: dict, dev) -> None:
                     "bias": rnd(D, std=0.02)},
         "mlp_ln": {"scale": 1 + rnd(D, std=0.1), "bias": rnd(D, std=0.1)},
     }
-    w = ea.fuse_layer(layer)
-    library = library_encoder_layer(w, H, eps)
-    # bf16 rounding of qkv / probabilities / ctx / FFN hidden flips with the
-    # summation order: the max is two bf16 ulps of the largest outputs (|y|
-    # in [4, 8)), the mean a few ulps of a typical |y| ~ 1
-    tol, mean_tol = 0.0625, 2e-3
+
+
+def _padded_mask(gen, dev, B: int, S: int):
+    """Random lengths in [1, S], row 0 full, row 1 fully masked."""
+    import torch
+
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lens[0] = S
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).int()
+    mask[1] = 0
+    return mask
+
+
+def _errors(out, ref) -> tuple[float, float]:
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        return float("inf"), float("inf")
+    err = (out.float() - ref.float()).abs()
+    return err.max().item(), err.mean().item()
+
+
+# bf16 rounding of qkv / probabilities / ctx / FFN hidden flips with the
+# summation order: the max is two bf16 ulps of the largest outputs (|y| in
+# [4, 8)), the mean a few ulps of a typical |y| ~ 1
+LAYER_TOL, LAYER_MEAN_TOL = 0.0625, 2e-3
+# W8A8: the same max; the mean is larger because the chain re-quantizes:
+# a bf16 ulp of the attention context moves its row's int8 codes now and
+# then, each flipped code of y moves the FFN hidden of its row by a row
+# step, and that row's hidden codes flip in turn (random weights at
+# std 0.02, outputs ~1).  check_encoder_layer_q shows it in every run:
+# the plain tail fed the kernel's own context must come within the bf16
+# layer's limits, and the code flips of ctx, y and h are counted
+Q_MEAN_TOL = 5e-3
+# W8A8 shapes: bge-large (D 1024, 16 heads, I 4096) at B 256, S 256 (the
+# kernels line reports it) and BERT-base (D 768, 12 heads, I 3072) at
+# B 512, S 128; then ut1_rerank_w8a8's own batches: the doc encoder's 512
+# and 488 docs at buckets 64 and 32, the reranker's 256 and 244 pairs at
+# bucket 64
+Q_SHAPES = (((1024, 16, 4096), (256, 256)), ((768, 12, 3072), (512, 128)),
+            ((768, 12, 3072), (512, 64)), ((768, 12, 3072), (488, 64)),
+            ((768, 12, 3072), (512, 32)), ((1024, 16, 4096), (256, 64)),
+            ((1024, 16, 4096), (244, 64)))
+
+
+def check_encoder_layer(results: dict, dev) -> None:
+    import torch
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rnd = _rnd(gen, dev)
+    eps, act = 1e-12, "gelu"
     per_shape = []
-    # a full doc batch at S 128 and S 512 (the kernels line reports the
-    # first), then the ut1 run's own buckets: 512 docs at S 64, 50 queries
-    # at S 32
-    for B, S in ((512, 128), (512, 512), (512, 64), (50, 32)):
-        x = rnd(B, S, D).bfloat16()
-        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
-        lens[0] = S
-        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None]).int()
-        mask[1] = 0  # a fully masked row
-        out = ea.encoder_layer(x, w, mask, H, eps, act)
-        ref = ea.encoder_layer_plain(x, w, mask, H, eps, act)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        max_err, mean_err = err.max().item(), err.mean().item()
-        if not torch.isfinite(out.float()).all():
-            fail(f"encoder_layer B{B} S{S}: non-finite output")
-        ms = cuda_time_ms(lambda: ea.encoder_layer(x, w, mask, H, eps, act))
-        plain_ms = cuda_time_ms(
-            lambda: ea.encoder_layer_plain(x, w, mask, H, eps, act), iters=2,
-            warmup=1)
-        # the library layer's agreement, for the record: the fully masked
-        # row is left out (PyTorch gives it no defined value)
-        lib_err = (library(x, mask).float() - ref.float())[mask.any(1)] \
-            .abs().max().item()
-        library_ms = cuda_time_ms(lambda: library(x, mask))
-        M = B * S
-        flops = 2 * M * D * (4 * D + 2 * I) + 4 * B * H * S * S * (D // H)
-        nbytes = 2 * M * D * 2 + (4 * D * D + 2 * D * I) * 2 + B * S * 4
-        b_ms, b_by = bound(flops, nbytes)
-        row = {"B": B, "S": S, "max_abs_err": max_err, "mean_abs_err": mean_err,
-               "tol": tol, "mean_tol": mean_tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": library_ms,
-               "library_max_abs_err": lib_err}
-        emit({"phase": "kernel_check", "kernel": "encoder_layer", **row})
-        per_shape.append(row)
-        if not (max_err <= tol and mean_err <= mean_tol):
-            fail(f"encoder_layer B{B} S{S}: max error {max_err} (tol {tol}), "
-                 f"mean error {mean_err} (tol {mean_tol})")
-        del x, out, ref, err
-        torch.cuda.empty_cache()
+    # BERT-base (head width 64): a full doc batch at S 128 and S 512 (the
+    # kernels line reports the first), then the ut1 run's own buckets: 512
+    # docs at S 64, 50 queries at S 32; then MiniLM-L6 (D 384, 12 heads of
+    # width 32) at a full batch of S 512
+    for (D, H, I), shapes in (((768, 12, 3072),
+                               ((512, 128), (512, 512), (512, 64), (50, 32))),
+                              ((384, 12, 1536), ((512, 512),))):
+        w = ea.fuse_layer(_random_layer(rnd, D, I))
+        library = library_encoder_layer(w, H, eps)
+        for B, S in shapes:
+            x = rnd(B, S, D).bfloat16()
+            mask = _padded_mask(gen, dev, B, S)
+            out = ea.encoder_layer(x, w, mask, H, eps, act)
+            ref = ea.encoder_layer_plain(x, w, mask, H, eps, act)
+            max_err, mean_err = _errors(out, ref)
+            ms = cuda_time_ms(lambda: ea.encoder_layer(x, w, mask, H, eps,
+                                                       act))
+            plain_ms = cuda_time_ms(
+                lambda: ea.encoder_layer_plain(x, w, mask, H, eps, act),
+                iters=2, warmup=1)
+            # the library layer's agreement, for the record: the fully
+            # masked row is left out (PyTorch gives it no defined value)
+            lib_err = (library(x, mask).float() - ref.float())[mask.any(1)] \
+                .abs().max().item()
+            library_ms = cuda_time_ms(lambda: library(x, mask))
+            M = B * S
+            flops = 2 * M * D * (4 * D + 2 * I) + 4 * B * H * S * S * (D // H)
+            nbytes = 2 * M * D * 2 + (4 * D * D + 2 * D * I) * 2 + B * S * 4
+            b_ms, b_by = bound(flops, nbytes)
+            row = {"B": B, "S": S, "D": D, "H": H, "head_dim": D // H,
+                   "max_abs_err": max_err, "mean_abs_err": mean_err,
+                   "tol": LAYER_TOL, "mean_tol": LAYER_MEAN_TOL, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms, "library_max_abs_err": lib_err}
+            emit({"phase": "kernel_check", "kernel": "encoder_layer", **row})
+            per_shape.append(row)
+            if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
+                fail(f"encoder_layer D{D} B{B} S{S}: max error {max_err} "
+                     f"(tol {LAYER_TOL}), mean error {mean_err} "
+                     f"(tol {LAYER_MEAN_TOL})")
+            del x, out, ref
+            torch.cuda.empty_cache()
     results["encoder_layer"] = per_shape
+
+
+def library_tail(w: dict, eps: float):
+    """The layer tail (o proj + residual + LN1, FFN + residual + LN2) as
+    cuBLAS GEMMs and ``F.layer_norm``: part of the ``library_ms``
+    yardsticks of the prebias and W8A8 layers; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    D = w["wo"].shape[0]
+
+    def run(x, ctx):
+        o = torch.addmm(w["bo"].bfloat16(), ctx, w["wo"]).float() + x.float()
+        y = F.layer_norm(o, (D,), w["ln1_s"], w["ln1_b"], eps).bfloat16()
+        h = F.gelu(torch.addmm(w["b1"].bfloat16(), y, w["w1"]))
+        f = torch.addmm(w["b2"].bfloat16(), h, w["w2"]).float() + y.float()
+        return F.layer_norm(f, (D,), w["ln2_s"], w["ln2_b"], eps).bfloat16()
+
+    return run
+
+
+def check_encoder_layer_prebias(results: dict, dev, shapes) -> None:
+    """DeBERTa-v3-base's layer (D 768, 12 heads, I 3072, eps 1e-7, scale
+    1 / sqrt(64 * 3)) from precomputed qkv and a [B, H, S, S] bf16 bias."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    D, H, I, eps, act = 768, 12, 3072, 1e-7, "gelu"
+    Dh = D // H
+    scale = 1.0 / math.sqrt(Dh * 3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rnd = _rnd(gen, dev)
+    w = ea.fuse_layer(_random_layer(rnd, D, I))
+    tail = library_tail(w, eps)
+    per_shape = []
+    for B, S in shapes:
+        x = rnd(B, S, D).bfloat16()
+        qkv = rnd(B, S, 3 * D).bfloat16()
+        bias = rnd(B, H, S, S).bfloat16()
+        mask = _padded_mask(gen, dev, B, S)
+        args = (x, qkv, bias, w, mask, H, eps, act, scale)
+        out = ea.encoder_layer_prebias(*args)
+        ref = ea.encoder_layer_prebias_plain(*args)
+        max_err, mean_err = _errors(out, ref)
+        ms = cuda_time_ms(lambda: ea.encoder_layer_prebias(*args))
+        plain_ms = cuda_time_ms(lambda: ea.encoder_layer_prebias_plain(*args),
+                                iters=2, warmup=1)
+        q4, k4, v4 = (t.view(B, S, H, Dh).transpose(1, 2)
+                      for t in qkv.split(D, dim=2))
+        amask = (bias.float() + torch.where(mask.bool(), 0.0, -1e30)
+                 [:, None, None, :]).bfloat16()
+
+        def library():
+            ctx = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask,
+                                                 scale=scale)
+            return tail(x.view(B * S, D),
+                        ctx.transpose(1, 2).reshape(B * S, D))
+
+        library_ms = cuda_time_ms(library)
+        M = B * S
+        flops = 2 * M * D * (D + 2 * I) + 4 * B * H * S * S * Dh
+        nbytes = (M * D * 2 + M * 3 * D * 2 + B * H * S * S * 2 + B * S * 4
+                  + (D * D + 2 * D * I) * 2 + M * D * 2)
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"B": B, "S": S, "max_abs_err": max_err,
+               "mean_abs_err": mean_err, "tol": LAYER_TOL,
+               "mean_tol": LAYER_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+        emit({"phase": "kernel_check", "kernel": "encoder_layer_prebias",
+              **row})
+        per_shape.append(row)
+        if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
+            fail(f"encoder_layer_prebias B{B} S{S}: max error {max_err} "
+                 f"(tol {LAYER_TOL}), mean error {mean_err} "
+                 f"(tol {LAYER_MEAN_TOL})")
+        del x, qkv, bias, amask, out, ref
+        torch.cuda.empty_cache()
+    results["encoder_layer_prebias"] = per_shape
+
+
+BIAS_TOL = 1e-5  # the same exact products summed in f32 in another order
+
+
+def time_deberta_layer(results: dict, dev) -> None:
+    """One DeBERTa-v3-base layer of ``deberta.encode`` split into its
+    parts at DEBERTA_SPLIT_SHAPES (the debertav3 config's B 256 at its
+    max_len 512 and at S 128): the qkv
+    product, the disentangled bias (the formulation the reranker's table
+    budget picks, and the other) with its cast to bf16, and the prebias
+    kernel.  The bias products run on the tensor cores (bf16 operands, f32
+    sums); ``bias_f32_ms`` times the same function with f32 operands,
+    which must agree within BIAS_TOL."""
+    import torch
+    from bergen_tpu_torch.models import deberta
+    from bergen_tpu_torch.models.core import dense, layernorm
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    c = DEBERTA_V3_BASE
+    cfg = deberta.DebertaConfig(
+        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+        num_layers=1, num_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"],
+        max_position_embeddings=c["max_position_embeddings"],
+        position_buckets=c["position_buckets"],
+        layer_norm_eps=c["layer_norm_eps"])
+    D, H, I = cfg.hidden_size, cfg.num_heads, cfg.intermediate_size
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = _rnd(gen, dev)
+    ln = {"scale": 1 + rnd(D, std=0.1), "bias": rnd(D, std=0.1)}
+    params = deberta.prepare({
+        "embeddings": {"word": rnd(cfg.vocab_size, D).bfloat16(), "ln": ln},
+        "rel_embeddings": rnd(2 * cfg.att_span, D).bfloat16(),
+        "rel_ln": ln, "layers": [_random_layer(rnd, D, I)]})
+    layer, w = params["layers"][0], params["layers"][0]["fused"]
+    rel_emb = deberta._rel_emb(params, cfg)
+    eps, act, scale = cfg.layer_norm_eps, cfg.hidden_act, \
+        1.0 / deberta._att_scale(cfg, D // H)
+    # the CrossEncoder's default table budget and its need per bucket
+    budget = 2600 << 20
+    n_layers = c["num_hidden_layers"]
+    rows = []
+    for B, S in DEBERTA_SPLIT_SHAPES:
+        ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev)
+        mask = _padded_mask(gen, dev, B, S)
+        rel_pos = deberta.build_relative_position(S, cfg)
+        picked = "tables" if 2 * n_layers * S * S * D * 2 <= budget \
+            else "per_batch"
+        with torch.inference_mode():
+            emb = params["embeddings"]
+            x = (layernorm(emb["ln"], emb["word"][ids], eps)
+                 * mask[..., None].bfloat16()).contiguous()
+            qkv = dense({"kernel": w["wqkv"], "bias": w["bqkv"]}, x)
+            q, k = (t.reshape(B, S, H, D // H)
+                    for t in (qkv[..., :D], qkv[..., D:2 * D]))
+            tables = deberta.build_pos_tables(params, cfg, S)[0]
+
+            def bias_of(tabs, qq=q, kk=k):
+                return deberta.disentangled_bias(
+                    layer["attn"], cfg, qq, kk, rel_pos, rel_emb, tabs,
+                    torch.bfloat16)
+
+            bias = bias_of(tables if picked == "tables" else None)
+            pos_tables = [tables] if picked == "tables" else None
+            t = {"encode_ms": cuda_time_ms(
+                     lambda: deberta.encode(params, cfg, ids, mask,
+                                            pos_tables=pos_tables)),
+                 "qkv_ms": cuda_time_ms(
+                     lambda: dense({"kernel": w["wqkv"], "bias": w["bqkv"]},
+                                   x)),
+                 "kernel_ms": cuda_time_ms(
+                     lambda: ea.encoder_layer_prebias(
+                         x, qkv.contiguous(), bias, w, mask, H, eps, act,
+                         scale))}
+            for form, tabs in (("tables", tables), ("per_batch", None)):
+                a = deberta.disentangled_bias(layer["attn"], cfg, q, k,
+                                              rel_pos, rel_emb, tabs)
+                b = deberta.disentangled_bias(
+                    layer["attn"], cfg, q.float(), k.float(), rel_pos,
+                    rel_emb, tabs)
+                diff = _errors(a, b)[0]
+                del a, b
+                t[f"bias_{form}_ms"] = cuda_time_ms(lambda: bias_of(tabs))
+                t[f"bias_{form}_f32_ms"] = cuda_time_ms(
+                    lambda: bias_of(tabs, q.float(), k.float()), iters=3,
+                    warmup=1)
+                t[f"bias_{form}_vs_f32_max_abs"] = diff
+                if not diff <= BIAS_TOL:
+                    fail(f"deberta bias ({form}) B{B} S{S}: tensor-core "
+                         f"products off the f32 ones by {diff} "
+                         f"(tol {BIAS_TOL})")
+            del tables
+        row = {"B": B, "S": S, "formulation": picked, **t,
+               "bias_tol": BIAS_TOL}
+        emit({"phase": "deberta_layer_split", **row})
+        rows.append(row)
+        del x, qkv, q, k, bias
+        torch.cuda.empty_cache()
+    results["deberta_layer_split"] = rows
+
+
+def _code_diffs(a, b) -> int:
+    """How many int8 row codes of a and b differ."""
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    return int((ea.quantize_rows_plain(a)[0]
+                != ea.quantize_rows_plain(b)[0]).sum().item())
+
+
+def check_encoder_layer_q(results: dict, dev) -> None:
+    """The W8A8 layer at Q_SHAPES, with the intermediates of the kernel
+    chain held against the plain version's: how many bf16 context values
+    and int8 codes of ctx, y and h differ, and the error left when the
+    plain tail is fed the kernel's own context."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.models.convert import quantize_encoder_layers_w8a8
+    from bergen_tpu_torch.ops import _build
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    eps, act = 1e-12, "gelu"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = _rnd(gen, dev)
+    per_shape = []
+    weights = {}
+    for (D, H, I), (B, S) in Q_SHAPES:
+        if D not in weights:
+            weights[D] = ea.fuse_layer_q(quantize_encoder_layers_w8a8(
+                {"layers": [_random_layer(rnd, D, I)]})["layers"][0])
+        w = weights[D]
+        x = rnd(B, S, D).bfloat16()
+        mask = _padded_mask(gen, dev, B, S)
+        M = B * S
+        # the row quantization alone: its codes must equal the plain ones
+        codes = torch.empty(M, D, dtype=torch.int8, device=dev)
+        sx = torch.empty(M, dtype=torch.float32, device=dev)
+        _build.check(_build.function("encoder_rowquant")(
+            x.data_ptr(), 0, codes.data_ptr(), sx.data_ptr(), M, D,
+            _build.stream_ptr(dev)), "row quantize")
+        ref_codes, ref_sx = ea.quantize_rows_plain(x.view(M, D))
+        codes_equal = bool(torch.equal(codes, ref_codes)
+                           and torch.equal(sx, ref_sx))
+        args = (x, w, mask, H, eps, act)
+        out = ea.encoder_layer_q(*args)
+        plain = ea.encoder_layer_q_stages_plain(*args)
+        ref = plain["out"].view(B, S, D)
+        max_err, mean_err = _errors(out, ref)
+        # where the mean error comes from: the kernel's intermediates
+        # against the plain ones, and the plain tail on the kernel's ctx
+        kern = ea.encoder_layer_q_stages(*args)
+        fed = ea.tail_q_plain(x.view(M, D).float(), kern["ctx"].float(), w,
+                              eps, act, torch.bfloat16)
+        fed_max, fed_mean = _errors(kern["out"].view(M, D), fed["out"])
+        cause = {
+            "ctx_bf16_diffs": int((kern["ctx"].float() != plain["ctx"])
+                                  .sum().item()),
+            "ctx_code_diffs": _code_diffs(kern["ctx"], plain["ctx"]),
+            "y_code_diffs": _code_diffs(kern["y"], plain["y"]),
+            "h_code_diffs": _code_diffs(kern["h"], plain["h"]),
+            "n_ctx_codes": M * D, "n_h_codes": M * I,
+            "fed_ctx_max_abs_err": fed_max, "fed_ctx_mean_abs_err": fed_mean,
+            "fed_ctx_y_code_diffs": _code_diffs(kern["y"], fed["y"]),
+            "fed_ctx_h_code_diffs": _code_diffs(kern["h"], fed["h"])}
+        del kern, fed, plain
+        ms = cuda_time_ms(lambda: ea.encoder_layer_q(*args))
+        plain_ms = cuda_time_ms(lambda: ea.encoder_layer_q_plain(*args),
+                                iters=2, warmup=1)
+
+        def library():
+            def qmm(a, wt, sw, b):
+                aq, sa = ea.quantize_rows_plain(a)
+                return (torch._int_mm(aq, wt.t()).float() * sa[:, None]
+                        * sw + b)
+
+            xf = x.view(M, D).float()
+            qkv = qmm(xf, w["wqkv_t"], w["sqkv"], w["bqkv"]).bfloat16()
+            q4, k4, v4 = (t.view(B, S, H, D // H).transpose(1, 2)
+                          for t in qkv.view(B, S, 3 * D).split(D, dim=2))
+            ctx = F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask.bool()[:, None, None, :])
+            ctx = ctx.transpose(1, 2).reshape(M, D).float()
+            o = qmm(ctx, w["wo_t"], w["so"], w["bo"]) + xf
+            y = F.layer_norm(o, (D,), w["ln1_s"], w["ln1_b"], eps)
+            h = F.gelu(qmm(y, w["w1_t"], w["s1"], w["b1"]))
+            f = qmm(h, w["w2_t"], w["s2"], w["b2"]) + y
+            return F.layer_norm(f, (D,), w["ln2_s"], w["ln2_b"], eps) \
+                .bfloat16()
+
+        library_ms = cuda_time_ms(library)
+        int8_ops = 2 * M * D * (4 * D + 2 * I)
+        bf16_ops = 4 * B * H * S * S * (D // H)
+        t_ops = (int8_ops / PEAK_INT8_OPS + bf16_ops / PEAK_BF16_FLOPS) * 1e3
+        t_bytes = (2 * M * D * 2 + (4 * D * D + 2 * D * I)
+                   + (6 * D + 2 * I) * 4 + B * S * 4) / PEAK_BYTES * 1e3
+        row = {"B": B, "S": S, "D": D, "H": H, "max_abs_err": max_err,
+               "mean_abs_err": mean_err, "tol": LAYER_TOL,
+               "mean_tol": Q_MEAN_TOL, "codes_equal_plain": codes_equal,
+               **cause, "fed_ctx_tol": LAYER_TOL,
+               "fed_ctx_mean_tol": LAYER_MEAN_TOL,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": library_ms}
+        emit({"phase": "kernel_check", "kernel": "encoder_layer_q", **row})
+        per_shape.append(row)
+        where = f"encoder_layer_q D{D} B{B} S{S}"
+        if not codes_equal:
+            fail(f"{where}: the int8 activation codes or scales differ from "
+                 "the plain version's")
+        if not (max_err <= LAYER_TOL and mean_err <= Q_MEAN_TOL):
+            fail(f"{where}: max error {max_err} (tol {LAYER_TOL}), mean "
+                 f"error {mean_err} (tol {Q_MEAN_TOL})")
+        if not (fed_max <= LAYER_TOL and fed_mean <= LAYER_MEAN_TOL):
+            fail(f"{where}: fed the kernel's context, the plain tail is "
+                 f"still off by max {fed_max} (tol {LAYER_TOL}), mean "
+                 f"{fed_mean} (tol {LAYER_MEAN_TOL})")
+        del x, out, ref, codes
+        torch.cuda.empty_cache()
+    results["encoder_layer_q"] = per_shape
 
 
 def check_bin_topk(results: dict, dev) -> None:
@@ -305,6 +687,26 @@ BERT_BASE = dict(model_type="bert", vocab_size=30522, hidden_size=768,
                  intermediate_size=3072, max_position_embeddings=512,
                  type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu",
                  pad_token_id=0, position_embedding_type="absolute")
+# naver/trecdl22-crossencoder-debertav3 is DeBERTa-v3-base (the repo's own
+# dims: scripts/bench_deberta.py)
+DEBERTA_V3_BASE = dict(
+    model_type="deberta-v2", vocab_size=128100, hidden_size=768,
+    num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+    max_position_embeddings=512, type_vocab_size=0, relative_attention=True,
+    position_buckets=256, max_relative_positions=-1, pos_att_type=["p2c",
+                                                                   "c2p"],
+    position_biased_input=False, share_att_key=True,
+    norm_rel_ebd="layer_norm", layer_norm_eps=1e-7, hidden_act="gelu",
+    pooler_hidden_size=768, pooler_hidden_act="gelu", pad_token_id=0,
+    num_labels=1)
+# BAAI/bge-large-en (config/reranker/bge.yaml) as a one-label cross-encoder
+BERT_LARGE_CE = dict(BERT_BASE, hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096,
+                     num_labels=1)
+# cross-encoder/ms-marco-MiniLM-L-6-v2 (config/reranker/minilm6.yaml)
+MINILM_L6_CE = dict(BERT_BASE, hidden_size=384, num_hidden_layers=6,
+                    num_attention_heads=12, intermediate_size=1536,
+                    num_labels=1)
 TINYLLAMA = dict(model_type="llama", vocab_size=32000, hidden_size=2048,
                  num_hidden_layers=22, num_attention_heads=32,
                  num_key_value_heads=4, intermediate_size=5632,
@@ -345,9 +747,132 @@ def _vocab(specials: dict[str, int], size: int, filler: str) -> dict:
     return vocab
 
 
+def _bert_state_dict(w, c: dict, prefix: str = "") -> dict:
+    """A BERT state dict at config ``c`` (seeded ``w``), with the
+    sequence-classification head (pooler + one-label classifier) when
+    ``c`` has ``num_labels``."""
+    import torch
+
+    D, I = c["hidden_size"], c["intermediate_size"]
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16)  # noqa: E731
+    sd = {f"{prefix}embeddings.word_embeddings.weight": w(c["vocab_size"], D),
+          f"{prefix}embeddings.position_embeddings.weight": w(512, D),
+          f"{prefix}embeddings.token_type_embeddings.weight": w(2, D),
+          f"{prefix}embeddings.LayerNorm.weight": ones(D),
+          f"{prefix}embeddings.LayerNorm.bias": zeros(D)}
+    for i in range(c["num_hidden_layers"]):
+        pre = f"{prefix}encoder.layer.{i}"
+        for name, (o, n) in {"attention.self.query": (D, D),
+                             "attention.self.key": (D, D),
+                             "attention.self.value": (D, D),
+                             "attention.output.dense": (D, D),
+                             "intermediate.dense": (I, D),
+                             "output.dense": (D, I)}.items():
+            sd[f"{pre}.{name}.weight"] = w(o, n)
+            sd[f"{pre}.{name}.bias"] = zeros(o)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{pre}.{name}.weight"] = ones(D)
+            sd[f"{pre}.{name}.bias"] = zeros(D)
+    if c.get("num_labels"):
+        sd[f"{prefix}pooler.dense.weight"] = w(D, D)
+        sd[f"{prefix}pooler.dense.bias"] = zeros(D)
+        sd["classifier.weight"] = w(c["num_labels"], D)
+        sd["classifier.bias"] = zeros(c["num_labels"])
+    return sd
+
+
+def _write_bert(path: str, w, c: dict) -> str:
+    from bergen_tpu_torch.models.convert import save_safetensors
+    from bergen_tpu_torch.models.tokenizer import write_tokenizer
+
+    os.makedirs(path, exist_ok=True)
+    prefix = "bert." if c.get("num_labels") else ""
+    save_safetensors(_bert_state_dict(w, c, prefix),
+                     os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    specials = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
+                "[MASK]": 103}
+    write_tokenizer(path, "WordPiece",
+                    _vocab(specials, c["vocab_size"], "[unused{}]"),
+                    {"pad_token": "[PAD]", "unk_token": "[UNK]",
+                     "cls_token": "[CLS]", "sep_token": "[SEP]",
+                     "mask_token": "[MASK]"},
+                    lowercase=True, strip_accents=True,
+                    template=("[CLS]", "[SEP]"))
+    return path
+
+
+def _write_deberta(path: str, w, c: dict) -> str:
+    """DeBERTa-v3-base as DebertaV2ForSequenceClassification (one label)
+    and a Unigram tokenizer over the fixture words, built as DeBERTa-v3's
+    is (Metaspace, [CLS] $A [SEP] $B [SEP]) without its Precompiled
+    charsmap."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+    from bergen_tpu_torch.models.tokenizer import write_tokenizer
+
+    os.makedirs(path, exist_ok=True)
+    D, I = c["hidden_size"], c["intermediate_size"]
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16)  # noqa: E731
+    pre = "deberta."
+    sd = {f"{pre}embeddings.word_embeddings.weight": w(c["vocab_size"], D),
+          f"{pre}embeddings.LayerNorm.weight": ones(D),
+          f"{pre}embeddings.LayerNorm.bias": zeros(D),
+          f"{pre}encoder.rel_embeddings.weight": w(2 * c["position_buckets"],
+                                                   D),
+          f"{pre}encoder.LayerNorm.weight": ones(D),
+          f"{pre}encoder.LayerNorm.bias": zeros(D),
+          "pooler.dense.weight": w(D, D), "pooler.dense.bias": zeros(D),
+          "classifier.weight": w(1, D), "classifier.bias": zeros(1)}
+    for i in range(c["num_hidden_layers"]):
+        lp = f"{pre}encoder.layer.{i}"
+        for name, (o, n) in {"attention.self.query_proj": (D, D),
+                             "attention.self.key_proj": (D, D),
+                             "attention.self.value_proj": (D, D),
+                             "attention.output.dense": (D, D),
+                             "intermediate.dense": (I, D),
+                             "output.dense": (D, I)}.items():
+            sd[f"{lp}.{name}.weight"] = w(o, n)
+            sd[f"{lp}.{name}.bias"] = zeros(o)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{lp}.{name}.weight"] = ones(D)
+            sd[f"{lp}.{name}.bias"] = zeros(D)
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    vocab, scores = {"[PAD]": 0, "[CLS]": 1, "[SEP]": 2, "[UNK]": 3}, {}
+
+    def add(piece, score):
+        if piece not in vocab:
+            vocab[piece] = len(vocab)
+            scores[piece] = score
+
+    add("\u2581", -8.0)
+    for word in _fixture_words():
+        add("\u2581" + word, -5.0)
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789.,?!'-":
+        add(ch, -10.0)
+    while len(vocab) < c["vocab_size"] - 1:
+        add(f"[unused{len(vocab)}]", -20.0)
+    add("[MASK]", 0.0)
+    write_tokenizer(path, "Unigram", vocab,
+                    {"pad_token": "[PAD]", "unk_token": "[UNK]",
+                     "cls_token": "[CLS]", "sep_token": "[SEP]",
+                     "mask_token": "[MASK]"},
+                    lowercase=True, template=("[CLS]", "[SEP]"),
+                    scores=scores)
+    return path
+
+
 def write_checkpoints(root: str, dev) -> dict:
     """Seeded random bf16 weights at the published widths of
-    BAAI/bge-base-en-v1.5 (BERT-base) and TinyLlama-1.1B-Chat-v1.0."""
+    BAAI/bge-base-en-v1.5 (BERT-base), TinyLlama-1.1B-Chat-v1.0,
+    DeBERTa-v3-base (naver/trecdl22-crossencoder-debertav3), a BERT-large
+    cross-encoder (BAAI/bge-large-en) and MiniLM-L6
+    (cross-encoder/ms-marco-MiniLM-L-6-v2)."""
     import torch
     from bergen_tpu_torch.models.convert import save_safetensors
     from bergen_tpu_torch.models.tokenizer import write_tokenizer
@@ -361,46 +886,8 @@ def write_checkpoints(root: str, dev) -> dict:
     def ones(n):
         return torch.ones(n, dtype=torch.bfloat16)
 
-    def zeros(n):
-        return torch.zeros(n, dtype=torch.bfloat16)
-
-    out = {}
-    bert_dir = os.path.join(root, "bge-base-en-v1.5-random")
-    os.makedirs(bert_dir, exist_ok=True)
-    c = BERT_BASE
-    D, I = c["hidden_size"], c["intermediate_size"]
-    sd = {"embeddings.word_embeddings.weight": w(c["vocab_size"], D),
-          "embeddings.position_embeddings.weight": w(512, D),
-          "embeddings.token_type_embeddings.weight": w(2, D),
-          "embeddings.LayerNorm.weight": ones(D),
-          "embeddings.LayerNorm.bias": zeros(D)}
-    for i in range(c["num_hidden_layers"]):
-        pre = f"encoder.layer.{i}"
-        for name, (o, n) in {"attention.self.query": (D, D),
-                             "attention.self.key": (D, D),
-                             "attention.self.value": (D, D),
-                             "attention.output.dense": (D, D),
-                             "intermediate.dense": (I, D),
-                             "output.dense": (D, I)}.items():
-            sd[f"{pre}.{name}.weight"] = w(o, n)
-            sd[f"{pre}.{name}.bias"] = zeros(o)
-        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
-            sd[f"{pre}.{name}.weight"] = ones(D)
-            sd[f"{pre}.{name}.bias"] = zeros(D)
-    save_safetensors(sd, os.path.join(bert_dir, "model.safetensors"))
-    with open(os.path.join(bert_dir, "config.json"), "w") as f:
-        json.dump(c, f, indent=2)
-    specials = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
-                "[MASK]": 103}
-    vocab = _vocab(specials, c["vocab_size"], "[unused{}]")
-    write_tokenizer(bert_dir, "WordPiece", vocab,
-                    {"pad_token": "[PAD]", "unk_token": "[UNK]",
-                     "cls_token": "[CLS]", "sep_token": "[SEP]",
-                     "mask_token": "[MASK]"},
-                    lowercase=True, strip_accents=True,
-                    template=("[CLS]", "[SEP]"))
-    out["bert"] = bert_dir
-    del sd
+    out = {"bert": _write_bert(os.path.join(root, "bge-base-en-v1.5-random"),
+                               w, BERT_BASE)}
 
     llama_dir = os.path.join(root, "tinyllama-1.1b-chat-random")
     os.makedirs(llama_dir, exist_ok=True)
@@ -429,6 +916,13 @@ def write_checkpoints(root: str, dev) -> dict:
                      "unk_token": "<unk>"},
                     lowercase=True, chat_template=ZEPHYR_TEMPLATE)
     out["llama"] = llama_dir
+    del sd
+    out["deberta"] = _write_deberta(
+        os.path.join(root, "debertav3-base-random"), w, DEBERTA_V3_BASE)
+    out["bge_large"] = _write_bert(
+        os.path.join(root, "bge-large-en-ce-random"), w, BERT_LARGE_CE)
+    out["minilm"] = _write_bert(
+        os.path.join(root, "ms-marco-minilm-l6-random"), w, MINILM_L6_CE)
     return out
 
 
@@ -437,18 +931,28 @@ def write_checkpoints(root: str, dev) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def run_main_path(ckpt: dict, workdir: str) -> dict:
-    """``python -m bergen_tpu_torch`` (CONFIG=rag_ut1) in this process, so
-    the kernels' launch counters can be read afterwards."""
+def _local(ckpt: dict, name: str) -> str:
+    """A checkpoint's model name as the CLI runs see it: relative to their
+    folder, through the ``ckpt`` link ``_run_cli`` makes.  Cache file names
+    carry the cleaned model names (the rerank run's carries two), so
+    absolute paths under a deep checkout would pass the file system's
+    255-byte limit."""
+    return f"ckpt/{os.path.basename(ckpt[name])}"
+
+
+def _run_cli(overrides: list[str], workdir: str,
+             ckpt: dict) -> tuple[str, float]:
+    """``python -m bergen_tpu_torch`` (CONFIG=rag_ut1) in this process, in a
+    fresh ``workdir`` (so no stage reads another run's cache) that links
+    the checkpoints as ``ckpt/``, so that the kernels' launch counters can
+    be read afterwards.  Returns (the finished experiment folder, wall
+    seconds)."""
     import runpy
 
-    overrides = [
-        "dataset=ut1", "retriever=bge-base-en-v1.5",
-        f"retriever.init_args.model_name={ckpt['bert']}",
-        "generator=tinyllama-chat",
-        f"generator.init_args.model_name={ckpt['llama']}",
-        f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}",
-    ]
+    os.makedirs(workdir)
+    os.symlink(os.path.dirname(ckpt["bert"]), os.path.join(workdir, "ckpt"))
+    overrides = ["dataset=ut1", *overrides,
+                 f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}"]
     old = (sys.argv, os.getcwd(), os.environ.get("CONFIG"))
     os.environ["CONFIG"] = "rag_ut1"
     os.chdir(workdir)
@@ -468,32 +972,126 @@ def run_main_path(ckpt: dict, workdir: str) -> dict:
     exp_root = os.path.join(workdir, "tests", "run", "experiments")
     exps = [d for d in os.listdir(exp_root) if not d.startswith("tmp_")]
     if len(exps) != 1:
-        fail(f"main path: expected one finished experiment, got {exps}")
-    exp = os.path.join(exp_root, exps[0])
-    with open(os.path.join(exp, "eval_dev_out.json")) as f:
-        rows = json.load(f)
-    with open(os.path.join(exp, "eval_dev_metrics.json")) as f:
-        metrics = json.load(f)
-    with open(os.path.join(exp, "eval_dev_stage_times.json")) as f:
-        stages = json.load(f)
-    trec = [n for n in os.listdir(exp) if n.startswith("run.retrieve.")]
-    if not trec:
-        fail("main path: no TREC run in the experiment folder")
-    with open(os.path.join(exp, trec[0])) as f:
+        fail(f"{overrides}: expected one finished experiment, got {exps}")
+    return os.path.join(exp_root, exps[0]), wall
+
+
+def _json(exp: str, name: str):
+    path = os.path.join(exp, name)
+    if not os.path.exists(path):
+        fail(f"{os.path.basename(exp)}: no {name}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def _trec(exp: str, prefix: str, n_lines: int, cosine: bool) -> list:
+    runs = [n for n in os.listdir(exp) if n.startswith(prefix)]
+    if len(runs) != 1:
+        fail(f"{prefix}: expected one TREC run, got {runs}")
+    with open(os.path.join(exp, runs[0])) as f:
         lines = [ln.split("\t") for ln in f.read().splitlines()]
     scores = [float(ln[4]) for ln in lines]
-    if len(rows) != 50 or len(lines) != 50 * 10:
-        fail(f"main path: {len(rows)} outputs, {len(lines)} TREC lines "
-             "(expected 50 and 500)")
-    if not all(math.isfinite(s) and -1.0001 <= s <= 1.0001 for s in scores):
-        fail("main path: TREC scores not finite cosines")
+    if len(lines) != n_lines:
+        fail(f"{runs[0]}: {len(lines)} lines (expected {n_lines})")
+    if not all(math.isfinite(x) and (not cosine or -1.0001 <= x <= 1.0001)
+               for x in scores):
+        fail(f"{runs[0]}: scores not finite" + (" cosines" if cosine else ""))
+    return scores
+
+
+def _check_outputs(exp: str) -> dict:
+    rows = _json(exp, "eval_dev_out.json")
+    metrics = _json(exp, "eval_dev_metrics.json")
+    if len(rows) != 50:
+        fail(f"{exp}: {len(rows)} outputs (expected 50)")
     if not all(isinstance(r["response"], str) for r in rows):
-        fail("main path: responses are not strings")
+        fail(f"{exp}: responses are not strings")
     if not {"M", "EM", "F1", "Recall_char3gram"} <= set(metrics):
-        fail(f"main path: metrics file lacks keys: {sorted(metrics)}")
-    return {"wall_s": wall, "stage_s": stages, "n_outputs": len(rows),
-            "trec_lines": len(lines), "metrics": metrics,
+        fail(f"{exp}: metrics file lacks keys: {sorted(metrics)}")
+    return {"n_outputs": len(rows), "metrics": metrics,
             "example_response": rows[0]["response"][:80]}
+
+
+def run_main_path(ckpt: dict, workdir: str) -> dict:
+    """The dense eval: BERT-base retriever, TinyLlama generator."""
+    exp, wall = _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}"], workdir,
+        ckpt)
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "trec_lines": 500, **_check_outputs(exp)}
+
+
+def run_ut1_rerank(ckpt: dict, workdir: str) -> dict:
+    """The dense eval with the DeBERTa-v3-base reranker between retrieval
+    and generation (rerank_top_k 10 of retrieve_top_k 10)."""
+    exp, wall = _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "reranker=debertav3",
+        f"reranker.init_args.model_name={_local(ckpt, 'deberta')}",
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}"], workdir,
+        ckpt)
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    scores = _trec(exp, "run.rerank.", 50 * 10, cosine=False)
+    rr = _json(exp, "eval_dev_reranking_metrics.json")
+    stages = _json(exp, "eval_dev_stage_times.json")
+    if "rerank" not in stages:
+        fail(f"ut1_rerank: no rerank stage time: {stages}")
+    return {"wall_s": wall, "stage_s": stages, "reranking_metrics": rr,
+            "rerank_score_range": [min(scores), max(scores)],
+            **_check_outputs(exp)}
+
+
+def run_ut1_rerank_w8a8(ckpt: dict, workdir: str) -> dict:
+    """W8A8 doc encoding (BERT-base) and W8A8 reranking (BERT-large
+    cross-encoder at bge-large-en's width), no generator.  The reranker's
+    guard is lowered to W8A8_RERANK_GUARD so that the W8A8 tree scores the
+    run."""
+    exp, wall = _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "+retriever.init_args.quantization=w8a8",
+        "reranker=bge",
+        f"reranker.init_args.model_name={_local(ckpt, 'bge_large')}",
+        "+reranker.init_args.quantization=w8a8",
+        f"+reranker.init_args.w8a8_guard={W8A8_RERANK_GUARD}"], workdir,
+        ckpt)
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    _trec(exp, "run.rerank.", 50 * 10, cosine=False)
+    retrieval_fid = _json(exp, "eval_dev_retrieval_fidelity.json")
+    rerank_fid = _json(exp, "eval_dev_rerank_fidelity.json")
+    if not any(f.get("kind") == "encoder_w8a8" for f in retrieval_fid):
+        fail(f"ut1_rerank_w8a8: no encoder_w8a8 record: {retrieval_fid}")
+    if rerank_fid.get("kind") != "reranker_w8a8":
+        fail(f"ut1_rerank_w8a8: no reranker_w8a8 record: {rerank_fid}")
+    if not rerank_fid.get("passed"):
+        fail(f"ut1_rerank_w8a8: the reranker guard failed, so the W8A8 "
+             f"tree scored nothing: {rerank_fid}")
+    return {"wall_s": wall, "stage_s": _json(exp,
+                                             "eval_dev_stage_times.json"),
+            "retrieval_fidelity": retrieval_fid, "rerank_fidelity": rerank_fid,
+            "reranking_metrics": _json(exp,
+                                       "eval_dev_reranking_metrics.json")}
+
+
+def run_ut1_rerank_minilm(ckpt: dict, workdir: str) -> dict:
+    """The MiniLM-L6 cross-encoder (heads of width 32), no generator."""
+    exp, wall = _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "reranker=minilm6",
+        f"reranker.init_args.model_name={_local(ckpt, 'minilm')}"], workdir,
+        ckpt)
+    _trec(exp, "run.rerank.", 50 * 10, cosine=False)
+    return {"wall_s": wall, "stage_s": _json(exp,
+                                             "eval_dev_stage_times.json"),
+            "reranking_metrics": _json(exp,
+                                       "eval_dev_reranking_metrics.json")}
 
 
 def _cos_rows(a, b) -> float:
@@ -509,18 +1107,22 @@ def _cos_rows(a, b) -> float:
 def check_against_cpu(ckpt: dict) -> dict:
     """The card's bf16 path against the port's f32 CPU path (every kernel's
     plain version) on a small input at full width: 64 ut1 docs through the
-    retriever (encoder layer), and the prefill plus one decode step
-    (decode attention) of the generator on two ut1 questions."""
+    retriever (encoder layer), the DeBERTa-v3 hidden states of 64 ut1
+    (question, doc) pairs (prebias layer), and the prefill plus one decode
+    step (decode attention) of the generator on two ut1 questions."""
     import torch
-    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models import deberta, llama
     from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.models.rerankers.crossencoder import CrossEncoder
     from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
 
     tol = 0.99  # min cosine, bf16 against f32
     with open(os.path.join(REPO, "tests", "utdata", "ut1_docs.tsv")) as f:
         docs = [ln.split("\t")[1] for ln in f][:64]
     with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
-        questions = [ln.split("\t")[1] for ln in f][:2]
+        all_questions = [ln.split("\t")[1] for ln in f]
+    questions = all_questions[:2]
+    questions_64 = [all_questions[i % len(all_questions)] for i in range(64)]
     kw = dict(max_len=512, pooler="cls", similarity="cos")
     enc = [DenseRetriever(ckpt["bert"], device=d, dtype=t, **kw).encode(
         docs, "doc") for d, t in (("cuda", None), ("cpu", "f32"))]
@@ -551,7 +1153,27 @@ def check_against_cpu(ckpt: dict) -> dict:
                                  cache, valid[:, None, :])[:, -1]
         logits[dev] = (pre.float().cpu().numpy(), step.float().cpu().numpy())
         del llm, cache
-    out = {"encoder_min_cos": _cos_rows(*enc),
+    deb = {}
+    for dev, dtype in (("cuda", None), ("cpu", "f32")):
+        ce = CrossEncoder(ckpt["deberta"], max_len=512, device=dev,
+                          dtype=dtype)
+        pairs = ce.tokenizer(questions_64, docs, truncation="only_second",
+                             max_length=512)["input_ids"]
+        S = max(len(p) for p in pairs)
+        S = next(b for b in ce.buckets if b >= S)
+        ii = torch.zeros(len(pairs), S, dtype=torch.long)
+        am = torch.zeros(len(pairs), S, dtype=torch.long)
+        for r, ids in enumerate(pairs):
+            ii[r, :len(ids)] = torch.tensor(ids)
+            am[r, :len(ids)] = 1
+        with torch.inference_mode():
+            hidden = deberta.encode(ce.params, ce.cfg, ii.to(ce.device),
+                                    am.to(ce.device),
+                                    pos_tables=ce._tables_for(S))
+        deb[dev] = hidden.float().cpu()[am.bool()].numpy()
+        del ce, hidden
+    out = {"deberta_hidden_min_cos": _cos_rows(deb["cuda"], deb["cpu"]),
+           "encoder_min_cos": _cos_rows(*enc),
            "prefill_logits_min_cos": _cos_rows(logits["cuda"][0],
                                                logits["cpu"][0]),
            "decode_logits_min_cos": _cos_rows(logits["cuda"][1],
@@ -577,8 +1199,8 @@ def run_retrieval_at_scale(ckpt: dict, workdir: str) -> dict:
     src = rng.choice(N, size=Q, replace=False)
     qry = docs[src] + 0.05 * rng.standard_normal((Q, D), dtype=np.float32)
     qry /= np.linalg.norm(qry, axis=1, keepdims=True)
-    d_path = os.path.join(workdir, "scale_index", "doc")
-    q_path = os.path.join(workdir, "scale_index", "query")
+    d_path = os.path.join(workdir, "doc")
+    q_path = os.path.join(workdir, "query")
     os.makedirs(d_path)
     os.makedirs(q_path)
     for c, s in enumerate(range(0, N, CHUNK_DOCS)):
@@ -658,10 +1280,15 @@ def main() -> None:
     from bergen_tpu_torch.ops import fused_topk as ft
 
     counters = {"encoder_layer": ea.encoder_layer,
+                "encoder_layer_prebias": ea.encoder_layer_prebias,
+                "encoder_layer_q": ea.encoder_layer_q,
                 "bin_topk": ft.bin_scores,
                 "decode_attention": da.decode_attention}
     results: dict = {}
     check_encoder_layer(results, dev)
+    check_encoder_layer_prebias(results, dev, PREBIAS_SHAPES)
+    time_deberta_layer(results, dev)
+    check_encoder_layer_q(results, dev)
     check_bin_topk(results, dev)
     check_decode_attention(results, dev)
     torch.cuda.empty_cache()
@@ -675,11 +1302,15 @@ def main() -> None:
     by_path: dict = {}
     try:
         for path, run in (("ut1_eval", run_main_path),
-                          ("retrieval_at_scale", run_retrieval_at_scale)):
+                          ("retrieval_at_scale", run_retrieval_at_scale),
+                          ("ut1_rerank", run_ut1_rerank),
+                          ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
+                          ("ut1_rerank_minilm", run_ut1_rerank_minilm)):
             for fn in counters.values():
                 fn.launches = 0
-            emit({"phase": path, **run(ckpt, work)})
+            emit({"phase": path, **run(ckpt, os.path.join(work, path))})
             by_path[path] = {n: fn.launches for n, fn in counters.items()}
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "launches", **by_path})
@@ -687,6 +1318,10 @@ def main() -> None:
             for n in names if by_path[path][n] == 0]
     if idle:
         fail(f"kernels never launched where the path runs them: {idle}")
+    n_q = by_path["ut1_rerank_w8a8"]["encoder_layer_q"]
+    if n_q <= W8A8_GUARD_LAUNCHES:
+        fail(f"ut1_rerank_w8a8: {n_q} W8A8 layer launches, none beyond the "
+             f"{W8A8_GUARD_LAUNCHES} of the doc encoding and the guard batch")
     emit({"phase": "reference_check", **check_against_cpu(ckpt)})
 
     line = []

@@ -80,6 +80,17 @@ def test_matches_jax_kernel_short_buckets(S):
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
 
 
+def test_matches_jax_kernel_head_width_32():
+    """MiniLM-style heads of width 32 (the JAX kernel takes them as 4
+    heads per 128-lane group; the CUDA attention is built for 32 and 64)."""
+    rng = np.random.default_rng(32)
+    B, S, D, H, I = 8, 128, 128, 4, 256
+    layer = _layer(rng, D, I)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    out, ref = _run_both(layer, x, _mask(B, S), H, "gelu")
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
 def test_plain_rounds_like_the_kernel_in_bf16():
     """In bf16 the plain version rounds qkv, probabilities, context and the
     FFN hidden; it stays within bf16 noise of its own f32 result."""

@@ -92,7 +92,6 @@ def test_safetensors_writer_roundtrip(tmp_path):
 def test_bert_key_map_matches_jax(tiny):
     hf_cfg, sd = jconvert.load_hf_encoder(tiny["bert"])
     jtree = jconvert.bert_from_hf(sd, hf_cfg.num_hidden_layers)
-    jtree.pop("pooler", None)  # the pooler head is not on the port's path
     cfg, tsd = tconvert.load_checkpoint(tiny["bert"])
     ttree = tconvert.bert_from_hf(tsd, cfg.num_hidden_layers)
     _assert_same_tree(_np_tree(ttree), _np_tree(jtree))
@@ -231,6 +230,28 @@ def test_core_blocks_match_jax(fn):
         out = getattr(tcore, fn)(tp, tx)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=0)
+
+
+def test_bf16_dense_rounds_once_as_jax():
+    """bf16 dense: f32 sums plus the f32 bias, rounded to bf16 once (the
+    same bf16 values as JAX's; rounding the sums before the bias too moves
+    28% of them here)."""
+    from bergen_tpu.models import core as jcore
+    from bergen_tpu_torch.models import core as tcore
+
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((4, 16, 64)).astype(np.float32)
+    p = {"kernel": (0.2 * rng.standard_normal((64, 48))).astype(np.float32),
+         "bias": rng.standard_normal(48).astype(np.float32)}
+    ref = jcore.dense({"kernel": jnp.asarray(p["kernel"], jnp.bfloat16),
+                       "bias": jnp.asarray(p["bias"])},
+                      jnp.asarray(x, jnp.bfloat16))
+    out = tcore.dense({"kernel": torch.from_numpy(p["kernel"]).bfloat16(),
+                       "bias": torch.from_numpy(p["bias"])},
+                      torch.from_numpy(x).bfloat16())
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
 
 
 def test_first_token_logits_match_jax(tiny):

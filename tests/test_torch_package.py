@@ -40,16 +40,18 @@ def _targets(node, found):
     return found
 
 
+@pytest.mark.parametrize("reranker", [None, "debertav3", "minilm6", "bge"])
 @pytest.mark.parametrize("retriever", ["bge-base-en-v1.5", "e5-base-v2",
                                        "contriever"])
-def test_slice_targets_all_map(retriever):
+def test_slice_targets_all_map(retriever, reranker):
     from bergen_tpu_torch import confy
 
     cfg = confy.compose(os.path.join(REPO, "config"), "rag_ut1", [
-        "dataset=ut1", f"retriever={retriever}", "generator=tinyllama-chat"])
+        "dataset=ut1", f"retriever={retriever}", "generator=tinyllama-chat"]
+        + ([f"reranker={reranker}"] if reranker else []))
     found = _targets(cfg, set())
     found.add("bergen_tpu.models.query_generators.copy.CopyQuery")
-    assert len(found) == 5
+    assert len(found) == (6 if reranker else 5)
     for target in found:
         port = confy.resolve_target(target)
         assert port.startswith("bergen_tpu_torch.")
@@ -59,9 +61,9 @@ def test_slice_targets_all_map(retriever):
 def test_unported_target_raises_with_its_name():
     from bergen_tpu_torch import confy
 
-    with pytest.raises(NotImplementedError, match="CrossEncoder"):
+    with pytest.raises(NotImplementedError, match="SpladeRetriever"):
         confy.instantiate({
-            "_target_": "bergen_tpu.models.rerankers.crossencoder.CrossEncoder"})
+            "_target_": "bergen_tpu.models.retrievers.splade.SpladeRetriever"})
 
 
 def test_config_is_not_rewritten():
@@ -92,12 +94,14 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_entry_points_default_to_cuda(monkeypatch):
     import torch
     from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.models.rerankers.crossencoder import CrossEncoder
     from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
     from bergen_tpu_torch.pipeline.retrieve import Retrieve
     from bergen_tpu_torch.rag import RAG
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for ctor in (lambda: LLM("unused"), lambda: DenseRetriever("unused"),
+                 lambda: CrossEncoder("unused"),
                  lambda: Retrieve(model=object()),
                  lambda: RAG(config={}, experiments_folder="/nonexistent")):
         with pytest.raises(RuntimeError, match="device 'cuda'"):

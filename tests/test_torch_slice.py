@@ -9,6 +9,10 @@
    TREC scores agree within 1e-6 but not to the last bit: XLA's dot sums in
    another order than torch's, and about 1% of the fp16 index values round
    the other way (ROADMAP.md Queue 3).
+   The same with a tiny DeBERTa-v2 cross-encoder (``reranker=debertav3``)
+   between retrieval and generation: the rerank TREC run holds the same
+   docs in the same order with scores within 1e-5 (two layers of f32 sums
+   in another order), and the reranking metrics are equal.
 2. ``Retrieve`` with ``topk_method=fused`` over a 2,048-doc synthetic index
    in both packages, with the recall guard off (the fused result itself) and
    on (the guard ladder falls back to exact top-k): same TREC run, same
@@ -29,13 +33,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCORE_ATOL = 1e-6
 
 
+RERANK_SCORE_ATOL = 1e-5
+
+
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
+    from test_torch_deberta import build_tiny_deberta
     from tiny_models import build_tiny_bert, build_tiny_llama
 
     root = tmp_path_factory.mktemp("models")
     return {"bert": build_tiny_bert(str(root / "bert")),
-            "llama": build_tiny_llama(str(root / "llama"))}
+            "llama": build_tiny_llama(str(root / "llama")),
+            "deberta": build_tiny_deberta(str(root / "deberta"))}
 
 
 def _overrides(root, models):
@@ -61,31 +70,37 @@ def _experiment(root):
     return os.path.join(root, "experiments", exps[0])
 
 
-def _assert_same_trec(a, b):
+def _assert_same_trec(a, b, atol=SCORE_ATOL):
     la = [ln.split("\t") for ln in open(a).read().splitlines()]
     lb = [ln.split("\t") for ln in open(b).read().splitlines()]
     assert len(la) == len(lb) > 0
     for x, y in zip(la, lb):
         assert x[:4] == y[:4] and x[5] == y[5]
-        assert abs(float(x[4]) - float(y[4])) <= SCORE_ATOL
+        assert abs(float(x[4]) - float(y[4])) <= atol
 
 
-def test_rag_ut1_eval_matches_jax(tmp_path, models):
+def _run_both(tmp_path, overrides):
+    """bergen.main and ``python -m bergen_tpu_torch ... device=cpu`` on the
+    same overrides -> (JAX experiment folder, port experiment folder)."""
     import bergen
     from bergen_tpu import confy
 
     jroot, troot = tmp_path / "jax", tmp_path / "torch"
     bergen.main(confy.compose(os.path.join(REPO, "config"), "rag_ut1",
-                              _overrides(jroot, models)))
+                              overrides(jroot)))
     os.makedirs(troot)
     env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO)
     out = subprocess.run(
-        [sys.executable, "-m", "bergen_tpu_torch",
-         *_overrides(troot, models), "device=cpu"],
+        [sys.executable, "-m", "bergen_tpu_torch", *overrides(troot),
+         "device=cpu"],
         cwd=troot, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+    return _experiment(jroot), _experiment(troot)
 
-    jexp, texp = _experiment(jroot), _experiment(troot)
+
+def test_rag_ut1_eval_matches_jax(tmp_path, models):
+    jroot, troot = tmp_path / "jax", tmp_path / "torch"
+    jexp, texp = _run_both(tmp_path, lambda root: _overrides(root, models))
     with open(os.path.join(jexp, "config.yaml")) as f, \
             open(os.path.join(texp, "config.yaml")) as g:
         assert f.read().replace(str(jroot), "ROOT") == \
@@ -104,6 +119,30 @@ def test_rag_ut1_eval_matches_jax(tmp_path, models):
         _assert_same_trec(os.path.join(jexp, name), os.path.join(texp, name))
     rows = json.load(open(os.path.join(texp, "eval_dev_out.json")))
     assert len(rows) == 50 and all(r["response"] for r in rows)
+
+
+def test_rag_ut1_rerank_matches_jax(tmp_path, models):
+    jexp, texp = _run_both(tmp_path, lambda root: _overrides(root, models) + [
+        "reranker=debertav3",
+        f"reranker.init_args.model_name={models['deberta']}",
+        "reranker.init_args.max_len=128"])
+    with open(os.path.join(jexp, "eval_dev_out.json"), "rb") as f, \
+            open(os.path.join(texp, "eval_dev_out.json"), "rb") as g:
+        assert f.read() == g.read()
+    for name in ("eval_dev_metrics.json", "eval_dev_ranking_metrics.json",
+                 "eval_dev_reranking_metrics.json"):
+        with open(os.path.join(jexp, name)) as f, \
+                open(os.path.join(texp, name)) as g:
+            assert json.load(f) == json.load(g), name
+    runs = [n for n in os.listdir(jexp) if n.startswith("run.rerank.")]
+    assert len(runs) == 1
+    for name in (runs[0], "eval_dev_reranking_run.trec"):
+        _assert_same_trec(os.path.join(jexp, name), os.path.join(texp, name),
+                          RERANK_SCORE_ATOL)
+    lines = open(os.path.join(texp, runs[0])).read().splitlines()
+    assert len(lines) == 50 * 10
+    with open(os.path.join(texp, "eval_dev_stage_times.json")) as f:
+        assert "rerank" in json.load(f)
 
 
 class _StubModel:
