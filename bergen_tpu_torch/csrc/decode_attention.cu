@@ -18,15 +18,16 @@
 // all `group` queries in registers, the f32 scores of the whole row live in
 // shared memory ([group, L], 68 KB at group 8, L 2,112), the softmax runs one
 // warp per query head, and the context product streams V the same way and
-// reduces across keys with shuffles and one shared-memory pass.  Splitting
-// L over more blocks (more SMs in flight at small B) is later work.
+// reduces across keys with shuffles and one shared-memory pass.  The head
+// width DH (64 or 128) is a template parameter: DH / 8 threads cover one key
+// row, so a pass over 256 threads takes 2048 / DH keys.  Splitting L over
+// more blocks (more SMs in flight at small B) is later work.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int DH = 64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
@@ -40,7 +41,7 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-template <int G>
+template <int G, int DH>
 __global__ void __launch_bounds__(THREADS)
     decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   const bf16* __restrict__ vc,
@@ -51,7 +52,9 @@ __global__ void __launch_bounds__(THREADS)
   float* red = sm + G * L;     // [WARPS, G, DH] partial contexts
   const int kh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = tid & 7, kl = tid >> 3;  // 8 threads per key row
+  constexpr int CH = DH / 8;                  // threads per key row
+  constexpr int KPASS = THREADS / CH;         // key rows per pass
+  const int chunk = tid % CH, kl = tid / CH;
   const size_t KHD = (size_t)KH * DH;
   const bf16* kb = kc + (size_t)b * L * KHD + kh * DH + chunk * 8;
   const bf16* vb = vc + (size_t)b * L * KHD + kh * DH + chunk * 8;
@@ -65,7 +68,7 @@ __global__ void __launch_bounds__(THREADS)
     unpack8(u, qv[gi]);
   }
 
-  for (int l0 = 0; l0 < L; l0 += THREADS / 8) {
+  for (int l0 = 0; l0 < L; l0 += KPASS) {
     const int l = l0 + kl;
     float part[G];
 #pragma unroll
@@ -79,11 +82,10 @@ __global__ void __launch_bounds__(THREADS)
         for (int i = 0; i < 8; ++i) part[gi] += qv[gi][i] * kf[i];
     }
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      part[gi] += __shfl_xor_sync(0xffffffffu, part[gi], 1);
-      part[gi] += __shfl_xor_sync(0xffffffffu, part[gi], 2);
-      part[gi] += __shfl_xor_sync(0xffffffffu, part[gi], 4);
-    }
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int off = 1; off < CH; off <<= 1)
+        part[gi] += __shfl_xor_sync(0xffffffffu, part[gi], off);
     if (chunk == 0 && l < L) {
       const bool ok = vm[l] != 0;
 #pragma unroll
@@ -120,7 +122,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[gi][i] = 0.f;
-  for (int l = kl; l < L; l += THREADS / 8) {
+  for (int l = kl; l < L; l += KPASS) {
     float vf[8];
     unpack8(*reinterpret_cast<const uint4*>(vb + l * KHD), vf);
 #pragma unroll
@@ -133,11 +135,11 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      acc[gi][i] += __shfl_xor_sync(0xffffffffu, acc[gi][i], 8);
-      acc[gi][i] += __shfl_xor_sync(0xffffffffu, acc[gi][i], 16);
-    }
-  if (lane < 8) {
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int off = CH; off < 32; off <<= 1)
+        acc[gi][i] += __shfl_xor_sync(0xffffffffu, acc[gi][i], off);
+  if (lane < CH) {
 #pragma unroll
     for (int gi = 0; gi < G; ++gi)
 #pragma unroll
@@ -154,45 +156,57 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int G>
+template <int G, int DH>
 int launch(const void* q, const void* k, const void* v, const void* valid,
            void* out, int B, int H, int KH, int L, float scale,
            cudaStream_t st) {
   const size_t smem = ((size_t)G * L + (size_t)WARPS * G * DH) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<G, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(KH, B);
-  decode_kernel<G><<<grid, THREADS, smem, st>>>(
+  decode_kernel<G, DH><<<grid, THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(valid),
       static_cast<bf16*>(out), H, KH, L, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int launch_dh(const void* q, const void* k, const void* v, const void* valid,
+              void* out, int B, int H, int KH, int L, float scale,
+              cudaStream_t st) {
+  switch (H / KH) {
+    case 1:
+      return launch<1, DH>(q, k, v, valid, out, B, H, KH, L, scale, st);
+    case 2:
+      return launch<2, DH>(q, k, v, valid, out, B, H, KH, L, scale, st);
+    case 4:
+      return launch<4, DH>(q, k, v, valid, out, B, H, KH, L, scale, st);
+    case 8:
+      return launch<8, DH>(q, k, v, valid, out, B, H, KH, L, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// q [B, H, 64], k/v [B, L, KH*64] bf16, valid [B, L] uint8 -> out [B, H, 64].
-// Returns cudaErrorInvalidValue for a group size it was not built for.
+// q [B, H, Dh], k/v [B, L, KH*Dh] bf16, valid [B, L] uint8 -> out [B, H, Dh].
+// Returns cudaErrorInvalidValue for a head width or group size it was not
+// built for.
 int decode_attention(const void* q, const void* k, const void* v,
                      const void* valid, void* out, int B, int H, int KH, int L,
-                     float scale, void* stream) {
+                     int Dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H / KH) {
-    case 1:
-      return launch<1>(q, k, v, valid, out, B, H, KH, L, scale, st);
-    case 2:
-      return launch<2>(q, k, v, valid, out, B, H, KH, L, scale, st);
-    case 4:
-      return launch<4>(q, k, v, valid, out, B, H, KH, L, scale, st);
-    case 8:
-      return launch<8>(q, k, v, valid, out, B, H, KH, L, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (Dh == 64)
+    return launch_dh<64>(q, k, v, valid, out, B, H, KH, L, scale, st);
+  if (Dh == 128)
+    return launch_dh<128>(q, k, v, valid, out, B, H, KH, L, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

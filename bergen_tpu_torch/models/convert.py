@@ -31,8 +31,10 @@ _ST_DTYPES = {
 }
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
-# leaves kept in f32 whatever the compute dtype (as the JAX to_device_tree)
-NORM_KEYS = ("ln", "scale", "bias", "attn_norm", "mlp_norm", "final_norm")
+# leaves kept in f32 whatever the compute dtype (as the JAX to_device_tree):
+# norm parameters, biases and the quantized formats' scales
+NORM_KEYS = ("ln", "scale", "bias", "attn_norm", "mlp_norm", "final_norm",
+             "kernel_scale", "kernel_scale_a8", "kernel_scale4")
 
 
 # --------------------------------------------------------------------------- #
@@ -273,14 +275,100 @@ def quantize_encoder_layers_w8a8(params: Mapping) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------------------- #
+# int4 weight-only, group-wise (bergen_tpu/models/convert.py:489)
+# --------------------------------------------------------------------------- #
+
+
+def quantize_int4_packed(kernel: torch.Tensor, group: int = 128):
+    """(packed codes [d_in/2, d_out] int8, scales [d_in/group, d_out] f32)
+    of one [d_in, d_out] kernel, on the kernel's device: scale = max(max|W_g|
+    / 7, 1e-8) per group of ``group`` input rows and output column, codes
+    clip(round(W / scale), -7, 7) half to even, two codes a byte in the
+    dot-identity encoding ``((hi - (lo < 0)) << 4) | (lo & 0xF)`` with even
+    rows in the low nibble (``ops/int4_matmul.py`` reads this layout)."""
+    kf = kernel.float()
+    d_in, d_out = kf.shape
+    g = kf.reshape(d_in // group, group, d_out)
+    m = g.abs().amax(dim=1)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which rounds differently
+    scale = (m / torch.full_like(m, 7.0)).clamp_min(1e-8)
+    q = torch.round(g / scale[:, None, :]).clamp(-7, 7).to(torch.int8)
+    q = q.reshape(d_in, d_out)
+    lo, hi = q[0::2], q[1::2]
+    packed = ((hi - (lo < 0).to(torch.int8)) << 4) | (lo & 0x0F)
+    return packed.to(torch.int8), scale
+
+
+def quantize_tree_int4(params, min_size: int = 1 << 16, group: int = 128,
+                       packed: bool = True, device=None):
+    """Replace every 2-D ``kernel`` leaf of at least ``min_size`` elements
+    whose d_in divides into groups by ``kernel_q4p`` + ``kernel_scale4``
+    (``quantize_int4_packed``), in place, as the JAX package's
+    ``quantize_tree_int4(packed=True)`` does, bit for bit.  Each leaf is
+    quantized on ``device`` (default: where it lies), one at a time, so a
+    large tree is never held in f32 whole.  Smaller leaves stay dense; the
+    embedding is no ``kernel`` and is never quantized."""
+    if not packed:
+        raise NotImplementedError(
+            "quantize_tree_int4(packed=False): the jnp.int4 storage form is "
+            "not ported; the generators always pack")
+
+    def visit(node):
+        if isinstance(node, dict):
+            k = node.get("kernel")
+            if isinstance(k, torch.Tensor) and k.dim() == 2 \
+                    and k.numel() >= min_size and k.shape[0] % group == 0:
+                if k.shape[0] % 2:
+                    raise ValueError(
+                        f"packed int4 needs an even d_in, got {k.shape[0]} "
+                        f"(group={group}); pick an even group size")
+                node["kernel_q4p"], node["kernel_scale4"] = \
+                    quantize_int4_packed(
+                        k if device is None else k.to(device), group)
+                del node["kernel"]
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+
+    visit(params)
+    return params
+
+
+def unpack_int4(kernel_q4p: torch.Tensor) -> torch.Tensor:
+    """[d_in/2, d_out] packed codes -> [d_in, d_out] int8 in [-7, 7]: the
+    low nibble sign-extended (row 2i), and hi = (b >> 4) + ((b >> 3) & 1)
+    (row 2i + 1), bit 3 being the low nibble's sign."""
+    b = kernel_q4p
+    lo = (b << 4) >> 4
+    hi = (b >> 4) + ((b >> 3) & 1)
+    d2, d_out = b.shape
+    return torch.stack([lo, hi], dim=1).reshape(d2 * 2, d_out)
+
+
+def dequantize_int4(kernel_q4: torch.Tensor, kernel_scale4: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """[d_in, d_out] codes + [n_groups, d_out] scales -> the dense kernel in
+    ``dtype`` (codes and scales rounded to ``dtype`` before the product, as
+    the JAX function)."""
+    d_in, d_out = kernel_q4.shape
+    n_groups = kernel_scale4.shape[0]
+    g = kernel_q4.to(dtype).reshape(n_groups, d_in // n_groups, d_out)
+    return (g * kernel_scale4[:, None, :].to(dtype)).reshape(d_in, d_out)
+
+
+# --------------------------------------------------------------------------- #
 # placement
 # --------------------------------------------------------------------------- #
 
 
 def to_device(tree, dtype: torch.dtype, device, _keep_f32: bool = False):
-    """Copy a tree onto ``device``: weights in ``dtype``, norm parameters
-    and biases in f32 (the JAX package's ``to_device_tree`` rule); every
-    leaf contiguous."""
+    """Copy a tree onto ``device``: weights in ``dtype``, norm parameters,
+    biases and quantization scales in f32 (the JAX package's
+    ``to_device_tree`` rule); integer codes unchanged; every leaf
+    contiguous."""
     if isinstance(tree, dict):
         return {k: to_device(v, dtype, device, _keep_f32 or k in NORM_KEYS)
                 for k, v in tree.items()}

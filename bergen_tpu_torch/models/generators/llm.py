@@ -4,9 +4,10 @@ llama/mistral checkpoint read from a local HF directory with the port's own
 tokenizer and safetensors readers.
 
 Ported: left-padded length-bucketed batches (``_tokenize_left_pad``),
-greedy ``generate`` and ``first_token_logits``.  Sampling, beam search,
-quantization, tensor parallelism and the serving engine are not ported yet
-and raise.
+greedy ``generate`` and ``first_token_logits``, and ``quantization:
+int4`` (weight-only, group-wise, packed: ``jax_llm.py:119-123``).  Sampling,
+beam search, the int8 and W8A8 quantizations, tensor parallelism and the
+serving engine are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ class LLM(Generator):
         **_ignored,
     ):
         unported = {
-            "quantization": quantization is not None, "tp": tp != 1,
+            f"quantization={quantization!r}":
+                quantization not in (None, "int4"),
+            "tp": tp != 1,
             "serve": serve, "temperature": temperature != 0,
             "beam search": use_beam_search or (num_beams or 1) > 1
             or best_of > 1,
@@ -72,10 +75,15 @@ class LLM(Generator):
         )
         hf_cfg, sd = convert.load_checkpoint(model_name)
         self.cfg = llama.LlamaConfig.from_hf(hf_cfg)
-        self.params = convert.to_device(
-            convert.llama_from_hf(sd, self.cfg.num_layers), self.dtype,
-            self.device)
+        params = convert.llama_from_hf(sd, self.cfg.num_layers)
         del sd
+        if quantization == "int4":
+            # as jax_llm: quantize (packed) before placement, here leaf by
+            # leaf on the target device
+            params = convert.quantize_tree_int4(params, packed=True,
+                                                device=self.device)
+        self.params = convert.to_device(params, self.dtype, self.device)
+        del params
         self.buckets = make_buckets(max_length or 2048)
 
     def _tokenize_left_pad(self, prompts: List[str]):

@@ -4,9 +4,13 @@
 Plain functions over the JAX package's parameter tree: RoPE (split-half),
 GQA, RMSNorm, SwiGLU, and a flat KV cache ``[n_layers, B, L, KH*Dh]``
 written at a cursor.  Prefill attention is plain PyTorch (the JAX package
-leaves it to XLA by default); every S=1 decode step goes through
-``ops.decode_attention.decode_attention`` (the CUDA kernel on the card).
-The cache is updated in place, where the JAX function returns a new one.
+leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is on, when it
+goes through ``ops.flash_attention.flash_attention``; every S=1 decode step
+goes through ``ops.decode_attention.decode_attention`` (the CUDA kernels on
+the card).  Projections of an int4 tree (``convert.quantize_tree_int4``)
+take ``ops.int4_matmul.matmul_int4_packed`` inside its shape rule and the
+JAX package's dequantized product outside it.  The cache is updated in
+place, where the JAX function returns a new one.
 """
 
 from __future__ import annotations
@@ -17,8 +21,11 @@ from typing import Any, Dict
 
 import torch
 
+from bergen_tpu_torch.models import convert
 from bergen_tpu_torch.models.core import rmsnorm
+from bergen_tpu_torch.ops import int4_matmul
 from bergen_tpu_torch.ops.decode_attention import decode_attention
+from bergen_tpu_torch.ops.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -96,7 +103,40 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 
 def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "kernel_q4p" in p:
+        # int4 weight-only (bergen_tpu/models/llama.py:328-352): the kernel
+        # inside its shape rule, else the dequantized product
+        wp, sc = p["kernel_q4p"], p["kernel_scale4"]
+        K, N = wp.shape[0] * 2, wp.shape[1]
+        if int4_matmul.supports(K, N, sc.shape[0]):
+            y = int4_matmul.matmul_int4_packed(x.reshape(-1, K), wp, sc)
+            return y.reshape(*x.shape[:-1], N).to(x.dtype)
+        return _int4_dequant_proj(wp, sc, x)
     return x @ p["kernel"]
+
+
+def _int4_dequant_proj(wp: torch.Tensor, sc: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's product for an int4 projection outside the
+    kernel's shape rule: the weights dequantized to x's dtype, then a plain
+    matmul.  ``calls`` counts it."""
+    _int4_dequant_proj.calls += 1
+    w = convert.dequantize_int4(convert.unpack_int4(wp), sc, x.dtype)
+    return torch.matmul(x, w)
+
+
+_int4_dequant_proj.calls = 0
+
+# Flash-attention prefill switch, as the JAX package's: None = off (its
+# auto setting, measured there), True/False force.  S = 1 decode steps never
+# take it.
+USE_FLASH_PREFILL: bool | None = None
+
+
+def _flash_enabled(S: int) -> bool:
+    if S <= 1:
+        return False
+    return bool(USE_FLASH_PREFILL)
 
 
 def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
@@ -119,8 +159,16 @@ def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
         ctx = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                attn_mask[:, -1], kv_heads=KH, sm_scale=scale)
         return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
-    # prefill: keys are the cache slots written so far
+    # prefill: keys are the cache slots written so far.  The JAX package
+    # also gates flash on sliding windows, softcaps and custom query scales
+    # (llama.py:747-754); the ported families have none of them.
     Lk = cur + S
+    if _flash_enabled(S):
+        ctx = flash_attention(
+            q, k_cache[:, :Lk].view(B, Lk, KH, Dh),
+            v_cache[:, :Lk].view(B, Lk, KH, Dh), attn_mask[:, -1, :Lk],
+            causal=True, q_offset=cur)
+        return _proj(layer["attn"]["o"], ctx.reshape(B, S, H * Dh))
     G = H // KH
     k4 = k_cache[:, :Lk].reshape(B, Lk, KH, Dh).float()
     v4 = v_cache[:, :Lk].reshape(B, Lk, KH, Dh).float()

@@ -4,12 +4,14 @@ The port's machine has neither ``transformers`` nor ``tokenizers``, so the
 port carries the part of them its checkpoints use, with the same results as
 ``AutoTokenizer`` on those files:
 
-* models: WordPiece, WordLevel and Unigram (sentencepiece's Viterbi over
+* models: WordPiece, WordLevel, Unigram (sentencepiece's Viterbi over
   ``(piece, score)``, consecutive unknown characters fused into one
-  ``unk_id``), the family of DeBERTa-v3's tokenizer;
-* normalizers: Lowercase, StripAccents, Strip, Replace (and a Sequence of
-  them).  ``Precompiled`` (a serialized sentencepiece charsmap, which
-  DeBERTa-v3's published ``tokenizer.json`` carries) is not read yet;
+  ``unk_id``), the family of DeBERTa-v3's tokenizer, and BPE with ranked
+  merges, ``byte_fallback`` to ``<0xNN>`` tokens, ``fuse_unk`` and
+  ``ignore_merges`` (Llama-2's and TinyLlama's ``tokenizer.json``);
+* normalizers: Lowercase, StripAccents, Strip, Replace, Prepend (and a
+  Sequence of them).  ``Precompiled`` (a serialized sentencepiece charsmap,
+  which DeBERTa-v3's published ``tokenizer.json`` carries) is not read yet;
 * pre-tokenizers: Whitespace, WhitespaceSplit, Punctuation (Removed or
   Isolated), Metaspace, and a Sequence of them;
 * the TemplateProcessing post-processor, single (``[CLS] $A [SEP]``) and
@@ -18,7 +20,8 @@ port carries the part of them its checkpoints use, with the same results as
   pairs, as ``tokenizers`` truncates a cross-encoder's documents);
 * added tokens, matched in the raw text before normalisation;
 * ``decode``/``batch_decode`` (no decoder: tokens joined by spaces, or the
-  WordPiece or Metaspace decoder), ``skip_special_tokens``;
+  WordPiece or Metaspace decoder, or a Sequence of Replace, ByteFallback,
+  Fuse and Strip decoders: Llama-2's), ``skip_special_tokens``;
 * ``apply_chat_template`` rendered with jinja2 as transformers renders it.
 
 Any other component raises ``NotImplementedError`` naming it.
@@ -28,6 +31,7 @@ Any other component raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
+import heapq
 import json
 import os
 import re
@@ -75,6 +79,9 @@ def _normalizer(spec):
             rx = re.compile(pat["Regex"])
             return lambda s: rx.sub(lambda _: content, s)
         return lambda s: s.replace(pat["String"], content)
+    if kind == "Prepend":
+        pre = spec["prepend"]
+        return lambda s: pre + s if s else s
     raise NotImplementedError(f"tokenizer normalizer {kind!r}")
 
 
@@ -261,6 +268,161 @@ class _Unigram:
         return toks[::-1]
 
 
+class _BPE:
+    """``tokenizers``' BPE model: each character is a symbol (its vocab id;
+    else, with ``byte_fallback``, its UTF-8 bytes as ``<0xNN>`` tokens when
+    all exist; else ``unk_token``, consecutive ones fused with
+    ``fuse_unk``), then the adjacent pair of lowest merge rank is merged,
+    the leftmost first, until none is left (the library's queue, stale
+    entries included, so the merge order is its own)."""
+
+    def __init__(self, spec):
+        for opt in ("dropout", "continuing_subword_prefix",
+                    "end_of_word_suffix"):
+            if spec.get(opt):
+                raise NotImplementedError(
+                    f"tokenizer BPE {opt}={spec[opt]!r}")
+        self.vocab = spec["vocab"]
+        self.unk_id = (self.vocab[spec["unk_token"]]
+                       if spec.get("unk_token") is not None else None)
+        self.fuse_unk = bool(spec.get("fuse_unk"))
+        self.byte_fallback = bool(spec.get("byte_fallback"))
+        self.ignore_merges = bool(spec.get("ignore_merges"))
+        self.merges = {}  # (left id, right id) -> (rank, merged id)
+        for rank, m in enumerate(spec["merges"]):
+            a, b = m.split(" ") if isinstance(m, str) else m
+            self.merges[(self.vocab[a], self.vocab[b])] = (rank,
+                                                           self.vocab[a + b])
+
+    def _symbols(self, word: str) -> list[int]:
+        ids: list[int] = []
+        unk = None  # a pending unknown, added before the next vocab char
+        for ch in word:
+            i = self.vocab.get(ch)
+            if i is not None:
+                if unk is not None:
+                    ids.append(unk)
+                    unk = None
+                ids.append(i)
+                continue
+            if self.byte_fallback:
+                bs = [self.vocab.get(f"<0x{b:02X}>") for b in ch.encode()]
+                if None not in bs:
+                    ids.extend(bs)
+                    continue
+            if self.unk_id is not None:
+                if unk is not None and not self.fuse_unk:
+                    ids.append(unk)
+                unk = self.unk_id
+        if unk is not None:
+            ids.append(unk)
+        return ids
+
+    def tokenize(self, word: str) -> list[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        sym = self._symbols(word)
+        n = len(sym)
+        nxt = list(range(1, n)) + [-1]
+        prv = list(range(-1, n - 1))
+        gone = [False] * n
+        queue = []
+
+        def push(pos):
+            m = self.merges.get((sym[pos], sym[nxt[pos]]))
+            if m is not None:
+                heapq.heappush(queue, (m[0], pos, m[1]))
+
+        for pos in range(n - 1):
+            push(pos)
+        while queue:
+            _, pos, new = heapq.heappop(queue)
+            if gone[pos] or nxt[pos] < 0:
+                continue
+            right = nxt[pos]
+            m = self.merges.get((sym[pos], sym[right]))
+            if m is None or m[1] != new:
+                continue  # an expired entry
+            sym[pos] = new
+            gone[right] = True
+            nxt[pos] = nxt[right]
+            if nxt[pos] >= 0:
+                prv[nxt[pos]] = pos
+            if prv[pos] >= 0:
+                push(prv[pos])
+            if nxt[pos] >= 0:
+                push(pos)
+        return [t for t, g in zip(sym, gone) if not g]
+
+
+def _byte_fallback(tokens: list[str]) -> list[str]:
+    """``tokenizers``' ByteFallback decoder: runs of ``<0xNN>`` tokens
+    become their UTF-8 text, or one U+FFFD a byte where that is invalid."""
+    out: list[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" * len(run))
+            run.clear()
+
+    for t in tokens:
+        if len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
+            try:
+                run.append(int(t[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        flush()
+        out.append(t)
+    flush()
+    return out
+
+
+def _strip(content: str, start: int, stop: int):
+    def strip(tokens):
+        out = []
+        for t in tokens:
+            a = 0
+            while a < min(start, len(t)) and t[a] == content:
+                a += 1
+            b = len(t)
+            while len(t) - b < stop and b > a and t[b - 1] == content:
+                b -= 1
+            out.append(t[a:b])
+        return out
+
+    return strip
+
+
+def _decoder_chain(spec):
+    """-> function: list of token strings -> list of strings, for the
+    decoders Llama-2's ``tokenizer.json`` chains."""
+    kind = spec["type"]
+    if kind == "Sequence":
+        steps = [_decoder_chain(d) for d in spec["decoders"]]
+
+        def seq(tokens):
+            for f in steps:
+                tokens = f(tokens)
+            return tokens
+
+        return seq
+    if kind == "Replace" and "String" in spec["pattern"]:
+        old, new = spec["pattern"]["String"], spec["content"]
+        return lambda tokens: [t.replace(old, new) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        return _strip(spec["content"], spec["start"], spec["stop"])
+    raise NotImplementedError(f"tokenizer decoder {kind!r}")
+
+
 def _token_str(v):
     return v.get("content") if isinstance(v, dict) else v
 
@@ -281,6 +443,8 @@ class Tokenizer:
             self.model = _WordLevel(model)
         elif model["type"] == "Unigram":
             self.model = _Unigram(model)
+        elif model["type"] == "BPE":
+            self.model = _BPE(model)
         else:
             raise NotImplementedError(f"tokenizer model {model['type']!r}")
         self.normalize = _normalizer(spec.get("normalizer"))
@@ -291,9 +455,10 @@ class Tokenizer:
                 f"tokenizer post-processor {post['type']!r}")
         self.template = post
         dec = spec.get("decoder")
-        if dec is not None and dec["type"] not in ("WordPiece", "Metaspace"):
-            raise NotImplementedError(f"tokenizer decoder {dec['type']!r}")
         self.decoder = dec
+        self._decode_chain = None
+        if dec is not None and dec["type"] not in ("WordPiece", "Metaspace"):
+            self._decode_chain = _decoder_chain(dec)
         self.added = {t["content"]: t["id"] for t in spec.get("added_tokens", [])}
         self.special_ids = {t["id"] for t in spec.get("added_tokens", [])
                             if t.get("special")}
@@ -466,6 +631,8 @@ class Tokenizer:
                 toks.append(tok)
         if self.decoder is None:
             text = " ".join(toks)
+        elif self._decode_chain is not None:
+            text = "".join(self._decode_chain(toks))
         elif self.decoder["type"] == "Metaspace":
             rep = self.decoder.get("replacement", "\u2581")
             scheme = self.decoder.get("prepend_scheme", "always")

@@ -40,7 +40,11 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
-                                              _I, _F, _P]),
+                                              _I, _I, _F, _P]),
+    "int4_matmul": ("int4_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "flash_attention": ("flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _I, _I, _I, _I, _I, _F,
+                                            _P]),
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,8 @@ per cache row and query head, a masked softmax over the L cache slots
 (masked slots score -1e30, so a fully masked row averages V uniformly; the
 probabilities are divided by max(sum, 1e-30) and rounded to the cache dtype
 before the context product).  On a CUDA tensor this launches the kernel of
-``csrc/decode_attention.cu``; on a CPU tensor ``decode_attention_plain``.
+``csrc/decode_attention.cu`` (head widths 64 and 128); on a CPU tensor
+``decode_attention_plain``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from bergen_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # head widths the kernel is built for
 GROUPS = (1, 2, 4, 8)  # query heads per KV head the kernel is built for
 SMEM_LIMIT = 232_448
 
@@ -52,11 +53,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     L = k_cache.shape[1]
     KH = kv_heads
     G = H // KH
-    if Dh != HEAD_DIM or G not in GROUPS or H % KH:
+    if Dh not in HEAD_DIMS or G not in GROUPS or H % KH:
         raise ValueError(
-            f"decode_attention kernel needs head width {HEAD_DIM} and a group "
-            f"in {GROUPS}; got Dh={Dh}, H={H}, KH={KH}")
-    smem = (G * L + 8 * G * HEAD_DIM) * 4
+            f"decode_attention kernel needs a head width in {HEAD_DIMS} and a "
+            f"group in {GROUPS}; got Dh={Dh}, H={H}, KH={KH}")
+    # [G, L] f32 scores and [8 warps, G, Dh] f32 partial contexts
+    smem = (G * L + 8 * G * Dh) * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"decode_attention kernel: L={L} needs {smem} bytes "
                          f"of shared memory (limit {SMEM_LIMIT})")
@@ -75,7 +77,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty(B, H, Dh, dtype=bf, device=q.device)
     fn = _build.function("decode_attention")
     _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    k_valid.data_ptr(), out.data_ptr(), B, H, KH, L,
+                    k_valid.data_ptr(), out.data_ptr(), B, H, KH, L, Dh,
                     float(sm_scale), _build.stream_ptr(q.device)),
                  "decode_attention")
     decode_attention.launches += 1

@@ -1,0 +1,131 @@
+"""Causal GQA flash attention for prefill.
+
+Counterpart of ``bergen_tpu/ops/flash_attention.py::flash_attention``:
+online-softmax attention over key blocks with a [B, Sk] key-validity mask,
+causal over slot positions (query row i sits at ``q_offset + i``), scale
+1/sqrt(Dh), masked scores -1e30 (so a row with no valid key averages V
+uniformly), the probabilities rounded to v's dtype before the PV product,
+an f32 accumulator divided by max(l, 1e-30), the output in q's dtype, and
+GQA reading KV head h // group without a repeated copy.
+
+The block schedule is the CUDA kernel's (``csrc/flash_attention.cu``): query
+and key blocks of ``BLOCK`` rows; a query block visits the key blocks up to
+the one holding its last row's diagonal (all of them without ``causal``);
+keys at or past Sk are excluded.  ``flash_attention_plain`` follows the same
+schedule with the same online-softmax merges, so the CPU tests check the
+algorithm itself; real rows equal the JAX function's up to f32 round-off,
+and a row with no valid key averages V over the keys its block visits.
+
+On a CUDA tensor ``flash_attention`` launches the kernel, reading k and v in
+place: [B, Sk, KH, Dh] views whose rows are ``KH*Dh`` apart, as the flat
+cache's first Sk slots are.  On a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from bergen_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+BLOCK = 64
+HEAD_DIMS = (64, 128)  # head widths the kernel is built for
+
+
+def _visited_keys(q1: int, Sk: int, causal: bool, q_offset: int) -> int:
+    """Keys [0, end) that the query block ending at row q1 - 1 visits."""
+    if not causal:
+        return Sk
+    return min(Sk, ((q_offset + q1 - 1) // BLOCK + 1) * BLOCK)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_valid: torch.Tensor, causal: bool = True,
+                          q_offset: int = 0) -> torch.Tensor:
+    B, Sq, H, Dh = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+    qf = q.float().reshape(B, Sq, KH, G, Dh)
+    kf, vf = k.float(), v.float()
+    valid = k_valid.bool()
+    out = torch.empty(B, Sq, KH, G, Dh, dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, BLOCK):
+        q1 = min(q0 + BLOCK, Sq)
+        qpos = q_offset + torch.arange(q0, q1, device=dev)
+        qb = qf[:, q0:q1]
+        m = torch.full((B, KH, G, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, KH, G, q1 - q0, Dh, device=dev)
+        kend = _visited_keys(q1, Sk, causal, q_offset)
+        for k0 in range(0, kend, BLOCK):
+            k1 = min(k0 + BLOCK, kend)
+            s = torch.einsum("bqkgd,blkd->bkgql", qb, kf[:, k0:k1]) * scale
+            ok = valid[:, None, None, None, k0:k1]
+            if causal:
+                keys = torch.arange(k0, k1, device=dev)
+                ok = ok & (keys[None, :] <= qpos[:, None])
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgql,blkd->bkgqd", p.to(v.dtype).float(), vf[:, k0:k1])
+            m = m_new
+        out[:, q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).permute(
+            0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    k_valid: torch.Tensor, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q [B, Sq, H, Dh]; k, v [B, Sk, KH, Dh]; k_valid [B, Sk] (1 = attend)
+    -> [B, Sq, H, Dh] in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, k_valid, causal, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, Sq, H, Dh = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if Dh not in HEAD_DIMS or H % KH or Sk < 1 or q_offset < 0:
+        raise ValueError(
+            f"flash_attention kernel needs a head width in {HEAD_DIMS}, H a "
+            f"multiple of KH and Sk >= 1; got Dh={Dh}, H={H}, KH={KH}, "
+            f"Sk={Sk}, q_offset={q_offset}")
+    bf = torch.bfloat16
+    if q.dtype != bf or not q.is_contiguous():
+        raise ValueError("flash_attention kernel: q must be a contiguous bf16 "
+                         f"[B, Sq, H, Dh] tensor, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if (t.dtype != bf or tuple(t.shape) != (B, Sk, KH, Dh)
+                or t.stride(3) != 1 or t.stride(2) != Dh
+                or t.stride(1) % 8 or t.stride(0) % 8
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"flash_attention kernel: {name} must be a bf16 [{B}, {Sk}, "
+                f"{KH}, {Dh}] view with contiguous heads and 16-byte aligned "
+                f"rows, got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    if k.stride() != v.stride():
+        raise ValueError("flash_attention kernel: k and v strides differ "
+                         f"({k.stride()} vs {v.stride()})")
+    if tuple(k_valid.shape) != (B, Sk):
+        raise ValueError(f"flash_attention kernel: k_valid must be [{B}, "
+                         f"{Sk}], got {tuple(k_valid.shape)}")
+    valid = k_valid.to(torch.uint8).contiguous()
+    out = torch.empty(B, Sq, H, Dh, dtype=bf, device=q.device)
+    fn = _build.function("flash_attention")
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    valid.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KH, Dh,
+                    k.stride(0), k.stride(1), int(causal), int(q_offset),
+                    1.0 / math.sqrt(Dh), _build.stream_ptr(q.device)),
+                 "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

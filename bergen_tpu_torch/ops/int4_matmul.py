@@ -1,0 +1,107 @@
+"""Weight-only int4 matmul over packed nibbles with group-wise f32 scales.
+
+Counterpart of ``bergen_tpu/ops/int4_matmul.py::matmul_int4_packed``:
+``y = bf16(x) @ dequant(wp, scales)`` in f32, each group's dot summed in
+f32 and then multiplied by its f32 scale (the weights are never rounded).
+The layout is ``models/convert.py::quantize_int4_packed``'s: ``wp[i, n]``
+holds row 2i in its low nibble and row 2i+1 in the dot-identity high nibble;
+``scales[g, n]`` covers rows ``[g*group, (g+1)*group)``.  On a CUDA tensor
+this launches the kernel of ``csrc/int4_matmul.cu``; on a CPU tensor
+``matmul_int4_packed_plain``.  ``supports`` is the JAX package's static
+shape rule, by which ``models/llama.py`` routes a projection to this
+function or to the dequantized product.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bergen_tpu_torch.models.convert import unpack_int4
+from bergen_tpu_torch.ops import _build
+
+MAX_GROUP = 256  # the prefill kernel's two shared-memory stages
+
+
+def _choose_block(total: int, unit: int, cap: int) -> int:
+    """Largest multiple of ``unit`` that divides ``total`` and is <= cap."""
+    best = 0
+    b = unit
+    while b <= min(total, cap):
+        if total % b == 0:
+            best = b
+        b += unit
+    return best
+
+
+def supports(K: int, N: int, n_groups: int) -> bool:
+    """The JAX package's static shape envelope of the int4 kernel
+    (``bergen_tpu/ops/int4_matmul.py:286``, at its default 512 x 512
+    blocks), kept as the routing rule so that both packages take the same
+    route for each projection."""
+    if K % 2 or K % n_groups:
+        return False
+    group = K // n_groups
+    if group % 2:
+        return False
+    kb = _choose_block(K, max(group, 2), 512)
+    nb = _choose_block(N, 128, 512)
+    return kb >= group and nb > 0 and (kb == K or (kb // 2) % 128 == 0)
+
+
+def matmul_int4_packed_plain(x: torch.Tensor, wp: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: per group, the f32 product
+    of bf16-rounded x and the exact codes, times the group's scales, summed
+    over the groups in order."""
+    M, K = x.shape
+    n_groups = scales.shape[0]
+    group = K // n_groups
+    xb = x.to(torch.bfloat16).float()
+    q = unpack_int4(wp).float()
+    y = torch.zeros(M, wp.shape[1], dtype=torch.float32, device=x.device)
+    for g in range(n_groups):
+        rows = slice(g * group, (g + 1) * group)
+        y += (xb[:, rows] @ q[rows]) * scales[g].float()
+    return y
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
+                       scales: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (rounded to bf16), wp [K/2, N] int8, scales [K/group, N] f32
+    -> y [M, N] f32."""
+    if x.device.type == "cpu":
+        return matmul_int4_packed_plain(x, wp, scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_int4_packed: unsupported device {x.device}")
+    M, K = x.shape
+    K2, N = wp.shape
+    n_groups = scales.shape[0]
+    group = K // n_groups if n_groups else 0
+    if (K2 * 2 != K or K % max(n_groups, 1) or group % 16 or group > MAX_GROUP
+            or N % 128 or M < 1 or tuple(scales.shape) != (n_groups, N)):
+        raise ValueError(
+            f"matmul_int4_packed kernel: needs wp [K/2, N] with N % 128 == 0 "
+            f"and a group that is a multiple of 16 up to {MAX_GROUP}; got "
+            f"x {tuple(x.shape)}, wp {tuple(wp.shape)}, scales "
+            f"{tuple(scales.shape)}")
+    if wp.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(
+            "matmul_int4_packed kernel: wp must be int8 and scales f32, got "
+            f"{wp.dtype} and {scales.dtype}")
+    xb = _aligned(x.to(torch.bfloat16))
+    wp, scales = _aligned(wp), _aligned(scales)
+    out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    fn = _build.function("int4_matmul")
+    _build.check(fn(xb.data_ptr(), wp.data_ptr(), scales.data_ptr(),
+                    out.data_ptr(), M, N, K, group,
+                    _build.stream_ptr(x.device)), "matmul_int4_packed")
+    matmul_int4_packed.launches += 1
+    return out
+
+
+matmul_int4_packed.launches = 0

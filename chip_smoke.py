@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port (bergen_tpu_torch).
 
-    python3 chip_smoke.py            # one GPU
+    python3 chip_smoke.py                         # one GPU, every phase
+    python3 chip_smoke.py --only int4_matmul,...  # build + those checks
 
 Phases (each prints one JSON line):
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -8,17 +9,21 @@ Phases (each prints one JSON line):
      tokenizers over the tests/utdata vocabulary, written by the port's own
      writers: BERT-base (bge-base-en-v1.5), TinyLlama-1.1B-Chat,
      DeBERTa-v3-base (the debertav3 reranker; a Unigram tokenizer), a
-     BERT-large cross-encoder (bge-large-en's width) and MiniLM-L6;
+     BERT-large cross-encoder (bge-large-en's width), MiniLM-L6 and
+     Llama-2-7b-chat (13.5 GB of sharded safetensors, deleted at the end);
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
      library time and the card's lower bound for the same work; one
      DeBERTa-v3 layer split into qkv product, bias products and kernel;
+     the int4 quantizer on the card against the CPU, bit for bit;
   4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
      TinyLlama generator), the same with the DeBERTa-v3 reranker, W8A8 doc
-     encoding with the W8A8 BERT-large reranker, and the MiniLM reranker;
-     then the card against the port's f32 CPU path on small inputs (64
-     docs, 64 DeBERTa pairs, two questions: prefill and one decode step);
+     encoding with the W8A8 BERT-large reranker, the MiniLM reranker, and
+     the int4 Llama-2-7B generator with flash prefill; then the card
+     against the port's f32 CPU path on small inputs (64 docs, 64 DeBERTa
+     pairs, two questions: prefill and one decode step; the same for the
+     first two layers of the int4 Llama-2-7B);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel);
   6. one ``kernels`` line with every kernel's numbers and launch counts.
@@ -61,6 +66,12 @@ KERNELS = {
     "decode_attention": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/decode_attention.cu",
         "replaces": "bergen_tpu/ops/decode_attention.py:115"},
+    "int4_matmul": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "bergen_tpu/ops/int4_matmul.py:307"},
+    "flash_attention": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "bergen_tpu/ops/flash_attention.py:144"},
 }
 # the kernels each part of the main path must launch: ut1's 1,000 docs are
 # below the fused top-k's 131,072-doc threshold, the at-scale retrieval
@@ -73,6 +84,8 @@ PATH_KERNELS = {
                    "decode_attention"),
     "ut1_rerank_w8a8": ("encoder_layer", "encoder_layer_q"),
     "ut1_rerank_minilm": ("encoder_layer",),
+    "ut1_int4_llama2": ("encoder_layer", "int4_matmul", "flash_attention",
+                        "decode_attention"),
 }
 # the W8A8 reranker guard of ut1_rerank_w8a8: random weights bunch the
 # scores, so bf16 and W8A8 ranks agree less than a trained model's (a
@@ -632,13 +645,17 @@ def check_decode_attention(results: dict, dev) -> None:
     import torch
     from bergen_tpu_torch.ops import decode_attention as da
 
-    B, H, Dh = 8, 32, 64
+    B, H = 8, 32
     gen = torch.Generator(device=dev).manual_seed(3)
     tol = 2e-3  # a few bf16 ulps of the outputs (|out| ~ 0.05 at L 2,112)
     per_shape = []
     # TinyLlama's group 8 (KH 4) at both cache lengths (the kernels line
-    # reports the first), then every other group the kernel is built for
-    for KH, L in ((4, 320), (4, 2112), (8, 320), (16, 320), (32, 320)):
+    # reports the first), then every other group the kernel is built for;
+    # then Llama-2-7B (head width 128, KH 32) at its max_length + 128 new
+    # tokens and at the int4 path's 256 + 128, and head width 128 at group 8
+    for Dh, KH, L in ((64, 4, 320), (64, 4, 2112), (64, 8, 320),
+                      (64, 16, 320), (64, 32, 320), (128, 32, 2176),
+                      (128, 32, 384), (128, 4, 2176)):
         q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
         kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
         vc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
@@ -652,8 +669,7 @@ def check_decode_attention(results: dict, dev) -> None:
                                   sm_scale=scale)
         ref = da.decode_attention_plain(q, kc, vc, valid, kv_heads=KH,
                                         sm_scale=scale)
-        torch.cuda.synchronize()
-        max_err = (out.float() - ref.float()).abs().max().item()
+        max_err, mean_err = _errors(out, ref)
         ms = cuda_time_ms(lambda: da.decode_attention(
             q, kc, vc, valid, kv_heads=KH, sm_scale=scale), iters=50)
         plain_ms = cuda_time_ms(lambda: da.decode_attention_plain(
@@ -668,14 +684,227 @@ def check_decode_attention(results: dict, dev) -> None:
             iters=50)
         nbytes = 2 * B * L * KH * Dh * 2 + 2 * B * H * Dh * 2 + B * L
         b_ms, b_by = bound(4 * B * H * L * Dh, nbytes, PEAK_F32_FLOPS)
-        row = {"B": B, "L": L, "H": H, "KH": KH, "max_abs_err": max_err,
+        row = {"B": B, "L": L, "H": H, "KH": KH, "head_dim": Dh,
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
                "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": library_ms}
         emit({"phase": "kernel_check", "kernel": "decode_attention", **row})
         per_shape.append(row)
         if not max_err <= tol:
-            fail(f"decode_attention KH{KH} L{L}: max error {max_err} > {tol}")
+            fail(f"decode_attention Dh{Dh} KH{KH} L{L}: max error {max_err} "
+                 f"> {tol}")
     results["decode_attention"] = per_shape
+
+
+# int4: f32 sums of exact bf16 products in another order (per-group dots
+# on the tensor cores, the plain version's f32 products); outputs |y| ~ 1.
+# A single wrong code would move an output by a scale (~0.01 at std 0.02)
+INT4_TOL = 1e-3
+# (M, K, N): Llama-2-7B's projections (q/k/v/o 4,096 x 4,096, gate/up
+# 4,096 x 11,008, down 11,008 x 4,096, lm_head 4,096 x 32,000) at decode
+# (batch 8) and at the prefill of the int4 path's batch (8 x its bucket),
+# then the prefill shape that crashed the TPU path
+INT4_KN = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+INT4_PREFILL_M = 8 * 256
+INT4_SHAPES = tuple((8, K, N) for K, N in INT4_KN) + tuple(
+    (INT4_PREFILL_M, K, N) for K, N in INT4_KN) + ((8192, 4096, 32000),)
+INT4_GROUP = 128
+
+
+def _int4pack_yardstick(x, codes, scales, group: int):
+    """``torch._weight_int4pack_mm`` on the same codes (uint4 = code + 8,
+    zero 0; its scales are bf16), where the installed PyTorch has it for
+    CUDA: (callable, or None and the reason).  A yardstick only."""
+    import torch
+
+    try:
+        w = (codes.T.to(torch.int32) + 8)  # [N, K] in [1, 15]
+        w8 = ((w[:, ::2] << 4) | w[:, 1::2]).to(torch.uint8).contiguous()
+        packed = torch._convert_weight_to_int4pack(w8, 8)
+        sz = torch.stack([scales, torch.zeros_like(scales)], dim=2) \
+            .to(torch.bfloat16).contiguous()  # [K/group, N, 2]
+        xb = x.bfloat16()
+
+        def run():
+            return torch._weight_int4pack_mm(xb, packed, group, sz)
+
+        run()
+        return run, None
+    except Exception as e:  # noqa: BLE001 - a yardstick the build may lack
+        return None, f"{type(e).__name__}: {str(e)[:160]}"
+
+
+def check_int4_matmul(results: dict, dev) -> None:
+    """The int4 kernel at INT4_SHAPES against its plain version, and
+    bitwise on integer inputs (integer x, unit scales: every sum exact)."""
+    import torch
+    from bergen_tpu_torch.models.convert import (dequantize_int4,
+                                                 quantize_int4_packed,
+                                                 unpack_int4)
+    from bergen_tpu_torch.ops import int4_matmul as im
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    weights = {}
+    per_shape = []
+    for M, K, N in INT4_SHAPES:
+        if (K, N) not in weights:
+            weights[(K, N)] = quantize_int4_packed(
+                (torch.randn(K, N, generator=gen, device=dev) * 0.02)
+                .bfloat16(), INT4_GROUP)
+        wp, sc = weights[(K, N)]
+        x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+        out = im.matmul_int4_packed(x, wp, sc)
+        ref = im.matmul_int4_packed_plain(x, wp, sc)
+        max_err, mean_err = _errors(out, ref)
+        del ref
+        ms = cuda_time_ms(lambda: im.matmul_int4_packed(x, wp, sc),
+                          iters=50 if M <= 16 else 10)
+        plain_ms = cuda_time_ms(lambda: im.matmul_int4_packed_plain(x, wp, sc),
+                                iters=2, warmup=1)
+        codes = unpack_int4(wp)
+        w_bf = dequantize_int4(codes, sc, torch.bfloat16)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_bf),
+                                  iters=50 if M <= 16 else 10)
+        lib = (torch.matmul(x, w_bf).float() - out).abs().max().item()
+        del w_bf
+        pack_run, pack_why = _int4pack_yardstick(x, codes, sc, INT4_GROUP)
+        pack = {"int4pack_ms": None, "int4pack_max_abs_err": None,
+                "int4pack_unavailable": pack_why}
+        if pack_run is not None:
+            pack["int4pack_max_abs_err"] = (pack_run().float() - out).abs() \
+                .max().item()
+            pack["int4pack_ms"] = cuda_time_ms(pack_run,
+                                               iters=50 if M <= 16 else 10)
+        del codes
+        n_groups = K // INT4_GROUP
+        b_ms, b_by = bound(2 * M * K * N, K * N // 2 + n_groups * N * 4
+                           + M * K * 2 + M * N * 4)
+        row = {"M": M, "K": K, "N": N, "group": INT4_GROUP,
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
+               "tol": INT4_TOL, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "library": "bf16 torch.matmul on the dequantized weight",
+               "library_max_abs_err": lib, **pack}
+        emit({"phase": "kernel_check", "kernel": "int4_matmul", **row})
+        per_shape.append(row)
+        if not max_err <= INT4_TOL:
+            fail(f"int4_matmul M{M} K{K} N{N}: max error {max_err} "
+                 f"(tol {INT4_TOL})")
+        del x, out
+        torch.cuda.empty_cache()
+    # bitwise: integer activations in [-4, 4], random codes, unit scales
+    for M, K, N in ((8, 11008, 4096), (300, 4096, 384)):
+        q = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        lo, hi = q[0::2], q[1::2]
+        wp = (((hi - (lo < 0).to(torch.int8)) << 4) | (lo & 0x0F)) \
+            .to(torch.int8)
+        sc = torch.ones(K // INT4_GROUP, N, device=dev)
+        x = torch.randint(-4, 5, (M, K), generator=gen, device=dev) \
+            .bfloat16()
+        exact = x.double() @ q.double()
+        got = im.matmul_int4_packed(x, wp, sc).double()
+        if not torch.equal(got, exact):
+            fail(f"int4_matmul M{M} K{K} N{N} on integer inputs: "
+                 f"{int((got != exact).sum().item())} outputs differ from "
+                 "the exact sums")
+        emit({"phase": "kernel_check", "kernel": "int4_matmul",
+              "integer_inputs_exact": True, "M": M, "K": K, "N": N})
+    results["int4_matmul"] = per_shape
+
+
+def check_int4_quantizer(results: dict, dev) -> None:
+    """One Llama-2-7B gate kernel (4,096 x 11,008, bf16) quantized on the
+    card and on the CPU: codes and scales must be equal bit for bit."""
+    import torch
+    from bergen_tpu_torch.models.convert import quantize_int4_packed
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    w = (torch.randn(4096, 11008, generator=gen, device=dev) * 0.02) \
+        .bfloat16()
+    w[:INT4_GROUP, :5] = 0  # all-zero groups: the 1e-8 scale floor
+    t0 = time.perf_counter()
+    codes, scales = quantize_int4_packed(w, INT4_GROUP)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    ref_codes, ref_scales = quantize_int4_packed(w.cpu(), INT4_GROUP)
+    row = {"K": 4096, "N": 11008, "group": INT4_GROUP,
+           "codes_equal": bool(torch.equal(codes.cpu(), ref_codes)),
+           "scales_equal": bool(torch.equal(scales.cpu(), ref_scales)),
+           "card_s": card_s}
+    emit({"phase": "quantizer_check", **row})
+    if not (row["codes_equal"] and row["scales_equal"]):
+        fail(f"int4 quantizer: the card's codes or scales differ from the "
+             f"CPU's: {row}")
+    results["int4_quantizer"] = row
+
+
+# flash attention: bf16 outputs (|out| < 4) rounded from f32 sums of the
+# same bf16 products in another order; p rounds to bf16 at the same points
+FLASH_TOL, FLASH_MEAN_TOL = 0.0625, 2e-3
+# (B, S, H, KH, Dh): Llama-2-7B at the int4 path's bucket and at its
+# max_length, then TinyLlama's GQA at the bucket
+FLASH_SHAPES = ((8, 256, 32, 32, 128), (8, 2048, 32, 32, 128),
+                (8, 256, 32, 4, 64))
+LLAMA2_NEW_TOKENS = 128  # generator=llama-2-7b-chat-uni's max_new_tokens
+
+
+def check_flash_attention(results: dict, dev) -> None:
+    """The flash prefill kernel against its plain version, causal over
+    left-padded rows, reading K and V in place from a flat [B, L, KH*Dh]
+    cache of L = S + LLAMA2_NEW_TOKENS slots (one row fully padded)."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    per_shape = []
+    for B, S, H, KH, Dh in FLASH_SHAPES:
+        L = S + LLAMA2_NEW_TOKENS
+        q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
+        kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
+        vc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
+        k4 = kc[:, :S].view(B, S, KH, Dh)
+        v4 = vc[:, :S].view(B, S, KH, Dh)
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lens[0] = S
+        pos = torch.arange(S, device=dev)
+        valid = pos[None, :] >= (S - lens)[:, None]  # left padding
+        valid[1] = False
+        out = fa.flash_attention(q, k4, v4, valid)
+        ref = fa.flash_attention_plain(q, k4, v4, valid)
+        max_err, mean_err = _errors(out, ref)
+        del ref
+        ms = cuda_time_ms(lambda: fa.flash_attention(q, k4, v4, valid))
+        plain_ms = cuda_time_ms(
+            lambda: fa.flash_attention_plain(q, k4, v4, valid),
+            iters=2, warmup=1)
+        causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+        amask = (causal[None] & valid[:, None, :])[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k4, v4))
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=amask, enable_gqa=True))
+        # the work this input needs: each query row against the valid keys
+        # at or before it
+        keys_per_row = (causal[None] & valid[:, None, :]).sum(-1)  # [B, S]
+        ops = 4 * H * Dh * int(keys_per_row.sum().item())
+        nbytes = 2 * B * S * H * Dh * 2 + 2 * B * S * KH * Dh * 2 + B * S
+        b_ms, b_by = bound(ops, nbytes)
+        row = {"B": B, "S": S, "H": H, "KH": KH, "head_dim": Dh,
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
+               "tol": FLASH_TOL, "mean_tol": FLASH_MEAN_TOL, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms}
+        emit({"phase": "kernel_check", "kernel": "flash_attention", **row})
+        per_shape.append(row)
+        if not (max_err <= FLASH_TOL and mean_err <= FLASH_MEAN_TOL):
+            fail(f"flash_attention B{B} S{S} H{H} KH{KH} Dh{Dh}: max error "
+                 f"{max_err} (tol {FLASH_TOL}), mean error {mean_err} "
+                 f"(tol {FLASH_MEAN_TOL})")
+        del q, kc, vc, k4, v4, out, amask
+        torch.cuda.empty_cache()
+    results["flash_attention"] = per_shape
 
 
 # --------------------------------------------------------------------------- #
@@ -926,6 +1155,129 @@ def write_checkpoints(root: str, dev) -> dict:
     return out
 
 
+# meta-llama/Llama-2-7b-chat-hf's published config.json (the checkpoint that
+# config/generator/llama-2-7b-chat-uni.yaml names)
+LLAMA2_7B = dict(model_type="llama", vocab_size=32000, hidden_size=4096,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, intermediate_size=11008,
+                 max_position_embeddings=4096, rope_theta=10000.0,
+                 rms_norm_eps=1e-5, rope_scaling=None,
+                 tie_word_embeddings=False, hidden_act="silu",
+                 bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16")
+# its tokenizer_config.json's chat template
+LLAMA2_CHAT_TEMPLATE = (
+    "{% if messages[0]['role'] == 'system' %}"
+    "{% set loop_messages = messages[1:] %}"
+    "{% set system_message = messages[0]['content'] %}"
+    "{% else %}{% set loop_messages = messages %}"
+    "{% set system_message = false %}{% endif %}"
+    "{% for message in loop_messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}{% endif %}"
+    "{% if loop.index0 == 0 and system_message != false %}"
+    "{% set content = '<<SYS>>\\n' + system_message + '\\n<</SYS>>\\n\\n' + "
+    "message['content'] %}{% else %}{% set content = message['content'] %}"
+    "{% endif %}{% if message['role'] == 'user' %}"
+    "{{ bos_token + '[INST] ' + content.strip() + ' [/INST]' }}"
+    "{% elif message['role'] == 'assistant' %}"
+    "{{ ' '  + content.strip() + ' ' + eos_token }}{% endif %}{% endfor %}")
+LLAMA2_LAYERS_PER_SHARD = 4
+
+
+def _llama_layer_shapes(c: dict) -> dict:
+    D, I = c["hidden_size"], c["intermediate_size"]
+    KV = c["num_key_value_heads"] * D // c["num_attention_heads"]
+    return {"self_attn.q_proj": (D, D), "self_attn.k_proj": (KV, D),
+            "self_attn.v_proj": (KV, D), "self_attn.o_proj": (D, D),
+            "mlp.gate_proj": (I, D), "mlp.up_proj": (I, D),
+            "mlp.down_proj": (D, I)}
+
+
+def write_llama2_7b(root: str, dev) -> str:
+    """Llama-2-7b-chat-hf at its published widths as seeded random bf16
+    weights made on the card (13.5 GB), written as sharded safetensors
+    (LLAMA2_LAYERS_PER_SHARD layers a shard) plus the index file, one shard
+    at a time so that host memory holds one shard; a word-level tokenizer
+    over the fixture words with Llama-2's chat template."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+    from bergen_tpu_torch.models.tokenizer import write_tokenizer
+
+    path = os.path.join(root, "llama-2-7b-chat-random")
+    os.makedirs(path, exist_ok=True)
+    c = LLAMA2_7B
+    D, V, n = c["hidden_size"], c["vocab_size"], c["num_hidden_layers"]
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.02
+                ).bfloat16().cpu()
+
+    n_shards = n // LLAMA2_LAYERS_PER_SHARD
+    weight_map, total = {}, 0
+    for s in range(n_shards):
+        name = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+        sd = {}
+        if s == 0:
+            sd["model.embed_tokens.weight"] = w(V, D)
+        for i in range(s * LLAMA2_LAYERS_PER_SHARD,
+                       (s + 1) * LLAMA2_LAYERS_PER_SHARD):
+            pre = f"model.layers.{i}"
+            for lin, (o, k) in _llama_layer_shapes(c).items():
+                sd[f"{pre}.{lin}.weight"] = w(o, k)
+            for norm in ("input_layernorm", "post_attention_layernorm"):
+                sd[f"{pre}.{norm}.weight"] = torch.ones(D,
+                                                        dtype=torch.bfloat16)
+        if s == n_shards - 1:
+            sd["model.norm.weight"] = torch.ones(D, dtype=torch.bfloat16)
+            sd["lm_head.weight"] = w(V, D)
+        save_safetensors(sd, os.path.join(path, name))
+        for key, t in sd.items():
+            weight_map[key] = name
+            total += t.numel() * t.element_size()
+        del sd
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    write_tokenizer(path, "WordLevel",
+                    _vocab({"<unk>": 0, "<s>": 1, "</s>": 2}, V,
+                           "<extra_{}>"),
+                    {"bos_token": "<s>", "eos_token": "</s>",
+                     "unk_token": "<unk>"},
+                    lowercase=True, chat_template=LLAMA2_CHAT_TEMPLATE)
+    return path
+
+
+def llama2_first_layers(path: str, n_layers: int = 2) -> str:
+    """A checkpoint directory beside ``path`` that is its first ``n_layers``
+    layers (embedding, final norm and lm_head included): config and
+    tokenizer copied, the shards that hold those tensors linked, and an
+    index over them."""
+    out = path + f"-{n_layers}layers"
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(path, "model.safetensors.index.json")) as f:
+        weight_map = json.load(f)["weight_map"]
+    keep = {k: v for k, v in weight_map.items()
+            if not k.startswith("model.layers.")
+            or int(k.split(".")[2]) < n_layers}
+    for name in set(keep.values()):
+        link = os.path.join(out, name)
+        if not os.path.exists(link):
+            os.symlink(os.path.join(path, name), link)
+    with open(os.path.join(out, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": keep}, f)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(dict(cfg, num_hidden_layers=n_layers), f)
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(path, name), os.path.join(out, name))
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # phases 4 and 5: the main path
 # --------------------------------------------------------------------------- #
@@ -1094,6 +1446,37 @@ def run_ut1_rerank_minilm(ckpt: dict, workdir: str) -> dict:
                                        "eval_dev_reranking_metrics.json")}
 
 
+def run_ut1_int4_llama2(ckpt: dict, workdir: str,
+                        max_new_tokens: int | None = None) -> dict:
+    """The dense eval with ``generator=llama-2-7b-chat-uni``: Llama-2-7B
+    width, int4 weights, flash prefill (``USE_FLASH_PREFILL`` on for this
+    run only), head width 128 in decode.  Every int4 projection must take
+    the kernel: the shape-routed dequantized product must not run."""
+    from bergen_tpu_torch.models import llama
+
+    extra = [] if max_new_tokens is None else [
+        f"generator.init_args.max_new_tokens={max_new_tokens}"]
+    llama._int4_dequant_proj.calls = 0
+    llama.USE_FLASH_PREFILL = True
+    try:
+        exp, wall = _run_cli([
+            "retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            "generator=llama-2-7b-chat-uni",
+            f"generator.init_args.model_name={_local(ckpt, 'llama2_7b')}",
+            *extra], workdir, ckpt)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    if llama._int4_dequant_proj.calls:
+        fail(f"ut1_int4_llama2: {llama._int4_dequant_proj.calls} projections "
+             "took the dequantized product instead of the int4 kernel")
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "max_new_tokens": max_new_tokens or LLAMA2_NEW_TOKENS,
+            "dequant_projections": llama._int4_dequant_proj.calls,
+            "trec_lines": 500, **_check_outputs(exp)}
+
+
 def _cos_rows(a, b) -> float:
     """Smallest cosine similarity between matching rows of a and b."""
     import numpy as np
@@ -1104,33 +1487,17 @@ def _cos_rows(a, b) -> float:
     return float(np.min(cos))
 
 
-def check_against_cpu(ckpt: dict) -> dict:
-    """The card's bf16 path against the port's f32 CPU path (every kernel's
-    plain version) on a small input at full width: 64 ut1 docs through the
-    retriever (encoder layer), the DeBERTa-v3 hidden states of 64 ut1
-    (question, doc) pairs (prebias layer), and the prefill plus one decode
-    step (decode attention) of the generator on two ut1 questions."""
+def _generator_logits(make_llm, questions: list[str]) -> dict:
+    """{device: (prefill logits, one decode step's logits)} of the
+    generator ``make_llm(device, dtype)`` on the card (bf16) and on the CPU
+    (f32), both decoding the card's first greedy token."""
     import torch
-    from bergen_tpu_torch.models import deberta, llama
-    from bergen_tpu_torch.models.generators.llm import LLM
-    from bergen_tpu_torch.models.rerankers.crossencoder import CrossEncoder
-    from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
-
-    tol = 0.99  # min cosine, bf16 against f32
-    with open(os.path.join(REPO, "tests", "utdata", "ut1_docs.tsv")) as f:
-        docs = [ln.split("\t")[1] for ln in f][:64]
-    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
-        all_questions = [ln.split("\t")[1] for ln in f]
-    questions = all_questions[:2]
-    questions_64 = [all_questions[i % len(all_questions)] for i in range(64)]
-    kw = dict(max_len=512, pooler="cls", similarity="cos")
-    enc = [DenseRetriever(ckpt["bert"], device=d, dtype=t, **kw).encode(
-        docs, "doc") for d, t in (("cuda", None), ("cpu", "f32"))]
+    from bergen_tpu_torch.models import llama
 
     logits = {}
     tok = None
     for dev, dtype in (("cuda", None), ("cpu", "f32")):
-        llm = LLM(ckpt["llama"], device=dev, dtype=dtype)
+        llm = make_llm(dev, dtype)
         ii, am = llm._tokenize_left_pad(questions)
         ids = torch.from_numpy(ii).to(llm.device)
         mask = torch.from_numpy(am).to(llm.device).bool()
@@ -1153,6 +1520,36 @@ def check_against_cpu(ckpt: dict) -> dict:
                                  cache, valid[:, None, :])[:, -1]
         logits[dev] = (pre.float().cpu().numpy(), step.float().cpu().numpy())
         del llm, cache
+        torch.cuda.empty_cache()
+    return logits
+
+
+def check_against_cpu(ckpt: dict) -> dict:
+    """The card's bf16 path against the port's f32 CPU path (every kernel's
+    plain version) on a small input at full width: 64 ut1 docs through the
+    retriever (encoder layer), the DeBERTa-v3 hidden states of 64 ut1
+    (question, doc) pairs (prebias layer), and the prefill plus one decode
+    step (decode attention) of the generator on two ut1 questions."""
+    import torch
+    from bergen_tpu_torch.models import deberta
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.models.rerankers.crossencoder import CrossEncoder
+    from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
+
+    tol = 0.99  # min cosine, bf16 against f32
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_docs.tsv")) as f:
+        docs = [ln.split("\t")[1] for ln in f][:64]
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        all_questions = [ln.split("\t")[1] for ln in f]
+    questions = all_questions[:2]
+    questions_64 = [all_questions[i % len(all_questions)] for i in range(64)]
+    kw = dict(max_len=512, pooler="cls", similarity="cos")
+    enc = [DenseRetriever(ckpt["bert"], device=d, dtype=t, **kw).encode(
+        docs, "doc") for d, t in (("cuda", None), ("cpu", "f32"))]
+
+    logits = _generator_logits(
+        lambda dev, dtype: LLM(ckpt["llama"], device=dev, dtype=dtype),
+        questions)
     deb = {}
     for dev, dtype in (("cuda", None), ("cpu", "f32")):
         ce = CrossEncoder(ckpt["deberta"], max_len=512, device=dev,
@@ -1182,6 +1579,38 @@ def check_against_cpu(ckpt: dict) -> dict:
     bad = [k for k, v in out.items() if k != "tol" and not v >= tol]
     if bad:
         fail(f"card vs CPU reference: {bad} below {tol}: {out}")
+    return out
+
+
+def check_int4_against_cpu(ckpt: dict) -> dict:
+    """The card's int4 generator (bf16 activations, the int4, flash and
+    decode kernels) against the port's f32 CPU int4 path (their plain
+    versions) on the first two layers of the Llama-2-7B checkpoint: two ut1
+    questions, the prefill and one decode step.  Both quantize the same
+    bf16 weights, so the codes are equal (check_int4_quantizer)."""
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    tol = 0.99  # min row cosine of the logits, bf16 against f32
+    path = llama2_first_layers(ckpt["llama2_7b"], 2)
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1] for ln in f][:2]
+    llama.USE_FLASH_PREFILL = True
+    try:
+        logits = _generator_logits(
+            lambda dev, dtype: LLM(path, device=dev, dtype=dtype,
+                                   quantization="int4"), questions)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    out = {"layers": 2,
+           "prefill_logits_min_cos": _cos_rows(logits["cuda"][0],
+                                               logits["cpu"][0]),
+           "decode_logits_min_cos": _cos_rows(logits["cuda"][1],
+                                              logits["cpu"][1]),
+           "tol": tol}
+    if not (out["prefill_logits_min_cos"] >= tol
+            and out["decode_logits_min_cos"] >= tol):
+        fail(f"int4 card vs CPU reference below {tol}: {out}")
     return out
 
 
@@ -1256,6 +1685,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
+                 "encoder_layer_q", "bin_topk", "decode_attention",
+                 "int4_matmul", "int4_quantizer", "flash_attention")
+
+
 def main() -> None:
     import torch
 
@@ -1264,6 +1698,15 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from bergen_tpu_torch.ops import _build
 
+    # --only NAME[,NAME...]: build, run those phase-3 checks and stop (the
+    # first call after a kernel changes); no argument: every phase
+    only = None
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = sys.argv[2].split(",")
+        if set(only) - set(PHASE3_CHECKS):
+            fail(f"--only takes names from {PHASE3_CHECKS}")
+    elif sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1277,21 +1720,36 @@ def main() -> None:
 
     from bergen_tpu_torch.ops import decode_attention as da
     from bergen_tpu_torch.ops import encoder_attention as ea
+    from bergen_tpu_torch.ops import flash_attention as fa
     from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops import int4_matmul as im
 
     counters = {"encoder_layer": ea.encoder_layer,
                 "encoder_layer_prebias": ea.encoder_layer_prebias,
                 "encoder_layer_q": ea.encoder_layer_q,
                 "bin_topk": ft.bin_scores,
-                "decode_attention": da.decode_attention}
+                "decode_attention": da.decode_attention,
+                "int4_matmul": im.matmul_int4_packed,
+                "flash_attention": fa.flash_attention}
     results: dict = {}
-    check_encoder_layer(results, dev)
-    check_encoder_layer_prebias(results, dev, PREBIAS_SHAPES)
-    time_deberta_layer(results, dev)
-    check_encoder_layer_q(results, dev)
-    check_bin_topk(results, dev)
-    check_decode_attention(results, dev)
-    torch.cuda.empty_cache()
+    checks = {"encoder_layer": lambda: check_encoder_layer(results, dev),
+              "encoder_layer_prebias": lambda: check_encoder_layer_prebias(
+                  results, dev, PREBIAS_SHAPES),
+              "deberta_layer": lambda: time_deberta_layer(results, dev),
+              "encoder_layer_q": lambda: check_encoder_layer_q(results, dev),
+              "bin_topk": lambda: check_bin_topk(results, dev),
+              "decode_attention": lambda: check_decode_attention(results,
+                                                                 dev),
+              "int4_matmul": lambda: check_int4_matmul(results, dev),
+              "int4_quantizer": lambda: check_int4_quantizer(results, dev),
+              "flash_attention": lambda: check_flash_attention(results, dev)}
+    for name in PHASE3_CHECKS:
+        if only is None or name in only:
+            checks[name]()
+            torch.cuda.empty_cache()
+    if only is not None:
+        emit({"phase": "done", "only": only})
+        return
 
     root = os.path.join(REPO, "bergen_tpu_torch", "_build", "checkpoints")
     t0 = time.perf_counter()
@@ -1301,28 +1759,40 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     by_path: dict = {}
     try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        t0 = time.perf_counter()
+        ckpt["llama2_7b"] = write_llama2_7b(root, dev)
+        emit({"phase": "checkpoint_llama2_7b",
+              "write_s": time.perf_counter() - t0, "disk_free_gb": free_gb,
+              "path": ckpt["llama2_7b"]})
         for path, run in (("ut1_eval", run_main_path),
                           ("retrieval_at_scale", run_retrieval_at_scale),
                           ("ut1_rerank", run_ut1_rerank),
                           ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
-                          ("ut1_rerank_minilm", run_ut1_rerank_minilm)):
+                          ("ut1_rerank_minilm", run_ut1_rerank_minilm),
+                          ("ut1_int4_llama2", run_ut1_int4_llama2)):
             for fn in counters.values():
                 fn.launches = 0
             emit({"phase": path, **run(ckpt, os.path.join(work, path))})
             by_path[path] = {n: fn.launches for n, fn in counters.items()}
             torch.cuda.empty_cache()
+        emit({"phase": "launches", **by_path})
+        idle = [f"{n} on {path}" for path, names in PATH_KERNELS.items()
+                for n in names if by_path[path][n] == 0]
+        if idle:
+            fail(f"kernels never launched where the path runs them: {idle}")
+        n_q = by_path["ut1_rerank_w8a8"]["encoder_layer_q"]
+        if n_q <= W8A8_GUARD_LAUNCHES:
+            fail(f"ut1_rerank_w8a8: {n_q} W8A8 layer launches, none beyond "
+                 f"the {W8A8_GUARD_LAUNCHES} of the doc encoding and the "
+                 "guard batch")
+        emit({"phase": "reference_check", **check_against_cpu(ckpt)})
+        emit({"phase": "reference_check_int4",
+              **check_int4_against_cpu(ckpt)})
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    emit({"phase": "launches", **by_path})
-    idle = [f"{n} on {path}" for path, names in PATH_KERNELS.items()
-            for n in names if by_path[path][n] == 0]
-    if idle:
-        fail(f"kernels never launched where the path runs them: {idle}")
-    n_q = by_path["ut1_rerank_w8a8"]["encoder_layer_q"]
-    if n_q <= W8A8_GUARD_LAUNCHES:
-        fail(f"ut1_rerank_w8a8: {n_q} W8A8 layer launches, none beyond the "
-             f"{W8A8_GUARD_LAUNCHES} of the doc encoding and the guard batch")
-    emit({"phase": "reference_check", **check_against_cpu(ckpt)})
+        for name in ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     line = []
     for name, meta in KERNELS.items():

@@ -1,6 +1,7 @@
 """The port's S=1 decode attention (``bergen_tpu_torch.ops.decode_attention``)
 on the CPU, held against the JAX package's Pallas ``decode_attention`` in
-interpret mode on the flat [B, L, KH*Dh] cache, and the port's greedy decode
+interpret mode on the flat [B, L, KH*Dh] cache at head widths 64 and 128,
+and the port's greedy decode
 against JAX's with that kernel engaged (``BERGEN_TPU_FLASH_DECODE=interpret``).
 
 Tolerance 2e-5 absolute on f32 inputs (the same sums in another order)."""
@@ -23,7 +24,17 @@ ATOL = 2e-5
 
 @pytest.mark.parametrize("group", [1, 2, 4])
 def test_matches_jax_kernel(group):
-    B, KH, Dh, L = 4, 2, 64, 48
+    _check_against_jax(group, Dh=64, KH=2, L=48)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_matches_jax_kernel_head_width_128(group):
+    """Llama-2-7B's head width (group 1: 32 query and 32 KV heads)."""
+    _check_against_jax(group, Dh=128, KH=4 if group == 1 else 2, L=80)
+
+
+def _check_against_jax(group, Dh, KH, L):
+    B = 4
     H = KH * group
     rng = np.random.default_rng(group)
     q = rng.standard_normal((B, H, Dh)).astype(np.float32)

@@ -13,6 +13,11 @@
    between retrieval and generation: the rerank TREC run holds the same
    docs in the same order with scores within 1e-5 (two layers of f32 sums
    in another order), and the reranking metrics are equal.
+   The same with ``generator=llama-2-7b-chat-uni`` (int4 weight-only,
+   packed) on a tiny llama at hidden 256, with JAX's int4 kernel on
+   (interpret mode): q, o, gate, up and down take the kernel route in both
+   packages, lm_head (256 x 1,397) the dequantized product, k and v stay
+   dense; byte-identical ``eval_dev_out.json`` and equal metrics.
 2. ``Retrieve`` with ``topk_method=fused`` over a 2,048-doc synthetic index
    in both packages, with the recall guard off (the fused result itself) and
    on (the guard ladder falls back to exact top-k): same TREC run, same
@@ -143,6 +148,66 @@ def test_rag_ut1_rerank_matches_jax(tmp_path, models):
     assert len(lines) == 50 * 10
     with open(os.path.join(texp, "eval_dev_stage_times.json")) as f:
         assert "rerank" in json.load(f)
+
+
+def test_rag_ut1_int4_generator_matches_jax(tmp_path, monkeypatch,
+                                            models):
+    from bergen_tpu.models import llama as jllama
+    from bergen_tpu.ops import int4_matmul as jint4
+    from bergen_tpu_torch.models import llama as tllama
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.ops import int4_matmul
+    from tiny_models import build_tiny_llama
+
+    llama256 = build_tiny_llama(os.path.join(os.path.dirname(models["llama"]),
+                                             "llama256"), hidden=256)
+    monkeypatch.setattr(jllama, "USE_INT4_KERNEL", True)
+    monkeypatch.setattr(jllama, "INT4_KERNEL_INTERPRET", True)
+    traced = []
+    jorig = jint4.matmul_int4_packed
+    monkeypatch.setattr(jint4, "matmul_int4_packed",
+                        lambda *a, **k: traced.append(1) or jorig(*a, **k))
+
+    def overrides(root):
+        return [o if not o.startswith("generator") else o.replace(
+            "generator=tinyllama-chat", "generator=llama-2-7b-chat-uni")
+            .replace(models["llama"], llama256)
+            for o in _overrides(root, models)]
+
+    jexp, texp = _run_both(tmp_path, overrides)
+    assert traced, "the JAX int4 kernel was not engaged"
+    with open(os.path.join(texp, "config.yaml")) as f:
+        assert "quantization: int4" in f.read()
+    with open(os.path.join(jexp, "eval_dev_out.json"), "rb") as f, \
+            open(os.path.join(texp, "eval_dev_out.json"), "rb") as g:
+        assert f.read() == g.read()
+    for name in ("eval_dev_metrics.json", "eval_dev_ranking_metrics.json"):
+        with open(os.path.join(jexp, name)) as f, \
+                open(os.path.join(texp, name)) as g:
+            assert json.load(f) == json.load(g), name
+    # the routes, in process: the int4 tree and both products run
+    llm = LLM(llama256, max_new_tokens=2, max_length=128, device="cpu",
+              quantization="int4")
+    layer = llm.params["layers"][0]
+    for node in (layer["attn"]["q"], layer["attn"]["o"], layer["mlp"]["gate"],
+                 layer["mlp"]["up"], layer["mlp"]["down"],
+                 llm.params["lm_head"]):
+        assert set(node) == {"kernel_q4p", "kernel_scale4"}
+    assert set(layer["attn"]["k"]) == set(layer["attn"]["v"]) == {"kernel"}
+    assert int4_matmul.supports(256, 256, 2)
+    assert not int4_matmul.supports(256, llm.cfg.vocab_size, 2)
+    calls = []
+    orig = int4_matmul.matmul_int4_packed
+    monkeypatch.setattr(int4_matmul, "matmul_int4_packed",
+                        lambda *a: calls.append(1) or orig(*a))
+    dequant = tllama._int4_dequant_proj.calls
+    rows = json.load(open(os.path.join(texp, "eval_dev_out.json")))
+    assert len(rows) == 50
+    llm.generate(["what is the capital of avaria ?"])
+    # 5 projections x 2 layers on the prefill and on the one decode step;
+    # lm_head once a step
+    assert len(calls) == 2 * 5 * 2
+    assert tllama._int4_dequant_proj.calls - dequant == 2
 
 
 class _StubModel:
