@@ -4,10 +4,13 @@ llama/mistral checkpoint read from a local HF directory with the port's own
 tokenizer and safetensors readers.
 
 Ported: left-padded length-bucketed batches (``_tokenize_left_pad``),
-greedy ``generate`` and ``first_token_logits``, and ``quantization:
-int4`` (weight-only, group-wise, packed: ``jax_llm.py:119-123``).  Sampling,
-beam search, the int8 and W8A8 quantizations, tensor parallelism and the
-serving engine are not ported yet and raise.
+greedy ``generate`` and ``first_token_logits``, ``quantization: int4``
+(weight-only, group-wise, packed: ``jax_llm.py:119-123``), and ``serve:
+true`` (``jax_llm.py:216-247``): generation through the continuous-batching
+``serve.GenerationServer`` (``kv_cache: uniform``, its epoch drain) or
+``serve.PagedGenerationServer`` (``kv_cache: paged``).  Sampling, beam
+search, the int8 and W8A8 quantizations and tensor parallelism are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from bergen_tpu_torch.models import convert, llama
 from bergen_tpu_torch.models.core import length_bucket, make_buckets
 from bergen_tpu_torch.models.generators.base import Generator
 from bergen_tpu_torch.models.tokenizer import Tokenizer
+from bergen_tpu_torch.serve import GenerationServer, PagedGenerationServer
 
 
 class LLM(Generator):
@@ -36,7 +40,10 @@ class LLM(Generator):
         prompt=None,
         quantization: str | None = None,
         tp: int = 1,
-        serve: bool = False,
+        serve: bool = False,  # route generation through the continuous-
+        # batching server instead of static length-bucketed batches
+        max_slots: int = 32,
+        kv_cache: str = "uniform",  # 'paged' = the page-pool server
         temperature: float = 0.0,
         use_beam_search: bool = False,
         num_beams: int | None = None,
@@ -48,8 +55,7 @@ class LLM(Generator):
         unported = {
             f"quantization={quantization!r}":
                 quantization not in (None, "int4"),
-            "tp": tp != 1,
-            "serve": serve, "temperature": temperature != 0,
+            "tp": tp != 1, "temperature": temperature != 0,
             "beam search": use_beam_search or (num_beams or 1) > 1
             or best_of > 1,
         }
@@ -58,6 +64,8 @@ class LLM(Generator):
                 f"LLM options not ported yet: "
                 f"{[k for k, v in unported.items() if v]} (ROADMAP.md "
                 "Queue 1, generation breadth and serving)")
+        if serve and kv_cache not in ("uniform", "paged"):
+            raise ValueError(f"unknown kv_cache mode: {kv_cache!r}")
         super().__init__(
             model_name=model_name, batch_size=batch_size,
             max_new_tokens=max_new_tokens, max_doc_len=max_doc_len,
@@ -85,6 +93,21 @@ class LLM(Generator):
         self.params = convert.to_device(params, self.dtype, self.device)
         del params
         self.buckets = make_buckets(max_length or 2048)
+        self.server = None
+        if serve:
+            common = dict(
+                params=self.params, cfg=self.cfg,
+                eos_token_id=self.tokenizer.eos_token_id,
+                pad_token_id=self.tokenizer.pad_token_id,
+                max_slots=max_slots,
+                # headroom for the generated tokens past the prompt bucket
+                max_len=(max_length or 2048) + max_new_tokens + 1,
+                dtype=self.dtype, device=self.device)
+            if kv_cache == "paged":
+                self.server = PagedGenerationServer(**common)
+            else:
+                self.server = GenerationServer(
+                    prompt_buckets=tuple(self.buckets), **common)
 
     def _tokenize_left_pad(self, prompts: List[str]):
         enc = self.tokenizer(prompts, truncation=True,
@@ -119,6 +142,14 @@ class LLM(Generator):
         return logits[:, -1].cpu().numpy()
 
     def generate(self, prompts: List[str]) -> List[str]:
+        if self.server is not None:
+            # the offline batch drains through the server's run_workload on
+            # unpadded prompt ids
+            enc = self.tokenizer(prompts, truncation=True,
+                                 max_length=self.max_length)
+            out = self.server.run_workload(
+                enc["input_ids"], max_new_tokens=self.max_new_tokens)
+            return self.tokenizer.batch_decode(out, skip_special_tokens=True)
         ii, am = self._tokenize_left_pad(prompts)
         toks = llama.greedy_generate(
             self.params, self.cfg, torch.from_numpy(ii).to(self.device),

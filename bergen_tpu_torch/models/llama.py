@@ -3,7 +3,9 @@
 
 Plain functions over the JAX package's parameter tree: RoPE (split-half),
 GQA, RMSNorm, SwiGLU, and a flat KV cache ``[n_layers, B, L, KH*Dh]``
-written at a cursor.  Prefill attention is plain PyTorch (the JAX package
+written at a cursor (one per row in the serving slot pool), or the paged
+cache of ``init_paged_cache`` (serving decode through
+``ops.paged_attention``).  Prefill attention is plain PyTorch (the JAX package
 leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is on, when it
 goes through ``ops.flash_attention.flash_attention``; every S=1 decode step
 goes through ``ops.decode_attention.decode_attention`` (the CUDA kernels on
@@ -24,6 +26,7 @@ import torch
 from bergen_tpu_torch.models import convert
 from bergen_tpu_torch.models.core import rmsnorm
 from bergen_tpu_torch.ops import int4_matmul
+from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
 from bergen_tpu_torch.ops.flash_attention import flash_attention
 
@@ -102,6 +105,23 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
             "cursor": 0}
 
 
+def init_paged_cache(cfg: LlamaConfig, n_pages: int, slots: int,
+                     dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Paged decode cache (the serving page pool): a shared pool of 128-token
+    pages per layer plus a per-slot partial-page tail.  A decode step adds
+    the slots' block tables [slots, max_pages], storage lengths and
+    leading-pad starts [slots] (int32) and, optionally, ``active``."""
+    L, KH, Dh, P = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, _pa.PAGE
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {"k_pool": zeros(L, n_pages, KH, P, Dh),
+            "v_pool": zeros(L, n_pages, KH, P, Dh),
+            "k_tail": zeros(L, slots, KH, P, Dh),
+            "v_tail": zeros(L, slots, KH, P, Dh)}
+
+
 def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "kernel_q4p" in p:
         # int4 weight-only (bergen_tpu/models/llama.py:328-352): the kernel
@@ -139,21 +159,38 @@ def _flash_enabled(S: int) -> bool:
     return bool(USE_FLASH_PREFILL)
 
 
-def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
-               positions: torch.Tensor, inv_freq: torch.Tensor,
-               cache: Dict[str, Any], li: int,
-               attn_mask: torch.Tensor) -> torch.Tensor:
+def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
+         positions: torch.Tensor, inv_freq: torch.Tensor):
+    """q and k with RoPE, and v: [B, S, H | KH, Dh]."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = apply_rope(_proj(layer["attn"]["q"], x).reshape(B, S, H, Dh),
                    positions, inv_freq)
     k = apply_rope(_proj(layer["attn"]["k"], x).reshape(B, S, KH, Dh),
                    positions, inv_freq)
-    v = _proj(layer["attn"]["v"], x)
+    return q, k, _proj(layer["attn"]["v"], x).reshape(B, S, KH, Dh)
+
+
+def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
+               positions: torch.Tensor, inv_freq: torch.Tensor,
+               cache: Dict[str, Any], li: int,
+               attn_mask: torch.Tensor) -> torch.Tensor:
+    B, S, _ = x.shape
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(layer, cfg, x, positions, inv_freq)
     cur = cache["cursor"]
     k_cache, v_cache = cache["k"][li], cache["v"][li]
-    k_cache[:, cur:cur + S] = k.reshape(B, S, KH * Dh).to(k_cache.dtype)
-    v_cache[:, cur:cur + S] = v.reshape(B, S, KH * Dh).to(v_cache.dtype)
+    if isinstance(cur, torch.Tensor) and cur.dim() == 1:
+        # per-row cursors (the host-driven slot pool: each row at its own
+        # depth), decode steps only: one write per row at its cursor
+        if S != 1:
+            raise NotImplementedError("per-row cursors are decode-only")
+        rows = torch.arange(B, device=x.device)
+        k_cache[rows, cur] = k[:, 0].reshape(B, KH * Dh).to(k_cache.dtype)
+        v_cache[rows, cur] = v[:, 0].reshape(B, KH * Dh).to(v_cache.dtype)
+    else:
+        k_cache[:, cur:cur + S] = k.reshape(B, S, KH * Dh).to(k_cache.dtype)
+        v_cache[:, cur:cur + S] = v.reshape(B, S, KH * Dh).to(v_cache.dtype)
     scale = 1.0 / math.sqrt(Dh)
     if S == 1:
         ctx = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
@@ -180,6 +217,23 @@ def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     return _proj(layer["attn"]["o"], ctx.reshape(B, S, H * Dh))
 
 
+def _attention_paged(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
+                     positions: torch.Tensor, inv_freq: torch.Tensor,
+                     cache: Dict[str, Any], li: int) -> torch.Tensor:
+    """Paged decode attention: writes this token's K/V into the slot tails
+    and attends over (full pages and tail) in place.  Page flush and the
+    lengths increment happen once per step in ``forward``."""
+    B = x.shape[0]
+    H, Dh = cfg.num_heads, cfg.head_dim
+    q, k, v = _qkv(layer, cfg, x, positions, inv_freq)
+    ctx = _pa.paged_decode_attention(
+        q[:, 0].contiguous(), k[:, 0], v[:, 0], cache["k_pool"][li],
+        cache["v_pool"][li], cache["k_tail"][li], cache["v_tail"][li],
+        cache["tables"], cache["lengths"], 1.0 / math.sqrt(Dh),
+        starts=cache.get("starts"))
+    return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
+
+
 def _mlp(layer: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.nn.functional.silu(_proj(layer["mlp"]["gate"], x))
     return _proj(layer["mlp"]["down"], g * _proj(layer["mlp"]["up"], x))
@@ -190,23 +244,50 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
             attn_mask: torch.Tensor, last_only: bool = False) -> torch.Tensor:
     """One step (prefill: S = prompt length; decode: S = 1) writing K/V at
     the cache cursor and advancing it.  attn_mask [B, S, L] bool over cache
-    slots.  Returns f32 logits [B, S, V] ([B, 1, V] with ``last_only``)."""
+    slots.  Returns f32 logits [B, S, V] ([B, 1, V] with ``last_only``).
+
+    A paged cache (``init_paged_cache``; optional ``active`` [S] bool) is
+    decode-only and ignores attn_mask: masking derives from the per-slot
+    lengths and starts.  After the layers, slots whose tail filled flush it
+    into their newest pool page, and ``lengths`` advances on active slots
+    only."""
+    paged = "k_pool" in cache
+    if paged and input_ids.shape[1] != 1:
+        raise NotImplementedError("paged cache is decode-only (S == 1); "
+                                  "prefill writes pages directly")
     inv_freq = rope_frequencies(cfg, device=input_ids.device)
     x = params["embed"][input_ids]
     for li, layer in enumerate(params["layers"]):
         h = rmsnorm(layer["attn_norm"], x, cfg.rms_norm_eps)
-        x = x + _attention(layer, cfg, h, positions, inv_freq, cache, li,
-                           attn_mask)
+        if paged:
+            x = x + _attention_paged(layer, cfg, h, positions, inv_freq,
+                                     cache, li)
+        else:
+            x = x + _attention(layer, cfg, h, positions, inv_freq, cache, li,
+                               attn_mask)
         h = rmsnorm(layer["mlp_norm"], x, cfg.rms_norm_eps)
         x = x + _mlp(layer, h)
-    cache["cursor"] += input_ids.shape[1]
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:  # tied embeddings
-        return (x @ params["embed"].T).float()
-    return _proj(head, x).float()
+        logits = (x @ params["embed"].T).float()
+    else:
+        logits = _proj(head, x).float()
+    if paged:
+        # inactive slots do not advance (their tail write lands on the next
+        # unused position and is overwritten on slot reuse)
+        active = cache.get("active")
+        step = 1 if active is None else active.to(cache["lengths"].dtype)
+        lengths_after = cache["lengths"] + step
+        _pa.flush_full_pages(cache["k_pool"], cache["v_pool"],
+                             cache["k_tail"], cache["v_tail"],
+                             cache["tables"], lengths_after, active=active)
+        cache["lengths"] = lengths_after
+    else:
+        cache["cursor"] = cache["cursor"] + input_ids.shape[1]
+    return logits
 
 
 @torch.inference_mode()

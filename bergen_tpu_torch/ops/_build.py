@@ -45,6 +45,7 @@ SIGNATURES = {
     "flash_attention": ("flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _I, _I, _I, _I, _I, _F,
                                             _P]),
+    "paged_partial": ("paged_attention", [_P] * 9 + [_I] * 6 + [_F, _P]),
 }
 
 _lock = threading.Lock()

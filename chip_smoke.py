@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                         # one GPU, every phase
     python3 chip_smoke.py --only int4_matmul,...  # build + those checks
+    python3 chip_smoke.py --profile-serve         # build + serving profile
 
 Phases (each prints one JSON line):
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -9,8 +10,9 @@ Phases (each prints one JSON line):
      tokenizers over the tests/utdata vocabulary, written by the port's own
      writers: BERT-base (bge-base-en-v1.5), TinyLlama-1.1B-Chat,
      DeBERTa-v3-base (the debertav3 reranker; a Unigram tokenizer), a
-     BERT-large cross-encoder (bge-large-en's width), MiniLM-L6 and
-     Llama-2-7b-chat (13.5 GB of sharded safetensors, deleted at the end);
+     BERT-large cross-encoder (bge-large-en's width), MiniLM-L6,
+     Llama-2-7b-chat (13.5 GB of sharded safetensors) and
+     Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
      library time and the card's lower bound for the same work; one
@@ -20,13 +22,17 @@ Phases (each prints one JSON line):
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
      TinyLlama generator), the same with the DeBERTa-v3 reranker, W8A8 doc
      encoding with the W8A8 BERT-large reranker, the MiniLM reranker, and
-     the int4 Llama-2-7B generator with flash prefill; then the card
-     against the port's f32 CPU path on small inputs (64 docs, 64 DeBERTa
-     pairs, two questions: prefill and one decode step; the same for the
-     first two layers of the int4 Llama-2-7B);
+     the int4 Llama-2-7B generator with flash prefill, and the served
+     Mistral-7B generator (``generator=vllm_mistral-7b-chat``: the epoch
+     drain, then ``kv_cache=paged``); then the card against the port's f32
+     CPU path on small inputs (64 docs, 64 DeBERTa pairs, two questions:
+     prefill and one decode step; the same for the first two layers of the
+     int4 Llama-2-7B, and of the served Mistral-7B in both KV modes);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel);
   6. one ``kernels`` line with every kernel's numbers and launch counts.
+``--profile-serve`` instead writes the Mistral-7B checkpoint and profiles
+both servers' steps (``profile_serve``).
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 before it.  Kernel launch counts are zeroed just before each part of the
 main path and read just after it, so the comparisons of phase 3 do not
@@ -72,6 +78,9 @@ KERNELS = {
     "flash_attention": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/flash_attention.cu",
         "replaces": "bergen_tpu/ops/flash_attention.py:144"},
+    "paged_attention": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "bergen_tpu/ops/paged_attention.py:249"},
 }
 # the kernels each part of the main path must launch: ut1's 1,000 docs are
 # below the fused top-k's 131,072-doc threshold, the at-scale retrieval
@@ -86,6 +95,8 @@ PATH_KERNELS = {
     "ut1_rerank_minilm": ("encoder_layer",),
     "ut1_int4_llama2": ("encoder_layer", "int4_matmul", "flash_attention",
                         "decode_attention"),
+    "ut1_serve_mistral": ("encoder_layer", "decode_attention"),
+    "ut1_serve_paged_mistral": ("encoder_layer", "paged_attention"),
 }
 # the W8A8 reranker guard of ut1_rerank_w8a8: random weights bunch the
 # scores, so bf16 and W8A8 ranks agree less than a trained model's (a
@@ -645,17 +656,20 @@ def check_decode_attention(results: dict, dev) -> None:
     import torch
     from bergen_tpu_torch.ops import decode_attention as da
 
-    B, H = 8, 32
+    H = 32
     gen = torch.Generator(device=dev).manual_seed(3)
     tol = 2e-3  # a few bf16 ulps of the outputs (|out| ~ 0.05 at L 2,112)
     per_shape = []
     # TinyLlama's group 8 (KH 4) at both cache lengths (the kernels line
     # reports the first), then every other group the kernel is built for;
     # then Llama-2-7B (head width 128, KH 32) at its max_length + 128 new
-    # tokens and at the int4 path's 256 + 128, and head width 128 at group 8
-    for Dh, KH, L in ((64, 4, 320), (64, 4, 2112), (64, 8, 320),
-                      (64, 16, 320), (64, 32, 320), (128, 32, 2176),
-                      (128, 32, 384), (128, 4, 2176)):
+    # tokens and at the int4 path's 256 + 128, and head width 128 at group 8;
+    # then Mistral-7B (group 4) at the epoch drain's 32 + 1 slots over its
+    # 512-position ring (ut1's bucket 256 + 128 new tokens, 128-aligned)
+    for B, Dh, KH, L in ((8, 64, 4, 320), (8, 64, 4, 2112), (8, 64, 8, 320),
+                         (8, 64, 16, 320), (8, 64, 32, 320),
+                         (8, 128, 32, 2176), (8, 128, 32, 384),
+                         (8, 128, 4, 2176), (33, 128, 8, 512)):
         q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
         kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
         vc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
@@ -905,6 +919,192 @@ def check_flash_attention(results: dict, dev) -> None:
         del q, kc, vc, k4, v4, out, amask
         torch.cuda.empty_cache()
     results["flash_attention"] = per_shape
+
+
+# paged partial against its plain version (the same schedule, bf16 inputs):
+# m is a max of f32 sums of the same 128 exact bf16 products in another
+# order (|m| < 8); l sums the f32 exponentials of those scores (relative);
+# the merged context acc / l (|ctx| < 0.5) sums the same bf16-rounded
+# probabilities times V, where an exponential one f32 ulp apart may round
+# to the neighbouring bf16 value: a few bf16 ulps of the context at most
+PAGED_M_TOL, PAGED_L_RTOL, PAGED_CTX_TOL = 1e-4, 1e-4, 1e-3
+# the full paged decode step against decode_attention over the same history
+# laid out flat: the two round different probabilities to bf16 (unnormalised
+# per page against normalised), then both round the context to bf16: two
+# bf16 ulps at |ctx| < 2 (the run reports the largest |ctx|)
+PAGED_VS_DECODE_TOL = 2 ** -6
+# Mistral-7B's attention geometry at vllm_mistral-7b-chat's serving shapes:
+# 32 slots, max_pages ceil((4,096 + 128 + 1) / 128) + 1 = 35, a pool of
+# 32 * 35 // 2 = 560 pages
+PAGED_GEOMETRY = dict(S=32, H=32, KH=8, Dh=128, maxP=35, NP=560)
+
+
+def _paged_case(gen, dev, ragged: bool) -> dict:
+    """Pools, block tables and per-slot page counts at PAGED_GEOMETRY.
+    ut1-like: prompts of 129 to 256 tokens left-padded to the 256 bucket
+    (starts 0 to 127) and 2 or 3 full pages a slot.  Ragged: 0 to 32 full
+    pages (slot 0 has 32, slot 1 none, slot 2 only leading pad), starts
+    inside the first page.  Pages are a shuffled draw from the pool; unused
+    table entries point at page 0."""
+    import torch
+
+    g = PAGED_GEOMETRY
+    S, H, KH, Dh, maxP, NP = (g[k] for k in ("S", "H", "KH", "Dh", "maxP",
+                                             "NP"))
+    cpu = torch.Generator().manual_seed(12 + ragged)
+    if ragged:
+        n = torch.randint(0, 33, (S,), generator=cpu)
+        n[0], n[1] = 32, 0
+        while int(n.sum()) > NP - 1:  # distinct pages, page 0 kept free
+            n[2 + int(n[2:].argmax())] -= 1
+        starts = torch.randint(0, 128, (S,), generator=cpu) * (n > 0)
+        starts[2] = int(n[2]) * 128 + 7
+    else:
+        n = torch.randint(2, 4, (S,), generator=cpu)
+        starts = 256 - torch.randint(129, 257, (S,), generator=cpu)
+    perm = (torch.randperm(NP - 1, generator=cpu) + 1).tolist()
+    tables = torch.zeros(S, maxP, dtype=torch.int32)
+    for s in range(S):
+        for p in range(int(n[s])):
+            tables[s, p] = perm.pop()
+    rnd = _rnd(gen, dev)
+    return {"q": rnd(S, H, Dh).bfloat16(),
+            "kp": rnd(NP, KH, 128, Dh).bfloat16(),
+            "vp": rnd(NP, KH, 128, Dh).bfloat16(),
+            "tables": tables.to(dev), "n": n.int().to(dev),
+            "starts": starts.int().to(dev), "scale": 1.0 / math.sqrt(Dh)}
+
+
+def check_paged_attention(results: dict, dev) -> None:
+    """The paged partial kernel against its plain version at Mistral-7B's
+    geometry in the ut1-like and the ragged case (m, l and the merged
+    context acc / l; absent slots exactly acc 0, m -1e30, l 0), and the full
+    paged decode step against ``decode_attention`` over the same history
+    laid out flat."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    S, H, KH, Dh, maxP = (PAGED_GEOMETRY[k] for k in ("S", "H", "KH", "Dh",
+                                                      "maxP"))
+    PAGE = pa.PAGE
+    per_case = []
+    for ragged in (False, True):
+        c = _paged_case(gen, dev, ragged)
+        args = (c["q"], c["kp"], c["vp"], c["tables"], c["n"], c["scale"],
+                c["starts"])
+        acc, m, l = pa.paged_partial(*args)
+        racc, rm, rl = pa.paged_partial_plain(*args)
+        torch.cuda.synchronize()
+        live = (c["n"].long() * PAGE > c["starts"].long())
+        lv = live[:, None].expand(S, H)
+        m_err = (m - rm)[lv].abs().max().item()
+        l_err = ((l - rl) / rl.clamp_min(1e-30))[lv].abs().max().item()
+        ctx, rctx = acc / l.clamp_min(1e-30)[..., None], \
+            racc / rl.clamp_min(1e-30)[..., None]
+        ctx_err = (ctx - rctx)[lv].abs().max().item() if live.any() else 0.0
+        absent_exact = bool((acc[~live] == 0).all() and (l[~live] == 0).all()
+                            and (m[~live] == -1e30).all())
+        finite = bool(torch.isfinite(acc).all() and torch.isfinite(l).all())
+        ms = cuda_time_ms(lambda: pa.paged_partial(*args), iters=50)
+        plain_ms = cuda_time_ms(lambda: pa.paged_partial_plain(*args),
+                                iters=3, warmup=1)
+        T = maxP * PAGE
+        pos = torch.arange(T, device=dev)[None, :]
+        valid = (pos < c["n"][:, None] * PAGE) & (pos >= c["starts"][:, None])
+        idx = c["tables"].long()
+
+        def library():
+            kg = c["kp"][idx].transpose(1, 2).reshape(S, KH, T, Dh)
+            vg = c["vp"][idx].transpose(1, 2).reshape(S, KH, T, Dh)
+            return F.scaled_dot_product_attention(
+                c["q"][:, :, None, :], kg, vg,
+                attn_mask=valid[:, None, None, :], scale=c["scale"],
+                enable_gqa=True)
+
+        library_ms = cuda_time_ms(library, iters=20)
+        keys = int(valid.sum().item())  # the keys this input needs
+        nbytes = (2 * keys * KH * Dh * 2 + S * H * Dh * 2 + S * H * Dh * 4
+                  + 2 * S * H * 4 + S * maxP * 4 + 2 * S * 4)
+        b_ms, b_by = bound(4 * keys * H * Dh, nbytes, PEAK_F32_FLOPS)
+        row = {"case": "ragged" if ragged else "ut1", "S": S, "H": H,
+               "KH": KH, "head_dim": Dh, "max_pages": maxP,
+               "pool_pages": PAGED_GEOMETRY["NP"],
+               "full_pages": int(c["n"].sum().item()), "keys": keys,
+               "absent_slots": int((~live).sum().item()),
+               "max_abs_err": ctx_err, "m_max_abs_err": m_err,
+               "l_max_rel_err": l_err, "tol": PAGED_CTX_TOL,
+               "m_tol": PAGED_M_TOL, "l_rtol": PAGED_L_RTOL,
+               "absent_exact": absent_exact, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "library": "page gather + SDPA (enable_gqa): the normalised "
+                          "context, not the partial"}
+        if not ragged:
+            # one full decode step (tail write, both partials, merge) against
+            # decode_attention over the same history laid out flat: each
+            # slot also holds 0 to 127 tail tokens and the new one
+            rem = torch.randint(0, PAGE, (S,), generator=gen, device=dev)
+            lengths = (c["n"] * PAGE + rem).int()
+            rnd = _rnd(gen, dev)
+            kt = rnd(S, KH, PAGE, Dh).bfloat16()
+            vt = rnd(S, KH, PAGE, Dh).bfloat16()
+            kn, vn = rnd(S, KH, Dh).bfloat16(), rnd(S, KH, Dh).bfloat16()
+            Lf = (int(c["n"].max()) + 1) * PAGE
+            kf = torch.zeros(S, Lf, KH * Dh, dtype=torch.bfloat16, device=dev)
+            vf = torch.zeros_like(kf)
+            for s in range(S):
+                nf, r = int(c["n"][s]), int(rem[s])
+                for p in range(nf):
+                    pg = int(c["tables"][s, p])
+                    kf[s, p * PAGE:(p + 1) * PAGE] = \
+                        c["kp"][pg].transpose(0, 1).reshape(PAGE, KH * Dh)
+                    vf[s, p * PAGE:(p + 1) * PAGE] = \
+                        c["vp"][pg].transpose(0, 1).reshape(PAGE, KH * Dh)
+                t0 = nf * PAGE
+                kf[s, t0:t0 + r] = kt[s, :, :r].transpose(0, 1).reshape(
+                    r, KH * Dh)
+                vf[s, t0:t0 + r] = vt[s, :, :r].transpose(0, 1).reshape(
+                    r, KH * Dh)
+                kf[s, t0 + r] = kn[s].reshape(KH * Dh)
+                vf[s, t0 + r] = vn[s].reshape(KH * Dh)
+            fpos = torch.arange(Lf, device=dev)[None, :]
+            fvalid = (fpos >= c["starts"][:, None]) \
+                & (fpos <= lengths[:, None])
+            paged_ctx = pa.paged_decode_attention(
+                c["q"], kn, vn, c["kp"], c["vp"], kt.clone(), vt.clone(),
+                c["tables"], lengths, c["scale"], starts=c["starts"])
+            flat_ctx = da.decode_attention(c["q"], kf, vf, fvalid.contiguous(),
+                                           kv_heads=KH, sm_scale=c["scale"])
+            row["decode_step_vs_decode_attention_max_abs_err"] = \
+                _errors(paged_ctx, flat_ctx)[0]
+            row["decode_step_max_abs_ctx"] = flat_ctx.float().abs().max() \
+                .item()
+            row["decode_step_tol"] = PAGED_VS_DECODE_TOL
+            row["decode_step_ms"] = cuda_time_ms(
+                lambda: pa.paged_decode_attention(
+                    c["q"], kn, vn, c["kp"], c["vp"], kt, vt, c["tables"],
+                    lengths, c["scale"], starts=c["starts"]), iters=50)
+            del kf, vf
+        emit({"phase": "kernel_check", "kernel": "paged_attention", **row})
+        per_case.append(row)
+        where = f"paged_attention ({row['case']})"
+        if not finite or not absent_exact:
+            fail(f"{where}: non-finite output or an absent slot not exactly "
+                 f"(0, -1e30, 0)")
+        if not (m_err <= PAGED_M_TOL and l_err <= PAGED_L_RTOL
+                and ctx_err <= PAGED_CTX_TOL):
+            fail(f"{where}: m error {m_err} (tol {PAGED_M_TOL}), l relative "
+                 f"error {l_err} (tol {PAGED_L_RTOL}), context error "
+                 f"{ctx_err} (tol {PAGED_CTX_TOL})")
+        err = row.get("decode_step_vs_decode_attention_max_abs_err", 0.0)
+        if not err <= PAGED_VS_DECODE_TOL:
+            fail(f"{where}: the paged decode step is off decode_attention "
+                 f"over the flat history by {err} (tol {PAGED_VS_DECODE_TOL})")
+        del c
+        torch.cuda.empty_cache()
+    results["paged_attention"] = per_case
 
 
 # --------------------------------------------------------------------------- #
@@ -1194,21 +1394,20 @@ def _llama_layer_shapes(c: dict) -> dict:
             "mlp.down_proj": (D, I)}
 
 
-def write_llama2_7b(root: str, dev) -> str:
-    """Llama-2-7b-chat-hf at its published widths as seeded random bf16
-    weights made on the card (13.5 GB), written as sharded safetensors
+def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
+                         seed: int) -> str:
+    """A llama-family checkpoint at config ``c`` as seeded random bf16
+    weights made on the card, written as sharded safetensors
     (LLAMA2_LAYERS_PER_SHARD layers a shard) plus the index file, one shard
     at a time so that host memory holds one shard; a word-level tokenizer
-    over the fixture words with Llama-2's chat template."""
+    over the fixture words with ``chat_template``."""
     import torch
     from bergen_tpu_torch.models.convert import save_safetensors
     from bergen_tpu_torch.models.tokenizer import write_tokenizer
 
-    path = os.path.join(root, "llama-2-7b-chat-random")
     os.makedirs(path, exist_ok=True)
-    c = LLAMA2_7B
     D, V, n = c["hidden_size"], c["vocab_size"], c["num_hidden_layers"]
-    gen = torch.Generator(device=dev).manual_seed(10)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def w(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.02
@@ -1247,11 +1446,58 @@ def write_llama2_7b(root: str, dev) -> str:
                            "<extra_{}>"),
                     {"bos_token": "<s>", "eos_token": "</s>",
                      "unk_token": "<unk>"},
-                    lowercase=True, chat_template=LLAMA2_CHAT_TEMPLATE)
+                    lowercase=True, chat_template=chat_template)
     return path
 
 
-def llama2_first_layers(path: str, n_layers: int = 2) -> str:
+def write_llama2_7b(root: str, dev) -> str:
+    """Llama-2-7b-chat-hf at its published widths (13.5 GB) with Llama-2's
+    chat template."""
+    return _write_sharded_llama(os.path.join(root, "llama-2-7b-chat-random"),
+                                dev, LLAMA2_7B, LLAMA2_CHAT_TEMPLATE, 10)
+
+
+# mistralai/Mistral-7B-Instruct-v0.2's published config.json (the checkpoint
+# that config/generator/vllm_mistral-7b-chat.yaml names)
+MISTRAL_7B = dict(model_type="mistral", vocab_size=32000, hidden_size=4096,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=8, intermediate_size=14336,
+                  max_position_embeddings=32768, rope_theta=1000000.0,
+                  rms_norm_eps=1e-5, sliding_window=None,
+                  tie_word_embeddings=False, hidden_act="silu",
+                  bos_token_id=1, eos_token_id=2, torch_dtype="bfloat16")
+# a Mistral [INST] chat template that folds the system prompt into the
+# first user turn (the generator sends a system and a user message)
+MISTRAL_CHAT_TEMPLATE = (
+    "{%- if messages[0]['role'] == 'system' %}"
+    "{%- set system_message = messages[0]['content'] %}"
+    "{%- set loop_messages = messages[1:] %}"
+    "{%- else %}{%- set loop_messages = messages %}{%- endif %}"
+    "{{- bos_token }}{%- for message in loop_messages %}"
+    "{%- if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{- raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}{%- endif %}"
+    "{%- if message['role'] == 'user' %}"
+    "{%- if loop.first and system_message is defined %}"
+    "{{- ' [INST] ' + system_message + '\\n\\n' + message['content'] "
+    "+ ' [/INST]' }}"
+    "{%- else %}{{- ' [INST] ' + message['content'] + ' [/INST]' }}"
+    "{%- endif %}"
+    "{%- elif message['role'] == 'assistant' %}"
+    "{{- ' ' + message['content'] + eos_token }}{%- endif %}"
+    "{%- endfor %}")
+MISTRAL_NEW_TOKENS = 128  # generator=vllm_mistral-7b-chat's max_new_tokens
+MISTRAL_SLOTS = 32        # LLM's max_slots default (jax_llm.py:43)
+
+
+def write_mistral_7b(root: str, dev) -> str:
+    """Mistral-7B-Instruct-v0.2 at its published widths (14.5 GB)."""
+    return _write_sharded_llama(
+        os.path.join(root, "mistral-7b-instruct-random"), dev, MISTRAL_7B,
+        MISTRAL_CHAT_TEMPLATE, 13)
+
+
+def first_layers(path: str, n_layers: int = 2) -> str:
     """A checkpoint directory beside ``path`` that is its first ``n_layers``
     layers (embedding, final norm and lm_head included): config and
     tokenizer copied, the shards that hold those tensors linked, and an
@@ -1477,6 +1723,40 @@ def run_ut1_int4_llama2(ckpt: dict, workdir: str,
             "trec_lines": 500, **_check_outputs(exp)}
 
 
+def run_ut1_serve_mistral(ckpt: dict, workdir: str,
+                          kv_cache: str = "uniform") -> dict:
+    """The dense eval with ``generator=vllm_mistral-7b-chat`` (``serve:
+    true``: 50 requests into 32 slots through the epoch drain, or with
+    ``kv_cache=paged`` the paged server).  On the paged path every decode
+    layer must take the paged kernel: the gather composition must not run
+    on the card."""
+    from bergen_tpu_torch.ops import paged_attention as pa
+    from bergen_tpu_torch.serve import GenerationServer
+
+    extra = [] if kv_cache == "uniform" else [
+        f"+generator.init_args.kv_cache={kv_cache}"]
+    pa.paged_partial_gather.calls = 0
+    GenerationServer.decode_steps = 0
+    exp, wall = _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=vllm_mistral-7b-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'mistral_7b')}",
+        *extra], workdir, ckpt)
+    if pa.paged_partial_gather.calls:
+        fail(f"ut1_serve ({kv_cache}): the paged gather composition ran "
+             f"{pa.paged_partial_gather.calls} times on the card")
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    stages = _json(exp, "eval_dev_stage_times.json")
+    steps = GenerationServer.decode_steps
+    return {"wall_s": wall, "stage_s": stages, "kv_cache": kv_cache,
+            "slots": MISTRAL_SLOTS, "max_new_tokens": MISTRAL_NEW_TOKENS,
+            "decode_steps": steps,
+            "decode_steps_per_generate_s": steps / stages["generate"],
+            "gather_compositions": pa.paged_partial_gather.calls,
+            "trec_lines": 500, **_check_outputs(exp)}
+
+
 def _cos_rows(a, b) -> float:
     """Smallest cosine similarity between matching rows of a and b."""
     import numpy as np
@@ -1592,7 +1872,7 @@ def check_int4_against_cpu(ckpt: dict) -> dict:
     from bergen_tpu_torch.models.generators.llm import LLM
 
     tol = 0.99  # min row cosine of the logits, bf16 against f32
-    path = llama2_first_layers(ckpt["llama2_7b"], 2)
+    path = first_layers(ckpt["llama2_7b"], 2)
     with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
         questions = [ln.split("\t")[1] for ln in f][:2]
     llama.USE_FLASH_PREFILL = True
@@ -1611,6 +1891,90 @@ def check_int4_against_cpu(ckpt: dict) -> dict:
     if not (out["prefill_logits_min_cos"] >= tol
             and out["decode_logits_min_cos"] >= tol):
         fail(f"int4 card vs CPU reference below {tol}: {out}")
+    return out
+
+
+def _served_logits(llm, ids: list, decode_ids=None):
+    """(prefill logits [n, V], first decode step's logits [n, V], the decode
+    step's input ids) of ``llm.server`` serving ``ids`` with two new tokens
+    each, read from inside its ``llama.forward`` calls.  The n requests
+    take slots 0..n-1 in both servers.  ``decode_ids`` replaces the decode
+    step's input ids, so that two devices decode the same tokens."""
+    from bergen_tpu_torch.models import llama
+
+    calls = []
+    orig = llama.forward
+
+    def spy(params, cfg, input_ids, *a, **k):
+        if input_ids.shape[1] == 1 and decode_ids is not None:
+            input_ids = decode_ids.to(input_ids.device)
+        out = orig(params, cfg, input_ids, *a, **k)
+        calls.append((input_ids.cpu().clone(),
+                      out[:, -1].float().cpu().numpy().copy()))
+        return out
+
+    llama.forward = spy
+    try:
+        llm.server.run_workload(ids, max_new_tokens=2)
+    finally:
+        llama.forward = orig
+    n = len(ids)
+    (pre_ids, pre), (dec_ids, dec) = calls
+    if pre_ids.shape[1] == 1 or dec_ids.shape[1] != 1:
+        fail(f"served logits: expected one prefill and one decode step, got "
+             f"input shapes {[tuple(c[0].shape) for c in calls]}")
+    return pre[:n], dec[:n], dec_ids
+
+
+def check_serve_against_cpu(ckpt: dict) -> dict:
+    """The card's served bf16 Mistral (the decode and paged kernels) against
+    the port's f32 CPU serving path (their plain versions) on the first two
+    layers of the Mistral-7B checkpoint, in both KV modes: two ut1
+    questions, the prefill and the first decode step, the CPU decoding the
+    card's tokens.  Also, not held to a limit: the share of tokens that the
+    card's served greedy decoding shares with its static ``greedy_generate``
+    on eight questions (random weights make near-ties common)."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    tol = 0.99  # min row cosine of the logits, bf16 against f32
+    path = first_layers(ckpt["mistral_7b"], 2)
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1] for ln in f][:8]
+    n_new = 16
+    kw = dict(max_new_tokens=n_new, max_length=4096, serve=True)
+    out = {"layers": 2, "tol": tol}
+    for kv in ("uniform", "paged"):
+        card = LLM(path, device="cuda", kv_cache=kv, **kw)
+        ids = card.tokenizer(questions, truncation=True,
+                             max_length=4096)["input_ids"]
+        c_pre, c_dec, c_ids = _served_logits(card, ids[:2])
+        # served against static greedy decoding, both on the card
+        got = card.server.run_workload(ids, max_new_tokens=n_new)
+        ii, am = card._tokenize_left_pad(questions)
+        ref = llama.greedy_generate(
+            card.params, card.cfg, torch.from_numpy(ii).cuda(),
+            torch.from_numpy(am).cuda(), n_new, card.tokenizer.eos_token_id,
+            card.tokenizer.pad_token_id, cache_dtype=card.dtype).cpu().numpy()
+        same = sum(int(np.sum(np.asarray(row) == ref[r, :len(row)]))
+                   for r, row in enumerate(got))
+        total = sum(len(row) for row in got)
+        del card
+        torch.cuda.empty_cache()
+        cpu = LLM(path, device="cpu", dtype="f32", kv_cache=kv, **kw)
+        p_pre, p_dec, _ = _served_logits(cpu, ids[:2], decode_ids=c_ids)
+        del cpu
+        out[kv] = {"prefill_logits_min_cos": _cos_rows(c_pre, p_pre),
+                   "decode_logits_min_cos": _cos_rows(c_dec, p_dec),
+                   "served_vs_static_token_share": same / max(total, 1),
+                   "served_vs_static_tokens": total}
+    bad = [(kv, k) for kv in ("uniform", "paged")
+           for k in ("prefill_logits_min_cos", "decode_logits_min_cos")
+           if not out[kv][k] >= tol]
+    if bad:
+        fail(f"served card vs CPU reference: {bad} below {tol}: {out}")
     return out
 
 
@@ -1676,6 +2040,101 @@ def run_retrieval_at_scale(ckpt: dict, workdir: str) -> dict:
 # --------------------------------------------------------------------------- #
 
 
+PROFILE_PROMPTS, PROFILE_PROMPT_LEN, PROFILE_NEW_TOKENS = 32, 200, 48
+
+
+def profile_serve(dev) -> None:
+    """Both servers at Mistral-7B width (random weights, 32 slots): 32
+    prompts of 200 random tokens (bucket 256, as ut1's), 48 new tokens
+    each.  One run under ``torch.profiler`` gives the card's kernel time by
+    kernel and its busy share of the run's wall time (kernels of one stream
+    do not overlap); a second run, synchronised around every forward, gives
+    each decode step's and each prefill's wall time.  The traces go to
+    ``chiprun_out/profile_serve_<kv_cache>.json.gz``."""
+    import gzip
+    import statistics
+
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.serve import GenerationServer
+
+    root = os.path.join(REPO, "bergen_tpu_torch", "_build", "checkpoints")
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(3, MISTRAL_7B["vocab_size"],
+                           (PROFILE_PROMPTS, PROFILE_PROMPT_LEN)).tolist()
+    try:
+        path = write_mistral_7b(root, dev)
+        for kv in ("uniform", "paged"):
+            llm = LLM(path, device="cuda", kv_cache=kv, serve=True,
+                      max_length=4096, max_new_tokens=MISTRAL_NEW_TOKENS)
+            srv = llm.server
+            srv.eos = -1  # every request decodes its whole budget
+            srv.run_workload(prompts, 8)  # warm-up
+            torch.cuda.synchronize()
+            steps0 = GenerationServer.decode_steps
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                srv.run_workload(prompts, PROFILE_NEW_TOKENS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            steps = GenerationServer.decode_steps - steps0
+            kernels = {}  # the card's own events: kernels, copies, sets
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    kernels[e.key] = (e.self_device_time_total / 1e3,
+                                      e.count)
+            busy_ms = sum(ms for ms, _ in kernels.values())
+            top = sorted(kernels.items(), key=lambda kv_: -kv_[1][0])[:12]
+            trace = os.path.join(out_dir, f"profile_serve_{kv}.json")
+            prof.export_chrome_trace(trace)
+            with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
+                shutil.copyfileobj(f, g)
+            os.remove(trace)
+            del prof
+            # each forward's wall time, synchronised (a separate run)
+            times = {"prefill": [], "decode": []}
+            orig = llama.forward
+
+            def timed(params, cfg, input_ids, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig(params, cfg, input_ids, *a, **k)
+                torch.cuda.synchronize()
+                times["decode" if input_ids.shape[1] == 1 else "prefill"] \
+                    .append((time.perf_counter() - t) * 1e3)
+                return out
+
+            llama.forward = timed
+            try:
+                srv.run_workload(prompts, PROFILE_NEW_TOKENS)
+            finally:
+                llama.forward = orig
+            emit({"phase": "profile_serve", "kv_cache": kv,
+                  "prompts": PROFILE_PROMPTS,
+                  "prompt_len": PROFILE_PROMPT_LEN,
+                  "new_tokens": PROFILE_NEW_TOKENS, "decode_steps": steps,
+                  "wall_s": wall, "kernel_ms": busy_ms,
+                  "device_busy_share": busy_ms / (wall * 1e3),
+                  "decode_step_ms_median": statistics.median(
+                      times["decode"]),
+                  "decode_step_ms_min": min(times["decode"]),
+                  "prefill_ms": times["prefill"],
+                  "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
+                                  for n, (ms, c) in top],
+                  "trace": os.path.relpath(trace + ".gz", REPO)})
+            del llm, srv
+            torch.cuda.empty_cache()
+    finally:
+        for name in SEVEN_B[2:]:
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1687,7 +2146,10 @@ def card_line() -> str:
 
 PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "encoder_layer_q", "bin_topk", "decode_attention",
-                 "int4_matmul", "int4_quantizer", "flash_attention")
+                 "int4_matmul", "int4_quantizer", "flash_attention",
+                 "paged_attention")
+SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
+           "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers")
 
 
 def main() -> None:
@@ -1701,7 +2163,10 @@ def main() -> None:
     # --only NAME[,NAME...]: build, run those phase-3 checks and stop (the
     # first call after a kernel changes); no argument: every phase
     only = None
-    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+    profile = sys.argv[1:] == ["--profile-serve"]
+    if profile:
+        only = []
+    elif sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = sys.argv[2].split(",")
         if set(only) - set(PHASE3_CHECKS):
             fail(f"--only takes names from {PHASE3_CHECKS}")
@@ -1723,6 +2188,7 @@ def main() -> None:
     from bergen_tpu_torch.ops import flash_attention as fa
     from bergen_tpu_torch.ops import fused_topk as ft
     from bergen_tpu_torch.ops import int4_matmul as im
+    from bergen_tpu_torch.ops import paged_attention as pa
 
     counters = {"encoder_layer": ea.encoder_layer,
                 "encoder_layer_prebias": ea.encoder_layer_prebias,
@@ -1730,7 +2196,8 @@ def main() -> None:
                 "bin_topk": ft.bin_scores,
                 "decode_attention": da.decode_attention,
                 "int4_matmul": im.matmul_int4_packed,
-                "flash_attention": fa.flash_attention}
+                "flash_attention": fa.flash_attention,
+                "paged_attention": pa.paged_partial}
     results: dict = {}
     checks = {"encoder_layer": lambda: check_encoder_layer(results, dev),
               "encoder_layer_prebias": lambda: check_encoder_layer_prebias(
@@ -1742,13 +2209,16 @@ def main() -> None:
                                                                  dev),
               "int4_matmul": lambda: check_int4_matmul(results, dev),
               "int4_quantizer": lambda: check_int4_quantizer(results, dev),
-              "flash_attention": lambda: check_flash_attention(results, dev)}
+              "flash_attention": lambda: check_flash_attention(results, dev),
+              "paged_attention": lambda: check_paged_attention(results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
             torch.cuda.empty_cache()
+    if profile:
+        profile_serve(dev)
     if only is not None:
-        emit({"phase": "done", "only": only})
+        emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
     root = os.path.join(REPO, "bergen_tpu_torch", "_build", "checkpoints")
@@ -1758,6 +2228,16 @@ def main() -> None:
           **ckpt})
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     by_path: dict = {}
+    runs: dict = {}
+
+    def drive(path: str, run) -> None:
+        for fn in counters.values():
+            fn.launches = 0
+        runs[path] = run(ckpt, os.path.join(work, path))
+        by_path[path] = {n: fn.launches for n, fn in counters.items()}
+        emit({"phase": path, **runs[path]})
+        torch.cuda.empty_cache()
+
     try:
         free_gb = shutil.disk_usage(root).free / 1e9
         t0 = time.perf_counter()
@@ -1771,11 +2251,19 @@ def main() -> None:
                           ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
                           ("ut1_rerank_minilm", run_ut1_rerank_minilm),
                           ("ut1_int4_llama2", run_ut1_int4_llama2)):
-            for fn in counters.values():
-                fn.launches = 0
-            emit({"phase": path, **run(ckpt, os.path.join(work, path))})
-            by_path[path] = {n: fn.launches for n, fn in counters.items()}
-            torch.cuda.empty_cache()
+            drive(path, run)
+        emit({"phase": "reference_check", **check_against_cpu(ckpt)})
+        emit({"phase": "reference_check_int4",
+              **check_int4_against_cpu(ckpt)})
+        for name in SEVEN_B[:2]:  # room on the disk for the next 7B
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        t0 = time.perf_counter()
+        ckpt["mistral_7b"] = write_mistral_7b(root, dev)
+        emit({"phase": "checkpoint_mistral_7b",
+              "write_s": time.perf_counter() - t0, "path": ckpt["mistral_7b"]})
+        for path, kv in (("ut1_serve_mistral", "uniform"),
+                         ("ut1_serve_paged_mistral", "paged")):
+            drive(path, lambda c, w, kv=kv: run_ut1_serve_mistral(c, w, kv))
         emit({"phase": "launches", **by_path})
         idle = [f"{n} on {path}" for path, names in PATH_KERNELS.items()
                 for n in names if by_path[path][n] == 0]
@@ -1786,12 +2274,25 @@ def main() -> None:
             fail(f"ut1_rerank_w8a8: {n_q} W8A8 layer launches, none beyond "
                  f"the {W8A8_GUARD_LAUNCHES} of the doc encoding and the "
                  "guard batch")
-        emit({"phase": "reference_check", **check_against_cpu(ckpt)})
-        emit({"phase": "reference_check_int4",
-              **check_int4_against_cpu(ckpt)})
+        # every decode step of a served path runs one attention per layer
+        # through its kernel; the paged path never the flat decode kernel
+        n_layers = MISTRAL_7B["num_hidden_layers"]
+        for path, kernel in (("ut1_serve_mistral", "decode_attention"),
+                             ("ut1_serve_paged_mistral", "paged_attention")):
+            want = n_layers * runs[path]["decode_steps"]
+            if by_path[path][kernel] != want:
+                fail(f"{path}: {by_path[path][kernel]} {kernel} launches, "
+                     f"not {n_layers} x {runs[path]['decode_steps']} decode "
+                     "steps")
+        if by_path["ut1_serve_paged_mistral"]["decode_attention"]:
+            fail("ut1_serve_paged_mistral: decode_attention launched "
+                 f"{by_path['ut1_serve_paged_mistral']['decode_attention']} "
+                 "times in the paged server's decode")
+        emit({"phase": "reference_check_serve",
+              **check_serve_against_cpu(ckpt)})
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        for name in ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers"):
+        for name in SEVEN_B:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     line = []

@@ -18,6 +18,10 @@
    (interpret mode): q, o, gate, up and down take the kernel route in both
    packages, lm_head (256 x 1,397) the dequantized product, k and v stay
    dense; byte-identical ``eval_dev_out.json`` and equal metrics.
+   The same with ``generator=vllm_tinyllama-chat`` (``serve: true``: the
+   continuous-batching server's epoch drain) and with
+   ``+generator.init_args.kv_cache=paged`` (the paged server) on the tiny
+   llama: byte-identical ``eval_dev_out.json`` and equal metrics.
 2. ``Retrieve`` with ``topk_method=fused`` over a 2,048-doc synthetic index
    in both packages, with the recall guard off (the fused result itself) and
    on (the guard ladder falls back to exact top-k): same TREC run, same
@@ -208,6 +212,31 @@ def test_rag_ut1_int4_generator_matches_jax(tmp_path, monkeypatch,
     # lm_head once a step
     assert len(calls) == 2 * 5 * 2
     assert tllama._int4_dequant_proj.calls - dequant == 2
+
+
+@pytest.mark.parametrize("kv_cache", ["uniform", "paged"])
+def test_rag_ut1_serve_matches_jax(tmp_path, models, kv_cache):
+    def overrides(root):
+        out = [o.replace("generator=tinyllama-chat",
+                         "generator=vllm_tinyllama-chat")
+               for o in _overrides(root, models)]
+        return out + (["+generator.init_args.kv_cache=paged"]
+                      if kv_cache == "paged" else [])
+
+    jexp, texp = _run_both(tmp_path, overrides)
+    with open(os.path.join(texp, "config.yaml")) as f:
+        config = f.read()
+    assert "serve: true" in config
+    assert ("kv_cache: paged" in config) == (kv_cache == "paged")
+    with open(os.path.join(jexp, "eval_dev_out.json"), "rb") as f, \
+            open(os.path.join(texp, "eval_dev_out.json"), "rb") as g:
+        assert f.read() == g.read()
+    for name in ("eval_dev_metrics.json", "eval_dev_ranking_metrics.json"):
+        with open(os.path.join(jexp, name)) as f, \
+                open(os.path.join(texp, name)) as g:
+            assert json.load(f) == json.load(g), name
+    rows = json.load(open(os.path.join(texp, "eval_dev_out.json")))
+    assert len(rows) == 50 and all(r["response"] for r in rows)
 
 
 class _StubModel:
