@@ -1,23 +1,33 @@
 // Fused MIPS scoring + per-bin argmax (stage 1 of the bin top-k).
 //
-// Replaces: bergen_tpu/ops/fused_topk.py::bin_topk (Pallas body _kernel,
-// scale mode 'none', a bf16 corpus).  For every 128-doc bin and every query
-// it computes the bin's best score and the LOWEST doc index among equal
-// maxima, with docs at or past valid_n scored -inf, and writes only the
-// [n_bins, Q] winners: the [Q, N] score matrix never reaches device memory.
-// Stage 2 (top-k over the bins) stays in PyTorch, as the JAX package keeps
-// it outside its kernel.
+// Replaces: bergen_tpu/ops/fused_topk.py::bin_topk (Pallas body _kernel) in
+// its three scale modes.  For every 128-doc bin and every query it computes
+// the bin's best score and the LOWEST doc index among equal maxima, with
+// docs at or past valid_n masked, and writes only the [n_bins, Q] winners:
+// the [Q, N] score matrix never reaches device memory.  Stage 2 (top-k over
+// the bins) stays in PyTorch, as the JAX package keeps it outside its kernel.
+//   'none': a bf16 corpus, f32 scores, masked docs -inf;
+//   'doc':  int8 codes, exact int32 sums, each converted to f32 and times
+//           its doc's f32 scale before binning, masked docs -inf;
+//   'bin':  int8 codes, int32 sums binned in int32 (a bin shares one scale,
+//           so raw sums rank exactly within it), masked docs -2^31 + 1; only
+//           the winner is converted to f32 and times its bin's scale, and a
+//           bin whose winner is masked reports -inf.
+// The f32 multiplies round to nearest (no fused multiply-add), in the TPU
+// kernel's order, so values and indices equal the plain version's exactly.
 //
-// What bounds it on the H100: 2*N*Q*D FLOPs (0.82 TFLOP at N 262,144,
-// Q 2,048, D 768) against one 0.4 GB read of the corpus, so it is
-// compute-bound on the tensor cores.  Design: one block scores one bin
-// (128 docs) against 128 queries with bf16 mma.sync m16n8k16 (8 warps of
-// 64 docs x 32 queries, two-stage cp.async ring over D in 32-wide slices:
-// common.cuh's mma_tile, the encoder GEMM's main loop with K-contiguous B),
-// then reduces each query column in registers (within a thread, then across
-// the 8 lanes that share a column by shuffles, then across the two warp rows
-// through shared memory).  The query tile index is the fastest grid axis, so
-// the blocks that share a bin run together and read its corpus rows from L2.
+// What bounds it on the H100: 2*N*Q*D operations (0.82 T at N 262,144,
+// Q 2,048, D 768) against one read of the corpus (0.4 GB bf16, 0.2 GB
+// int8), so it is compute-bound on the tensor cores: 0.83 ms at the bf16
+// peak, 0.42 ms at the int8 peak.  Design: one block scores one bin (128
+// docs) against 128 queries with mma.sync (bf16 m16n8k16, or s8 m16n8k32
+// with int32 sums; 8 warps of 64 docs x 32 queries, two-stage cp.async ring
+// over D: common.cuh's mma_tile, the encoder GEMMs' main loop with
+// K-contiguous B), then reduces each query column in registers (within a
+// thread, then across the 8 lanes that share a column by shuffles, then
+// across the two warp rows through shared memory).  The query tile index is
+// the fastest grid axis, so the blocks that share a bin run together and
+// read its corpus rows from L2.
 #include <math.h>
 
 #include "common.cuh"
@@ -26,48 +36,92 @@ namespace {
 
 constexpr int BD = MMA_TILE;  // docs per block = one bin
 constexpr int BQ = MMA_TILE;  // queries per block
+constexpr int I32_MASK = -2147483647;  // _I32_MIN of the TPU kernel
 
-__device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
+enum { MODE_NONE = 0, MODE_DOC = 1, MODE_BIN = 2 };
+
+template <typename T>
+__device__ __forceinline__ void better(T& v, int& i, T v2, int i2) {
   if (v2 > v || (v2 == v && i2 < i)) {
     v = v2;
     i = i2;
   }
 }
 
+// corpus [N, D] and queries [Q, D]: bf16 (MODE_NONE) or int8; scales: per
+// doc [N] (MODE_DOC), per bin [n_bins] (MODE_BIN) or unused.
+template <int MODE>
 __global__ void __launch_bounds__(256)
-    bin_kernel(const bf16* __restrict__ corpus, const bf16* __restrict__ qry,
-               float* __restrict__ vals, int* __restrict__ idx, int N, int Q,
-               int D, int valid_n, int bin_off) {
-  __shared__ float red_v[2][BQ];
+    bin_kernel(const void* __restrict__ corpus, const void* __restrict__ qry,
+               const float* __restrict__ scales, float* __restrict__ vals,
+               int* __restrict__ idx, int N, int Q, int D, int valid_n,
+               int bin_off) {
+  using Acc = typename std::conditional<MODE == MODE_NONE, float, int>::type;
+  using Val = typename std::conditional<MODE == MODE_BIN, int, float>::type;
+  __shared__ Val red_v[2][BQ];
   __shared__ int red_i[2][BQ];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int q0 = blockIdx.x * BQ, bin = blockIdx.y + bin_off, d0 = bin * BD;
 
-  float acc[4][4][4];
-  mma_tile<true>(corpus + (size_t)d0 * D, N - d0, qry + (size_t)q0 * D,
-                 Q - q0, D, D, acc);
+  Acc acc[4][4][4];
+  if constexpr (MODE == MODE_NONE) {
+    const bf16* c = static_cast<const bf16*>(corpus);
+    const bf16* q = static_cast<const bf16*>(qry);
+    mma_tile<true>(c + (size_t)d0 * D, N - d0, q + (size_t)q0 * D, Q - q0, D,
+                   D, acc);
+  } else {
+    // int8 rows read as bf16 pairs: K counted in pairs (common.cuh)
+    const int8_t* c = static_cast<const int8_t*>(corpus);
+    const int8_t* q = static_cast<const int8_t*>(qry);
+    mma_tile<true, int>(reinterpret_cast<const bf16*>(c + (size_t)d0 * D),
+                        N - d0,
+                        reinterpret_cast<const bf16*>(q + (size_t)q0 * D),
+                        Q - q0, 0, D / 2, acc);
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float dscale[4][2];  // MODE_DOC: the scales of this thread's 8 docs
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = d0 + wm * 64 + mi * 16 + g + half * 8;
+      dscale[mi][half] = MODE == MODE_DOC && d < valid_n ? scales[d] : 0.f;
+    }
 
   // per query column: (max, lowest doc) over this warp's 64 docs
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      float bv = -INFINITY;
+      Val bv;
+      if constexpr (MODE == MODE_BIN)
+        bv = I32_MASK;
+      else
+        bv = -INFINITY;
       int bi = 1 << 30;
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          int r = wm * 64 + mi * 16 + g + half * 8;
-          float v = d0 + r < valid_n ? acc[mi][ni][half * 2 + j] : -INFINITY;
+          const int r = wm * 64 + mi * 16 + g + half * 8;
+          const bool ok = d0 + r < valid_n;
+          const Acc a = acc[mi][ni][half * 2 + j];
+          Val v;
+          if constexpr (MODE == MODE_BIN)
+            v = ok ? a : I32_MASK;
+          else if constexpr (MODE == MODE_DOC)
+            v = ok ? __fmul_rn(static_cast<float>(a), dscale[mi][half])
+                   : -INFINITY;
+          else
+            v = ok ? a : -INFINITY;
           better(bv, bi, v, r);
         }
       }
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1) {
-        float v2 = __shfl_xor_sync(0xffffffffu, bv, off);
+        Val v2 = __shfl_xor_sync(0xffffffffu, bv, off);
         int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
         better(bv, bi, v2, i2);
       }
@@ -80,12 +134,31 @@ __global__ void __launch_bounds__(256)
   }
   __syncthreads();
   if (tid < BQ && q0 + tid < Q) {
-    float bv = red_v[0][tid];
+    Val bv = red_v[0][tid];
     int bi = red_i[0][tid];
     better(bv, bi, red_v[1][tid], red_i[1][tid]);
+    float out;
+    if constexpr (MODE == MODE_BIN)
+      out = bv == I32_MASK ? -INFINITY
+                           : __fmul_rn(static_cast<float>(bv), scales[bin]);
+    else
+      out = bv;
     const size_t o = (size_t)bin * Q + q0 + tid;
-    vals[o] = bv;
+    vals[o] = out;
     idx[o] = d0 + bi;
+  }
+}
+
+template <int MODE>
+void launch_bins(const void* corpus, const void* queries, const float* scales,
+                 float* vals, int* idx, int N, int Q, int D, int valid_n,
+                 cudaStream_t st) {
+  const int n_bins = (N + BD - 1) / BD;
+  for (int b0 = 0; b0 < n_bins; b0 += 65535) {  // gridDim.y limit
+    int nb = n_bins - b0 < 65535 ? n_bins - b0 : 65535;
+    dim3 grid((Q + BQ - 1) / BQ, nb);
+    bin_kernel<MODE><<<grid, 256, 0, st>>>(corpus, queries, scales, vals, idx,
+                                           N, Q, D, valid_n, b0);
   }
 }
 
@@ -96,15 +169,26 @@ extern "C" {
 // corpus [N, D] bf16, queries [Q, D] bf16 -> vals/idx [ceil(N/128), Q].
 int bin_topk_bins(const void* corpus, const void* queries, void* vals,
                   void* idx, int N, int Q, int D, int valid_n, void* stream) {
-  const int n_bins = (N + BD - 1) / BD;
-  for (int b0 = 0; b0 < n_bins; b0 += 65535) {  // gridDim.y limit
-    int nb = n_bins - b0 < 65535 ? n_bins - b0 : 65535;
-    dim3 grid((Q + BQ - 1) / BQ, nb);
-    bin_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(corpus), static_cast<const bf16*>(queries),
-        static_cast<float*>(vals), static_cast<int*>(idx), N, Q, D, valid_n,
-        b0);
-  }
+  launch_bins<MODE_NONE>(corpus, queries, nullptr, static_cast<float*>(vals),
+                         static_cast<int*>(idx), N, Q, D, valid_n,
+                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// corpus [N, D] int8, queries [Q, D] int8 (D % 64 == 0), scales [N] f32
+// (per_bin == 0) or [ceil(N/128)] f32 (per_bin == 1) -> vals/idx
+// [ceil(N/128), Q].
+int bin_topk_bins_i8(const void* corpus, const void* queries,
+                     const void* scales, void* vals, void* idx, int N, int Q,
+                     int D, int valid_n, int per_bin, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scales);
+  float* v = static_cast<float*>(vals);
+  int* i = static_cast<int*>(idx);
+  if (per_bin)
+    launch_bins<MODE_BIN>(corpus, queries, s, v, i, N, Q, D, valid_n, st);
+  else
+    launch_bins<MODE_DOC>(corpus, queries, s, v, i, N, Q, D, valid_n, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 enum { ACT_GELU = 0, ACT_GELU_TANH = 1, ACT_RELU = 2, ACT_SILU = 3 };

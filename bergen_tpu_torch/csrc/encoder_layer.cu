@@ -40,6 +40,18 @@
 // shared memory with cp.async beside each K/V tile and adds it in f32 after
 // s * scale + maskbias, as the TPU kernel does.  Read once, the bias bounds
 // that layer by bytes at short S; the GEMMs bound it by operations above.
+//
+// The same attention kernel is bergen_tpu/ops/encoder_attention.py::
+// encoder_attention (Pallas body _kernel), the attention of the rope and
+// ALiBi encoders (nomic-embed, GTE-v1.5, jina-v2) whose layers are not the
+// fused chain: entry encoder_attention_qkv takes q, k and v as three
+// [B, S, D] operands (row stride D) and an optional batch-invariant [H, S, S]
+// f32 bias (ALiBi's -slope * |i - j| reaches -127 at S 256; bf16's spacing
+// of 0.5 there would move the scores).  Its bytes (q, k, v and the context:
+// 0.8 GB at B 512, S 256, D 768) bound it: 0.24 ms at 3.35 TB/s against
+// 0.10 ms of tensor-core work; the f32 bias (3 MB) is read by every
+// sequence's blocks from L2.  The design keeps the [S, S] scores and
+// probabilities on chip and reads each operand tile once per 64 queries.
 // wgmma/TMA pipelines are later work.
 #include "common.cuh"
 
@@ -108,36 +120,46 @@ constexpr int ATT_Q = 64;         // query rows per block (16 per warp)
 constexpr int ATT_K = 64;         // keys per streamed tile
 constexpr int BIAS_LD = ATT_K + 8;  // padded smem row of the bias tile
 
-// Masked bidirectional attention over the natural qkv layout [B*S, 3D]
-// (q | k | v, heads contiguous inside each), head width DH.  mask [B, S]
-// int32, 1 = attend.  A masked key scores -1e30 (NEG_INF of the TPU kernel),
-// so a fully masked row averages V uniformly over the S keys; keys past S
-// score -inf.  BIAS: bias [B, H, S, S] bf16 is added to each score after
-// s * scale + maskbias (needs S % 8 == 0).
-template <int DH, bool BIAS>
+// Masked bidirectional attention, head width DH.  q, k and v point at head 0
+// of their sequence's first row; rows are rs elements apart and sequences
+// S * rs (the fused [B*S, 3D] qkv: rs = 3D; separate [B, S, D] operands:
+// rs = D).  mask [B, S] int32, 1 = attend.  A masked key scores -1e30
+// (NEG_INF of the TPU kernel), so a fully masked row averages V uniformly
+// over the S keys; keys past S score -inf.  BiasT (bf16 or float; void for
+// none): bias [H, S, S] per sequence, bias_bs elements apart (0: one bias
+// for the batch), is added to each score after s * scale + maskbias; its
+// rows are copied 16 bytes at a time, so S % (16 / sizeof(BiasT)) == 0.
+template <int DH, typename BiasT>
 __global__ void __launch_bounds__(128)
-    attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ mask,
-                     const bf16* __restrict__ bias, bf16* __restrict__ out,
-                     int S, int H, float scale) {
+    attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, size_t rs,
+                     const int* __restrict__ mask,
+                     const BiasT* __restrict__ bias, size_t bias_bs,
+                     bf16* __restrict__ out, int S, int H, float scale) {
+  constexpr bool BIAS = !std::is_void<BiasT>::value;
+  using BiasS = typename std::conditional<BIAS, BiasT, bf16>::type;
+  constexpr int BV = 16 / sizeof(BiasS);  // bias elements per 16-byte copy
   constexpr int LD = DH + 8;  // padded smem row
   __shared__ __align__(16) bf16 Qs[ATT_Q * LD];
   __shared__ __align__(16) bf16 Ks[ATT_K * LD];
   __shared__ __align__(16) bf16 Vs[ATT_K * LD];
-  __shared__ __align__(16) bf16 Bs[BIAS ? ATT_Q * BIAS_LD : 8];
+  __shared__ __align__(16) BiasS Bs[BIAS ? ATT_Q * BIAS_LD : BV];
   __shared__ float kbias[ATT_K];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_Q;
   const int D = H * DH;
-  const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * S * rs;
-  const bf16* bbase = BIAS ? bias + ((size_t)b * H + h) * S * S : nullptr;
+  const size_t seq = (size_t)b * S * rs + (size_t)h * DH;
+  const bf16 *qb = q + seq, *kb = k + seq, *vb = v + seq;
+  const BiasS* bbase = nullptr;
+  if constexpr (BIAS)
+    bbase = reinterpret_cast<const BiasS*>(bias) + b * bias_bs +
+            (size_t)h * S * S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
   for (int i = tid; i < ATT_Q * (DH / 8); i += 128) {
     int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
     bool ok = q0 + r < S;
-    cp_async16(&Qs[r * LD + c], base + (ok ? q0 + r : 0) * rs + h * DH + c,
-               ok);
+    cp_async16(&Qs[r * LD + c], qb + (ok ? q0 + r : 0) * rs + c, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -163,13 +185,13 @@ __global__ void __launch_bounds__(128)
     for (int i = tid; i < ATT_K * (DH / 8); i += 128) {
       int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
       bool ok = k0 + r < S;
-      const bf16* src = base + (ok ? k0 + r : 0) * rs + h * DH + c;
-      cp_async16(&Ks[r * LD + c], src + D, ok);
-      cp_async16(&Vs[r * LD + c], src + 2 * D, ok);
+      const size_t off = (ok ? k0 + r : 0) * rs + c;
+      cp_async16(&Ks[r * LD + c], kb + off, ok);
+      cp_async16(&Vs[r * LD + c], vb + off, ok);
     }
-    if (BIAS) {
-      for (int i = tid; i < ATT_Q * (ATT_K / 8); i += 128) {
-        int r = i / (ATT_K / 8), c = (i % (ATT_K / 8)) * 8;
+    if constexpr (BIAS) {
+      for (int i = tid; i < ATT_Q * (ATT_K / BV); i += 128) {
+        int r = i / (ATT_K / BV), c = (i % (ATT_K / BV)) * BV;
         bool ok = q0 + r < S && k0 + c < S;
         cp_async16(&Bs[r * BIAS_LD + c],
                    bbase + (ok ? (size_t)(q0 + r) * S + k0 + c : 0), ok);
@@ -209,15 +231,21 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
       for (int ni = 0; ni < ATT_K / 8; ++ni) {
         float2 bb = make_float2(0.f, 0.f);
-        if (BIAS)
-          bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              &Bs[(warp * 16 + g + half * 8) * BIAS_LD + ni * 8 + t * 2]));
+        if constexpr (BIAS) {
+          const BiasS* bp =
+              &Bs[(warp * 16 + g + half * 8) * BIAS_LD + ni * 8 + t * 2];
+          if constexpr (std::is_same<BiasS, float>::value)
+            bb = *reinterpret_cast<const float2*>(bp);
+          else
+            bb = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(bp));
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          float v = s[ni][half * 2 + j] * scale + kbias[ni * 8 + t * 2 + j];
-          if (BIAS) v += j ? bb.y : bb.x;
-          s[ni][half * 2 + j] = v;
-          mt = fmaxf(mt, v);
+          float x = s[ni][half * 2 + j] * scale + kbias[ni * 8 + t * 2 + j];
+          if constexpr (BIAS) x += j ? bb.y : bb.x;
+          s[ni][half * 2 + j] = x;
+          mt = fmaxf(mt, x);
         }
       }
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -281,17 +309,47 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int DH>
-void launch_attention(const bf16* qkv, const int* mask, const bf16* bias,
+template <int DH, typename BiasT>
+void launch_attention(const bf16* q, const bf16* k, const bf16* v, size_t rs,
+                      const int* mask, const void* bias, size_t bias_bs,
                       bf16* out, int B, int S, int H, float scale,
                       cudaStream_t st) {
   dim3 grid((S + ATT_Q - 1) / ATT_Q, H, B);
-  if (bias != nullptr)
-    attention_kernel<DH, true><<<grid, 128, 0, st>>>(qkv, mask, bias, out, S,
-                                                     H, scale);
+  attention_kernel<DH, BiasT><<<grid, 128, 0, st>>>(
+      q, k, v, rs, mask, static_cast<const BiasT*>(bias), bias_bs, out, S, H,
+      scale);
+}
+
+// bias_kind 0: none; 1: bf16; 2: f32.
+template <int DH>
+void launch_attention_bias(const bf16* q, const bf16* k, const bf16* v,
+                           size_t rs, const int* mask, const void* bias,
+                           int bias_kind, size_t bias_bs, bf16* out, int B,
+                           int S, int H, float scale, cudaStream_t st) {
+  if (bias_kind == 2)
+    launch_attention<DH, float>(q, k, v, rs, mask, bias, bias_bs, out, B, S,
+                                H, scale, st);
+  else if (bias_kind == 1)
+    launch_attention<DH, bf16>(q, k, v, rs, mask, bias, bias_bs, out, B, S,
+                               H, scale, st);
   else
-    attention_kernel<DH, false><<<grid, 128, 0, st>>>(qkv, mask, bias, out, S,
-                                                      H, scale);
+    launch_attention<DH, void>(q, k, v, rs, mask, nullptr, 0, out, B, S, H,
+                               scale, st);
+}
+
+int attention(const bf16* q, const bf16* k, const bf16* v, size_t rs,
+              const int* mask, const void* bias, int bias_kind, size_t bias_bs,
+              bf16* out, int B, int S, int H, int head_dim, float scale,
+              cudaStream_t st) {
+  if (head_dim == 64)
+    launch_attention_bias<64>(q, k, v, rs, mask, bias, bias_kind, bias_bs,
+                              out, B, S, H, scale, st);
+  else if (head_dim == 32)
+    launch_attention_bias<32>(q, k, v, rs, mask, bias, bias_kind, bias_bs,
+                              out, B, S, H, scale, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Row LayerNorm in f32: one warp per row, D % 128 == 0, D <= 1024.
@@ -377,22 +435,29 @@ int encoder_gemm(const void* A, const void* B, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bias: [B, H, S, S] bf16 or null; head_dim 32 or 64.
+// qkv [B*S, 3D] bf16; bias: [B, H, S, S] bf16 or null; head_dim 32 or 64.
 int encoder_attention(const void* qkv, const void* mask, const void* bias,
                       void* out, int B, int S, int H, int head_dim,
                       float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
-  const int* m = static_cast<const int*>(mask);
-  const bf16* bs = static_cast<const bf16*>(bias);
-  bf16* o = static_cast<bf16*>(out);
-  if (head_dim == 64)
-    launch_attention<64>(q, m, bs, o, B, S, H, scale, st);
-  else if (head_dim == 32)
-    launch_attention<32>(q, m, bs, o, B, S, H, scale, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const size_t D = (size_t)H * head_dim;
+  return attention(q, q + D, q + 2 * D, 3 * D, static_cast<const int*>(mask),
+                   bias, bias != nullptr ? 1 : 0, (size_t)H * S * S,
+                   static_cast<bf16*>(out), B, S, H, head_dim, scale,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// q, k, v [B, S, D] bf16; bias: one [H, S, S] f32 for the whole batch, or
+// null; head_dim 32 or 64.
+int encoder_attention_qkv(const void* q, const void* k, const void* v,
+                          const void* mask, const void* bias, void* out,
+                          int B, int S, int H, int head_dim, float scale,
+                          void* stream) {
+  return attention(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), (size_t)H * head_dim,
+                   static_cast<const int*>(mask), bias,
+                   bias != nullptr ? 2 : 0, 0, static_cast<bf16*>(out), B, S,
+                   H, head_dim, scale, static_cast<cudaStream_t>(stream));
 }
 
 int encoder_layernorm(const void* x, const void* gamma, const void* beta,

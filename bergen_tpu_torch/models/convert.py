@@ -4,9 +4,10 @@ Counterpart of ``bergen_tpu/models/convert.py``.  The port's machine has no
 ``safetensors`` or ``transformers``, so checkpoints are read here directly:
 ``config.json`` plus ``model.safetensors`` (or a sharded
 ``model.safetensors.index.json``), parsed from the format's JSON header with
-``torch.frombuffer``.  ``bert_from_hf`` and ``llama_from_hf`` map HF state
-dicts onto the same parameter trees the JAX package uses (linear kernels
-stored [in, out]), ``deberta_from_hf`` does the same for DeBERTa-v2/v3,
+``torch.frombuffer``.  ``bert_from_hf`` (BERT, RoBERTa, GTE-v1.5,
+nomic-embed, jina-v2, DistilBERT) and ``llama_from_hf`` map HF state dicts
+onto the same parameter trees the JAX package uses (linear kernels stored
+[in, out]), ``deberta_from_hf`` does the same for DeBERTa-v2/v3,
 ``quantize_encoder_layers_w8a8`` makes the W8A8 layer trees of the
 JAX package bit for bit, and ``from_jax_params`` carries a JAX tree (numpy
 leaves) across unchanged, so both packages can be fed identical weights.
@@ -117,7 +118,8 @@ def _ln(sd: Mapping, prefix: str) -> Dict[str, Any]:
     return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
 
 
-def _strip_prefix(sd: Mapping, candidates=("bert.", "model.", "roberta.")):
+def _strip_prefix(sd: Mapping,
+                  candidates=("bert.", "model.", "roberta.", "distilbert.")):
     for cand in candidates:
         if any(k.startswith(cand + "embeddings") or k.startswith(cand + "encoder")
                or k.startswith(cand + "embed_tokens")
@@ -127,40 +129,113 @@ def _strip_prefix(sd: Mapping, candidates=("bert.", "model.", "roberta.")):
     return dict(sd)
 
 
+def _split_qkv(sd: Mapping, prefix: str) -> Dict[str, Any]:
+    """A fused [3D, D] qkv linear (GTE ``qkv_proj``, nomic ``Wqkv``) as
+    the tree's q, k and v."""
+    w = sd[f"{prefix}.weight"].T  # [D, 3D]
+    D = w.shape[0]
+    attn = {n: {"kernel": w[:, i * D:(i + 1) * D]}
+            for i, n in enumerate("qkv")}
+    if f"{prefix}.bias" in sd:
+        b = sd[f"{prefix}.bias"]
+        for i, n in enumerate("qkv"):
+            attn[n]["bias"] = b[i * D:(i + 1) * D]
+    return attn
+
+
+def _halves(sd: Mapping, prefix: str):
+    """The two [D, I] halves of a fused [2I, D] gated-MLP linear."""
+    w = sd[f"{prefix}.weight"].T  # [D, 2I]
+    half = w.shape[1] // 2
+    return {"kernel": w[:, :half]}, {"kernel": w[:, half:]}
+
+
+def _bert_layer(sd: Mapping, pre: str, q: str, k: str, v: str, o: str,
+                attn_ln: str, mlp_in: str, mlp_out: str, mlp_ln: str):
+    return {
+        "attn": {"q": _lin(sd, f"{pre}.{q}"), "k": _lin(sd, f"{pre}.{k}"),
+                 "v": _lin(sd, f"{pre}.{v}"), "o": _lin(sd, f"{pre}.{o}")},
+        "attn_ln": _ln(sd, f"{pre}.{attn_ln}"),
+        "mlp_in": _lin(sd, f"{pre}.{mlp_in}"),
+        "mlp_out": _lin(sd, f"{pre}.{mlp_out}"),
+        "mlp_ln": _ln(sd, f"{pre}.{mlp_ln}"),
+    }
+
+
 def bert_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
-    """HF BertModel / RobertaModel state dict -> bert tree (the standard
-    post-LN layout; the rope/ALiBi/gated remote-code layouts are not
-    ported yet)."""
+    """HF encoder state dict -> bert tree, in the layouts of the JAX
+    ``bert_from_hf``: BERT / RoBERTa, GTE-v1.5 (fused ``qkv_proj``,
+    ``up_gate_proj`` ordered [up; gate]), nomic-embed (``emb_ln``, ``Wqkv``,
+    ``fc11`` up / ``fc12`` gate / ``fc2``), jina-v2 (``gated_layers``
+    ordered [gate; up]) and DistilBERT.  Linears without a bias in the
+    checkpoint have none in the tree."""
     sd = _strip_prefix(state_dict)
+    emb: Dict[str, Any] = {"word": sd["embeddings.word_embeddings.weight"]}
+    # rope/ALiBi layouts have no position table; nomic names its embedding
+    # LayerNorm emb_ln
+    for key, name in (("position", "position_embeddings"),
+                      ("token_type", "token_type_embeddings")):
+        if f"embeddings.{name}.weight" in sd:
+            emb[key] = sd[f"embeddings.{name}.weight"]
+    if "embeddings.LayerNorm.weight" in sd:
+        emb["ln"] = _ln(sd, "embeddings.LayerNorm")
+    p: Dict[str, Any] = {"embeddings": emb, "layers": []}
+    if "encoder.layer.0.attention.qkv_proj.weight" in sd:  # GTE-v1.5
+        for i in range(num_layers):
+            pre = f"encoder.layer.{i}"
+            attn = _split_qkv(sd, f"{pre}.attention.qkv_proj")
+            attn["o"] = _lin(sd, f"{pre}.attention.o_proj")
+            up, gate = _halves(sd, f"{pre}.mlp.up_gate_proj")
+            p["layers"].append({
+                "attn": attn, "attn_ln": _ln(sd, f"{pre}.attn_ln"),
+                "mlp_up": up, "mlp_gate": gate,
+                "mlp_out": _lin(sd, f"{pre}.mlp.down_proj"),
+                "mlp_ln": _ln(sd, f"{pre}.mlp_ln")})
+        return p
+    if "encoder.layers.0.attn.Wqkv.weight" in sd:  # nomic-embed
+        emb["ln"] = _ln(sd, "emb_ln")
+        for i in range(num_layers):
+            pre = f"encoder.layers.{i}"
+            attn = _split_qkv(sd, f"{pre}.attn.Wqkv")
+            attn["o"] = _lin(sd, f"{pre}.attn.out_proj")
+            p["layers"].append({
+                "attn": attn, "attn_ln": _ln(sd, f"{pre}.norm1"),
+                "mlp_up": _lin(sd, f"{pre}.mlp.fc11"),
+                "mlp_gate": _lin(sd, f"{pre}.mlp.fc12"),
+                "mlp_out": _lin(sd, f"{pre}.mlp.fc2"),
+                "mlp_ln": _ln(sd, f"{pre}.norm2")})
+        return p
+    if "encoder.layer.0.mlp.gated_layers.weight" in sd:  # jina-v2
+        for i in range(num_layers):
+            pre = f"encoder.layer.{i}"
+            gate, up = _halves(sd, f"{pre}.mlp.gated_layers")
+            p["layers"].append({
+                "attn": {"q": _lin(sd, f"{pre}.attention.self.query"),
+                         "k": _lin(sd, f"{pre}.attention.self.key"),
+                         "v": _lin(sd, f"{pre}.attention.self.value"),
+                         "o": _lin(sd, f"{pre}.attention.output.dense")},
+                "attn_ln": _ln(sd, f"{pre}.attention.output.LayerNorm"),
+                "mlp_gate": gate, "mlp_up": up,
+                "mlp_out": _lin(sd, f"{pre}.mlp.wo"),
+                "mlp_ln": _ln(sd, f"{pre}.mlp.layernorm")})
+        return p
+    if "transformer.layer.0.attention.q_lin.weight" in sd:  # DistilBERT
+        for i in range(num_layers):
+            p["layers"].append(_bert_layer(
+                sd, f"transformer.layer.{i}", "attention.q_lin",
+                "attention.k_lin", "attention.v_lin", "attention.out_lin",
+                "sa_layer_norm", "ffn.lin1", "ffn.lin2", "output_layer_norm"))
+        return p
     if "encoder.layer.0.attention.self.query.weight" not in sd:
         raise NotImplementedError(
-            "bert_from_hf: only the standard BERT/RoBERTa layout is ported "
-            "(GTE, nomic, jina and DistilBERT layouts are not yet)")
-    p: Dict[str, Any] = {
-        "embeddings": {
-            "word": sd["embeddings.word_embeddings.weight"],
-            "position": sd["embeddings.position_embeddings.weight"],
-            "ln": _ln(sd, "embeddings.LayerNorm"),
-        },
-        "layers": [],
-    }
-    if "embeddings.token_type_embeddings.weight" in sd:
-        p["embeddings"]["token_type"] = sd[
-            "embeddings.token_type_embeddings.weight"]
+            "bert_from_hf: not a BERT/RoBERTa, GTE-v1.5, nomic-embed, "
+            "jina-v2 or DistilBERT state dict")
     for i in range(num_layers):
-        pre = f"encoder.layer.{i}"
-        p["layers"].append({
-            "attn": {
-                "q": _lin(sd, f"{pre}.attention.self.query"),
-                "k": _lin(sd, f"{pre}.attention.self.key"),
-                "v": _lin(sd, f"{pre}.attention.self.value"),
-                "o": _lin(sd, f"{pre}.attention.output.dense"),
-            },
-            "attn_ln": _ln(sd, f"{pre}.attention.output.LayerNorm"),
-            "mlp_in": _lin(sd, f"{pre}.intermediate.dense"),
-            "mlp_out": _lin(sd, f"{pre}.output.dense"),
-            "mlp_ln": _ln(sd, f"{pre}.output.LayerNorm"),
-        })
+        p["layers"].append(_bert_layer(
+            sd, f"encoder.layer.{i}", "attention.self.query",
+            "attention.self.key", "attention.self.value",
+            "attention.output.dense", "attention.output.LayerNorm",
+            "intermediate.dense", "output.dense", "output.LayerNorm"))
     if "pooler.dense.weight" in sd:
         p["pooler"] = _lin(sd, "pooler.dense")
     # sequence-classification heads: BERT's pooler + classifier, and

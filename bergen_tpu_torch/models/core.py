@@ -8,10 +8,11 @@ in f32 whatever the activation dtype.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict
 
 import torch
+
+from bergen_tpu_torch.ops.encoder_attention import encoder_attention
 
 Params = Dict[str, Any]
 
@@ -55,20 +56,40 @@ ACT_FNS = {
 }
 
 
-def mha(p: Params, x: torch.Tensor, mask: torch.Tensor,
-        num_heads: int) -> torch.Tensor:
-    """Bidirectional multi-head attention, plain PyTorch (x [B, S, D], mask
-    [B, S] with 1 = attend; a masked key scores -1e30)."""
+def rope_rotate(x: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
+    """Split-half (GPT-NeoX / llama style) rotary embedding over absolute
+    positions 0..S-1 of x [B, S, H, Dh], in f32, rounded to x's dtype."""
+    S = x.shape[1]
+    angles = torch.arange(S, dtype=torch.float32, device=x.device)[:, None] \
+        * inv_freq
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def mha(p: Params, x: torch.Tensor, mask: torch.Tensor, num_heads: int, *,
+        rope_inv_freq: torch.Tensor | None = None,
+        attn_bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Bidirectional multi-head attention (x [B, S, D], mask [B, S] with
+    1 = attend; a masked key scores -1e30), with rotary positions on q and
+    k (rope-BERT) or an additive f32 [H, S, S] score bias (ALiBi).  The
+    attention is ``ops.encoder_attention.encoder_attention``: the CUDA
+    kernel on the card, its plain version on the CPU."""
     B, S, D = x.shape
     Dh = D // num_heads
-    q = dense(p["q"], x).reshape(B, S, num_heads, Dh).float()
-    k = dense(p["k"], x).reshape(B, S, num_heads, Dh).float()
-    v = dense(p["v"], x).reshape(B, S, num_heads, Dh).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(Dh)
-    bias = torch.where(mask.bool(), 0.0, -1e30).to(torch.float32)
-    probs = torch.softmax(s + bias[:, None, None, :], dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v).to(x.dtype)
-    return dense(p["o"], ctx.reshape(B, S, D))
+    q = dense(p["q"], x).reshape(B, S, num_heads, Dh)
+    k = dense(p["k"], x).reshape(B, S, num_heads, Dh)
+    v = dense(p["v"], x)
+    if rope_inv_freq is not None:
+        q = rope_rotate(q, rope_inv_freq)
+        k = rope_rotate(k, rope_inv_freq)
+    ctx = encoder_attention(q.reshape(B, S, D).contiguous(),
+                            k.reshape(B, S, D).contiguous(), v.contiguous(),
+                            mask.to(torch.int32).contiguous(), num_heads,
+                            attn_bias=attn_bias)
+    return dense(p["o"], ctx)
 
 
 # --------------------------------------------------------------------------- #

@@ -33,12 +33,15 @@ SIGNATURES = {
                                        _I, _P]),
     "encoder_attention": ("encoder_layer", [_P, _P, _P, _P, _I, _I, _I, _I,
                                             _F, _P]),
+    "encoder_attention_qkv": ("encoder_layer", [_P] * 6 + [_I] * 4
+                              + [_F, _P]),
     "encoder_layernorm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _F,
                                             _P]),
     "encoder_rowquant": ("encoder_layer_q", [_P, _I, _P, _P, _I, _I, _P]),
     "encoder_qgemm": ("encoder_layer_q", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                           _I, _I, _I, _I, _P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 5 + [_P]),
     "decode_attention": ("decode_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
                                               _I, _I, _F, _P]),
     "int4_matmul": ("int4_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),

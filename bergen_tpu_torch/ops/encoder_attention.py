@@ -1,6 +1,7 @@
-"""Post-LN encoder layers: the CUDA kernel chains and their plain versions.
+"""Encoder attention and post-LN encoder layers: the CUDA kernels and their
+plain versions.
 
-Counterparts of three Pallas entry points of
+Counterparts of four Pallas entry points of
 ``bergen_tpu/ops/encoder_attention.py``:
 
 * ``encoder_layer`` (``encoder_layer`` :710)::
@@ -14,12 +15,17 @@ Counterparts of three Pallas entry points of
   ``s * scale + maskbias``, with an explicit ``scale``;
 * ``encoder_layer_q`` (``encoder_layer_q`` :477): the W8A8 layer, whose
   four products quantize their input per row to int8 and multiply int8
-  weights with per-column f32 scales (``_qdot``).
+  weights with per-column f32 scales (``_qdot``);
+* ``encoder_attention`` (``encoder_attention`` :825): the attention alone,
+  over q, k and v [B, S, D] in natural layout, with an optional
+  batch-invariant f32 [H, S, S] score bias (ALiBi) and a custom scale; the
+  rope and ALiBi encoders' ``core.mha`` runs it.
 
 A masked key scores -1e30, so a fully masked row averages V uniformly.  On a
 CUDA tensor each wrapper launches the hand-written kernels of
 ``csrc/encoder_layer.cu`` (GEMM epilogues, streaming masked attention with an
-optional bias tile, row LayerNorm) and ``csrc/encoder_layer_q.cu`` (row
+optional bias tile, row LayerNorm; the same attention kernel serves
+``encoder_attention``) and ``csrc/encoder_layer_q.cu`` (row
 quantization, int8 GEMM epilogues); on a CPU tensor it runs its plain
 version, which rounds where the kernels round.
 """
@@ -165,6 +171,29 @@ def encoder_layer_prebias_plain(x: torch.Tensor, qkv: torch.Tensor,
     ctx = _attention_plain(qkv.float(), mask, num_heads, scale, dt,
                            attn_bias)
     return _tail_plain(xf, ctx, w, eps, act, dt).reshape(B, S, D)
+
+
+def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: torch.Tensor,
+                            num_heads: int, attn_bias=None,
+                            scale: float | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ``encoder_attention``, the TPU kernel's
+    rule (``_kernel`` :117): s = q.k * scale + maskbias (+ bias) in f32,
+    p = exp(s - max) / sum rounded to ``q.dtype``, then p.v in f32 rounded
+    to ``q.dtype``."""
+    B, S, D = q.shape
+    Dh = D // num_heads
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
+    qh, kh, vh = (t.reshape(B, S, num_heads, Dh).float() for t in (q, k, v))
+    mbias = torch.where(mask > 0, 0.0, NEG_INF).to(torch.float32)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale + mbias[:, None, None]
+    if attn_bias is not None:
+        s = s + attn_bias.float()[None]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(dt)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), vh).to(dt) \
+        .reshape(B, S, D)
 
 
 def quantize_rows_plain(x: torch.Tensor):
@@ -423,6 +452,43 @@ def encoder_layer_q_stages(x: torch.Tensor, w: dict, mask: torch.Tensor,
     return {"qkv": qkv, "ctx": ctx, "y": y32, "h": h, "out": out}
 
 
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor, num_heads: int, attn_bias=None,
+                      scale: float | None = None) -> torch.Tensor:
+    """q, k, v [B, S, D] (heads contiguous in D); mask [B, S] (1 = attend);
+    attn_bias an optional f32 [H, S, S] added to every sequence's scores;
+    scale default 1/sqrt(head width).  Returns the context [B, S, D]."""
+    if q.device.type == "cpu":
+        return encoder_attention_plain(q, k, v, mask, num_heads, attn_bias,
+                                       scale)
+    _on_card("encoder_attention", q)
+    B, S, D = q.shape
+    Dh = D // num_heads
+    if D % num_heads or Dh not in HEAD_DIMS:
+        raise ValueError(f"encoder_attention kernel needs head width in "
+                         f"{HEAD_DIMS}; got D={D}, H={num_heads}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, torch.bfloat16, (B, S, D))
+    _check(mask, "mask", torch.int32, (B, S))
+    if attn_bias is not None:
+        if S % 4:
+            raise ValueError(f"encoder_attention kernel needs S % 4 == 0 "
+                             f"with a bias (16-byte f32 rows); got S={S}")
+        _check(attn_bias, "attn_bias", torch.float32, (num_heads, S, S))
+    out = torch.empty_like(q)
+    _build.check(_build.function("encoder_attention_qkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        None if attn_bias is None else attn_bias.data_ptr(), out.data_ptr(),
+        B, S, num_heads, Dh,
+        float(1.0 / math.sqrt(Dh) if scale is None else scale),
+        _build.stream_ptr(q.device)), "encoder_attention")
+    encoder_attention.launches += 1
+    encoder_attention.bias_launches += attn_bias is not None
+    return out
+
+
 encoder_layer.launches = 0
 encoder_layer_prebias.launches = 0
 encoder_layer_q.launches = 0
+encoder_attention.launches = 0
+encoder_attention.bias_launches = 0  # the launches that carried a bias

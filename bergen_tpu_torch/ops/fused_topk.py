@@ -1,24 +1,80 @@
-"""Fused MIPS scoring + top-k over 128-doc bins (bf16 corpus).
+"""Fused MIPS scoring + top-k over 128-doc bins, bf16 or int8 corpus.
 
-Counterpart of ``bergen_tpu/ops/fused_topk.py::bin_topk`` in scale mode
-'none'.  Stage 1 scores every doc against every query and keeps, per
-128-doc bin and query, the best score and the lowest doc index among equal
-maxima (docs at or past ``valid_n`` score -inf); on a CUDA tensor that is
-the kernel of ``csrc/bin_topk.cu``, which never writes the [Q, N] scores to
-device memory, and on a CPU tensor ``bin_scores_plain``.  Stage 2 takes the
-top-k over the bins in PyTorch.  Two true top-k docs in one bin lose one
-candidate (the JAX kernel's semantics): the pipeline's recall guard
-measures that against an exact host reference.
+Counterpart of ``bergen_tpu/ops/fused_topk.py::bin_topk`` in its three scale
+modes.  Stage 1 scores every doc against every query and keeps, per 128-doc
+bin and query, the best score and the lowest doc index among equal maxima
+(docs at or past ``valid_n`` never win):
+
+* mode 'none' (``bin_scores``): a bf16 corpus, f32 scores;
+* modes 'doc' and 'bin' (``bin_scores_int8``): int8 corpus and query codes,
+  exact int32 sums, and f32 dequant scales per doc (each score converted to
+  f32 and scaled before binning) or per bin (binned in int32, only the
+  winner scaled); the granularity follows the scales' length, as in JAX.
+
+On a CUDA tensor stage 1 is the kernel of ``csrc/bin_topk.cu``, which never
+writes the [Q, N] scores to device memory; on a CPU tensor its plain
+version.  Stage 2 takes the top-k over the bins in PyTorch.  Two true top-k
+docs in one bin lose one candidate (the JAX kernel's semantics): the
+pipeline's recall guard measures that against an exact host reference.
+``quantize_bins_int8`` and ``shard_corpus_rows`` make the int8 layout on
+the host (numpy, as JAX), so the codes are JAX's bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bergen_tpu_torch.ops import _build
-from bergen_tpu_torch.ops.scoring import topk_lowest_index
+from bergen_tpu_torch.ops.scoring import (quantize_rows_int8, topk_blocked,
+                                          topk_lowest_index)
 
 BIN = 128
+I32_MIN = -(1 << 31) + 1  # a masked doc's int32 sum in mode 'bin'
+PLAIN_ROWS = 1 << 15  # docs per product of the plain int8 version
+
+
+def quantize_bins_int8(x: np.ndarray, bin_: int = BIN):
+    """Symmetric int8 codes with one scale per ``bin_`` consecutive docs:
+    x[i] ~= codes[i] * scales[i // bin_].  Returns (codes [N, D] int8,
+    scales [ceil(N / bin_)] f32), the JAX function's bit for bit."""
+    N, D = x.shape
+    n_bins = -(-N // bin_)
+    pad = n_bins * bin_ - N
+    xp = np.pad(x.astype(np.float32), ((0, pad), (0, 0)))
+    absmax = np.abs(xp).reshape(n_bins, bin_ * D).max(axis=1)
+    scales = (absmax / 127.0).astype(np.float32)
+    safe = np.where(scales > 0, scales, 1.0)
+    codes = np.clip(
+        np.round(xp / np.repeat(safe, bin_)[:, None]), -127, 127
+    ).astype(np.int8)
+    return codes[:N], scales
+
+
+def shard_corpus_rows(corpus: np.ndarray, device, granularity: str = "bin"):
+    """Host [N, D] -> the int8 row layout on ``device``: (codes [N', D],
+    scales, per-doc scales [N'], N), N' = N padded with zero rows to whole
+    bins.  ``scales`` is per bin ([N' / 128], granularity 'bin', the fused
+    kernel's fast path) or per doc ([N'], the exact path's layout of
+    ``scoring.shard_corpus``); the per-doc expansion feeds the guard's
+    exact rung (``fused_topk.shard_corpus_rows`` on one device)."""
+    N, D = corpus.shape
+    Np = -(-N // BIN) * BIN
+    if granularity == "bin":
+        codes, scales = quantize_bins_int8(corpus.astype(np.float32))
+        sc = np.zeros((Np // BIN,), dtype=np.float32)
+        sc[: scales.shape[0]] = scales
+        per_doc = np.repeat(sc, BIN)
+    else:
+        codes, scales = (t.numpy() for t in quantize_rows_int8(
+            torch.from_numpy(corpus.astype(np.float32))))
+        sc = np.zeros((Np,), dtype=np.float32)
+        sc[:N] = scales
+        per_doc = sc
+    rows = np.zeros((Np, D), dtype=np.int8)
+    rows[:N] = codes
+    return (torch.from_numpy(rows).to(device), torch.from_numpy(sc).to(device),
+            torch.from_numpy(per_doc).to(device), N)
 
 
 def bin_scores_plain(queries: torch.Tensor, corpus: torch.Tensor,
@@ -41,7 +97,8 @@ def bin_scores_plain(queries: torch.Tensor, corpus: torch.Tensor,
 
 
 def bin_scores(queries: torch.Tensor, corpus: torch.Tensor, valid_n: int):
-    """Stage 1; the kernel on a CUDA tensor, the plain version on CPU."""
+    """Stage 1 of mode 'none'; the kernel on a CUDA tensor, the plain
+    version on CPU."""
     if corpus.device.type == "cpu":
         return bin_scores_plain(queries, corpus, valid_n)
     if corpus.device.type != "cuda":
@@ -70,12 +127,110 @@ def bin_scores(queries: torch.Tensor, corpus: torch.Tensor, valid_n: int):
 bin_scores.launches = 0
 
 
-def bin_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-             valid_n: int | None = None):
-    """queries [Q, D], corpus [N, D] -> ([Q, k] f32, [Q, k] int64 doc
-    indices).  With fewer bins than k the tail pads with (-inf, 0)."""
+def scale_mode(N: int, doc_scales: torch.Tensor) -> str:
+    """'doc' for N scales, 'bin' for one per 128-doc bin (``bin_topk``
+    :186-205); any other length raises."""
+    n = doc_scales.shape[0]
+    if n == N:
+        return "doc"
+    if n * BIN >= N:
+        return "bin"
+    raise ValueError(f"doc_scales length {n} matches neither per-doc ({N}) "
+                     f"nor per-bin ({-(-N // BIN)}) granularity")
+
+
+def bin_scores_int8_plain(queries: torch.Tensor, corpus: torch.Tensor,
+                          valid_n: int, doc_scales: torch.Tensor):
+    """Plain version of ``bin_scores_int8``: the exact integer sums (an f64
+    product) in blocks of PLAIN_ROWS docs, with the kernel's epilogue."""
     N = corpus.shape[0]
-    vals, idx = bin_scores(queries, corpus, N if valid_n is None else valid_n)
+    Q = queries.shape[0]
+    per_bin = scale_mode(N, doc_scales) == "bin"
+    qd = queries.double().T
+    vals, idx = [], []
+    for lo in range(0, N, PLAIN_ROWS):
+        hi = min(N, lo + PLAIN_ROWS)
+        s = corpus[lo:hi].double() @ qd  # [n, Q] exact integers
+        ok = (torch.arange(lo, hi, device=s.device) < valid_n)[:, None]
+        if per_bin:
+            s = torch.where(ok, s, float(I32_MIN))
+        else:
+            s = torch.where(ok, s.float() * doc_scales[lo:hi, None],
+                            float("-inf"))
+        pad = -(hi - lo) % BIN
+        if pad:
+            s = torch.cat([s, s.new_full((pad, Q), float(I32_MIN) if per_bin
+                                         else float("-inf"))])
+        s = s.reshape(-1, BIN, Q)
+        m = s.amax(dim=1)
+        first = (s == m[:, None, :]).to(torch.int32).argmax(dim=1)
+        bins = torch.arange(lo // BIN, lo // BIN + s.shape[0],
+                            device=s.device)
+        if per_bin:
+            m = torch.where(m == I32_MIN, float("-inf"),
+                            m.float() * doc_scales[bins][:, None])
+        vals.append(m.float())
+        idx.append(first.to(torch.int32) + (bins * BIN).to(torch.int32)
+                   [:, None])
+    return torch.cat(vals), torch.cat(idx)
+
+
+def bin_scores_int8(queries: torch.Tensor, corpus: torch.Tensor,
+                    valid_n: int, doc_scales: torch.Tensor):
+    """Stage 1 of modes 'doc' and 'bin' (int8 codes; the mode follows
+    ``doc_scales``' length); the kernel on a CUDA tensor, the plain version
+    on CPU."""
+    if corpus.device.type == "cpu":
+        return bin_scores_int8_plain(queries, corpus, valid_n, doc_scales)
+    if corpus.device.type != "cuda":
+        raise ValueError(
+            f"bin_scores_int8: unsupported device {corpus.device}")
+    N, D = corpus.shape
+    Q = queries.shape[0]
+    for name, t in (("corpus", corpus), ("queries", queries)):
+        if t.dtype != torch.int8 or not t.is_contiguous() \
+                or t.dim() != 2 or t.shape[1] != D:
+            raise ValueError(
+                f"bin_scores_int8 kernel: {name} must be a contiguous int8 "
+                f"[*, {D}] tensor, got {t.dtype} {tuple(t.shape)}")
+    per_bin = scale_mode(N, doc_scales) == "bin"
+    if doc_scales.dtype != torch.float32 or not doc_scales.is_contiguous():
+        raise ValueError("bin_scores_int8 kernel: doc_scales must be a "
+                         "contiguous f32 vector")
+    if D % 64:  # the kernel's 64-byte K slices: zero codes add nothing
+        corpus = torch.nn.functional.pad(corpus, (0, -D % 64))
+        queries = torch.nn.functional.pad(queries, (0, -D % 64))
+        D = corpus.shape[1]
+    n_bins = -(-N // BIN)
+    vals = torch.empty(n_bins, Q, dtype=torch.float32, device=corpus.device)
+    idx = torch.empty(n_bins, Q, dtype=torch.int32, device=corpus.device)
+    fn = _build.function("bin_topk_bins_i8")
+    _build.check(fn(corpus.data_ptr(), queries.data_ptr(),
+                    doc_scales.data_ptr(), vals.data_ptr(), idx.data_ptr(), N,
+                    Q, D, int(valid_n), int(per_bin),
+                    _build.stream_ptr(corpus.device)), "bin_topk_int8")
+    bin_scores_int8.launches += 1
+    return vals, idx
+
+
+bin_scores_int8.launches = 0
+
+
+def bin_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+             valid_n: int | None = None,
+             doc_scales: torch.Tensor | None = None):
+    """queries [Q, D], corpus [N, D] -> ([Q, k] f32, [Q, k] int64 doc
+    indices).  An int8 corpus takes int8 query codes and ``doc_scales``
+    (per doc or per bin); its values are then in units of the query codes.
+    With fewer bins than k the tail pads with (-inf, 0)."""
+    N = corpus.shape[0]
+    valid = N if valid_n is None else valid_n
+    if corpus.dtype == torch.int8:
+        if doc_scales is None:
+            raise ValueError("int8 corpus requires doc_scales")
+        vals, idx = bin_scores_int8(queries, corpus, valid, doc_scales)
+    else:
+        vals, idx = bin_scores(queries, corpus, valid)
     bv = vals.T
     bi = idx.T.long()
     k_eff = min(k, bv.shape[1])
@@ -86,3 +241,19 @@ def bin_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         v = torch.cat([v, v.new_full((Q, k - k_eff), float("-inf"))], dim=1)
         i = torch.cat([i, i.new_zeros((Q, k - k_eff))], dim=1)
     return v, i
+
+
+def search_int8(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                valid_n: int, doc_scales: torch.Tensor, method: str):
+    """f32 queries over an int8 corpus: the queries are quantized per row,
+    scored by ``bin_topk`` (method 'fused', per-bin or per-doc scales) or
+    exactly by ``scoring.topk_blocked`` (per-doc scales: JAX's int8
+    ``topk_blocked`` and ``exact_topk_rows``, the guard's rungs), and the
+    values times the query scales after the top-k, as the JAX
+    ``sharded_bin_topk`` / ``sharded_topk`` / ``sharded_exact_topk_rows``
+    do."""
+    q_i8, q_scale = quantize_rows_int8(queries)
+    fn = bin_topk if method == "fused" else topk_blocked
+    v, i = fn(q_i8, corpus, k, valid_n=valid_n, doc_scales=doc_scales)
+    return v * q_scale[:, None], i
+

@@ -1,11 +1,15 @@
-"""Exact dense MIPS top-k in plain PyTorch.
+"""Exact dense MIPS top-k in plain PyTorch, and the int8 corpus codes.
 
 Counterpart of ``bergen_tpu/ops/scoring.py::topk_blocked``: score query
 blocks against doc blocks and keep a running top-k, so the [Q, N] score
 matrix is never whole.  Scores are f32 whatever the corpus dtype (the JAX
-dot accumulates in f32).  The JAX package leaves this path to XLA, so the
-port leaves it to ``torch.matmul``; it is the retrieval path below the fused
-kernel's corpus-size threshold and the recall guard's fallback rung.
+dot accumulates in f32).  An int8 corpus (``scoring_dtype: int8``) scores
+int8 query codes in exact int32 sums times the per-doc f32 scales
+(``xla_score_int8``); the caller applies the per-query scales after the
+top-k.  The JAX package leaves this path to XLA, so the port leaves it to
+``torch.matmul`` (``torch._int_mm`` for int8 on the card, an exact f64
+product on the CPU); it is the retrieval path below the fused kernel's
+corpus-size threshold and the recall guard's fallback rung.
 """
 
 from __future__ import annotations
@@ -20,21 +24,62 @@ def topk_lowest_index(x: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
+def quantize_rows_int8(x: torch.Tensor):
+    """Per-row symmetric int8 codes of x [M, D]: (codes int8, scales [M]
+    f32) with scale = max|row| / 127 (zero rows: scale 0, codes 0), codes
+    round(x / scale) half to even, clipped to +-127 (the JAX function's
+    codes and scales bit for bit)."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=1)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which rounds differently
+    scale = absmax / torch.full_like(absmax, 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.round(xf / safe[:, None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale
+
+
+def score_int8(q_i8: torch.Tensor, chunk_i8: torch.Tensor,
+               doc_scales: torch.Tensor) -> torch.Tensor:
+    """[Q, n] f32: the exact int32 sums of int8 codes, converted to f32 and
+    times the per-doc scales (``xla_score_int8``).  On the card
+    ``torch._int_mm`` (at least 17 rows; D and n multiples of 8), on the CPU
+    an f64 product, exact for any D below 2^38."""
+    if q_i8.is_cuda:
+        M = q_i8.shape[0]
+        if M <= 16:
+            q_i8 = torch.cat([q_i8, q_i8.new_zeros(17 - M, q_i8.shape[1])])
+        s = torch._int_mm(q_i8, chunk_i8.t())[:M]
+    else:
+        s = q_i8.double() @ chunk_i8.double().T
+    return s.float() * doc_scales[None, :]
+
+
 def topk_blocked(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                 valid_n: int | None = None, block: int = 1 << 17):
+                 valid_n: int | None = None, block: int = 1 << 17,
+                 doc_scales: torch.Tensor | None = None):
     """queries [Q, D], corpus [N, D] (row layout) -> ([Q, k] f32 scores,
     [Q, k] int64 doc indices); docs at or past ``valid_n`` never win, and
-    k beyond the corpus pads with (-inf, 0) as the JAX function does."""
+    k beyond the corpus pads with (-inf, 0) as the JAX function does.  An
+    int8 corpus takes int8 query codes and its per-doc ``doc_scales``; the
+    values are then in units of the query codes."""
     Q = queries.shape[0]
     N = corpus.shape[0]
     valid = N if valid_n is None else int(valid_n)
     k_eff = min(k, N)
-    q = queries.float()
+    int8 = corpus.dtype == torch.int8
+    if int8 and doc_scales is None:
+        raise ValueError("int8 corpus requires doc_scales")
+    q = queries if int8 else queries.float()
     run_v = torch.full((Q, 0), float("-inf"), device=queries.device)
     run_i = torch.zeros((Q, 0), dtype=torch.int64, device=queries.device)
     for start in range(0, N, block):
-        chunk = corpus[start:start + block].float()
-        s = q @ chunk.T
+        if int8:
+            chunk = corpus[start:start + block]
+            s = score_int8(q, chunk, doc_scales[start:start + chunk.shape[0]])
+        else:
+            chunk = corpus[start:start + block].float()
+            s = q @ chunk.T
         if valid < start + chunk.shape[0]:
             col = torch.arange(start, start + chunk.shape[0],
                                device=s.device)

@@ -12,6 +12,13 @@ batches of ``batch_size_sim``:
   check against a host f32 exact top-k on periodic probe batches; below the
   guard the batch falls back to exact top-k over the same device corpus;
 * otherwise exact top-k in plain PyTorch (``ops/scoring.py``).
+
+``scoring_dtype: int8`` stores the corpus as int8 codes: per-bin scales on
+the fused path (the kernel's mode 'bin'), per-doc scales otherwise; queries
+are quantized per row and their scales applied after the top-k.  The recall
+guard is then live on every path, and its ladder's second rung re-loads the
+corpus unquantized and scores exactly (records ``exact_float32`` on the CPU,
+``exact_bfloat16`` on the card), as the JAX package's.
 """
 
 from __future__ import annotations
@@ -90,11 +97,7 @@ class Retrieve:
         self.batch_size = batch_size
         self.batch_size_sim = batch_size_sim
         self.continue_batch = continue_batch
-        if scoring_dtype == "int8":
-            raise NotImplementedError(
-                "scoring_dtype=int8 is not ported yet (ROADMAP.md Queue 2: "
-                "bin_topk scale modes doc/bin)")
-        if scoring_dtype not in ("auto", "bf16", "f32"):
+        if scoring_dtype not in ("auto", "int8", "bf16", "f32"):
             raise ValueError(f"unknown scoring_dtype {scoring_dtype!r}")
         self.scoring_dtype = scoring_dtype
         if topk_method not in ("auto", "exact", "approx", "fused"):
@@ -189,6 +192,7 @@ class Retrieve:
         d_emb = self.load_index(doc_index_path, len(docs))
 
         dtype = self._dtype()
+        int8_scoring = self.scoring_dtype == "int8"
         method = self.topk_method
         use_fused = method == "fused" or (
             method == "auto" and self.device.type == "cuda"
@@ -199,22 +203,42 @@ class Retrieve:
                 dtype = torch.bfloat16  # the kernel's corpus type
         elif method == "approx":
             method = "exact"  # exact top-k meets any approximate target
-        corpus = torch.from_numpy(d_emb).to(self.device, dtype).contiguous()
-        valid_n = len(docs)
+        dscales = exact_scales = None
+        if int8_scoring and use_fused:
+            # per-bin scales feed the kernel's int32 epilogue; the per-doc
+            # expansion feeds the guard's exact rung
+            corpus, dscales, exact_scales, valid_n = \
+                fused_topk.shard_corpus_rows(d_emb, self.device)
+        elif int8_scoring:
+            corpus, dscales, _, valid_n = fused_topk.shard_corpus_rows(
+                d_emb, self.device, granularity="doc")
+        else:
+            corpus = torch.from_numpy(d_emb).to(self.device, dtype) \
+                .contiguous()
+            valid_n = len(docs)
         k = min(top_k, valid_n)
 
         def score_batch(q_np, method):
-            q = torch.from_numpy(q_np).to(self.device, dtype).contiguous()
-            if method == "fused":
-                v, i = fused_topk.bin_topk(q, corpus, k, valid_n=valid_n)
+            if int8_scoring:
+                q = torch.from_numpy(q_np).to(self.device, torch.float32)
+                v, i = fused_topk.search_int8(
+                    q, corpus, k, valid_n,
+                    exact_scales if method == "exact_rows" else dscales,
+                    method)
             else:
-                v, i = scoring.topk_blocked(q, corpus, k, valid_n=valid_n)
+                q = torch.from_numpy(q_np).to(self.device, dtype).contiguous()
+                if method == "fused":
+                    v, i = fused_topk.bin_topk(q, corpus, k, valid_n=valid_n)
+                else:
+                    v, i = scoring.topk_blocked(q, corpus, k,
+                                                valid_n=valid_n)
             return v.cpu().numpy(), i.cpu().numpy()
 
         # recall guard on probe batches: the fused path is approximate (two
-        # top-k docs in one 128-doc bin lose one candidate)
+        # top-k docs in one 128-doc bin lose one candidate), and int8 codes
+        # are approximate on every path
         fidelity: list[dict] = []
-        guard_live = method == "fused"
+        guard_live = method == "fused" or int8_scoring
         near_cliff = len(docs) < (1 << 19)
         guard_every = max(1, int(os.environ.get(
             "BERGEN_TPU_GUARD_EVERY",
@@ -233,17 +257,37 @@ class Retrieve:
                 overlap = _topk_overlap(idxs[:nq], ref_idx, k)
                 fidelity.append({"batch": bi, "method": method,
                                  "overlap": overlap})
-                if overlap < self.approx_recall_guard:
+                if overlap < self.approx_recall_guard \
+                        and method not in ("exact", "exact_rows"):
+                    # rung 1: exact top-k over the same (possibly int8)
+                    # codes recovers the bin-argmax loss
+                    fb = "exact_rows" if method == "fused" else "exact"
                     log.warning(
                         "%s top-k vs fp32 host overlap %.4f < guard %.2f — "
-                        "retrying with exact_rows", method, overlap,
-                        self.approx_recall_guard)
-                    method = "exact_rows"
+                        "retrying with %s", method, overlap,
+                        self.approx_recall_guard, fb)
+                    method = fb
                     vals, idxs = score_batch(q_np, method)
                     overlap = _topk_overlap(idxs[:nq], ref_idx, k)
                     fidelity.append({"batch": bi, "method": method,
                                      "overlap": overlap})
-                    guard_live = False
+                if overlap < self.approx_recall_guard and int8_scoring:
+                    # rung 2: the quantization itself is at fault: re-load
+                    # the corpus unquantized and score exactly
+                    name = str(dtype).replace("torch.", "")
+                    log.warning(
+                        "exact int8 overlap %.4f still < guard — re-loading "
+                        "the corpus unquantized (%s exact)", overlap, name)
+                    int8_scoring = False
+                    corpus = torch.from_numpy(d_emb).to(
+                        self.device, dtype).contiguous()
+                    method = "exact"
+                    vals, idxs = score_batch(q_np, method)
+                    overlap = _topk_overlap(idxs[:nq], ref_idx, k)
+                    fidelity.append({"batch": bi, "method": "exact_" + name,
+                                     "overlap": overlap})
+                guard_live = method not in ("exact", "exact_rows") \
+                    or int8_scoring
             all_vals.append(vals)
             all_idx.append(idxs)
         vals = np.concatenate(all_vals, axis=0)

@@ -11,7 +11,8 @@ Phases (each prints one JSON line):
      writers: BERT-base (bge-base-en-v1.5), TinyLlama-1.1B-Chat,
      DeBERTa-v3-base (the debertav3 reranker; a Unigram tokenizer), a
      BERT-large cross-encoder (bge-large-en's width), MiniLM-L6,
-     Llama-2-7b-chat (13.5 GB of sharded safetensors) and
+     nomic-embed-text-v1.5 and jina-embeddings-v2-base-en (their published
+     layouts), Llama-2-7b-chat (13.5 GB of sharded safetensors) and
      Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
@@ -20,16 +21,19 @@ Phases (each prints one JSON line):
      the int4 quantizer on the card against the CPU, bit for bit;
   4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
-     TinyLlama generator), the same with the DeBERTa-v3 reranker, W8A8 doc
-     encoding with the W8A8 BERT-large reranker, the MiniLM reranker, and
-     the int4 Llama-2-7B generator with flash prefill, and the served
-     Mistral-7B generator (``generator=vllm_mistral-7b-chat``: the epoch
-     drain, then ``kv_cache=paged``); then the card against the port's f32
-     CPU path on small inputs (64 docs, 64 DeBERTa pairs, two questions:
-     prefill and one decode step; the same for the first two layers of the
+     TinyLlama generator), the same with the nomic-embed retriever and with
+     the jina-v2 retriever over an int8 corpus (``scoring_dtype=int8``),
+     the same with the DeBERTa-v3 reranker, W8A8 doc encoding with the W8A8
+     BERT-large reranker, the MiniLM reranker, and the int4 Llama-2-7B
+     generator with flash prefill, and the served Mistral-7B generator
+     (``generator=vllm_mistral-7b-chat``: the epoch drain, then
+     ``kv_cache=paged``); then the card against the port's f32 CPU path on
+     small inputs (64 docs, 64 DeBERTa pairs, two questions: prefill and one
+     decode step; the first two layers of nomic-embed and jina-v2, of the
      int4 Llama-2-7B, and of the served Mistral-7B in both KV modes);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
-     unit-norm fp16 shards with topk_method auto (takes the fused kernel);
+     unit-norm fp16 shards with topk_method auto (takes the fused kernel),
+     over a bf16 corpus and over int8 codes with per-bin scales;
   6. one ``kernels`` line with every kernel's numbers and launch counts.
 ``--profile-serve`` instead writes the Mistral-7B checkpoint and profiles
 both servers' steps (``profile_serve``).
@@ -81,6 +85,12 @@ KERNELS = {
     "paged_attention": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/paged_attention.cu",
         "replaces": "bergen_tpu/ops/paged_attention.py:249"},
+    "encoder_attention": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer.cu",
+        "replaces": "bergen_tpu/ops/encoder_attention.py:825"},
+    "bin_topk_int8": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/bin_topk.cu",
+        "replaces": "bergen_tpu/ops/fused_topk.py:145"},
 }
 # the kernels each part of the main path must launch: ut1's 1,000 docs are
 # below the fused top-k's 131,072-doc threshold, the at-scale retrieval
@@ -97,7 +107,13 @@ PATH_KERNELS = {
                         "decode_attention"),
     "ut1_serve_mistral": ("encoder_layer", "decode_attention"),
     "ut1_serve_paged_mistral": ("encoder_layer", "paged_attention"),
+    "ut1_eval_nomic": ("encoder_attention", "decode_attention"),
+    "ut1_eval_jina": ("encoder_attention", "decode_attention"),
+    "retrieval_at_scale_int8": ("bin_topk_int8",),
 }
+# the rope/ALiBi retrievers' ut1 encode: 50 queries and 1,000 docs in
+# batches of the configs' 512, one encoder_attention launch per layer
+UT1_ENCODE_BATCHES = 1 + 2
 # the W8A8 reranker guard of ut1_rerank_w8a8: random weights bunch the
 # scores, so bf16 and W8A8 ranks agree less than a trained model's (a
 # Spearman of 0.9499 over the guard batch, below the config's 0.99);
@@ -650,6 +666,170 @@ def check_bin_topk(results: dict, dev) -> None:
         fail(f"bin_topk: max error {max_err} (tol {tol}), "
              f"{row['index_diffs_beyond_tol']} indices off beyond tol")
     results["bin_topk"] = [row]
+
+
+# encoder_attention: the kernel divides by the softmax sum at the end and
+# rounds the unnormalised probabilities to bf16, the plain version (JAX's
+# rule) the normalised ones, so a context moves by a few ulps of its
+# largest terms; the max is two bf16 ulps of the largest outputs (|o| in
+# [4, 8): the peaked rows of scale 1.0 and ALiBi copy one V row), the mean
+# a few ulps of a typical |o|
+ATT_TOL, ATT_MEAN_TOL = 0.0625, 1e-3
+# B 512, S 256 (the retriever configs' batch and max_len; the kernels line
+# reports the first), then the ut1 encode batches: 512 and 488 docs at
+# bucket 64, 50 queries at bucket 32
+ATT_SHAPES = ((512, 256), (512, 64), (488, 64), (50, 32))
+
+
+def check_encoder_attention(results: dict, dev) -> None:
+    """nomic/jina/GTE attention (D 768, 12 heads of 64): no bias, the ALiBi
+    bias of ``alibi_slopes(12)``, and scale 1.0 at B 512, S 256; no bias
+    and ALiBi at the ut1 buckets.  Ragged masks, row 1 fully masked."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.models import bert
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    D, H = 768, 12
+    Dh = D // H
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = _rnd(gen, dev)
+    per_shape = []
+    for B, S in ATT_SHAPES:
+        q, k, v = (rnd(B, S, D).bfloat16() for _ in range(3))
+        mask = _padded_mask(gen, dev, B, S)
+        mbias = torch.where(mask.bool(), 0.0, -1e30)[:, None, None, :]
+        variants = (("none", None, None), ("alibi", bert.alibi_bias(H, S, dev),
+                                           None))
+        if S == 256:
+            variants += (("scale_1", None, 1.0),)
+        for variant, bias, scale in variants:
+            args = (q, k, v, mask, H, bias, scale)
+            out = ea.encoder_attention(*args)
+            ref = ea.encoder_attention_plain(*args)
+            max_err, mean_err = _errors(out, ref)
+            uniform = (out[1].float() - v[1].float().mean(0)).abs().max()
+            ms = cuda_time_ms(lambda: ea.encoder_attention(*args))
+            plain_ms = cuda_time_ms(lambda: ea.encoder_attention_plain(*args),
+                                    iters=2, warmup=1)
+            q4, k4, v4 = (t.view(B, S, H, Dh).transpose(1, 2)
+                          for t in (q, k, v))
+            amask = (mbias if bias is None else bias[None] + mbias) \
+                .bfloat16()
+            library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=amask, scale=scale))
+            nbytes = 4 * B * S * D * 2 + B * S * 4 + (
+                0 if bias is None else H * S * S * 4)
+            b_ms, b_by = bound(4 * B * H * S * S * Dh, nbytes)
+            row = {"B": B, "S": S, "H": H, "head_dim": Dh, "bias": variant,
+                   "max_abs_err": max_err, "mean_abs_err": mean_err,
+                   "masked_row_err": uniform.item(), "tol": ATT_TOL,
+                   "mean_tol": ATT_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms}
+            emit({"phase": "kernel_check", "kernel": "encoder_attention",
+                  **row})
+            per_shape.append(row)
+            if not (max_err <= ATT_TOL and mean_err <= ATT_MEAN_TOL
+                    and row["masked_row_err"] <= ATT_TOL):
+                fail(f"encoder_attention B{B} S{S} {variant}: max error "
+                     f"{max_err} (tol {ATT_TOL}), mean {mean_err} (tol "
+                     f"{ATT_MEAN_TOL}), masked row {row['masked_row_err']}")
+            del out, ref, amask
+        del q, k, v
+        torch.cuda.empty_cache()
+    results["encoder_attention"] = per_shape
+
+
+# the int8 bin top-k: exact integer sums and the same f32 conversions and
+# multiplies, so indices must be identical and values equal (the limit is
+# 1e-6 relative)
+INT8_RTOL = 1e-6
+INT8_SHAPE = (262_144, 768, 2_048, 50)  # N, D, Q, k: retrieval_at_scale's
+
+
+def check_bin_topk_int8(results: dict, dev) -> None:
+    """Modes 'bin' (per-bin scales; the kernels line reports it) and 'doc'
+    (per-doc scales) at N 262,144, Q 2,048, D 768, on a random unit-norm
+    corpus and on a tie-heavy one (rows repeated from 20,000, queries with
+    16 non-zero codes), the last 1,000 docs padding."""
+    import torch
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops.scoring import quantize_rows_int8
+
+    N, D, Q, k = INT8_SHAPE
+    valid_n = N - 1000
+    gen = torch.Generator(device=dev).manual_seed(7)
+    docs = torch.nn.functional.normalize(
+        torch.randn(N, D, generator=gen, device=dev), dim=1)
+    qry = torch.nn.functional.normalize(
+        torch.randn(Q, D, generator=gen, device=dev), dim=1)
+    q_i8, _ = quantize_rows_int8(qry)
+    codes, scales = ft.quantize_bins_int8(docs.cpu().numpy())
+    corpora = {"bin": (torch.from_numpy(codes).to(dev),
+                       torch.from_numpy(scales).to(dev)),
+               "doc": quantize_rows_int8(docs)}
+    del docs, codes
+    base = torch.randint(-127, 128, (20_000, D), generator=gen, device=dev,
+                         dtype=torch.int8)
+    pick = torch.randint(0, 20_000, (N,), generator=gen, device=dev)
+    tq = torch.zeros(Q, D, dtype=torch.int8, device=dev)
+    cols = torch.randint(0, D, (Q, 16), generator=gen, device=dev)
+    tq.scatter_(1, cols, torch.randint(-127, 128, (Q, 16), generator=gen,
+                                       device=dev, dtype=torch.int8))
+    doc_sc = torch.rand(20_000, generator=gen, device=dev) + 0.5
+    ties = {"bin": (base[pick], torch.rand(N // 128, generator=gen,
+                                           device=dev) + 0.5),
+            "doc": (base[pick], doc_sc[pick])}
+    per_case = []
+    for mode in ("bin", "doc"):
+        for corpus_name, (codes, scales), queries in (
+                ("random", corpora[mode], q_i8), ("ties", ties[mode], tq)):
+            vals, idx = ft.bin_scores_int8(queries, codes, valid_n, scales)
+            rv, ri = ft.bin_scores_int8_plain(queries, codes, valid_n,
+                                              scales)
+            torch.cuda.synchronize()
+            finite = torch.isfinite(rv)
+            if not torch.equal(torch.isfinite(vals), finite):
+                fail(f"bin_topk_int8 {mode}/{corpus_name}: masked bins "
+                     "disagree")
+            rel = ((vals[finite] - rv[finite]).abs()
+                   / rv[finite].abs().clamp_min(1e-30)).max().item()
+            max_err = (vals[finite] - rv[finite]).abs().max().item()
+            n_idx_diff = int((idx != ri).sum().item())
+            v2, i2 = ft.bin_topk(queries, codes, k, valid_n=valid_n,
+                                 doc_scales=scales)
+            if int((i2 >= valid_n).sum().item()):
+                fail(f"bin_topk_int8 {mode}: a padding doc was returned")
+            ms = cuda_time_ms(lambda: ft.bin_scores_int8(queries, codes,
+                                                         valid_n, scales))
+            plain_ms = cuda_time_ms(lambda: ft.bin_scores_int8_plain(
+                queries, codes, valid_n, scales), iters=2, warmup=1)
+
+            def library():
+                sc = torch._int_mm(codes, queries.t()).view(-1, ft.BIN, Q)
+                return sc.amax(dim=1), sc.argmax(dim=1)
+
+            library_ms = cuda_time_ms(library, iters=5)
+            n_bins = N // ft.BIN
+            b_ms, b_by = bound(2 * N * Q * D,
+                               N * D + Q * D + scales.numel() * 4
+                               + n_bins * Q * 8, PEAK_INT8_OPS)
+            row = {"mode": mode, "corpus": corpus_name, "N": N, "D": D,
+                   "Q": Q, "k": k, "max_abs_err": max_err,
+                   "max_rel_err": rel, "rtol": INT8_RTOL,
+                   "index_diffs": n_idx_diff, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms}
+            emit({"phase": "kernel_check", "kernel": "bin_topk_int8", **row})
+            per_case.append(row)
+            if not rel <= INT8_RTOL or n_idx_diff:
+                fail(f"bin_topk_int8 {mode}/{corpus_name}: max relative "
+                     f"error {rel} (tol {INT8_RTOL}), {n_idx_diff} bin "
+                     "indices differ")
+            del vals, idx, rv, ri, v2, i2
+            torch.cuda.empty_cache()
+    results["bin_topk_int8"] = per_case
 
 
 def check_decode_attention(results: dict, dev) -> None:
@@ -1296,12 +1476,85 @@ def _write_deberta(path: str, w, c: dict) -> str:
     return path
 
 
+# nomic-ai/nomic-embed-text-v1.5's and jinaai/jina-embeddings-v2-base-en's
+# published config.json fields (the widths tests/test_remote_encoders.py
+# records): both D 768, 12 layers of 12 heads, FFN 3,072, vocab 30,528
+NOMIC_EMBED = dict(model_type="nomic_bert", vocab_size=30528, n_embd=768,
+                   n_layer=12, n_head=12, n_inner=3072, n_positions=8192,
+                   type_vocab_size=2, layer_norm_epsilon=1e-12,
+                   rotary_emb_base=1000, mlp_fc1_bias=False, pad_token_id=0,
+                   activation_function="swiglu", qkv_proj_bias=False)
+JINA_V2_BASE = dict(model_type="bert", vocab_size=30528, hidden_size=768,
+                    num_hidden_layers=12, num_attention_heads=12,
+                    intermediate_size=3072, max_position_embeddings=8192,
+                    type_vocab_size=2, layer_norm_eps=1e-12,
+                    hidden_act="gelu", pad_token_id=0,
+                    position_embedding_type="alibi",
+                    feed_forward_type="geglu")
+
+
+def _write_remote_encoder(path: str, w, c: dict) -> str:
+    """nomic-embed (NomicBertModel) or jina-v2 (JinaBertModel) at config
+    ``c``, in the published state-dict layout, with a WordPiece tokenizer
+    over the fixture words."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+    from bergen_tpu_torch.models.tokenizer import write_tokenizer
+
+    os.makedirs(path, exist_ok=True)
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16)  # noqa: E731
+    nomic = c["model_type"] == "nomic_bert"
+    D = c["n_embd"] if nomic else c["hidden_size"]
+    I = c["n_inner"] if nomic else c["intermediate_size"]
+    L = c["n_layer"] if nomic else c["num_hidden_layers"]
+    ln = "emb_ln" if nomic else "embeddings.LayerNorm"
+    sd = {"embeddings.word_embeddings.weight": w(c["vocab_size"], D),
+          "embeddings.token_type_embeddings.weight": w(2, D),
+          f"{ln}.weight": ones(D), f"{ln}.bias": zeros(D)}
+    for i in range(L):
+        if nomic:
+            pre = f"encoder.layers.{i}"
+            lin = {"attn.Wqkv": (3 * D, D), "attn.out_proj": (D, D),
+                   "mlp.fc11": (I, D), "mlp.fc12": (I, D), "mlp.fc2": (D, I)}
+            norms = ("norm1", "norm2")
+        else:
+            pre = f"encoder.layer.{i}"
+            lin = {"attention.self.query": (D, D),
+                   "attention.self.key": (D, D),
+                   "attention.self.value": (D, D),
+                   "attention.output.dense": (D, D),
+                   "mlp.gated_layers": (2 * I, D), "mlp.wo": (D, I)}
+            norms = ("attention.output.LayerNorm", "mlp.layernorm")
+        for name, (o, n) in lin.items():
+            sd[f"{pre}.{name}.weight"] = w(o, n)
+            if not nomic and name != "mlp.gated_layers":
+                sd[f"{pre}.{name}.bias"] = zeros(o)
+        for name in norms:
+            sd[f"{pre}.{name}.weight"] = ones(D)
+            sd[f"{pre}.{name}.bias"] = zeros(D)
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    specials = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
+                "[MASK]": 103}
+    write_tokenizer(path, "WordPiece",
+                    _vocab(specials, c["vocab_size"], "[unused{}]"),
+                    {"pad_token": "[PAD]", "unk_token": "[UNK]",
+                     "cls_token": "[CLS]", "sep_token": "[SEP]",
+                     "mask_token": "[MASK]"},
+                    lowercase=True, strip_accents=True,
+                    template=("[CLS]", "[SEP]"))
+    return path
+
+
 def write_checkpoints(root: str, dev) -> dict:
     """Seeded random bf16 weights at the published widths of
     BAAI/bge-base-en-v1.5 (BERT-base), TinyLlama-1.1B-Chat-v1.0,
     DeBERTa-v3-base (naver/trecdl22-crossencoder-debertav3), a BERT-large
-    cross-encoder (BAAI/bge-large-en) and MiniLM-L6
-    (cross-encoder/ms-marco-MiniLM-L-6-v2)."""
+    cross-encoder (BAAI/bge-large-en), MiniLM-L6
+    (cross-encoder/ms-marco-MiniLM-L-6-v2), nomic-embed-text-v1.5 and
+    jina-embeddings-v2-base-en."""
     import torch
     from bergen_tpu_torch.models.convert import save_safetensors
     from bergen_tpu_torch.models.tokenizer import write_tokenizer
@@ -1352,6 +1605,11 @@ def write_checkpoints(root: str, dev) -> dict:
         os.path.join(root, "bge-large-en-ce-random"), w, BERT_LARGE_CE)
     out["minilm"] = _write_bert(
         os.path.join(root, "ms-marco-minilm-l6-random"), w, MINILM_L6_CE)
+    out["nomic"] = _write_remote_encoder(
+        os.path.join(root, "nomic-embed-text-v1.5-random"), w, NOMIC_EMBED)
+    out["jina"] = _write_remote_encoder(
+        os.path.join(root, "jina-embeddings-v2-base-en-random"), w,
+        JINA_V2_BASE)
     return out
 
 
@@ -1623,6 +1881,43 @@ def run_main_path(ckpt: dict, workdir: str) -> dict:
             "trec_lines": 500, **_check_outputs(exp)}
 
 
+def _run_remote_eval(ckpt: dict, workdir: str, name: str, config: str,
+                     extra: list[str]) -> dict:
+    exp, wall = _run_cli([
+        f"retriever={config}",
+        f"retriever.init_args.model_name={_local(ckpt, name)}", *extra,
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}"], workdir,
+        ckpt)
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    out = {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+           "trec_lines": 500, **_check_outputs(exp)}
+    fid = os.path.join(exp, "eval_dev_retrieval_fidelity.json")
+    if os.path.exists(fid):
+        out["fidelity"] = _json(exp, os.path.basename(fid))
+    return out
+
+
+def run_ut1_eval_nomic(ckpt: dict, workdir: str) -> dict:
+    """The dense eval with ``retriever=nomic-embed-text-v1.5`` (rope,
+    swiglu MLP; prompts): the encoder_attention kernel, no layer kernel."""
+    return _run_remote_eval(ckpt, workdir, "nomic", "nomic-embed-text-v1.5",
+                            [])
+
+
+def run_ut1_eval_jina(ckpt: dict, workdir: str) -> dict:
+    """The dense eval with ``retriever=jina-embeddings-v2-base-en`` (ALiBi,
+    geglu MLP) and ``retriever.scoring_dtype=int8``: the encoder_attention
+    kernel with its f32 bias, the int8 exact top-k and the recall guard,
+    whose record the run must write."""
+    out = _run_remote_eval(ckpt, workdir, "jina",
+                           "jina-embeddings-v2-base-en",
+                           ["retriever.scoring_dtype=int8"])
+    if not out.get("fidelity") or out["fidelity"][0]["method"] != "auto":
+        fail(f"ut1_eval_jina: no int8 recall-guard record ({out})")
+    return out
+
+
 def run_ut1_rerank(ckpt: dict, workdir: str) -> dict:
     """The dense eval with the DeBERTa-v3-base reranker between retrieval
     and generation (rerank_top_k 10 of retrieve_top_k 10)."""
@@ -1862,6 +2157,33 @@ def check_against_cpu(ckpt: dict) -> dict:
     return out
 
 
+def check_remote_against_cpu(ckpt: dict) -> dict:
+    """The nomic-embed and jina-v2 encoders' first two layers on the card
+    (bf16; encoder_attention, with jina's f32 ALiBi bias) against the
+    port's f32 CPU path, on 64 ut1 docs: smallest row cosine of the
+    embeddings."""
+    from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
+
+    tol = 0.99  # min cosine, bf16 against f32
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_docs.tsv")) as f:
+        docs = [ln.split("\t")[1] for ln in f][:64]
+    out = {"tol": tol}
+    for name, pooler in (("nomic", "mean"), ("jina", "mean")):
+        enc = []
+        for dev, dtype in (("cuda", None), ("cpu", "f32")):
+            r = DenseRetriever(ckpt[name], max_len=256, pooler=pooler,
+                               similarity="cos", device=dev, dtype=dtype)
+            r.params["layers"] = r.params["layers"][:2]
+            enc.append(r.encode(docs, "doc"))
+            del r
+        out[f"{name}_min_cos"] = _cos_rows(*enc)
+    bad = [k for k, v in out.items() if k != "tol" and not v >= tol]
+    if bad:
+        fail(f"remote encoders card vs CPU reference: {bad} below {tol}: "
+             f"{out}")
+    return out
+
+
 def check_int4_against_cpu(ckpt: dict) -> dict:
     """The card's int4 generator (bf16 activations, the int4, flash and
     decode kernels) against the port's f32 CPU int4 path (their plain
@@ -1978,9 +2300,14 @@ def check_serve_against_cpu(ckpt: dict) -> dict:
     return out
 
 
-def run_retrieval_at_scale(ckpt: dict, workdir: str) -> dict:
+def run_retrieval_at_scale(ckpt: dict, workdir: str,
+                           scoring_dtype: str = "auto") -> dict:
     """Retrieve.retrieve over 262,144 unit-norm fp16 doc shards (D 768)
-    with topk_method auto: 2,048 queries, each a noisy copy of one doc."""
+    with topk_method auto: 2,048 queries, each a noisy copy of one doc.
+    With ``scoring_dtype`` int8 the corpus is int8 codes with per-bin
+    scales (the kernel's mode 'bin'); the guard's first record is the fused
+    path's overlap with the host f32 exact top-k, whatever its ladder did
+    after."""
     import numpy as np
     from bergen_tpu_torch.data.dataset import Dataset
     from bergen_tpu_torch.pipeline.retrieve import CHUNK_DOCS, Retrieve
@@ -2012,7 +2339,7 @@ def run_retrieval_at_scale(ckpt: dict, workdir: str) -> dict:
         "model_name": ckpt["bert"], "max_len": 512, "pooler": "cls",
         "similarity": "cos"}
     ret = Retrieve(init_args=init_args, batch_size=512, batch_size_sim=2048,
-                   topk_method="auto")
+                   topk_method="auto", scoring_dtype=scoring_dtype)
     import torch
 
     torch.cuda.synchronize()
@@ -2021,7 +2348,9 @@ def run_retrieval_at_scale(ckpt: dict, workdir: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fid = out.get("fidelity", [])
-    if not fid or any(f["method"] != "fused" for f in fid):
+    if not fid or fid[0]["method"] != "fused" or (
+            scoring_dtype != "int8" and any(f["method"] != "fused"
+                                            for f in fid)):
         fail(f"retrieval at scale: a batch left the fused path ({fid})")
     top1 = np.array([int(row[0][1:]) for row in out["doc_id"]])
     top1_hit = float(np.mean(top1 == src))
@@ -2147,7 +2476,7 @@ def card_line() -> str:
 PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "encoder_layer_q", "bin_topk", "decode_attention",
                  "int4_matmul", "int4_quantizer", "flash_attention",
-                 "paged_attention")
+                 "paged_attention", "encoder_attention", "bin_topk_int8")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers")
 
@@ -2197,7 +2526,9 @@ def main() -> None:
                 "decode_attention": da.decode_attention,
                 "int4_matmul": im.matmul_int4_packed,
                 "flash_attention": fa.flash_attention,
-                "paged_attention": pa.paged_partial}
+                "paged_attention": pa.paged_partial,
+                "encoder_attention": ea.encoder_attention,
+                "bin_topk_int8": ft.bin_scores_int8}
     results: dict = {}
     checks = {"encoder_layer": lambda: check_encoder_layer(results, dev),
               "encoder_layer_prebias": lambda: check_encoder_layer_prebias(
@@ -2210,7 +2541,10 @@ def main() -> None:
               "int4_matmul": lambda: check_int4_matmul(results, dev),
               "int4_quantizer": lambda: check_int4_quantizer(results, dev),
               "flash_attention": lambda: check_flash_attention(results, dev),
-              "paged_attention": lambda: check_paged_attention(results, dev)}
+              "paged_attention": lambda: check_paged_attention(results, dev),
+              "encoder_attention": lambda: check_encoder_attention(results,
+                                                                   dev),
+              "bin_topk_int8": lambda: check_bin_topk_int8(results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
@@ -2228,13 +2562,16 @@ def main() -> None:
           **ckpt})
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     by_path: dict = {}
+    bias_launches: dict = {}
     runs: dict = {}
 
     def drive(path: str, run) -> None:
         for fn in counters.values():
             fn.launches = 0
+        ea.encoder_attention.bias_launches = 0
         runs[path] = run(ckpt, os.path.join(work, path))
         by_path[path] = {n: fn.launches for n, fn in counters.items()}
+        bias_launches[path] = ea.encoder_attention.bias_launches
         emit({"phase": path, **runs[path]})
         torch.cuda.empty_cache()
 
@@ -2246,13 +2583,19 @@ def main() -> None:
               "write_s": time.perf_counter() - t0, "disk_free_gb": free_gb,
               "path": ckpt["llama2_7b"]})
         for path, run in (("ut1_eval", run_main_path),
+                          ("ut1_eval_nomic", run_ut1_eval_nomic),
+                          ("ut1_eval_jina", run_ut1_eval_jina),
                           ("retrieval_at_scale", run_retrieval_at_scale),
+                          ("retrieval_at_scale_int8",
+                           lambda c, w: run_retrieval_at_scale(c, w, "int8")),
                           ("ut1_rerank", run_ut1_rerank),
                           ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
                           ("ut1_rerank_minilm", run_ut1_rerank_minilm),
                           ("ut1_int4_llama2", run_ut1_int4_llama2)):
             drive(path, run)
         emit({"phase": "reference_check", **check_against_cpu(ckpt)})
+        emit({"phase": "reference_check_remote",
+              **check_remote_against_cpu(ckpt)})
         emit({"phase": "reference_check_int4",
               **check_int4_against_cpu(ckpt)})
         for name in SEVEN_B[:2]:  # room on the disk for the next 7B
@@ -2264,11 +2607,27 @@ def main() -> None:
         for path, kv in (("ut1_serve_mistral", "uniform"),
                          ("ut1_serve_paged_mistral", "paged")):
             drive(path, lambda c, w, kv=kv: run_ut1_serve_mistral(c, w, kv))
-        emit({"phase": "launches", **by_path})
+        emit({"phase": "launches", **by_path,
+              "encoder_attention_with_bias": bias_launches})
         idle = [f"{n} on {path}" for path, names in PATH_KERNELS.items()
                 for n in names if by_path[path][n] == 0]
         if idle:
             fail(f"kernels never launched where the path runs them: {idle}")
+        # the rope/ALiBi encoders: one attention launch per layer and
+        # encode batch, the ALiBi ones carrying the bias; no layer kernel
+        want = 12 * UT1_ENCODE_BATCHES
+        for path, biased in (("ut1_eval_nomic", 0), ("ut1_eval_jina", want)):
+            got = (by_path[path]["encoder_attention"], bias_launches[path],
+                   by_path[path]["encoder_layer"])
+            if got != (want, biased, 0):
+                fail(f"{path}: (encoder_attention, with bias, encoder_layer)"
+                     f" launches {got}, not {(want, biased, 0)}")
+        emit({"phase": "retrieval_at_scale_guard",
+              "bf16_overlap": runs["retrieval_at_scale"]["fidelity"][0]
+              ["overlap"],
+              "int8_overlap": runs["retrieval_at_scale_int8"]["fidelity"][0]
+              ["overlap"],
+              "int8_records": runs["retrieval_at_scale_int8"]["fidelity"]})
         n_q = by_path["ut1_rerank_w8a8"]["encoder_layer_q"]
         if n_q <= W8A8_GUARD_LAUNCHES:
             fail(f"ut1_rerank_w8a8: {n_q} W8A8 layer launches, none beyond "

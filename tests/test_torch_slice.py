@@ -22,12 +22,30 @@
    continuous-batching server's epoch drain) and with
    ``+generator.init_args.kv_cache=paged`` (the paged server) on the tiny
    llama: byte-identical ``eval_dev_out.json`` and equal metrics.
+   The same with the rope and ALiBi retrievers
+   (``retriever=nomic-embed-text-v1.5``, ``jina-embeddings-v2-base-en``) on
+   tiny checkpoints in their published layouts (from the torch replicas of
+   ``tests/remote_archs.py``), and again with ``retriever.scoring_dtype=int8``
+   (per-doc int8 corpus codes, the recall guard and its ladder): the same
+   TREC run, identical ``eval_dev_retrieval_fidelity.json`` records and a
+   byte-identical ``eval_dev_out.json``.  Their TREC scores are held to 1e-6
+   beyond what the two fp16 indexes' differences move them: an f32
+   embedding within a few f32 ulps of an fp16 rounding boundary rounds the
+   other way in one package (about 0.05% of the values; a flip of 6e-5
+   moves a cosine by up to 8e-6), so the indexes are held to one fp16 ulp
+   and the scores to their own index's products.  The tiny jina checkpoint names its
+   ``model_type`` ``jina_bert``: JAX's ``load_hf_encoder`` reads a
+   ``model_type: bert`` checkpoint through transformers' ``BertModel``,
+   which drops jina's gated MLP (ROADMAP.md Queue 3); the port reads
+   ``config.json`` itself and takes the ALiBi branch either way.
 2. ``Retrieve`` with ``topk_method=fused`` over a 2,048-doc synthetic index
    in both packages, with the recall guard off (the fused result itself) and
-   on (the guard ladder falls back to exact top-k): same TREC run, same
-   fidelity records.
+   on (the guard ladder falls back to exact top-k), over a bf16/f32 corpus
+   and over int8 codes with per-bin scales (mode 'bin'): same TREC run,
+   same fidelity records.
 """
 
+import glob
 import json
 import os
 import subprocess
@@ -86,6 +104,43 @@ def _assert_same_trec(a, b, atol=SCORE_ATOL):
     for x, y in zip(la, lb):
         assert x[:4] == y[:4] and x[5] == y[5]
         assert abs(float(x[4]) - float(y[4])) <= atol
+
+
+def _index(root, kind):
+    """The fp16 embeddings a run stored for ``kind`` (ut1docs, ut1queries)."""
+    paths = sorted(glob.glob(os.path.join(root, "indexes", f"{kind}_*",
+                                          "embedding_chunk_*.npy")),
+                   key=lambda p: int(p.rsplit("_", 1)[1][:-4]))
+    return np.concatenate([np.load(p) for p in paths])
+
+
+def _assert_same_trec_over_indexes(jroot, troot, jrun, trun):
+    """Same queries, docs and ranks; the two fp16 indexes within one fp16
+    ulp, under 1% of values apart; each score within SCORE_ATOL of JAX's
+    beyond the change in q . d that the index differences make."""
+    import pickle
+
+    rows = {}
+    for kind in ("ut1queries", "ut1docs"):
+        j, t = _index(jroot, kind), _index(troot, kind)
+        assert j.shape == t.shape and j.dtype == t.dtype == np.float16
+        ulp = np.spacing(np.maximum(np.abs(j), np.abs(t)))
+        assert (np.abs(j.astype(np.float32) - t) <= ulp).all(), kind
+        assert (j != t).mean() < 0.01, kind
+        name = "ut1queries_dev" if kind == "ut1queries" else "ut1docs_dev"
+        with open(os.path.join(jroot, "datasets", name, "id2index.p"),
+                  "rb") as f:
+            rows[kind] = (pickle.load(f), j.astype(np.float64),
+                          t.astype(np.float64))
+    la = [ln.split("\t") for ln in open(jrun).read().splitlines()]
+    lb = [ln.split("\t") for ln in open(trun).read().splitlines()]
+    assert len(la) == len(lb) > 0
+    (qi, qj, qt), (di, dj, dt) = rows["ut1queries"], rows["ut1docs"]
+    for x, y in zip(la, lb):
+        assert x[:4] == y[:4] and x[5] == y[5]
+        q, d = qi[x[0]], di[x[2]]
+        moved = abs(qt[q] @ dt[d] - qj[q] @ dj[d])
+        assert abs(float(x[4]) - float(y[4])) <= SCORE_ATOL + moved
 
 
 def _run_both(tmp_path, overrides):
@@ -239,6 +294,78 @@ def test_rag_ut1_serve_matches_jax(tmp_path, models, kv_cache):
     assert len(rows) == 50 and all(r["response"] for r in rows)
 
 
+def _remote_checkpoint(root, name, bert_dir):
+    """A 2-layer nomic-embed or jina-v2 checkpoint (random weights, the
+    published state-dict layout and config.json fields) with the tiny BERT's
+    WordPiece tokenizer."""
+    import shutil
+
+    import torch
+    from remote_archs import JinaReplica, NomicReplica
+    from safetensors.torch import save_file
+
+    d = os.path.join(root, name)
+    shutil.copytree(bert_dir, d)
+    with open(os.path.join(d, "tokenizer.json")) as f:
+        vocab = len(json.load(f)["model"]["vocab"])
+    torch.manual_seed(7)
+    dims = dict(hidden=64, layers=2, heads=4, inter=96)
+    if name == "nomic":
+        model = NomicReplica(vocab, **dims)
+        cfg = {"model_type": "nomic_bert", "n_embd": 64, "n_layer": 2,
+               "n_head": 4, "n_inner": 96, "n_positions": 2048,
+               "type_vocab_size": 2, "layer_norm_epsilon": 1e-12,
+               "rotary_emb_base": 1000, "mlp_fc1_bias": False}
+    else:
+        model = JinaReplica(vocab, **dims)
+        cfg = {"model_type": "jina_bert", "hidden_size": 64,
+               "num_hidden_layers": 2, "num_attention_heads": 4,
+               "intermediate_size": 96, "max_position_embeddings": 2048,
+               "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+               "hidden_act": "gelu", "position_embedding_type": "alibi",
+               "feed_forward_type": "geglu"}
+    save_file({k: v.contiguous() for k, v in model.state_dict().items()},
+              os.path.join(d, "model.safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(cfg, vocab_size=vocab, pad_token_id=0), f)
+    return d
+
+
+@pytest.mark.parametrize("scoring", ["auto", "int8"])
+@pytest.mark.parametrize("name,config", [
+    ("nomic", "nomic-embed-text-v1.5"), ("jina", "jina-embeddings-v2-base-en")])
+def test_rag_ut1_remote_retriever_matches_jax(tmp_path, models, name, config,
+                                              scoring):
+    ckpt = _remote_checkpoint(str(tmp_path), name, models["bert"])
+
+    def overrides(root):
+        out = [o.replace("retriever=bge-base-en-v1.5", f"retriever={config}")
+               .replace(models["bert"], ckpt)
+               for o in _overrides(root, models)]
+        return out + [f"retriever.scoring_dtype={scoring}"]
+
+    jexp, texp = _run_both(tmp_path, overrides)
+    with open(os.path.join(jexp, "eval_dev_out.json"), "rb") as f, \
+            open(os.path.join(texp, "eval_dev_out.json"), "rb") as g:
+        assert f.read() == g.read()
+    for name_ in ("eval_dev_metrics.json", "eval_dev_ranking_metrics.json"):
+        with open(os.path.join(jexp, name_)) as f, \
+                open(os.path.join(texp, name_)) as g:
+            assert json.load(f) == json.load(g), name_
+    runs = [n for n in os.listdir(jexp) if n.startswith("run.retrieve.")]
+    assert len(runs) == 1
+    _assert_same_trec_over_indexes(tmp_path / "jax", tmp_path / "torch",
+                                   os.path.join(jexp, runs[0]),
+                                   os.path.join(texp, runs[0]))
+    fid = "eval_dev_retrieval_fidelity.json"
+    assert os.path.exists(os.path.join(texp, fid)) == (scoring == "int8")
+    if scoring == "int8":
+        with open(os.path.join(jexp, fid)) as f, \
+                open(os.path.join(texp, fid)) as g:
+            jfid, tfid = json.load(f), json.load(g)
+        assert tfid == jfid and tfid[0]["method"] == "auto"
+
+
 class _StubModel:
     """The index already exists, so the retriever is never asked to encode."""
 
@@ -249,8 +376,9 @@ class _StubModel:
         raise AssertionError("the synthetic index must not be re-encoded")
 
 
+@pytest.mark.parametrize("scoring", ["auto", "int8"])
 @pytest.mark.parametrize("guard", [0.0, 0.97])
-def test_fused_retrieve_matches_jax(tmp_path, guard):
+def test_fused_retrieve_matches_jax(tmp_path, guard, scoring):
     from bergen_tpu import utils as jutils
     from bergen_tpu.pipeline.retrieve import Retrieve as JRetrieve
     from bergen_tpu_torch import utils as tutils
@@ -273,13 +401,13 @@ def test_fused_retrieve_matches_jax(tmp_path, guard):
                "doc": Dataset.from_dict({"id": [f"d{i}" for i in range(N)],
                                          "content": ["-"] * N})}
     kw = dict(model=_StubModel(), batch_size_sim=16, topk_method="fused",
-              approx_recall_guard=guard)
+              approx_recall_guard=guard, scoring_dtype=scoring)
     jout = JRetrieve(**kw).retrieve(dataset, str(qp), str(dp), k)
     tout = TRetrieve(device="cpu", **kw).retrieve(dataset, str(qp), str(dp),
                                                   k)
     assert tout["fidelity"] == jout["fidelity"]
     assert tout["fidelity"][0]["method"] == "fused"
-    if guard:
+    if guard and scoring == "auto":
         assert [f["method"] for f in tout["fidelity"]] == ["fused",
                                                            "exact_rows"]
     jutils.write_trec(str(tmp_path / "j.trec"), jout["q_id"], jout["doc_id"],
