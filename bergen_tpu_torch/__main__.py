@@ -21,7 +21,7 @@ def main(config, device: str | None = None):
 
     if config.get("train") is not None:
         raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md Queue 1, item 13)")
+            "training is not ported yet (ROADMAP.md Queue 1, training)")
     rag = RAG(**config, config=config, device=device)
     rag.eval(dataset_split="dev")
 

@@ -15,11 +15,14 @@ takes them off the TPU's whole-layer kernel:
   on every sequence bucket (the TPU gates ``S >= 128`` and 128-lane head
   groups, and the dequantized fallback for shapes outside the TPU kernel's
   envelope, were TPU choices and are not inherited);
-* otherwise ``core.mha`` (whose attention is ``encoder_attention``: the
-  CUDA kernel on the card), LayerNorm, and the MLP in plain products, each
-  rounded once to the activation dtype as JAX's ``dense``.  A W8A8 tree on
-  this route raises: JAX dequantizes it there (``bert.py:296-308``), which
-  is not ported.
+* otherwise the attention half, then the MLP in plain products (each
+  rounded once to the activation dtype, as JAX's ``dense``) and LayerNorm.
+  The attention half is ``ops.encoder_attention.attention_block`` for
+  absolute positions (a gated MLP: JAX's ``bert.py:315-318``), and
+  ``core.mha`` (whose attention is ``encoder_attention``) plus LayerNorm
+  for rope and ALiBi; the CUDA kernels on the card.  A W8A8 tree on this
+  route is dequantized first (``convert.dequantize_linear_w8a8``), as in
+  JAX (``bert.py:296-308``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Dict
 
 import torch
 
+from bergen_tpu_torch.models import convert
 from bergen_tpu_torch.models.core import ACT_FNS, dense, layernorm, mha
 from bergen_tpu_torch.ops import encoder_attention as ea
 
@@ -194,12 +198,26 @@ def _layer_route(cfg: BertConfig) -> bool:
 
 def prepare(params: Dict[str, Any]) -> Dict[str, Any]:
     """Attach each plain-MLP layer's kernel operands once (``fuse_layer``,
-    or ``fuse_layer_q`` for a W8A8 layer); gated layers keep their tree."""
+    or ``fuse_layer_q`` for a W8A8 layer); gated layers keep their tree
+    (``encode`` fuses their attention block per call, as it needs it)."""
     for layer in params["layers"]:
         if "mlp_in" in layer:
             layer["fused"] = (ea.fuse_layer_q(layer) if _quantized(layer)
                               else ea.fuse_layer(layer))
     return params
+
+
+def _dequantized(layer: Dict[str, Any], dtype) -> Dict[str, Any]:
+    """A W8A8 layer's linears as JAX's ``bert.encode`` takes them off the
+    layer kernel: ``dequantize_linear_w8a8``'s bf16 kernels, here in the
+    activation dtype (bf16 to f32 is exact, as JAX's promotion is)."""
+    def deq(p):
+        d = convert.dequantize_linear_w8a8(p)
+        return {"kernel": d["kernel"].to(dtype), "bias": d["bias"]}
+
+    return dict(layer,
+                attn={n: deq(layer["attn"][n]) for n in ("q", "k", "v", "o")},
+                mlp_in=deq(layer["mlp_in"]), mlp_out=deq(layer["mlp_out"]))
 
 
 def encode(params: Dict[str, Any], cfg: BertConfig, input_ids: torch.Tensor,
@@ -228,10 +246,6 @@ def encode(params: Dict[str, Any], cfg: BertConfig, input_ids: torch.Tensor,
             x = fn(x, layer["fused"], mask, cfg.num_heads,
                    cfg.layer_norm_eps, cfg.hidden_act)
         return x
-    if params["layers"] and _quantized(params["layers"][0]):
-        raise NotImplementedError(
-            "W8A8 tree on a rope/ALiBi/gated-MLP encoder: the JAX package "
-            "dequantizes it (bert.py:296-308); that route is not ported")
     inv_freq = bias = None
     if cfg.position_embedding_type == "rope":
         inv_freq = rope_inv_freq(cfg, x.device)
@@ -239,9 +253,15 @@ def encode(params: Dict[str, Any], cfg: BertConfig, input_ids: torch.Tensor,
         bias = alibi_bias(cfg.num_heads, S, x.device)
     act = ACT_FNS[cfg.hidden_act]
     for layer in params["layers"]:
-        a = mha(layer["attn"], x, mask, cfg.num_heads,
-                rope_inv_freq=inv_freq, attn_bias=bias)
-        x = layernorm(layer["attn_ln"], x + a, cfg.layer_norm_eps)
+        if _quantized(layer):
+            layer = _dequantized(layer, x.dtype)
+        if cfg.position_embedding_type == "absolute":
+            x = ea.attention_block(x, ea.fuse_block(layer), mask,
+                                   cfg.num_heads, cfg.layer_norm_eps)
+        else:
+            a = mha(layer["attn"], x, mask, cfg.num_heads,
+                    rope_inv_freq=inv_freq, attn_bias=bias)
+            x = layernorm(layer["attn_ln"], x + a, cfg.layer_norm_eps)
         if cfg.mlp_gated:
             h = dense(layer["mlp_up"], x) * act(dense(layer["mlp_gate"], x))
         else:

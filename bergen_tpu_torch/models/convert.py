@@ -349,6 +349,14 @@ def quantize_encoder_layers_w8a8(params: Mapping) -> Dict[str, Any]:
     return dict(params, layers=layers)
 
 
+def dequantize_linear_w8a8(p: Mapping) -> Dict[str, Any]:
+    """The bf16 view of one W8A8 linear (JAX's ``dequantize_linear_w8a8``,
+    bit for bit): codes times the per-column scales in f32, rounded once
+    to bf16; the bias stays."""
+    return {"kernel": (p["kernel_q"].float() * p["kernel_scale_a8"])
+            .to(torch.bfloat16), "bias": p["bias"]}
+
+
 # --------------------------------------------------------------------------- #
 # int4 weight-only, group-wise (bergen_tpu/models/convert.py:489)
 # --------------------------------------------------------------------------- #

@@ -8,7 +8,9 @@ cache of ``init_paged_cache`` (serving decode through
 ``ops.paged_attention``).  Prefill attention is plain PyTorch (the JAX package
 leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is on, when it
 goes through ``ops.flash_attention.flash_attention``; every S=1 decode step
-goes through ``ops.decode_attention.decode_attention`` (the CUDA kernels on
+goes through ``ops.decode_attention.decode_attention``, and the chunk rows
+of the serving drain's fused chunked-prefill step (``forward(chunk=...)``)
+through ``ops.flash_attention.flash_attention_band`` (the CUDA kernels on
 the card).  Projections of an int4 tree (``convert.quantize_tree_int4``)
 take ``ops.int4_matmul.matmul_int4_packed`` inside its shape rule and the
 JAX package's dequantized product outside it.  The cache is updated in
@@ -28,7 +30,8 @@ from bergen_tpu_torch.models.core import rmsnorm
 from bergen_tpu_torch.ops import int4_matmul
 from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
-from bergen_tpu_torch.ops.flash_attention import flash_attention
+from bergen_tpu_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_band)
 
 Params = Dict[str, Any]
 
@@ -171,14 +174,63 @@ def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     return q, k, _proj(layer["attn"]["v"], x).reshape(B, S, KH, Dh)
 
 
+def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: LlamaConfig, cache: Dict[str, Any], li: int,
+                     attn_mask: torch.Tensor, chunk: Dict[str, Any]):
+    """The fused decode + chunked-prefill step's attention core (the JAX
+    package's ``_attention`` chunk branch, ``llama.py:479-701``): the first
+    rows decode at the scalar cursor through ``decode_attention``; pipe p's
+    ``chunk["per"]`` rows write their K/V contiguously into cache row
+    ``chunk["row"][p]`` at ``chunk["pos"][p]`` (after the decode write, as
+    JAX orders them) and attend that whole row through
+    ``flash_attention_band`` under absolute bands ``chunk["band"]``, one
+    launch per active pipe.  An inactive pipe's rows attend nothing: their
+    context is zeros, as an empty band gives.  Returns ctx [B, 1, H*Dh]."""
+    B = q.shape[0]
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C = chunk["per"]
+    Bc = B - C * len(chunk["row"])
+    g = cache["cursor"]
+    k_cache, v_cache = cache["k"][li], cache["v"][li]
+    k_cache[:Bc, g] = k[:Bc, 0].reshape(Bc, KH * Dh).to(k_cache.dtype)
+    v_cache[:Bc, g] = v[:Bc, 0].reshape(Bc, KH * Dh).to(v_cache.dtype)
+    for p, (row, pos) in enumerate(zip(chunk["row"], chunk["pos"])):
+        r0 = Bc + p * C
+        k_cache[row, pos:pos + C] = k[r0:r0 + C, 0].reshape(C, KH * Dh) \
+            .to(k_cache.dtype)
+        v_cache[row, pos:pos + C] = v[r0:r0 + C, 0].reshape(C, KH * Dh) \
+            .to(v_cache.dtype)
+    scale = 1.0 / math.sqrt(Dh)
+    ctx = torch.zeros(B, H, Dh, dtype=q.dtype, device=q.device)
+    ctx[:Bc] = decode_attention(q[:Bc, 0].contiguous(), k_cache, v_cache,
+                                attn_mask[:, -1], kv_heads=KH, sm_scale=scale)
+    L = k_cache.shape[1]
+    for p, (row, live) in enumerate(zip(chunk["row"], chunk["active"])):
+        if not live:
+            continue
+        r0 = Bc + p * C
+        ctx[r0:r0 + C] = flash_attention_band(
+            q[r0:r0 + C, 0], k_cache[row].view(L, KH, Dh),
+            v_cache[row].view(L, KH, Dh), chunk["band"][r0 - Bc:r0 - Bc + C],
+            sm_scale=scale)
+    return ctx.reshape(B, 1, H * Dh)
+
+
 def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
                positions: torch.Tensor, inv_freq: torch.Tensor,
                cache: Dict[str, Any], li: int,
-               attn_mask: torch.Tensor) -> torch.Tensor:
+               attn_mask: torch.Tensor,
+               chunk: Dict[str, Any] | None = None) -> torch.Tensor:
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(layer, cfg, x, positions, inv_freq)
     cur = cache["cursor"]
+    if chunk is not None:
+        if S != 1 or isinstance(cur, torch.Tensor):
+            raise NotImplementedError(
+                "chunked prefill fuses into S == 1 scalar-cursor decode steps")
+        ctx = _attention_chunk(q, k, v, cfg, cache, li, attn_mask, chunk)
+        return _proj(layer["attn"]["o"], ctx)
     k_cache, v_cache = cache["k"][li], cache["v"][li]
     if isinstance(cur, torch.Tensor) and cur.dim() == 1:
         # per-row cursors (the host-driven slot pool: each row at its own
@@ -241,7 +293,8 @@ def _mlp(layer: Params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
             positions: torch.Tensor, cache: Dict[str, Any],
-            attn_mask: torch.Tensor, last_only: bool = False) -> torch.Tensor:
+            attn_mask: torch.Tensor, last_only: bool = False,
+            chunk: Dict[str, Any] | None = None) -> torch.Tensor:
     """One step (prefill: S = prompt length; decode: S = 1) writing K/V at
     the cache cursor and advancing it.  attn_mask [B, S, L] bool over cache
     slots.  Returns f32 logits [B, S, V] ([B, 1, V] with ``last_only``).
@@ -250,11 +303,23 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
     decode-only and ignores attn_mask: masking derives from the per-slot
     lengths and starts.  After the layers, slots whose tail filled flush it
     into their newest pool page, and ``lengths`` advances on active slots
-    only."""
+    only.
+
+    ``chunk`` (the serving drain's fused chunked prefill; S = 1, a scalar
+    cursor): the last ``P * chunk["per"]`` batch rows are prompt-chunk
+    tokens of P staging pipes, sharing every projection and MLP with the
+    decode rows above them; attn_mask [Bc, 1, L] covers the Bc decode rows
+    only.  Keys: ``row``, ``pos``, ``active``, ``last`` (P host ints each:
+    the pipe's cache row, write base, whether it attends, its last valid
+    chunk row) and ``band`` ([P * per, 2] int32 absolute key bands).  Only
+    the decode rows and each pipe's last valid row reach the LM head:
+    returns [Bc + P, 1, V]."""
     paged = "k_pool" in cache
     if paged and input_ids.shape[1] != 1:
         raise NotImplementedError("paged cache is decode-only (S == 1); "
                                   "prefill writes pages directly")
+    if paged and chunk is not None:
+        raise NotImplementedError("chunked prefill needs the slot-pool cache")
     inv_freq = rope_frequencies(cfg, device=input_ids.device)
     x = params["embed"][input_ids]
     for li, layer in enumerate(params["layers"]):
@@ -264,11 +329,17 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
                                      cache, li)
         else:
             x = x + _attention(layer, cfg, h, positions, inv_freq, cache, li,
-                               attn_mask)
+                               attn_mask, chunk)
         h = rmsnorm(layer["mlp_norm"], x, cfg.rms_norm_eps)
         x = x + _mlp(layer, h)
     if last_only:
         x = x[:, -1:]
+    if chunk is not None:
+        C = chunk["per"]
+        Bc = x.shape[0] - C * len(chunk["last"])
+        keep = list(range(Bc)) + [Bc + p * C + last
+                                  for p, last in enumerate(chunk["last"])]
+        x = x[torch.tensor(keep, device=x.device)]
     x = rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:  # tied embeddings

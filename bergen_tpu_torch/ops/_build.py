@@ -49,6 +49,8 @@ SIGNATURES = {
                                             _I, _I, _I, _I, _I, _I, _I, _F,
                                             _P]),
     "paged_partial": ("paged_attention", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "flash_attention_band": ("flash_band", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "pallas_score": ("score", [_P] * 3 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,10 @@ Counterparts of four Pallas entry points of
 * ``encoder_attention`` (``encoder_attention`` :825): the attention alone,
   over q, k and v [B, S, D] in natural layout, with an optional
   batch-invariant f32 [H, S, S] score bias (ALiBi) and a custom scale; the
-  rope and ALiBi encoders' ``core.mha`` runs it.
+  rope and ALiBi encoders' ``core.mha`` runs it;
+* ``attention_block`` (``attention_block`` :802): the layer's first half,
+  ``LN1(x + Wo . attn(Wqkv . x + bqkv) + bo)``, for absolute-position
+  layers whose MLP the layer kernel cannot take (gated MLPs).
 
 A masked key scores -1e30, so a fully masked row averages V uniformly.  On a
 CUDA tensor each wrapper launches the hand-written kernels of
@@ -57,8 +60,8 @@ def act_fn(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unsupported activation {act!r}")
 
 
-def fuse_layer(layer: dict) -> dict:
-    """The kernel's operands from one bert layer tree: qkv kernels
+def fuse_block(layer: dict) -> dict:
+    """``attention_block``'s operands from one bert layer tree: qkv kernels
     concatenated to [D, 3D], biases and norm parameters in f32."""
     attn = layer["attn"]
     f32 = lambda t: t.float().contiguous()  # noqa: E731
@@ -69,6 +72,15 @@ def fuse_layer(layer: dict) -> dict:
         "wo": attn["o"]["kernel"].contiguous(), "bo": f32(attn["o"]["bias"]),
         "ln1_s": f32(layer["attn_ln"]["scale"]),
         "ln1_b": f32(layer["attn_ln"]["bias"]),
+    }
+
+
+def fuse_layer(layer: dict) -> dict:
+    """The layer kernel's operands from one bert layer tree:
+    ``fuse_block``'s and the MLP's, biases and norm parameters in f32."""
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+    return {
+        **fuse_block(layer),
         "w1": layer["mlp_in"]["kernel"].contiguous(),
         "b1": f32(layer["mlp_in"]["bias"]),
         "w2": layer["mlp_out"]["kernel"].contiguous(),
@@ -155,6 +167,21 @@ def encoder_layer_plain(x: torch.Tensor, w: dict, mask: torch.Tensor,
     ctx = _attention_plain(qkv.reshape(B, S, 3 * D), mask, num_heads,
                            1.0 / math.sqrt(D // num_heads), dt)
     return _tail_plain(xf, ctx, w, eps, act, dt).reshape(B, S, D)
+
+
+def attention_block_plain(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                          num_heads: int, eps: float) -> torch.Tensor:
+    """Plain PyTorch version of ``attention_block`` (``w`` from
+    ``fuse_block``): qkv, the probabilities, the context and the output
+    round to ``x.dtype`` where the TPU kernel's ``_block_kernel`` rounds."""
+    B, S, D = x.shape
+    dt = x.dtype
+    xf = x.reshape(B * S, D).float()
+    qkv = (xf @ w["wqkv"].float() + w["bqkv"]).to(dt).float()
+    ctx = _attention_plain(qkv.reshape(B, S, 3 * D), mask, num_heads,
+                           1.0 / math.sqrt(D // num_heads), dt)
+    o = ctx @ w["wo"].float() + w["bo"] + xf
+    return _ln(o, w["ln1_s"], w["ln1_b"], eps).to(dt).reshape(B, S, D)
 
 
 def encoder_layer_prebias_plain(x: torch.Tensor, qkv: torch.Tensor,
@@ -302,6 +329,37 @@ def _attention_cuda(qkv, mask, bias, B: int, S: int, num_heads: int,
     return ctx
 
 
+def _qkv_attention_cuda(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                        num_heads: int, st: int) -> torch.Tensor:
+    """The qkv GEMM (bias epilogue) and the attention: ctx [B*S, D] bf16."""
+    B, S, D = x.shape
+    qkv = torch.empty(B * S, 3 * D, dtype=torch.bfloat16, device=x.device)
+    _build.check(_build.function("encoder_gemm")(
+        x.data_ptr(), w["wqkv"].data_ptr(), w["bqkv"].data_ptr(), None,
+        qkv.data_ptr(), B * S, 3 * D, D, _EPI_BIAS, 0, 0, st), "qkv gemm")
+    return _attention_cuda(qkv, mask, None, B, S, num_heads,
+                           1.0 / math.sqrt(D // num_heads), st)
+
+
+def _o_ln1_cuda(x: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
+                st: int, y32=None):
+    """o proj + bias + residual in f32, then LN1: (y [B, S, D] bf16, the
+    f32 accumulator [M, D]); LN1's f32 output also goes to ``y32`` when
+    given."""
+    B, S, D = x.shape
+    M, dev = B * S, x.device
+    acc = torch.empty(M, D, dtype=torch.float32, device=dev)
+    yb = torch.empty(B, S, D, dtype=torch.bfloat16, device=dev)
+    _build.check(_build.function("encoder_gemm")(
+        ctx.data_ptr(), w["wo"].data_ptr(), w["bo"].data_ptr(), x.data_ptr(),
+        acc.data_ptr(), M, D, D, _EPI_BIAS_RES, 0, 0, st), "o gemm")
+    _build.check(_build.function("encoder_layernorm")(
+        acc.data_ptr(), w["ln1_s"].data_ptr(), w["ln1_b"].data_ptr(),
+        yb.data_ptr(), None if y32 is None else y32.data_ptr(), M, D, eps,
+        st), "layernorm 1")
+    return yb, acc
+
+
 def _tail_cuda(x: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
                act: str, st: int) -> torch.Tensor:
     """o proj + residual + LN1, FFN + residual + LN2 (``_tail_plain``)."""
@@ -309,20 +367,14 @@ def _tail_cuda(x: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
     I = w["w1"].shape[1]
     M, dev = B * S, x.device
     bf, f32 = torch.bfloat16, torch.float32
-    acc = torch.empty(M, D, dtype=f32, device=dev)
     y32 = torch.empty(M, D, dtype=f32, device=dev)
-    yb = torch.empty(M, D, dtype=bf, device=dev)
+    yb, acc = _o_ln1_cuda(x, ctx, w, eps, st, y32)
     h = torch.empty(M, I, dtype=bf, device=dev)
     out = torch.empty(B, S, D, dtype=bf, device=dev)
     gemm = _build.function("encoder_gemm")
     ln = _build.function("encoder_layernorm")
     a = ACT_IDS[act]
     chk = _build.check
-    chk(gemm(ctx.data_ptr(), w["wo"].data_ptr(), w["bo"].data_ptr(),
-             x.data_ptr(), acc.data_ptr(), M, D, D, _EPI_BIAS_RES, a, 0, st),
-        "o gemm")
-    chk(ln(acc.data_ptr(), w["ln1_s"].data_ptr(), w["ln1_b"].data_ptr(),
-           yb.data_ptr(), y32.data_ptr(), M, D, eps, st), "layernorm 1")
     chk(gemm(yb.data_ptr(), w["w1"].data_ptr(), w["b1"].data_ptr(), None,
              h.data_ptr(), M, I, D, _EPI_BIAS_ACT, a, 0, st), "ffn-in gemm")
     chk(gemm(h.data_ptr(), w["w2"].data_ptr(), w["b2"].data_ptr(),
@@ -346,15 +398,33 @@ def encoder_layer(x: torch.Tensor, w: dict, mask: torch.Tensor,
     _check(w["bqkv"], "bqkv", torch.float32, (3 * D,))
     _check_tail(w, D, I)
     st = _build.stream_ptr(x.device)
-    qkv = torch.empty(B * S, 3 * D, dtype=torch.bfloat16, device=x.device)
-    _build.check(_build.function("encoder_gemm")(
-        x.data_ptr(), w["wqkv"].data_ptr(), w["bqkv"].data_ptr(), None,
-        qkv.data_ptr(), B * S, 3 * D, D, _EPI_BIAS, ACT_IDS[act], 0, st),
-        "qkv gemm")
-    ctx = _attention_cuda(qkv, mask, None, B, S, num_heads,
-                          1.0 / math.sqrt(D // num_heads), st)
+    ctx = _qkv_attention_cuda(x, w, mask, num_heads, st)
     out = _tail_cuda(x, ctx, w, eps, act, st)
     encoder_layer.launches += 1
+    return out
+
+
+def attention_block(x: torch.Tensor, w: dict, mask: torch.Tensor,
+                    num_heads: int, eps: float) -> torch.Tensor:
+    """x [B, S, D]; w from ``fuse_block``; mask [B, S] (1 = attend) ->
+    LN1(x + Wo . attn(Wqkv . x + bqkv) + bo) [B, S, D].  On the card four
+    hand-written launches of ``csrc/encoder_layer.cu``: the qkv GEMM, the
+    attention, the o GEMM with the bias and residual in its epilogue (f32
+    out) and the row LayerNorm."""
+    if x.device.type == "cpu":
+        return attention_block_plain(x, w, mask, num_heads, eps)
+    _on_card("attention_block", x)
+    B, S, D = x.shape
+    _check_layer("attention_block", x, mask, num_heads, "gelu", D)
+    bf, f32 = torch.bfloat16, torch.float32
+    _check(w["wqkv"], "wqkv", bf, (D, 3 * D))
+    _check(w["wo"], "wo", bf, (D, D))
+    for name, n in (("bqkv", 3 * D), ("bo", D), ("ln1_s", D), ("ln1_b", D)):
+        _check(w[name], name, f32, (n,))
+    st = _build.stream_ptr(x.device)
+    ctx = _qkv_attention_cuda(x, w, mask, num_heads, st)
+    out, _ = _o_ln1_cuda(x, ctx, w, eps, st)
+    attention_block.launches += 1
     return out
 
 
@@ -492,3 +562,4 @@ encoder_layer_prebias.launches = 0
 encoder_layer_q.launches = 0
 encoder_attention.launches = 0
 encoder_attention.bias_launches = 0  # the launches that carried a bias
+attention_block.launches = 0

@@ -19,6 +19,15 @@ and a row with no valid key averages V over the keys its block visits.
 On a CUDA tensor ``flash_attention`` launches the kernel, reading k and v in
 place: [B, Sk, KH, Dh] views whose rows are ``KH*Dh`` apart, as the flat
 cache's first Sk slots are.  On a CPU tensor it runs the plain version.
+
+``flash_attention_band`` is the counterpart of ``flash_attention_band``
+(:252): query row i attends keys [lo_i, hi_i) of one cache row.  Unlike the
+prefill's, its out-of-band probabilities are exactly 0, so a row with an
+empty band outputs exact zeros.  The kernel (``csrc/flash_band.cu``) and
+``flash_attention_band_plain`` visit, for each block of ``BLOCK`` query
+rows, only the key blocks that meet the union of its rows' bands; visiting
+a block with no in-band key leaves a row's m, l and accumulator unchanged,
+so the schedule changes nothing but the order of f32 sums.
 """
 
 from __future__ import annotations
@@ -128,4 +137,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _band_keys(lo: torch.Tensor, hi: torch.Tensor):
+    """(first key block start, end key) of the union of the nonempty bands
+    [lo, hi), or None when every band is empty."""
+    nonempty = lo.clamp_min(0) < hi
+    if not bool(nonempty.any()):
+        return None
+    first = int(lo.clamp_min(0)[nonempty].min())
+    return first // BLOCK * BLOCK, int(hi[nonempty].max())
+
+
+def flash_attention_band_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, band: torch.Tensor,
+                               sm_scale: float | None = None) -> torch.Tensor:
+    Sq, H, Dh = q.shape
+    Sk, KH = k.shape[0], k.shape[1]
+    G = H // KH
+    scale = 1.0 / math.sqrt(Dh) if sm_scale is None else sm_scale
+    dev = q.device
+    qf = q.float().reshape(Sq, KH, G, Dh)
+    kf, vf = k.float(), v.float()
+    lo_all = band[:, 0].long()
+    hi_all = band[:, 1].long().clamp_max(Sk)  # keys past Sk are in no band
+    out = torch.zeros(Sq, KH, G, Dh, dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, BLOCK):
+        q1 = min(q0 + BLOCK, Sq)
+        lo, hi = lo_all[q0:q1], hi_all[q0:q1]
+        span = _band_keys(lo, hi)
+        if span is None:
+            continue  # every row empty: exact zeros
+        qb = qf[q0:q1]
+        m = torch.full((KH, G, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(KH, G, q1 - q0, Dh, device=dev)
+        for k0 in range(span[0], span[1], BLOCK):
+            k1 = min(k0 + BLOCK, Sk)
+            s = torch.einsum("qkgd,lkd->kgql", qb, kf[k0:k1]) * scale
+            keys = torch.arange(k0, k1, device=dev)
+            inb = (keys[None, :] >= lo[:, None]) \
+                & (keys[None, :] < hi[:, None])
+            s = torch.where(inb, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(inb, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "kgql,lkd->kgqd", p.to(v.dtype).float(), vf[k0:k1])
+            m = m_new
+        out[q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).permute(2, 0, 1, 3)
+    return out.reshape(Sq, H, Dh).to(q.dtype)
+
+
+def flash_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         band: torch.Tensor,
+                         sm_scale: float | None = None) -> torch.Tensor:
+    """q [Sq, H, Dh]; k, v [Sk, KH, Dh]; band [Sq, 2] int32, row i
+    attending keys [band[i, 0], band[i, 1]) -> [Sq, H, Dh] in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_band_plain(q, k, v, band, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_band: unsupported device "
+                         f"{q.device}")
+    Sq, H, Dh = q.shape
+    Sk, KH = k.shape[0], k.shape[1]
+    if Dh not in HEAD_DIMS or H % KH or Sk < 1:
+        raise ValueError(
+            f"flash_attention_band kernel needs a head width in {HEAD_DIMS}, "
+            f"H a multiple of KH and Sk >= 1; got Dh={Dh}, H={H}, KH={KH}, "
+            f"Sk={Sk}")
+    bf = torch.bfloat16
+    if q.dtype != bf or not q.is_contiguous():
+        raise ValueError("flash_attention_band kernel: q must be a contiguous "
+                         f"bf16 [Sq, H, Dh] tensor, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if (t.dtype != bf or tuple(t.shape) != (Sk, KH, Dh)
+                or t.stride(2) != 1 or t.stride(1) != Dh
+                or t.stride(0) % 8 or t.data_ptr() % 16):
+            raise ValueError(
+                f"flash_attention_band kernel: {name} must be a bf16 [{Sk}, "
+                f"{KH}, {Dh}] view with contiguous heads and 16-byte aligned "
+                f"rows, got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    if k.stride() != v.stride():
+        raise ValueError("flash_attention_band kernel: k and v strides differ "
+                         f"({k.stride()} vs {v.stride()})")
+    if (band.dtype != torch.int32 or tuple(band.shape) != (Sq, 2)
+            or not band.is_contiguous() or band.device != q.device):
+        raise ValueError("flash_attention_band kernel: band must be a "
+                         f"contiguous int32 [{Sq}, 2] tensor on {q.device}")
+    out = torch.empty(Sq, H, Dh, dtype=bf, device=q.device)
+    fn = _build.function("flash_attention_band")
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), band.data_ptr(),
+                    out.data_ptr(), Sq, Sk, H, KH, Dh, k.stride(0),
+                    float(1.0 / math.sqrt(Dh) if sm_scale is None
+                          else sm_scale), _build.stream_ptr(q.device)),
+                 "flash_attention_band")
+    flash_attention_band.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention_band.launches = 0

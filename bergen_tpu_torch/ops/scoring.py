@@ -10,11 +10,65 @@ top-k.  The JAX package leaves this path to XLA, so the port leaves it to
 ``torch.matmul`` (``torch._int_mm`` for int8 on the card, an exact f64
 product on the CPU); it is the retrieval path below the fused kernel's
 corpus-size threshold and the recall guard's fallback rung.
+
+``pallas_score`` is the counterpart of the JAX package's ``pallas_score``
+(:58), a tiled bf16 Q . C^T with f32 output over a pre-transposed corpus:
+the hand-written kernel of ``csrc/score.cu`` on the card,
+``pallas_score_plain`` on the CPU.  As in JAX, ``topk_blocked`` selects it
+only when ``_use_pallas()`` is true, and that is never: no path takes it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from bergen_tpu_torch.ops import _build
+
+SCORE_TILE = 128  # the kernel's doc tile: a ragged corpus pads to it
+
+
+def pallas_score_plain(queries: torch.Tensor,
+                       corpus_t: torch.Tensor) -> torch.Tensor:
+    """[Q, N] f32 sums of the exact products of queries [Q, D] and
+    corpus_t [D, N]."""
+    return queries.float() @ corpus_t.float()
+
+
+def pallas_score(queries: torch.Tensor,
+                 corpus_t: torch.Tensor) -> torch.Tensor:
+    """queries [Q, D] bf16, corpus_t [D, N] bf16 -> scores [Q, N] f32."""
+    if queries.device.type == "cpu":
+        return pallas_score_plain(queries, corpus_t)
+    if queries.device.type != "cuda":
+        raise ValueError(f"pallas_score: unsupported device {queries.device}")
+    Q, D = queries.shape
+    N = corpus_t.shape[1]
+    bf = torch.bfloat16
+    if (queries.dtype != bf or corpus_t.dtype != bf
+            or corpus_t.shape[0] != D or not queries.is_contiguous()
+            or not corpus_t.is_contiguous() or D % 32
+            or corpus_t.device != queries.device):
+        raise ValueError(
+            "pallas_score kernel: contiguous bf16 queries [Q, D] and "
+            f"corpus_t [D, N] on one device with D % 32 == 0; got "
+            f"{queries.dtype} {tuple(queries.shape)}, {corpus_t.dtype} "
+            f"{tuple(corpus_t.shape)}")
+    ct = corpus_t
+    if N % SCORE_TILE:
+        ct = torch.nn.functional.pad(corpus_t, (0, -N % SCORE_TILE))
+    out = torch.empty(Q, N, dtype=torch.float32, device=queries.device)
+    _build.check(_build.function("pallas_score")(
+        queries.data_ptr(), ct.data_ptr(), out.data_ptr(), Q, D, ct.shape[1],
+        N, _build.stream_ptr(queries.device)), "pallas_score")
+    pallas_score.launches += 1
+    return out
+
+
+pallas_score.launches = 0
+
+
+def _use_pallas() -> bool:
+    return False  # as the JAX package: its XLA dot beat the hand schedule
 
 
 def topk_lowest_index(x: torch.Tensor, k: int):
@@ -77,6 +131,10 @@ def topk_blocked(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         if int8:
             chunk = corpus[start:start + block]
             s = score_int8(q, chunk, doc_scales[start:start + chunk.shape[0]])
+        elif _use_pallas():
+            chunk = corpus[start:start + block]
+            s = pallas_score(queries.to(torch.bfloat16).contiguous(),
+                             chunk.to(torch.bfloat16).T.contiguous())
         else:
             chunk = corpus[start:start + block].float()
             s = q @ chunk.T

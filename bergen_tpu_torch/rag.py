@@ -84,10 +84,10 @@ class RAG:
         if context_processor is not None:
             raise NotImplementedError(
                 "context processing is not ported yet (ROADMAP.md Queue 1, "
-                "item 12)")
+                "query rewriting and context processing)")
         if train is not None:
             raise NotImplementedError(
-                "training is not ported yet (ROADMAP.md Queue 1, item 13)")
+                "training is not ported yet (ROADMAP.md Queue 1, training)")
         self.device = _device.resolve(device)
         self.debug = debug
         self.dataset_folder = dataset_folder

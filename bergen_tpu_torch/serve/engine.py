@@ -20,8 +20,14 @@
   ``lax.while_loop`` on the device; here the loop and the scalars that
   decide it (``active``, ``n_out``, the group cursor) live on the host, so
   each decode step pays one device-to-host copy of its tokens.
+* ``run_workload(mode="chunked")`` is the **chunked-prefill drain** of the
+  JAX package (``_workload_runner_chunked``), again as a host loop over the
+  same schedule: prompt chunks of up to ``P`` staging pipes ride each
+  decode step's forward as extra batch rows (``llama.forward(chunk=...)``),
+  so admission never stalls the decoding slots.
 * Every decode and prefill goes through ``llama.forward``; the decode
-  steps' attention is ``ops.decode_attention`` (the kernel on the card).
+  steps' attention is ``ops.decode_attention`` and the chunk rows'
+  ``ops.flash_attention.flash_attention_band`` (the kernels on the card).
 """
 
 from __future__ import annotations
@@ -44,6 +50,35 @@ from bergen_tpu_torch.models import llama
 ADMIT_WIDTH, MIN_ADMIT_FLOOR = 8, 4
 
 
+def _compact_ring(k: torch.Tensor, v: torch.Tensor, valid: np.ndarray,
+                  g: int, keep: int):
+    """The drains' ring compaction: every live window lies in [g - keep,
+    g), so those positions of every cache row move to the front.  Returns
+    (the new valid mask, the shift s0)."""
+    s0 = max(g - keep, 0)
+    if s0:  # a layer at a time: the windows overlap
+        for c in (k, v):
+            for li in range(c.shape[0]):
+                c[li, :, :keep] = c[li, :, s0:s0 + keep].clone()
+    kept = np.zeros_like(valid)
+    kept[:, :keep] = valid[:, s0:s0 + keep]
+    return kept, s0
+
+
+def _record_decode(nxt: np.ndarray, active: np.ndarray, slot_req, out,
+                   n_out, tok_pos, cur_tok, max_news, eos: int) -> None:
+    """A drain step's decode bookkeeping, in place: each active slot's
+    token joins its request, and slots whose request hit EOS or its budget
+    stop."""
+    for s in np.flatnonzero(active):
+        r = slot_req[s]
+        out[r, n_out[r]] = nxt[s]
+        n_out[r] += 1
+    tok_pos[active] += 1
+    cur_tok[active] = nxt[active]
+    active &= ~((nxt == eos) | (n_out[slot_req] >= max_news[slot_req]))
+
+
 @dataclasses.dataclass
 class _Request:
     rid: int
@@ -55,8 +90,11 @@ class _Request:
 
 
 class GenerationServer:
-    # decode forwards run by any server (both kinds), for launch accounting
+    # decode forwards run by any server (both kinds), for launch accounting;
+    # chunk_pipe_steps: the chunked drain's (step, active pipe) pairs, each
+    # one flash_attention_band launch per layer
     decode_steps = 0
+    chunk_pipe_steps = 0
 
     def __init__(
         self,
@@ -272,16 +310,8 @@ class GenerationServer:
             return can, bucket_list[int(grp_bpos[gi])], size
 
         def shift():
-            # ring compaction: every live window is within [g - KEEP, g)
             nonlocal g, valid
-            s0 = max(g - KEEP, 0)
-            if s0:  # a layer at a time: the windows overlap
-                for c in (k, v):
-                    for li in range(cfg.num_layers):
-                        c[li, :, :KEEP] = c[li, :, s0:s0 + KEEP].clone()
-            kept = valid[:, s0:s0 + KEEP].copy()
-            valid = np.zeros_like(valid)
-            valid[:, :KEEP] = kept
+            valid, s0 = _compact_ring(k, v, valid, g, KEEP)
             g -= s0
 
         def admit(Pb: int, Ag: int):
@@ -335,15 +365,8 @@ class GenerationServer:
             # position g joins the sequences of ACTIVE slots only
             valid[:, g] = active
             g += 1
-            for s in np.flatnonzero(active):
-                r = slot_req[s]
-                out[r, n_out[r]] = nxt[s]
-                n_out[r] += 1
-            tok_pos[active] += 1
-            cur_tok[active] = nxt[active]
-            finished = active & ((nxt == self.eos)
-                                 | (n_out[slot_req] >= max_news[slot_req]))
-            active[finished] = False
+            _record_decode(nxt, active, slot_req, out, n_out, tok_pos,
+                           cur_tok, max_news, self.eos)
 
         # epoch structure: the inner loop decodes until an admission is
         # warranted or the cursor nears the cache end; each outer epoch
@@ -419,19 +442,198 @@ class GenerationServer:
         return runner, (prompts, plens, max_news, grp_reqs, grp_cnt,
                         grp_bpos, budget)
 
+    # ------------------------------------------------------------------ #
+    # the chunked-prefill drain
+    # ------------------------------------------------------------------ #
+
+    @torch.inference_mode()
+    def _drain_chunked(self, geometry: tuple, prompts: np.ndarray,
+                       plens: np.ndarray, max_news: np.ndarray,
+                       order: np.ndarray):
+        """The JAX package's chunked-prefill drain (``_workload_runner_
+        chunked``) as a host loop over the same schedule.  Each step is ONE
+        forward: the pool's decode rows at the shared ring cursor ``g`` plus
+        ``P`` staging pipes of ``CHUNK`` prompt tokens each.  A pipe claims
+        the next request (longest budget first) and the lowest free slot,
+        and stages the prompt into the slot's row at ``[g - plen, g)``,
+        behind the cursor, one chunk a step; when the staging ends, the
+        pipe's last valid chunk row gives the first token and the slot
+        joins the decode rows.  Returns (out [R, max_new], n_out [R],
+        steps)."""
+        R, Pmax, max_new, Lc, KEEP, CHUNK, P = geometry
+        cfg, S, dev = self.cfg, self.S, self.device
+        pool = S + 1
+        shape = (cfg.num_layers, pool, Lc, cfg.num_kv_heads * cfg.head_dim)
+        k = torch.zeros(shape, dtype=self.dtype, device=dev)
+        v = torch.zeros_like(k)
+        g = Pmax
+        valid = np.zeros((pool, Lc), bool)
+        tok_pos = np.zeros(pool, np.int64)
+        cur_tok = np.full(pool, self.pad, np.int64)
+        active = np.zeros(pool, bool)
+        slot_req = np.zeros(pool, np.int64)
+        out = np.full((R, max_new), self.pad, np.int64)
+        n_out = np.zeros(R, np.int64)
+        pf_active = np.zeros(P, bool)
+        pf_req = np.zeros(P, np.int64)
+        pf_slot = np.full(P, S, np.int64)
+        pf_base = np.zeros(P, np.int64)
+        pf_done = np.zeros(P, np.int64)
+        next_req = it = 0
+        pidx = np.arange(Lc)
+        ci = np.arange(CHUNK)
+
+        def work_left() -> bool:
+            return bool(active.any() or pf_active.any() or next_req < R)
+
+        def shift():
+            # the epoch drain's ring compaction; the staging bases ride it
+            nonlocal g, valid
+            valid, s0 = _compact_ring(k, v, valid, g, KEEP)
+            g -= s0
+            pf_base[:] -= s0
+
+        def step():
+            nonlocal g, next_req, it
+            it += 1
+            # staging starts: each idle pipe claims the next request and the
+            # lowest free slot, whose valid row is cleared
+            occ = active.copy()
+            occ[S] = True
+            occ[pf_slot[pf_active]] = True
+            for p in range(P):
+                if pf_active[p] or next_req >= R or occ[:S].all():
+                    continue
+                slot = int(np.argmin(occ[:S]))
+                req = int(order[next_req])
+                pf_slot[p], pf_req[p] = slot, req
+                pf_base[p], pf_done[p] = g - plens[req], 0
+                pf_active[p] = True
+                valid[slot] = False
+                occ[slot] = True
+                next_req += 1
+            act = pf_active.copy()
+            crow = np.where(act, pf_slot, S)
+            req_c = np.minimum(pf_req, R - 1)
+            plen_c = plens[req_c]
+            off = pf_done.copy()
+            n_valid = np.where(act, np.minimum(plen_c - off, CHUNK), 0)
+            last = np.maximum(n_valid - 1, 0)
+            # row i of an active pipe attends the staged prefix and the
+            # chunk up to itself; rows past n_valid (their K/V written all
+            # the same) take the last valid row's band
+            band = np.zeros((P, CHUNK, 2), np.int64)
+            for p in np.flatnonzero(act):
+                band[p, :, 0] = pf_base[p]
+                band[p, :, 1] = (pf_base[p] + off[p] + np.minimum(ci, last[p])
+                                 + 1)
+            ids = np.concatenate([cur_tok] + [
+                prompts[req_c[p], off[p]:off[p] + CHUNK] for p in range(P)])
+            pos = np.concatenate([tok_pos] + [off[p] + ci for p in range(P)])
+            mask = valid.copy()
+            mask[:, g] = True
+            chunk = {"per": CHUNK, "row": crow.tolist(),
+                     "pos": np.clip(pf_base + off, 0, Lc - CHUNK).tolist(),
+                     "active": act.tolist(), "last": last.tolist(),
+                     "band": self._tensor(band.reshape(P * CHUNK, 2)
+                                          .astype(np.int32))}
+            GenerationServer.decode_steps += 1
+            GenerationServer.chunk_pipe_steps += int(act.sum())
+            logits = llama.forward(self.params, cfg,
+                                   self._tensor(ids)[:, None],
+                                   self._tensor(pos)[:, None],
+                                   {"k": k, "v": v, "cursor": g},
+                                   self._tensor(mask)[:, None, :],
+                                   chunk=chunk)
+            nxt_all = logits[:, 0].argmax(dim=-1).cpu().numpy()
+            nxt, ftok = nxt_all[:pool], nxt_all[pool:]
+            # decode bookkeeping (the epoch drain's)
+            valid[:, g] = active
+            g += 1
+            _record_decode(nxt, active, slot_req, out, n_out, tok_pos,
+                           cur_tok, max_news, self.eos)
+            # staging progress; a finished staging's first token comes from
+            # logits row pool + p, and a request whose first token ends it
+            # never activates
+            new_done = off + n_valid
+            fin = act & (new_done >= plen_c)
+            pf_done[act] = new_done[act]
+            for p in np.flatnonzero(fin):
+                s, r = crow[p], req_c[p]
+                valid[s] |= (pidx >= pf_base[p]) & (pidx < pf_base[p]
+                                                    + plen_c[p])
+                active[s] = not (ftok[p] == self.eos or max_news[r] <= 1)
+                tok_pos[s] = plen_c[p]
+                cur_tok[s] = ftok[p]
+                slot_req[s] = r
+                out[r, 0] = ftok[p]
+                n_out[r] = 1
+            pf_active[:] = act & ~fin
+
+        # iteration backstop (normal termination is all-requests-done)
+        n_chunks = -(-Pmax // CHUNK)
+        tot = int(max_news.sum())
+        epoch_len = max(1, Lc - 1 - CHUNK - KEEP)
+        limit = (tot + R * (n_chunks + 1) + max_new
+                 + (tot + R * n_chunks) // epoch_len + 128)
+        while work_left() and it < limit:
+            shift()
+            while work_left() and it < limit and g < Lc - 1 - CHUNK:
+                step()
+        return out, n_out, it
+
+    def plan_workload_chunked(self, prompt_ids_list: List[List[int]],
+                              max_new_tokens: int | List[int] = 64,
+                              chunk_size: int = 128, pipes: int = 2):
+        """Host-side schedule for the chunked-prefill drain (JAX's
+        ``plan_workload_chunked``): prompts padded with ``chunk_size`` of
+        slack so a chunk's slice never clamps, requests longest budget
+        first, and a ring that holds a full live window (prompt, staging
+        steps and budget) plus the chunk-write slack.  ``pipes`` staging
+        pipes run at once.  Returns ``(runner, args)`` with
+        ``runner(*args) -> (out, n_out, steps)``."""
+        R = len(prompt_ids_list)
+        CHUNK = int(chunk_size)
+        P = max(1, min(int(pipes), R))
+        if isinstance(max_new_tokens, int):
+            max_news = np.full(R, max_new_tokens, np.int64)
+        else:
+            max_news = np.asarray(max_new_tokens, np.int64)
+        Pmax = max(max(len(p) for p in prompt_ids_list), 1)
+        prompts = np.full((R, Pmax + CHUNK), self.pad, np.int64)
+        plens = np.zeros(R, np.int64)
+        for r, ids in enumerate(prompt_ids_list):
+            ids = np.asarray(ids, np.int64)[-Pmax:]
+            prompts[r, : len(ids)] = ids
+            plens[r] = max(len(ids), 1)
+        order = np.argsort(-max_news, kind="stable")
+        n_chunks = -(-Pmax // CHUNK)
+        KEEP = Pmax + int(max_news.max()) + n_chunks + 8
+        # epoch length (steps between ring compactions) >= 48
+        Lc = ((KEEP + CHUNK + 49 + 127) // 128) * 128
+        runner = functools.partial(
+            self._drain_chunked,
+            (R, Pmax, int(max_news.max()), Lc, KEEP, CHUNK, P))
+        return runner, (prompts, plens, max_news, order)
+
     def run_workload(self, prompt_ids_list: List[List[int]],
                      max_new_tokens: int | List[int] = 64,
-                     mode: str = "auto") -> List[List[int]]:
+                     mode: str = "auto", chunk_size: int = 128,
+                     pipes: int = 2) -> List[List[int]]:
         """Drain a whole mixed-length workload; ``max_new_tokens`` may vary
         per request.  Returns generated token lists in submission order.
         ``mode``: ``"epoch"`` (and ``"auto"``) is the batched-admission
-        drain; ``"chunked"`` (prompt chunks fused into the decode steps) is
-        not ported yet."""
+        drain; ``"chunked"`` fuses prompt chunks of ``chunk_size`` tokens
+        from ``pipes`` staging pipes into the decode steps (token-exact with
+        the epoch drain)."""
         if mode == "chunked":
-            raise NotImplementedError(
-                "the chunked-prefill drain is not ported yet (ROADMAP.md "
-                "Queue 1, serving)")
-        runner, args = self.plan_workload(prompt_ids_list, max_new_tokens)
+            runner, args = self.plan_workload_chunked(
+                prompt_ids_list, max_new_tokens, chunk_size=chunk_size,
+                pipes=pipes)
+        elif mode in ("auto", "epoch"):
+            runner, args = self.plan_workload(prompt_ids_list, max_new_tokens)
+        else:
+            raise ValueError(f"run_workload: unknown mode {mode!r}")
         out, n_out, _ = runner(*args)
         return [out[r, : n_out[r]].tolist()
                 for r in range(len(prompt_ids_list))]

@@ -18,7 +18,10 @@ Phases (each prints one JSON line):
      path's shapes: max error against a stated tolerance, kernel / plain /
      library time and the card's lower bound for the same work; one
      DeBERTa-v3 layer split into qkv product, bias products and kernel;
-     the int4 quantizer on the card against the CPU, bit for bit;
+     the int4 quantizer on the card against the CPU, bit for bit; the band
+     attention at the chunked drain's shapes (an empty band exactly zero),
+     the attention block at bge-large's width and the score GEMM at the
+     retrieval shapes, which no path runs;
   4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
      TinyLlama generator), the same with the nomic-embed retriever and with
@@ -27,10 +30,13 @@ Phases (each prints one JSON line):
      BERT-large reranker, the MiniLM reranker, and the int4 Llama-2-7B
      generator with flash prefill, and the served Mistral-7B generator
      (``generator=vllm_mistral-7b-chat``: the epoch drain, then
-     ``kv_cache=paged``); then the card against the port's f32 CPU path on
+     ``kv_cache=paged``), and the served eval's 50 instructions drained
+     again by the same server with ``run_workload(mode="chunked")`` and
+     ``mode="epoch"``; then the card against the port's f32 CPU path on
      small inputs (64 docs, 64 DeBERTa pairs, two questions: prefill and one
      decode step; the first two layers of nomic-embed and jina-v2, of the
-     int4 Llama-2-7B, and of the served Mistral-7B in both KV modes);
+     int4 Llama-2-7B, and of the served Mistral-7B in both KV modes and in
+     the chunked drain);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
      over a bf16 corpus and over int8 codes with per-bin scales;
@@ -91,11 +97,22 @@ KERNELS = {
     "bin_topk_int8": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/bin_topk.cu",
         "replaces": "bergen_tpu/ops/fused_topk.py:145"},
+    "flash_attention_band": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/flash_band.cu",
+        "replaces": "bergen_tpu/ops/flash_attention.py:252"},
+    "attention_block": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer.cu",
+        "replaces": "bergen_tpu/ops/encoder_attention.py:802"},
+    "pallas_score": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/score.cu",
+        "replaces": "bergen_tpu/ops/scoring.py:58"},
 }
 # the kernels each part of the main path must launch: ut1's 1,000 docs are
 # below the fused top-k's 131,072-doc threshold, the at-scale retrieval
 # reads precomputed embeddings and generates nothing, and each rerank path
-# encodes its own index (queries stay unquantized under W8A8)
+# encodes its own index (queries stay unquantized under W8A8).  No path
+# runs attention_block (no config has an absolute-position encoder with a
+# gated MLP) or pallas_score (topk_blocked never selects it, as in JAX)
 PATH_KERNELS = {
     "ut1_eval": ("encoder_layer", "decode_attention"),
     "retrieval_at_scale": ("bin_topk",),
@@ -110,6 +127,7 @@ PATH_KERNELS = {
     "ut1_eval_nomic": ("encoder_attention", "decode_attention"),
     "ut1_eval_jina": ("encoder_attention", "decode_attention"),
     "retrieval_at_scale_int8": ("bin_topk_int8",),
+    "ut1_serve_chunked_mistral": ("flash_attention_band", "decode_attention"),
 }
 # the rope/ALiBi retrievers' ut1 encode: 50 queries and 1,000 docs in
 # batches of the configs' 512, one encoder_attention launch per layer
@@ -1287,6 +1305,179 @@ def check_paged_attention(results: dict, dev) -> None:
     results["paged_attention"] = per_case
 
 
+# the chunked drain's chunk rows: (H, KH, Dh, cache row length, staging
+# base, chunk offset, valid chunk rows).  Mistral-7B at a ring of 896 keys,
+# the second chunk of a 218-token prompt (rows past 90 are the drain's
+# clamped garbage rows); TinyLlama's GQA at 640 keys, a first chunk.  The
+# last row of each has an empty band and must come out exactly zero
+BAND_CHUNK = 128
+BAND_SHAPES = ((32, 8, 128, 896, 400, 128, 90),
+               (32, 4, 64, 640, 200, 0, 128))
+
+
+def check_flash_attention_band(results: dict, dev) -> None:
+    """The band kernel against its plain version on 128 chunk rows reading
+    one row of a flat [33, L, KH*Dh] cache in place, with the drain's
+    staged bands and one empty band (exact zeros)."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = _rnd(gen, dev)
+    per_shape = []
+    for H, KH, Dh, L, base, off, nv in BAND_SHAPES:
+        C = BAND_CHUNK
+        q = rnd(C, H, Dh).bfloat16()
+        kc = rnd(33, L, KH * Dh).bfloat16()
+        vc = rnd(33, L, KH * Dh).bfloat16()
+        k, v = kc[5].view(L, KH, Dh), vc[5].view(L, KH, Dh)
+        i = torch.arange(C, device=dev)
+        band = torch.stack([torch.full_like(i, base),
+                            base + off + i.clamp_max(nv - 1) + 1], dim=1)
+        band[-1] = 0
+        band = band.int().contiguous()
+        out = fa.flash_attention_band(q, k, v, band)
+        ref = fa.flash_attention_band_plain(q, k, v, band)
+        max_err, mean_err = _errors(out, ref)
+        empty_exact = bool((out[-1] == 0).all())
+        ms = cuda_time_ms(lambda: fa.flash_attention_band(q, k, v, band),
+                          iters=50)
+        plain_ms = cuda_time_ms(
+            lambda: fa.flash_attention_band_plain(q, k, v, band), iters=3,
+            warmup=1)
+        keys = torch.arange(L, device=dev)
+        inb = (keys[None, :] >= band[:, :1]) & (keys[None, :] < band[:, 1:])
+        qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
+        library_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=inb[None, None], enable_gqa=True),
+            iters=50)
+        # the work these bands need: each row against its in-band keys,
+        # each key of the bands' union read once
+        pairs = int(inb.sum().item())
+        n_keys = int(inb.any(0).sum().item())
+        nbytes = 2 * C * H * Dh * 2 + 2 * n_keys * KH * Dh * 2 + C * 2 * 4
+        b_ms, b_by = bound(4 * H * Dh * pairs, nbytes)
+        row = {"Sq": C, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
+               "band_keys": n_keys, "in_band_pairs": pairs,
+               "max_abs_err": max_err, "mean_abs_err": mean_err,
+               "tol": FLASH_TOL, "mean_tol": FLASH_MEAN_TOL,
+               "empty_band_exact_zero": empty_exact, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms,
+               "library": "SDPA with a boolean band mask (enable_gqa)"}
+        emit({"phase": "kernel_check", "kernel": "flash_attention_band",
+              **row})
+        per_shape.append(row)
+        if not (max_err <= FLASH_TOL and mean_err <= FLASH_MEAN_TOL
+                and empty_exact):
+            fail(f"flash_attention_band H{H} KH{KH} Dh{Dh} L{L}: max error "
+                 f"{max_err} (tol {FLASH_TOL}), mean error {mean_err} (tol "
+                 f"{FLASH_MEAN_TOL}), empty band exactly zero: {empty_exact}")
+        del q, kc, vc, out, ref
+        torch.cuda.empty_cache()
+    results["flash_attention_band"] = per_shape
+
+
+def check_attention_block(results: dict, dev) -> None:
+    """The attention block at bge-large's width and max length (B 128,
+    S 512, D 1,024, 16 heads), where JAX's TPU takes it for layers over its
+    VMEM budget, against its plain version; the yardstick is SDPA plus
+    ``addmm`` and ``F.layer_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rnd = _rnd(gen, dev)
+    eps = 1e-12
+    D, H, I, B, S = 1024, 16, 4096, 128, 512
+    Dh, M = D // H, B * S
+    w = ea.fuse_block(_random_layer(rnd, D, I))
+    x = rnd(B, S, D).bfloat16()
+    mask = _padded_mask(gen, dev, B, S)
+    out = ea.attention_block(x, w, mask, H, eps)
+    ref = ea.attention_block_plain(x, w, mask, H, eps)
+    max_err, mean_err = _errors(out, ref)
+    del ref
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: ea.attention_block(x, w, mask, H, eps))
+    plain_ms = cuda_time_ms(
+        lambda: ea.attention_block_plain(x, w, mask, H, eps), iters=2,
+        warmup=1)
+    amask = mask.bool()[:, None, None, :]
+    bqkv, bo = w["bqkv"].bfloat16(), w["bo"].bfloat16()
+
+    def library():
+        qkv = torch.addmm(bqkv, x.view(M, D), w["wqkv"]).view(B, S, 3, H, Dh)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=amask)
+        o = torch.addmm(bo, ctx.transpose(1, 2).reshape(M, D), w["wo"])
+        return F.layer_norm(o.float() + x.view(M, D).float(), (D,),
+                            w["ln1_s"], w["ln1_b"], eps).bfloat16()
+
+    library_ms = cuda_time_ms(library)
+    # every query row against its sequence's valid keys, and the products
+    pairs = S * int(mask.sum().item())
+    flops = 2 * M * D * 4 * D + 4 * H * Dh * pairs
+    nbytes = 2 * M * D * 2 + 4 * D * D * 2 + B * S * 4
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"B": B, "S": S, "D": D, "H": H, "head_dim": Dh,
+           "max_abs_err": max_err, "mean_abs_err": mean_err,
+           "tol": LAYER_TOL, "mean_tol": LAYER_MEAN_TOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms,
+           "library": "addmm + SDPA + addmm + F.layer_norm"}
+    emit({"phase": "kernel_check", "kernel": "attention_block", **row})
+    if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
+        fail(f"attention_block: max error {max_err} (tol {LAYER_TOL}), mean "
+             f"error {mean_err} (tol {LAYER_MEAN_TOL})")
+    results["attention_block"] = [row]
+
+
+# f32 sums of the same 768 exact bf16 products in another order, scores of
+# unit-norm vectors (|s| <= 1)
+SCORE_TOL = 1e-4
+
+
+def check_pallas_score(results: dict, dev) -> None:
+    """The score kernel at the retrieval shapes (Q 2,048 unit-norm queries,
+    D 768, N 262,144 unit-norm docs, the corpus transposed) against its
+    plain version; the yardstick is ``torch.mm`` with f32 output."""
+    import torch
+    from bergen_tpu_torch.ops import scoring as sc
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rnd = _rnd(gen, dev)
+    Q, D, N = 2_048, 768, 262_144
+    q = rnd(Q, D)
+    q = (q / q.norm(dim=1, keepdim=True)).bfloat16()
+    c = rnd(N, D)
+    ct = (c / c.norm(dim=1, keepdim=True)).T.contiguous().bfloat16()
+    del c
+    out = sc.pallas_score(q, ct)
+    ref = sc.pallas_score_plain(q, ct)
+    max_err, mean_err = _errors(out, ref)
+    del out, ref
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: sc.pallas_score(q, ct))
+    plain_ms = cuda_time_ms(lambda: sc.pallas_score_plain(q, ct), iters=2,
+                            warmup=1)
+    library_ms = cuda_time_ms(
+        lambda: torch.mm(q, ct, out_dtype=torch.float32))
+    b_ms, b_by = bound(2 * Q * D * N, Q * D * 2 + D * N * 2 + Q * N * 4)
+    row = {"Q": Q, "D": D, "N": N, "max_abs_err": max_err,
+           "mean_abs_err": mean_err, "tol": SCORE_TOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms,
+           "library": "torch.mm(out_dtype=float32)"}
+    emit({"phase": "kernel_check", "kernel": "pallas_score", **row})
+    if not max_err <= SCORE_TOL:
+        fail(f"pallas_score: max error {max_err} (tol {SCORE_TOL})")
+    results["pallas_score"] = [row]
+
+
 # --------------------------------------------------------------------------- #
 # phase 2: full-width random-weight checkpoints
 # --------------------------------------------------------------------------- #
@@ -2052,6 +2243,93 @@ def run_ut1_serve_mistral(ckpt: dict, workdir: str,
             "trec_lines": 500, **_check_outputs(exp)}
 
 
+def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str) -> dict:
+    """The served Mistral-7B (``generator=vllm_mistral-7b-chat``'s LLM: 32
+    slots, 128 new tokens, max_length 4,096) draining the 50 instructions
+    that ut1_serve_mistral's eval built (its ``eval_dev_out.json``) with
+    ``run_workload(mode="chunked")`` (2 pipes of 128-token chunks), then
+    with ``mode="epoch"``.  Per mode: steps (fused steps; decode steps),
+    wall, new tokens/s; and the share of tokens the modes agree on, not
+    held to a limit (random weights make near-ties)."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.serve import GenerationServer
+
+    served = os.path.join(os.path.dirname(workdir), "ut1_serve_mistral")
+    exp_root = os.path.join(served, "tests", "run", "experiments")
+    exp = os.path.join(exp_root, next(d for d in os.listdir(exp_root)
+                                      if not d.startswith("tmp_")))
+    instructions = [r["instruction"] for r in _json(exp, "eval_dev_out.json")]
+    llm = LLM(ckpt["mistral_7b"], batch_size=64, max_new_tokens=128,
+              max_length=4096, serve=True, max_slots=MISTRAL_SLOTS,
+              device="cuda")
+    ids = llm.tokenizer(instructions, truncation=True,
+                        max_length=4096)["input_ids"]
+    GenerationServer.decode_steps = GenerationServer.chunk_pipe_steps = 0
+    out = {"requests": len(ids), "slots": MISTRAL_SLOTS,
+           "max_new_tokens": MISTRAL_NEW_TOKENS,
+           "prompt_tokens": [min(map(len, ids)), max(map(len, ids))]}
+    tokens = {}
+    for mode in ("chunked", "epoch"):
+        steps0 = GenerationServer.decode_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens[mode] = llm.server.run_workload(ids, MISTRAL_NEW_TOKENS,
+                                               mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = GenerationServer.decode_steps - steps0
+        n_new = sum(map(len, tokens[mode]))
+        out[mode] = {"steps": steps, "wall_s": wall, "new_tokens": n_new,
+                     "new_tokens_per_s": n_new / wall,
+                     "steps_per_s": steps / wall}
+    out["chunked"]["pipe_steps"] = GenerationServer.chunk_pipe_steps
+    out["decode_steps"] = GenerationServer.decode_steps
+    same = sum(int(np.sum(np.asarray(a[:len(b)]) == np.asarray(b[:len(a)])))
+               for a, b in zip(tokens["chunked"], tokens["epoch"]))
+    out["agree_token_share"] = same / max(out["epoch"]["new_tokens"], 1)
+    # greedy decoding diverges for good at its first near-tie flip: the
+    # first tokens (the prompt alone decides them) and the common prefix
+    prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+              for a, b in zip(tokens["chunked"], tokens["epoch"])]
+    out["first_token_agree_share"] = float(np.mean([p > 0 for p in prefix]))
+    out["common_prefix_mean"] = float(np.mean(prefix))
+    if not all(len(t) >= 1 for t in tokens["chunked"]):
+        fail("ut1_serve_chunked_mistral: a request got no token")
+    del llm
+    return out
+
+
+def _chunked_logits(llm, ids: list):
+    """(decode rows' logits [pool, V], chunk rows' logits [P, V], step) of
+    the first fused step of ``llm.server``'s chunked drain that emits a
+    first token, serving ``ids`` (one request per pipe, two new tokens
+    each): both pipes stage from the first step, so pipe p finishes at step
+    ceil(len(ids[p]) / 128) (1-based), its last chunk attending the ones
+    staged before it."""
+    from bergen_tpu_torch.models import llama
+
+    calls = []
+    orig = llama.forward
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        calls.append(out[:, -1].float().cpu().numpy().copy())
+        return out
+
+    llama.forward = spy
+    try:
+        llm.server.run_workload(ids, max_new_tokens=2, mode="chunked",
+                                pipes=len(ids))
+    finally:
+        llama.forward = orig
+    step = min(-(-len(t) // 128) for t in ids) - 1
+    pool = llm.server.S + 1
+    return calls[step][:pool], calls[step][pool:], step
+
+
 def _cos_rows(a, b) -> float:
     """Smallest cosine similarity between matching rows of a and b."""
     import numpy as np
@@ -2273,6 +2551,11 @@ def check_serve_against_cpu(ckpt: dict) -> dict:
         ids = card.tokenizer(questions, truncation=True,
                              max_length=4096)["input_ids"]
         c_pre, c_dec, c_ids = _served_logits(card, ids[:2])
+        # two prompts of two chunks each for the chunked drain: the eight
+        # questions in turn, forward and backward, 200 tokens
+        long_ids = [(sum(ids, []) * 8)[:200], (sum(ids[::-1], []) * 8)[:200]]
+        if kv == "uniform":
+            c_chunk = _chunked_logits(card, long_ids)
         # served against static greedy decoding, both on the card
         got = card.server.run_workload(ids, max_new_tokens=n_new)
         ii, am = card._tokenize_left_pad(questions)
@@ -2287,6 +2570,16 @@ def check_serve_against_cpu(ckpt: dict) -> dict:
         torch.cuda.empty_cache()
         cpu = LLM(path, device="cpu", dtype="f32", kv_cache=kv, **kw)
         p_pre, p_dec, _ = _served_logits(cpu, ids[:2], decode_ids=c_ids)
+        if kv == "uniform":
+            # the chunked drain (decode and band kernels): the first fused
+            # step that emits a first token, whose inputs no earlier token
+            # of either device has touched
+            p_chunk = _chunked_logits(cpu, long_ids)
+            out["chunked"] = {
+                "step": c_chunk[2],
+                "prompt_tokens": [len(t) for t in long_ids],
+                "decode_logits_min_cos": _cos_rows(c_chunk[0], p_chunk[0]),
+                "chunk_logits_min_cos": _cos_rows(c_chunk[1], p_chunk[1])}
         del cpu
         out[kv] = {"prefill_logits_min_cos": _cos_rows(c_pre, p_pre),
                    "decode_logits_min_cos": _cos_rows(c_dec, p_dec),
@@ -2295,6 +2588,9 @@ def check_serve_against_cpu(ckpt: dict) -> dict:
     bad = [(kv, k) for kv in ("uniform", "paged")
            for k in ("prefill_logits_min_cos", "decode_logits_min_cos")
            if not out[kv][k] >= tol]
+    bad += [("chunked", k) for k in ("decode_logits_min_cos",
+                                     "chunk_logits_min_cos")
+            if not out["chunked"][k] >= tol]
     if bad:
         fail(f"served card vs CPU reference: {bad} below {tol}: {out}")
     return out
@@ -2476,7 +2772,8 @@ def card_line() -> str:
 PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "encoder_layer_q", "bin_topk", "decode_attention",
                  "int4_matmul", "int4_quantizer", "flash_attention",
-                 "paged_attention", "encoder_attention", "bin_topk_int8")
+                 "paged_attention", "encoder_attention", "bin_topk_int8",
+                 "flash_attention_band", "attention_block", "pallas_score")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers")
 
@@ -2518,6 +2815,7 @@ def main() -> None:
     from bergen_tpu_torch.ops import fused_topk as ft
     from bergen_tpu_torch.ops import int4_matmul as im
     from bergen_tpu_torch.ops import paged_attention as pa
+    from bergen_tpu_torch.ops import scoring as sc
 
     counters = {"encoder_layer": ea.encoder_layer,
                 "encoder_layer_prebias": ea.encoder_layer_prebias,
@@ -2528,7 +2826,10 @@ def main() -> None:
                 "flash_attention": fa.flash_attention,
                 "paged_attention": pa.paged_partial,
                 "encoder_attention": ea.encoder_attention,
-                "bin_topk_int8": ft.bin_scores_int8}
+                "bin_topk_int8": ft.bin_scores_int8,
+                "flash_attention_band": fa.flash_attention_band,
+                "attention_block": ea.attention_block,
+                "pallas_score": sc.pallas_score}
     results: dict = {}
     checks = {"encoder_layer": lambda: check_encoder_layer(results, dev),
               "encoder_layer_prebias": lambda: check_encoder_layer_prebias(
@@ -2544,7 +2845,11 @@ def main() -> None:
               "paged_attention": lambda: check_paged_attention(results, dev),
               "encoder_attention": lambda: check_encoder_attention(results,
                                                                    dev),
-              "bin_topk_int8": lambda: check_bin_topk_int8(results, dev)}
+              "bin_topk_int8": lambda: check_bin_topk_int8(results, dev),
+              "flash_attention_band": lambda: check_flash_attention_band(
+                  results, dev),
+              "attention_block": lambda: check_attention_block(results, dev),
+              "pallas_score": lambda: check_pallas_score(results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
@@ -2607,6 +2912,7 @@ def main() -> None:
         for path, kv in (("ut1_serve_mistral", "uniform"),
                          ("ut1_serve_paged_mistral", "paged")):
             drive(path, lambda c, w, kv=kv: run_ut1_serve_mistral(c, w, kv))
+        drive("ut1_serve_chunked_mistral", run_ut1_serve_chunked_mistral)
         emit({"phase": "launches", **by_path,
               "encoder_attention_with_bias": bias_launches})
         idle = [f"{n} on {path}" for path, names in PATH_KERNELS.items()
@@ -2643,6 +2949,19 @@ def main() -> None:
                 fail(f"{path}: {by_path[path][kernel]} {kernel} launches, "
                      f"not {n_layers} x {runs[path]['decode_steps']} decode "
                      "steps")
+        # the chunked drain's rule: every fused step of either mode runs one
+        # decode attention per layer for the pool's rows, and each (step,
+        # active staging pipe) pair one band attention per layer; an idle
+        # pipe's rows attend nothing and launch nothing
+        path = "ut1_serve_chunked_mistral"
+        got = (by_path[path]["decode_attention"],
+               by_path[path]["flash_attention_band"])
+        want = (n_layers * runs[path]["decode_steps"],
+                n_layers * runs[path]["chunked"]["pipe_steps"])
+        if got != want:
+            fail(f"{path}: (decode_attention, flash_attention_band) launches "
+                 f"{got}, not {n_layers} x ({runs[path]['decode_steps']} "
+                 f"steps, {runs[path]['chunked']['pipe_steps']} pipe-steps)")
         if by_path["ut1_serve_paged_mistral"]["decode_attention"]:
             fail("ut1_serve_paged_mistral: decode_attention launched "
                  f"{by_path['ut1_serve_paged_mistral']['decode_attention']} "

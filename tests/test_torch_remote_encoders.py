@@ -12,7 +12,7 @@ DistilBERT encoders against the JAX package's, on the CPU.
   with ``bergen_tpu.models.core.USE_FLASH_ENCODER`` on at S 128, so that
   JAX's Pallas attention (rope, ALiBi) or layer kernel (DistilBERT) runs in
   interpret mode;
-* a W8A8 tree on the rope/ALiBi route raises, naming itself.
+* a W8A8 tree on the rope route is dequantized and encodes as JAX's.
 """
 
 import dataclasses
@@ -190,25 +190,33 @@ def test_encode_matches_jax_pallas_route(monkeypatch, name):
 
 
 def test_w8a8_on_rope_route_raises():
-    """The W8A8 layer kernel is the absolute-position route's; a W8A8 tree
-    on a rope encoder raises naming itself, and gated layers cannot be
-    quantized at all (as in JAX)."""
+    """A W8A8 tree on a rope encoder (a plain-MLP GTE) no longer raises:
+    each layer is dequantized (``dequantize_linear_w8a8``) and runs the
+    rope route, as JAX's ``encode`` does.  Gated layers cannot be quantized
+    at all (as in JAX): that still raises."""
     model, jcfg = _model("gte", 32, 4, 48)
-    tree = tconvert.bert_from_hf(model.state_dict(), 2)
+    tree = jax.tree.map(np.asarray, jconvert.bert_from_hf(
+        model.state_dict(), 2))
     for layer in tree["layers"]:  # a plain-MLP rope encoder
         layer["mlp_in"] = {"kernel": layer.pop("mlp_up")["kernel"],
-                           "bias": torch.zeros(48)}
+                           "bias": np.zeros(48, np.float32)}
         del layer["mlp_gate"]
-        layer["mlp_out"].setdefault("bias", torch.zeros(32))
+        layer["mlp_out"].setdefault("bias", np.zeros(32, np.float32))
         for p in layer["attn"].values():
-            p.setdefault("bias", torch.zeros(p["kernel"].shape[1]))
-    tcfg = tbert.BertConfig(**dict(_fields(jcfg), mlp_gated=False))
+            p.setdefault("bias", np.zeros(p["kernel"].shape[1], np.float32))
+    jcfg = dataclasses.replace(jcfg, mlp_gated=False)
+    tcfg = tbert.BertConfig(**_fields(jcfg))
     params = tbert.prepare(tconvert.quantize_encoder_layers_w8a8(
-        tconvert.to_device(tree, torch.float32, "cpu")))
+        tconvert.from_jax_params(tree)))
     ids, am = _inputs(2, 12, 0)
-    with pytest.raises(NotImplementedError, match="W8A8 tree on a rope"):
-        tbert.encode(params, tcfg, torch.from_numpy(ids).long(),
-                     torch.from_numpy(am).long())
+    ref = np.asarray(jbert.encode(
+        jconvert.quantize_encoder_layers_w8a8(jax.tree.map(jnp.asarray,
+                                                           tree)),
+        jcfg, jnp.asarray(ids), jnp.asarray(am)))
+    out = tbert.encode(params, tcfg, torch.from_numpy(ids).long(),
+                       torch.from_numpy(am).long()).numpy()
+    valid = am.astype(bool)
+    np.testing.assert_allclose(out[valid], ref[valid], atol=ATOL, rtol=0)
     gated = tconvert.to_device(tconvert.bert_from_hf(model.state_dict(), 2),
                                torch.float32, "cpu")
     with pytest.raises(ValueError, match="plain-MLP BERT layers only"):

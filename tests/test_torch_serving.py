@@ -189,8 +189,8 @@ def test_llm_refuses_what_is_not_ported(tmp_path, kwargs, error):
 def test_server_refusals(model):
     _, _, tcfg, tparams = model
     srv = GenerationServer(tparams, tcfg, EOS, PAD, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.run_workload([[3, 4, 5]], 2, mode="chunked")
+    with pytest.raises(ValueError, match="unknown mode"):
+        srv.run_workload([[3, 4, 5]], 2, mode="bogus")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GenerationServer(tparams, tcfg, EOS, PAD)
