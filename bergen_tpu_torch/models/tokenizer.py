@@ -9,9 +9,10 @@ port carries the part of them its checkpoints use, with the same results as
   ``unk_id``), the family of DeBERTa-v3's tokenizer, and BPE with ranked
   merges, ``byte_fallback`` to ``<0xNN>`` tokens, ``fuse_unk`` and
   ``ignore_merges`` (Llama-2's and TinyLlama's ``tokenizer.json``);
-* normalizers: Lowercase, StripAccents, Strip, Replace, Prepend (and a
-  Sequence of them).  ``Precompiled`` (a serialized sentencepiece charsmap,
-  which DeBERTa-v3's published ``tokenizer.json`` carries) is not read yet;
+* normalizers: Lowercase, StripAccents, Strip, Replace, Prepend,
+  Precompiled (a serialized sentencepiece charsmap, which DeBERTa-v3's
+  published ``tokenizer.json`` carries; ``_Precompiled``), and a Sequence
+  of them;
 * pre-tokenizers: Whitespace, WhitespaceSplit, Punctuation (Removed or
   Isolated), Metaspace, and a Sequence of them;
 * the TemplateProcessing post-processor, single (``[CLS] $A [SEP]``) and
@@ -31,10 +32,13 @@ Any other component raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
+import base64
+import functools
 import heapq
 import json
 import os
 import re
+import struct
 import unicodedata
 from typing import Iterable
 
@@ -82,7 +86,223 @@ def _normalizer(spec):
     if kind == "Prepend":
         pre = spec["prepend"]
         return lambda s: pre + s if s else s
+    if kind == "Precompiled":
+        return _Precompiled(base64.b64decode(
+            spec["precompiled_charsmap"])).normalize
     raise NotImplementedError(f"tokenizer normalizer {kind!r}")
+
+
+# Unicode's extended grapheme clusters (UAX #29), for the Precompiled
+# normalizer: Python's ``re`` has no ``\X`` and ``unicodedata`` no
+# Grapheme_Cluster_Break, so the classes come from the general category and
+# these lists (Unicode 15).  The Indic conjunct rule (GB9c) is left out: it
+# joins only clusters of 6 bytes or more, which the normalizer reads
+# character by character either way.
+_PREPEND = ((0x0600, 0x0605), (0x06DD, 0x06DD), (0x070F, 0x070F),
+            (0x0890, 0x0891), (0x08E2, 0x08E2), (0x0D4E, 0x0D4E),
+            (0x110BD, 0x110BD), (0x110CD, 0x110CD), (0x111C2, 0x111C3),
+            (0x1193F, 0x1193F), (0x11941, 0x11941), (0x11A3A, 0x11A3A),
+            (0x11A84, 0x11A89), (0x11D46, 0x11D46), (0x11F02, 0x11F02))
+# Other_Grapheme_Extend (spacing marks and others that extend), the emoji
+# modifiers and the tags
+_EXTEND = ((0x09BE, 0x09BE), (0x09D7, 0x09D7), (0x0B3E, 0x0B3E),
+           (0x0B57, 0x0B57), (0x0BBE, 0x0BBE), (0x0BD7, 0x0BD7),
+           (0x0CC2, 0x0CC2), (0x0CD5, 0x0CD6), (0x0D3E, 0x0D3E),
+           (0x0D57, 0x0D57), (0x0DCF, 0x0DCF), (0x0DDF, 0x0DDF),
+           (0x1B35, 0x1B35), (0x200C, 0x200C), (0x302E, 0x302F),
+           (0xFF9E, 0xFF9F), (0x1133E, 0x1133E), (0x11357, 0x11357),
+           (0x114B0, 0x114B0), (0x114BD, 0x114BD), (0x115AF, 0x115AF),
+           (0x11930, 0x11930), (0x1D165, 0x1D165), (0x1D16E, 0x1D172),
+           (0x1F3FB, 0x1F3FF), (0xE0020, 0xE007F))
+# spacing combining marks (Mc) that are not SpacingMark
+_NOT_SPACING = ((0x102B, 0x102C), (0x1038, 0x1038), (0x1062, 0x1064),
+                (0x1067, 0x106D), (0x1083, 0x1083), (0x1087, 0x108C),
+                (0x108F, 0x108F), (0x109A, 0x109C), (0x1A61, 0x1A61),
+                (0x1A63, 0x1A64), (0xAA7B, 0xAA7B), (0xAA7D, 0xAA7D),
+                (0x11720, 0x11721))
+_EXT_PICT = ((0x00A9, 0x00A9), (0x00AE, 0x00AE), (0x203C, 0x203C),
+             (0x2049, 0x2049), (0x2122, 0x2122), (0x2139, 0x2139),
+             (0x2194, 0x2199), (0x21A9, 0x21AA), (0x231A, 0x231B),
+             (0x2328, 0x2328), (0x2388, 0x2388), (0x23CF, 0x23CF),
+             (0x23E9, 0x23F3), (0x23F8, 0x23FA), (0x24C2, 0x24C2),
+             (0x25AA, 0x25AB), (0x25B6, 0x25B6), (0x25C0, 0x25C0),
+             (0x25FB, 0x25FE), (0x2600, 0x2605), (0x2607, 0x2612),
+             (0x2614, 0x2685), (0x2690, 0x2705), (0x2708, 0x2712),
+             (0x2714, 0x2714), (0x2716, 0x2716), (0x271D, 0x271D),
+             (0x2721, 0x2721), (0x2728, 0x2728), (0x2733, 0x2734),
+             (0x2744, 0x2744), (0x2747, 0x2747), (0x274C, 0x274C),
+             (0x274E, 0x274E), (0x2753, 0x2755), (0x2757, 0x2757),
+             (0x2763, 0x2767), (0x2795, 0x2797), (0x27A1, 0x27A1),
+             (0x27B0, 0x27B0), (0x27BF, 0x27BF), (0x2934, 0x2935),
+             (0x2B05, 0x2B07), (0x2B1B, 0x2B1C), (0x2B50, 0x2B50),
+             (0x2B55, 0x2B55), (0x3030, 0x3030), (0x303D, 0x303D),
+             (0x3297, 0x3297), (0x3299, 0x3299), (0x1F000, 0x1F0FF),
+             (0x1F10D, 0x1F10F), (0x1F12F, 0x1F12F), (0x1F16C, 0x1F171),
+             (0x1F17E, 0x1F17F), (0x1F18E, 0x1F18E), (0x1F191, 0x1F19A),
+             (0x1F1AD, 0x1F1E5), (0x1F201, 0x1F20F), (0x1F21A, 0x1F21A),
+             (0x1F22F, 0x1F22F), (0x1F232, 0x1F23A), (0x1F23C, 0x1F23F),
+             (0x1F249, 0x1F3FA), (0x1F400, 0x1F53D), (0x1F546, 0x1F64F),
+             (0x1F680, 0x1F6FF), (0x1F774, 0x1F77F), (0x1F7D5, 0x1F7FF),
+             (0x1F80C, 0x1F80F), (0x1F848, 0x1F84F), (0x1F85A, 0x1F85F),
+             (0x1F888, 0x1F88F), (0x1F8AE, 0x1F8FF), (0x1F90C, 0x1F93A),
+             (0x1F93C, 0x1F945), (0x1F947, 0x1FAFF), (0x1FC00, 0x1FFFD))
+
+
+_ASCII_CLUSTERS = re.compile(r"\r\n|.", re.DOTALL)
+
+
+def _in(cp: int, ranges) -> bool:
+    return any(a <= cp <= b for a, b in ranges)
+
+
+@functools.lru_cache(maxsize=4096)
+def _gcb(c: str) -> tuple[str, bool]:
+    """The Grapheme_Cluster_Break class of ``c``, and whether ``c`` is
+    Extended_Pictographic."""
+    return _gcb_class(c), _in(ord(c), _EXT_PICT)
+
+
+def _gcb_class(c: str) -> str:
+    cp = ord(c)
+    if c in "\r\n":
+        return "CR" if c == "\r" else "LF"
+    if cp == 0x200D:
+        return "ZWJ"
+    if 0x1F1E6 <= cp <= 0x1F1FF:
+        return "RI"
+    if _in(cp, _PREPEND):
+        return "Prepend"
+    if 0x1100 <= cp <= 0x115F or 0xA960 <= cp <= 0xA97C:
+        return "L"
+    if 0x1160 <= cp <= 0x11A7 or 0xD7B0 <= cp <= 0xD7C6:
+        return "V"
+    if 0x11A8 <= cp <= 0x11FF or 0xD7CB <= cp <= 0xD7FB:
+        return "T"
+    if 0xAC00 <= cp <= 0xD7A3:
+        return "LV" if (cp - 0xAC00) % 28 == 0 else "LVT"
+    cat = unicodedata.category(c)
+    if cat in ("Mn", "Me") or _in(cp, _EXTEND):
+        return "Extend"
+    if cat in ("Cc", "Cf", "Zl", "Zp", "Cs"):
+        return "Control"
+    if (cat == "Mc" and not _in(cp, _NOT_SPACING)) or cp in (0x0E33, 0x0EB3):
+        return "SpacingMark"
+    return "Other"
+
+
+def _graphemes(text: str) -> list[str]:
+    """``text`` cut into extended grapheme clusters (UAX #29 rules GB3 to
+    GB13, without GB9c)."""
+    if text.isascii():  # every ASCII character is a cluster, but CR LF
+        return _ASCII_CLUSTERS.findall(text)
+    out: list[str] = []
+    cur = ""
+    prev = None
+    pict = pict_zwj = False  # text ends with ExtPict Extend* (ZWJ)
+    ri = 0  # regional indicators just before
+    for c in text:
+        k, ext_pict = _gcb(c)
+        if prev is None:
+            join = False
+        elif prev == "CR" and k == "LF":
+            join = True
+        elif prev in ("Control", "CR", "LF") or k in ("Control", "CR", "LF"):
+            join = False
+        elif prev == "L" and k in ("L", "V", "LV", "LVT"):
+            join = True
+        elif prev in ("LV", "V") and k in ("V", "T"):
+            join = True
+        elif prev in ("LVT", "T") and k == "T":
+            join = True
+        elif k in ("Extend", "ZWJ", "SpacingMark") or prev == "Prepend":
+            join = True
+        elif pict_zwj and ext_pict:
+            join = True
+        else:
+            join = prev == "RI" and k == "RI" and ri % 2 == 1
+        if not join and cur:
+            out.append(cur)
+            cur = ""
+        cur += c
+        pict_zwj = k == "ZWJ" and pict
+        pict = ext_pict or (k == "Extend" and pict)
+        ri = ri + 1 if k == "RI" else 0
+        prev = k
+    if cur:
+        out.append(cur)
+    return out
+
+
+class _Precompiled:
+    """``tokenizers``' Precompiled normalizer over sentencepiece's serialized
+    charsmap: a little-endian uint32 byte size of the trie, the trie (a
+    Darts-clone double array of uint32 units over UTF-8 byte strings, whose
+    values are offsets into the pool), then the pool of NUL-terminated
+    replacement strings.
+
+    Applied as ``tokenizers`` applies it: per grapheme cluster of fewer than
+    6 bytes, the first (shortest) key that prefixes the cluster's bytes
+    replaces the whole cluster; otherwise each character is looked up alone
+    and kept where no key prefixes it."""
+
+    def __init__(self, blob: bytes):
+        if len(blob) < 4:
+            raise ValueError("Precompiled normalizer: the charsmap is "
+                             f"{len(blob)} bytes, too short for its header")
+        (size,) = struct.unpack_from("<I", blob)
+        n = size // 4
+        if 4 + 4 * n > len(blob):
+            raise ValueError(f"Precompiled normalizer: the trie of {size} "
+                             f"bytes overruns the {len(blob)}-byte charsmap")
+        self.units = struct.unpack_from(f"<{n}I", blob, 4)
+        self.pool = blob[4 + 4 * n:]
+        self.pool.decode("utf-8")  # as tokenizers, refuse a pool that is not
+        self._cache: dict[str, str | None] = {}
+
+    def _lookup(self, key: bytes) -> str | None:
+        """The replacement of the shortest key that prefixes ``key``."""
+        units = self.units
+
+        def offset(u):
+            return (u >> 10) << ((u & (1 << 9)) >> 6)
+
+        if not units:
+            return None
+        pos = offset(units[0])
+        for c in key:
+            if c == 0:
+                break
+            pos ^= c
+            if pos >= len(units):
+                return None
+            u = units[pos]
+            if u & ((1 << 31) | 0xFF) != c:
+                return None
+            pos ^= offset(u)
+            if (u >> 8) & 1:
+                start = units[pos] & ((1 << 31) - 1)
+                end = self.pool.find(b"\0", start)
+                return self.pool[start:end if end >= 0 else None].decode()
+        return None
+
+    def _transform(self, piece: str) -> str | None:
+        out = self._cache.get(piece, self)
+        if out is self:
+            out = self._cache[piece] = self._lookup(piece.encode())
+        return out
+
+    def normalize(self, text: str) -> str:
+        out = []
+        for cluster in _graphemes(text):
+            if len(cluster.encode()) < 6:
+                rep = self._transform(cluster)
+                if rep is not None:
+                    out.append(rep)
+                    continue
+            for c in cluster:
+                rep = self._transform(c)
+                out.append(c if rep is None else rep)
+        return "".join(out)
 
 
 def _metaspace(spec):

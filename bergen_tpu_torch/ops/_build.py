@@ -42,9 +42,10 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 5 + [_P]),
-    "decode_attention": ("decode_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
-                                              _I, _I, _F, _P]),
-    "int4_matmul": ("int4_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "decode_attention": ("decode_attention", [_P] * 8 + [_I] * 6 + [_F, _P]),
+    "decode_attention_splits": ("decode_attention", [_I] * 5),
+    "int4_matmul": ("int4_matmul", [_P] * 6 + [_I] * 4 + [_P]),
+    "int4_decode_splits": ("int4_matmul", [_I] * 3),
     "flash_attention": ("flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _I, _I, _I, _I, _I, _F,
                                             _P]),
@@ -134,6 +135,43 @@ def function(name: str):
     fn.restype = ctypes.c_int
     _fns[name] = fn
     return fn
+
+
+_counters: dict = {}
+
+
+def counters(name: str, device, n: int):
+    """A zeroed int32 tensor of at least ``n`` entries on ``device``, kept
+    for the process: the cross-block counters of kernel ``name``, which
+    every launch leaves fit for the next (allocated and zeroed once, not
+    per launch).  Launches that share it must be on one stream."""
+    import torch
+
+    key = (name, str(device))
+    t = _counters.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[key] = t
+    return t
+
+
+_scratch: dict = {}
+
+
+def scratch(name: str, device, n: int):
+    """An f32 tensor of at least ``n`` entries on ``device``, kept for the
+    process and grown as needed: the partial results that one launch of
+    kernel ``name`` writes and reads back before it ends, so that a
+    launch-bound decode step allocates nothing per call.  Launches that
+    share it must be on one stream."""
+    import torch
+
+    key = (name, str(device))
+    t = _scratch.get(key)
+    if t is None or t.numel() < n:
+        t = torch.empty(n, dtype=torch.float32, device=device)
+        _scratch[key] = t
+    return t
 
 
 def check(err: int, what: str) -> None:

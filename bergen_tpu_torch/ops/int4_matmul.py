@@ -6,20 +6,26 @@ f32 and then multiplied by its f32 scale (the weights are never rounded).
 The layout is ``models/convert.py::quantize_int4_packed``'s: ``wp[i, n]``
 holds row 2i in its low nibble and row 2i+1 in the dot-identity high nibble;
 ``scales[g, n]`` covers rows ``[g*group, (g+1)*group)``.  On a CUDA tensor
-this launches the kernel of ``csrc/int4_matmul.cu``; on a CPU tensor
-``matmul_int4_packed_plain``.  ``supports`` is the JAX package's static
-shape rule, by which ``models/llama.py`` routes a projection to this
-function or to the dequantized product.
+this launches a kernel of ``csrc/int4_matmul.cu`` (M <= 16: the decode
+kernel, K split over blocks and reduced in the same launch; above: the
+wgmma prefill kernel); on a CPU tensor ``matmul_int4_packed_plain``.
+Both take any group that is a multiple of 16 up to ``MAX_GROUP``.
+``supports`` is the JAX package's static shape rule, by which
+``models/llama.py`` routes a projection to this function or to the
+dequantized product.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from bergen_tpu_torch.models.convert import unpack_int4
 from bergen_tpu_torch.ops import _build
 
-MAX_GROUP = 256  # the prefill kernel's two shared-memory stages
+MAX_GROUP = 256  # the largest group the kernels are checked at
+DECODE_ROWS = 16  # M at or below this takes the decode kernel
 
 
 def _choose_block(total: int, unit: int, cap: int) -> int:
@@ -65,6 +71,13 @@ def matmul_int4_packed_plain(x: torch.Tensor, wp: torch.Tensor,
     return y
 
 
+@functools.lru_cache(maxsize=256)
+def decode_splits(N: int, K: int, group: int) -> int:
+    """The decode kernel's K-splits at this shape (needs the card: it
+    depends on the SM count)."""
+    return _build.function("int4_decode_splits")(N, K, group)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -82,8 +95,9 @@ def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
     K2, N = wp.shape
     n_groups = scales.shape[0]
     group = K // n_groups if n_groups else 0
-    if (K2 * 2 != K or K % max(n_groups, 1) or group % 16 or group > MAX_GROUP
-            or N % 128 or M < 1 or tuple(scales.shape) != (n_groups, N)):
+    if (K2 * 2 != K or K % max(n_groups, 1) or group < 16 or group % 16
+            or group > MAX_GROUP or N % 128 or M < 1
+            or tuple(scales.shape) != (n_groups, N)):
         raise ValueError(
             f"matmul_int4_packed kernel: needs wp [K/2, N] with N % 128 == 0 "
             f"and a group that is a multiple of 16 up to {MAX_GROUP}; got "
@@ -96,9 +110,17 @@ def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
     xb = _aligned(x.to(torch.bfloat16))
     wp, scales = _aligned(wp), _aligned(scales)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    # the decode kernel's K-split partials [splits, M, N] and stripe counters
+    splits = decode_splits(N, K, group) if M <= DECODE_ROWS else 1
+    part = counters = 0
+    if splits > 1:
+        part = _build.scratch("int4_matmul", x.device,
+                              splits * M * N).data_ptr()
+        counters = _build.counters("int4_matmul", x.device,
+                                   N // 128).data_ptr()
     fn = _build.function("int4_matmul")
     _build.check(fn(xb.data_ptr(), wp.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), M, N, K, group,
+                    out.data_ptr(), part, counters, M, N, K, group,
                     _build.stream_ptr(x.device)), "matmul_int4_packed")
     matmul_int4_packed.launches += 1
     return out

@@ -16,7 +16,11 @@ Phases (each prints one JSON line):
      Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
-     library time and the card's lower bound for the same work; one
+     library time and the card's lower bound for the same work (the decode
+     rows of int4_matmul and decode_attention also cold, rotating over
+     copies of the weight or cache past the 50 MB L2, and as the card's
+     own time from torch.profiler; decode attention also against its
+     split schedule in plain PyTorch); one
      DeBERTa-v3 layer split into qkv product, bias products and kernel;
      the int4 quantizer on the card against the CPU, bit for bit; the band
      attention at the chunked drain's shapes (an empty band exactly zero),
@@ -51,6 +55,7 @@ count; a kernel that a part runs must show launches there.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -171,6 +176,81 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+# the decode rows are also timed cold: each launch reads operands that are
+# not in the 50 MB L2, as a decode step finds each layer's weights and cache
+COLD_BYTES = 160e6
+
+
+def cold_copies(nbytes: float) -> int:
+    """Copies of an operand set of ``nbytes`` to rotate over so that a
+    launch finds its operands out of L2 (at least 2)."""
+    return max(2, math.ceil(COLD_BYTES / nbytes))
+
+
+def cuda_time_rotating_ms(fns: list, iters: int = 50) -> float:
+    """``cuda_time_ms`` of back-to-back launches that rotate over ``fns``
+    (each reading its own copy of the operands), after one pass over them
+    all."""
+    cycle = itertools.cycle(fns)
+    return cuda_time_ms(lambda: next(cycle)(), iters=max(iters, 2 * len(fns)),
+                        warmup=len(fns))
+
+
+def device_time_ms(fns: list, iters: int = 50):
+    """Card time per call: the kernels that back-to-back calls (rotating
+    over ``fns``) launch, summed from ``torch.profiler``'s CUDA activity and
+    divided by the calls.  Unlike the event timing above it leaves out the
+    host's time to launch each call, which is longer than a decode-size
+    kernel.  None where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    iters = max(iters, 2 * len(fns))
+    for _ in range(2):  # a window now and then comes back without records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            total += t
+        if total > 0:
+            return total / 1e3 / iters
+    return None
+
+
+def launches_per_call(wrapper, call) -> int:
+    """The kernels that one call of ``wrapper`` puts on the card, counted
+    twice and required to agree: the wrapper's own counter (zeroed, one
+    call, read) and the CUDA kernels that ``torch.profiler`` records in
+    that call (after a warm call, so nothing is allocated or zeroed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window now and then comes back without records
+        wrapper.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        counted = wrapper.launches
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if kernels:
+            break
+    if kernels != counted:
+        fail(f"{wrapper.__name__}: {counted} launches counted in one call, "
+             f"{kernels} kernels on the card")
+    return counted
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -850,24 +930,34 @@ def check_bin_topk_int8(results: dict, dev) -> None:
     results["bin_topk_int8"] = per_case
 
 
+# decode attention: the unchanged limit of the card check, a few bf16 ulps
+# of the outputs (|out| ~ 0.05 at L 2,112); held against the plain version
+# and against the kernel's own split schedule in plain PyTorch
+DECODE_TOL = 2e-3
+# (B, Dh, KH, L, mask): TinyLlama's group 8 (KH 4) at both cache lengths
+# (the kernels line reports the first), then every other group the kernel
+# is built for; then Llama-2-7B (head width 128, KH 32) at its max_length +
+# 128 new tokens and at the int4 path's 256 + 128, and head width 128 at
+# group 8; then Mistral-7B (group 4) at the epoch drain's 32 + 1 slots over
+# its 512-position ring (ut1's bucket 256 + 128 new tokens, 128-aligned);
+# last TinyLlama at L 2,112 with masks that leave whole splits without a
+# valid key (row 0: the last 100 keys, row 2: the first 50).  Row 1 is
+# fully masked everywhere: the uniform mean of V
+DECODE_SHAPES = ((8, 64, 4, 320, "random"), (8, 64, 4, 2112, "random"),
+                 (8, 64, 8, 320, "random"), (8, 64, 16, 320, "random"),
+                 (8, 64, 32, 320, "random"), (8, 128, 32, 2176, "random"),
+                 (8, 128, 32, 384, "random"), (8, 128, 4, 2176, "random"),
+                 (33, 128, 8, 512, "random"), (8, 64, 4, 2112, "empty_splits"))
+
+
 def check_decode_attention(results: dict, dev) -> None:
     import torch
     from bergen_tpu_torch.ops import decode_attention as da
 
     H = 32
     gen = torch.Generator(device=dev).manual_seed(3)
-    tol = 2e-3  # a few bf16 ulps of the outputs (|out| ~ 0.05 at L 2,112)
     per_shape = []
-    # TinyLlama's group 8 (KH 4) at both cache lengths (the kernels line
-    # reports the first), then every other group the kernel is built for;
-    # then Llama-2-7B (head width 128, KH 32) at its max_length + 128 new
-    # tokens and at the int4 path's 256 + 128, and head width 128 at group 8;
-    # then Mistral-7B (group 4) at the epoch drain's 32 + 1 slots over its
-    # 512-position ring (ut1's bucket 256 + 128 new tokens, 128-aligned)
-    for B, Dh, KH, L in ((8, 64, 4, 320), (8, 64, 4, 2112), (8, 64, 8, 320),
-                         (8, 64, 16, 320), (8, 64, 32, 320),
-                         (8, 128, 32, 2176), (8, 128, 32, 384),
-                         (8, 128, 4, 2176), (33, 128, 8, 512)):
+    for B, Dh, KH, L, mask in DECODE_SHAPES:
         q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
         kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
         vc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
@@ -875,36 +965,75 @@ def check_decode_attention(results: dict, dev) -> None:
         stop = torch.randint(L // 2, L + 1, (B,), generator=gen, device=dev)
         pos = torch.arange(L, device=dev)[None, :]
         valid = (pos >= start[:, None]) & (pos < stop[:, None])
+        if mask == "empty_splits":
+            valid[0] = pos[0] >= L - 100
+            valid[2] = pos[0] < 50
         valid[1] = False  # a fully masked row: uniform mean of V
         scale = 1.0 / math.sqrt(Dh)
+        splits = da.splits(B, H, KH, L, Dh)
         out = da.decode_attention(q, kc, vc, valid, kv_heads=KH,
                                   sm_scale=scale)
         ref = da.decode_attention_plain(q, kc, vc, valid, kv_heads=KH,
                                         sm_scale=scale)
         max_err, mean_err = _errors(out, ref)
+        split_ref = da.decode_attention_split_plain(
+            q, kc, vc, valid, kv_heads=KH, sm_scale=scale, splits=splits)
+        split_err, _ = _errors(out, split_ref)
         ms = cuda_time_ms(lambda: da.decode_attention(
             q, kc, vc, valid, kv_heads=KH, sm_scale=scale), iters=50)
         plain_ms = cuda_time_ms(lambda: da.decode_attention_plain(
             q, kc, vc, valid, kv_heads=KH, sm_scale=scale), iters=20)
-        k4 = kc.view(B, L, KH, Dh).transpose(1, 2)
-        v4 = vc.view(B, L, KH, Dh).transpose(1, 2)
         amask = valid[:, None, None, :]
         q4 = q[:, :, None, :]
-        library_ms = cuda_time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=amask, scale=scale, enable_gqa=True),
-            iters=50)
+
+        def sdpa(k, v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k.view(B, L, KH, Dh).transpose(1, 2),
+                v.view(B, L, KH, Dh).transpose(1, 2), attn_mask=amask,
+                scale=scale, enable_gqa=True)
+
+        library_ms = cuda_time_ms(lambda: sdpa(kc, vc), iters=50)
         nbytes = 2 * B * L * KH * Dh * 2 + 2 * B * H * Dh * 2 + B * L
+        # cold: rotate over copies of the cache (the decode step's case)
+        caches = [(kc, vc)] + [(kc.clone(), vc.clone())
+                               for _ in range(cold_copies(nbytes) - 1)]
+        cold_ms = cuda_time_rotating_ms([
+            lambda k=k, v=v: da.decode_attention(
+                q, k, v, valid, kv_heads=KH, sm_scale=scale)
+            for k, v in caches])
+        library_cold_ms = cuda_time_rotating_ms(
+            [lambda k=k, v=v: sdpa(k, v) for k, v in caches])
+        device = {
+            "device_ms": device_time_ms([lambda: da.decode_attention(
+                q, kc, vc, valid, kv_heads=KH, sm_scale=scale)]),
+            "device_cold_ms": device_time_ms([
+                lambda k=k, v=v: da.decode_attention(
+                    q, k, v, valid, kv_heads=KH, sm_scale=scale)
+                for k, v in caches]),
+            "library_device_ms": device_time_ms([lambda: sdpa(kc, vc)]),
+            "library_device_cold_ms": device_time_ms(
+                [lambda k=k, v=v: sdpa(k, v) for k, v in caches])}
+        del caches
         b_ms, b_by = bound(4 * B * H * L * Dh, nbytes, PEAK_F32_FLOPS)
+        per_call = launches_per_call(da.decode_attention, lambda: (
+            da.decode_attention(q, kc, vc, valid, kv_heads=KH,
+                                sm_scale=scale)))
         row = {"B": B, "L": L, "H": H, "KH": KH, "head_dim": Dh,
+               "mask": mask, "splits": splits,
+               "blocks": B * KH * splits, "launches_per_call": per_call,
                "max_abs_err": max_err, "mean_abs_err": mean_err,
-               "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": library_ms}
+               "split_plain_max_abs_err": split_err,
+               "tol": DECODE_TOL, "ms": ms, "cold_ms": cold_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms, "library_cold_ms": library_cold_ms,
+               **device}
         emit({"phase": "kernel_check", "kernel": "decode_attention", **row})
         per_shape.append(row)
-        if not max_err <= tol:
-            fail(f"decode_attention Dh{Dh} KH{KH} L{L}: max error {max_err} "
-                 f"> {tol}")
+        if not (max_err <= DECODE_TOL and split_err <= DECODE_TOL):
+            fail(f"decode_attention Dh{Dh} KH{KH} L{L} ({mask}, {splits} "
+                 f"splits): max error {max_err} against the plain version, "
+                 f"{split_err} against its split schedule (tol {DECODE_TOL})")
+        torch.cuda.empty_cache()
     results["decode_attention"] = per_shape
 
 
@@ -921,6 +1050,11 @@ INT4_PREFILL_M = 8 * 256
 INT4_SHAPES = tuple((8, K, N) for K, N in INT4_KN) + tuple(
     (INT4_PREFILL_M, K, N) for K, N in INT4_KN) + ((8192, 4096, 32000),)
 INT4_GROUP = 128
+INT4_EXACT_SHAPES = ((8, 11008, 4096, 128), (12, 4096, 1024, 128),
+                     (2048, 4096, 1024, 128), (300, 4096, 384, 128),
+                     (1000, 11008, 512, 128)) + tuple(
+    (M, 3072, 384, group) for group in (16, 32, 48, 64, 96, 192, 256)
+    for M in (8, 300))
 
 
 def _int4pack_yardstick(x, codes, scales, group: int):
@@ -987,16 +1121,50 @@ def check_int4_matmul(results: dict, dev) -> None:
                 .max().item()
             pack["int4pack_ms"] = cuda_time_ms(pack_run,
                                                iters=50 if M <= 16 else 10)
-        del codes
         n_groups = K // INT4_GROUP
-        b_ms, b_by = bound(2 * M * K * N, K * N // 2 + n_groups * N * 4
-                           + M * K * 2 + M * N * 4)
+        w_bytes = K * N // 2 + n_groups * N * 4
+        cold = {}
+        if M <= 16:
+            # cold: rotate over copies of the weight (a decode step reads
+            # each projection's weight once, from device memory)
+            ws = [(wp, sc)] + [(wp.clone(), sc.clone())
+                               for _ in range(cold_copies(w_bytes) - 1)]
+            fns = [lambda w=w: im.matmul_int4_packed(x, *w) for w in ws]
+            cold["cold_ms"] = cuda_time_rotating_ms(fns)
+            cold["device_ms"] = device_time_ms(fns[:1])
+            cold["device_cold_ms"] = device_time_ms(fns)
+            del ws, fns
+            w_bfs = [dequantize_int4(codes, sc, torch.bfloat16) for _ in
+                     range(cold_copies(K * N * 2))]
+            fns = [lambda w=w: torch.matmul(x, w) for w in w_bfs]
+            cold["library_cold_ms"] = cuda_time_rotating_ms(fns)
+            cold["library_device_ms"] = device_time_ms(fns[:1])
+            cold["library_device_cold_ms"] = device_time_ms(fns)
+            del w_bfs, fns
+            cold["int4pack_cold_ms"] = None
+            cold["int4pack_device_ms"] = None
+            cold["int4pack_device_cold_ms"] = None
+            if pack_run is not None:
+                runs = [pack_run] + [
+                    _int4pack_yardstick(x, codes, sc, INT4_GROUP)[0]
+                    for _ in range(cold_copies(w_bytes) - 1)]
+                cold["int4pack_cold_ms"] = cuda_time_rotating_ms(runs)
+                cold["int4pack_device_ms"] = device_time_ms(runs[:1])
+                cold["int4pack_device_cold_ms"] = device_time_ms(runs)
+                del runs
+            cold["splits"] = im.decode_splits(N, K, INT4_GROUP)
+        del codes, pack_run
+        b_ms, b_by = bound(2 * M * K * N, w_bytes + M * K * 2 + M * N * 4)
+        per_call = launches_per_call(im.matmul_int4_packed,
+                                     lambda: im.matmul_int4_packed(x, wp, sc))
         row = {"M": M, "K": K, "N": N, "group": INT4_GROUP,
+               "variant": "decode" if M <= 16 else "prefill (wgmma)",
+               "launches_per_call": per_call,
                "max_abs_err": max_err, "mean_abs_err": mean_err,
                "tol": INT4_TOL, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "library": "bf16 torch.matmul on the dequantized weight",
-               "library_max_abs_err": lib, **pack}
+               "library_max_abs_err": lib, **pack, **cold}
         emit({"phase": "kernel_check", "kernel": "int4_matmul", **row})
         per_shape.append(row)
         if not max_err <= INT4_TOL:
@@ -1004,24 +1172,35 @@ def check_int4_matmul(results: dict, dev) -> None:
                  f"(tol {INT4_TOL})")
         del x, out
         torch.cuda.empty_cache()
-    # bitwise: integer activations in [-4, 4], random codes, unit scales
-    for M, K, N in ((8, 11008, 4096), (300, 4096, 384)):
+    # bitwise: integer activations in [-4, 4], random codes, scales that
+    # are powers of two (every sum exact); at group 128 one decode shape, a
+    # ragged decode (two batch-row tiles), whole wgmma tiles (2,048 rows,
+    # every row and column tile full) and two ragged prefills (300 and
+    # 1,000 rows: the last row tile part empty); then a decode and a ragged
+    # prefill at each other group the kernels take (the prefill's 64 and
+    # 256 versions, and the k16-promotion one at 16, 32, 48, 96 and 192,
+    # where a group ends inside a stage or spans two)
+    for M, K, N, group in INT4_EXACT_SHAPES:
         q = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
                           dtype=torch.int8)
         lo, hi = q[0::2], q[1::2]
         wp = (((hi - (lo < 0).to(torch.int8)) << 4) | (lo & 0x0F)) \
             .to(torch.int8)
-        sc = torch.ones(K // INT4_GROUP, N, device=dev)
+        sc = torch.exp2(torch.randint(-2, 3, (K // group, N), generator=gen,
+                                      device=dev).float())
         x = torch.randint(-4, 5, (M, K), generator=gen, device=dev) \
             .bfloat16()
-        exact = x.double() @ q.double()
+        exact = (x.double() @ (q.double() * sc.double().repeat_interleave(
+            group, dim=0)))
         got = im.matmul_int4_packed(x, wp, sc).double()
         if not torch.equal(got, exact):
-            fail(f"int4_matmul M{M} K{K} N{N} on integer inputs: "
-                 f"{int((got != exact).sum().item())} outputs differ from "
-                 "the exact sums")
+            fail(f"int4_matmul M{M} K{K} N{N} group {group} on integer "
+                 f"inputs: {int((got != exact).sum().item())} outputs differ "
+                 "from the exact sums")
         emit({"phase": "kernel_check", "kernel": "int4_matmul",
-              "integer_inputs_exact": True, "M": M, "K": K, "N": N})
+              "integer_inputs_exact": True, "M": M, "K": K, "N": N,
+              "group": group, "ms": cuda_time_ms(
+                  lambda: im.matmul_int4_packed(x, wp, sc))})
     results["int4_matmul"] = per_shape
 
 
@@ -2870,11 +3049,32 @@ def main() -> None:
     bias_launches: dict = {}
     runs: dict = {}
 
+    from bergen_tpu_torch.models import llama
+    steps: dict = {}
+
     def drive(path: str, run) -> None:
+        # every llama.forward step of the path: (S, int4 and decode
+        # attention launches in it); S 1 is a decode step
+        steps[path] = []
+        forward = llama.forward
+
+        def counted(params, cfg, input_ids, *a, **k):
+            n4 = im.matmul_int4_packed.launches
+            nd = da.decode_attention.launches
+            out = forward(params, cfg, input_ids, *a, **k)
+            steps[path].append((input_ids.shape[1],
+                                im.matmul_int4_packed.launches - n4,
+                                da.decode_attention.launches - nd))
+            return out
+
         for fn in counters.values():
             fn.launches = 0
         ea.encoder_attention.bias_launches = 0
-        runs[path] = run(ckpt, os.path.join(work, path))
+        llama.forward = counted
+        try:
+            runs[path] = run(ckpt, os.path.join(work, path))
+        finally:
+            llama.forward = forward
         by_path[path] = {n: fn.launches for n, fn in counters.items()}
         bias_launches[path] = ea.encoder_attention.bias_launches
         emit({"phase": path, **runs[path]})
@@ -2962,6 +3162,37 @@ def main() -> None:
             fail(f"{path}: (decode_attention, flash_attention_band) launches "
                  f"{got}, not {n_layers} x ({runs[path]['decode_steps']} "
                  f"steps, {runs[path]['chunked']['pipe_steps']} pipe-steps)")
+        # the static generator's steps, each counted: every forward step of
+        # int4 Llama-2-7B (prefill or decode) runs 7 projections per layer
+        # and the lm_head through the int4 kernel, every decode step one
+        # decode attention per layer (and a prefill none); TinyLlama's
+        # decode steps one decode attention per layer, no int4 product
+        for path, layers, int4 in (
+                ("ut1_int4_llama2", LLAMA2_7B["num_hidden_layers"], True),
+                ("ut1_eval", TINYLLAMA["num_hidden_layers"], False),
+                ("ut1_eval_nomic", TINYLLAMA["num_hidden_layers"], False),
+                ("ut1_eval_jina", TINYLLAMA["num_hidden_layers"], False),
+                ("ut1_rerank", TINYLLAMA["num_hidden_layers"], False)):
+            per4 = 7 * layers + 1 if int4 else 0
+            bad = [st for st in steps[path] if st[1:] != (
+                per4, layers if st[0] == 1 else 0)]
+            n_dec = sum(1 for st in steps[path] if st[0] == 1)
+            if bad or not n_dec:
+                fail(f"{path}: forward steps with (S, int4_matmul, "
+                     f"decode_attention) launches {bad[:3]} ({len(bad)} in "
+                     f"all), not (S, {per4}, {layers} or 0 at S > 1); "
+                     f"{n_dec} decode steps")
+            want = (per4 * len(steps[path]), layers * n_dec)
+            got = (by_path[path]["int4_matmul"],
+                   by_path[path]["decode_attention"])
+            if got != want:
+                fail(f"{path}: (int4_matmul, decode_attention) launches {got}"
+                     f", not {want} for {len(steps[path])} forward steps, "
+                     f"{n_dec} of them decode steps")
+        emit({"phase": "forward_steps", **{
+            path: {"forward": len(st), "decode": sum(1 for s in st
+                                                     if s[0] == 1)}
+            for path, st in steps.items() if st}})
         if by_path["ut1_serve_paged_mistral"]["decode_attention"]:
             fail("ut1_serve_paged_mistral: decode_attention launched "
                  f"{by_path['ut1_serve_paged_mistral']['decode_attention']} "
@@ -2973,16 +3204,34 @@ def main() -> None:
         for name in SEVEN_B:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
+    # the redesigned kernels: launches per call as measured in their checks,
+    # and per decode step of ut1_int4_llama2 as counted there: the launches
+    # its decode steps made over the decode steps it took
+    dec = [st for st in steps["ut1_int4_llama2"] if st[0] == 1]
+    per_step = {"int4_matmul": sum(st[1] for st in dec) / len(dec),
+                "decode_attention": sum(st[2] for st in dec) / len(dec)}
     line = []
     for name, meta in KERNELS.items():
         row = results[name][0]
         per_path = {path: c[name] for path, c in by_path.items()}
+        extra = {}
+        if name in per_step:
+            extra = {"launches_per_call": max(r["launches_per_call"]
+                                              for r in results[name]),
+                     "launches_per_decode_step": per_step[name],
+                     "decode_steps": len(dec),
+                     **{key: row.get(key) for key in (
+                         "cold_ms", "library_cold_ms", "device_ms",
+                         "device_cold_ms", "library_device_ms",
+                         "library_device_cold_ms", "int4pack_ms",
+                         "int4pack_cold_ms", "int4pack_device_ms",
+                         "int4pack_device_cold_ms") if key in row}}
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,
                      **{key: row[key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")}})
+                         "bound_by", "library_ms")}, **extra})
     emit({"kernels": line})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

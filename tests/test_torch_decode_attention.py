@@ -1,10 +1,15 @@
 """The port's S=1 decode attention (``bergen_tpu_torch.ops.decode_attention``)
 on the CPU, held against the JAX package's Pallas ``decode_attention`` in
 interpret mode on the flat [B, L, KH*Dh] cache at head widths 64 and 128,
-and the port's greedy decode
-against JAX's with that kernel engaged (``BERGEN_TPU_FLASH_DECODE=interpret``).
+the kernel's split-L schedule in plain PyTorch
+(``decode_attention_split_plain``: per-split (max, sum) combined into the
+row's (m, l) before p is rounded) against the same kernel, and the port's
+greedy decode against JAX's with that kernel engaged
+(``BERGEN_TPU_FLASH_DECODE=interpret``).
 
-Tolerance 2e-5 absolute on f32 inputs (the same sums in another order)."""
+Tolerance 2e-5 absolute on f32 inputs (the same sums in another order); on
+bf16 inputs 1/64, two bf16 ulps of the outputs (|out| < 2), since the split
+sum of l can round p to the neighbouring bf16 value."""
 
 import dataclasses
 import math
@@ -18,6 +23,8 @@ import jax.numpy as jnp
 
 from bergen_tpu.ops.decode_attention import decode_attention as jda
 from bergen_tpu_torch.ops.decode_attention import decode_attention as tda
+from bergen_tpu_torch.ops.decode_attention import (
+    decode_attention_split_plain as tsplit)
 
 ATOL = 2e-5
 
@@ -55,6 +62,50 @@ def _check_against_jax(group, Dh, KH, L):
     np.testing.assert_allclose(out[3].reshape(KH, group, Dh),
                                np.repeat(mean_v[:, None], group, axis=1),
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,KH,group", [(64, 2, 4), (128, 4, 2)])
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_split_schedule_matches_jax_kernel(splits, Dh, KH, group, dtype):
+    """The kernel's split schedule against JAX's interpreted kernel, with a
+    fully masked row and rows whose valid keys leave whole splits empty
+    (at 7 splits of 48 keys: row 1 attends the last 5 keys only, row 2 the
+    first 3): such a split must add exactly zero weight, so V is made huge
+    there."""
+    B, L = 4, 48
+    H = KH * group
+    rng = np.random.default_rng(splits + Dh)
+    q = rng.standard_normal((B, H, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, L, KH * Dh)).astype(np.float32)
+    v = rng.standard_normal((B, L, KH * Dh)).astype(np.float32)
+    valid = rng.random((B, L)) < 0.7
+    valid[1] = np.arange(L) >= L - 5
+    valid[2] = np.arange(L) < 3
+    valid[3] = False  # fully masked: the uniform mean of V
+    v[1, :L - 5] = 1e4
+    v[2, 3:] = 1e4
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    scale = 1.0 / math.sqrt(Dh)
+    ref = np.asarray(jda(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                         jnp.asarray(v, jdt), jnp.asarray(valid),
+                         kv_heads=KH, sm_scale=scale,
+                         interpret=True).astype(jnp.float32))
+    out = tsplit(torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+                 torch.from_numpy(v).to(tdt), torch.from_numpy(valid),
+                 kv_heads=KH, sm_scale=scale, splits=splits).float().numpy()
+    atol = ATOL if dtype == "float32" else 1 / 64
+    np.testing.assert_allclose(out, ref, atol=atol, rtol=0)
+    assert np.abs(out[1:3]).max() < 10  # no weight on the empty splits
+
+
+def test_split_schedule_refuses_an_empty_split():
+    q = torch.zeros(1, 2, 64)
+    kv = torch.zeros(1, 10, 128)
+    with pytest.raises(ValueError, match="empty"):
+        tsplit(q, kv, kv, torch.ones(1, 10, dtype=torch.bool), kv_heads=2,
+               sm_scale=0.125, splits=6)
 
 
 def test_greedy_decode_matches_jax_with_kernel(monkeypatch):

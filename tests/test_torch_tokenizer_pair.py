@@ -119,8 +119,10 @@ def test_unigram_metaspace_options_match_tokenizers(tmp_path, scheme, split):
 
 
 def test_precompiled_normalizer_raises_naming_itself(tmp_path, paths):
-    """DeBERTa-v3's published tokenizer.json carries a Precompiled
-    (sentencepiece charsmap) normalizer, which the reader does not parse."""
+    """A Precompiled (sentencepiece charsmap) normalizer whose charsmap is
+    too short to hold its header is refused, naming itself, as
+    ``tokenizers`` refuses it (well-formed charsmaps are read:
+    test_torch_precompiled.py)."""
     with open(os.path.join(paths["deberta"], "tokenizer.json")) as f:
         spec = json.load(f)
     spec["normalizer"] = {"type": "Sequence", "normalizers": [
@@ -128,7 +130,7 @@ def test_precompiled_normalizer_raises_naming_itself(tmp_path, paths):
         {"type": "Precompiled", "precompiled_charsmap": "AAAA"}]}
     with open(tmp_path / "tokenizer.json", "w") as f:
         json.dump(spec, f)
-    with pytest.raises(NotImplementedError, match="Precompiled"):
+    with pytest.raises(ValueError, match="Precompiled"):
         Tokenizer.from_pretrained(str(tmp_path))
 
 
