@@ -1,6 +1,7 @@
 """Same-host A/B of the port's source trees on one GPU.
 
     python3 ab_chip.py decode_attention TREE [TREE ...]
+    python3 ab_chip.py kernels TREE [TREE ...]
     python3 ab_chip.py paths TREE [TREE ...]
 
 A TREE is ``.`` (this checkout) or a directory that holds another version
@@ -14,6 +15,9 @@ tree (its kernels built there), runs one of this checkout's
 * ``decode_attention``: ``check_decode_attention`` (the kernel against its
   plain version at every decode shape, with its warm, L2-cold and
   profiler device times);
+* ``kernels``: ``check_encoder_layer`` and ``check_bin_topk`` (the bf16
+  GEMM chain of the encoder layer at its five shapes, with the card's own
+  time of each of its seven launches, and the bin top-k of mode 'none');
 * ``paths``: the ut1_eval and ut1_int4_llama2 runs of ``python -m
   bergen_tpu_torch`` (stage times), on checkpoints that this process
   writes once, before the first tree, and deletes at the end.
@@ -50,6 +54,10 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
     if phase == "decode_attention":
         cs.check_decode_attention({}, dev)
         return
+    if phase == "kernels":
+        cs.check_encoder_layer({}, dev)
+        cs.check_bin_topk({}, dev)
+        return
     with open(ckpt_json) as f:
         ckpt = json.load(f)
     work = tempfile.mkdtemp(prefix="ab_chip_")
@@ -68,7 +76,8 @@ def main() -> None:
     if sys.argv[1:2] == ["--child"]:
         _child(*sys.argv[2:5])
         return
-    if len(sys.argv) < 3 or sys.argv[1] not in ("decode_attention", "paths"):
+    if len(sys.argv) < 3 or sys.argv[1] not in ("decode_attention",
+                                                "kernels", "paths"):
         sys.exit(__doc__)
     import torch
 

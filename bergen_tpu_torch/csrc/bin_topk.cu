@@ -19,18 +19,20 @@
 // What bounds it on the H100: 2*N*Q*D operations (0.82 T at N 262,144,
 // Q 2,048, D 768) against one read of the corpus (0.4 GB bf16, 0.2 GB
 // int8), so it is compute-bound on the tensor cores: 0.83 ms at the bf16
-// peak, 0.42 ms at the int8 peak.  Design: one block scores one bin (128
-// docs) against 128 queries with mma.sync (bf16 m16n8k16, or s8 m16n8k32
-// with int32 sums; 8 warps of 64 docs x 32 queries, two-stage cp.async ring
-// over D: common.cuh's mma_tile, the encoder GEMMs' main loop with
-// K-contiguous B), then reduces each query column in registers (within a
-// thread, then across the 8 lanes that share a column by shuffles, then
-// across the two warp rows through shared memory).  The query tile index is
-// the fastest grid axis, so the blocks that share a bin run together and
-// read its corpus rows from L2.
+// peak, 0.42 ms at the int8 peak.  Mode 'none' runs on wgmma.cuh's
+// persistent main loop (TMA, two consumer warpgroups of wgmma, 128 docs x
+// 256 queries a tile, one bin a tile) with the argmax as its epilogue
+// (BinEpi below).  The int8 modes keep common.cuh's mma_tile: one block
+// scores one bin (128 docs) against 128 queries with s8 m16n8k32 mma.sync
+// (int32 sums; 8 warps of 64 docs x 32 queries, a two-stage cp.async ring
+// over D), then reduces each query column in registers (within a thread,
+// then across the 8 lanes that share a column by shuffles, then across the
+// two warp rows through shared memory).  The query tile index is the
+// fastest grid axis, so the blocks that share a bin run together and read
+// its corpus rows from L2.
 #include <math.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -38,7 +40,7 @@ constexpr int BD = MMA_TILE;  // docs per block = one bin
 constexpr int BQ = MMA_TILE;  // queries per block
 constexpr int I32_MASK = -2147483647;  // _I32_MIN of the TPU kernel
 
-enum { MODE_NONE = 0, MODE_DOC = 1, MODE_BIN = 2 };
+enum { MODE_DOC = 1, MODE_BIN = 2 };
 
 template <typename T>
 __device__ __forceinline__ void better(T& v, int& i, T v2, int i2) {
@@ -48,15 +50,97 @@ __device__ __forceinline__ void better(T& v, int& i, T v2, int i2) {
   }
 }
 
-// corpus [N, D] and queries [Q, D]: bf16 (MODE_NONE) or int8; scales: per
-// doc [N] (MODE_DOC), per bin [n_bins] (MODE_BIN) or unused.
+// Mode 'none' on wg_gemm_kernel: the docs of one bin are the tile's 128
+// rows (A, the corpus [N, D]), BN queries its columns (B, the queries
+// [Q, D], K-major); tiles walk (bin, query tile) with the query tile
+// fastest, so a bin's corpus rows are read from L2 by the blocks that take
+// its query tiles together.  Each query column is reduced in registers:
+// over the thread's two rows, then by shuffles over the 8 lanes that share
+// the column, then over the 8 consumer warps through shared memory.  Docs
+// at or past valid_n score -inf; the lowest doc wins among equal maxima.
+template <int BN>
+struct BinEpi {
+  static constexpr int SMEM = 8 * BN * 8;  // (max, doc) per warp and column
+  float* vals;
+  int* idx;
+  int Q, valid_n;
+
+  __device__ __forceinline__ void finish(int) const {}
+
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2],
+                                             int bin, int qt, int wg,
+                                             int ctid,
+                                             unsigned char* scratch) const {
+    float* red_v = reinterpret_cast<float*>(scratch);
+    int* red_i = reinterpret_cast<int*>(scratch + 8 * BN * 4);
+    const int lane = ctid & 31, warp = ctid >> 5, g = lane >> 2, t = lane & 3;
+    const int d0 = bin * BD;
+    const int r = wg * 64 + (warp & 3) * 16 + g;  // and r + 8
+    const bool ok0 = d0 + r < valid_n, ok1 = d0 + r + 8 < valid_n;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float bv = ok0 ? acc[4 * j + h] : -INFINITY;
+        int bi = r;
+        better(bv, bi, ok1 ? acc[4 * j + 2 + h] : -INFINITY, r + 8);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const float v2 = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
+          better(bv, bi, v2, i2);
+        }
+        if (g == 0) {
+          const int c = 8 * j + 2 * t + h;
+          red_v[warp * BN + c] = bv;
+          red_i[warp * BN + c] = bi;
+        }
+      }
+    }
+    consumer_sync();
+    for (int c = ctid; c < BN; c += 256) {
+      float bv = red_v[c];
+      int bi = red_i[c];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) better(bv, bi, red_v[w * BN + c],
+                                         red_i[w * BN + c]);
+      const int q = qt * BN + c;
+      if (q < Q) {
+        const size_t o = (size_t)bin * Q + q;
+        vals[o] = bv;
+        idx[o] = d0 + bi;
+      }
+    }
+    consumer_sync();  // the scratch is free for the next tile
+  }
+};
+
+template <int BN>
+int launch_bins_bf16(const void* corpus, const void* queries, float* vals,
+                     int* idx, int N, int Q, int D, int valid_n,
+                     cudaStream_t st) {
+  CUtensorMap ta, tb;
+  int e = tma_map(&ta, corpus, false, N, D, D, WG_BM, WG_BK);
+  if (e == 0) e = tma_map(&tb, queries, false, Q, D, D, BN, WG_BK);
+  if (e != 0) return e;
+  const BinEpi<BN> epi{vals, idx, Q, valid_n};
+  return wg_gemm_launch<BN, false>(ta, tb, (N + BD - 1) / BD,
+                                   (Q + BN - 1) / BN,
+                                   (D + WG_BK - 1) / WG_BK, epi, st);
+}
+
+// Modes 'doc' and 'bin' (int8): one block scores one bin against 128
+// queries with common.cuh's mma_tile (s8 m16n8k32, int32 sums), then
+// reduces each query column as above, over the two warp rows of the tile.
+// corpus [N, D] and queries [Q, D] int8; scales per doc [N] (MODE_DOC) or
+// per bin [n_bins] (MODE_BIN).
 template <int MODE>
 __global__ void __launch_bounds__(256)
     bin_kernel(const void* __restrict__ corpus, const void* __restrict__ qry,
                const float* __restrict__ scales, float* __restrict__ vals,
                int* __restrict__ idx, int N, int Q, int D, int valid_n,
                int bin_off) {
-  using Acc = typename std::conditional<MODE == MODE_NONE, float, int>::type;
+  using Acc = int;
   using Val = typename std::conditional<MODE == MODE_BIN, int, float>::type;
   __shared__ Val red_v[2][BQ];
   __shared__ int red_i[2][BQ];
@@ -65,20 +149,13 @@ __global__ void __launch_bounds__(256)
   const int q0 = blockIdx.x * BQ, bin = blockIdx.y + bin_off, d0 = bin * BD;
 
   Acc acc[4][4][4];
-  if constexpr (MODE == MODE_NONE) {
-    const bf16* c = static_cast<const bf16*>(corpus);
-    const bf16* q = static_cast<const bf16*>(qry);
-    mma_tile<true>(c + (size_t)d0 * D, N - d0, q + (size_t)q0 * D, Q - q0, D,
-                   D, acc);
-  } else {
-    // int8 rows read as bf16 pairs: K counted in pairs (common.cuh)
-    const int8_t* c = static_cast<const int8_t*>(corpus);
-    const int8_t* q = static_cast<const int8_t*>(qry);
-    mma_tile<true, int>(reinterpret_cast<const bf16*>(c + (size_t)d0 * D),
-                        N - d0,
-                        reinterpret_cast<const bf16*>(q + (size_t)q0 * D),
-                        Q - q0, 0, D / 2, acc);
-  }
+  // int8 rows read as bf16 pairs: K counted in pairs (common.cuh)
+  const int8_t* c = static_cast<const int8_t*>(corpus);
+  const int8_t* q = static_cast<const int8_t*>(qry);
+  mma_tile<true, int>(reinterpret_cast<const bf16*>(c + (size_t)d0 * D),
+                      N - d0,
+                      reinterpret_cast<const bf16*>(q + (size_t)q0 * D),
+                      Q - q0, 0, D / 2, acc);
 
   const int g = lane >> 2, t = lane & 3;
   float dscale[4][2];  // MODE_DOC: the scales of this thread's 8 docs
@@ -111,11 +188,9 @@ __global__ void __launch_bounds__(256)
           Val v;
           if constexpr (MODE == MODE_BIN)
             v = ok ? a : I32_MASK;
-          else if constexpr (MODE == MODE_DOC)
+          else
             v = ok ? __fmul_rn(static_cast<float>(a), dscale[mi][half])
                    : -INFINITY;
-          else
-            v = ok ? a : -INFINITY;
           better(bv, bi, v, r);
         }
       }
@@ -167,12 +242,19 @@ void launch_bins(const void* corpus, const void* queries, const float* scales,
 extern "C" {
 
 // corpus [N, D] bf16, queries [Q, D] bf16 -> vals/idx [ceil(N/128), Q].
+// Needs D % 8 == 0 (16-byte rows for TMA); queries in tiles of 128 up to
+// Q 128, else of 256.
 int bin_topk_bins(const void* corpus, const void* queries, void* vals,
                   void* idx, int N, int Q, int D, int valid_n, void* stream) {
-  launch_bins<MODE_NONE>(corpus, queries, nullptr, static_cast<float*>(vals),
-                         static_cast<int*>(idx), N, Q, D, valid_n,
-                         static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  if (D % 8 || D < 1 || N < 0 || Q < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0 || Q == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* v = static_cast<float*>(vals);
+  int* i = static_cast<int*>(idx);
+  if (Q <= 128)
+    return launch_bins_bf16<128>(corpus, queries, v, i, N, Q, D, valid_n, st);
+  return launch_bins_bf16<256>(corpus, queries, v, i, N, Q, D, valid_n, st);
 }
 
 // corpus [N, D] int8, queries [Q, D] int8 (D % 64 == 0), scales [N] f32

@@ -1,7 +1,9 @@
 // Shared device helpers for the hand-written Hopper kernels: cp.async
 // copies, ldmatrix fragment loads, the bf16 m16n8k16 and s8 m16n8k32
-// tensor-core MMAs, the encoder activations, and the 128 x 128 tile main
-// loop that the encoder GEMMs (bf16 and int8) and the bin top-k share.
+// tensor-core MMAs, the encoder activations, and the 128 x 128 tile
+// mma.sync main loop that the W8A8 encoder GEMM, the int8 bin top-k and
+// the score kernel share (the bf16 encoder GEMMs and bin top-k run on
+// wgmma.cuh's loop).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): with g = lane / 4 and
 // t = lane % 4, an A fragment holds rows {g, g+8} x cols {2t, 2t+1, 2t+8,
@@ -21,6 +23,17 @@
 #include <type_traits>
 
 typedef __nv_bfloat16 bf16;
+
+// The card's SM count (the persistent kernels' grids).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
 
 enum { ACT_GELU = 0, ACT_GELU_TANH = 1, ACT_RELU = 2, ACT_SILU = 3 };
 

@@ -264,16 +264,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 size_t smem_bytes(int G, int DH, int chunk) {
   return ((size_t)G * chunk + (size_t)WARPS * G * DH) * sizeof(float);
 }

@@ -6,26 +6,31 @@
 //   out = LN2(y + W2 . act(W1 . y + b1) + b2)
 // for one [S, D] sequence per grid step with all ~14 MB of weights resident
 // in VMEM.  That residency does not exist on Hopper (227 KB of shared memory
-// per block), so the layer becomes five launches from this file:
-//   gemm_kernel<EPI_BIAS>      qkv  = bf16(x Wqkv + bqkv)           [M, 3D]
-//   attention_kernel           ctx  = softmax(q k^T / sqrt(Dh)) v   [M, D]
-//   gemm_kernel<EPI_BIAS_RES>  o    = ctx Wo + bo + x (f32)         [M, D]
-//   layernorm_kernel           y    = LN1(o) (f32 and bf16 copies)
-//   gemm_kernel<EPI_BIAS_ACT>  h    = bf16(act(y Wi + bi))          [M, I]
-//   gemm_kernel<EPI_BIAS_RES>  f    = h W2 + b2 + y (f32)
-//   layernorm_kernel           out  = bf16(LN2(f))
+// per block), so the layer becomes seven launches from this file:
+//   wg_gemm_kernel, EPI_BIAS      qkv  = bf16(x Wqkv + bqkv)        [M, 3D]
+//   attention_kernel              ctx  = softmax(q k^T / sqrt(Dh)) v [M, D]
+//   wg_gemm_kernel, EPI_BIAS_RES  o    = ctx Wo + bo + x (f32)      [M, D]
+//   layernorm_kernel              y    = LN1(o) (f32 and bf16 copies)
+//   wg_gemm_kernel, EPI_BIAS_ACT  h    = bf16(act(y Wi + bi))       [M, I]
+//   wg_gemm_kernel, EPI_BIAS_RES  f    = h W2 + b2 + y (f32)
+//   layernorm_kernel              out  = bf16(LN2(f))
 // The rounding points are the TPU kernel's: qkv, the attention context and
 // the FFN hidden are rounded to bf16; residual sums and LayerNorms are f32.
 //
 // What bounds it on the H100: the four GEMMs are 2*M*D*(4D + 2I) FLOPs
 // (0.95 TFLOP at B 512, S 128, D 768, I 3072) against ~0.25 GB of
 // activation traffic, so the layer is compute-bound on the tensor cores.
-// The GEMM is a plain mma.sync m16n8k16 kernel: 128x128x32 block tiles,
-// 8 warps of 64x32, a two-stage cp.async ring and ldmatrix fragment loads
-// from padded (bank-conflict-free) shared tiles, with the bias, activation
-// and residual fused into its epilogue so that no elementwise pass touches
-// device memory; its main loop is common.cuh's mma_tile, which the bin top-k
-// shares.  Attention keeps the [S, S] scores out of device memory:
+// The GEMMs run on wgmma.cuh's persistent warp-specialised main loop (TMA
+// producer, two consumer warpgroups of m64nNk16 wgmma, 128 x 256 output
+// tiles, or 128 x 128 where N is not a multiple of 256 or the 256-wide
+// tiles would leave SMs idle), with B, the [K, N] row-major weight, read
+// MN-major through the wgmma descriptor (no transposed copy); the bias,
+// activation and residual are fused into the epilogue, which stages C in
+// shared memory and stores it with TMA, so no elementwise pass touches
+// device memory.  The epilogue does not overlap the next tile's products:
+// the erf GELU of the FFN-in GEMM and the residual reads of the o and
+// FFN-out GEMMs are what keeps them from the main loop's rate.
+// Attention keeps the [S, S] scores out of device memory:
 // one block per (sequence, head, 64-query tile) streams 64-key tiles with an
 // online softmax, so any bucket up to S 512 runs in ~37 KB of shared memory.
 // The attention takes head width 32 or 64 (a template parameter).
@@ -52,68 +57,203 @@
 // 0.10 ms of tensor-core work; the f32 bias (3 MB) is read by every
 // sequence's blocks from L2.  The design keeps the [S, S] scores and
 // probabilities on chip and reads each operand tile once per 64 queries.
-// wgmma/TMA pipelines are later work.
-#include "common.cuh"
+// A wgmma/TMA attention is later work.
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BM = MMA_TILE, BN = MMA_TILE;
-
 enum { EPI_BIAS = 0, EPI_BIAS_ACT = 1, EPI_BIAS_RES = 2 };
-// C[M, N] = A[M, K] @ B[K, N] (+ epilogue); A, B bf16 row-major, bias f32.
-// EPI_BIAS / EPI_BIAS_ACT write bf16; EPI_BIAS_RES adds a bf16 or f32
-// residual [M, N] and writes f32.  Needs N % 128 == 0 and K % 32 == 0.
-template <int EPI>
-__global__ void __launch_bounds__(256)
-    gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                const float* __restrict__ bias, const void* __restrict__ res,
-                void* __restrict__ out, int M, int N, int K, int act,
-                int res_f32) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  float acc[4][4][4];
-  mma_tile<false>(A + (size_t)m0 * K, M - m0, B + n0, BN, N, K, acc);
+// The GEMM epilogue of wg_gemm_kernel: C = bf16(acc + bias) (EPI_BIAS),
+// bf16(act(acc + bias)) (EPI_BIAS_ACT), or acc + bias + a bf16 or f32
+// residual in f32 (EPI_BIAS_RES).  The consumers write C a pass at a time
+// into one of two shared staging boxes of 128 rows x 128 bytes (64 bf16 or
+// 32 f32 columns) in the 128-byte swizzle (conflict-free stores), and one
+// thread stores the box with TMA, which drops rows at or past M.  A box is
+// rewritten once the store of two passes back has read it, so a pass's
+// stores overlap the next pass.  The activation is a template parameter
+// of the pass, so its loop is straight-line code.  Each pass's residual
+// is read into registers during the pass before.
+template <int EPI, int BN>
+struct GemmEpi {
+  static constexpr int BOX = WG_BM * 128;  // bytes of one staging box
+  static constexpr int SMEM = 2 * BOX;
+  CUtensorMap tma_c;  // C [M, N] in [128][64] bf16 or [128][32] f32 boxes
+  const float* bias;
+  const void* res;
+  int M, N, act, res_f32;
 
-  const int g = lane >> 2, t = lane & 3;
+  __device__ __forceinline__ void finish(int ctid) const {
+    if (ctid == 0) bulk_wait<0, false>();
+  }
+
+  // Box `p & 1` is free once the store of pass p - 2 has read it.
+  __device__ __forceinline__ void begin_pass(int ctid) const {
+    if (ctid == 0) bulk_wait<1, true>();
+    consumer_sync();
+  }
+
+  // Box `box` written: store it at column c of row tile mt.
+  __device__ __forceinline__ void end_pass(int ctid, unsigned char* box,
+                                           int c, int mt) const {
+    fence_proxy_async();
+    consumer_sync();
+    if (ctid == 0) {
+      tma_store_2d(&tma_c, box, c, mt * WG_BM);
+      bulk_commit();
+    }
+  }
+
+  template <int ACT>
+  __device__ __forceinline__ void store_bf16(const float (&acc)[BN / 2],
+                                             int mt, int nt, int r0, int t,
+                                             int ctid,
+                                             unsigned char* stage) const {
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int p = 0; p < BN / 64; ++p) {
+      unsigned char* box = stage + (p & 1) * BOX;
+      begin_pass(ctid);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (row >= M) continue;
+      for (int jj = 0; jj < 8; ++jj) {  // 8-column groups: 16-byte units
+        const int j = 8 * p + jj;
+        const float2 b = __ldg(
+            reinterpret_cast<const float2*>(bias + nt * BN + 8 * j + 2 * t));
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + t * 2;
-        float v0 = acc[mi][ni][half * 2] + bias[col];
-        float v1 = acc[mi][ni][half * 2 + 1] + bias[col + 1];
-        const size_t o = (size_t)row * N + col;
-        if (EPI == EPI_BIAS_RES) {
-          if (res_f32) {
-            float2 r = *reinterpret_cast<const float2*>(
-                static_cast<const float*>(res) + o);
-            v0 += r.x;
-            v1 += r.y;
-          } else {
-            __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-                static_cast<const bf16*>(res) + o);
-            v0 += __bfloat162float(r.x);
-            v1 += __bfloat162float(r.y);
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half;
+          float v0 = acc[4 * j + 2 * half] + b.x;
+          float v1 = acc[4 * j + 2 * half + 1] + b.y;
+          if constexpr (ACT >= 0) {
+            v0 = act_fn(v0, ACT);
+            v1 = act_fn(v1, ACT);
           }
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-              make_float2(v0, v1);
-        } else {
-          if (EPI == EPI_BIAS_ACT) {
-            v0 = act_fn(v0, act);
-            v1 = act_fn(v1, act);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + o) =
+          *reinterpret_cast<__nv_bfloat162*>(
+              box + r * 128 + ((jj ^ (r & 7)) << 4) + 4 * t) =
               __floats2bfloat162_rn(v0, v1);
         }
       }
+      end_pass(ctid, box, nt * BN + 64 * p, mt);
     }
   }
+
+  // The residual pairs of pass p (4 column groups, 2 rows).
+  __device__ __forceinline__ void load_res(float2 (&rv)[4][2], int p, int nt,
+                                           int row, int t) const {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half < M ? row + 8 * half : 0;
+        const size_t o = (size_t)r * N + nt * BN + 8 * (4 * p + jj) + 2 * t;
+        if (res_f32)
+          rv[jj][half] = *reinterpret_cast<const float2*>(
+              static_cast<const float*>(res) + o);
+        else
+          rv[jj][half] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  static_cast<const bf16*>(res) + o));
+      }
+  }
+
+  __device__ __forceinline__ void store_res(const float (&acc)[BN / 2],
+                                            int mt, int nt, int r0, int t,
+                                            int ctid,
+                                            unsigned char* stage) const {
+    constexpr int P = BN / 32;  // passes of 32 f32 columns
+    const int row = mt * WG_BM + r0;
+    float2 rv[P][4][2];
+    load_res(rv[0], 0, nt, row, t);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p + 1 < P) load_res(rv[p + 1], p + 1, nt, row, t);
+      unsigned char* box = stage + (p & 1) * BOX;
+      begin_pass(ctid);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {  // 8-column groups: two units each
+        const int j = 4 * p + jj;
+        const float2 b = __ldg(
+            reinterpret_cast<const float2*>(bias + nt * BN + 8 * j + 2 * t));
+        const int u = 2 * jj + (t >> 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half;
+          *reinterpret_cast<float2*>(box + r * 128 + ((u ^ (r & 7)) << 4) +
+                                     8 * (t & 1)) =
+              make_float2(acc[4 * j + 2 * half] + b.x + rv[p][jj][half].x,
+                          acc[4 * j + 2 * half + 1] + b.y +
+                              rv[p][jj][half].y);
+        }
+      }
+      end_pass(ctid, box, nt * BN + 32 * p, mt);
+    }
+  }
+
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2],
+                                             int mt, int nt, int wg, int ctid,
+                                             unsigned char* stage) const {
+    const int t = ctid & 3;
+    const int r0 = wg * 64 + ((ctid >> 5) & 3) * 16 + ((ctid & 31) >> 2);
+    if constexpr (EPI == EPI_BIAS) {
+      store_bf16<-1>(acc, mt, nt, r0, t, ctid, stage);
+    } else if constexpr (EPI == EPI_BIAS_ACT) {
+      switch (act) {
+        case ACT_GELU:
+          store_bf16<ACT_GELU>(acc, mt, nt, r0, t, ctid, stage);
+          break;
+        case ACT_GELU_TANH:
+          store_bf16<ACT_GELU_TANH>(acc, mt, nt, r0, t, ctid, stage);
+          break;
+        case ACT_RELU:
+          store_bf16<ACT_RELU>(acc, mt, nt, r0, t, ctid, stage);
+          break;
+        default:
+          store_bf16<ACT_SILU>(acc, mt, nt, r0, t, ctid, stage);
+      }
+    } else {
+      store_res(acc, mt, nt, r0, t, ctid, stage);
+    }
+  }
+};
+
+// Output tile width of the encoder GEMM at [M, N]: 256 where N allows it
+// and the 128 x 256 tiles still give every SM one, else 128 (MiniLM's D 384
+// and 3D 1,152; the ut1 query batch, M 1,600, whose N 768 makes 39 tiles of
+// 256 for 132 SMs).
+int tile_n(int M, int N) {
+  const long long tiles256 = (long long)(M + WG_BM - 1) / WG_BM * (N / 256);
+  return N % 256 == 0 && tiles256 >= sm_count() ? 256 : 128;
+}
+
+template <int EPI, int BN>
+int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
+                const float* bias, const void* res, void* out, int M, int N,
+                int K, int act, int res_f32, cudaStream_t st) {
+  GemmEpi<EPI, BN> epi{};
+  const bool f32 = EPI == EPI_BIAS_RES;
+  const int e = tma_map(&epi.tma_c, out, f32, M, N, N, WG_BM, f32 ? 32 : 64);
+  if (e != 0) return e;
+  epi.bias = bias;
+  epi.res = res;
+  epi.M = M;
+  epi.N = N;
+  epi.act = act;
+  epi.res_f32 = res_f32;
+  return wg_gemm_launch<BN, true>(ta, tb, (M + WG_BM - 1) / WG_BM, N / BN,
+                                  (K + WG_BK - 1) / WG_BK, epi, st);
+}
+
+template <int BN>
+int gemm_bn(const CUtensorMap& ta, const CUtensorMap& tb, const float* bias,
+            const void* res, void* out, int M, int N, int K, int epi, int act,
+            int res_f32, cudaStream_t st) {
+  if (epi == EPI_BIAS)
+    return launch_gemm<EPI_BIAS, BN>(ta, tb, bias, res, out, M, N, K, act,
+                                     res_f32, st);
+  if (epi == EPI_BIAS_ACT)
+    return launch_gemm<EPI_BIAS_ACT, BN>(ta, tb, bias, res, out, M, N, K, act,
+                                         res_f32, st);
+  return launch_gemm<EPI_BIAS_RES, BN>(ta, tb, bias, res, out, M, N, K, act,
+                                       res_f32, st);
 }
 
 constexpr int ATT_Q = 64;         // query rows per block (16 per warp)
@@ -415,25 +555,30 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
+// C[M, N] = A[M, K] . B[K, N] + bias (+ epilogue), A and B bf16 row-major
+// (B MN-major for wgmma), bias f32: EPI_BIAS / EPI_BIAS_ACT write bf16,
+// EPI_BIAS_RES adds a bf16 or f32 residual [M, N] and writes f32.  Needs
+// N % 128 == 0 and K % 8 == 0 (16-byte rows for TMA); k past K reads as
+// zero.
 int encoder_gemm(const void* A, const void* B, const void* bias,
                  const void* res, void* out, int M, int N, int K, int epi,
                  int act, int res_f32, void* stream) {
-  dim3 grid(N / BN, (M + BM - 1) / BM);
+  if (N % 128 || K % 8 || M < 0 || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  CUtensorMap ta, tb;
+  int e = tma_map(&ta, A, false, M, K, K, WG_BM, WG_BK);
+  if (e == 0) e = tma_map(&tb, B, false, K, N, N, WG_BK, 64);
+  if (e != 0) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* a = static_cast<const bf16*>(A);
-  const bf16* b = static_cast<const bf16*>(B);
   const float* bs = static_cast<const float*>(bias);
-  if (epi == EPI_BIAS)
-    gemm_kernel<EPI_BIAS><<<grid, 256, 0, st>>>(a, b, bs, res, out, M, N, K,
-                                                act, res_f32);
-  else if (epi == EPI_BIAS_ACT)
-    gemm_kernel<EPI_BIAS_ACT><<<grid, 256, 0, st>>>(a, b, bs, res, out, M, N,
-                                                    K, act, res_f32);
-  else
-    gemm_kernel<EPI_BIAS_RES><<<grid, 256, 0, st>>>(a, b, bs, res, out, M, N,
-                                                    K, act, res_f32);
-  return static_cast<int>(cudaGetLastError());
+  if (tile_n(M, N) == 256)
+    return gemm_bn<256>(ta, tb, bs, res, out, M, N, K, epi, act, res_f32, st);
+  return gemm_bn<128>(ta, tb, bs, res, out, M, N, K, epi, act, res_f32, st);
 }
+
+// The output tile width that encoder_gemm takes at [M, N] (128 or 256).
+int encoder_gemm_tile_n(int M, int N) { return tile_n(M, N); }
 
 // qkv [B*S, 3D] bf16; bias: [B, H, S, S] bf16 or null; head_dim 32 or 64.
 int encoder_attention(const void* qkv, const void* mask, const void* bias,

@@ -31,11 +31,11 @@
 // rate (1,979 TOP/s), so at B 512, S 128, D 768 the products (0.9 TOP) take
 // 0.46 ms at peak while the activations the chain moves (~0.5 GB with the
 // f32 intermediates and int8 copies) take 0.15 ms: operations bound it.  The
-// GEMM is the bf16 layer's mma.sync loop (common.cuh mma_tile) on
-// m16n8k32 s8 fragments: both operands are K-contiguous ([M, K] activations,
-// [N, K] weights, transposed once when the layer's operands are prepared),
-// which is the "row.col" form the instruction wants.  wgmma/TMA, and fusing
-// the quantization into the producing epilogue, are later work.
+// GEMM is common.cuh's mma.sync loop (mma_tile) on m16n8k32 s8 fragments:
+// both operands are K-contiguous ([M, K] activations, [N, K] weights,
+// transposed once when the layer's operands are prepared), which is the
+// "row.col" form the instruction wants.  wgmma.cuh's loop with s8 wgmma,
+// and fusing the quantization into the producing epilogue, are later work.
 #include "common.cuh"
 
 namespace {

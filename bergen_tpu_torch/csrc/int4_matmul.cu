@@ -50,7 +50,7 @@
 //   any other multiple of 16 promotes at the k16 step where its group
 //   ends, inside a stage, and gives each stage back once its own products
 //   are done (a slower schedule for groups that no config uses).
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -78,16 +78,6 @@ __host__ __device__ constexpr uint32_t byte_sel(int j) {
 
 __device__ __forceinline__ uint32_t ld_u32(const void* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
 }
 
 // ---------------------------------------------------------------- decode
@@ -259,106 +249,6 @@ constexpr int PF_THREADS = 512;  // two consumer warpgroups, two producer
 // ever)
 constexpr int PF_REGS_PRODUCER = 56, PF_REGS_CONSUMER = 200;
 constexpr int PF_SMEM = 1024 + PF_STAGES * PF_STAGE_BYTES + 3 * PF_STAGES * 8;
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of this parity; traps
-// after about ten seconds instead of hanging the card.  The loop is inside
-// the asm, so the compiler sees no divergent path around the wgmma.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
-      "mov.u64 t0, %%clock64;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "mov.u64 t1, %%clock64;\n"
-      "sub.u64 t1, t1, t0;\n"
-      "setp.gt.u64 p, t1, 20000000000;\n"
-      "@p trap;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Arrives on the barrier once this thread's earlier cp.async copies land.
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
-// rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), 1024-aligned.
-__device__ __forceinline__ uint64_t wg_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses of d across a wgmma wait.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A[64 x 16] . B[16 x 128], both K-major in shared memory, f32 sums;
-// scale_d 0 overwrites d.  d[4j + e]: row 16 * warp + lane / 4 + 8 (e >> 1),
-// column 8j + 2 (lane % 4) + (e & 1).
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // Unpacks k rows 8 * kc .. + 7 of one stage's codes [32 packed rows][128
 // columns], columns 4 * lane .. + 3, into the bf16 B tile [128 n][64 k]

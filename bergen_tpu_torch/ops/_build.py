@@ -31,6 +31,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "encoder_gemm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _P]),
+    "encoder_gemm_tile_n": ("encoder_layer", [_I, _I]),
     "encoder_attention": ("encoder_layer", [_P, _P, _P, _P, _I, _I, _I, _I,
                                             _F, _P]),
     "encoder_attention_qkv": ("encoder_layer", [_P] * 6 + [_I] * 4

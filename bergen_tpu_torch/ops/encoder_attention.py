@@ -292,10 +292,12 @@ def _on_card(fn: str, x: torch.Tensor) -> None:
         raise ValueError(f"{fn}: unsupported device {x.device}")
 
 
-def _check_layer(fn: str, x: torch.Tensor, mask: torch.Tensor,
-                 num_heads: int, act: str, I: int) -> None:
-    """The shapes the CUDA chain takes (raises on any other)."""
-    B, S, D = x.shape
+def check_layer_shape(fn: str, D: int, num_heads: int, I: int,
+                      act: str) -> None:
+    """The layer widths the CUDA chain takes (raises on any other): the
+    attention's head widths, the GEMM's N % 128 (its output tiles are 128
+    or 256 wide; K needs only 16-byte rows) and the LayerNorm's D <= 1024
+    (one warp a row)."""
     if D % num_heads or D // num_heads not in HEAD_DIMS or D % 128 \
             or I % 128 or D > 1024:
         raise ValueError(
@@ -303,6 +305,13 @@ def _check_layer(fn: str, x: torch.Tensor, mask: torch.Tensor,
             f"D <= 1024 and I % 128 == 0; got D={D}, H={num_heads}, I={I}")
     if act not in ACT_IDS:
         raise ValueError(f"{fn} kernel: unsupported act {act!r}")
+
+
+def _check_layer(fn: str, x: torch.Tensor, mask: torch.Tensor,
+                 num_heads: int, act: str, I: int) -> None:
+    """The shapes the CUDA chain takes (raises on any other)."""
+    B, S, D = x.shape
+    check_layer_shape(fn, D, num_heads, I, act)
     _check(x, "x", torch.bfloat16, (B, S, D))
     _check(mask, "mask", torch.int32, (B, S))
 
@@ -314,6 +323,12 @@ def _check_tail(w: dict, D: int, I: int) -> None:
     for name, n in (("bo", D), ("ln1_s", D), ("ln1_b", D), ("b1", I),
                     ("b2", D), ("ln2_s", D), ("ln2_b", D)):
         _check(w[name], name, f32, (n,))
+
+
+def gemm_tile_n(M: int, N: int) -> int:
+    """The output tile width (128 or 256) that the encoder GEMM of
+    ``csrc/encoder_layer.cu`` takes for an [M, N] product on this card."""
+    return _build.function("encoder_gemm_tile_n")(M, N)
 
 
 def _attention_cuda(qkv, mask, bias, B: int, S: int, num_heads: int,

@@ -20,7 +20,9 @@ Phases (each prints one JSON line):
      rows of int4_matmul and decode_attention also cold, rotating over
      copies of the weight or cache past the 50 MB L2, and as the card's
      own time from torch.profiler; decode attention also against its
-     split schedule in plain PyTorch); one
+     split schedule in plain PyTorch; the encoder layer and the prebias
+     layer also launch by launch, each kernel's device time from
+     torch.profiler, and the kernels a call of each chain); one
      DeBERTa-v3 layer split into qkv product, bias products and kernel;
      the int4 quantizer on the card against the CPU, bit for bit; the band
      attention at the chunked drain's shapes (an empty band exactly zero),
@@ -227,30 +229,75 @@ def device_time_ms(fns: list, iters: int = 50):
     return None
 
 
-def launches_per_call(wrapper, call) -> int:
-    """The kernels that one call of ``wrapper`` puts on the card, counted
-    twice and required to agree: the wrapper's own counter (zeroed, one
-    call, read) and the CUDA kernels that ``torch.profiler`` records in
-    that call (after a warm call, so nothing is allocated or zeroed)."""
+def _profiled_kernels(run):
+    """The CUDA kernels that ``run`` puts on the card, by ``torch.profiler``
+    (in order of start).  The window's first kernel is a short spin that is
+    not counted: a window's first launch now and then goes unrecorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
+def launches_per_call(wrapper, call, kernels_per_launch: int = 1) -> int:
+    """The kernels that one call of ``wrapper`` puts on the card, counted
+    twice and required to agree: the wrapper's own counter (zeroed, one
+    call, read) times ``kernels_per_launch`` (the launches of a chain that
+    the wrapper counts once, such as the encoder layer's seven) and the
+    CUDA kernels that ``torch.profiler`` records in that call (after a warm
+    call, so nothing is allocated or zeroed).  A profiler window now and
+    then comes back without records, so up to three windows are taken and
+    the first that agrees is kept.  Returns the kernels."""
+    import torch
+
     call()
     torch.cuda.synchronize()
-    for _ in range(3):  # a window now and then comes back without records
+    for _ in range(3):
         wrapper.launches = 0
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
+        kernels = len(_profiled_kernels(call))
         counted = wrapper.launches
-        kernels = sum(1 for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        if kernels:
+        if kernels == counted * kernels_per_launch:
             break
-    if kernels != counted:
-        fail(f"{wrapper.__name__}: {counted} launches counted in one call, "
-             f"{kernels} kernels on the card")
-    return counted
+    if kernels != counted * kernels_per_launch:
+        fail(f"{wrapper.__name__}: {counted} launches counted in one call "
+             f"({kernels_per_launch} kernels each), {kernels} kernels on the "
+             "card")
+    return kernels
+
+
+def chain_device_ms(call, labels, iters: int = 10):
+    """The card's own time of each kernel of a chain: ``call`` (which must
+    launch exactly ``len(labels)`` kernels) run ``iters`` times under
+    ``torch.profiler``, its CUDA kernels taken in order of start and summed
+    by their place in the chain.  Returns ({label: ms a call}, [kernel
+    names of one call]), or (None, None) where the profiler records no
+    kernels."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    n, got = len(labels), 0
+    for _ in range(3):  # a window now and then comes back without records
+        ev = _profiled_kernels(lambda: [call() for _ in range(iters)])
+        if len(ev) != iters * n:
+            got = max(got, len(ev))
+            continue
+        per = [0.0] * n
+        for i, e in enumerate(ev):
+            per[i % n] += e.time_range.elapsed_us()
+        return ({lab: per[i] / 1e3 / iters for i, lab in enumerate(labels)},
+                [e.name for e in ev[:n]])
+    if got:
+        fail(f"chain of {labels}: {got} kernels in {iters} calls")
+    return None, None
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -362,6 +409,22 @@ Q_SHAPES = (((1024, 16, 4096), (256, 256)), ((768, 12, 3072), (512, 128)),
             ((1024, 16, 4096), (244, 64)))
 
 
+# the encoder layer's seven launches, in order (csrc/encoder_layer.cu)
+ENCODER_CHAIN = ("qkv GEMM", "attention", "o GEMM", "LN1", "FFN-in GEMM",
+                 "FFN-out GEMM", "LN2")
+
+
+def gemm_tiles(ea, M: int, D: int, I: int) -> dict:
+    """The output tile width that the encoder GEMM takes for each of the
+    layer's four products (qkv, o, FFN-in, FFN-out), where the tree's
+    package reports it (``encoder_attention.gemm_tile_n``)."""
+    tile_n = getattr(ea, "gemm_tile_n", None)
+    if tile_n is None:
+        return {}
+    return {"gemm_tile_n": {name: tile_n(M, N) for name, N in (
+        ("qkv", 3 * D), ("o", D), ("ffn_in", I), ("ffn_out", D))}}
+
+
 def check_encoder_layer(results: dict, dev) -> None:
     import torch
     from bergen_tpu_torch.ops import encoder_attention as ea
@@ -399,11 +462,21 @@ def check_encoder_layer(results: dict, dev) -> None:
             flops = 2 * M * D * (4 * D + 2 * I) + 4 * B * H * S * S * (D // H)
             nbytes = 2 * M * D * 2 + (4 * D * D + 2 * D * I) * 2 + B * S * 4
             b_ms, b_by = bound(flops, nbytes)
+            def call():
+                return ea.encoder_layer(x, w, mask, H, eps, act)
+
+            split, names = chain_device_ms(call, ENCODER_CHAIN)
             row = {"B": B, "S": S, "D": D, "H": H, "head_dim": D // H,
                    "max_abs_err": max_err, "mean_abs_err": mean_err,
                    "tol": LAYER_TOL, "mean_tol": LAYER_MEAN_TOL, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": library_ms, "library_max_abs_err": lib_err}
+                   "library_ms": library_ms, "library_max_abs_err": lib_err,
+                   "kernels_per_call": launches_per_call(
+                       ea.encoder_layer, call, len(ENCODER_CHAIN)),
+                   "device_ms": None if split is None
+                   else sum(split.values()),
+                   "device_ms_by_launch": split, "kernel_names": names,
+                   **gemm_tiles(ea, M, D, I)}
             emit({"phase": "kernel_check", "kernel": "encoder_layer", **row})
             per_shape.append(row)
             if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
@@ -478,10 +551,17 @@ def check_encoder_layer_prebias(results: dict, dev, shapes) -> None:
         nbytes = (M * D * 2 + M * 3 * D * 2 + B * H * S * S * 2 + B * S * 4
                   + (D * D + 2 * D * I) * 2 + M * D * 2)
         b_ms, b_by = bound(flops, nbytes)
+        def call():
+            return ea.encoder_layer_prebias(*args)
+
+        split, _ = chain_device_ms(call, ENCODER_CHAIN[1:])
         row = {"B": B, "S": S, "max_abs_err": max_err,
                "mean_abs_err": mean_err, "tol": LAYER_TOL,
                "mean_tol": LAYER_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "kernels_per_call": launches_per_call(
+                   ea.encoder_layer_prebias, call, len(ENCODER_CHAIN) - 1),
+               "device_ms_by_launch": split}
         emit({"phase": "kernel_check", "kernel": "encoder_layer_prebias",
               **row})
         per_shape.append(row)
@@ -758,11 +838,41 @@ def check_bin_topk(results: dict, dev) -> None:
     row = {"N": N, "D": D, "Q": Q, "k": k, "max_abs_err": max_err, "tol": tol,
            "index_diffs": n_idx_diff, "index_diffs_beyond_tol":
            int(bad.sum().item()), "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+           "kernels_per_call": launches_per_call(
+               ft.bin_scores,
+               lambda: ft.bin_scores(queries, corpus, valid_n))}
     emit({"phase": "kernel_check", "kernel": "bin_topk", **row})
     if not max_err <= tol or row["index_diffs_beyond_tol"]:
         fail(f"bin_topk: max error {max_err} (tol {tol}), "
              f"{row['index_diffs_beyond_tol']} indices off beyond tol")
+    del corpus, queries
+    torch.cuda.empty_cache()
+    # ragged everywhere: a part bin, a part query tile, a depth that is not
+    # a whole k-stage, a padded tail; then a narrow query batch
+    for N, D, Q, valid_n in ((1000, 96, 300, 900), (4096, 768, 50, 4000)):
+        c = torch.nn.functional.normalize(
+            torch.randn(N, D, generator=gen, device=dev), dim=1).bfloat16()
+        q = torch.nn.functional.normalize(
+            torch.randn(Q, D, generator=gen, device=dev), dim=1).bfloat16()
+        vals, idx = ft.bin_scores(q, c, valid_n)
+        rv, ri = ft.bin_scores_plain(q, c, valid_n)
+        torch.cuda.synchronize()
+        s = c.float() @ q.float().T
+        s[valid_n:] = float("-inf")
+        picked = s.gather(0, idx.long().clamp_max(N - 1))
+        finite = torch.isfinite(rv)
+        err = (vals[finite] - rv[finite]).abs().max().item()
+        bad = int((((picked - rv).abs() > tol) & finite).sum().item())
+        emit({"phase": "kernel_check", "kernel": "bin_topk", "N": N, "D": D,
+              "Q": Q, "valid_n": valid_n, "max_abs_err": err, "tol": tol,
+              "index_diffs_beyond_tol": bad,
+              "padding_won": int(((idx >= valid_n) & finite).sum().item())})
+        if not (err <= tol and bad == 0 and torch.equal(
+                torch.isfinite(vals), finite)
+                and int(((idx >= valid_n) & finite).sum().item()) == 0):
+            fail(f"bin_topk N{N} D{D} Q{Q}: max error {err} (tol {tol}), "
+                 f"{bad} indices off beyond tol, or a padding doc won")
     results["bin_topk"] = [row]
 
 
@@ -1197,10 +1307,20 @@ def check_int4_matmul(results: dict, dev) -> None:
             fail(f"int4_matmul M{M} K{K} N{N} group {group} on integer "
                  f"inputs: {int((got != exact).sum().item())} outputs differ "
                  "from the exact sums")
+        w_deq = (q.float() * sc.repeat_interleave(group, dim=0)).bfloat16()
+        b_ms, b_by = bound(2 * M * K * N, K * N // 2 + K // group * N * 4
+                           + M * K * 2 + M * N * 4)
         emit({"phase": "kernel_check", "kernel": "int4_matmul",
               "integer_inputs_exact": True, "M": M, "K": K, "N": N,
               "group": group, "ms": cuda_time_ms(
-                  lambda: im.matmul_int4_packed(x, wp, sc))})
+                  lambda: im.matmul_int4_packed(x, wp, sc)),
+              "plain_ms": cuda_time_ms(
+                  lambda: im.matmul_int4_packed_plain(x, wp, sc), iters=3,
+                  warmup=1),
+              "library_ms": cuda_time_ms(lambda: torch.matmul(x, w_deq)),
+              "library": "bf16 torch.matmul on the dequantized weight",
+              "bound_ms": b_ms, "bound_by": b_by})
+        del w_deq
     results["int4_matmul"] = per_shape
 
 
@@ -1607,7 +1727,10 @@ def check_attention_block(results: dict, dev) -> None:
            "tol": LAYER_TOL, "mean_tol": LAYER_MEAN_TOL, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library_ms,
-           "library": "addmm + SDPA + addmm + F.layer_norm"}
+           "library": "addmm + SDPA + addmm + F.layer_norm",
+           "kernels_per_call": launches_per_call(
+               ea.attention_block,
+               lambda: ea.attention_block(x, w, mask, H, eps), 4)}
     emit({"phase": "kernel_check", "kernel": "attention_block", **row})
     if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
         fail(f"attention_block: max error {max_err} (tol {LAYER_TOL}), mean "
