@@ -2,6 +2,7 @@
 
     python3 ab_chip.py decode_attention TREE [TREE ...]
     python3 ab_chip.py kernels TREE [TREE ...]
+    python3 ab_chip.py attention TREE [TREE ...]
     python3 ab_chip.py paths TREE [TREE ...]
 
 A TREE is ``.`` (this checkout) or a directory that holds another version
@@ -18,6 +19,12 @@ tree (its kernels built there), runs one of this checkout's
 * ``kernels``: ``check_encoder_layer`` and ``check_bin_topk`` (the bf16
   GEMM chain of the encoder layer at its five shapes, with the card's own
   time of each of its seven launches, and the bin top-k of mode 'none');
+* ``attention``: ``check_flash_attention`` and ``check_encoder_attention``
+  (the causal prefill at every flash shape and the rope/ALiBi encoders'
+  attention at every encoder shape, against their plain versions, with
+  the library call's time beside each); the kernels a call are counted
+  only for this checkout's tree (an older tree's flash wrapper converts
+  the mask in a launch of its own);
 * ``paths``: the ut1_eval and ut1_int4_llama2 runs of ``python -m
   bergen_tpu_torch`` (stage times), on checkpoints that this process
   writes once, before the first tree, and deletes at the end.
@@ -58,6 +65,11 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
         cs.check_encoder_layer({}, dev)
         cs.check_bin_topk({}, dev)
         return
+    if phase == "attention":
+        cs.COUNT_KERNELS = tree == REPO
+        cs.check_flash_attention({}, dev)
+        cs.check_encoder_attention({}, dev)
+        return
     with open(ckpt_json) as f:
         ckpt = json.load(f)
     work = tempfile.mkdtemp(prefix="ab_chip_")
@@ -77,7 +89,8 @@ def main() -> None:
         _child(*sys.argv[2:5])
         return
     if len(sys.argv) < 3 or sys.argv[1] not in ("decode_attention",
-                                                "kernels", "paths"):
+                                                "kernels", "attention",
+                                                "paths"):
         sys.exit(__doc__)
     import torch
 

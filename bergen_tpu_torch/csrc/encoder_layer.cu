@@ -46,19 +46,28 @@
 // s * scale + maskbias, as the TPU kernel does.  Read once, the bias bounds
 // that layer by bytes at short S; the GEMMs bound it by operations above.
 //
-// The same attention kernel is bergen_tpu/ops/encoder_attention.py::
-// encoder_attention (Pallas body _kernel), the attention of the rope and
-// ALiBi encoders (nomic-embed, GTE-v1.5, jina-v2) whose layers are not the
-// fused chain: entry encoder_attention_qkv takes q, k and v as three
-// [B, S, D] operands (row stride D) and an optional batch-invariant [H, S, S]
-// f32 bias (ALiBi's -slope * |i - j| reaches -127 at S 256; bf16's spacing
-// of 0.5 there would move the scores).  Its bytes (q, k, v and the context:
-// 0.8 GB at B 512, S 256, D 768) bound it: 0.24 ms at 3.35 TB/s against
-// 0.10 ms of tensor-core work; the f32 bias (3 MB) is read by every
-// sequence's blocks from L2.  The design keeps the [S, S] scores and
-// probabilities on chip and reads each operand tile once per 64 queries.
-// A wgmma/TMA attention is later work.
-#include "wgmma.cuh"
+// bergen_tpu/ops/encoder_attention.py::encoder_attention (:825, Pallas body
+// _kernel), the attention of the rope and ALiBi encoders (nomic-embed,
+// GTE-v1.5, jina-v2) whose layers are not the fused chain, is entry
+// encoder_attention_qkv: q, k and v as three [B, S, D] operands and an
+// optional batch-invariant [H, S, S] f32 bias (ALiBi's -slope * |i - j|
+// reaches -127 at S 256; bf16's spacing of 0.5 there would move the
+// scores).  Its bytes (q, k, v and the context: 0.8 GB at B 512, S 256,
+// D 768) bound it: 0.24 ms at 3.35 TB/s against 0.10 ms of tensor-core
+// work; the bias (3 MB at S 256) is read from L2 by every sequence, 1.6 GB
+// of L2 traffic at B 512.  At head width 64 it runs on
+// wgmma_attention.cuh's warp-specialised main loop, so the loads overlap
+// the products: a persistent grid walks the (sequence, head) pairs, one
+// block taking all S / 128 query tiles of a pair, so the pair's K and V
+// tiles come from device memory once and from L2 after (EncPolicy); up to
+// S 64 a 128-row tile holds two sequences, each warpgroup attending its
+// own 64 keys, so no warpgroup computes on empty rows (EncPairPolicy).
+// Three-dimensional maps {D, S, B} read rows past S as zeros.  The bias
+// tile of each (query tile, key tile) comes by TMA beside K, a ring ahead
+// of the scores that read it (up to S 64 by direct loads a unit ahead).
+// The scores skip the mask arithmetic on tiles whose keys all attend, or
+// all do not.  Head width 32 (MiniLM, no path) keeps attention_kernel.
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -492,6 +501,223 @@ int attention(const bf16* q, const bf16* k, const bf16* v, size_t rs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// encoder_attention_qkv at head width 64 on the wgmma attention main loop:
+// a unit is one (sequence, head) with its S / 128 query tiles; key tiles of
+// BK_ (64 with a bias, 128 without).  A masked key scores s * scale - 1e30
+// (+ bias), a key past S -inf; the bias [H, S, S] f32 (BIAS) is added
+// after s * scale + maskbias.  The bias tile of each (query tile, key
+// tile), [128 rows][64 keys], comes by TMA into the K slot beside K, as two
+// [128][32] f32 boxes in the 128-byte swizzle (rows and keys past S read
+// as zeros), so its loads run a ring ahead of the scores that read it.
+template <bool BIAS, int BK_>
+struct EncPolicy {
+  static constexpr int DH = 64, BK = BK_, QS = 4;
+  static constexpr int STAGES = BIAS ? 3 : 8 * 64 / BK_;
+  static constexpr bool SPLIT = false;
+  static constexpr int XB = BIAS ? AT_BQ * BK_ * 4 : 0;
+  __device__ static float m_init() { return -INFINITY; }
+  static constexpr bool CLAMP_L = false;
+  struct Pre {};
+  CUtensorMap tq, tk, tv, to;
+  CUtensorMap tb;  // the bias {S, S, H} in [128][32] f32 boxes
+  const int* mask;
+  int B, S, H;
+  float scale;
+
+  __host__ __device__ int n_units() const { return B * H; }
+  __device__ int n_qtiles(int) const { return (S + AT_BQ - 1) / AT_BQ; }
+  __device__ AttTile tile(int u, int i) const {
+    const int h = u % H;
+    return {u / H, h, h, i * AT_BQ, (S + BK - 1) / BK};
+  }
+  __device__ int3 q_box(const AttTile& t, int r) const {
+    return make_int3(t.qh * DH, t.q0 + 64 * r, t.b);
+  }
+  __device__ int3 kv_box(const AttTile& t, int j, int h) const {
+    return make_int3(t.kvh * DH, j * BK + 64 * h, t.b);
+  }
+  __device__ bool key_ok(const AttTile& t, int key) const {
+    return key < S && mask[(size_t)t.b * S + key] != 0;
+  }
+  __device__ void load_extra(unsigned char* dst, uint64_t* bar,
+                             const AttTile& t, int j) const {
+#pragma unroll
+    for (int c = 0; c < BK / 32; ++c)
+      tma_load_3d(dst + c * AT_BQ * 128, &tb, bar, j * BK + 32 * c, t.q0,
+                  t.qh);
+  }
+  __device__ void prefetch(Pre&, const AttTile&, int, int, int, int) const {}
+  // y = (q.k * scale + maskbias + bias) * log2 e with maskbias 0 or -1e30
+  // (which absorbs the rest: y = -1e30); -inf past S
+  template <int N>
+  __device__ void scores(float (&s)[N], const uint32_t (&bits)[N / 16],
+                         const unsigned char* xs, const Pre&,
+                         const AttTile&, int j, int wg, int warp,
+                         int lane) const {
+    const int k0 = j * BK, g = lane >> 2, c0 = 2 * (lane & 3);
+    const float scale2 = scale * AT_L2E;
+    // this thread's bias pair (key 8c + c0, + 1) of row half r: box c / 4,
+    // 16-byte chunk 2 (c % 4) + lane % 4 / 2 xor the row's (g) swizzle
+    auto bias = [&](int x) -> float {
+      const int c = x >> 2, r = (x >> 1) & 1;
+      const int row = 64 * wg + 16 * warp + g + 8 * r;
+      const float2 b = *reinterpret_cast<const float2*>(
+          xs + (c >> 2) * AT_BQ * 128 + row * 128 +
+          (((2 * (c & 3) + ((lane & 3) >> 1)) ^ g) << 4) + (lane & 1) * 8);
+      return x & 1 ? b.y : b.x;
+    };
+    bool all_valid = k0 + BK <= S, none_valid = all_valid;
+#pragma unroll
+    for (int w = 0; w < N / 16; ++w) {
+      all_valid &= bits[w] == ~0u;
+      none_valid &= bits[w] == 0u;
+    }
+    if (all_valid || none_valid) {
+#pragma unroll
+      for (int x = 0; x < N; ++x) {
+        float v = s[x] * scale2;
+        if constexpr (BIAS) v = fmaf(s[x], scale, bias(x)) * AT_L2E;
+        s[x] = none_valid ? -1e30f : v;
+      }
+      return;
+    }
+#pragma unroll
+    for (int x = 0; x < N; ++x) {
+      const int col = 8 * (x >> 2) + c0 + (x & 1);
+      const bool ok =
+          (bits[x >> 4] >> (8 * ((x >> 2) & 3) + c0 + (x & 1))) & 1;
+      float v = s[x] * scale2;
+      if constexpr (BIAS) v = fmaf(s[x], scale, bias(x)) * AT_L2E;
+      if (!ok) v = -1e30f;
+      if (k0 + col >= S) v = -INFINITY;
+      s[x] = v;
+    }
+  }
+  __device__ int3 o_box(const AttTile& t, int wg) const {
+    return make_int3(t.qh * DH, t.q0 + 64 * wg, t.b);
+  }
+};
+
+// encoder_attention_qkv at head width 64 and S <= 64 on the same loop:
+// a unit holds two (sequence, head) pairs n = 2u and 2u + 1 (n = b H + h),
+// each warpgroup one: its 64 query rows, and its own 64-key half of one
+// 128-key tile (SPLIT), so neither warpgroup computes on empty rows.  A
+// pair past the last one reads batch B, past the tensor: zeros.
+template <bool BIAS>
+struct EncPairPolicy {
+  static constexpr int DH = 64, BK = 128, STAGES = 4, QS = 4;
+  static constexpr bool SPLIT = true;
+  static constexpr int XB = 0;
+  __device__ static float m_init() { return -INFINITY; }
+  static constexpr bool CLAMP_L = false;
+  struct Pre {
+    float2 bias[BIAS ? 8 : 1][2];  // key 8 c + 2 (lane % 4), row half r
+  };
+  CUtensorMap tq, tk, tv, to;
+  const int* mask;
+  const float* bias;
+  int B, S, H;
+  float scale;
+
+  __host__ __device__ int n_units() const { return (B * H + 1) / 2; }
+  __device__ int n_qtiles(int) const { return 1; }
+  __device__ AttTile tile(int u, int) const { return {u, 0, 0, 0, 1}; }
+  // warpgroup w's (batch, head): b == B past the last pair
+  __device__ int2 pair(const AttTile& t, int w) const {
+    const int n = 2 * t.b + w;
+    return n < B * H ? make_int2(n / H, n % H) : make_int2(B, 0);
+  }
+  __device__ int3 q_box(const AttTile& t, int r) const {
+    const int2 bh = pair(t, r);
+    return make_int3(bh.y * DH, 0, bh.x);
+  }
+  __device__ int3 kv_box(const AttTile& t, int, int h) const {
+    const int2 bh = pair(t, h);
+    return make_int3(bh.y * DH, 0, bh.x);
+  }
+  __device__ bool key_ok(const AttTile& t, int key) const {
+    const int2 bh = pair(t, key >> 6);
+    const int k = key & 63;
+    return bh.x < B && k < S && mask[(size_t)bh.x * S + k] != 0;
+  }
+  __device__ void load_extra(unsigned char*, uint64_t*, const AttTile&,
+                             int) const {}
+  // the bias of the warpgroup's rows and keys, from L2 (S <= 64: 16 KB a
+  // head), a tile ahead
+  __device__ void prefetch(Pre& pre, const AttTile& t, int, int wg, int warp,
+                           int lane) const {
+    if constexpr (BIAS) {
+      const int2 bh = pair(t, wg);
+      const int row = 16 * warp + (lane >> 2);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* brow = bias + ((size_t)bh.y * S + row + 8 * r) * S;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int key = 8 * c + 2 * (lane & 3);
+          pre.bias[c][r] = row + 8 * r < S && key < S
+                               ? __ldg(reinterpret_cast<const float2*>(
+                                     brow + key))
+                               : make_float2(0.f, 0.f);
+        }
+      }
+    }
+  }
+  // as EncPolicy's, over the warpgroup's own 64 keys
+  template <int N>
+  __device__ void scores(float (&s)[N], const uint32_t (&bits)[N / 16],
+                         const unsigned char*, const Pre& pre,
+                         const AttTile&, int, int, int, int lane) const {
+    const int c0 = 2 * (lane & 3);
+    const float scale2 = scale * AT_L2E;
+#pragma unroll
+    for (int x = 0; x < N; ++x) {
+      const int col = 8 * (x >> 2) + c0 + (x & 1);
+      const bool ok =
+          (bits[x >> 4] >> (8 * ((x >> 2) & 3) + c0 + (x & 1))) & 1;
+      float v = s[x] * scale2;
+      if constexpr (BIAS) {
+        const float2 b = pre.bias[x >> 2][(x >> 1) & 1];
+        v = fmaf(s[x], scale, x & 1 ? b.y : b.x) * AT_L2E;
+      }
+      if (!ok) v = -1e30f;
+      if (col >= S) v = -INFINITY;
+      s[x] = v;
+    }
+  }
+  __device__ int3 o_box(const AttTile& t, int wg) const {
+    const int2 bh = pair(t, wg);
+    return make_int3(bh.y * DH, 0, bh.x);
+  }
+};
+
+template <class P>
+int wg_attention(const void* q, const void* k, const void* v,
+                 const int* mask, const void* bias, void* out, int B, int S,
+                 int H, float scale, cudaStream_t st) {
+  P p;
+  const long long D = (long long)H * 64;
+  int e = tma_map_3d(&p.tq, q, D, S, B, D * 2, D * S * 2, 64, 64);
+  if (e == 0) e = tma_map_3d(&p.tk, k, D, S, B, D * 2, D * S * 2, 64, 64);
+  if (e == 0) e = tma_map_3d(&p.tv, v, D, S, B, D * 2, D * S * 2, 64, 64);
+  if (e == 0)
+    e = tma_map_3d(&p.to, out, D, S, B, D * 2, D * S * 2, 64, 64);
+  if constexpr (P::XB > 0) {
+    if (e == 0)
+      e = tma_map_3d(&p.tb, bias, S, S, H, S * 4LL, S * S * 4LL, 32, AT_BQ,
+                     true);
+  } else if constexpr (P::SPLIT) {
+    p.bias = static_cast<const float*>(bias);
+  }
+  if (e != 0) return e;
+  p.mask = mask;
+  p.B = B;
+  p.S = S;
+  p.H = H;
+  p.scale = scale;
+  return att_launch(p, st);
+}
+
 // Row LayerNorm in f32: one warp per row, D % 128 == 0, D <= 1024.
 // Writes bf16 (always) and f32 (when out_f is not null).
 __global__ void __launch_bounds__(256)
@@ -592,17 +818,33 @@ int encoder_attention(const void* qkv, const void* mask, const void* bias,
                    static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v [B, S, D] bf16; bias: one [H, S, S] f32 for the whole batch, or
-// null; head_dim 32 or 64.
+// q, k, v [B, S, D] bf16 (16-byte aligned); bias: one [H, S, S] f32 for
+// the whole batch (S even), or null; head_dim 64 (the wgmma main loop) or
+// 32 (attention_kernel).
 int encoder_attention_qkv(const void* q, const void* k, const void* v,
                           const void* mask, const void* bias, void* out,
                           int B, int S, int H, int head_dim, float scale,
                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* m = static_cast<const int*>(mask);
+  if (head_dim == 64) {
+    if (B == 0 || S == 0) return 0;
+    if (S <= 64 && bias != nullptr)
+      return wg_attention<EncPairPolicy<true>>(q, k, v, m, bias, out, B, S,
+                                               H, scale, st);
+    if (S <= 64)
+      return wg_attention<EncPairPolicy<false>>(q, k, v, m, nullptr, out, B,
+                                                S, H, scale, st);
+    if (bias != nullptr)
+      return wg_attention<EncPolicy<true, 64>>(q, k, v, m, bias, out, B, S,
+                                               H, scale, st);
+    return wg_attention<EncPolicy<false, 128>>(q, k, v, m, nullptr, out, B,
+                                               S, H, scale, st);
+  }
   return attention(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                   static_cast<const bf16*>(v), (size_t)H * head_dim,
-                   static_cast<const int*>(mask), bias,
+                   static_cast<const bf16*>(v), (size_t)H * head_dim, m, bias,
                    bias != nullptr ? 2 : 0, 0, static_cast<bf16*>(out), B, S,
-                   H, head_dim, scale, static_cast<cudaStream_t>(stream));
+                   H, head_dim, scale, st);
 }
 
 int encoder_layernorm(const void* x, const void* gamma, const void* beta,

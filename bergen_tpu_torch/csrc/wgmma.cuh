@@ -71,57 +71,86 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A TMA map of the row-major matrix [rows, cols] of bf16 or (f32) f32
-// elements (row stride ld elements, 16-byte rows) in boxes of
-// [box_rows][box_cols] in the 128-byte swizzle (box_cols elements fill one
-// 128-byte swizzle row at most); reads past the matrix return zeros and
-// stores past it are dropped.  Returns a cudaError_t value.  Encoding a
-// map costs the host microseconds, more than a small GEMM takes on the
-// card, so maps are kept in a small direct-mapped cache keyed by all of
-// their arguments (a map depends on nothing else, so a hit is exact).
-inline int tma_map(CUtensorMap* map, const void* base, bool f32,
-                   long long rows, long long cols, long long ld, int box_rows,
-                   int box_cols) {
+// A TMA map of rank 2 or 3 over a bf16 or (f32) f32 tensor, dims[0]
+// contiguous (dims and box innermost first; strides[i] bytes between steps
+// of dims[i + 1], multiples of 16), in the 128-byte swizzle (box[0]
+// elements fill one 128-byte swizzle row at most); reads past the tensor
+// return zeros and stores past it are dropped.  Returns a cudaError_t
+// value.  Encoding a map costs the host microseconds, more than a small
+// kernel takes on the card, so maps are kept in a small direct-mapped
+// cache keyed by all of their arguments (a map depends on nothing else, so
+// a hit is exact).
+inline int tma_encode(CUtensorMap* map, const void* base, bool f32, int rank,
+                      const long long* dims, const long long* strides,
+                      const int* box) {
   struct Entry {
     const void* base;
-    long long rows, cols, ld;
-    int box, f32;
+    int rank, f32;
+    long long dims[3], strides[2];
+    int box[3];
     CUtensorMap map;
   };
   static Entry cache[64];
   static std::mutex lock;
-  const int box = box_rows << 16 | box_cols;
-  const size_t h = (reinterpret_cast<uintptr_t>(base) >> 8) ^
-                   static_cast<size_t>(rows * 31 + cols * 7 + box + f32);
+  size_t h = (reinterpret_cast<uintptr_t>(base) >> 8) + f32;
+  for (int i = 0; i < rank; ++i)
+    h = h * 31 + static_cast<size_t>(dims[i] * 7 + box[i] +
+                                     (i ? strides[i - 1] : 0));
   Entry& e = cache[h % 64];
+  auto hit = [&]() {
+    if (e.base != base || e.rank != rank || e.f32 != f32) return false;
+    for (int i = 0; i < rank; ++i)
+      if (e.dims[i] != dims[i] || e.box[i] != box[i] ||
+          (i && e.strides[i - 1] != strides[i - 1]))
+        return false;
+    return true;
+  };
   {
     std::lock_guard<std::mutex> g(lock);
-    if (e.base == base && e.rows == rows && e.cols == cols && e.ld == ld &&
-        e.box == box && e.f32 == f32) {
+    if (hit()) {
       *map = e.map;
       return 0;
     }
   }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int es = f32 ? 4 : 2;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * es};
-  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(box_cols),
-                              static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
+  cuuint64_t d[3], st[2];
+  cuuint32_t bx[3];
+  const cuuint32_t elem[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    if (i) st[i - 1] = static_cast<cuuint64_t>(strides[i - 1]);
+  }
   CUresult r = fn(map,
                   f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  2, const_cast<void*>(base), dims, strides, boxd, elem,
+                  rank, const_cast<void*>(base), d, st, bx, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   std::lock_guard<std::mutex> g(lock);
-  e = Entry{base, rows, cols, ld, box, f32, *map};
+  e.base = base;
+  e.rank = rank;
+  e.f32 = f32;
+  for (int i = 0; i < rank; ++i) {
+    e.dims[i] = dims[i];
+    e.box[i] = box[i];
+    if (i) e.strides[i - 1] = strides[i - 1];
+  }
+  e.map = *map;
   return 0;
+}
+
+// The map of the row-major matrix [rows, cols] (row stride ld elements,
+// 16-byte rows) in boxes of [box_rows][box_cols].
+inline int tma_map(CUtensorMap* map, const void* base, bool f32,
+                   long long rows, long long cols, long long ld, int box_rows,
+                   int box_cols) {
+  const long long dims[2] = {cols, rows}, strides[1] = {ld * (f32 ? 4 : 2)};
+  const int box[2] = {box_cols, box_rows};
+  return tma_encode(map, base, f32, 2, dims, strides, box);
 }
 
 // ------------------------------------------------------------ barriers

@@ -47,9 +47,7 @@ SIGNATURES = {
     "decode_attention_splits": ("decode_attention", [_I] * 5),
     "int4_matmul": ("int4_matmul", [_P] * 6 + [_I] * 4 + [_P]),
     "int4_decode_splits": ("int4_matmul", [_I] * 3),
-    "flash_attention": ("flash_attention", [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _I, _I, _I, _I, _I, _I, _F,
-                                            _P]),
+    "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 11 + [_F, _P]),
     "paged_partial": ("paged_attention", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "flash_attention_band": ("flash_band", [_P] * 5 + [_I] * 6 + [_F, _P]),
     "pallas_score": ("score", [_P] * 3 + [_I] * 4 + [_P]),

@@ -27,10 +27,13 @@ Counterparts of four Pallas entry points of
 A masked key scores -1e30, so a fully masked row averages V uniformly.  On a
 CUDA tensor each wrapper launches the hand-written kernels of
 ``csrc/encoder_layer.cu`` (GEMM epilogues, streaming masked attention with an
-optional bias tile, row LayerNorm; the same attention kernel serves
-``encoder_attention``) and ``csrc/encoder_layer_q.cu`` (row
+optional bias tile, row LayerNorm) and ``csrc/encoder_layer_q.cu`` (row
 quantization, int8 GEMM epilogues); on a CPU tensor it runs its plain
-version, which rounds where the kernels round.
+version, which rounds where the kernels round.  ``encoder_attention`` at
+head width 64 runs on the warp-specialised wgmma attention loop
+(``csrc/wgmma_attention.cuh``): query tiles of ``ATT_TILE_Q`` rows, key
+tiles of ``attention_tile_k`` keys with an online softmax, whose schedule
+``encoder_attention_tiles_plain`` runs in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from bergen_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64)  # head widths the CUDA attention kernel is built for
+ATT_TILE_Q = 128  # encoder_attention's query tile at head width 64
 ACT_IDS = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 _EPI_BIAS, _EPI_BIAS_ACT, _EPI_BIAS_RES = 0, 1, 2
 _QEPI_BF16, _QEPI_ACT, _QEPI_RES = 0, 1, 2
@@ -221,6 +225,59 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
     p = (p / p.sum(dim=-1, keepdim=True)).to(dt)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), vh).to(dt) \
         .reshape(B, S, D)
+
+
+def attention_tile_k(S: int, has_bias: bool) -> int:
+    """The key tile that ``encoder_attention``'s kernel takes at head width
+    64: 64 keys up to S 64 (two sequences share a 128-row tile, each of its
+    warpgroups attending its own 64 keys) and with a bias (whose [128, 64]
+    f32 tile rides in the K slot), else 128."""
+    return 64 if S <= 64 or has_bias else 128
+
+
+def encoder_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, mask: torch.Tensor,
+                                  num_heads: int, attn_bias=None,
+                                  scale: float | None = None,
+                                  tile_k: int | None = None) -> torch.Tensor:
+    """``encoder_attention_plain`` on the CUDA kernel's schedule: query
+    tiles of ``ATT_TILE_Q`` rows, key tiles of ``tile_k`` (default
+    ``attention_tile_k``) merged by an online softmax from m = -inf (a key
+    past S scores -inf), the unnormalised probabilities rounded to
+    ``q.dtype`` for p.v, l summing them in f32, the context acc / l rounded
+    to ``q.dtype``."""
+    B, S, D = q.shape
+    Dh = D // num_heads
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
+    if tile_k is None:
+        tile_k = attention_tile_k(S, attn_bias is not None)
+    qh, kh, vh = (t.reshape(B, S, num_heads, Dh).float() for t in (q, k, v))
+    mbias = torch.where(mask > 0, 0.0, NEG_INF).to(torch.float32)
+    out = torch.empty(B, S, num_heads, Dh, dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, S, ATT_TILE_Q):
+        q1 = min(q0 + ATT_TILE_Q, S)
+        m = torch.full((B, num_heads, q1 - q0), float("-inf"),
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, num_heads, q1 - q0, Dh, device=q.device)
+        for k0 in range(0, S, tile_k):
+            k1 = min(k0 + tile_k, S)
+            s = torch.einsum("bqhd,bkhd->bhqk", qh[:, q0:q1],
+                             kh[:, k0:k1]) * scale \
+                + mbias[:, None, None, k0:k1]
+            if attn_bias is not None:
+                s = s + attn_bias.float()[None, :, q0:q1, k0:k1]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(dt).float(), vh[:, k0:k1])
+            m = m_new
+        out[:, q0:q1] = (acc / l[..., None]).permute(0, 2, 1, 3)
+    return out.to(dt).reshape(B, S, D)
 
 
 def quantize_rows_plain(x: torch.Tensor):
@@ -554,6 +611,9 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}; got D={D}, H={num_heads}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t, name, torch.bfloat16, (B, S, D))
+        if t.data_ptr() % 16:
+            raise ValueError(f"encoder_attention kernel: {name} must be "
+                             "16-byte aligned (a TMA base)")
     _check(mask, "mask", torch.int32, (B, S))
     if attn_bias is not None:
         if S % 4:

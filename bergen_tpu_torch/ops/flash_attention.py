@@ -8,13 +8,17 @@ uniformly), the probabilities rounded to v's dtype before the PV product,
 an f32 accumulator divided by max(l, 1e-30), the output in q's dtype, and
 GQA reading KV head h // group without a repeated copy.
 
-The block schedule is the CUDA kernel's (``csrc/flash_attention.cu``): query
-and key blocks of ``BLOCK`` rows; a query block visits the key blocks up to
-the one holding its last row's diagonal (all of them without ``causal``);
-keys at or past Sk are excluded.  ``flash_attention_plain`` follows the same
-schedule with the same online-softmax merges, so the CPU tests check the
-algorithm itself; real rows equal the JAX function's up to f32 round-off,
-and a row with no valid key averages V over the keys its block visits.
+``flash_attention_plain`` visits, for each query block of ``BLOCK`` rows,
+the key blocks up to the one holding its last row's diagonal (all of them
+without ``causal``), excluding keys at or past Sk; a row with no valid key
+averages V over exactly those keys.  The CUDA kernel
+(``csrc/flash_attention.cu`` on ``csrc/wgmma_attention.cuh``) takes query
+tiles of ``TILE_Q`` rows and key tiles of ``TILE_K`` keys, each 64-row half
+of a query tile keeping its own visited end (keys past it score -inf), so
+it visits the same keys; ``flash_attention_tiles_plain`` runs that tile
+schedule (``flash_units`` orders its tiles) with the same online-softmax
+merges.  The CPU tests hold the two plain versions equal, and both against
+the JAX function: real rows agree up to f32 round-off.
 
 On a CUDA tensor ``flash_attention`` launches the kernel, reading k and v in
 place: [B, Sk, KH, Dh] views whose rows are ``KH*Dh`` apart, as the flat
@@ -41,6 +45,7 @@ from bergen_tpu_torch.ops import _build
 NEG_INF = -1e30
 BLOCK = 64
 HEAD_DIMS = (64, 128)  # head widths the kernel is built for
+TILE_Q, TILE_K = 128, 128  # the kernel's query and key tiles
 
 
 def _visited_keys(q1: int, Sk: int, causal: bool, q_offset: int) -> int:
@@ -90,6 +95,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def flash_units(Sq: int) -> list[tuple[int, ...]]:
+    """The kernel's units for one (batch row, head): the first rows of their
+    ``TILE_Q``-row query tiles, the longest causal tile with the shortest
+    (one tile where they meet), so every unit carries the same work."""
+    n = -(-Sq // TILE_Q)
+    return [((n - 1 - u) * TILE_Q, u * TILE_Q) if n - 1 - u > u
+            else (u * TILE_Q,) for u in range((n + 1) // 2)]
+
+
+def flash_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, k_valid: torch.Tensor,
+                                causal: bool = True,
+                                q_offset: int = 0) -> torch.Tensor:
+    """``flash_attention_plain`` on the CUDA kernel's tile schedule: query
+    tiles of ``TILE_Q`` rows in ``flash_units`` order, key tiles of
+    ``TILE_K`` up to the tile's visited end, each 64-row half of a tile
+    scoring -inf past its own visited end (``_visited_keys``)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+    qf = q.float().reshape(B, Sq, KH, G, Dh)
+    kf, vf = k.float(), v.float()
+    valid = k_valid.bool()
+    out = torch.empty(B, Sq, KH, G, Dh, dtype=torch.float32, device=dev)
+    for unit in flash_units(Sq):
+        for q0 in unit:
+            q1 = min(q0 + TILE_Q, Sq)
+            qpos = q_offset + torch.arange(q0, q1, device=dev)
+            row_end = torch.tensor(
+                [_visited_keys(min(r // BLOCK * BLOCK + BLOCK, Sq), Sk,
+                               causal, q_offset) for r in range(q0, q1)],
+                device=dev)
+            qb = qf[:, q0:q1]
+            m = torch.full((B, KH, G, q1 - q0), NEG_INF, device=dev)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(B, KH, G, q1 - q0, Dh, device=dev)
+            for k0 in range(0, int(row_end.max()), TILE_K):
+                k1 = min(k0 + TILE_K, Sk)
+                keys = torch.arange(k0, k1, device=dev)
+                s = torch.einsum("bqkgd,blkd->bkgql", qb,
+                                 kf[:, k0:k1]) * scale
+                ok = valid[:, None, None, None, k0:k1]
+                if causal:
+                    ok = ok & (keys[None, :] <= qpos[:, None])
+                s = torch.where(ok, s, NEG_INF)
+                s = torch.where(keys[None, :] < row_end[:, None], s,
+                                float("-inf"))
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bkgql,blkd->bkgqd", p.to(v.dtype).float(), vf[:, k0:k1])
+                m = m_new
+            out[:, q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).permute(
+                0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _on_card(fn: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_valid: torch.Tensor, causal: bool = True,
                     q_offset: int = 0) -> torch.Tensor:
@@ -97,8 +168,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> [B, Sq, H, Dh] in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, k_valid, causal, q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _on_card("flash_attention", q)
     B, Sq, H, Dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     if Dh not in HEAD_DIMS or H % KH or Sk < 1 or q_offset < 0:
@@ -107,9 +177,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"multiple of KH and Sk >= 1; got Dh={Dh}, H={H}, KH={KH}, "
             f"Sk={Sk}, q_offset={q_offset}")
     bf = torch.bfloat16
-    if q.dtype != bf or not q.is_contiguous():
-        raise ValueError("flash_attention kernel: q must be a contiguous bf16 "
-                         f"[B, Sq, H, Dh] tensor, got {q.dtype}")
+    if q.dtype != bf or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("flash_attention kernel: q must be a contiguous, "
+                         "16-byte aligned bf16 [B, Sq, H, Dh] tensor, got "
+                         f"{q.dtype}")
     for name, t in (("k", k), ("v", v)):
         if (t.dtype != bf or tuple(t.shape) != (B, Sk, KH, Dh)
                 or t.stride(3) != 1 or t.stride(2) != Dh
@@ -122,17 +193,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.stride() != v.stride():
         raise ValueError("flash_attention kernel: k and v strides differ "
                          f"({k.stride()} vs {v.stride()})")
-    if tuple(k_valid.shape) != (B, Sk):
+    if tuple(k_valid.shape) != (B, Sk) or k_valid.device != q.device:
         raise ValueError(f"flash_attention kernel: k_valid must be [{B}, "
-                         f"{Sk}], got {tuple(k_valid.shape)}")
-    valid = k_valid.to(torch.uint8).contiguous()
+                         f"{Sk}] on {q.device}, got {tuple(k_valid.shape)} "
+                         f"on {k_valid.device}")
+    # a bool or uint8 mask with contiguous rows is read in place (bool is
+    # one byte, 0 or 1), as the llama prefill's [B, S, L] mask row is
+    valid = k_valid
+    if valid.dtype not in (torch.bool, torch.uint8) or valid.stride(1) != 1:
+        valid = valid.to(torch.uint8).contiguous()
     out = torch.empty(B, Sq, H, Dh, dtype=bf, device=q.device)
     fn = _build.function("flash_attention")
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     valid.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KH, Dh,
-                    k.stride(0), k.stride(1), int(causal), int(q_offset),
-                    1.0 / math.sqrt(Dh), _build.stream_ptr(q.device)),
-                 "flash_attention")
+                    k.stride(0), k.stride(1), valid.stride(0), int(causal),
+                    int(q_offset), 1.0 / math.sqrt(Dh),
+                    _build.stream_ptr(q.device)), "flash_attention")
     flash_attention.launches += 1
     return out
 
