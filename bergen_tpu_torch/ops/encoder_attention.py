@@ -28,7 +28,10 @@ A masked key scores -1e30, so a fully masked row averages V uniformly.  On a
 CUDA tensor each wrapper launches the hand-written kernels of
 ``csrc/encoder_layer.cu`` (GEMM epilogues, streaming masked attention with an
 optional bias tile, row LayerNorm) and ``csrc/encoder_layer_q.cu`` (row
-quantization, int8 GEMM epilogues); on a CPU tensor it runs its plain
+quantization, LN1 with the codes of its output, int8 GEMM epilogues on the
+s8 wgmma loop, FFN-in writing the hidden's per-tile row maxima beside it;
+the chain's schedules, ``q_chain``, run in plain PyTorch as
+``encoder_layer_q_schedule_plain``); on a CPU tensor it runs its plain
 version, which rounds where the kernels round.  ``encoder_attention`` at
 head width 64 runs on the warp-specialised wgmma attention loop
 (``csrc/wgmma_attention.cuh``): query tiles of ``ATT_TILE_Q`` rows, key
@@ -49,7 +52,26 @@ HEAD_DIMS = (32, 64)  # head widths the CUDA attention kernel is built for
 ATT_TILE_Q = 128  # encoder_attention's query tile at head width 64
 ACT_IDS = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 _EPI_BIAS, _EPI_BIAS_ACT, _EPI_BIAS_RES = 0, 1, 2
-_QEPI_BF16, _QEPI_ACT, _QEPI_RES = 0, 1, 2
+_QEPI = {"bf16": 0, "act": 1, "res": 2, "act_codes": 3, "act_max": 4}
+Q_TILE_M = 128  # the int8 GEMM's output tile rows
+Q_STAGE_K = 128  # int8 k of one stage of its ring
+Q_STEP_K = 32  # k of one s8 wgmma
+Q_TILE_N = 256  # the plain schedules' tile width (the card: 128 or 256)
+# The W8A8 chain's schedules on the card: "h_f32" (LN1 writes y's codes;
+# FFN-in writes h f32 and each row's largest |h| per column tile, from which
+# h's row quantization takes its scales and reads h once) and the variants
+# that ab_chip.py measures against it: "two_pass" (FFN-in walks each row
+# tile twice and writes h's codes; h never reaches device memory) and
+# "rowquant" (every product's input row-quantized by a launch of its own)
+Q_SCHEDULES = ("h_f32", "two_pass", "rowquant")
+Q_SCHEDULE = "h_f32"
+# The int8 GEMM's loop on the card: "pingpong" (each consumer warpgroup on
+# whole 128 x 128 tiles of its own, one's epilogue beside the other's
+# products; FFN-in, whose activation epilogue is arithmetic rather than
+# memory traffic, stays cooperative) or, the variant that ab_chip.py
+# measures, "cooperative" (both on each 128 x 256 tile, every GEMM)
+Q_LOOPS = ("cooperative", "pingpong")
+Q_LOOP = "pingpong"
 
 
 def act_fn(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -300,6 +322,96 @@ def _qdot_plain(x: torch.Tensor, w_t: torch.Tensor, sw: torch.Tensor):
     return y * sx[:, None] * sw
 
 
+def qgemm_plain(a_codes: torch.Tensor, sa: torch.Tensor, w_t: torch.Tensor,
+                sw: torch.Tensor, bias: torch.Tensor, res=None):
+    """The int8 GEMM's value on exact sums: float(a_codes . w_t^T) * sa[row]
+    * sw[col] + bias[col] (+ res), each operation rounded in f32 in that
+    order (``_qdot`` and the bias, then the residual)."""
+    y = (a_codes.double() @ w_t.double().t()).float() * sa[:, None] * sw \
+        + bias
+    return y if res is None else y + res.float()
+
+
+def qgemm_sums_tiles_plain(a_codes: torch.Tensor, w_t: torch.Tensor,
+                           tile_n: int = Q_TILE_N,
+                           split: int = 1) -> torch.Tensor:
+    """The int8 GEMM's s32 sums of a_codes [M, K] . w_t [N, K]^T on the
+    kernel's schedule: each ``Q_TILE_M`` x ``tile_n`` output tile summed
+    over stages of ``Q_STAGE_K`` k, each ``Q_STAGE_K / Q_STEP_K`` products of
+    ``Q_STEP_K`` k, in int32; with ``split`` > 1 the stages are dealt into
+    that many groups, each summed alone and the groups added at the end
+    (int32 sums are exact, so any order or split gives the same bits)."""
+    M, K = a_codes.shape
+    N = w_t.shape[0]
+    a, b = a_codes.int(), w_t.int()
+    stages = list(range(0, K, Q_STAGE_K))
+    out = torch.empty(M, N, dtype=torch.int32, device=a_codes.device)
+    for m0 in range(0, M, Q_TILE_M):
+        for n0 in range(0, N, tile_n):
+            at, bt = a[m0:m0 + Q_TILE_M], b[n0:n0 + tile_n]
+            acc = torch.zeros(at.shape[0], bt.shape[0], dtype=torch.int32,
+                              device=a.device)
+            for g in range(split):
+                part = torch.zeros_like(acc)
+                for k0 in stages[g::split]:
+                    for k1 in range(k0, min(k0 + Q_STAGE_K, K), Q_STEP_K):
+                        part += at[:, k1:k1 + Q_STEP_K] \
+                            @ bt[:, k1:k1 + Q_STEP_K].t()
+                acc += part
+            out[m0:m0 + Q_TILE_M, n0:n0 + tile_n] = acc
+    return out
+
+
+def layernorm_q_plain(o: torch.Tensor, gamma, beta, eps: float):
+    """LN1 of the W8A8 chain with what its kernel emits: (y f32, y's codes,
+    y's row scales)."""
+    y = _ln(o, gamma, beta, eps)
+    return (y, *quantize_rows_plain(y))
+
+
+def ffn_in_two_pass_plain(y_codes: torch.Tensor, sy: torch.Tensor,
+                          w1_t: torch.Tensor, s1: torch.Tensor,
+                          b1: torch.Tensor, act: str,
+                          tile_n: int = Q_TILE_N):
+    """(codes [M, I], scales [M]) of h = act(qgemm_plain(y_codes, ...)) on
+    the FFN-in kernel's two passes: pass 0 computes each column tile of
+    ``tile_n`` (the last may be partial) and keeps only each row's largest
+    |h| in it (the partial maxima [n_tiles, M]), reduced over the tiles to
+    the row scale s = max(largest, 1e-8) / 127; pass 1 computes each tile
+    again and writes round(h / s) half to even."""
+    I = w1_t.shape[0]
+
+    def tile(n0):
+        cols = slice(n0, n0 + tile_n)
+        return act_fn(qgemm_plain(y_codes, sy, w1_t[cols], s1[cols],
+                                  b1[cols]), act)
+
+    starts = range(0, I, tile_n)
+    partial = torch.stack([tile(n0).abs().amax(dim=1) for n0 in starts])
+    m = partial.amax(dim=0).clamp_min(1e-8)
+    s = m / torch.full_like(m, 127.0)
+    codes = torch.cat([torch.round(tile(n0) / s[:, None]).to(torch.int8)
+                       for n0 in starts], dim=1)
+    return codes, s
+
+
+def row_tile_maxima_plain(h: torch.Tensor, tile_n: int = Q_TILE_N):
+    """The FFN-in epilogue's per-tile row maxima of h [M, N]: the largest
+    |h| of each row in each column tile of ``tile_n`` (the last may be
+    partial), [n_tiles, M]."""
+    return torch.stack([t.abs().amax(dim=1)
+                        for t in h.split(tile_n, dim=1)])
+
+
+def quantize_rows_from_maxima_plain(h: torch.Tensor, partial: torch.Tensor):
+    """``quantize_rows_plain(h)`` from the per-tile row maxima ``partial``
+    [n_tiles, M] of h (``row_tile_maxima_plain``): the scale is that of the
+    largest, and h is read once for the codes."""
+    m = partial.amax(dim=0, keepdim=True).t().clamp_min(1e-8)
+    s = m / torch.full_like(m, 127.0)
+    return torch.round(h.float() / s).to(torch.int8), s[:, 0]
+
+
 def tail_q_plain(xf: torch.Tensor, ctx: torch.Tensor, w: dict, eps: float,
                  act: str, dt) -> dict:
     """The W8A8 layer from the context on, on [M, D] f32 rows: y (LN1's
@@ -323,6 +435,56 @@ def encoder_layer_q_stages_plain(x: torch.Tensor, w: dict,
     ctx = _attention_plain(qkv.reshape(B, S, 3 * D), mask, num_heads,
                            1.0 / math.sqrt(D // num_heads), dt)
     return {"qkv": qkv, "ctx": ctx, **tail_q_plain(xf, ctx, w, eps, act, dt)}
+
+
+def encoder_layer_q_schedule_plain(x: torch.Tensor, w: dict,
+                                   mask: torch.Tensor, num_heads: int,
+                                   eps: float, act: str,
+                                   schedule: str | None = None,
+                                   tile_n: int = Q_TILE_N) -> dict:
+    """``encoder_layer_q_stages`` in plain PyTorch: the launches of
+    ``q_chain(schedule)``, each by its plain version (the int8 GEMMs by
+    ``qgemm_plain``, LN1 with its codes by ``layernorm_q_plain``, FFN-in's
+    per-tile row maxima and the codes taken from them by
+    ``row_tile_maxima_plain`` and ``quantize_rows_from_maxima_plain``, the
+    two-pass FFN-in by ``ffn_in_two_pass_plain``, over column tiles of
+    ``tile_n``), with the same intermediates and dtypes.  Every schedule
+    rounds where ``encoder_layer_q_plain`` does, so ``out`` equals its."""
+    schedule = schedule or Q_SCHEDULE
+    q_chain(schedule)
+    B, S, D = x.shape
+    M, dt = B * S, x.dtype
+
+    def gemm(codes, name, res=None):
+        wt, sw, b = (w[n] for n in {
+            "qkv": ("wqkv_t", "sqkv", "bqkv"), "o": ("wo_t", "so", "bo"),
+            "ffn_in": ("w1_t", "s1", "b1"), "ffn_out": ("w2_t", "s2", "b2"),
+        }[name])
+        return qgemm_plain(*codes, wt, sw, b, res)
+
+    st = {"x_q": quantize_rows_plain(x.reshape(M, D))}
+    st["qkv"] = gemm(st["x_q"], "qkv").to(dt)
+    st["ctx"] = _attention_plain(st["qkv"].float().reshape(B, S, 3 * D),
+                                 mask, num_heads,
+                                 1.0 / math.sqrt(D // num_heads), dt).to(dt)
+    st["ctx_q"] = quantize_rows_plain(st["ctx"])
+    st["o"] = gemm(st["ctx_q"], "o", x.reshape(M, D))
+    st["y"], *y_q = layernorm_q_plain(st["o"], w["ln1_s"], w["ln1_b"], eps)
+    st["y_q"] = tuple(y_q)
+    if schedule == "two_pass":
+        st["h_q"] = ffn_in_two_pass_plain(*st["y_q"], w["w1_t"], w["s1"],
+                                          w["b1"], act, tile_n)
+    else:
+        st["h"] = act_fn(gemm(st["y_q"], "ffn_in"), act)
+        if schedule == "h_f32":
+            st["h_max"] = row_tile_maxima_plain(st["h"], tile_n)
+            st["h_q"] = quantize_rows_from_maxima_plain(st["h"], st["h_max"])
+        else:
+            st["h_q"] = quantize_rows_plain(st["h"])
+    st["f"] = gemm(st["h_q"], "ffn_out", st["y"])
+    st["out"] = _ln(st["f"], w["ln2_s"], w["ln2_b"], eps).to(dt) \
+        .reshape(B, S, D)
+    return st
 
 
 def encoder_layer_q_plain(x: torch.Tensor, w: dict, mask: torch.Tensor,
@@ -527,6 +689,104 @@ def encoder_layer_prebias(x: torch.Tensor, qkv: torch.Tensor,
     return out
 
 
+def q_chain(schedule: str | None = None) -> tuple:
+    """The launches of one ``encoder_layer_q`` call on the card, in order,
+    on ``schedule`` (default ``Q_SCHEDULE``)."""
+    schedule = schedule or Q_SCHEDULE
+    if schedule not in Q_SCHEDULES:
+        raise ValueError(f"W8A8 schedule {schedule!r} not in {Q_SCHEDULES}")
+    ln1 = ("LN1", "rowquant y") if schedule == "rowquant" \
+        else ("LN1 + codes",)
+    ffn_in = {"h_f32": ("FFN-in GEMM + row maxima", "rowquant h"),
+              "two_pass": ("FFN-in GEMM x2 + codes",),
+              "rowquant": ("FFN-in GEMM", "rowquant h")}[schedule]
+    return ("rowquant x", "qkv GEMM", "attention", "rowquant ctx", "o GEMM",
+            *ln1, *ffn_in, "FFN-out GEMM", "LN2")
+
+
+def check_qgemm_shape(fn: str, N: int, K: int) -> None:
+    """The int8 GEMM's envelope (raises on any other): N % 128 (its output
+    tiles are 128 or 256 wide) and K % 16 (16-byte int8 rows for TMA)."""
+    if N % 128 or K % 16:
+        raise ValueError(f"{fn} kernel: the int8 GEMM needs N % 128 == 0 "
+                         f"and K % 16 == 0; got N={N}, K={K}")
+
+
+def qgemm_tile_n(M: int, N: int, epi: str = "res") -> int:
+    """The output tile width (128 or 256) that the int8 GEMM of
+    ``csrc/encoder_layer_q.cu`` takes for an [M, N] product on this card
+    on ``Q_LOOP``."""
+    return _build.function("encoder_qgemm_tile_n")(M, N, _QEPI[epi],
+                                                    Q_LOOPS.index(Q_LOOP))
+
+
+def qgemm(a_codes: torch.Tensor, sa: torch.Tensor, w_t: torch.Tensor,
+          sw: torch.Tensor, bias: torch.Tensor, epi: str, act: str = "gelu",
+          res=None):
+    """One int8 GEMM of the W8A8 chain: v = ``qgemm_plain(a_codes, sa,
+    w_t, sw, bias)`` on a_codes [M, K] and w_t [N, K] int8 with f32 row,
+    column and bias vectors, then by ``epi``: "bf16" bf16(v); "act" act(v)
+    f32; "res" v + res (bf16 or f32 [M, N]) f32; "act_codes" the codes and
+    row scales of act(v) (``quantize_rows_plain``), which the card computes
+    in two passes without writing act(v); "act_max" (act(v), the rows'
+    largest |act(v)| in each column tile [n_tiles, M]; tiles of
+    ``qgemm_tile_n`` columns on the card, ``Q_TILE_N`` on the CPU).  On a
+    CPU tensor the plain version."""
+    if epi not in _QEPI:
+        raise ValueError(f"qgemm: epi {epi!r} not in {tuple(_QEPI)}")
+    if a_codes.device.type == "cpu":
+        v = qgemm_plain(a_codes, sa, w_t, sw, bias, res)
+        if epi in ("bf16", "res"):
+            return v.bfloat16() if epi == "bf16" else v
+        h = act_fn(v, act)
+        if epi == "act_codes":
+            return quantize_rows_plain(h)
+        return (h, row_tile_maxima_plain(h, Q_TILE_N)) if epi == "act_max" \
+            else h
+    _on_card("qgemm", a_codes)
+    M, K = a_codes.shape
+    N = w_t.shape[0]
+    check_qgemm_shape("qgemm", N, K)
+    if act not in ACT_IDS:
+        raise ValueError(f"qgemm kernel: unsupported act {act!r}")
+    _check(a_codes, "a_codes", torch.int8, (M, K))
+    _check(w_t, "w_t", torch.int8, (N, K))
+    _check(sa, "sa", torch.float32, (M,))
+    for name, t in (("sw", sw), ("bias", bias)):
+        _check(t, name, torch.float32, (N,))
+    if epi == "res":
+        if res is None or res.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError("qgemm kernel: epi 'res' needs a bf16 or f32 "
+                             "residual")
+        _check(res, "res", res.dtype, (M, N))
+    return _qgemm_cuda(a_codes, sa, w_t, sw, bias, epi, ACT_IDS[act], res,
+                       _build.stream_ptr(a_codes.device))
+
+
+def _qgemm_cuda(a_codes, sa, w_t, sw, bias, epi: str, act_id: int, res,
+                st: int):
+    """``qgemm`` on the card (operands checked): one launch."""
+    M, K = a_codes.shape
+    N, dev = w_t.shape[0], a_codes.device
+    dtype = {"bf16": torch.bfloat16, "act_codes": torch.int8}.get(
+        epi, torch.float32)
+    out = torch.empty(M, N, dtype=dtype, device=dev)
+    scale = None
+    if epi == "act_codes":
+        scale = torch.empty(M, dtype=torch.float32, device=dev)
+    elif epi == "act_max":
+        scale = torch.empty(N // qgemm_tile_n(M, N, epi), M,
+                            dtype=torch.float32, device=dev)
+    _build.check(_build.function("encoder_qgemm")(
+        a_codes.data_ptr(), w_t.data_ptr(), sa.data_ptr(), sw.data_ptr(),
+        bias.data_ptr(), None if res is None else res.data_ptr(),
+        out.data_ptr(), None if scale is None else scale.data_ptr(), M, N, K,
+        _QEPI[epi], act_id, int(res is not None and res.dtype ==
+                                torch.float32), Q_LOOPS.index(Q_LOOP), st),
+        f"int8 gemm ({epi})")
+    return out if scale is None else (out, scale)
+
+
 def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
                     num_heads: int, eps: float, act: str) -> torch.Tensor:
     """x [B, S, D]; w from ``fuse_layer_q``; mask [B, S] (1 = attend)."""
@@ -536,6 +796,11 @@ def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
     I = w["w1_t"].shape[0]
     _check_layer("encoder_layer_q", x, mask, num_heads, act, I)
     D = x.shape[2]
+    for N, K in ((3 * D, D), (D, D), (I, D), (D, I)):
+        check_qgemm_shape("encoder_layer_q", N, K)
+    if x.data_ptr() % 16:
+        raise ValueError("encoder_layer_q kernel: x must be 16-byte aligned "
+                         "(its row quantization reads 16-byte chunks)")
     i8, f32 = torch.int8, torch.float32
     for name, shape in (("wqkv_t", (3 * D, D)), ("wo_t", (D, D)),
                         ("w1_t", (I, D)), ("w2_t", (D, I))):
@@ -550,48 +815,83 @@ def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
 
 
 def encoder_layer_q_stages(x: torch.Tensor, w: dict, mask: torch.Tensor,
-                           num_heads: int, eps: float, act: str) -> dict:
+                           num_heads: int, eps: float, act: str,
+                           schedule: str | None = None) -> dict:
     """The W8A8 kernel chain of ``encoder_layer_q`` (operands checked
-    there) with its intermediates: qkv [M, 3D] and ctx [M, D] bf16, y
-    [M, D] and h [M, I] f32, out [B, S, D] bf16."""
+    there) on ``schedule`` (``q_chain``'s launches), with its
+    intermediates: qkv [M, 3D] and ctx [M, D] bf16; o (the o GEMM's output),
+    y (LN1's) and f (the FFN-out GEMM's) [M, D] f32; out [B, S, D] bf16; and
+    (codes, row scales) of each product's input: x_q, ctx_q, y_q, h_q; h
+    [M, I] f32 where the schedule writes it, and h_max (FFN-in's per-tile
+    row maxima [n_tiles, M]) on "h_f32"."""
+    schedule = schedule or Q_SCHEDULE
+    q_chain(schedule)
     B, S, D = x.shape
     I = w["w1_t"].shape[0]
     i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
     M, dev = B * S, x.device
     st = _build.stream_ptr(dev)
-    quant = _build.function("encoder_rowquant")
-    qgemm = _build.function("encoder_qgemm")
-    ln = _build.function("encoder_layernorm")
-    a = ACT_IDS[act]
     chk = _build.check
-    codes = torch.empty(M, max(D, I), dtype=i8, device=dev)
-    sx = torch.empty(M, dtype=f32, device=dev)
+    a = ACT_IDS[act]
 
-    def qdot(src, K, is_f32, wt, sw, b, out, N, epi, res=None, res_f32=0):
-        chk(quant(src.data_ptr(), is_f32, codes.data_ptr(), sx.data_ptr(), M,
-                  K, st), "row quantize")
-        chk(qgemm(codes.data_ptr(), wt.data_ptr(), sx.data_ptr(),
-                  sw.data_ptr(), b.data_ptr(),
-                  None if res is None else res.data_ptr(), out.data_ptr(), M,
-                  N, K, epi, a, res_f32, st), "int8 gemm")
+    def rowquant(src, partial=None):
+        K = src.shape[-1]
+        q = torch.empty(M, K, dtype=i8, device=dev)
+        s = torch.empty(M, dtype=f32, device=dev)
+        chk(_build.function("encoder_rowquant")(
+            src.data_ptr(), int(src.dtype == f32), q.data_ptr(), s.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            0 if partial is None else partial.shape[0], M, K, st),
+            "row quantize")
+        return q, s
 
-    qkv = torch.empty(M, 3 * D, dtype=bf, device=dev)
-    qdot(x, D, 0, w["wqkv_t"], w["sqkv"], w["bqkv"], qkv, 3 * D, _QEPI_BF16)
-    ctx = _attention_cuda(qkv, mask, None, B, S, num_heads,
-                          1.0 / math.sqrt(D // num_heads), st)
-    acc = torch.empty(M, D, dtype=f32, device=dev)
-    qdot(ctx, D, 0, w["wo_t"], w["so"], w["bo"], acc, D, _QEPI_RES, x)
-    y32 = torch.empty(M, D, dtype=f32, device=dev)
-    yb = torch.empty(M, D, dtype=bf, device=dev)
-    chk(ln(acc.data_ptr(), w["ln1_s"].data_ptr(), w["ln1_b"].data_ptr(),
-           yb.data_ptr(), y32.data_ptr(), M, D, eps, st), "layernorm 1")
-    h = torch.empty(M, I, dtype=f32, device=dev)
-    qdot(y32, D, 1, w["w1_t"], w["s1"], w["b1"], h, I, _QEPI_ACT)
-    qdot(h, I, 1, w["w2_t"], w["s2"], w["b2"], acc, D, _QEPI_RES, y32, 1)
+    def gemm(codes, name, epi, res=None):
+        q, s = codes
+        wt, sw, b = (w[n] for n in {
+            "qkv": ("wqkv_t", "sqkv", "bqkv"), "o": ("wo_t", "so", "bo"),
+            "ffn_in": ("w1_t", "s1", "b1"), "ffn_out": ("w2_t", "s2", "b2"),
+        }[name])
+        return _qgemm_cuda(q, s, wt, sw, b, epi, a, res, st)
+
+    stages = {"x_q": rowquant(x)}
+    stages["qkv"] = gemm(stages["x_q"], "qkv", "bf16")
+    stages["ctx"] = _attention_cuda(stages["qkv"], mask, None, B, S,
+                                    num_heads, 1.0 / math.sqrt(D // num_heads),
+                                    st)
+    stages["ctx_q"] = rowquant(stages["ctx"])
+    stages["o"] = gemm(stages["ctx_q"], "o", "res", x)
+    y = torch.empty(M, D, dtype=f32, device=dev)
+    if schedule == "rowquant":
+        chk(_build.function("encoder_layernorm")(
+            stages["o"].data_ptr(), w["ln1_s"].data_ptr(),
+            w["ln1_b"].data_ptr(), torch.empty_like(y, dtype=bf).data_ptr(),
+            y.data_ptr(), M, D, eps, st), "layernorm 1")
+        stages["y_q"] = rowquant(y)
+    else:
+        yq = torch.empty(M, D, dtype=i8, device=dev)
+        sy = torch.empty(M, dtype=f32, device=dev)
+        chk(_build.function("encoder_layernorm_q")(
+            stages["o"].data_ptr(), w["ln1_s"].data_ptr(),
+            w["ln1_b"].data_ptr(), y.data_ptr(), yq.data_ptr(),
+            sy.data_ptr(), M, D, eps, st), "layernorm 1 + codes")
+        stages["y_q"] = (yq, sy)
+    stages["y"] = y
+    if schedule == "two_pass":
+        stages["h_q"] = gemm(stages["y_q"], "ffn_in", "act_codes")
+    elif schedule == "h_f32":
+        stages["h"], stages["h_max"] = gemm(stages["y_q"], "ffn_in",
+                                            "act_max")
+        stages["h_q"] = rowquant(stages["h"], stages["h_max"])
+    else:
+        stages["h"] = gemm(stages["y_q"], "ffn_in", "act")
+        stages["h_q"] = rowquant(stages["h"])
+    stages["f"] = gemm(stages["h_q"], "ffn_out", "res", y)
     out = torch.empty(B, S, D, dtype=bf, device=dev)
-    chk(ln(acc.data_ptr(), w["ln2_s"].data_ptr(), w["ln2_b"].data_ptr(),
-           out.data_ptr(), None, M, D, eps, st), "layernorm 2")
-    return {"qkv": qkv, "ctx": ctx, "y": y32, "h": h, "out": out}
+    chk(_build.function("encoder_layernorm")(
+        stages["f"].data_ptr(), w["ln2_s"].data_ptr(), w["ln2_b"].data_ptr(),
+        out.data_ptr(), None, M, D, eps, st), "layernorm 2")
+    stages["out"] = out
+    return stages
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

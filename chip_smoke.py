@@ -692,15 +692,94 @@ def _code_diffs(a, b) -> int:
                 != ea.quantize_rows_plain(b)[0]).sum().item())
 
 
-def check_encoder_layer_q(results: dict, dev) -> None:
-    """The W8A8 layer at Q_SHAPES, with the intermediates of the kernel
-    chain held against the plain version's: how many bf16 context values
-    and int8 codes of ctx, y and h differ, and the error left when the
-    plain tail is fed the kernel's own context."""
+# the W8A8 layer's eleven launches on a tree without ``q_chain`` (before
+# the s8 wgmma chain): a row quantization before each of the four products
+Q_CHAIN_ROWQUANT = ("rowquant x", "qkv GEMM", "attention", "rowquant ctx",
+                    "o GEMM", "LN1", "rowquant y", "FFN-in GEMM",
+                    "rowquant h", "FFN-out GEMM", "LN2")
+
+
+def q_chain_labels(ea) -> tuple:
+    """The launches of one W8A8 layer call, in order, as the tree's package
+    reports them (``encoder_attention.q_chain``)."""
+    chain = getattr(ea, "q_chain", None)
+    return Q_CHAIN_ROWQUANT if chain is None else chain()
+
+
+def int_mm_products_device_ms(ea, x, w: dict, M: int, D: int):
+    """The library yardstick for the layer's four int8 products alone: the
+    card's time of ``torch._int_mm`` on codes of the four operands' shapes
+    (qkv, o, FFN-in, FFN-out), int32 out, no scales or epilogue."""
+    import torch
+
+    codes = ea.quantize_rows_plain(x.view(M, D))[0]
+    hq = torch.ones(M, w["w2_t"].shape[1], dtype=torch.int8, device=x.device)
+
+    def products():
+        torch._int_mm(codes, w["wqkv_t"].t())
+        torch._int_mm(codes, w["wo_t"].t())
+        torch._int_mm(codes, w["w1_t"].t())
+        torch._int_mm(hq, w["w2_t"].t())
+
+    return device_time_ms([products], iters=10)
+
+
+def _bitwise_checks(ea, kern: dict, w: dict, x, act: str) -> dict:
+    """Where the tree's chain reports its codes (``x_q``, ``ctx_q``,
+    ``y_q``, ``h_q``): whether each product's input codes and row scales
+    equal ``quantize_rows_plain`` of what the chain quantized (FFN-in's:
+    of the plain FFN-in fed the chain's own y codes), and whether the qkv,
+    o and FFN-out outputs equal the plain ``qgemm_plain`` fed the chain's
+    own codes, bit for bit.  Empty for an older tree."""
+    import torch
+
+    if "x_q" not in kern:
+        return {}
+    M, D = kern["y"].shape
+
+    def same(got, want):
+        return all(torch.equal(g, t) for g, t in zip(got, want))
+
+    def gemm(name, wt, sw, b, res=None):
+        q, s = kern[name]
+        return ea.qgemm_plain(q, s, w[wt], w[sw], w[b], res)
+
+    h_plain = ea.act_fn(gemm("y_q", "w1_t", "s1", "b1"), act)
+    maxima = {}
+    if "h_max" in kern:  # FFN-in's per-tile row maxima, reduced
+        maxima["h_max_equal"] = torch.equal(kern["h_max"].amax(0),
+                                            kern["h"].abs().amax(1))
+    return {**maxima,
+        "x_codes_equal": same(kern["x_q"], ea.quantize_rows_plain(
+            x.view(M, D))),
+        "ctx_codes_equal": same(kern["ctx_q"],
+                                ea.quantize_rows_plain(kern["ctx"])),
+        "y_codes_equal": same(kern["y_q"], ea.quantize_rows_plain(kern["y"])),
+        "h_codes_equal": same(kern["h_q"], ea.quantize_rows_plain(h_plain)),
+        "h_code_diffs_fed": int((kern["h_q"][0] != ea.quantize_rows_plain(
+            h_plain)[0]).sum().item()),
+        "qkv_equal": torch.equal(kern["qkv"], gemm(
+            "x_q", "wqkv_t", "sqkv", "bqkv").bfloat16()),
+        "o_equal": torch.equal(kern["o"], gemm("ctx_q", "wo_t", "so", "bo",
+                                               x.view(M, D))),
+        "ffn_out_equal": torch.equal(kern["f"], gemm(
+            "h_q", "w2_t", "s2", "b2", kern["y"])),
+    }
+
+
+def check_encoder_layer_q(results: dict, dev, schedule=None) -> None:
+    """The W8A8 layer at Q_SHAPES (on ``schedule``: "NAME", one of the
+    tree's ``Q_SCHEDULES``, optionally with ":LOOP", one of its
+    ``Q_LOOPS``; None: its defaults), with the intermediates of the
+    kernel chain held against the plain version's: the codes and row scales
+    of each product's input and the qkv, o and FFN-out outputs fed the
+    chain's own codes, bit for bit (``_bitwise_checks``); how many bf16
+    context values and int8 codes of ctx, y and h differ from the plain
+    chain's, and the error left when the plain tail is fed the kernel's own
+    context; each launch's card time and the kernels a call."""
     import torch
     import torch.nn.functional as F
     from bergen_tpu_torch.models.convert import quantize_encoder_layers_w8a8
-    from bergen_tpu_torch.ops import _build
     from bergen_tpu_torch.ops import encoder_attention as ea
 
     eps, act = 1e-12, "gelu"
@@ -708,6 +787,11 @@ def check_encoder_layer_q(results: dict, dev) -> None:
     rnd = _rnd(gen, dev)
     per_shape = []
     weights = {}
+    if schedule:  # "NAME", "NAME:LOOP" or ":LOOP"
+        name, _, loop = schedule.partition(":")
+        ea.Q_SCHEDULE = name or ea.Q_SCHEDULE
+        if loop:
+            ea.Q_LOOP = loop
     for (D, H, I), (B, S) in Q_SHAPES:
         if D not in weights:
             weights[D] = ea.fuse_layer_q(quantize_encoder_layers_w8a8(
@@ -716,15 +800,6 @@ def check_encoder_layer_q(results: dict, dev) -> None:
         x = rnd(B, S, D).bfloat16()
         mask = _padded_mask(gen, dev, B, S)
         M = B * S
-        # the row quantization alone: its codes must equal the plain ones
-        codes = torch.empty(M, D, dtype=torch.int8, device=dev)
-        sx = torch.empty(M, dtype=torch.float32, device=dev)
-        _build.check(_build.function("encoder_rowquant")(
-            x.data_ptr(), 0, codes.data_ptr(), sx.data_ptr(), M, D,
-            _build.stream_ptr(dev)), "row quantize")
-        ref_codes, ref_sx = ea.quantize_rows_plain(x.view(M, D))
-        codes_equal = bool(torch.equal(codes, ref_codes)
-                           and torch.equal(sx, ref_sx))
         args = (x, w, mask, H, eps, act)
         out = ea.encoder_layer_q(*args)
         plain = ea.encoder_layer_q_stages_plain(*args)
@@ -733,20 +808,28 @@ def check_encoder_layer_q(results: dict, dev) -> None:
         # where the mean error comes from: the kernel's intermediates
         # against the plain ones, and the plain tail on the kernel's ctx
         kern = ea.encoder_layer_q_stages(*args)
+        bitwise = _bitwise_checks(ea, kern, w, x, act)
+        h_codes = kern["h_q"][0] if "h_q" in kern \
+            else ea.quantize_rows_plain(kern["h"])[0]
         fed = ea.tail_q_plain(x.view(M, D).float(), kern["ctx"].float(), w,
                               eps, act, torch.bfloat16)
         fed_max, fed_mean = _errors(kern["out"].view(M, D), fed["out"])
+
+        def h_diffs(h):
+            return int((h_codes != ea.quantize_rows_plain(h)[0]).sum()
+                       .item())
+
         cause = {
             "ctx_bf16_diffs": int((kern["ctx"].float() != plain["ctx"])
                                   .sum().item()),
             "ctx_code_diffs": _code_diffs(kern["ctx"], plain["ctx"]),
             "y_code_diffs": _code_diffs(kern["y"], plain["y"]),
-            "h_code_diffs": _code_diffs(kern["h"], plain["h"]),
+            "h_code_diffs": h_diffs(plain["h"]),
             "n_ctx_codes": M * D, "n_h_codes": M * I,
             "fed_ctx_max_abs_err": fed_max, "fed_ctx_mean_abs_err": fed_mean,
             "fed_ctx_y_code_diffs": _code_diffs(kern["y"], fed["y"]),
-            "fed_ctx_h_code_diffs": _code_diffs(kern["h"], fed["h"])}
-        del kern, fed, plain
+            "fed_ctx_h_code_diffs": h_diffs(fed["h"])}
+        del kern, fed, plain, h_codes
         ms = cuda_time_ms(lambda: ea.encoder_layer_q(*args))
         plain_ms = cuda_time_ms(lambda: ea.encoder_layer_q_plain(*args),
                                 iters=2, warmup=1)
@@ -772,26 +855,51 @@ def check_encoder_layer_q(results: dict, dev) -> None:
                 .bfloat16()
 
         library_ms = cuda_time_ms(library)
+        chain = q_chain_labels(ea)
+
+        def call():
+            return ea.encoder_layer_q(*args)
+
+        split, names = chain_device_ms(call, chain)
+        kernels = launches_per_call(ea.encoder_layer_q, call, len(chain))
+        int_mm_device_ms = int_mm_products_device_ms(ea, x, w, M, D)
         int8_ops = 2 * M * D * (4 * D + 2 * I)
         bf16_ops = 4 * B * H * S * S * (D // H)
         t_ops = (int8_ops / PEAK_INT8_OPS + bf16_ops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = (2 * M * D * 2 + (4 * D * D + 2 * D * I)
                    + (6 * D + 2 * I) * 4 + B * S * 4) / PEAK_BYTES * 1e3
-        row = {"B": B, "S": S, "D": D, "H": H, "max_abs_err": max_err,
+        row = {"B": B, "S": S, "D": D, "H": H,
+               "schedule": getattr(ea, "Q_SCHEDULE", None),
+               "loop": getattr(ea, "Q_LOOP", None),
+               "max_abs_err": max_err,
                "mean_abs_err": mean_err, "tol": LAYER_TOL,
-               "mean_tol": Q_MEAN_TOL, "codes_equal_plain": codes_equal,
-               **cause, "fed_ctx_tol": LAYER_TOL,
-               "fed_ctx_mean_tol": LAYER_MEAN_TOL,
+               "mean_tol": Q_MEAN_TOL, **bitwise, **cause,
+               "fed_ctx_tol": LAYER_TOL, "fed_ctx_mean_tol": LAYER_MEAN_TOL,
                "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": library_ms}
+               "library_ms": library_ms, "kernels_per_call": kernels,
+               "device_ms": None if split is None else sum(split.values()),
+               "device_ms_by_launch": split, "kernel_names": names,
+               "gemm_device_ms": None if split is None else sum(
+                   v for k, v in split.items() if "GEMM" in k),
+               "int_mm_device_ms": int_mm_device_ms}
+        if hasattr(ea, "qgemm_tile_n"):
+            ffn_in = {"two_pass": "act_codes", "rowquant": "act"}.get(
+                ea.Q_SCHEDULE, "act_max")
+            row["gemm_tile_n"] = {name: ea.qgemm_tile_n(M, N, epi) for
+                                  name, N, epi in (
+                                      ("qkv", 3 * D, "bf16"), ("o", D, "res"),
+                                      ("ffn_in", I, ffn_in),
+                                      ("ffn_out", D, "res"))}
         emit({"phase": "kernel_check", "kernel": "encoder_layer_q", **row})
         per_shape.append(row)
         where = f"encoder_layer_q D{D} B{B} S{S}"
-        if not codes_equal:
-            fail(f"{where}: the int8 activation codes or scales differ from "
-                 "the plain version's")
+        unequal = [k for k, v in bitwise.items()
+                   if k.endswith("_equal") and not v]
+        if unequal:
+            fail(f"{where}: not bit-equal to the plain version fed the "
+                 f"chain's own codes: {unequal}")
         if not (max_err <= LAYER_TOL and mean_err <= Q_MEAN_TOL):
             fail(f"{where}: max error {max_err} (tol {LAYER_TOL}), mean "
                  f"error {mean_err} (tol {Q_MEAN_TOL})")
@@ -799,7 +907,7 @@ def check_encoder_layer_q(results: dict, dev) -> None:
             fail(f"{where}: fed the kernel's context, the plain tail is "
                  f"still off by max {fed_max} (tol {LAYER_TOL}), mean "
                  f"{fed_mean} (tol {LAYER_MEAN_TOL})")
-        del x, out, ref, codes
+        del x, out, ref
         torch.cuda.empty_cache()
     results["encoder_layer_q"] = per_shape
 
@@ -1559,6 +1667,10 @@ def check_paged_attention(results: dict, dev) -> None:
                 enable_gqa=True)
 
         library_ms = cuda_time_ms(library, iters=20)
+        # the card's own time: at decode sizes the event time above is
+        # mostly the host's launch
+        device_ms = device_time_ms([lambda: pa.paged_partial(*args)])
+        library_device_ms = device_time_ms([library], iters=20)
         keys = int(valid.sum().item())  # the keys this input needs
         nbytes = (2 * keys * KH * Dh * 2 + S * H * Dh * 2 + S * H * Dh * 4
                   + 2 * S * H * 4 + S * maxP * 4 + 2 * S * 4)
@@ -1572,6 +1684,8 @@ def check_paged_attention(results: dict, dev) -> None:
                "l_max_rel_err": l_err, "tol": PAGED_CTX_TOL,
                "m_tol": PAGED_M_TOL, "l_rtol": PAGED_L_RTOL,
                "absent_exact": absent_exact, "ms": ms, "plain_ms": plain_ms,
+               "device_ms": device_ms,
+               "library_device_ms": library_device_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "library": "page gather + SDPA (enable_gqa): the normalised "
                           "context, not the partial"}
@@ -1685,10 +1799,15 @@ def check_flash_attention_band(results: dict, dev) -> None:
         keys = torch.arange(L, device=dev)
         inb = (keys[None, :] >= band[:, :1]) & (keys[None, :] < band[:, 1:])
         qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
-        library_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=inb[None, None], enable_gqa=True),
-            iters=50)
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=inb[None, None], enable_gqa=True)
+
+        library_ms = cuda_time_ms(library, iters=50)
+        # the card's own time (the event time is mostly the host's launch)
+        device_ms = device_time_ms(
+            [lambda: fa.flash_attention_band(q, k, v, band)])
+        library_device_ms = device_time_ms([library])
         # the work these bands need: each row against its in-band keys,
         # each key of the bands' union read once
         pairs = int(inb.sum().item())
@@ -1700,6 +1819,8 @@ def check_flash_attention_band(results: dict, dev) -> None:
                "max_abs_err": max_err, "mean_abs_err": mean_err,
                "tol": FLASH_TOL, "mean_tol": FLASH_MEAN_TOL,
                "empty_band_exact_zero": empty_exact, "ms": ms,
+               "device_ms": device_ms,
+               "library_device_ms": library_device_ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": library_ms,
                "library": "SDPA with a boolean band mask (enable_gqa)"}
@@ -3391,7 +3512,11 @@ def main() -> None:
                      "launches_by_path": per_path,
                      **{key: row[key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms")}, **extra})
+                         "bound_by", "library_ms")},
+                     # the card's own time where the check took it
+                     **{key: row[key] for key in (
+                         "device_ms", "library_device_ms", "kernels_per_call")
+                        if key in row}, **extra})
     emit({"kernels": line})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
