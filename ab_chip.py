@@ -4,7 +4,7 @@
     python3 ab_chip.py kernels TREE [TREE ...]
     python3 ab_chip.py attention TREE [TREE ...]
     python3 ab_chip.py paths TREE [TREE ...]
-    python3 ab_chip.py w8a8 TREE[@SCHEDULE] [TREE[@SCHEDULE] ...]
+    python3 ab_chip.py w8a8 TREE [TREE ...]
 
 A TREE is ``.`` (this checkout) or a directory that holds another version
 of ``bergen_tpu_torch/``, ``config/`` and ``tests/utdata/``, for example
@@ -29,13 +29,6 @@ tree (its kernels built there), runs one of this checkout's
 * ``w8a8``: ``check_encoder_layer_q`` (the W8A8 layer at its seven
   shapes, with the card's own time of each launch of its chain, the kernels
   a call and ``torch._int_mm``'s time for the four products alone);
-  ``TREE@SCHEDULE`` runs the tree's chain on one of its
-  ``encoder_attention.Q_SCHEDULES`` (this checkout: ``h_f32``, the
-  default, FFN-in once writing the hidden f32 with its per-tile row maxima;
-  ``two_pass``, FFN-in twice writing the hidden's codes; ``rowquant``, every
-  product's input row-quantized by a launch of its own), and
-  ``TREE@SCHEDULE:LOOP`` (or ``TREE@:LOOP``) also sets its int8 GEMM's
-  loop (``Q_LOOPS``: ``pingpong``, the default, or ``cooperative``);
 * ``paths``: the ut1_eval and ut1_int4_llama2 runs of ``python -m
   bergen_tpu_torch`` (stage times), on checkpoints that this process
   writes once, before the first tree, and deletes at the end.
@@ -58,7 +51,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
-    tree, _, schedule = tree.partition("@")
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -78,7 +70,7 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
         cs.check_bin_topk({}, dev)
         return
     if phase == "w8a8":
-        cs.check_encoder_layer_q({}, dev, schedule or None)
+        cs.check_encoder_layer_q({}, dev)
         return
     if phase == "attention":
         cs.COUNT_KERNELS = tree == REPO

@@ -15,7 +15,7 @@
 //   wg_gemm<S8> QEPI_RES           o       = cq Wo * sc * sw + bo + x   f32
 //   layernorm_q_kernel             y, yq, sy = LN1(o), quant(LN1(o))   f32
 //   wg_gemm<S8> QEPI_ACT_MAX       h, hm   = act(yq W1 * sy * sw + b1) f32,
-//                                            its rows' max |h| a column tile
+//                                            its rows' max |h| a 128 columns
 //   rowquant_kernel<float>         hq, sh  = quant(h), sh from hm
 //   wg_gemm<S8> QEPI_RES           f       = hq W2 * sh * sw + b2 + y   f32
 //   (encoder_layer.cu)             out     = bf16(LN2(f))
@@ -39,46 +39,30 @@
 //   qkv, o and FFN-out, whose epilogues move memory, run the loop's
 //   ping-pong (each consumer warpgroup on whole 128 x 128 tiles, one's
 //   epilogue beside the other's products); FFN-in, whose GELU is
-//   arithmetic, both warpgroups on each 128 x 256 tile (qloop).
+//   arithmetic, both warpgroups on each 128 x 256 tile (encoder_qgemm).
 // * LN1 has y's whole row, so it also writes y's codes and scale.
 // * FFN-in writes h f32 and, beside it, each row's largest |h| in each
-//   column tile (exact: a max has no order), so h's row quantization reads
+//   128 columns (exact: a max has no order), so h's row quantization reads
 //   h once (a stream at the card's rate) instead of twice.
 // * x and the context come from outside a GEMM or span heads, so they keep
 //   a row quantization of their own: one warp a row, 16-byte loads, the
 //   codes written once.
-// The variants that ab_chip.py measures take the same entries:
-// * two_pass, QEPI_ACT_Q: the FFN-in GEMM walks each row tile twice
-//   (WgWalk passes 2).  Pass 0 keeps only each row's largest |act(h)|;
-//   pass 1 computes the same bits again (the s32 sums are exact, the
-//   epilogue the same instructions) and writes h's codes with the row's
-//   scale, so h never reaches device memory, at the price of FFN-in's
-//   products and activations twice.
-// * rowquant: QEPI_ACT (h written f32, quantized by rowquant_kernel<float>
-//   with two reads) and LN1 without codes (encoder_layer.cu's, y quantized
-//   by rowquant_kernel<float>).
-// * encoder_qgemm's loop Q_LOOP_COOP: every GEMM cooperative (both
-//   consumer warpgroups on each 128 x 256 tile), no ping-pong.
 #include "wgmma.cuh"
 
 namespace {
 
-enum {
-  QEPI_BF16 = 0,
-  QEPI_ACT = 1,
-  QEPI_RES = 2,
-  QEPI_ACT_Q = 3,
-  QEPI_ACT_MAX = 4
-};
+enum { QEPI_BF16 = 0, QEPI_RES = 1, QEPI_ACT_MAX = 2 };
+
+// FFN-in's row maxima: one a row for each MAX_COLS columns, whatever the
+// tile's width, so that their layout [N / MAX_COLS, M] is fixed.
+constexpr int MAX_COLS = 128;
 
 // The code of v at row scale s: rint(v / s), a true division.
 __device__ __forceinline__ int quant_code(float v, float s) {
   return __float2int_rn(__fdiv_rn(v, s));
 }
 
-// act_fn with each multiply and add rounded on its own (no contraction), so
-// that the two passes of QEPI_ACT_Q compute the same bits wherever the
-// compiler inlines it.
+// act_fn with each multiply and add rounded on its own (no contraction).
 __device__ __forceinline__ float act_rn(float x, int act) {
   switch (act) {
     case ACT_GELU:
@@ -251,21 +235,16 @@ __global__ void __launch_bounds__(256)
 // The epilogue of the int8 GEMM on wg_gemm_kernel<BN, false, QGemmEpi,
 // WgS8, PP>: v = float(sum) * sa[row] * sw[col] + bias[col]
 // (round-to-nearest, no FMA), then
-//   QEPI_BF16:  bf16(v)                                  [M, N] bf16
-//   QEPI_ACT:   act(v)                                   [M, N] f32
-//   QEPI_ACT_MAX: act(v) as QEPI_ACT, and each row's largest |act(v)| in
-//               the tile's columns (out_scale [n_tiles, M]: exact, a max
-//               has no order), which rowquant_kernel reduces
-//   QEPI_RES:   v + a bf16 or f32 residual [M, N]        [M, N] f32
-//   QEPI_ACT_Q: two passes over each row tile (WgWalk): pass 0 keeps each
-//               row's largest |act(v)| in shared memory across the column
-//               tiles; pass 1 writes rint(act(v) / s) [M, N] int8 and s
-//               [M] (out_scale), s = max(largest, 1e-8) / 127.
+//   QEPI_BF16:    bf16(v)                                  [M, N] bf16
+//   QEPI_RES:     v + a bf16 or f32 residual [M, N]        [M, N] f32
+//   QEPI_ACT_MAX: act(v) [M, N] f32, and each row's largest |act(v)| in
+//                 each MAX_COLS columns (out_scale [N / MAX_COLS, M]:
+//                 exact, a max has no order), which rowquant_kernel reduces
 // The tile's consumers write C a pass at a time into one of two shared
-// staging boxes of 128 rows x 128 bytes (64 bf16, 32 f32 or 128 int8
-// columns) in the 128-byte swizzle, and one thread stores the box with
-// TMA, which drops rows at or past M; a box is rewritten once the store of
-// two passes back has read it (encoder_layer.cu's GemmEpi).  A thread
+// staging boxes of 128 rows x 128 bytes (64 bf16 or 32 f32 columns) in the
+// 128-byte swizzle, and one thread stores the box with TMA, which drops
+// rows at or past M; a box is rewritten once the store of two passes back
+// has read it (encoder_layer.cu's GemmEpi).  A thread
 // holds H accumulators of 64 rows: the cooperative loop calls operator()
 // with one (its warpgroup's rows of the tile; 256 threads on named barrier
 // 1), the ping-pong loop calls team() with both of a warpgroup's whole
@@ -273,14 +252,14 @@ __global__ void __launch_bounds__(256)
 template <int EPI, int BN>
 struct QGemmEpi {
   static constexpr int BOX = WG_BM * 128;  // bytes of one staging box
-  static constexpr int SMEM = 2 * BOX + (EPI == QEPI_ACT_Q ? WG_BM * 4 : 0);
+  static constexpr int SMEM = 2 * BOX;
   CUtensorMap tma_c;
   const float* sa;    // [M] row scales of A
   const float* sw;    // [N] column scales of B
   const float* bias;  // [N]
   const void* res;    // QEPI_RES: [M, N] bf16 or f32
-  float* out_scale;   // QEPI_ACT_Q: [M]; QEPI_ACT_MAX: [n_tiles, M]
-  int M, N, n_tiles, act, res_f32;
+  float* out_scale;   // QEPI_ACT_MAX: [N / MAX_COLS, M]
+  int M, N, act, res_f32;
 
   struct Team {  // the threads that share a tile, and their barrier
     int bar, threads;
@@ -361,8 +340,7 @@ struct QGemmEpi {
     }
   }
 
-  // f32 out: act(v) (QEPI_ACT, QEPI_ACT_MAX) or v + the residual
-  // (QEPI_RES)
+  // f32 out: act(v) (QEPI_ACT_MAX) or v + the residual (QEPI_RES)
   template <int H, int ACT>
   __device__ __forceinline__ void store_f32(const int (&acc)[H][BN / 2],
                                             int mt, int nt, int r0, int t,
@@ -370,8 +348,9 @@ struct QGemmEpi {
                                             const Team& tm,
                                             unsigned char* stage) const {
     constexpr int P = BN / 32;  // passes of 32 f32 columns
+    constexpr int G = BN / MAX_COLS;
     const int row = mt * WG_BM + r0;
-    float m[H][2] = {};  // QEPI_ACT_MAX: the rows' largest |act(v)|
+    float m[H][2][G] = {};  // QEPI_ACT_MAX: the rows' largest |act(v)|
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       float2 rv[H][4][2];
@@ -413,8 +392,9 @@ struct QGemmEpi {
               v.x = act_rn(v.x, ACT);
               v.y = act_rn(v.y, ACT);
               if constexpr (EPI == QEPI_ACT_MAX)
-                m[h][half] =
-                    fmaxf(m[h][half], fmaxf(fabsf(v.x), fabsf(v.y)));
+                m[h][half][p * 32 / MAX_COLS] =
+                    fmaxf(m[h][half][p * 32 / MAX_COLS],
+                          fmaxf(fabsf(v.x), fabsf(v.y)));
             }
             *reinterpret_cast<float2*>(box + r * 128 +
                                        ((u ^ (r & 7)) << 4) + 8 * (t & 1)) =
@@ -427,96 +407,16 @@ struct QGemmEpi {
 #pragma unroll
       for (int h = 0; h < H; ++h)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float x = m[h][half];
-          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-          const int rr = row + 64 * h + 8 * half;
-          if (t == 0 && rr < M) out_scale[(size_t)nt * M + rr] = x;
-        }
-    }
-  }
-
-  // QEPI_ACT_Q, virtual column tile vt = pass * n_tiles + nt (cooperative
-  // only: the row maxima live in the block's scratch across its tiles)
-  template <int ACT>
-  __device__ __forceinline__ void store_codes(const int (&acc)[1][BN / 2],
-                                              int mt, int vt, int r0, int t,
-                                              const float (&s)[1][2],
-                                              int ctid, const Team& tm,
-                                              unsigned char* stage) const {
-    float* row_max = reinterpret_cast<float*>(stage + 2 * BOX);
-    const int nt = vt % n_tiles;
-    if (vt < n_tiles) {
-      // pass 0: the rows' largest |act(v)|, from the largest of the tiles
-      // before (no branch: skipping the activation where a cheap bound
-      // showed it could not raise the maximum made this pass slower)
-      float m[2];
+        for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        m[half] = nt == 0 ? 0.f : row_max[r0 + 8 * half];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = nt * BN + 8 * j + 2 * t;
-        const float2 w = col_pair(sw, col), b = col_pair(bias, col);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float2 v = value(acc[0], j, half, s[0][half], w, b);
-          m[half] = fmaxf(m[half], fmaxf(fabsf(act_rn(v.x, ACT)),
-                                         fabsf(act_rn(v.y, ACT))));
-        }
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], 1));
-        m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], 2));
-        if (t == 0) row_max[r0 + 8 * half] = m[half];
-      }
-      __syncwarp();
-      return;
-    }
-    // pass 1: the codes at the row's scale
-    float sh[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      sh[half] = row_scale(row_max[r0 + 8 * half]);
-      const int row = mt * WG_BM + r0 + 8 * half;
-      if (nt == 0 && t == 0 && row < M) out_scale[row] = sh[half];
-    }
-#pragma unroll
-    for (int p = 0; p < BN / 128; ++p) {
-      unsigned char* box = stage + (p & 1) * BOX;
-      begin_pass(ctid, tm);
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {  // 8-column groups: half a unit
-        const int j = 16 * p + jj, col = nt * BN + 8 * j + 2 * t;
-        const float2 w = col_pair(sw, col), b = col_pair(bias, col);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + 8 * half;
-          const float2 v = value(acc[0], j, half, s[0][half], w, b);
-          const int q0 = quant_code(act_rn(v.x, ACT), sh[half]);
-          const int q1 = quant_code(act_rn(v.y, ACT), sh[half]);
-          *reinterpret_cast<uint16_t*>(
-              box + r * 128 + (((jj >> 1) ^ (r & 7)) << 4) + 8 * (jj & 1) +
-              2 * t) = static_cast<uint16_t>((q0 & 0xff) | (q1 & 0xff) << 8);
-        }
-      }
-      end_pass(ctid, tm, box, nt * BN + 128 * p, mt);
-    }
-  }
-
-  template <int H, int ACT>
-  __device__ __forceinline__ void store_act(const int (&acc)[H][BN / 2],
-                                            int mt, int vt, int r0, int t,
-                                            const float (&s)[H][2], int ctid,
-                                            const Team& tm,
-                                            unsigned char* stage) const {
-    if constexpr (EPI == QEPI_ACT_Q) {
-      static_assert(H == 1, "QEPI_ACT_Q: the cooperative loop only");
-      store_codes<ACT>(acc, mt, vt, r0, t, s, ctid, tm, stage);
-    } else {
-      store_f32<H, ACT>(acc, mt, vt, r0, t, s, ctid, tm, stage);
+          for (int g = 0; g < G; ++g) {
+            float x = m[h][half][g];
+            x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+            x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+            const int rr = row + 64 * h + 8 * half;
+            if (t == 0 && rr < M)
+              out_scale[(size_t)(nt * G + g) * M + rr] = x;
+          }
     }
   }
 
@@ -524,7 +424,7 @@ struct QGemmEpi {
   // among the tile's consumers (ctid)
   template <int H>
   __device__ __forceinline__ void run(const int (&acc)[H][BN / 2], int mt,
-                                      int vt, int ctid, const Team& tm,
+                                      int nt, int ctid, const Team& tm,
                                       unsigned char* stage) const {
     const int t = ctid & 3;
     const int r0 = (ctid >> 7) * 64 + ((ctid >> 5) & 3) * 16 +
@@ -538,68 +438,49 @@ struct QGemmEpi {
         s[h][half] = row < M ? sa[row] : 0.f;
       }
     if constexpr (EPI == QEPI_BF16) {
-      store_bf16<H>(acc, mt, vt, r0, t, s, ctid, tm, stage);
+      store_bf16<H>(acc, mt, nt, r0, t, s, ctid, tm, stage);
     } else if constexpr (EPI == QEPI_RES) {
-      store_f32<H, -1>(acc, mt, vt, r0, t, s, ctid, tm, stage);
+      store_f32<H, -1>(acc, mt, nt, r0, t, s, ctid, tm, stage);
     } else {
       switch (act) {
         case ACT_GELU:
-          store_act<H, ACT_GELU>(acc, mt, vt, r0, t, s, ctid, tm, stage);
+          store_f32<H, ACT_GELU>(acc, mt, nt, r0, t, s, ctid, tm, stage);
           break;
         case ACT_GELU_TANH:
-          store_act<H, ACT_GELU_TANH>(acc, mt, vt, r0, t, s, ctid, tm,
+          store_f32<H, ACT_GELU_TANH>(acc, mt, nt, r0, t, s, ctid, tm,
                                       stage);
           break;
         case ACT_RELU:
-          store_act<H, ACT_RELU>(acc, mt, vt, r0, t, s, ctid, tm, stage);
+          store_f32<H, ACT_RELU>(acc, mt, nt, r0, t, s, ctid, tm, stage);
           break;
         default:
-          store_act<H, ACT_SILU>(acc, mt, vt, r0, t, s, ctid, tm, stage);
+          store_f32<H, ACT_SILU>(acc, mt, nt, r0, t, s, ctid, tm, stage);
       }
     }
   }
 
   // the cooperative loop: this warpgroup's 64 rows of the tile
   __device__ __forceinline__ void operator()(const int (&acc)[BN / 2],
-                                             int mt, int vt, int wg, int ctid,
+                                             int mt, int nt, int wg, int ctid,
                                              unsigned char* stage) const {
-    run<1>(reinterpret_cast<const int(&)[1][BN / 2]>(acc), mt, vt, ctid,
+    run<1>(reinterpret_cast<const int(&)[1][BN / 2]>(acc), mt, nt, ctid,
            Team{1, 256}, stage);
   }
 
   // the ping-pong loop: warpgroup wg's whole tile
   __device__ __forceinline__ void team(const int (&acc)[2][BN / 2], int mt,
-                                       int vt, int wg, int ctid,
+                                       int nt, int wg, int ctid,
                                        unsigned char* stage) const {
-    run<2>(acc, mt, vt, ctid, Team{2 + wg, 128}, stage);
+    run<2>(acc, mt, nt, ctid, Team{2 + wg, 128}, stage);
   }
 };
 
-// The int8 GEMM's loops: both consumer warpgroups on each 128 x BN tile
-// (cooperative), or each on whole 128 x 128 tiles of its own (ping-pong).
-enum { Q_LOOP_COOP = 0, Q_LOOP_PINGPONG = 1 };
-
-// The loop the GEMM takes: ping-pong only where the epilogue is memory
-// traffic (QEPI_BF16, QEPI_RES).  An activation's epilogue is arithmetic:
-// under ping-pong it runs on one warp a scheduler instead of two, and
-// FFN-in took 0.654 ms against the cooperative 0.543 at B 512, S 128 (H100
-// 80GB HBM3, 700 W) while o, FFN-out and qkv gained.  QEPI_ACT_Q's
-// two-pass walk also keeps its row maxima in the block's scratch across
-// the tiles of a row.
-int qloop(int epi, int loop) {
-  return loop == Q_LOOP_PINGPONG && epi != QEPI_BF16 && epi != QEPI_RES
-             ? Q_LOOP_COOP
-             : loop;
-}
-
-// Output tile width of the int8 GEMM at [M, N]: 128 under ping-pong; else
-// encoder_layer.cu's rule (256 where N allows it and the 128 x 256 tiles
-// still give every SM one); a two-pass walk spreads row tiles over the
-// SMs, so it takes 256 wherever N allows.
-int qtile_n(int M, int N, int epi, int loop) {
+// FFN-in's output tile width at [M, N] (its loop is cooperative):
+// encoder_layer.cu's rule, 256 where N allows it and the 128 x 256 tiles
+// still give every SM one.
+int act_tile_n(int M, int N) {
   const long long tiles256 = (long long)(M + WG_BM - 1) / WG_BM * (N / 256);
-  if (N % 256 || qloop(epi, loop) == Q_LOOP_PINGPONG) return 128;
-  return epi == QEPI_ACT_Q || tiles256 >= sm_count() ? 256 : 128;
+  return N % 256 || tiles256 < sm_count() ? 128 : 256;
 }
 
 struct QArgs {
@@ -614,9 +495,7 @@ template <int EPI, int BN, bool PP>
 int launch_qgemm(const CUtensorMap& ta, const CUtensorMap& tb,
                  const QArgs& a, cudaStream_t st) {
   QGemmEpi<EPI, BN> epi{};
-  const int kind = EPI == QEPI_BF16 ? TMA_BF16
-                   : EPI == QEPI_ACT_Q ? TMA_I8
-                                       : TMA_F32;
+  const int kind = EPI == QEPI_BF16 ? TMA_BF16 : TMA_F32;
   const int e = tma_map(&epi.tma_c, a.out, kind, a.M, a.N, a.N, WG_BM,
                         128 / tma_elem_bytes(kind));
   if (e != 0) return e;
@@ -627,33 +506,11 @@ int launch_qgemm(const CUtensorMap& ta, const CUtensorMap& tb,
   epi.out_scale = a.out_scale;
   epi.M = a.M;
   epi.N = a.N;
-  epi.n_tiles = a.N / BN;
   epi.act = a.act;
   epi.res_f32 = a.res_f32;
   return wg_gemm_launch<BN, false, QGemmEpi<EPI, BN>, WgS8, PP>(
       ta, tb, (a.M + WG_BM - 1) / WG_BM, a.N / BN,
-      (a.K + WgS8::BK - 1) / WgS8::BK, epi, st, EPI == QEPI_ACT_Q ? 2 : 1);
-}
-
-// (ping-pong is built for the epilogues qloop gives it only)
-template <int BN, bool PP>
-int qgemm_bn(const CUtensorMap& ta, const CUtensorMap& tb, const QArgs& a,
-             int epi, cudaStream_t st) {
-  if (epi == QEPI_BF16)
-    return launch_qgemm<QEPI_BF16, BN, PP>(ta, tb, a, st);
-  if (epi == QEPI_RES) return launch_qgemm<QEPI_RES, BN, PP>(ta, tb, a, st);
-  if constexpr (PP) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    switch (epi) {
-      case QEPI_ACT:
-        return launch_qgemm<QEPI_ACT, BN, PP>(ta, tb, a, st);
-      case QEPI_ACT_MAX:
-        return launch_qgemm<QEPI_ACT_MAX, BN, PP>(ta, tb, a, st);
-      default:
-        return launch_qgemm<QEPI_ACT_Q, BN, PP>(ta, tb, a, st);
-    }
-  }
+      (a.K + WgS8::BK - 1) / WgS8::BK, epi, st);
 }
 
 }  // namespace
@@ -701,20 +558,18 @@ int encoder_layernorm_q(const void* x, const void* gamma, const void* beta,
 
 // C[M, N] = (A[M, K] . Bt[N, K]^T) * sa[row] * sw[col] + bias[col] with
 // epilogue epi (QEPI_*; res: the QEPI_RES residual, bf16 or f32 by
-// res_f32; out_scale: QEPI_ACT_Q's row scales or QEPI_ACT_MAX's per-tile
-// row maxima [N / tile width, M]), A and Bt int8, K-contiguous, on loop
-// Q_LOOP_* (qloop).  Needs N % 128 == 0 and K % 16 == 0 (16-byte rows for
-// TMA); k past K reads as zero.
+// res_f32; out_scale: QEPI_ACT_MAX's row maxima [N / 128, M]), A and Bt
+// int8, K-contiguous.  Needs N % 128 == 0 and K % 16 == 0 (16-byte rows
+// for TMA); k past K reads as zero.
 int encoder_qgemm(const void* A, const void* Bt, const void* sa,
                   const void* sw, const void* bias, const void* res, void* out,
                   void* out_scale, int M, int N, int K, int epi, int act,
-                  int res_f32, int loop, void* stream) {
-  if (N % 128 || K % 16 || M < 0 || K < 1 || epi < 0 || epi > QEPI_ACT_MAX ||
-      loop < Q_LOOP_COOP || loop > Q_LOOP_PINGPONG)
+                  int res_f32, void* stream) {
+  if (N % MAX_COLS || K % 16 || M < 0 || K < 1 || epi < 0 ||
+      epi > QEPI_ACT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  loop = qloop(epi, loop);
-  const int bn = qtile_n(M, N, epi, loop);
+  const int bn = epi == QEPI_ACT_MAX ? act_tile_n(M, N) : 128;
   CUtensorMap ta, tb;
   int e = tma_map(&ta, A, TMA_I8, M, K, K, WG_BM, WgS8::BK);
   if (e == 0) e = tma_map(&tb, Bt, TMA_I8, N, K, K, bn, WgS8::BK);
@@ -723,15 +578,19 @@ int encoder_qgemm(const void* A, const void* Bt, const void* sa,
                 static_cast<const float*>(bias), res, out,
                 static_cast<float*>(out_scale), M, N, K, act, res_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (loop == Q_LOOP_PINGPONG) return qgemm_bn<128, true>(ta, tb, a, epi, st);
-  return bn == 256 ? qgemm_bn<256, false>(ta, tb, a, epi, st)
-                   : qgemm_bn<128, false>(ta, tb, a, epi, st);
-}
-
-// The output tile width that encoder_qgemm takes at [M, N] with epi on
-// loop.
-int encoder_qgemm_tile_n(int M, int N, int epi, int loop) {
-  return qtile_n(M, N, epi, loop);
+  // ping-pong (each consumer warpgroup on whole 128 x 128 tiles of its
+  // own, one's epilogue beside the other's products) where the epilogue is
+  // memory traffic; cooperative (both warpgroups on each tile) for FFN-in's
+  // activation, which is arithmetic: under ping-pong it runs on one warp a
+  // scheduler instead of two, and FFN-in took 0.654 ms against the
+  // cooperative 0.543 at B 512, S 128 (H100 80GB HBM3, 700 W) while o,
+  // FFN-out and qkv gained.
+  if (epi == QEPI_BF16)
+    return launch_qgemm<QEPI_BF16, 128, true>(ta, tb, a, st);
+  if (epi == QEPI_RES)
+    return launch_qgemm<QEPI_RES, 128, true>(ta, tb, a, st);
+  return bn == 256 ? launch_qgemm<QEPI_ACT_MAX, 256, false>(ta, tb, a, st)
+                   : launch_qgemm<QEPI_ACT_MAX, 128, false>(ta, tb, a, st);
 }
 
 }  // extern "C"

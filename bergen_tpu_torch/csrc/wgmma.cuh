@@ -9,8 +9,7 @@
 // type T: WgBf16 (bf16 operands, f32 sums, m64nBNk16) or WgS8 (int8
 // operands, exact s32 sums, m64nBNk32, both operands K-major).
 // * One block per SM (grid = min(tiles, SMs)) walks the tiles t, t + grid,
-//   ... in the order row tile = t / n_tiles, column tile = t % n_tiles; or
-//   whole row tiles, several passes over their column tiles (WgWalk).
+//   ... in the order row tile = t / n_tiles, column tile = t % n_tiles.
 // * 384 threads: warpgroups 0 and 1 consume (rows 64 * wg .. + 63 of the
 //   tile, wgmma with a register accumulator), warpgroup 2 produces;
 //   setmaxnreg moves registers from the producer (40) to the consumers
@@ -586,25 +585,7 @@ struct WgRing {
   }
 };
 
-// The kernel's walk over output tiles: with passes == 1, tiles t =
-// blockIdx.x, + gridDim.x, ... of m_tiles x n_tiles (row tile t / n_tiles);
-// with passes > 1, whole row tiles u = blockIdx.x, + gridDim.x, ..., each
-// walked passes times over its column tiles, so that one block sees every
-// column tile of its rows before the next pass (an epilogue that needs a
-// whole row, such as a row's largest value, keeps it across the tiles).
-// The epilogue is handed the virtual column tile vt = p * n_tiles + nt;
-// the products are those of column tile nt in every pass.
-struct WgWalk {
-  int m_tiles, n_tiles, passes;
-  __host__ __device__ int units() const {
-    return passes > 1 ? m_tiles : m_tiles * n_tiles;
-  }
-  __device__ int per_unit() const { return passes > 1 ? passes * n_tiles : 1; }
-  __device__ int mt(int u) const { return passes > 1 ? u : u / n_tiles; }
-  __device__ int vt(int u, int v) const { return passes > 1 ? v : u % n_tiles; }
-};
-
-// PP (ping-pong; BN 128, passes 1): each consumer warpgroup takes
+// PP (ping-pong; BN 128): each consumer warpgroup takes
 // whole 128 x BN tiles of its own, the block's tiles in turn (warpgroup 0
 // the even ones), with two m64 accumulators, so that one warpgroup's
 // epilogue runs while the other's products do.  An order barrier passes
@@ -617,8 +598,8 @@ struct WgWalk {
 template <int BN, bool B_MN, class Epi, class T, bool PP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
-                   const __grid_constant__ CUtensorMap tma_b,
-                   const WgWalk walk, int k_stages,
+                   const __grid_constant__ CUtensorMap tma_b, int m_tiles,
+                   int n_tiles, int k_stages,
                    const __grid_constant__ Epi epi) {
   static_assert(!PP || (BN == 128 && !B_MN),
                 "ping-pong: 128 x 128 tiles, K-major B");
@@ -631,7 +612,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       reinterpret_cast<uint64_t*>(scratch + (PP ? 2 : 1) * Epi::SMEM);
   uint64_t* empty = full + R::STAGES;
   uint64_t* order = empty + R::STAGES;  // PP: warpgroup w's turn, order[w]
-  const int units = walk.units(), per_unit = walk.per_unit();
+  const int tiles = m_tiles * n_tiles;
   // the role, warpgroup-uniform to the compiler (no divergent path around
   // the wgmma)
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
@@ -655,27 +636,25 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                  : "memory");
     if (threadIdx.x == 256) {
       int it = 0;
-      for (int u = blockIdx.x; u < units; u += gridDim.x)
-        for (int v = 0; v < per_unit; ++v) {
-          const int m0 = walk.mt(u) * WG_BM;
-          const int n0 = walk.vt(u, v) % walk.n_tiles * BN;
-          for (int ks = 0; ks < k_stages; ++ks, ++it) {
-            const int slot = it % R::STAGES;
-            mbar_wait(&empty[slot], ((it / R::STAGES) & 1) ^ 1);
-            unsigned char* st = smem + slot * R::STAGE;
-            mbar_expect_tx(&full[slot], R::STAGE);
-            tma_load_2d(st, &tma_a, &full[slot], ks * T::BK, m0);
-            if constexpr (B_MN) {
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * WG_BM, n0 = tile % n_tiles * BN;
+        for (int ks = 0; ks < k_stages; ++ks, ++it) {
+          const int slot = it % R::STAGES;
+          mbar_wait(&empty[slot], ((it / R::STAGES) & 1) ^ 1);
+          unsigned char* st = smem + slot * R::STAGE;
+          mbar_expect_tx(&full[slot], R::STAGE);
+          tma_load_2d(st, &tma_a, &full[slot], ks * T::BK, m0);
+          if constexpr (B_MN) {
 #pragma unroll
-              for (int c = 0; c < BN / 64; ++c)
-                tma_load_2d(st + R::A_BYTES + c * 8192, &tma_b, &full[slot],
-                            n0 + 64 * c, ks * T::BK);
-            } else {
-              tma_load_2d(st + R::A_BYTES, &tma_b, &full[slot], ks * T::BK,
-                          n0);
-            }
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_2d(st + R::A_BYTES + c * 8192, &tma_b, &full[slot],
+                          n0 + 64 * c, ks * T::BK);
+          } else {
+            tma_load_2d(st + R::A_BYTES, &tma_b, &full[slot], ks * T::BK,
+                        n0);
           }
         }
+      }
     }
   } else if constexpr (PP) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
@@ -701,7 +680,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }                                                                        \
   }
     int i = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
       if ((i & 1) != wg) {  // the other warpgroup's tile
         it += k_stages;
         continue;
@@ -733,7 +712,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       mbar_arrive(&empty[(it - 1) % R::STAGES]);
-      epi.team(acc, walk.mt(u), walk.vt(u, 0), wg, ctid, own);
+      epi.team(acc, tile / n_tiles, tile % n_tiles, wg, ctid, own);
     }
 #undef WG_PP_STAGE
     epi.finish(ctid);
@@ -750,50 +729,49 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
     int it = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x)
-      for (int v = 0; v < per_unit; ++v) {
-        {  // the tile's first stage overwrites the accumulator
-          const int slot = it % R::STAGES;
-          unsigned char* st = smem + slot * R::STAGE;
-          mbar_wait(&full[slot], (it / R::STAGES) & 1);
-          const uint64_t da = wg_desc(st + wg * 64 * 128);
-          const uint64_t db = B_MN ? wg_desc_mn(st + R::A_BYTES)
-                                   : wg_desc(st + R::A_BYTES);
-          wg_fence();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      {  // the tile's first stage overwrites the accumulator
+        const int slot = it % R::STAGES;
+        unsigned char* st = smem + slot * R::STAGE;
+        mbar_wait(&full[slot], (it / R::STAGES) & 1);
+        const uint64_t da = wg_desc(st + wg * 64 * 128);
+        const uint64_t db = B_MN ? wg_desc_mn(st + R::A_BYTES)
+                                 : wg_desc(st + R::A_BYTES);
+        wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < K_STEPS; ++kk)
-            T::template mma<BN, B_MN>(acc, da + 2 * kk, db + B_STEP * kk, kk);
-          wg_commit();
-          ++it;
-        }
-        for (int ks = 1; ks < k_stages; ++ks, ++it) {
-          const int slot = it % R::STAGES;
-          unsigned char* st = smem + slot * R::STAGE;
-          mbar_wait(&full[slot], (it / R::STAGES) & 1);
-          const uint64_t da = wg_desc(st + wg * 64 * 128);
-          const uint64_t db = B_MN ? wg_desc_mn(st + R::A_BYTES)
-                                   : wg_desc(st + R::A_BYTES);
-          fence_acc(acc);
-          wg_fence();
+        for (int kk = 0; kk < K_STEPS; ++kk)
+          T::template mma<BN, B_MN>(acc, da + 2 * kk, db + B_STEP * kk, kk);
+        wg_commit();
+        ++it;
+      }
+      for (int ks = 1; ks < k_stages; ++ks, ++it) {
+        const int slot = it % R::STAGES;
+        unsigned char* st = smem + slot * R::STAGE;
+        mbar_wait(&full[slot], (it / R::STAGES) & 1);
+        const uint64_t da = wg_desc(st + wg * 64 * 128);
+        const uint64_t db = B_MN ? wg_desc_mn(st + R::A_BYTES)
+                                 : wg_desc(st + R::A_BYTES);
+        fence_acc(acc);
+        wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < K_STEPS; ++kk)
-            T::template mma<BN, B_MN>(acc, da + 2 * kk, db + B_STEP * kk, 1);
-          wg_commit();
-          wg_wait<1>();  // the previous stage's products are done
-          fence_acc(acc);
-          mbar_arrive(&empty[(it - 1) % R::STAGES]);
-        }
-        wg_wait<0>();
+        for (int kk = 0; kk < K_STEPS; ++kk)
+          T::template mma<BN, B_MN>(acc, da + 2 * kk, db + B_STEP * kk, 1);
+        wg_commit();
+        wg_wait<1>();  // the previous stage's products are done
         fence_acc(acc);
         mbar_arrive(&empty[(it - 1) % R::STAGES]);
-        epi(acc, walk.mt(u), walk.vt(u, v), wg, threadIdx.x, scratch);
       }
+      wg_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[(it - 1) % R::STAGES]);
+      epi(acc, tile / n_tiles, tile % n_tiles, wg, threadIdx.x, scratch);
+    }
     epi.finish(threadIdx.x);
   }
 }
 
 // Launches wg_gemm_kernel<BN, B_MN, Epi, T, PP> over m_tiles x n_tiles
-// tiles (each passes times: WgWalk) of K = T::BK * k_stages (A's map in
+// tiles of K = T::BK * k_stages (A's map in
 // [128][T::BK] boxes; B's in [64][64] boxes when B_MN, else [BN][T::BK]).
 // Returns a cudaError_t value: the launch's, or
 // cudaErrorInvalidConfiguration when the block would not be given the
@@ -801,10 +779,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 template <int BN, bool B_MN, class Epi, class T = WgBf16, bool PP = false>
 int wg_gemm_launch(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
                    int m_tiles, int n_tiles, int k_stages, const Epi& epi,
-                   cudaStream_t st, int passes = 1) {
+                   cudaStream_t st) {
   constexpr int SMEM = WgRing<BN, PP>::template smem<Epi>();
   static_assert(SMEM <= 232448, "the ring and scratch exceed shared memory");
-  if (PP && passes != 1) return static_cast<int>(cudaErrorInvalidValue);
   static int ready = 0;
   if (!ready) {
     cudaFuncAttributes attr;
@@ -820,11 +797,10 @@ int wg_gemm_launch(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
     if (e != cudaSuccess) return static_cast<int>(e);
     ready = 1;
   }
-  const WgWalk walk{m_tiles, n_tiles, passes};
-  const int units = walk.units();
-  if (units == 0) return 0;
-  const int grid = units < sm_count() ? units : sm_count();
+  const int tiles = m_tiles * n_tiles;
+  if (tiles == 0) return 0;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
   wg_gemm_kernel<BN, B_MN, Epi, T, PP><<<grid, WG_THREADS, SMEM, st>>>(
-      tma_a, tma_b, walk, k_stages, epi);
+      tma_a, tma_b, m_tiles, n_tiles, k_stages, epi);
   return static_cast<int>(cudaGetLastError());
 }

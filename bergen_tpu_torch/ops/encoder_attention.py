@@ -29,8 +29,8 @@ CUDA tensor each wrapper launches the hand-written kernels of
 ``csrc/encoder_layer.cu`` (GEMM epilogues, streaming masked attention with an
 optional bias tile, row LayerNorm) and ``csrc/encoder_layer_q.cu`` (row
 quantization, LN1 with the codes of its output, int8 GEMM epilogues on the
-s8 wgmma loop, FFN-in writing the hidden's per-tile row maxima beside it;
-the chain's schedules, ``q_chain``, run in plain PyTorch as
+s8 wgmma loop, FFN-in writing the hidden's row maxima a 128 columns beside
+it; the chain, ``q_chain``, runs in plain PyTorch as
 ``encoder_layer_q_schedule_plain``); on a CPU tensor it runs its plain
 version, which rounds where the kernels round.  ``encoder_attention`` at
 head width 64 runs on the warp-specialised wgmma attention loop
@@ -52,26 +52,13 @@ HEAD_DIMS = (32, 64)  # head widths the CUDA attention kernel is built for
 ATT_TILE_Q = 128  # encoder_attention's query tile at head width 64
 ACT_IDS = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 _EPI_BIAS, _EPI_BIAS_ACT, _EPI_BIAS_RES = 0, 1, 2
-_QEPI = {"bf16": 0, "act": 1, "res": 2, "act_codes": 3, "act_max": 4}
+_QEPI = {"bf16": 0, "res": 1, "act_max": 2}
 Q_TILE_M = 128  # the int8 GEMM's output tile rows
 Q_STAGE_K = 128  # int8 k of one stage of its ring
 Q_STEP_K = 32  # k of one s8 wgmma
-Q_TILE_N = 256  # the plain schedules' tile width (the card: 128 or 256)
-# The W8A8 chain's schedules on the card: "h_f32" (LN1 writes y's codes;
-# FFN-in writes h f32 and each row's largest |h| per column tile, from which
-# h's row quantization takes its scales and reads h once) and the variants
-# that ab_chip.py measures against it: "two_pass" (FFN-in walks each row
-# tile twice and writes h's codes; h never reaches device memory) and
-# "rowquant" (every product's input row-quantized by a launch of its own)
-Q_SCHEDULES = ("h_f32", "two_pass", "rowquant")
-Q_SCHEDULE = "h_f32"
-# The int8 GEMM's loop on the card: "pingpong" (each consumer warpgroup on
-# whole 128 x 128 tiles of its own, one's epilogue beside the other's
-# products; FFN-in, whose activation epilogue is arithmetic rather than
-# memory traffic, stays cooperative) or, the variant that ab_chip.py
-# measures, "cooperative" (both on each 128 x 256 tile, every GEMM)
-Q_LOOPS = ("cooperative", "pingpong")
-Q_LOOP = "pingpong"
+# The int8 GEMM's narrow output tile width (its wide one is 256), and the
+# columns that each of FFN-in's row maxima spans, whatever the tile's width
+Q_TILE_N = 128
 
 
 def act_fn(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -369,43 +356,17 @@ def layernorm_q_plain(o: torch.Tensor, gamma, beta, eps: float):
     return (y, *quantize_rows_plain(y))
 
 
-def ffn_in_two_pass_plain(y_codes: torch.Tensor, sy: torch.Tensor,
-                          w1_t: torch.Tensor, s1: torch.Tensor,
-                          b1: torch.Tensor, act: str,
-                          tile_n: int = Q_TILE_N):
-    """(codes [M, I], scales [M]) of h = act(qgemm_plain(y_codes, ...)) on
-    the FFN-in kernel's two passes: pass 0 computes each column tile of
-    ``tile_n`` (the last may be partial) and keeps only each row's largest
-    |h| in it (the partial maxima [n_tiles, M]), reduced over the tiles to
-    the row scale s = max(largest, 1e-8) / 127; pass 1 computes each tile
-    again and writes round(h / s) half to even."""
-    I = w1_t.shape[0]
-
-    def tile(n0):
-        cols = slice(n0, n0 + tile_n)
-        return act_fn(qgemm_plain(y_codes, sy, w1_t[cols], s1[cols],
-                                  b1[cols]), act)
-
-    starts = range(0, I, tile_n)
-    partial = torch.stack([tile(n0).abs().amax(dim=1) for n0 in starts])
-    m = partial.amax(dim=0).clamp_min(1e-8)
-    s = m / torch.full_like(m, 127.0)
-    codes = torch.cat([torch.round(tile(n0) / s[:, None]).to(torch.int8)
-                       for n0 in starts], dim=1)
-    return codes, s
-
-
-def row_tile_maxima_plain(h: torch.Tensor, tile_n: int = Q_TILE_N):
-    """The FFN-in epilogue's per-tile row maxima of h [M, N]: the largest
-    |h| of each row in each column tile of ``tile_n`` (the last may be
-    partial), [n_tiles, M]."""
+def row_tile_maxima_plain(h: torch.Tensor):
+    """The FFN-in epilogue's row maxima of h [M, N]: the largest |h| of
+    each row in each ``Q_TILE_N`` columns (the last span may be partial),
+    [ceil(N / Q_TILE_N), M]."""
     return torch.stack([t.abs().amax(dim=1)
-                        for t in h.split(tile_n, dim=1)])
+                        for t in h.split(Q_TILE_N, dim=1)])
 
 
 def quantize_rows_from_maxima_plain(h: torch.Tensor, partial: torch.Tensor):
-    """``quantize_rows_plain(h)`` from the per-tile row maxima ``partial``
-    [n_tiles, M] of h (``row_tile_maxima_plain``): the scale is that of the
+    """``quantize_rows_plain(h)`` from the row maxima ``partial`` [n, M] of
+    h (``row_tile_maxima_plain``): the scale is that of the
     largest, and h is read once for the codes."""
     m = partial.amax(dim=0, keepdim=True).t().clamp_min(1e-8)
     s = m / torch.full_like(m, 127.0)
@@ -439,19 +400,14 @@ def encoder_layer_q_stages_plain(x: torch.Tensor, w: dict,
 
 def encoder_layer_q_schedule_plain(x: torch.Tensor, w: dict,
                                    mask: torch.Tensor, num_heads: int,
-                                   eps: float, act: str,
-                                   schedule: str | None = None,
-                                   tile_n: int = Q_TILE_N) -> dict:
+                                   eps: float, act: str) -> dict:
     """``encoder_layer_q_stages`` in plain PyTorch: the launches of
-    ``q_chain(schedule)``, each by its plain version (the int8 GEMMs by
+    ``q_chain()``, each by its plain version (the int8 GEMMs by
     ``qgemm_plain``, LN1 with its codes by ``layernorm_q_plain``, FFN-in's
-    per-tile row maxima and the codes taken from them by
-    ``row_tile_maxima_plain`` and ``quantize_rows_from_maxima_plain``, the
-    two-pass FFN-in by ``ffn_in_two_pass_plain``, over column tiles of
-    ``tile_n``), with the same intermediates and dtypes.  Every schedule
-    rounds where ``encoder_layer_q_plain`` does, so ``out`` equals its."""
-    schedule = schedule or Q_SCHEDULE
-    q_chain(schedule)
+    row maxima and the codes taken from them by ``row_tile_maxima_plain``
+    and ``quantize_rows_from_maxima_plain``), with the same intermediates
+    and dtypes.  It rounds where ``encoder_layer_q_plain`` does, so ``out``
+    equals its."""
     B, S, D = x.shape
     M, dt = B * S, x.dtype
 
@@ -471,16 +427,9 @@ def encoder_layer_q_schedule_plain(x: torch.Tensor, w: dict,
     st["o"] = gemm(st["ctx_q"], "o", x.reshape(M, D))
     st["y"], *y_q = layernorm_q_plain(st["o"], w["ln1_s"], w["ln1_b"], eps)
     st["y_q"] = tuple(y_q)
-    if schedule == "two_pass":
-        st["h_q"] = ffn_in_two_pass_plain(*st["y_q"], w["w1_t"], w["s1"],
-                                          w["b1"], act, tile_n)
-    else:
-        st["h"] = act_fn(gemm(st["y_q"], "ffn_in"), act)
-        if schedule == "h_f32":
-            st["h_max"] = row_tile_maxima_plain(st["h"], tile_n)
-            st["h_q"] = quantize_rows_from_maxima_plain(st["h"], st["h_max"])
-        else:
-            st["h_q"] = quantize_rows_plain(st["h"])
+    st["h"] = act_fn(gemm(st["y_q"], "ffn_in"), act)
+    st["h_max"] = row_tile_maxima_plain(st["h"])
+    st["h_q"] = quantize_rows_from_maxima_plain(st["h"], st["h_max"])
     st["f"] = gemm(st["h_q"], "ffn_out", st["y"])
     st["out"] = _ln(st["f"], w["ln2_s"], w["ln2_b"], eps).to(dt) \
         .reshape(B, S, D)
@@ -689,19 +638,11 @@ def encoder_layer_prebias(x: torch.Tensor, qkv: torch.Tensor,
     return out
 
 
-def q_chain(schedule: str | None = None) -> tuple:
-    """The launches of one ``encoder_layer_q`` call on the card, in order,
-    on ``schedule`` (default ``Q_SCHEDULE``)."""
-    schedule = schedule or Q_SCHEDULE
-    if schedule not in Q_SCHEDULES:
-        raise ValueError(f"W8A8 schedule {schedule!r} not in {Q_SCHEDULES}")
-    ln1 = ("LN1", "rowquant y") if schedule == "rowquant" \
-        else ("LN1 + codes",)
-    ffn_in = {"h_f32": ("FFN-in GEMM + row maxima", "rowquant h"),
-              "two_pass": ("FFN-in GEMM x2 + codes",),
-              "rowquant": ("FFN-in GEMM", "rowquant h")}[schedule]
+def q_chain() -> tuple:
+    """The launches of one ``encoder_layer_q`` call on the card, in order."""
     return ("rowquant x", "qkv GEMM", "attention", "rowquant ctx", "o GEMM",
-            *ln1, *ffn_in, "FFN-out GEMM", "LN2")
+            "LN1 + codes", "FFN-in GEMM + row maxima", "rowquant h",
+            "FFN-out GEMM", "LN2")
 
 
 def check_qgemm_shape(fn: str, N: int, K: int) -> None:
@@ -712,37 +653,23 @@ def check_qgemm_shape(fn: str, N: int, K: int) -> None:
                          f"and K % 16 == 0; got N={N}, K={K}")
 
 
-def qgemm_tile_n(M: int, N: int, epi: str = "res") -> int:
-    """The output tile width (128 or 256) that the int8 GEMM of
-    ``csrc/encoder_layer_q.cu`` takes for an [M, N] product on this card
-    on ``Q_LOOP``."""
-    return _build.function("encoder_qgemm_tile_n")(M, N, _QEPI[epi],
-                                                    Q_LOOPS.index(Q_LOOP))
-
-
 def qgemm(a_codes: torch.Tensor, sa: torch.Tensor, w_t: torch.Tensor,
           sw: torch.Tensor, bias: torch.Tensor, epi: str, act: str = "gelu",
           res=None):
     """One int8 GEMM of the W8A8 chain: v = ``qgemm_plain(a_codes, sa,
     w_t, sw, bias)`` on a_codes [M, K] and w_t [N, K] int8 with f32 row,
-    column and bias vectors, then by ``epi``: "bf16" bf16(v); "act" act(v)
-    f32; "res" v + res (bf16 or f32 [M, N]) f32; "act_codes" the codes and
-    row scales of act(v) (``quantize_rows_plain``), which the card computes
-    in two passes without writing act(v); "act_max" (act(v), the rows'
-    largest |act(v)| in each column tile [n_tiles, M]; tiles of
-    ``qgemm_tile_n`` columns on the card, ``Q_TILE_N`` on the CPU).  On a
-    CPU tensor the plain version."""
+    column and bias vectors, then by ``epi``: "bf16" bf16(v); "res" v + res
+    (bf16 or f32 [M, N]) f32; "act_max" (act(v) f32, the rows' largest
+    |act(v)| in each ``Q_TILE_N`` columns [N / Q_TILE_N, M]).  On a CPU
+    tensor the plain version."""
     if epi not in _QEPI:
         raise ValueError(f"qgemm: epi {epi!r} not in {tuple(_QEPI)}")
     if a_codes.device.type == "cpu":
         v = qgemm_plain(a_codes, sa, w_t, sw, bias, res)
-        if epi in ("bf16", "res"):
-            return v.bfloat16() if epi == "bf16" else v
-        h = act_fn(v, act)
-        if epi == "act_codes":
-            return quantize_rows_plain(h)
-        return (h, row_tile_maxima_plain(h, Q_TILE_N)) if epi == "act_max" \
-            else h
+        if epi == "act_max":
+            h = act_fn(v, act)
+            return h, row_tile_maxima_plain(h)
+        return v.bfloat16() if epi == "bf16" else v
     _on_card("qgemm", a_codes)
     M, K = a_codes.shape
     N = w_t.shape[0]
@@ -768,23 +695,18 @@ def _qgemm_cuda(a_codes, sa, w_t, sw, bias, epi: str, act_id: int, res,
     """``qgemm`` on the card (operands checked): one launch."""
     M, K = a_codes.shape
     N, dev = w_t.shape[0], a_codes.device
-    dtype = {"bf16": torch.bfloat16, "act_codes": torch.int8}.get(
-        epi, torch.float32)
-    out = torch.empty(M, N, dtype=dtype, device=dev)
-    scale = None
-    if epi == "act_codes":
-        scale = torch.empty(M, dtype=torch.float32, device=dev)
-    elif epi == "act_max":
-        scale = torch.empty(N // qgemm_tile_n(M, N, epi), M,
-                            dtype=torch.float32, device=dev)
+    out = torch.empty(M, N, device=dev, dtype=torch.bfloat16
+                      if epi == "bf16" else torch.float32)
+    maxima = torch.empty(N // Q_TILE_N, M, dtype=torch.float32, device=dev) \
+        if epi == "act_max" else None
     _build.check(_build.function("encoder_qgemm")(
         a_codes.data_ptr(), w_t.data_ptr(), sa.data_ptr(), sw.data_ptr(),
         bias.data_ptr(), None if res is None else res.data_ptr(),
-        out.data_ptr(), None if scale is None else scale.data_ptr(), M, N, K,
-        _QEPI[epi], act_id, int(res is not None and res.dtype ==
-                                torch.float32), Q_LOOPS.index(Q_LOOP), st),
+        out.data_ptr(), None if maxima is None else maxima.data_ptr(), M, N,
+        K, _QEPI[epi], act_id, int(res is not None and res.dtype ==
+                                   torch.float32), st),
         f"int8 gemm ({epi})")
-    return out if scale is None else (out, scale)
+    return out if maxima is None else (out, maxima)
 
 
 def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
@@ -815,17 +737,13 @@ def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
 
 
 def encoder_layer_q_stages(x: torch.Tensor, w: dict, mask: torch.Tensor,
-                           num_heads: int, eps: float, act: str,
-                           schedule: str | None = None) -> dict:
+                           num_heads: int, eps: float, act: str) -> dict:
     """The W8A8 kernel chain of ``encoder_layer_q`` (operands checked
-    there) on ``schedule`` (``q_chain``'s launches), with its
-    intermediates: qkv [M, 3D] and ctx [M, D] bf16; o (the o GEMM's output),
-    y (LN1's) and f (the FFN-out GEMM's) [M, D] f32; out [B, S, D] bf16; and
-    (codes, row scales) of each product's input: x_q, ctx_q, y_q, h_q; h
-    [M, I] f32 where the schedule writes it, and h_max (FFN-in's per-tile
-    row maxima [n_tiles, M]) on "h_f32"."""
-    schedule = schedule or Q_SCHEDULE
-    q_chain(schedule)
+    there; ``q_chain``'s launches), with its intermediates: qkv [M, 3D] and
+    ctx [M, D] bf16; o (the o GEMM's output), y (LN1's) and f (the FFN-out
+    GEMM's) [M, D] f32; h [M, I] f32 and h_max (FFN-in's row maxima
+    [I / Q_TILE_N, M]); out [B, S, D] bf16; and (codes, row scales) of each
+    product's input: x_q, ctx_q, y_q, h_q."""
     B, S, D = x.shape
     I = w["w1_t"].shape[0]
     i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
@@ -861,30 +779,15 @@ def encoder_layer_q_stages(x: torch.Tensor, w: dict, mask: torch.Tensor,
     stages["ctx_q"] = rowquant(stages["ctx"])
     stages["o"] = gemm(stages["ctx_q"], "o", "res", x)
     y = torch.empty(M, D, dtype=f32, device=dev)
-    if schedule == "rowquant":
-        chk(_build.function("encoder_layernorm")(
-            stages["o"].data_ptr(), w["ln1_s"].data_ptr(),
-            w["ln1_b"].data_ptr(), torch.empty_like(y, dtype=bf).data_ptr(),
-            y.data_ptr(), M, D, eps, st), "layernorm 1")
-        stages["y_q"] = rowquant(y)
-    else:
-        yq = torch.empty(M, D, dtype=i8, device=dev)
-        sy = torch.empty(M, dtype=f32, device=dev)
-        chk(_build.function("encoder_layernorm_q")(
-            stages["o"].data_ptr(), w["ln1_s"].data_ptr(),
-            w["ln1_b"].data_ptr(), y.data_ptr(), yq.data_ptr(),
-            sy.data_ptr(), M, D, eps, st), "layernorm 1 + codes")
-        stages["y_q"] = (yq, sy)
-    stages["y"] = y
-    if schedule == "two_pass":
-        stages["h_q"] = gemm(stages["y_q"], "ffn_in", "act_codes")
-    elif schedule == "h_f32":
-        stages["h"], stages["h_max"] = gemm(stages["y_q"], "ffn_in",
-                                            "act_max")
-        stages["h_q"] = rowquant(stages["h"], stages["h_max"])
-    else:
-        stages["h"] = gemm(stages["y_q"], "ffn_in", "act")
-        stages["h_q"] = rowquant(stages["h"])
+    yq = torch.empty(M, D, dtype=i8, device=dev)
+    sy = torch.empty(M, dtype=f32, device=dev)
+    chk(_build.function("encoder_layernorm_q")(
+        stages["o"].data_ptr(), w["ln1_s"].data_ptr(), w["ln1_b"].data_ptr(),
+        y.data_ptr(), yq.data_ptr(), sy.data_ptr(), M, D, eps, st),
+        "layernorm 1 + codes")
+    stages["y"], stages["y_q"] = y, (yq, sy)
+    stages["h"], stages["h_max"] = gemm(stages["y_q"], "ffn_in", "act_max")
+    stages["h_q"] = rowquant(stages["h"], stages["h_max"])
     stages["f"] = gemm(stages["h_q"], "ffn_out", "res", y)
     out = torch.empty(B, S, D, dtype=bf, device=dev)
     chk(_build.function("encoder_layernorm")(

@@ -746,9 +746,9 @@ def _bitwise_checks(ea, kern: dict, w: dict, x, act: str) -> dict:
 
     h_plain = ea.act_fn(gemm("y_q", "w1_t", "s1", "b1"), act)
     maxima = {}
-    if "h_max" in kern:  # FFN-in's per-tile row maxima, reduced
-        maxima["h_max_equal"] = torch.equal(kern["h_max"].amax(0),
-                                            kern["h"].abs().amax(1))
+    if "h_max" in kern:  # FFN-in's row maxima, one a 128 columns
+        maxima["h_max_equal"] = torch.equal(
+            kern["h_max"], ea.row_tile_maxima_plain(kern["h"]))
     return {**maxima,
         "x_codes_equal": same(kern["x_q"], ea.quantize_rows_plain(
             x.view(M, D))),
@@ -767,11 +767,9 @@ def _bitwise_checks(ea, kern: dict, w: dict, x, act: str) -> dict:
     }
 
 
-def check_encoder_layer_q(results: dict, dev, schedule=None) -> None:
-    """The W8A8 layer at Q_SHAPES (on ``schedule``: "NAME", one of the
-    tree's ``Q_SCHEDULES``, optionally with ":LOOP", one of its
-    ``Q_LOOPS``; None: its defaults), with the intermediates of the
-    kernel chain held against the plain version's: the codes and row scales
+def check_encoder_layer_q(results: dict, dev) -> None:
+    """The W8A8 layer at Q_SHAPES, with the intermediates of the kernel
+    chain held against the plain version's: the codes and row scales
     of each product's input and the qkv, o and FFN-out outputs fed the
     chain's own codes, bit for bit (``_bitwise_checks``); how many bf16
     context values and int8 codes of ctx, y and h differ from the plain
@@ -787,11 +785,6 @@ def check_encoder_layer_q(results: dict, dev, schedule=None) -> None:
     rnd = _rnd(gen, dev)
     per_shape = []
     weights = {}
-    if schedule:  # "NAME", "NAME:LOOP" or ":LOOP"
-        name, _, loop = schedule.partition(":")
-        ea.Q_SCHEDULE = name or ea.Q_SCHEDULE
-        if loop:
-            ea.Q_LOOP = loop
     for (D, H, I), (B, S) in Q_SHAPES:
         if D not in weights:
             weights[D] = ea.fuse_layer_q(quantize_encoder_layers_w8a8(
@@ -868,10 +861,7 @@ def check_encoder_layer_q(results: dict, dev, schedule=None) -> None:
         t_ops = (int8_ops / PEAK_INT8_OPS + bf16_ops / PEAK_BF16_FLOPS) * 1e3
         t_bytes = (2 * M * D * 2 + (4 * D * D + 2 * D * I)
                    + (6 * D + 2 * I) * 4 + B * S * 4) / PEAK_BYTES * 1e3
-        row = {"B": B, "S": S, "D": D, "H": H,
-               "schedule": getattr(ea, "Q_SCHEDULE", None),
-               "loop": getattr(ea, "Q_LOOP", None),
-               "max_abs_err": max_err,
+        row = {"B": B, "S": S, "D": D, "H": H, "max_abs_err": max_err,
                "mean_abs_err": mean_err, "tol": LAYER_TOL,
                "mean_tol": Q_MEAN_TOL, **bitwise, **cause,
                "fed_ctx_tol": LAYER_TOL, "fed_ctx_mean_tol": LAYER_MEAN_TOL,
@@ -884,14 +874,6 @@ def check_encoder_layer_q(results: dict, dev, schedule=None) -> None:
                "gemm_device_ms": None if split is None else sum(
                    v for k, v in split.items() if "GEMM" in k),
                "int_mm_device_ms": int_mm_device_ms}
-        if hasattr(ea, "qgemm_tile_n"):
-            ffn_in = {"two_pass": "act_codes", "rowquant": "act"}.get(
-                ea.Q_SCHEDULE, "act_max")
-            row["gemm_tile_n"] = {name: ea.qgemm_tile_n(M, N, epi) for
-                                  name, N, epi in (
-                                      ("qkv", 3 * D, "bf16"), ("o", D, "res"),
-                                      ("ffn_in", I, ffn_in),
-                                      ("ffn_out", D, "res"))}
         emit({"phase": "kernel_check", "kernel": "encoder_layer_q", **row})
         per_shape.append(row)
         where = f"encoder_layer_q D{D} B{B} S{S}"

@@ -3,17 +3,17 @@
 ``csrc/encoder_layer_q.cu`` runs the layer as a chain of launches
 (``encoder_attention.q_chain``): int8 GEMMs on the s8 wgmma loop (128-row
 output tiles, stages of 128 k, four k32 products a stage, exact int32
-sums), LN1 writing y's codes and row scale, and the FFN-in GEMM either
-writing h with each row's largest |h| per column tile (from which h's row
-quantization takes its scale and reads h once) or walking each row tile
-twice and writing h's codes.  ``encoder_layer_q_schedule_plain`` runs the
+sums), LN1 writing y's codes and row scale, and the FFN-in GEMM writing h
+with each row's largest |h| in each 128 columns, from which h's row
+quantization takes its scale and reads h once.
+``encoder_layer_q_schedule_plain`` runs the
 same chain from the plain version of each launch; here it and its pieces are
 held against ``quantize_rows_plain``, ``_qdot_plain``, JAX's ``_qdot``
 (``bergen_tpu/ops/encoder_attention.py``) called on arrays and JAX's
 ``encoder_layer_q`` in interpret mode, on numpy inputs made from a seed.
 
 Everything but the last comparison is bit for bit: int32 sums are exact in
-any order, and every schedule rounds at the same points.  Against JAX's
+any order, and the chain rounds where the plain layer does.  Against JAX's
 kernel the layer takes the limits of ``tests/test_torch_encoder_q.py``
 (2e-3 absolute on at least 98% of rows, 0.05 on every element: JAX's erf
 and LayerNorm sums round differently, and a code on a rounding edge flips
@@ -116,47 +116,29 @@ def test_ln1_codes_equal_quantize_rows():
     np.testing.assert_array_equal(s.numpy(), np.asarray(sj)[:, 0])
 
 
-# (M, I, tile_n): ragged M, I not a multiple of the tile
-FFN_IN = [(37, 384, 256), (130, 640, 256), (129, 384, 128), (8, 256, 256)]
+# (M, I): ragged M, I not a multiple of the 256-wide tile
+FFN_IN = [(37, 384), (130, 640), (129, 384), (8, 256)]
 
 
-@pytest.mark.parametrize("act", ["gelu", "relu"])
-@pytest.mark.parametrize("M,I,tile_n", FFN_IN)
-def test_ffn_in_two_passes_give_the_codes_of_h(M, I, tile_n, act):
-    """Pass 0's partial row maxima reduced over the column tiles, then pass
-    1's codes, equal ``quantize_rows_plain(act(h))`` bit for bit."""
-    rng = np.random.default_rng(M + I)
-    D = 128
-    y_codes, sy = ea.quantize_rows_plain(_rows(rng, M, D))
-    w1_t = _codes(rng, I, D)
-    s1, b1 = _vectors(rng, I)
-    h = ea.act_fn(ea.qgemm_plain(y_codes, sy, w1_t, s1, b1), act)
-    want = ea.quantize_rows_plain(h)
-    codes, s = ea.ffn_in_two_pass_plain(y_codes, sy, w1_t, s1, b1, act,
-                                        tile_n)
-    assert torch.equal(codes, want[0]) and torch.equal(s, want[1])
-
-
-@pytest.mark.parametrize("act", ["gelu", "relu"])
-@pytest.mark.parametrize("M,I,tile_n", FFN_IN)
-def test_row_maxima_give_the_codes_of_h(M, I, tile_n, act):
-    """FFN-in's one pass: the per-tile row maxima it writes beside h, reduced
-    by the row quantization, give ``quantize_rows_plain(h)`` bit for bit,
-    and so does the kernel's CPU wrapper."""
+@pytest.mark.parametrize("act", sorted(ea.ACT_IDS))
+@pytest.mark.parametrize("M,I", FFN_IN)
+def test_row_maxima_give_the_codes_of_h(M, I, act):
+    """FFN-in's row maxima, one a row for each 128 columns, reduced by h's
+    row quantization, give ``quantize_rows_plain(h)`` bit for bit, and the
+    kernel's CPU wrapper returns the same h and maxima."""
     rng = np.random.default_rng(M * I)
     D = 128
     y_codes, sy = ea.quantize_rows_plain(_rows(rng, M, D))
     w1_t = _codes(rng, I, D)
     s1, b1 = _vectors(rng, I)
     h = ea.act_fn(ea.qgemm_plain(y_codes, sy, w1_t, s1, b1), act)
-    partial = ea.row_tile_maxima_plain(h, tile_n)
-    assert partial.shape == (-(-I // tile_n), M)
+    partial = ea.row_tile_maxima_plain(h)
+    assert partial.shape == (I // 128, M)
     codes, s = ea.quantize_rows_from_maxima_plain(h, partial)
     want = ea.quantize_rows_plain(h)
     assert torch.equal(codes, want[0]) and torch.equal(s, want[1])
     got_h, got_max = ea.qgemm(y_codes, sy, w1_t, s1, b1, "act_max", act)
-    assert torch.equal(got_h, h)
-    assert torch.equal(got_max.amax(dim=0), h.abs().amax(dim=1))
+    assert torch.equal(got_h, h) and torch.equal(got_max, partial)
 
 
 def _layer(rng, D, I, std=0.05):
@@ -186,11 +168,11 @@ def _quantized(rng, D, I):
     return jconvert.quantize_encoder_layers_w8a8(tree)["layers"][0]
 
 
-@pytest.mark.parametrize("schedule", ea.Q_SCHEDULES)
+@pytest.mark.parametrize("act", sorted(ea.ACT_IDS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_schedule_equals_plain_layer(schedule, dtype):
-    """Each schedule's chain, launch by launch in plain PyTorch, gives the
-    plain layer's output bit for bit, and each product's input codes equal
+def test_schedule_equals_plain_layer(act, dtype):
+    """The chain, launch by launch in plain PyTorch, gives the plain
+    layer's output bit for bit, and each product's input codes equal
     ``quantize_rows_plain`` of what it quantizes."""
     rng = np.random.default_rng(7)
     D, I, H, B, S = 128, 384, 2, 3, 40  # M 120: one ragged row tile
@@ -199,9 +181,8 @@ def test_schedule_equals_plain_layer(schedule, dtype):
         .to(dtype)
     mask = torch.ones(B, S, dtype=torch.int32)
     mask[1, 30:] = 0
-    st = ea.encoder_layer_q_schedule_plain(x, w, mask, H, 1e-12, "gelu",
-                                           schedule, tile_n=256)
-    ref = ea.encoder_layer_q_plain(x, w, mask, H, 1e-12, "gelu")
+    st = ea.encoder_layer_q_schedule_plain(x, w, mask, H, 1e-12, act)
+    ref = ea.encoder_layer_q_plain(x, w, mask, H, 1e-12, act)
     assert st["out"].dtype == dtype and torch.equal(st["out"], ref)
     M = B * S
     for key, src in (("x_q", x.reshape(M, D)), ("ctx_q", st["ctx"]),
@@ -209,17 +190,17 @@ def test_schedule_equals_plain_layer(schedule, dtype):
         want = ea.quantize_rows_plain(src)
         assert all(torch.equal(g, t) for g, t in zip(st[key], want)), key
     h = ea.act_fn(ea.qgemm_plain(*st["y_q"], w["w1_t"], w["s1"], w["b1"]),
-                  "gelu")
+                  act)
+    assert torch.equal(st["h"], h)
+    assert torch.equal(st["h_max"], ea.row_tile_maxima_plain(h))
     want = ea.quantize_rows_plain(h)
     assert all(torch.equal(g, t) for g, t in zip(st["h_q"], want))
-    assert ("h" in st) == (schedule != "two_pass")
-    assert ("h_max" in st) == (schedule == "h_f32")
 
 
 @pytest.mark.parametrize("act,H", [("gelu", 2), ("relu", 4)])
 def test_schedule_matches_jax_kernel(act, H):
-    """The default schedule against JAX's Pallas ``encoder_layer_q`` in
-    interpret mode, on the same f32 inputs."""
+    """The chain against JAX's Pallas ``encoder_layer_q`` in interpret
+    mode, on the same f32 inputs."""
     rng = np.random.default_rng(30 + H)
     B, S, D, I = 4, 64, 128, 384
     ql = _quantized(rng, D, I)
@@ -238,18 +219,12 @@ def test_schedule_matches_jax_kernel(act, H):
     assert err.max() <= ATOL_FLIPPED_ROW, err.max()
 
 
-def test_unknown_schedule_raises():
-    with pytest.raises(ValueError, match="schedule"):
-        ea.q_chain("fused_everything")
-
-
 def test_chain_launches():
-    """The default chain is ten launches (the eleven of the mma.sync chain
-    less y's row quantization, which LN1 took); the two-pass one nine."""
+    """The chain is ten launches (the eleven of the mma.sync chain less y's
+    row quantization, which LN1 took), four of them int8 GEMMs."""
     assert len(ea.q_chain()) == 10
-    assert len(ea.q_chain("two_pass")) == 9
-    assert len(ea.q_chain("rowquant")) == 11
     assert sum("GEMM" in n for n in ea.q_chain()) == 4
+    assert not any(n == "rowquant y" for n in ea.q_chain())
 
 
 # ------------------------------------------------------ the shape envelope
@@ -314,10 +289,11 @@ def test_qgemm_refuses_before_any_launch(no_launch, N, K):
                  res=_meta(M, N, dtype=torch.float32))
 
 
-@pytest.mark.parametrize("epi", ["bf16", "act", "res", "act_codes",
-                                 "act_max"])
-def test_qgemm_in_envelope_reaches_the_kernel(no_launch, epi):
-    M, N, K = 40, 384, 784  # K % 16 == 0 but not a stage multiple
+# K % 16 == 0 but not a stage multiple; bge-large's FFN-out
+@pytest.mark.parametrize("N,K", [(384, 784), (1024, 4096)])
+@pytest.mark.parametrize("epi", ["bf16", "res", "act_max"])
+def test_qgemm_in_envelope_reaches_the_kernel(no_launch, epi, N, K):
+    M = 40
     res = _meta(M, N, dtype=torch.bfloat16) if epi == "res" else None
     with pytest.raises(_Launch):
         ea.qgemm(_meta(M, K), _meta(M, dtype=torch.float32), _meta(N, K),
@@ -333,5 +309,5 @@ def test_qgemm_refuses_unknown_epilogue_and_residual(no_launch):
         ea.qgemm(*args, "gelu_codes")
     with pytest.raises(ValueError, match="residual"):
         ea.qgemm(*args, "res")
-    with pytest.raises(ValueError, match="act"):
-        ea.qgemm(*args, "act", act="tanh")
+    with pytest.raises(ValueError, match="unsupported act"):
+        ea.qgemm(*args, "act_max", act="tanh")
