@@ -5,6 +5,9 @@
     python3 ab_chip.py attention TREE [TREE ...]
     python3 ab_chip.py paths TREE [TREE ...]
     python3 ab_chip.py w8a8 TREE [TREE ...]
+    python3 ab_chip.py score_paged TREE [TREE ...]
+    python3 ab_chip.py serve_paged TREE [TREE ...]
+    python3 ab_chip.py sass TREE TREE
 
 A TREE is ``.`` (this checkout) or a directory that holds another version
 of ``bergen_tpu_torch/``, ``config/`` and ``tests/utdata/``, for example
@@ -29,9 +32,24 @@ tree (its kernels built there), runs one of this checkout's
 * ``w8a8``: ``check_encoder_layer_q`` (the W8A8 layer at its seven
   shapes, with the card's own time of each launch of its chain, the kernels
   a call and ``torch._int_mm``'s time for the four products alone);
+* ``score_paged``: ``check_pallas_score`` and ``check_paged_attention``
+  (the score GEMM at the retrieval shapes with ``torch.mm``'s time beside
+  it, and the paged partial in the ut1-like and ragged cases, each with
+  the card's own time, the kernels a call and, on this checkout's tree,
+  the splits chosen);
 * ``paths``: the ut1_eval and ut1_int4_llama2 runs of ``python -m
   bergen_tpu_torch`` (stage times), on checkpoints that this process
-  writes once, before the first tree, and deletes at the end.
+  writes once, before the first tree, and deletes at the end;
+* ``serve_paged``: the ut1_serve_mistral run with ``kv_cache=paged``,
+  then with the uniform cache (decode steps, paged kernel launches a
+  step, the 50 answers and their digest, stage times), on checkpoints
+  written the same way.
+
+``sass`` compiles each ``csrc/*.cu`` of the two trees to a cubin
+(``nvcc -cubin``, the build's target and flags) and compares their SASS
+function by function, with addresses, encodings and function names left
+out: one line a source, ``identical`` when every function's instructions
+are (the proof that an edit to shared code leaves a kernel as it was).
 
 Give the trees as A B B A so that drift of the host shows.  Every
 measurement is one JSON line on standard output, tagged with its tree and
@@ -40,8 +58,10 @@ its place in the order; the card's name and power limit come first.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -72,15 +92,38 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
     if phase == "w8a8":
         cs.check_encoder_layer_q({}, dev)
         return
+    cs.COUNT_KERNELS = tree == REPO
     if phase == "attention":
-        cs.COUNT_KERNELS = tree == REPO
         cs.check_flash_attention({}, dev)
         cs.check_encoder_attention({}, dev)
+        return
+    if phase == "score_paged":
+        cs.check_pallas_score({}, dev)
+        cs.check_paged_attention({}, dev)
         return
     with open(ckpt_json) as f:
         ckpt = json.load(f)
     work = tempfile.mkdtemp(prefix="ab_chip_")
     try:
+        if phase == "serve_paged":
+            from bergen_tpu_torch.ops import paged_attention as pa
+
+            for kv in ("paged", "uniform"):
+                pa.paged_partial.launches = 0
+                out = cs.run_ut1_serve_mistral(ckpt, os.path.join(work, kv),
+                                               kv)
+                steps = out["decode_steps"]
+                cs.emit({"phase": f"ut1_serve_mistral_{kv}",
+                         "decode_steps": steps,
+                         "paged_launches": pa.paged_partial.launches,
+                         "launches_per_step":
+                             pa.paged_partial.launches / steps,
+                         "responses_sha256": out["responses_sha256"],
+                         "responses": [r["response"] for r in cs._json(
+                             out["exp"], "eval_dev_out.json")],
+                         "wall_s": out["wall_s"], "stage_s": out["stage_s"]})
+                torch.cuda.empty_cache()
+            return
         for path, run in (("ut1_eval", cs.run_main_path),
                           ("ut1_int4_llama2", cs.run_ut1_int4_llama2)):
             out = run(ckpt, os.path.join(work, path))
@@ -91,13 +134,69 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _sass_functions(cubin: str) -> list[str]:
+    """The cubin's functions as instruction texts, sorted (names,
+    addresses and encodings left out)."""
+    from bergen_tpu_torch.ops import _build
+
+    objdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([objdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    funcs: list[list[str]] = []
+    for line in text.splitlines():
+        if re.match(r"\s*Function : ", line):
+            funcs.append([])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and funcs:
+            funcs[-1].append(" ".join(m.group(1).split()))
+    return sorted("\n".join(f) for f in funcs)
+
+
+def sass(trees: list[str]) -> None:
+    import chip_smoke as cs
+    from bergen_tpu_torch.ops import _build
+
+    work = tempfile.mkdtemp(prefix="ab_sass_")
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    names = [os.path.basename(p)
+             for p in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu")))]
+    try:
+        procs = []  # every build at once, as the kernels' own build does
+        for name in names:
+            for i, tree in enumerate(trees):
+                csrc = os.path.join(os.path.abspath(tree), "bergen_tpu_torch",
+                                    "csrc")
+                procs.append(subprocess.Popen(
+                    [_build._nvcc(), *flags, "-cubin", "-I", csrc, "-o",
+                     os.path.join(work, f"{i}.{name}.cubin"),
+                     os.path.join(csrc, name)]))
+        if any([p.wait() for p in procs]):
+            cs.fail("sass: nvcc failed")
+        for name in names:
+            funcs = [_sass_functions(os.path.join(work, f"{i}.{name}.cubin"))
+                     for i in range(2)]
+            cs.emit({"phase": "sass", "source": name, "trees": trees,
+                     "functions": [len(f) for f in funcs],
+                     "instructions": [sum(x.count("\n") + 1 for x in f)
+                                      for f in funcs],
+                     "identical": funcs[0] == funcs[1]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--child"]:
         _child(*sys.argv[2:5])
         return
-    if len(sys.argv) < 3 or sys.argv[1] not in ("decode_attention",
-                                                "kernels", "attention",
-                                                "w8a8", "paths"):
+    if sys.argv[1:2] == ["sass"] and len(sys.argv) == 4:
+        sys.path.insert(0, REPO)
+        sass(sys.argv[2:])
+        return
+    if len(sys.argv) < 3 or sys.argv[1] not in (
+            "decode_attention", "kernels", "attention", "w8a8",
+            "score_paged", "paths", "serve_paged"):
         sys.exit(__doc__)
     import torch
 
@@ -108,13 +207,16 @@ def main() -> None:
     phase, trees = sys.argv[1], sys.argv[2:]
     print(cs.card_line(), flush=True)
     ckpt_json = root = None
-    if phase == "paths":
+    if phase in ("paths", "serve_paged"):
         sys.path.insert(0, REPO)
         dev = torch.device("cuda", 0)
         root = os.path.join(REPO, "bergen_tpu_torch", "_build",
                             "ab_checkpoints")
         ckpt = cs.write_checkpoints(root, dev)
-        ckpt["llama2_7b"] = cs.write_llama2_7b(root, dev)
+        if phase == "paths":
+            ckpt["llama2_7b"] = cs.write_llama2_7b(root, dev)
+        else:
+            ckpt["mistral_7b"] = cs.write_mistral_7b(root, dev)
         torch.cuda.empty_cache()
         ckpt_json = os.path.join(root, "ckpt.json")
         with open(ckpt_json, "w") as f:

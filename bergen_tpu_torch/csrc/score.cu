@@ -8,64 +8,178 @@
 //
 // What bounds it on the H100: at the retrieval shapes (Q 2,048, D 768,
 // N 262,144) 2 * Q * D * N = 8.2e14 tensor-core operations, 0.83 ms at the
-// bf16 peak, against 2.1 GB of f32 scores written, 0.64 ms at the memory
-// rate: operations, barely.  Design: the encoder GEMMs' 128 x 128 tile loop
-// (common.cuh mma_tile: 256 threads, 8 warps of 64 x 32, a two-stage
-// cp.async ring over D in slices of 32, mma.sync m16n8k16 with f32
-// accumulation), reading corpus_t in its given [D, N] layout through
-// ldmatrix.trans; the epilogue stores each f32 accumulator pair as one
-// 8-byte write (an odd output width stores each value alone).  Query rows
-// past Q read as zero; N must be a multiple of 128 (the wrapper pads a
-// ragged corpus and keeps the first n_out columns).
-#include "common.cuh"
+// bf16 peak, against 2.1 GB of f32 scores written (0.64 ms at the memory
+// rate) and 0.4 GB of corpus read (0.12 ms): operations, barely, with the
+// writes close behind.  Design: wgmma.cuh's persistent main loop,
+// wg_gemm_kernel<256, B_MN, ScoreEpi, WgBf16, PP = false, M_FAST>:
+// * A is the queries [Q, D] (K-major, [128][64] TMA boxes); B is corpus_t
+//   as given, [D, N] row-major, read MN-major in [64 k][64 n] boxes, so the
+//   corpus needs no transposed copy;
+// * M_FAST walks the row (query) tiles of one column (corpus) tile
+//   together: the 132 blocks in flight share a few corpus tiles, so each
+//   is read from device memory once (0.4 GB) and the 3.1 MB of queries stay
+//   in L2.  The row-major walk read the corpus once per query tile, 16
+//   times (6.4 GB);
+// * 128 x 256 tiles on both consumer warpgroups: the products alone run at
+//   0.998 ms, where ping-pong's 128 x 128 tiles take 1.41;
+// * ScoreEpi stages each tile's f32 scores 32 columns at a time in one of
+//   two [128][32] boxes in the 128-byte swizzle (conflict-free), and one
+//   thread stores each box with TMA, whole 128-byte rows: 1.45 ms in all,
+//   level with torch.mm.  Stores straight from the accumulator took 1.70
+//   (8-byte pieces of eight rows an instruction), four boxes beside a
+//   ring of three stages 1.52, and neither ping-pong (each warpgroup's
+//   stores beside the other's products, 1.85) nor a 2-CTA cluster
+//   multicasting the corpus tile (1.96) nor starting half the SMs half a
+//   tile late (1.44 to 1.47) hid the 0.45 ms that the 2.1 GB of stores add
+//   to the products' 1.0 (PERF.md, PR 11).
+// Every product is the exact bf16 product, summed in f32 in one fixed k
+// order per element (no split-K).  TMA reads zeros past Q, N and D, and
+// drops the stores past Q and N, so any Q, any D % 8 == 0 and any
+// N % 8 == 0 (TMA's 16-byte row strides) take the kernel as they are; the
+// wrapper pads a corpus with N % 8 != 0 to the next multiple of 8.
+#include <stdlib.h>
+#include <string.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
-    score_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ct,
-                 float* __restrict__ out, int Q, int D, int N, int n_out) {
-  const int n0 = blockIdx.x * MMA_TILE, q0 = blockIdx.y * MMA_TILE;
-  float acc[4][4][4];
-  mma_tile<false, float>(q + (size_t)q0 * D, Q - q0, ct + n0, MMA_TILE, N, D,
-                         acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+constexpr int SCORE_BN = 256;
+
+// Measured-only variants (score_variants.py): MODE 0 stores nothing (the
+// products alone), 1 stores straight from the accumulator, 2 through the
+// TMA boxes; PP 128 x 128 ping-pong; MF false the row-major walk; groups
+// > 1 starts group g of the blocks g / groups of a tile late.
+template <int BN, int MODE>
+struct ScoreEpi {
+  static constexpr int BOX = WG_BM * 128;  // bytes of one [128][32] f32 box
+  static constexpr int SMEM = MODE == 2 ? 2 * BOX : 0;
+  CUtensorMap tma_c;  // out [Q, N] f32 in [128][32] boxes
+  float* out;
+  int Q, N, m_tiles, groups;
+  long long stagger;
+
+  __device__ __forceinline__ void finish(int ctid) const {
+    if (MODE == 2 && ctid == 0) bulk_wait<0, false>();
+  }
+
+  __device__ __forceinline__ void rows(const float (&acc)[BN / 2], int r,
+                                       int c0) const {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = q0 + wm * 64 + mi * 16 + g + half * 8;
+      const int row = r + 8 * half;
       if (row >= Q) continue;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-        float* o = out + (size_t)row * n_out + col;
-        if (col + 1 < n_out && n_out % 2 == 0) {
-          *reinterpret_cast<float2*>(o) =
-              make_float2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
-        } else {
-          if (col < n_out) o[0] = acc[mi][ni][half * 2];
-          if (col + 1 < n_out) o[1] = acc[mi][ni][half * 2 + 1];
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = c0 + 8 * j;
+        const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        if (MODE == 0) {
+          if (v0 == 12345.f) out[col] = v1;
+        } else if (col < N) {
+          __stcs(reinterpret_cast<float2*>(out + (size_t)row * N + col),
+                 make_float2(v0, v1));
         }
       }
     }
+  }
+
+  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2],
+                                             int mt, int nt, int wg, int ctid,
+                                             unsigned char* stage) const {
+    const int t = ctid & 3;
+    const int r0 = wg * 64 + ((ctid >> 5) & 3) * 16 + ((ctid & 31) >> 2);
+    if (groups > 1 && mt + nt * m_tiles == (int)blockIdx.x) {
+      const long long wait = stagger * (blockIdx.x % groups) / groups;
+      const long long t0 = clock64();
+      while (clock64() - t0 < wait) {
+      }
+    }
+    if (MODE != 2) {
+      rows(acc, mt * WG_BM + r0, nt * BN + 2 * t);
+      return;
+    }
+#pragma unroll
+    for (int p = 0; p < BN / 32; ++p) {  // passes of 32 columns
+      unsigned char* box = stage + (p & 1) * BOX;
+      if (ctid == 0) bulk_wait<1, true>();
+      consumer_sync();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * p + jj;
+        const int u = 2 * jj + (t >> 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half;
+          *reinterpret_cast<float2*>(box + r * 128 + ((u ^ (r & 7)) << 4) +
+                                     8 * (t & 1)) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      }
+      fence_proxy_async();
+      consumer_sync();
+      if (ctid == 0) {
+        tma_store_2d(&tma_c, box, nt * BN + 32 * p, mt * WG_BM);
+        bulk_commit();
+      }
+    }
+  }
+
+  __device__ __forceinline__ void team(const float (&acc)[2][BN / 2], int mt,
+                                       int nt, int, int ctid,
+                                       unsigned char*) const {
+    const int r0 = mt * WG_BM + 16 * (ctid >> 5) + ((ctid & 31) >> 2);
+    rows(acc[0], r0, nt * BN + 2 * (ctid & 3));
+    rows(acc[1], r0 + 64, nt * BN + 2 * (ctid & 3));
+  }
+};
+
+template <int BN, bool PP, int MODE, bool MF>
+int launch(const CUtensorMap& ta, const CUtensorMap& tb,
+           const CUtensorMap& tc, void* out, int Q, int D, int N,
+           cudaStream_t st) {
+  ScoreEpi<BN, MODE> epi{};
+  epi.tma_c = tc;
+  epi.out = static_cast<float*>(out);
+  epi.Q = Q;
+  epi.N = N;
+  epi.m_tiles = (Q + WG_BM - 1) / WG_BM;
+  epi.groups = getenv("SCORE_STAGGER") ? atoi(getenv("SCORE_STAGGER")) : 1;
+  epi.stagger = 1200LL * ((D + WG_BK - 1) / WG_BK);
+  return wg_gemm_launch<BN, /*B_MN=*/true, ScoreEpi<BN, MODE>, WgBf16, PP,
+                        MF>(ta, tb, (Q + WG_BM - 1) / WG_BM,
+                            (N + BN - 1) / BN, (D + WG_BK - 1) / WG_BK, epi,
+                            st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// queries [Q, D] bf16, corpus_t [D, N] bf16 (N % 128 == 0, D % 32 == 0),
-// both contiguous -> out [Q, n_out] f32, the first n_out <= N columns.
+// queries [Q, D] bf16, corpus_t [D, N] bf16 (D % 8 == 0, N % 8 == 0), both
+// contiguous -> out [Q, N] f32.
 int pallas_score(const void* q, const void* ct, void* out, int Q, int D,
-                 int N, int n_out, void* stream) {
-  if (N % MMA_TILE || D % MMA_BK || n_out > N)
+                 int N, void* stream) {
+  if (Q < 0 || D <= 0 || D % 8 || N % 8 || N < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(N / MMA_TILE, (Q + MMA_TILE - 1) / MMA_TILE);
-  score_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(ct),
-      static_cast<float*>(out), Q, D, N, n_out);
-  return static_cast<int>(cudaGetLastError());
+  if (Q == 0 || N == 0) return 0;
+  CUtensorMap ta, tb, tc;
+  int e = tma_map(&ta, q, TMA_BF16, Q, D, D, WG_BM, WG_BK);
+  if (e == 0) e = tma_map(&tb, ct, TMA_BF16, D, N, N, WG_BK, 64);
+  if (e == 0) e = tma_map(&tc, out, TMA_F32, Q, N, N, WG_BM, 32);
+  if (e != 0) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const char* v = getenv("SCORE_VARIANT");
+  if (v && !strcmp(v, "direct"))
+    return launch<256, false, 1, true>(ta, tb, tc, out, Q, D, N, st);
+  if (v && !strcmp(v, "nostore"))
+    return launch<256, false, 0, true>(ta, tb, tc, out, Q, D, N, st);
+  if (v && !strcmp(v, "pp"))
+    return launch<128, true, 1, true>(ta, tb, tc, out, Q, D, N, st);
+  if (v && !strcmp(v, "pp_nostore"))
+    return launch<128, true, 0, true>(ta, tb, tc, out, Q, D, N, st);
+  if (v && !strcmp(v, "rowmajor"))
+    return launch<256, false, 2, false>(ta, tb, tc, out, Q, D, N, st);
+  return launch<256, false, 2, true>(ta, tb, tc, out, Q, D, N, st);
 }
 
 }  // extern "C"

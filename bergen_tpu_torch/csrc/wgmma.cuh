@@ -3,13 +3,16 @@
 // (bin_topk.cu) and the W8A8 encoder GEMMs (encoder_layer_q.cu) run on;
 // int4_matmul.cu's prefill uses the pieces.
 //
-// The main loop, wg_gemm_kernel<BN, B_MN, Epi, T, PP>: C = A . B^T-or-B
-// over 128 x BN output tiles (BN 128 or 256), one fixed k order per output
-// element (no split-K, no atomics: runs repeat bit for bit), for element
-// type T: WgBf16 (bf16 operands, f32 sums, m64nBNk16) or WgS8 (int8
+// The main loop, wg_gemm_kernel<BN, B_MN, Epi, T, PP, M_FAST>: C = A .
+// B^T-or-B over 128 x BN output tiles (BN 128 or 256), one fixed k order
+// per output element (no split-K, no atomics: runs repeat bit for bit), for
+// element type T: WgBf16 (bf16 operands, f32 sums, m64nBNk16) or WgS8 (int8
 // operands, exact s32 sums, m64nBNk32, both operands K-major).
 // * One block per SM (grid = min(tiles, SMs)) walks the tiles t, t + grid,
-//   ... in the order row tile = t / n_tiles, column tile = t % n_tiles.
+//   ... in the order row tile = t / n_tiles, column tile = t % n_tiles, or
+//   with M_FAST (score.cu) row tile = t % m_tiles, column tile = t /
+//   m_tiles: the blocks in flight together then share a few column tiles,
+//   so each B tile is read from device memory once and the rest from L2.
 // * 384 threads: warpgroups 0 and 1 consume (rows 64 * wg .. + 63 of the
 //   tile, wgmma with a register accumulator), warpgroup 2 produces;
 //   setmaxnreg moves registers from the producer (40) to the consumers
@@ -595,14 +598,13 @@ struct WgRing {
 // the one two later).  Each warpgroup has its own epilogue scratch and
 // calls Epi::team(acc[2][BN / 2], mt, nt, wg, thread of the warpgroup,
 // scratch).
-template <int BN, bool B_MN, class Epi, class T, bool PP>
+template <int BN, bool B_MN, class Epi, class T, bool PP, bool M_FAST>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                    const __grid_constant__ CUtensorMap tma_b, int m_tiles,
                    int n_tiles, int k_stages,
                    const __grid_constant__ Epi epi) {
-  static_assert(!PP || (BN == 128 && !B_MN),
-                "ping-pong: 128 x 128 tiles, K-major B");
+  static_assert(!PP || BN == 128, "ping-pong: 128 x 128 tiles");
   using R = WgRing<BN, PP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -637,7 +639,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (threadIdx.x == 256) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / n_tiles * WG_BM, n0 = tile % n_tiles * BN;
+        const int m0 = (M_FAST ? tile % m_tiles : tile / n_tiles) * WG_BM,
+                  n0 = (M_FAST ? tile / m_tiles : tile % n_tiles) * BN;
         for (int ks = 0; ks < k_stages; ++ks, ++it) {
           const int slot = it % R::STAGES;
           mbar_wait(&empty[slot], ((it / R::STAGES) & 1) ^ 1);
@@ -660,7 +663,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
                      WG_REGS_CONSUMER)
                  : "memory");
-    constexpr uint64_t B_STEP = 32 >> 4;  // K-major B
+    constexpr uint64_t B_STEP = B_MN ? 2048 >> 4 : 32 >> 4;
     constexpr int K_STEPS = 4;
     typename T::Acc acc[2][BN / 2];  // rows 0-63 and 64-127 of the tile
     const int ctid = threadIdx.x & 127;
@@ -671,7 +674,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   {                                                                          \
     unsigned char* st = smem + slot * R::STAGE;                              \
     const uint64_t da = wg_desc(st);                                         \
-    const uint64_t db = wg_desc(st + R::A_BYTES);                            \
+    const uint64_t db = B_MN ? wg_desc_mn(st + R::A_BYTES)                   \
+                             : wg_desc(st + R::A_BYTES);                     \
     _Pragma("unroll") for (int kk = 0; kk < K_STEPS; ++kk) {                 \
       T::template mma<BN, B_MN>(acc[0], da + 2 * kk, db + B_STEP * kk,       \
                                 SCALE_D);                                    \
@@ -712,7 +716,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       mbar_arrive(&empty[(it - 1) % R::STAGES]);
-      epi.team(acc, tile / n_tiles, tile % n_tiles, wg, ctid, own);
+      if constexpr (M_FAST)
+        epi.team(acc, tile % m_tiles, tile / m_tiles, wg, ctid, own);
+      else
+        epi.team(acc, tile / n_tiles, tile % n_tiles, wg, ctid, own);
     }
 #undef WG_PP_STAGE
     epi.finish(ctid);
@@ -764,19 +771,23 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       wg_wait<0>();
       fence_acc(acc);
       mbar_arrive(&empty[(it - 1) % R::STAGES]);
-      epi(acc, tile / n_tiles, tile % n_tiles, wg, threadIdx.x, scratch);
+      if constexpr (M_FAST)
+        epi(acc, tile % m_tiles, tile / m_tiles, wg, threadIdx.x, scratch);
+      else
+        epi(acc, tile / n_tiles, tile % n_tiles, wg, threadIdx.x, scratch);
     }
     epi.finish(threadIdx.x);
   }
 }
 
-// Launches wg_gemm_kernel<BN, B_MN, Epi, T, PP> over m_tiles x n_tiles
-// tiles of K = T::BK * k_stages (A's map in
+// Launches wg_gemm_kernel<BN, B_MN, Epi, T, PP, M_FAST> over m_tiles x
+// n_tiles tiles of K = T::BK * k_stages (A's map in
 // [128][T::BK] boxes; B's in [64][64] boxes when B_MN, else [BN][T::BK]).
 // Returns a cudaError_t value: the launch's, or
 // cudaErrorInvalidConfiguration when the block would not be given the
 // registers that setmaxnreg moves (its consumers would wait for ever).
-template <int BN, bool B_MN, class Epi, class T = WgBf16, bool PP = false>
+template <int BN, bool B_MN, class Epi, class T = WgBf16, bool PP = false,
+          bool M_FAST = false>
 int wg_gemm_launch(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
                    int m_tiles, int n_tiles, int k_stages, const Epi& epi,
                    cudaStream_t st) {
@@ -785,13 +796,13 @@ int wg_gemm_launch(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
   static int ready = 0;
   if (!ready) {
     cudaFuncAttributes attr;
-    cudaError_t e =
-        cudaFuncGetAttributes(&attr, wg_gemm_kernel<BN, B_MN, Epi, T, PP>);
+    cudaError_t e = cudaFuncGetAttributes(
+        &attr, wg_gemm_kernel<BN, B_MN, Epi, T, PP, M_FAST>);
     if (e != cudaSuccess) return static_cast<int>(e);
     if ((attr.numRegs + 7) / 8 * 8 * WG_THREADS <
         WG_REGS_CONSUMER * 256 + WG_REGS_PRODUCER * 128)
       return static_cast<int>(cudaErrorInvalidConfiguration);
-    e = cudaFuncSetAttribute(wg_gemm_kernel<BN, B_MN, Epi, T, PP>,
+    e = cudaFuncSetAttribute(wg_gemm_kernel<BN, B_MN, Epi, T, PP, M_FAST>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -800,7 +811,8 @@ int wg_gemm_launch(const CUtensorMap& tma_a, const CUtensorMap& tma_b,
   const int tiles = m_tiles * n_tiles;
   if (tiles == 0) return 0;
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  wg_gemm_kernel<BN, B_MN, Epi, T, PP><<<grid, WG_THREADS, SMEM, st>>>(
-      tma_a, tma_b, m_tiles, n_tiles, k_stages, epi);
+  wg_gemm_kernel<BN, B_MN, Epi, T, PP, M_FAST>
+      <<<grid, WG_THREADS, SMEM, st>>>(tma_a, tma_b, m_tiles, n_tiles,
+                                       k_stages, epi);
   return static_cast<int>(cudaGetLastError());
 }

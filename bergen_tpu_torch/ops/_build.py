@@ -49,9 +49,10 @@ SIGNATURES = {
     "int4_matmul": ("int4_matmul", [_P] * 6 + [_I] * 4 + [_P]),
     "int4_decode_splits": ("int4_matmul", [_I] * 3),
     "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 11 + [_F, _P]),
-    "paged_partial": ("paged_attention", [_P] * 9 + [_I] * 6 + [_F, _P]),
+    "paged_partial": ("paged_attention", [_P] * 12 + [_I] * 7 + [_F, _P]),
+    "paged_partial_blocks_per_sm": ("paged_attention", []),
     "flash_attention_band": ("flash_band", [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "pallas_score": ("score", [_P] * 3 + [_I] * 4 + [_P]),
+    "pallas_score": ("score", [_P] * 3 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

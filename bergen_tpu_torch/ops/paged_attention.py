@@ -10,8 +10,11 @@ partial (acc, m, l) over the slot's full pages and another over its tail,
 and merges the two flash-style.
 
 The full-pages partial is ``paged_partial``: the kernel of
-``csrc/paged_attention.cu`` on a CUDA tensor, ``paged_partial_plain`` (the
-kernel's page-by-page online-softmax schedule in PyTorch) on a CPU tensor.
+``csrc/paged_attention.cu`` on a CUDA tensor, ``paged_partial_plain`` (JAX's
+page-by-page online-softmax schedule in PyTorch) on a CPU tensor.  The
+kernel cuts each (slot, KV head) pair's pages into ``paged_splits`` items,
+each with its own online softmax, merged in split order;
+``paged_partial_splits_plain`` is that schedule in PyTorch.
 ``paged_decode_attention`` routes by JAX's rule
 (``paged_attention.py:382-388``): the kernel at head width 128, the
 one-shot gather composition ``paged_partial_gather`` (JAX's
@@ -22,6 +25,8 @@ new arrays.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from bergen_tpu_torch.ops import _build
@@ -30,6 +35,7 @@ PAGE = 128
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128  # the head width the kernel is built for (JAX's rule)
 GROUPS = (1, 2, 4, 8)  # query heads per KV head the kernel is built for
+BLOCKS_PER_SM = 2      # the kernel's resident blocks an SM (its ring's size)
 
 
 # --------------------------------------------------------------------------- #
@@ -152,6 +158,73 @@ def paged_partial_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return acc.reshape(S, H, Dh), m.reshape(S, H), l.reshape(S, H)
 
 
+def paged_splits(S: int, KH: int, maxP: int, sm_count: int) -> int:
+    """The kernel's items per (slot, KV head) pair, from the shapes alone
+    (never from the page counts, which live on the card): enough blocks for
+    two waves of resident blocks, at most one page an item.  Item j takes
+    the run of ``ceil(maxP / n_split)`` pages from ``starts // PAGE + j *
+    run``."""
+    pairs = S * KH
+    if pairs == 0:
+        return 1
+    waves = 2 * BLOCKS_PER_SM * sm_count
+    return max(1, min(maxP, -(-waves // pairs)))
+
+
+def paged_item_pages(starts: torch.Tensor, n_pages: torch.Tensor,
+                     maxP: int, n_split: int):
+    """The kernel's items: (lo, hi) [n_split, S], item j of slot s walking
+    pages lo[j, s] .. hi[j, s] - 1 (none where hi <= lo), the runs of
+    ``ceil(maxP / n_split)`` pages from ``starts // PAGE`` up to
+    ``n_pages`` (bounded by the table's maxP)."""
+    run = -(-maxP // n_split)
+    lo = (starts // PAGE)[None, :] + run * torch.arange(
+        n_split, dtype=starts.dtype, device=starts.device)[:, None]
+    hi = torch.minimum(n_pages.clamp(max=maxP)[None, :], lo + run)
+    return lo, hi
+
+
+def paged_partial_splits_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, tables: torch.Tensor,
+                               n_pages: torch.Tensor, scale: float,
+                               starts: torch.Tensor | None = None,
+                               n_split: int = 1):
+    """The kernel's schedule: item j of a slot's pages ``p0 = starts //
+    PAGE`` .. ``n_pages - 1`` is the run of at most ``ceil(maxP /
+    n_split)`` pages from ``p0 + j * run``, walked by JAX's page-by-page
+    online softmax with a running max of its own (p rounded to the pool
+    dtype against it), and the items merge flash-style in split order.  A
+    slot of at most ``run`` pages is ``paged_partial_plain`` exactly; slots
+    with no page give acc 0, m -1e30, l 0."""
+    maxP = tables.shape[1]
+    if starts is None:
+        starts = torch.zeros_like(n_pages)
+    lo, hi = paged_item_pages(starts, n_pages, maxP, n_split)
+    parts = [paged_partial_plain(q, k_pool, v_pool, tables, hi[j], scale,
+                                 torch.maximum(starts, lo[j] * PAGE))
+             for j in range(n_split)]
+    m = parts[0][1]
+    for _, mj, _ in parts[1:]:
+        m = torch.maximum(m, mj)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for a, mj, lj in parts:
+        w = torch.exp(mj - m)
+        acc = acc + a * w[..., None]
+        l = l + lj * w
+    return acc, m, l
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(S: int, KH: int, maxP: int, device) -> int:
+    """``paged_splits`` on the card of ``device``."""
+    return paged_splits(S, KH, maxP, _sm_count(device.index or 0))
+
+
 def paged_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                   tables: torch.Tensor, n_pages: torch.Tensor, scale: float,
                   starts: torch.Tensor | None = None):
@@ -188,11 +261,23 @@ def paged_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     acc = torch.empty(S, H, Dh, dtype=torch.float32, device=q.device)
     m = torch.empty(S, H, dtype=torch.float32, device=q.device)
     l = torch.empty(S, H, dtype=torch.float32, device=q.device)
+    n_split = splits_for(S, KH, maxP, q.device)
+    # n_split > 1: each item's (acc, m, l) in one scratch; the pairs'
+    # arrival counters
+    part_acc = part_ml = counters = 0
+    if n_split > 1:
+        n_part = S * H * n_split  # items x G
+        part_acc = _build.scratch("paged_attention", q.device,
+                                  n_part * (Dh + 2)).data_ptr()
+        part_ml = part_acc + 4 * n_part * Dh
+        counters = _build.counters("paged_attention", q.device,
+                                   S * KH).data_ptr()
     fn = _build.function("paged_partial")
     _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                     tables.data_ptr(), n_pages.data_ptr(), starts.data_ptr(),
-                    acc.data_ptr(), m.data_ptr(), l.data_ptr(), S, H, KH, maxP,
-                    NP, Dh, float(scale), _build.stream_ptr(q.device)),
+                    acc.data_ptr(), m.data_ptr(), l.data_ptr(), part_acc,
+                    part_ml, counters, S, H, KH, maxP, NP, Dh, n_split,
+                    float(scale), _build.stream_ptr(q.device)),
                  "paged_partial")
     paged_partial.launches += 1
     return acc, m, l

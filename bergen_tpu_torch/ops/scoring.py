@@ -24,7 +24,7 @@ import torch
 
 from bergen_tpu_torch.ops import _build
 
-SCORE_TILE = 128  # the kernel's doc tile: a ragged corpus pads to it
+SCORE_ALIGN = 8  # TMA's 16-byte rows: D and N in multiples of 8 bf16
 
 
 def pallas_score_plain(queries: torch.Tensor,
@@ -34,34 +34,42 @@ def pallas_score_plain(queries: torch.Tensor,
     return queries.float() @ corpus_t.float()
 
 
+def _on_card(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"pallas_score: unsupported device {x.device}")
+
+
 def pallas_score(queries: torch.Tensor,
                  corpus_t: torch.Tensor) -> torch.Tensor:
-    """queries [Q, D] bf16, corpus_t [D, N] bf16 -> scores [Q, N] f32."""
+    """queries [Q, D] bf16, corpus_t [D, N] bf16 -> scores [Q, N] f32.  The
+    kernel takes D % 8 == 0; a corpus with N % 8 != 0 is copied once, padded
+    to the next multiple of 8, and the scores are then the first N columns
+    of a [Q, N + pad] tensor."""
     if queries.device.type == "cpu":
         return pallas_score_plain(queries, corpus_t)
-    if queries.device.type != "cuda":
-        raise ValueError(f"pallas_score: unsupported device {queries.device}")
+    _on_card(queries)
     Q, D = queries.shape
     N = corpus_t.shape[1]
     bf = torch.bfloat16
     if (queries.dtype != bf or corpus_t.dtype != bf
             or corpus_t.shape[0] != D or not queries.is_contiguous()
-            or not corpus_t.is_contiguous() or D % 32
+            or not corpus_t.is_contiguous() or D % SCORE_ALIGN
             or corpus_t.device != queries.device):
         raise ValueError(
             "pallas_score kernel: contiguous bf16 queries [Q, D] and "
-            f"corpus_t [D, N] on one device with D % 32 == 0; got "
-            f"{queries.dtype} {tuple(queries.shape)}, {corpus_t.dtype} "
+            f"corpus_t [D, N] on one device with D % {SCORE_ALIGN} == 0; "
+            f"got {queries.dtype} {tuple(queries.shape)}, {corpus_t.dtype} "
             f"{tuple(corpus_t.shape)}")
     ct = corpus_t
-    if N % SCORE_TILE:
-        ct = torch.nn.functional.pad(corpus_t, (0, -N % SCORE_TILE))
-    out = torch.empty(Q, N, dtype=torch.float32, device=queries.device)
+    if N % SCORE_ALIGN:
+        ct = torch.nn.functional.pad(corpus_t, (0, -N % SCORE_ALIGN))
+    out = torch.empty(Q, ct.shape[1], dtype=torch.float32,
+                      device=queries.device)
     _build.check(_build.function("pallas_score")(
         queries.data_ptr(), ct.data_ptr(), out.data_ptr(), Q, D, ct.shape[1],
-        N, _build.stream_ptr(queries.device)), "pallas_score")
+        _build.stream_ptr(queries.device)), "pallas_score")
     pallas_score.launches += 1
-    return out
+    return out[:, :N]
 
 
 pallas_score.launches = 0

@@ -60,6 +60,7 @@ count; a kernel that a part runs must show launches there.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import math
@@ -250,9 +251,12 @@ def _profiled_kernels(run):
                   key=lambda e: e.time_range.start)
 
 
-# the attention checks require one kernel a call (by counter and profiler);
-# ab_chip.py clears this for an older tree, whose flash wrapper converted
-# the mask in a launch of its own
+# the kernel checks hold this checkout's kernels: the attention checks
+# require one kernel a call (by counter and profiler), the score check one
+# wg_gemm_kernel, the paged check its split schedule.  ab_chip.py clears this
+# for an older tree, whose flash wrapper converted the mask in a launch of
+# its own, whose score kernel was score_kernel and whose paged kernel had
+# no splits
 COUNT_KERNELS = True
 
 
@@ -1545,12 +1549,15 @@ def check_flash_attention(results: dict, dev) -> None:
     results["flash_attention"] = per_shape
 
 
-# paged partial against its plain version (the same schedule, bf16 inputs):
-# m is a max of f32 sums of the same 128 exact bf16 products in another
-# order (|m| < 8); l sums the f32 exponentials of those scores (relative);
-# the merged context acc / l (|ctx| < 0.5) sums the same bf16-rounded
-# probabilities times V, where an exponential one f32 ulp apart may round
-# to the neighbouring bf16 value: a few bf16 ulps of the context at most
+# paged partial against its plain version (JAX's schedule, bf16 inputs) and
+# against its split schedule: m is a max of f32 sums of the same 128 exact
+# bf16 products in another order (|m| < 8); l sums the f32 exponentials of
+# those scores (relative); the merged context acc / l (|ctx| < 0.5) sums
+# bf16-rounded probabilities times V, where an exponential one f32 ulp
+# apart may round to the neighbouring bf16 value, and where a slot longer
+# than one item rounds each item's probabilities against the item's own
+# running max (one bf16 rounding of each p, averaged over the slot's keys):
+# a few bf16 ulps of the context at most
 PAGED_M_TOL, PAGED_L_RTOL, PAGED_CTX_TOL = 1e-4, 1e-4, 1e-3
 # the full paged decode step against decode_attention over the same history
 # laid out flat: the two round different probabilities to bf16 (unnormalised
@@ -1599,14 +1606,30 @@ def _paged_case(gen, dev, ragged: bool) -> dict:
             "starts": starts.int().to(dev), "scale": 1.0 / math.sqrt(Dh)}
 
 
+def _paged_errors(got, ref, lv) -> tuple[float, float, float]:
+    """(m, relative l, merged context acc / l) errors over the live
+    (slot, head) rows ``lv``."""
+    acc, m, l = got
+    racc, rm, rl = ref
+    if not lv.any():
+        return 0.0, 0.0, 0.0
+    ctx = acc / l.clamp_min(1e-30)[..., None]
+    rctx = racc / rl.clamp_min(1e-30)[..., None]
+    return ((m - rm)[lv].abs().max().item(),
+            ((l - rl) / rl.clamp_min(1e-30))[lv].abs().max().item(),
+            (ctx - rctx)[lv].abs().max().item())
+
+
 def check_paged_attention(results: dict, dev) -> None:
     """The paged partial kernel against its plain version at Mistral-7B's
     geometry in the ut1-like and the ragged case (m, l and the merged
-    context acc / l; absent slots exactly acc 0, m -1e30, l 0), and the full
-    paged decode step against ``decode_attention`` over the same history
-    laid out flat."""
+    context acc / l; absent slots exactly acc 0, m -1e30, l 0) and against
+    its split schedule in plain PyTorch at the splits it chose, the kernels
+    a call (by counter and profiler), and the full paged decode step
+    against ``decode_attention`` over the same history laid out flat."""
     import torch
     import torch.nn.functional as F
+    from bergen_tpu_torch.ops import _build
     from bergen_tpu_torch.ops import decode_attention as da
     from bergen_tpu_torch.ops import paged_attention as pa
 
@@ -1614,25 +1637,34 @@ def check_paged_attention(results: dict, dev) -> None:
     S, H, KH, Dh, maxP = (PAGED_GEOMETRY[k] for k in ("S", "H", "KH", "Dh",
                                                       "maxP"))
     PAGE = pa.PAGE
+    n_split = blocks_per_sm = None
+    if COUNT_KERNELS:
+        n_split = pa.splits_for(S, KH, maxP, dev)
+        blocks_per_sm = _build.function("paged_partial_blocks_per_sm")()
     per_case = []
     for ragged in (False, True):
         c = _paged_case(gen, dev, ragged)
         args = (c["q"], c["kp"], c["vp"], c["tables"], c["n"], c["scale"],
                 c["starts"])
-        acc, m, l = pa.paged_partial(*args)
-        racc, rm, rl = pa.paged_partial_plain(*args)
+        got = pa.paged_partial(*args)
+        acc, m, l = got
         torch.cuda.synchronize()
         live = (c["n"].long() * PAGE > c["starts"].long())
         lv = live[:, None].expand(S, H)
-        m_err = (m - rm)[lv].abs().max().item()
-        l_err = ((l - rl) / rl.clamp_min(1e-30))[lv].abs().max().item()
-        ctx, rctx = acc / l.clamp_min(1e-30)[..., None], \
-            racc / rl.clamp_min(1e-30)[..., None]
-        ctx_err = (ctx - rctx)[lv].abs().max().item() if live.any() else 0.0
+        m_err, l_err, ctx_err = _paged_errors(
+            got, pa.paged_partial_plain(*args), lv)
+        split_errs = (0.0, 0.0, 0.0) if n_split is None else _paged_errors(
+            got, pa.paged_partial_splits_plain(*args, n_split=n_split), lv)
         absent_exact = bool((acc[~live] == 0).all() and (l[~live] == 0).all()
                             and (m[~live] == -1e30).all())
         finite = bool(torch.isfinite(acc).all() and torch.isfinite(l).all())
-        ms = cuda_time_ms(lambda: pa.paged_partial(*args), iters=50)
+
+        def call():
+            return pa.paged_partial(*args)
+
+        kernels = launches_per_call(pa.paged_partial, call)
+        names = [e.name for e in _profiled_kernels(call)]
+        ms = cuda_time_ms(call, iters=50)
         plain_ms = cuda_time_ms(lambda: pa.paged_partial_plain(*args),
                                 iters=3, warmup=1)
         T = maxP * PAGE
@@ -1651,12 +1683,13 @@ def check_paged_attention(results: dict, dev) -> None:
         library_ms = cuda_time_ms(library, iters=20)
         # the card's own time: at decode sizes the event time above is
         # mostly the host's launch
-        device_ms = device_time_ms([lambda: pa.paged_partial(*args)])
+        device_ms = device_time_ms([call])
         library_device_ms = device_time_ms([library], iters=20)
         keys = int(valid.sum().item())  # the keys this input needs
         nbytes = (2 * keys * KH * Dh * 2 + S * H * Dh * 2 + S * H * Dh * 4
                   + 2 * S * H * 4 + S * maxP * 4 + 2 * S * 4)
-        b_ms, b_by = bound(4 * keys * H * Dh, nbytes, PEAK_F32_FLOPS)
+        # both products run on the tensor cores in bf16
+        b_ms, b_by = bound(4 * keys * H * Dh, nbytes)
         row = {"case": "ragged" if ragged else "ut1", "S": S, "H": H,
                "KH": KH, "head_dim": Dh, "max_pages": maxP,
                "pool_pages": PAGED_GEOMETRY["NP"],
@@ -1665,8 +1698,13 @@ def check_paged_attention(results: dict, dev) -> None:
                "max_abs_err": ctx_err, "m_max_abs_err": m_err,
                "l_max_rel_err": l_err, "tol": PAGED_CTX_TOL,
                "m_tol": PAGED_M_TOL, "l_rtol": PAGED_L_RTOL,
-               "absent_exact": absent_exact, "ms": ms, "plain_ms": plain_ms,
-               "device_ms": device_ms,
+               "absent_exact": absent_exact, "n_split": n_split,
+               "blocks_per_sm": blocks_per_sm,
+               "split_plain_m_err": split_errs[0],
+               "split_plain_l_rel_err": split_errs[1],
+               "split_plain_ctx_err": split_errs[2],
+               "kernels_per_call": kernels, "kernel_names": names,
+               "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
                "library_device_ms": library_device_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                "library": "page gather + SDPA (enable_gqa): the normalised "
@@ -1723,11 +1761,17 @@ def check_paged_attention(results: dict, dev) -> None:
         if not finite or not absent_exact:
             fail(f"{where}: non-finite output or an absent slot not exactly "
                  f"(0, -1e30, 0)")
-        if not (m_err <= PAGED_M_TOL and l_err <= PAGED_L_RTOL
-                and ctx_err <= PAGED_CTX_TOL):
-            fail(f"{where}: m error {m_err} (tol {PAGED_M_TOL}), l relative "
-                 f"error {l_err} (tol {PAGED_L_RTOL}), context error "
-                 f"{ctx_err} (tol {PAGED_CTX_TOL})")
+        for what, (e_m, e_l, e_ctx) in (
+                ("the plain version", (m_err, l_err, ctx_err)),
+                (f"its {n_split}-split schedule", split_errs)):
+            if not (e_m <= PAGED_M_TOL and e_l <= PAGED_L_RTOL
+                    and e_ctx <= PAGED_CTX_TOL):
+                fail(f"{where} against {what}: m error {e_m} (tol "
+                     f"{PAGED_M_TOL}), l relative error {e_l} (tol "
+                     f"{PAGED_L_RTOL}), context error {e_ctx} (tol "
+                     f"{PAGED_CTX_TOL})")
+        if kernels != 1:
+            fail(f"{where}: {kernels} kernels a call, not 1")
         err = row.get("decode_step_vs_decode_attention_max_abs_err", 0.0)
         if not err <= PAGED_VS_DECODE_TOL:
             fail(f"{where}: the paged decode step is off decode_attention "
@@ -1878,45 +1922,78 @@ def check_attention_block(results: dict, dev) -> None:
     results["attention_block"] = [row]
 
 
-# f32 sums of the same 768 exact bf16 products in another order, scores of
+# f32 sums of the same exact bf16 products in another order, scores of
 # unit-norm vectors (|s| <= 1)
 SCORE_TOL = 1e-4
+# ragged edges (Q, D, N): rows, k and docs past a tile, and a corpus with
+# N % 8 != 0 that the wrapper pads
+SCORE_RAGGED = ((300, 200, 1_000), (37, 96, 1_003))
+
+
+def _unit_bf16(rnd, rows: int, D: int):
+    x = rnd(rows, D)
+    return (x / x.norm(dim=1, keepdim=True)).bfloat16()
 
 
 def check_pallas_score(results: dict, dev) -> None:
     """The score kernel at the retrieval shapes (Q 2,048 unit-norm queries,
-    D 768, N 262,144 unit-norm docs, the corpus transposed) against its
-    plain version; the yardstick is ``torch.mm`` with f32 output."""
+    D 768, N 262,144 unit-norm docs, the corpus transposed) and at ragged
+    edges against its plain version, the kernels a call (one
+    ``wg_gemm_kernel``, by counter and profiler) and the card's own time;
+    the yardstick is ``torch.mm`` with f32 output."""
     import torch
     from bergen_tpu_torch.ops import scoring as sc
 
-    gen = torch.Generator(device=dev).manual_seed(15)
-    rnd = _rnd(gen, dev)
+    rnd = _rnd(torch.Generator(device=dev).manual_seed(16), dev)
+    ragged = []
+    # the edges this checkout's wrapper takes (an older one took D % 32)
+    for Q, D, N in SCORE_RAGGED if COUNT_KERNELS else ():
+        q, ct = _unit_bf16(rnd, Q, D), _unit_bf16(rnd, N, D).T.contiguous()
+        err = _errors(sc.pallas_score(q, ct), sc.pallas_score_plain(q, ct))[0]
+        ragged.append({"Q": Q, "D": D, "N": N, "max_abs_err": err})
+        if not err <= SCORE_TOL:
+            fail(f"pallas_score at Q {Q}, D {D}, N {N}: max error {err} "
+                 f"(tol {SCORE_TOL})")
     Q, D, N = 2_048, 768, 262_144
-    q = rnd(Q, D)
-    q = (q / q.norm(dim=1, keepdim=True)).bfloat16()
-    c = rnd(N, D)
-    ct = (c / c.norm(dim=1, keepdim=True)).T.contiguous().bfloat16()
-    del c
+    rnd = _rnd(torch.Generator(device=dev).manual_seed(15), dev)
+    q = _unit_bf16(rnd, Q, D)
+    ct = _unit_bf16(rnd, N, D).T.contiguous()
     out = sc.pallas_score(q, ct)
     ref = sc.pallas_score_plain(q, ct)
     max_err, mean_err = _errors(out, ref)
     del out, ref
     torch.cuda.empty_cache()
-    ms = cuda_time_ms(lambda: sc.pallas_score(q, ct))
+
+    def call():
+        return sc.pallas_score(q, ct)
+
+    def library():
+        return torch.mm(q, ct, out_dtype=torch.float32)
+
+    kernels = launches_per_call(sc.pallas_score, call)
+    names = [e.name for e in _profiled_kernels(call)]
+    ms = cuda_time_ms(call)
     plain_ms = cuda_time_ms(lambda: sc.pallas_score_plain(q, ct), iters=2,
                             warmup=1)
-    library_ms = cuda_time_ms(
-        lambda: torch.mm(q, ct, out_dtype=torch.float32))
+    library_ms = cuda_time_ms(library)
+    device_ms = device_time_ms([call], iters=10)
+    library_device_ms = device_time_ms([library], iters=10)
     b_ms, b_by = bound(2 * Q * D * N, Q * D * 2 + D * N * 2 + Q * N * 4)
     row = {"Q": Q, "D": D, "N": N, "max_abs_err": max_err,
            "mean_abs_err": mean_err, "tol": SCORE_TOL, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": library_ms,
-           "library": "torch.mm(out_dtype=float32)"}
+           "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms,
+           "library_device_ms": library_device_ms,
+           "library": "torch.mm(out_dtype=float32)",
+           "kernels_per_call": kernels, "kernel_names": names,
+           "ragged": ragged}
     emit({"phase": "kernel_check", "kernel": "pallas_score", **row})
     if not max_err <= SCORE_TOL:
         fail(f"pallas_score: max error {max_err} (tol {SCORE_TOL})")
+    if COUNT_KERNELS and (
+            kernels != 1 or not all("wg_gemm_kernel" in n for n in names)
+            or any("score_kernel" in n for n in names)):
+        fail(f"pallas_score: kernels a call {names}, not one wg_gemm_kernel")
     results["pallas_score"] = [row]
 
 
@@ -2489,6 +2566,8 @@ def _trec(exp: str, prefix: str, n_lines: int, cosine: bool) -> list:
 
 
 def _check_outputs(exp: str) -> dict:
+    """The eval's 50 answers and metrics; ``responses_sha256`` is a digest
+    of the answers in order, to compare two runs' tokens."""
     rows = _json(exp, "eval_dev_out.json")
     metrics = _json(exp, "eval_dev_metrics.json")
     if len(rows) != 50:
@@ -2497,8 +2576,11 @@ def _check_outputs(exp: str) -> dict:
         fail(f"{exp}: responses are not strings")
     if not {"M", "EM", "F1", "Recall_char3gram"} <= set(metrics):
         fail(f"{exp}: metrics file lacks keys: {sorted(metrics)}")
+    digest = hashlib.sha256(
+        json.dumps([r["response"] for r in rows]).encode()).hexdigest()
     return {"n_outputs": len(rows), "metrics": metrics,
-            "example_response": rows[0]["response"][:80]}
+            "example_response": rows[0]["response"][:80],
+            "responses_sha256": digest}
 
 
 def run_main_path(ckpt: dict, workdir: str) -> dict:
@@ -2678,6 +2760,7 @@ def run_ut1_serve_mistral(ckpt: dict, workdir: str,
     stages = _json(exp, "eval_dev_stage_times.json")
     steps = GenerationServer.decode_steps
     return {"wall_s": wall, "stage_s": stages, "kv_cache": kv_cache,
+            "exp": exp,
             "slots": MISTRAL_SLOTS, "max_new_tokens": MISTRAL_NEW_TOKENS,
             "decode_steps": steps,
             "decode_steps_per_generate_s": steps / stages["generate"],
