@@ -43,7 +43,9 @@ tree (its kernels built there), runs one of this checkout's
 * ``serve_paged``: the ut1_serve_mistral run with ``kv_cache=paged``,
   then with the uniform cache (decode steps, paged kernel launches a
   step, the 50 answers and their digest, stage times), on checkpoints
-  written the same way.
+  written the same way; then ``compare_answers``: how many answers
+  differ between the first two trees in each mode, and between the
+  modes in each tree.
 
 ``sass`` compiles each ``csrc/*.cu`` of the two trees to a cubin
 (``nvcc -cubin``, the build's target and flags) and compares their SASS
@@ -134,6 +136,30 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def compare_answers(rows: list[dict]) -> list[dict]:
+    """serve_paged's answers compared: each KV mode across the first two
+    trees, and paged against uniform within each tree (answers that
+    differ, and the first differing character of each)."""
+    by = {(r["tree"], r["phase"]): r["responses"] for r in rows
+          if "responses" in r}
+    trees = list(dict.fromkeys(t for t, _ in by))
+    modes = ("ut1_serve_mistral_paged", "ut1_serve_mistral_uniform")
+    pairs = [tuple((t, m) for t in trees[:2]) for m in modes] + [
+        tuple((t, m) for m in modes) for t in trees]
+    out = []
+    for a, b in pairs:
+        if a not in by or b not in by:
+            continue
+        first = [next((j for j, (u, v) in enumerate(zip(x, y)) if u != v),
+                      min(len(x), len(y)))
+                 for x, y in zip(by[a], by[b]) if x != y]
+        out.append({"phase": "serve_compare", "a": list(a), "b": list(b),
+                    "answers": len(by[a]), "differ": len(first),
+                    "first_diff_char": [min(first), max(first)]
+                    if first else None})
+    return out
+
+
 def _sass_functions(cubin: str) -> list[str]:
     """The cubin's functions as instruction texts, sorted (names,
     addresses and encodings left out)."""
@@ -221,6 +247,7 @@ def main() -> None:
         ckpt_json = os.path.join(root, "ckpt.json")
         with open(ckpt_json, "w") as f:
             json.dump(ckpt, f)
+    rows = []
     try:
         for i, tree in enumerate(trees):
             proc = subprocess.run(
@@ -230,9 +257,14 @@ def main() -> None:
             sys.stderr.write(proc.stderr[-4000:])
             for line in proc.stdout.splitlines():
                 if line.startswith("{"):
-                    cs.emit({"tree": tree, "order": i, **json.loads(line)})
+                    rows.append({"tree": tree, "order": i,
+                                 **json.loads(line)})
+                    cs.emit(rows[-1])
             if proc.returncode:
                 cs.fail(f"{phase} on {tree} exited with {proc.returncode}")
+        if phase == "serve_paged":
+            for row in compare_answers(rows):
+                cs.emit(row)
     finally:
         if root is not None:
             shutil.rmtree(root, ignore_errors=True)

@@ -20,91 +20,51 @@
 //   is read from device memory once (0.4 GB) and the 3.1 MB of queries stay
 //   in L2.  The row-major walk read the corpus once per query tile, 16
 //   times (6.4 GB);
-// * 128 x 256 tiles on both consumer warpgroups: the products alone run at
-//   0.998 ms, where ping-pong's 128 x 128 tiles take 1.41;
+// * 128 x 256 tiles on both consumer warpgroups: on one H100 at 700 W
+//   the products alone take 1.01 ms, where ping-pong's 128 x 128 tiles
+//   take 1.40;
 // * ScoreEpi stages each tile's f32 scores 32 columns at a time in one of
 //   two [128][32] boxes in the 128-byte swizzle (conflict-free), and one
-//   thread stores each box with TMA, whole 128-byte rows: 1.45 ms in all,
-//   level with torch.mm.  Stores straight from the accumulator took 1.70
-//   (8-byte pieces of eight rows an instruction), four boxes beside a
-//   ring of three stages 1.52, and neither ping-pong (each warpgroup's
-//   stores beside the other's products, 1.85) nor a 2-CTA cluster
-//   multicasting the corpus tile (1.96) nor starting half the SMs half a
-//   tile late (1.44 to 1.47) hid the 0.45 ms that the 2.1 GB of stores add
-//   to the products' 1.0 (PERF.md, PR 11).
+//   thread stores each box with TMA, whole 128-byte rows: 1.44 ms in all,
+//   level with torch.mm.  Stores straight from the accumulator (8-byte
+//   pieces of eight rows an instruction) took 1.71, ping-pong with each
+//   warpgroup's stores beside the other's products 1.80 to 1.83, and
+//   starting half the SMs half a tile late did not hide the 0.44 ms that
+//   the 2.1 GB of stores add to the products; nor did a 2-CTA cluster
+//   multicasting the corpus tile (PERF.md).
 // Every product is the exact bf16 product, summed in f32 in one fixed k
 // order per element (no split-K).  TMA reads zeros past Q, N and D, and
 // drops the stores past Q and N, so any Q, any D % 8 == 0 and any
 // N % 8 == 0 (TMA's 16-byte row strides) take the kernel as they are; the
 // wrapper pads a corpus with N % 8 != 0 to the next multiple of 8.
-#include <stdlib.h>
-#include <string.h>
-
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int SCORE_BN = 256;
 
-// Measured-only variants (score_variants.py): MODE 0 stores nothing (the
-// products alone), 1 stores straight from the accumulator, 2 through the
-// TMA boxes; PP 128 x 128 ping-pong; MF false the row-major walk; groups
-// > 1 starts group g of the blocks g / groups of a tile late.
-template <int BN, int MODE>
 struct ScoreEpi {
   static constexpr int BOX = WG_BM * 128;  // bytes of one [128][32] f32 box
-  static constexpr int SMEM = MODE == 2 ? 2 * BOX : 0;
+  static constexpr int SMEM = 2 * BOX;
   CUtensorMap tma_c;  // out [Q, N] f32 in [128][32] boxes
-  float* out;
-  int Q, N, m_tiles, groups;
-  long long stagger;
 
   __device__ __forceinline__ void finish(int ctid) const {
-    if (MODE == 2 && ctid == 0) bulk_wait<0, false>();
+    if (ctid == 0) bulk_wait<0, false>();
   }
 
-  __device__ __forceinline__ void rows(const float (&acc)[BN / 2], int r,
-                                       int c0) const {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r + 8 * half;
-      if (row >= Q) continue;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = c0 + 8 * j;
-        const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-        if (MODE == 0) {
-          if (v0 == 12345.f) out[col] = v1;
-        } else if (col < N) {
-          __stcs(reinterpret_cast<float2*>(out + (size_t)row * N + col),
-                 make_float2(v0, v1));
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void operator()(const float (&acc)[BN / 2],
+  __device__ __forceinline__ void operator()(const float (&acc)[SCORE_BN / 2],
                                              int mt, int nt, int wg, int ctid,
                                              unsigned char* stage) const {
     const int t = ctid & 3;
     const int r0 = wg * 64 + ((ctid >> 5) & 3) * 16 + ((ctid & 31) >> 2);
-    if (groups > 1 && mt + nt * m_tiles == (int)blockIdx.x) {
-      const long long wait = stagger * (blockIdx.x % groups) / groups;
-      const long long t0 = clock64();
-      while (clock64() - t0 < wait) {
-      }
-    }
-    if (MODE != 2) {
-      rows(acc, mt * WG_BM + r0, nt * BN + 2 * t);
-      return;
-    }
 #pragma unroll
-    for (int p = 0; p < BN / 32; ++p) {  // passes of 32 columns
+    for (int p = 0; p < SCORE_BN / 32; ++p) {  // passes of 32 columns
       unsigned char* box = stage + (p & 1) * BOX;
+      // box p & 1 is free once the store of pass p - 2 has read it
       if (ctid == 0) bulk_wait<1, true>();
       consumer_sync();
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < 4; ++jj) {  // 8-column groups: two units each
         const int j = 4 * p + jj;
         const int u = 2 * jj + (t >> 1);
 #pragma unroll
@@ -118,38 +78,12 @@ struct ScoreEpi {
       fence_proxy_async();
       consumer_sync();
       if (ctid == 0) {
-        tma_store_2d(&tma_c, box, nt * BN + 32 * p, mt * WG_BM);
+        tma_store_2d(&tma_c, box, nt * SCORE_BN + 32 * p, mt * WG_BM);
         bulk_commit();
       }
     }
   }
-
-  __device__ __forceinline__ void team(const float (&acc)[2][BN / 2], int mt,
-                                       int nt, int, int ctid,
-                                       unsigned char*) const {
-    const int r0 = mt * WG_BM + 16 * (ctid >> 5) + ((ctid & 31) >> 2);
-    rows(acc[0], r0, nt * BN + 2 * (ctid & 3));
-    rows(acc[1], r0 + 64, nt * BN + 2 * (ctid & 3));
-  }
 };
-
-template <int BN, bool PP, int MODE, bool MF>
-int launch(const CUtensorMap& ta, const CUtensorMap& tb,
-           const CUtensorMap& tc, void* out, int Q, int D, int N,
-           cudaStream_t st) {
-  ScoreEpi<BN, MODE> epi{};
-  epi.tma_c = tc;
-  epi.out = static_cast<float*>(out);
-  epi.Q = Q;
-  epi.N = N;
-  epi.m_tiles = (Q + WG_BM - 1) / WG_BM;
-  epi.groups = getenv("SCORE_STAGGER") ? atoi(getenv("SCORE_STAGGER")) : 1;
-  epi.stagger = 1200LL * ((D + WG_BK - 1) / WG_BK);
-  return wg_gemm_launch<BN, /*B_MN=*/true, ScoreEpi<BN, MODE>, WgBf16, PP,
-                        MF>(ta, tb, (Q + WG_BM - 1) / WG_BM,
-                            (N + BN - 1) / BN, (D + WG_BK - 1) / WG_BK, epi,
-                            st);
-}
 
 }  // namespace
 
@@ -162,24 +96,16 @@ int pallas_score(const void* q, const void* ct, void* out, int Q, int D,
   if (Q < 0 || D <= 0 || D % 8 || N % 8 || N < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Q == 0 || N == 0) return 0;
-  CUtensorMap ta, tb, tc;
+  CUtensorMap ta, tb;
+  ScoreEpi epi{};
   int e = tma_map(&ta, q, TMA_BF16, Q, D, D, WG_BM, WG_BK);
   if (e == 0) e = tma_map(&tb, ct, TMA_BF16, D, N, N, WG_BK, 64);
-  if (e == 0) e = tma_map(&tc, out, TMA_F32, Q, N, N, WG_BM, 32);
+  if (e == 0) e = tma_map(&epi.tma_c, out, TMA_F32, Q, N, N, WG_BM, 32);
   if (e != 0) return e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const char* v = getenv("SCORE_VARIANT");
-  if (v && !strcmp(v, "direct"))
-    return launch<256, false, 1, true>(ta, tb, tc, out, Q, D, N, st);
-  if (v && !strcmp(v, "nostore"))
-    return launch<256, false, 0, true>(ta, tb, tc, out, Q, D, N, st);
-  if (v && !strcmp(v, "pp"))
-    return launch<128, true, 1, true>(ta, tb, tc, out, Q, D, N, st);
-  if (v && !strcmp(v, "pp_nostore"))
-    return launch<128, true, 0, true>(ta, tb, tc, out, Q, D, N, st);
-  if (v && !strcmp(v, "rowmajor"))
-    return launch<256, false, 2, false>(ta, tb, tc, out, Q, D, N, st);
-  return launch<256, false, 2, true>(ta, tb, tc, out, Q, D, N, st);
+  return wg_gemm_launch<SCORE_BN, /*B_MN=*/true, ScoreEpi, WgBf16,
+                        /*PP=*/false, /*M_FAST=*/true>(
+      ta, tb, (Q + WG_BM - 1) / WG_BM, (N + SCORE_BN - 1) / SCORE_BN,
+      (D + WG_BK - 1) / WG_BK, epi, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

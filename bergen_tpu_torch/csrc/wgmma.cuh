@@ -604,7 +604,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                    const __grid_constant__ CUtensorMap tma_b, int m_tiles,
                    int n_tiles, int k_stages,
                    const __grid_constant__ Epi epi) {
-  static_assert(!PP || BN == 128, "ping-pong: 128 x 128 tiles");
+  static_assert(!PP || (BN == 128 && !B_MN),
+                "ping-pong: 128 x 128 tiles, K-major B");
   using R = WgRing<BN, PP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -663,7 +664,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
                      WG_REGS_CONSUMER)
                  : "memory");
-    constexpr uint64_t B_STEP = B_MN ? 2048 >> 4 : 32 >> 4;
+    constexpr uint64_t B_STEP = 32 >> 4;  // K-major B
     constexpr int K_STEPS = 4;
     typename T::Acc acc[2][BN / 2];  // rows 0-63 and 64-127 of the tile
     const int ctid = threadIdx.x & 127;
@@ -674,8 +675,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   {                                                                          \
     unsigned char* st = smem + slot * R::STAGE;                              \
     const uint64_t da = wg_desc(st);                                         \
-    const uint64_t db = B_MN ? wg_desc_mn(st + R::A_BYTES)                   \
-                             : wg_desc(st + R::A_BYTES);                     \
+    const uint64_t db = wg_desc(st + R::A_BYTES);                            \
     _Pragma("unroll") for (int kk = 0; kk < K_STEPS; ++kk) {                 \
       T::template mma<BN, B_MN>(acc[0], da + 2 * kk, db + B_STEP * kk,       \
                                 SCALE_D);                                    \
