@@ -604,8 +604,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                    const __grid_constant__ CUtensorMap tma_b, int m_tiles,
                    int n_tiles, int k_stages,
                    const __grid_constant__ Epi epi) {
-  static_assert(!PP || (BN == 128 && !B_MN),
-                "ping-pong: 128 x 128 tiles, K-major B");
+  static_assert(!PP || (BN == 128 && !B_MN && !M_FAST),
+                "ping-pong: 128 x 128 tiles, K-major B, row-major walk");
   using R = WgRing<BN, PP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -716,10 +716,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       fence_acc(acc[0]);
       fence_acc(acc[1]);
       mbar_arrive(&empty[(it - 1) % R::STAGES]);
-      if constexpr (M_FAST)
-        epi.team(acc, tile % m_tiles, tile / m_tiles, wg, ctid, own);
-      else
-        epi.team(acc, tile / n_tiles, tile % n_tiles, wg, ctid, own);
+      epi.team(acc, tile / n_tiles, tile % n_tiles, wg, ctid, own);
     }
 #undef WG_PP_STAGE
     epi.finish(ctid);
