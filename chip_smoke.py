@@ -235,13 +235,15 @@ def device_time_ms(fns: list, iters: int = 50):
 
 def _profiled_kernels(run):
     """The CUDA kernels that ``run`` puts on the card, by ``torch.profiler``
-    (in order of start).  The window's first kernel is a short spin that is
-    not counted: a window's first launch now and then goes unrecorded."""
+    (in order of start).  The window's first kernel is a spin of some
+    milliseconds that is not counted: the profiler now and then misses the
+    kernels launched right after it starts (a shorter spin let a window
+    lose the first several kernels of a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(10_000)
+        torch.cuda._sleep(10_000_000)
         torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
