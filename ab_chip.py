@@ -7,6 +7,8 @@
     python3 ab_chip.py w8a8 TREE [TREE ...]
     python3 ab_chip.py score_paged TREE [TREE ...]
     python3 ab_chip.py serve_paged TREE [TREE ...]
+    python3 ab_chip.py band_int8 TREE [TREE ...]
+    python3 ab_chip.py serve_chunked TREE [TREE ...]
     python3 ab_chip.py sass TREE TREE
 
 A TREE is ``.`` (this checkout) or a directory that holds another version
@@ -37,6 +39,11 @@ tree (its kernels built there), runs one of this checkout's
   it, and the paged partial in the ut1-like and ragged cases, each with
   the card's own time, the kernels a call and, on this checkout's tree,
   the splits chosen);
+* ``band_int8``: ``check_flash_attention_band`` and
+  ``check_bin_topk_int8`` (the band attention at the chunked drain's
+  shapes and the int8 bin top-k in modes 'bin' and 'doc' at the retrieval
+  shape, each with its event and profiler card times, the library call's
+  and the kernels a call, and the int8 modes' saturated case bit for bit);
 * ``paths``: the ut1_eval and ut1_int4_llama2 runs of ``python -m
   bergen_tpu_torch`` (stage times), on checkpoints that this process
   writes once, before the first tree, and deletes at the end;
@@ -45,7 +52,11 @@ tree (its kernels built there), runs one of this checkout's
   step, the 50 answers and their digest, stage times), on checkpoints
   written the same way; then ``compare_answers``: how many answers
   differ between the first two trees in each mode, and between the
-  modes in each tree.
+  modes in each tree;
+* ``serve_chunked``: the ut1_serve_mistral run (uniform cache), then its
+  50 instructions drained with ``run_workload(mode="chunked")`` and
+  ``mode="epoch"`` (new tokens/s of each, band launches and pipe-steps,
+  a digest of each mode's tokens), on checkpoints written the same way.
 
 ``sass`` compiles each ``csrc/*.cu`` of the two trees to a cubin
 (``nvcc -cubin``, the build's target and flags) and compares their SASS
@@ -103,10 +114,27 @@ def _child(phase: str, tree: str, ckpt_json: str | None) -> None:
         cs.check_pallas_score({}, dev)
         cs.check_paged_attention({}, dev)
         return
+    if phase == "band_int8":
+        cs.check_flash_attention_band({}, dev)
+        cs.check_bin_topk_int8({}, dev)
+        return
     with open(ckpt_json) as f:
         ckpt = json.load(f)
     work = tempfile.mkdtemp(prefix="ab_chip_")
     try:
+        if phase == "serve_chunked":
+            from bergen_tpu_torch.ops import flash_attention as fa
+
+            cs.run_ut1_serve_mistral(ckpt, os.path.join(
+                work, "ut1_serve_mistral"))
+            torch.cuda.empty_cache()
+            fa.flash_attention_band.launches = 0
+            out = cs.run_ut1_serve_chunked_mistral(
+                ckpt, os.path.join(work, "ut1_serve_chunked_mistral"))
+            cs.emit({"phase": "ut1_serve_chunked_mistral",
+                     "band_launches": fa.flash_attention_band.launches,
+                     **out})
+            return
         if phase == "serve_paged":
             from bergen_tpu_torch.ops import paged_attention as pa
 
@@ -222,7 +250,8 @@ def main() -> None:
         return
     if len(sys.argv) < 3 or sys.argv[1] not in (
             "decode_attention", "kernels", "attention", "w8a8",
-            "score_paged", "paths", "serve_paged"):
+            "score_paged", "paths", "serve_paged", "band_int8",
+            "serve_chunked"):
         sys.exit(__doc__)
     import torch
 
@@ -233,7 +262,7 @@ def main() -> None:
     phase, trees = sys.argv[1], sys.argv[2:]
     print(cs.card_line(), flush=True)
     ckpt_json = root = None
-    if phase in ("paths", "serve_paged"):
+    if phase in ("paths", "serve_paged", "serve_chunked"):
         sys.path.insert(0, REPO)
         dev = torch.device("cuda", 0)
         root = os.path.join(REPO, "bergen_tpu_torch", "_build",

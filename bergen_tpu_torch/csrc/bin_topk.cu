@@ -19,25 +19,19 @@
 // What bounds it on the H100: 2*N*Q*D operations (0.82 T at N 262,144,
 // Q 2,048, D 768) against one read of the corpus (0.4 GB bf16, 0.2 GB
 // int8), so it is compute-bound on the tensor cores: 0.83 ms at the bf16
-// peak, 0.42 ms at the int8 peak.  Mode 'none' runs on wgmma.cuh's
-// persistent main loop (TMA, two consumer warpgroups of wgmma, 128 docs x
-// 256 queries a tile, one bin a tile) with the argmax as its epilogue
-// (BinEpi below).  The int8 modes keep common.cuh's mma_tile: one block
-// scores one bin (128 docs) against 128 queries with s8 m16n8k32 mma.sync
-// (int32 sums; 8 warps of 64 docs x 32 queries, a two-stage cp.async ring
-// over D), then reduces each query column in registers (within a thread,
-// then across the 8 lanes that share a column by shuffles, then across the
-// two warp rows through shared memory).  The query tile index is the
-// fastest grid axis, so the blocks that share a bin run together and read
-// its corpus rows from L2.
+// peak, 0.42 ms at the int8 peak.  All three modes run on wgmma.cuh's
+// persistent main loop (TMA, two consumer warpgroups of wgmma, one bin of
+// 128 docs a tile) with the argmax as its epilogue: mode 'none' on bf16
+// 128 docs x 256 queries tiles (BinEpi), the int8 modes on the loop's s8
+// instance (BinEpiI8).  Tiles walk (bin, query tile) with the query tile
+// fastest, so the blocks that share a bin read its corpus rows from L2.
 #include <math.h>
 
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int BD = MMA_TILE;  // docs per block = one bin
-constexpr int BQ = MMA_TILE;  // queries per block
+constexpr int BD = 128;  // docs per tile = one bin
 constexpr int I32_MASK = -2147483647;  // _I32_MIN of the TPU kernel
 
 enum { MODE_DOC = 1, MODE_BIN = 2 };
@@ -129,112 +123,171 @@ int launch_bins_bf16(const void* corpus, const void* queries, float* vals,
                                    (D + WG_BK - 1) / WG_BK, epi, st);
 }
 
-// Modes 'doc' and 'bin' (int8): one block scores one bin against 128
-// queries with common.cuh's mma_tile (s8 m16n8k32, int32 sums), then
-// reduces each query column as above, over the two warp rows of the tile.
-// corpus [N, D] and queries [Q, D] int8; scales per doc [N] (MODE_DOC) or
-// per bin [n_bins] (MODE_BIN).
-template <int MODE>
-__global__ void __launch_bounds__(256)
-    bin_kernel(const void* __restrict__ corpus, const void* __restrict__ qry,
-               const float* __restrict__ scales, float* __restrict__ vals,
-               int* __restrict__ idx, int N, int Q, int D, int valid_n,
-               int bin_off) {
-  using Acc = int;
+// Modes 'doc' and 'bin' on wg_gemm_kernel's s8 instance (WgS8: int8
+// corpus rows as A, int8 query rows as K-major B, 128-deep int8 stages,
+// exact s32 sums): one bin a tile, as mode 'none'.  Each query column of
+// the tile is reduced to its best doc in registers (over the thread's rows,
+// then by shuffles over the 8 lanes that share the column), then over the
+// team's warps through shared memory:
+//   MODE_BIN: int32 sums compared exactly (a bin shares one scale), masked
+//             docs I32_MASK; only the winner becomes f32 (round to
+//             nearest) and is multiplied by its bin's scale (__fmul_rn), a
+//             masked winner reporting -inf;
+//   MODE_DOC: each sum rounded to f32 and multiplied by its doc's scale
+//             (__fmul_rn, no FMA), masked docs -inf, then binned.
+// Docs at or past min(valid_n, N) are masked (TMA reads rows past N as
+// zeros); the lowest doc wins among equal maxima.  The accumulator comes as
+// int, so no sum passes through an f32 by value before its cast.  A team is
+// the threads that share a tile: the cooperative loop's 256 (operator(),
+// 8 warps of 32 rows, named barrier 1) or, under ping-pong, one
+// warpgroup's 128 (team(), 4 warps of both 64-row halves, barrier 2 + wg).
+template <int BN, int MODE, bool PP>
+struct BinEpiI8 {
   using Val = typename std::conditional<MODE == MODE_BIN, int, float>::type;
-  __shared__ Val red_v[2][BQ];
-  __shared__ int red_i[2][BQ];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int q0 = blockIdx.x * BQ, bin = blockIdx.y + bin_off, d0 = bin * BD;
+  static constexpr int NW = PP ? 4 : 8;  // warps a team
+  static constexpr int SMEM = NW * BN * 8;  // (best, doc) per warp, column
+  const float* scales;  // per bin [n_bins] (MODE_BIN) or per doc [N]
+  float* vals;
+  int* idx;
+  int Q, n_valid;  // n_valid = min(valid_n, N)
 
-  Acc acc[4][4][4];
-  // int8 rows read as bf16 pairs: K counted in pairs (common.cuh)
-  const int8_t* c = static_cast<const int8_t*>(corpus);
-  const int8_t* q = static_cast<const int8_t*>(qry);
-  mma_tile<true, int>(reinterpret_cast<const bf16*>(c + (size_t)d0 * D),
-                      N - d0,
-                      reinterpret_cast<const bf16*>(q + (size_t)q0 * D),
-                      Q - q0, 0, D / 2, acc);
+  __device__ __forceinline__ void finish(int) const {}
 
-  const int g = lane >> 2, t = lane & 3;
-  float dscale[4][2];  // MODE_DOC: the scales of this thread's 8 docs
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int d = d0 + wm * 64 + mi * 16 + g + half * 8;
-      dscale[mi][half] = MODE == MODE_DOC && d < valid_n ? scales[d] : 0.f;
-    }
+  __device__ __forceinline__ void sync(int bar, int threads) const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(threads) : "memory");
+  }
 
-  // per query column: (max, lowest doc) over this warp's 64 docs
+  // acc[hh][4j + e]: doc row0 + 64 hh + 8 (e >> 1), query column 8j +
+  // 2t + (e & 1) of the tile
+  template <int HH>
+  __device__ __forceinline__ void run(const int (&acc)[HH][BN / 2], int bin,
+                                      int qt, int warp, int lane, int row0,
+                                      int ctid, int bar, int threads,
+                                      unsigned char* scratch) const {
+    Val* red_v = reinterpret_cast<Val*>(scratch);
+    int* red_i = reinterpret_cast<int*>(scratch + NW * BN * 4);
+    const int g = lane >> 2, t = lane & 3;
+    const int d0 = bin * 128;
+    bool ok[HH][2];
+    float ds[HH][2];  // MODE_DOC: the scales of this thread's docs
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
+    for (int hh = 0; hh < HH; ++hh)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      Val bv;
-      if constexpr (MODE == MODE_BIN)
-        bv = I32_MASK;
-      else
-        bv = -INFINITY;
-      int bi = 1 << 30;
+      for (int e = 0; e < 2; ++e) {
+        const int d = d0 + row0 + 64 * hh + 8 * e;
+        ok[hh][e] = d < n_valid;
+        ds[hh][e] = MODE == MODE_DOC && ok[hh][e] ? scales[d] : 0.f;
+      }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = wm * 64 + mi * 16 + g + half * 8;
-          const bool ok = d0 + r < valid_n;
-          const Acc a = acc[mi][ni][half * 2 + j];
-          Val v;
-          if constexpr (MODE == MODE_BIN)
-            v = ok ? a : I32_MASK;
-          else
-            v = ok ? __fmul_rn(static_cast<float>(a), dscale[mi][half])
-                   : -INFINITY;
-          better(bv, bi, v, r);
+      for (int c = 0; c < 2; ++c) {
+        Val bv;
+        int bi = 0;
+#pragma unroll
+        for (int hh = 0; hh < HH; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int a = acc[hh][4 * j + 2 * e + c];
+            Val v;
+            if constexpr (MODE == MODE_BIN)
+              v = ok[hh][e] ? a : I32_MASK;
+            else
+              v = ok[hh][e] ? __fmul_rn(__int2float_rn(a), ds[hh][e])
+                            : -INFINITY;
+            const int r = row0 + 64 * hh + 8 * e;
+            if (hh == 0 && e == 0) {
+              bv = v;
+              bi = r;
+            } else {
+              better(bv, bi, v, r);
+            }
+          }
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          const Val v2 = __shfl_xor_sync(0xffffffffu, bv, off);
+          const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
+          better(bv, bi, v2, i2);
+        }
+        if (g == 0) {
+          const int col = 8 * j + 2 * t + c;
+          red_v[warp * BN + col] = bv;
+          red_i[warp * BN + col] = bi;
         }
       }
+    }
+    sync(bar, threads);
+    for (int col = ctid; col < BN; col += threads) {
+      Val bv = red_v[col];
+      int bi = red_i[col];
 #pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        Val v2 = __shfl_xor_sync(0xffffffffu, bv, off);
-        int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
-        better(bv, bi, v2, i2);
-      }
-      if (g == 0) {
-        int c = wn * 32 + ni * 8 + t * 2 + j;
-        red_v[wm][c] = bv;
-        red_i[wm][c] = bi;
+      for (int w = 1; w < NW; ++w)
+        better(bv, bi, red_v[w * BN + col], red_i[w * BN + col]);
+      const int q = qt * BN + col;
+      if (q < Q) {
+        float out;
+        if constexpr (MODE == MODE_BIN)
+          out = bv == I32_MASK
+                    ? -INFINITY
+                    : __fmul_rn(__int2float_rn(bv), scales[bin]);
+        else
+          out = bv;
+        const size_t o = (size_t)bin * Q + q;
+        vals[o] = out;
+        idx[o] = d0 + bi;
       }
     }
+    sync(bar, threads);  // the scratch is free for the next tile
   }
-  __syncthreads();
-  if (tid < BQ && q0 + tid < Q) {
-    Val bv = red_v[0][tid];
-    int bi = red_i[0][tid];
-    better(bv, bi, red_v[1][tid], red_i[1][tid]);
-    float out;
-    if constexpr (MODE == MODE_BIN)
-      out = bv == I32_MASK ? -INFINITY
-                           : __fmul_rn(static_cast<float>(bv), scales[bin]);
-    else
-      out = bv;
-    const size_t o = (size_t)bin * Q + q0 + tid;
-    vals[o] = out;
-    idx[o] = d0 + bi;
+
+  // the cooperative loop: this warpgroup's 64 rows of the tile
+  __device__ __forceinline__ void operator()(const int (&acc)[BN / 2],
+                                             int bin, int qt, int wg,
+                                             int ctid,
+                                             unsigned char* scratch) const {
+    const int lane = ctid & 31, warp = ctid >> 5;
+    run<1>(reinterpret_cast<const int(&)[1][BN / 2]>(acc), bin, qt, warp,
+           lane, 64 * wg + 16 * (warp & 3) + (lane >> 2), ctid, 1, 256,
+           scratch);
   }
+
+  // the ping-pong loop: warpgroup wg's whole tile
+  __device__ __forceinline__ void team(const int (&acc)[2][BN / 2], int bin,
+                                       int qt, int wg, int ctid,
+                                       unsigned char* scratch) const {
+    const int lane = ctid & 31, warp = ctid >> 5;
+    run<2>(acc, bin, qt, warp, lane, 16 * warp + (lane >> 2), ctid, 2 + wg,
+           128, scratch);
+  }
+};
+
+template <int MODE, int BN, bool PP>
+int launch_bins_i8(const void* corpus, const void* queries,
+                   const float* scales, float* vals, int* idx, int N, int Q,
+                   int D, int valid_n, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  int e = tma_map(&ta, corpus, TMA_I8, N, D, D, WG_BM, WgS8::BK);
+  if (e == 0) e = tma_map(&tb, queries, TMA_I8, Q, D, D, BN, WgS8::BK);
+  if (e != 0) return e;
+  const BinEpiI8<BN, MODE, PP> epi{scales, vals, idx, Q,
+                                   valid_n < N ? valid_n : N};
+  return wg_gemm_launch<BN, false, BinEpiI8<BN, MODE, PP>, WgS8, PP>(
+      ta, tb, (N + BD - 1) / BD, (Q + BN - 1) / BN,
+      (D + WgS8::BK - 1) / WgS8::BK, epi, st);
 }
 
 template <int MODE>
-void launch_bins(const void* corpus, const void* queries, const float* scales,
-                 float* vals, int* idx, int N, int Q, int D, int valid_n,
-                 cudaStream_t st) {
-  const int n_bins = (N + BD - 1) / BD;
-  for (int b0 = 0; b0 < n_bins; b0 += 65535) {  // gridDim.y limit
-    int nb = n_bins - b0 < 65535 ? n_bins - b0 : 65535;
-    dim3 grid((Q + BQ - 1) / BQ, nb);
-    bin_kernel<MODE><<<grid, 256, 0, st>>>(corpus, queries, scales, vals, idx,
-                                           N, Q, D, valid_n, b0);
-  }
+int launch_bins(const void* corpus, const void* queries, const float* scales,
+                float* vals, int* idx, int N, int Q, int D, int valid_n,
+                int pp, cudaStream_t st) {
+  if (pp)
+    return launch_bins_i8<MODE, 128, true>(corpus, queries, scales, vals, idx,
+                                           N, Q, D, valid_n, st);
+  if (Q <= 128)
+    return launch_bins_i8<MODE, 128, false>(corpus, queries, scales, vals,
+                                            idx, N, Q, D, valid_n, st);
+  return launch_bins_i8<MODE, 256, false>(corpus, queries, scales, vals, idx,
+                                          N, Q, D, valid_n, st);
 }
 
 }  // namespace
@@ -257,21 +310,25 @@ int bin_topk_bins(const void* corpus, const void* queries, void* vals,
   return launch_bins_bf16<256>(corpus, queries, v, i, N, Q, D, valid_n, st);
 }
 
-// corpus [N, D] int8, queries [Q, D] int8 (D % 64 == 0), scales [N] f32
-// (per_bin == 0) or [ceil(N/128)] f32 (per_bin == 1) -> vals/idx
-// [ceil(N/128), Q].
+// corpus [N, D] int8, queries [Q, D] int8 (D % 16 == 0: 16-byte rows for
+// TMA), scales [N] f32 (per_bin == 0) or [>= ceil(N/128)] f32 (per_bin ==
+// 1) -> vals/idx [ceil(N/128), Q].  pp: the ping-pong loop (128 x 128
+// tiles) instead of the cooperative one.
 int bin_topk_bins_i8(const void* corpus, const void* queries,
                      const void* scales, void* vals, void* idx, int N, int Q,
-                     int D, int valid_n, int per_bin, void* stream) {
+                     int D, int valid_n, int per_bin, int pp, void* stream) {
+  if (D % 16 || D < 1 || N < 0 || Q < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0 || Q == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scales);
   float* v = static_cast<float*>(vals);
   int* i = static_cast<int*>(idx);
   if (per_bin)
-    launch_bins<MODE_BIN>(corpus, queries, s, v, i, N, Q, D, valid_n, st);
-  else
-    launch_bins<MODE_DOC>(corpus, queries, s, v, i, N, Q, D, valid_n, st);
-  return static_cast<int>(cudaGetLastError());
+    return launch_bins<MODE_BIN>(corpus, queries, s, v, i, N, Q, D, valid_n,
+                                 pp, st);
+  return launch_bins<MODE_DOC>(corpus, queries, s, v, i, N, Q, D, valid_n,
+                               pp, st);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Hopper pieces shared by the wgmma kernels, and the persistent GEMM main
-// loop that the encoder GEMMs (encoder_layer.cu), the bf16 bin top-k
-// (bin_topk.cu) and the W8A8 encoder GEMMs (encoder_layer_q.cu) run on;
-// int4_matmul.cu's prefill uses the pieces.
+// loop that the encoder GEMMs (encoder_layer.cu), the bin top-k in its
+// bf16 and int8 modes (bin_topk.cu), the score GEMM (score.cu) and the
+// W8A8 encoder GEMMs (encoder_layer_q.cu) run on; int4_matmul.cu's prefill
+// uses the pieces.
 //
 // The main loop, wg_gemm_kernel<BN, B_MN, Epi, T, PP, M_FAST>: C = A .
 // B^T-or-B over 128 x BN output tiles (BN 128 or 256), one fixed k order
@@ -35,7 +36,8 @@
 //   soon as its products are done, so the producer runs up to a ring ahead:
 //   while the consumers run one tile's epilogue, the next tile's first
 //   stages load.
-// * PP, the ping-pong variant (encoder_layer_q.cu's qkv, o and FFN-out):
+// * PP, the ping-pong variant (encoder_layer_q.cu's qkv, o and FFN-out;
+//   bin_topk.cu's int8 modes):
 //   each consumer warpgroup takes whole 128 x 128 tiles in turn, its
 //   epilogue beside the other's products.
 // * Epi is called by the 256 consumer threads with the tile's accumulator

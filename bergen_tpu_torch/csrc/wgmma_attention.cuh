@@ -1,11 +1,13 @@
 // The warp-specialised wgmma attention main loop that flash_attention.cu
-// (causal GQA prefill) and encoder_layer.cu (encoder_attention_qkv, the
-// rope/ALiBi encoders' bidirectional attention) run on, built from
-// wgmma.cuh's pieces (tensor-map cache, mbarriers, descriptors).
+// (causal GQA prefill), flash_band.cu (the chunked drain's band attention)
+// and encoder_layer.cu (encoder_attention_qkv, the rope/ALiBi encoders'
+// bidirectional attention) run on, built from wgmma.cuh's pieces
+// (tensor-map cache, mbarriers, descriptors).
 //
 // The work is a list of units; a unit is one or more 128-row query tiles
-// (of one sequence and head, or of two short ones), each attending key
-// tiles 0 .. n_kt - 1 of BK keys.  One block per SM (grid = min(units,
+// (of one sequence and head, or of two short ones), each attending n_kt
+// consecutive key tiles of BK keys, from key tile 0 or (AttTile::k0) a
+// later one.  One block per SM (grid = min(units,
 // SMs)) walks the units u, u + grid, ...; the policy P orders them and
 // says which rows see which keys.  384 threads:
 // * Warpgroup 2 produces: setmaxnreg gives it 40 registers, and one thread
@@ -210,10 +212,24 @@ constexpr int AT_REGS_PRODUCER = 40, AT_REGS_CONSUMER = 232;
 constexpr float AT_L2E = 1.4426950408889634f;  // log2(e)
 
 // One query tile: batch b, query head qh (its column block in q and out),
-// K/V head kvh, first row q0, and the key tiles 0 .. n_kt - 1 it attends
-// (n_kt >= 1).
+// K/V head kvh, first row q0, and the n_kt >= 1 key tiles it attends,
+// counted by the loop from 0.  k0 is the first of them, for a policy whose
+// tiles start past key 0 (BandPolicy: its hooks add k0 to the loop's key
+// tile); the other policies leave it out of their initialisers, so it is 0.
 struct AttTile {
-  int b, qh, kvh, q0, n_kt;
+  int b, qh, kvh, q0, n_kt, k0;
+};
+
+// Whether P::tile() is collective over a whole warp (P::WARP_TILE, false
+// where the policy does not say so): the producer's warp then walks the
+// units together, and one lane issues the copies.
+template <class P, class = void>
+struct AttWarpTile {
+  static constexpr bool value = false;
+};
+template <class P>
+struct AttWarpTile<P, std::void_t<decltype(P::WARP_TILE)>> {
+  static constexpr bool value = P::WARP_TILE;
 };
 
 // Shared memory: QS query slots of [DH / 64][128 rows][64], STAGES K slots
@@ -384,13 +400,15 @@ __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
 }
 
 // The policy P (flash_attention.cu's FlashPolicy, encoder_layer.cu's
-// EncPolicy and EncPairPolicy) gives DH (64 or 128), BK (64 or 128),
+// EncPolicy and EncPairPolicy, flash_band.cu's BandPolicy) gives DH (64 or
+// 128), BK (64 or 128),
 // STAGES (K and V slots), QS (query slots), SPLIT (each warpgroup attends
 // its own half of a key tile: two short sequences in one tile), m_init()
 // (the running max before the first key: -1e30 or -inf), CLAMP_L (divide
 // by max(l, 1e-30) rather than l), the tensor maps tq, tk, tv (bf16,
 // 64 x 64 boxes), and:
-//   n_units(), n_qtiles(u), tile(u, i)            the schedule;
+//   n_units(), n_qtiles(u), tile(u, i)            the schedule (WARP_TILE,
+//       optional: tile() is called by whole warps only);
 //   q_box(t, r), kv_box(t, j, h)                  the TMA coordinates
 //       (column, row, batch) of a tile's 64-row boxes;
 //   key_ok(t, key)                                the key's mask bit;
@@ -449,12 +467,14 @@ __global__ void __launch_bounds__(AT_THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      AT_REGS_PRODUCER)
                  : "memory");
-    if (threadIdx.x == 256) {
+    constexpr bool WT = AttWarpTile<P>::value;
+    if (WT ? threadIdx.x < 288 : threadIdx.x == 256) {
       int qn = 0, kn = 0, vn = 0;  // slots filled so far, per ring
       for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
         const int nq = p.n_qtiles(u);
         for (int i = 0; i < nq; ++i) {
           const AttTile t = p.tile(u, i);
+          if (WT && threadIdx.x != 256) continue;  // thread 256 issues
           {
             const int slot = qn % QS;
             mbar_wait(&q_empty[slot], ((qn / QS) & 1) ^ 1);

@@ -10,8 +10,8 @@ leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is on, when it
 goes through ``ops.flash_attention.flash_attention``; every S=1 decode step
 goes through ``ops.decode_attention.decode_attention``, and the chunk rows
 of the serving drain's fused chunked-prefill step (``forward(chunk=...)``)
-through ``ops.flash_attention.flash_attention_band`` (the CUDA kernels on
-the card).  Projections of an int4 tree (``convert.quantize_tree_int4``)
+through ``ops.flash_attention.flash_attention_band_rows`` (the CUDA
+kernels on the card).  Projections of an int4 tree (``convert.quantize_tree_int4``)
 take ``ops.int4_matmul.matmul_int4_packed`` inside its shape rule and the
 JAX package's dequantized product outside it.  The cache is updated in
 place, where the JAX function returns a new one.
@@ -31,7 +31,7 @@ from bergen_tpu_torch.ops import int4_matmul
 from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
 from bergen_tpu_torch.ops.flash_attention import (flash_attention,
-                                                  flash_attention_band)
+                                                  flash_attention_band_rows)
 
 Params = Dict[str, Any]
 
@@ -183,8 +183,9 @@ def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunk["per"]`` rows write their K/V contiguously into cache row
     ``chunk["row"][p]`` at ``chunk["pos"][p]`` (after the decode write, as
     JAX orders them) and attend that whole row through
-    ``flash_attention_band`` under absolute bands ``chunk["band"]``, one
-    launch per active pipe.  An inactive pipe's rows attend nothing: their
+    ``flash_attention_band_rows`` under absolute bands ``chunk["band"]``,
+    one launch per active pipe, reading the layer's row of the whole cache
+    (one tensor map for every layer and row).  An inactive pipe's rows attend nothing: their
     context is zeros, as an empty band gives.  Returns ctx [B, 1, H*Dh]."""
     B = q.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -204,15 +205,16 @@ def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ctx = torch.zeros(B, H, Dh, dtype=q.dtype, device=q.device)
     ctx[:Bc] = decode_attention(q[:Bc, 0].contiguous(), k_cache, v_cache,
                                 attn_mask[:, -1], kv_heads=KH, sm_scale=scale)
-    L = k_cache.shape[1]
+    rows, L = k_cache.shape[0], k_cache.shape[1]
+    k_rows = cache["k"].view(-1, L, KH, Dh)
+    v_rows = cache["v"].view(-1, L, KH, Dh)
     for p, (row, live) in enumerate(zip(chunk["row"], chunk["active"])):
         if not live:
             continue
         r0 = Bc + p * C
-        ctx[r0:r0 + C] = flash_attention_band(
-            q[r0:r0 + C, 0], k_cache[row].view(L, KH, Dh),
-            v_cache[row].view(L, KH, Dh), chunk["band"][r0 - Bc:r0 - Bc + C],
-            sm_scale=scale)
+        ctx[r0:r0 + C] = flash_attention_band_rows(
+            q[r0:r0 + C, 0], k_rows, v_rows, li * rows + row,
+            chunk["band"][r0 - Bc:r0 - Bc + C], sm_scale=scale)
     return ctx.reshape(B, 1, H * Dh)
 
 

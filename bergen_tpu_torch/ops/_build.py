@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> (library, argtypes)
 SIGNATURES = {
     "encoder_gemm": ("encoder_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -43,7 +44,7 @@ SIGNATURES = {
     "encoder_layernorm_q": ("encoder_layer_q", [_P] * 6 + [_I, _I, _F, _P]),
     "encoder_qgemm": ("encoder_layer_q", [_P] * 8 + [_I] * 6 + [_P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 5 + [_P]),
+    "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 6 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 8 + [_I] * 6 + [_F, _P]),
     "decode_attention_splits": ("decode_attention", [_I] * 5),
     "int4_matmul": ("int4_matmul", [_P] * 6 + [_I] * 4 + [_P]),
@@ -51,7 +52,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 11 + [_F, _P]),
     "paged_partial": ("paged_attention", [_P] * 12 + [_I] * 7 + [_F, _P]),
     "paged_partial_blocks_per_sm": ("paged_attention", []),
-    "flash_attention_band": ("flash_band", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "flash_attention_band": ("flash_band", [_P] * 5 + [_I] * 7 + [_L, _L, _F,
+                                                                 _P]),
     "pallas_score": ("score", [_P] * 3 + [_I] * 3 + [_P]),
 }
 

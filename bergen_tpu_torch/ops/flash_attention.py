@@ -27,11 +27,18 @@ cache's first Sk slots are.  On a CPU tensor it runs the plain version.
 ``flash_attention_band`` is the counterpart of ``flash_attention_band``
 (:252): query row i attends keys [lo_i, hi_i) of one cache row.  Unlike the
 prefill's, its out-of-band probabilities are exactly 0, so a row with an
-empty band outputs exact zeros.  The kernel (``csrc/flash_band.cu``) and
-``flash_attention_band_plain`` visit, for each block of ``BLOCK`` query
-rows, only the key blocks that meet the union of its rows' bands; visiting
-a block with no in-band key leaves a row's m, l and accumulator unchanged,
-so the schedule changes nothing but the order of f32 sums.
+empty band outputs exact zeros.  ``flash_attention_band_plain`` visits, for
+each block of ``BLOCK`` query rows, only the key blocks that meet the union
+of its rows' bands; visiting a block with no in-band key leaves a row's m, l
+and accumulator unchanged, so the schedule changes nothing but the order of
+f32 sums.  The kernel (``csrc/flash_band.cu`` on
+``csrc/wgmma_attention.cuh``) takes units of one ``TILE_Q``-row query tile
+and one head (``band_units``), each attending the ``TILE_K``-key tiles from
+the first that meets its rows' band union to the union's end
+(``band_tile_keys``), with a base-2 online softmax and the probabilities
+rounded to bf16; ``flash_attention_band_tiles_plain`` runs that schedule.
+``flash_attention_band_rows`` attends one row of a cache of many rows in
+place (the chunked drain's call: one tensor map serves every row).
 """
 
 from __future__ import annotations
@@ -264,6 +271,79 @@ def flash_attention_band_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(Sq, H, Dh).to(q.dtype)
 
 
+def band_units(Sq: int, H: int) -> list[tuple[int, int]]:
+    """The band kernel's units in walk order: (first row of the
+    ``TILE_Q``-row query tile, head), heads fastest (a KV head's group
+    together)."""
+    return [(q0, h) for q0 in range(0, Sq, TILE_Q) for h in range(H)]
+
+
+def band_tile_keys(band: torch.Tensor, q0: int, Sk: int) -> tuple[int, int]:
+    """(first key tile, key tiles) that the query tile of rows [q0, q0 +
+    ``TILE_Q``) attends: from the tile holding the first in-band key of its
+    rows' band union to the union's end, in ``TILE_K``-key tiles; a tile
+    whose bands are all empty attends one key tile past Sk (no key)."""
+    lo = band[q0:q0 + TILE_Q, 0].long().clamp_min(0)
+    hi = band[q0:q0 + TILE_Q, 1].long().clamp_max(Sk)
+    nonempty = lo < hi
+    if not bool(nonempty.any()):
+        return -(-Sk // TILE_K), 1
+    k0 = int(lo[nonempty].min()) // TILE_K
+    return k0, -(-int(hi[nonempty].max()) // TILE_K) - k0
+
+
+def flash_attention_band_tiles_plain(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, band: torch.Tensor,
+                                     sm_scale: float | None = None,
+                                     round_p: bool = True) -> torch.Tensor:
+    """``flash_attention_band_plain`` on the kernel's schedule: query tiles
+    of ``TILE_Q`` rows (``band_units``; every head of a tile visits the
+    same key tiles), key tiles of ``TILE_K`` from ``band_tile_keys``, and
+    the loop's arithmetic: y = q.k * scale * log2 e (-inf outside the
+    band), m from -1e30, p = 2^(y - m'), a = 2^(m - m'), l' = l a + rowsum
+    p, acc' = acc a + bf16(p) . V, out = acc / max(l, 1e-30).  With
+    ``round_p`` False, p stays f32 in the P.V product (the schedule alone,
+    which the tests hold to the plain version's f32 sums)."""
+    Sq, H, Dh = q.shape
+    Sk, KH = k.shape[0], k.shape[1]
+    G = H // KH
+    scale2 = (1.0 / math.sqrt(Dh) if sm_scale is None else sm_scale) \
+        * math.log2(math.e)
+    dev = q.device
+    qf = q.float().reshape(Sq, KH, G, Dh)
+    kf, vf = k.float(), v.float()
+    lo_all = band[:, 0].long()
+    hi_all = band[:, 1].long().clamp_max(Sk)
+    out = torch.zeros(Sq, KH, G, Dh, dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, TILE_Q):
+        q1 = min(q0 + TILE_Q, Sq)
+        lo, hi = lo_all[q0:q1], hi_all[q0:q1]
+        k0, n_kt = band_tile_keys(band, q0, Sk)
+        qb = qf[q0:q1]
+        m = torch.full((KH, G, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(KH, G, q1 - q0, Dh, device=dev)
+        for kt in range(k0, k0 + n_kt):
+            ka, kb = kt * TILE_K, min((kt + 1) * TILE_K, Sk)
+            if ka >= kb:
+                continue  # no key: every p is 0 and a is 1
+            keys = torch.arange(ka, kb, device=dev)
+            inb = (keys[None, :] >= lo[:, None]) \
+                & (keys[None, :] < hi[:, None])
+            y = torch.einsum("qkgd,lkd->kgql", qb, kf[ka:kb]) * scale2
+            y = torch.where(inb, y, float("-inf"))
+            m_new = torch.maximum(m, y.amax(dim=-1))
+            p = torch.exp2(y - m_new[..., None])
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "kgql,lkd->kgqd", p.bfloat16().float() if round_p else p,
+                vf[ka:kb])
+            m = m_new
+        out[q0:q1] = (acc / l.clamp_min(1e-30)[..., None]).permute(2, 0, 1, 3)
+    return out.reshape(Sq, H, Dh).to(q.dtype)
+
+
 def flash_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          band: torch.Tensor,
                          sm_scale: float | None = None) -> torch.Tensor:
@@ -271,39 +351,57 @@ def flash_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attending keys [band[i, 0], band[i, 1]) -> [Sq, H, Dh] in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_band_plain(q, k, v, band, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_band: unsupported device "
-                         f"{q.device}")
+    return flash_attention_band_rows(q, k[None], v[None], 0, band, sm_scale)
+
+
+def flash_attention_band_rows(q: torch.Tensor, k_rows: torch.Tensor,
+                              v_rows: torch.Tensor, row: int,
+                              band: torch.Tensor,
+                              sm_scale: float | None = None) -> torch.Tensor:
+    """``flash_attention_band`` over row ``row`` of the caches k_rows,
+    v_rows [R, Sk, KH, Dh], read in place: the kernel maps every row at
+    once, so calls on other rows of the same cache reuse its tensor maps.
+    One launch, counted on ``flash_attention_band.launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_band_plain(q, k_rows[row], v_rows[row], band,
+                                          sm_scale)
+    _on_card("flash_attention_band", q)
     Sq, H, Dh = q.shape
-    Sk, KH = k.shape[0], k.shape[1]
-    if Dh not in HEAD_DIMS or H % KH or Sk < 1:
+    R, Sk, KH = k_rows.shape[0], k_rows.shape[1], k_rows.shape[2]
+    if Dh not in HEAD_DIMS or H % KH or Sk < 1 or not 0 <= row < R:
         raise ValueError(
             f"flash_attention_band kernel needs a head width in {HEAD_DIMS}, "
-            f"H a multiple of KH and Sk >= 1; got Dh={Dh}, H={H}, KH={KH}, "
-            f"Sk={Sk}")
+            f"H a multiple of KH, Sk >= 1 and a row of the cache; got "
+            f"Dh={Dh}, H={H}, KH={KH}, Sk={Sk}, row {row} of {R}")
     bf = torch.bfloat16
-    if q.dtype != bf or not q.is_contiguous():
-        raise ValueError("flash_attention_band kernel: q must be a contiguous "
-                         f"bf16 [Sq, H, Dh] tensor, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if (t.dtype != bf or tuple(t.shape) != (Sk, KH, Dh)
-                or t.stride(2) != 1 or t.stride(1) != Dh
-                or t.stride(0) % 8 or t.data_ptr() % 16):
+    if q.dtype != bf or not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("flash_attention_band kernel: q must be a "
+                         "contiguous, 16-byte aligned bf16 [Sq, H, Dh] "
+                         f"tensor, got {q.dtype}")
+    for name, t in (("k", k_rows), ("v", v_rows)):
+        if (t.dtype != bf or tuple(t.shape) != (R, Sk, KH, Dh)
+                or t.stride(3) != 1 or t.stride(2) != Dh
+                or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16):
             raise ValueError(
                 f"flash_attention_band kernel: {name} must be a bf16 [{Sk}, "
                 f"{KH}, {Dh}] view with contiguous heads and 16-byte aligned "
-                f"rows, got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
-    if k.stride() != v.stride():
+                f"rows, got {t.dtype} {tuple(t.shape[1:])} strides "
+                f"{t.stride()[1:]}")
+    if k_rows.stride() != v_rows.stride():
         raise ValueError("flash_attention_band kernel: k and v strides differ "
-                         f"({k.stride()} vs {v.stride()})")
+                         f"({k_rows.stride()} vs {v_rows.stride()})")
     if (band.dtype != torch.int32 or tuple(band.shape) != (Sq, 2)
-            or not band.is_contiguous() or band.device != q.device):
+            or not band.is_contiguous() or band.device != q.device
+            or band.data_ptr() % 8):
         raise ValueError("flash_attention_band kernel: band must be a "
                          f"contiguous int32 [{Sq}, 2] tensor on {q.device}")
     out = torch.empty(Sq, H, Dh, dtype=bf, device=q.device)
+    if Sq == 0:
+        return out
     fn = _build.function("flash_attention_band")
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), band.data_ptr(),
-                    out.data_ptr(), Sq, Sk, H, KH, Dh, k.stride(0),
+    _build.check(fn(q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+                    band.data_ptr(), out.data_ptr(), Sq, Sk, H, KH, Dh, R,
+                    int(row), k_rows.stride(1), k_rows.stride(0),
                     float(1.0 / math.sqrt(Dh) if sm_scale is None
                           else sm_scale), _build.stream_ptr(q.device)),
                  "flash_attention_band")

@@ -1076,7 +1076,9 @@ def check_bin_topk_int8(results: dict, dev) -> None:
     """Modes 'bin' (per-bin scales; the kernels line reports it) and 'doc'
     (per-doc scales) at N 262,144, Q 2,048, D 768, on a random unit-norm
     corpus and on a tie-heavy one (rows repeated from 20,000, queries with
-    16 non-zero codes), the last 1,000 docs padding."""
+    16 non-zero codes), the last 1,000 docs padding, each with its event,
+    card (profiler) and library times and its kernels a call; then both
+    modes on ``int8_saturated``'s codes at D 1,152, bit for bit."""
     import torch
     from bergen_tpu_torch.ops import fused_topk as ft
     from bergen_tpu_torch.ops.scoring import quantize_rows_int8
@@ -1144,16 +1146,87 @@ def check_bin_topk_int8(results: dict, dev) -> None:
                    "max_rel_err": rel, "rtol": INT8_RTOL,
                    "index_diffs": n_idx_diff, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": library_ms}
+                   "library_ms": library_ms,
+                   "library": "torch._int_mm + amax / argmax",
+                   # the card's own time, as the other kernels' rows
+                   "device_ms": device_time_ms([lambda: ft.bin_scores_int8(
+                       queries, codes, valid_n, scales)], iters=10),
+                   "library_device_ms": device_time_ms([library], iters=5),
+                   "kernels_per_call": launches_per_call(
+                       ft.bin_scores_int8, lambda: ft.bin_scores_int8(
+                           queries, codes, valid_n, scales))}
+            if hasattr(ft, "INT8_LOOP"):  # both loop shapes, in one call
+                loops = {}
+                for shape in ("cooperative", "pingpong"):
+                    ft.INT8_LOOP = shape
+                    lv, li = ft.bin_scores_int8(queries, codes, valid_n,
+                                                scales)
+                    loops[shape] = {
+                        "device_ms": device_time_ms([
+                            lambda: ft.bin_scores_int8(queries, codes,
+                                                       valid_n, scales)],
+                            iters=10),
+                        "equal": bool(torch.equal(lv, vals)
+                                      and torch.equal(li, idx))}
+                ft.INT8_LOOP = "cooperative"
+                row["loops"] = loops
+                if not all(x["equal"] for x in loops.values()):
+                    fail(f"bin_topk_int8 {mode}/{corpus_name}: the loop "
+                         f"shapes disagree: {loops}")
             emit({"phase": "kernel_check", "kernel": "bin_topk_int8", **row})
             per_case.append(row)
-            if not rel <= INT8_RTOL or n_idx_diff:
+            if not rel <= INT8_RTOL or n_idx_diff \
+                    or row["kernels_per_call"] != 1:
                 fail(f"bin_topk_int8 {mode}/{corpus_name}: max relative "
                      f"error {rel} (tol {INT8_RTOL}), {n_idx_diff} bin "
-                     "indices differ")
+                     f"indices differ, {row['kernels_per_call']} kernels "
+                     "a call")
             del vals, idx, rv, ri, v2, i2
             torch.cuda.empty_cache()
+    # saturated codes at D 1,152: winning sums past 2^24, neighbouring sums
+    # one apart (often one f32); values and indices bit-exact
+    q_i8, codes, valid_n, bin_sc, doc_sc = (
+        torch.from_numpy(x).to(dev) if hasattr(x, "dtype") else x
+        for x in int8_saturated())
+    for mode, scales in (("bin", bin_sc), ("doc", doc_sc)):
+        vals, idx = ft.bin_scores_int8(q_i8, codes, valid_n, scales)
+        rv, ri = ft.bin_scores_int8_plain(q_i8, codes, valid_n, scales)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(vals, rv) and torch.equal(idx, ri))
+        emit({"phase": "kernel_check", "kernel": "bin_topk_int8",
+              "mode": mode, "corpus": "saturated", "N": codes.shape[0],
+              "D": codes.shape[1], "Q": q_i8.shape[0],
+              "max_sum": int((codes.double() @ q_i8.double().T).max()),
+              "bit_equal": same})
+        if not same:
+            fail(f"bin_topk_int8 {mode}/saturated: values or indices differ "
+                 "from the plain version")
     results["bin_topk_int8"] = per_case
+
+
+def int8_saturated(N: int = 1000, D: int = 1152, Q: int = 7, seed: int = 5):
+    """int8 codes at +-127 whose winning sums pass 2^24 (f32 then steps by
+    2): each query is +-127 but for one code of 1 at column p; each bin i <
+    Q holds six copies of query i's signs, the later ones with column p one
+    larger, so their sums are one apart and often round to one f32.
+    Returns numpy (queries [Q, D], codes [N, D]), valid_n, per-bin and
+    per-doc scales (the tests' ``_saturated`` case)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(0, 2, size=(Q, D)) * 2 - 1) * 127
+    c = (rng.integers(0, 2, size=(N, D)) * 2 - 1) * 127
+    for i in range(Q):
+        p = (37 * i) % D
+        q[i, p] = 1
+        for j, doc in enumerate(range(128 * i + 5, 128 * i + 125, 20)):
+            c[doc] = q[i] // np.abs(q[i]) * 127
+            c[doc, p] = 120 + j
+    scales = rng.uniform(0.5, 1.5, size=-(-N // 128)).astype(np.float32)
+    doc_scales = np.ones(N, np.float32)
+    doc_scales[::3] = rng.uniform(0.5, 1.5, size=len(doc_scales[::3]))
+    return (q.astype(np.int8), c.astype(np.int8), N - 40, scales,
+            doc_scales)
 
 
 # decode attention: the unchanged limit of the card check, a few bf16 ulps
@@ -1786,17 +1859,25 @@ def check_paged_attention(results: dict, dev) -> None:
 # the chunked drain's chunk rows: (H, KH, Dh, cache row length, staging
 # base, chunk offset, valid chunk rows).  Mistral-7B at a ring of 896 keys,
 # the second chunk of a 218-token prompt (rows past 90 are the drain's
-# clamped garbage rows); TinyLlama's GQA at 640 keys, a first chunk.  The
-# last row of each has an empty band and must come out exactly zero
+# clamped garbage rows); TinyLlama's GQA at 640 keys, a first chunk;
+# Mistral's width again with bands from key 0 that run past the 512 keys.
+# The last row of each has an empty band and must come out exactly zero
 BAND_CHUNK = 128
 BAND_SHAPES = ((32, 8, 128, 896, 400, 128, 90),
-               (32, 4, 64, 640, 200, 0, 128))
+               (32, 4, 64, 640, 200, 0, 128),
+               (32, 8, 128, 512, 0, 448, 128))
+# and ragged: 300 rows (a part query tile), random bands over 640 keys
+# (some past Sk, some inside a key tile), the third tile all empty
+BAND_RAGGED = (300, 32, 4, 64, 640)
 
 
 def check_flash_attention_band(results: dict, dev) -> None:
     """The band kernel against its plain version on 128 chunk rows reading
     one row of a flat [33, L, KH*Dh] cache in place, with the drain's
-    staged bands and one empty band (exact zeros)."""
+    staged bands and one empty band (exact zeros); the same row read
+    through ``flash_attention_band_rows`` (the drain's call, mapping every
+    row of the cache) bit for bit; then the ragged case of
+    ``BAND_RAGGED``, whose all-empty tile must be exactly zero."""
     import torch
     import torch.nn.functional as F
     from bergen_tpu_torch.ops import flash_attention as fa
@@ -1819,6 +1900,11 @@ def check_flash_attention_band(results: dict, dev) -> None:
         ref = fa.flash_attention_band_plain(q, k, v, band)
         max_err, mean_err = _errors(out, ref)
         empty_exact = bool((out[-1] == 0).all())
+        rows_equal = None  # a tree from before the rows entry has none
+        if hasattr(fa, "flash_attention_band_rows"):
+            rows_equal = bool(torch.equal(fa.flash_attention_band_rows(
+                q, kc.view(33, L, KH, Dh), vc.view(33, L, KH, Dh), 5,
+                band), out))
         ms = cuda_time_ms(lambda: fa.flash_attention_band(q, k, v, band),
                           iters=50)
         plain_ms = cuda_time_ms(
@@ -1844,24 +1930,55 @@ def check_flash_attention_band(results: dict, dev) -> None:
         b_ms, b_by = bound(4 * H * Dh * pairs, nbytes)
         row = {"Sq": C, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
                "band_keys": n_keys, "in_band_pairs": pairs,
+               "band_start": base, "band_end_max": int(band[:, 1].max()),
                "max_abs_err": max_err, "mean_abs_err": mean_err,
                "tol": FLASH_TOL, "mean_tol": FLASH_MEAN_TOL,
-               "empty_band_exact_zero": empty_exact, "ms": ms,
+               "empty_band_exact_zero": empty_exact,
+               "rows_entry_equal": rows_equal, "ms": ms,
                "device_ms": device_ms,
                "library_device_ms": library_device_ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": library_ms,
-               "library": "SDPA with a boolean band mask (enable_gqa)"}
+               "library": "SDPA with a boolean band mask (enable_gqa)",
+               "kernels_per_call": launches_per_call(
+                   fa.flash_attention_band,
+                   lambda: fa.flash_attention_band(q, k, v, band))}
         emit({"phase": "kernel_check", "kernel": "flash_attention_band",
               **row})
         per_shape.append(row)
         if not (max_err <= FLASH_TOL and mean_err <= FLASH_MEAN_TOL
-                and empty_exact):
+                and empty_exact and rows_equal is not False
+                and row["kernels_per_call"] == 1):
             fail(f"flash_attention_band H{H} KH{KH} Dh{Dh} L{L}: max error "
                  f"{max_err} (tol {FLASH_TOL}), mean error {mean_err} (tol "
-                 f"{FLASH_MEAN_TOL}), empty band exactly zero: {empty_exact}")
+                 f"{FLASH_MEAN_TOL}), empty band exactly zero: {empty_exact}"
+                 f", rows entry equal: {rows_equal}, kernels a call: "
+                 f"{row['kernels_per_call']}")
         del q, kc, vc, out, ref
         torch.cuda.empty_cache()
+    Sq, H, KH, Dh, L = BAND_RAGGED
+    q = rnd(Sq, H, Dh).bfloat16()
+    k, v = rnd(L, KH, Dh).bfloat16(), rnd(L, KH, Dh).bfloat16()
+    lo = torch.randint(-3, L, (Sq,), generator=gen, device=dev)
+    hi = lo + torch.randint(1, L + 60, (Sq,), generator=gen, device=dev)
+    band = torch.stack([lo, hi], dim=1).int()
+    band[256:] = 300  # the third query tile: every band empty
+    band = band.contiguous()
+    out = fa.flash_attention_band(q, k, v, band)
+    ref = fa.flash_attention_band_plain(q, k, v, band)
+    max_err, mean_err = _errors(out, ref)
+    empty = band[:, 0].clamp_min(0) >= band[:, 1].clamp_max(L)
+    empty_exact = bool((out[empty] == 0).all())
+    emit({"phase": "kernel_check", "kernel": "flash_attention_band",
+          "Sq": Sq, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
+          "empty_rows": int(empty.sum().item()), "max_abs_err": max_err,
+          "mean_abs_err": mean_err, "tol": FLASH_TOL,
+          "mean_tol": FLASH_MEAN_TOL, "empty_band_exact_zero": empty_exact})
+    if not (max_err <= FLASH_TOL and mean_err <= FLASH_MEAN_TOL
+            and empty_exact and bool(empty[256:].all())):
+        fail(f"flash_attention_band ragged Sq {Sq}: max error {max_err} (tol "
+             f"{FLASH_TOL}), mean error {mean_err} (tol {FLASH_MEAN_TOL}), "
+             f"empty bands exactly zero: {empty_exact}")
     results["flash_attention_band"] = per_shape
 
 
@@ -2777,7 +2894,8 @@ def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str) -> dict:
     ``run_workload(mode="chunked")`` (2 pipes of 128-token chunks), then
     with ``mode="epoch"``.  Per mode: steps (fused steps; decode steps),
     wall, new tokens/s; and the share of tokens the modes agree on, not
-    held to a limit (random weights make near-ties)."""
+    held to a limit (random weights make near-ties); a digest of each
+    mode's tokens."""
     import numpy as np
     import torch
     from bergen_tpu_torch.models.generators.llm import LLM
@@ -2810,7 +2928,10 @@ def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str) -> dict:
         n_new = sum(map(len, tokens[mode]))
         out[mode] = {"steps": steps, "wall_s": wall, "new_tokens": n_new,
                      "new_tokens_per_s": n_new / wall,
-                     "steps_per_s": steps / wall}
+                     "steps_per_s": steps / wall,
+                     "tokens_sha256": hashlib.sha256(json.dumps(
+                         [list(map(int, t)) for t in tokens[mode]])
+                         .encode()).hexdigest()}
     out["chunked"]["pipe_steps"] = GenerationServer.chunk_pipe_steps
     out["decode_steps"] = GenerationServer.decode_steps
     same = sum(int(np.sum(np.asarray(a[:len(b)]) == np.asarray(b[:len(a)])))

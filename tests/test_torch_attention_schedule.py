@@ -17,6 +17,24 @@ Here, on the same numpy inputs:
 * the wrappers' shape checks, on ``meta`` tensors with the launch layer
   stubbed: every shipped prefill and rope/ALiBi encoder shape reaches the
   kernel, other shapes raise before any launch.
+
+The band attention's kernel (``csrc/flash_band.cu``) runs units of one
+128-row query tile and one head (``band_units``), each over the 128-key
+tiles of its rows' band union (``band_tile_keys``), with a base-2 online
+softmax and bf16 probabilities; ``flash_attention_band_tiles_plain`` runs
+that schedule.  Here:
+
+* with f32 probabilities it equals ``flash_attention_band_plain`` (1e-5:
+  the same sums merged at other key tiles, in base 2) and JAX's Pallas
+  ``flash_attention_band`` in interpret mode (1e-5);
+* with the kernel's bf16 probabilities it stays within 1e-2 of the plain
+  version on f32 inputs (p rounded to 2^-9 relative, |v| up to 4), and
+  within one bf16 ulp of |out| < 4 (2^-6) of JAX's kernel on bf16 inputs,
+  where both round p to bf16;
+* empty bands, and whole tiles of them, give exact zeros;
+* ``band_units`` covers each (query tile, head) once, and ``band_tile_keys``
+  covers each tile's band union and no key tile beyond it;
+* the band wrappers' shape checks on ``meta`` tensors, as above.
 """
 
 import numpy as np
@@ -28,6 +46,7 @@ import jax.numpy as jnp
 from bergen_tpu.models import bert as jbert
 from bergen_tpu.ops import encoder_attention as jea
 from bergen_tpu.ops.flash_attention import flash_attention as jfa
+from bergen_tpu.ops.flash_attention import flash_attention_band as jband
 from bergen_tpu_torch.ops import encoder_attention as ea
 from bergen_tpu_torch.ops import flash_attention as fa
 
@@ -302,3 +321,186 @@ ENC_OUTSIDE = {
 def test_encoder_outside_shapes_raise_before_any_launch(no_launch, why):
     with pytest.raises(ValueError):
         _enc_call(**ENC_OUTSIDE[why])
+
+
+# --------------------------------------------------------------------------
+# the band attention's tile schedule
+# --------------------------------------------------------------------------
+
+BAND_P_ATOL = 1e-2   # bf16(p) against the plain version's f32 p
+BAND_BF16_ATOL = 2 ** -6  # one bf16 ulp of |out| < 4
+
+# (Sq, H, KH, Dh, Sk, kind): head widths 64 and 128, groups 1, 4 and 8, Sq
+# 1, 127, 128, 129 and 300; Sk a multiple of 128, so JAX's kernel pads no
+# key and a band past Sk ends at Sk in both.  kind 'ragged': random bands,
+# some past Sk, some starting inside a key tile, a few empty (and in
+# 'sq300' the whole third tile); 'drain': the chunked drain's staged bands
+# (a prefix, then causal over the chunk, the rows past the valid ones on
+# the last valid row's band, the last row inactive)
+BAND_CASES = {
+    "dh64_g1_sq1": (1, 2, 2, 64, 256, "ragged"),
+    "dh128_g4_sq127": (127, 8, 2, 128, 256, "ragged"),
+    "dh64_g8_sq128": (128, 8, 1, 64, 384, "ragged"),
+    "dh128_g8_sq129": (129, 8, 1, 128, 256, "ragged"),
+    "dh64_g4_sq300": (300, 8, 2, 64, 512, "ragged"),
+    "dh128_g4_drain": (128, 8, 2, 128, 512, "drain"),
+    "dh64_g8_drain": (128, 8, 1, 64, 640, "drain"),
+}
+
+
+def _band_case(name):
+    Sq, H, KH, Dh, Sk, kind = BAND_CASES[name]
+    rng = np.random.default_rng(len(name) + Sq)
+    q = rng.standard_normal((Sq, H, Dh)).astype(np.float32)
+    k = rng.standard_normal((Sk, KH, Dh)).astype(np.float32)
+    v = rng.standard_normal((Sk, KH, Dh)).astype(np.float32)
+    if kind == "drain":
+        base, off, nv = 200, 128, 90
+        i = np.arange(Sq)
+        band = np.stack([np.full(Sq, base),
+                         base + off + np.minimum(i, nv - 1) + 1], axis=1)
+        band[-1] = 0
+    else:
+        lo = rng.integers(-3, Sk, size=Sq)
+        band = np.stack([lo, lo + rng.integers(1, Sk + 60, size=Sq)], axis=1)
+        fixed = [(37, 101), (64, 65), (90, 90), (120, 40), (0, Sk + 50),
+                 (Sk - 5, Sk + 70), (130, 250)]
+        for r, b in enumerate(fixed[:Sq]):
+            band[(r * 7) % Sq] = b
+        if Sq > 256:
+            band[256:] = (300, 300)  # a query tile with no key at all
+    return q, k, v, band.astype(np.int32)
+
+
+def _band_empty(band, Sk):
+    return np.maximum(band[:, 0], 0) >= np.minimum(band[:, 1], Sk)
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_tiles_match_plain(case):
+    q, k, v, band = _t(*_band_case(case))
+    ref = fa.flash_attention_band_plain(q, k, v, band)
+    out = fa.flash_attention_band_tiles_plain(q, k, v, band, round_p=False)
+    torch.testing.assert_close(out, ref, atol=PLAIN_ATOL, rtol=0)
+    rounded = fa.flash_attention_band_tiles_plain(q, k, v, band)
+    torch.testing.assert_close(rounded, ref, atol=BAND_P_ATOL, rtol=0)
+    empty = torch.from_numpy(_band_empty(band.numpy(), k.shape[0]))
+    assert not rounded[empty].any() and not out[empty].any()
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_tiles_match_jax_kernel(case):
+    q, k, v, band = _band_case(case)
+    ref = np.asarray(jband(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(band), interpret=True))
+    out = fa.flash_attention_band_tiles_plain(*_t(q, k, v, band),
+                                              round_p=False).numpy()
+    np.testing.assert_allclose(out, ref, atol=JAX_ATOL, rtol=0)
+    empty = _band_empty(band, k.shape[0])
+    assert not out[empty].any() and not ref[empty].any()
+    if q.shape[0] > 256:
+        assert empty[256:].all() and (~empty[:256]).any()
+
+
+@pytest.mark.parametrize("case", ["dh128_g4_sq127", "dh64_g4_sq300",
+                                  "dh128_g4_drain"])
+def test_band_tiles_bf16_match_jax_kernel(case):
+    """bf16 inputs: both round p to bf16 before the P.V product and return
+    bf16."""
+    q, k, v, band = _band_case(case)
+    args = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
+    out = fa.flash_attention_band_tiles_plain(*args, torch.from_numpy(band))
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(jband(*(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                             for a in args), jnp.asarray(band),
+                           interpret=True), np.float32)
+    outf = out.float().numpy()
+    assert np.abs(outf).max() < 4
+    np.testing.assert_allclose(outf, ref, atol=BAND_BF16_ATOL, rtol=0)
+    assert not outf[_band_empty(band, k.shape[0])].any()
+
+
+@pytest.mark.parametrize("Sq", [1, 127, 128, 129, 300, 2048])
+@pytest.mark.parametrize("H", [1, 8, 32])
+def test_band_units_cover_each_tile_head_once(Sq, H):
+    units = fa.band_units(Sq, H)
+    n = -(-Sq // fa.TILE_Q)
+    assert sorted(units) == [(t * fa.TILE_Q, h) for t in range(n)
+                             for h in range(H)]
+    assert len(set(units)) == len(units) == n * H
+    # heads fastest: consecutive units share a query tile
+    assert [u[0] for u in units] == sorted(u[0] for u in units)
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_tile_keys_cover_the_union(case):
+    _, _, _, band = _band_case(case)
+    Sk = BAND_CASES[case][4]
+    T = fa.TILE_K
+    for q0 in range(0, band.shape[0], fa.TILE_Q):
+        b = band[q0:q0 + fa.TILE_Q]
+        k0, n_kt = fa.band_tile_keys(torch.from_numpy(band), q0, Sk)
+        lo, hi = np.maximum(b[:, 0], 0), np.minimum(b[:, 1], Sk)
+        live = lo < hi
+        if not live.any():
+            assert (k0 * T >= Sk, n_kt) == (True, 1)
+            continue
+        first, end = lo[live].min(), hi[live].max()
+        assert k0 * T <= first < (k0 + 1) * T
+        assert (k0 + n_kt - 1) * T < end <= (k0 + n_kt) * T
+
+
+# (H, KH, Dh): published widths of the served generators whose chunked
+# drain takes the band attention
+SERVED = {"Mistral-7B-Instruct-v0.2": (32, 8, 128),
+          "TinyLlama-1.1B-Chat": (32, 4, 64)}
+
+
+def _drain_band_call(H, KH, Dh, n_layers=3, rows=5, L=640, C=128):
+    """The drain's operands: one pipe's chunk rows q [C, H, Dh], the whole
+    flat cache as [n_layers * rows, L, KH, Dh] rows, the pipe's bands."""
+    kc = _meta(n_layers, rows, L, KH * Dh)
+    vc = _meta(n_layers, rows, L, KH * Dh)
+    return (_meta(C, H, Dh), kc.view(-1, L, KH, Dh), vc.view(-1, L, KH, Dh),
+            2 * rows + 3, _meta(C, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", sorted(SERVED))
+def test_band_drain_shapes_reach_the_kernel(no_launch, name):
+    with pytest.raises(_Launch) as hit:
+        fa.flash_attention_band_rows(*_drain_band_call(*SERVED[name]))
+    assert hit.value.args[0] == "flash_attention_band"
+    q, kr, vr, _, band = _drain_band_call(*SERVED[name])
+    with pytest.raises(_Launch):
+        fa.flash_attention_band(q, kr[4], vr[4], band)
+
+
+def _band_outside(why):
+    q, kr, vr, row, band = _drain_band_call(32, 8, 128)
+    if why == "head width 96":
+        return _drain_band_call(32, 8, 96)
+    if why == "H not a multiple of KH":
+        return _drain_band_call(30, 8, 128)
+    if why == "f32 q":
+        return q.float(), kr, vr, row, band
+    if why == "row past the cache":
+        return q, kr, vr, kr.shape[0], band
+    if why == "k and v strides differ":
+        R, L = kr.shape[:2]
+        return q, kr, _meta(R, L + 8, *kr.shape[2:])[:, :L], row, band
+    if why == "int64 band":
+        return q, kr, vr, row, band.long()
+    if why == "band rows":
+        return q, kr, vr, row, _meta(q.shape[0] + 1, 2, dtype=torch.int32)
+    raise AssertionError(why)
+
+
+BAND_OUTSIDE = ["head width 96", "H not a multiple of KH", "f32 q",
+                "row past the cache", "k and v strides differ", "int64 band",
+                "band rows"]
+
+
+@pytest.mark.parametrize("why", BAND_OUTSIDE)
+def test_band_outside_shapes_raise_before_any_launch(no_launch, why):
+    with pytest.raises(ValueError):
+        fa.flash_attention_band_rows(*_band_outside(why))

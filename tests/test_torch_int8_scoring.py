@@ -8,6 +8,10 @@ against the JAX package on the same numpy inputs:
   method='exact', interpret=True)``: identical indices, values within 1e-6
   relative (exact integer sums; the same f32 conversion and multiply), on
   a random corpus, a tie-heavy one (repeated rows) and with ``valid_n`` < N;
+* the same at D 1,152 with saturated codes (+-127), where the winning
+  sums pass 2^24 and neighbouring sums round to one f32: mode 'bin' must
+  compare the int32 sums before the winner's f32 cast, mode 'doc' cast
+  each sum before it compares (``_saturated``);
 * the port's int8 ``topk_blocked`` (the guard's exact rungs, per-query
   scales applied after the top-k) against JAX's int8 ``exact_topk_rows``
   and ``topk_blocked``.
@@ -83,6 +87,55 @@ def test_bin_topk_int8_matches_jax(mode, name):
     if name == "ties":  # a tied bin reports its lowest index
         tied = set(range(201, 256)) | set(range(257, 260))  # bins 1 and 2
         assert not tied & set(ti.numpy().ravel())
+
+
+def _saturated(N=1000, D=1152, Q=7, seed=5):
+    """int8 codes at +-127 whose winning sums pass 2^24 (f32 then steps by
+    2): each query is +-127 but for one code of 1 at column p; each bin
+    holds copies of one query's signs, the later ones with column p one
+    larger, so their sums exceed the earlier ones' by 1 (often the same
+    f32).  Returns (queries [Q, D], codes [N, D], valid_n, per-bin scales,
+    per-doc scales)."""
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(0, 2, size=(Q, D)) * 2 - 1) * 127
+    c = (rng.integers(0, 2, size=(N, D)) * 2 - 1) * 127
+    for i in range(Q):
+        p = (37 * i) % D
+        q[i, p] = 1
+        for j, doc in enumerate(range(128 * i + 5, 128 * i + 125, 20)):
+            c[doc] = q[i] // np.abs(q[i]) * 127
+            c[doc, p] = 120 + j  # sums one apart from copy to copy
+    scales = rng.uniform(0.5, 1.5, size=-(-N // 128)).astype(np.float32)
+    doc_scales = np.ones(N, np.float32)  # equal: the f32 ties stay ties
+    doc_scales[::3] = rng.uniform(0.5, 1.5, size=len(doc_scales[::3]))
+    return (q.astype(np.int8), c.astype(np.int8), N - 40, scales,
+            doc_scales)
+
+
+@pytest.mark.parametrize("mode", ["bin", "doc"])
+def test_bin_topk_int8_saturated_matches_jax(mode):
+    q_i8, codes, valid_n, bin_scales, doc_scales = _saturated()
+    scales = bin_scales if mode == "bin" else doc_scales
+    raw = codes.astype(np.int64) @ q_i8.astype(np.int64).T
+    assert raw.max() > 1 << 24  # the winners' sums are past f32's integers
+    k = 8  # every bin
+    jv, ji = jft.bin_topk(jnp.asarray(q_i8), jnp.asarray(codes), k,
+                          valid_n=valid_n, doc_scales=jnp.asarray(scales),
+                          method="exact", interpret=True)
+    tv, ti = tft.bin_topk(torch.from_numpy(q_i8), torch.from_numpy(codes), k,
+                          valid_n=valid_n,
+                          doc_scales=torch.from_numpy(scales))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # the rule itself: bin i's copies differ by one in their sums, so an
+    # int32 compare takes the last copy, an f32 compare of equal values the
+    # lowest doc among those that round alike
+    best = ti.numpy()[np.arange(7), 0]
+    copies = [list(range(128 * i + 5, 128 * i + 125, 20)) for i in range(7)]
+    if mode == "bin":
+        assert [b == c[-1] for b, c in zip(best, copies)] == [True] * 7
+    else:
+        assert all(b in c for b, c in zip(best, copies))
 
 
 @pytest.mark.parametrize("mode", ["bin", "doc"])
