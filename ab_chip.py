@@ -62,7 +62,8 @@ tree (its kernels built there), runs one of this checkout's
 (``nvcc -cubin``, the build's target and flags) and compares their SASS
 function by function, with addresses, encodings and function names left
 out: one line a source, ``identical`` when every function's instructions
-are (the proof that an edit to shared code leaves a kernel as it was).
+are (the proof that an edit to shared code leaves a kernel as it was), and
+how many of the first tree's functions the second has unchanged.
 
 Give the trees as A B B A so that drift of the host shows.  Every
 measurement is one JSON line on standard output, tagged with its tree and
@@ -235,7 +236,10 @@ def sass(trees: list[str]) -> None:
                      "functions": [len(f) for f in funcs],
                      "instructions": [sum(x.count("\n") + 1 for x in f)
                                       for f in funcs],
-                     "identical": funcs[0] == funcs[1]})
+                     "identical": funcs[0] == funcs[1],
+                     # functions of the first tree found unchanged in the
+                     # second (a source whose other kernels changed)
+                     "unchanged": sum(1 for f in funcs[0] if f in funcs[1])})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

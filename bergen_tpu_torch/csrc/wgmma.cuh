@@ -101,9 +101,11 @@ inline EncodeTiledFn encode_tiled() {
 // elements fill one 128-byte swizzle row at most); reads past the tensor
 // return zeros and stores past it are dropped.  Returns a cudaError_t
 // value.  Encoding a map costs the host microseconds, more than a small
-// kernel takes on the card, so maps are kept in a small direct-mapped
-// cache keyed by all of their arguments (a map depends on nothing else, so
-// a hit is exact).
+// kernel takes on the card, so maps are kept in a cache keyed by all of
+// their arguments (a map depends on nothing else, so a hit is exact): 64
+// sets of 4, the set from a mix of every argument, so that operands whose
+// bases lie a power of two apart (a kernel's q and out, k and v) do not
+// evict each other, and a set's ways refilled in turn.
 inline int tma_encode(CUtensorMap* map, const void* base, int kind, int rank,
                       const long long* dims, const long long* strides,
                       const int* box) {
@@ -114,14 +116,22 @@ inline int tma_encode(CUtensorMap* map, const void* base, int kind, int rank,
     int box[3];
     CUtensorMap map;
   };
-  static Entry cache[64];
+  constexpr int SETS = 64, WAYS = 4;
+  static Entry cache[SETS][WAYS];
+  static unsigned next_way[SETS];
   static std::mutex lock;
-  size_t h = (reinterpret_cast<uintptr_t>(base) >> 8) + kind;
-  for (int i = 0; i < rank; ++i)
-    h = h * 31 + static_cast<size_t>(dims[i] * 7 + box[i] +
-                                     (i ? strides[i - 1] : 0));
-  Entry& e = cache[h % 64];
-  auto hit = [&]() {
+  uint64_t h = reinterpret_cast<uintptr_t>(base) * 0x9e3779b97f4a7c15ull +
+               static_cast<uint64_t>(kind);
+  for (int i = 0; i < rank; ++i) {
+    h = (h ^ static_cast<uint64_t>(dims[i])) * 0x100000001b3ull;
+    h = (h ^ static_cast<uint64_t>(box[i])) * 0x100000001b3ull;
+    if (i) h = (h ^ static_cast<uint64_t>(strides[i - 1])) * 0x100000001b3ull;
+  }
+  h ^= h >> 33;
+  h *= 0xff51afd7ed558ccdull;
+  h ^= h >> 33;
+  const int set = static_cast<int>(h % SETS);
+  auto hit = [&](const Entry& e) {
     if (e.base != base || e.rank != rank || e.kind != kind) return false;
     for (int i = 0; i < rank; ++i)
       if (e.dims[i] != dims[i] || e.box[i] != box[i] ||
@@ -131,10 +141,11 @@ inline int tma_encode(CUtensorMap* map, const void* base, int kind, int rank,
   };
   {
     std::lock_guard<std::mutex> g(lock);
-    if (hit()) {
-      *map = e.map;
-      return 0;
-    }
+    for (int w = 0; w < WAYS; ++w)
+      if (hit(cache[set][w])) {
+        *map = cache[set][w].map;
+        return 0;
+      }
   }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -156,6 +167,7 @@ inline int tma_encode(CUtensorMap* map, const void* base, int kind, int rank,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   std::lock_guard<std::mutex> g(lock);
+  Entry& e = cache[set][next_way[set]++ % WAYS];
   e.base = base;
   e.rank = rank;
   e.kind = kind;

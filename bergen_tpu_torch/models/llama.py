@@ -11,10 +11,10 @@ goes through ``ops.flash_attention.flash_attention``; every S=1 decode step
 goes through ``ops.decode_attention.decode_attention``, and the chunk rows
 of the serving drain's fused chunked-prefill step (``forward(chunk=...)``)
 through ``ops.flash_attention.flash_attention_band_rows`` (the CUDA
-kernels on the card).  Projections of an int4 tree (``convert.quantize_tree_int4``)
-take ``ops.int4_matmul.matmul_int4_packed`` inside its shape rule and the
-JAX package's dequantized product outside it.  The cache is updated in
-place, where the JAX function returns a new one.
+kernels on the card).  Projections of an int4 tree
+(``convert.quantize_tree_int4``) take ``ops.int4_matmul.matmul_int4_packed``
+inside its shape rule and the JAX package's dequantized product outside it.
+The cache is updated in place, where the JAX function returns a new one.
 """
 
 from __future__ import annotations
@@ -185,8 +185,9 @@ def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX orders them) and attend that whole row through
     ``flash_attention_band_rows`` under absolute bands ``chunk["band"]``,
     one launch per active pipe, reading the layer's row of the whole cache
-    (one tensor map for every layer and row).  An inactive pipe's rows attend nothing: their
-    context is zeros, as an empty band gives.  Returns ctx [B, 1, H*Dh]."""
+    (one tensor map for every layer and row).  An inactive pipe's rows
+    attend nothing: their context is zeros, as an empty band gives.
+    Returns ctx [B, 1, H*Dh]."""
     B = q.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     C = chunk["per"]

@@ -44,7 +44,7 @@ SIGNATURES = {
     "encoder_layernorm_q": ("encoder_layer_q", [_P] * 6 + [_I, _I, _F, _P]),
     "encoder_qgemm": ("encoder_layer_q", [_P] * 8 + [_I] * 6 + [_P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 6 + [_P]),
+    "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 5 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 8 + [_I] * 6 + [_F, _P]),
     "decode_attention_splits": ("decode_attention", [_I] * 5),
     "int4_matmul": ("int4_matmul", [_P] * 6 + [_I] * 4 + [_P]),

@@ -351,7 +351,9 @@ def flash_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attending keys [band[i, 0], band[i, 1]) -> [Sq, H, Dh] in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_band_plain(q, k, v, band, sm_scale)
-    return flash_attention_band_rows(q, k[None], v[None], 0, band, sm_scale)
+    _on_card("flash_attention_band", q)
+    return _band_launch(q, k, v, k.shape, k.stride(), 1, 0,
+                        k.shape[0] * k.stride(0), band, sm_scale)
 
 
 def flash_attention_band_rows(q: torch.Tensor, k_rows: torch.Tensor,
@@ -366,30 +368,46 @@ def flash_attention_band_rows(q: torch.Tensor, k_rows: torch.Tensor,
         return flash_attention_band_plain(q, k_rows[row], v_rows[row], band,
                                           sm_scale)
     _on_card("flash_attention_band", q)
+    R = k_rows.shape[0]
+    if k_rows.dim() != 4 or not 0 <= row < R:
+        raise ValueError(f"flash_attention_band kernel: row {row} of a "
+                         f"[R, Sk, KH, Dh] cache, got {tuple(k_rows.shape)}")
+    if (k_rows.stride(0) != v_rows.stride(0)
+            or tuple(v_rows.shape) != tuple(k_rows.shape)):
+        raise ValueError("flash_attention_band kernel: k and v rows differ "
+                         f"({k_rows.stride()} vs {v_rows.stride()})")
+    return _band_launch(q, k_rows, v_rows, k_rows.shape[1:],
+                        k_rows.stride()[1:], R, int(row), k_rows.stride(0),
+                        band, sm_scale)
+
+
+def _band_launch(q, k, v, kv_shape, kv_stride, rows: int, row: int,
+                 batch_stride: int, band, sm_scale) -> torch.Tensor:
+    """The band kernel over row ``row`` of ``rows`` cache rows at k, v
+    (``batch_stride`` elements apart; each [Sk, KH, Dh] of strides
+    ``kv_stride``), after the checks that keep every operand within what it
+    reads."""
     Sq, H, Dh = q.shape
-    R, Sk, KH = k_rows.shape[0], k_rows.shape[1], k_rows.shape[2]
-    if Dh not in HEAD_DIMS or H % KH or Sk < 1 or not 0 <= row < R:
+    Sk, KH = kv_shape[0], kv_shape[1]
+    if Dh not in HEAD_DIMS or H % KH or Sk < 1:
         raise ValueError(
             f"flash_attention_band kernel needs a head width in {HEAD_DIMS}, "
-            f"H a multiple of KH, Sk >= 1 and a row of the cache; got "
-            f"Dh={Dh}, H={H}, KH={KH}, Sk={Sk}, row {row} of {R}")
+            f"H a multiple of KH and Sk >= 1; got Dh={Dh}, H={H}, KH={KH}, "
+            f"Sk={Sk}")
     bf = torch.bfloat16
     if q.dtype != bf or not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("flash_attention_band kernel: q must be a "
                          "contiguous, 16-byte aligned bf16 [Sq, H, Dh] "
                          f"tensor, got {q.dtype}")
-    for name, t in (("k", k_rows), ("v", v_rows)):
-        if (t.dtype != bf or tuple(t.shape) != (R, Sk, KH, Dh)
-                or t.stride(3) != 1 or t.stride(2) != Dh
-                or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16):
-            raise ValueError(
-                f"flash_attention_band kernel: {name} must be a bf16 [{Sk}, "
-                f"{KH}, {Dh}] view with contiguous heads and 16-byte aligned "
-                f"rows, got {t.dtype} {tuple(t.shape[1:])} strides "
-                f"{t.stride()[1:]}")
-    if k_rows.stride() != v_rows.stride():
-        raise ValueError("flash_attention_band kernel: k and v strides differ "
-                         f"({k_rows.stride()} vs {v_rows.stride()})")
+    if (tuple(kv_shape) != (Sk, KH, Dh) or kv_stride[2] != 1
+            or kv_stride[1] != Dh or kv_stride[0] % 8 or batch_stride % 8
+            or k.dtype != bf or v.dtype != bf or k.stride() != v.stride()
+            or k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError(
+            f"flash_attention_band kernel: k and v must be bf16 [{Sk}, {KH}, "
+            f"{Dh}] views with contiguous heads, 16-byte aligned rows and "
+            f"equal strides, got {k.dtype} {tuple(kv_shape)} strides "
+            f"{tuple(kv_stride)} (v: {v.dtype} {v.stride()})")
     if (band.dtype != torch.int32 or tuple(band.shape) != (Sq, 2)
             or not band.is_contiguous() or band.device != q.device
             or band.data_ptr() % 8):
@@ -399,9 +417,9 @@ def flash_attention_band_rows(q: torch.Tensor, k_rows: torch.Tensor,
     if Sq == 0:
         return out
     fn = _build.function("flash_attention_band")
-    _build.check(fn(q.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
-                    band.data_ptr(), out.data_ptr(), Sq, Sk, H, KH, Dh, R,
-                    int(row), k_rows.stride(1), k_rows.stride(0),
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    band.data_ptr(), out.data_ptr(), Sq, Sk, H, KH, Dh, rows,
+                    row, kv_stride[0], batch_stride,
                     float(1.0 / math.sqrt(Dh) if sm_scale is None
                           else sm_scale), _build.stream_ptr(q.device)),
                  "flash_attention_band")

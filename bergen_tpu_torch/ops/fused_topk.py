@@ -32,7 +32,6 @@ from bergen_tpu_torch.ops.scoring import (quantize_rows_int8, topk_blocked,
 BIN = 128
 I32_MIN = -(1 << 31) + 1  # a masked doc's int32 sum in mode 'bin'
 PLAIN_ROWS = 1 << 15  # docs per product of the plain int8 version
-INT8_LOOP = "cooperative"  # or "pingpong": the int8 kernel's loop shape
 
 
 def quantize_bins_int8(x: np.ndarray, bin_: int = BIN):
@@ -209,7 +208,6 @@ def bin_scores_int8(queries: torch.Tensor, corpus: torch.Tensor,
     _build.check(fn(corpus.data_ptr(), queries.data_ptr(),
                     doc_scales.data_ptr(), vals.data_ptr(), idx.data_ptr(), N,
                     Q, D, int(valid_n), int(per_bin),
-                    int(INT8_LOOP == "pingpong"),
                     _build.stream_ptr(corpus.device)), "bin_topk_int8")
     bin_scores_int8.launches += 1
     return vals, idx

@@ -1,9 +1,10 @@
 """The port's banded flash attention (``bergen_tpu_torch.ops.
 flash_attention.flash_attention_band``) on the CPU, where it runs
-``flash_attention_band_plain`` (the CUDA kernel's schedule: 64-row query
-blocks visiting only the 64-key blocks that meet the union of their rows'
-bands), held against the JAX package's Pallas ``flash_attention_band`` in
-interpret mode.
+``flash_attention_band_plain`` (64-row query blocks visiting only the
+64-key blocks that meet the union of their rows' bands; the CUDA kernel's
+own schedule is ``flash_attention_band_tiles_plain``, held in
+``test_torch_attention_schedule.py``), against the JAX package's Pallas
+``flash_attention_band`` in interpret mode.
 
 Cases: head widths 64 and 128, GQA groups 1 and 4, ragged bands, bands
 starting inside a key block, Sq not a multiple of 64, a query block whose
