@@ -229,7 +229,10 @@ def device_time_ms(fns: list, iters: int = 50):
     over ``fns``) launch, summed from ``torch.profiler``'s CUDA activity and
     divided by the calls.  Unlike the event timing above it leaves out the
     host's time to launch each call, which is longer than a decode-size
-    kernel.  None where the profiler records no device time."""
+    kernel.  The window starts with a spin, not counted, as in
+    ``_profiled_kernels`` (without it a window now and then lost its first
+    kernels and read low).  None where the profiler records no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,11 +242,15 @@ def device_time_ms(fns: list, iters: int = 50):
     iters = max(iters, 2 * len(fns))
     for _ in range(2):  # a window now and then comes back without records
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(10_000_000)
+            torch.cuda.synchronize()
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
         total = 0.0
         for e in prof.key_averages():
+            if "spin_kernel" in e.key:
+                continue
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0.0)
