@@ -43,6 +43,8 @@ TARGETS = {
         "bergen_tpu_torch.data.processors.ut.UT1Queries",
     "bergen_tpu.models.retrievers.dense.DenseRetriever":
         "bergen_tpu_torch.models.retrievers.dense.DenseRetriever",
+    "bergen_tpu.models.retrievers.splade.SpladeRetriever":
+        "bergen_tpu_torch.models.retrievers.splade.SpladeRetriever",
     "bergen_tpu.models.rerankers.crossencoder.CrossEncoder":
         "bergen_tpu_torch.models.rerankers.crossencoder.CrossEncoder",
     "bergen_tpu.models.generators.jax_llm.LLM":

@@ -2,7 +2,8 @@
 ``bergen_tpu/models/bert.py``).
 
 Post-LN BERT over the JAX package's parameter tree, with the
-sequence-classification head (``classify``) of the cross-encoder rerankers.
+sequence-classification head (``classify``) of the cross-encoder rerankers
+and the MLM head and max-pool of the SPLADE retriever (``splade_encode``).
 Positions are learned absolute ones (RoBERTa's pad-aware ones too), rotary
 (GTE-v1.5, nomic-embed) or ALiBi (jina-v2), and the MLP plain or gated
 (``up * act(gate)``: GTE, nomic, jina).  Two routes, as the JAX ``encode``
@@ -277,6 +278,51 @@ def classify(params: Dict[str, Any], cfg: BertConfig, input_ids,
     hidden = encode(params, cfg, input_ids, attention_mask, token_type_ids)
     pooled = torch.tanh(dense(params["pooler"], hidden[:, 0]))
     return dense(params["classifier"], pooled)
+
+
+# the [rows, V] f32 logits that ``splade_encode`` holds at a time
+POOL_CHUNK_ELEMS = 1 << 28
+
+
+def mlm_logits(params: Dict[str, Any], cfg: BertConfig,
+               hidden: torch.Tensor) -> torch.Tensor:
+    """The MLM head over the tied word embeddings: transform, activation,
+    LayerNorm, then the [D, V] product with f32 sums and output, plus the
+    f32 bias -> [..., V] f32 (a plain product, as in JAX)."""
+    h = dense(params["mlm"]["transform"], hidden)
+    h = ACT_FNS[cfg.hidden_act](h)
+    h = layernorm(params["mlm"]["ln"], h, cfg.layer_norm_eps)
+    w = params["embeddings"]["word"]
+    if h.is_cuda and h.dtype != torch.float32:
+        logits = torch.mm(h.reshape(-1, h.shape[-1]), w.T,
+                          out_dtype=torch.float32)
+    else:
+        logits = h.float() @ w.float().T
+    return logits.view(*h.shape[:-1], w.shape[0]) + params["mlm"]["bias"]
+
+
+def splade_pool(logits: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+    """max over the sequence of log(1 + relu(logit)) * mask -> [B, V]."""
+    sat = torch.log1p(torch.relu(logits)) \
+        * attention_mask[..., None].to(logits.dtype)
+    return sat.amax(dim=1)
+
+
+def splade_encode(params: Dict[str, Any], cfg: BertConfig,
+                  input_ids: torch.Tensor,
+                  attention_mask: torch.Tensor) -> torch.Tensor:
+    """The SPLADE vectors [B, V] f32: ``encode``, ``mlm_logits`` and
+    ``splade_pool``, the head and pool over as many rows at a time as keep
+    the f32 logits within ``POOL_CHUNK_ELEMS`` (the same values: each row
+    is pooled on its own)."""
+    hidden = encode(params, cfg, input_ids, attention_mask)
+    B, S = input_ids.shape
+    rows = max(1, POOL_CHUNK_ELEMS // (S * cfg.vocab_size))
+    return torch.cat([
+        splade_pool(mlm_logits(params, cfg, hidden[s:s + rows]),
+                    attention_mask[s:s + rows])
+        for s in range(0, B, rows)])
 
 
 # --------------------------------------------------------------------------- #

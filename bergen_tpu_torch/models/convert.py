@@ -168,7 +168,8 @@ def bert_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
     ``up_gate_proj`` ordered [up; gate]), nomic-embed (``emb_ln``, ``Wqkv``,
     ``fc11`` up / ``fc12`` gate / ``fc2``), jina-v2 (``gated_layers``
     ordered [gate; up]) and DistilBERT.  Linears without a bias in the
-    checkpoint have none in the tree."""
+    checkpoint have none in the tree.  BERT's MLM head (``mlm``) is read
+    where the checkpoint has one; DistilBERT's is not, as in JAX."""
     sd = _strip_prefix(state_dict)
     emb: Dict[str, Any] = {"word": sd["embeddings.word_embeddings.weight"]}
     # rope/ALiBi layouts have no position table; nomic names its embedding
@@ -238,6 +239,13 @@ def bert_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
             "intermediate.dense", "output.dense", "output.LayerNorm"))
     if "pooler.dense.weight" in sd:
         p["pooler"] = _lin(sd, "pooler.dense")
+    # the MLM head (BertForMaskedLM); its decoder is tied to the word
+    # embeddings
+    if "cls.predictions.transform.dense.weight" in sd:
+        p["mlm"] = {
+            "transform": _lin(sd, "cls.predictions.transform.dense"),
+            "ln": _ln(sd, "cls.predictions.transform.LayerNorm"),
+            "bias": sd["cls.predictions.bias"]}
     # sequence-classification heads: BERT's pooler + classifier, and
     # RoBERTa's classifier.dense (tanh) + out_proj mapped onto the same
     if "classifier.weight" in sd:

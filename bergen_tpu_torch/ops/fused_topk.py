@@ -179,7 +179,8 @@ def bin_scores_int8(queries: torch.Tensor, corpus: torch.Tensor,
                     valid_n: int, doc_scales: torch.Tensor):
     """Stage 1 of modes 'doc' and 'bin' (int8 codes; the mode follows
     ``doc_scales``' length); the kernel on a CUDA tensor, the plain version
-    on CPU."""
+    on CPU.  Kernel launches count in ``launches`` and, by mode, in
+    ``launches_by_mode``."""
     if corpus.device.type == "cpu":
         return bin_scores_int8_plain(queries, corpus, valid_n, doc_scales)
     if corpus.device.type != "cuda":
@@ -210,10 +211,12 @@ def bin_scores_int8(queries: torch.Tensor, corpus: torch.Tensor,
                     Q, D, int(valid_n), int(per_bin),
                     _build.stream_ptr(corpus.device)), "bin_topk_int8")
     bin_scores_int8.launches += 1
+    bin_scores_int8.launches_by_mode["bin" if per_bin else "doc"] += 1
     return vals, idx
 
 
 bin_scores_int8.launches = 0
+bin_scores_int8.launches_by_mode = {"bin": 0, "doc": 0}
 
 
 def bin_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,

@@ -9,7 +9,8 @@ Phases (each prints one JSON line):
   2. seeded random-weight HF checkpoints at full published widths, with
      tokenizers over the tests/utdata vocabulary, written by the port's own
      writers: BERT-base (bge-base-en-v1.5), TinyLlama-1.1B-Chat,
-     DeBERTa-v3-base (the debertav3 reranker; a Unigram tokenizer), a
+     DeBERTa-v3-base (the debertav3 reranker; a Unigram tokenizer),
+     splade-v3 (BERT-base as a masked LM: the MLM head), a
      BERT-large cross-encoder (bge-large-en's width), MiniLM-L6,
      nomic-embed-text-v1.5 and jina-embeddings-v2-base-en (their published
      layouts), Llama-2-7b-chat (13.5 GB of sharded safetensors) and
@@ -30,7 +31,9 @@ Phases (each prints one JSON line):
      the int4 quantizer on the card against the CPU, bit for bit; the band
      attention at the chunked drain's shapes (an empty band exactly zero),
      the attention block at bge-large's width and the score GEMM at the
-     retrieval shapes, which no path runs;
+     retrieval shapes, which no path runs; the int8 bin top-k at the
+     SPLADE sketch's (D 1,024, mode 'bin') and slab's (D 10,240, mode
+     'doc') shapes, bit for bit;
   4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
      TinyLlama generator), the same with the nomic-embed retriever and with
@@ -41,15 +44,24 @@ Phases (each prints one JSON line):
      (``generator=vllm_mistral-7b-chat``: the epoch drain, then
      ``kv_cache=paged``), and the served eval's 50 instructions drained
      again by the same server with ``run_workload(mode="chunked")`` and
-     ``mode="epoch"``; then the card against the port's f32 CPU path on
+     ``mode="epoch"``; the eval with the splade-v3 retriever (the exact
+     engine at 1,000 docs) and its retrieve stage with ``sparse_method``
+     sketch and slab (the bin top-k in modes 'bin' and 'doc'); then the
+     card against the port's f32 CPU path on
      small inputs (64 docs, 64 DeBERTa pairs, two questions: prefill and one
      decode step; the first two layers of nomic-embed and jina-v2, of the
      int4 Llama-2-7B, and of the served Mistral-7B in both KV modes and in
-     the chunked drain);
+     the chunked drain, and splade-v3's first two layers with its head and
+     pool); one splade-v3 encode batch split into layers and head + pool;
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
-     over a bf16 corpus and over int8 codes with per-bin scales;
-  6. one ``kernels`` line with every kernel's numbers and launch counts.
+     over a bf16 corpus and over int8 codes with per-bin scales; and over
+     131,072 Zipf-distributed SPLADE docs (nnz 256, V 30,522) and 2,048
+     queries through the slab ('auto') and the sketch, each engine's
+     build, stage-1 and rescore times and guard records;
+  6. one ``kernels`` line with every kernel's numbers and launch counts
+     (the int8 bin top-k's also by mode and path, and at the SPLADE
+     shapes).
 ``--profile-serve`` instead writes the Mistral-7B checkpoint and profiles
 both servers' steps (``profile_serve``).
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
@@ -139,6 +151,19 @@ PATH_KERNELS = {
     "ut1_eval_jina": ("encoder_attention", "decode_attention"),
     "retrieval_at_scale_int8": ("bin_topk_int8",),
     "ut1_serve_chunked_mistral": ("flash_attention_band", "decode_attention"),
+    "ut1_eval_splade": ("encoder_layer", "decode_attention"),
+    "ut1_splade_sketch": ("encoder_layer", "bin_topk_int8"),
+    "ut1_splade_slab": ("encoder_layer", "bin_topk_int8"),
+    "retrieval_at_scale_splade": ("bin_topk_int8",),
+}
+# the int8 bin top-k's mode on the SPLADE paths: the sketch's per-bin
+# scales, the slab's per-doc ones (the first path to take mode 'doc'); the
+# at-scale path runs the slab, then the sketch
+PATH_INT8_MODES = {
+    "retrieval_at_scale_int8": ("bin",),
+    "ut1_splade_sketch": ("bin",),
+    "ut1_splade_slab": ("doc",),
+    "retrieval_at_scale_splade": ("doc", "bin"),
 }
 # the rope/ALiBi retrievers' ut1 encode: 50 queries and 1,000 docs in
 # batches of the configs' 512, one encoder_attention launch per layer
@@ -2139,6 +2164,9 @@ BERT_BASE = dict(model_type="bert", vocab_size=30522, hidden_size=768,
                  intermediate_size=3072, max_position_embeddings=512,
                  type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu",
                  pad_token_id=0, position_embedding_type="absolute")
+# naver/splade-v3: BERT-base uncased as BertForMaskedLM (the MLM head, its
+# decoder tied to the word embeddings)
+SPLADE_V3 = dict(BERT_BASE, architectures=["BertForMaskedLM"])
 # naver/trecdl22-crossencoder-debertav3 is DeBERTa-v3-base (the repo's own
 # dims: scripts/bench_deberta.py)
 DEBERTA_V3_BASE = dict(
@@ -2202,7 +2230,8 @@ def _vocab(specials: dict[str, int], size: int, filler: str) -> dict:
 def _bert_state_dict(w, c: dict, prefix: str = "") -> dict:
     """A BERT state dict at config ``c`` (seeded ``w``), with the
     sequence-classification head (pooler + one-label classifier) when
-    ``c`` has ``num_labels``."""
+    ``c`` has ``num_labels``, and the MLM head (transform, LayerNorm, bias;
+    the decoder tied to the word embeddings) for a BertForMaskedLM."""
     import torch
 
     D, I = c["hidden_size"], c["intermediate_size"]
@@ -2231,7 +2260,17 @@ def _bert_state_dict(w, c: dict, prefix: str = "") -> dict:
         sd[f"{prefix}pooler.dense.bias"] = zeros(D)
         sd["classifier.weight"] = w(c["num_labels"], D)
         sd["classifier.bias"] = zeros(c["num_labels"])
+    if _masked_lm(c):
+        sd["cls.predictions.transform.dense.weight"] = w(D, D)
+        sd["cls.predictions.transform.dense.bias"] = zeros(D)
+        sd["cls.predictions.transform.LayerNorm.weight"] = ones(D)
+        sd["cls.predictions.transform.LayerNorm.bias"] = zeros(D)
+        sd["cls.predictions.bias"] = zeros(c["vocab_size"])
     return sd
+
+
+def _masked_lm(c: dict) -> bool:
+    return c.get("architectures") == ["BertForMaskedLM"]
 
 
 def _write_bert(path: str, w, c: dict) -> str:
@@ -2239,7 +2278,7 @@ def _write_bert(path: str, w, c: dict) -> str:
     from bergen_tpu_torch.models.tokenizer import write_tokenizer
 
     os.makedirs(path, exist_ok=True)
-    prefix = "bert." if c.get("num_labels") else ""
+    prefix = "bert." if c.get("num_labels") or _masked_lm(c) else ""
     save_safetensors(_bert_state_dict(w, c, prefix),
                      os.path.join(path, "model.safetensors"))
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -2393,7 +2432,8 @@ def _write_remote_encoder(path: str, w, c: dict) -> str:
 
 def write_checkpoints(root: str, dev) -> dict:
     """Seeded random bf16 weights at the published widths of
-    BAAI/bge-base-en-v1.5 (BERT-base), TinyLlama-1.1B-Chat-v1.0,
+    BAAI/bge-base-en-v1.5 (BERT-base), naver/splade-v3 (BERT-base with the
+    MLM head), TinyLlama-1.1B-Chat-v1.0,
     DeBERTa-v3-base (naver/trecdl22-crossencoder-debertav3), a BERT-large
     cross-encoder (BAAI/bge-large-en), MiniLM-L6
     (cross-encoder/ms-marco-MiniLM-L-6-v2), nomic-embed-text-v1.5 and
@@ -2412,7 +2452,9 @@ def write_checkpoints(root: str, dev) -> dict:
         return torch.ones(n, dtype=torch.bfloat16)
 
     out = {"bert": _write_bert(os.path.join(root, "bge-base-en-v1.5-random"),
-                               w, BERT_BASE)}
+                               w, BERT_BASE),
+           "splade": _write_bert(os.path.join(root, "splade-v3-random"), w,
+                                 SPLADE_V3)}
 
     llama_dir = os.path.join(root, "tinyllama-1.1b-chat-random")
     os.makedirs(llama_dir, exist_ok=True)
@@ -3323,6 +3365,384 @@ def run_retrieval_at_scale(ckpt: dict, workdir: str,
 
 
 # --------------------------------------------------------------------------- #
+# SPLADE: the int8 bin top-k at the engines' shapes, the encode split, the
+# ut1 paths' checks, the card against the CPU and retrieval at scale
+# --------------------------------------------------------------------------- #
+
+
+# (name, N, D, Q, k, scales): the sketch engine's stage 1 at
+# retrieval_at_scale_splade (sketch_d 1,024, 512 candidates, per-bin scales:
+# mode 'bin') and the slab's (d 10,240, rescore 4 x k 10, per-doc: 'doc')
+SPLADE_INT8_SHAPES = (("sketch", 131_072, 1024, 2_048, 512, "bin"),
+                      ("slab", 131_072, 10_240, 2_048, 40, "doc"))
+
+
+def check_bin_topk_int8_splade(results: dict, dev) -> None:
+    """``bin_scores_int8`` at the SPLADE engines' shapes on random int8
+    codes (sums past 2^24 at d 10,240), the last 1,000 docs padding: values
+    and indices bit-equal to the plain version, with its event, card and
+    library times and its kernels a call."""
+    import torch
+    from bergen_tpu_torch.ops import fused_topk as ft
+
+    rows = []
+    for name, N, D, Q, k, mode in SPLADE_INT8_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(13)
+        codes = torch.randint(-127, 128, (N, D), generator=gen, device=dev,
+                              dtype=torch.int8)
+        queries = torch.randint(-127, 128, (Q, D), generator=gen, device=dev,
+                                dtype=torch.int8)
+        n_sc = N // ft.BIN if mode == "bin" else N
+        scales = torch.rand(n_sc, generator=gen, device=dev) + 0.5
+        valid_n = N - 1000
+        if ft.scale_mode(N, scales) != mode:
+            fail(f"bin_topk_int8 {name}: scales give mode "
+                 f"{ft.scale_mode(N, scales)}, not {mode}")
+        vals, idx = ft.bin_scores_int8(queries, codes, valid_n, scales)
+        rv, ri = ft.bin_scores_int8_plain(queries, codes, valid_n, scales)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(vals, rv) and torch.equal(idx, ri))
+        fin = torch.isfinite(rv)
+        max_err = (vals[fin] - rv[fin]).abs().max().item()
+        del rv, ri
+        ms = cuda_time_ms(lambda: ft.bin_scores_int8(queries, codes,
+                                                     valid_n, scales))
+        plain_ms = cuda_time_ms(lambda: ft.bin_scores_int8_plain(
+            queries, codes, valid_n, scales), iters=2, warmup=1)
+
+        def library():
+            sc = torch._int_mm(codes, queries.t()).view(-1, ft.BIN, Q)
+            return sc.amax(dim=1), sc.argmax(dim=1)
+
+        library_ms = cuda_time_ms(library, iters=5)
+        b_ms, b_by = bound(2 * N * Q * D, N * D + Q * D + n_sc * 4
+                           + (N // ft.BIN) * Q * 8, PEAK_INT8_OPS)
+        row = {"engine": name, "mode": mode, "N": N, "D": D, "Q": Q, "k": k,
+               "bit_equal": same, "max_abs_err": max_err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": library_ms,
+               "library": "torch._int_mm + amax / argmax",
+               "device_ms": device_time_ms([lambda: ft.bin_scores_int8(
+                   queries, codes, valid_n, scales)], iters=10),
+               "library_device_ms": device_time_ms([library], iters=5),
+               "kernels_per_call": launches_per_call(
+                   ft.bin_scores_int8, lambda: ft.bin_scores_int8(
+                       queries, codes, valid_n, scales))}
+        emit({"phase": "kernel_check", "kernel": "bin_topk_int8", **row})
+        rows.append(row)
+        if not same or row["kernels_per_call"] != 1:
+            fail(f"bin_topk_int8 at the SPLADE {name} shape: bit-equal "
+                 f"{same}, {row['kernels_per_call']} kernels a call")
+        del codes, queries, vals, idx
+        torch.cuda.empty_cache()
+    results["bin_topk_int8_splade"] = rows
+
+
+def time_splade_encode(ckpt: dict) -> dict:
+    """One splade-v3 encode batch on the card (B 128 at max_len 256, the
+    config's; random ids, a full mask): the twelve fused layers against
+    the MLM head and pool (``mlm_logits`` + ``splade_pool`` in the row
+    chunks ``splade_encode`` takes), event times."""
+    import torch
+    from bergen_tpu_torch.models import bert
+    from bergen_tpu_torch.models.retrievers.splade import SpladeRetriever
+
+    r = SpladeRetriever(ckpt["splade"], max_len=256, device="cuda")
+    B, S = 128, 256
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ii = torch.randint(1000, r.cfg.vocab_size, (B, S), generator=gen,
+                       device="cuda")
+    am = torch.ones(B, S, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        hidden = bert.encode(r.params, r.cfg, ii, am)
+        rows = max(1, bert.POOL_CHUNK_ELEMS // (S * r.cfg.vocab_size))
+
+        def head_pool():
+            return [bert.splade_pool(bert.mlm_logits(r.params, r.cfg,
+                                                     hidden[s:s + rows]),
+                                     am[s:s + rows])
+                    for s in range(0, B, rows)]
+
+        layers_ms = cuda_time_ms(lambda: bert.encode(r.params, r.cfg, ii,
+                                                     am), iters=5)
+        head_ms = cuda_time_ms(head_pool, iters=5)
+        whole_ms = cuda_time_ms(lambda: bert.splade_encode(
+            r.params, r.cfg, ii, am), iters=5)
+    D, V = r.cfg.hidden_size, r.cfg.vocab_size
+    out = {"B": B, "S": S, "layers_ms": layers_ms, "head_pool_ms": head_ms,
+           "encode_ms": whole_ms, "head_pool_share": head_ms / whole_ms,
+           "head_rows_per_chunk": rows,
+           "head_bound_ms": bound(2 * B * S * D * V + 2 * B * S * D * D,
+                                  V * D * 2 + B * S * D * 2 + B * V * 4)[0],
+           "docs_per_s": B / whole_ms * 1e3}
+    del r, hidden
+    torch.cuda.empty_cache()
+    return out
+
+
+def _splade_cli(ckpt: dict, workdir: str, extra: list[str]):
+    return _run_cli([
+        "retriever=splade-v3",
+        f"retriever.init_args.model_name={_local(ckpt, 'splade')}",
+        *extra], workdir, ckpt)
+
+
+def run_ut1_eval_splade(ckpt: dict, workdir: str) -> dict:
+    """The eval with ``retriever=splade-v3`` (BERT-base masked LM, the MLM
+    head and max-pool; 1,000 docs, so 'auto' takes the exact engine) and
+    the TinyLlama generator."""
+    exp, wall = _splade_cli(ckpt, workdir, [
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}"])
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=False)
+    if os.path.exists(os.path.join(exp, "eval_dev_retrieval_fidelity.json")):
+        fail("ut1_eval_splade: a guard record, but 'auto' at 1,000 docs is "
+             "the exact engine")
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "trec_lines": 500, **_check_outputs(exp)}
+
+
+def run_ut1_splade_engine(ckpt: dict, workdir: str, method: str) -> dict:
+    """The splade-v3 retrieve stage alone with ``sparse_method`` sketch or
+    slab: the engine's guard record first, then whatever rung the ladder
+    took (random weights may take it to exact)."""
+    exp, wall = _splade_cli(ckpt, workdir,
+                            [f"+retriever.sparse_method={method}"])
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=False)
+    fid = _json(exp, "eval_dev_retrieval_fidelity.json")
+    if fid[0]["method"] != method:
+        fail(f"ut1_splade_{method}: the first guard record is not the "
+             f"{method} engine's: {fid}")
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "fidelity": fid, "rung": fid[-1]["method"]}
+
+
+def check_splade_against_cpu(ckpt: dict) -> dict:
+    """splade-v3's first two layers, MLM head and pool on the card (bf16)
+    against the port's f32 CPU path, on 64 ut1 docs: mean and smallest row
+    cosine of the [V] vectors."""
+    import numpy as np
+    from bergen_tpu_torch.models.retrievers.splade import SpladeRetriever
+
+    tol = 0.99  # mean cosine, bf16 against f32
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_docs.tsv")) as f:
+        docs = [ln.split("\t")[1] for ln in f][:64]
+    enc = []
+    for dev in ("cuda", "cpu"):
+        r = SpladeRetriever(ckpt["splade"], max_len=256, device=dev)
+        r.params["layers"] = r.params["layers"][:2]
+        enc.append(r.encode(docs, "doc"))
+        del r
+    a, b = (np.asarray(x, np.float64) for x in enc)
+    cos = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                    * np.linalg.norm(b, axis=1))
+    out = {"splade_mean_cos": float(cos.mean()),
+           "splade_min_cos": float(cos.min()), "tol": tol,
+           "active_terms_per_doc": float((a > 0).sum(axis=1).mean())}
+    if not out["splade_mean_cos"] >= tol:
+        fail(f"splade card vs CPU reference: mean cosine below {tol}: {out}")
+    return out
+
+
+# retrieval_at_scale_splade: the corpus and queries (``splade_corpus``)
+SPLADE_SCALE = dict(N=131_072, nnz=256, V=30_522, Q=2_048, q_terms=32,
+                    k=10, zipf=0.9)
+
+
+def splade_corpus(seed: int = 11):
+    """Fixed-width SPLADE-like docs and dense queries from ``seed``: each
+    doc draws ``nnz`` term ids from a Zipf law over the vocabulary (ranks
+    mapped to ids by a random permutation), a term drawn twice keeping one
+    posting and padding the other with (0, id 0), as ``to_fixed_width``
+    pads; gamma weights as f16.  Each query takes ``q_terms`` of a source
+    doc's postings (with their weights) and ``q_terms / 4`` Zipf terms of
+    its own.  Returns (vals [N, nnz] f16, idx [N, nnz] int32, queries
+    [Q, V] f32 of f16 values, source docs [Q])."""
+    import numpy as np
+
+    c = SPLADE_SCALE
+    rng = np.random.default_rng(seed)
+    N, nnz, V = c["N"], c["nnz"], c["V"]
+    p = 1.0 / np.arange(1, V + 1) ** c["zipf"]
+    cdf = np.cumsum(p / p.sum())
+    perm = rng.permutation(V).astype(np.int32)
+    idx = perm[np.minimum(np.searchsorted(cdf, rng.random((N, nnz))),
+                          V - 1)]
+    idx.sort(axis=1)
+    dup = np.zeros_like(idx, dtype=bool)
+    dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+    vals = rng.gamma(2.0, 0.5, size=(N, nnz)).astype(np.float16)
+    vals[dup] = 0
+    idx[dup] = 0
+    Q, qt = c["Q"], c["q_terms"]
+    src = rng.choice(N, size=Q, replace=False)
+    q = np.zeros((Q, V), np.float32)
+    rows = np.repeat(np.arange(Q), qt)
+    pick = rng.integers(0, nnz, size=(Q, qt))
+    q[rows, idx[src[:, None], pick].ravel()] = vals[src[:, None],
+                                                     pick].ravel()
+    extra = perm[np.minimum(np.searchsorted(cdf, rng.random((Q, qt // 4))),
+                            V - 1)]
+    q[np.repeat(np.arange(Q), qt // 4), extra.ravel()] += rng.gamma(
+        2.0, 0.5, size=Q * (qt // 4)).astype(np.float32)
+    # f16 values, as a run's query index stores them
+    return vals, idx, q.astype(np.float16).astype(np.float32), src
+
+
+def run_retrieval_at_scale_splade(ckpt: dict, workdir: str) -> dict:
+    """``Retrieve.retrieve`` over ``splade_corpus``'s 131,072 docs and
+    2,048 queries (written as the index files a SPLADE run leaves), with
+    ``sparse_method`` auto (the slab: d 10,240, the bin top-k in mode 'doc',
+    the rescore on the host) and then sketch (d 1,024, 512 candidates,
+    mode 'bin').  For each engine: its build (host), stage 1 (card) and
+    rescore times taken on the index the run built, queries/s of a warm
+    search, the guard's records and the int8 launches by mode; the returned
+    scores of 64 queries against the host's f64 sparse dot of the docs
+    returned."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.data.dataset import Dataset
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops import sparse_sketch, sparse_slab
+    from bergen_tpu_torch.pipeline.retrieve import Retrieve
+
+    c = SPLADE_SCALE
+    t0 = time.perf_counter()
+    vals, idx, q, src = splade_corpus()
+    data_s = time.perf_counter() - t0
+    N, Q, k = c["N"], c["Q"], c["k"]
+    dataset = {
+        "query": Dataset.from_dict({"id": [f"q{i}" for i in range(Q)],
+                                    "content": ["-"] * Q}),
+        "doc": Dataset.from_dict({"id": [f"d{i}" for i in range(N)],
+                                  "content": ["-"] * N}),
+    }
+    init_args = {
+        "_target_": "bergen_tpu.models.retrievers.splade.SpladeRetriever",
+        "model_name": ckpt["splade"], "max_len": 256}
+    out = {"N": N, "nnz": c["nnz"], "V": c["V"], "Q": Q, "k": k,
+           "data_s": data_s, "zipf": c["zipf"],
+           "doc_postings_mean": float((vals > 0).sum(axis=1).mean()),
+           "query_terms_mean": float((q > 0).sum(axis=1).mean()),
+           "bytes": {"slab_int8": N * 10_240, "sketch_int8": N * 1024,
+                     "values_f16": vals.nbytes, "ids_i32": idx.nbytes}}
+    built: dict = {}
+    for method, cls in (("auto", sparse_slab.SlabIndex),
+                        ("sketch", sparse_sketch.SketchIndex)):
+        wd = os.path.join(workdir, method)
+        d_path, q_path = os.path.join(wd, "doc"), os.path.join(wd, "query")
+        os.makedirs(d_path)
+        os.makedirs(q_path)
+        np.savez(os.path.join(d_path, "sparse_chunk_0.npz"), vals=vals,
+                 idx=idx)
+        np.save(os.path.join(q_path, "embedding_chunk_0.npy"),
+                q.astype(np.float16))
+        init = cls.__init__
+
+        def timed_init(self, *a, _init=init, **kw):
+            t = time.perf_counter()
+            _init(self, *a, **kw)
+            built["index"], built["build_s"] = self, time.perf_counter() - t
+
+        cls.__init__ = timed_init
+        ret = Retrieve(init_args=init_args, batch_size=128,
+                       batch_size_sim=8192, sparse_method=method)
+        before = dict(ft.bin_scores_int8.launches_by_mode)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ret.retrieve(dataset, q_path, d_path, k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cls.__init__ = init
+        by_mode = {m: n - before[m] for m, n in
+                   ft.bin_scores_int8.launches_by_mode.items()}
+        want = "doc" if method == "auto" else "bin"
+        if by_mode[want] == 0 or sum(by_mode.values()) != by_mode[want]:
+            fail(f"retrieval_at_scale_splade {method}: int8 bin top-k "
+                 f"launches by mode {by_mode}, not in mode {want} alone")
+        fid = res.get("fidelity", [])
+        engine = "slab" if method == "auto" else "sketch"
+        if not fid or fid[0]["method"] != engine:
+            fail(f"retrieval_at_scale_splade {method}: no {engine} guard "
+                 f"record ({fid})")
+        scores = np.asarray(res["score"])
+        if scores.shape != (Q, k) or not np.isfinite(scores).all():
+            fail(f"retrieval_at_scale_splade {method}: scores "
+                 f"{scores.shape} not finite")
+        got = np.array([[int(d[1:]) for d in row] for row in res["doc_id"]])
+        # the slab rescores the f16 values on the host; the sketch holds
+        # them on the card in bf16, the exact engine its queries too
+
+        def bf16(x):
+            return torch.from_numpy(x).bfloat16().double().numpy()
+
+        rung, cuda = fid[-1]["method"], ret.device.type == "cuda"
+        v_ref = bf16(vals) if cuda and rung != "slab" else \
+            vals.astype(np.float64)
+        q_ref = bf16(q[:64]) if cuda and rung == "exact" else \
+            q[:64].astype(np.float64)
+        ref = np.array([[np.dot(v_ref[d], q_ref[r, idx[d]])
+                         for d in got[r]] for r in range(64)])
+        err = float(np.max(np.abs(ref - scores[:64]) / np.maximum(
+            np.abs(ref), 1.0)))
+        if err > 1e-4:
+            fail(f"retrieval_at_scale_splade {method}: returned scores "
+                 f"{err} off the sparse dot of the returned docs")
+        index = built["index"]
+        # the timing below launches the kernel again: those do not count
+        counted = (ft.bin_scores_int8.launches,
+                   dict(ft.bin_scores_int8.launches_by_mode))
+        if method == "auto":
+            c1 = min(4 * k, N)
+            qs = sparse_slab.queries_to_slab(q, index.bucket, index.sign,
+                                             index.d)
+            stage1_ms = cuda_time_ms(lambda: index._stage1(qs, c1, True),
+                                     iters=3, warmup=1)
+            cand = index._stage1(qs, c1, True)[1].cpu().numpy()
+            t0 = time.perf_counter()
+            sparse_slab.rescore_exact(index._vals32, index._idx32,
+                                      cand.astype(np.int32), q)
+            rescore_ms = (time.perf_counter() - t0) * 1e3
+            geometry = {"d": index.d, "candidates": c1,
+                        "rescore_threads": os.cpu_count()}
+        else:
+            from bergen_tpu_torch.ops.scoring import quantize_rows_int8
+
+            cand_n = max(k, min(index.candidates, index.sk_dev.shape[0]))
+            qs = sparse_sketch.sketch_queries(q, index.bucket, index.sign,
+                                              index.d)
+            q_i8, _ = quantize_rows_int8(torch.from_numpy(qs).cuda())
+            stage1_ms = cuda_time_ms(lambda: ft.bin_topk(
+                q_i8, index.sk_dev, cand_n, valid_n=N,
+                doc_scales=index.sk_scales), iters=3, warmup=1)
+            cidx = ft.bin_topk(q_i8, index.sk_dev, cand_n, valid_n=N,
+                               doc_scales=index.sk_scales)[1]
+            qd = torch.from_numpy(q).cuda()
+            rescore_ms = cuda_time_ms(lambda: sparse_sketch.rescore_candidates(
+                qd, cidx, index.vals_dev, index.idx_dev, 128), iters=3,
+                warmup=1)
+            geometry = {"d": index.d, "candidates": cand_n}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.search(q, k)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        ft.bin_scores_int8.launches = counted[0]
+        ft.bin_scores_int8.launches_by_mode = counted[1]
+        out[engine] = {"build_s": built["build_s"], "retrieve_wall_s": wall,
+                       "stage1_ms": stage1_ms, "rescore_ms": rescore_ms,
+                       "search_s": search_s, "queries_per_s": Q / search_s,
+                       "fidelity": fid, "rung": fid[-1]["method"],
+                       "launches_by_mode": by_mode,
+                       "score_max_rel_err": err, **geometry}
+        del ret, res, built["index"], index
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # entry point
 # --------------------------------------------------------------------------- #
 
@@ -3435,7 +3855,8 @@ PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "encoder_layer_q", "bin_topk", "decode_attention",
                  "int4_matmul", "int4_quantizer", "flash_attention",
                  "paged_attention", "encoder_attention", "bin_topk_int8",
-                 "flash_attention_band", "attention_block", "pallas_score")
+                 "flash_attention_band", "attention_block", "pallas_score",
+                 "bin_topk_int8_splade")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers")
 
@@ -3511,7 +3932,9 @@ def main() -> None:
               "flash_attention_band": lambda: check_flash_attention_band(
                   results, dev),
               "attention_block": lambda: check_attention_block(results, dev),
-              "pallas_score": lambda: check_pallas_score(results, dev)}
+              "pallas_score": lambda: check_pallas_score(results, dev),
+              "bin_topk_int8_splade": lambda: check_bin_topk_int8_splade(
+                  results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
@@ -3529,6 +3952,7 @@ def main() -> None:
           **ckpt})
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     by_path: dict = {}
+    int8_by_mode: dict = {}
     bias_launches: dict = {}
     runs: dict = {}
 
@@ -3552,6 +3976,7 @@ def main() -> None:
 
         for fn in counters.values():
             fn.launches = 0
+        ft.bin_scores_int8.launches_by_mode = {"bin": 0, "doc": 0}
         ea.encoder_attention.bias_launches = 0
         llama.forward = counted
         try:
@@ -3559,6 +3984,7 @@ def main() -> None:
         finally:
             llama.forward = forward
         by_path[path] = {n: fn.launches for n, fn in counters.items()}
+        int8_by_mode[path] = dict(ft.bin_scores_int8.launches_by_mode)
         bias_launches[path] = ea.encoder_attention.bias_launches
         emit({"phase": path, **runs[path]})
         torch.cuda.empty_cache()
@@ -3576,6 +4002,13 @@ def main() -> None:
                           ("retrieval_at_scale", run_retrieval_at_scale),
                           ("retrieval_at_scale_int8",
                            lambda c, w: run_retrieval_at_scale(c, w, "int8")),
+                          ("ut1_eval_splade", run_ut1_eval_splade),
+                          ("ut1_splade_sketch", lambda c, w:
+                           run_ut1_splade_engine(c, w, "sketch")),
+                          ("ut1_splade_slab", lambda c, w:
+                           run_ut1_splade_engine(c, w, "slab")),
+                          ("retrieval_at_scale_splade",
+                           run_retrieval_at_scale_splade),
                           ("ut1_rerank", run_ut1_rerank),
                           ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
                           ("ut1_rerank_minilm", run_ut1_rerank_minilm),
@@ -3586,6 +4019,10 @@ def main() -> None:
               **check_remote_against_cpu(ckpt)})
         emit({"phase": "reference_check_int4",
               **check_int4_against_cpu(ckpt)})
+        emit({"phase": "reference_check_splade",
+              **check_splade_against_cpu(ckpt)})
+        emit({"phase": "splade_encode_split", "card": card,
+              **time_splade_encode(ckpt)})
         for name in SEVEN_B[:2]:  # room on the disk for the next 7B
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         t0 = time.perf_counter()
@@ -3597,11 +4034,18 @@ def main() -> None:
             drive(path, lambda c, w, kv=kv: run_ut1_serve_mistral(c, w, kv))
         drive("ut1_serve_chunked_mistral", run_ut1_serve_chunked_mistral)
         emit({"phase": "launches", **by_path,
-              "encoder_attention_with_bias": bias_launches})
+              "encoder_attention_with_bias": bias_launches,
+              "bin_topk_int8_by_mode": int8_by_mode})
         idle = [f"{n} on {path}" for path, names in PATH_KERNELS.items()
                 for n in names if by_path[path][n] == 0]
         if idle:
             fail(f"kernels never launched where the path runs them: {idle}")
+        # each int8 path in its modes alone (no other path launches int8)
+        for path, got in int8_by_mode.items():
+            modes = PATH_INT8_MODES.get(path, ())
+            if any((got[m] > 0) != (m in modes) for m in got):
+                fail(f"{path}: int8 bin top-k launches by mode {got}, not "
+                     f"in modes {modes} alone")
         # the rope/ALiBi encoders: one attention launch per layer and
         # encode batch, the ALiBi ones carrying the bias; no layer kernel
         want = 12 * UT1_ENCODE_BATCHES
@@ -3709,6 +4153,16 @@ def main() -> None:
                          "library_device_cold_ms", "int4pack_ms",
                          "int4pack_cold_ms", "int4pack_device_ms",
                          "int4pack_device_cold_ms") if key in row}}
+        if name == "bin_topk_int8":
+            extra = {"launches_by_mode_by_path": {
+                         path: m for path, m in int8_by_mode.items()
+                         if sum(m.values())},
+                     "shapes": [{key: r[key] for key in (
+                         "engine", "mode", "N", "D", "Q", "k", "bit_equal",
+                         "max_abs_err", "ms", "device_ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms",
+                         "library_device_ms")}
+                         for r in results["bin_topk_int8_splade"]]}
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

@@ -61,9 +61,9 @@ def test_slice_targets_all_map(retriever, reranker):
 def test_unported_target_raises_with_its_name():
     from bergen_tpu_torch import confy
 
-    with pytest.raises(NotImplementedError, match="SpladeRetriever"):
+    with pytest.raises(NotImplementedError, match="RepLlama"):
         confy.instantiate({
-            "_target_": "bergen_tpu.models.retrievers.splade.SpladeRetriever"})
+            "_target_": "bergen_tpu.models.retrievers.repllama.RepLlama"})
 
 
 def test_config_is_not_rewritten():
