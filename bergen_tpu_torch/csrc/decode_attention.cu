@@ -33,6 +33,11 @@
 // keeps its 8-lane slice of all `group` queries in registers, the softmax
 // runs one warp per query head, and the context product streams V the same
 // way and reduces across keys with shuffles and one shared-memory pass.
+// It is built for every group G from 1 to 8 (Llama-3.2-3B's 3, Qwen2.5's 5
+// and 7 among them): a thread holds G query slices and G partial sums, the
+// softmax warps take heads warp, warp + 8, ... below G (warps G.. idle when
+// G < 8), and every per-head array is G rows long, so no row past the
+// group is read or written.
 #include <math.h>
 
 #include <algorithm>
@@ -295,7 +300,11 @@ int per_sm_g(int G, int chunk) {
   switch (G) {
     case 1: return per_sm<1, DH>(chunk);
     case 2: return per_sm<2, DH>(chunk);
+    case 3: return per_sm<3, DH>(chunk);
     case 4: return per_sm<4, DH>(chunk);
+    case 5: return per_sm<5, DH>(chunk);
+    case 6: return per_sm<6, DH>(chunk);
+    case 7: return per_sm<7, DH>(chunk);
     case 8: return per_sm<8, DH>(chunk);
     default: return 0;
   }
@@ -363,7 +372,11 @@ int launch_dh(const void* q, const void* k, const void* v, const void* valid,
                          KH, L, splits, scale, st);
     DA_CASE(1)
     DA_CASE(2)
+    DA_CASE(3)
     DA_CASE(4)
+    DA_CASE(5)
+    DA_CASE(6)
+    DA_CASE(7)
     DA_CASE(8)
 #undef DA_CASE
     default:

@@ -10,7 +10,10 @@
 // the tensor cores, then multiplied by its f32 scale and added to the output
 // sum, so the weights are never rounded (the TPU's dot-identity forms exist
 // to feed its matrix unit byte operands; on Hopper a code converts to bf16
-// exactly and feeds the tensor cores directly).
+// exactly and feeds the tensor cores directly).  An optional f32 bias[n]
+// joins the output sum in the epilogue, so that the caller rounds the
+// biased sum once (qwen2's q/k/v biases: the JAX package's int4
+// projection drops them, a fault the port repairs).
 //
 // Unpacking: from four packed bytes w, lo + 8 = (w & 0x0F) ^ 8 and hi + 8 =
 // ((w >> 4 & 0x0F) ^ 8) + (w >> 3 & 1) per byte, all in [0, 16] (no carry
@@ -108,6 +111,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32)
     int4_decode_kernel(const bf16* __restrict__ x,
                        const int8_t* __restrict__ wp,
                        const float* __restrict__ scales,
+                       const float* __restrict__ bias,
                        float* __restrict__ y, float* __restrict__ part,
                        int* __restrict__ counters, int M, int N, int K,
                        int group, int gpb) {
@@ -211,6 +215,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32)
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < DEC_WARPS; ++w) sum += red[w][r][c];
+    if (splits == 1 && bias) sum += bias[n0 + c];
     dst[(size_t)r * N + n0 + c] = sum;
   }
   if (splits == 1) return;
@@ -228,6 +233,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32)
     float sum = 0.f;
     for (int s = 0; s < splits; ++s)
       sum += __ldcg(part + (size_t)s * M * N + o);
+    if (bias) sum += bias[n0 + i % DEC_BN];
     y[o] = sum;
   }
 }
@@ -313,6 +319,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
     int4_prefill_kernel(const bf16* __restrict__ x,
                         const int8_t* __restrict__ wp,
                         const float* __restrict__ scales,
+                        const float* __restrict__ bias,
                         float* __restrict__ y, int M, int N, int K,
                         int group) {
   extern __shared__ unsigned char smem_raw[];
@@ -492,12 +499,14 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = n0 + 8 * j + 2 * t;
+        const float2 b = bias ? *reinterpret_cast<const float2*>(bias + col)
+                              : make_float2(0.f, 0.f);
         if (r0 < M)
           *reinterpret_cast<float2*>(y + (size_t)r0 * N + col) =
-              make_float2(acc[4 * j], acc[4 * j + 1]);
+              make_float2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
         if (r0 + 8 < M)
           *reinterpret_cast<float2*>(y + (size_t)(r0 + 8) * N + col) =
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+              make_float2(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
       }
     }
   }
@@ -505,8 +514,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 
 template <int GS>
 int launch_prefill(const bf16* x, const int8_t* wp, const float* scales,
-                   float* y, int M, int N, int K, int group, int grid,
-                   cudaStream_t st) {
+                   const float* bias, float* y, int M, int N, int K,
+                   int group, int grid, cudaStream_t st) {
   static int launch_regs = -1;
   if (launch_regs < 0) {
     cudaFuncAttributes attr;
@@ -521,8 +530,8 @@ int launch_prefill(const bf16* x, const int8_t* wp, const float* scales,
       int4_prefill_kernel<GS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       PF_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int4_prefill_kernel<GS><<<grid, PF_THREADS, PF_SMEM, st>>>(x, wp, scales, y,
-                                                             M, N, K, group);
+  int4_prefill_kernel<GS><<<grid, PF_THREADS, PF_SMEM, st>>>(
+      x, wp, scales, bias, y, M, N, K, group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -537,19 +546,21 @@ int int4_decode_splits(int N, int K, int group) {
   return decode_splits(N, K, group);
 }
 
-// x [M, K] bf16, wp [K/2, N] int8, scales [K/group, N] f32 -> y [M, N] f32.
+// x [M, K] bf16, wp [K/2, N] int8, scales [K/group, N] f32, bias [N] f32 or
+// null -> y [M, N] f32 (bias added to the f32 sums).
 // M <= 16 (decode): part, counters as int4_decode_splits says (counters
 // [N / 128] int32, zero before the first launch; every launch leaves them
 // zero).  Both kernels need group % 16 == 0, N % 128 == 0 and K % group == 0.
-int int4_matmul(const void* x, const void* wp, const void* scales, void* y,
-                void* part, void* counters, int M, int N, int K, int group,
-                void* stream) {
+int int4_matmul(const void* x, const void* wp, const void* scales,
+                const void* bias, void* y, void* part, void* counters, int M,
+                int N, int K, int group, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N % DEC_BN || group < 16 || group % 16 || K % group || M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
   const int8_t* w = static_cast<const int8_t*>(wp);
   const float* s = static_cast<const float*>(scales);
+  const float* b = static_cast<const float*>(bias);
   float* out = static_cast<float*>(y);
   if (M <= 16) {
     const int gpb = decode_groups_per_block(N, K, group);
@@ -558,10 +569,10 @@ int int4_matmul(const void* x, const void* wp, const void* scales, void* y,
     int* c = static_cast<int*>(counters);
     if (M <= 8)
       int4_decode_kernel<1><<<grid, DEC_WARPS * 32, 0, st>>>(
-          xb, w, s, out, p, c, M, N, K, group, gpb);
+          xb, w, s, b, out, p, c, M, N, K, group, gpb);
     else
       int4_decode_kernel<2><<<grid, DEC_WARPS * 32, 0, st>>>(
-          xb, w, s, out, p, c, M, N, K, group, gpb);
+          xb, w, s, b, out, p, c, M, N, K, group, gpb);
     return static_cast<int>(cudaGetLastError());
   }
   // groups of 64, 128 and 256 k rows hold their 1, 2 or 4 stages (of the
@@ -569,12 +580,14 @@ int int4_matmul(const void* x, const void* wp, const void* scales, void* y,
   const int tiles = (M + PF_BM - 1) / PF_BM * (N / PF_BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
   switch (group) {
-    case 64: return launch_prefill<1>(xb, w, s, out, M, N, K, group, grid, st);
+    case 64:
+      return launch_prefill<1>(xb, w, s, b, out, M, N, K, group, grid, st);
     case 128:
-      return launch_prefill<2>(xb, w, s, out, M, N, K, group, grid, st);
+      return launch_prefill<2>(xb, w, s, b, out, M, N, K, group, grid, st);
     case 256:
-      return launch_prefill<4>(xb, w, s, out, M, N, K, group, grid, st);
-    default: return launch_prefill<0>(xb, w, s, out, M, N, K, group, grid, st);
+      return launch_prefill<4>(xb, w, s, b, out, M, N, K, group, grid, st);
+    default:
+      return launch_prefill<0>(xb, w, s, b, out, M, N, K, group, grid, st);
   }
 }
 

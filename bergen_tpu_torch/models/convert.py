@@ -297,7 +297,9 @@ def deberta_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
 
 
 def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
-    """HF LlamaForCausalLM / MistralForCausalLM state dict -> llama tree."""
+    """HF LlamaForCausalLM / MistralForCausalLM / Qwen2ForCausalLM state
+    dict -> llama tree (qwen2's q/k/v biases as ``bias`` leaves, kept f32
+    by ``to_device``; JAX ``convert.py:282-289``)."""
     sd = _strip_prefix(state_dict, candidates=("model.",))
     p: Dict[str, Any] = {
         "embed": sd["embed_tokens.weight"],
@@ -307,7 +309,7 @@ def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
     for i in range(num_layers):
         pre = f"layers.{i}"
         p["layers"].append({
-            "attn": {n: {"kernel": sd[f"{pre}.self_attn.{n}_proj.weight"].T}
+            "attn": {n: _lin(sd, f"{pre}.self_attn.{n}_proj")
                      for n in ("q", "k", "v", "o")},
             "attn_norm": {"scale": sd[f"{pre}.input_layernorm.weight"]},
             "mlp_norm": {"scale": sd[f"{pre}.post_attention_layernorm.weight"]},
@@ -399,7 +401,10 @@ def quantize_tree_int4(params, min_size: int = 1 << 16, group: int = 128,
     ``quantize_tree_int4(packed=True)`` does, bit for bit.  Each leaf is
     quantized on ``device`` (default: where it lies), one at a time, so a
     large tree is never held in f32 whole.  Smaller leaves stay dense; the
-    embedding is no ``kernel`` and is never quantized."""
+    embedding is no ``kernel`` and is never quantized.  A quantized
+    kernel's ``bias`` (qwen2's q/k/v) stays dense, in f32, beside it: the
+    port adds it in the int4 product's epilogue, where JAX's int4
+    projection drops it."""
     if not packed:
         raise NotImplementedError(
             "quantize_tree_int4(packed=False): the jnp.int4 storage form is "
@@ -418,6 +423,10 @@ def quantize_tree_int4(params, min_size: int = 1 << 16, group: int = 128,
                     quantize_int4_packed(
                         k if device is None else k.to(device), group)
                 del node["kernel"]
+                if "bias" in node:
+                    node["bias"] = node["bias"].to(
+                        device=node["kernel_q4p"].device,
+                        dtype=torch.float32)
             for v in node.values():
                 visit(v)
         elif isinstance(node, list):

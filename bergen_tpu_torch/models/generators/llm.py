@@ -1,7 +1,8 @@
 """LLM generator (the PyTorch port's counterpart of
 ``bergen_tpu/models/generators/jax_llm.py``): greedy decoding of a
-llama/mistral checkpoint read from a local HF directory with the port's own
-tokenizer and safetensors readers.
+llama, mistral or qwen2 checkpoint (Llama-3.x's rope scaling, Qwen2's q/k/v
+biases) read from a local HF directory with the port's own tokenizer and
+safetensors readers.
 
 Ported: left-padded length-bucketed batches (``_tokenize_left_pad``),
 greedy ``generate`` and ``first_token_logits``, ``quantization: int4``
@@ -75,7 +76,10 @@ class LLM(Generator):
         self.dtype = _device.default_dtype(self.device, dtype)
         self.prompt = prompt
         self.tokenizer = Tokenizer.from_pretrained(model_name)
-        # pad priority: bos > pad > eos (reference llm.py:86-92)
+        # pad priority: bos > pad > eos (reference llm.py:86-92): Qwen2 has
+        # no bos, so it pads with its pad token <|endoftext|>.  EOS is the
+        # tokenizer's one id, as in JAX (Llama-3.1's config.json lists
+        # three)
         self.tokenizer.pad_token = (
             self.tokenizer.bos_token
             or self.tokenizer.pad_token
@@ -86,6 +90,10 @@ class LLM(Generator):
         params = convert.llama_from_hf(sd, self.cfg.num_layers)
         del sd
         if quantization == "int4":
+            if "lm_head" not in params:
+                # JAX's tree comes from transformers' state dict, which
+                # lists a tied head as lm_head: that head is quantized too
+                params["lm_head"] = {"kernel": params["embed"].T}
             # as jax_llm: quantize (packed) before placement, here leaf by
             # leaf on the target device
             params = convert.quantize_tree_int4(params, packed=True,

@@ -1,17 +1,19 @@
 """Llama-family decoder (the PyTorch port's counterpart of
-``bergen_tpu/models/llama.py``; llama and mistral configurations only).
+``bergen_tpu/models/llama.py``; llama, mistral and qwen2 configurations,
+with ``rope_scaling`` llama3 or linear).
 
 Plain functions over the JAX package's parameter tree: RoPE (split-half),
-GQA, RMSNorm, SwiGLU, and a flat KV cache ``[n_layers, B, L, KH*Dh]``
-written at a cursor (one per row in the serving slot pool), or the paged
-cache of ``init_paged_cache`` (serving decode through
-``ops.paged_attention``).  Prefill attention is plain PyTorch (the JAX package
-leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is on, when it
-goes through ``ops.flash_attention.flash_attention``; every S=1 decode step
-goes through ``ops.decode_attention.decode_attention``, and the chunk rows
-of the serving drain's fused chunked-prefill step (``forward(chunk=...)``)
-through ``ops.flash_attention.flash_attention_band_rows`` (the CUDA
-kernels on the card).  Projections of an int4 tree
+GQA, RMSNorm, SwiGLU, q/k/v biases (qwen2), and a flat KV cache
+``[n_layers, B, L, KH*Dh]`` written at a cursor (one per row in the serving
+slot pool), or the paged cache of ``init_paged_cache`` (serving decode
+through ``ops.paged_attention``).  Prefill attention is plain PyTorch (the
+JAX package leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is
+on, when it goes through ``ops.flash_attention.flash_attention``; every
+S=1 decode step goes through ``ops.decode_attention.decode_attention``, and
+the chunk rows of the serving drain's fused chunked-prefill step
+(``forward(chunk=...)``) through
+``ops.flash_attention.flash_attention_band_rows`` (the CUDA kernels on the
+card).  Projections of an int4 tree
 (``convert.quantize_tree_int4``) take ``ops.int4_matmul.matmul_int4_packed``
 inside its shape rule and the JAX package's dequantized product outside it.
 The cache is updated in place, where the JAX function returns a new one.
@@ -20,13 +22,14 @@ The cache is updated in place, where the JAX function returns a new one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict
 
 import torch
 
 from bergen_tpu_torch.models import convert
-from bergen_tpu_torch.models.core import rmsnorm
+from bergen_tpu_torch.models.core import dense, rmsnorm
 from bergen_tpu_torch.ops import int4_matmul
 from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
@@ -48,6 +51,13 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
+    # rope scaling (JAX llama.py:89-97): llama-3.1/3.2 band interpolation
+    # or linear position scaling
+    rope_scaling_type: str | None = None  # None | "llama3" | "linear"
+    rope_scaling_factor: float = 1.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_pos: int = 8192
 
     @property
     def head_dim(self) -> int:
@@ -56,13 +66,20 @@ class LlamaConfig:
     @classmethod
     def from_hf(cls, hf_cfg) -> "LlamaConfig":
         model_type = getattr(hf_cfg, "model_type", "llama")
-        if model_type not in ("llama", "mistral"):
+        if model_type not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(
-                f"generator model_type {model_type!r}: only llama/mistral is "
-                "ported (ROADMAP.md Queue 1, generation breadth)")
+                f"generator model_type {model_type!r}: only llama, mistral "
+                "and qwen2 are ported (ROADMAP.md Queue 1, generation "
+                "breadth)")
         rs = getattr(hf_cfg, "rope_scaling", None) or {}
-        if rs.get("rope_type", rs.get("type")) not in (None, "default"):
-            raise NotImplementedError(f"rope_scaling {rs!r} is not ported")
+        rs_type = rs.get("rope_type", rs.get("type"))
+        if rs_type == "default":
+            rs_type = None
+        if rs_type not in (None, "llama3", "linear"):
+            raise NotImplementedError(
+                f"rope_scaling type {rs_type!r} is not ported; supported: "
+                "llama3 (band interpolation), linear (ROADMAP.md Queue 1, "
+                "generation breadth)")
         act = getattr(hf_cfg, "hidden_act", "silu")
         if act != "silu":
             raise NotImplementedError(f"llama hidden_act {act!r}")
@@ -78,13 +95,45 @@ class LlamaConfig:
             rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
             rms_norm_eps=getattr(hf_cfg, "rms_norm_eps", None) or 1e-5,
             tie_word_embeddings=getattr(hf_cfg, "tie_word_embeddings", False),
+            rope_scaling_type=rs_type,
+            rope_scaling_factor=float(rs.get("factor", 1.0)),
+            rope_low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
+            rope_high_freq_factor=float(rs.get("high_freq_factor", 4.0)),
+            rope_original_max_pos=int(
+                rs.get("original_max_position_embeddings", 8192)),
         )
 
 
 def rope_frequencies(cfg: LlamaConfig, device=None) -> torch.Tensor:
+    """[Dh/2] inverse frequencies, computed in f32 on the host in the JAX
+    expression's order (``llama.py:189-209``), so that the table is JAX's
+    bit for bit, then moved to ``device``."""
     dim = cfg.head_dim
-    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
-    return 1.0 / (cfg.rope_theta ** exps)  # [dim/2]
+    inv = 1.0 / (cfg.rope_theta
+                 ** (torch.arange(0, dim, 2, dtype=torch.float32) / dim))
+    if cfg.rope_scaling_type == "linear":
+        inv = inv / cfg.rope_scaling_factor
+    elif cfg.rope_scaling_type == "llama3":
+        # long wavelengths (low frequencies) are scaled down by `factor`,
+        # short ones kept, and the band between them interpolated
+        low_wl = cfg.rope_original_max_pos / cfg.rope_low_freq_factor
+        high_wl = cfg.rope_original_max_pos / cfg.rope_high_freq_factor
+        wavelen = 2.0 * math.pi / inv
+        scaled = inv / cfg.rope_scaling_factor
+        smooth = (cfg.rope_original_max_pos / wavelen
+                  - cfg.rope_low_freq_factor) / (
+            cfg.rope_high_freq_factor - cfg.rope_low_freq_factor)
+        mid = (1.0 - smooth) * scaled + smooth * inv
+        inv = torch.where(wavelen < high_wl, inv,
+                          torch.where(wavelen > low_wl, scaled, mid))
+    return inv.to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_table(cfg: LlamaConfig, device: torch.device) -> torch.Tensor:
+    """``rope_frequencies`` on ``device``, made once (a step then copies
+    nothing from the host)."""
+    return rope_frequencies(cfg, device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -126,26 +175,36 @@ def init_paged_cache(cfg: LlamaConfig, n_pages: int, slots: int,
 
 
 def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W (+ the f32 bias), rounded once to x's dtype."""
+    bias = p.get("bias")
     if "kernel_q4p" in p:
         # int4 weight-only (bergen_tpu/models/llama.py:328-352): the kernel
-        # inside its shape rule, else the dequantized product
+        # inside its shape rule, else the dequantized product.  The bias is
+        # added in f32 before the one rounding, where JAX's int4 branch
+        # drops it (ROADMAP.md Queue 3)
         wp, sc = p["kernel_q4p"], p["kernel_scale4"]
         K, N = wp.shape[0] * 2, wp.shape[1]
         if int4_matmul.supports(K, N, sc.shape[0]):
-            y = int4_matmul.matmul_int4_packed(x.reshape(-1, K), wp, sc)
+            y = int4_matmul.matmul_int4_packed(x.reshape(-1, K), wp, sc,
+                                               bias)
             return y.reshape(*x.shape[:-1], N).to(x.dtype)
-        return _int4_dequant_proj(wp, sc, x)
-    return x @ p["kernel"]
+        return _int4_dequant_proj(wp, sc, x, bias)
+    # dense (llama.py:353-362): f32 sums plus the f32 bias, one rounding
+    return dense(p, x)
 
 
 def _int4_dequant_proj(wp: torch.Tensor, sc: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
+                       x: torch.Tensor,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """The JAX package's product for an int4 projection outside the
     kernel's shape rule: the weights dequantized to x's dtype, then a plain
-    matmul.  ``calls`` counts it."""
+    matmul (with a bias: ``core.dense``'s f32 sums plus the bias, rounded
+    once).  ``calls`` counts it."""
     _int4_dequant_proj.calls += 1
     w = convert.dequantize_int4(convert.unpack_int4(wp), sc, x.dtype)
-    return torch.matmul(x, w)
+    if bias is None:
+        return torch.matmul(x, w)
+    return dense({"kernel": w, "bias": bias}, x)
 
 
 _int4_dequant_proj.calls = 0
@@ -323,7 +382,7 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
                                   "prefill writes pages directly")
     if paged and chunk is not None:
         raise NotImplementedError("chunked prefill needs the slot-pool cache")
-    inv_freq = rope_frequencies(cfg, device=input_ids.device)
+    inv_freq = _rope_table(cfg, input_ids.device)
     x = params["embed"][input_ids]
     for li, layer in enumerate(params["layers"]):
         h = rmsnorm(layer["attn_norm"], x, cfg.rms_norm_eps)

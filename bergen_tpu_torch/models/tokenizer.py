@@ -8,31 +8,40 @@ port carries the part of them its checkpoints use, with the same results as
   ``(piece, score)``, consecutive unknown characters fused into one
   ``unk_id``), the family of DeBERTa-v3's tokenizer, and BPE with ranked
   merges, ``byte_fallback`` to ``<0xNN>`` tokens, ``fuse_unk`` and
-  ``ignore_merges`` (Llama-2's and TinyLlama's ``tokenizer.json``);
-* normalizers: Lowercase, StripAccents, Strip, Replace, Prepend,
+  ``ignore_merges`` (Llama-2's and TinyLlama's ``tokenizer.json``, and the
+  byte-level BPE of Llama-3's and Qwen2's);
+* normalizers: Lowercase, StripAccents, Strip, Replace, Prepend, NFC,
   Precompiled (a serialized sentencepiece charsmap, which DeBERTa-v3's
   published ``tokenizer.json`` carries; ``_Precompiled``), and a Sequence
   of them;
 * pre-tokenizers: Whitespace, WhitespaceSplit, Punctuation (Removed or
-  Isolated), Metaspace, and a Sequence of them;
+  Isolated), Metaspace, Split (``Isolated``, on the published Llama-3 and
+  Qwen2 patterns: ``split_regex``), ByteLevel (GPT-2's byte-to-unicode
+  table, with or without GPT-2's own split), and a Sequence of them;
 * the TemplateProcessing post-processor, single (``[CLS] $A [SEP]``) and
   pair (``[CLS] $A [SEP] $B:1 [SEP]:1``) with their type ids, and
   truncation that leaves room for its special tokens (``only_second`` for
-  pairs, as ``tokenizers`` truncates a cross-encoder's documents);
+  pairs, as ``tokenizers`` truncates a cross-encoder's documents); the
+  ByteLevel post-processor (offsets only: the ids pass unchanged) and a
+  Sequence of the two (Llama-3.1's);
 * added tokens, matched in the raw text before normalisation;
 * ``decode``/``batch_decode`` (no decoder: tokens joined by spaces, or the
-  WordPiece or Metaspace decoder, or a Sequence of Replace, ByteFallback,
-  Fuse and Strip decoders: Llama-2's), ``skip_special_tokens``;
-* ``apply_chat_template`` rendered with jinja2 as transformers renders it.
+  WordPiece, Metaspace or ByteLevel decoder, or a Sequence of Replace,
+  ByteFallback, Fuse and Strip decoders: Llama-2's),
+  ``skip_special_tokens``;
+* ``apply_chat_template`` rendered with jinja2 as transformers renders it
+  (with its ``raise_exception`` and ``strftime_now`` globals).
 
 Any other component raises ``NotImplementedError`` naming it.
-``write_tokenizer`` writes such files (used to make checkpoints without
+``write_tokenizer`` writes such files, and ``train_byte_level_bpe`` learns
+byte-level merges from a text (both used to make checkpoints without
 ``tokenizers``).
 """
 
 from __future__ import annotations
 
 import base64
+import collections
 import functools
 import heapq
 import json
@@ -40,6 +49,7 @@ import os
 import re
 import struct
 import unicodedata
+from datetime import datetime
 from typing import Iterable
 
 _WHITESPACE_RE = re.compile(r"\w+|[^\w\s]+")
@@ -86,6 +96,8 @@ def _normalizer(spec):
     if kind == "Prepend":
         pre = spec["prepend"]
         return lambda s: pre + s if s else s
+    if kind == "NFC":
+        return lambda s: unicodedata.normalize("NFC", s)
     if kind == "Precompiled":
         return _Precompiled(base64.b64decode(
             spec["precompiled_charsmap"])).normalize
@@ -340,6 +352,126 @@ def _metaspace(spec):
     return pre
 
 
+# The Split patterns of the published byte-level tokenizers, and GPT-2's
+# own (the ByteLevel pre-tokenizer's with ``use_regex``), as
+# ``tokenizer.json`` writes them
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+                r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|"
+                r"\s+(?!\S)|\s+")
+QWEN2_SPLIT = LLAMA3_SPLIT.replace(r"\p{N}{1,3}", r"\p{N}")
+GPT2_SPLIT = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+|"
+              r" ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
+# Unicode's White_Space property, which the Oniguruma engine of
+# ``tokenizers`` takes for \s; Python's \s also takes U+001C to U+001F
+_WHITE_SPACE = ("\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028"
+                "\u2029\u202f\u205f\u3000")
+
+
+@functools.lru_cache(maxsize=1)
+def _category_classes() -> dict[str, str]:
+    """{"L": the body of a character class of every code point of general
+    category L*, "N": of N*}, as ranges of ``\\U`` escapes."""
+    runs: dict[str, list] = {"L": [], "N": []}
+    for cp in range(0x110000):
+        major = unicodedata.category(chr(cp))[0]
+        if major in runs:
+            r = runs[major]
+            if r and r[-1][1] == cp - 1:
+                r[-1][1] = cp
+            else:
+                r.append([cp, cp])
+    return {k: "".join(f"\\U{a:08x}" if a == b else f"\\U{a:08x}-\\U{b:08x}"
+                       for a, b in r) for k, r in runs.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def split_regex(pattern: str) -> re.Pattern:
+    """A Python ``re`` that splits as ``tokenizers``' Oniguruma does with
+    ``pattern``, one of the published patterns above: \\p{L} and \\p{N}
+    become classes of the general categories L* and N* (not
+    ``str.isnumeric``, which admits CJK numerals of category Lo), spliced
+    inside the pattern's brackets where they stand there, and \\s and \\S
+    become Unicode's White_Space and its complement.  ``(?i:...)``,
+    ``{1,3}`` and ``(?!...)`` mean the same to both engines."""
+    if pattern not in (LLAMA3_SPLIT, QWEN2_SPLIT, GPT2_SPLIT):
+        raise NotImplementedError(
+            f"tokenizer Split pattern {pattern!r}: only the Llama-3, Qwen2 "
+            "and GPT-2 patterns are translated")
+    cats = _category_classes()
+    body = {r"\p{L}": cats["L"], r"\p{N}": cats["N"], r"\s": _WHITE_SPACE}
+    out, i, in_class = [], 0, False
+    while i < len(pattern):
+        c = pattern[i]
+        tok = pattern[i:i + 5] if pattern.startswith(r"\p{", i) else \
+            pattern[i:i + 2] if c == "\\" else c
+        i += len(tok)
+        if tok in body:
+            out.append(body[tok] if in_class else f"[{body[tok]}]")
+        elif tok == r"\S" and not in_class:
+            out.append(f"[^{_WHITE_SPACE}]")
+        else:
+            in_class = (in_class and tok != "]") or tok == "["
+            out.append(tok)
+    return re.compile("".join(out))
+
+
+def _split_isolated(rx: re.Pattern, text: str) -> list[str]:
+    """``tokenizers``' Split with behavior ``Isolated``: every match is a
+    piece, and so is every stretch between matches."""
+    out, pos = [], 0
+    for m in rx.finditer(text):
+        if m.start() > pos:
+            out.append(text[pos:m.start()])
+        if m.end() > m.start():
+            out.append(m.group(0))
+        pos = m.end()
+    if pos < len(text):
+        out.append(text[pos:])
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def bytes_to_unicode() -> dict[int, str]:
+    """GPT-2's byte-to-unicode table: the printable Latin-1 bytes map to
+    themselves, every other byte to U+0100 onwards, in byte order."""
+    keep = (list(range(ord("!"), ord("~") + 1))
+            + list(range(ord("\xa1"), ord("\xac") + 1))
+            + list(range(ord("\xae"), ord("\xff") + 1)))
+    table, extra = {}, 0
+    for b in range(256):
+        if b in keep:
+            table[b] = chr(b)
+        else:
+            table[b] = chr(256 + extra)
+            extra += 1
+    return table
+
+
+def _to_byte_level(text: str) -> str:
+    table = bytes_to_unicode()
+    return "".join(table[b] for b in text.encode())
+
+
+def _byte_level(spec):
+    """``tokenizers``' ByteLevel pre-tokenizer: each piece gets a leading
+    space (``add_prefix_space``) where it has none, is split by GPT-2's
+    pattern (``use_regex``), and its UTF-8 bytes become the table's
+    characters."""
+    prefix = spec.get("add_prefix_space", True)
+    rx = split_regex(GPT2_SPLIT) if spec.get("use_regex", True) else None
+
+    def pre(pieces, _):
+        out = []
+        for p in pieces:
+            if prefix and not p.startswith(" "):
+                p = " " + p
+            out.extend(_to_byte_level(q)
+                       for q in (_split_isolated(rx, p) if rx else [p]))
+        return out
+
+    return pre
+
+
 def _pre_tokenizer(spec):
     """-> function: (list of pieces, whether the first piece starts the
     input) -> list of pieces."""
@@ -357,6 +489,19 @@ def _pre_tokenizer(spec):
         return seq
     if kind == "Metaspace":
         return _metaspace(spec)
+    if kind == "ByteLevel":
+        return _byte_level(spec)
+    if kind == "Split":
+        pat = spec["pattern"]
+        if spec.get("behavior") != "Isolated" or spec.get("invert"):
+            raise NotImplementedError(
+                f"tokenizer Split behavior {spec.get('behavior')!r} "
+                f"(invert={spec.get('invert')}): only Isolated")
+        if "Regex" not in pat:
+            raise NotImplementedError(f"tokenizer Split pattern {pat!r}")
+        rx = split_regex(pat["Regex"])
+        return lambda pieces, _: [q for p in pieces
+                                  for q in _split_isolated(rx, p)]
     if kind == "Whitespace":
         return lambda pieces, _: [m for p in pieces
                                   for m in _WHITESPACE_RE.findall(p)]
@@ -618,9 +763,23 @@ def _strip(content: str, start: int, stop: int):
     return strip
 
 
+def _byte_level_decode(tokens: list[str]) -> list[str]:
+    """``tokenizers``' ByteLevel decoder: each token's characters back to
+    their bytes (a token with a character outside the table, such as an
+    added token with a space, keeps its own UTF-8 bytes), all joined and
+    decoded as UTF-8 with one U+FFFD for each invalid sequence."""
+    back = {c: b for b, c in bytes_to_unicode().items()}
+    out = bytearray()
+    for t in tokens:
+        bs = [back.get(c) for c in t]
+        out.extend(t.encode() if None in bs else bs)
+    return [out.decode("utf-8", errors="replace")]
+
+
 def _decoder_chain(spec):
     """-> function: list of token strings -> list of strings, for the
-    decoders Llama-2's ``tokenizer.json`` chains."""
+    decoders Llama-2's ``tokenizer.json`` chains, and the ByteLevel
+    decoder."""
     kind = spec["type"]
     if kind == "Sequence":
         steps = [_decoder_chain(d) for d in spec["decoders"]]
@@ -636,11 +795,30 @@ def _decoder_chain(spec):
         return lambda tokens: [t.replace(old, new) for t in tokens]
     if kind == "ByteFallback":
         return _byte_fallback
+    if kind == "ByteLevel":
+        return _byte_level_decode
     if kind == "Fuse":
         return lambda tokens: ["".join(tokens)]
     if kind == "Strip":
         return _strip(spec["content"], spec["start"], spec["stop"])
     raise NotImplementedError(f"tokenizer decoder {kind!r}")
+
+
+def _template(post):
+    """The TemplateProcessing spec that decides a post-processor's ids:
+    the ByteLevel post-processor changes offsets only, and a Sequence
+    applies its steps in turn."""
+    if post is None or post["type"] == "ByteLevel":
+        return None
+    if post["type"] == "TemplateProcessing":
+        return post
+    if post["type"] == "Sequence":
+        found = [t for t in map(_template, post["processors"]) if t]
+        if len(found) > 1:
+            raise NotImplementedError(
+                "tokenizer post-processor Sequence with two templates")
+        return found[0] if found else None
+    raise NotImplementedError(f"tokenizer post-processor {post['type']!r}")
 
 
 def _token_str(v):
@@ -669,11 +847,7 @@ class Tokenizer:
             raise NotImplementedError(f"tokenizer model {model['type']!r}")
         self.normalize = _normalizer(spec.get("normalizer"))
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
-        post = spec.get("post_processor")
-        if post is not None and post["type"] != "TemplateProcessing":
-            raise NotImplementedError(
-                f"tokenizer post-processor {post['type']!r}")
-        self.template = post
+        self.template = _template(spec.get("post_processor"))
         dec = spec.get("decoder")
         self.decoder = dec
         self._decode_chain = None
@@ -892,6 +1066,9 @@ class Tokenizer:
         def raise_exception(message):
             raise jinja2.exceptions.TemplateError(message)
 
+        def strftime_now(fmt):  # Llama-3.2's template dates its prompt
+            return datetime.now().strftime(fmt)
+
         def tojson(x, ensure_ascii=False, indent=None, separators=None,
                    sort_keys=False):
             return json.dumps(x, ensure_ascii=ensure_ascii, indent=indent,
@@ -901,6 +1078,7 @@ class Tokenizer:
             trim_blocks=True, lstrip_blocks=True, extensions=[loopcontrols])
         env.filters["tojson"] = tojson
         env.globals["raise_exception"] = raise_exception
+        env.globals["strftime_now"] = strftime_now
         text = env.from_string(self.chat_template).render(
             messages=messages, tools=None, documents=None,
             add_generation_prompt=add_generation_prompt,
@@ -918,23 +1096,118 @@ def _clean_up(text: str) -> str:
             .replace(" 're", "'re"))
 
 
-def write_tokenizer(path: str, model: str, vocab: dict[str, int],
-                    specials: dict[str, str], *, lowercase: bool = True,
-                    strip_accents: bool = False,
-                    template: tuple[str, str] | None = None,
-                    chat_template: str | None = None,
-                    scores: dict[str, float] | None = None) -> None:
-    """Write ``tokenizer.json`` + ``tokenizer_config.json`` in HF's format.
+def train_byte_level_bpe(texts: Iterable[str], n_merges: int,
+                         split_pattern: str = LLAMA3_SPLIT
+                         ) -> tuple[dict[str, int], list[str]]:
+    """(vocab, merges) of a byte-level BPE learnt from ``texts``: the 256
+    byte characters (ids 0..255 in byte order), then up to ``n_merges``
+    merges, each of the most frequent adjacent pair of the words that
+    ``split_pattern`` cuts (ties to the smallest pair)."""
+    rx = split_regex(split_pattern)
+    counts = collections.Counter(
+        _to_byte_level(piece) for text in texts
+        for piece in _split_isolated(rx, text))
+    words = [list(w) for w in counts]
+    freq = list(counts.values())
+    vocab = {c: i for i, c in enumerate(bytes_to_unicode().values())}
+    pairs: collections.Counter = collections.Counter()
+    where: dict[tuple, set] = collections.defaultdict(set)
 
-    model: "WordPiece", "WordLevel" or "Unigram"; vocab: token -> id
-    (special tokens included; for Unigram the ids are 0..n-1 and each piece
-    scores ``scores[piece]``, 0 by default); specials: e.g. {"pad_token":
-    "[PAD]", "unk_token": ...}; template: (first, last) special tokens of a
-    ``first $A last`` / ``first $A last $B:1 last:1`` TemplateProcessing
-    post-processor.  A Unigram tokenizer is written as DeBERTa-v3's is (Strip
-    and space-collapsing normalizers, Metaspace pre-tokenizer and decoder),
-    without its ``Precompiled`` charsmap."""
-    os.makedirs(path, exist_ok=True)
+    def account(wi, sign):
+        w = words[wi]
+        for pair in zip(w, w[1:]):
+            pairs[pair] += sign * freq[wi]
+            if sign > 0:
+                where[pair].add(wi)
+
+    for wi in range(len(words)):
+        account(wi, 1)
+    heap = [(-n, pair) for pair, n in pairs.items()]
+    heapq.heapify(heap)
+    merges: list[str] = []
+    while heap and len(merges) < n_merges:
+        n, pair = heapq.heappop(heap)
+        if pairs.get(pair, 0) != -n or n == 0:
+            continue  # stale
+        a, b = pair
+        merged = a + b
+        merges.append(f"{a} {b}")
+        vocab.setdefault(merged, len(vocab))
+        touched = set()
+        for wi in where.pop(pair):
+            w = words[wi]
+            if not any(x == a and y == b for x, y in zip(w, w[1:])):
+                continue
+            account(wi, -1)
+            touched.update(zip(w, w[1:]))
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(merged)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            words[wi] = out
+            account(wi, 1)
+            touched.update(zip(out, out[1:]))
+        del pairs[pair]
+        for p in touched:
+            if pairs[p] > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+    return vocab, merges
+
+
+def _byte_level_bpe_spec(vocab: dict[str, int], merges: list[str],
+                         added: dict[str, int], *, split_pattern: str,
+                         nfc: bool, ignore_merges: bool,
+                         template: tuple[str, str | None] | None) -> dict:
+    """A ``tokenizer.json`` in the layout of Llama-3's (``template`` =
+    (bos, None): a Sequence of the ByteLevel and TemplateProcessing
+    post-processors, as Llama-3.1's) or Qwen2's (NFC, the ByteLevel
+    post-processor)."""
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": False, "use_regex": False}
+    post = byte_level
+    if template is not None:
+        first, last = template
+        a = [{"SpecialToken": {"id": first, "type_id": 0}},
+             {"Sequence": {"id": "A", "type_id": 0}}]
+        b = [{"SpecialToken": {"id": first, "type_id": 1}},
+             {"Sequence": {"id": "B", "type_id": 1}}]
+        if last is not None:
+            a.append({"SpecialToken": {"id": last, "type_id": 0}})
+            b.append({"SpecialToken": {"id": last, "type_id": 1}})
+        post = {"type": "Sequence", "processors": [
+            dict(byte_level, add_prefix_space=True, use_regex=True),
+            {"type": "TemplateProcessing", "single": a, "pair": a + b,
+             "special_tokens": {t: {"id": t, "ids": [added[t]], "tokens": [t]}
+                                for t in (first, last) if t is not None}}]}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t, i in sorted(added.items(), key=lambda kv: kv[1])],
+        "normalizer": {"type": "NFC"} if nfc else None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": split_pattern},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": post,
+        "decoder": dict(byte_level),
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": ignore_merges,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def _word_spec(model: str, vocab: dict[str, int], specials: dict[str, str],
+               lowercase: bool, strip_accents: bool,
+               template: tuple[str, str] | None,
+               scores: dict[str, float] | None) -> dict:
+    """``write_tokenizer``'s WordPiece, WordLevel and Unigram files."""
     norms = ([{"type": "Lowercase"}] if lowercase else []) + (
         [{"type": "StripAccents"}] if strip_accents else [])
     special_set = set(specials.values())
@@ -990,9 +1263,47 @@ def write_tokenizer(path: str, model: str, vocab: dict[str, int],
             "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
                                for t in (first, last)},
         }
+    return spec
+
+
+def write_tokenizer(path: str, model: str, vocab: dict[str, int],
+                    specials: dict[str, str], *, lowercase: bool = True,
+                    strip_accents: bool = False,
+                    template: tuple[str, str | None] | None = None,
+                    chat_template: str | None = None,
+                    scores: dict[str, float] | None = None,
+                    merges: list[str] | None = None,
+                    added: dict[str, int] | None = None,
+                    split_pattern: str = LLAMA3_SPLIT, nfc: bool = False,
+                    ignore_merges: bool = False,
+                    clean_up_spaces: bool = False) -> None:
+    """Write ``tokenizer.json`` + ``tokenizer_config.json`` in HF's format.
+
+    model: "WordPiece", "WordLevel", "Unigram" or "ByteLevelBPE"; vocab:
+    token -> id (special tokens included, but for ByteLevelBPE, whose
+    special tokens are ``added``; for Unigram the ids are 0..n-1 and each
+    piece scores ``scores[piece]``, 0 by default); specials: e.g.
+    {"pad_token": "[PAD]", "unk_token": ...}; template: (first, last)
+    special tokens of a ``first $A last`` / ``first $A last $B:1 last:1``
+    TemplateProcessing post-processor (``last`` None: ``first $A`` /
+    ``first $A first:1 $B:1``).  A Unigram tokenizer is written as
+    DeBERTa-v3's is (Strip and space-collapsing normalizers, Metaspace
+    pre-tokenizer and decoder), without its ``Precompiled`` charsmap.  A
+    ByteLevelBPE one (``merges``, ``added`` special tokens, the Split
+    ``split_pattern``, an NFC normalizer with ``nfc``, ``ignore_merges``)
+    is written as Llama-3's is with a template and as Qwen2's is without
+    (``_byte_level_bpe_spec``)."""
+    os.makedirs(path, exist_ok=True)
+    if model == "ByteLevelBPE":
+        spec = _byte_level_bpe_spec(
+            vocab, merges or [], added or {}, split_pattern=split_pattern,
+            nfc=nfc, ignore_merges=ignore_merges, template=template)
+    else:
+        spec = _word_spec(model, vocab, specials, lowercase, strip_accents,
+                          template, scores)
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(spec, f)
-    config = {"clean_up_tokenization_spaces": False,
+    config = {"clean_up_tokenization_spaces": clean_up_spaces,
               "tokenizer_class": "PreTrainedTokenizerFast", **specials}
     if chat_template is not None:
         config["chat_template"] = chat_template

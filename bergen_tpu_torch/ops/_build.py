@@ -47,7 +47,7 @@ SIGNATURES = {
     "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 5 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 8 + [_I] * 6 + [_F, _P]),
     "decode_attention_splits": ("decode_attention", [_I] * 5),
-    "int4_matmul": ("int4_matmul", [_P] * 6 + [_I] * 4 + [_P]),
+    "int4_matmul": ("int4_matmul", [_P] * 7 + [_I] * 4 + [_P]),
     "int4_decode_splits": ("int4_matmul", [_I] * 3),
     "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 11 + [_F, _P]),
     "paged_partial": ("paged_attention", [_P] * 12 + [_I] * 7 + [_F, _P]),

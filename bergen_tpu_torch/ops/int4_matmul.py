@@ -5,7 +5,10 @@ Counterpart of ``bergen_tpu/ops/int4_matmul.py::matmul_int4_packed``:
 f32 and then multiplied by its f32 scale (the weights are never rounded).
 The layout is ``models/convert.py::quantize_int4_packed``'s: ``wp[i, n]``
 holds row 2i in its low nibble and row 2i+1 in the dot-identity high nibble;
-``scales[g, n]`` covers rows ``[g*group, (g+1)*group)``.  On a CUDA tensor
+``scales[g, n]`` covers rows ``[g*group, (g+1)*group)``.  An optional f32
+``bias[n]`` is added to the f32 sums in the kernel's epilogue (the port's
+repair of the JAX package's int4 projection, which drops a q/k/v bias:
+``bergen_tpu/models/llama.py:328-352``).  On a CUDA tensor
 this launches a kernel of ``csrc/int4_matmul.cu`` (M <= 16: the decode
 kernel, K split over blocks and reduced in the same launch; above: the
 wgmma prefill kernel); on a CPU tensor ``matmul_int4_packed_plain``.
@@ -55,10 +58,12 @@ def supports(K: int, N: int, n_groups: int) -> bool:
 
 
 def matmul_int4_packed_plain(x: torch.Tensor, wp: torch.Tensor,
-                             scales: torch.Tensor) -> torch.Tensor:
+                             scales: torch.Tensor,
+                             bias: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: per group, the f32 product
     of bf16-rounded x and the exact codes, times the group's scales, summed
-    over the groups in order."""
+    over the groups in order, then the f32 bias."""
     M, K = x.shape
     n_groups = scales.shape[0]
     group = K // n_groups
@@ -68,6 +73,8 @@ def matmul_int4_packed_plain(x: torch.Tensor, wp: torch.Tensor,
     for g in range(n_groups):
         rows = slice(g * group, (g + 1) * group)
         y += (xb[:, rows] @ q[rows]) * scales[g].float()
+    if bias is not None:
+        y += bias.float()
     return y
 
 
@@ -84,11 +91,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
-                       scales: torch.Tensor) -> torch.Tensor:
-    """x [M, K] (rounded to bf16), wp [K/2, N] int8, scales [K/group, N] f32
-    -> y [M, N] f32."""
+                       scales: torch.Tensor,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x [M, K] (rounded to bf16), wp [K/2, N] int8, scales [K/group, N] f32,
+    bias [N] f32 or None -> y [M, N] f32."""
     if x.device.type == "cpu":
-        return matmul_int4_packed_plain(x, wp, scales)
+        return matmul_int4_packed_plain(x, wp, scales, bias)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_int4_packed: unsupported device {x.device}")
     M, K = x.shape
@@ -107,8 +115,16 @@ def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
         raise ValueError(
             "matmul_int4_packed kernel: wp must be int8 and scales f32, got "
             f"{wp.dtype} and {scales.dtype}")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (N,)
+                             or bias.device != x.device):
+        raise ValueError(
+            f"matmul_int4_packed kernel: bias must be an f32 [{N}] tensor on "
+            f"{x.device}, got {bias.dtype} {tuple(bias.shape)} on "
+            f"{bias.device}")
     xb = _aligned(x.to(torch.bfloat16))
     wp, scales = _aligned(wp), _aligned(scales)
+    bias = None if bias is None else _aligned(bias)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     # the decode kernel's K-split partials [splits, M, N] and stripe counters
     splits = decode_splits(N, K, group) if M <= DECODE_ROWS else 1
@@ -120,7 +136,8 @@ def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
                                    N // 128).data_ptr()
     fn = _build.function("int4_matmul")
     _build.check(fn(xb.data_ptr(), wp.data_ptr(), scales.data_ptr(),
-                    out.data_ptr(), part, counters, M, N, K, group,
+                    0 if bias is None else bias.data_ptr(), out.data_ptr(),
+                    part, counters, M, N, K, group,
                     _build.stream_ptr(x.device)), "matmul_int4_packed")
     matmul_int4_packed.launches += 1
     return out

@@ -34,7 +34,7 @@ from bergen_tpu_torch.ops import _build
 PAGE = 128
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 128  # the head width the kernel is built for (JAX's rule)
-GROUPS = (1, 2, 4, 8)  # query heads per KV head the kernel is built for
+GROUPS = tuple(range(1, 9))  # query heads per KV head the kernel takes
 BLOCKS_PER_SM = 2      # the kernel's resident blocks an SM (its ring's size)
 
 

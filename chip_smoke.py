@@ -15,6 +15,12 @@ Phases (each prints one JSON line):
      nomic-embed-text-v1.5 and jina-embeddings-v2-base-en (their published
      layouts), Llama-2-7b-chat (13.5 GB of sharded safetensors) and
      Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
+     then Llama-3.2-3B-Instruct (6.4 GB, llama3 rope scaling, tied
+     embeddings) and Qwen2.5-7B-Instruct (15.2 GB, seeded q/k/v biases),
+     with byte-level BPE tokenizers in the layouts of their published
+     files (the port's trainer on the ut1 text, seeded random byte tokens
+     up to the published vocabulary, the specials at their ids), each
+     deleted after its paths;
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
      library time and the card's lower bound for the same work (the decode
@@ -29,7 +35,11 @@ Phases (each prints one JSON line):
      counter and profiler); one
      DeBERTa-v3 layer split into qkv product, bias products and kernel;
      the int4 quantizer on the card against the CPU, bit for bit; the band
-     attention at the chunked drain's shapes (an empty band exactly zero),
+     attention at the chunked drain's shapes (an empty band exactly zero);
+     decode attention and the paged partial also at the Llama-3.x /
+     Qwen2.x groups 3, 5 and 7, flash prefill at groups 7 and 3 and the
+     band at group 7, and the int4 product with an f32 bias at
+     Qwen2.5-7B's five shapes;
      the attention block at bge-large's width and the score GEMM at the
      retrieval shapes, which no path runs; the int8 bin top-k at the
      SPLADE sketch's (D 1,024, mode 'bin') and slab's (D 10,240, mode
@@ -44,15 +54,21 @@ Phases (each prints one JSON line):
      (``generator=vllm_mistral-7b-chat``: the epoch drain, then
      ``kv_cache=paged``), and the served eval's 50 instructions drained
      again by the same server with ``run_workload(mode="chunked")`` and
-     ``mode="epoch"``; the eval with the splade-v3 retriever (the exact
+     ``mode="epoch"``; ``generator=llama-3.2-3b-instruct`` (bf16, group
+     3) and ``qwen-25-7b-instruct_int4`` (group 7, biases in the int4
+     epilogue), both with flash prefill, and ``vllm_qwen-25-7b-instruct``
+     with ``kv_cache=paged``, each with its exact launches a step; the
+     eval with the splade-v3 retriever (the exact
      engine at 1,000 docs) and its retrieve stage with ``sparse_method``
      sketch and slab (the bin top-k in modes 'bin' and 'doc'); then the
      card against the port's f32 CPU path on
      small inputs (64 docs, 64 DeBERTa pairs, two questions: prefill and one
      decode step; the first two layers of nomic-embed and jina-v2, of the
      int4 Llama-2-7B, and of the served Mistral-7B in both KV modes and in
-     the chunked drain, and splade-v3's first two layers with its head and
-     pool); one splade-v3 encode batch split into layers and head + pool;
+     the chunked drain, splade-v3's first two layers with its head and
+     pool, and those of Llama-3.2-3B, the int4 Qwen2.5-7B and the paged
+     served Qwen2.5-7B); one splade-v3 encode batch split into layers and
+     head + pool;
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
      over a bf16 corpus and over int8 codes with per-bin scales; and over
@@ -147,6 +163,10 @@ PATH_KERNELS = {
                         "decode_attention"),
     "ut1_serve_mistral": ("encoder_layer", "decode_attention"),
     "ut1_serve_paged_mistral": ("encoder_layer", "paged_attention"),
+    "ut1_llama32": ("encoder_layer", "flash_attention", "decode_attention"),
+    "ut1_int4_qwen25": ("encoder_layer", "int4_matmul", "flash_attention",
+                        "decode_attention"),
+    "ut1_serve_paged_qwen25": ("encoder_layer", "paged_attention"),
     "ut1_eval_nomic": ("encoder_attention", "decode_attention"),
     "ut1_eval_jina": ("encoder_attention", "decode_attention"),
     "retrieval_at_scale_int8": ("bin_topk_int8",),
@@ -1281,16 +1301,24 @@ DECODE_SHAPES = ((8, 64, 4, 320, "random"), (8, 64, 4, 2112, "random"),
                  (8, 64, 32, 320, "random"), (8, 128, 32, 2176, "random"),
                  (8, 128, 32, 384, "random"), (8, 128, 4, 2176, "random"),
                  (33, 128, 8, 512, "random"), (8, 64, 4, 2112, "empty_splits"))
+# (B, Dh, KH, L, mask, H): the Llama-3.x / Qwen2.x paths' groups at head
+# width 128, at their ut1 decode steps (the generator's batch of 8, a cache
+# of the 512 bucket + 128 new tokens): Llama-3.2-3B's 24 heads on 8 (group
+# 3) and Qwen2.5-7B's 28 on 4 (group 7); then Qwen2.5-32B's group 5 (40 on
+# 8)
+DECODE_GQA_SHAPES = ((8, 128, 8, 640, "random", 24),
+                     (8, 128, 4, 640, "random", 28),
+                     (8, 128, 8, 640, "random", 40))
 
 
 def check_decode_attention(results: dict, dev) -> None:
     import torch
     from bergen_tpu_torch.ops import decode_attention as da
 
-    H = 32
     gen = torch.Generator(device=dev).manual_seed(3)
     per_shape = []
-    for B, Dh, KH, L, mask in DECODE_SHAPES:
+    for B, Dh, KH, L, mask, *heads in DECODE_SHAPES + DECODE_GQA_SHAPES:
+        H = heads[0] if heads else 32
         q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
         kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
         vc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
@@ -1352,6 +1380,7 @@ def check_decode_attention(results: dict, dev) -> None:
             da.decode_attention(q, kc, vc, valid, kv_heads=KH,
                                 sm_scale=scale)))
         row = {"B": B, "L": L, "H": H, "KH": KH, "head_dim": Dh,
+               "llama3_qwen2": bool(heads),
                "mask": mask, "splits": splits,
                "blocks": B * KH * splits, "launches_per_call": per_call,
                "max_abs_err": max_err, "mean_abs_err": mean_err,
@@ -1363,7 +1392,7 @@ def check_decode_attention(results: dict, dev) -> None:
         emit({"phase": "kernel_check", "kernel": "decode_attention", **row})
         per_shape.append(row)
         if not (max_err <= DECODE_TOL and split_err <= DECODE_TOL):
-            fail(f"decode_attention Dh{Dh} KH{KH} L{L} ({mask}, {splits} "
+            fail(f"decode_attention Dh{Dh} H{H} KH{KH} L{L} ({mask}, {splits} "
                  f"splits): max error {max_err} against the plain version, "
                  f"{split_err} against its split schedule (tol {DECODE_TOL})")
         torch.cuda.empty_cache()
@@ -1547,6 +1576,89 @@ def check_int4_matmul(results: dict, dev) -> None:
     results["int4_matmul"] = per_shape
 
 
+# Qwen2.5-7B's int4 products (generator=qwen-25-7b-instruct_int4): k/v
+# 3,584 x 512, q/o 3,584 x 3,584, gate/up 3,584 x 18,944, down 18,944 x
+# 3,584 and lm_head 3,584 x 152,064, each with an f32 bias added in the
+# epilogue (qwen2's q/k/v carry one), at the path's decode step (its batch
+# of 8: the decode kernel) and its prefill (8 x the 512 bucket: the wgmma
+# kernel; not the head's: a prefill takes the head on its last position)
+INT4_BIAS_KN = ((3584, 512), (3584, 3584), (3584, 18944), (18944, 3584),
+                (3584, 152064))
+INT4_BIAS_SHAPES = tuple((M, K, N) for K, N in INT4_BIAS_KN
+                         for M in (8, 8 * 512) if M == 8 or N != 152064)
+
+
+def check_int4_bias(results: dict, dev) -> None:
+    """The int4 kernel with a bias against its plain version at
+    ``INT4_BIAS_SHAPES``, and the bias's share: the same product without
+    it plus the bias, within one f32 rounding of each output.  Rows go
+    after check_int4_matmul's in the int4 kernel's results."""
+    import torch
+    from bergen_tpu_torch.models.convert import (dequantize_int4,
+                                                 quantize_int4_packed,
+                                                 unpack_int4)
+    from bergen_tpu_torch.ops import int4_matmul as im
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rnd = _rnd(gen, dev)
+    per_shape = []
+    for K, N in INT4_BIAS_KN:
+        wp, sc = quantize_int4_packed((rnd(K, N) * 0.02).bfloat16(),
+                                      INT4_GROUP)
+        bias = rnd(N)
+        w_bf = dequantize_int4(unpack_int4(wp), sc, torch.bfloat16)
+        for M, K_, N_ in INT4_BIAS_SHAPES:
+            if (K_, N_) != (K, N):
+                continue
+            x = rnd(M, K).bfloat16()
+            out = im.matmul_int4_packed(x, wp, sc, bias)
+            ref = im.matmul_int4_packed_plain(x, wp, sc, bias)
+            max_err, mean_err = _errors(out, ref)
+            del ref
+            plain = im.matmul_int4_packed(x, wp, sc) + bias
+            share = (out - plain).abs().max().item()
+            ulp = (torch.finfo(torch.float32).eps
+                   * plain.abs().max().item())
+            del plain
+            ms = cuda_time_ms(lambda: im.matmul_int4_packed(x, wp, sc, bias),
+                              iters=50 if M <= 32 else 10)
+            per_call = launches_per_call(
+                im.matmul_int4_packed,
+                lambda: im.matmul_int4_packed(x, wp, sc, bias))
+            plain_ms = cuda_time_ms(
+                lambda: im.matmul_int4_packed_plain(x, wp, sc, bias),
+                iters=1, warmup=1)
+            bias_bf = bias.bfloat16()
+            library_ms = cuda_time_ms(lambda: torch.addmm(bias_bf, x, w_bf),
+                                      iters=50 if M <= 32 else 10)
+            del bias_bf
+            b_ms, b_by = bound(2 * M * K * N, K * N // 2 + K // INT4_GROUP
+                               * N * 4 + N * 4 + M * K * 2 + M * N * 4)
+            row = {"M": M, "K": K, "N": N, "group": INT4_GROUP, "bias": True,
+                   "llama3_qwen2": True,
+                   "variant": "decode" if M <= im.DECODE_ROWS
+                   else "prefill (wgmma)", "launches_per_call": per_call,
+                   "max_abs_err": max_err, "mean_abs_err": mean_err,
+                   "tol": INT4_TOL, "bias_share_max_abs_err": share,
+                   "bias_share_tol": 2 * ulp, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms,
+                   "library": "bf16 torch.addmm (bf16 bias) on the "
+                              "dequantized weight"}
+            emit({"phase": "kernel_check", "kernel": "int4_matmul", **row})
+            per_shape.append(row)
+            if not (max_err <= INT4_TOL and share <= 2 * ulp
+                    and per_call == 1):
+                fail(f"int4_matmul with a bias M{M} K{K} N{N}: max error "
+                     f"{max_err} (tol {INT4_TOL}); the bias's share is off "
+                     f"the product without it plus the bias by {share} "
+                     f"(tol {2 * ulp}); {per_call} launches a call")
+            del x, out
+        del wp, sc, w_bf, bias
+        torch.cuda.empty_cache()
+    results.setdefault("int4_matmul", []).extend(per_shape)
+
+
 def check_int4_quantizer(results: dict, dev) -> None:
     """One Llama-2-7B gate kernel (4,096 x 11,008, bf16) quantized on the
     card and on the CPU: codes and scales must be equal bit for bit."""
@@ -1584,6 +1696,9 @@ FLASH_TOL, FLASH_MEAN_TOL = 0.0625, 2e-3
 FLASH_SHAPES = ((8, 256, 32, 32, 128, True), (8, 2048, 32, 32, 128, True),
                 (8, 256, 32, 4, 64, True), (8, 2048, 32, 8, 128, True),
                 (8, 2048, 32, 32, 128, False))
+# the Llama-3.x / Qwen2.x prefills: batch 8 at ut1's 512 bucket, Qwen2.5-7B's
+# group 7 and Llama-3.2-3B's group 3
+FLASH_GQA_SHAPES = ((8, 512, 28, 4, 128, True), (8, 512, 24, 8, 128, True))
 LLAMA2_NEW_TOKENS = 128  # generator=llama-2-7b-chat-uni's max_new_tokens
 
 
@@ -1597,7 +1712,8 @@ def check_flash_attention(results: dict, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(9)
     per_shape = []
-    for B, S, H, KH, Dh, padded in FLASH_SHAPES:
+    for shape in FLASH_SHAPES + FLASH_GQA_SHAPES:
+        B, S, H, KH, Dh, padded = shape
         L = S + LLAMA2_NEW_TOKENS
         q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
         kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
@@ -1640,7 +1756,7 @@ def check_flash_attention(results: dict, dev) -> None:
         device_ms = device_time_ms(
             [lambda: fa.flash_attention(q, k4, v4, valid)], iters=20)
         row = {"B": B, "S": S, "H": H, "KH": KH, "head_dim": Dh,
-               "padded": padded, "max_abs_err": max_err,
+               "llama3_qwen2": shape in FLASH_GQA_SHAPES, "padded": padded, "max_abs_err": max_err,
                "mean_abs_err": mean_err, "tol": FLASH_TOL,
                "mean_tol": FLASH_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by,
@@ -1677,10 +1793,15 @@ PAGED_VS_DECODE_TOL = 2 ** -6
 # 32 slots, max_pages ceil((4,096 + 128 + 1) / 128) + 1 = 35, a pool of
 # 32 * 35 // 2 = 560 pages
 PAGED_GEOMETRY = dict(S=32, H=32, KH=8, Dh=128, maxP=35, NP=560)
+# the same serving shapes (vllm_qwen-25-7b-instruct: 32 slots, max_length
+# 4,096, 128 new tokens) at Qwen2.5-7B's group 7 (28 heads on 4), and at
+# Llama-3.2-3B's group 3 (24 on 8) and Qwen2.5-32B's group 5 (40 on 8)
+PAGED_GQA = (dict(PAGED_GEOMETRY, H=28, KH=4), dict(PAGED_GEOMETRY, H=24),
+             dict(PAGED_GEOMETRY, H=40))
 
 
-def _paged_case(gen, dev, ragged: bool) -> dict:
-    """Pools, block tables and per-slot page counts at PAGED_GEOMETRY.
+def _paged_case(gen, dev, ragged: bool, g: dict) -> dict:
+    """Pools, block tables and per-slot page counts at geometry ``g``.
     ut1-like: prompts of 129 to 256 tokens left-padded to the 256 bucket
     (starts 0 to 127) and 2 or 3 full pages a slot.  Ragged: 0 to 32 full
     pages (slot 0 has 32, slot 1 none, slot 2 only leading pad), starts
@@ -1688,7 +1809,6 @@ def _paged_case(gen, dev, ragged: bool) -> dict:
     table entries point at page 0."""
     import torch
 
-    g = PAGED_GEOMETRY
     S, H, KH, Dh, maxP, NP = (g[k] for k in ("S", "H", "KH", "Dh", "maxP",
                                              "NP"))
     cpu = torch.Generator().manual_seed(12 + ragged)
@@ -1731,7 +1851,8 @@ def _paged_errors(got, ref, lv) -> tuple[float, float, float]:
 
 def check_paged_attention(results: dict, dev) -> None:
     """The paged partial kernel against its plain version at Mistral-7B's
-    geometry in the ut1-like and the ragged case (m, l and the merged
+    geometry in the ut1-like and the ragged case, and ut1-like at groups 7,
+    3 and 5 (``PAGED_GQA``) (m, l and the merged
     context acc / l; absent slots exactly acc 0, m -1e30, l 0) and against
     its split schedule in plain PyTorch at the splits it chose, the kernels
     a call (by counter and profiler), and the full paged decode step
@@ -1743,16 +1864,17 @@ def check_paged_attention(results: dict, dev) -> None:
     from bergen_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    S, H, KH, Dh, maxP = (PAGED_GEOMETRY[k] for k in ("S", "H", "KH", "Dh",
-                                                      "maxP"))
     PAGE = pa.PAGE
-    n_split = blocks_per_sm = None
-    if COUNT_KERNELS:
-        n_split = pa.splits_for(S, KH, maxP, dev)
-        blocks_per_sm = _build.function("paged_partial_blocks_per_sm")()
     per_case = []
-    for ragged in (False, True):
-        c = _paged_case(gen, dev, ragged)
+    for geom, ragged in ((PAGED_GEOMETRY, False), (PAGED_GEOMETRY, True),
+                         *((g, False) for g in PAGED_GQA)):
+        S, H, KH, Dh, maxP = (geom[k] for k in ("S", "H", "KH", "Dh",
+                                                "maxP"))
+        n_split = blocks_per_sm = None
+        if COUNT_KERNELS:
+            n_split = pa.splits_for(S, KH, maxP, dev)
+            blocks_per_sm = _build.function("paged_partial_blocks_per_sm")()
+        c = _paged_case(gen, dev, ragged, geom)
         args = (c["q"], c["kp"], c["vp"], c["tables"], c["n"], c["scale"],
                 c["starts"])
         got = pa.paged_partial(*args)
@@ -1800,8 +1922,9 @@ def check_paged_attention(results: dict, dev) -> None:
         # both products run on the tensor cores in bf16
         b_ms, b_by = bound(4 * keys * H * Dh, nbytes)
         row = {"case": "ragged" if ragged else "ut1", "S": S, "H": H,
+               "llama3_qwen2": geom in PAGED_GQA,
                "KH": KH, "head_dim": Dh, "max_pages": maxP,
-               "pool_pages": PAGED_GEOMETRY["NP"],
+               "pool_pages": geom["NP"], "group": H // KH,
                "full_pages": int(c["n"].sum().item()), "keys": keys,
                "absent_slots": int((~live).sum().item()),
                "max_abs_err": ctx_err, "m_max_abs_err": m_err,
@@ -1866,7 +1989,7 @@ def check_paged_attention(results: dict, dev) -> None:
             del kf, vf
         emit({"phase": "kernel_check", "kernel": "paged_attention", **row})
         per_case.append(row)
-        where = f"paged_attention ({row['case']})"
+        where = f"paged_attention ({row['case']}, group {H // KH})"
         if not finite or not absent_exact:
             fail(f"{where}: non-finite output or an absent slot not exactly "
                  f"(0, -1e30, 0)")
@@ -1894,12 +2017,14 @@ def check_paged_attention(results: dict, dev) -> None:
 # base, chunk offset, valid chunk rows).  Mistral-7B at a ring of 896 keys,
 # the second chunk of a 218-token prompt (rows past 90 are the drain's
 # clamped garbage rows); TinyLlama's GQA at 640 keys, a first chunk;
-# Mistral's width again with bands from key 0 that run past the 512 keys.
+# Mistral's width again with bands from key 0 that run past the 512 keys;
+# Qwen2.5-7B's group 7 as the first.
 # The last row of each has an empty band and must come out exactly zero
 BAND_CHUNK = 128
 BAND_SHAPES = ((32, 8, 128, 896, 400, 128, 90),
                (32, 4, 64, 640, 200, 0, 128),
                (32, 8, 128, 512, 0, 448, 128))
+BAND_GQA_SHAPES = ((28, 4, 128, 896, 400, 128, 90),)  # Qwen2.5-7B's group 7
 # and ragged: 300 rows (a part query tile), random bands over 640 keys
 # (some past Sk, some inside a key tile), the third tile all empty
 BAND_RAGGED = (300, 32, 4, 64, 640)
@@ -1919,7 +2044,8 @@ def check_flash_attention_band(results: dict, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(13)
     rnd = _rnd(gen, dev)
     per_shape = []
-    for H, KH, Dh, L, base, off, nv in BAND_SHAPES:
+    for shape in BAND_SHAPES + BAND_GQA_SHAPES:
+        H, KH, Dh, L, base, off, nv = shape
         C = BAND_CHUNK
         q = rnd(C, H, Dh).bfloat16()
         kc = rnd(33, L, KH * Dh).bfloat16()
@@ -1967,6 +2093,7 @@ def check_flash_attention_band(results: dict, dev) -> None:
         nbytes = 2 * C * H * Dh * 2 + 2 * n_keys * KH * Dh * 2 + C * 2 * 4
         b_ms, b_by = bound(4 * H * Dh * pairs, nbytes)
         row = {"Sq": C, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
+               "llama3_qwen2": shape in BAND_GQA_SHAPES,
                "band_keys": n_keys, "in_band_pairs": pairs,
                "band_start": base, "band_end_max": int(band[:, 1].max()),
                "max_abs_err": max_err, "mean_abs_err": mean_err,
@@ -2538,12 +2665,14 @@ def _llama_layer_shapes(c: dict) -> dict:
 
 
 def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
-                         seed: int) -> str:
+                         seed: int, tokenizer=None) -> str:
     """A llama-family checkpoint at config ``c`` as seeded random bf16
     weights made on the card, written as sharded safetensors
     (LLAMA2_LAYERS_PER_SHARD layers a shard) plus the index file, one shard
-    at a time so that host memory holds one shard; a word-level tokenizer
-    over the fixture words with ``chat_template``."""
+    at a time so that host memory holds one shard; qwen2's q/k/v biases
+    (seeded, N(0, 0.5)); no lm_head where the embeddings are tied; a
+    word-level tokenizer over the fixture words with ``chat_template``, or
+    ``tokenizer(path)``'s."""
     import torch
     from bergen_tpu_torch.models.convert import save_safetensors
     from bergen_tpu_torch.models.tokenizer import write_tokenizer
@@ -2568,12 +2697,17 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
             pre = f"model.layers.{i}"
             for lin, (o, k) in _llama_layer_shapes(c).items():
                 sd[f"{pre}.{lin}.weight"] = w(o, k)
+                if c["model_type"] == "qwen2" and lin in (
+                        "self_attn.q_proj", "self_attn.k_proj",
+                        "self_attn.v_proj"):
+                    sd[f"{pre}.{lin}.bias"] = w(o) * 25
             for norm in ("input_layernorm", "post_attention_layernorm"):
                 sd[f"{pre}.{norm}.weight"] = torch.ones(D,
                                                         dtype=torch.bfloat16)
         if s == n_shards - 1:
             sd["model.norm.weight"] = torch.ones(D, dtype=torch.bfloat16)
-            sd["lm_head.weight"] = w(V, D)
+            if not c.get("tie_word_embeddings"):
+                sd["lm_head.weight"] = w(V, D)
         save_safetensors(sd, os.path.join(path, name))
         for key, t in sd.items():
             weight_map[key] = name
@@ -2584,6 +2718,9 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
                    "weight_map": weight_map}, f, indent=2)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(c, f, indent=2)
+    if tokenizer is not None:
+        tokenizer(path)
+        return path
     write_tokenizer(path, "WordLevel",
                     _vocab({"<unk>": 0, "<s>": 1, "</s>": 2}, V,
                            "<extra_{}>"),
@@ -2593,11 +2730,20 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
     return path
 
 
-def write_llama2_7b(root: str, dev) -> str:
-    """Llama-2-7b-chat-hf at its published widths (13.5 GB) with Llama-2's
-    chat template."""
+# the main path's depth for the earlier 7B checkpoints (Llama-2-7B and
+# Mistral-7B: 32 published layers each), cut so that the whole run stays
+# near ten minutes with the Llama-3.2-3B and Qwen2.5-7B paths at their full
+# depth; their widths, and so every kernel's shapes, are the published ones
+SMOKE_7B_LAYERS = 4
+
+
+def write_llama2_7b(root: str, dev, layers: int | None = None) -> str:
+    """Llama-2-7b-chat-hf at its published widths (13.5 GB at its 32
+    layers; ``layers`` cuts the depth) with Llama-2's chat template."""
+    c = LLAMA2_7B if layers is None else dict(LLAMA2_7B,
+                                               num_hidden_layers=layers)
     return _write_sharded_llama(os.path.join(root, "llama-2-7b-chat-random"),
-                                dev, LLAMA2_7B, LLAMA2_CHAT_TEMPLATE, 10)
+                                dev, c, LLAMA2_CHAT_TEMPLATE, 10)
 
 
 # mistralai/Mistral-7B-Instruct-v0.2's published config.json (the checkpoint
@@ -2633,11 +2779,166 @@ MISTRAL_NEW_TOKENS = 128  # generator=vllm_mistral-7b-chat's max_new_tokens
 MISTRAL_SLOTS = 32        # LLM's max_slots default (jax_llm.py:43)
 
 
-def write_mistral_7b(root: str, dev) -> str:
-    """Mistral-7B-Instruct-v0.2 at its published widths (14.5 GB)."""
+def write_mistral_7b(root: str, dev, layers: int | None = None) -> str:
+    """Mistral-7B-Instruct-v0.2 at its published widths (14.5 GB at its 32
+    layers; ``layers`` cuts the depth)."""
+    c = MISTRAL_7B if layers is None else dict(MISTRAL_7B,
+                                                num_hidden_layers=layers)
     return _write_sharded_llama(
-        os.path.join(root, "mistral-7b-instruct-random"), dev, MISTRAL_7B,
+        os.path.join(root, "mistral-7b-instruct-random"), dev, c,
         MISTRAL_CHAT_TEMPLATE, 13)
+
+
+# meta-llama/Llama-3.2-3B-Instruct's published config.json (the checkpoint
+# that config/generator/llama-3.2-3b-instruct.yaml names)
+LLAMA32_3B = dict(model_type="llama", vocab_size=128256, hidden_size=3072,
+                  num_hidden_layers=28, num_attention_heads=24,
+                  num_key_value_heads=8, head_dim=128,
+                  intermediate_size=8192, max_position_embeddings=131072,
+                  rope_theta=500000.0, rms_norm_eps=1e-5,
+                  rope_scaling={"factor": 32.0, "high_freq_factor": 4.0,
+                                "low_freq_factor": 1.0,
+                                "original_max_position_embeddings": 8192,
+                                "rope_type": "llama3"},
+                  tie_word_embeddings=True, hidden_act="silu",
+                  bos_token_id=128000, eos_token_id=[128001, 128008, 128009],
+                  torch_dtype="bfloat16")
+# Qwen/Qwen2.5-7B-Instruct's published config.json (the checkpoint that
+# qwen-25-7b-instruct_int4.yaml and vllm_qwen-25-7b-instruct.yaml name)
+QWEN25_7B = dict(model_type="qwen2", vocab_size=152064, hidden_size=3584,
+                 num_hidden_layers=28, num_attention_heads=28,
+                 num_key_value_heads=4, intermediate_size=18944,
+                 max_position_embeddings=32768, rope_theta=1000000.0,
+                 rms_norm_eps=1e-6, sliding_window=131072,
+                 use_sliding_window=False, max_window_layers=28,
+                 tie_word_embeddings=False, hidden_act="silu",
+                 bos_token_id=151643, eos_token_id=151645,
+                 torch_dtype="bfloat16")
+# their special tokens, at their published ids after the BPE vocabulary
+LLAMA3_SPECIALS = (["<|begin_of_text|>", "<|end_of_text|>",
+                    "<|reserved_special_token_0|>",
+                    "<|reserved_special_token_1|>",
+                    "<|finetune_right_pad_id|>",
+                    "<|reserved_special_token_2|>", "<|start_header_id|>",
+                    "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>",
+                    "<|python_tag|>"]
+                   + [f"<|reserved_special_token_{i}|>"
+                      for i in range(3, 248)])
+QWEN2_SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                  "<|object_ref_start|>", "<|object_ref_end|>",
+                  "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                  "<|quad_end|>", "<|vision_start|>", "<|vision_end|>",
+                  "<|vision_pad|>", "<|image_pad|>", "<|video_pad|>",
+                  "<tool_call>", "</tool_call>", "<|fim_prefix|>",
+                  "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+                  "<|repo_name|>", "<|file_sep|>"]
+# Llama-3.2-Instruct's chat template without its tool-calling branches:
+# the date line from strftime_now, the system message, the turns
+LLAMA32_CHAT_TEMPLATE = (
+    "{{- bos_token }}"
+    "{%- if not date_string is defined %}"
+    "{%- if strftime_now is defined %}"
+    "{%- set date_string = strftime_now(\"%d %b %Y\") %}"
+    "{%- else %}{%- set date_string = \"26 Jul 2024\" %}{%- endif %}"
+    "{%- endif %}"
+    "{%- if messages[0]['role'] == 'system' %}"
+    "{%- set system_message = messages[0]['content']|trim %}"
+    "{%- set messages = messages[1:] %}"
+    "{%- else %}{%- set system_message = \"\" %}{%- endif %}"
+    "{{- \"<|start_header_id|>system<|end_header_id|>\\n\\n\" }}"
+    "{{- \"Cutting Knowledge Date: December 2023\\n\" }}"
+    "{{- \"Today Date: \" + date_string + \"\\n\\n\" }}"
+    "{{- system_message }}{{- \"<|eot_id|>\" }}"
+    "{%- for message in messages %}"
+    "{{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\\n\\n'"
+    " + message['content'] | trim + '<|eot_id|>' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}"
+    "{{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}"
+    "{%- endif %}")
+# Qwen2.5-Instruct's chat template without its tool-calling branches
+QWEN25_CHAT_TEMPLATE = (
+    "{%- if messages[0]['role'] == 'system' %}"
+    "{{- '<|im_start|>system\\n' + messages[0]['content'] + '<|im_end|>\\n' }}"
+    "{%- else %}{{- '<|im_start|>system\\nYou are Qwen, created by Alibaba "
+    "Cloud. You are a helpful assistant.<|im_end|>\\n' }}{%- endif %}"
+    "{%- for message in messages %}"
+    "{%- if not (message.role == 'system' and loop.first) %}"
+    "{{- '<|im_start|>' + message.role + '\\n' + message.content"
+    " + '<|im_end|>' + '\\n' }}{%- endif %}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{- '<|im_start|>assistant\\n' }}"
+    "{%- endif %}")
+
+
+def _ut1_texts() -> list[str]:
+    out = []
+    for name in ("ut1_docs.tsv", "ut1_queries.tsv"):
+        with open(os.path.join(REPO, "tests", "utdata", name)) as f:
+            out += [ln.rstrip("\n").split("\t", 1)[1] for ln in f]
+    return out
+
+
+def write_byte_level_tokenizer(path: str, family: str, seed: int) -> dict:
+    """A byte-level BPE tokenizer in the layout of the family's published
+    ``tokenizer.json`` (llama3: Llama-3.1/3.2's Split pattern,
+    ``ignore_merges``, the ByteLevel + TemplateProcessing post-processors,
+    bos ``<|begin_of_text|>``, eos ``<|eot_id|>``, clean-up on; qwen2: NFC,
+    Qwen2's pattern, the ByteLevel post-processor, eos ``<|im_end|>``, pad
+    ``<|endoftext|>``, no bos), written by the port's writer: every merge
+    the ut1 text offers (the port's trainer), then seeded random 2- to
+    4-byte tokens up to the published BPE vocabulary's size (random weights
+    emit them, and their bytes need not be UTF-8), then the specials at
+    their published ids.  Returns its sizes."""
+    import random
+
+    from bergen_tpu_torch.models import tokenizer as T
+
+    llama = family == "llama3"
+    pattern = T.LLAMA3_SPLIT if llama else T.QWEN2_SPLIT
+    vocab, merges = T.train_byte_level_bpe(_ut1_texts(), 1 << 20, pattern)
+    n_merges = len(merges)
+    n_bpe = 128000 if llama else 151643
+    table = T.bytes_to_unicode()
+    rng = random.Random(seed)
+    while len(vocab) < n_bpe:
+        tok = "".join(table[rng.randrange(256)]
+                      for _ in range(rng.randint(2, 4)))
+        vocab.setdefault(tok, len(vocab))
+    specials = LLAMA3_SPECIALS if llama else QWEN2_SPECIALS
+    added = {t: n_bpe + i for i, t in enumerate(specials)}
+    if llama:
+        T.write_tokenizer(
+            path, "ByteLevelBPE", vocab,
+            {"bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>"},
+            merges=merges, added=added, template=("<|begin_of_text|>", None),
+            split_pattern=pattern, ignore_merges=True, clean_up_spaces=True,
+            chat_template=LLAMA32_CHAT_TEMPLATE)
+    else:
+        T.write_tokenizer(
+            path, "ByteLevelBPE", vocab,
+            {"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>"},
+            merges=merges, added=added, split_pattern=pattern, nfc=True,
+            chat_template=QWEN25_CHAT_TEMPLATE)
+    return {"merges": n_merges, "bpe_vocab": n_bpe, "specials": len(added)}
+
+
+def write_llama32_3b(root: str, dev) -> str:
+    """Llama-3.2-3B-Instruct at its published widths (6.4 GB, tied
+    embeddings) with a Llama-3 byte-level tokenizer."""
+    return _write_sharded_llama(
+        os.path.join(root, "llama-3.2-3b-instruct-random"), dev, LLAMA32_3B,
+        "", 14, tokenizer=lambda p: write_byte_level_tokenizer(p, "llama3",
+                                                               14))
+
+
+def write_qwen25_7b(root: str, dev) -> str:
+    """Qwen2.5-7B-Instruct at its published widths (15.2 GB, q/k/v biases)
+    with a Qwen2 byte-level tokenizer."""
+    return _write_sharded_llama(
+        os.path.join(root, "qwen2.5-7b-instruct-random"), dev, QWEN25_7B,
+        "", 15, tokenizer=lambda p: write_byte_level_tokenizer(p, "qwen2",
+                                                               15))
 
 
 def first_layers(path: str, n_layers: int = 2) -> str:
@@ -2908,13 +3209,43 @@ def run_ut1_int4_llama2(ckpt: dict, workdir: str,
             "trec_lines": 500, **_check_outputs(exp)}
 
 
+def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
+                            key: str) -> dict:
+    """The dense eval with ``generator`` on checkpoint ``key`` and flash
+    prefill on (``USE_FLASH_PREFILL``, as on ut1_int4_llama2): the
+    Llama-3.2-3B (bf16, group 3) and int4 Qwen2.5-7B (group 7, q/k/v biases
+    in the int4 epilogue) paths.  Every int4 projection must take the
+    kernel: the shape-routed dequantized product must not run."""
+    from bergen_tpu_torch.models import llama
+
+    llama._int4_dequant_proj.calls = 0
+    llama.USE_FLASH_PREFILL = True
+    try:
+        exp, wall = _run_cli([
+            "retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            f"generator={generator}",
+            f"generator.init_args.model_name={_local(ckpt, key)}"], workdir,
+            ckpt)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    if llama._int4_dequant_proj.calls:
+        fail(f"{generator}: {llama._int4_dequant_proj.calls} projections "
+             "took the dequantized product instead of the int4 kernel")
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "generator": generator, "trec_lines": 500, **_check_outputs(exp)}
+
+
 def run_ut1_serve_mistral(ckpt: dict, workdir: str,
-                          kv_cache: str = "uniform") -> dict:
+                          kv_cache: str = "uniform",
+                          generator: str = "vllm_mistral-7b-chat",
+                          key: str = "mistral_7b") -> dict:
     """The dense eval with ``generator=vllm_mistral-7b-chat`` (``serve:
     true``: 50 requests into 32 slots through the epoch drain, or with
-    ``kv_cache=paged`` the paged server).  On the paged path every decode
-    layer must take the paged kernel: the gather composition must not run
-    on the card."""
+    ``kv_cache=paged`` the paged server), or another served ``generator``
+    on checkpoint ``key``.  On the paged path every decode layer must take
+    the paged kernel: the gather composition must not run on the card."""
     from bergen_tpu_torch.ops import paged_attention as pa
     from bergen_tpu_torch.serve import GenerationServer
 
@@ -2925,8 +3256,8 @@ def run_ut1_serve_mistral(ckpt: dict, workdir: str,
     exp, wall = _run_cli([
         "retriever=bge-base-en-v1.5",
         f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
-        "generator=vllm_mistral-7b-chat",
-        f"generator.init_args.model_name={_local(ckpt, 'mistral_7b')}",
+        f"generator={generator}",
+        f"generator.init_args.model_name={_local(ckpt, key)}",
         *extra], workdir, ckpt)
     if pa.paged_partial_gather.calls:
         fail(f"ut1_serve ({kv_cache}): the paged gather composition ran "
@@ -2935,7 +3266,7 @@ def run_ut1_serve_mistral(ckpt: dict, workdir: str,
     stages = _json(exp, "eval_dev_stage_times.json")
     steps = GenerationServer.decode_steps
     return {"wall_s": wall, "stage_s": stages, "kv_cache": kv_cache,
-            "exp": exp,
+            "generator": generator, "exp": exp,
             "slots": MISTRAL_SLOTS, "max_new_tokens": MISTRAL_NEW_TOKENS,
             "decode_steps": steps,
             "decode_steps_per_generate_s": steps / stages["generate"],
@@ -3195,6 +3526,58 @@ def check_int4_against_cpu(ckpt: dict) -> dict:
     if not (out["prefill_logits_min_cos"] >= tol
             and out["decode_logits_min_cos"] >= tol):
         fail(f"int4 card vs CPU reference below {tol}: {out}")
+    return out
+
+
+def check_new_generators_against_cpu(ckpt: dict) -> dict:
+    """The card's Llama-3.2-3B (bf16, flash prefill, groups of 3) and int4
+    Qwen2.5-7B (flash prefill, groups of 7, the int4 kernel's biased
+    epilogue) static paths, and the served Qwen2.5-7B in the paged mode,
+    against the port's f32 CPU path (the kernels' plain versions) on the
+    first two layers of each checkpoint: two ut1 questions, the prefill
+    and one decode step, the CPU decoding the card's tokens."""
+    import torch
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    tol = 0.99  # min row cosine of the logits, bf16 against f32
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1] for ln in f][:2]
+    out = {"layers": 2, "tol": tol}
+    llama.USE_FLASH_PREFILL = True
+    try:
+        for name, key, quant in (("llama32", "llama32_3b", None),
+                                 ("qwen25_int4", "qwen25_7b", "int4")):
+            path = first_layers(ckpt[key], 2)
+            logits = _generator_logits(
+                lambda dev, dtype: LLM(path, device=dev, dtype=dtype,
+                                       quantization=quant), questions)
+            out[name] = {
+                "prefill_logits_min_cos": _cos_rows(logits["cuda"][0],
+                                                    logits["cpu"][0]),
+                "decode_logits_min_cos": _cos_rows(logits["cuda"][1],
+                                                   logits["cpu"][1])}
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    path = first_layers(ckpt["qwen25_7b"], 2)
+    kw = dict(max_new_tokens=2, max_length=4096, serve=True,
+              kv_cache="paged")
+    card = LLM(path, device="cuda", **kw)
+    ids = card.tokenizer(questions, truncation=True,
+                         max_length=4096)["input_ids"]
+    c_pre, c_dec, c_ids = _served_logits(card, ids)
+    del card
+    torch.cuda.empty_cache()
+    cpu = LLM(path, device="cpu", dtype="f32", **kw)
+    p_pre, p_dec, _ = _served_logits(cpu, ids, decode_ids=c_ids)
+    del cpu
+    out["qwen25_paged"] = {"prefill_logits_min_cos": _cos_rows(c_pre, p_pre),
+                           "decode_logits_min_cos": _cos_rows(c_dec, p_dec)}
+    bad = [(name, k) for name in ("llama32", "qwen25_int4", "qwen25_paged")
+           for k, v in out[name].items() if not v >= tol]
+    if bad:
+        fail(f"Llama-3.2 / Qwen2.5 card vs CPU reference: {bad} below "
+             f"{tol}: {out}")
     return out
 
 
@@ -3853,12 +4236,16 @@ def card_line() -> str:
 
 PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "encoder_layer_q", "bin_topk", "decode_attention",
-                 "int4_matmul", "int4_quantizer", "flash_attention",
+                 "int4_matmul", "int4_bias", "int4_quantizer",
+                 "flash_attention",
                  "paged_attention", "encoder_attention", "bin_topk_int8",
                  "flash_attention_band", "attention_block", "pallas_score",
                  "bin_topk_int8_splade")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
-           "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers")
+           "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers",
+           "llama-3.2-3b-instruct-random",
+           "llama-3.2-3b-instruct-random-2layers",
+           "qwen2.5-7b-instruct-random", "qwen2.5-7b-instruct-random-2layers")
 
 
 def main() -> None:
@@ -3923,6 +4310,7 @@ def main() -> None:
               "decode_attention": lambda: check_decode_attention(results,
                                                                  dev),
               "int4_matmul": lambda: check_int4_matmul(results, dev),
+              "int4_bias": lambda: check_int4_bias(results, dev),
               "int4_quantizer": lambda: check_int4_quantizer(results, dev),
               "flash_attention": lambda: check_flash_attention(results, dev),
               "paged_attention": lambda: check_paged_attention(results, dev),
@@ -3960,18 +4348,23 @@ def main() -> None:
     steps: dict = {}
 
     def drive(path: str, run) -> None:
-        # every llama.forward step of the path: (S, int4 and decode
-        # attention launches in it); S 1 is a decode step
+        # every llama.forward step of the path: (S, int4, decode attention
+        # and flash launches in it, B, the flat cache's length or 0); S 1
+        # is a decode step
         steps[path] = []
         forward = llama.forward
 
-        def counted(params, cfg, input_ids, *a, **k):
+        def counted(params, cfg, input_ids, positions, cache, *a, **k):
             n4 = im.matmul_int4_packed.launches
             nd = da.decode_attention.launches
-            out = forward(params, cfg, input_ids, *a, **k)
+            nf = fa.flash_attention.launches
+            out = forward(params, cfg, input_ids, positions, cache, *a, **k)
             steps[path].append((input_ids.shape[1],
                                 im.matmul_int4_packed.launches - n4,
-                                da.decode_attention.launches - nd))
+                                da.decode_attention.launches - nd,
+                                fa.flash_attention.launches - nf,
+                                input_ids.shape[0],
+                                cache["k"].shape[2] if "k" in cache else 0))
             return out
 
         for fn in counters.values():
@@ -3992,7 +4385,7 @@ def main() -> None:
     try:
         free_gb = shutil.disk_usage(root).free / 1e9
         t0 = time.perf_counter()
-        ckpt["llama2_7b"] = write_llama2_7b(root, dev)
+        ckpt["llama2_7b"] = write_llama2_7b(root, dev, SMOKE_7B_LAYERS)
         emit({"phase": "checkpoint_llama2_7b",
               "write_s": time.perf_counter() - t0, "disk_free_gb": free_gb,
               "path": ckpt["llama2_7b"]})
@@ -4026,13 +4419,39 @@ def main() -> None:
         for name in SEVEN_B[:2]:  # room on the disk for the next 7B
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         t0 = time.perf_counter()
-        ckpt["mistral_7b"] = write_mistral_7b(root, dev)
+        ckpt["mistral_7b"] = write_mistral_7b(root, dev, SMOKE_7B_LAYERS)
         emit({"phase": "checkpoint_mistral_7b",
               "write_s": time.perf_counter() - t0, "path": ckpt["mistral_7b"]})
         for path, kv in (("ut1_serve_mistral", "uniform"),
                          ("ut1_serve_paged_mistral", "paged")):
             drive(path, lambda c, w, kv=kv: run_ut1_serve_mistral(c, w, kv))
         drive("ut1_serve_chunked_mistral", run_ut1_serve_chunked_mistral)
+        emit({"phase": "reference_check_serve",
+              **check_serve_against_cpu(ckpt)})
+        for name in SEVEN_B[:4]:  # room on the disk for the next models
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        # the Llama-3.x / Qwen2.x paths: Llama-3.2-3B static (groups of 3),
+        # then one Qwen2.5-7B checkpoint, int4 static and served paged
+        # (groups of 7, q/k/v biases)
+        for key, write, paths in (
+                ("llama32_3b", write_llama32_3b, (
+                    ("ut1_llama32", lambda c, w: run_ut1_flash_generator(
+                        c, w, "llama-3.2-3b-instruct", "llama32_3b")),)),
+                ("qwen25_7b", write_qwen25_7b, (
+                    ("ut1_int4_qwen25", lambda c, w: run_ut1_flash_generator(
+                        c, w, "qwen-25-7b-instruct_int4", "qwen25_7b")),
+                    ("ut1_serve_paged_qwen25", lambda c, w:
+                     run_ut1_serve_mistral(c, w, "paged",
+                                           "vllm_qwen-25-7b-instruct",
+                                           "qwen25_7b"))))):
+            t0 = time.perf_counter()
+            ckpt[key] = write(root, dev)
+            emit({"phase": f"checkpoint_{key}",
+                  "write_s": time.perf_counter() - t0, "path": ckpt[key]})
+            for path, run in paths:
+                drive(path, run)
+        emit({"phase": "reference_check_llama32_qwen25",
+              **check_new_generators_against_cpu(ckpt)})
         emit({"phase": "launches", **by_path,
               "encoder_attention_with_bias": bias_launches,
               "bin_topk_int8_by_mode": int8_by_mode})
@@ -4068,14 +4487,18 @@ def main() -> None:
                  "guard batch")
         # every decode step of a served path runs one attention per layer
         # through its kernel; the paged path never the flat decode kernel
-        n_layers = MISTRAL_7B["num_hidden_layers"]
-        for path, kernel in (("ut1_serve_mistral", "decode_attention"),
-                             ("ut1_serve_paged_mistral", "paged_attention")):
+        n_layers = SMOKE_7B_LAYERS
+        for path, kernel, n_layers in (
+                ("ut1_serve_mistral", "decode_attention", n_layers),
+                ("ut1_serve_paged_mistral", "paged_attention", n_layers),
+                ("ut1_serve_paged_qwen25", "paged_attention",
+                 QWEN25_7B["num_hidden_layers"])):
             want = n_layers * runs[path]["decode_steps"]
             if by_path[path][kernel] != want:
                 fail(f"{path}: {by_path[path][kernel]} {kernel} launches, "
                      f"not {n_layers} x {runs[path]['decode_steps']} decode "
                      "steps")
+        n_layers = SMOKE_7B_LAYERS
         # the chunked drain's rule: every fused step of either mode runs one
         # decode attention per layer for the pool's rows, and each (step,
         # active staging pipe) pair one band attention per layer; an idle
@@ -4090,25 +4513,36 @@ def main() -> None:
                  f"{got}, not {n_layers} x ({runs[path]['decode_steps']} "
                  f"steps, {runs[path]['chunked']['pipe_steps']} pipe-steps)")
         # the static generator's steps, each counted: every forward step of
-        # int4 Llama-2-7B (prefill or decode) runs 7 projections per layer
-        # and the lm_head through the int4 kernel, every decode step one
-        # decode attention per layer (and a prefill none); TinyLlama's
-        # decode steps one decode attention per layer, no int4 product
-        for path, layers, int4 in (
-                ("ut1_int4_llama2", LLAMA2_7B["num_hidden_layers"], True),
-                ("ut1_eval", TINYLLAMA["num_hidden_layers"], False),
-                ("ut1_eval_nomic", TINYLLAMA["num_hidden_layers"], False),
-                ("ut1_eval_jina", TINYLLAMA["num_hidden_layers"], False),
-                ("ut1_rerank", TINYLLAMA["num_hidden_layers"], False)):
+        # int4 Llama-2-7B and Qwen2.5-7B (prefill or decode) runs 7
+        # projections per layer and the lm_head through the int4 kernel,
+        # every decode step one decode attention per layer (and a prefill
+        # none), and with flash prefill on every prefill one flash
+        # attention per layer (a decode step none); TinyLlama's and
+        # Llama-3.2-3B's decode steps one decode attention per layer, no
+        # int4 product
+        for path, layers, int4, flash in (
+                ("ut1_int4_llama2", SMOKE_7B_LAYERS, True, True),
+                ("ut1_eval", TINYLLAMA["num_hidden_layers"], False, False),
+                ("ut1_eval_nomic", TINYLLAMA["num_hidden_layers"], False,
+                 False),
+                ("ut1_eval_jina", TINYLLAMA["num_hidden_layers"], False,
+                 False),
+                ("ut1_rerank", TINYLLAMA["num_hidden_layers"], False, False),
+                ("ut1_llama32", LLAMA32_3B["num_hidden_layers"], False,
+                 True),
+                ("ut1_int4_qwen25", QWEN25_7B["num_hidden_layers"], True,
+                 True)):
             per4 = 7 * layers + 1 if int4 else 0
-            bad = [st for st in steps[path] if st[1:] != (
-                per4, layers if st[0] == 1 else 0)]
+            bad = [st for st in steps[path] if st[1:4] != (
+                per4, layers if st[0] == 1 else 0,
+                layers if flash and st[0] > 1 else 0)]
             n_dec = sum(1 for st in steps[path] if st[0] == 1)
             if bad or not n_dec:
                 fail(f"{path}: forward steps with (S, int4_matmul, "
-                     f"decode_attention) launches {bad[:3]} ({len(bad)} in "
-                     f"all), not (S, {per4}, {layers} or 0 at S > 1); "
-                     f"{n_dec} decode steps")
+                     f"decode_attention, flash_attention) launches "
+                     f"{bad[:3]} ({len(bad)} in all), not (S, {per4}, "
+                     f"{layers} or 0 at S > 1, {layers if flash else 0} "
+                     f"at S > 1 or 0); {n_dec} decode steps")
             want = (per4 * len(steps[path]), layers * n_dec)
             got = (by_path[path]["int4_matmul"],
                    by_path[path]["decode_attention"])
@@ -4117,15 +4551,17 @@ def main() -> None:
                      f", not {want} for {len(steps[path])} forward steps, "
                      f"{n_dec} of them decode steps")
         emit({"phase": "forward_steps", **{
-            path: {"forward": len(st), "decode": sum(1 for s in st
-                                                     if s[0] == 1)}
+            path: {"forward": len(st),
+                   "decode": sum(1 for s in st if s[0] == 1),
+                   # the decode steps' (rows, flat cache length) shapes
+                   "decode_shapes": sorted({s[4:] for s in st
+                                            if s[0] == 1})}
             for path, st in steps.items() if st}})
-        if by_path["ut1_serve_paged_mistral"]["decode_attention"]:
-            fail("ut1_serve_paged_mistral: decode_attention launched "
-                 f"{by_path['ut1_serve_paged_mistral']['decode_attention']} "
-                 "times in the paged server's decode")
-        emit({"phase": "reference_check_serve",
-              **check_serve_against_cpu(ckpt)})
+        for path in ("ut1_serve_paged_mistral", "ut1_serve_paged_qwen25"):
+            if by_path[path]["decode_attention"]:
+                fail(f"{path}: decode_attention launched "
+                     f"{by_path[path]['decode_attention']} times in the "
+                     "paged server's decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)
         for name in SEVEN_B:
@@ -4163,6 +4599,16 @@ def main() -> None:
                          "bound_ms", "bound_by", "library_ms",
                          "library_device_ms")}
                          for r in results["bin_topk_int8_splade"]]}
+        # the rows at the Llama-3.x / Qwen2.x shapes (groups 3, 5 and 7;
+        # the int4 product with a bias)
+        new = [{key: r.get(key) for key in (
+            "B", "S", "L", "M", "K", "N", "H", "KH", "head_dim", "case",
+            "splits", "n_split", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms") if key in r}
+            for r in results[name] if r.get("llama3_qwen2")]
+        if new:
+            extra["llama3_qwen2_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

@@ -127,8 +127,8 @@ def test_merge_order_matches_tokenizers(tmp_path):
 
 @pytest.mark.parametrize("option,value", [
     ("dropout", 0.1), ("continuing_subword_prefix", "##"),
-    ("end_of_word_suffix", "</w>"), ("pre_tokenizer", "ByteLevel"),
-    ("decoder", "ByteLevel")])
+    ("end_of_word_suffix", "</w>"), ("pre_tokenizer", "Digits"),
+    ("decoder", "CTC")])
 def test_unported_bpe_options_raise_naming_themselves(bpe, tmp_path, option,
                                                      value):
     with open(os.path.join(bpe[1], "tokenizer.json")) as f:
