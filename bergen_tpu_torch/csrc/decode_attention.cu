@@ -37,7 +37,11 @@
 // and 7 among them): a thread holds G query slices and G partial sums, the
 // softmax warps take heads warp, warp + 8, ... below G (warps G.. idle when
 // G < 8), and every per-head array is G rows long, so no row past the
-// group is read or written.
+// group is read or written.  Head widths 64, 128 and 256 (Gemma's): at 256
+// a whole warp covers one key row (DH / 8 = 32 threads), eight key rows a
+// pass, and the cross-row reduction of the context product needs no
+// shuffle; the [8 warps, G, 256] f32 partial contexts reach 64 KiB at G 8,
+// which every launch takes as dynamic shared memory (opted in per size).
 #include <math.h>
 
 #include <algorithm>
@@ -320,7 +324,9 @@ int choose_splits(int B, int KH, int L, int G, int DH) {
   while (s > 1) {
     const int chunk = (L + s - 1) / s;
     s = (L + chunk - 1) / chunk;
-    const int cap = DH == 64 ? per_sm_g<64>(G, chunk) : per_sm_g<128>(G, chunk);
+    const int cap = DH == 64    ? per_sm_g<64>(G, chunk)
+                    : DH == 128 ? per_sm_g<128>(G, chunk)
+                                : per_sm_g<256>(G, chunk);
     if ((long long)s * pairs <= (long long)cap * sm_count()) break;
     --s;
   }
@@ -390,7 +396,7 @@ extern "C" {
 
 // The split count the launch below uses for this shape.
 int decode_attention_splits(int B, int H, int KH, int L, int Dh) {
-  if (KH < 1 || H % KH || (Dh != 64 && Dh != 128)) return 0;
+  if (KH < 1 || H % KH || (Dh != 64 && Dh != 128 && Dh != 256)) return 0;
   return choose_splits(B, KH, L, H / KH, Dh);
 }
 
@@ -413,6 +419,9 @@ int decode_attention(const void* q, const void* k, const void* v,
                          L, splits, scale, st);
   if (Dh == 128)
     return launch_dh<128>(q, k, v, valid, out, stats, ctx, counters, B, H,
+                          KH, L, splits, scale, st);
+  if (Dh == 256)
+    return launch_dh<256>(q, k, v, valid, out, stats, ctx, counters, B, H,
                           KH, L, splits, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

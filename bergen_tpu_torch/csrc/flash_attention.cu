@@ -29,16 +29,23 @@
 // whose tiles then come from L2.  Key tiles wholly past a tile's visited
 // keys are not loaded; tiles on the diagonal or with a masked key are
 // masked per element, the others only scaled; keys past the visited end of
-// a warpgroup's 64-row block score -inf.  The head width DH (64 or 128) is
-// a template parameter.
+// a warpgroup's 64-row block score -inf.  The head width DH (64, 128 or
+// 256) is a template parameter.  At 256 (Gemma's) a 128 x 256 query tile
+// is 64 KiB, so a block holds one query slot, two stages of 64-key K and V
+// tiles (64-key S by m64n64 wgmma, P.V by one m64n256 wgmma per 16 keys,
+// O in 128 registers a thread) and no output staging box: each consumer
+// thread stores its rows' bf16 pairs straight to the output.
 #include "wgmma_attention.cuh"
 
 namespace {
 
 template <int DH_>
 struct FlashPolicy {
-  static constexpr int DH = DH_, BK = 128, STAGES = DH_ == 128 ? 2 : 4;
-  static constexpr int QS = 2;
+  // head width 256: one query slot and two stages of 64-key K and V
+  // (192 KiB), the output stored from registers (o_row)
+  static constexpr int DH = DH_, BK = DH_ == 256 ? 64 : 128;
+  static constexpr int STAGES = DH_ == 64 ? 4 : 2;
+  static constexpr int QS = DH_ == 256 ? 1 : 2;
   static constexpr bool SPLIT = false;
   static constexpr int XB = 0;
   __device__ static float m_init() { return -1e30f; }
@@ -46,6 +53,7 @@ struct FlashPolicy {
   struct Pre {};
   CUtensorMap tq, tk, tv, to;
   const uint8_t* valid;  // row b at valid + b * valid_stride
+  bf16* out;             // [B, Sq, H, DH]
   int B, Sq, Sk, H, group, n_qt, causal, q_offset, valid_stride;
   float scale;
 
@@ -113,6 +121,11 @@ struct FlashPolicy {
   __device__ int3 o_box(const AttTile& t, int wg) const {
     return make_int3(t.qh * DH, t.q0 + 64 * wg, t.b);
   }
+  __device__ bf16* o_row(const AttTile& t, int wg, int r) const {
+    const int row = t.q0 + 64 * wg + r;
+    return row < Sq ? out + (((size_t)t.b * Sq + row) * H + t.qh) * DH
+                    : nullptr;
+  }
 };
 
 template <int DH>
@@ -134,6 +147,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
     e = tma_map_3d(&p.to, out, qrow, Sq, B, qrow * 2, qrow * Sq * 2, 64, 64);
   if (e != 0) return e;
   p.valid = static_cast<const uint8_t*>(valid);
+  p.out = static_cast<bf16*>(out);
   p.valid_stride = valid_stride;
   p.B = B;
   p.Sq = Sq;
@@ -169,6 +183,10 @@ int flash_attention(const void* q, const void* k, const void* v,
                       st);
   if (Dh == 128)
     return launch<128>(q, k, v, valid, out, B, Sq, Sk, H, KH,
+                       kv_batch_stride, kv_row_stride, valid_stride, causal,
+                       q_offset, scale, st);
+  if (Dh == 256)
+    return launch<256>(q, k, v, valid, out, B, Sq, Sk, H, KH,
                        kv_batch_stride, kv_row_stride, valid_stride, causal,
                        q_offset, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);

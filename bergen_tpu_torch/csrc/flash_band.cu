@@ -37,6 +37,8 @@
 // * each consumer thread reads its two rows' bands a tile ahead (prefetch)
 //   and masks its scores per (row, key) against them (scores); the loop's
 //   per-key mask bits cannot express a band;
+// * head widths 64, 128 and 256; at 256 (Gemma's) the tiles are 64 keys,
+//   one query slot, and the output goes from registers (wgmma_attention.cuh);
 // * K and V are read in place through one tensor map over every row of the
 //   cache ([rows, L, KH*Dh], the row the TMA batch coordinate), so the
 //   drain's calls, one per (layer, staging pipe), hit the map cache rather
@@ -47,8 +49,11 @@ namespace {
 
 template <int DH_>
 struct BandPolicy {
-  static constexpr int DH = DH_, BK = 128, STAGES = DH_ == 128 ? 2 : 4;
-  static constexpr int QS = 2;
+  // head width 256: one query slot and two stages of 64-key K and V
+  // (192 KiB), the output stored from registers (o_row)
+  static constexpr int DH = DH_, BK = DH_ == 256 ? 64 : 128;
+  static constexpr int STAGES = DH_ == 64 ? 4 : 2;
+  static constexpr int QS = DH_ == 256 ? 1 : 2;
   static constexpr bool SPLIT = false;
   static constexpr int XB = 0;
   static constexpr bool WARP_TILE = true;
@@ -59,6 +64,7 @@ struct BandPolicy {
   };
   CUtensorMap tq, tk, tv, to;
   const int2* band;  // [Sq] (lo, hi)
+  bf16* out;         // [Sq, H, DH]
   int Sq, Sk, H, group, n_qt, kv_b;
   float scale;
 
@@ -134,6 +140,10 @@ struct BandPolicy {
   __device__ int3 o_box(const AttTile& t, int wg) const {
     return make_int3(t.qh * DH, t.q0 + 64 * wg, 0);
   }
+  __device__ bf16* o_row(const AttTile& t, int wg, int r) const {
+    const int row = t.q0 + 64 * wg + r;
+    return row < Sq ? out + ((size_t)row * H + t.qh) * DH : nullptr;
+  }
 };
 
 template <int DH>
@@ -154,6 +164,7 @@ int launch(const void* q, const void* k, const void* v, const void* band,
     e = tma_map_3d(&p.to, out, qrow, Sq, 1, qrow * 2, qrow * Sq * 2, 64, 64);
   if (e != 0) return e;
   p.band = static_cast<const int2*>(band);
+  p.out = static_cast<bf16*>(out);
   p.Sq = Sq;
   p.Sk = Sk;
   p.H = H;
@@ -186,6 +197,9 @@ int flash_attention_band(const void* q, const void* k, const void* v,
                       kv_row_stride, kv_batch_stride, scale, st);
   if (Dh == 128)
     return launch<128>(q, k, v, band, out, Sq, Sk, H, KH, kv_rows, kv_b,
+                       kv_row_stride, kv_batch_stride, scale, st);
+  if (Dh == 256)
+    return launch<256>(q, k, v, band, out, Sq, Sk, H, KH, kv_rows, kv_b,
                        kv_row_stride, kv_batch_stride, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -204,6 +204,69 @@ __device__ __forceinline__ void wgmma_m64n128_rs_mn(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A[64 x 16] . B[16 x 256]: A bf16 in registers (a[0..3]: the
+// m16n8k16 A fragment of the warp's 16 rows), B bf16 in shared memory,
+// MN-major (wg_desc_mn: four 64-wide n chunks 8192 bytes apart); f32 sums,
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256_rs_mn(float (&d)[128],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // --------------------------------------------------------- the main loop
 
 constexpr int AT_BQ = 128;  // query rows per tile: 64 per consumer warpgroup
@@ -237,8 +300,11 @@ struct AttWarpTile<P, std::void_t<decltype(P::WARP_TILE)>> {
 // of [BK / 64][DH / 64][64 keys][64] (64-wide dh chunks 8,192 bytes apart,
 // as wg_desc_mn reads them), all 64 x 64 TMA boxes in the 128-byte swizzle;
 // then each consumer warpgroup's output staging box ([DH / 64][64][64]
-// bf16, stored by TMA), the mbarriers and each K slot's key bits (bit i of
-// word w: key 32 w + i of the tile attends).  A K slot may carry XB bytes
+// bf16, stored by TMA; none at head width 256, whose rows go straight from
+// registers to the output: one 128 x 256 query slot, two stages of 64-key
+// K and V and two 64 KiB staging boxes would need 256 KiB), the mbarriers
+// and each K slot's key bits (bit i of word w: key 32 w + i of the tile
+// attends).  A K slot may carry XB bytes
 // more that the policy loads beside K and reads in its scores
 // (encoder_attention's f32 bias tile).
 template <int DH, int BK, int STAGES, int QS, int XB>
@@ -247,7 +313,8 @@ struct AttRing {
   static constexpr int K_BYTES = BK * DH * 2;
   static constexpr int KS_BYTES = K_BYTES + XB;  // a K slot and its extra
   static constexpr int V_BYTES = BK * DH * 2;
-  static constexpr int O_BYTES = 64 * DH * 2;  // a warpgroup's output
+  // a warpgroup's output staging box (none at head width 256)
+  static constexpr int O_BYTES = DH > 128 ? 0 : 64 * DH * 2;
   static constexpr int SMEM = 1024 + QS * Q_BYTES +
                               STAGES * (KS_BYTES + V_BYTES) + 2 * O_BYTES +
                               (2 * QS + 4 * STAGES) * 8 +
@@ -283,7 +350,9 @@ __device__ __forceinline__ void att_mma_pv(float (&o)[DH / 2],
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t db = wg_desc_mn(vt + (kk / 4) * (DH / 64) * 8192) +
                         (kk % 4) * (2048 >> 4);
-    if constexpr (DH == 128)
+    if constexpr (DH == 256)
+      wgmma_m64n256_rs_mn(o, pa[kk], db, 1);
+    else if constexpr (DH == 128)
       wgmma_m64n128_rs_mn(o, pa[kk], db, 1);
     else
       wgmma_m64n64_rs_mn(o, pa[kk], db, 1);
@@ -361,7 +430,8 @@ __device__ __forceinline__ bool att_next(const P& p, AttCursor& c,
 // bf16, written into the warpgroup's staging box in the 128-byte swizzle
 // (conflict-free: a warp's 32 pairs land in 32 banks) and stored by TMA
 // at the policy's o_box, which clips rows past the sequence.  The box is
-// rewritten once the previous store has read it.
+// rewritten once the previous store has read it.  At head width 256 (N
+// 128) there is no box: the rows go to the policy's o_row directly.
 template <class P, int N>
 __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
                                            float (&l)[2], const AttTile& t,
@@ -374,10 +444,25 @@ __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / (P::CLAMP_L ? fmaxf(l[r], 1e-30f) : l[r]);
   }
+  const int g = lane >> 2;
+  if constexpr (N == 128) {
+    // head width 256: no staging box; each thread stores its two rows'
+    // column pairs straight to the output (p.o_row: null past the end)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bf16* dst = p.o_row(t, wg, 16 * warp + g + 8 * r);
+      if (dst == nullptr) continue;
+#pragma unroll
+      for (int c = 0; c < N / 4; ++c)
+        *reinterpret_cast<uint32_t*>(dst + 8 * c + 2 * (lane & 3)) =
+            pack_bf16x2(o[4 * c + 2 * r] * inv[r],
+                        o[4 * c + 2 * r + 1] * inv[r]);
+    }
+    return;
+  }
   const bool leader = (threadIdx.x & 127) == 0;
   if (leader) bulk_wait<0, true>();
   wg_sync(wg);
-  const int g = lane >> 2;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
@@ -400,8 +485,9 @@ __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
 }
 
 // The policy P (flash_attention.cu's FlashPolicy, encoder_layer.cu's
-// EncPolicy and EncPairPolicy, flash_band.cu's BandPolicy) gives DH (64 or
-// 128), BK (64 or 128),
+// EncPolicy and EncPairPolicy, flash_band.cu's BandPolicy) gives DH (64,
+// 128 or 256), BK (64 or 128; 64 at DH 256, whose P . V is one n256 wgmma
+// per 16 keys and whose O takes 128 registers a thread),
 // STAGES (K and V slots), QS (query slots), SPLIT (each warpgroup attends
 // its own half of a key tile: two short sequences in one tile), m_init()
 // (the running max before the first key: -1e30 or -inf), CLAMP_L (divide
@@ -418,7 +504,9 @@ __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
 //   scores(s, bits, xs, pre, t, j, wg, warp, lane)
 //       raw q.k -> y in place (xs: the K slot's extra bytes);
 //   to, o_box(t, wg)                              the output's bf16 map and
-//       the warpgroup's box (column, first row, batch) of tile t.
+//       the warpgroup's box (column, first row, batch) of tile t;
+//   o_row(t, wg, r) (DH 256 only)                 row r of the warpgroup's
+//       64 in the output, or null past the sequence.
 // s[4c + e] and o[4c + e] hold row 16 * warp + lane / 4 + 8 (e >> 1) of the
 // warpgroup's 64, column 8c + 2 (lane % 4) + (e & 1) of its keys.
 template <class P>

@@ -297,25 +297,64 @@ def deberta_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
 
 
 def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
-    """HF LlamaForCausalLM / MistralForCausalLM / Qwen2ForCausalLM state
-    dict -> llama tree (qwen2's q/k/v biases as ``bias`` leaves, kept f32
-    by ``to_device``; JAX ``convert.py:282-289``)."""
+    """HF LlamaForCausalLM / MistralForCausalLM / Qwen2ForCausalLM /
+    GemmaForCausalLM / Gemma2ForCausalLM / Phi3ForCausalLM /
+    CohereForCausalLM state dict -> llama tree (JAX ``convert.py:
+    273-380``): qwen2's q/k/v biases as ``bias`` leaves (kept f32 by
+    ``to_device``); Phi-3's fused ``qkv_proj`` split at o_proj's in-width
+    (q) and evenly after it (k, v), and its fused ``gate_up_proj`` split in
+    half; gemma-2's sandwich norms (``post_attention_layernorm`` norms the
+    attention output, ``pre_feedforward`` and ``post_feedforward`` wrap the
+    MLP); cohere's single ``input_layernorm`` (no ``mlp_norm``).  Tied
+    embeddings have no lm_head."""
     sd = _strip_prefix(state_dict, candidates=("model.",))
     p: Dict[str, Any] = {
         "embed": sd["embed_tokens.weight"],
         "layers": [],
         "final_norm": {"scale": sd["norm.weight"]},
     }
+
+    def attn(pre: str) -> Dict[str, Any]:
+        if f"{pre}.self_attn.qkv_proj.weight" in sd:
+            qkv = sd[f"{pre}.self_attn.qkv_proj.weight"].T  # [D, q+k+v]
+            o = sd[f"{pre}.self_attn.o_proj.weight"].T      # [H*Dh, D]
+            qw = o.shape[0]
+            kw = (qkv.shape[1] - qw) // 2
+            return {"q": {"kernel": qkv[:, :qw]},
+                    "k": {"kernel": qkv[:, qw:qw + kw]},
+                    "v": {"kernel": qkv[:, qw + kw:]},
+                    "o": {"kernel": o}}
+        return {n: _lin(sd, f"{pre}.self_attn.{n}_proj")
+                for n in ("q", "k", "v", "o")}
+
+    def norm(name: str) -> Dict[str, Any]:
+        return {"scale": sd[name]}
+
     for i in range(num_layers):
         pre = f"layers.{i}"
-        p["layers"].append({
-            "attn": {n: _lin(sd, f"{pre}.self_attn.{n}_proj")
-                     for n in ("q", "k", "v", "o")},
-            "attn_norm": {"scale": sd[f"{pre}.input_layernorm.weight"]},
-            "mlp_norm": {"scale": sd[f"{pre}.post_attention_layernorm.weight"]},
-            "mlp": {n: {"kernel": sd[f"{pre}.mlp.{n}_proj.weight"].T}
-                    for n in ("gate", "up", "down")},
-        })
+        entry: Dict[str, Any] = {"attn": attn(pre),
+                                 "attn_norm": norm(f"{pre}.input_layernorm"
+                                                   ".weight")}
+        if f"{pre}.pre_feedforward_layernorm.weight" in sd:
+            entry["post_attn_norm"] = norm(
+                f"{pre}.post_attention_layernorm.weight")
+            entry["mlp_norm"] = norm(f"{pre}.pre_feedforward_layernorm.weight")
+            entry["post_mlp_norm"] = norm(
+                f"{pre}.post_feedforward_layernorm.weight")
+        elif f"{pre}.post_attention_layernorm.weight" in sd:
+            entry["mlp_norm"] = norm(f"{pre}.post_attention_layernorm.weight")
+        # else cohere's parallel block: one input_layernorm a layer
+        if f"{pre}.mlp.gate_up_proj.weight" in sd:
+            gu = sd[f"{pre}.mlp.gate_up_proj.weight"].T  # [D, 2I]
+            half = gu.shape[1] // 2
+            entry["mlp"] = {"gate": {"kernel": gu[:, :half]},
+                            "up": {"kernel": gu[:, half:]},
+                            "down": {"kernel":
+                                     sd[f"{pre}.mlp.down_proj.weight"].T}}
+        else:
+            entry["mlp"] = {n: {"kernel": sd[f"{pre}.mlp.{n}_proj.weight"].T}
+                            for n in ("gate", "up", "down")}
+        p["layers"].append(entry)
     if "lm_head.weight" in state_dict:
         p["lm_head"] = {"kernel": state_dict["lm_head.weight"].T}
     return p

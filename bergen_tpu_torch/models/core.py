@@ -49,8 +49,10 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 ACT_FNS = {
-    "gelu": torch.nn.functional.gelu,
+    "gelu": torch.nn.functional.gelu,  # the exact erf (gemma's published)
     "gelu_new": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "gelu_pytorch_tanh": lambda x: torch.nn.functional.gelu(
+        x, approximate="tanh"),
     "relu": torch.relu,
     "silu": torch.nn.functional.silu,
 }

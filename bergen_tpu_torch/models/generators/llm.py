@@ -1,8 +1,8 @@
 """LLM generator (the PyTorch port's counterpart of
 ``bergen_tpu/models/generators/jax_llm.py``): greedy decoding of a
-llama, mistral or qwen2 checkpoint (Llama-3.x's rope scaling, Qwen2's q/k/v
-biases) read from a local HF directory with the port's own tokenizer and
-safetensors readers.
+llama, mistral, qwen2, gemma, gemma2, phi3 or cohere checkpoint
+(``models/llama.py``) read from a local HF directory with the port's own
+tokenizer and safetensors readers.
 
 Ported: left-padded length-bucketed batches (``_tokenize_left_pad``),
 greedy ``generate`` and ``first_token_logits``, ``quantization: int4``

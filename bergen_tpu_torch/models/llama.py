@@ -1,22 +1,34 @@
 """Llama-family decoder (the PyTorch port's counterpart of
-``bergen_tpu/models/llama.py``; llama, mistral and qwen2 configurations,
-with ``rope_scaling`` llama3 or linear).
+``bergen_tpu/models/llama.py``; llama, mistral, qwen2, gemma, gemma2, phi3
+and cohere configurations, with ``rope_scaling`` llama3 or linear).
 
-Plain functions over the JAX package's parameter tree: RoPE (split-half),
-GQA, RMSNorm, SwiGLU, q/k/v biases (qwen2), and a flat KV cache
-``[n_layers, B, L, KH*Dh]`` written at a cursor (one per row in the serving
-slot pool), or the paged cache of ``init_paged_cache`` (serving decode
-through ``ops.paged_attention``).  Prefill attention is plain PyTorch (the
-JAX package leaves it to XLA by default) unless ``USE_FLASH_PREFILL`` is
-on, when it goes through ``ops.flash_attention.flash_attention``; every
-S=1 decode step goes through ``ops.decode_attention.decode_attention``, and
-the chunk rows of the serving drain's fused chunked-prefill step
-(``forward(chunk=...)``) through
-``ops.flash_attention.flash_attention_band_rows`` (the CUDA kernels on the
-card).  Projections of an int4 tree
+Plain functions over the JAX package's parameter tree: RoPE (split-half,
+or cohere's interleaved pairs), GQA, RMSNorm (gemma's ``scale + 1``) or
+cohere's bias-free LayerNorm, SwiGLU or GeGLU, q/k/v biases (qwen2),
+gemma's scaled embeddings and head width, gemma-2's logit softcaps, query
+scale, sandwich norms and sliding-window even layers, cohere's parallel
+block and logit scale, and a flat KV cache ``[n_layers, B, L, KH*Dh]``
+written at a cursor (one per row in the serving slot pool), or the paged
+cache of ``init_paged_cache`` (serving decode through
+``ops.paged_attention``).  Which attention kernel a layer may take is JAX's
+rule on the config (``kernel_attention_ok``, its ``flat_cache_ok``; flash
+prefill also JAX's ``flash_compatible``): prefill attention is plain
+PyTorch (the JAX package leaves it to XLA by default) unless
+``USE_FLASH_PREFILL`` is on, when it goes through
+``ops.flash_attention.flash_attention``; S=1 decode steps go through
+``ops.decode_attention.decode_attention``, and the chunk rows of the
+serving drain's fused chunked-prefill step (``forward(chunk=...)``)
+through ``ops.flash_attention.flash_attention_band_rows`` (the CUDA
+kernels on the card).  Layers outside the rule (gemma-2's softcaps and
+query scale, Phi-3's head width 96) compute JAX's einsum attention
+(``_plain_attention``).  Projections of an int4 tree
 (``convert.quantize_tree_int4``) take ``ops.int4_matmul.matmul_int4_packed``
 inside its shape rule and the JAX package's dequantized product outside it.
 The cache is updated in place, where the JAX function returns a new one.
+
+Phi-3's ``sliding_window`` is applied (all layers, slot-based like
+gemma-2's), where the JAX package reads the window for gemma2 only
+(ROADMAP.md, faults found in the reference).
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ from typing import Any, Dict
 import torch
 
 from bergen_tpu_torch.models import convert
-from bergen_tpu_torch.models.core import dense, rmsnorm
+from bergen_tpu_torch.models.core import ACT_FNS, dense, rmsnorm
 from bergen_tpu_torch.ops import int4_matmul
 from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
@@ -37,6 +49,11 @@ from bergen_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_band_rows)
 
 Params = Dict[str, Any]
+
+
+# the families the port reads (mixtral's experts are refused: ROADMAP.md
+# Queue 1, generation breadth part 3)
+FAMILIES = ("llama", "mistral", "qwen2", "gemma", "gemma2", "phi3", "cohere")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +68,22 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
+    # gemma deltas (JAX llama.py:48-52; these defaults are llama's)
+    hidden_act: str = "silu"
+    embed_scale: bool = False       # x *= sqrt(hidden) after the embedding
+    norm_offset: float = 0.0        # rmsnorm uses (scale + offset)
+    head_dim_override: int | None = None
+    # gemma-2 deltas (0 / None disable)
+    attn_logit_softcap: float = 0.0   # cap * tanh(s / cap) on the scores
+    final_logit_softcap: float = 0.0  # cap * tanh(l / cap) on the logits
+    query_pre_attn_scalar: float | None = None  # scale = its -1/2 power
+    sliding_window: int = 0  # gemma-2's even layers (phi3: every layer)
+    post_norms: bool = False          # sandwich norms around attn and mlp
+    # cohere (command-r) deltas
+    parallel_block: bool = False      # x + attn(ln(x)) + mlp(ln(x))
+    use_layernorm: bool = False       # mean-centred LayerNorm, no bias
+    logit_scale: float = 0.0          # multiplies the logits (0 = off)
+    rope_interleaved: bool = False    # rope pairs the (even, odd) dims
     # rope scaling (JAX llama.py:89-97): llama-3.1/3.2 band interpolation
     # or linear position scaling
     rope_scaling_type: str | None = None  # None | "llama3" | "linear"
@@ -61,16 +94,19 @@ class LlamaConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_override is not None:
+            return self.head_dim_override
         return self.hidden_size // self.num_heads
 
     @classmethod
     def from_hf(cls, hf_cfg) -> "LlamaConfig":
         model_type = getattr(hf_cfg, "model_type", "llama")
-        if model_type not in ("llama", "mistral", "qwen2"):
+        if model_type not in FAMILIES or (
+                getattr(hf_cfg, "num_local_experts", 0) or 0) > 0:
             raise NotImplementedError(
-                f"generator model_type {model_type!r}: only llama, mistral "
-                "and qwen2 are ported (ROADMAP.md Queue 1, generation "
-                "breadth)")
+                f"generator model_type {model_type!r}: only "
+                f"{', '.join(FAMILIES)} are ported; mixture-of-experts "
+                "models are not (ROADMAP.md Queue 1, generation breadth)")
         rs = getattr(hf_cfg, "rope_scaling", None) or {}
         rs_type = rs.get("rope_type", rs.get("type"))
         if rs_type == "default":
@@ -80,9 +116,18 @@ class LlamaConfig:
                 f"rope_scaling type {rs_type!r} is not ported; supported: "
                 "llama3 (band interpolation), linear (ROADMAP.md Queue 1, "
                 "generation breadth)")
-        act = getattr(hf_cfg, "hidden_act", "silu")
-        if act != "silu":
-            raise NotImplementedError(f"llama hidden_act {act!r}")
+        # hidden_act before hidden_activation, as JAX and transformers read
+        # gemma's (whose published config says gelu, the exact erf)
+        act = getattr(hf_cfg, "hidden_act", None) or getattr(
+            hf_cfg, "hidden_activation", None) or "silu"
+        if act not in ACT_FNS:
+            raise NotImplementedError(f"generator hidden_act {act!r}")
+        gemma = model_type in ("gemma", "gemma2")
+        gemma2, cohere = model_type == "gemma2", model_type == "cohere"
+        # the window: gemma-2's (its even layers) as JAX reads it, and
+        # phi3's (every layer), which JAX does not read
+        window = (getattr(hf_cfg, "sliding_window", None) or 0) \
+            if model_type in ("gemma2", "phi3") else 0
         return cls(
             vocab_size=hf_cfg.vocab_size,
             hidden_size=hf_cfg.hidden_size,
@@ -93,8 +138,27 @@ class LlamaConfig:
             intermediate_size=hf_cfg.intermediate_size,
             max_position_embeddings=hf_cfg.max_position_embeddings,
             rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
-            rms_norm_eps=getattr(hf_cfg, "rms_norm_eps", None) or 1e-5,
+            # cohere names its epsilon layer_norm_eps
+            rms_norm_eps=getattr(hf_cfg, "rms_norm_eps", None)
+            or getattr(hf_cfg, "layer_norm_eps", 1e-5),
             tie_word_embeddings=getattr(hf_cfg, "tie_word_embeddings", False),
+            hidden_act=act,
+            embed_scale=gemma,
+            norm_offset=1.0 if gemma else 0.0,
+            head_dim_override=getattr(hf_cfg, "head_dim", None)
+            if gemma else None,
+            attn_logit_softcap=getattr(hf_cfg, "attn_logit_softcapping",
+                                       None) or 0.0,
+            final_logit_softcap=getattr(hf_cfg, "final_logit_softcapping",
+                                        None) or 0.0,
+            query_pre_attn_scalar=getattr(hf_cfg, "query_pre_attn_scalar",
+                                          None) if gemma2 else None,
+            sliding_window=window,
+            post_norms=gemma2,
+            parallel_block=cohere,
+            use_layernorm=cohere,
+            logit_scale=getattr(hf_cfg, "logit_scale", None) or 0.0,
+            rope_interleaved=cohere,
             rope_scaling_type=rs_type,
             rope_scaling_factor=float(rs.get("factor", 1.0)),
             rope_low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
@@ -102,6 +166,41 @@ class LlamaConfig:
             rope_original_max_pos=int(
                 rs.get("original_max_position_embeddings", 8192)),
         )
+
+
+def sliding(cfg: LlamaConfig, li: int) -> bool:
+    """Whether layer ``li`` attends within ``cfg.sliding_window``: gemma-2's
+    even layers (JAX ``llama.py:1000-1002``), every layer of a phi3 window."""
+    return bool(cfg.sliding_window) and (not cfg.post_norms or li % 2 == 0)
+
+
+def kernel_attention_ok(cfg: LlamaConfig) -> bool:
+    """JAX's ``flat_cache_ok`` rule (``bergen_tpu/ops/decode_attention.py
+    :170-186``), which decides where its decode kernel (and so the port's
+    decode and band kernels) serves a config: plain scaled softmax (no
+    softcap, no custom query scale), no gemma-2 sliding window, and a head
+    width that is a multiple of 64.  A rule on the config, not a fallback:
+    where it holds, the kernel runs or raises.  (A phi3 window rides in the
+    mask the kernel reads.)"""
+    return (not cfg.attn_logit_softcap and cfg.query_pre_attn_scalar is None
+            and not (cfg.post_norms and cfg.sliding_window)
+            and cfg.head_dim % 64 == 0)
+
+
+def _flash_compatible(cfg: LlamaConfig, li: int) -> bool:
+    """JAX's ``flash_compatible`` (``llama.py:747-754``): the prefill's
+    flash gate, no sliding layer (the kernel's mask is per key), softcap or
+    custom query scale.  It has no head-width rule: Phi-3's 96, which the
+    port's kernel is not built for, raises there."""
+    return (not sliding(cfg, li) and not cfg.attn_logit_softcap
+            and cfg.query_pre_attn_scalar is None)
+
+
+def attention_scale(cfg: LlamaConfig) -> float:
+    """query_pre_attn_scalar ** -1/2 (gemma-2), else 1 / sqrt(Dh)."""
+    if cfg.query_pre_attn_scalar is not None:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return 1.0 / math.sqrt(cfg.head_dim)
 
 
 def rope_frequencies(cfg: LlamaConfig, device=None) -> torch.Tensor:
@@ -137,12 +236,19 @@ def _rope_table(cfg: LlamaConfig, device: torch.device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               inv_freq: torch.Tensor) -> torch.Tensor:
-    """x [B, S, H, Dh], positions [B, S]; HF llama's rotate-half pairing."""
+               inv_freq: torch.Tensor,
+               interleaved: bool = False) -> torch.Tensor:
+    """x [B, S, H, Dh], positions [B, S]; HF llama's rotate-half pairing,
+    or with ``interleaved`` cohere's pairs of (even, odd) dims."""
     angles = positions[..., None].float() * inv_freq  # [B, S, Dh/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    xf = x.float()
+    if interleaved:
+        x1, x2 = xf[..., ::2], xf[..., 1::2]
+        return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                           dim=-1).reshape(x.shape).to(x.dtype)
+    x1, x2 = xf.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -227,10 +333,30 @@ def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = apply_rope(_proj(layer["attn"]["q"], x).reshape(B, S, H, Dh),
-                   positions, inv_freq)
+                   positions, inv_freq, cfg.rope_interleaved)
     k = apply_rope(_proj(layer["attn"]["k"], x).reshape(B, S, KH, Dh),
-                   positions, inv_freq)
+                   positions, inv_freq, cfg.rope_interleaved)
     return q, k, _proj(layer["attn"]["v"], x).reshape(B, S, KH, Dh)
+
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """JAX's einsum attention (``llama.py:802-821``): q [B, S, H, Dh], k, v
+    [B, L, KH, Dh], mask [B, S, L] -> ctx [B, S, H*Dh] in q's dtype; f32
+    scores times ``attention_scale``, gemma-2's ``cap * tanh(s / cap)``,
+    masked keys at -1e30, the probabilities rounded to q's dtype."""
+    B, S, H, Dh = q.shape
+    KH = k.shape[2]
+    qg = q.reshape(B, S, KH, H // KH, Dh).float()
+    scores = torch.einsum("bskgd,blkd->bkgsl", qg, k.float()) \
+        * attention_scale(cfg)
+    if cfg.attn_logit_softcap:
+        cap = cfg.attn_logit_softcap
+        scores = cap * torch.tanh(scores / cap)
+    bias = torch.where(mask[:, None, None], 0.0, -1e30)
+    probs = torch.softmax(scores + bias, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bkgsl,blkd->bskgd", probs.float(), v.float())
+    return ctx.to(q.dtype).reshape(B, S, H * Dh)
 
 
 def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,8 +371,10 @@ def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention_band_rows`` under absolute bands ``chunk["band"]``,
     one launch per active pipe, reading the layer's row of the whole cache
     (one tensor map for every layer and row).  An inactive pipe's rows
-    attend nothing: their context is zeros, as an empty band gives.
-    Returns ctx [B, 1, H*Dh]."""
+    attend nothing: their context is zeros, as an empty band gives.  Outside
+    ``kernel_attention_ok`` both take ``_plain_attention`` (the band as a
+    mask); a phi3 window narrows the decode rows' mask and each band to its
+    last ``sliding_window`` keys.  Returns ctx [B, 1, H*Dh]."""
     B = q.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     C = chunk["per"]
@@ -261,20 +389,42 @@ def _attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             .to(k_cache.dtype)
         v_cache[row, pos:pos + C] = v[r0:r0 + C, 0].reshape(C, KH * Dh) \
             .to(v_cache.dtype)
-    scale = 1.0 / math.sqrt(Dh)
-    ctx = torch.zeros(B, H, Dh, dtype=q.dtype, device=q.device)
-    ctx[:Bc] = decode_attention(q[:Bc, 0].contiguous(), k_cache, v_cache,
-                                attn_mask[:, -1], kv_heads=KH, sm_scale=scale)
+    scale = attention_scale(cfg)
+    kernel = kernel_attention_ok(cfg)
     rows, L = k_cache.shape[0], k_cache.shape[1]
+    keys = torch.arange(L, device=q.device)
+    mask_d = attn_mask[:, -1]
+    if sliding(cfg, li):
+        mask_d = mask_d & (g - keys < cfg.sliding_window)[None]
+    ctx = torch.zeros(B, H, Dh, dtype=q.dtype, device=q.device)
+    if kernel:
+        ctx[:Bc] = decode_attention(q[:Bc, 0].contiguous(), k_cache, v_cache,
+                                    mask_d, kv_heads=KH, sm_scale=scale)
+    else:
+        ctx[:Bc] = _plain_attention(
+            q[:Bc], k_cache.view(rows, L, KH, Dh), v_cache.view(rows, L, KH,
+                                                                Dh),
+            mask_d[:, None], cfg).view(Bc, H, Dh)
     k_rows = cache["k"].view(-1, L, KH, Dh)
     v_rows = cache["v"].view(-1, L, KH, Dh)
     for p, (row, live) in enumerate(zip(chunk["row"], chunk["active"])):
         if not live:
             continue
         r0 = Bc + p * C
-        ctx[r0:r0 + C] = flash_attention_band_rows(
-            q[r0:r0 + C, 0], k_rows, v_rows, li * rows + row,
-            chunk["band"][r0 - Bc:r0 - Bc + C], sm_scale=scale)
+        band = chunk["band"][r0 - Bc:r0 - Bc + C]
+        if sliding(cfg, li):
+            band = torch.stack([torch.maximum(
+                band[:, 0], band[:, 1] - cfg.sliding_window), band[:, 1]],
+                dim=1).contiguous()
+        if kernel:
+            ctx[r0:r0 + C] = flash_attention_band_rows(
+                q[r0:r0 + C, 0], k_rows, v_rows, li * rows + row, band,
+                sm_scale=scale)
+        else:
+            inb = (keys[None] >= band[:, :1]) & (keys[None] < band[:, 1:])
+            ctx[r0:r0 + C] = _plain_attention(
+                q[r0:r0 + C, 0][None], k_rows[li * rows + row][None],
+                v_rows[li * rows + row][None], inb[None], cfg).view(C, H, Dh)
     return ctx.reshape(B, 1, H * Dh)
 
 
@@ -291,9 +441,13 @@ def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
         if S != 1 or isinstance(cur, torch.Tensor):
             raise NotImplementedError(
                 "chunked prefill fuses into S == 1 scalar-cursor decode steps")
+        if cfg.post_norms and sliding(cfg, li):
+            raise NotImplementedError(
+                "chunked prefill not supported on sliding-window layers")
         ctx = _attention_chunk(q, k, v, cfg, cache, li, attn_mask, chunk)
         return _proj(layer["attn"]["o"], ctx)
     k_cache, v_cache = cache["k"][li], cache["v"][li]
+    L = k_cache.shape[1]
     if isinstance(cur, torch.Tensor) and cur.dim() == 1:
         # per-row cursors (the host-driven slot pool: each row at its own
         # depth), decode steps only: one write per row at its cursor
@@ -305,30 +459,36 @@ def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     else:
         k_cache[:, cur:cur + S] = k.reshape(B, S, KH * Dh).to(k_cache.dtype)
         v_cache[:, cur:cur + S] = v.reshape(B, S, KH * Dh).to(v_cache.dtype)
-    scale = 1.0 / math.sqrt(Dh)
+    if sliding(cfg, li):
+        # JAX llama.py:733-745: with left padding, slot distance is token
+        # distance for real-token pairs, so key slot j is visible to query
+        # slot (cursor + s) iff (cursor + s) - j < window
+        keys = torch.arange(attn_mask.shape[-1], device=x.device)
+        if isinstance(cur, torch.Tensor) and cur.dim() == 1:
+            dist = cur[:, None, None] - keys
+        else:
+            dist = (cur + torch.arange(S, device=x.device))[:, None] - keys
+        attn_mask = attn_mask & (dist < cfg.sliding_window)
     if S == 1:
-        ctx = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                               attn_mask[:, -1], kv_heads=KH, sm_scale=scale)
-        return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
-    # prefill: keys are the cache slots written so far.  The JAX package
-    # also gates flash on sliding windows, softcaps and custom query scales
-    # (llama.py:747-754); the ported families have none of them.
-    Lk = cur + S
-    if _flash_enabled(S):
-        ctx = flash_attention(
-            q, k_cache[:, :Lk].view(B, Lk, KH, Dh),
-            v_cache[:, :Lk].view(B, Lk, KH, Dh), attn_mask[:, -1, :Lk],
-            causal=True, q_offset=cur)
-        return _proj(layer["attn"]["o"], ctx.reshape(B, S, H * Dh))
-    G = H // KH
-    k4 = k_cache[:, :Lk].reshape(B, Lk, KH, Dh).float()
-    v4 = v_cache[:, :Lk].reshape(B, Lk, KH, Dh).float()
-    qg = q.reshape(B, S, KH, G, Dh).float()
-    scores = torch.einsum("bskgd,blkd->bkgsl", qg, k4) * scale
-    bias = torch.where(attn_mask[:, None, None, :, :Lk], 0.0, -1e30)
-    probs = torch.softmax(scores + bias, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bkgsl,blkd->bskgd", probs.float(), v4).to(x.dtype)
-    return _proj(layer["attn"]["o"], ctx.reshape(B, S, H * Dh))
+        if kernel_attention_ok(cfg):
+            ctx = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                                   attn_mask[:, -1], kv_heads=KH,
+                                   sm_scale=attention_scale(cfg))
+            return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
+        Lk = L
+    else:
+        # prefill: keys are the cache slots written so far
+        Lk = cur + S
+        if _flash_enabled(S) and _flash_compatible(cfg, li):
+            ctx = flash_attention(
+                q, k_cache[:, :Lk].view(B, Lk, KH, Dh),
+                v_cache[:, :Lk].view(B, Lk, KH, Dh), attn_mask[:, -1, :Lk],
+                causal=True, q_offset=cur)
+            return _proj(layer["attn"]["o"], ctx.reshape(B, S, H * Dh))
+    ctx = _plain_attention(q, k_cache[:, :Lk].view(B, Lk, KH, Dh),
+                           v_cache[:, :Lk].view(B, Lk, KH, Dh),
+                           attn_mask[..., :Lk], cfg)
+    return _proj(layer["attn"]["o"], ctx)
 
 
 def _attention_paged(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
@@ -343,14 +503,41 @@ def _attention_paged(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     ctx = _pa.paged_decode_attention(
         q[:, 0].contiguous(), k[:, 0], v[:, 0], cache["k_pool"][li],
         cache["v_pool"][li], cache["k_tail"][li], cache["v_tail"][li],
-        cache["tables"], cache["lengths"], 1.0 / math.sqrt(Dh),
+        cache["tables"], cache["lengths"], attention_scale(cfg),
         starts=cache.get("starts"))
     return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
 
 
-def _mlp(layer: Params, x: torch.Tensor) -> torch.Tensor:
-    g = torch.nn.functional.silu(_proj(layer["mlp"]["gate"], x))
+def _mlp(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    g = ACT_FNS[act](_proj(layer["mlp"]["gate"], x))
     return _proj(layer["mlp"]["down"], g * _proj(layer["mlp"]["up"], x))
+
+
+def _norm(p: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """JAX ``llama.py:831-841``: cohere's mean-centred, bias-free LayerNorm
+    in f32, or RMSNorm with gemma's ``scale + 1``.  The 1 is added in the
+    parameter's own dtype before the norm, as JAX adds it; norm scales stay
+    f32 in both packages' trees, as HF's f32 add."""
+    if cfg.use_layernorm:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.rms_norm_eps)
+        return (y * p["scale"]).to(x.dtype)
+    if cfg.norm_offset:
+        p = {"scale": p["scale"] + cfg.norm_offset}
+    return rmsnorm(p, x, cfg.rms_norm_eps)
+
+
+def _tied_head(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """x @ embed^T with f32 sums and f32 logits (JAX's dot with
+    preferred_element_type f32): a plain product, outside any kernel."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x2, embed.T, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ embed.float().T
+    return y.view(*x.shape[:-1], embed.shape[0])
 
 
 def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
@@ -382,18 +569,38 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
                                   "prefill writes pages directly")
     if paged and chunk is not None:
         raise NotImplementedError("chunked prefill needs the slot-pool cache")
+    if paged and (cfg.attn_logit_softcap
+                  or (cfg.post_norms and cfg.sliding_window)):
+        raise NotImplementedError(
+            "paged attention does not yet support gemma-2 logit softcap / "
+            "sliding-window layers: use the slot-pool cache")
     inv_freq = _rope_table(cfg, input_ids.device)
     x = params["embed"][input_ids]
+    if cfg.embed_scale:
+        # sqrt(hidden) rounded to x's dtype first, as JAX (llama.py:941-942):
+        # 55.5 in bf16 at Gemma-7B's 3,072, not 55.43
+        x = x * float(torch.tensor(math.sqrt(cfg.hidden_size),
+                                   dtype=x.dtype))
     for li, layer in enumerate(params["layers"]):
-        h = rmsnorm(layer["attn_norm"], x, cfg.rms_norm_eps)
+        h = _norm(layer["attn_norm"], x, cfg)
         if paged:
-            x = x + _attention_paged(layer, cfg, h, positions, inv_freq,
-                                     cache, li)
+            a = _attention_paged(layer, cfg, h, positions, inv_freq, cache,
+                                 li)
         else:
-            x = x + _attention(layer, cfg, h, positions, inv_freq, cache, li,
-                               attn_mask, chunk)
-        h = rmsnorm(layer["mlp_norm"], x, cfg.rms_norm_eps)
-        x = x + _mlp(layer, h)
+            a = _attention(layer, cfg, h, positions, inv_freq, cache, li,
+                           attn_mask, chunk)
+        if cfg.parallel_block:
+            # cohere: attention and MLP read the same normed input
+            x = x + a + _mlp(layer, h, cfg.hidden_act)
+            continue
+        if cfg.post_norms:  # gemma-2's sandwich: norm the sublayer output
+            a = _norm(layer["post_attn_norm"], a, cfg)
+        x = x + a
+        h = _norm(layer["mlp_norm"], x, cfg)
+        m = _mlp(layer, h, cfg.hidden_act)
+        if cfg.post_norms:
+            m = _norm(layer["post_mlp_norm"], m, cfg)
+        x = x + m
     if last_only:
         x = x[:, -1:]
     if chunk is not None:
@@ -402,12 +609,17 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
         keep = list(range(Bc)) + [Bc + p * C + last
                                   for p, last in enumerate(chunk["last"])]
         x = x[torch.tensor(keep, device=x.device)]
-    x = rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+    x = _norm(params["final_norm"], x, cfg)
     head = params.get("lm_head")
     if head is None:  # tied embeddings
-        logits = (x @ params["embed"].T).float()
+        logits = _tied_head(x, params["embed"])
     else:
         logits = _proj(head, x).float()
+    if cfg.logit_scale:
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
     if paged:
         # inactive slots do not advance (their tail write lands on the next
         # unused position and is overwritten on slot reuse)

@@ -15,9 +15,12 @@ port carries the part of them its checkpoints use, with the same results as
   published ``tokenizer.json`` carries; ``_Precompiled``), and a Sequence
   of them;
 * pre-tokenizers: Whitespace, WhitespaceSplit, Punctuation (Removed or
-  Isolated), Metaspace, Split (``Isolated``, on the published Llama-3 and
-  Qwen2 patterns: ``split_regex``), ByteLevel (GPT-2's byte-to-unicode
-  table, with or without GPT-2's own split), and a Sequence of them;
+  Isolated), Metaspace, Split (a Regex pattern, as the published Llama-3
+  and Qwen2 ones: ``split_regex``, or a String one, as Gemma's ``" "``;
+  behaviors Isolated and MergedWithPrevious),
+  Digits (Command-R's, with ``individual_digits``), ByteLevel (GPT-2's
+  byte-to-unicode table, with or without GPT-2's own split), and a
+  Sequence of them;
 * the TemplateProcessing post-processor, single (``[CLS] $A [SEP]``) and
   pair (``[CLS] $A [SEP] $B:1 [SEP]:1``) with their type ids, and
   truncation that leaves room for its special tokens (``only_second`` for
@@ -33,9 +36,9 @@ port carries the part of them its checkpoints use, with the same results as
   (with its ``raise_exception`` and ``strftime_now`` globals).
 
 Any other component raises ``NotImplementedError`` naming it.
-``write_tokenizer`` writes such files, and ``train_byte_level_bpe`` learns
-byte-level merges from a text (both used to make checkpoints without
-``tokenizers``).
+``write_tokenizer`` writes such files, and ``train_byte_level_bpe`` and
+``train_sentencepiece_bpe`` learn merges from a text (both used to make
+checkpoints without ``tokenizers``).
 """
 
 from __future__ import annotations
@@ -415,19 +418,69 @@ def split_regex(pattern: str) -> re.Pattern:
     return re.compile("".join(out))
 
 
-def _split_isolated(rx: re.Pattern, text: str) -> list[str]:
-    """``tokenizers``' Split with behavior ``Isolated``: every match is a
-    piece, and so is every stretch between matches."""
+def _segments(rx: re.Pattern, text: str) -> list[tuple[bool, str]]:
+    """(is a match, text) for every non-empty match of ``rx`` and every
+    stretch between matches, in order."""
     out, pos = [], 0
     for m in rx.finditer(text):
         if m.start() > pos:
-            out.append(text[pos:m.start()])
+            out.append((False, text[pos:m.start()]))
         if m.end() > m.start():
-            out.append(m.group(0))
+            out.append((True, m.group(0)))
         pos = m.end()
     if pos < len(text):
-        out.append(text[pos:])
+        out.append((False, text[pos:]))
     return out
+
+
+def _split_isolated(rx: re.Pattern, text: str) -> list[str]:
+    """``tokenizers``' Split with behavior ``Isolated``: every match is a
+    piece, and so is every stretch between matches."""
+    return [t for _, t in _segments(rx, text)]
+
+
+def _split_merged(rx: re.Pattern, text: str) -> list[str]:
+    """``tokenizers``' Split with behavior ``MergedWithPrevious``: a match
+    joins the piece before it unless that piece ended in a match (or there
+    is none)."""
+    out, prev = [], False
+    for is_match, t in _segments(rx, text):
+        if is_match and not prev and out:
+            out[-1] += t
+        else:
+            out.append(t)
+        prev = is_match
+    return out
+
+
+def _is_numeric(c: str) -> bool:
+    """Rust's ``char::is_numeric`` (``tokenizers``' Digits): the general
+    categories Nd, Nl and No."""
+    return unicodedata.category(c) in ("Nd", "Nl", "No")
+
+
+def _digits(spec):
+    """``tokenizers``' Digits pre-tokenizer: runs of numeric characters
+    become pieces of their own, or (``individual_digits``) each numeric
+    character does."""
+    individual = spec.get("individual_digits", False)
+
+    def pre(pieces, _):
+        out = []
+        for p in pieces:
+            cur, cur_num = "", False
+            for c in p:
+                num = _is_numeric(c)
+                if cur and (num != cur_num or (num and individual)):
+                    out.append(cur)
+                    cur = ""
+                cur += c
+                cur_num = num
+            if cur:
+                out.append(cur)
+        return out
+
+    return pre
 
 
 @functools.lru_cache(maxsize=1)
@@ -492,16 +545,23 @@ def _pre_tokenizer(spec):
     if kind == "ByteLevel":
         return _byte_level(spec)
     if kind == "Split":
-        pat = spec["pattern"]
-        if spec.get("behavior") != "Isolated" or spec.get("invert"):
+        pat, behavior = spec["pattern"], spec.get("behavior")
+        split = {"Isolated": _split_isolated,
+                 "MergedWithPrevious": _split_merged}.get(behavior)
+        if spec.get("invert") or split is None:
             raise NotImplementedError(
-                f"tokenizer Split behavior {spec.get('behavior')!r} "
-                f"(invert={spec.get('invert')}): only Isolated")
-        if "Regex" not in pat:
+                f"tokenizer Split behavior {behavior!r} (invert="
+                f"{spec.get('invert')}): only Isolated and "
+                "MergedWithPrevious")
+        if "Regex" in pat:
+            rx = split_regex(pat["Regex"])
+        elif "String" in pat:
+            rx = re.compile(re.escape(pat["String"]))
+        else:
             raise NotImplementedError(f"tokenizer Split pattern {pat!r}")
-        rx = split_regex(pat["Regex"])
-        return lambda pieces, _: [q for p in pieces
-                                  for q in _split_isolated(rx, p)]
+        return lambda pieces, _: [q for p in pieces for q in split(rx, p)]
+    if kind == "Digits":
+        return _digits(spec)
     if kind == "Whitespace":
         return lambda pieces, _: [m for p in pieces
                                   for m in _WHITESPACE_RE.findall(p)]
@@ -1107,9 +1167,34 @@ def train_byte_level_bpe(texts: Iterable[str], n_merges: int,
     counts = collections.Counter(
         _to_byte_level(piece) for text in texts
         for piece in _split_isolated(rx, text))
+    vocab = {c: i for i, c in enumerate(bytes_to_unicode().values())}
+    return vocab, _train_merges(counts, vocab, n_merges)
+
+
+def train_sentencepiece_bpe(texts: Iterable[str], n_merges: int,
+                            first_id: int
+                            ) -> tuple[dict[str, int], list[str]]:
+    """(vocab, merges) of a sentencepiece-style BPE (Llama-2's, Gemma's)
+    learnt from ``texts``: the words as sentencepiece cuts them (``▁``
+    before each space-separated word), their characters from id
+    ``first_id`` on in order of first use, then up to ``n_merges`` merges
+    as ``train_byte_level_bpe`` makes them."""
+    counts = collections.Counter(
+        "\u2581" + w for text in texts for w in text.split())
+    vocab: dict[str, int] = {}
+    for w in counts:
+        for c in w:
+            vocab.setdefault(c, first_id + len(vocab))
+    return vocab, _train_merges(counts, vocab, n_merges, first_id)
+
+
+def _train_merges(counts: collections.Counter, vocab: dict[str, int],
+                  n_merges: int, first_id: int = 0) -> list[str]:
+    """Up to ``n_merges`` merges of the words ``counts`` (word -> count),
+    each of the most frequent adjacent pair (ties to the smallest pair),
+    adding each merged token to ``vocab`` (ids from ``first_id`` on)."""
     words = [list(w) for w in counts]
     freq = list(counts.values())
-    vocab = {c: i for i, c in enumerate(bytes_to_unicode().values())}
     pairs: collections.Counter = collections.Counter()
     where: dict[tuple, set] = collections.defaultdict(set)
 
@@ -1132,7 +1217,7 @@ def train_byte_level_bpe(texts: Iterable[str], n_merges: int,
         a, b = pair
         merged = a + b
         merges.append(f"{a} {b}")
-        vocab.setdefault(merged, len(vocab))
+        vocab.setdefault(merged, first_id + len(vocab))
         touched = set()
         for wi in where.pop(pair):
             w = words[wi]
@@ -1155,50 +1240,108 @@ def train_byte_level_bpe(texts: Iterable[str], n_merges: int,
         for p in touched:
             if pairs[p] > 0:
                 heapq.heappush(heap, (-pairs[p], p))
-    return vocab, merges
+    return merges
 
 
 def _byte_level_bpe_spec(vocab: dict[str, int], merges: list[str],
                          added: dict[str, int], *, split_pattern: str,
                          nfc: bool, ignore_merges: bool,
-                         template: tuple[str, str | None] | None) -> dict:
+                         template: tuple[str, str | None] | None,
+                         digits: bool = False) -> dict:
     """A ``tokenizer.json`` in the layout of Llama-3's (``template`` =
     (bos, None): a Sequence of the ByteLevel and TemplateProcessing
-    post-processors, as Llama-3.1's) or Qwen2's (NFC, the ByteLevel
-    post-processor)."""
+    post-processors, as Llama-3.1's), Qwen2's (NFC, the ByteLevel
+    post-processor) or, with ``digits``, Command-R's (NFC, the Digits and
+    ByteLevel pre-tokenizers, a TemplateProcessing post-processor)."""
     byte_level = {"type": "ByteLevel", "add_prefix_space": False,
                   "trim_offsets": False, "use_regex": False}
     post = byte_level
     if template is not None:
-        first, last = template
-        a = [{"SpecialToken": {"id": first, "type_id": 0}},
-             {"Sequence": {"id": "A", "type_id": 0}}]
-        b = [{"SpecialToken": {"id": first, "type_id": 1}},
-             {"Sequence": {"id": "B", "type_id": 1}}]
-        if last is not None:
-            a.append({"SpecialToken": {"id": last, "type_id": 0}})
-            b.append({"SpecialToken": {"id": last, "type_id": 1}})
-        post = {"type": "Sequence", "processors": [
-            dict(byte_level, add_prefix_space=True, use_regex=True),
-            {"type": "TemplateProcessing", "single": a, "pair": a + b,
-             "special_tokens": {t: {"id": t, "ids": [added[t]], "tokens": [t]}
-                                for t in (first, last) if t is not None}}]}
+        post = _template_spec(template, added)
+        if not digits:
+            post = {"type": "Sequence", "processors": [
+                dict(byte_level, add_prefix_space=True, use_regex=True),
+                post]}
+    if digits:  # Command-R's: each digit alone, then GPT-2's split
+        pre = [{"type": "Digits", "individual_digits": True},
+               dict(byte_level, trim_offsets=True, use_regex=True)]
+    else:
+        pre = [{"type": "Split", "pattern": {"Regex": split_pattern},
+                "behavior": "Isolated", "invert": False}, byte_level]
     return {
         "version": "1.0", "truncation": None, "padding": None,
-        "added_tokens": [
-            {"id": i, "content": t, "single_word": False, "lstrip": False,
-             "rstrip": False, "normalized": False, "special": True}
-            for t, i in sorted(added.items(), key=lambda kv: kv[1])],
+        "added_tokens": _added_spec(added),
         "normalizer": {"type": "NFC"} if nfc else None,
-        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
-            {"type": "Split", "pattern": {"Regex": split_pattern},
-             "behavior": "Isolated", "invert": False}, byte_level]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": pre},
         "post_processor": post,
         "decoder": dict(byte_level),
         "model": {"type": "BPE", "dropout": None, "unk_token": None,
                   "continuing_subword_prefix": None,
                   "end_of_word_suffix": None, "fuse_unk": False,
                   "byte_fallback": False, "ignore_merges": ignore_merges,
+                  "vocab": vocab, "merges": merges},
+    }
+
+
+def _added_spec(added: dict[str, int]) -> list[dict]:
+    return [{"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t, i in sorted(added.items(), key=lambda kv: kv[1])]
+
+
+def _template_spec(template: tuple[str, str | None],
+                   added: dict[str, int]) -> dict:
+    """TemplateProcessing ``first $A [last]`` / ``first $A [last] first:1
+    $B:1 [last:1]``."""
+    first, last = template
+    a = [{"SpecialToken": {"id": first, "type_id": 0}},
+         {"Sequence": {"id": "A", "type_id": 0}}]
+    b = [{"SpecialToken": {"id": first, "type_id": 1}},
+         {"Sequence": {"id": "B", "type_id": 1}}]
+    if last is not None:
+        a.append({"SpecialToken": {"id": last, "type_id": 0}})
+        b.append({"SpecialToken": {"id": last, "type_id": 1}})
+    return {"type": "TemplateProcessing", "single": a, "pair": a + b,
+            "special_tokens": {t: {"id": t, "ids": [added[t]], "tokens": [t]}
+                               for t in (first, last) if t is not None}}
+
+
+def _sentencepiece_bpe_spec(vocab: dict[str, int], merges: list[str],
+                            added: dict[str, int], *, layout: str,
+                            template: tuple[str, str | None] | None) -> dict:
+    """A ``tokenizer.json`` in the layout transformers' converters give a
+    sentencepiece BPE (``convert_slow_tokenizer.py``): Gemma's (``layout``
+    "gemma": spaces replaced by ``▁``, a Split on the string " " merged
+    with the previous piece, unk ``<unk>``) or Llama-2's ("llama2", Phi-3's
+    too: ``▁`` prepended, no pre-tokenizer, the decoder's Strip of the
+    leading space); both BPE with ``byte_fallback`` and ``fuse_unk``."""
+    replace = {"type": "Replace", "pattern": {"String": " "},
+               "content": "\u2581"}
+    decoders = [{"type": "Replace", "pattern": {"String": "\u2581"},
+                 "content": " "}, {"type": "ByteFallback"}, {"type": "Fuse"}]
+    if layout == "gemma":
+        norm = replace
+        pre = {"type": "Split", "pattern": {"String": " "},
+               "behavior": "MergedWithPrevious", "invert": False}
+    elif layout == "llama2":
+        norm = {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "\u2581"}, replace]}
+        pre = None
+        decoders.append({"type": "Strip", "content": " ", "start": 1,
+                         "stop": 0})
+    else:
+        raise ValueError(f"sentencepiece BPE layout {layout!r}")
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": _added_spec(added),
+        "normalizer": norm, "pre_tokenizer": pre,
+        "post_processor": None if template is None else _template_spec(
+            template, added),
+        "decoder": {"type": "Sequence", "decoders": decoders},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
                   "vocab": vocab, "merges": merges},
     }
 
@@ -1276,10 +1419,14 @@ def write_tokenizer(path: str, model: str, vocab: dict[str, int],
                     added: dict[str, int] | None = None,
                     split_pattern: str = LLAMA3_SPLIT, nfc: bool = False,
                     ignore_merges: bool = False,
-                    clean_up_spaces: bool = False) -> None:
+                    clean_up_spaces: bool = False, digits: bool = False,
+                    layout: str = "gemma") -> None:
     """Write ``tokenizer.json`` + ``tokenizer_config.json`` in HF's format.
 
-    model: "WordPiece", "WordLevel", "Unigram" or "ByteLevelBPE"; vocab:
+    model: "WordPiece", "WordLevel", "Unigram", "ByteLevelBPE" or
+    "SentencePieceBPE" (``layout`` "gemma" or "llama2",
+    ``_sentencepiece_bpe_spec``; vocab, ``merges`` and special ``added``
+    tokens as for ByteLevelBPE); vocab:
     token -> id (special tokens included, but for ByteLevelBPE, whose
     special tokens are ``added``; for Unigram the ids are 0..n-1 and each
     piece scores ``scores[piece]``, 0 by default); specials: e.g.
@@ -1291,13 +1438,17 @@ def write_tokenizer(path: str, model: str, vocab: dict[str, int],
     pre-tokenizer and decoder), without its ``Precompiled`` charsmap.  A
     ByteLevelBPE one (``merges``, ``added`` special tokens, the Split
     ``split_pattern``, an NFC normalizer with ``nfc``, ``ignore_merges``)
-    is written as Llama-3's is with a template and as Qwen2's is without
-    (``_byte_level_bpe_spec``)."""
+    is written as Llama-3's is with a template and as Qwen2's is without,
+    and with ``digits`` as Command-R's (``_byte_level_bpe_spec``)."""
     os.makedirs(path, exist_ok=True)
     if model == "ByteLevelBPE":
         spec = _byte_level_bpe_spec(
             vocab, merges or [], added or {}, split_pattern=split_pattern,
-            nfc=nfc, ignore_merges=ignore_merges, template=template)
+            nfc=nfc, ignore_merges=ignore_merges, template=template,
+            digits=digits)
+    elif model == "SentencePieceBPE":
+        spec = _sentencepiece_bpe_spec(vocab, merges or [], added or {},
+                                       layout=layout, template=template)
     else:
         spec = _word_spec(model, vocab, specials, lowercase, strip_accents,
                           template, scores)

@@ -5,7 +5,8 @@ per cache row and query head, a masked softmax over the L cache slots
 (masked slots score -1e30, so a fully masked row averages V uniformly; the
 probabilities are divided by max(sum, 1e-30) and rounded to the cache dtype
 before the context product).  On a CUDA tensor this launches the kernel of
-``csrc/decode_attention.cu`` (head widths 64 and 128, groups 1 to 8),
+``csrc/decode_attention.cu`` (head widths 64, 128 and 256, groups 1 to
+8),
 which splits the cache length over several blocks per (row, KV head) pair
 in one launch; on a CPU tensor ``decode_attention_plain``.
 ``decode_attention_split_plain`` repeats the kernel's split schedule in
@@ -23,7 +24,7 @@ import torch
 from bergen_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # head widths the kernel is built for
+HEAD_DIMS = (64, 128, 256)  # head widths the kernel is built for
 GROUPS = tuple(range(1, 9))  # query heads per KV head the kernel takes
 SMEM_LIMIT = 232_448
 

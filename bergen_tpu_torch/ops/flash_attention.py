@@ -13,9 +13,9 @@ the key blocks up to the one holding its last row's diagonal (all of them
 without ``causal``), excluding keys at or past Sk; a row with no valid key
 averages V over exactly those keys.  The CUDA kernel
 (``csrc/flash_attention.cu`` on ``csrc/wgmma_attention.cuh``) takes query
-tiles of ``TILE_Q`` rows and key tiles of ``TILE_K`` keys, each 64-row half
-of a query tile keeping its own visited end (keys past it score -inf), so
-it visits the same keys; ``flash_attention_tiles_plain`` runs that tile
+tiles of ``TILE_Q`` rows and key tiles of ``tile_k(Dh)`` keys, each 64-row
+half of a query tile keeping its own visited end (keys past it score
+-inf), so it visits the same keys; ``flash_attention_tiles_plain`` runs that tile
 schedule (``flash_units`` orders its tiles) with the same online-softmax
 merges.  The CPU tests hold the two plain versions equal, and both against
 the JAX function: real rows agree up to f32 round-off.
@@ -33,8 +33,8 @@ of its rows' bands; visiting a block with no in-band key leaves a row's m, l
 and accumulator unchanged, so the schedule changes nothing but the order of
 f32 sums.  The kernel (``csrc/flash_band.cu`` on
 ``csrc/wgmma_attention.cuh``) takes units of one ``TILE_Q``-row query tile
-and one head (``band_units``), each attending the ``TILE_K``-key tiles from
-the first that meets its rows' band union to the union's end
+and one head (``band_units``), each attending the ``tile_k(Dh)``-key tiles
+from the first that meets its rows' band union to the union's end
 (``band_tile_keys``), with a base-2 online softmax and the probabilities
 rounded to bf16; ``flash_attention_band_tiles_plain`` runs that schedule.
 ``flash_attention_band_rows`` attends one row of a cache of many rows in
@@ -51,8 +51,14 @@ from bergen_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 BLOCK = 64
-HEAD_DIMS = (64, 128)  # head widths the kernel is built for
+HEAD_DIMS = (64, 128, 256)  # head widths the kernel is built for
 TILE_Q, TILE_K = 128, 128  # the kernel's query and key tiles
+
+
+def tile_k(Dh: int) -> int:
+    """The kernel's key tile at head width Dh: ``TILE_K``, or 64 keys at
+    256, where a 128-key K and V ring would not fit beside the query tile."""
+    return 64 if Dh == 256 else TILE_K
 
 
 def _visited_keys(q1: int, Sk: int, causal: bool, q_offset: int) -> int:
@@ -117,7 +123,7 @@ def flash_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor,
                                 q_offset: int = 0) -> torch.Tensor:
     """``flash_attention_plain`` on the CUDA kernel's tile schedule: query
     tiles of ``TILE_Q`` rows in ``flash_units`` order, key tiles of
-    ``TILE_K`` up to the tile's visited end, each 64-row half of a tile
+    ``tile_k(Dh)`` up to the tile's visited end, each 64-row half of a tile
     scoring -inf past its own visited end (``_visited_keys``)."""
     B, Sq, H, Dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -140,8 +146,8 @@ def flash_attention_tiles_plain(q: torch.Tensor, k: torch.Tensor,
             m = torch.full((B, KH, G, q1 - q0), NEG_INF, device=dev)
             l = torch.zeros_like(m)
             acc = torch.zeros(B, KH, G, q1 - q0, Dh, device=dev)
-            for k0 in range(0, int(row_end.max()), TILE_K):
-                k1 = min(k0 + TILE_K, Sk)
+            for k0 in range(0, int(row_end.max()), tile_k(Dh)):
+                k1 = min(k0 + tile_k(Dh), Sk)
                 keys = torch.arange(k0, k1, device=dev)
                 s = torch.einsum("bqkgd,blkd->bkgql", qb,
                                  kf[:, k0:k1]) * scale
@@ -278,18 +284,20 @@ def band_units(Sq: int, H: int) -> list[tuple[int, int]]:
     return [(q0, h) for q0 in range(0, Sq, TILE_Q) for h in range(H)]
 
 
-def band_tile_keys(band: torch.Tensor, q0: int, Sk: int) -> tuple[int, int]:
+def band_tile_keys(band: torch.Tensor, q0: int, Sk: int,
+                   tk: int = TILE_K) -> tuple[int, int]:
     """(first key tile, key tiles) that the query tile of rows [q0, q0 +
     ``TILE_Q``) attends: from the tile holding the first in-band key of its
-    rows' band union to the union's end, in ``TILE_K``-key tiles; a tile
-    whose bands are all empty attends one key tile past Sk (no key)."""
+    rows' band union to the union's end, in ``tk``-key tiles
+    (``tile_k(Dh)``); a tile whose bands are all empty attends one key tile
+    past Sk (no key)."""
     lo = band[q0:q0 + TILE_Q, 0].long().clamp_min(0)
     hi = band[q0:q0 + TILE_Q, 1].long().clamp_max(Sk)
     nonempty = lo < hi
     if not bool(nonempty.any()):
-        return -(-Sk // TILE_K), 1
-    k0 = int(lo[nonempty].min()) // TILE_K
-    return k0, -(-int(hi[nonempty].max()) // TILE_K) - k0
+        return -(-Sk // tk), 1
+    k0 = int(lo[nonempty].min()) // tk
+    return k0, -(-int(hi[nonempty].max()) // tk) - k0
 
 
 def flash_attention_band_tiles_plain(q: torch.Tensor, k: torch.Tensor,
@@ -298,7 +306,7 @@ def flash_attention_band_tiles_plain(q: torch.Tensor, k: torch.Tensor,
                                      round_p: bool = True) -> torch.Tensor:
     """``flash_attention_band_plain`` on the kernel's schedule: query tiles
     of ``TILE_Q`` rows (``band_units``; every head of a tile visits the
-    same key tiles), key tiles of ``TILE_K`` from ``band_tile_keys``, and
+    same key tiles), key tiles of ``tile_k(Dh)`` from ``band_tile_keys``, and
     the loop's arithmetic: y = q.k * scale * log2 e (-inf outside the
     band), m from -1e30, p = 2^(y - m'), a = 2^(m - m'), l' = l a + rowsum
     p, acc' = acc a + bf16(p) . V, out = acc / max(l, 1e-30).  With
@@ -318,13 +326,14 @@ def flash_attention_band_tiles_plain(q: torch.Tensor, k: torch.Tensor,
     for q0 in range(0, Sq, TILE_Q):
         q1 = min(q0 + TILE_Q, Sq)
         lo, hi = lo_all[q0:q1], hi_all[q0:q1]
-        k0, n_kt = band_tile_keys(band, q0, Sk)
+        tk = tile_k(Dh)
+        k0, n_kt = band_tile_keys(band, q0, Sk, tk)
         qb = qf[q0:q1]
         m = torch.full((KH, G, q1 - q0), NEG_INF, device=dev)
         l = torch.zeros_like(m)
         acc = torch.zeros(KH, G, q1 - q0, Dh, device=dev)
         for kt in range(k0, k0 + n_kt):
-            ka, kb = kt * TILE_K, min((kt + 1) * TILE_K, Sk)
+            ka, kb = kt * tk, min((kt + 1) * tk, Sk)
             if ka >= kb:
                 continue  # no key: every p is 0 and a is 1
             keys = torch.arange(ka, kb, device=dev)

@@ -25,9 +25,12 @@
   same schedule: prompt chunks of up to ``P`` staging pipes ride each
   decode step's forward as extra batch rows (``llama.forward(chunk=...)``),
   so admission never stalls the decoding slots.
-* Every decode and prefill goes through ``llama.forward``; the decode
-  steps' attention is ``ops.decode_attention`` and the chunk rows'
-  ``ops.flash_attention.flash_attention_band`` (the kernels on the card).
+* Every decode and prefill goes through ``llama.forward``, so every family
+  it reads runs here (gemma-2's sliding layers on the slot-based mask, as
+  in JAX's ``engine.py:36``; the chunked drain refuses them, as JAX's
+  does); the decode steps' attention is ``ops.decode_attention`` and the
+  chunk rows' ``ops.flash_attention.flash_attention_band`` (the kernels on
+  the card) where ``llama.kernel_attention_ok`` holds.
 """
 
 from __future__ import annotations

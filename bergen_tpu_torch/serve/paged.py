@@ -40,6 +40,13 @@ class PagedGenerationServer(GenerationServer):
             raise NotImplementedError(
                 "paged attention does not yet cover gemma-2 softcap/sliding "
                 "layers — use GenerationServer")
+        if getattr(cfg, "sliding_window", 0) and max_len > cfg.sliding_window:
+            # phi3's window (applied by the port, not by the JAX package):
+            # the paged partial attends each slot's whole history
+            window = cfg.sliding_window
+            raise NotImplementedError(
+                f"paged attention applies no sliding window ({window} keys)"
+                f" to sequences of up to {max_len}: use GenerationServer")
         self.device = _device.resolve(device)
         self.dtype = dtype or _device.default_dtype(self.device, None)
         self.params = params

@@ -15,12 +15,18 @@ Phases (each prints one JSON line):
      nomic-embed-text-v1.5 and jina-embeddings-v2-base-en (their published
      layouts), Llama-2-7b-chat (13.5 GB of sharded safetensors) and
      Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
-     then Llama-3.2-3B-Instruct (6.4 GB, llama3 rope scaling, tied
-     embeddings) and Qwen2.5-7B-Instruct (15.2 GB, seeded q/k/v biases),
+     then Llama-3.2-3B-Instruct (llama3 rope scaling, tied embeddings)
+     and Qwen2.5-7B-Instruct (seeded q/k/v biases), both at 8 of their 28
+     layers (``SMOKE_LLAMA3_QWEN2_LAYERS``),
      with byte-level BPE tokenizers in the layouts of their published
      files (the port's trainer on the ut1 text, seeded random byte tokens
      up to the published vocabulary, the specials at their ids), each
-     deleted after its paths;
+     deleted after its paths; then Gemma-7B-it (17 GB, all 28 layers),
+     Gemma-2B-it, Gemma-2-9B-it, Phi-3-mini-4k-instruct and
+     c4ai-command-r-v01 (the last four cut in depth: ``SMOKE_*_LAYERS``),
+     one at a time, with tokenizers in their published layouts
+     (``write_family_tokenizer``: Gemma's sentencepiece BPE, Phi-3's
+     Llama-2 layout, Command-R's byte-level BPE with Digits);
   3. each hand-written kernel against its plain PyTorch version at the main
      path's shapes: max error against a stated tolerance, kernel / plain /
      library time and the card's lower bound for the same work (the decode
@@ -39,7 +45,10 @@ Phases (each prints one JSON line):
      decode attention and the paged partial also at the Llama-3.x /
      Qwen2.x groups 3, 5 and 7, flash prefill at groups 7 and 3 and the
      band at group 7, and the int4 product with an f32 bias at
-     Qwen2.5-7B's five shapes;
+     Qwen2.5-7B's five shapes; decode, flash and band attention at head
+     width 256 (Gemma-7B's group 1 and Gemma-2B's group 8, at batch 8 and
+     at the paths' 32) and the int4 product at Phi-3-mini's and
+     Command-R's decode shapes;
      the attention block at bge-large's width and the score GEMM at the
      retrieval shapes, which no path runs; the int8 bin top-k at the
      SPLADE sketch's (D 1,024, mode 'bin') and slab's (D 10,240, mode
@@ -57,8 +66,16 @@ Phases (each prints one JSON line):
      ``mode="epoch"``; ``generator=llama-3.2-3b-instruct`` (bf16, group
      3) and ``qwen-25-7b-instruct_int4`` (group 7, biases in the int4
      epilogue), both with flash prefill, and ``vllm_qwen-25-7b-instruct``
-     with ``kv_cache=paged``, each with its exact launches a step; the
-     eval with the splade-v3 retriever (the exact
+     with ``kv_cache=paged``, each with its exact launches a step;
+     ``generator=gemma-7b`` (flash prefill: 28 flash attentions a prefill
+     and 28 decode attentions a step at head width 256) and its served
+     chunked drain (the band at 256), ``gemma-2b`` (group 8),
+     ``gemma-2-9b-it`` (no attention kernel: the rule on its config),
+     ``phi3_mini`` (int4, head width 96: no attention kernel, its head on
+     the dequantized product) and ``command-r-35b`` (int4, flash prefill,
+     group 1 at 128), Gemma-2-9B and Command-R also on their first two
+     layers, card against CPU; the eval with the splade-v3 retriever (the
+     exact
      engine at 1,000 docs) and its retrieve stage with ``sparse_method``
      sketch and slab (the bin top-k in modes 'bin' and 'doc'); then the
      card against the port's f32 CPU path on
@@ -175,7 +192,20 @@ PATH_KERNELS = {
     "ut1_splade_sketch": ("encoder_layer", "bin_topk_int8"),
     "ut1_splade_slab": ("encoder_layer", "bin_topk_int8"),
     "retrieval_at_scale_splade": ("bin_topk_int8",),
+    "ut1_gemma7b": ("encoder_layer", "flash_attention", "decode_attention"),
+    "ut1_serve_chunked_gemma7b": ("flash_attention_band",
+                                  "decode_attention"),
+    "ut1_gemma2b": ("encoder_layer", "flash_attention", "decode_attention"),
+    "ut1_gemma2_9b": ("encoder_layer",),
+    "ut1_phi3_int4": ("encoder_layer", "int4_matmul"),
+    "ut1_command_r_int4": ("encoder_layer", "int4_matmul", "flash_attention",
+                           "decode_attention"),
 }
+# the paths whose config no attention kernel serves (Gemma-2's softcaps and
+# query scale; Phi-3's head width 96, flash prefill off as by default)
+NO_ATTENTION_KERNEL_PATHS = ("ut1_gemma2_9b", "ut1_phi3_int4")
+ATTENTION_KERNELS = ("decode_attention", "flash_attention",
+                     "flash_attention_band", "paged_attention")
 # the int8 bin top-k's mode on the SPLADE paths: the sketch's per-bin
 # scales, the slab's per-doc ones (the first path to take mode 'doc'); the
 # at-scale path runs the slab, then the sketch
@@ -1309,6 +1339,16 @@ DECODE_SHAPES = ((8, 64, 4, 320, "random"), (8, 64, 4, 2112, "random"),
 DECODE_GQA_SHAPES = ((8, 128, 8, 640, "random", 24),
                      (8, 128, 4, 640, "random", 28),
                      (8, 128, 8, 640, "random", 40))
+# (B, Dh, KH, L, mask, H): head width 256 at batch 8 and a ut1 decode
+# step's cache (the 512 bucket + 128 new tokens): Gemma-7B's 16 heads on
+# 16 (group 1) and Gemma-2B's 8 on 1 (group 8); Gemma-7B over 2,112 slots
+# with masks that leave whole splits without a valid key; then both at the
+# batch their paths decode at (gemma-7b.yaml's and gemma-2b.yaml's 32)
+DECODE_DH256_SHAPES = ((8, 256, 16, 640, "random", 16),
+                       (8, 256, 1, 640, "random", 8),
+                       (8, 256, 16, 2112, "empty_splits", 16),
+                       (32, 256, 16, 640, "random", 16),
+                       (32, 256, 1, 640, "random", 8))
 
 
 def check_decode_attention(results: dict, dev) -> None:
@@ -1317,7 +1357,8 @@ def check_decode_attention(results: dict, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     per_shape = []
-    for B, Dh, KH, L, mask, *heads in DECODE_SHAPES + DECODE_GQA_SHAPES:
+    for shape in DECODE_SHAPES + DECODE_GQA_SHAPES + DECODE_DH256_SHAPES:
+        B, Dh, KH, L, mask, *heads = shape
         H = heads[0] if heads else 32
         q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
         kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
@@ -1380,7 +1421,8 @@ def check_decode_attention(results: dict, dev) -> None:
             da.decode_attention(q, kc, vc, valid, kv_heads=KH,
                                 sm_scale=scale)))
         row = {"B": B, "L": L, "H": H, "KH": KH, "head_dim": Dh,
-               "llama3_qwen2": bool(heads),
+               "llama3_qwen2": shape in DECODE_GQA_SHAPES,
+               "gemma": shape in DECODE_DH256_SHAPES,
                "mask": mask, "splits": splits,
                "blocks": B * KH * splits, "launches_per_call": per_call,
                "max_abs_err": max_err, "mean_abs_err": mean_err,
@@ -1659,6 +1701,75 @@ def check_int4_bias(results: dict, dev) -> None:
     results.setdefault("int4_matmul", []).extend(per_shape)
 
 
+# (K, N): the int4 projections of Phi-3-mini (q, k and v from the fused
+# qkv_proj, and o: 3,072 x 3,072; gate and up 3,072 x 8,192; down 8,192 x
+# 3,072; its head, N 32,064, is outside the kernel's shape rule and takes
+# the dequantized product) and of Command-R v01 (q/k/v/o 8,192 x 8,192;
+# gate and up 8,192 x 22,528; down 22,528 x 8,192; the tied head 8,192 x
+# 256,000), at the decode steps' 8 rows
+INT4_PHI3_COHERE_KN = (("phi3_mini", 3072, 3072), ("phi3_mini", 3072, 8192),
+                       ("phi3_mini", 8192, 3072),
+                       ("command_r", 8192, 8192), ("command_r", 8192, 22528),
+                       ("command_r", 22528, 8192),
+                       ("command_r", 8192, 256000))
+
+
+def check_int4_phi3_cohere(results: dict, dev) -> None:
+    """The int4 kernel against its plain version at Phi-3-mini's and
+    Command-R's decode shapes (``INT4_PHI3_COHERE_KN``, 8 rows), with the
+    bf16 product on the dequantized weight as the library yardstick; rows
+    go after the other int4 rows."""
+    import torch
+    from bergen_tpu_torch.models.convert import (dequantize_int4,
+                                                 quantize_int4_packed,
+                                                 unpack_int4)
+    from bergen_tpu_torch.ops import int4_matmul as im
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rnd = _rnd(gen, dev)
+    per_shape = []
+    M = 8
+    for model, K, N in INT4_PHI3_COHERE_KN:
+        if not im.supports(K, N, K // INT4_GROUP):
+            fail(f"int4_matmul: {model}'s {K} x {N} is outside the kernel's "
+                 "shape rule")
+        wp, sc = quantize_int4_packed((rnd(K, N) * 0.02).bfloat16(),
+                                      INT4_GROUP)
+        w_bf = dequantize_int4(unpack_int4(wp), sc, torch.bfloat16)
+        x = rnd(M, K).bfloat16()
+        out = im.matmul_int4_packed(x, wp, sc)
+        ref = im.matmul_int4_packed_plain(x, wp, sc)
+        max_err, mean_err = _errors(out, ref)
+        del ref
+        ms = cuda_time_ms(lambda: im.matmul_int4_packed(x, wp, sc), iters=50)
+        device_ms = device_time_ms([lambda: im.matmul_int4_packed(x, wp, sc)])
+        per_call = launches_per_call(
+            im.matmul_int4_packed, lambda: im.matmul_int4_packed(x, wp, sc))
+        plain_ms = cuda_time_ms(lambda: im.matmul_int4_packed_plain(x, wp,
+                                                                    sc),
+                                iters=1, warmup=1)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w_bf), iters=50)
+        library_device_ms = device_time_ms([lambda: torch.matmul(x, w_bf)])
+        b_ms, b_by = bound(2 * M * K * N, K * N // 2 + K // INT4_GROUP * N * 4
+                           + M * K * 2 + M * N * 4)
+        row = {"M": M, "K": K, "N": N, "group": INT4_GROUP, "model": model,
+               "gemma_phi3_cohere": True, "variant": "decode",
+               "launches_per_call": per_call, "max_abs_err": max_err,
+               "mean_abs_err": mean_err, "tol": INT4_TOL, "ms": ms,
+               "device_ms": device_ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+               "library_device_ms": library_device_ms,
+               "library": "bf16 torch.matmul on the dequantized weight"}
+        emit({"phase": "kernel_check", "kernel": "int4_matmul", **row})
+        per_shape.append(row)
+        if not (max_err <= INT4_TOL and per_call == 1):
+            fail(f"int4_matmul {model} M{M} K{K} N{N}: max error {max_err} "
+                 f"(tol {INT4_TOL}); {per_call} launches a call")
+        del wp, sc, w_bf, x, out
+        torch.cuda.empty_cache()
+    results.setdefault("int4_matmul", []).extend(per_shape)
+
+
 def check_int4_quantizer(results: dict, dev) -> None:
     """One Llama-2-7B gate kernel (4,096 x 11,008, bf16) quantized on the
     card and on the CPU: codes and scales must be equal bit for bit."""
@@ -1699,6 +1810,11 @@ FLASH_SHAPES = ((8, 256, 32, 32, 128, True), (8, 2048, 32, 32, 128, True),
 # the Llama-3.x / Qwen2.x prefills: batch 8 at ut1's 512 bucket, Qwen2.5-7B's
 # group 7 and Llama-3.2-3B's group 3
 FLASH_GQA_SHAPES = ((8, 512, 28, 4, 128, True), (8, 512, 24, 8, 128, True))
+# head width 256: Gemma-7B (16 heads on 16) and Gemma-2B (8 on 1) at ut1's
+# 512 bucket, left-padded, at batch 8 and at their paths' 32
+FLASH_DH256_SHAPES = ((8, 512, 16, 16, 256, True), (8, 512, 8, 1, 256, True),
+                      (32, 512, 16, 16, 256, True),
+                      (32, 512, 8, 1, 256, True))
 LLAMA2_NEW_TOKENS = 128  # generator=llama-2-7b-chat-uni's max_new_tokens
 
 
@@ -1712,7 +1828,7 @@ def check_flash_attention(results: dict, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(9)
     per_shape = []
-    for shape in FLASH_SHAPES + FLASH_GQA_SHAPES:
+    for shape in FLASH_SHAPES + FLASH_GQA_SHAPES + FLASH_DH256_SHAPES:
         B, S, H, KH, Dh, padded = shape
         L = S + LLAMA2_NEW_TOKENS
         q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
@@ -1756,7 +1872,9 @@ def check_flash_attention(results: dict, dev) -> None:
         device_ms = device_time_ms(
             [lambda: fa.flash_attention(q, k4, v4, valid)], iters=20)
         row = {"B": B, "S": S, "H": H, "KH": KH, "head_dim": Dh,
-               "llama3_qwen2": shape in FLASH_GQA_SHAPES, "padded": padded, "max_abs_err": max_err,
+               "llama3_qwen2": shape in FLASH_GQA_SHAPES,
+               "gemma": shape in FLASH_DH256_SHAPES, "padded": padded,
+               "max_abs_err": max_err,
                "mean_abs_err": mean_err, "tol": FLASH_TOL,
                "mean_tol": FLASH_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by,
@@ -2025,9 +2143,12 @@ BAND_SHAPES = ((32, 8, 128, 896, 400, 128, 90),
                (32, 4, 64, 640, 200, 0, 128),
                (32, 8, 128, 512, 0, 448, 128))
 BAND_GQA_SHAPES = ((28, 4, 128, 896, 400, 128, 90),)  # Qwen2.5-7B's group 7
+# Gemma-7B's drain (16 heads on 16, head width 256: 64-key tiles)
+BAND_DH256_SHAPES = ((16, 16, 256, 896, 400, 128, 90),)
 # and ragged: 300 rows (a part query tile), random bands over 640 keys
-# (some past Sk, some inside a key tile), the third tile all empty
-BAND_RAGGED = (300, 32, 4, 64, 640)
+# (some past Sk, some inside a key tile), the third tile all empty; at
+# TinyLlama's width and at Gemma-7B's
+BAND_RAGGED = ((300, 32, 4, 64, 640), (300, 16, 16, 256, 640))
 
 
 def check_flash_attention_band(results: dict, dev) -> None:
@@ -2044,7 +2165,7 @@ def check_flash_attention_band(results: dict, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(13)
     rnd = _rnd(gen, dev)
     per_shape = []
-    for shape in BAND_SHAPES + BAND_GQA_SHAPES:
+    for shape in BAND_SHAPES + BAND_GQA_SHAPES + BAND_DH256_SHAPES:
         H, KH, Dh, L, base, off, nv = shape
         C = BAND_CHUNK
         q = rnd(C, H, Dh).bfloat16()
@@ -2094,6 +2215,7 @@ def check_flash_attention_band(results: dict, dev) -> None:
         b_ms, b_by = bound(4 * H * Dh * pairs, nbytes)
         row = {"Sq": C, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
                "llama3_qwen2": shape in BAND_GQA_SHAPES,
+               "gemma": shape in BAND_DH256_SHAPES,
                "band_keys": n_keys, "in_band_pairs": pairs,
                "band_start": base, "band_end_max": int(band[:, 1].max()),
                "max_abs_err": max_err, "mean_abs_err": mean_err,
@@ -2122,29 +2244,31 @@ def check_flash_attention_band(results: dict, dev) -> None:
                  f"{row['kernels_per_call']}")
         del q, kc, vc, out, ref
         torch.cuda.empty_cache()
-    Sq, H, KH, Dh, L = BAND_RAGGED
-    q = rnd(Sq, H, Dh).bfloat16()
-    k, v = rnd(L, KH, Dh).bfloat16(), rnd(L, KH, Dh).bfloat16()
-    lo = torch.randint(-3, L, (Sq,), generator=gen, device=dev)
-    hi = lo + torch.randint(1, L + 60, (Sq,), generator=gen, device=dev)
-    band = torch.stack([lo, hi], dim=1).int()
-    band[256:] = 300  # the third query tile: every band empty
-    band = band.contiguous()
-    out = fa.flash_attention_band(q, k, v, band)
-    ref = fa.flash_attention_band_plain(q, k, v, band)
-    max_err, mean_err = _errors(out, ref)
-    empty = band[:, 0].clamp_min(0) >= band[:, 1].clamp_max(L)
-    empty_exact = bool((out[empty] == 0).all())
-    emit({"phase": "kernel_check", "kernel": "flash_attention_band",
-          "Sq": Sq, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
-          "empty_rows": int(empty.sum().item()), "max_abs_err": max_err,
-          "mean_abs_err": mean_err, "tol": FLASH_TOL,
-          "mean_tol": FLASH_MEAN_TOL, "empty_band_exact_zero": empty_exact})
-    if not (max_err <= FLASH_TOL and mean_err <= FLASH_MEAN_TOL
-            and empty_exact and bool(empty[256:].all())):
-        fail(f"flash_attention_band ragged Sq {Sq}: max error {max_err} (tol "
-             f"{FLASH_TOL}), mean error {mean_err} (tol {FLASH_MEAN_TOL}), "
-             f"empty bands exactly zero: {empty_exact}")
+    for Sq, H, KH, Dh, L in BAND_RAGGED:
+        q = rnd(Sq, H, Dh).bfloat16()
+        k, v = rnd(L, KH, Dh).bfloat16(), rnd(L, KH, Dh).bfloat16()
+        lo = torch.randint(-3, L, (Sq,), generator=gen, device=dev)
+        hi = lo + torch.randint(1, L + 60, (Sq,), generator=gen, device=dev)
+        band = torch.stack([lo, hi], dim=1).int()
+        band[256:] = 300  # the third query tile: every band empty
+        band = band.contiguous()
+        out = fa.flash_attention_band(q, k, v, band)
+        ref = fa.flash_attention_band_plain(q, k, v, band)
+        max_err, mean_err = _errors(out, ref)
+        empty = band[:, 0].clamp_min(0) >= band[:, 1].clamp_max(L)
+        empty_exact = bool((out[empty] == 0).all())
+        emit({"phase": "kernel_check", "kernel": "flash_attention_band",
+              "Sq": Sq, "H": H, "KH": KH, "head_dim": Dh, "keys": L,
+              "empty_rows": int(empty.sum().item()), "max_abs_err": max_err,
+              "mean_abs_err": mean_err, "tol": FLASH_TOL,
+              "mean_tol": FLASH_MEAN_TOL,
+              "empty_band_exact_zero": empty_exact})
+        if not (max_err <= FLASH_TOL and mean_err <= FLASH_MEAN_TOL
+                and empty_exact and bool(empty[256:].all())):
+            fail(f"flash_attention_band ragged Sq {Sq} Dh{Dh}: max error "
+                 f"{max_err} (tol {FLASH_TOL}), mean error {mean_err} (tol "
+                 f"{FLASH_MEAN_TOL}), empty bands exactly zero: "
+                 f"{empty_exact}")
     results["flash_attention_band"] = per_shape
 
 
@@ -2656,12 +2780,31 @@ LLAMA2_LAYERS_PER_SHARD = 4
 
 
 def _llama_layer_shapes(c: dict) -> dict:
+    """{tensor name: shape} of one decoder layer's linear weights, in the
+    family's published layout: the head width from ``head_dim`` (gemma's)
+    or the hidden width over the heads; Phi-3's fused ``qkv_proj`` and
+    ``gate_up_proj``."""
     D, I = c["hidden_size"], c["intermediate_size"]
-    KV = c["num_key_value_heads"] * D // c["num_attention_heads"]
-    return {"self_attn.q_proj": (D, D), "self_attn.k_proj": (KV, D),
-            "self_attn.v_proj": (KV, D), "self_attn.o_proj": (D, D),
+    H = c["num_attention_heads"]
+    Dh = c.get("head_dim") if c["model_type"] in ("gemma", "gemma2") \
+        else D // H
+    Q, KV = H * Dh, c["num_key_value_heads"] * Dh
+    if c["model_type"] == "phi3":
+        return {"self_attn.qkv_proj": (Q + 2 * KV, D),
+                "self_attn.o_proj": (D, Q), "mlp.gate_up_proj": (2 * I, D),
+                "mlp.down_proj": (D, I)}
+    return {"self_attn.q_proj": (Q, D), "self_attn.k_proj": (KV, D),
+            "self_attn.v_proj": (KV, D), "self_attn.o_proj": (D, Q),
             "mlp.gate_proj": (I, D), "mlp.up_proj": (I, D),
             "mlp.down_proj": (D, I)}
+
+
+# each family's norms of a layer; gemma's weights are stored as w with the
+# norm scaling by (1 + w), so they are written as zeros, the others as ones
+LAYER_NORMS = {"gemma2": ("input_layernorm", "post_attention_layernorm",
+                          "pre_feedforward_layernorm",
+                          "post_feedforward_layernorm"),
+               "cohere": ("input_layernorm",)}
 
 
 def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
@@ -2670,9 +2813,10 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
     weights made on the card, written as sharded safetensors
     (LLAMA2_LAYERS_PER_SHARD layers a shard) plus the index file, one shard
     at a time so that host memory holds one shard; qwen2's q/k/v biases
-    (seeded, N(0, 0.5)); no lm_head where the embeddings are tied; a
-    word-level tokenizer over the fixture words with ``chat_template``, or
-    ``tokenizer(path)``'s."""
+    (seeded, N(0, 0.5)); each family's layout of linears and norms
+    (``_llama_layer_shapes``, ``LAYER_NORMS``); no lm_head where the
+    embeddings are tied; a word-level tokenizer over the fixture words
+    with ``chat_template``, or ``tokenizer(path)``'s."""
     import torch
     from bergen_tpu_torch.models.convert import save_safetensors
     from bergen_tpu_torch.models.tokenizer import write_tokenizer
@@ -2680,12 +2824,18 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
     os.makedirs(path, exist_ok=True)
     D, V, n = c["hidden_size"], c["vocab_size"], c["num_hidden_layers"]
     gen = torch.Generator(device=dev).manual_seed(seed)
+    norm_value = 0.0 if c["model_type"] in ("gemma", "gemma2") else 1.0
+    norms = LAYER_NORMS.get(c["model_type"], ("input_layernorm",
+                                              "post_attention_layernorm"))
 
     def w(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.02
                 ).bfloat16().cpu()
 
-    n_shards = n // LLAMA2_LAYERS_PER_SHARD
+    def ones():
+        return torch.full((D,), norm_value, dtype=torch.bfloat16)
+
+    n_shards = -(-n // LLAMA2_LAYERS_PER_SHARD)
     weight_map, total = {}, 0
     for s in range(n_shards):
         name = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
@@ -2693,7 +2843,7 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
         if s == 0:
             sd["model.embed_tokens.weight"] = w(V, D)
         for i in range(s * LLAMA2_LAYERS_PER_SHARD,
-                       (s + 1) * LLAMA2_LAYERS_PER_SHARD):
+                       min(n, (s + 1) * LLAMA2_LAYERS_PER_SHARD)):
             pre = f"model.layers.{i}"
             for lin, (o, k) in _llama_layer_shapes(c).items():
                 sd[f"{pre}.{lin}.weight"] = w(o, k)
@@ -2701,11 +2851,10 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
                         "self_attn.q_proj", "self_attn.k_proj",
                         "self_attn.v_proj"):
                     sd[f"{pre}.{lin}.bias"] = w(o) * 25
-            for norm in ("input_layernorm", "post_attention_layernorm"):
-                sd[f"{pre}.{norm}.weight"] = torch.ones(D,
-                                                        dtype=torch.bfloat16)
+            for norm in norms:
+                sd[f"{pre}.{norm}.weight"] = ones()
         if s == n_shards - 1:
-            sd["model.norm.weight"] = torch.ones(D, dtype=torch.bfloat16)
+            sd["model.norm.weight"] = ones()
             if not c.get("tie_word_embeddings"):
                 sd["lm_head.weight"] = w(V, D)
         save_safetensors(sd, os.path.join(path, name))
@@ -2732,8 +2881,8 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
 
 # the main path's depth for the earlier 7B checkpoints (Llama-2-7B and
 # Mistral-7B: 32 published layers each), cut so that the whole run stays
-# near ten minutes with the Llama-3.2-3B and Qwen2.5-7B paths at their full
-# depth; their widths, and so every kernel's shapes, are the published ones
+# within its time with the later paths; their widths, and so every
+# kernel's shapes, are the published ones
 SMOKE_7B_LAYERS = 4
 
 
@@ -2923,22 +3072,244 @@ def write_byte_level_tokenizer(path: str, family: str, seed: int) -> dict:
     return {"merges": n_merges, "bpe_vocab": n_bpe, "specials": len(added)}
 
 
+# the depth of the Llama-3.2-3B and Qwen2.5-7B paths (28 published layers
+# each), cut since the Gemma, Phi-3 and Command-R paths joined the run
+SMOKE_LLAMA3_QWEN2_LAYERS = 8
+
+
 def write_llama32_3b(root: str, dev) -> str:
-    """Llama-3.2-3B-Instruct at its published widths (6.4 GB, tied
-    embeddings) with a Llama-3 byte-level tokenizer."""
+    """Llama-3.2-3B-Instruct at its published widths (6.4 GB at its 28
+    layers; SMOKE_LLAMA3_QWEN2_LAYERS of them, tied embeddings) with a
+    Llama-3 byte-level tokenizer."""
     return _write_sharded_llama(
-        os.path.join(root, "llama-3.2-3b-instruct-random"), dev, LLAMA32_3B,
+        os.path.join(root, "llama-3.2-3b-instruct-random"), dev,
+        dict(LLAMA32_3B, num_hidden_layers=SMOKE_LLAMA3_QWEN2_LAYERS),
         "", 14, tokenizer=lambda p: write_byte_level_tokenizer(p, "llama3",
                                                                14))
 
 
 def write_qwen25_7b(root: str, dev) -> str:
-    """Qwen2.5-7B-Instruct at its published widths (15.2 GB, q/k/v biases)
-    with a Qwen2 byte-level tokenizer."""
+    """Qwen2.5-7B-Instruct at its published widths (15.2 GB at its 28
+    layers; SMOKE_LLAMA3_QWEN2_LAYERS of them, q/k/v biases) with a Qwen2
+    byte-level tokenizer."""
     return _write_sharded_llama(
-        os.path.join(root, "qwen2.5-7b-instruct-random"), dev, QWEN25_7B,
+        os.path.join(root, "qwen2.5-7b-instruct-random"), dev,
+        dict(QWEN25_7B, num_hidden_layers=SMOKE_LLAMA3_QWEN2_LAYERS),
         "", 15, tokenizer=lambda p: write_byte_level_tokenizer(p, "qwen2",
                                                                15))
+
+
+# google/gemma-7b-it's and gemma-2b-it's published config.json (the
+# checkpoints that gemma-7b.yaml, vllm_gemma-7b-it.yaml and gemma-2b.yaml
+# name): head width 256, tied embeddings, hidden_act gelu
+GEMMA_7B = dict(model_type="gemma", vocab_size=256000, hidden_size=3072,
+                num_hidden_layers=28, num_attention_heads=16,
+                num_key_value_heads=16, head_dim=256,
+                intermediate_size=24576, max_position_embeddings=8192,
+                rope_theta=10000.0, rms_norm_eps=1e-6, hidden_act="gelu",
+                tie_word_embeddings=True, bos_token_id=2, eos_token_id=1,
+                pad_token_id=0, torch_dtype="bfloat16")
+GEMMA_2B = dict(GEMMA_7B, hidden_size=2048, num_hidden_layers=18,
+                num_attention_heads=8, num_key_value_heads=1,
+                intermediate_size=16384)
+# google/gemma-2-9b-it's (gemma-2-9b-it.yaml, vllm_gemma-2-9b-it.yaml):
+# softcaps, query_pre_attn_scalar, sliding-window even layers
+GEMMA2_9B = dict(model_type="gemma2", vocab_size=256000, hidden_size=3584,
+                 num_hidden_layers=42, num_attention_heads=16,
+                 num_key_value_heads=8, head_dim=256,
+                 intermediate_size=14336, max_position_embeddings=8192,
+                 rope_theta=10000.0, rms_norm_eps=1e-6,
+                 hidden_act="gelu_pytorch_tanh",
+                 hidden_activation="gelu_pytorch_tanh",
+                 attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                 query_pre_attn_scalar=256, sliding_window=4096,
+                 tie_word_embeddings=True, bos_token_id=2, eos_token_id=1,
+                 pad_token_id=0, torch_dtype="bfloat16")
+# microsoft/Phi-3-mini-4k-instruct's (phi3_mini.yaml): head width 96,
+# fused qkv and gate_up, a 2,047-key window
+PHI3_MINI = dict(model_type="phi3", vocab_size=32064, hidden_size=3072,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, intermediate_size=8192,
+                 max_position_embeddings=4096,
+                 original_max_position_embeddings=4096, rope_theta=10000.0,
+                 rope_scaling=None, rms_norm_eps=1e-5, sliding_window=2047,
+                 hidden_act="silu", tie_word_embeddings=False,
+                 bos_token_id=1, eos_token_id=32000, pad_token_id=32000,
+                 torch_dtype="bfloat16")
+# CohereForAI/c4ai-command-r-v01's (command-r-35b.yaml): LayerNorm,
+# interleaved rope, parallel block, logit scale, tied embeddings
+COMMAND_R = dict(model_type="cohere", vocab_size=256000, hidden_size=8192,
+                 num_hidden_layers=40, num_attention_heads=64,
+                 num_key_value_heads=64, intermediate_size=22528,
+                 max_position_embeddings=8192, rope_theta=8000000.0,
+                 layer_norm_eps=1e-5, logit_scale=0.0625, use_qk_norm=False,
+                 hidden_act="silu", tie_word_embeddings=True,
+                 bos_token_id=5, eos_token_id=255001, pad_token_id=0,
+                 torch_dtype="bfloat16")
+# the depth each path runs (full published widths): Gemma-7B whole, the
+# others cut so that the script stays near its time (PERF.md section 4)
+SMOKE_GEMMA2B_LAYERS = 8
+SMOKE_GEMMA2_9B_LAYERS = 4
+SMOKE_PHI3_LAYERS = 4
+SMOKE_COMMAND_R_LAYERS = 4
+# gemma-7b-it's chat template (no system role: the generator folds the
+# system prompt into the user turn on its raise_exception)
+GEMMA_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% if messages[0]['role'] == 'system' %}"
+    "{{ raise_exception('System role not supported') }}{% endif %}"
+    "{% for message in messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}{% endif %}"
+    "{% if (message['role'] == 'assistant') %}{% set role = 'model' %}"
+    "{% else %}{% set role = message['role'] %}{% endif %}"
+    "{{ '<start_of_turn>' + role + '\\n' + message['content'] | trim "
+    "+ '<end_of_turn>\\n' }}{% endfor %}"
+    "{% if add_generation_prompt %}{{'<start_of_turn>model\\n'}}{% endif %}")
+# Phi-3-mini-4k-instruct's
+PHI3_CHAT_TEMPLATE = (
+    "{% for message in messages %}"
+    "{% if message['role'] == 'system' %}"
+    "{{'<|system|>\\n' + message['content'] + '<|end|>\\n'}}"
+    "{% elif message['role'] == 'user' %}"
+    "{{'<|user|>\\n' + message['content'] + '<|end|>\\n'}}"
+    "{% elif message['role'] == 'assistant' %}"
+    "{{'<|assistant|>\\n' + message['content'] + '<|end|>\\n'}}"
+    "{% endif %}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|assistant|>\\n' }}{% else %}"
+    "{{ eos_token }}{% endif %}")
+# c4ai-command-r-v01's default template without its tool and RAG branches
+COMMAND_R_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% if messages[0]['role'] == 'system' %}"
+    "{% set loop_messages = messages[1:] %}"
+    "{% set system_message = messages[0]['content'] %}"
+    "{% else %}{% set loop_messages = messages %}"
+    "{% set system_message = false %}{% endif %}"
+    "{% if system_message != false %}"
+    "{{ '<|START_OF_TURN_TOKEN|><|SYSTEM_TOKEN|>' + system_message "
+    "+ '<|END_OF_TURN_TOKEN|>' }}{% endif %}"
+    "{% for message in loop_messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}{% endif %}"
+    "{% set content = message['content'] %}"
+    "{% if message['role'] == 'user' %}"
+    "{{ '<|START_OF_TURN_TOKEN|><|USER_TOKEN|>' + content.strip() "
+    "+ '<|END_OF_TURN_TOKEN|>' }}"
+    "{% elif message['role'] == 'assistant' %}"
+    "{{ '<|START_OF_TURN_TOKEN|><|CHATBOT_TOKEN|>' + content.strip() "
+    "+ '<|END_OF_TURN_TOKEN|>' }}{% endif %}{% endfor %}"
+    "{% if add_generation_prompt %}"
+    "{{ '<|START_OF_TURN_TOKEN|><|CHATBOT_TOKEN|>' }}{% endif %}")
+COMMAND_R_LOW_SPECIALS = ("<PAD>", "<UNK>", "<CLS>", "<SEP>", "<MASK_TOKEN>",
+                          "<BOS_TOKEN>", "<EOS_TOKEN>", "<EOP_TOKEN>")
+COMMAND_R_TURN_SPECIALS = ("<|START_OF_TURN_TOKEN|>", "<|END_OF_TURN_TOKEN|>",
+                           "<|USER_TOKEN|>", "<|CHATBOT_TOKEN|>",
+                           "<|SYSTEM_TOKEN|>")
+
+
+def _fill_vocab(vocab: dict, size: int, alphabet: list[str], seed: int):
+    """Seeded random 2- to 4-character tokens of ``alphabet`` added until
+    ``vocab`` holds ``size`` ids (random weights emit any id)."""
+    import random
+
+    rng = random.Random(seed)
+    while len(vocab) < size:
+        tok = "".join(rng.choice(alphabet) for _ in range(rng.randint(2, 4)))
+        vocab.setdefault(tok, len(vocab))
+
+
+def write_family_tokenizer(path: str, family: str, seed: int) -> dict:
+    """A tokenizer in the layout of the family's published ``tokenizer.json``
+    (as transformers' converters and tokenizer classes give it), written by
+    the port's writer with merges learnt from the ut1 text and seeded random
+    tokens up to the published vocabulary:
+    * gemma: sentencepiece BPE with byte fallback, spaces replaced by ``▁``,
+      a Split on " " merged with the previous piece; ``<pad>`` 0, ``<eos>``
+      1, ``<bos>`` 2, ``<unk>`` 3, ``<start_of_turn>`` 106,
+      ``<end_of_turn>`` 107, the byte tokens, then the merges; vocabulary
+      256,000; bos added by the template;
+    * phi3: Llama-2's sentencepiece BPE layout (``<unk>`` 0, ``<s>`` 1,
+      ``</s>`` 2, the byte tokens, merges to 32,000), then Phi-3's chat
+      specials from ``<|endoftext|>`` 32,000 (the eos) to 32,063;
+    * cohere: byte-level BPE with the Digits (each digit alone) and
+      ByteLevel pre-tokenizers and NFC; the eight low specials (``<PAD>``
+      0, ``<BOS_TOKEN>`` 5), the BPE, and the turn tokens from 255,000
+      (``<|END_OF_TURN_TOKEN|>`` 255,001, the eos).
+    Returns its sizes."""
+    from bergen_tpu_torch.models import tokenizer as T
+
+    texts = _ut1_texts()
+    if family in ("gemma", "phi3"):
+        gemma = family == "gemma"
+        low = ({"<pad>": 0, "<eos>": 1, "<bos>": 2, "<unk>": 3} if gemma
+               else {"<unk>": 0, "<s>": 1, "</s>": 2})
+        vocab = dict(low)
+        if gemma:
+            for i in range(4, 106):
+                vocab[f"<unused{i - 4}>"] = i
+            vocab["<start_of_turn>"], vocab["<end_of_turn>"] = 106, 107
+        n0 = len(vocab)
+        for b in range(256):
+            vocab[f"<0x{b:02X}>"] = n0 + b
+        chars, merges = T.train_sentencepiece_bpe(texts, 1 << 20, len(vocab))
+        vocab.update(chars)
+        alphabet = sorted(c for c in chars if len(c) == 1)
+        _fill_vocab(vocab, 256000 if gemma else 32000, alphabet, seed)
+        if gemma:
+            added = dict(low, **{"<start_of_turn>": 106,
+                                 "<end_of_turn>": 107})
+            specials = {"bos_token": "<bos>", "eos_token": "<eos>",
+                        "pad_token": "<pad>", "unk_token": "<unk>"}
+            template, chat = GEMMA_CHAT_TEMPLATE, ("<bos>", None)
+        else:
+            chat_specials = ["<|endoftext|>", "<|assistant|>",
+                             "<|placeholder1|>", "<|placeholder2|>",
+                             "<|placeholder3|>", "<|placeholder4|>",
+                             "<|system|>", "<|end|>", "<|placeholder5|>",
+                             "<|placeholder6|>", "<|user|>"]
+            added = dict(low)
+            for i in range(32000, 32064):
+                t = chat_specials[i - 32000] if i - 32000 < len(
+                    chat_specials) else f"<|placeholder{i - 32000}|>"
+                added[t] = vocab[t] = i
+            specials = {"bos_token": "<s>", "eos_token": "<|endoftext|>",
+                        "pad_token": "<|endoftext|>", "unk_token": "<unk>"}
+            template, chat = PHI3_CHAT_TEMPLATE, ("<s>", None)
+        T.write_tokenizer(path, "SentencePieceBPE", vocab, specials,
+                          merges=merges, added=added, template=chat,
+                          chat_template=template,
+                          layout="gemma" if gemma else "llama2")
+        return {"merges": len(merges), "vocab": len(vocab),
+                "specials": len(added)}
+    bpe, merges = T.train_byte_level_bpe(texts, 1 << 20, T.GPT2_SPLIT)
+    low = {t: i for i, t in enumerate(COMMAND_R_LOW_SPECIALS)}
+    vocab = dict(low, **{t: i + len(low) for t, i in bpe.items()})
+    table = T.bytes_to_unicode()
+    _fill_vocab(vocab, 255000, list(table.values()), seed)
+    added = dict(low, **{t: 255000 + i
+                         for i, t in enumerate(COMMAND_R_TURN_SPECIALS)})
+    vocab.update(added)
+    _fill_vocab(vocab, 256000, list(table.values()), seed + 1)
+    T.write_tokenizer(
+        path, "ByteLevelBPE", vocab,
+        {"bos_token": "<BOS_TOKEN>", "eos_token": "<|END_OF_TURN_TOKEN|>",
+         "pad_token": "<PAD>", "unk_token": "<UNK>"},
+        merges=merges, added=added, template=("<BOS_TOKEN>", None), nfc=True,
+        digits=True, chat_template=COMMAND_R_CHAT_TEMPLATE)
+    return {"merges": len(merges), "vocab": len(vocab), "specials": len(added)}
+
+
+def write_family(root: str, dev, name: str, c: dict, layers: int | None,
+                 seed: int) -> str:
+    """The checkpoint ``name`` at config ``c`` (``layers`` cuts its depth)
+    with its family's tokenizer (``write_family_tokenizer``)."""
+    if layers is not None:
+        c = dict(c, num_hidden_layers=layers)
+    family = {"gemma2": "gemma"}.get(c["model_type"], c["model_type"])
+    return _write_sharded_llama(
+        os.path.join(root, name), dev, c, "", seed,
+        tokenizer=lambda p: write_family_tokenizer(p, family, seed))
 
 
 def first_layers(path: str, n_layers: int = 2) -> str:
@@ -3210,16 +3581,21 @@ def run_ut1_int4_llama2(ckpt: dict, workdir: str,
 
 
 def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
-                            key: str) -> dict:
-    """The dense eval with ``generator`` on checkpoint ``key`` and flash
-    prefill on (``USE_FLASH_PREFILL``, as on ut1_int4_llama2): the
-    Llama-3.2-3B (bf16, group 3) and int4 Qwen2.5-7B (group 7, q/k/v biases
-    in the int4 epilogue) paths.  Every int4 projection must take the
-    kernel: the shape-routed dequantized product must not run."""
+                            key: str, flash: bool = True,
+                            head_dequant: bool = False) -> dict:
+    """The dense eval with ``generator`` on checkpoint ``key``, with flash
+    prefill on (``USE_FLASH_PREFILL``, as on ut1_int4_llama2) unless
+    ``flash`` is off: the Llama-3.2-3B (bf16, group 3), int4 Qwen2.5-7B
+    (group 7, q/k/v biases in the int4 epilogue), Gemma (head width 256),
+    Gemma-2 (no attention kernel), int4 Phi-3 (head width 96, flash off as
+    by default) and int4 Command-R paths.  Every int4 projection must take
+    the kernel, but for the head where ``head_dequant`` (Phi-3's N 32,064,
+    outside the kernel's shape rule): the dequantized product's calls are
+    returned."""
     from bergen_tpu_torch.models import llama
 
     llama._int4_dequant_proj.calls = 0
-    llama.USE_FLASH_PREFILL = True
+    llama.USE_FLASH_PREFILL = True if flash else None
     try:
         exp, wall = _run_cli([
             "retriever=bge-base-en-v1.5",
@@ -3229,12 +3605,14 @@ def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
             ckpt)
     finally:
         llama.USE_FLASH_PREFILL = None
-    if llama._int4_dequant_proj.calls:
+    if llama._int4_dequant_proj.calls and not head_dequant:
         fail(f"{generator}: {llama._int4_dequant_proj.calls} projections "
              "took the dequantized product instead of the int4 kernel")
     _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
     return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
-            "generator": generator, "trec_lines": 500, **_check_outputs(exp)}
+            "generator": generator, "flash_prefill": flash,
+            "dequant_projections": llama._int4_dequant_proj.calls,
+            "trec_lines": 500, **_check_outputs(exp)}
 
 
 def run_ut1_serve_mistral(ckpt: dict, workdir: str,
@@ -3274,36 +3652,42 @@ def run_ut1_serve_mistral(ckpt: dict, workdir: str,
             "trec_lines": 500, **_check_outputs(exp)}
 
 
-def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str) -> dict:
+def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str,
+                                  source: str = "ut1_serve_mistral",
+                                  key: str = "mistral_7b",
+                                  modes: tuple = ("chunked", "epoch")
+                                  ) -> dict:
     """The served Mistral-7B (``generator=vllm_mistral-7b-chat``'s LLM: 32
     slots, 128 new tokens, max_length 4,096) draining the 50 instructions
     that ut1_serve_mistral's eval built (its ``eval_dev_out.json``) with
     ``run_workload(mode="chunked")`` (2 pipes of 128-token chunks), then
-    with ``mode="epoch"``.  Per mode: steps (fused steps; decode steps),
-    wall, new tokens/s; and the share of tokens the modes agree on, not
-    held to a limit (random weights make near-ties); a digest of each
-    mode's tokens."""
+    with ``mode="epoch"``; or checkpoint ``key`` draining path ``source``'s
+    instructions in ``modes`` (ut1_serve_chunked_gemma7b: Gemma-7B,
+    vllm_gemma-7b-it's lengths, chunked only).  Per mode: steps (fused
+    steps; decode steps), wall, new tokens/s; with both modes the share of
+    tokens they agree on, not held to a limit (random weights make
+    near-ties); a digest of each mode's tokens."""
     import numpy as np
     import torch
     from bergen_tpu_torch.models.generators.llm import LLM
     from bergen_tpu_torch.serve import GenerationServer
 
-    served = os.path.join(os.path.dirname(workdir), "ut1_serve_mistral")
+    served = os.path.join(os.path.dirname(workdir), source)
     exp_root = os.path.join(served, "tests", "run", "experiments")
     exp = os.path.join(exp_root, next(d for d in os.listdir(exp_root)
                                       if not d.startswith("tmp_")))
     instructions = [r["instruction"] for r in _json(exp, "eval_dev_out.json")]
-    llm = LLM(ckpt["mistral_7b"], batch_size=64, max_new_tokens=128,
+    llm = LLM(ckpt[key], batch_size=64, max_new_tokens=128,
               max_length=4096, serve=True, max_slots=MISTRAL_SLOTS,
               device="cuda")
     ids = llm.tokenizer(instructions, truncation=True,
                         max_length=4096)["input_ids"]
     GenerationServer.decode_steps = GenerationServer.chunk_pipe_steps = 0
-    out = {"requests": len(ids), "slots": MISTRAL_SLOTS,
+    out = {"requests": len(ids), "slots": MISTRAL_SLOTS, "checkpoint": key,
            "max_new_tokens": MISTRAL_NEW_TOKENS,
            "prompt_tokens": [min(map(len, ids)), max(map(len, ids))]}
     tokens = {}
-    for mode in ("chunked", "epoch"):
+    for mode in modes:
         steps0 = GenerationServer.decode_steps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3321,18 +3705,21 @@ def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str) -> dict:
                          .encode()).hexdigest()}
     out["chunked"]["pipe_steps"] = GenerationServer.chunk_pipe_steps
     out["decode_steps"] = GenerationServer.decode_steps
-    same = sum(int(np.sum(np.asarray(a[:len(b)]) == np.asarray(b[:len(a)])))
-               for a, b in zip(tokens["chunked"], tokens["epoch"]))
-    out["agree_token_share"] = same / max(out["epoch"]["new_tokens"], 1)
-    # greedy decoding diverges for good at its first near-tie flip: the
-    # first tokens (the prompt alone decides them) and the common prefix
-    prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                   min(len(a), len(b)))
-              for a, b in zip(tokens["chunked"], tokens["epoch"])]
-    out["first_token_agree_share"] = float(np.mean([p > 0 for p in prefix]))
-    out["common_prefix_mean"] = float(np.mean(prefix))
+    if "epoch" in modes:
+        same = sum(int(np.sum(np.asarray(a[:len(b)])
+                              == np.asarray(b[:len(a)])))
+                   for a, b in zip(tokens["chunked"], tokens["epoch"]))
+        out["agree_token_share"] = same / max(out["epoch"]["new_tokens"], 1)
+        # greedy decoding diverges for good at its first near-tie flip: the
+        # first tokens (the prompt alone decides them) and the common prefix
+        prefix = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       min(len(a), len(b)))
+                  for a, b in zip(tokens["chunked"], tokens["epoch"])]
+        out["first_token_agree_share"] = float(np.mean([p > 0
+                                                         for p in prefix]))
+        out["common_prefix_mean"] = float(np.mean(prefix))
     if not all(len(t) >= 1 for t in tokens["chunked"]):
-        fail("ut1_serve_chunked_mistral: a request got no token")
+        fail(f"chunked drain on {key}: a request got no token")
     del llm
     return out
 
@@ -3578,6 +3965,34 @@ def check_new_generators_against_cpu(ckpt: dict) -> dict:
     if bad:
         fail(f"Llama-3.2 / Qwen2.5 card vs CPU reference: {bad} below "
              f"{tol}: {out}")
+    return out
+
+
+def check_family_against_cpu(ckpt: dict, key: str) -> dict:
+    """The card's bf16 path against the port's f32 CPU path (the plain
+    attention and kernels' plain versions) on the first two layers of
+    checkpoint ``key``: Gemma-2-9B (softcaps, query scale, sandwich norms,
+    a sliding layer and a global one; no attention kernel) or Command-R
+    (LayerNorm, interleaved rope, parallel block, logit scale, the tied
+    head; the decode kernel at group 1), bf16 weights: two ut1 questions,
+    the prefill and one decode step, the CPU decoding the card's tokens."""
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    tol = 0.99  # min row cosine of the logits, bf16 against f32
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1] for ln in f][:2]
+    path = first_layers(ckpt[key], 2)
+    logits = _generator_logits(
+        lambda dev, dtype: LLM(path, device=dev, dtype=dtype), questions)
+    out = {"checkpoint": key, "layers": 2, "tol": tol,
+           "prefill_logits_min_cos": _cos_rows(logits["cuda"][0],
+                                               logits["cpu"][0]),
+           "decode_logits_min_cos": _cos_rows(logits["cuda"][1],
+                                              logits["cpu"][1])}
+    bad = [k for k in ("prefill_logits_min_cos", "decode_logits_min_cos")
+           if not out[k] >= tol]
+    if bad:
+        fail(f"{key} card vs CPU reference: {bad} below {tol}: {out}")
     return out
 
 
@@ -4236,7 +4651,8 @@ def card_line() -> str:
 
 PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "encoder_layer_q", "bin_topk", "decode_attention",
-                 "int4_matmul", "int4_bias", "int4_quantizer",
+                 "int4_matmul", "int4_bias", "int4_phi3_cohere",
+                 "int4_quantizer",
                  "flash_attention",
                  "paged_attention", "encoder_attention", "bin_topk_int8",
                  "flash_attention_band", "attention_block", "pallas_score",
@@ -4246,6 +4662,10 @@ SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "llama-3.2-3b-instruct-random",
            "llama-3.2-3b-instruct-random-2layers",
            "qwen2.5-7b-instruct-random", "qwen2.5-7b-instruct-random-2layers")
+FAMILY_CKPTS = ("gemma-7b-it-random", "gemma-2b-it-random",
+                "gemma-2-9b-it-random", "gemma-2-9b-it-random-2layers",
+                "phi-3-mini-4k-instruct-random", "c4ai-command-r-v01-random",
+                "c4ai-command-r-v01-random-2layers")
 
 
 def main() -> None:
@@ -4311,6 +4731,8 @@ def main() -> None:
                                                                  dev),
               "int4_matmul": lambda: check_int4_matmul(results, dev),
               "int4_bias": lambda: check_int4_bias(results, dev),
+              "int4_phi3_cohere": lambda: check_int4_phi3_cohere(results,
+                                                                 dev),
               "int4_quantizer": lambda: check_int4_quantizer(results, dev),
               "flash_attention": lambda: check_flash_attention(results, dev),
               "paged_attention": lambda: check_paged_attention(results, dev),
@@ -4452,6 +4874,54 @@ def main() -> None:
                 drive(path, run)
         emit({"phase": "reference_check_llama32_qwen25",
               **check_new_generators_against_cpu(ckpt)})
+        for name in SEVEN_B:  # room on the disk for the next models
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        # the Gemma, Gemma-2, Phi-3 and Command-R paths, one checkpoint at a
+        # time (each deleted after its paths and checks): Gemma-7B whole
+        # (flash prefill and decode at head width 256, group 1; its served
+        # chunked drain, the band at 256), Gemma-2B (group 8), Gemma-2-9B
+        # (no attention kernel), int4 Phi-3-mini (head width 96: no
+        # attention kernel; its head outside the int4 rule) and int4
+        # Command-R (group 1 at head width 128), the last two with the
+        # card against the CPU on their first two layers
+        for key, name, c, layers, seed, paths, check in (
+                ("gemma_7b", "gemma-7b-it-random", GEMMA_7B, None, 16, (
+                    ("ut1_gemma7b", lambda c_, w: run_ut1_flash_generator(
+                        c_, w, "gemma-7b", "gemma_7b")),
+                    ("ut1_serve_chunked_gemma7b",
+                     lambda c_, w: run_ut1_serve_chunked_mistral(
+                         c_, w, "ut1_gemma7b", "gemma_7b", ("chunked",)))),
+                 False),
+                ("gemma_2b", "gemma-2b-it-random", GEMMA_2B,
+                 SMOKE_GEMMA2B_LAYERS, 17, (
+                     ("ut1_gemma2b", lambda c_, w: run_ut1_flash_generator(
+                         c_, w, "gemma-2b", "gemma_2b")),), False),
+                ("gemma2_9b", "gemma-2-9b-it-random", GEMMA2_9B,
+                 SMOKE_GEMMA2_9B_LAYERS, 18, (
+                     ("ut1_gemma2_9b", lambda c_, w: run_ut1_flash_generator(
+                         c_, w, "gemma-2-9b-it", "gemma2_9b")),), True),
+                ("phi3_mini", "phi-3-mini-4k-instruct-random", PHI3_MINI,
+                 SMOKE_PHI3_LAYERS, 19, (
+                     ("ut1_phi3_int4", lambda c_, w: run_ut1_flash_generator(
+                         c_, w, "phi3_mini", "phi3_mini", flash=False,
+                         head_dequant=True)),), False),
+                ("command_r", "c4ai-command-r-v01-random", COMMAND_R,
+                 SMOKE_COMMAND_R_LAYERS, 20, (
+                     ("ut1_command_r_int4",
+                      lambda c_, w: run_ut1_flash_generator(
+                          c_, w, "command-r-35b", "command_r")),), True)):
+            t0 = time.perf_counter()
+            ckpt[key] = write_family(root, dev, name, c, layers, seed)
+            emit({"phase": f"checkpoint_{key}",
+                  "write_s": time.perf_counter() - t0, "path": ckpt[key],
+                  "layers": layers or c["num_hidden_layers"]})
+            for path, run in paths:
+                drive(path, run)
+            if check:
+                emit({"phase": f"reference_check_{key}",
+                      **check_family_against_cpu(ckpt, key)})
+            for gone in (name, name + "-2layers"):
+                shutil.rmtree(os.path.join(root, gone), ignore_errors=True)
         emit({"phase": "launches", **by_path,
               "encoder_attention_with_bias": bias_launches,
               "bin_topk_int8_by_mode": int8_by_mode})
@@ -4492,7 +4962,7 @@ def main() -> None:
                 ("ut1_serve_mistral", "decode_attention", n_layers),
                 ("ut1_serve_paged_mistral", "paged_attention", n_layers),
                 ("ut1_serve_paged_qwen25", "paged_attention",
-                 QWEN25_7B["num_hidden_layers"])):
+                 SMOKE_LLAMA3_QWEN2_LAYERS)):
             want = n_layers * runs[path]["decode_steps"]
             if by_path[path][kernel] != want:
                 fail(f"{path}: {by_path[path][kernel]} {kernel} launches, "
@@ -4520,36 +4990,69 @@ def main() -> None:
         # attention per layer (a decode step none); TinyLlama's and
         # Llama-3.2-3B's decode steps one decode attention per layer, no
         # int4 product
-        for path, layers, int4, flash in (
-                ("ut1_int4_llama2", SMOKE_7B_LAYERS, True, True),
-                ("ut1_eval", TINYLLAMA["num_hidden_layers"], False, False),
-                ("ut1_eval_nomic", TINYLLAMA["num_hidden_layers"], False,
-                 False),
-                ("ut1_eval_jina", TINYLLAMA["num_hidden_layers"], False,
-                 False),
-                ("ut1_rerank", TINYLLAMA["num_hidden_layers"], False, False),
-                ("ut1_llama32", LLAMA32_3B["num_hidden_layers"], False,
-                 True),
-                ("ut1_int4_qwen25", QWEN25_7B["num_hidden_layers"], True,
-                 True)):
-            per4 = 7 * layers + 1 if int4 else 0
+        # Gemma-7B and Gemma-2B: one decode attention a layer and decode
+        # step, one flash attention a layer and prefill, at head width 256;
+        # Gemma-2-9B and Phi-3 none (the rule on their configs), Phi-3's 7
+        # int4 products a layer and its head through the dequantized
+        # product; Command-R 7 a layer and its tied head
+        tiny = TINYLLAMA["num_hidden_layers"]
+        for path, per4, dec, flash in (
+                ("ut1_int4_llama2", 7 * SMOKE_7B_LAYERS + 1,
+                 SMOKE_7B_LAYERS, SMOKE_7B_LAYERS),
+                ("ut1_eval", 0, tiny, 0),
+                ("ut1_eval_nomic", 0, tiny, 0),
+                ("ut1_eval_jina", 0, tiny, 0),
+                ("ut1_rerank", 0, tiny, 0),
+                ("ut1_llama32", 0, SMOKE_LLAMA3_QWEN2_LAYERS,
+                 SMOKE_LLAMA3_QWEN2_LAYERS),
+                ("ut1_int4_qwen25", 7 * SMOKE_LLAMA3_QWEN2_LAYERS + 1,
+                 SMOKE_LLAMA3_QWEN2_LAYERS, SMOKE_LLAMA3_QWEN2_LAYERS),
+                ("ut1_gemma7b", 0, GEMMA_7B["num_hidden_layers"],
+                 GEMMA_7B["num_hidden_layers"]),
+                ("ut1_gemma2b", 0, SMOKE_GEMMA2B_LAYERS,
+                 SMOKE_GEMMA2B_LAYERS),
+                ("ut1_gemma2_9b", 0, 0, 0),
+                ("ut1_phi3_int4", 7 * SMOKE_PHI3_LAYERS, 0, 0),
+                ("ut1_command_r_int4", 7 * SMOKE_COMMAND_R_LAYERS + 1,
+                 SMOKE_COMMAND_R_LAYERS, SMOKE_COMMAND_R_LAYERS)):
             bad = [st for st in steps[path] if st[1:4] != (
-                per4, layers if st[0] == 1 else 0,
-                layers if flash and st[0] > 1 else 0)]
+                per4, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
             n_dec = sum(1 for st in steps[path] if st[0] == 1)
             if bad or not n_dec:
                 fail(f"{path}: forward steps with (S, int4_matmul, "
                      f"decode_attention, flash_attention) launches "
                      f"{bad[:3]} ({len(bad)} in all), not (S, {per4}, "
-                     f"{layers} or 0 at S > 1, {layers if flash else 0} "
-                     f"at S > 1 or 0); {n_dec} decode steps")
-            want = (per4 * len(steps[path]), layers * n_dec)
+                     f"{dec} or 0 at S > 1, {flash} at S > 1 or 0); "
+                     f"{n_dec} decode steps")
+            want = (per4 * len(steps[path]), dec * n_dec)
             got = (by_path[path]["int4_matmul"],
                    by_path[path]["decode_attention"])
             if got != want:
                 fail(f"{path}: (int4_matmul, decode_attention) launches {got}"
                      f", not {want} for {len(steps[path])} forward steps, "
                      f"{n_dec} of them decode steps")
+        for path in NO_ATTENTION_KERNEL_PATHS:
+            got = {n: by_path[path][n] for n in ATTENTION_KERNELS}
+            if any(got.values()):
+                fail(f"{path}: attention kernels launched {got}, where the "
+                     "rule on the config sends none")
+        # Phi-3's head (3,072 x 32,064) takes the dequantized product once a
+        # forward step, and no other projection does
+        got = runs["ut1_phi3_int4"]["dequant_projections"]
+        if got != len(steps["ut1_phi3_int4"]):
+            fail(f"ut1_phi3_int4: {got} dequantized products, not one a "
+                 f"forward step ({len(steps['ut1_phi3_int4'])})")
+        # the Gemma-7B chunked drain: one decode attention a layer and step,
+        # one band attention a layer and (step, active pipe) pair
+        path, n_layers = "ut1_serve_chunked_gemma7b", GEMMA_7B[
+            "num_hidden_layers"]
+        got = (by_path[path]["decode_attention"],
+               by_path[path]["flash_attention_band"])
+        want = (n_layers * runs[path]["decode_steps"],
+                n_layers * runs[path]["chunked"]["pipe_steps"])
+        if got != want:
+            fail(f"{path}: (decode_attention, flash_attention_band) launches "
+                 f"{got}, not {want}")
         emit({"phase": "forward_steps", **{
             path: {"forward": len(st),
                    "decode": sum(1 for s in st if s[0] == 1),
@@ -4564,7 +5067,7 @@ def main() -> None:
                      "paged server's decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        for name in SEVEN_B:
+        for name in SEVEN_B + FAMILY_CKPTS:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     # the redesigned kernels: launches per call as measured in their checks,
@@ -4609,6 +5112,16 @@ def main() -> None:
             for r in results[name] if r.get("llama3_qwen2")]
         if new:
             extra["llama3_qwen2_rows"] = new
+        # the rows at the Gemma (head width 256), Phi-3 and Command-R shapes
+        new = [{key: r.get(key) for key in (
+            "B", "S", "L", "M", "K", "N", "H", "KH", "head_dim", "model",
+            "mask", "splits", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms")
+            if key in r}
+            for r in results[name]
+            if r.get("gemma") or r.get("gemma_phi3_cohere")]
+        if new:
+            extra["gemma_phi3_cohere_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

@@ -203,8 +203,8 @@ def test_split_refuses_other_patterns():
     with pytest.raises(NotImplementedError, match=r"\\d\+"):
         T.split_regex(r"\d+")
     spec = {"type": "Split", "pattern": {"Regex": T.LLAMA3_SPLIT},
-            "behavior": "MergedWithPrevious", "invert": False}
-    with pytest.raises(NotImplementedError, match="MergedWithPrevious"):
+            "behavior": "Contiguous", "invert": False}
+    with pytest.raises(NotImplementedError, match="Contiguous"):
         T._pre_tokenizer(spec)
 
 

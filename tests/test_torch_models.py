@@ -291,8 +291,8 @@ def test_dense_retriever_matches_jax(tiny, tmp_path, kind):
 def test_llama_config_refuses_other_families():
     from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        tllama.LlamaConfig.from_hf(SimpleNamespace(model_type="gemma2"))
+    with pytest.raises(NotImplementedError, match="mixtral"):
+        tllama.LlamaConfig.from_hf(SimpleNamespace(model_type="mixtral"))
 
 
 TEXTS = ["What is the capital of Avaria?", "Héllo d_gold_0 wörld!! it's",

@@ -127,7 +127,7 @@ def test_merge_order_matches_tokenizers(tmp_path):
 
 @pytest.mark.parametrize("option,value", [
     ("dropout", 0.1), ("continuing_subword_prefix", "##"),
-    ("end_of_word_suffix", "</w>"), ("pre_tokenizer", "Digits"),
+    ("end_of_word_suffix", "</w>"), ("pre_tokenizer", "UnicodeScripts"),
     ("decoder", "CTC")])
 def test_unported_bpe_options_raise_naming_themselves(bpe, tmp_path, option,
                                                      value):
