@@ -51,6 +51,17 @@ TARGETS = {
         "bergen_tpu_torch.models.generators.llm.LLM",
     "bergen_tpu.models.query_generators.copy.CopyQuery":
         "bergen_tpu_torch.models.query_generators.copy.CopyQuery",
+    "bergen_tpu.models.retrievers.repllama.RepLlama":
+        "bergen_tpu_torch.models.retrievers.repllama.RepLlama",
+    "bergen_tpu.models.retrievers.bm25.BM25":
+        "bergen_tpu_torch.models.retrievers.bm25.BM25",
+    "bergen_tpu.models.retrievers.oracle_provenance.OracleProvenance":
+        "bergen_tpu_torch.models.retrievers.oracle_provenance"
+        ".OracleProvenance",
+    "bergen_tpu.models.generators.oracle.OracleAnswer":
+        "bergen_tpu_torch.models.generators.oracle.OracleAnswer",
+    "bergen_tpu.models.generators.oracle.OracleProvenance":
+        "bergen_tpu_torch.models.generators.oracle.OracleProvenance",
 }
 
 

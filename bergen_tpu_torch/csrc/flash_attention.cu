@@ -29,12 +29,19 @@
 // whose tiles then come from L2.  Key tiles wholly past a tile's visited
 // keys are not loaded; tiles on the diagonal or with a masked key are
 // masked per element, the others only scaled; keys past the visited end of
-// a warpgroup's 64-row block score -inf.  The head width DH (64, 128 or
-// 256) is a template parameter.  At 256 (Gemma's) a 128 x 256 query tile
+// a warpgroup's 64-row block score -inf.  The head width DH (64, 96, 128
+// or 256) is a template parameter.  At 256 (Gemma's) a 128 x 256 query tile
 // is 64 KiB, so a block holds one query slot, two stages of 64-key K and V
 // tiles (64-key S by m64n64 wgmma, P.V by one m64n256 wgmma per 16 keys,
 // O in 128 registers a thread) and no output staging box: each consumer
-// thread stores its rows' bf16 pairs straight to the output.
+// thread stores its rows' bf16 pairs straight to the output.  At 96
+// (Phi-3's) a row of 192 bytes is past the 128-byte swizzle's 64-element
+// box, so a head takes the 128-wide tiles of head width 128 through two
+// 64-wide boxes from its first column: the second box's last 32 columns
+// hold the next head's values (zeros past the last head), which the
+// scores skip (6 k16 steps, DK 96) and P . V carries into 32 output
+// columns that are never stored: the output goes from registers, 96
+// columns a row, as at 256.
 #include "wgmma_attention.cuh"
 
 namespace {
@@ -42,8 +49,11 @@ namespace {
 template <int DH_>
 struct FlashPolicy {
   // head width 256: one query slot and two stages of 64-key K and V
-  // (192 KiB), the output stored from registers (o_row)
-  static constexpr int DH = DH_, BK = DH_ == 256 ? 64 : 128;
+  // (192 KiB), the output stored from registers (o_row); head width 96:
+  // the 128-wide tiles with DK 96 (the boxes' last 32 columns unused, the
+  // output stored from registers)
+  static constexpr int DH = DH_ == 96 ? 128 : DH_, DK = DH_;
+  static constexpr int BK = DH_ == 256 ? 64 : 128;
   static constexpr int STAGES = DH_ == 64 ? 4 : 2;
   static constexpr int QS = DH_ == 256 ? 1 : 2;
   static constexpr bool SPLIT = false;
@@ -77,10 +87,10 @@ struct FlashPolicy {
     return {bh / H, h, h / group, q0, (end + BK - 1) / BK};
   }
   __device__ int3 q_box(const AttTile& t, int r) const {
-    return make_int3(t.qh * DH, t.q0 + 64 * r, t.b);
+    return make_int3(t.qh * DK, t.q0 + 64 * r, t.b);
   }
   __device__ int3 kv_box(const AttTile& t, int j, int h) const {
-    return make_int3(t.kvh * DH, j * BK + 64 * h, t.b);
+    return make_int3(t.kvh * DK, j * BK + 64 * h, t.b);
   }
   __device__ bool key_ok(const AttTile& t, int key) const {
     return key < Sk && valid[(size_t)t.b * valid_stride + key] != 0;
@@ -123,7 +133,7 @@ struct FlashPolicy {
   }
   __device__ bf16* o_row(const AttTile& t, int wg, int r) const {
     const int row = t.q0 + 64 * wg + r;
-    return row < Sq ? out + (((size_t)t.b * Sq + row) * H + t.qh) * DH
+    return row < Sq ? out + (((size_t)t.b * Sq + row) * H + t.qh) * DK
                     : nullptr;
   }
 };
@@ -134,6 +144,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
            long long kv_batch_stride, long long kv_row_stride,
            int valid_stride, int causal, int q_offset, float scale,
            cudaStream_t st) {
+  // DH is the head width (96: FlashPolicy's 128-wide tiles with DK 96)
   FlashPolicy<DH> p;
   const long long qrow = (long long)H * DH;
   int e = tma_map_3d(&p.tq, q, qrow, Sq, B, qrow * 2, qrow * Sq * 2, 64, 64);
@@ -179,6 +190,10 @@ int flash_attention(const void* q, const void* k, const void* v,
   if (Sq == 0 || B == 0) return 0;
   if (Dh == 64)
     return launch<64>(q, k, v, valid, out, B, Sq, Sk, H, KH, kv_batch_stride,
+                      kv_row_stride, valid_stride, causal, q_offset, scale,
+                      st);
+  if (Dh == 96)
+    return launch<96>(q, k, v, valid, out, B, Sq, Sk, H, KH, kv_batch_stride,
                       kv_row_stride, valid_stride, causal, q_offset, scale,
                       st);
   if (Dh == 128)

@@ -295,6 +295,21 @@ struct AttWarpTile<P, std::void_t<decltype(P::WARP_TILE)>> {
   static constexpr bool value = P::WARP_TILE;
 };
 
+// The head width the scores contract and the output holds (P::DK, P::DH
+// where the policy does not say so).  A narrower DK than the tiles' DH
+// (Phi-3's 96 in 128-wide tiles): the boxes past DK hold the next head's
+// columns or zeros, the scores stop at DK (DK / 16 k16 steps), P . V
+// computes DH columns of which the first DK are stored, from registers
+// through P::o_row.
+template <class P, class = void>
+struct AttDK {
+  static constexpr int value = P::DH;
+};
+template <class P>
+struct AttDK<P, std::void_t<decltype(P::DK)>> {
+  static constexpr int value = P::DK;
+};
+
 // Shared memory: QS query slots of [DH / 64][128 rows][64], STAGES K slots
 // of [DH / 64][BK keys][64] (K-major rows for the scores) and STAGES V slots
 // of [BK / 64][DH / 64][64 keys][64] (64-wide dh chunks 8,192 bytes apart,
@@ -321,15 +336,15 @@ struct AttRing {
                               STAGES * (BK / 32) * 4;
 };
 
-// S = Q . K^T over the head width: Q [64 rows] of the consumer's
-// warpgroup and K [BK keys], both K-major (64-wide dh chunks of 128 and BK
-// rows), one wgmma group.
-template <int DH, int BK>
+// S = Q . K^T over the first DK of the head width: Q [64 rows] of the
+// consumer's warpgroup and K [BK keys], both K-major (64-wide dh chunks of
+// 128 and BK rows), one wgmma group.
+template <int DK, int BK>
 __device__ __forceinline__ void att_mma_s(float (&s)[BK / 2],
                                           const unsigned char* qt,
                                           const unsigned char* kt) {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const uint64_t da = wg_desc(qt + (kk / 4) * AT_BQ * 128) + 2 * (kk % 4);
     const uint64_t db = wg_desc(kt + (kk / 4) * BK * 128) + 2 * (kk % 4);
     if constexpr (BK == 128)
@@ -431,7 +446,9 @@ __device__ __forceinline__ bool att_next(const P& p, AttCursor& c,
 // (conflict-free: a warp's 32 pairs land in 32 banks) and stored by TMA
 // at the policy's o_box, which clips rows past the sequence.  The box is
 // rewritten once the previous store has read it.  At head width 256 (N
-// 128) there is no box: the rows go to the policy's o_row directly.
+// 128) there is no box: the rows go to the policy's o_row directly, as do
+// the first DK columns where the policy's DK is narrower than its tiles
+// (a 64-wide box would write into the next head's columns).
 template <class P, int N>
 __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
                                            float (&l)[2], const AttTile& t,
@@ -445,15 +462,17 @@ __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
     inv[r] = 1.f / (P::CLAMP_L ? fmaxf(l[r], 1e-30f) : l[r]);
   }
   const int g = lane >> 2;
-  if constexpr (N == 128) {
-    // head width 256: no staging box; each thread stores its two rows'
-    // column pairs straight to the output (p.o_row: null past the end)
+  constexpr int DK = AttDK<P>::value;
+  if constexpr (N == 128 || DK < 2 * N) {
+    // head width 256, or a DK narrower than the tiles: no staging box;
+    // each thread stores its two rows' column pairs below DK straight to
+    // the output (p.o_row: null past the end)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       bf16* dst = p.o_row(t, wg, 16 * warp + g + 8 * r);
       if (dst == nullptr) continue;
 #pragma unroll
-      for (int c = 0; c < N / 4; ++c)
+      for (int c = 0; c < DK / 8; ++c)
         *reinterpret_cast<uint32_t*>(dst + 8 * c + 2 * (lane & 3)) =
             pack_bf16x2(o[4 * c + 2 * r] * inv[r],
                         o[4 * c + 2 * r + 1] * inv[r]);
@@ -505,14 +524,19 @@ __device__ __forceinline__ void att_finish(const P& p, const float (&o)[N],
 //       raw q.k -> y in place (xs: the K slot's extra bytes);
 //   to, o_box(t, wg)                              the output's bf16 map and
 //       the warpgroup's box (column, first row, batch) of tile t;
-//   o_row(t, wg, r) (DH 256 only)                 row r of the warpgroup's
-//       64 in the output, or null past the sequence.
+//   o_row(t, wg, r) (DH 256, or DK < DH)          row r of the warpgroup's
+//       64 in the output, or null past the sequence;
+//   DK (optional)                                  the head width the
+//       scores contract and the output holds, if narrower than DH.
 // s[4c + e] and o[4c + e] hold row 16 * warp + lane / 4 + 8 (e >> 1) of the
 // warpgroup's 64, column 8c + 2 (lane % 4) + (e & 1) of its keys.
 template <class P>
 __global__ void __launch_bounds__(AT_THREADS, 1)
     att_kernel(const __grid_constant__ P p) {
   constexpr int DH = P::DH, BK = P::BK, ST = P::STAGES, QS = P::QS;
+  constexpr int DK = AttDK<P>::value;  // the scores' contraction
+  static_assert(DK % 16 == 0 && DK <= DH && (DK == DH || DH <= 128),
+                "DK is whole k16 steps of the tiles' width");
   constexpr int NMW = ST < 3 ? ST : 3;  // key-mask warps
   constexpr int BKW = P::SPLIT ? BK / 2 : BK;  // keys a warpgroup attends
   static_assert(!P::SPLIT || (DH == 64 && BK == 128),
@@ -684,7 +708,7 @@ __global__ void __launch_bounds__(AT_THREADS, 1)
     for (int w = 0; w < BKW / 32; ++w) bits[w] = kbits[boff + w];
     named_sync(mine);
     wg_fence();
-    att_mma_s<DH, BKW>(s, qt, ks + koff);
+    att_mma_s<DK, BKW>(s, qt, ks + koff);
     named_arrive(other);
     if (more) p.prefetch(pre_next, cn.t, cn.j, wg, warp, lane);
     wg_wait<0>();
@@ -721,7 +745,7 @@ __global__ void __launch_bounds__(AT_THREADS, 1)
       mbar_wait(&v_full[vslot], (vn / ST) & 1);
       named_sync(mine);
       wg_fence();
-      att_mma_s<DH, BKW>(s, qt, ks + kslot * R::KS_BYTES + koff);
+      att_mma_s<DK, BKW>(s, qt, ks + kslot * R::KS_BYTES + koff);
       att_mma_pv<DH, BKW>(o, pa, vs + vslot * R::V_BYTES + voff);
       named_arrive(other);
       if (more) p.prefetch(pre_next, cn.t, cn.j, wg, warp, lane);

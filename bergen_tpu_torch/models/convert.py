@@ -407,6 +407,86 @@ def dequantize_linear_w8a8(p: Mapping) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------------------- #
+# int8 weight-only and W8A8 generation (bergen_tpu/models/convert.py:403)
+# --------------------------------------------------------------------------- #
+
+
+def quantize_tree_int8(params, min_size: int = 1 << 16, mxu: bool = False,
+                       device=None):
+    """Replace every 2-D ``kernel`` leaf of at least ``min_size`` elements
+    by ``kernel_q`` (int8 [d_in, d_out]) and per-column f32 scales, in
+    place, as the JAX package's ``quantize_tree_int8`` does, bit for bit
+    (``quantize_linear_w8a8``'s codes and scales): under ``kernel_scale``
+    (weight-only int8), or with ``mxu`` under ``kernel_scale_a8`` (W8A8;
+    ``prepare_w8a8`` then lays the codes out for the int8 GEMM).  Each leaf
+    is quantized on ``device`` (default: where it lies), one at a time.  A
+    bias stays beside the codes, in f32."""
+    scale_key = "kernel_scale_a8" if mxu else "kernel_scale"
+
+    def visit(node):
+        if isinstance(node, dict):
+            k = node.get("kernel")
+            if isinstance(k, torch.Tensor) and k.dim() == 2 \
+                    and k.numel() >= min_size:
+                q = quantize_linear_w8a8(
+                    {"kernel": k if device is None else k.to(device),
+                     "bias": torch.zeros(0)})
+                node["kernel_q"], node[scale_key] = \
+                    q["kernel_q"], q["kernel_scale_a8"]
+                del node["kernel"]
+                if "bias" in node:
+                    node["bias"] = node["bias"].to(
+                        device=q["kernel_q"].device, dtype=torch.float32)
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+
+    visit(params)
+    return params
+
+
+def w8a8_rows(n: int) -> int:
+    """The W8A8 weight's stored rows for d_out ``n``: n rounded up to the
+    int8 GEMM's 128-column tiles (``ops/w8a8_matmul.py``)."""
+    return -(-n // 128) * 128
+
+
+def prepare_w8a8(params):
+    """Lay out every W8A8 leaf (``kernel_q`` [K, N] beside
+    ``kernel_scale_a8``) for the int8 GEMM, in place: ``kernel_q_t``
+    [N', K] int8 (N' = ``w8a8_rows(N)``), the transposed codes with zero
+    rows past N, so that every output width JAX runs (Phi-3's head,
+    32,064) is whole 128-column tiles.  Where N' > N the scales and the
+    bias are padded with zeros to N' and ``n_out`` (a Python int) keeps N,
+    so that a call pads nothing."""
+    def visit(node):
+        if isinstance(node, dict):
+            if "kernel_scale_a8" in node and "kernel_q" in node:
+                q = node.pop("kernel_q")
+                K, N = q.shape
+                Np = w8a8_rows(N)
+                w_t = torch.zeros(Np, K, dtype=torch.int8, device=q.device)
+                w_t[:N] = q.t()
+                node["kernel_q_t"] = w_t
+                if Np != N:
+                    for key in ("kernel_scale_a8", "bias"):
+                        if key in node:
+                            v = node[key]
+                            node[key] = torch.cat([v, v.new_zeros(Np - N)])
+                    node["n_out"] = N
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+
+    visit(params)
+    return params
+
+
+# --------------------------------------------------------------------------- #
 # int4 weight-only, group-wise (bergen_tpu/models/convert.py:489)
 # --------------------------------------------------------------------------- #
 
@@ -507,12 +587,14 @@ def to_device(tree, dtype: torch.dtype, device, _keep_f32: bool = False):
     """Copy a tree onto ``device``: weights in ``dtype``, norm parameters,
     biases and quantization scales in f32 (the JAX package's
     ``to_device_tree`` rule); integer codes unchanged; every leaf
-    contiguous."""
+    contiguous; Python ints (``n_out``) as they are."""
     if isinstance(tree, dict):
         return {k: to_device(v, dtype, device, _keep_f32 or k in NORM_KEYS)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_device(v, dtype, device, _keep_f32) for v in tree]
+    if isinstance(tree, int):  # a shape kept beside the arrays (n_out)
+        return tree
     t = torch.from_numpy(np.array(tree)) if not isinstance(
         tree, torch.Tensor) else tree
     if not t.is_floating_point():
@@ -523,5 +605,9 @@ def to_device(tree, dtype: torch.dtype, device, _keep_f32: bool = False):
 
 def from_jax_params(tree, dtype: torch.dtype = torch.float32,
                     device="cpu") -> Any:
-    """A JAX parameter tree (numpy or jax arrays) -> the port's tree."""
+    """A JAX parameter tree (numpy or jax arrays) -> the port's tree.  The
+    quantized formats come across as they are: int8 codes (``kernel_q``,
+    ``kernel_q4p``) unchanged, their scales (``kernel_scale``,
+    ``kernel_scale_a8``, ``kernel_scale4``) in f32; a generator's W8A8
+    leaves then take ``prepare_w8a8``."""
     return to_device(tree, dtype, device)

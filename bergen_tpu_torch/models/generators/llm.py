@@ -6,16 +6,20 @@ tokenizer and safetensors readers.
 
 Ported: left-padded length-bucketed batches (``_tokenize_left_pad``),
 greedy ``generate`` and ``first_token_logits``, ``quantization: int4``
-(weight-only, group-wise, packed: ``jax_llm.py:119-123``), and ``serve:
-true`` (``jax_llm.py:216-247``): generation through the continuous-batching
-``serve.GenerationServer`` (``kv_cache: uniform``, its epoch drain) or
-``serve.PagedGenerationServer`` (``kv_cache: paged``).  Sampling, beam
-search, the int8 and W8A8 quantizations and tensor parallelism are not
-ported yet and raise.
+(weight-only, group-wise, packed: ``jax_llm.py:119-123``), ``int8``
+(weight-only) and ``int8_mxu`` / ``w8a8`` (per-row int8 activations on the
+int8 GEMM, after JAX's outlier calibration, ``jax_llm.py:94-118``: above
+``w8a8_outlier_threshold`` it falls back to weight-only int8 with JAX's
+warning; ``quantization_route`` and ``outlier_ratio`` record what
+happened), and ``serve: true`` (``jax_llm.py:216-247``): generation through
+the continuous-batching ``serve.GenerationServer`` (``kv_cache: uniform``,
+its epoch drain) or ``serve.PagedGenerationServer`` (``kv_cache: paged``).
+Sampling, beam search and tensor parallelism are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List
 
 import numpy as np
@@ -50,12 +54,14 @@ class LLM(Generator):
         num_beams: int | None = None,
         best_of: int = 1,
         dtype: str | None = None,  # 'f32'/'bf16' force; None = bf16 on cuda
+        w8a8_outlier_threshold: float = 10.0,  # max per-token absmax/rms
+        # on the calibration batch before w8a8 falls back to int8
         device: str | torch.device | None = None,
         **_ignored,
     ):
+        if quantization not in (None, "int4", "int8", "int8_mxu", "w8a8"):
+            raise ValueError(f"unknown quantization: {quantization!r}")
         unported = {
-            f"quantization={quantization!r}":
-                quantization not in (None, "int4"),
             "tp": tp != 1, "temperature": temperature != 0,
             "beam search": use_beam_search or (num_beams or 1) > 1
             or best_of > 1,
@@ -89,13 +95,33 @@ class LLM(Generator):
         self.cfg = llama.LlamaConfig.from_hf(hf_cfg)
         params = convert.llama_from_hf(sd, self.cfg.num_layers)
         del sd
-        if quantization == "int4":
-            if "lm_head" not in params:
-                # JAX's tree comes from transformers' state dict, which
-                # lists a tied head as lm_head: that head is quantized too
-                params["lm_head"] = {"kernel": params["embed"].T}
-            # as jax_llm: quantize (packed) before placement, here leaf by
-            # leaf on the target device
+        if quantization is not None and "lm_head" not in params:
+            # JAX's tree comes from transformers' state dict, which lists a
+            # tied head as lm_head: that head is quantized too
+            params["lm_head"] = {"kernel": params["embed"].T}
+        self.outlier_ratio = None
+        if quantization in ("int8_mxu", "w8a8"):
+            # JAX places the tree in the compute dtype, calibrates on one
+            # real forward pass and quantizes the placed weights
+            params = convert.to_device(params, self.dtype, self.device)
+            self.outlier_ratio = self._calibrate_outliers(params)
+            if self.outlier_ratio > w8a8_outlier_threshold:
+                logging.getLogger(__name__).warning(
+                    "w8a8 calibration: activation outlier ratio %.1f > "
+                    "threshold %.1f — falling back to weight-only int8 "
+                    "(per-row activation quantization would crush the "
+                    "non-outlier channels)", self.outlier_ratio,
+                    w8a8_outlier_threshold)
+                quantization = "int8"
+        self.quantization_route = quantization
+        # as jax_llm: quantize before placement, here leaf by leaf on the
+        # target device
+        if quantization == "int8":
+            params = convert.quantize_tree_int8(params, device=self.device)
+        elif quantization in ("int8_mxu", "w8a8"):
+            params = convert.prepare_w8a8(convert.quantize_tree_int8(
+                params, mxu=True, device=self.device))
+        elif quantization == "int4":
             params = convert.quantize_tree_int4(params, packed=True,
                                                 device=self.device)
         self.params = convert.to_device(params, self.dtype, self.device)
@@ -116,6 +142,34 @@ class LLM(Generator):
             else:
                 self.server = GenerationServer(
                     prompt_buckets=tuple(self.buckets), **common)
+
+    _CALIBRATION_TEXTS = [
+        "The quick brown fox jumps over the lazy dog near the river bank .",
+        "In 1969 astronauts first landed on the moon during the mission .",
+        "Paris is the capital of France and Berlin the capital of Germany .",
+        "What is the name of the longest river on the southern continent ?",
+    ]
+
+    @torch.inference_mode()
+    def _calibrate_outliers(self, params) -> float:
+        """The largest per-token absmax/rms of the layer inputs over one
+        forward pass on JAX's calibration batch (``jax_llm.py:250-275``):
+        the four texts cut to the shortest one's length (at most 32
+        tokens), unpadded."""
+        enc = self.tokenizer(self._CALIBRATION_TEXTS, truncation=True,
+                             max_length=32)
+        L = min(32, min(len(t) for t in enc["input_ids"]))
+        ii = torch.tensor([t[:L] for t in enc["input_ids"]],
+                          device=self.device)
+        B = ii.shape[0]
+        cache = llama.init_cache(self.cfg, B, L, dtype=self.dtype,
+                                 device=self.device)
+        positions = torch.arange(L, device=self.device).expand(B, L)
+        mask = torch.tril(torch.ones(L, L, dtype=torch.bool,
+                                     device=self.device)).expand(B, L, L)
+        _, stats = llama.forward(params, self.cfg, ii, positions, cache,
+                                 mask, collect_stats=True)
+        return float(stats.max())
 
     def _tokenize_left_pad(self, prompts: List[str]):
         enc = self.tokenizer(prompts, truncation=True,

@@ -23,7 +23,12 @@ kernels on the card).  Layers outside the rule (gemma-2's softcaps and
 query scale, Phi-3's head width 96) compute JAX's einsum attention
 (``_plain_attention``).  Projections of an int4 tree
 (``convert.quantize_tree_int4``) take ``ops.int4_matmul.matmul_int4_packed``
-inside its shape rule and the JAX package's dequantized product outside it.
+inside its shape rule and the JAX package's dequantized product outside it;
+those of a W8A8 tree (``convert.quantize_tree_int8(mxu=True)`` then
+``prepare_w8a8``) take ``ops.w8a8_matmul``, and those of an int8 weight-only
+tree the dequantized product, as in JAX.  ``collect_stats`` returns the
+W8A8 calibration's outlier ratios, ``head=False`` the trunk's output
+(RepLlama).
 The cache is updated in place, where the JAX function returns a new one.
 
 Phi-3's ``sliding_window`` is applied (all layers, slot-based like
@@ -47,6 +52,7 @@ from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
 from bergen_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_band_rows)
+from bergen_tpu_torch.ops.w8a8_matmul import w8a8_matmul
 
 Params = Dict[str, Any]
 
@@ -190,8 +196,10 @@ def kernel_attention_ok(cfg: LlamaConfig) -> bool:
 def _flash_compatible(cfg: LlamaConfig, li: int) -> bool:
     """JAX's ``flash_compatible`` (``llama.py:747-754``): the prefill's
     flash gate, no sliding layer (the kernel's mask is per key), softcap or
-    custom query scale.  It has no head-width rule: Phi-3's 96, which the
-    port's kernel is not built for, raises there."""
+    custom query scale.  It has no head-width rule, as JAX's has none: the
+    kernel takes 64, 96, 128 and 256.  Phi-3-mini's published window makes
+    every layer sliding, so none of its layers takes flash; a Phi-3 layout
+    without a window takes it at 96."""
     return (not sliding(cfg, li) and not cfg.attn_logit_softcap
             and cfg.query_pre_attn_scalar is None)
 
@@ -283,6 +291,23 @@ def init_paged_cache(cfg: LlamaConfig, n_pages: int, slots: int,
 def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W (+ the f32 bias), rounded once to x's dtype."""
     bias = p.get("bias")
+    if "kernel_scale_a8" in p:
+        # W8A8 (bergen_tpu/models/llama.py:306-322): per-row int8
+        # activations, int32 sums, * sx * scale (+ bias), one rounding; the
+        # int8 GEMM on the card, its weight laid out by prepare_w8a8
+        w_t = p["kernel_q_t"]
+        K = w_t.shape[1]
+        y = w8a8_matmul(x.reshape(-1, K), w_t, p["kernel_scale_a8"], bias,
+                        p.get("n_out"))
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    if "kernel_q" in p:
+        # int8 weight-only (llama.py:323-327): the weight dequantized to
+        # x's dtype, then a plain product, as JAX's (no kernel there).  The
+        # bias is kept, where JAX's int8 branch drops it (ROADMAP.md)
+        w = p["kernel_q"].to(x.dtype) * p["kernel_scale"].to(x.dtype)
+        if bias is None:
+            return torch.matmul(x, w)
+        return dense({"kernel": w, "bias": bias}, x)
     if "kernel_q4p" in p:
         # int4 weight-only (bergen_tpu/models/llama.py:328-352): the kernel
         # inside its shape rule, else the dequantized product.  The bias is
@@ -495,8 +520,9 @@ def _attention_paged(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
                      positions: torch.Tensor, inv_freq: torch.Tensor,
                      cache: Dict[str, Any], li: int) -> torch.Tensor:
     """Paged decode attention: writes this token's K/V into the slot tails
-    and attends over (full pages and tail) in place.  Page flush and the
-    lengths increment happen once per step in ``forward``."""
+    and attends over (full pages and tail) in place, within Phi-3's window
+    on a sliding layer (``paged_decode_attention``'s ``window``).  Page
+    flush and the lengths increment happen once per step in ``forward``."""
     B = x.shape[0]
     H, Dh = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(layer, cfg, x, positions, inv_freq)
@@ -504,7 +530,8 @@ def _attention_paged(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
         q[:, 0].contiguous(), k[:, 0], v[:, 0], cache["k_pool"][li],
         cache["v_pool"][li], cache["k_tail"][li], cache["v_tail"][li],
         cache["tables"], cache["lengths"], attention_scale(cfg),
-        starts=cache.get("starts"))
+        starts=cache.get("starts"),
+        window=cfg.sliding_window if sliding(cfg, li) else 0)
     return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
 
 
@@ -543,7 +570,8 @@ def _tied_head(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
             positions: torch.Tensor, cache: Dict[str, Any],
             attn_mask: torch.Tensor, last_only: bool = False,
-            chunk: Dict[str, Any] | None = None) -> torch.Tensor:
+            chunk: Dict[str, Any] | None = None,
+            collect_stats: bool = False, head: bool = True):
     """One step (prefill: S = prompt length; decode: S = 1) writing K/V at
     the cache cursor and advancing it.  attn_mask [B, S, L] bool over cache
     slots.  Returns f32 logits [B, S, V] ([B, 1, V] with ``last_only``).
@@ -562,7 +590,13 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
     the pipe's cache row, write base, whether it attends, its last valid
     chunk row) and ``band`` ([P * per, 2] int32 absolute key bands).  Only
     the decode rows and each pipe's last valid row reach the LM head:
-    returns [Bc + P, 1, V]."""
+    returns [Bc + P, 1, V].
+
+    ``collect_stats`` (JAX ``llama.py:962-1013``) returns (logits, stats):
+    stats the f32 vector of ``outlier_ratio`` of each layer's normed inputs
+    (attention, then MLP; cohere's one a layer), the W8A8 calibration
+    signal.  With ``head=False`` (RepLlama's trunk; slot-pool cache only)
+    it returns the final norm's output [B, S, D] in the compute dtype."""
     paged = "k_pool" in cache
     if paged and input_ids.shape[1] != 1:
         raise NotImplementedError("paged cache is decode-only (S == 1); "
@@ -581,8 +615,11 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
         # 55.5 in bf16 at Gemma-7B's 3,072, not 55.43
         x = x * float(torch.tensor(math.sqrt(cfg.hidden_size),
                                    dtype=x.dtype))
+    stats = []
     for li, layer in enumerate(params["layers"]):
         h = _norm(layer["attn_norm"], x, cfg)
+        if collect_stats:
+            stats.append(outlier_ratio(h))
         if paged:
             a = _attention_paged(layer, cfg, h, positions, inv_freq, cache,
                                  li)
@@ -597,6 +634,8 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
             a = _norm(layer["post_attn_norm"], a, cfg)
         x = x + a
         h = _norm(layer["mlp_norm"], x, cfg)
+        if collect_stats:
+            stats.append(outlier_ratio(h))
         m = _mlp(layer, h, cfg.hidden_act)
         if cfg.post_norms:
             m = _norm(layer["post_mlp_norm"], m, cfg)
@@ -610,11 +649,14 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
                                   for p, last in enumerate(chunk["last"])]
         x = x[torch.tensor(keep, device=x.device)]
     x = _norm(params["final_norm"], x, cfg)
-    head = params.get("lm_head")
-    if head is None:  # tied embeddings
+    if not head and not paged:
+        cache["cursor"] = cache["cursor"] + input_ids.shape[1]
+        return x
+    lm_head = params.get("lm_head")
+    if lm_head is None:  # tied embeddings
         logits = _tied_head(x, params["embed"])
     else:
-        logits = _proj(head, x).float()
+        logits = _proj(lm_head, x).float()
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap:
@@ -632,7 +674,20 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
         cache["lengths"] = lengths_after
     else:
         cache["cursor"] = cache["cursor"] + input_ids.shape[1]
+    if collect_stats:
+        return logits, torch.stack(stats)
     return logits
+
+
+def outlier_ratio(h: torch.Tensor) -> torch.Tensor:
+    """The largest per-token max|h| / rms(h) (JAX ``_outlier_ratio``): the
+    signal-to-rounding ratio of per-row int8 activation quantization, near
+    sqrt(2 ln D) for Gaussian activations and 20 to 100 with LLM.int8-style
+    outlier channels."""
+    f = h.reshape(-1, h.shape[-1]).float()
+    absmax = f.abs().amax(dim=-1)
+    rms = torch.sqrt((f * f).mean(dim=-1) + 1e-12)
+    return (absmax / rms).max()
 
 
 @torch.inference_mode()

@@ -122,6 +122,28 @@ def build_all() -> str:
     return out
 
 
+def host_library(src: str, flags: list[str], stem: str) -> ctypes.CDLL:
+    """The host C++ source ``src`` (a library of ``native/``) built with g++
+    and ``flags`` into ``_build/<stem>-<hash>/lib<stem>.so`` on first use
+    (keyed by the source and the flags) and loaded; raises if it cannot be
+    built or loaded."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()) \
+            .hexdigest()[:16]
+    out = os.path.join(BUILD_ROOT, f"{stem}-{digest}")
+    so = os.path.join(out, f"lib{stem}.so")
+    if not os.path.exists(so):
+        os.makedirs(out, exist_ok=True)
+        tmp = os.path.join(out, f"lib{stem}.{os.getpid()}.tmp.so")
+        res = subprocess.run(["g++", *flags, "-o", tmp, src],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"building {src} failed:\n"
+                               f"{res.stderr[-4000:]}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
+
+
 def function(name: str):
     """The ctypes function for C entry ``name``, building on first use."""
     fn = _fns.get(name)

@@ -51,13 +51,15 @@ from bergen_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 BLOCK = 64
-HEAD_DIMS = (64, 128, 256)  # head widths the kernel is built for
+HEAD_DIMS = (64, 96, 128, 256)  # head widths the prefill kernel takes
+BAND_HEAD_DIMS = (64, 128, 256)  # head widths the band kernel takes
 TILE_Q, TILE_K = 128, 128  # the kernel's query and key tiles
 
 
 def tile_k(Dh: int) -> int:
     """The kernel's key tile at head width Dh: ``TILE_K``, or 64 keys at
-    256, where a 128-key K and V ring would not fit beside the query tile."""
+    256, where a 128-key K and V ring would not fit beside the query tile
+    (96 runs in the 128-wide tiles)."""
     return 64 if Dh == 256 else TILE_K
 
 
@@ -398,9 +400,10 @@ def _band_launch(q, k, v, kv_shape, kv_stride, rows: int, row: int,
     reads."""
     Sq, H, Dh = q.shape
     Sk, KH = kv_shape[0], kv_shape[1]
-    if Dh not in HEAD_DIMS or H % KH or Sk < 1:
+    if Dh not in BAND_HEAD_DIMS or H % KH or Sk < 1:
         raise ValueError(
-            f"flash_attention_band kernel needs a head width in {HEAD_DIMS}, "
+            f"flash_attention_band kernel needs a head width in "
+            f"{BAND_HEAD_DIMS}, "
             f"H a multiple of KH and Sk >= 1; got Dh={Dh}, H={H}, KH={KH}, "
             f"Sk={Sk}")
     bf = torch.bfloat16

@@ -18,7 +18,9 @@ each with its own online softmax, merged in split order;
 ``paged_decode_attention`` routes by JAX's rule
 (``paged_attention.py:382-388``): the kernel at head width 128, the
 one-shot gather composition ``paged_partial_gather`` (JAX's
-``paged_partial_xla``) at any other width.
+``paged_partial_xla``) at any other width, where a sliding window (Phi-3's,
+head width 96) masks the pages and tail keys at distance ``window`` or
+more from the cursor.
 The tail and the pool are updated in place, where the JAX functions return
 new arrays.
 """
@@ -67,15 +69,19 @@ def _partial_from_scores(scores: torch.Tensor, valid: torch.Tensor):
 
 
 def tail_partial(q: torch.Tensor, k_tail: torch.Tensor, v_tail: torch.Tensor,
-                 tail_len: torch.Tensor, scale: float):
-    """Dense partial over the [S, KH, PAGE, Dh] tail.  q [S, H, Dh]."""
+                 tail_len: torch.Tensor, scale: float,
+                 tail_lo: torch.Tensor | None = None):
+    """Dense partial over the [S, KH, PAGE, Dh] tail.  q [S, H, Dh]; with
+    ``tail_lo`` [S], only tail offsets at or past it (a window's keys)."""
     S, H, Dh = q.shape
     KH = k_tail.shape[1]
     qg = q.reshape(S, KH, H // KH, Dh).float()
     sc = torch.einsum("skgd,skpd->skgp", qg,
                       k_tail.to(q.dtype).float()) * scale
-    valid = (torch.arange(PAGE, device=q.device)[None, None, None, :]
-             < tail_len[:, None, None, None])
+    off = torch.arange(PAGE, device=q.device)[None, None, None, :]
+    valid = off < tail_len[:, None, None, None]
+    if tail_lo is not None:
+        valid = valid & (off >= tail_lo[:, None, None, None])
     p, m, l = _partial_from_scores(sc, valid)
     acc = torch.einsum("skgp,skpd->skgd", p.to(q.dtype).float(),
                        v_tail.to(q.dtype).float())
@@ -227,9 +233,16 @@ def splits_for(S: int, KH: int, maxP: int, device) -> int:
 
 def paged_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                   tables: torch.Tensor, n_pages: torch.Tensor, scale: float,
-                  starts: torch.Tensor | None = None):
+                  starts: torch.Tensor | None = None, window: int = 0):
     """q [S, H, Dh]; pools [NP, KH, PAGE, Dh]; tables [S, maxP], n_pages and
-    starts [S] int32 -> (acc [S, H, Dh], m [S, H], l [S, H]) f32."""
+    starts [S] int32 -> (acc [S, H, Dh], m [S, H], l [S, H]) f32.  The
+    kernel takes no window: no shipped config has one at head width 128
+    (Gemma-2 stays refused), so ``window`` raises."""
+    if window:
+        raise NotImplementedError(
+            f"paged_partial takes no sliding window (asked for {window}): "
+            "the paged kernel at head width 128 attends a slot's whole "
+            "history")
     if q.device.type == "cpu":
         return paged_partial_plain(q, k_pool, v_pool, tables, n_pages, scale,
                                    starts)
@@ -339,17 +352,33 @@ def paged_decode_attention(
     lengths: torch.Tensor,  # [S] storage positions used BEFORE this step
     scale: float,
     starts: torch.Tensor | None = None,  # [S] leading bucket-pad positions
+    window: int = 0,  # > 0: only keys within this distance (Phi-3's)
 ) -> torch.Tensor:
     """One paged decode-attention step: tail-write the new token, attend over
     (full pages and tail), return ctx [S, H, Dh] in q's dtype.  Page flush
     and the lengths increment are the caller's (once per step, not per
-    layer)."""
+    layer).
+
+    With ``window`` the query at storage position ``lengths`` sees the keys
+    at positions above ``lengths - window`` only, the slot-pool cache's
+    rule (``models/llama.py``: key slot j is visible iff cursor - j <
+    window; storage distance is token distance between a slot's tokens): a
+    later ``starts`` for the pages' partial (it masks positions below it)
+    and a first visible offset for the tail's."""
     Dh = q.shape[-1]
     tail_write(k_tail, v_tail, k_new, v_new, lengths)
     n_full = lengths // PAGE
     tail_len = lengths - n_full * PAGE + 1  # incl. the token just written
-    partial = (paged_partial if Dh == KERNEL_HEAD_DIM
-               else paged_partial_gather)
-    pp = partial(q, k_pool, v_pool, tables, n_full, scale, starts)
-    tp = tail_partial(q, k_tail, v_tail, tail_len, scale)
+    tail_lo = None
+    if window:
+        lo = lengths - window + 1
+        starts = lo if starts is None else torch.maximum(starts, lo)
+        tail_lo = lo - n_full * PAGE
+    if Dh == KERNEL_HEAD_DIM:
+        pp = paged_partial(q, k_pool, v_pool, tables, n_full, scale, starts,
+                           window=window)
+    else:
+        pp = paged_partial_gather(q, k_pool, v_pool, tables, n_full, scale,
+                                  starts)
+    tp = tail_partial(q, k_tail, v_tail, tail_len, scale, tail_lo)
     return _merge_partials([pp, tp]).to(q.dtype)

@@ -28,9 +28,7 @@ the sketch engine does.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 import zlib
 from typing import Tuple
@@ -38,7 +36,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from bergen_tpu_torch.ops import fused_topk
+from bergen_tpu_torch.ops import _build, fused_topk
 from bergen_tpu_torch.ops.fused_topk import BIN
 from bergen_tpu_torch.ops.sparse_sketch import sketch_map, term_impact_mass
 
@@ -122,22 +120,7 @@ def rescore_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(RESCORE_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(
-                RESCORE_FLAGS).encode()).hexdigest()[:16]
-        out = os.path.join(_PKG, "_build", f"rescore-{digest}")
-        so = os.path.join(out, "librescore.so")
-        if not os.path.exists(so):
-            os.makedirs(out, exist_ok=True)
-            tmp = os.path.join(out, f"librescore.{os.getpid()}.tmp.so")
-            res = subprocess.run(
-                ["g++", *RESCORE_FLAGS, "-o", tmp,
-                 RESCORE_SRC], capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"building {RESCORE_SRC} failed:\n{res.stderr[-4000:]}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = _build.host_library(RESCORE_SRC, RESCORE_FLAGS, "rescore")
         P, I = ctypes.c_void_p, ctypes.c_int32
         lib.sparse_rescore_f32_mt.argtypes = [P, P, I, P, I, I, P, I, P, I]
         lib.sparse_rescore_f32_mt.restype = None

@@ -278,8 +278,13 @@ class Retrieve:
         Returns {q_id, doc_id, score [np.ndarray]} (+ fidelity records)."""
         queries, docs = dataset["query"], dataset["doc"]
         if hasattr(self.model, "search"):
-            raise NotImplementedError(
-                "BM25-style retrievers are not ported yet (ROADMAP.md Queue 1)")
+            # BM25-style models search raw text over their own index, built
+            # in the doc index folder if absent (JAX retrieve.py:249-255)
+            index_file = os.path.join(doc_index_path, "bm25.idx")
+            if not os.path.exists(index_file):
+                self.model.build_index(list(docs["content"]), index_file)
+            self.model.open_index(index_file)
+            return self.model.search(queries, docs, top_k)
         self.index(queries, "query", query_index_path)
         self.index(docs, "doc", doc_index_path)
         q_emb = self.load_index(query_index_path, len(queries))

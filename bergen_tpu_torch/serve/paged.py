@@ -10,7 +10,9 @@ actual length.
   attention partial, and a padded batch row's pages are dropped.
 * The decode step is ``llama.forward`` over the paged cache, whose
   full-pages partial is the ``paged_partial`` kernel on the card at head
-  width 128.
+  width 128.  Phi-3's window (head width 96, the gather route) masks the
+  keys past it in the pages and the tail; the JAX package's paged server
+  applies no window.
 * Admission blocks while the pool is dry (no preemption).
 """
 
@@ -40,13 +42,6 @@ class PagedGenerationServer(GenerationServer):
             raise NotImplementedError(
                 "paged attention does not yet cover gemma-2 softcap/sliding "
                 "layers — use GenerationServer")
-        if getattr(cfg, "sliding_window", 0) and max_len > cfg.sliding_window:
-            # phi3's window (applied by the port, not by the JAX package):
-            # the paged partial attends each slot's whole history
-            window = cfg.sliding_window
-            raise NotImplementedError(
-                f"paged attention applies no sliding window ({window} keys)"
-                f" to sequences of up to {max_len}: use GenerationServer")
         self.device = _device.resolve(device)
         self.dtype = dtype or _device.default_dtype(self.device, None)
         self.params = params

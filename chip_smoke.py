@@ -52,7 +52,12 @@ Phases (each prints one JSON line):
      the attention block at bge-large's width and the score GEMM at the
      retrieval shapes, which no path runs; the int8 bin top-k at the
      SPLADE sketch's (D 1,024, mode 'bin') and slab's (D 10,240, mode
-     'doc') shapes, bit for bit;
+     'doc') shapes, bit for bit; the generators' W8A8 product
+     (``w8a8_matmul``: codes and scales bit for bit, M 8, 32 and 2,048 at
+     TinyLlama's, Qwen2.5-7B's and Phi-3's head shapes), the int8
+     quantizer on the card against the CPU, flash at head width 96
+     (Phi-3) and on right-padded rows (RepLlama), and Phi-3's paged decode
+     step with its window against the slot-pool attention;
   4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
      TinyLlama generator), the same with the nomic-embed retriever and with
@@ -74,7 +79,16 @@ Phases (each prints one JSON line):
      ``phi3_mini`` (int4, head width 96: no attention kernel, its head on
      the dequantized product) and ``command-r-35b`` (int4, flash prefill,
      group 1 at 128), Gemma-2-9B and Command-R also on their first two
-     layers, card against CPU; the eval with the splade-v3 retriever (the
+     layers, card against CPU; the eval with the TinyLlama generator
+     quantized W8A8 (``+generator.init_args.quantization=w8a8``: its
+     calibration ratio printed, the W8A8 route required) and the int8
+     Qwen2.5-7B, ``retriever=repllama`` on a LoRA adapter over Llama-2-7B
+     (flash prefill on right-padded rows), ``retriever=bm25
+     generator=oracle_answer``, the oracle provenance on a run file, and
+     the int4 Phi-3 served paged past its window (RepLlama, the int8
+     Qwen2.5-7B and the paged Phi-3 on their checkpoints' first two
+     layers: ``SMOKE_NEW_PATH_LAYERS``); the eval with the
+     splade-v3 retriever (the
      exact
      engine at 1,000 docs) and its retrieve stage with ``sparse_method``
      sketch and slab (the bin top-k in modes 'bin' and 'doc'); then the
@@ -162,6 +176,11 @@ KERNELS = {
     "pallas_score": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/score.cu",
         "replaces": "bergen_tpu/ops/scoring.py:58"},
+    # the generators' W8A8 product: encoder_layer_q's row quantization and
+    # s8 GEMM (the JAX package computes it in XLA, llama.py:306-322)
+    "w8a8_matmul": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer_q.cu",
+        "replaces": "bergen_tpu/ops/encoder_attention.py:477"},
 }
 # the kernels each part of the main path must launch: ut1's 1,000 docs are
 # below the fused top-k's 131,072-doc threshold, the at-scale retrieval
@@ -200,10 +219,20 @@ PATH_KERNELS = {
     "ut1_phi3_int4": ("encoder_layer", "int4_matmul"),
     "ut1_command_r_int4": ("encoder_layer", "int4_matmul", "flash_attention",
                            "decode_attention"),
+    "ut1_w8a8_tinyllama": ("encoder_layer", "w8a8_matmul",
+                           "decode_attention"),
+    "ut1_int8_qwen25": ("encoder_layer", "flash_attention",
+                        "decode_attention"),
+    "ut1_repllama": ("flash_attention",),
+    # host paths: BM25 (native/bm25) and the oracles run no kernel
+    "ut1_bm25_oracle": (),
+    "ut1_oracle_provenance": (),
+    "ut1_serve_paged_phi3": ("encoder_layer", "int4_matmul"),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
-NO_ATTENTION_KERNEL_PATHS = ("ut1_gemma2_9b", "ut1_phi3_int4")
+NO_ATTENTION_KERNEL_PATHS = ("ut1_gemma2_9b", "ut1_phi3_int4",
+                             "ut1_serve_paged_phi3")
 ATTENTION_KERNELS = ("decode_attention", "flash_attention",
                      "flash_attention_band", "paged_attention")
 # the int8 bin top-k's mode on the SPLADE paths: the sketch's per-bin
@@ -1796,6 +1825,218 @@ def check_int4_quantizer(results: dict, dev) -> None:
     results["int4_quantizer"] = row
 
 
+# the W8A8 product of the generators (ops/w8a8_matmul.py): the row codes
+# and scales bit for bit, and the bf16 output against the plain version's
+# on the same codes, whose f32 value is computed in the kernel's order of
+# operations: within one bf16 rounding of the largest output
+W8A8_PRODUCT_RTOL = 2 ** -8
+W8A8_ROWS = (8, 32, 2048)  # decode rows at LLM's batch 8 and the served
+#                            path's 32, and a prefill of 2,048 rows
+# (model, K, N, bias): each projection shape of TinyLlama-1.1B (q and o, k
+# and v, gate and up, down, the head) and of Qwen2.5-7B (q/k/v biased),
+# and Phi-3-mini's untied head, N 32,064: 250.5 tiles of 128
+W8A8_SHAPES = (("tinyllama", 2048, 2048, False), ("tinyllama", 2048, 256,
+                                                  False),
+               ("tinyllama", 2048, 5632, False), ("tinyllama", 5632, 2048,
+                                                  False),
+               ("tinyllama", 2048, 32000, False),
+               ("qwen2.5-7b", 3584, 3584, True), ("qwen2.5-7b", 3584, 512,
+                                                  True),
+               ("qwen2.5-7b", 3584, 18944, False),
+               ("qwen2.5-7b", 18944, 3584, False),
+               ("qwen2.5-7b", 3584, 152064, False),
+               ("phi3-mini", 3072, 32064, False))
+
+
+def _rowquant_kernel(x):
+    """The row quantization kernel of the W8A8 product alone: (codes,
+    scales) of bf16 x [M, K]."""
+    import torch
+    from bergen_tpu_torch.ops import _build
+
+    M, K = x.shape
+    codes = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, dtype=torch.float32, device=x.device)
+    _build.check(_build.function("encoder_rowquant")(
+        x.data_ptr(), 0, codes.data_ptr(), sx.data_ptr(), None, 0, M, K,
+        _build.stream_ptr(x.device)), "row quantize")
+    return codes, sx
+
+
+def check_w8a8_matmul(results: dict, dev) -> None:
+    """The W8A8 product (row quantization + the s8 GEMM with its bf16
+    epilogue) at W8A8_SHAPES x W8A8_ROWS against its plain version:
+    codes and scales bit for bit, the output within W8A8_PRODUCT_RTOL;
+    kernel, plain and ``torch._int_mm`` (codes in, int32 out: the
+    products alone; M > 16 only) times beside the bound."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.ops import encoder_attention as ea
+    from bergen_tpu_torch.ops import w8a8_matmul as w8
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for model, K, N, biased in W8A8_SHAPES:
+        w = (torch.randn(K, N, generator=gen, device=dev) * 0.02).bfloat16()
+        leaf = convert.prepare_w8a8(convert.quantize_tree_int8(
+            {"x": {"kernel": w}}, min_size=1, mxu=True))["x"]
+        del w
+        w_t, sw, n = leaf["kernel_q_t"], leaf["kernel_scale_a8"], \
+            leaf.get("n_out")
+        b = torch.randn(N, generator=gen, device=dev) if biased else None
+        for M in W8A8_ROWS:
+            x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+            codes, sx = _rowquant_kernel(x)
+            pcodes, psx = ea.quantize_rows_plain(x)
+            codes_equal = bool(torch.equal(codes, pcodes)
+                               and torch.equal(sx, psx))
+            del pcodes, psx
+            out = w8.w8a8_matmul(x, w_t, sw, b, n)
+            ref = w8.w8a8_matmul_plain(x, w_t, sw, b, n)
+            err = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            bit_equal = bool(torch.equal(out, ref))
+            del ref
+            call = lambda: w8.w8a8_matmul(x, w_t, sw, b, n)  # noqa: E731
+            ms = cuda_time_ms(call)
+            plain_ms = cuda_time_ms(
+                lambda: w8.w8a8_matmul_plain(x, w_t, sw, b, n), iters=1,
+                warmup=1)
+            library_ms = library_device_ms = None
+            if M > 16:
+                wk = w_t[:N].t()
+                library_ms = cuda_time_ms(lambda: torch._int_mm(codes, wk))
+                if M == W8A8_ROWS[-1]:
+                    library_device_ms = device_time_ms(
+                        [lambda: torch._int_mm(codes, wk)], iters=20)
+            nbytes = M * K * 2 + w_t.numel() + N * 4 * (2 if biased else 1) \
+                + M * N * 2
+            b_ms, b_by = bound(2 * M * N * K, nbytes, PEAK_INT8_OPS)
+            per_call = launches_per_call(w8.w8a8_matmul, call, 2) \
+                if COUNT_KERNELS and M == 8 else None
+            # the card's own time at the decode and prefill rows (M 32's
+            # event time beside them)
+            device_ms = device_time_ms([call], iters=20) if M != 32 \
+                else None
+            row = {"model": model, "M": M, "K": K, "N": N, "bias": biased,
+                   "codes_equal": codes_equal, "bit_equal": bit_equal,
+                   "max_abs_err": err, "max_abs_out": scale,
+                   "rtol": W8A8_PRODUCT_RTOL, "ms": ms, "device_ms": device_ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms,
+                   "library_device_ms": library_device_ms,
+                   "kernels_per_call": per_call}
+            emit({"phase": "kernel_check", "kernel": "w8a8_matmul", **row})
+            rows.append(row)
+            if not (codes_equal and err <= W8A8_PRODUCT_RTOL * scale
+                    and out.shape == (M, N) and per_call in (2, None)):
+                fail(f"w8a8_matmul {model} M{M} K{K} N{N}: codes equal "
+                     f"{codes_equal}, max error {err} (limit "
+                     f"{W8A8_PRODUCT_RTOL} x {scale}), out {tuple(out.shape)}"
+                     f", {per_call} kernels a call")
+            del x, codes, sx, out
+        del leaf, w_t, sw
+        torch.cuda.empty_cache()
+    results["w8a8_matmul"] = rows
+
+
+def check_int8_quantizer(results: dict, dev) -> None:
+    """One Qwen2.5-7B gate kernel (3,584 x 18,944, bf16) and Phi-3's head
+    (3,072 x 32,064) through ``quantize_tree_int8`` (weight-only and W8A8)
+    on the card and on the CPU: codes and scales equal bit for bit."""
+    import torch
+    from bergen_tpu_torch.models.convert import quantize_tree_int8
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for K, N in ((3584, 18944), (3072, 32064)):
+        w = (torch.randn(K, N, generator=gen, device=dev) * 0.02).bfloat16()
+        w[:, :3] = 0  # all-zero columns: the 1e-8 scale floor
+        for mxu in (False, True):
+            key = "kernel_scale_a8" if mxu else "kernel_scale"
+            t0 = time.perf_counter()
+            card = quantize_tree_int8({"kernel": w}, mxu=mxu)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            cpu = quantize_tree_int8({"kernel": w.cpu()}, mxu=mxu)
+            row = {"K": K, "N": N, "mxu": mxu, "card_s": card_s,
+                   "codes_equal": bool(torch.equal(card["kernel_q"].cpu(),
+                                                   cpu["kernel_q"])),
+                   "scales_equal": bool(torch.equal(card[key].cpu(),
+                                                    cpu[key]))}
+            emit({"phase": "quantizer_check", "quantizer": "int8", **row})
+            rows.append(row)
+            if not (row["codes_equal"] and row["scales_equal"]):
+                fail(f"int8 quantizer: the card's codes or scales differ "
+                     f"from the CPU's: {row}")
+        del w
+    results["int8_quantizer"] = rows
+
+
+# Phi-3-mini's paged decode step with its window (head width 96: the
+# gather route) against the slot-pool step's attention over the same
+# history: f32 sums of the same bf16 products in other orders, the
+# probabilities rounded to bf16 unnormalised (per partial) against
+# normalised, both contexts rounded to bf16: four bf16 ulps of the largest
+# context (a slot of two keys has contexts near its values, |v| < 5)
+PAGED_WINDOW_RTOL = 2 ** -6
+
+
+def check_paged_window(results: dict, dev) -> None:
+    """One paged decode step of Phi-3-mini's attention (H 32 = KH 32, head
+    width 96) for 8 slots of 200 to 2,500 history tokens under its window
+    of 2,047, against the slot-pool cache's attention (``llama.
+    _plain_attention`` under the sliding mask) over the same keys laid
+    out flat."""
+    import torch
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    S, H, Dh, W, P = 8, 32, 96, 2047, pa.PAGE
+    lens = torch.tensor([200, 2046, 2047, 2048, 2100, 2304, 2500, 1],
+                        dtype=torch.int32, device=dev)
+    maxP = -(-int(lens.max()) // P) + 1
+    L = maxP * P
+    hist_k = torch.randn(S, L, H, Dh, generator=gen, device=dev).bfloat16()
+    hist_v = torch.randn(S, L, H, Dh, generator=gen, device=dev).bfloat16()
+    q = torch.randn(S, H, Dh, generator=gen, device=dev).bfloat16()
+    tables = torch.arange(S * maxP, dtype=torch.int32,
+                          device=dev).view(S, maxP)
+    pool = lambda h: h.view(S, maxP, P, H, Dh).permute(  # noqa: E731
+        0, 1, 3, 2, 4).reshape(S * maxP, H, P, Dh).contiguous()
+    k_pool, v_pool = pool(hist_k), pool(hist_v)
+    rows = torch.arange(S, device=dev)
+    n_full = (lens // P).long()
+    k_tail = k_pool[tables[rows, n_full].long()].clone()
+    v_tail = v_pool[tables[rows, n_full].long()].clone()
+    k_new, v_new = hist_k[rows, lens.long()], hist_v[rows, lens.long()]
+    scale = Dh ** -0.5
+    calls = pa.paged_partial_gather.calls
+    ctx = pa.paged_decode_attention(q, k_new, v_new, k_pool, v_pool, k_tail,
+                                    v_tail, tables, lens, scale, window=W)
+    gathers = pa.paged_partial_gather.calls - calls
+    keys = torch.arange(L, device=dev)
+    mask = (keys[None] <= lens[:, None].long()) \
+        & (lens[:, None].long() - keys[None] < W)
+    cfg = llama.LlamaConfig(vocab_size=32064, hidden_size=3072,
+                            num_layers=1, num_heads=H, num_kv_heads=H,
+                            intermediate_size=8192, sliding_window=W)
+    ref = llama._plain_attention(q[:, None], hist_k, hist_v, mask[:, None],
+                                 cfg).view(S, H, Dh)
+    err = float((ctx.float() - ref.float()).abs().max())
+    tol = PAGED_WINDOW_RTOL * float(ref.float().abs().max())
+    row = {"S": S, "H": H, "head_dim": Dh, "window": W,
+           "lens": lens.tolist(), "max_abs_err": err, "tol": tol,
+           "gather_calls": gathers,
+           "kernel_launches": pa.paged_partial.launches}
+    emit({"phase": "paged_window_check", **row})
+    if err > tol or gathers != 1:
+        fail(f"paged window (Phi-3): max error {err} (tol {tol}), "
+             f"{gathers} gather partials")
+    results["paged_window"] = row
+
+
 # flash attention: bf16 outputs (|out| < 4) rounded from f32 sums of the
 # same bf16 products in another order; p rounds to bf16 at the same points
 FLASH_TOL, FLASH_MEAN_TOL = 0.0625, 2e-3
@@ -1815,6 +2056,13 @@ FLASH_GQA_SHAPES = ((8, 512, 28, 4, 128, True), (8, 512, 24, 8, 128, True))
 FLASH_DH256_SHAPES = ((8, 512, 16, 16, 256, True), (8, 512, 8, 1, 256, True),
                       (32, 512, 16, 16, 256, True),
                       (32, 512, 8, 1, 256, True))
+# head width 96: Phi-3-mini (32 heads on 32) at ut1's 512 bucket,
+# left-padded, at LLM's batch 8 (a Phi-3 layout without a window)
+FLASH_DH96_SHAPES = ((8, 512, 32, 32, 96, True),)
+# right-padded rows (RepLlama's trunk at Llama-2-7B's width: its ut1 doc
+# batches of 64, and batch 8 at its config's max_len 512)
+FLASH_RIGHT_SHAPES = ((64, 64, 32, 32, 128, "right"),
+                      (8, 512, 32, 32, 128, "right"))
 LLAMA2_NEW_TOKENS = 128  # generator=llama-2-7b-chat-uni's max_new_tokens
 
 
@@ -1828,7 +2076,8 @@ def check_flash_attention(results: dict, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(9)
     per_shape = []
-    for shape in FLASH_SHAPES + FLASH_GQA_SHAPES + FLASH_DH256_SHAPES:
+    for shape in (FLASH_SHAPES + FLASH_GQA_SHAPES + FLASH_DH256_SHAPES
+                  + FLASH_DH96_SHAPES + FLASH_RIGHT_SHAPES):
         B, S, H, KH, Dh, padded = shape
         L = S + LLAMA2_NEW_TOKENS
         q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
@@ -1843,6 +2092,8 @@ def check_flash_attention(results: dict, dev) -> None:
         valid[1] = False
         if not padded:
             valid[:] = True
+        elif padded == "right":  # every row a prefix, none empty
+            valid = pos[None, :] < lens.clamp_min(2)[:, None]
         out = fa.flash_attention(q, k4, v4, valid)
         ref = fa.flash_attention_plain(q, k4, v4, valid)
         max_err, mean_err = _errors(out, ref)
@@ -1873,7 +2124,9 @@ def check_flash_attention(results: dict, dev) -> None:
             [lambda: fa.flash_attention(q, k4, v4, valid)], iters=20)
         row = {"B": B, "S": S, "H": H, "KH": KH, "head_dim": Dh,
                "llama3_qwen2": shape in FLASH_GQA_SHAPES,
-               "gemma": shape in FLASH_DH256_SHAPES, "padded": padded,
+               "gemma": shape in FLASH_DH256_SHAPES,
+               "phi3_repllama": shape in FLASH_DH96_SHAPES + FLASH_RIGHT_SHAPES,
+               "padded": padded,
                "max_abs_err": max_err,
                "mean_abs_err": mean_err, "tol": FLASH_TOL,
                "mean_tol": FLASH_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
@@ -3353,6 +3606,14 @@ def _local(ckpt: dict, name: str) -> str:
     return f"ckpt/{os.path.basename(ckpt[name])}"
 
 
+# the TinyLlama generator's new tokens on the paths whose subject is the
+# retriever or the reranker (nomic, jina, splade-v3, the DeBERTa rerank):
+# ut1_eval and ut1_w8a8_tinyllama run the config's 64; these repeat the
+# same generator, cut in decode length so that the whole script keeps
+# within its time
+SECOND_EVAL_NEW_TOKENS = "generator.init_args.max_new_tokens=16"
+
+
 def _run_cli(overrides: list[str], workdir: str,
              ckpt: dict) -> tuple[str, float]:
     """``python -m bergen_tpu_torch`` (CONFIG=rag_ut1) in this process, in a
@@ -3362,7 +3623,7 @@ def _run_cli(overrides: list[str], workdir: str,
     seconds)."""
     import runpy
 
-    os.makedirs(workdir)
+    os.makedirs(workdir, exist_ok=True)  # a run may put inputs there first
     os.symlink(os.path.dirname(ckpt["bert"]), os.path.join(workdir, "ckpt"))
     overrides = ["dataset=ut1", *overrides,
                  f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}"]
@@ -3449,7 +3710,8 @@ def _run_remote_eval(ckpt: dict, workdir: str, name: str, config: str,
         f"retriever={config}",
         f"retriever.init_args.model_name={_local(ckpt, name)}", *extra,
         "generator=tinyllama-chat",
-        f"generator.init_args.model_name={_local(ckpt, 'llama')}"], workdir,
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        SECOND_EVAL_NEW_TOKENS], workdir,
         ckpt)
     _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
     out = {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
@@ -3489,7 +3751,8 @@ def run_ut1_rerank(ckpt: dict, workdir: str) -> dict:
         "reranker=debertav3",
         f"reranker.init_args.model_name={_local(ckpt, 'deberta')}",
         "generator=tinyllama-chat",
-        f"generator.init_args.model_name={_local(ckpt, 'llama')}"], workdir,
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        SECOND_EVAL_NEW_TOKENS], workdir,
         ckpt)
     _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
     scores = _trec(exp, "run.rerank.", 50 * 10, cosine=False)
@@ -3750,6 +4013,220 @@ def _chunked_logits(llm, ids: list):
     step = min(-(-len(t) // 128) for t in ids) - 1
     pool = llm.server.S + 1
     return calls[step][:pool], calls[step][pool:], step
+
+
+# the depth of the RepLlama, int8 and paged Phi-3 paths on their 7B-class
+# checkpoints (Llama-2-7B, Qwen2.5-7B, Phi-3-mini): their first two layers
+# (``first_layers``), so that the whole script stays within its time
+SMOKE_NEW_PATH_LAYERS = 2
+
+
+def _spy_llm(run):
+    """``run()`` with every ``LLM`` the port builds in it recorded; returns
+    (run's value, the LLMs)."""
+    from bergen_tpu_torch.models.generators import llm as llm_mod
+
+    made, init = [], llm_mod.LLM.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    llm_mod.LLM.__init__ = spy
+    try:
+        return run(), made
+    finally:
+        llm_mod.LLM.__init__ = init
+
+
+def run_ut1_w8a8_tinyllama(ckpt: dict, workdir: str) -> dict:
+    """The dense eval with ``generator=tinyllama-chat`` and
+    ``generator.init_args.quantization=w8a8``: TinyLlama whole at its
+    published widths, calibrated on JAX's four texts (the ratio is
+    printed); the W8A8 route is required (every projection of at least
+    65,536 weights, k and v included, and the head on the int8 GEMM)."""
+    (exp, wall), made = _spy_llm(lambda: _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        "+generator.init_args.quantization=w8a8"], workdir, ckpt))
+    gen = made[0]
+    if gen.quantization_route != "w8a8":
+        fail(f"ut1_w8a8_tinyllama: calibration ratio {gen.outlier_ratio} "
+             f"sent the generator to {gen.quantization_route}, not w8a8")
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "outlier_ratio": gen.outlier_ratio, "threshold": 10.0,
+            "route": gen.quantization_route, "trec_lines": 500,
+            **_check_outputs(exp)}
+
+
+def run_ut1_int8_qwen25(ckpt: dict, workdir: str) -> dict:
+    """The dense eval with ``generator=qwen-25-7b-instruct`` on the first
+    SMOKE_NEW_PATH_LAYERS layers of the Qwen2.5-7B checkpoint, quantized
+    weight-only int8 (``+generator.init_args.quantization=int8``; its q/k/v
+    biases kept), flash prefill on: the dequantized products (no kernel,
+    as in JAX), the attention kernels."""
+    from bergen_tpu_torch.models import llama
+
+    name = os.path.basename(first_layers(ckpt["qwen25_7b"],
+                                         SMOKE_NEW_PATH_LAYERS))
+    llama.USE_FLASH_PREFILL = True
+    try:
+        (exp, wall), made = _spy_llm(lambda: _run_cli([
+            "retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            "generator=qwen-25-7b-instruct",
+            f"generator.init_args.model_name=ckpt/{name}",
+            "+generator.init_args.quantization=int8"], workdir, ckpt))
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    q = made[0].params["layers"][0]["attn"]["q"]
+    if made[0].quantization_route != "int8" or not {
+            "kernel_q", "kernel_scale", "bias"} <= set(q):
+        fail(f"ut1_int8_qwen25: route {made[0].quantization_route}, q "
+             f"leaves {sorted(q)}")
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "route": "int8", "trec_lines": 500, **_check_outputs(exp)}
+
+
+# castorini/repllama-v1-7b-lora-passage's adapter layout: rank 32, alpha
+# 64, every projection of Llama-2-7B's layers
+REPLLAMA_LORA = dict(r=32, lora_alpha=64, target_modules=[
+    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+    "down_proj"])
+
+
+def write_repllama_adapter(root: str, dev, base: str, layers: int) -> str:
+    """A seeded random LoRA adapter in PEFT's layout
+    (``adapter_config.json`` and ``adapter_model.safetensors``) on the
+    local Llama-2-7B checkpoint ``base``: its A and B at REPLLAMA_LORA's
+    rank on the ``layers`` layers' projections (B nonzero, so the merge
+    moves every weight)."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+
+    path = os.path.join(root, "repllama-v1-7b-lora-passage-random")
+    os.makedirs(path, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shapes = _llama_layer_shapes(dict(LLAMA2_7B, num_hidden_layers=layers))
+    r, sd = REPLLAMA_LORA["r"], {}
+    for i in range(layers):
+        for lin, (o, k) in shapes.items():
+            pre = f"base_model.model.layers.{i}.{lin}"
+            sd[f"{pre}.lora_A.weight"] = (torch.randn(
+                r, k, generator=gen, device=dev) * 0.01).bfloat16().cpu()
+            sd[f"{pre}.lora_B.weight"] = (torch.randn(
+                o, r, generator=gen, device=dev) * 0.01).bfloat16().cpu()
+    save_safetensors(sd, os.path.join(path, "adapter_model.safetensors"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "base_model_name_or_path": base,
+                   "bias": "none", "lora_dropout": 0.0,
+                   "fan_in_fan_out": False, **REPLLAMA_LORA}, f, indent=2)
+    return path
+
+
+def run_ut1_repllama(ckpt: dict, workdir: str) -> dict:
+    """``retriever=repllama`` on the LoRA adapter over the first
+    SMOKE_NEW_PATH_LAYERS layers of the Llama-2-7B checkpoint (merged at
+    load) with ``generator=oracle_answer``, flash
+    prefill on: the trunk's right-padded batches through the flash kernel
+    (the config's batch 64, max_len 512)."""
+    from bergen_tpu_torch.models import llama
+
+    llama.USE_FLASH_PREFILL = True
+    try:
+        exp, wall = _run_cli([
+            "retriever=repllama",
+            f"retriever.init_args.model_name={_local(ckpt, 'repllama')}",
+            "generator=oracle_answer"], workdir, ckpt)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    scores = _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "trec_lines": 500, "top_score": max(scores),
+            "ranking": _json(exp, "eval_dev_ranking_metrics.json"),
+            **_check_outputs(exp)}
+
+
+def run_ut1_bm25_oracle(ckpt: dict, workdir: str) -> dict:
+    """``retriever=bm25 generator=oracle_answer``: the BM25 index built
+    from native/bm25 (g++) in the doc index folder; no model runs."""
+    exp, wall = _run_cli(["retriever=bm25", "generator=oracle_answer"],
+                         workdir, ckpt)
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=False)
+    ranking = _json(exp, "eval_dev_ranking_metrics.json")
+    if ranking["P_1"] < 0.9:
+        fail(f"ut1_bm25_oracle: P_1 {ranking['P_1']} on the fixture, whose "
+             "gold docs hold the question's words")
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "ranking": ranking, **_check_outputs(exp)}
+
+
+def run_ut1_oracle_provenance(ckpt: dict, workdir: str) -> dict:
+    """``retriever=oracle_provenance generator=oracle_provenance``: the
+    ranking read from an oracle run written in the runs folder (each
+    query's gold doc from the qrels, then two noise docs)."""
+    runs = os.path.join(workdir, "tests", "run", "runs")
+    os.makedirs(runs)
+    with open(os.path.join(REPO, "tests", "utdata",
+                           "qrel.ut1queries.dev.json")) as f:
+        qrels = json.load(f)
+    with open(os.path.join(runs, "run.oracle.ut1queries.dev.trec"), "w") as f:
+        for q, docs in qrels.items():
+            for r, d in enumerate([*docs, "d_noise_1", "d_noise_2"]):
+                f.write(f"{q}\tq0\t{d}\t{r + 1}\t{100 - r}\trun\n")
+    exp, wall = _run_cli([
+        "retriever=oracle_provenance", "generator=oracle_provenance",
+        "retrieve_top_k=3", "rerank_top_k=3", "generation_top_k=2"],
+        workdir, ckpt)
+    ranking = _json(exp, "eval_dev_ranking_metrics.json")
+    if ranking["P_1"] < 0.999:
+        fail(f"ut1_oracle_provenance: P_1 {ranking['P_1']} on the oracle run")
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "ranking": ranking, **_check_outputs(exp)}
+
+
+# the paged Phi-3 path's new tokens (the config's 128 cut; max_len 2,048 +
+# 32 + 1 stays past the window of 2,047)
+PHI3_PAGED_NEW_TOKENS = 32
+
+
+def run_ut1_serve_paged_phi3(ckpt: dict, workdir: str) -> dict:
+    """``generator=phi3_mini`` (int4; the first SMOKE_NEW_PATH_LAYERS layers
+    of the Phi-3 checkpoint) served through the paged server
+    (``+generator.init_args.serve=true``, ``kv_cache=paged``) with its
+    max_len of 2,048 + PHI3_PAGED_NEW_TOKENS + 1 past the published window
+    of 2,047: the
+    window on the gather partial (head width 96), no paged kernel."""
+    from bergen_tpu_torch.ops import paged_attention as pa
+    from bergen_tpu_torch.serve import GenerationServer
+
+    name = os.path.basename(first_layers(ckpt["phi3_mini"],
+                                         SMOKE_NEW_PATH_LAYERS))
+    pa.paged_partial_gather.calls = 0
+    GenerationServer.decode_steps = 0
+    (exp, wall), made = _spy_llm(lambda: _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=phi3_mini",
+        f"generator.init_args.model_name=ckpt/{name}",
+        "+generator.init_args.serve=true",
+        "+generator.init_args.kv_cache=paged",
+        f"generator.init_args.max_new_tokens={PHI3_PAGED_NEW_TOKENS}"],
+        workdir, ckpt))
+    server = made[0].server
+    if server.L <= made[0].cfg.sliding_window:
+        fail(f"ut1_serve_paged_phi3: max_len {server.L} within the window")
+    _trec(exp, "run.retrieve.", 50 * 10, cosine=True)
+    stages = _json(exp, "eval_dev_stage_times.json")
+    return {"wall_s": wall, "stage_s": stages, "max_len": server.L,
+            "window": made[0].cfg.sliding_window,
+            "decode_steps": GenerationServer.decode_steps,
+            "gather_partials": pa.paged_partial_gather.calls,
+            "trec_lines": 500, **_check_outputs(exp)}
 
 
 def _cos_rows(a, b) -> float:
@@ -4291,7 +4768,8 @@ def run_ut1_eval_splade(ckpt: dict, workdir: str) -> dict:
     the TinyLlama generator."""
     exp, wall = _splade_cli(ckpt, workdir, [
         "generator=tinyllama-chat",
-        f"generator.init_args.model_name={_local(ckpt, 'llama')}"])
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        SECOND_EVAL_NEW_TOKENS])
     _trec(exp, "run.retrieve.", 50 * 10, cosine=False)
     if os.path.exists(os.path.join(exp, "eval_dev_retrieval_fidelity.json")):
         fail("ut1_eval_splade: a guard record, but 'auto' at 1,000 docs is "
@@ -4656,12 +5134,14 @@ PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "flash_attention",
                  "paged_attention", "encoder_attention", "bin_topk_int8",
                  "flash_attention_band", "attention_block", "pallas_score",
-                 "bin_topk_int8_splade")
+                 "bin_topk_int8_splade", "w8a8_matmul", "int8_quantizer",
+                 "paged_window")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers",
            "llama-3.2-3b-instruct-random",
            "llama-3.2-3b-instruct-random-2layers",
            "qwen2.5-7b-instruct-random", "qwen2.5-7b-instruct-random-2layers")
+REPLLAMA_CKPTS = ("repllama-v1-7b-lora-passage-random",)
 FAMILY_CKPTS = ("gemma-7b-it-random", "gemma-2b-it-random",
                 "gemma-2-9b-it-random", "gemma-2-9b-it-random-2layers",
                 "phi-3-mini-4k-instruct-random", "c4ai-command-r-v01-random",
@@ -4706,6 +5186,7 @@ def main() -> None:
     from bergen_tpu_torch.ops import int4_matmul as im
     from bergen_tpu_torch.ops import paged_attention as pa
     from bergen_tpu_torch.ops import scoring as sc
+    from bergen_tpu_torch.ops import w8a8_matmul as w8
 
     counters = {"encoder_layer": ea.encoder_layer,
                 "encoder_layer_prebias": ea.encoder_layer_prebias,
@@ -4719,7 +5200,8 @@ def main() -> None:
                 "bin_topk_int8": ft.bin_scores_int8,
                 "flash_attention_band": fa.flash_attention_band,
                 "attention_block": ea.attention_block,
-                "pallas_score": sc.pallas_score}
+                "pallas_score": sc.pallas_score,
+                "w8a8_matmul": w8.w8a8_matmul}
     results: dict = {}
     checks = {"encoder_layer": lambda: check_encoder_layer(results, dev),
               "encoder_layer_prebias": lambda: check_encoder_layer_prebias(
@@ -4744,7 +5226,10 @@ def main() -> None:
               "attention_block": lambda: check_attention_block(results, dev),
               "pallas_score": lambda: check_pallas_score(results, dev),
               "bin_topk_int8_splade": lambda: check_bin_topk_int8_splade(
-                  results, dev)}
+                  results, dev),
+              "w8a8_matmul": lambda: check_w8a8_matmul(results, dev),
+              "int8_quantizer": lambda: check_int8_quantizer(results, dev),
+              "paged_window": lambda: check_paged_window(results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
@@ -4771,8 +5256,9 @@ def main() -> None:
 
     def drive(path: str, run) -> None:
         # every llama.forward step of the path: (S, int4, decode attention
-        # and flash launches in it, B, the flat cache's length or 0); S 1
-        # is a decode step
+        # and flash launches in it, B, the flat cache's length or 0, W8A8
+        # launches, whether it is the W8A8 calibration pass); S 1 is a
+        # decode step
         steps[path] = []
         forward = llama.forward
 
@@ -4780,13 +5266,16 @@ def main() -> None:
             n4 = im.matmul_int4_packed.launches
             nd = da.decode_attention.launches
             nf = fa.flash_attention.launches
+            nw = w8.w8a8_matmul.launches
             out = forward(params, cfg, input_ids, positions, cache, *a, **k)
             steps[path].append((input_ids.shape[1],
                                 im.matmul_int4_packed.launches - n4,
                                 da.decode_attention.launches - nd,
                                 fa.flash_attention.launches - nf,
                                 input_ids.shape[0],
-                                cache["k"].shape[2] if "k" in cache else 0))
+                                cache["k"].shape[2] if "k" in cache else 0,
+                                w8.w8a8_matmul.launches - nw,
+                                bool(k.get("collect_stats"))))
             return out
 
         for fn in counters.values():
@@ -4811,7 +5300,17 @@ def main() -> None:
         emit({"phase": "checkpoint_llama2_7b",
               "write_s": time.perf_counter() - t0, "disk_free_gb": free_gb,
               "path": ckpt["llama2_7b"]})
+        # RepLlama's LoRA adapter on the first SMOKE_NEW_PATH_LAYERS layers
+        # of the Llama-2-7B checkpoint just written
+        ckpt["repllama"] = write_repllama_adapter(
+            root, dev, os.path.abspath(first_layers(
+                ckpt["llama2_7b"], SMOKE_NEW_PATH_LAYERS)),
+            SMOKE_NEW_PATH_LAYERS)
         for path, run in (("ut1_eval", run_main_path),
+                          ("ut1_w8a8_tinyllama", run_ut1_w8a8_tinyllama),
+                          ("ut1_bm25_oracle", run_ut1_bm25_oracle),
+                          ("ut1_oracle_provenance",
+                           run_ut1_oracle_provenance),
                           ("ut1_eval_nomic", run_ut1_eval_nomic),
                           ("ut1_eval_jina", run_ut1_eval_jina),
                           ("retrieval_at_scale", run_retrieval_at_scale),
@@ -4827,7 +5326,8 @@ def main() -> None:
                           ("ut1_rerank", run_ut1_rerank),
                           ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
                           ("ut1_rerank_minilm", run_ut1_rerank_minilm),
-                          ("ut1_int4_llama2", run_ut1_int4_llama2)):
+                          ("ut1_int4_llama2", run_ut1_int4_llama2),
+                          ("ut1_repllama", run_ut1_repllama)):
             drive(path, run)
         emit({"phase": "reference_check", **check_against_cpu(ckpt)})
         emit({"phase": "reference_check_remote",
@@ -4838,7 +5338,7 @@ def main() -> None:
               **check_splade_against_cpu(ckpt)})
         emit({"phase": "splade_encode_split", "card": card,
               **time_splade_encode(ckpt)})
-        for name in SEVEN_B[:2]:  # room on the disk for the next 7B
+        for name in SEVEN_B[:2] + REPLLAMA_CKPTS:  # room for the next 7B
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         t0 = time.perf_counter()
         ckpt["mistral_7b"] = write_mistral_7b(root, dev, SMOKE_7B_LAYERS)
@@ -4865,7 +5365,8 @@ def main() -> None:
                     ("ut1_serve_paged_qwen25", lambda c, w:
                      run_ut1_serve_mistral(c, w, "paged",
                                            "vllm_qwen-25-7b-instruct",
-                                           "qwen25_7b"))))):
+                                           "qwen25_7b")),
+                    ("ut1_int8_qwen25", run_ut1_int8_qwen25)))):
             t0 = time.perf_counter()
             ckpt[key] = write(root, dev)
             emit({"phase": f"checkpoint_{key}",
@@ -4904,7 +5405,9 @@ def main() -> None:
                  SMOKE_PHI3_LAYERS, 19, (
                      ("ut1_phi3_int4", lambda c_, w: run_ut1_flash_generator(
                          c_, w, "phi3_mini", "phi3_mini", flash=False,
-                         head_dequant=True)),), False),
+                         head_dequant=True)),
+                     ("ut1_serve_paged_phi3", run_ut1_serve_paged_phi3)),
+                 False),
                 ("command_r", "c4ai-command-r-v01-random", COMMAND_R,
                  SMOKE_COMMAND_R_LAYERS, 20, (
                      ("ut1_command_r_int4",
@@ -5014,7 +5517,10 @@ def main() -> None:
                 ("ut1_gemma2_9b", 0, 0, 0),
                 ("ut1_phi3_int4", 7 * SMOKE_PHI3_LAYERS, 0, 0),
                 ("ut1_command_r_int4", 7 * SMOKE_COMMAND_R_LAYERS + 1,
-                 SMOKE_COMMAND_R_LAYERS, SMOKE_COMMAND_R_LAYERS)):
+                 SMOKE_COMMAND_R_LAYERS, SMOKE_COMMAND_R_LAYERS),
+                ("ut1_w8a8_tinyllama", 0, tiny, 0),
+                ("ut1_int8_qwen25", 0, SMOKE_NEW_PATH_LAYERS,
+                 SMOKE_NEW_PATH_LAYERS)):
             bad = [st for st in steps[path] if st[1:4] != (
                 per4, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
             n_dec = sum(1 for st in steps[path] if st[0] == 1)
@@ -5031,6 +5537,50 @@ def main() -> None:
                 fail(f"{path}: (int4_matmul, decode_attention) launches {got}"
                      f", not {want} for {len(steps[path])} forward steps, "
                      f"{n_dec} of them decode steps")
+        # W8A8 TinyLlama: one calibration pass (dense, no W8A8 launch), then
+        # every forward step 7 products a layer (k and v, at 524,288
+        # weights, quantize too) and the head on the int8 GEMM; no other
+        # path launches it
+        calib = [st for st in steps["ut1_w8a8_tinyllama"] if st[7]]
+        rest = [st for st in steps["ut1_w8a8_tinyllama"] if not st[7]]
+        per_w8 = 7 * tiny + 1
+        if len(calib) != 1 or calib[0][6] or any(st[6] != per_w8
+                                                 for st in rest):
+            fail(f"ut1_w8a8_tinyllama: {len(calib)} calibration passes, "
+                 f"W8A8 launches a step {sorted({st[6] for st in rest})} "
+                 f"(not {per_w8})")
+        if by_path["ut1_w8a8_tinyllama"]["w8a8_matmul"] != per_w8 * len(rest):
+            fail(f"ut1_w8a8_tinyllama: {by_path['ut1_w8a8_tinyllama']} "
+                 f"launches, not {per_w8} x {len(rest)} forward steps")
+        other = {p: c["w8a8_matmul"] for p, c in by_path.items()
+                 if c["w8a8_matmul"] and p != "ut1_w8a8_tinyllama"}
+        if other:
+            fail(f"w8a8_matmul launched on other paths: {other}")
+        # RepLlama: every trunk forward (a right-padded encode batch) one
+        # flash attention a layer, no decode step, nothing else
+        st_r = steps["ut1_repllama"]
+        want = {n: 0 for n in counters}
+        want["flash_attention"] = SMOKE_NEW_PATH_LAYERS * len(st_r)
+        if not st_r or any(st[0] == 1 or st[3] != SMOKE_NEW_PATH_LAYERS
+                           for st in st_r) or by_path["ut1_repllama"] != want:
+            fail(f"ut1_repllama: {len(st_r)} forward steps, launches "
+                 f"{by_path['ut1_repllama']}, not {want}")
+        # BM25 and the oracles: no kernel at all
+        for path in ("ut1_bm25_oracle", "ut1_oracle_provenance"):
+            if any(by_path[path].values()) or steps[path]:
+                fail(f"{path}: launches {by_path[path]}, forward steps "
+                     f"{len(steps[path])}: the host paths run no model")
+        # the paged Phi-3 server: 7 int4 products a layer in every forward
+        # step (its head on the dequantized product), the window on the
+        # gather partial in every decode layer, no paged kernel
+        path, run = "ut1_serve_paged_phi3", runs["ut1_serve_paged_phi3"]
+        n = SMOKE_NEW_PATH_LAYERS
+        bad = [st for st in steps[path] if st[1] != 7 * n]
+        if bad or run["gather_partials"] != n * run["decode_steps"] \
+                or not run["decode_steps"]:
+            fail(f"{path}: {len(bad)} steps off 7 x {n} int4 "
+                 f"launches, {run['gather_partials']} gather partials for "
+                 f"{run['decode_steps']} decode steps")
         for path in NO_ATTENTION_KERNEL_PATHS:
             got = {n: by_path[path][n] for n in ATTENTION_KERNELS}
             if any(got.values()):
@@ -5057,7 +5607,7 @@ def main() -> None:
             path: {"forward": len(st),
                    "decode": sum(1 for s in st if s[0] == 1),
                    # the decode steps' (rows, flat cache length) shapes
-                   "decode_shapes": sorted({s[4:] for s in st
+                   "decode_shapes": sorted({s[4:6] for s in st
                                             if s[0] == 1})}
             for path, st in steps.items() if st}})
         for path in ("ut1_serve_paged_mistral", "ut1_serve_paged_qwen25"):
@@ -5067,7 +5617,7 @@ def main() -> None:
                      "paged server's decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        for name in SEVEN_B + FAMILY_CKPTS:
+        for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     # the redesigned kernels: launches per call as measured in their checks,
@@ -5122,6 +5672,19 @@ def main() -> None:
             if r.get("gemma") or r.get("gemma_phi3_cohere")]
         if new:
             extra["gemma_phi3_cohere_rows"] = new
+        # the W8A8 product at every shape; flash at head width 96 and on
+        # right-padded rows
+        if name == "w8a8_matmul":
+            extra["rows"] = [{key: r[key] for key in (
+                "model", "M", "K", "N", "bit_equal", "max_abs_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")} for r in results[name]]
+        new = [{key: r[key] for key in (
+            "B", "S", "H", "KH", "head_dim", "padded", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in results[name] if r.get("phi3_repllama")]
+        if new:
+            extra["phi3_repllama_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

@@ -5,8 +5,8 @@ host-driven loop (per-row cursors; Gemma-2's window of 4 binds in both),
 the chunked drain (Gemma at head width 64, the decode and band kernels'
 route, their plain versions here; Phi-3 and Command-R at 12, the plain
 attention's; tokens, counts and fused steps; Gemma-2's sliding layers
-refused, as by JAX) and the paged server (Gemma, Command-R; Gemma-2 and a
-binding Phi-3 window refused)."""
+refused, as by JAX) and the paged server (Gemma, Command-R; Gemma-2 refused; a binding
+Phi-3 window applied as the uniform server applies it)."""
 
 import dataclasses
 import os
@@ -104,12 +104,20 @@ def test_paged_server_matches_jax(models, family):
 
 
 def test_paged_server_refuses_windows(models):
+    """Gemma-2's sliding layers stay refused; a Phi-3 window past which
+    the sequences run is applied, token for token as the uniform server
+    applies it (``tests/test_torch_phi3_paged.py`` holds more windows)."""
     _, _, tcfg, tparams = models["gemma2"]
     with pytest.raises(NotImplementedError, match="gemma-2"):
         PagedGenerationServer(tparams, tcfg, EOS, PAD, max_slots=2,
                               max_len=256, device="cpu")
     _, _, pcfg, pparams = models["phi3"]
-    windowed = dataclasses.replace(pcfg, sliding_window=100)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        PagedGenerationServer(pparams, windowed, EOS, PAD, max_slots=2,
-                              max_len=256, device="cpu")
+    windowed = dataclasses.replace(pcfg, sliding_window=10)
+    prompts, max_news = _workload(18)
+    paged = PagedGenerationServer(pparams, windowed, EOS, PAD, max_slots=2,
+                                  max_len=256, n_pages=8, device="cpu")
+    uniform = GenerationServer(pparams, windowed, EOS, PAD, max_slots=2,
+                               max_len=256, prompt_buckets=BUCKETS,
+                               device="cpu")
+    assert paged.run_workload(prompts, max_news) == \
+        uniform.run_workload(prompts, max_news)

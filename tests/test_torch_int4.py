@@ -13,7 +13,8 @@
   int4 tree at head widths 128 and 64 against JAX's with its kernel on,
   with and without flash prefill: logits within 1e-4, identical tokens;
 * ``convert.to_device`` keeps quantization scales in f32, and
-  ``LLM(quantization=...)`` takes int4 and names the formats it refuses.
+  ``LLM(quantization=...)`` takes int4 (and int8, w8a8, int8_mxu) and
+  names what it refuses.
 """
 
 import dataclasses
@@ -377,6 +378,13 @@ def test_llm_quantization_options(tiny_llama_256):
     assert "kernel" in layer["attn"]["k"] and "kernel" in layer["attn"]["v"]
     assert "kernel_q4p" in llm.params["lm_head"]
     assert llm.params["embed"].dtype == torch.float32
-    for q in ("int8", "w8a8", "int8_mxu"):
-        with pytest.raises(NotImplementedError, match=q):
-            LLM(tiny_llama_256, device="cpu", quantization=q)
+    for q, key in (("int8", "kernel_q"), ("w8a8", "kernel_q_t"),
+                   ("int8_mxu", "kernel_q_t")):
+        assert key in LLM(tiny_llama_256, device="cpu",
+                          quantization=q).params["layers"][0]["attn"]["q"]
+    with pytest.raises(ValueError, match="nf4"):
+        LLM(tiny_llama_256, device="cpu", quantization="nf4")
+    for kw, name in (({"tp": 2}, "tp"), ({"temperature": 0.7},
+                                         "temperature")):
+        with pytest.raises(NotImplementedError, match=name):
+            LLM(tiny_llama_256, device="cpu", quantization="int4", **kw)

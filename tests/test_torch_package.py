@@ -61,9 +61,9 @@ def test_slice_targets_all_map(retriever, reranker):
 def test_unported_target_raises_with_its_name():
     from bergen_tpu_torch import confy
 
-    with pytest.raises(NotImplementedError, match="RepLlama"):
+    with pytest.raises(NotImplementedError, match="COCOM"):
         confy.instantiate({
-            "_target_": "bergen_tpu.models.retrievers.repllama.RepLlama"})
+            "_target_": "bergen_tpu.models.generators.llm_cocom.COCOM"})
 
 
 def test_config_is_not_rewritten():
