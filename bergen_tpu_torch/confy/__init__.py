@@ -35,12 +35,51 @@ import yaml
 __all__ = ["Config", "compose", "instantiate", "load_yaml", "to_yaml", "save_yaml",
            "TARGETS", "resolve_target"]
 
+# the dataset classes of the JAX package's data modules that the config
+# tree names; each has a port of the same name in the same module under
+# ``bergen_tpu_torch.data``
+_DATA_TARGETS = {
+    "processor": ("MergedDocDataset",),
+    "processors.ut": ("UT1Docs", "UT1Queries"),
+    "processors.kilt": (
+        "KILTNQ", "KILTHotpotqa", "KILTAidayago2", "KILTCweb", "KILTFever",
+        "KILTStructuredZeroshot", "KILTSTrex", "KILTWned", "KILTWow",
+        "KILTTriviaqa", "KILTEli5", "KILTMULTIQA", "KiltMultiQAMSMarco"),
+    "processors.general": (
+        "BIOASQ11B", "MMLU", "NQOpen", "MsMarcoQueries", "Frames",
+        "ReproduceWikiCorpora63", "ODQAWikiCorpora100WTamber",
+        "ODQAWikiCorpora100WKarpukhin", "ODQAWikiCorpora63tamber",
+        "ODQAWikiCorpora63tamberALL", "KILT100w", "Wiki_monolingual_100w",
+        "NarrativeQA", "PubMed2023", "Wikipedia2023_section",
+        "Wikipedia2023_full", "MsMarcoCollection"),
+    "processors.mrag": ("MKQA", "XORQA", "TydiQA"),
+    "processors.qa": ("TimeSensitiveQA", "WIKIQA", "SCIQ", "ASQA",
+                      "truthful_qa", "POPQA", "wikimultihopqa"),
+    "processors.msmarco": ("MsMarcoFullDocCollection",
+                           "MsMarcoFullDocQueries",
+                           "MsMarcoFullDocChunkCollection"),
+    "processors.nih": ("NIHDataset", "NIHDatasetNumber", "NIHDatasetSimple",
+                       "NIHDatasetMultiHop"),
+    "processors.multidomain": (
+        "BIOASQ12B", "BIOASQ11B_Ragged", "PubMed2023_Ragged",
+        "APIBench_gorilla_HF", "APIBench_gorilla_TF", "APIBench_gorilla_TH",
+        "API_gorilla_HF", "API_gorilla_TF", "API_gorilla_TH",
+        "CodeRAGBench_HumanEval", "CodeRAGBench_MBPP",
+        "CodeRAGBench_programming_solutions",
+        "CodeRAGBench_online_tutorials",
+        "CodeRAGBench_library_documentation", "CodeRAGBench_stackoverflow",
+        "CodeRAGBench_gitrepospython", "CodeRAGBench_gitrepos", "SyllabusQA",
+        "SyllabusQA_syllabi", "MultiQA", "TechQA", "TechQA_docs",
+        "ParaphraseRC", "ParaphraseRC_docs", "CovidQA", "CORD19", "LoTTE",
+        "RobustQA_Lifestyle", "RobustQA_Recreation", "RobustQA_Science",
+        "RobustQA_Technology", "RobustQA_Writing", "FiQA", "FiQA_corpus",
+        "SearchQA", "SearchQA_corpus", "RGB"),
+}
+
 # JAX-package target -> port class, for every target the ported slice runs
 TARGETS = {
-    "bergen_tpu.data.processors.ut.UT1Docs":
-        "bergen_tpu_torch.data.processors.ut.UT1Docs",
-    "bergen_tpu.data.processors.ut.UT1Queries":
-        "bergen_tpu_torch.data.processors.ut.UT1Queries",
+    **{f"bergen_tpu.data.{mod}.{cls}": f"bergen_tpu_torch.data.{mod}.{cls}"
+       for mod, classes in _DATA_TARGETS.items() for cls in classes},
     "bergen_tpu.models.retrievers.dense.DenseRetriever":
         "bergen_tpu_torch.models.retrievers.dense.DenseRetriever",
     "bergen_tpu.models.retrievers.splade.SpladeRetriever":

@@ -1,9 +1,11 @@
 """A small column store standing in for HF ``datasets.Dataset``.
 
-The port's machine has no ``datasets`` package.  The pipeline needs only
-this much of it: named columns of equal length, row and column access,
-``features`` membership, ``add_column`` returning a new dataset, ``select``,
-and a JSON round trip for the processed-dataset cache.
+The port's machine has no ``datasets`` package.  The pipeline and the
+dataset processors need only this much of it: named columns of equal
+length, row and column access, ``features`` membership, ``add_column``,
+renaming, removing and keeping columns (each returning a new dataset),
+``select``, ``concatenate_datasets``, and a JSON round trip for the
+processed-dataset cache.
 ``name`` and ``id2index`` are plain attributes that callers set, as they do
 on HF datasets.
 """
@@ -71,6 +73,31 @@ class Dataset:
         idx = list(indices)
         return Dataset({k: [v[i] for i in idx] for k, v in self._cols.items()})
 
+    @property
+    def column_names(self) -> list[str]:
+        return list(self._cols)
+
+    def rename_columns(self, mapping: dict[str, str]) -> "Dataset":
+        missing = set(mapping) - set(self._cols)
+        if missing:
+            raise ValueError(f"columns {sorted(missing)} not in the dataset")
+        return Dataset({mapping.get(k, k): v for k, v in self._cols.items()})
+
+    def rename_column(self, old: str, new: str) -> "Dataset":
+        return self.rename_columns({old: new})
+
+    def remove_columns(self, names) -> "Dataset":
+        names = [names] if isinstance(names, str) else list(names)
+        missing = set(names) - set(self._cols)
+        if missing:
+            raise ValueError(f"columns {sorted(missing)} not in the dataset")
+        return Dataset({k: v for k, v in self._cols.items()
+                        if k not in names})
+
+    def select_columns(self, names) -> "Dataset":
+        names = [names] if isinstance(names, str) else list(names)
+        return Dataset({k: self._cols[k] for k in names})
+
     def save_to_disk(self, folder: str) -> None:
         os.makedirs(folder, exist_ok=True)
         tmp = os.path.join(folder, "columns.json.tmp")
@@ -86,3 +113,12 @@ class Dataset:
     @staticmethod
     def on_disk(folder: str) -> bool:
         return os.path.exists(os.path.join(folder, "columns.json"))
+
+
+def concatenate_datasets(parts: list[Dataset]) -> Dataset:
+    """Rows of ``parts`` in order; every part has the same columns."""
+    names = parts[0].column_names
+    for p in parts[1:]:
+        if set(p.column_names) != set(names):
+            raise ValueError(f"columns differ: {names} and {p.column_names}")
+    return Dataset({k: [x for p in parts for x in p[k]] for k in names})

@@ -25,7 +25,8 @@ from collections import defaultdict
 from typing import Dict
 
 from bergen_tpu_torch import confy
-from bergen_tpu_torch.data.dataset import Dataset
+from bergen_tpu_torch.data import hub
+from bergen_tpu_torch.data.dataset import Dataset, concatenate_datasets
 
 
 class Processor:
@@ -55,6 +56,12 @@ class Processor:
 
     def process(self) -> Dataset:
         raise NotImplementedError
+
+    def hub(self, path: str, name: str | None = None,
+            split: str | None = None, **kwargs):
+        """``datasets.load_dataset`` on the local exports under
+        ``out_folder`` (``data/hub.py``)."""
+        return hub.load_dataset(self.out_folder, path, name, split, **kwargs)
 
     def get_index_to_id(self, dataset: Dataset) -> Dict[str, int]:
         return dict(zip(dataset["id"], range(len(dataset))))
@@ -92,6 +99,46 @@ class Processor:
         if self.shuffle_labels:
             dataset = self.shuffled_labels_as_content(dataset)
         dataset.id2index = id2index
+        dataset.name = self.dataset_name + debug_str + oracle_str
+        return dataset
+
+
+class MergedDocDataset(Processor):
+    """Multi-corpus concat with id prefixing (reference :595-633): each
+    input corpus must already be processed into the JSON cache under
+    ``out_folder``; its ids become ``{name}_{id}``."""
+
+    def __init__(self, out_dataset_name, in_dataset_names, in_dataset_splits,
+                 *args, **kwargs):
+        super().__init__(*args, **kwargs, dataset_name=out_dataset_name)
+        if len(in_dataset_names) != len(in_dataset_splits):
+            raise ValueError("in_dataset_names and in_dataset_splits differ "
+                             "in length")
+        self.in_dataset_names = in_dataset_names
+        self.in_dataset_splits = in_dataset_splits
+
+    def process(self):
+        raise NotImplementedError(
+            "Merge inputs must be preprocessed independently first."
+        )
+
+    def get_dataset(self):
+        debug_str = "_debug" if self.debug else ""
+        oracle_str = "_oracle_provenance" if self.oracle_provenance else ""
+        loaded = []
+        for name, split in zip(self.in_dataset_names, self.in_dataset_splits):
+            in_folder = os.path.join(self.out_folder, f"{name}_{split}{oracle_str}")
+            if not Dataset.on_disk(in_folder):
+                raise ValueError(f"Dataset {in_folder} not found")
+            cols = Dataset.load_from_disk(in_folder).to_dict()
+            cols["id"] = [f"{name}_{i}" for i in cols["id"]]
+            loaded.append(Dataset(cols))
+        dataset = concatenate_datasets(loaded)
+        dataset.id2index = self.get_index_to_id(dataset)
+        if self.debug:
+            dataset = dataset.select(range(50))
+        if self.shuffle_labels:
+            dataset = self.shuffled_labels_as_content(dataset)
         dataset.name = self.dataset_name + debug_str + oracle_str
         return dataset
 
@@ -141,3 +188,21 @@ class ProcessDatasets:
                 else:
                     out[split][query_or_doc] = None
         return out
+
+    @staticmethod
+    def check_instantiate(dataset_config, out_folder="datasets", num_proc=1,
+                          overwrite=False, debug=False):
+        for split in dataset_config:
+            for query_or_doc in dataset_config[split]:
+                node = dataset_config[split][query_or_doc]
+                if node is not None:
+                    confy.instantiate(
+                        node["init_args"],
+                        out_folder=out_folder,
+                        num_proc=num_proc,
+                        overwrite=overwrite,
+                        debug=debug if query_or_doc == "query" else False,
+                        oracle_provenance=False,
+                        shuffle_labels=False,
+                    )
+        return True

@@ -1,1 +1,1 @@
-"""Dataset processors ported so far (the UT1 fixture)."""
+"""Dataset processors: the port's copies of ``bergen_tpu/data/processors``."""

@@ -21,9 +21,9 @@ Phases (each prints one JSON line):
      with byte-level BPE tokenizers in the layouts of their published
      files (the port's trainer on the ut1 text, seeded random byte tokens
      up to the published vocabulary, the specials at their ids), each
-     deleted after its paths; then Gemma-7B-it (17 GB, all 28 layers),
-     Gemma-2B-it, Gemma-2-9B-it, Phi-3-mini-4k-instruct and
-     c4ai-command-r-v01 (the last four cut in depth: ``SMOKE_*_LAYERS``),
+     deleted after its paths; then Gemma-7B-it, Gemma-2B-it,
+     Gemma-2-9B-it, Phi-3-mini-4k-instruct and c4ai-command-r-v01 (cut
+     in depth: ``SMOKE_*_LAYERS``),
      one at a time, with tokenizers in their published layouts
      (``write_family_tokenizer``: Gemma's sentencepiece BPE, Phi-3's
      Llama-2 layout, Command-R's byte-level BPE with Digits);
@@ -99,7 +99,17 @@ Phases (each prints one JSON line):
      the chunked drain, splade-v3's first two layers with its head and
      pool, and those of Llama-3.2-3B, the int4 Qwen2.5-7B and the paged
      served Qwen2.5-7B); one splade-v3 encode batch split into layers and
-     head + pool;
+     head + pool; ``dataset=kilt_nq`` (CONFIG=rag) on synthetic local
+     exports of kilt_tasks/nq and kilt_wikipedia in their published schemas
+     (64 query ids of the shipped qrels, 250 pages: KILTNQ and KILT100w
+     from ``data/hub.py``'s files), then ``bergen_tpu_torch.evaluate`` with
+     the TinyLlama judge (its vocabulary holding the options' words) in
+     logits mode with flash prefill and ``--lid`` on that folder, and in
+     the pairwise text mode on ut1_eval's folder against
+     ut1_w8a8_tinyllama's (at least one valid verdict), the logits-mode
+     judge's first-token logits and option probabilities of its flash run
+     against the CPU on two rows, and ``print_results`` over every
+     experiment of the script;
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
      over a bf16 corpus and over int8 codes with per-bin scales; and over
@@ -119,6 +129,7 @@ count; a kernel that a part runs must show launches there.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import json
@@ -228,6 +239,12 @@ PATH_KERNELS = {
     "ut1_bm25_oracle": (),
     "ut1_oracle_provenance": (),
     "ut1_serve_paged_phi3": ("encoder_layer", "int4_matmul"),
+    # the KILT NQ eval from local exports (2,000-odd passages: below the
+    # fused top-k's threshold); the judge's logits prefills (flash prefill
+    # on, no decode) and its pairwise text mode
+    "kilt_nq_local": ("encoder_layer", "decode_attention"),
+    "judge_logits": ("flash_attention",),
+    "judge_pairwise": ("flash_attention", "decode_attention"),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
@@ -1352,14 +1369,18 @@ DECODE_TOL = 2e-3
 # 128 new tokens and at the int4 path's 256 + 128, and head width 128 at
 # group 8; then Mistral-7B (group 4) at the epoch drain's 32 + 1 slots over
 # its 512-position ring (ut1's bucket 256 + 128 new tokens, 128-aligned);
-# last TinyLlama at L 2,112 with masks that leave whole splits without a
-# valid key (row 0: the last 100 keys, row 2: the first 50).  Row 1 is
-# fully masked everywhere: the uniform mean of V
+# then TinyLlama at L 2,112 with masks that leave whole splits without a
+# valid key (row 0: the last 100 keys, row 2: the first 50); last TinyLlama
+# at kilt_nq_local's decode steps (8 rows, the 256 bucket + 16 new tokens)
+# and at the pairwise judge's (8 and 2 rows, the 512 bucket + 10).  Row 1
+# is fully masked everywhere: the uniform mean of V
 DECODE_SHAPES = ((8, 64, 4, 320, "random"), (8, 64, 4, 2112, "random"),
                  (8, 64, 8, 320, "random"), (8, 64, 16, 320, "random"),
                  (8, 64, 32, 320, "random"), (8, 128, 32, 2176, "random"),
                  (8, 128, 32, 384, "random"), (8, 128, 4, 2176, "random"),
-                 (33, 128, 8, 512, "random"), (8, 64, 4, 2112, "empty_splits"))
+                 (33, 128, 8, 512, "random"), (8, 64, 4, 2112, "empty_splits"),
+                 (8, 64, 4, 272, "random"), (8, 64, 4, 522, "random"),
+                 (2, 64, 4, 522, "random"))
 # (B, Dh, KH, L, mask, H): the Llama-3.x / Qwen2.x paths' groups at head
 # width 128, at their ut1 decode steps (the generator's batch of 8, a cache
 # of the 512 bucket + 128 new tokens): Llama-3.2-3B's 24 heads on 8 (group
@@ -2044,10 +2065,12 @@ FLASH_TOL, FLASH_MEAN_TOL = 0.0625, 2e-3
 # its max_length, then TinyLlama's GQA at the bucket (left-padded rows, one
 # fully padded); then Mistral-7B's KH 8 at S 2,048, and Llama-2-7B at
 # S 2,048 with no padding, whose work is the whole causal triangle from
-# key 0 (the rate on the work the kernel visits)
+# key 0 (the rate on the work the kernel visits); last TinyLlama at the
+# logits-mode judge's 128 bucket and the pairwise judge's 512 (8 and 2 rows)
 FLASH_SHAPES = ((8, 256, 32, 32, 128, True), (8, 2048, 32, 32, 128, True),
                 (8, 256, 32, 4, 64, True), (8, 2048, 32, 8, 128, True),
-                (8, 2048, 32, 32, 128, False))
+                (8, 2048, 32, 32, 128, False), (8, 128, 32, 4, 64, True),
+                (8, 512, 32, 4, 64, True), (2, 512, 32, 4, 64, True))
 # the Llama-3.x / Qwen2.x prefills: batch 8 at ut1's 512 bucket, Qwen2.5-7B's
 # group 7 and Llama-3.2-3B's group 3
 FLASH_GQA_SHAPES = ((8, 512, 28, 4, 128, True), (8, 512, 24, 8, 128, True))
@@ -2982,6 +3005,8 @@ def write_checkpoints(root: str, dev) -> dict:
     with open(os.path.join(llama_dir, "config.json"), "w") as f:
         json.dump(c, f, indent=2)
     vocab = _vocab({"<unk>": 0, "<s>": 1, "</s>": 2}, V, "<extra_{}>")
+    for i, word in enumerate(JUDGE_WORDS, start=V - len(JUDGE_WORDS)):
+        vocab[word] = vocab.pop(f"<extra_{i}>")
     write_tokenizer(llama_dir, "WordLevel", vocab,
                     {"bos_token": "<s>", "eos_token": "</s>",
                      "unk_token": "<unk>"},
@@ -3399,8 +3424,9 @@ COMMAND_R = dict(model_type="cohere", vocab_size=256000, hidden_size=8192,
                  hidden_act="silu", tie_word_embeddings=True,
                  bos_token_id=5, eos_token_id=255001, pad_token_id=0,
                  torch_dtype="bfloat16")
-# the depth each path runs (full published widths): Gemma-7B whole, the
-# others cut so that the script stays near its time (PERF.md section 4)
+# the depth each path runs (full published widths), cut so that the script
+# stays within its time (PERF.md section 4)
+SMOKE_GEMMA7B_LAYERS = 8
 SMOKE_GEMMA2B_LAYERS = 8
 SMOKE_GEMMA2_9B_LAYERS = 4
 SMOKE_PHI3_LAYERS = 4
@@ -3614,21 +3640,23 @@ def _local(ckpt: dict, name: str) -> str:
 SECOND_EVAL_NEW_TOKENS = "generator.init_args.max_new_tokens=16"
 
 
-def _run_cli(overrides: list[str], workdir: str,
-             ckpt: dict) -> tuple[str, float]:
-    """``python -m bergen_tpu_torch`` (CONFIG=rag_ut1) in this process, in a
-    fresh ``workdir`` (so no stage reads another run's cache) that links
-    the checkpoints as ``ckpt/``, so that the kernels' launch counters can
-    be read afterwards.  Returns (the finished experiment folder, wall
-    seconds)."""
+def _run_cli(overrides: list[str], workdir: str, ckpt: dict,
+             config: str = "rag_ut1",
+             qrels: str = os.path.join(REPO, "tests", "utdata")
+             ) -> tuple[str, float]:
+    """``python -m bergen_tpu_torch`` (CONFIG=``config`` with its own
+    dataset or the one in ``overrides``, the qrels in ``qrels``) in this
+    process, in a fresh ``workdir`` (so no stage reads another run's cache)
+    that links the checkpoints as ``ckpt/``, so that the kernels' launch
+    counters can be read afterwards.  Returns (the finished experiment
+    folder, wall seconds)."""
     import runpy
 
     os.makedirs(workdir, exist_ok=True)  # a run may put inputs there first
     os.symlink(os.path.dirname(ckpt["bert"]), os.path.join(workdir, "ckpt"))
-    overrides = ["dataset=ut1", *overrides,
-                 f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}"]
+    overrides = [*overrides, f"qrels_folder={qrels}"]
     old = (sys.argv, os.getcwd(), os.environ.get("CONFIG"))
-    os.environ["CONFIG"] = "rag_ut1"
+    os.environ["CONFIG"] = config
     os.chdir(workdir)
     sys.argv = ["bergen_tpu_torch", *overrides]
     t0 = time.perf_counter()
@@ -3643,11 +3671,25 @@ def _run_cli(overrides: list[str], workdir: str,
         else:
             os.environ["CONFIG"] = old[2]
     wall = time.perf_counter() - t0
-    exp_root = os.path.join(workdir, "tests", "run", "experiments")
+    return _experiment(workdir, config), wall
+
+
+def _experiments_root(workdir: str, config: str) -> str:
+    """Where a ``_run_cli`` run of CONFIG=``config`` in ``workdir`` puts
+    its experiments (the config's ``experiments_folder``)."""
+    from bergen_tpu_torch import confy
+
+    return os.path.join(workdir, confy.load_yaml(os.path.join(
+        REPO, "config", f"{config}.yaml"))["experiments_folder"])
+
+
+def _experiment(workdir: str, config: str = "rag_ut1") -> str:
+    """The one finished experiment folder of a ``_run_cli`` run."""
+    exp_root = _experiments_root(workdir, config)
     exps = [d for d in os.listdir(exp_root) if not d.startswith("tmp_")]
     if len(exps) != 1:
-        fail(f"{overrides}: expected one finished experiment, got {exps}")
-    return os.path.join(exp_root, exps[0]), wall
+        fail(f"{workdir}: expected one finished experiment, got {exps}")
+    return os.path.join(exp_root, exps[0])
 
 
 def _json(exp: str, name: str):
@@ -3673,13 +3715,13 @@ def _trec(exp: str, prefix: str, n_lines: int, cosine: bool) -> list:
     return scores
 
 
-def _check_outputs(exp: str) -> dict:
-    """The eval's 50 answers and metrics; ``responses_sha256`` is a digest
-    of the answers in order, to compare two runs' tokens."""
+def _check_outputs(exp: str, n_rows: int = 50) -> dict:
+    """The eval's ``n_rows`` answers and metrics; ``responses_sha256`` is a
+    digest of the answers in order, to compare two runs' tokens."""
     rows = _json(exp, "eval_dev_out.json")
     metrics = _json(exp, "eval_dev_metrics.json")
-    if len(rows) != 50:
-        fail(f"{exp}: {len(rows)} outputs (expected 50)")
+    if len(rows) != n_rows:
+        fail(f"{exp}: {len(rows)} outputs (expected {n_rows})")
     if not all(isinstance(r["response"], str) for r in rows):
         fail(f"{exp}: responses are not strings")
     if not {"M", "EM", "F1", "Recall_char3gram"} <= set(metrics):
@@ -3936,9 +3978,7 @@ def run_ut1_serve_chunked_mistral(ckpt: dict, workdir: str,
     from bergen_tpu_torch.serve import GenerationServer
 
     served = os.path.join(os.path.dirname(workdir), source)
-    exp_root = os.path.join(served, "tests", "run", "experiments")
-    exp = os.path.join(exp_root, next(d for d in os.listdir(exp_root)
-                                      if not d.startswith("tmp_")))
+    exp = _experiment(served)
     instructions = [r["instruction"] for r in _json(exp, "eval_dev_out.json")]
     llm = LLM(ckpt[key], batch_size=64, max_new_tokens=128,
               max_length=4096, serve=True, max_slots=MISTRAL_SLOTS,
@@ -4227,6 +4267,323 @@ def run_ut1_serve_paged_phi3(ckpt: dict, workdir: str) -> dict:
             "decode_steps": GenerationServer.decode_steps,
             "gather_partials": pa.paged_partial_gather.calls,
             "trec_lines": 500, **_check_outputs(exp)}
+
+
+# --------------------------------------------------------------------------- #
+# the dataset processors and the LLM judge
+# --------------------------------------------------------------------------- #
+
+KILT_NQ_QUERIES = 64
+KILT_NQ_PAGES = 250
+# the judge prompts' options (default_qa's Yes / No, the pairwise 1 / 2 /
+# 3), which TinyLlama's word-level vocabulary holds in place of its last
+# filler tokens, so that the judge's option logits are the model's own
+JUDGE_WORDS = ("yes", "no", "1", "2", "3")
+JUDGE_NAME = "tinyllama"
+JUDGE_CONFIG = "tinyllama-judge"
+# card against CPU: the judge's option probabilities, bf16 (flash prefill)
+# against f32; its scores over the 64 rows span about 0.02
+JUDGE_SCORE_TOL = 0.01
+# the rows of the logits-mode judge's first batch held against the CPU
+JUDGE_CHECK_ROWS = 2
+
+
+def write_kilt_nq_exports(out_folder: str, n_queries: int = KILT_NQ_QUERIES,
+                          n_pages: int = KILT_NQ_PAGES, seed: int = 0,
+                          words: list[str] | None = None) -> dict:
+    """Synthetic local exports, in their published schemas, of
+    ``kilt_tasks`` / ``nq`` (splits ``validation`` and ``train``, the same
+    rows) and ``kilt_wikipedia`` (split ``full``), where the port's
+    ``data/hub.py`` reads them (``{out_folder}/hub/...``).  The queries are
+    the first ``n_queries`` ids of ``qrels/qrel.kilt_nq.dev.json`` (sorted)
+    with their gold wikipedia ids as provenance; the pages are those gold
+    pages, then filler ids up to ``n_pages``, each a title paragraph, a
+    ``Section::::`` and a ``BULLET::::`` line and 3 to 8 paragraphs of 20 to
+    120 words drawn from ``words`` (the ut1 vocabulary), so that
+    ``KILT100w`` cuts several 100-word passages a page.  A query's input is
+    the first words of its gold page."""
+    import random
+
+    words = list(words or _fixture_words())
+    rng = random.Random(seed)
+    with open(os.path.join(REPO, "qrels", "qrel.kilt_nq.dev.json")) as f:
+        qrels = json.load(f)
+    qids = sorted(q for q in qrels if q != "doc_dataset_name")[:n_queries]
+    gold = list(dict.fromkeys(w for q in qids for w in qrels[q]))
+    wiki_ids = gold + [str(10_000_000 + i)
+                       for i in range(max(0, n_pages - len(gold)))]
+
+    def text(n: int) -> str:
+        return " ".join(rng.choice(words) for _ in range(n))
+
+    pages = {}
+    for k, wid in enumerate(wiki_ids):
+        title = text(2).title()
+        paragraphs = [title + "\n", text(rng.randint(20, 120)),
+                      "Section::::" + text(2) + ".", "BULLET::::- " + text(6)]
+        paragraphs += [text(rng.randint(20, 120))
+                       for _ in range(rng.randint(2, 7))]
+        pages[wid] = {
+            "kilt_id": str(k), "wikipedia_id": wid, "wikipedia_title": title,
+            "text": {"paragraph": paragraphs},
+            "anchors": {"paragraph_id": [1], "start": [0], "end": [5],
+                        "text": [title], "href": [title.replace(" ", "%20")],
+                        "wikipedia_title": [title], "wikipedia_id": [wid]},
+            "categories": "Synthetic",
+            "wikidata_info": {"description": "", "enwikiquote_title": "",
+                              "wikidata_id": f"Q{k}", "wikidata_label": title,
+                              "wikipedia_title": title,
+                              "aliases": {"alias": []}},
+            "history": {"pageid": k, "parentid": 0, "revid": k,
+                        "pre_dump": True,
+                        "timestamp": "2019-08-01T00:00:00Z", "url": ""}}
+    queries = []
+    for q in qids:
+        body = pages[next(iter(qrels[q]))]["text"]["paragraph"][1].split()
+        queries.append({
+            "id": q, "input": " ".join(body[:8]) + "?",
+            "meta": {"left_context": "", "mention": "", "right_context": "",
+                     "partial_evidence": [], "obj_surface": [],
+                     "sub_surface": [], "subj_aliases": [],
+                     "template_questions": []},
+            "output": [{
+                "answer": body[-1], "meta": {"score": 0},
+                "provenance": [{
+                    "wikipedia_id": w, "title": pages[w]["wikipedia_title"],
+                    "section": "Section::::Abstract", "start_paragraph_id": 1,
+                    "start_character": 0, "end_paragraph_id": 1,
+                    "end_character": 10, "bleu_score": 1.0,
+                    "meta": {"fever_page_id": "", "fever_sentence_id": 0,
+                             "annotation_id": "", "yes_no_answer": "",
+                             "evidence_span": []}} for w in qrels[q]]}]})
+    for path, splits, rows in (
+            (("kilt_tasks", "nq"), ("validation", "train"), queries),
+            (("kilt_wikipedia", "default"), ("full",), list(pages.values()))):
+        folder = os.path.join(out_folder, "hub", *path)
+        os.makedirs(folder, exist_ok=True)
+        for split in splits:
+            with open(os.path.join(folder, f"{split}.jsonl"), "w") as f:
+                for row in rows:
+                    f.write(json.dumps(row) + "\n")
+    return {"queries": len(queries), "pages": len(pages),
+            "gold_pages": len(gold)}
+
+
+def run_kilt_nq_local(ckpt: dict, workdir: str) -> dict:
+    """``python -m bergen_tpu_torch dataset=kilt_nq`` (CONFIG=rag: top 50,
+    5 documents a prompt) with the BERT-base retriever and the TinyLlama
+    generator (16 new tokens), on the synthetic KILT exports of
+    ``write_kilt_nq_exports``: KILTNQ and KILT100w process them, the ranking
+    metrics run against the shipped ``qrels/qrel.kilt_nq.dev.json``."""
+    from bergen_tpu_torch.data.dataset import Dataset
+    from bergen_tpu_torch.data.processors.general import KILT100w
+    from bergen_tpu_torch.data.processors.kilt import KILTNQ
+
+    t0 = time.perf_counter()
+    made = write_kilt_nq_exports(os.path.join(workdir, "datasets"))
+    export_s = time.perf_counter() - t0
+    exp, wall = _run_cli([
+        "dataset=kilt_nq", "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        SECOND_EVAL_NEW_TOKENS], workdir, ckpt, config="rag",
+        qrels=os.path.join(REPO, "qrels"))
+    passages = len(Dataset.load_from_disk(
+        os.path.join(workdir, "datasets", "kilt-100w_full")))
+    # the data layer alone, on the host: both processors on the exports
+    # again (process() only: no cache written)
+    process_s = {}
+    for name, cls, split in (("KILTNQ", KILTNQ, "validation"),
+                             ("KILT100w", KILT100w, "full")):
+        t0 = time.perf_counter()
+        cls(split=split, out_folder=os.path.join(workdir, "datasets"),
+            num_proc=1, overwrite=False, debug=False,
+            oracle_provenance=False, shuffle_labels=False).process()
+        process_s[name] = time.perf_counter() - t0
+    n = made["queries"]
+    # finite scores; not held to [-1, 1]: random weights give near-equal
+    # embeddings, whose stored-fp16 cosines pass 1 by up to a few 1e-4
+    _trec(exp, "run.retrieve.", n * 50, cosine=False)
+    ranking = _json(exp, "eval_dev_ranking_metrics.json")
+    if set(ranking) != {"P_1", "recall_5"} or not all(
+            0.0 <= v <= 1.0 for v in ranking.values()):
+        fail(f"kilt_nq_local: ranking metrics {ranking}")
+    return {"wall_s": wall, "export_s": export_s, **made,
+            "passages": passages, "process_s": process_s,
+            "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "ranking": ranking, **_check_outputs(exp, n)}
+
+
+def _judge_config(ckpt: dict, workdir: str) -> str:
+    """A generator config folder holding ``tinyllama-chat.yaml`` with the
+    TinyLlama checkpoint's path, as ``JUDGE_CONFIG``."""
+    import yaml
+
+    folder = os.path.join(workdir, "generator")
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(REPO, "config", "generator",
+                           "tinyllama-chat.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["init_args"]["model_name"] = ckpt["llama"]
+    with open(os.path.join(folder, f"{JUDGE_CONFIG}.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    return folder
+
+
+def _run_judge(ckpt: dict, workdir: str, **kw) -> float:
+    """``evaluate.run_eval`` with the TinyLlama judge on the card, flash
+    prefill on (as on ut1_int4_llama2); returns wall seconds."""
+    import random
+
+    from bergen_tpu_torch import evaluate
+    from bergen_tpu_torch.models import llama
+
+    gen_dir = _judge_config(ckpt, workdir)
+    random.seed(0)  # the pairwise protocol's answer-order switches
+    llama.USE_FLASH_PREFILL = True
+    t0 = time.perf_counter()
+    try:
+        evaluate.run_eval(llm=[JUDGE_CONFIG, JUDGE_NAME],
+                          generator_config_dir=gen_dir, device="cuda", **kw)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _kept_first_token_logits():
+    """Keeps every ``LLM.first_token_logits`` result while it is open."""
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    first_token_logits, kept = LLM.first_token_logits, []
+
+    def keep(self, prompts):
+        kept.append(first_token_logits(self, prompts))
+        return kept[-1]
+
+    LLM.first_token_logits = keep
+    try:
+        yield kept
+    finally:
+        LLM.first_token_logits = first_token_logits
+
+
+def run_judge_logits(ckpt: dict, workdir: str, exp: str) -> dict:
+    """``evaluate --llm tinyllama-judge tinyllama --lid`` on ``exp`` (the
+    kilt_nq_local folder): the default_qa judge in logits mode (one
+    prefill a batch through first_token_logits) and the language ID (en).
+    The first-token logits of the first ``JUDGE_CHECK_ROWS`` rows are kept
+    in ``workdir/judge_logits.npy`` for ``check_judge_against_cpu``."""
+    import numpy as np
+
+    with _kept_first_token_logits() as kept:
+        wall = _run_judge(ckpt, workdir, folder=exp, lid=True)
+    if not kept:
+        fail("judge_logits: no prefill went through first_token_logits")
+    np.save(os.path.join(workdir, "judge_logits.npy"),
+            kept[0][:JUDGE_CHECK_ROWS])
+    name = f"LLMeval_{JUDGE_NAME}_logits"
+    metrics = _json(exp, "eval_dev_metrics.json")
+    rows = _json(exp, "eval_dev_out.json")
+    scores = [r.get(name) for r in rows]
+    if name not in metrics or "lid" not in metrics or not all(
+            isinstance(x, float) and 0.0 <= x <= 1.0 for x in scores):
+        fail(f"judge_logits: metrics {sorted(metrics)}, scores {scores[:4]}")
+    return {"wall_s": wall, "rows": len(rows), name: metrics[name],
+            "lid": metrics["lid"], "distinct_scores": len(set(scores)),
+            "score_range": [min(scores), max(scores)]}
+
+
+def run_judge_pairwise(ckpt: dict, workdir: str, exp: str,
+                       opponent: str) -> dict:
+    """``evaluate --llm tinyllama-judge tinyllama --opponent_folder
+    <ut1_w8a8_tinyllama> --opponent_name w8a8`` on ut1_eval's folder: the
+    pairwise protocol in text mode (greedy decode of 10 tokens)."""
+    wall = _run_judge(ckpt, workdir, folder=exp, opponent_folder=opponent,
+                      opponent_name="w8a8")
+    name = f"LLMeval_{JUDGE_NAME}_VS_w8a8"
+    metrics = _json(exp, "eval_dev_metrics.json")
+    rows = _json(exp, "eval_dev_out.json")
+    got = {k: metrics.get(f"{name}_{k}") for k in ("win", "tie", "lose")}
+    valid = [r[name] for r in rows if 0.0 <= r[name] <= 1.0]
+    # at least one verdict, so that the unswitching and the counts ran
+    if None in got.values() or len(rows) != 50 or not valid or round(
+            sum(got.values()), 6) != 100.0:
+        fail(f"judge_pairwise: {got} over {len(rows)} rows, "
+             f"{len(valid)} valid verdicts")
+    return {"wall_s": wall, "rows": len(rows), **got,
+            "valid_judgments": len(valid)}
+
+
+def check_judge_against_cpu(ckpt: dict, exp: str, logits_file: str) -> dict:
+    """The logits-mode judge's run on the card (bf16, flash prefill) against
+    the port's f32 CPU path on its first ``JUDGE_CHECK_ROWS`` rows: the row
+    cosine of the first-token logits it scored (``logits_file``, at least
+    0.99) and the option probabilities it wrote to ``eval_dev_out.json``
+    (within ``JUDGE_SCORE_TOL``)."""
+    import numpy as np
+    from bergen_tpu_torch import confy
+    from bergen_tpu_torch.models.evaluators.llm import LLMeval
+
+    name = f"LLMeval_{JUDGE_NAME}_logits"
+    rows = _json(exp, "eval_dev_out.json")[:JUDGE_CHECK_ROWS]
+    cfg = confy.load_yaml(os.path.join(REPO, "config", "generator",
+                                       "tinyllama-chat.yaml"))
+    cfg["init_args"].update(model_name=ckpt["llama"], dtype="f32")
+    judge = LLMeval(cfg, config="default_qa", device="cpu")
+    with _kept_first_token_logits() as kept:
+        scores_cpu = judge([r["response"] for r in rows],
+                           [r["label"] for r in rows],
+                           [r["question"] for r in rows])[1]
+    scores_card = [r[name] for r in rows]
+    diff = max(abs(a - b) for a, b in zip(scores_card, scores_cpu))
+    res = {"rows": len(rows),
+           "logits_min_cos": _cos_rows(np.load(logits_file),
+                                       np.concatenate(kept)),
+           "scores_card": scores_card, "scores_cpu": scores_cpu,
+           "max_score_diff": diff, "tol": JUDGE_SCORE_TOL, "cos_tol": 0.99}
+    if not (res["logits_min_cos"] >= 0.99 and diff <= JUDGE_SCORE_TOL):
+        fail(f"judge card vs CPU: {res}")
+    return res
+
+
+def run_print_results(work: str, judged: dict) -> dict:
+    """``python -m bergen_tpu_torch.print_results --format full`` (in this
+    process) over a folder linking every experiment of the script by path
+    name; each judged path's row must carry its judge's metrics."""
+    import contextlib
+    import io
+
+    from bergen_tpu_torch import print_results
+
+    folder = os.path.join(work, "experiments_all")
+    os.makedirs(folder, exist_ok=True)
+    for path in sorted(os.listdir(work)):
+        for config in ("rag_ut1", "rag"):
+            exp_root = _experiments_root(os.path.join(work, path), config)
+            if os.path.isdir(exp_root):
+                exps = [d for d in os.listdir(exp_root)
+                        if not d.startswith("tmp_")]
+                if len(exps) == 1:
+                    os.symlink(os.path.join(exp_root, exps[0]),
+                               os.path.join(folder, path))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        print_results.cli(["--folder", folder, "--format", "full"])
+    lines = buf.getvalue().splitlines()
+    lines = lines[lines.index("Split: dev"):]  # past any "Skipping" line
+    header = [c.strip() for c in lines[1].split("|")]
+    table = {ln.split("|")[2].strip(): [c.strip() for c in ln.split("|")]
+             for ln in lines[3:]}
+    for path, names in judged.items():
+        row = table.get(path)
+        if row is None or any(n not in header or row[header.index(n)] in
+                              ("", "nan") for n in names):
+            fail(f"print_results: {path} lacks {names}: {lines[:2]} {row}")
+    return {"experiments": len(table), "columns": header[2:-1],
+            "judged_rows": {p: dict(zip(header, table[p]))
+                            for p in judged}}
 
 
 def _cos_rows(a, b) -> float:
@@ -5172,7 +5529,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    t0 = time.perf_counter()
+    started = t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "card": card,
           "build_s": time.perf_counter() - t0,
@@ -5283,6 +5640,7 @@ def main() -> None:
         ft.bin_scores_int8.launches_by_mode = {"bin": 0, "doc": 0}
         ea.encoder_attention.bias_launches = 0
         llama.forward = counted
+        t0 = time.perf_counter()
         try:
             runs[path] = run(ckpt, os.path.join(work, path))
         finally:
@@ -5290,7 +5648,8 @@ def main() -> None:
         by_path[path] = {n: fn.launches for n, fn in counters.items()}
         int8_by_mode[path] = dict(ft.bin_scores_int8.launches_by_mode)
         bias_launches[path] = ea.encoder_attention.bias_launches
-        emit({"phase": path, **runs[path]})
+        emit({"phase": path, "path_s": time.perf_counter() - t0,
+              "script_s": time.perf_counter() - started, **runs[path]})
         torch.cuda.empty_cache()
 
     try:
@@ -5327,8 +5686,23 @@ def main() -> None:
                           ("ut1_rerank_w8a8", run_ut1_rerank_w8a8),
                           ("ut1_rerank_minilm", run_ut1_rerank_minilm),
                           ("ut1_int4_llama2", run_ut1_int4_llama2),
-                          ("ut1_repllama", run_ut1_repllama)):
+                          ("ut1_repllama", run_ut1_repllama),
+                          ("kilt_nq_local", run_kilt_nq_local)):
             drive(path, run)
+        # the LLM judge (TinyLlama, flash prefill): logits mode and language
+        # ID on kilt_nq_local's folder, the pairwise protocol on ut1_eval's
+        # against ut1_w8a8_tinyllama's
+        kilt_exp = _experiment(os.path.join(work, "kilt_nq_local"), "rag")
+        drive("judge_logits", lambda c, w: run_judge_logits(c, w, kilt_exp))
+        drive("judge_pairwise", lambda c, w: run_judge_pairwise(
+            c, w, _experiment(os.path.join(work, "ut1_eval")),
+            _experiment(os.path.join(work, "ut1_w8a8_tinyllama"))))
+        t0 = time.perf_counter()
+        judge_check = check_judge_against_cpu(
+            ckpt, kilt_exp, os.path.join(work, "judge_logits",
+                                         "judge_logits.npy"))
+        emit({"phase": "reference_check_judge",
+              "check_s": time.perf_counter() - t0, **judge_check})
         emit({"phase": "reference_check", **check_against_cpu(ckpt)})
         emit({"phase": "reference_check_remote",
               **check_remote_against_cpu(ckpt)})
@@ -5378,15 +5752,16 @@ def main() -> None:
         for name in SEVEN_B:  # room on the disk for the next models
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         # the Gemma, Gemma-2, Phi-3 and Command-R paths, one checkpoint at a
-        # time (each deleted after its paths and checks): Gemma-7B whole
-        # (flash prefill and decode at head width 256, group 1; its served
+        # time (each deleted after its paths and checks): Gemma-7B (flash
+        # prefill and decode at head width 256, group 1; its served
         # chunked drain, the band at 256), Gemma-2B (group 8), Gemma-2-9B
         # (no attention kernel), int4 Phi-3-mini (head width 96: no
         # attention kernel; its head outside the int4 rule) and int4
         # Command-R (group 1 at head width 128), the last two with the
         # card against the CPU on their first two layers
         for key, name, c, layers, seed, paths, check in (
-                ("gemma_7b", "gemma-7b-it-random", GEMMA_7B, None, 16, (
+                ("gemma_7b", "gemma-7b-it-random", GEMMA_7B,
+                 SMOKE_GEMMA7B_LAYERS, 16, (
                     ("ut1_gemma7b", lambda c_, w: run_ut1_flash_generator(
                         c_, w, "gemma-7b", "gemma_7b")),
                     ("ut1_serve_chunked_gemma7b",
@@ -5425,6 +5800,13 @@ def main() -> None:
                       **check_family_against_cpu(ckpt, key)})
             for gone in (name, name + "-2layers"):
                 shutil.rmtree(os.path.join(root, gone), ignore_errors=True)
+        judge = f"LLMeval_{JUDGE_NAME}"
+        table = run_print_results(work, {
+            "kilt_nq_local": [f"{judge}_logits"],
+            "ut1_eval": [f"{judge}_VS_w8a8_{k}"
+                         for k in ("win", "tie", "lose")]})
+        emit({"phase": "print_results",
+              "script_s": time.perf_counter() - started, **table})
         emit({"phase": "launches", **by_path,
               "encoder_attention_with_bias": bias_launches,
               "bin_topk_int8_by_mode": int8_by_mode})
@@ -5510,8 +5892,8 @@ def main() -> None:
                  SMOKE_LLAMA3_QWEN2_LAYERS),
                 ("ut1_int4_qwen25", 7 * SMOKE_LLAMA3_QWEN2_LAYERS + 1,
                  SMOKE_LLAMA3_QWEN2_LAYERS, SMOKE_LLAMA3_QWEN2_LAYERS),
-                ("ut1_gemma7b", 0, GEMMA_7B["num_hidden_layers"],
-                 GEMMA_7B["num_hidden_layers"]),
+                ("ut1_gemma7b", 0, SMOKE_GEMMA7B_LAYERS,
+                 SMOKE_GEMMA7B_LAYERS),
                 ("ut1_gemma2b", 0, SMOKE_GEMMA2B_LAYERS,
                  SMOKE_GEMMA2B_LAYERS),
                 ("ut1_gemma2_9b", 0, 0, 0),
@@ -5520,7 +5902,9 @@ def main() -> None:
                  SMOKE_COMMAND_R_LAYERS, SMOKE_COMMAND_R_LAYERS),
                 ("ut1_w8a8_tinyllama", 0, tiny, 0),
                 ("ut1_int8_qwen25", 0, SMOKE_NEW_PATH_LAYERS,
-                 SMOKE_NEW_PATH_LAYERS)):
+                 SMOKE_NEW_PATH_LAYERS),
+                ("kilt_nq_local", 0, tiny, 0),
+                ("judge_pairwise", 0, tiny, tiny)):
             bad = [st for st in steps[path] if st[1:4] != (
                 per4, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
             n_dec = sum(1 for st in steps[path] if st[0] == 1)
@@ -5565,6 +5949,16 @@ def main() -> None:
                            for st in st_r) or by_path["ut1_repllama"] != want:
             fail(f"ut1_repllama: {len(st_r)} forward steps, launches "
                  f"{by_path['ut1_repllama']}, not {want}")
+        # the logits-mode judge: one prefill a batch of 8 rows, each one
+        # flash attention a layer, no decode step and nothing else
+        st_j = steps["judge_logits"]
+        want = {n: 0 for n in counters}
+        want["flash_attention"] = tiny * len(st_j)
+        if len(st_j) != -(-KILT_NQ_QUERIES // 8) or any(
+                st[0] == 1 or st[1:4] != (0, 0, tiny) for st in st_j) \
+                or by_path["judge_logits"] != want:
+            fail(f"judge_logits: {len(st_j)} forward steps, launches "
+                 f"{by_path['judge_logits']}, not {want}")
         # BM25 and the oracles: no kernel at all
         for path in ("ut1_bm25_oracle", "ut1_oracle_provenance"):
             if any(by_path[path].values()) or steps[path]:
@@ -5594,8 +5988,7 @@ def main() -> None:
                  f"forward step ({len(steps['ut1_phi3_int4'])})")
         # the Gemma-7B chunked drain: one decode attention a layer and step,
         # one band attention a layer and (step, active pipe) pair
-        path, n_layers = "ut1_serve_chunked_gemma7b", GEMMA_7B[
-            "num_hidden_layers"]
+        path, n_layers = "ut1_serve_chunked_gemma7b", SMOKE_GEMMA7B_LAYERS
         got = (by_path[path]["decode_attention"],
                by_path[path]["flash_attention_band"])
         want = (n_layers * runs[path]["decode_steps"],
@@ -5606,6 +5999,9 @@ def main() -> None:
         emit({"phase": "forward_steps", **{
             path: {"forward": len(st),
                    "decode": sum(1 for s in st if s[0] == 1),
+                   # the prefills' (rows, S) shapes
+                   "prefill_shapes": sorted({(s[4], s[0]) for s in st
+                                             if s[0] > 1}),
                    # the decode steps' (rows, flat cache length) shapes
                    "decode_shapes": sorted({s[4:6] for s in st
                                             if s[0] == 1})}
