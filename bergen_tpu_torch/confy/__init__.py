@@ -101,6 +101,16 @@ TARGETS = {
         "bergen_tpu_torch.models.generators.oracle.OracleAnswer",
     "bergen_tpu.models.generators.oracle.OracleProvenance":
         "bergen_tpu_torch.models.generators.oracle.OracleProvenance",
+    **{f"bergen_tpu.models.{mod}.{cls}": f"bergen_tpu_torch.models.{mod}.{cls}"
+       for mod, cls in (
+           ("context_processors.recomp", "RecompExtractiveCompressor"),
+           ("context_processors.recomp", "RecompAbstractiveCompressor"),
+           ("context_processors.dslr_ce", "DSLR_CE"),
+           ("context_processors.provence", "ProvenceCompressor"),
+           ("context_processors.llmlingua", "LongLLMLingua"),
+           ("context_processors.llmlingua", "LLMLingua2"),
+           ("query_generators.translate_query", "TranslateQuery"),
+           ("query_generators.unfold_api_query", "UnfoldAPIQuery"))},
 }
 
 
@@ -366,3 +376,4 @@ def instantiate(node: Any, **kwargs: Any):
         return Config(built)
     cls = _locate(resolve_target(node["_target_"]))
     return cls(**built)
+

@@ -9,7 +9,8 @@ nomic-embed, jina-v2, DistilBERT) and ``llama_from_hf`` map HF state dicts
 onto the same parameter trees the JAX package uses (linear kernels stored
 [in, out]), ``deberta_from_hf`` does the same for DeBERTa-v2/v3,
 ``quantize_encoder_layers_w8a8`` makes the W8A8 layer trees of the
-JAX package bit for bit, and ``from_jax_params`` carries a JAX tree (numpy
+JAX package bit for bit, and ``from_jax_params`` (``t5_from_jax`` and
+``m2m100_from_jax`` for the seq2seq models) carries a JAX tree (numpy
 leaves) across unchanged, so both packages can be fed identical weights.
 """
 
@@ -293,6 +294,11 @@ def deberta_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
         p["pooler"] = _lin(sd, "pooler.dense")
     if "classifier.weight" in sd:
         p["classifier"] = _lin(sd, "classifier")
+    # Provence's token keep head, under the names its checkpoints use
+    for prefix in ("token_classifier", "token_head", "qa_outputs"):
+        if f"{prefix}.weight" in sd:
+            p["token_head"] = _lin(sd, prefix)
+            break
     return p
 
 
@@ -601,6 +607,21 @@ def to_device(tree, dtype: torch.dtype, device, _keep_f32: bool = False):
         return t.to(device).contiguous()
     return t.to(device=device, dtype=torch.float32 if _keep_f32 else dtype
                 ).contiguous()
+
+
+def t5_from_jax(tree, dtype: torch.dtype = torch.float32,
+                device="cpu") -> Any:
+    """A JAX ``models/t5.py`` parameter tree (numpy leaves) -> the port's
+    T5 tree: the same layout (``models/t5.py::t5_from_hf``)."""
+    return to_device(tree, dtype, device)
+
+
+def m2m100_from_jax(tree, dtype: torch.dtype = torch.float32,
+                    device="cpu") -> Any:
+    """A JAX ``models/m2m100.py`` parameter tree (numpy leaves, its f32
+    position table included) -> the port's M2M100 tree: the same
+    layout."""
+    return to_device(tree, dtype, device)
 
 
 def from_jax_params(tree, dtype: torch.dtype = torch.float32,

@@ -1,1 +1,1 @@
-"""query_generators ported so far."""
+"""Query generators: copy, NLLB translation and API-query unfolding."""

@@ -7,7 +7,7 @@ from bergen_tpu_torch.models.query_generators.base import QueryGenerator
 
 
 class CopyQuery(QueryGenerator):
-    def __init__(self):
+    def __init__(self, device=None):  # runs no model: the device is unused
         self.name = "copy"
 
     def generate(self, user_questions: List[str]) -> List[str]:

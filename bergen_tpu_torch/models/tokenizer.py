@@ -64,6 +64,9 @@ def _is_punc(c: str) -> bool:
 
 
 def _normalizer(spec):
+    """-> function: text -> normalized text.  Every rule but NFC is its
+    aligned form (``_normalizer_aligned``) with the spans dropped, so the
+    plain encode and the offsets follow one implementation of each."""
     if spec is None:
         return lambda s: s
     kind = spec["type"]
@@ -76,35 +79,108 @@ def _normalizer(spec):
             return s
 
         return seq
+    if kind == "NFC":
+        return lambda s: unicodedata.normalize("NFC", s)
+    aligned = _normalizer_aligned(spec)
+    return lambda s: aligned(s, [None] * len(s))[0]
+
+
+def _transform(chars: str, spans: list, dest) -> tuple[str, list]:
+    """``tokenizers``' ``NormalizedString::transform`` over a whole string
+    kept with its characters' spans in the original text: each
+    ``(c, change)`` of ``dest`` takes the next old character's span
+    (change <= 0, which then drops -change more old characters) or, as an
+    inserted character (change 1), the span of the old character before
+    it."""
+    out_c, out_s, pos = [], [], 0
+    for c, change in dest:
+        if change > 0:
+            span = spans[pos - 1] if pos else (0, 0)
+        else:
+            span = spans[pos]
+            pos += 1 - change
+        out_c.append(c)
+        out_s.append(span)
+    return "".join(out_c), out_s
+
+
+def _replace_aligned(chars: str, spans: list, matches, content: str):
+    """Each (start, end) character range of ``matches`` replaced by
+    ``content``, whose characters all take the span of the range's last
+    character (``tokenizers``' ``NormalizedString::replace``)."""
+    out_c, out_s, pos = [], [], 0
+    for a, b in matches:
+        out_c += [chars[pos:a], content]
+        out_s += spans[pos:a] + [spans[b - 1]] * len(content)
+        pos = b
+    return "".join(out_c) + chars[pos:], out_s + spans[pos:]
+
+
+def _lowercase_aligned(chars: str, spans: list):
+    low = chars.lower()
+    if len(low) == len(chars):  # no character grew: the spans stay
+        return low, spans
+    return _transform(chars, spans, [
+        (lc, int(n > 0)) for c in chars for n, lc in enumerate(c.lower())])
+
+
+def _normalizer_aligned(spec):
+    """The normalizer of ``spec`` on a string kept with its characters'
+    spans in the original text, each span as ``tokenizers`` aligns it.
+    NFC raises: no shipped tokenizer that needs offsets has it."""
+    if spec is None:
+        return lambda chars, spans: (chars, spans)
+    kind = spec["type"]
+    if kind == "Sequence":
+        steps = [_normalizer_aligned(n) for n in spec["normalizers"]]
+
+        def seq(chars, spans):
+            for f in steps:
+                chars, spans = f(chars, spans)
+            return chars, spans
+
+        return seq
     if kind == "Lowercase":
-        return str.lower
+        return _lowercase_aligned
     if kind == "StripAccents":
-        return lambda s: "".join(c for c in s
-                                 if unicodedata.category(c) != "Mn")
+        def strip_accents(chars, spans):
+            keep = [n for n, c in enumerate(chars)
+                    if unicodedata.category(c) != "Mn"]
+            return "".join(chars[n] for n in keep), [spans[n] for n in keep]
+
+        return strip_accents
     if kind == "Strip":
         left = spec.get("strip_left", True)
         right = spec.get("strip_right", True)
 
-        def strip(s):
-            s = s.lstrip() if left else s
-            return s.rstrip() if right else s
+        def strip(chars, spans):
+            a = len(chars) - len(chars.lstrip()) if left else 0
+            b = max(a, len(chars.rstrip()) if right else len(chars))
+            return chars[a:b], spans[a:b]
 
         return strip
     if kind == "Replace":
         pat, content = spec["pattern"], spec["content"]
-        if "Regex" in pat:
-            rx = re.compile(pat["Regex"])
-            return lambda s: rx.sub(lambda _: content, s)
-        return lambda s: s.replace(pat["String"], content)
+        rx = re.compile(pat["Regex"] if "Regex" in pat
+                        else re.escape(pat["String"]))
+        return lambda chars, spans: _replace_aligned(
+            chars, spans, [m.span() for m in rx.finditer(chars)
+                           if m.end() > m.start()], content)
     if kind == "Prepend":
         pre = spec["prepend"]
-        return lambda s: pre + s if s else s
-    if kind == "NFC":
-        return lambda s: unicodedata.normalize("NFC", s)
+        return lambda chars, spans: _prepend_aligned(chars, spans, pre)
     if kind == "Precompiled":
         return _Precompiled(base64.b64decode(
-            spec["precompiled_charsmap"])).normalize
-    raise NotImplementedError(f"tokenizer normalizer {kind!r}")
+            spec["precompiled_charsmap"])).normalize_aligned
+    raise NotImplementedError(f"tokenizer normalizer {kind!r} with offsets")
+
+
+def _prepend_aligned(chars: str, spans: list, pre: str):
+    """``tokenizers``' ``NormalizedString::prepend``: the new characters
+    take the first character's span."""
+    if not chars:
+        return chars, spans
+    return pre + chars, [spans[0]] * len(pre) + spans
 
 
 # Unicode's extended grapheme clusters (UAX #29), for the Precompiled
@@ -306,25 +382,71 @@ class _Precompiled:
             out = self._cache[piece] = self._lookup(piece.encode())
         return out
 
-    def normalize(self, text: str) -> str:
-        out = []
+    def _pieces(self, text: str):
+        """(piece of the text, its replacement or None), in order."""
         for cluster in _graphemes(text):
             if len(cluster.encode()) < 6:
                 rep = self._transform(cluster)
                 if rep is not None:
-                    out.append(rep)
+                    yield cluster, rep
                     continue
             for c in cluster:
-                rep = self._transform(c)
-                out.append(c if rep is None else rep)
-        return "".join(out)
+                yield c, self._transform(c)
+
+    def normalize(self, text: str) -> str:
+        return self.normalize_aligned(text, [None] * len(text))[0]
+
+    def normalize_aligned(self, chars: str, spans: list):
+        """``normalize`` on (characters, spans): a replacement's
+        characters take its piece's spans in turn, the ones past the
+        piece's length that of its last character, and a shorter
+        replacement's last character absorbs the rest (``tokenizers``'
+        ``replace`` in its Precompiled normalizer)."""
+        pieces, out, same = [], [], True
+        for piece, rep in self._pieces(chars):
+            pieces.append((piece, rep))
+            if rep is None:
+                out.append(piece)
+            else:
+                out.append(rep)
+                same = same and len(rep) == len(piece)
+        if same:  # no piece changed its length: every span stays
+            return "".join(out), spans
+        dest = []
+        for piece, rep in pieces:
+            if rep is None:
+                dest.append((piece, 0))
+                continue
+            grow = len(rep) - len(piece)
+            new = [[c, 0] for c in rep]
+            if grow > 0:
+                for d in new[len(new) - grow:]:
+                    d[1] = 1
+            elif grow < 0 and new:
+                new[-1][1] += grow
+            elif grow < 0 and dest:
+                dest[-1] = (dest[-1][0], dest[-1][1] + grow)
+            dest.extend(map(tuple, new))
+        return _transform(chars, spans, dest)
 
 
 def _metaspace(spec):
-    """``tokenizers``' Metaspace: spaces become the replacement character,
-    which is prepended to the text (scheme ``always``, or ``first``: only
-    where the text starts the input) and, with ``split``, starts each
-    piece."""
+    """``_metaspace_aligned(spec)`` on plain pieces (the spans dropped)."""
+    aligned = _metaspace_aligned(spec)
+
+    def pre(pieces, at_start):
+        return [chars for chars, _ in aligned(
+            [(p, [None] * len(p)) for p in pieces], at_start)]
+
+    return pre
+
+
+def _metaspace_aligned(spec):
+    """``tokenizers``' Metaspace on pieces kept with their characters'
+    spans: spaces become the replacement character (with the space's
+    span), which is prepended to the piece (scheme ``always``, or
+    ``first``: only where the text starts the input; with the piece's first
+    span) and, with ``split``, starts each piece."""
     rep = spec.get("replacement", "\u2581")
     scheme = spec.get("prepend_scheme")
     if scheme is None:  # the older add_prefix_space flag
@@ -333,23 +455,21 @@ def _metaspace(spec):
 
     def pre(pieces, at_start):
         out = []
-        for n, p in enumerate(pieces):
-            p = p.replace(" ", rep)
-            if not p.startswith(rep) and (
+        for n, (chars, spans) in enumerate(pieces):
+            chars = chars.replace(" ", rep)
+            if chars and chars[0] != rep and (
                     scheme == "always"
                     or (scheme == "first" and at_start and n == 0)):
-                p = rep + p
+                chars, spans = _prepend_aligned(chars, spans, rep)
             if not split:
-                out.append(p)
+                out.append((chars, spans))
                 continue
-            cur = ""
-            for c in p:
-                if c == rep and cur:
-                    out.append(cur)
-                    cur = ""
-                cur += c
-            if cur:
-                out.append(cur)
+            start = 0
+            while start < len(chars):
+                end = chars.find(rep, start + 1)
+                end = len(chars) if end < 0 else end
+                out.append((chars[start:end], spans[start:end]))
+                start = end
         return out
 
     return pre
@@ -525,6 +645,18 @@ def _byte_level(spec):
     return pre
 
 
+def _pre_tokenizer_aligned(spec):
+    """``_pre_tokenizer(spec)`` on pieces kept as (characters, spans); only
+    Metaspace (and none), the pre-tokenizers of the sentencepiece
+    tokenizers whose offsets the port reads."""
+    if spec is None:
+        return lambda pieces, at_start: pieces
+    if spec["type"] == "Metaspace":
+        return _metaspace_aligned(spec)
+    raise NotImplementedError(
+        f"tokenizer pre-tokenizer {spec['type']!r} with offsets")
+
+
 def _pre_tokenizer(spec):
     """-> function: (list of pieces, whether the first piece starts the
     input) -> list of pieces."""
@@ -603,8 +735,13 @@ class _WordPiece:
         self.max_chars = spec.get("max_input_chars_per_word", 100)
 
     def tokenize(self, word: str) -> list[int]:
+        return [i for i, _, _ in self.tokenize_spans(word)]
+
+    def tokenize_spans(self, word: str) -> list[tuple[int, int, int]]:
+        """(id, start, end) of each token: its characters of ``word``."""
+        whole = [(self.vocab[self.unk], 0, len(word))]
         if len(word) > self.max_chars:
-            return [self.vocab[self.unk]]
+            return whole
         out, start = [], 0
         while start < len(word):
             end = len(word)
@@ -618,8 +755,8 @@ class _WordPiece:
                     break
                 end -= 1
             if cur is None:
-                return [self.vocab[self.unk]]
-            out.append(cur)
+                return whole
+            out.append((cur, start, end))
             start = end
         return out
 
@@ -654,6 +791,11 @@ class _Unigram:
         self.max_len = max(len(p) for p, _ in pieces)
 
     def tokenize(self, text: str) -> list[int]:
+        return [i for i, _, _ in self.tokenize_spans(text)]
+
+    def tokenize_spans(self, text: str) -> list[tuple[int, int, int]]:
+        """(id, start, end) of each token: its characters of ``text`` (a
+        fused unknown covers all its characters)."""
         n = len(text)
         if n == 0:
             return []
@@ -684,12 +826,12 @@ class _Unigram:
                 unk_end = end if unk_end is None else unk_end
             else:
                 if unk_end is not None:
-                    toks.append(self.unk_id)
+                    toks.append((self.unk_id, end, unk_end))
                     unk_end = None
-                toks.append(i)
+                toks.append((i, start, end))
             end = start
         if unk_end is not None:
-            toks.append(self.unk_id)
+            toks.append((self.unk_id, 0, unk_end))
         return toks[::-1]
 
 
@@ -907,6 +1049,7 @@ class Tokenizer:
             raise NotImplementedError(f"tokenizer model {model['type']!r}")
         self.normalize = _normalizer(spec.get("normalizer"))
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self._spec = spec
         self.template = _template(spec.get("post_processor"))
         dec = spec.get("decoder")
         self.decoder = dec
@@ -971,31 +1114,82 @@ class Tokenizer:
 
     # ----- encode ----------------------------------------------------------
 
-    def _encode_raw(self, text: str) -> list[int]:
-        ids: list[int] = []
-        segments = []
+    def _segments(self, text: str):
+        """(start, end, id) of the added tokens of ``text`` and (start,
+        end, None) of the non-empty runs between them, in order."""
         pos = 0
         if self._added_re is not None:
             for m in self._added_re.finditer(text):
-                segments.append((text[pos:m.start()], None, pos == 0))
-                segments.append((m.group(0), self.added[m.group(0)], False))
+                if m.start() > pos:
+                    yield pos, m.start(), None
+                yield m.start(), m.end(), self.added[m.group(0)]
                 pos = m.end()
-        segments.append((text[pos:], None, pos == 0))
-        for seg, added_id, at_start in segments:
+        if len(text) > pos:
+            yield pos, len(text), None
+
+    def _encode_raw(self, text: str) -> list[int]:
+        ids: list[int] = []
+        for a, b, added_id in self._segments(text):
             if added_id is not None:
                 ids.append(added_id)
                 continue
-            if not seg:
-                continue
-            norm = self.normalize(seg)
-            if not norm:
-                continue
-            for word in self.pre_tokenize([norm], at_start):
+            norm = self.normalize(text[a:b])
+            for word in self.pre_tokenize([norm], a == 0) if norm else ():
                 ids.extend(self.model.tokenize(word))
         return ids
 
-    def _post_process(self, a: list[int], b: list[int] | None):
-        """(ids, type ids) of the template around sequence a (and b)."""
+    @functools.cached_property
+    def _aligned(self):
+        """(normalizer, pre-tokenizer, model) with spans, for offsets."""
+        tokenize = getattr(self.model, "tokenize_spans", None)
+        if tokenize is None:
+            raise NotImplementedError(
+                f"tokenizer model {type(self.model).__name__} with offsets "
+                "(Unigram and WordPiece only)")
+        return (_normalizer_aligned(self._spec.get("normalizer")),
+                _pre_tokenizer_aligned(self._spec.get("pre_tokenizer")),
+                tokenize)
+
+    def _encode_raw_offsets(self, text: str):
+        """(ids, offsets) of ``text`` without special tokens: each token's
+        (start, end) characters of ``text``, as ``tokenizers`` maps an
+        encoding back through its normalizer and pre-tokenizer."""
+        normalize, pre_tokenize, tokenize = self._aligned
+        ids: list[int] = []
+        offsets: list[tuple[int, int]] = []
+        for a, b, added_id in self._segments(text):
+            if added_id is not None:
+                ids.append(added_id)
+                offsets.append((a, b))
+                continue
+            chars, spans = normalize(text[a:b],
+                                     [(k, k + 1) for k in range(a, b)])
+            for pc, ps in pre_tokenize([(chars, spans)], a == 0) \
+                    if chars else ():
+                for i, t0, t1 in tokenize(pc):
+                    ids.append(i)
+                    offsets.append((ps[t0][0], ps[t1 - 1][1]))
+        return ids, offsets
+
+    def encode_offsets(self, text: str, text_pair: str | None = None,
+                       truncation=False, max_length: int | None = None):
+        """(ids, type ids, offsets) of one text or (text, text_pair) pair
+        with special tokens, truncated as ``encode_plus``; a special token's
+        offsets are (0, 0), a token of ``text_pair`` counts characters of
+        ``text_pair`` (transformers' ``return_offsets_mapping``)."""
+        a, oa = self._encode_raw_offsets(text)
+        b, ob = (self._encode_raw_offsets(text_pair)
+                 if text_pair is not None else (None, None))
+        a, b = self._truncate(a, b, True, truncation, max_length)
+        oa = oa[:len(a)]
+        ob = None if b is None else ob[:len(b)]
+        ids, types = self._post_process(a, b)
+        return ids, types, self._post_process(oa, ob, special=(0, 0))[0]
+
+    def _post_process(self, a: list, b: list | None, special=None):
+        """(ids, type ids) of the template around sequence a (and b); with
+        ``special``, each special token's entry is ``special`` in place of
+        its id (the offsets' (0, 0))."""
         if self.template is None:
             ids = a + (b or [])
             return ids, [0] * len(a) + [1] * len(b or [])
@@ -1008,7 +1202,7 @@ class Tokenizer:
             else:
                 name = piece["SpecialToken"]["id"]
                 sp = self.template["special_tokens"][name]["ids"]
-                ids.extend(sp)
+                ids.extend(sp if special is None else [special] * len(sp))
                 types.extend([piece["SpecialToken"]["type_id"]] * len(sp))
         return ids, types
 
@@ -1029,6 +1223,16 @@ class Tokenizer:
         max_length)."""
         a = self._encode_raw(text)
         b = self._encode_raw(text_pair) if text_pair is not None else None
+        a, b = self._truncate(a, b, add_special_tokens, truncation,
+                              max_length)
+        if not add_special_tokens:
+            ids = a + (b or [])
+            return ids, [0] * len(a) + [1] * len(b or [])
+        return self._post_process(a, b)
+
+    def _truncate(self, a: list, b: list | None, add_special_tokens: bool,
+                  truncation, max_length: int | None):
+        """``encode_plus``'s truncation of sequence a (and b)."""
         if truncation and max_length is not None:
             room = max_length - (self._n_added(b is not None)
                                  if add_special_tokens else 0)
@@ -1045,10 +1249,7 @@ class Tokenizer:
             else:
                 raise NotImplementedError(
                     f"pair truncation {truncation!r} (only 'only_second')")
-        if not add_special_tokens:
-            ids = a + (b or [])
-            return ids, [0] * len(a) + [1] * len(b or [])
-        return self._post_process(a, b)
+        return a, b
 
     def encode(self, text: str, add_special_tokens: bool = True,
                truncation: bool = False,
@@ -1058,9 +1259,19 @@ class Tokenizer:
 
     def __call__(self, texts, text_pair=None, truncation=False,
                  max_length: int | None = None,
-                 add_special_tokens: bool = True):
+                 add_special_tokens: bool = True,
+                 return_offsets_mapping: bool = False):
         """{"input_ids", "token_type_ids"} for one text (or pair), or lists
-        of them (unpadded: callers pad)."""
+        of them (unpadded: callers pad); with ``return_offsets_mapping``
+        (one text or pair, special tokens added) also "offset_mapping"."""
+        if return_offsets_mapping:
+            if not isinstance(texts, str) or not add_special_tokens:
+                raise NotImplementedError(
+                    "offsets of one text or pair, with special tokens")
+            ids, types, offsets = self.encode_offsets(
+                texts, text_pair, truncation, max_length)
+            return {"input_ids": ids, "token_type_ids": types,
+                    "offset_mapping": offsets}
         if isinstance(texts, str):
             ids, types = self.encode_plus(texts, text_pair,
                                           add_special_tokens, truncation,

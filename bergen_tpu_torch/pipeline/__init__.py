@@ -1,1 +1,2 @@
-"""Pipeline stages: query generation and retrieval."""
+"""Pipeline stages: query generation, retrieval, reranking and context
+processing."""

@@ -8,12 +8,12 @@ from bergen_tpu_torch import confy
 
 class GenerateQueries:
     def __init__(self, generator=None, init_args=None, batch_size: int = 1,
-                 model=None):
+                 model=None, device=None):
         self.batch_size = batch_size
         if model is not None:
             self.model = model
         else:
-            self.model = confy.instantiate(init_args)
+            self.model = confy.instantiate(init_args, device=device)
         # some query generators reuse the main generator LLM for rewriting
         # (reference models/query_generators/unfold_api_query.py)
         if hasattr(self.model, "set_generator"):

@@ -2,12 +2,13 @@
 
 Holds the stage objects, enforces ``generation_top_k <= rerank_top_k <=
 retrieve_top_k``, caches every stage artifact under the JAX package's
-deterministic filenames (TREC runs, generated queries), evaluates rankings
-against qrels, and writes the per-experiment ``eval_{split}_out.json`` /
-``eval_{split}_metrics.json``.  Ported: ``eval()`` with query generation,
-dense retrieval, cross-encoder reranking and generation.  Context processing
-and training raise ``NotImplementedError`` naming the ROADMAP item that will
-port them.  Every stage runs on ``device`` (default ``cuda``).
+deterministic filenames (TREC runs, generated queries, processed contexts),
+evaluates rankings against qrels, and writes the per-experiment
+``eval_{split}_out.json`` / ``eval_{split}_metrics.json``.  Ported:
+``eval()`` with query generation, retrieval, cross-encoder reranking,
+context processing and generation.  Training raises
+``NotImplementedError`` naming the ROADMAP item that will port it.  Every
+stage runs on ``device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from bergen_tpu_torch import device as _device
 from bergen_tpu_torch.data.processor import ProcessDatasets
 from bergen_tpu_torch.metrics import RAGMetrics
 from bergen_tpu_torch.pipeline.generate_query import GenerateQueries
+from bergen_tpu_torch.pipeline.process_context import ProcessContext
 from bergen_tpu_torch.pipeline.rerank import Rerank
 from bergen_tpu_torch.pipeline.retrieve import Retrieve
 
@@ -81,10 +83,6 @@ class RAG:
                 }
             }
 
-        if context_processor is not None:
-            raise NotImplementedError(
-                "context processing is not ported yet (ROADMAP.md Queue 1, "
-                "query rewriting and context processing)")
         if train is not None:
             raise NotImplementedError(
                 "training is not ported yet (ROADMAP.md Queue 1, training)")
@@ -151,7 +149,12 @@ class RAG:
             else None
         )
         self.query_generator = GenerateQueries(
-            generator=self.generator, **query_generator
+            generator=self.generator, **query_generator, device=self.device
+        )
+        self.context_processor = (
+            ProcessContext(**context_processor, device=self.device)
+            if context_processor is not None
+            else None
         )
 
     # ------------------------------------------------------------------ #
@@ -192,6 +195,13 @@ class RAG:
                 dataset, query_ids, doc_ids, multi_doc=True,
                 query_field="content", oracle_provenance=self.oracle_provenance,
             )
+
+            if self.context_processor is not None and self.retriever is not None:
+                with timer.track("process_context"):
+                    gen_dataset = self.process_context(
+                        gen_dataset, query_dataset_name, doc_dataset_name,
+                        dataset_split,
+                    )
 
             if self.generator is not None:
                 with timer.track("generate"):
@@ -340,6 +350,51 @@ class RAG:
                 top_k=self.generation_top_k, reranking=True, debug=self.debug,
             )
         return query_ids, doc_ids, scores
+
+    def process_context(self, gen_dataset, query_dataset_name,
+                        doc_dataset_name, dataset_split):
+        fname = utils.get_context_processing_filename(
+            self.processed_context_folder, query_dataset_name, doc_dataset_name,
+            dataset_split, self.retriever.get_clean_model_name(),
+            self.retrieve_top_k,
+            self.reranker.get_clean_model_name() if self.reranker else None,
+            self.rerank_top_k, self.generation_top_k,
+            self.query_generator.get_clean_model_name(),
+            self.context_processor.get_clean_model_name(),
+        )
+        if not os.path.exists(fname) or self.overwrite_exp or self.overwrite_index:
+            contexts = [list(d) for d in gen_dataset["doc"]]
+            queries = list(gen_dataset["query"])
+            processed, context_metrics = self.context_processor.eval(
+                contexts, queries
+            )
+            os.makedirs(self.processed_context_folder, exist_ok=True)
+            with open(fname, "w") as fp:
+                json.dump(
+                    {
+                        "processed_contexts": processed,
+                        "context_metrics": context_metrics,
+                        "original_contexts": contexts,
+                        "queries": queries,
+                    },
+                    fp,
+                )
+        else:
+            with open(fname) as fp:
+                saved = json.load(fp)
+            processed = saved["processed_contexts"]
+            context_metrics = saved["context_metrics"]
+        gen_dataset = gen_dataset.remove_columns("doc")
+        gen_dataset = gen_dataset.add_column("doc", processed)
+        shutil.copyfile(
+            fname, os.path.join(self.experiment_folder, os.path.basename(fname))
+        )
+        utils.write_dict(
+            self.experiment_folder,
+            f"eval_{dataset_split}_context_metrics.json",
+            context_metrics,
+        )
+        return gen_dataset
 
     def generate(self, gen_dataset, dataset_split):
         t0 = time.time()

@@ -166,6 +166,25 @@ def get_query_generation_filename(
     )
 
 
+def get_context_processing_filename(
+    context_processing_folder, query_dataset, doc_dataset, dataset_split,
+    retriever_name, retrieve_top_k, reranker_name, rerank_top_k, generation_top_k,
+    query_generator_name, context_processor_name,
+):
+    query_gen_add = "" if query_generator_name == "copy" else f".{query_generator_name}"
+    rerank_name = (
+        f"rerank.top_{rerank_top_k}.{reranker_name}"
+        if reranker_name is not None
+        else "no_rerank"
+    )
+    return (
+        f"{context_processing_folder}/processed_contexts.{context_processor_name}."
+        f"retriever.top_{retrieve_top_k}.{retriever_name}.{rerank_name}."
+        f"generate_top_{generation_top_k}.{query_dataset}.{doc_dataset}."
+        f"{dataset_split}{query_gen_add}.json"
+    )
+
+
 # --------------------------------------------------------------------------- #
 # Experiment lifecycle (reference utils.py:302-339)
 # --------------------------------------------------------------------------- #

@@ -3,6 +3,10 @@
     python3 chip_smoke.py                         # one GPU, every phase
     python3 chip_smoke.py --only int4_matmul,...  # build + those checks
     python3 chip_smoke.py --profile-serve         # build + serving profile
+    python3 chip_smoke.py --context               # build + the context paths
+    python3 chip_smoke.py --context-kernels SHAPES ROWS  # (run by the
+        # script itself) the context paths' kernel checks at SHAPES, the
+        # rows written to ROWS
 
 Phases (each prints one JSON line):
   1. the card (nvidia-smi name and power limit) and the kernel build time;
@@ -109,7 +113,16 @@ Phases (each prints one JSON line):
      ut1_w8a8_tinyllama's (at least one valid verdict), the logits-mode
      judge's first-token logits and option probabilities of its flash run
      against the CPU on two rows, and ``print_results`` over every
-     experiment of the script;
+     experiment of the script; context processing and query rewriting on
+     ut1_eval's linked folders, right after ut1_eval (TinyLlama at 16 new
+     tokens): RECOMP
+     extractive (the BERT-base checkpoint) and abstractive (T5-large),
+     DSLR (XLM-R-large, bge-reranker-v2-m3's widths), Provence
+     (DeBERTa-v3-large with its heads) and NLLB-200-3.3B translation, then
+     API-query unfolding, the four models at 2 layers a stack with
+     tokenizers of the published layouts, each kernel at those paths' own
+     shapes (XLM-R-large and DeBERTa-v3-large layers, T5's biased
+     attention at a ragged S) and the card against the CPU;
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
      over a bf16 corpus and over int8 codes with per-bin scales; and over
@@ -130,6 +143,7 @@ count; a kernel that a part runs must show launches there.
 from __future__ import annotations
 
 import contextlib
+import copy
 import hashlib
 import itertools
 import json
@@ -245,6 +259,16 @@ PATH_KERNELS = {
     "kilt_nq_local": ("encoder_layer", "decode_attention"),
     "judge_logits": ("flash_attention",),
     "judge_pairwise": ("flash_attention", "decode_attention"),
+    # context processing on ut1_eval's runs (no retrieval encode): RECOMP's
+    # sentence encoder, T5's encoder attention, DSLR's XLM-R-large,
+    # Provence's DeBERTa-v3-large; the translated and the unfolded queries'
+    # retrieval encodes them (NLLB itself runs no kernel), the unfolding
+    # decodes with TinyLlama
+    "ut1_recomp_ext": ("encoder_layer", "decode_attention"),
+    "ut1_recomp_abs": ("encoder_attention", "decode_attention"),
+    "ut1_dslr": ("encoder_layer", "decode_attention"),
+    "ut1_provence": ("encoder_layer_prebias", "decode_attention"),
+    "ut1_translate_unfold": ("encoder_layer", "decode_attention"),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
@@ -588,6 +612,44 @@ def gemm_tiles(ea, M: int, D: int, I: int) -> dict:
         ("qkv", 3 * D), ("o", D), ("ffn_in", I), ("ffn_out", D))}}
 
 
+def _layer_row(ea, w, library, H: int, B: int, S: int, eps: float,
+               act: str, gen, dev, rnd):
+    """One ``encoder_layer`` shape against its plain version, timed, with
+    its bound, the library layer's time and the kernels a call; returns
+    (row, (x, mask))."""
+    D, I = w["w1"].shape
+    x = rnd(B, S, D).bfloat16()
+    mask = _padded_mask(gen, dev, B, S)
+    out = ea.encoder_layer(x, w, mask, H, eps, act)
+    ref = ea.encoder_layer_plain(x, w, mask, H, eps, act)
+    max_err, mean_err = _errors(out, ref)
+
+    def call():
+        return ea.encoder_layer(x, w, mask, H, eps, act)
+
+    ms = cuda_time_ms(call)
+    plain_ms = cuda_time_ms(
+        lambda: ea.encoder_layer_plain(x, w, mask, H, eps, act),
+        iters=2, warmup=1)
+    library_ms = cuda_time_ms(lambda: library(x, mask))
+    M = B * S
+    flops = 2 * M * D * (4 * D + 2 * I) + 4 * B * H * S * S * (D // H)
+    nbytes = 2 * M * D * 2 + (4 * D * D + 2 * D * I) * 2 + B * S * 4
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"B": B, "S": S, "D": D, "H": H, "head_dim": D // H,
+           "max_abs_err": max_err, "mean_abs_err": mean_err,
+           "tol": LAYER_TOL, "mean_tol": LAYER_MEAN_TOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms,
+           "kernels_per_call": launches_per_call(ea.encoder_layer, call,
+                                                 len(ENCODER_CHAIN))}
+    if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
+        fail(f"encoder_layer D{D} B{B} S{S}: max error {max_err} "
+             f"(tol {LAYER_TOL}), mean error {mean_err} "
+             f"(tol {LAYER_MEAN_TOL})")
+    return row, (x, mask)
+
+
 def check_encoder_layer(results: dict, dev) -> None:
     import torch
     from bergen_tpu_torch.ops import encoder_attention as ea
@@ -606,47 +668,24 @@ def check_encoder_layer(results: dict, dev) -> None:
         w = ea.fuse_layer(_random_layer(rnd, D, I))
         library = library_encoder_layer(w, H, eps)
         for B, S in shapes:
-            x = rnd(B, S, D).bfloat16()
-            mask = _padded_mask(gen, dev, B, S)
-            out = ea.encoder_layer(x, w, mask, H, eps, act)
-            ref = ea.encoder_layer_plain(x, w, mask, H, eps, act)
-            max_err, mean_err = _errors(out, ref)
-            ms = cuda_time_ms(lambda: ea.encoder_layer(x, w, mask, H, eps,
-                                                       act))
-            plain_ms = cuda_time_ms(
-                lambda: ea.encoder_layer_plain(x, w, mask, H, eps, act),
-                iters=2, warmup=1)
+            row, (x, mask) = _layer_row(ea, w, library, H, B, S, eps, act,
+                                        gen, dev, rnd)
             # the library layer's agreement, for the record: the fully
             # masked row is left out (PyTorch gives it no defined value)
+            ref = ea.encoder_layer_plain(x, w, mask, H, eps, act)
             lib_err = (library(x, mask).float() - ref.float())[mask.any(1)] \
                 .abs().max().item()
-            library_ms = cuda_time_ms(lambda: library(x, mask))
-            M = B * S
-            flops = 2 * M * D * (4 * D + 2 * I) + 4 * B * H * S * S * (D // H)
-            nbytes = 2 * M * D * 2 + (4 * D * D + 2 * D * I) * 2 + B * S * 4
-            b_ms, b_by = bound(flops, nbytes)
-            def call():
-                return ea.encoder_layer(x, w, mask, H, eps, act)
-
-            split, names = chain_device_ms(call, ENCODER_CHAIN)
-            row = {"B": B, "S": S, "D": D, "H": H, "head_dim": D // H,
-                   "max_abs_err": max_err, "mean_abs_err": mean_err,
-                   "tol": LAYER_TOL, "mean_tol": LAYER_MEAN_TOL, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": library_ms, "library_max_abs_err": lib_err,
-                   "kernels_per_call": launches_per_call(
-                       ea.encoder_layer, call, len(ENCODER_CHAIN)),
-                   "device_ms": None if split is None
-                   else sum(split.values()),
-                   "device_ms_by_launch": split, "kernel_names": names,
-                   **gemm_tiles(ea, M, D, I)}
+            split, names = chain_device_ms(
+                lambda: ea.encoder_layer(x, w, mask, H, eps, act),
+                ENCODER_CHAIN)
+            row.update({"library_max_abs_err": lib_err,
+                        "device_ms": None if split is None
+                        else sum(split.values()),
+                        "device_ms_by_launch": split, "kernel_names": names,
+                        **gemm_tiles(ea, B * S, D, I)})
             emit({"phase": "kernel_check", "kernel": "encoder_layer", **row})
             per_shape.append(row)
-            if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
-                fail(f"encoder_layer D{D} B{B} S{S}: max error {max_err} "
-                     f"(tol {LAYER_TOL}), mean error {mean_err} "
-                     f"(tol {LAYER_MEAN_TOL})")
-            del x, out, ref
+            del x, ref
             torch.cuda.empty_cache()
     results["encoder_layer"] = per_shape
 
@@ -670,69 +709,81 @@ def library_tail(w: dict, eps: float):
     return run
 
 
+def _prebias_row(ea, w, tail, H: int, B: int, S: int, eps: float,
+                 scale: float, gen, dev, rnd):
+    """One ``encoder_layer_prebias`` shape (random qkv and [B, H, S, S]
+    bf16 bias) against its plain version, timed, with its bound, SDPA +
+    ``library_tail``'s time and the kernels a call; returns (row, the
+    kernel's arguments)."""
+    import torch
+    import torch.nn.functional as F
+
+    D, I = w["w1"].shape
+    Dh = D // H
+    x = rnd(B, S, D).bfloat16()
+    qkv = rnd(B, S, 3 * D).bfloat16()
+    bias = rnd(B, H, S, S).bfloat16()
+    mask = _padded_mask(gen, dev, B, S)
+    args = (x, qkv, bias, w, mask, H, eps, "gelu", scale)
+    max_err, mean_err = _errors(ea.encoder_layer_prebias(*args),
+                                ea.encoder_layer_prebias_plain(*args))
+    q4, k4, v4 = (t.view(B, S, H, Dh).transpose(1, 2)
+                  for t in qkv.split(D, dim=2))
+    amask = (bias.float() + torch.where(mask.bool(), 0.0, -1e30)
+             [:, None, None, :]).bfloat16()
+
+    def library():
+        ctx = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask,
+                                             scale=scale)
+        return tail(x.view(B * S, D), ctx.transpose(1, 2).reshape(B * S, D))
+
+    M = B * S
+    flops = 2 * M * D * (D + 2 * I) + 4 * B * H * S * S * Dh
+    nbytes = (M * D * 2 + M * 3 * D * 2 + B * H * S * S * 2 + B * S * 4
+              + (D * D + 2 * D * I) * 2 + M * D * 2)
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"B": B, "S": S, "D": D, "H": H, "max_abs_err": max_err,
+           "mean_abs_err": mean_err, "tol": LAYER_TOL,
+           "mean_tol": LAYER_MEAN_TOL,
+           "ms": cuda_time_ms(lambda: ea.encoder_layer_prebias(*args)),
+           "plain_ms": cuda_time_ms(
+               lambda: ea.encoder_layer_prebias_plain(*args), iters=2,
+               warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_time_ms(library),
+           "kernels_per_call": launches_per_call(
+               ea.encoder_layer_prebias,
+               lambda: ea.encoder_layer_prebias(*args),
+               len(ENCODER_CHAIN) - 1)}
+    if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
+        fail(f"encoder_layer_prebias D{D} B{B} S{S}: max error {max_err} "
+             f"(tol {LAYER_TOL}), mean error {mean_err} "
+             f"(tol {LAYER_MEAN_TOL})")
+    return row, args
+
+
 def check_encoder_layer_prebias(results: dict, dev, shapes) -> None:
     """DeBERTa-v3-base's layer (D 768, 12 heads, I 3072, eps 1e-7, scale
     1 / sqrt(64 * 3)) from precomputed qkv and a [B, H, S, S] bf16 bias."""
     import torch
-    import torch.nn.functional as F
     from bergen_tpu_torch.ops import encoder_attention as ea
 
-    D, H, I, eps, act = 768, 12, 3072, 1e-7, "gelu"
-    Dh = D // H
-    scale = 1.0 / math.sqrt(Dh * 3)
+    D, H, I, eps = 768, 12, 3072, 1e-7
     gen = torch.Generator(device=dev).manual_seed(4)
     rnd = _rnd(gen, dev)
     w = ea.fuse_layer(_random_layer(rnd, D, I))
     tail = library_tail(w, eps)
     per_shape = []
     for B, S in shapes:
-        x = rnd(B, S, D).bfloat16()
-        qkv = rnd(B, S, 3 * D).bfloat16()
-        bias = rnd(B, H, S, S).bfloat16()
-        mask = _padded_mask(gen, dev, B, S)
-        args = (x, qkv, bias, w, mask, H, eps, act, scale)
-        out = ea.encoder_layer_prebias(*args)
-        ref = ea.encoder_layer_prebias_plain(*args)
-        max_err, mean_err = _errors(out, ref)
-        ms = cuda_time_ms(lambda: ea.encoder_layer_prebias(*args))
-        plain_ms = cuda_time_ms(lambda: ea.encoder_layer_prebias_plain(*args),
-                                iters=2, warmup=1)
-        q4, k4, v4 = (t.view(B, S, H, Dh).transpose(1, 2)
-                      for t in qkv.split(D, dim=2))
-        amask = (bias.float() + torch.where(mask.bool(), 0.0, -1e30)
-                 [:, None, None, :]).bfloat16()
-
-        def library():
-            ctx = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=amask,
-                                                 scale=scale)
-            return tail(x.view(B * S, D),
-                        ctx.transpose(1, 2).reshape(B * S, D))
-
-        library_ms = cuda_time_ms(library)
-        M = B * S
-        flops = 2 * M * D * (D + 2 * I) + 4 * B * H * S * S * Dh
-        nbytes = (M * D * 2 + M * 3 * D * 2 + B * H * S * S * 2 + B * S * 4
-                  + (D * D + 2 * D * I) * 2 + M * D * 2)
-        b_ms, b_by = bound(flops, nbytes)
-        def call():
-            return ea.encoder_layer_prebias(*args)
-
-        split, _ = chain_device_ms(call, ENCODER_CHAIN[1:])
-        row = {"B": B, "S": S, "max_abs_err": max_err,
-               "mean_abs_err": mean_err, "tol": LAYER_TOL,
-               "mean_tol": LAYER_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-               "kernels_per_call": launches_per_call(
-                   ea.encoder_layer_prebias, call, len(ENCODER_CHAIN) - 1),
-               "device_ms_by_launch": split}
+        row, args = _prebias_row(ea, w, tail, H, B, S, eps,
+                                 1.0 / math.sqrt(D // H * 3), gen, dev, rnd)
+        split, _ = chain_device_ms(lambda: ea.encoder_layer_prebias(*args),
+                                   ENCODER_CHAIN[1:])
+        row["device_ms_by_launch"] = split
         emit({"phase": "kernel_check", "kernel": "encoder_layer_prebias",
               **row})
         per_shape.append(row)
-        if not (max_err <= LAYER_TOL and mean_err <= LAYER_MEAN_TOL):
-            fail(f"encoder_layer_prebias B{B} S{S}: max error {max_err} "
-                 f"(tol {LAYER_TOL}), mean error {mean_err} "
-                 f"(tol {LAYER_MEAN_TOL})")
-        del x, qkv, bias, amask, out, ref
+        del args
         torch.cuda.empty_cache()
     results["encoder_layer_prebias"] = per_shape
 
@@ -1143,71 +1194,82 @@ ATT_TOL, ATT_MEAN_TOL = 0.0625, 1e-3
 ATT_SHAPES = ((512, 256), (512, 64), (488, 64), (50, 32), (256, 512))
 
 
+def _attention_row(ea, q, k, v, mask, H: int, bias, scale) -> dict:
+    """``encoder_attention`` on (q, k, v, mask, bias, scale) against its
+    plain version, timed by events and by the profiler, with its bound,
+    SDPA's time (the bias and mask additive) and the kernels a call."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, D = q.shape
+    Dh = D // H
+    args = (q, k, v, mask, H, bias, scale)
+    max_err, mean_err = _errors(ea.encoder_attention(*args),
+                                ea.encoder_attention_plain(*args))
+    q4, k4, v4 = (t.view(B, S, H, Dh).transpose(1, 2) for t in (q, k, v))
+    mbias = torch.where(mask.bool(), 0.0, -1e30)[:, None, None, :]
+    amask = (mbias if bias is None else bias[None] + mbias).bfloat16()
+    nbytes = 4 * B * S * D * 2 + B * S * 4 + (
+        0 if bias is None else H * S * S * 4)
+    b_ms, b_by = bound(4 * B * H * S * S * Dh, nbytes)
+    row = {"B": B, "S": S, "H": H, "head_dim": Dh,
+           "max_abs_err": max_err, "mean_abs_err": mean_err,
+           "tol": ATT_TOL, "mean_tol": ATT_MEAN_TOL,
+           "ms": cuda_time_ms(lambda: ea.encoder_attention(*args)),
+           "plain_ms": cuda_time_ms(lambda: ea.encoder_attention_plain(*args),
+                                    iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, attn_mask=amask, scale=scale))}
+    # the kernels a call before the profiled device time, as the check has
+    # always taken them: a profiler window opened right after another now
+    # and then records nothing
+    row["kernels_per_call"] = launches_per_call(
+        ea.encoder_attention, lambda: ea.encoder_attention(*args)) \
+        if COUNT_KERNELS else None
+    # the card's own time: at the ut1 shapes event time follows the host
+    row["device_ms"] = device_time_ms([lambda: ea.encoder_attention(*args)],
+                                      iters=20)
+    return row
+
+
 def check_encoder_attention(results: dict, dev) -> None:
     """nomic/jina/GTE attention (D 768, 12 heads of 64): no bias, the ALiBi
     bias of ``alibi_slopes(12)``, and scale 1.0 at B 512, S 256; no bias
     and ALiBi at the ut1 buckets.  Ragged masks, row 1 fully masked."""
     import torch
-    import torch.nn.functional as F
     from bergen_tpu_torch.models import bert
     from bergen_tpu_torch.ops import encoder_attention as ea
 
     D, H = 768, 12
-    Dh = D // H
     gen = torch.Generator(device=dev).manual_seed(6)
     rnd = _rnd(gen, dev)
     per_shape = []
     for B, S in ATT_SHAPES:
         q, k, v = (rnd(B, S, D).bfloat16() for _ in range(3))
         mask = _padded_mask(gen, dev, B, S)
-        mbias = torch.where(mask.bool(), 0.0, -1e30)[:, None, None, :]
         variants = (("none", None, None), ("alibi", bert.alibi_bias(H, S, dev),
                                            None))
         if S == 256:
             variants += (("scale_1", None, 1.0),)
         for variant, bias, scale in variants:
-            args = (q, k, v, mask, H, bias, scale)
-            out = ea.encoder_attention(*args)
-            ref = ea.encoder_attention_plain(*args)
-            max_err, mean_err = _errors(out, ref)
-            uniform = (out[1].float() - v[1].float().mean(0)).abs().max()
-            ms = cuda_time_ms(lambda: ea.encoder_attention(*args))
-            plain_ms = cuda_time_ms(lambda: ea.encoder_attention_plain(*args),
-                                    iters=2, warmup=1)
-            q4, k4, v4 = (t.view(B, S, H, Dh).transpose(1, 2)
-                          for t in (q, k, v))
-            amask = (mbias if bias is None else bias[None] + mbias) \
-                .bfloat16()
-            library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=amask, scale=scale))
-            per_call = launches_per_call(
-                ea.encoder_attention, lambda: ea.encoder_attention(*args)) \
-                if COUNT_KERNELS else None
-            # the card's own time: at the ut1 shapes event time follows
-            # the host
-            device_ms = device_time_ms(
-                [lambda: ea.encoder_attention(*args)], iters=20)
-            nbytes = 4 * B * S * D * 2 + B * S * 4 + (
-                0 if bias is None else H * S * S * 4)
-            b_ms, b_by = bound(4 * B * H * S * S * Dh, nbytes)
-            row = {"B": B, "S": S, "H": H, "head_dim": Dh, "bias": variant,
-                   "max_abs_err": max_err, "mean_abs_err": mean_err,
-                   "masked_row_err": uniform.item(), "tol": ATT_TOL,
-                   "mean_tol": ATT_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": library_ms, "device_ms": device_ms,
-                   "kernels_per_call": per_call}
+            row = _attention_row(ea, q, k, v, mask, H, bias, scale)
+            out = ea.encoder_attention(q, k, v, mask, H, bias, scale)
+            row.update(bias=variant, masked_row_err=(
+                out[1].float() - v[1].float().mean(0)).abs().max().item())
             emit({"phase": "kernel_check", "kernel": "encoder_attention",
                   **row})
             per_shape.append(row)
-            if not (max_err <= ATT_TOL and mean_err <= ATT_MEAN_TOL
+            if not (row["max_abs_err"] <= ATT_TOL
+                    and row["mean_abs_err"] <= ATT_MEAN_TOL
                     and row["masked_row_err"] <= ATT_TOL
-                    and per_call in (1, None)):
+                    and row["kernels_per_call"] in (1, None)):
                 fail(f"encoder_attention B{B} S{S} {variant}: max error "
-                     f"{max_err} (tol {ATT_TOL}), mean {mean_err} (tol "
-                     f"{ATT_MEAN_TOL}), masked row {row['masked_row_err']}"
-                     f", {per_call} kernels a call")
-            del out, ref, amask
+                     f"{row['max_abs_err']} (tol {ATT_TOL}), mean "
+                     f"{row['mean_abs_err']} (tol {ATT_MEAN_TOL}), masked "
+                     f"row {row['masked_row_err']}, "
+                     f"{row['kernels_per_call']} kernels a call")
+            del out
         del q, k, v
         torch.cuda.empty_cache()
     results["encoder_attention"] = per_shape
@@ -2047,10 +2109,28 @@ def check_paged_window(results: dict, dev) -> None:
                                  cfg).view(S, H, Dh)
     err = float((ctx.float() - ref.float()).abs().max())
     tol = PAGED_WINDOW_RTOL * float(ref.float().abs().max())
+    # the gather route's time (plain PyTorch: no kernel takes head width
+    # 96), beside the slot-pool reference's and SDPA's over the same keys;
+    # its bound the keys and values in each slot's window, read once
+    ms = cuda_time_ms(lambda: pa.paged_decode_attention(
+        q, k_new, v_new, k_pool, v_pool, k_tail, v_tail, tables, lens,
+        scale, window=W))
+    plain_ms = cuda_time_ms(lambda: llama._plain_attention(
+        q[:, None], hist_k, hist_v, mask[:, None], cfg))
+    q4, k4, v4 = q[:, :, None], hist_k.transpose(1, 2), hist_v.transpose(1, 2)
+    library_ms = cuda_time_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  q4, k4, v4, attn_mask=mask[:, None, None],
+                                  scale=scale))
+    keys_read = int(torch.clamp(lens + 1, max=W).sum())
+    b_ms, b_by = bound(4 * keys_read * H * Dh,
+                       2 * keys_read * H * Dh * 2 + 4 * S * H * Dh * 2)
     row = {"S": S, "H": H, "head_dim": Dh, "window": W,
            "lens": lens.tolist(), "max_abs_err": err, "tol": tol,
            "gather_calls": gathers,
-           "kernel_launches": pa.paged_partial.launches}
+           "kernel_launches": pa.paged_partial.launches, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "paged_window_check", **row})
     if err > tol or gathers != 1:
         fail(f"paged window (Phi-3): max error {err} (tol {tol}), "
@@ -3351,8 +3431,9 @@ def write_byte_level_tokenizer(path: str, family: str, seed: int) -> dict:
 
 
 # the depth of the Llama-3.2-3B and Qwen2.5-7B paths (28 published layers
-# each), cut since the Gemma, Phi-3 and Command-R paths joined the run
-SMOKE_LLAMA3_QWEN2_LAYERS = 8
+# each), cut since the Gemma, Phi-3 and Command-R paths joined the run,
+# and from 8 when the context paths did
+SMOKE_LLAMA3_QWEN2_LAYERS = 4
 
 
 def write_llama32_3b(root: str, dev) -> str:
@@ -3426,11 +3507,11 @@ COMMAND_R = dict(model_type="cohere", vocab_size=256000, hidden_size=8192,
                  torch_dtype="bfloat16")
 # the depth each path runs (full published widths), cut so that the script
 # stays within its time (PERF.md section 4)
-SMOKE_GEMMA7B_LAYERS = 8
+SMOKE_GEMMA7B_LAYERS = 4  # 8 until the context paths joined the run
 SMOKE_GEMMA2B_LAYERS = 8
 SMOKE_GEMMA2_9B_LAYERS = 4
 SMOKE_PHI3_LAYERS = 4
-SMOKE_COMMAND_R_LAYERS = 4
+SMOKE_COMMAND_R_LAYERS = 2  # 4 until the context paths joined the run
 # gemma-7b-it's chat template (no system role: the generator folds the
 # system prompt into the user turn on its raise_exception)
 GEMMA_CHAT_TEMPLATE = (
@@ -5475,6 +5556,999 @@ def profile_serve(dev) -> None:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
 
+# --------------------------------------------------------------------------- #
+# context processing and query rewriting: RECOMP, DSLR, Provence, NLLB and
+# API-query unfolding on the port
+# --------------------------------------------------------------------------- #
+
+# fangyuan/nq_abstractive_compressor: T5-large (v1.0: relu, tied head)
+T5_LARGE = dict(model_type="t5", vocab_size=32128, d_model=1024, d_kv=64,
+                d_ff=4096, num_layers=24, num_decoder_layers=24,
+                num_heads=16, relative_attention_num_buckets=32,
+                relative_attention_max_distance=128,
+                layer_norm_epsilon=1e-6, feed_forward_proj="relu",
+                tie_word_embeddings=True, decoder_start_token_id=0,
+                eos_token_id=1, pad_token_id=0)
+# BAAI/bge-reranker-v2-m3: XLM-RoBERTa-large as a one-label classifier
+XLMR_LARGE_CE = dict(model_type="xlm-roberta", vocab_size=250002,
+                     hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096,
+                     max_position_embeddings=8194, type_vocab_size=1,
+                     layer_norm_eps=1e-5, hidden_act="gelu", pad_token_id=1,
+                     bos_token_id=0, eos_token_id=2,
+                     position_embedding_type="absolute", num_labels=1,
+                     architectures=["XLMRobertaForSequenceClassification"])
+# naver/provence-reranker-debertav3-v1: DeBERTa-v3-large with Provence's
+# rank head (pooler + one-label classifier) and two-class keep head
+PROVENCE = dict(DEBERTA_V3_BASE, hidden_size=1024, num_hidden_layers=24,
+                num_attention_heads=16, intermediate_size=4096,
+                pooler_hidden_size=1024)
+PROVENCE_KEEP_CLASSES = 2
+# facebook/nllb-200-3.3B
+NLLB_3B = dict(model_type="m2m_100", vocab_size=256206, d_model=2048,
+               encoder_layers=24, decoder_layers=24,
+               encoder_attention_heads=16, decoder_attention_heads=16,
+               encoder_ffn_dim=8192, decoder_ffn_dim=8192,
+               max_position_embeddings=1024, pad_token_id=1, bos_token_id=0,
+               eos_token_id=2, decoder_start_token_id=2,
+               activation_function="relu", scale_embedding=True)
+# NLLB's 202 language codes, in the order of its published vocabulary
+# (after the 256,000 sentencepiece ids and the fairseq offset of 1)
+NLLB_LANGUAGES = """
+ace_Arab ace_Latn acm_Arab acq_Arab aeb_Arab afr_Latn ajp_Arab aka_Latn
+amh_Ethi apc_Arab arb_Arab ars_Arab ary_Arab arz_Arab asm_Beng ast_Latn
+awa_Deva ayr_Latn azb_Arab azj_Latn bak_Cyrl bam_Latn ban_Latn bel_Cyrl
+bem_Latn ben_Beng bho_Deva bjn_Arab bjn_Latn bod_Tibt bos_Latn bug_Latn
+bul_Cyrl cat_Latn ceb_Latn ces_Latn cjk_Latn ckb_Arab crh_Latn cym_Latn
+dan_Latn deu_Latn dik_Latn dyu_Latn dzo_Tibt ell_Grek eng_Latn epo_Latn
+est_Latn eus_Latn ewe_Latn fao_Latn pes_Arab fij_Latn fin_Latn fon_Latn
+fra_Latn fur_Latn fuv_Latn gla_Latn gle_Latn glg_Latn grn_Latn guj_Gujr
+hat_Latn hau_Latn heb_Hebr hin_Deva hne_Deva hrv_Latn hun_Latn hye_Armn
+ibo_Latn ilo_Latn ind_Latn isl_Latn ita_Latn jav_Latn jpn_Jpan kab_Latn
+kac_Latn kam_Latn kan_Knda kas_Arab kas_Deva kat_Geor knc_Arab knc_Latn
+kaz_Cyrl kbp_Latn kea_Latn khm_Khmr kik_Latn kin_Latn kir_Cyrl kmb_Latn
+kon_Latn kor_Hang kmr_Latn lao_Laoo lvs_Latn lij_Latn lim_Latn lin_Latn
+lit_Latn lmo_Latn ltg_Latn ltz_Latn lua_Latn lug_Latn luo_Latn lus_Latn
+mag_Deva mai_Deva mal_Mlym mar_Deva min_Latn mkd_Cyrl plt_Latn mlt_Latn
+mni_Beng khk_Cyrl mos_Latn mri_Latn zsm_Latn mya_Mymr nld_Latn nno_Latn
+nob_Latn npi_Deva nso_Latn nus_Latn nya_Latn oci_Latn gaz_Latn ory_Orya
+pag_Latn pan_Guru pap_Latn pol_Latn por_Latn prs_Arab pbt_Arab quy_Latn
+ron_Latn run_Latn rus_Cyrl sag_Latn san_Deva sat_Beng scn_Latn shn_Mymr
+sin_Sinh slk_Latn slv_Latn smo_Latn sna_Latn snd_Arab som_Latn sot_Latn
+spa_Latn als_Latn srd_Latn srp_Cyrl ssw_Latn sun_Latn swe_Latn swh_Latn
+szl_Latn tam_Taml tat_Cyrl tel_Telu tgk_Cyrl tgl_Latn tha_Thai tir_Ethi
+taq_Latn taq_Tfng tpi_Latn tsn_Latn tso_Latn tuk_Latn tum_Latn tur_Latn
+twi_Latn tzm_Tfng uig_Arab ukr_Cyrl umb_Latn urd_Arab uzn_Latn vec_Latn
+vie_Latn war_Latn wol_Latn xho_Latn ydd_Hebr yor_Latn yue_Hant zho_Hans
+zho_Hant zul_Latn""".split()
+# the FFN output weights of the random T5 and NLLB checkpoints: with every
+# weight at 0.02 the residual stream stays the input token's embedding and
+# the tied head echoes it (the start token: pad for T5, EOS for NLLB, so
+# every summary and translation comes out empty); wider, the layers decide
+# the next token
+SEQ2SEQ_FFN_OUT_STD = 0.5
+# the recomp_abs path's decode length (the config's 512, which JAX runs
+# whole; cut so that the script keeps within its time)
+RECOMP_ABS_NEW_TOKENS = 32
+# the card against the CPU: the first rows of each path's stage
+CONTEXT_CHECK_QUERIES = 5
+TRANSLATE_CHECK_QUERIES = 2
+# the card's sentence probabilities within this of the f32 CPU's (bf16
+# activations through two layers)
+PROB_TOL = 0.02
+# RECOMP's dot products: the card's within this share of the largest CPU
+# score of the same rows (bf16 rounds at 2**-9 of a value)
+RECOMP_SCORE_TOL = 0.002
+CONTEXT_COS_TOL = 0.99  # min cosine of the card's bf16 states to the CPU's
+CONTEXT_PATHS = ("ut1_recomp_ext", "ut1_recomp_abs", "ut1_dslr",
+                 "ut1_provence", "ut1_translate_unfold")
+
+
+def _spm_unigram(path: str, specials: dict[str, int], size: int,
+                 added: dict[str, int], config: dict, single: list,
+                 pair: list, strip: bool = False) -> dict:
+    """A sentencepiece Unigram ``tokenizer.json`` in the layout
+    transformers' converters give T5 and XLM-R (Metaspace; spaces
+    collapsed; DeBERTa-v3's Strip too with ``strip``; no Precompiled
+    charsmap): ``specials`` at their ids, ``▁`` + each fixture word and
+    the characters of the ut1 text as pieces, filler pieces up to ``size``
+    ids, the ``added`` special tokens after them (score 0, in the model's
+    vocabulary as the converters put them), and the TemplateProcessing of
+    ``single`` and ``pair`` (lists of "$A", "$B" and special tokens, type
+    id 0).  Returns its sizes."""
+    from bergen_tpu_torch.models.tokenizer import write_tokenizer
+
+    vocab, scores = dict(specials), {}
+
+    def add(piece, score):
+        if piece not in vocab:
+            vocab[piece] = len(vocab)
+            scores[piece] = score
+
+    add("▁", -8.0)
+    for word in _fixture_words():
+        add("▁" + word, -5.0)
+    for ch in sorted(set("".join(_ut1_texts()))):
+        if not ch.isspace():
+            add(ch, -10.0)
+    while len(vocab) < size:
+        add(f"<filler{len(vocab)}>", -20.0)
+    vocab.update(added)  # in the model's vocabulary too, as the converters
+    write_tokenizer(path, "Unigram", vocab, config, lowercase=False,
+                    scores=scores)
+    tok_path = os.path.join(path, "tokenizer.json")
+    with open(tok_path) as f:
+        spec = json.load(f)
+    norms = spec["normalizer"]["normalizers"]
+    if not strip:
+        spec["normalizer"]["normalizers"] = [n for n in norms
+                                             if n["type"] != "Strip"]
+    every = dict(specials, **added)
+    spec["added_tokens"] = [
+        {"id": i, "content": t, "single_word": False, "lstrip": False,
+         "rstrip": False, "normalized": False, "special": True}
+        for t, i in sorted(every.items(), key=lambda kv: kv[1])]
+
+    def seq(items):
+        return [{"Sequence": {"id": t[1], "type_id": 0}} if t[0] == "$"
+                else {"SpecialToken": {"id": t, "type_id": 0}}
+                for t in items]
+
+    spec["post_processor"] = {
+        "type": "TemplateProcessing", "single": seq(single),
+        "pair": seq(pair),
+        "special_tokens": {t: {"id": t, "ids": [every[t]], "tokens": [t]}
+                           for t in set(single + pair) if t[0] != "$"}}
+    with open(tok_path, "w") as f:
+        json.dump(spec, f)
+    return {"vocab": len(vocab), "added": len(added)}
+
+
+def write_t5_large(root: str, w, layers: int) -> str:
+    """T5-large (``T5_LARGE``, ``layers`` per stack) as
+    T5ForConditionalGeneration and T5's tokenizer layout (``<pad>`` 0,
+    ``</s>`` 1, ``<unk>`` 2, 32,000 pieces, ``<extra_id_0>`` 32,099;
+    ``$A </s>``)."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+
+    c = dict(T5_LARGE, num_layers=layers, num_decoder_layers=layers)
+    path = os.path.join(root, "nq-abstractive-compressor-t5-large-random")
+    os.makedirs(path, exist_ok=True)
+    D, F, inner = c["d_model"], c["d_ff"], c["num_heads"] * c["d_kv"]
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16)  # noqa: E731
+    sd = {"shared.weight": w(c["vocab_size"], D, std=1.0)}
+    for side in ("encoder", "decoder"):
+        sd[f"{side}.final_layer_norm.weight"] = ones(D)
+        sd[f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias"
+           ".weight"] = w(c["relative_attention_num_buckets"],
+                          c["num_heads"], std=1.0)
+        for i in range(layers):
+            pre = f"{side}.block.{i}.layer"
+            attns = ["0.SelfAttention"] + (["1.EncDecAttention"]
+                                           if side == "decoder" else [])
+            for a in attns:
+                for n in "qkv":
+                    sd[f"{pre}.{a}.{n}.weight"] = w(inner, D)
+                sd[f"{pre}.{a}.o.weight"] = w(D, inner)
+            ffn = 2 if side == "decoder" else 1
+            sd[f"{pre}.{ffn}.DenseReluDense.wi.weight"] = w(F, D)
+            sd[f"{pre}.{ffn}.DenseReluDense.wo.weight"] = w(
+                D, F, std=SEQ2SEQ_FFN_OUT_STD)
+            for n in range(ffn + 1):
+                sd[f"{pre}.{n}.layer_norm.weight"] = ones(D)
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    _spm_unigram(path, {"<pad>": 0, "</s>": 1, "<unk>": 2}, 32000,
+                 {f"<extra_id_{99 - i}>": 32000 + i for i in range(100)},
+                 {"pad_token": "<pad>", "eos_token": "</s>",
+                  "unk_token": "<unk>"}, ["$A", "</s>"],
+                 ["$A", "</s>", "$B", "</s>"])
+    return path
+
+
+def write_xlmr_large_ce(root: str, w, layers: int) -> str:
+    """bge-reranker-v2-m3 (``XLMR_LARGE_CE`` at ``layers``) as
+    XLMRobertaForSequenceClassification (``roberta.*``, its classifier's
+    dense + out_proj) and XLM-R's tokenizer layout (``<s>`` 0, ``<pad>``
+    1, ``</s>`` 2, ``<unk>`` 3, ``<mask>`` 250,001; ``<s> $A </s> </s> $B
+    </s>``)."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+
+    c = dict(XLMR_LARGE_CE, num_hidden_layers=layers)
+    path = os.path.join(root, "bge-reranker-v2-m3-random")
+    os.makedirs(path, exist_ok=True)
+    D = c["hidden_size"]
+    zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16)  # noqa: E731
+    sd = _bert_state_dict(w, dict(c, num_labels=None), "roberta.")
+    sd["roberta.embeddings.position_embeddings.weight"] = w(
+        c["max_position_embeddings"], D)
+    sd["roberta.embeddings.token_type_embeddings.weight"] = w(1, D)
+    sd.update({"classifier.dense.weight": w(D, D),
+               "classifier.dense.bias": zeros(D),
+               # wider than the layers', so that the pair probabilities
+               # spread about DSLR's threshold
+               "classifier.out_proj.weight": w(1, D, std=0.1),
+               "classifier.out_proj.bias": zeros(1)})
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    _spm_unigram(path, {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3},
+                 c["vocab_size"] - 1, {"<mask>": c["vocab_size"] - 1},
+                 {"bos_token": "<s>", "eos_token": "</s>",
+                  "pad_token": "<pad>", "unk_token": "<unk>",
+                  "cls_token": "<s>", "sep_token": "</s>",
+                  "mask_token": "<mask>"}, ["<s>", "$A", "</s>"],
+                 ["<s>", "$A", "</s>", "</s>", "$B", "</s>"])
+    return path
+
+
+def write_provence(root: str, w, layers: int) -> str:
+    """Provence (``PROVENCE`` at ``layers``) in its published key layout:
+    DeBERTa-v3-large under ``deberta.``, the rank head (``pooler.dense``,
+    ``classifier``) and the keep head ``token_classifier``, with
+    DeBERTa-v3's tokenizer layout (``_write_deberta``)."""
+    from bergen_tpu_torch.models.convert import (load_safetensors,
+                                                 save_safetensors)
+
+    c = dict(PROVENCE, num_hidden_layers=layers)
+    path = _write_deberta(os.path.join(root, "provence-debertav3-random"), w,
+                          c)
+    st = os.path.join(path, "model.safetensors")
+    sd = load_safetensors(st)
+    sd["token_classifier.weight"] = w(PROVENCE_KEEP_CLASSES,
+                                      c["hidden_size"], std=0.1)
+    sd["token_classifier.bias"] = w(PROVENCE_KEEP_CLASSES, std=0.1)
+    save_safetensors(sd, st)
+    return path
+
+
+def write_nllb(root: str, w, layers: int) -> dict:
+    """NLLB-200-3.3B (``NLLB_3B``, ``layers`` per stack) as
+    M2M100ForConditionalGeneration and a tokenizer in NLLB's published
+    layout: sentencepiece BPE (merges learnt from the ut1 text, seeded
+    random pieces up to 256,000 ids past the fairseq offset), Metaspace,
+    spaces collapsed, ``<s>`` 0, ``<pad>`` 1, ``</s>`` 2, ``<unk>`` 3, the
+    202 language codes from 256,001 and ``<mask>`` after them, special;
+    ``NllbTokenizer`` in ``tokenizer_config.json``.  Returns the path and
+    the tokenizer's sizes."""
+    import torch
+    from bergen_tpu_torch.models import tokenizer as T
+    from bergen_tpu_torch.models.convert import save_safetensors
+
+    c = dict(NLLB_3B, encoder_layers=layers, decoder_layers=layers)
+    path = os.path.join(root, "nllb-200-3.3b-random")
+    os.makedirs(path, exist_ok=True)
+    D, F = c["d_model"], c["encoder_ffn_dim"]
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16)  # noqa: E731
+    zeros = lambda n: torch.zeros(n, dtype=torch.bfloat16)  # noqa: E731
+    sd = {"model.shared.weight": w(c["vocab_size"], D)}
+    for side in ("encoder", "decoder"):
+        sd[f"model.{side}.layer_norm.weight"] = ones(D)
+        sd[f"model.{side}.layer_norm.bias"] = zeros(D)
+        for i in range(layers):
+            pre = f"model.{side}.layers.{i}"
+            attns = ["self_attn"] + (["encoder_attn"] if side == "decoder"
+                                     else [])
+            lns = ["self_attn_layer_norm", "final_layer_norm"] + (
+                ["encoder_attn_layer_norm"] if side == "decoder" else [])
+            lin = {f"{a}.{n}_proj": (D, D) for a in attns
+                   for n in ("q", "k", "v", "out")}
+            lin.update({"fc1": (F, D), "fc2": (D, F)})
+            for name, (o, n) in lin.items():
+                sd[f"{pre}.{name}.weight"] = w(
+                    o, n, std=SEQ2SEQ_FFN_OUT_STD if name == "fc2" else 0.02)
+                sd[f"{pre}.{name}.bias"] = zeros(o)
+            for name in lns:
+                sd[f"{pre}.{name}.weight"] = ones(D)
+                sd[f"{pre}.{name}.bias"] = zeros(D)
+    save_safetensors(sd, os.path.join(path, "model.safetensors"))
+    del sd
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(c, f, indent=2)
+    low = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    vocab = dict(low)
+    chars, merges = T.train_sentencepiece_bpe(_ut1_texts(), 1 << 20,
+                                              len(vocab))
+    vocab.update(chars)
+    _fill_vocab(vocab, 256001, sorted(ch for ch in chars if len(ch) == 1),
+                seed=21)
+    added = dict(low, **{code: 256001 + i
+                         for i, code in enumerate(NLLB_LANGUAGES)})
+    added["<mask>"] = 256001 + len(NLLB_LANGUAGES)
+    vocab.update(added)
+    meta = {"type": "Metaspace", "replacement": "▁",
+            "prepend_scheme": "always", "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t, i in sorted(added.items(), key=lambda kv: kv[1])],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": " "}]},
+        "pre_tokenizer": meta, "decoder": dict(meta),
+        # the template saved with the files (eng_Latn); NLLB's tokenizer
+        # sets its own rule for the source language when it loads
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "eng_Latn", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "eng_Latn", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {t: {"id": t, "ids": [added[t]], "tokens": [t]}
+                               for t in ("eng_Latn", "</s>")}},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": {t: i for t, i in vocab.items()
+                            if t not in added or t in low},
+                  "merges": merges},
+    }
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "NllbTokenizer", "src_lang": "eng_Latn",
+                   "legacy_behaviour": False, "bos_token": "<s>",
+                   "eos_token": "</s>", "sep_token": "</s>",
+                   "cls_token": "<s>", "unk_token": "<unk>",
+                   "pad_token": "<pad>", "mask_token": "<mask>",
+                   "clean_up_tokenization_spaces": True}, f, indent=2)
+    return {"path": path, "vocab": len(vocab), "merges": len(merges)}
+
+
+def group_overrides(group: str, option: str, **replace) -> list[str]:
+    """``config/<group>/<option>.yaml``'s init_args as ``+group.init_args``
+    overrides (no root config has the group), ``replace``'s values in place
+    of the file's; each value JSON-quoted, which the CLI reads as YAML."""
+    from bergen_tpu_torch import confy
+
+    args = dict(confy.load_yaml(os.path.join(
+        REPO, "config", group, f"{option}.yaml"))["init_args"], **replace)
+    return [f"+{group}.init_args.{k}={json.dumps(v)}" for k, v in args.items()]
+
+
+@contextlib.contextmanager
+def _calls(owner, name: str, record=None):
+    """Every call of ``owner.name`` in the block, each as ``record(*args)``
+    (or None)."""
+    orig = getattr(owner, name)
+    seen: list = []
+
+    def spy(*a, **k):
+        seen.append(record(*a, **k) if record else None)
+        return orig(*a, **k)
+
+    setattr(owner, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, orig)
+
+
+def _context_cli(ckpt: dict, workdir: str, extra: list[str],
+                 work: str | None = None):
+    """The rag_ut1 eval of ut1_eval (BERT-base retriever, TinyLlama at 16
+    new tokens) with ``extra`` overrides, on ut1_eval's processed datasets,
+    indexes and TREC runs (linked from ut1_eval's folder in ``work``,
+    default ``workdir``'s parent), so that only the new stage and the
+    generation cost time."""
+    src = os.path.join(work or os.path.dirname(workdir), "ut1_eval", "tests",
+                       "run")
+    dst = os.path.join(workdir, "tests", "run")
+    os.makedirs(dst, exist_ok=True)
+    for name in ("datasets", "indexes", "runs"):
+        os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    return _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        SECOND_EVAL_NEW_TOKENS, *extra], workdir, ckpt)
+
+
+def _processed(exp: str, prefix: str) -> dict:
+    names = [n for n in os.listdir(exp) if n.startswith(prefix)]
+    if len(names) != 1:
+        fail(f"{exp}: expected one {prefix}* file, got {names}")
+    saved = _json(exp, names[0])
+    rows = saved["processed_contexts"]
+    if len(rows) != 50 or not all(isinstance(d, str) for r in rows
+                                  for d in r):
+        fail(f"{names[0]}: {len(rows)} rows of processed contexts")
+    return saved
+
+
+def _context_out(exp: str, wall: float, prefix: str) -> dict:
+    saved = _processed(exp, prefix)
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "context_metrics": _json(exp, "eval_dev_context_metrics.json"),
+            "exp": exp, **_check_outputs(exp),
+            "example_context": saved["processed_contexts"][0][0][:80]}
+
+
+def run_ut1_recomp_ext(ckpt: dict, workdir: str) -> dict:
+    """``context_processor`` recomp/recomp_ext_top3 on the BERT-base
+    checkpoint: the sentence encoder's batches on ``encoder_layer``."""
+    from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
+
+    with _calls(DenseRetriever, "_encode_batch",
+                lambda self, params, ii, am: ii.shape) as shapes:
+        exp, wall = _context_cli(ckpt, workdir, group_overrides(
+            "context_processor", "recomp/recomp_ext_top3",
+            model_name=_local(ckpt, "bert")))
+    return {**_context_out(exp, wall, "processed_contexts.recomp_Ext_top3."),
+            "encode_shapes": [list(s) for s in shapes]}
+
+
+def run_ut1_recomp_abs(ckpt: dict, workdir: str) -> dict:
+    """``context_processor`` recomp/recomp_abs on T5-large (2 layers a
+    stack, ``RECOMP_ABS_NEW_TOKENS``): the encoder's attention on
+    ``encoder_attention`` with the learned bias."""
+    from bergen_tpu_torch.models import t5
+
+    with _calls(t5, "encode", lambda p, c, ii, am: tuple(ii.shape)) as shapes:
+        exp, wall = _context_cli(ckpt, workdir, group_overrides(
+            "context_processor", "recomp/recomp_abs",
+            model_name=_local(ckpt, "t5"),
+            max_new_tokens=RECOMP_ABS_NEW_TOKENS))
+    saved = _processed(exp, "processed_contexts.recomp_abs.")
+    if not all(len(r) == 1 for r in saved["processed_contexts"]):
+        fail("recomp_abs: not one summary a query")
+    return {**_context_out(exp, wall, "processed_contexts.recomp_abs."),
+            "encode_shapes": [list(s) for s in shapes]}
+
+
+def run_ut1_dslr(ckpt: dict, workdir: str) -> dict:
+    """``context_processor`` dslr/dslr_ce_bge_t05 on XLM-R-large (2
+    layers): ``encoder_layer`` at D 1,024."""
+    from bergen_tpu_torch.models.rerankers.crossencoder import CrossEncoder
+
+    with _calls(CrossEncoder, "_score",
+                lambda self, params, ii, *a: tuple(ii.shape)) as shapes:
+        exp, wall = _context_cli(ckpt, workdir, group_overrides(
+            "context_processor", "dslr/dslr_ce_bge_t05",
+            model_name=_local(ckpt, "xlmr")))
+    return {**_context_out(exp, wall, "processed_contexts.dslrce_Ext_t0.5."),
+            "encode_shapes": [list(s) for s in shapes]}
+
+
+def run_ut1_provence(ckpt: dict, workdir: str) -> dict:
+    """``context_processor`` provence/provence_standalone_0.1 on
+    DeBERTa-v3-large (2 layers) with Provence's heads:
+    ``encoder_layer_prebias`` at D 1,024."""
+    from bergen_tpu_torch.models.context_processors.provence import \
+        ProvenceCompressor
+
+    with _calls(ProvenceCompressor, "_forward",
+                lambda self, ii, am: ii.shape) as shapes:
+        exp, wall = _context_cli(ckpt, workdir, group_overrides(
+            "context_processor", "provence/provence_standalone_0.1",
+            model_name=_local(ckpt, "provence")))
+    return {**_context_out(
+        exp, wall, "processed_contexts.provence_standalone_t0.1_t0.1_"
+        "titleTrue_rFalse."), "encode_shapes": [list(s) for s in shapes]}
+
+
+def _launch_counts() -> dict:
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import encoder_attention as ea
+    from bergen_tpu_torch.ops import flash_attention as fa
+
+    return {"encoder_layer": ea.encoder_layer.launches,
+            "encoder_layer_prebias": ea.encoder_layer_prebias.launches,
+            "encoder_attention": ea.encoder_attention.launches,
+            "decode_attention": da.decode_attention.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+def run_ut1_translate_unfold(ckpt: dict, workdir: str) -> dict:
+    """``query_generator`` translate/de on NLLB-200-3.3B (2 layers a
+    stack, the config's decode length), then a second run with
+    ``query_generator`` unfold_api (TinyLlama rewrites the questions).
+    The translation launches no kernel (no Pallas kernel is on the model in
+    JAX); the rewrite launches decode attention."""
+    from bergen_tpu_torch.models.query_generators import (translate_query,
+                                                          unfold_api_query)
+
+    out = {}
+    for name, cls, extra in (
+            ("translate", translate_query.TranslateQuery, group_overrides(
+                "query_generator", "translate/de",
+                model_name=_local(ckpt, "nllb"))),
+            ("unfold", unfold_api_query.UnfoldAPIQuery, group_overrides(
+                "query_generator", "unfold_api"))):
+        orig = cls.generate
+        seen = {}
+
+        def spy(self, questions, orig=orig, seen=seen):
+            before = _launch_counts()
+            res = orig(self, questions)
+            seen["launches"] = {k: v - before[k]
+                                for k, v in _launch_counts().items()}
+            seen["n"] = len(res)
+            return res
+
+        cls.generate = spy
+        try:
+            exp, wall = _context_cli(ckpt, os.path.join(workdir, name), extra,
+                                     work=os.path.dirname(workdir))
+        finally:
+            cls.generate = orig
+        names = [n for n in os.listdir(exp)
+                 if n.startswith("generated_queries.")]
+        if len(names) != 1:
+            fail(f"{name}: expected one generated-queries file, got {names}")
+        queries = _json(exp, names[0])["generated_queries"]
+        if len(queries) != 50 or not all(isinstance(q, str)
+                                         for q in queries):
+            fail(f"{name}: {len(queries)} generated queries")
+        out[name] = {"wall_s": wall, "exp": exp, "file": names[0],
+                     "stage_s": _json(exp, "eval_dev_stage_times.json"),
+                     "rewrite_launches": seen.get("launches"),
+                     "example_query": queries[0][:80], **_check_outputs(exp)}
+    if any(out["translate"]["rewrite_launches"].values()):
+        fail(f"translate/de launched kernels: "
+             f"{out['translate']['rewrite_launches']}")
+    if not out["unfold"]["rewrite_launches"]["decode_attention"]:
+        fail("unfold_api: the rewrite launched no decode attention")
+    return out
+
+
+# -- the kernels at the new paths' shapes ---------------------------------- #
+
+
+def _common_shapes(shapes: list, n: int = 2) -> list:
+    """The ``n`` most frequent (B, S) of a path's launches, largest S
+    first among equals."""
+    counts: dict = {}
+    for s in shapes:
+        counts[tuple(s)] = counts.get(tuple(s), 0) + 1
+    return sorted(counts, key=lambda s: (-counts[s], -s[1]))[:n]
+
+
+def check_context_kernels(results: dict, dev, runs: dict) -> None:
+    """Each kernel of the new paths against its plain version at the
+    path's own two most frequent (B, S): ``encoder_layer`` at XLM-R-large's
+    widths (ut1_dslr's pair batches) and at BERT-base's (ut1_recomp_ext's
+    sentence batches), ``encoder_layer_prebias`` at DeBERTa-v3-large's
+    (ut1_provence's batches) and ``encoder_attention`` with a random f32
+    [16, S, S] bias (T5-large's relative bias) and scale 1.0 at
+    ut1_recomp_abs's padded S, which must not be a multiple of 64.  Rows
+    go to ``results`` with ``context_path`` set."""
+    import torch
+    from bergen_tpu_torch.ops import encoder_attention as ea
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rnd = _rnd(gen, dev)
+    for path, (D, H, I, eps) in (("ut1_dslr", (1024, 16, 4096, 1e-5)),
+                                 ("ut1_recomp_ext", (768, 12, 3072, 1e-12))):
+        w = ea.fuse_layer(_random_layer(rnd, D, I))
+        library = library_encoder_layer(w, H, eps)
+        for B, S in _common_shapes(runs[path]["encode_shapes"]):
+            row, _ = _layer_row(ea, w, library, H, B, S, eps, "gelu", gen,
+                                dev, rnd)
+            row["context_path"] = path
+            emit({"phase": "kernel_check", "kernel": "encoder_layer", **row})
+            results.setdefault("encoder_layer", []).append(row)
+    D, H, I, eps = 1024, 16, 4096, 1e-7  # DeBERTa-v3-large
+    w = ea.fuse_layer(_random_layer(rnd, D, I))
+    tail = library_tail(w, eps)
+    for B, S in _common_shapes(runs["ut1_provence"]["encode_shapes"]):
+        row, _ = _prebias_row(ea, w, tail, H, B, S, eps,
+                              1.0 / math.sqrt(D // H * 3), gen, dev, rnd)
+        row["context_path"] = "ut1_provence"
+        emit({"phase": "kernel_check", "kernel": "encoder_layer_prebias",
+              **row})
+        results.setdefault("encoder_layer_prebias", []).append(row)
+    D, H = 1024, 16  # T5-large's encoder, at the padded S of its batches
+    padded = [(B, S + -S % 4) for B, S in
+              runs["ut1_recomp_abs"]["encode_shapes"] if (S + -S % 4) % 64]
+    if not padded:
+        fail("ut1_recomp_abs: every batch padded to a multiple of 64")
+    for B, S in _common_shapes(padded):
+        q, k, v = (rnd(B, S, D).bfloat16() for _ in range(3))
+        row = _attention_row(ea, q, k, v, _padded_mask(gen, dev, B, S), H,
+                             rnd(H, S, S).contiguous(), 1.0)
+        row.update(bias="t5_relative", context_path="ut1_recomp_abs")
+        emit({"phase": "kernel_check", "kernel": "encoder_attention", **row})
+        results.setdefault("encoder_attention", []).append(row)
+        if not (row["max_abs_err"] <= ATT_TOL
+                and row["mean_abs_err"] <= ATT_MEAN_TOL
+                and row["kernels_per_call"] == 1):
+            fail(f"encoder_attention ut1_recomp_abs B{B} S{S}: {row}")
+    torch.cuda.empty_cache()
+
+
+CONTEXT_KERNEL_PATHS = ("ut1_dslr", "ut1_recomp_ext", "ut1_provence",
+                        "ut1_recomp_abs")
+
+
+def context_kernels_in_fresh_process(runs: dict) -> dict:
+    """``check_context_kernels`` at the paths' shapes in a child process
+    (``--context-kernels``); returns its rows.  In a whole run on one H100
+    this process's profiler windows after the context paths at times
+    recorded nothing at all, however many were taken, where a fresh
+    process's windows, like those of the kernel checks at the start of the
+    script, recorded every kernel."""
+    with tempfile.TemporaryDirectory() as d:
+        shapes, rows = os.path.join(d, "shapes.json"), os.path.join(d,
+                                                                  "rows.json")
+        with open(shapes, "w") as f:
+            json.dump({p: {"encode_shapes": runs[p]["encode_shapes"]}
+                       for p in CONTEXT_KERNEL_PATHS}, f)
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--context-kernels", shapes, rows],
+                               timeout=600)
+        if child.returncode != 0:
+            fail(f"the context kernel checks exited {child.returncode}")
+        with open(rows) as f:
+            return json.load(f)
+
+
+# -- the card against the CPU ---------------------------------------------- #
+
+
+def _rows(saved: dict, n: int):
+    return saved["original_contexts"][:n], saved["queries"][:n]
+
+
+def _joined_rows(contexts):
+    """Each doc with the other docs' body sentences of its row appended:
+    rows whose docs hold several body sentences (each ut1 doc holds a title
+    and one), so that a selection can keep some and drop others."""
+    from bergen_tpu_torch.models.context_processors.recomp import split_title
+
+    out = []
+    for docs in contexts:
+        bodies = [" ".join(split_title(d)[1]) for d in docs]
+        out.append([" ".join([d] + [b for k, b in enumerate(bodies)
+                                    if k != j and b])
+                    for j, d in enumerate(docs)])
+    return out
+
+
+def _kept(rows) -> int:
+    """The body sentences kept in processed rows (each doc keeps its title
+    first, then the kept sentences, joined as split)."""
+    from bergen_tpu_torch.models.context_processors.recomp import split_title
+
+    return sum(len(split_title(d)[1]) for r in rows for d in r)
+
+
+def _split_threshold(p) -> float:
+    """A threshold at the widest gap among the middle half of the CPU's
+    sorted probabilities: it keeps about half the sentences and lies as far
+    from them as the data allows."""
+    import numpy as np
+
+    q = np.sort(p)
+    lo, hi = len(q) // 4, max(len(q) // 4 + 1, 3 * len(q) // 4)
+    g = lo + int(np.argmax(q[lo + 1:hi + 1] - q[lo:hi]))
+    return float(q[g] + q[g + 1]) / 2
+
+
+def _select(rows, scores: dict, thr=None, top_k=None):
+    """The plain selection from per-sentence scores ({(i, j, k): score}):
+    each doc's title, then its body sentences above ``thr`` in order, or
+    its ``top_k`` highest in ascending score order (RECOMP's, as the JAX
+    package's)."""
+    import numpy as np
+    from bergen_tpu_torch.models.context_processors.recomp import split_title
+
+    out = []
+    for i, docs in enumerate(rows):
+        row = []
+        for j, d in enumerate(docs):
+            title, body = split_title(d)
+            v = [scores[(i, j, k)] for k in range(len(body))]
+            keep = ((np.argsort(v)[-top_k:] if v else []) if top_k
+                    else [k for k in range(len(body)) if v[k] > thr])
+            row.append(" ".join([title] + [body[k] for k in keep]))
+        out.append(row)
+    return out
+
+
+def _held(got: dict, scores: dict, rows, tol: float, **cut) -> dict:
+    """The card's processed ``rows`` (``got["cuda"]``) against the CPU's:
+    each device's strings must be the plain selection (``_select``) from
+    its own scores, and the two devices' scores must lie within ``tol``;
+    so the strings differ only at docs where a sentence's two scores
+    straddle the cut, which are counted."""
+    import numpy as np
+
+    keys = sorted(scores["cpu"])
+    err = float(np.abs(np.array([scores["cuda"][k] for k in keys])
+                       - np.array([scores["cpu"][k] for k in keys])).max())
+    own = {d: got[d] == _select(rows, scores[d], **cut) for d in got}
+    differing = sum(x != y for a, b in zip(got["cuda"], got["cpu"])
+                    for x, y in zip(a, b))
+    return {"sentences": len(keys), "kept_cpu": _kept(got["cpu"]),
+            "max_err": err, "tol": tol, "card_is_own_selection": own["cuda"],
+            "cpu_is_own_selection": own["cpu"],
+            "docs": sum(len(r) for r in rows), "differing": differing}
+
+
+def _held_fails(r: dict, joined: bool) -> bool:
+    return (not r["card_is_own_selection"] or not r["cpu_is_own_selection"]
+            or r["max_err"] > r["tol"]
+            or (joined and not 0 < r["kept_cpu"] < r["sentences"]))
+
+
+def _recomp_scores(proc, contexts, queries):
+    """(sentence embeddings, {(i, j, k): the query's dot product with
+    sentence k of doc j}) of RECOMP's encoder on the rows."""
+    from bergen_tpu_torch.models.context_processors.recomp import split_title
+
+    texts, keys = [], []
+    for i, docs in enumerate(contexts):
+        for j, d in enumerate(docs):
+            title, body = split_title(d)
+            for k, s in enumerate(body):
+                texts.append(title + " " + s)
+                keys.append((i, j, k))
+    q = proc.encoder.encode(list(queries), "query")
+    e = proc.encoder.encode(texts, "doc")
+    return e, {key: float(q[key[0]] @ v) for key, v in zip(keys, e)}
+
+
+def check_context_against_cpu(ckpt: dict, runs: dict) -> dict:
+    """The card's processors against a CPU run of the port (f32, every
+    kernel's plain version) on the same weights, on the first
+    CONTEXT_CHECK_QUERIES queries of each path.  RECOMP extractive, DSLR
+    and Provence, on the path's rows and on the same rows with each doc's
+    row-mates' sentences appended (``_joined_rows``), where the selection
+    keeps some sentences and drops others (RECOMP its top 3 of 5, DSLR and
+    Provence at ``_split_threshold``): each device's strings are the plain
+    selection from its own scores, the card's scores lie within the
+    tolerance of the CPU's (PROB_TOL, or RECOMP_SCORE_TOL of the largest
+    score for RECOMP's dot products), so the strings differ only where a
+    sentence's two scores straddle the cut (``_held``); the path's RECOMP
+    strings equal the CPU's.  T5: the encoder's states of the first batch
+    within CONTEXT_COS_TOL (random-weight summaries may flip at near-ties,
+    so they are not compared).  NLLB: the path's translator with its
+    weights in f32 on the card against the CPU on the first
+    TRANSLATE_CHECK_QUERIES questions, equal strings (the model runs no
+    kernel; the path's bf16 translations are reported beside them)."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.models import convert, t5
+    from bergen_tpu_torch.models.context_processors import (dslr_ce,
+                                                            provence, recomp)
+    from bergen_tpu_torch.models.query_generators import translate_query
+
+    n = CONTEXT_CHECK_QUERIES
+    out = {}
+    # RECOMP extractive: its top 3 by the query's dot products
+    t0 = time.perf_counter()
+    saved = _processed(runs["ut1_recomp_ext"]["exp"],
+                       "processed_contexts.recomp_Ext_top3.")
+    ctx, qs = _rows(saved, n)
+    joined = _joined_rows(ctx)
+    got, emb, scores = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        proc = recomp.RecompExtractiveCompressor(ckpt["bert"], batch_size=64,
+                                                 top_k=3, device=dev)
+        if dev == "cpu":
+            path_cpu, _ = proc.process(ctx, qs)
+        got[dev], _ = proc.process(joined, qs)
+        emb[dev], scores[dev] = _recomp_scores(proc, joined, qs)
+        del proc
+    r = out["recomp_ext"] = {
+        "path_equal": path_cpu == saved["processed_contexts"][:n],
+        "min_cos": _cos_rows(emb["cuda"], emb["cpu"]),
+        **_held(got, scores, joined, RECOMP_SCORE_TOL * max(
+            abs(v) for v in scores["cpu"].values()), top_k=3),
+        "check_s": time.perf_counter() - t0}
+    if not r["path_equal"] or r["min_cos"] < CONTEXT_COS_TOL or \
+            _held_fails(r, True):
+        fail(f"recomp_ext card vs CPU: {r}")
+    del emb
+    # DSLR and Provence: the sentences whose probability clears the
+    # threshold; the path's rows at the config's, the joined rows at one
+    # that splits them
+    for key, path, prefix, make, thr in (
+            ("dslr", "ut1_dslr", "processed_contexts.dslrce_Ext_t0.5.",
+             lambda d: dslr_ce.DSLR_CE(ckpt["xlmr"], batch_size=32,
+                                       threshold=0.5, device=d), 0.5),
+            ("provence", "ut1_provence",
+             "processed_contexts.provence_standalone_t0.1_t0.1_titleTrue_"
+             "rFalse.",
+             lambda d: provence.ProvenceCompressor(
+                 ckpt["provence"], name="provence_standalone",
+                 threshold=0.1, batch_size=8, device=d), 0.1)):
+        t0 = time.perf_counter()
+        saved = _processed(runs[path]["exp"], prefix)
+        ctx, qs = _rows(saved, n)
+        joined = _joined_rows(ctx)
+        probs = {"path": {}, "joined": {}}
+        got = {"path": {"cuda": saved["processed_contexts"][:n]},
+               "joined": {}}
+        for dev in ("cpu", "cuda"):
+            proc = make(dev)
+            probs["path"][dev] = _sentence_probs(proc, key, ctx, qs)
+            probs["joined"][dev] = _sentence_probs(proc, key, joined, qs)
+            if dev == "cpu":
+                got["path"]["cpu"], _ = proc.process(ctx, qs)
+                split = _split_threshold(
+                    list(probs["joined"]["cpu"].values()))
+            proc.threshold = split
+            got["joined"][dev], _ = proc.process(joined, qs)
+            del proc
+        r = out[key] = {
+            "path": _held(got["path"], probs["path"], ctx, PROB_TOL, thr=thr),
+            "joined": _held(got["joined"], probs["joined"], joined, PROB_TOL,
+                            thr=split),
+            "split_threshold": split,
+            "prob_range": [min(probs["joined"]["cpu"].values()),
+                           max(probs["joined"]["cpu"].values())],
+            "check_s": time.perf_counter() - t0}
+        if _held_fails(r["path"], False) or _held_fails(r["joined"], True):
+            fail(f"{key} card vs CPU: {r}")
+    # T5: the encoder's states of the first batch of the path's inputs
+    t0 = time.perf_counter()
+    saved = _processed(runs["ut1_recomp_abs"]["exp"],
+                       "processed_contexts.recomp_abs.")
+    ctx, qs = _rows(saved, 4)
+    texts = ["Question: {}\n Document: {}\n Summary: ".format(q, " ".join(d))
+             for q, d in zip(qs, ctx)]
+    states = {}
+    for dev in ("cuda", "cpu"):
+        gen_ = t5.T5Generator(ckpt["t5"], device=dev)
+        enc = gen_.tokenizer(texts, truncation=True, max_length=512)
+        ii, am = gen_._pad(enc["input_ids"])
+        with torch.inference_mode():
+            h = t5.encode(gen_.params, gen_.cfg,
+                          torch.from_numpy(ii).to(gen_.device),
+                          torch.from_numpy(am).to(gen_.device))
+        states[dev] = h.float().cpu()[torch.from_numpy(am).bool()].numpy()
+        del gen_, h
+    out["recomp_abs"] = {
+        "encoder_min_cos": _cos_rows(states["cuda"], states["cpu"]),
+        "tol": CONTEXT_COS_TOL, "tokens": int(states["cpu"].shape[0]),
+        "check_s": time.perf_counter() - t0}
+    if out["recomp_abs"]["encoder_min_cos"] < CONTEXT_COS_TOL:
+        fail(f"recomp_abs card vs CPU: {out['recomp_abs']}")
+    # NLLB: the CPU's translator and a copy with its f32 weights on the
+    # card (the checkpoint is bf16: the CPU's f32 values are the path's);
+    # the path's own bf16 translations of the same questions beside them
+    from bergen_tpu_torch.data.dataset import Dataset
+
+    t0 = time.perf_counter()
+    run = runs["ut1_translate_unfold"]["translate"]
+    queries = Dataset.load_from_disk(os.path.join(
+        run["exp"].split("/tests/run/")[0], "tests", "run", "datasets",
+        "ut1queries_dev"))["content"][:TRANSLATE_CHECK_QUERIES]
+    path_bf16 = _json(run["exp"], run["file"])["generated_queries"][
+        :TRANSLATE_CHECK_QUERIES]
+    cpu = translate_query.TranslateQuery(
+        ckpt["nllb"], src_lang="deu_Latn", tgt_lang="eng_Latn",
+        batch_size=TRANSLATE_CHECK_QUERIES, device="cpu")
+    card = copy.copy(cpu)
+    card.params = convert.to_device(cpu.params, torch.float32, "cuda")
+    card.device = card.params["shared"].device
+    got = {"cuda": card.generate(queries), "cpu": cpu.generate(queries)}
+    del cpu, card
+    out["translate"] = {
+        "queries": len(queries), "equal_f32": got["cuda"] == got["cpu"],
+        "path_bf16_equal": sum(a == b for a, b in zip(path_bf16,
+                                                      got["cpu"])),
+        "check_s": time.perf_counter() - t0}
+    if not out["translate"]["equal_f32"]:
+        fail(f"translate card (f32) vs CPU: {got}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sentence_probs(proc, key: str, contexts, queries) -> dict:
+    """{(query i, doc j, sentence k): probability} of DSLR's or
+    Provence's scoring of the rows."""
+    import numpy as np
+    from bergen_tpu_torch.models.context_processors.recomp import split_title
+
+    items, keys = [], []
+    for i, (q, docs) in enumerate(zip(queries, contexts)):
+        for j, d in enumerate(docs):
+            title, body = split_title(d)
+            if key == "dslr":
+                for k, s in enumerate(body):
+                    items.append((q, title + " " + s))
+                    keys.append((i, j, k))
+            elif body:
+                items.append((q, body))
+                keys.append((i, j))
+    out = {}
+    if key == "dslr":
+        for s in range(0, len(items), proc.batch_size):
+            batch = items[s:s + proc.batch_size]
+            logits = proc.ce.score_pairs([b[0] for b in batch],
+                                         [b[1] for b in batch])
+            for kk, p in zip(keys[s:s + len(batch)],
+                             1 / (1 + np.exp(-logits))):
+                out[kk] = float(p)
+        return out
+    for (i, j), (_, probs) in zip(keys, proc._score_docs(items)):
+        for k, p in enumerate(probs):
+            out[(i, j, k)] = p
+    return out
+
+
+def drive_context_paths(ckpt: dict, root: str, dev, drive, results: dict,
+                        runs: dict) -> None:
+    """Write the four models at their published widths
+    (SMOKE_NEW_PATH_LAYERS a stack), drive the context paths on ut1_eval's
+    folders, check their kernels at the paths' shapes and the card against
+    the CPU, and delete the models."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def w(*shape, std=0.02):
+        return (torch.randn(*shape, generator=gen, device=dev) * std
+                ).bfloat16().cpu()
+
+    ckpt["t5"] = write_t5_large(root, w, SMOKE_NEW_PATH_LAYERS)
+    ckpt["xlmr"] = write_xlmr_large_ce(root, w, SMOKE_NEW_PATH_LAYERS)
+    ckpt["provence"] = write_provence(root, w, SMOKE_NEW_PATH_LAYERS)
+    nllb = write_nllb(root, w, SMOKE_NEW_PATH_LAYERS)
+    ckpt["nllb"] = nllb.pop("path")
+    emit({"phase": "checkpoints_context", "write_s": time.perf_counter() - t0,
+          "nllb_tokenizer": nllb, "layers": SMOKE_NEW_PATH_LAYERS})
+    for path, run in (("ut1_recomp_ext", run_ut1_recomp_ext),
+                      ("ut1_recomp_abs", run_ut1_recomp_abs),
+                      ("ut1_dslr", run_ut1_dslr),
+                      ("ut1_provence", run_ut1_provence),
+                      ("ut1_translate_unfold", run_ut1_translate_unfold)):
+        drive(path, run)
+    t0 = time.perf_counter()
+    for kernel, got in context_kernels_in_fresh_process(runs).items():
+        results.setdefault(kernel, []).extend(got)
+    emit({"phase": "context_kernel_checks",
+          "check_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    context_check = check_context_against_cpu(ckpt, runs)
+    emit({"phase": "reference_check_context",
+          "check_s": time.perf_counter() - t0, **context_check})
+    for key in ("t5", "xlmr", "provence", "nllb"):
+        shutil.rmtree(ckpt.pop(key), ignore_errors=True)
+
+
+def check_context_launches(by_path: dict, bias_launches: dict,
+                           runs: dict) -> None:
+    """The context stages: one kernel a layer and batch of their models
+    (SMOKE_NEW_PATH_LAYERS; RECOMP's BERT-base whole), every T5 encoder
+    attention with its bias, and no other of the three encoder kernels."""
+    for path, kernel, per in (
+            ("ut1_recomp_ext", "encoder_layer",
+             BERT_BASE["num_hidden_layers"]),
+            ("ut1_dslr", "encoder_layer", SMOKE_NEW_PATH_LAYERS),
+            ("ut1_provence", "encoder_layer_prebias", SMOKE_NEW_PATH_LAYERS),
+            ("ut1_recomp_abs", "encoder_attention", SMOKE_NEW_PATH_LAYERS)):
+        want = {k: 0 for k in ("encoder_layer", "encoder_layer_prebias",
+                               "encoder_attention")}
+        want[kernel] = per * len(runs[path]["encode_shapes"])
+        got = {k: by_path[path][k] for k in want}
+        if got != want or not want[kernel]:
+            fail(f"{path}: launches {got}, not {want}")
+    if bias_launches["ut1_recomp_abs"] != \
+            by_path["ut1_recomp_abs"]["encoder_attention"]:
+        fail(f"ut1_recomp_abs: {bias_launches['ut1_recomp_abs']} of "
+             f"{by_path['ut1_recomp_abs']['encoder_attention']} encoder "
+             "attentions carried the bias")
+    idle = [f"{n} on {path}" for path in CONTEXT_PATHS
+            for n in PATH_KERNELS[path] if by_path[path][n] == 0]
+    if idle:
+        fail(f"kernels never launched where the path runs them: {idle}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5499,6 +6573,9 @@ SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "llama-3.2-3b-instruct-random-2layers",
            "qwen2.5-7b-instruct-random", "qwen2.5-7b-instruct-random-2layers")
 REPLLAMA_CKPTS = ("repllama-v1-7b-lora-passage-random",)
+CONTEXT_CKPTS = ("nq-abstractive-compressor-t5-large-random",
+                 "bge-reranker-v2-m3-random", "provence-debertav3-random",
+                 "nllb-200-3.3b-random")
 FAMILY_CKPTS = ("gemma-7b-it-random", "gemma-2b-it-random",
                 "gemma-2-9b-it-random", "gemma-2-9b-it-random-2layers",
                 "phi-3-mini-4k-instruct-random", "c4ai-command-r-v01-random",
@@ -5514,11 +6591,17 @@ def main() -> None:
     from bergen_tpu_torch.ops import _build
 
     # --only NAME[,NAME...]: build, run those phase-3 checks and stop (the
-    # first call after a kernel changes); no argument: every phase
+    # first call after a kernel changes); --context: build, ut1_eval and the
+    # context paths with their checks, then stop; --context-kernels: the
+    # context paths' kernel checks alone, in a child; no argument: every
+    # phase
     only = None
     profile = sys.argv[1:] == ["--profile-serve"]
-    if profile:
+    context_only = sys.argv[1:] == ["--context"]
+    if profile or context_only:
         only = []
+    elif sys.argv[1:2] == ["--context-kernels"] and len(sys.argv) == 4:
+        only = []  # a child of the context paths: their kernel checks only
     elif sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = sys.argv[2].split(",")
         if set(only) - set(PHASE3_CHECKS):
@@ -5531,6 +6614,14 @@ def main() -> None:
     card = card_line()
     started = t0 = time.perf_counter()
     _build.build_all()
+    if sys.argv[1:2] == ["--context-kernels"]:
+        with open(sys.argv[2]) as f:
+            runs = json.load(f)
+        results = {}
+        check_context_kernels(results, dev, runs)
+        with open(sys.argv[3], "w") as f:
+            json.dump(results, f)
+        return
     emit({"phase": "build", "card": card,
           "build_s": time.perf_counter() - t0,
           "python": sys.version.split()[0], "torch": torch.__version__,
@@ -5593,7 +6684,7 @@ def main() -> None:
             torch.cuda.empty_cache()
     if profile:
         profile_serve(dev)
-    if only is not None:
+    if only is not None and not context_only:
         emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
@@ -5653,6 +6744,14 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     try:
+        if context_only:
+            drive("ut1_eval", run_main_path)
+            drive_context_paths(ckpt, root, dev, drive, results, runs)
+            check_context_launches(by_path, bias_launches, runs)
+            emit({"phase": "done", "context": True,
+                  "script_s": time.perf_counter() - started,
+                  "launches": {p: by_path[p] for p in CONTEXT_PATHS}})
+            return
         free_gb = shutil.disk_usage(root).free / 1e9
         t0 = time.perf_counter()
         ckpt["llama2_7b"] = write_llama2_7b(root, dev, SMOKE_7B_LAYERS)
@@ -5665,8 +6764,10 @@ def main() -> None:
             root, dev, os.path.abspath(first_layers(
                 ckpt["llama2_7b"], SMOKE_NEW_PATH_LAYERS)),
             SMOKE_NEW_PATH_LAYERS)
-        for path, run in (("ut1_eval", run_main_path),
-                          ("ut1_w8a8_tinyllama", run_ut1_w8a8_tinyllama),
+        # the context paths right after ut1_eval, whose folders they link
+        drive("ut1_eval", run_main_path)
+        drive_context_paths(ckpt, root, dev, drive, results, runs)
+        for path, run in (("ut1_w8a8_tinyllama", run_ut1_w8a8_tinyllama),
                           ("ut1_bm25_oracle", run_ut1_bm25_oracle),
                           ("ut1_oracle_provenance",
                            run_ut1_oracle_provenance),
@@ -5814,6 +6915,7 @@ def main() -> None:
                 for n in names if by_path[path][n] == 0]
         if idle:
             fail(f"kernels never launched where the path runs them: {idle}")
+        check_context_launches(by_path, bias_launches, runs)
         # each int8 path in its modes alone (no other path launches int8)
         for path, got in int8_by_mode.items():
             modes = PATH_INT8_MODES.get(path, ())
@@ -5904,7 +7006,8 @@ def main() -> None:
                 ("ut1_int8_qwen25", 0, SMOKE_NEW_PATH_LAYERS,
                  SMOKE_NEW_PATH_LAYERS),
                 ("kilt_nq_local", 0, tiny, 0),
-                ("judge_pairwise", 0, tiny, tiny)):
+                ("judge_pairwise", 0, tiny, tiny),
+                *((path, 0, tiny, 0) for path in CONTEXT_PATHS)):
             bad = [st for st in steps[path] if st[1:4] != (
                 per4, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
             n_dec = sum(1 for st in steps[path] if st[0] == 1)
@@ -6013,7 +7116,7 @@ def main() -> None:
                      "paged server's decode")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS:
+        for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS + CONTEXT_CKPTS:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     # the redesigned kernels: launches per call as measured in their checks,
@@ -6081,6 +7184,15 @@ def main() -> None:
             for r in results[name] if r.get("phi3_repllama")]
         if new:
             extra["phi3_repllama_rows"] = new
+        # the context paths' shapes (XLM-R-large, DeBERTa-v3-large, T5's
+        # bias at a ragged S)
+        new = [{key: r[key] for key in (
+            "context_path", "B", "S", "D", "H", "head_dim", "bias",
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "kernels_per_call") if key in r}
+            for r in results[name] if r.get("context_path")]
+        if new:
+            extra["context_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

@@ -1,7 +1,8 @@
 """The PyTorch port's package boundary: it imports neither JAX nor the JAX
-package (nor ``datasets``, ``pandas`` or ``requests``), maps every config
-target of the ported slice, and refuses to fall back to the CPU when the
-card was asked for."""
+package (nor ``datasets``, ``pandas``, ``requests``, ``transformers``,
+``tokenizers``, ``nltk`` or ``llmlingua``), maps every config target of the
+ported slice, and refuses to fall back to the CPU when the card was asked
+for."""
 
 import os
 import subprocess
@@ -19,7 +20,8 @@ def test_import_leaves_jax_out():
         "bergen_tpu_torch.__path__, 'bergen_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'bergen_tpu', 'datasets', 'pandas', 'requests'))\n"
+        "('jax', 'bergen_tpu', 'datasets', 'pandas', 'requests', "
+        "'transformers', 'tokenizers', 'nltk', 'llmlingua'))\n"
         "print(len(mods), bad)\n"
         "assert len(mods) >= 25 and not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -56,6 +58,30 @@ def test_slice_targets_all_map(retriever, reranker):
         port = confy.resolve_target(target)
         assert port.startswith("bergen_tpu_torch.")
         assert confy._locate(port) is not None
+
+
+@pytest.mark.parametrize("group", ["context_processor", "query_generator"])
+def test_every_rewriting_config_resolves(group):
+    """Every file of the group maps to a port class; the LLMLingua ones
+    raise the JAX package's ImportError (``llmlingua`` is absent), the
+    others build past the target (on a model path that does not exist)."""
+    from bergen_tpu_torch import confy
+
+    root = os.path.join(REPO, "config", group)
+    files = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, fs in os.walk(root) for f in fs
+                   if f.endswith(".yaml"))
+    assert len(files) == (24 if group == "context_processor" else 15)
+    lingua = 0
+    for name in files:
+        node = confy.load_yaml(os.path.join(root, name))["init_args"]
+        cls = confy._locate(confy.resolve_target(node["_target_"]))
+        assert cls.__module__.startswith("bergen_tpu_torch.")
+        if "llmlingua" in name:
+            lingua += 1
+            with pytest.raises(ImportError, match="llmlingua is not installed"):
+                confy.instantiate(node)
+    assert lingua == (7 if group == "context_processor" else 0)
 
 
 def test_unported_target_raises_with_its_name():
