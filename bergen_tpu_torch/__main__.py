@@ -5,9 +5,10 @@
 
 The root config is picked by the ``CONFIG`` env var (default ``rag``) and
 composed from the repository's ``config/`` tree with the same hydra-style
-overrides as ``bergen.py``.  ``device=cpu|cuda`` (default cuda) is read by the
-CLI itself and kept out of the config, so an experiment is named the same as
-the JAX package's run of the same config.
+overrides as ``bergen.py``: with a ``train`` config it runs the train
+stage (``RAG.train``), else the dev eval.  ``device=cpu|cuda`` (default
+cuda) is read by the CLI itself and kept out of the config, so an
+experiment is named the same as the JAX package's run of the same config.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ import sys
 def main(config, device: str | None = None):
     from bergen_tpu_torch.rag import RAG
 
-    if config.get("train") is not None:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md Queue 1, training)")
     rag = RAG(**config, config=config, device=device)
-    rag.eval(dataset_split="dev")
+    if config.get("train") is not None:
+        rag.train()
+    else:
+        rag.eval(dataset_split="dev")
 
 
 def cli(argv: list[str]) -> None:

@@ -101,6 +101,10 @@ TARGETS = {
         "bergen_tpu_torch.models.generators.oracle.OracleAnswer",
     "bergen_tpu.models.generators.oracle.OracleProvenance":
         "bergen_tpu_torch.models.generators.oracle.OracleProvenance",
+    "bergen_tpu.models.generators.llm_cocom.COCOM":
+        "bergen_tpu_torch.models.generators.llm_cocom.COCOM",
+    "bergen_tpu.models.generators.llm_xrag.XRAG":
+        "bergen_tpu_torch.models.generators.llm_xrag.XRAG",
     **{f"bergen_tpu.models.{mod}.{cls}": f"bergen_tpu_torch.models.{mod}.{cls}"
        for mod, cls in (
            ("context_processors.recomp", "RecompExtractiveCompressor"),

@@ -36,7 +36,9 @@ _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 # leaves kept in f32 whatever the compute dtype (as the JAX to_device_tree):
 # norm parameters, biases and the quantized formats' scales
 NORM_KEYS = ("ln", "scale", "bias", "attn_norm", "mlp_norm", "final_norm",
-             "kernel_scale", "kernel_scale_a8", "kernel_scale4")
+             "kernel_scale", "kernel_scale_a8", "kernel_scale4",
+             # LoRA adapters stay f32 over bf16 weights (JAX's init_lora)
+             "lora_a", "lora_b", "lora_scale")
 
 
 # --------------------------------------------------------------------------- #
@@ -632,3 +634,35 @@ def from_jax_params(tree, dtype: torch.dtype = torch.float32,
     ``kernel_scale_a8``, ``kernel_scale4``) in f32; a generator's W8A8
     leaves then take ``prepare_w8a8``."""
     return to_device(tree, dtype, device)
+
+
+def flatten_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """{dotted path: leaf} of a parameter tree of either package, in its
+    order: JAX's checkpoint naming (``provence_params.npz``, the adapter
+    keys of ``adapters_best.npz``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flatten_paths(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def load_flat(tree, flat: Mapping[str, Any], select=None):
+    """Copy ``flat`` ({dotted path: array}: ``flatten_paths`` of a JAX tree
+    carrying LoRA adapters or Provence's heads) into the tensor leaves of a
+    port tree of the same layout, in place (an optimizer holding the leaves
+    keeps them).  ``select(path)`` limits the leaves to copy.  Raises on a
+    path either side lacks."""
+    mine = {p: t for p, t in flatten_paths(tree).items()
+            if select is None or select(p)}
+    if set(mine) != set(flat):
+        raise KeyError(f"trees differ: {sorted(set(mine) ^ set(flat))[:8]}")
+    with torch.no_grad():
+        for path, t in mine.items():
+            t.copy_(torch.from_numpy(np.array(flat[path])))
+    return tree

@@ -23,15 +23,54 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
         return x @ p["kernel"]
     if x.dtype == torch.float32:
         return x @ p["kernel"] + p["bias"]
-    # f32 sums plus the f32 bias, rounded once (the JAX package's dense):
-    # on the card the tensor cores write the f32 sums directly
-    w = p["kernel"]
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32) \
-            .view(*x.shape[:-1], w.shape[-1])
-    else:
-        y = x.float() @ w.float()
-    return (y + p["bias"]).to(x.dtype)
+    # f32 sums plus the f32 bias, rounded once (the JAX package's dense)
+    return (matmul_f32(x, p["kernel"]) + p["bias"]).to(x.dtype)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The card's tensor-core product of a [..., K] and b [K, N] written
+    as f32 sums."""
+    return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                    out_dtype=torch.float32).view(*a.shape[:-1], b.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` with a backward (the out-dtype product has none): each
+    gradient is the transposed product of the f32 cotangent rounded to the
+    operands' dtype, written as f32 sums and rounded to its operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm_f32(g, b.T).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _mm_f32(a.reshape(-1, a.shape[-1]).T,
+                         g.reshape(-1, g.shape[-1])).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 sums of the products of a [..., K] and b [K, N] (JAX's
+    ``preferred_element_type=f32``): on the card the tensor cores write the
+    f32 sums directly (through ``_MatmulF32`` when differentiated);
+    elsewhere the operands go to f32 (products of bf16 values are
+    exact)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b.to(a.dtype))
+        return _mm_f32(a, b)
+    return a.float() @ b.float()
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -237,6 +237,12 @@ def disentangled_bias(layer: Params, cfg: DebertaConfig, q, k, rel_pos,
     # by its reciprocal; addcdiv adds the second quotient in the pass that
     # writes the result
     scale = torch.full((), _att_scale(cfg, Dh), device=q.device)
+    if (c2p if c2p is not None else p2c).requires_grad:
+        # differentiated (Provence training): the same quotients and sum,
+        # without out= or in-place ops
+        terms = [t / scale for t in (c2p, p2c) if t is not None]
+        return (terms[0] if len(terms) == 1 else terms[0] + terms[1]) \
+            .to(out_dtype).contiguous()
     out = torch.empty(B, H, S, S, dtype=out_dtype, device=q.device)
     if c2p is None or p2c is None:
         return torch.div(p2c if c2p is None else c2p, scale, out=out)
@@ -258,8 +264,12 @@ def prepare(params: Params) -> Params:
 def encode(params: Params, cfg: DebertaConfig, input_ids: torch.Tensor,
            attention_mask: torch.Tensor,
            token_type_ids: torch.Tensor | None = None,
-           pos_tables=None) -> torch.Tensor:
-    """Token-level hidden states [B, S, D] (``params`` from ``prepare``)."""
+           pos_tables=None, fused: bool = True) -> torch.Tensor:
+    """Token-level hidden states [B, S, D] (``params`` from ``prepare``).
+    ``fused=False`` (JAX's unfused route, which training takes: the layer
+    kernel has no backward) runs each layer as the plain PyTorch version of
+    ``encoder_layer_prebias`` on operands fused from the tree in the
+    forward, so gradients reach the tree's leaves; no kernel is launched."""
     B, S = input_ids.shape
     emb = params["embeddings"]
     x = emb["word"][input_ids]
@@ -276,7 +286,7 @@ def encode(params: Params, cfg: DebertaConfig, input_ids: torch.Tensor,
     scale = 1.0 / _att_scale(cfg, D // H)
     mask = attention_mask.to(torch.int32).contiguous()
     for li, layer in enumerate(params["layers"]):
-        w = layer["fused"]
+        w = layer["fused"] if fused else ea.fuse_layer(layer)
         qkv = dense({"kernel": w["wqkv"], "bias": w["bqkv"]}, x)
         bias = disentangled_bias(
             layer["attn"], cfg, _heads(qkv[..., :D], H),
@@ -284,9 +294,10 @@ def encode(params: Params, cfg: DebertaConfig, input_ids: torch.Tensor,
             pos_tables[li] if pos_tables is not None else None, x.dtype)
         if bias is None:
             bias = torch.zeros(B, H, S, S, dtype=x.dtype, device=x.device)
-        x = ea.encoder_layer_prebias(x, qkv.contiguous(), bias, w, mask, H,
-                                     cfg.layer_norm_eps, cfg.hidden_act,
-                                     scale)
+        layer_fn = ea.encoder_layer_prebias if fused else \
+            ea.encoder_layer_prebias_plain
+        x = layer_fn(x, qkv.contiguous(), bias, w, mask, H,
+                     cfg.layer_norm_eps, cfg.hidden_act, scale)
     return x
 
 

@@ -61,16 +61,19 @@ class LLM(Generator):
     ):
         if quantization not in (None, "int4", "int8", "int8_mxu", "w8a8"):
             raise ValueError(f"unknown quantization: {quantization!r}")
-        unported = {
-            "tp": tp != 1, "temperature": temperature != 0,
-            "beam search": use_beam_search or (num_beams or 1) > 1
-            or best_of > 1,
-        }
-        if any(unported.values()):
+        if tp != 1:
+            raise NotImplementedError(
+                f"LLM tp={tp}: tensor parallelism is not ported yet "
+                "(ROADMAP.md Queue 1 #10, multi-GPU)")
+        decoding = {"temperature": temperature != 0,
+                    "beam search": use_beam_search or (num_beams or 1) > 1
+                    or best_of > 1}
+        if any(decoding.values()):
             raise NotImplementedError(
                 f"LLM options not ported yet: "
-                f"{[k for k, v in unported.items() if v]} (ROADMAP.md "
-                "Queue 1, generation breadth and serving)")
+                f"{[k for k, v in decoding.items() if v]}: sampling and beam "
+                "search (ROADMAP.md Queue 1 #6, generation breadth and "
+                "serving)")
         if serve and kv_cache not in ("uniform", "paged"):
             raise ValueError(f"unknown kv_cache mode: {kv_cache!r}")
         super().__init__(

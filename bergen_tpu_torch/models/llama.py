@@ -44,9 +44,10 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from bergen_tpu_torch.models import convert
-from bergen_tpu_torch.models.core import ACT_FNS, dense, rmsnorm
+from bergen_tpu_torch.models.core import ACT_FNS, dense, matmul_f32, rmsnorm
 from bergen_tpu_torch.ops import int4_matmul
 from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
@@ -112,7 +113,8 @@ class LlamaConfig:
             raise NotImplementedError(
                 f"generator model_type {model_type!r}: only "
                 f"{', '.join(FAMILIES)} are ported; mixture-of-experts "
-                "models are not (ROADMAP.md Queue 1, generation breadth)")
+                "models are not (ROADMAP.md Queue 1 #5, generation "
+                "breadth)")
         rs = getattr(hf_cfg, "rope_scaling", None) or {}
         rs_type = rs.get("rope_type", rs.get("type"))
         if rs_type == "default":
@@ -262,9 +264,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+               dtype=torch.bfloat16, device=None,
+               flat: bool = True) -> Dict[str, Any]:
     """Flat [n_layers, B, L, KH*Dh] K and V (the decode kernel's layout)
-    and a write cursor."""
+    and a write cursor.  ``flat=False`` (JAX's 4-D layout, which no kernel
+    reads) holds no tensors: one forward from cursor 0 attends over its own
+    keys through the plain attention and writes nothing in place, so it can
+    be differentiated (``train/step.py``) and recomputed by a checkpoint."""
+    if not flat:
+        return {"flat": False, "cursor": 0}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads * cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -289,8 +297,18 @@ def init_paged_cache(cfg: LlamaConfig, n_pages: int, slots: int,
 
 
 def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+ the f32 bias), rounded once to x's dtype."""
+    """y = x @ W (+ the LoRA branch) (+ the f32 bias), rounded once to x's
+    dtype."""
     bias = p.get("bias")
+    if "lora_a" in p and "kernel" not in p:
+        # JAX's quantized branches return before its LoRA branch, so an
+        # adapter there would be dropped unseen (and its init_lora attaches
+        # none to a quantized linear): refuse instead
+        raise NotImplementedError(
+            "LoRA adapters on a quantized projection: train an unquantized "
+            "generator")
+    if "lora_a" in p:
+        return _lora_dense(p, x)
     if "kernel_scale_a8" in p:
         # W8A8 (bergen_tpu/models/llama.py:306-322): per-row int8
         # activations, int32 sums, * sx * scale (+ bias), one rounding; the
@@ -322,6 +340,20 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
         return _int4_dequant_proj(wp, sc, x, bias)
     # dense (llama.py:353-362): f32 sums plus the f32 bias, one rounding
     return dense(p, x)
+
+
+def _lora_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """JAX ``llama.py:353-362`` with adapters (``train/lora.py``): f32 sums
+    of x @ W, plus ((x @ A in f32, rounded to x's dtype) @ B in f32) times
+    the f32 scale, plus the bias, rounded once; A and B are cast to x's
+    dtype for their products."""
+    dt = x.dtype
+    y = matmul_f32(x, p["kernel"])
+    h = matmul_f32(x, p["lora_a"].to(dt)).to(dt)
+    y = y + matmul_f32(h, p["lora_b"].to(dt)) * p["lora_scale"]
+    if "bias" in p:
+        y = y + p["bias"]
+    return y.to(dt)
 
 
 def _int4_dequant_proj(wp: torch.Tensor, sc: torch.Tensor,
@@ -462,6 +494,15 @@ def _attention(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(layer, cfg, x, positions, inv_freq)
     cur = cache["cursor"]
+    if not cache.get("flat", True):
+        # the non-flat cache (init_cache(flat=False)): one forward from
+        # cursor 0 over its own keys, plain attention, nothing written
+        if sliding(cfg, li):
+            keys = torch.arange(S, device=x.device)
+            attn_mask = attn_mask[..., :S] & (
+                keys[:, None] - keys < cfg.sliding_window)
+        ctx = _plain_attention(q, k, v, attn_mask[..., :S], cfg)
+        return _proj(layer["attn"]["o"], ctx)
     if chunk is not None:
         if S != 1 or isinstance(cur, torch.Tensor):
             raise NotImplementedError(
@@ -559,19 +600,15 @@ def _norm(p: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
 def _tied_head(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """x @ embed^T with f32 sums and f32 logits (JAX's dot with
     preferred_element_type f32): a plain product, outside any kernel."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x2, embed.T, out_dtype=torch.float32)
-    else:
-        y = x2.float() @ embed.float().T
-    return y.view(*x.shape[:-1], embed.shape[0])
+    return matmul_f32(x, embed.T)
 
 
 def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
             positions: torch.Tensor, cache: Dict[str, Any],
             attn_mask: torch.Tensor, last_only: bool = False,
             chunk: Dict[str, Any] | None = None,
-            collect_stats: bool = False, head: bool = True):
+            collect_stats: bool = False, head: bool = True,
+            input_embeds: torch.Tensor | None = None, remat: bool = False):
     """One step (prefill: S = prompt length; decode: S = 1) writing K/V at
     the cache cursor and advancing it.  attn_mask [B, S, L] bool over cache
     slots.  Returns f32 logits [B, S, V] ([B, 1, V] with ``last_only``).
@@ -596,8 +633,19 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
     stats the f32 vector of ``outlier_ratio`` of each layer's normed inputs
     (attention, then MLP; cohere's one a layer), the W8A8 calibration
     signal.  With ``head=False`` (RepLlama's trunk; slot-pool cache only)
-    it returns the final norm's output [B, S, D] in the compute dtype."""
+    it returns the final norm's output [B, S, D] in the compute dtype.
+
+    ``input_embeds`` [B, S, D] replaces the embedding lookup (JAX
+    ``llama.py:935-940``: the soft prompts of COCOM's memory and xRAG's
+    projected documents); gemma's scale is applied after it, as in JAX.
+    ``remat`` checkpoints each decoder layer (``torch.utils.checkpoint``;
+    JAX's ``jax.checkpoint`` per layer): the backward recomputes a layer's
+    activations instead of holding them."""
     paged = "k_pool" in cache
+    if not cache.get("flat", True) and (cache["cursor"] != 0
+                                        or chunk is not None):
+        raise NotImplementedError(
+            "the non-flat cache takes one forward from cursor 0")
     if paged and input_ids.shape[1] != 1:
         raise NotImplementedError("paged cache is decode-only (S == 1); "
                                   "prefill writes pages directly")
@@ -609,37 +657,22 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
             "paged attention does not yet support gemma-2 logit softcap / "
             "sliding-window layers: use the slot-pool cache")
     inv_freq = _rope_table(cfg, input_ids.device)
-    x = params["embed"][input_ids]
+    x = params["embed"][input_ids] if input_embeds is None else input_embeds
     if cfg.embed_scale:
         # sqrt(hidden) rounded to x's dtype first, as JAX (llama.py:941-942):
         # 55.5 in bf16 at Gemma-7B's 3,072, not 55.43
         x = x * float(torch.tensor(math.sqrt(cfg.hidden_size),
                                    dtype=x.dtype))
-    stats = []
+    stats = [] if collect_stats else None
     for li, layer in enumerate(params["layers"]):
-        h = _norm(layer["attn_norm"], x, cfg)
-        if collect_stats:
-            stats.append(outlier_ratio(h))
-        if paged:
-            a = _attention_paged(layer, cfg, h, positions, inv_freq, cache,
-                                 li)
+        step = functools.partial(_decoder_layer, layer, cfg,
+                                 positions=positions, inv_freq=inv_freq,
+                                 cache=cache, li=li, attn_mask=attn_mask,
+                                 chunk=chunk, paged=paged, stats=stats)
+        if remat and not (paged or collect_stats):
+            x = torch.utils.checkpoint.checkpoint(step, x, use_reentrant=False)
         else:
-            a = _attention(layer, cfg, h, positions, inv_freq, cache, li,
-                           attn_mask, chunk)
-        if cfg.parallel_block:
-            # cohere: attention and MLP read the same normed input
-            x = x + a + _mlp(layer, h, cfg.hidden_act)
-            continue
-        if cfg.post_norms:  # gemma-2's sandwich: norm the sublayer output
-            a = _norm(layer["post_attn_norm"], a, cfg)
-        x = x + a
-        h = _norm(layer["mlp_norm"], x, cfg)
-        if collect_stats:
-            stats.append(outlier_ratio(h))
-        m = _mlp(layer, h, cfg.hidden_act)
-        if cfg.post_norms:
-            m = _norm(layer["post_mlp_norm"], m, cfg)
-        x = x + m
+            x = step(x)
     if last_only:
         x = x[:, -1:]
     if chunk is not None:
@@ -679,6 +712,33 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
     return logits
 
 
+def _decoder_layer(layer: Params, cfg: LlamaConfig, x: torch.Tensor, *,
+                   positions, inv_freq, cache, li: int, attn_mask, chunk,
+                   paged: bool, stats: list | None) -> torch.Tensor:
+    """One decoder layer (JAX ``_decoder_layer``, ``llama.py:880-909``)."""
+    h = _norm(layer["attn_norm"], x, cfg)
+    if stats is not None:
+        stats.append(outlier_ratio(h))
+    if paged:
+        a = _attention_paged(layer, cfg, h, positions, inv_freq, cache, li)
+    else:
+        a = _attention(layer, cfg, h, positions, inv_freq, cache, li,
+                       attn_mask, chunk)
+    if cfg.parallel_block:
+        # cohere: attention and MLP read the same normed input
+        return x + a + _mlp(layer, h, cfg.hidden_act)
+    if cfg.post_norms:  # gemma-2's sandwich: norm the sublayer output
+        a = _norm(layer["post_attn_norm"], a, cfg)
+    x = x + a
+    h = _norm(layer["mlp_norm"], x, cfg)
+    if stats is not None:
+        stats.append(outlier_ratio(h))
+    m = _mlp(layer, h, cfg.hidden_act)
+    if cfg.post_norms:
+        m = _norm(layer["post_mlp_norm"], m, cfg)
+    return x + m
+
+
 def outlier_ratio(h: torch.Tensor) -> torch.Tensor:
     """The largest per-token max|h| / rms(h) (JAX ``_outlier_ratio``): the
     signal-to-rounding ratio of per-row int8 activation quantization, near
@@ -694,9 +754,12 @@ def outlier_ratio(h: torch.Tensor) -> torch.Tensor:
 def greedy_generate(params: Params, cfg: LlamaConfig,
                     input_ids: torch.Tensor, attention_mask: torch.Tensor,
                     max_new_tokens: int, eos_token_id: int, pad_token_id: int,
-                    cache_dtype=torch.bfloat16) -> torch.Tensor:
+                    cache_dtype=torch.bfloat16,
+                    input_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Batched greedy decoding over LEFT-padded prompts; per-row stop on EOS
-    (the EOS itself is emitted, then pads).  Returns [B, max_new_tokens]."""
+    (the EOS itself is emitted, then pads).  Returns [B, max_new_tokens].
+    ``input_embeds`` [B, S, D] (soft prompts) replaces the prompt's
+    embedding lookup in the prefill; decode steps embed their tokens."""
     B, S = input_ids.shape
     dev = input_ids.device
     L = S + max_new_tokens
@@ -706,7 +769,7 @@ def greedy_generate(params: Params, cfg: LlamaConfig,
     causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
     prefill_mask = causal[None] & am[:, None, :]
     logits = forward(params, cfg, input_ids, positions, cache, prefill_mask,
-                     last_only=True)
+                     last_only=True, input_embeds=input_embeds)
     tok = logits[:, -1].argmax(dim=-1)
     key_valid = torch.cat(
         [am, torch.zeros(B, max_new_tokens, dtype=torch.bool, device=dev)],

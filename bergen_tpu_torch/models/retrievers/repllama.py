@@ -174,3 +174,44 @@ class RepLlama(Retriever):
                 else int(am[r].sum()) - 1 for r in range(len(ids))])
             out[s: s + len(ids)] = self._encode_batch(ii, am, eos_idx)
         return out
+
+
+class LlamaMeanEncoder(RepLlama):
+    """A llama-family checkpoint as a mean-pooled text encoder: xRAG's
+    retriever (``Salesforce/SFR-Embedding-Mistral`` in the shipped configs,
+    ``generators/llm_xrag.py``).  The trunk and its right-padded batches are
+    RepLlama's; the texts take no prefix and no appended EOS, and each
+    embedding is the mean of the final norm's outputs over the valid tokens
+    in f32 (``bert.mean_pool``, the pooling JAX's XRAG asks its
+    ``DenseRetriever`` for), not normalised."""
+
+    @torch.inference_mode()
+    def encode(self, texts, query_or_doc=None):
+        out = np.zeros((len(texts), self.cfg.hidden_size), np.float32)
+        pad_id = self.tokenizer.eos_token_id
+        dev = self.device
+        for s in range(0, len(texts), self.batch_size):
+            ids = self.tokenizer(list(texts[s: s + self.batch_size]),
+                                 truncation=True,
+                                 max_length=self.max_len)["input_ids"]
+            S = max(len(r) for r in ids)
+            ii = np.full((len(ids), S), pad_id, np.int64)  # right padding
+            am = np.zeros((len(ids), S), np.int64)
+            for r, row in enumerate(ids):
+                ii[r, :len(row)] = row
+                am[r, :len(row)] = 1
+            mask = torch.from_numpy(am).to(dev)
+            B = len(ids)
+            cache = llama.init_cache(self.cfg, B, S, dtype=self.dtype,
+                                     device=dev)
+            positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0)
+            causal = torch.tril(torch.ones(S, S, dtype=torch.bool,
+                                           device=dev))
+            x = llama.forward(self.params, self.cfg,
+                              torch.from_numpy(ii).to(dev), positions, cache,
+                              causal[None] & mask.bool()[:, None, :],
+                              head=False)
+            m = mask[..., None].float()
+            emb = (x.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-9)
+            out[s: s + B] = emb.cpu().numpy()
+        return out

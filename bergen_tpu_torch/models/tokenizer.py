@@ -1064,6 +1064,11 @@ class Tokenizer:
         self._added_re = (re.compile("|".join(
             re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
             if self.added else None)
+        # tokens added with ``add_tokens`` (content -> id), matched in the
+        # normalized text by their normalized content (-> id)
+        self.added_normalized: dict[str, int] = {}
+        self._normalized_ids: dict[str, int] = {}
+        self._normalized_re = None
         self.clean_up_spaces = bool(config.get("clean_up_tokenization_spaces",
                                                False))
         self.special_tokens = {k: _token_str(config[k])
@@ -1095,7 +1100,36 @@ class Tokenizer:
             return None
         if token in self.added:
             return self.added[token]
+        if token in self.added_normalized:
+            return self.added_normalized[token]
         return self.model.vocab.get(token)
+
+    def add_tokens(self, tokens) -> int:
+        """transformers' ``add_tokens``: each token not yet known becomes a
+        non-special added token matched in the normalized text (its content
+        normalized, ``normalized=True``), at the id ``tokenizers`` gives it:
+        the vocabulary's size, or one past the largest added id when that
+        is already past it.  Returns how many were added.  (The encode with
+        offsets does not match them.)"""
+        n = 0
+        for t in tokens:
+            if self.token_to_id(t) is not None:
+                continue
+            size = len(self.model.vocab)
+            top = max([*self.added.values(), *self.added_normalized.values()],
+                      default=None)
+            new_id = top + 1 if top is not None and (top >= size
+                                                     or size == 0) else size
+            self.added_normalized[t] = new_id
+            self.id_to_token[new_id] = t
+            n += 1
+        if n:
+            self._normalized_ids = {self.normalize(t): i for t, i in
+                                    self.added_normalized.items()}
+            self._normalized_re = re.compile("|".join(
+                re.escape(t) for t in sorted(self._normalized_ids, key=len,
+                                             reverse=True)))
+        return n
 
     def __getattr__(self, name):
         if name == "special_tokens":
@@ -1134,7 +1168,18 @@ class Tokenizer:
                 ids.append(added_id)
                 continue
             norm = self.normalize(text[a:b])
-            for word in self.pre_tokenize([norm], a == 0) if norm else ():
+            pos = 0
+            if self._normalized_re is not None:
+                for m in self._normalized_re.finditer(norm):
+                    for word in self.pre_tokenize([norm[pos:m.start()]],
+                                                  a == 0 and pos == 0) \
+                            if m.start() > pos else ():
+                        ids.extend(self.model.tokenize(word))
+                    ids.append(self._normalized_ids[m.group(0)])
+                    pos = m.end()
+            rest = norm[pos:]
+            for word in self.pre_tokenize([rest], a == 0 and pos == 0) \
+                    if rest else ():
                 ids.extend(self.model.tokenize(word))
         return ids
 

@@ -199,6 +199,21 @@ def scratch(name: str, device, n: int):
     return t
 
 
+def refuse_grad(fn: str, *args) -> None:
+    """Raise if a tensor handed to kernel wrapper ``fn`` on the card (an
+    argument, or a value of a dict argument) requires grad: no kernel
+    defines a backward, so a differentiated forward must take the plain
+    PyTorch route (the JAX package's kernels define no VJP either).  The
+    wrapper raises rather than give way to its plain version."""
+    for a in args:
+        for t in (a.values() if isinstance(a, dict) else (a,)):
+            if getattr(t, "requires_grad", False):
+                raise RuntimeError(
+                    f"{fn}: handed a tensor that requires grad; the CUDA "
+                    "kernel has no backward (a differentiated forward takes "
+                    "the plain PyTorch route)")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

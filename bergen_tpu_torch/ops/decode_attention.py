@@ -100,6 +100,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                       kv_heads=kv_heads, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     B, H, Dh = q.shape
     L = k_cache.shape[1]
     KH = kv_heads

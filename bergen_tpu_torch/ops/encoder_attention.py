@@ -574,6 +574,7 @@ def encoder_layer(x: torch.Tensor, w: dict, mask: torch.Tensor,
     if x.device.type == "cpu":
         return encoder_layer_plain(x, w, mask, num_heads, eps, act)
     _on_card("encoder_layer", x)
+    _build.refuse_grad("encoder_layer", x, w)
     I = w["w1"].shape[1]
     _check_layer("encoder_layer", x, mask, num_heads, act, I)
     B, S, D = x.shape
@@ -597,6 +598,7 @@ def attention_block(x: torch.Tensor, w: dict, mask: torch.Tensor,
     if x.device.type == "cpu":
         return attention_block_plain(x, w, mask, num_heads, eps)
     _on_card("attention_block", x)
+    _build.refuse_grad("attention_block", x, w)
     B, S, D = x.shape
     _check_layer("attention_block", x, mask, num_heads, "gelu", D)
     bf, f32 = torch.bfloat16, torch.float32
@@ -622,6 +624,7 @@ def encoder_layer_prebias(x: torch.Tensor, qkv: torch.Tensor,
         return encoder_layer_prebias_plain(x, qkv, attn_bias, w, mask,
                                            num_heads, eps, act, scale)
     _on_card("encoder_layer_prebias", x)
+    _build.refuse_grad("encoder_layer_prebias", x, qkv, attn_bias, w)
     I = w["w1"].shape[1]
     _check_layer("encoder_layer_prebias", x, mask, num_heads, act, I)
     B, S, D = x.shape
@@ -715,6 +718,7 @@ def encoder_layer_q(x: torch.Tensor, w: dict, mask: torch.Tensor,
     if x.device.type == "cpu":
         return encoder_layer_q_plain(x, w, mask, num_heads, eps, act)
     _on_card("encoder_layer_q", x)
+    _build.refuse_grad("encoder_layer_q", x, w)
     I = w["w1_t"].shape[0]
     _check_layer("encoder_layer_q", x, mask, num_heads, act, I)
     D = x.shape[2]
@@ -807,6 +811,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return encoder_attention_plain(q, k, v, mask, num_heads, attn_bias,
                                        scale)
     _on_card("encoder_attention", q)
+    _build.refuse_grad("encoder_attention", q, k, v, attn_bias)
     B, S, D = q.shape
     Dh = D // num_heads
     if D % num_heads or Dh not in HEAD_DIMS:

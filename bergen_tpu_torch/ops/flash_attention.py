@@ -184,6 +184,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, k_valid, causal, q_offset)
     _on_card("flash_attention", q)
+    _build.refuse_grad("flash_attention", q, k, v)
     B, Sq, H, Dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     if Dh not in HEAD_DIMS or H % KH or Sk < 1 or q_offset < 0:
@@ -363,6 +364,7 @@ def flash_attention_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_band_plain(q, k, v, band, sm_scale)
     _on_card("flash_attention_band", q)
+    _build.refuse_grad("flash_attention_band", q, k, v)
     return _band_launch(q, k, v, k.shape, k.stride(), 1, 0,
                         k.shape[0] * k.stride(0), band, sm_scale)
 
@@ -379,6 +381,7 @@ def flash_attention_band_rows(q: torch.Tensor, k_rows: torch.Tensor,
         return flash_attention_band_plain(q, k_rows[row], v_rows[row], band,
                                           sm_scale)
     _on_card("flash_attention_band", q)
+    _build.refuse_grad("flash_attention_band", q, k_rows, v_rows)
     R = k_rows.shape[0]
     if k_rows.dim() != 4 or not 0 <= row < R:
         raise ValueError(f"flash_attention_band kernel: row {row} of a "

@@ -103,6 +103,7 @@ def bin_scores(queries: torch.Tensor, corpus: torch.Tensor, valid_n: int):
         return bin_scores_plain(queries, corpus, valid_n)
     if corpus.device.type != "cuda":
         raise ValueError(f"bin_scores: unsupported device {corpus.device}")
+    _build.refuse_grad("bin_scores", queries, corpus)
     N, D = corpus.shape
     Q = queries.shape[0]
     for name, t in (("corpus", corpus), ("queries", queries)):
@@ -186,6 +187,7 @@ def bin_scores_int8(queries: torch.Tensor, corpus: torch.Tensor,
     if corpus.device.type != "cuda":
         raise ValueError(
             f"bin_scores_int8: unsupported device {corpus.device}")
+    _build.refuse_grad("bin_scores_int8", queries, corpus)
     N, D = corpus.shape
     Q = queries.shape[0]
     for name, t in (("corpus", corpus), ("queries", queries)):

@@ -99,6 +99,7 @@ def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
         return matmul_int4_packed_plain(x, wp, scales, bias)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_int4_packed: unsupported device {x.device}")
+    _build.refuse_grad("matmul_int4_packed", x, bias)
     M, K = x.shape
     K2, N = wp.shape
     n_groups = scales.shape[0]

@@ -248,6 +248,7 @@ def paged_partial(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                                    starts)
     if q.device.type != "cuda":
         raise ValueError(f"paged_partial: unsupported device {q.device}")
+    _build.refuse_grad("paged_partial", q, k_pool, v_pool)
     S, H, Dh = q.shape
     NP, KH = k_pool.shape[0], k_pool.shape[1]
     maxP = tables.shape[1]

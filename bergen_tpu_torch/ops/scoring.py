@@ -48,6 +48,7 @@ def pallas_score(queries: torch.Tensor,
     if queries.device.type == "cpu":
         return pallas_score_plain(queries, corpus_t)
     _on_card(queries)
+    _build.refuse_grad("pallas_score", queries, corpus_t)
     Q, D = queries.shape
     N = corpus_t.shape[1]
     bf = torch.bfloat16

@@ -78,6 +78,7 @@ def w8a8_matmul(x: torch.Tensor, w_t: torch.Tensor, scale_a8: torch.Tensor,
         return w8a8_matmul_plain(x, w_t, scale_a8, bias, n)
     if x.device.type != "cuda":
         raise ValueError(f"w8a8_matmul: unsupported device {x.device}")
+    _build.refuse_grad("w8a8_matmul", x, bias)
     M, K = x.shape
     Np = w_t.shape[0]
     N = Np if n is None else n

@@ -6,9 +6,9 @@ deterministic filenames (TREC runs, generated queries, processed contexts),
 evaluates rankings against qrels, and writes the per-experiment
 ``eval_{split}_out.json`` / ``eval_{split}_metrics.json``.  Ported:
 ``eval()`` with query generation, retrieval, cross-encoder reranking,
-context processing and generation.  Training raises
-``NotImplementedError`` naming the ROADMAP item that will port it.  Every
-stage runs on ``device`` (default ``cuda``).
+context processing and generation, and ``train()``: generator fine-tuning
+over the retrieved contexts (``train/trainer.py``).  Every stage runs on
+``device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -83,9 +83,7 @@ class RAG:
                 }
             }
 
-        if train is not None:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP.md Queue 1, training)")
+        self.training_config = train
         self.device = _device.resolve(device)
         self.debug = debug
         self.dataset_folder = dataset_folder
@@ -422,6 +420,75 @@ class RAG:
             utils.format_time("Generation time", generation_time),
         )
         return questions, instructions, predictions, references
+
+    def train(self):
+        """Generator SFT over retrieved contexts (JAX ``rag.py:415-483``):
+        the staged retrieval of eval (no ranking eval), rerank and context
+        processing where configured, JAX's train/test split with seed 42,
+        the trainer (LoRA or full), ``train_history.json``, then the move of
+        the finished experiment.  The merged generator stays on
+        ``self.generator``."""
+        dataset_split = "train"
+        dataset = self.datasets[dataset_split]
+        query_dataset_name = dataset["query"].name
+        doc_dataset_name = dataset["doc"].name if dataset.get("doc") else None
+
+        if self.retriever is not None:
+            dataset = self.generate_query(dataset, query_dataset_name,
+                                          dataset_split)
+            query_ids, doc_ids, _ = self.retrieve(
+                dataset, query_dataset_name, doc_dataset_name, dataset_split,
+                self.retrieve_top_k, eval_ranking=False,
+            )
+        else:
+            query_ids, doc_ids = None, None
+        if self.reranker is not None and doc_ids is not None:
+            query_ids, doc_ids, _ = self.rerank(
+                dataset, query_dataset_name, doc_dataset_name, dataset_split,
+                query_ids, doc_ids, self.rerank_top_k,
+            )
+        if doc_ids is not None:
+            doc_ids = [d[: self.generation_top_k] for d in doc_ids]
+        gen_dataset = utils.prepare_dataset_from_ids(
+            dataset, query_ids, doc_ids, multi_doc=True
+        )
+        if self.context_processor is not None and self.retriever is not None:
+            gen_dataset = self.process_context(
+                gen_dataset, query_dataset_name, doc_dataset_name, dataset_split
+            )
+
+        test_size = self.training_config.get("test_size", 64)
+        if isinstance(test_size, int):
+            test_size = min(len(gen_dataset) // 2, test_size)
+        split = utils.train_test_split(gen_dataset, test_size, seed=42)
+
+        def format_rows(rows):
+            out = []
+            for item in rows:
+                prompt, label_start = self.generator.format_instruction(
+                    item, eval=False
+                )
+                out.append({"formatted_instruction": prompt,
+                            "label_start_index": label_start})
+            return out
+
+        from bergen_tpu_torch.train.trainer import SFTTrainer
+
+        trainer = SFTTrainer(
+            self.generator,
+            format_rows(split["train"]),
+            format_rows(split["test"]),
+            self.training_config,
+            output_dir=os.path.join(self.experiment_folder, "train"),
+        )
+        pre_loss = trainer.evaluate()
+        result = trainer.train()
+        result["pre_train_eval_loss"] = pre_loss
+        utils.write_dict(self.experiment_folder, "train_history.json", result)
+        self.experiment_folder = utils.move_finished_experiment(
+            self.experiment_folder
+        )
+        return result
 
     def eval_metrics(self, dataset_split, questions, predictions, references):
         if predictions is None and references is None and questions is None:

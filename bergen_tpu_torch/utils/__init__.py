@@ -12,10 +12,13 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import math
 import os
 import shutil
 import time
 from collections import defaultdict
+
+import numpy as np
 
 from bergen_tpu_torch import confy
 
@@ -63,6 +66,31 @@ def load_trec(fname: str):
         d_ids.append([d for d, _ in pairs])
         scores.append([s for _, s in pairs])
     return q_ids, d_ids, scores
+
+
+def train_test_split(dataset, test_size, seed: int = 42) -> dict:
+    """``datasets.Dataset.train_test_split(test_size, seed=seed)``: the
+    rows permuted by ``np.random.default_rng(seed)``, the first
+    ``n_test`` (an int, or ``ceil(test_size * n)`` for a float) the test
+    split, the rest the train split; its size checks and messages."""
+    n = len(dataset)
+    if (isinstance(test_size, int) and (test_size >= n or test_size <= 0)
+            or isinstance(test_size, float)
+            and (test_size <= 0 or test_size >= 1)):
+        raise ValueError(
+            f"test_size={test_size} should be either positive and smaller "
+            f"than the number of samples {n} or a float in the (0, 1) range")
+    n_test = math.ceil(test_size * n) if isinstance(test_size, float) \
+        else int(test_size)
+    n_train = n - n_test
+    if n_train == 0:
+        raise ValueError(
+            f"With n_samples={n}, test_size={test_size} and "
+            "train_size=None, the resulting train set will be empty. Adjust "
+            "any of the aforementioned parameters.")
+    perm = np.random.default_rng(seed).permutation(n)
+    return {"train": dataset.select(perm[n_test:n_test + n_train]),
+            "test": dataset.select(perm[:n_test])}
 
 
 def write_dict(out_folder: str, out_filename: str, payload) -> None:

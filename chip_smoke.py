@@ -122,7 +122,16 @@ Phases (each prints one JSON line):
      API-query unfolding, the four models at 2 layers a stack with
      tokenizers of the published layouts, each kernel at those paths' own
      shapes (XLM-R-large and DeBERTa-v3-large layers, T5's biased
-     attention at a ragged S) and the card against the CPU;
+     attention at a ragged S) and the card against the CPU, then Provence
+     training (``python -m bergen_tpu_torch.train.provence``, 80 steps on
+     DeBERTa-v3-large whole, 24 layers, on its unfused route, no kernel
+     launched; step 2 against the CPU);
+     after the served Mistral paths, COCOM and xRAG on the Mistral-7B
+     checkpoint's first two layers (the memory at the CPU rule's slots;
+     the memory and the injected rows against the CPU) and ``train=lora``
+     on TinyLlama whole through the train stage (no kernel in a train step,
+     a grad-requiring tensor refused by the wrappers, steps 2 and 3
+     against the CPU, the merged generator's dev eval on the kernels);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
      over a bf16 corpus and over int8 codes with per-bin scales; and over
@@ -133,7 +142,9 @@ Phases (each prints one JSON line):
      (the int8 bin top-k's also by mode and path, and at the SPLADE
      shapes).
 ``--profile-serve`` instead writes the Mistral-7B checkpoint and profiles
-both servers' steps (``profile_serve``).
+both servers' steps (``profile_serve``); ``--soft-train`` runs the build,
+the small checkpoints and the four paths of COCOM, xRAG and training with
+their checks (Mistral-7B at two layers, Provence training at 24).
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 before it.  Kernel launch counts are zeroed just before each part of the
 main path and read just after it, so the comparisons of phase 3 do not
@@ -269,6 +280,15 @@ PATH_KERNELS = {
     "ut1_dslr": ("encoder_layer", "decode_attention"),
     "ut1_provence": ("encoder_layer_prebias", "decode_attention"),
     "ut1_translate_unfold": ("encoder_layer", "decode_attention"),
+    # COCOM (the compressor's prefills plain, as by default) and xRAG
+    # (flash prefill on: the retriever trunk's encodes and the decoder's
+    # prefills) on Mistral-7B; LoRA training on TinyLlama (its steps launch
+    # nothing; the merged generator's eval decodes); Provence training
+    # (DeBERTa's unfused route: no kernel)
+    "ut1_cocom": ("encoder_layer", "decode_attention"),
+    "ut1_xrag": ("encoder_layer", "flash_attention", "decode_attention"),
+    "ut1_train_lora": ("encoder_layer", "decode_attention"),
+    "provence_train": (),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
@@ -306,6 +326,49 @@ DEBERTA_SPLIT_SHAPES = ((256, 512), (256, 128))
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# host bytes of checkpoint shards that ``shared_checkpoint_reads`` keeps
+SHARED_READ_BYTES = 24e9
+
+
+@contextlib.contextmanager
+def shared_checkpoint_reads():
+    """``convert.load_safetensors`` memoized by file (real path, size,
+    mtime) while the block runs, least recently used files dropped past
+    ``SHARED_READ_BYTES``: each checkpoint shard is read once for all the phases
+    and card-against-CPU checks that load it (``first_layers`` links the
+    shards of its source).  Every reader copies what it keeps (a cast, a
+    transpose made contiguous, or a move to the card)."""
+    from bergen_tpu_torch.models import convert
+
+    read, cache = convert.load_safetensors, {}
+
+    def load(path):
+        st = os.stat(path)
+        key = (os.path.realpath(path), st.st_size, st.st_mtime_ns)
+        if key in cache:
+            cache[key] = cache.pop(key)  # most recently used last
+            return dict(cache[key][0])
+        sd = read(path)
+        cache[key] = (sd, st.st_size)
+        while sum(n for _, n in cache.values()) > SHARED_READ_BYTES and \
+                len(cache) > 1:
+            cache.pop(next(iter(cache)))
+        return dict(sd)
+
+    convert.load_safetensors = load
+    try:
+        yield
+    finally:
+        convert.load_safetensors = read
+
+
+def timed(fn, *args) -> dict:
+    """``fn(*args)``'s dict with the seconds it took as ``check_s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return {**out, "check_s": time.perf_counter() - t0}
 
 
 def fail(msg: str) -> None:
@@ -3431,9 +3494,10 @@ def write_byte_level_tokenizer(path: str, family: str, seed: int) -> dict:
 
 
 # the depth of the Llama-3.2-3B and Qwen2.5-7B paths (28 published layers
-# each), cut since the Gemma, Phi-3 and Command-R paths joined the run,
-# and from 8 when the context paths did
-SMOKE_LLAMA3_QWEN2_LAYERS = 4
+# each), cut since the Gemma, Phi-3 and Command-R paths joined the run
+# (to 4 when the context paths did; back to 8 since each checkpoint shard
+# is read once, ``shared_checkpoint_reads``)
+SMOKE_LLAMA3_QWEN2_LAYERS = 8
 
 
 def write_llama32_3b(root: str, dev) -> str:
@@ -3507,11 +3571,11 @@ COMMAND_R = dict(model_type="cohere", vocab_size=256000, hidden_size=8192,
                  torch_dtype="bfloat16")
 # the depth each path runs (full published widths), cut so that the script
 # stays within its time (PERF.md section 4)
-SMOKE_GEMMA7B_LAYERS = 4  # 8 until the context paths joined the run
+SMOKE_GEMMA7B_LAYERS = 8  # 4 with the context paths, before shared reads
 SMOKE_GEMMA2B_LAYERS = 8
 SMOKE_GEMMA2_9B_LAYERS = 4
 SMOKE_PHI3_LAYERS = 4
-SMOKE_COMMAND_R_LAYERS = 2  # 4 until the context paths joined the run
+SMOKE_COMMAND_R_LAYERS = 4  # 2 with the context paths, before shared reads
 # gemma-7b-it's chat template (no system role: the generator folds the
 # system prompt into the user turn on its raise_exception)
 GEMMA_CHAT_TEMPLATE = (
@@ -5794,8 +5858,8 @@ def write_provence(root: str, w, layers: int) -> str:
                                                  save_safetensors)
 
     c = dict(PROVENCE, num_hidden_layers=layers)
-    path = _write_deberta(os.path.join(root, "provence-debertav3-random"), w,
-                          c)
+    path = _write_deberta(os.path.join(
+        root, f"provence-debertav3-random-{layers}layers"), w, c)
     st = os.path.join(path, "model.safetensors")
     sd = load_safetensors(st)
     sd["token_classifier.weight"] = w(PROVENCE_KEEP_CLASSES,
@@ -6517,6 +6581,7 @@ def drive_context_paths(ckpt: dict, root: str, dev, drive, results: dict,
     context_check = check_context_against_cpu(ckpt, runs)
     emit({"phase": "reference_check_context",
           "check_s": time.perf_counter() - t0, **context_check})
+    drive_provence_train(ckpt, root, w, drive)
     for key in ("t5", "xlmr", "provence", "nllb"):
         shutil.rmtree(ckpt.pop(key), ignore_errors=True)
 
@@ -6549,6 +6614,811 @@ def check_context_launches(by_path: dict, bias_launches: dict,
         fail(f"kernels never launched where the path runs them: {idle}")
 
 
+# --------------------------------------------------------------------------- #
+# COCOM and xRAG soft prompts, generator fine-tuning, Provence training
+# --------------------------------------------------------------------------- #
+
+# the card's bf16 states against the CPU's f32 ones: per-row cosine, and the
+# largest error over the largest magnitude (bf16 rounds each product's
+# inputs and every layer's output to 8 bits of mantissa)
+SOFT_COS_TOL = 0.99
+SOFT_REL_TOL = 0.05
+# the rows of xRAG's first batch held against the CPU (each with its five
+# documents' injected rows)
+SOFT_CHECK_ROWS = 2
+# the train step on the card (bf16 weights, f32 adapters and loss) against
+# the plain computation on the CPU in f32 from the same weights: the loss
+# within 1% relative, each adapter gradient's cosine at least 0.99
+TRAIN_LOSS_RTOL = 0.01
+TRAIN_GRAD_COS = 0.99
+# the same step in f32 on the card (TF32 off) against the CPU: the loss
+# within 1e-4 relative, each gradient's cosine at least 0.9999 and its
+# norm within 0.1% (a cosine alone would pass a gradient off by a scale;
+# in bf16 the norms move by more than a scale check could bear)
+TRAIN_F32_LOSS_RTOL = 1e-4
+TRAIN_F32_GRAD_COS = 0.9999
+TRAIN_F32_NORM_RTOL = 1e-3
+# the LoRA steps held against the CPU: step 2 (B still 0 after step 1's
+# learning rate of 0, so only B's gradients are non-zero) and step 3 (after
+# the first non-zero update: A's and B's gradients, the adapters' term in
+# the forward live)
+TRAIN_CHECK_STEPS = (2, 3)
+# Provence trains in f32 on every device (TF32 off): the loss within 1e-4
+# relative and the gradients' cosine at least 0.9999
+PROVENCE_LOSS_RTOL = 1e-4
+PROVENCE_GRAD_COS = 0.9999
+# ut1_train_lora: ut1's dev rows as the train split, one retrieved doc a
+# prompt (both as tests/test_training.py), 10 held out, batches of 2: 20
+# steps
+TRAIN_OVERRIDES = [
+    "retrieve_top_k=4", "rerank_top_k=4", "generation_top_k=1",
+    "train=lora", "train.test_size=10",
+    "train.trainer.per_device_train_batch_size=2",
+    "train.trainer.per_device_eval_batch_size=10",
+    "train.trainer.learning_rate=0.002",
+    "dataset.train.doc={init_args: {_target_: "
+    "bergen_tpu.data.processors.ut.UT1Docs, split: dev}}",
+    "dataset.train.query={init_args: {_target_: "
+    "bergen_tpu.data.processors.ut.UT1Queries, split: dev}}"]
+PROVENCE_TRAIN_ROWS = 48
+# 80 steps at the root script's learning rate, 1e-5, with its warmup of
+# a twentieth of the steps (Adam's first real step moves every parameter
+# by the learning rate: with one warmup step of 20 it sent the
+# random-weight DeBERTa-v3-large's keep loss up, the loss from 0.94 to
+# 3.3 at 1e-5 and 4.1 at 2e-5; at 1e-4 and 2 layers from 1 to 7, on the
+# card and on the CPU alike), at S 128 of the script's 512 and batches of
+# 8 of its 16 (the CPU check's time)
+PROVENCE_TRAIN_ARGS = ["--max_len", "128", "--batch_size", "8",
+                       "--epochs", "16", "--lr", "1e-5",
+                       "--eval_fraction", "0.1"]
+SOFT_TRAIN_PATHS = ("ut1_cocom", "ut1_xrag", "ut1_train_lora")
+# what a path keeps for its card-against-CPU check (tensors and rows too
+# large for its emitted line), by path
+KEPT: dict = {}
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches, by
+    the name the ``kernels`` line gives it."""
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import encoder_attention as ea
+    from bergen_tpu_torch.ops import flash_attention as fa
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops import int4_matmul as im
+    from bergen_tpu_torch.ops import paged_attention as pa
+    from bergen_tpu_torch.ops import scoring as sc
+    from bergen_tpu_torch.ops import w8a8_matmul as w8
+
+    return {"encoder_layer": ea.encoder_layer,
+            "encoder_layer_prebias": ea.encoder_layer_prebias,
+            "encoder_layer_q": ea.encoder_layer_q,
+            "bin_topk": ft.bin_scores,
+            "decode_attention": da.decode_attention,
+            "int4_matmul": im.matmul_int4_packed,
+            "flash_attention": fa.flash_attention,
+            "paged_attention": pa.paged_partial,
+            "encoder_attention": ea.encoder_attention,
+            "bin_topk_int8": ft.bin_scores_int8,
+            "flash_attention_band": fa.flash_attention_band,
+            "attention_block": ea.attention_block,
+            "pallas_score": sc.pallas_score,
+            "w8a8_matmul": w8.w8a8_matmul}
+
+
+def _counts() -> dict:
+    """Every kernel wrapper's launch counter, by name."""
+    return {n: f.launches for n, f in kernel_wrappers().items()}
+
+
+def _moved(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def _cos(a, b) -> float:
+    """The cosine of two tensors' flattened values."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def _soft_rows_check(card, cpu) -> dict:
+    """Per-row cosine and the largest error over the largest magnitude of
+    [n, D] card rows against the CPU's."""
+    import torch
+
+    card, cpu = card.float().cpu(), cpu.float().cpu()
+    cos = torch.nn.functional.cosine_similarity(card.double(), cpu.double(),
+                                                dim=-1)
+    rel = float((card - cpu).abs().max() / cpu.abs().max().clamp_min(1e-30))
+    return {"rows": int(card.shape[0]), "min_cos": float(cos.min()),
+            "max_rel_err": rel}
+
+
+def _record(cls, name: str, record: list):
+    """Wrap ``cls.name`` so that each call's (args, result) is appended to
+    ``record``; returns the original."""
+    orig = getattr(cls, name)
+
+    def spy(self, *a, **k):
+        out = orig(self, *a, **k)
+        record.append((self, a, out))
+        return out
+
+    setattr(cls, name, spy)
+    return orig
+
+
+def write_xrag_checkpoint(root: str, dev, base: str) -> str:
+    """The xRAG decoder: ``base`` (the Mistral-7B checkpoint cut to its
+    first layers) with the projector xRAG checkpoints carry, retrieval
+    width 4,096 to 4,096 to the hidden width, seeded bf16 N(0, 0.02) in a
+    shard of its own; the tokenizer has no ``<xRAG>`` (the port adds it)."""
+    import torch
+    from bergen_tpu_torch.models.convert import save_safetensors
+
+    out = os.path.join(root, "xrag-7b-random")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(base, "model.safetensors.index.json")) as f:
+        weight_map = json.load(f)["weight_map"]
+    for name in set(weight_map.values()):
+        link = os.path.join(out, name)
+        if not os.path.exists(link):
+            os.symlink(os.path.realpath(os.path.join(base, name)), link)
+    for name in ("config.json", "tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(base, name), os.path.join(out, name))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    D = MISTRAL_7B["hidden_size"]
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.02
+                ).bfloat16().cpu()
+
+    proj = {"projector.0.weight": w(D, D), "projector.0.bias": w(D),
+            "projector.2.weight": w(D, D), "projector.2.bias": w(D)}
+    save_safetensors(proj, os.path.join(out, "projector.safetensors"))
+    weight_map.update({k: "projector.safetensors" for k in proj})
+    with open(os.path.join(out, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": weight_map}, f)
+    return out
+
+
+def run_ut1_cocom(ckpt: dict, workdir: str) -> dict:
+    """``generator=cocom`` (16 memory tokens a document, batches of 8) on
+    the Mistral-7B checkpoint's first SMOKE_NEW_PATH_LAYERS layers as
+    compressor and decoder, 16 new tokens.  Each batch's prompt embeddings
+    must hold the memory exactly at the slots of the CPU's rule (the last
+    n pad slots in the valid region) and the embedding lookup elsewhere."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.models.generators.llm_cocom import COCOM
+
+    made, comp = [], []
+    o_embed = _record(COCOM, "embed_prompts", made)
+    o_comp = _record(COCOM, "compress_docs", comp)
+    try:
+        exp, wall = _run_cli([
+            "retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            "generator=cocom",
+            f"generator.init_args.model_name={_local(ckpt, 'mistral_2l')}",
+            "generator.init_args.max_new_tokens=16"], workdir, ckpt)
+    finally:
+        COCOM.embed_prompts, COCOM.compress_docs = o_embed, o_comp
+    gen = made[0][0]
+    spliced, n_slots, k = 0, 0, 0
+    for _, (batch, _prompts), (ii, am, embeds) in made:
+        expect = gen.params["embed"][torch.from_numpy(ii).to(embeds.device)]
+        for r, row in enumerate(batch):
+            docs = row.get("doc") or []
+            if not docs:
+                continue
+            mem = comp[k][2].reshape(-1, comp[k][2].shape[-1])
+            k += 1
+            pad = np.where((ii[r] == gen.tokenizer.pad_token_id)
+                           & (am[r] == 1))[0]
+            n = min(len(mem), gen.mem_tokens * len(docs), len(pad))
+            slots = pad[len(pad) - n:]
+            expect[r, torch.from_numpy(slots).to(expect.device)] = \
+                torch.from_numpy(mem[:n]).to(expect)
+            n_slots += n
+        if not torch.equal(expect, embeds):
+            fail("ut1_cocom: the prompt embeddings are not the lookup with "
+                 "the memory at the CPU rule's slots")
+        spliced += 1
+    first = made[0][1][0][0]
+    KEPT["ut1_cocom"] = {"docs": list(first.get("doc") or [])[:1],
+                         "memory": torch.from_numpy(comp[0][2][0]),
+                         "mem_tokens": gen.mem_tokens}
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "batches_checked": spliced, "memory_slots": n_slots,
+            **_check_outputs(exp)}
+
+
+def run_ut1_xrag(ckpt: dict, workdir: str) -> dict:
+    """``generator=xrag-mistral`` (batches of 4) on the Mistral-7B decoder
+    with a projector, its retriever the Mistral-7B trunk (the shipped
+    config's SFR-Embedding-Mistral is a Mistral-7B) with mean pooling,
+    both at SMOKE_NEW_PATH_LAYERS layers, 16 new tokens, flash prefill on:
+    the retriever's right-padded encode batches and the decoder's
+    left-padded prefills through the flash kernel."""
+    import torch
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm_xrag import XRAG
+
+    made = []
+    o_embed = _record(XRAG, "embed_prompts", made)
+    llama.USE_FLASH_PREFILL = True
+    try:
+        exp, wall = _run_cli([
+            "retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            "generator=xrag-mistral",
+            f"generator.init_args.model_name={_local(ckpt, 'xrag')}",
+            f"generator.init_args.retriever_name={_local(ckpt, 'mistral_2l')}",
+            "generator.init_args.max_new_tokens=16"], workdir, ckpt)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+        XRAG.embed_prompts = o_embed
+    gen, (batch, prompts), (ii, am, embeds) = made[0]
+    slots = [[int(s) for s in (ii[r] == gen.xrag_id).nonzero()[0]]
+             for r in range(len(batch))]
+    if not all(len(s) == len(batch[r].get("doc") or [])
+               for r, s in enumerate(slots)) or not slots[0]:
+        fail(f"ut1_xrag: <xRAG> slots {slots} do not match the documents")
+    n = SOFT_CHECK_ROWS
+    KEPT["ut1_xrag"] = {
+        "batch": [dict(r) for r in batch[:n]], "prompts": prompts[:n],
+        "slots": slots[:n], "rows": torch.stack([
+            embeds[r, s].float().cpu() for r, ss in enumerate(slots[:n])
+            for s in ss])}
+    return {"wall_s": wall, "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "xrag_id": gen.xrag_id, "first_slots": slots,
+            **_check_outputs(exp)}
+
+
+def check_soft_prompts_against_cpu(ckpt: dict) -> dict:
+    """The card's COCOM memory and xRAG injected rows of each path's first
+    batch against one f32 CPU run of the same generator on the same rows
+    (cosine and largest relative error within SOFT_COS_TOL and
+    SOFT_REL_TOL)."""
+    import torch
+    from bergen_tpu_torch.models.generators.llm_cocom import COCOM
+    from bergen_tpu_torch.models.generators.llm_xrag import XRAG
+
+    out = {}
+    kept = KEPT.pop("ut1_cocom")
+    cocom = COCOM(ckpt["mistral_2l"], mem_tokens=kept["mem_tokens"],
+                  max_length=1024, device="cpu")
+    cpu = torch.from_numpy(cocom.compress_docs(kept["docs"])[0])
+    out["cocom_memory"] = _soft_rows_check(kept["memory"], cpu)
+    del cocom
+    kept = KEPT.pop("ut1_xrag")
+    xrag = XRAG(ckpt["xrag"], retriever_name=ckpt["mistral_2l"],
+                device="cpu")
+    _, _, embeds = xrag.embed_prompts(kept["batch"], kept["prompts"])
+    cpu = torch.stack([embeds[r, s] for r, ss in enumerate(kept["slots"])
+                       for s in ss])
+    out["xrag_rows"] = _soft_rows_check(kept["rows"], cpu)
+    del xrag
+    for key, r in out.items():
+        if not (r["min_cos"] >= SOFT_COS_TOL
+                and r["max_rel_err"] <= SOFT_REL_TOL):
+            fail(f"{key}: the card against the CPU {r} (cosine >= "
+                 f"{SOFT_COS_TOL}, error <= {SOFT_REL_TOL})")
+    return out
+
+
+def _grad_kernel_refusals(dev) -> dict:
+    """Kernel wrappers handed a grad-requiring CUDA tensor must raise."""
+    import torch
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import flash_attention as fa
+
+    def grad_zeros(*shape):
+        return torch.zeros(*shape, device=dev, dtype=torch.bfloat16,
+                           requires_grad=True)
+
+    kv = torch.zeros(2, 128, 4 * 64, device=dev, dtype=torch.bfloat16)
+    valid = torch.ones(2, 128, dtype=torch.bool, device=dev)
+    raised = {}
+    before = _counts()
+    for name, call in (
+            ("decode_attention", lambda: da.decode_attention(
+                grad_zeros(2, 32, 64), kv, kv, valid, kv_heads=4,
+                sm_scale=0.125)),
+            ("flash_attention", lambda: fa.flash_attention(
+                grad_zeros(2, 128, 32, 64), kv.view(2, 128, 4, 64),
+                kv.view(2, 128, 4, 64), valid))):
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "requires grad" in str(e)
+    if not all(raised.values()) or _moved(before):
+        fail(f"kernel wrappers on grad-requiring tensors: raised {raised}, "
+             f"launched {_moved(before)}")
+    return raised
+
+
+def run_ut1_train_lora(ckpt: dict, workdir: str) -> dict:
+    """``train=lora`` on ``tinyllama-chat`` (TinyLlama whole: 22 layers at
+    its published widths) through the train stage, ut1's dev rows as the
+    train split: retrieval, 20 LoRA steps with evals, then the dev eval of
+    the merged generator (16 new tokens).  Checks: no kernel counter moves
+    in a train step or an eval loss; the held-out loss falls, and the last
+    five steps' losses sum under the first five's; the train
+    steps' time, tokens/s and peak memory are returned, with the batch,
+    adapters, loss and gradients of each of TRAIN_CHECK_STEPS for the CPU
+    check."""
+    import torch
+    from bergen_tpu_torch.train import lora as lora_lib
+    from bergen_tpu_torch.train.trainer import SFTTrainer
+
+    rec = {"ms": [], "tokens": 0, "moved": [], "losses": [], "steps": {}}
+    trainers = []
+    o_step, o_eval, o_init = (SFTTrainer.train_step, SFTTrainer.eval_loss,
+                              SFTTrainer.__init__)
+
+    def init(self, *a, **k):
+        o_init(self, *a, **k)
+        trainers.append(self)
+
+    def step(self, batch):
+        torch.cuda.synchronize()
+        before, t0 = _counts(), time.perf_counter()
+        n = len(rec["losses"]) + 1
+        if n in TRAIN_CHECK_STEPS:  # keep the step's inputs and outputs
+            kept = {"adapters": lora_lib.extract_adapters(self.params),
+                    "batch": {k: v.cpu() for k, v in batch.items()}}
+            loss, grads = self.loss_and_grads(batch)
+            kept["grads"] = {p: g.float().cpu() for (p, _), g in
+                             zip(self.trainable, grads)}
+            rec["steps"][n] = kept
+            self.optimizer.step(grads)
+            loss = float(loss)
+        else:
+            loss = o_step(self, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["moved"].append(_moved(before))
+        rec["losses"].append(loss)
+        rec["tokens"] += int(batch["attention_mask"].sum())
+        return loss
+
+    def eval_loss(self, batch):
+        before = _counts()
+        out = o_eval(self, batch)
+        rec["moved"].append(_moved(before))
+        return out
+
+    SFTTrainer.__init__, SFTTrainer.train_step, SFTTrainer.eval_loss = (
+        init, step, eval_loss)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        exp, wall = _run_cli([
+            "retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            "generator=tinyllama-chat",
+            f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+            *TRAIN_OVERRIDES], workdir, ckpt)
+    finally:
+        SFTTrainer.__init__, SFTTrainer.train_step, SFTTrainer.eval_loss = (
+            o_init, o_step, o_eval)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = _json(exp, "train_history.json")
+    if any(rec["moved"]):
+        fail(f"ut1_train_lora: kernels launched in train steps or eval "
+             f"losses: {[m for m in rec['moved'] if m]}")
+    first, last = rec["losses"][:5], rec["losses"][-5:]
+    if not (hist["best_eval_loss"] < hist["pre_train_eval_loss"]
+            and sum(last) < sum(first)):
+        fail(f"ut1_train_lora: the held-out loss or the last five steps' "
+             f"losses did not fall: {hist}, steps {rec['losses']}")
+    # the dev eval of the merged generator (bergen's train stage stops at
+    # the training; an eval loads its weights after it): ut1's 50 dev
+    # questions without documents, 16 new tokens
+    from bergen_tpu_torch.data.dataset import Dataset
+
+    rows = []
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        for ln in f:
+            q_id, query, answer = ln.rstrip("\n").split("\t")[:3]
+            rows.append({"q_id": q_id, "query": query, "label": [answer],
+                         "ranking_labels": None})
+    gen = trainers[0].gen
+    gen.max_new_tokens = 16
+    t0 = time.perf_counter()
+    _, _, _, answers, _, _ = gen.eval(Dataset.from_list(rows))
+    eval_s = time.perf_counter() - t0
+    if len(answers) != len(rows) or not all(isinstance(a, str)
+                                            for a in answers):
+        fail("ut1_train_lora: the merged generator's dev eval failed")
+    step_ms = sorted(rec["ms"][2:])[len(rec["ms"][2:]) // 2]
+    return {"wall_s": wall, "steps": hist["steps"],
+            "history": hist["history"],
+            "pre_train_eval_loss": hist["pre_train_eval_loss"],
+            "best_eval_loss": hist["best_eval_loss"],
+            "train_losses": rec["losses"],
+            "first5_mean": sum(first) / len(first),
+            "last5_mean": sum(last) / len(last),
+            "step_ms": rec["ms"], "median_step_ms": step_ms,
+            "tokens_per_s": rec["tokens"] / (sum(rec["ms"]) / 1e3),
+            "peak_memory_gb": peak_gb, "eval_s": eval_s,
+            "eval_answers": len(answers),
+            "grad_kernel_refusals": _grad_kernel_refusals(gen.device),
+            **_keep_for_check("ut1_train_lora", rec, ("steps",))}
+
+
+def _keep_for_check(path: str, rec: dict, keys: tuple) -> dict:
+    """Keep ``rec``'s ``keys`` and losses in KEPT[path]; an empty dict to
+    splice into the path's emitted line."""
+    KEPT[path] = {k: rec[k] for k in keys}
+    KEPT[path]["losses"] = rec["losses"]
+    return {}
+
+
+def _grads_against(ref: dict, got: dict, ref_loss: float,
+                   got_loss: float) -> dict:
+    """Loss and adapter gradients of one step against the CPU's: the
+    relative loss error, and over the gradients non-zero on the CPU the
+    least cosine and the largest norm error, with where they fall; the
+    gradients zero on the CPU and not in ``got`` are listed."""
+    import torch
+
+    zero = [p for p, g in ref.items() if not torch.any(g)]
+    live = [p for p in ref if p not in zero]
+    coss = {p: _cos(got[p], ref[p]) for p in live}
+    norms = {p: float(got[p].double().norm() / ref[p].double().norm() - 1)
+             for p in live}
+    worst = min(coss, key=coss.get)
+    far = max(norms, key=lambda p: abs(norms[p]))
+    return {"loss_rel_err": abs(got_loss - ref_loss) / ref_loss,
+            "min_grad_cos": coss[worst], "min_grad_cos_at": worst,
+            "max_norm_rel_err": norms[far], "max_norm_rel_err_at": far,
+            "grads_compared": len(live), "grads_zero": len(zero),
+            "zero_on_cpu_only": [p for p in zero if torch.any(got[p])]}
+
+
+def check_train_step_against_cpu(ckpt: dict) -> dict:
+    """Each of TRAIN_CHECK_STEPS of ut1_train_lora (the adapters as they
+    were, the batch) in f32 on the CPU from the same checkpoint.  The
+    path's own bf16 step: its loss within TRAIN_LOSS_RTOL and each
+    non-zero adapter gradient's cosine at least TRAIN_GRAD_COS (its norm
+    errors are reported).  The same step in f32 on the card: the loss
+    within TRAIN_F32_LOSS_RTOL, each gradient's cosine at least
+    TRAIN_F32_GRAD_COS and its norm within TRAIN_F32_NORM_RTOL.  At step 2
+    only B's gradients are non-zero (B is 0 after step 1's zero learning
+    rate) and A's must be exactly zero on the card too; at step 3 every
+    gradient is non-zero and compared."""
+    import torch
+    from bergen_tpu_torch import confy
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.train import lora as lora_lib
+    from bergen_tpu_torch.train.trainer import SFTTrainer
+
+    kept = KEPT.pop("ut1_train_lora")
+    tc = confy.load_yaml(os.path.join(REPO, "config", "train", "lora.yaml"))
+    trainers = {}
+    for where, dtype in (("cpu", None), ("cuda", "f32")):
+        gen = LLM(ckpt["llama"], device=where, dtype=dtype)
+        trainers[where] = SFTTrainer(gen, [{}] * 16, [], tc,
+                                     tempfile.mkdtemp())
+        trainers[where].remat = False
+    out = {}
+    for n in TRAIN_CHECK_STEPS:
+        st = kept["steps"][n]
+        got = {}
+        for where, t in trainers.items():
+            lora_lib.load_adapters(t.params, st["adapters"])
+            loss, grads = t.loss_and_grads(
+                {k: v.to(t.device) for k, v in st["batch"].items()})
+            got[where] = (float(loss), {p: g.float().cpu() for (p, _), g in
+                                        zip(t.trainable, grads)})
+        cpu_loss, cpu = got["cpu"]
+        bf16 = _grads_against(cpu, st["grads"], cpu_loss,
+                              kept["losses"][n - 1])
+        f32 = _grads_against(cpu, got["cuda"][1], cpu_loss, got["cuda"][0])
+        out[f"step{n}"] = {
+            "cpu_loss": cpu_loss, "card_loss": kept["losses"][n - 1],
+            "card_f32_loss": got["cuda"][0], "bf16": bf16, "f32": f32,
+            "max_abs_lora_b": max(float(abs(v).max()) for p, v in
+                                  st["adapters"].items()
+                                  if p.endswith("lora_b"))}
+        zero_ok = all(not r["zero_on_cpu_only"] and (
+            r["grads_zero"] == 0 if n > 2 else
+            r["grads_zero"] == r["grads_compared"]) for r in (bf16, f32))
+        if not (zero_ok and bf16["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                and bf16["min_grad_cos"] >= TRAIN_GRAD_COS
+                and f32["loss_rel_err"] <= TRAIN_F32_LOSS_RTOL
+                and f32["min_grad_cos"] >= TRAIN_F32_GRAD_COS
+                and abs(f32["max_norm_rel_err"]) <= TRAIN_F32_NORM_RTOL):
+            fail(f"ut1_train_lora step {n}: the card against the CPU "
+                 f"{out[f'step{n}']}")
+    del trainers
+    torch.cuda.empty_cache()
+    return out
+
+
+def _provence_silver(folder: str, n: int) -> tuple[str, str]:
+    """Silver-label files and a teacher run over ut1's texts: ``n`` rows
+    cycling through four examples, each a ut1 query, four ut1 sentences, a
+    seeded selection of them and a teacher score, so that a few steps can
+    fit them."""
+    import random
+
+    rng = random.Random(19)
+    texts = _ut1_texts()
+    examples = [(rng.choice(texts), rng.sample(texts, 4),
+                 sorted(rng.sample(range(4), rng.randint(1, 2))),
+                 rng.gauss(0, 1)) for _ in range(4)]
+    silver = os.path.join(folder, "silver")
+    os.makedirs(silver, exist_ok=True)
+    trec = os.path.join(folder, "teacher.trec")
+    with open(trec, "w") as t:
+        for i in range(n):
+            query, ctx, sel, score = examples[i % 4]
+            with open(os.path.join(silver, f"q{i}_d{i}.json"), "w") as f:
+                json.dump({"query": query, "context": ctx,
+                           "selected_sents": sel}, f)
+            t.write(f"q{i}\tq0\td{i}\t1\t{score}\trun\n")
+    return silver, trec
+
+
+def run_provence_train(ckpt: dict, workdir: str) -> dict:
+    """``python -m bergen_tpu_torch.train.provence`` on the Provence
+    checkpoint (DeBERTa-v3-large whole: its published widths, 24 layers)
+    over silver labels on ut1's texts: 80 steps in f32 on DeBERTa's
+    unfused route.  No kernel counter may move in a train step; the mean
+    loss of the last three steps must be under that of the first two
+    (both at the initial weights: step 1's learning rate is 0), and no
+    step's over twice the first's; step 2's
+    parameters, batch, losses and gradients are kept for the CPU check."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.train import provence
+
+    os.makedirs(workdir, exist_ok=True)
+    silver, trec = _provence_silver(workdir, PROVENCE_TRAIN_ROWS)
+    rec = {"ms": [], "moved": [], "losses": []}
+    o_step = provence.ProvenceTrainer.train_step
+
+    def step(self, batch):
+        torch.cuda.synchronize()
+        before, t0 = _counts(), time.perf_counter()
+        if len(rec["losses"]) == 1:
+            rec["params"] = {p: t.detach().cpu().clone() for p, t in
+                             convert.flatten_paths(self.params).items()}
+            rec["batch"] = {k: v.cpu() for k, v in batch.items()}
+            losses, grads = self.loss_and_grads(batch)
+            rec["grads"] = [g.cpu() for g in grads]
+            self.optimizer.step(grads)
+            out = tuple(float(v) for v in losses)
+        else:
+            out = o_step(self, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["moved"].append(_moved(before))
+        rec["losses"].append(out[0])
+        return out
+
+    provence.ProvenceTrainer.train_step = step
+    out_dir = os.path.join(workdir, "out")
+    t0 = time.perf_counter()
+    try:
+        provence.main(["--silver_dir", silver, "--teacher_trec", trec,
+                       "--model", ckpt["provence_train"], "--outdir", out_dir,
+                       *PROVENCE_TRAIN_ARGS])
+    finally:
+        provence.ProvenceTrainer.train_step = o_step
+    wall = time.perf_counter() - t0
+    if any(rec["moved"]):
+        fail(f"provence_train: kernels launched in train steps: "
+             f"{[m for m in rec['moved'] if m]}")
+    losses = rec["losses"]
+    if not (sum(losses[-3:]) / 3 < sum(losses[:2]) / 2
+            and max(losses) < 2 * losses[0]):
+        fail(f"provence_train: losses did not fall (or rose past twice the "
+             f"first): {losses}")
+    for name in ("train_log.csv", "provence_params.npz"):
+        if not os.path.exists(os.path.join(out_dir, name)):
+            fail(f"provence_train: no {name}")
+    return {"wall_s": wall, "steps": len(losses), "losses": losses,
+            "step_ms": rec["ms"],
+            "median_step_ms": sorted(rec["ms"])[len(rec["ms"]) // 2],
+            **_keep_for_check("provence_train", rec,
+                              ("params", "batch", "grads"))}
+
+
+def check_provence_step_against_cpu(ckpt: dict, workdir: str) -> dict:
+    """Step 2 of provence_train in f32 on the CPU from the same parameters
+    and batch: the loss within PROVENCE_LOSS_RTOL, the cosine of every
+    gradient, concatenated, at least PROVENCE_GRAD_COS."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.train.provence import ProvenceTrainer
+
+    s2 = KEPT.pop("provence_train")
+    t = ProvenceTrainer(ckpt["provence_train"], [], [], os.path.join(
+        workdir, "cpu"), device="cpu")
+    convert.load_flat(t.params, {k: v.numpy() for k, v in
+                                 s2["params"].items()})
+    (loss, comp, rank), grads = t.loss_and_grads(s2["batch"])
+    card = torch.cat([g.flatten() for g in s2["grads"]])
+    cpu = torch.cat([g.flatten() for g in grads])
+    card_loss = s2["losses"][1]
+    out = {"cpu_loss": float(loss), "card_loss": card_loss,
+           "loss_rel_err": abs(card_loss - float(loss)) / abs(float(loss)),
+           "grad_cos": _cos(card, cpu)}
+    if not (out["loss_rel_err"] <= PROVENCE_LOSS_RTOL
+            and out["grad_cos"] >= PROVENCE_GRAD_COS):
+        fail(f"provence_train step 2: the card against the CPU {out}")
+    return out
+
+
+def _timed_row(kernel: str, wrapper, call, plain, library, b: tuple,
+               **shape) -> dict:
+    """One kernel row at a path's shape: the kernel against its plain
+    version (max error), the wrapper's launches in one call, CUDA-event
+    times of the kernel, its plain version and the library call, and the
+    bound."""
+    wrapper.launches = 0
+    out, ref = call(), plain()
+    per_call = wrapper.launches
+    max_err, mean_err = _errors(out, ref)
+    return {"kernel": kernel, **shape, "launches_per_call": per_call,
+            "max_abs_err": max_err,
+            "mean_abs_err": mean_err,
+            "ms": cuda_time_ms(call, iters=50),
+            "plain_ms": cuda_time_ms(plain, iters=5, warmup=1),
+            "library_ms": cuda_time_ms(library, iters=50),
+            "bound_ms": b[0], "bound_by": b[1]}
+
+
+def check_soft_train_kernels(results: dict, dev, steps: dict) -> None:
+    """``decode_attention`` at the most frequent decode shapes (B, L) of
+    ut1_cocom and ut1_xrag (Mistral-7B: H 32, KH 8, Dh 128) and of
+    ut1_provence (TinyLlama: H 32, KH 4, Dh 64; the context paths' row),
+    and ``flash_attention`` at ut1_xrag's most frequent prefill shapes on
+    right-padded rows (the trunk's encode batches), each against its plain
+    version with SDPA beside it.  Rows go to ``results`` with
+    ``soft_train_path`` set."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for path, (H, KH, Dh) in (("ut1_cocom", (32, 8, 128)),
+                              ("ut1_xrag", (32, 8, 128)),
+                              ("ut1_provence", (32, 4, 64))):
+        if path not in steps:  # a --soft-train run has no context paths
+            continue
+        shapes = _common_shapes([st[4:6] for st in steps[path]
+                                 if st[0] == 1])
+        for B, L in shapes:
+            q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
+            kc = torch.randn(B, L, KH * Dh, generator=gen,
+                             device=dev).bfloat16()
+            vc = torch.randn(B, L, KH * Dh, generator=gen,
+                             device=dev).bfloat16()
+            start = torch.randint(0, L // 2, (B,), generator=gen, device=dev)
+            valid = torch.arange(L, device=dev)[None] >= start[:, None]
+            scale = 1.0 / math.sqrt(Dh)
+            amask = valid[:, None, None, :]
+            nbytes = 2 * B * L * KH * Dh * 2 + 2 * B * H * Dh * 2 + B * L
+            row = _timed_row(
+                "decode_attention", da.decode_attention,
+                lambda: da.decode_attention(q, kc, vc, valid, kv_heads=KH,
+                                            sm_scale=scale),
+                lambda: da.decode_attention_plain(q, kc, vc, valid,
+                                                  kv_heads=KH,
+                                                  sm_scale=scale),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc.view(B, L, KH, Dh).transpose(1, 2),
+                    vc.view(B, L, KH, Dh).transpose(1, 2), attn_mask=amask,
+                    scale=scale, enable_gqa=True),
+                bound(4 * B * H * L * Dh, nbytes, PEAK_F32_FLOPS),
+                B=B, L=L, H=H, KH=KH, head_dim=Dh, soft_train_path=path)
+            emit({"phase": "kernel_check", **row})
+            results.setdefault("decode_attention", []).append(row)
+            if row["max_abs_err"] > DECODE_TOL or \
+                    row["launches_per_call"] != 1:
+                fail(f"decode_attention at {path}'s B{B} L{L}: {row}")
+    H, KH, Dh = 32, 8, 128
+    for B, S in _common_shapes([(st[4], st[0]) for st in steps["ut1_xrag"]
+                                if st[0] > 1]):
+        q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, KH, Dh, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, KH, Dh, generator=gen, device=dev).bfloat16()
+        lens = torch.randint(2, S + 1, (B,), generator=gen, device=dev)
+        lens[0] = S
+        valid = torch.arange(S, device=dev)[None] < lens[:, None]
+        causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+        amask = (causal[None] & valid[:, None, :])[:, None]
+        ops = 4 * H * Dh * int((causal[None] & valid[:, None, :]).sum())
+        nbytes = 2 * B * S * H * Dh * 2 + 2 * B * S * KH * Dh * 2 + B * S
+        row = _timed_row(
+            "flash_attention", fa.flash_attention,
+            lambda: fa.flash_attention(q, k, v, valid),
+            lambda: fa.flash_attention_plain(q, k, v, valid),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=amask, enable_gqa=True),
+            bound(ops, nbytes), B=B, S=S, H=H, KH=KH, head_dim=Dh,
+            padded="right", soft_train_path="ut1_xrag")
+        emit({"phase": "kernel_check", **row})
+        results.setdefault("flash_attention", []).append(row)
+        if row["max_abs_err"] > FLASH_TOL or row["mean_abs_err"] > \
+                FLASH_MEAN_TOL or row["launches_per_call"] != 1:
+            fail(f"flash_attention at ut1_xrag's B{B} S{S}: {row}")
+    torch.cuda.empty_cache()
+
+
+# (path, int4 products a step, decode attentions a decode step, flash
+# attentions a prefill) for the generic per-step check of main(): COCOM's
+# compressor and decoder prefills plain, xRAG's through flash, the train
+# stage's loss forwards nothing and its eval's decode steps one a layer
+SOFT_TRAIN_STEP_RULES = (
+    ("ut1_cocom", 0, SMOKE_NEW_PATH_LAYERS, 0),
+    ("ut1_xrag", 0, SMOKE_NEW_PATH_LAYERS, SMOKE_NEW_PATH_LAYERS),
+    ("ut1_train_lora", 0, TINYLLAMA["num_hidden_layers"], 0))
+
+
+def check_soft_train_launches(by_path: dict, steps: dict) -> None:
+    """Each path's kernels launched (PATH_KERNELS), every forward step's
+    launches as SOFT_TRAIN_STEP_RULES says (for a --soft-train run; a whole
+    run checks them with the other paths), and no kernel on
+    provence_train."""
+    for path, per4, dec, flash in SOFT_TRAIN_STEP_RULES:
+        bad = [st for st in steps[path] if st[1:4] != (
+            per4, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
+        n_dec = sum(1 for st in steps[path] if st[0] == 1)
+        if bad or not n_dec or by_path[path]["decode_attention"] != \
+                dec * n_dec:
+            fail(f"{path}: forward steps off (S, int4, decode, flash) = "
+                 f"(S, {per4}, {dec}, {flash}): {bad[:3]}; {n_dec} decode "
+                 f"steps, {by_path[path]['decode_attention']} decode "
+                 "attentions")
+        idle = [n for n in PATH_KERNELS[path] if not by_path[path][n]]
+        if idle:
+            fail(f"{path}: kernels never launched: {idle}")
+    if any(by_path["provence_train"].values()):
+        fail(f"provence_train: launches {by_path['provence_train']}")
+
+
+def drive_provence_train(ckpt: dict, root: str, w, drive) -> None:
+    """provence_train on a Provence checkpoint at full depth (24 layers,
+    written here and deleted after), then its step-2 check."""
+    t0 = time.perf_counter()
+    ckpt["provence_train"] = write_provence(root, w,
+                                            PROVENCE["num_hidden_layers"])
+    emit({"phase": "checkpoint_provence_train",
+          "write_s": time.perf_counter() - t0,
+          "layers": PROVENCE["num_hidden_layers"]})
+    drive("provence_train", run_provence_train)
+    with tempfile.TemporaryDirectory() as d:
+        emit({"phase": "reference_check_provence_step",
+              **timed(check_provence_step_against_cpu, ckpt, d)})
+    shutil.rmtree(ckpt.pop("provence_train"), ignore_errors=True)
+
+
+def drive_soft_train_paths(ckpt: dict, root: str, dev, drive) -> None:
+    """ut1_cocom and ut1_xrag on the Mistral-7B checkpoint's first
+    SMOKE_NEW_PATH_LAYERS layers (written once: the serve paths' checkpoint
+    cut with ``first_layers``), their card-against-CPU check, then
+    ut1_train_lora on TinyLlama and its check of steps 2 and 3."""
+    ckpt["mistral_2l"] = first_layers(ckpt["mistral_7b"],
+                                      SMOKE_NEW_PATH_LAYERS)
+    ckpt["xrag"] = write_xrag_checkpoint(root, dev, ckpt["mistral_2l"])
+    drive("ut1_cocom", run_ut1_cocom)
+    drive("ut1_xrag", run_ut1_xrag)
+    emit({"phase": "reference_check_soft_prompts",
+          **timed(check_soft_prompts_against_cpu, ckpt)})
+    shutil.rmtree(ckpt.pop("xrag"), ignore_errors=True)
+    drive("ut1_train_lora", run_ut1_train_lora)
+    emit({"phase": "reference_check_train_step",
+          **timed(check_train_step_against_cpu, ckpt)})
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6574,8 +7444,10 @@ SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "qwen2.5-7b-instruct-random", "qwen2.5-7b-instruct-random-2layers")
 REPLLAMA_CKPTS = ("repllama-v1-7b-lora-passage-random",)
 CONTEXT_CKPTS = ("nq-abstractive-compressor-t5-large-random",
-                 "bge-reranker-v2-m3-random", "provence-debertav3-random",
-                 "nllb-200-3.3b-random")
+                 "bge-reranker-v2-m3-random",
+                 f"provence-debertav3-random-{SMOKE_NEW_PATH_LAYERS}layers",
+                 f"provence-debertav3-random-{PROVENCE['num_hidden_layers']}"
+                 "layers", "nllb-200-3.3b-random")
 FAMILY_CKPTS = ("gemma-7b-it-random", "gemma-2b-it-random",
                 "gemma-2-9b-it-random", "gemma-2-9b-it-random-2layers",
                 "phi-3-mini-4k-instruct-random", "c4ai-command-r-v01-random",
@@ -6592,13 +7464,16 @@ def main() -> None:
 
     # --only NAME[,NAME...]: build, run those phase-3 checks and stop (the
     # first call after a kernel changes); --context: build, ut1_eval and the
-    # context paths with their checks, then stop; --context-kernels: the
-    # context paths' kernel checks alone, in a child; no argument: every
-    # phase
+    # context paths with their checks, then stop; --soft-train: build, the
+    # COCOM, xRAG, LoRA-training and Provence-training paths with their
+    # checks (Mistral-7B at SMOKE_NEW_PATH_LAYERS), then stop;
+    # --context-kernels: the context paths' kernel checks alone, in a
+    # child; no argument: every phase
     only = None
     profile = sys.argv[1:] == ["--profile-serve"]
     context_only = sys.argv[1:] == ["--context"]
-    if profile or context_only:
+    soft_train_only = sys.argv[1:] == ["--soft-train"]
+    if profile or context_only or soft_train_only:
         only = []
     elif sys.argv[1:2] == ["--context-kernels"] and len(sys.argv) == 4:
         only = []  # a child of the context paths: their kernel checks only
@@ -6632,24 +7507,9 @@ def main() -> None:
     from bergen_tpu_torch.ops import flash_attention as fa
     from bergen_tpu_torch.ops import fused_topk as ft
     from bergen_tpu_torch.ops import int4_matmul as im
-    from bergen_tpu_torch.ops import paged_attention as pa
-    from bergen_tpu_torch.ops import scoring as sc
     from bergen_tpu_torch.ops import w8a8_matmul as w8
 
-    counters = {"encoder_layer": ea.encoder_layer,
-                "encoder_layer_prebias": ea.encoder_layer_prebias,
-                "encoder_layer_q": ea.encoder_layer_q,
-                "bin_topk": ft.bin_scores,
-                "decode_attention": da.decode_attention,
-                "int4_matmul": im.matmul_int4_packed,
-                "flash_attention": fa.flash_attention,
-                "paged_attention": pa.paged_partial,
-                "encoder_attention": ea.encoder_attention,
-                "bin_topk_int8": ft.bin_scores_int8,
-                "flash_attention_band": fa.flash_attention_band,
-                "attention_block": ea.attention_block,
-                "pallas_score": sc.pallas_score,
-                "w8a8_matmul": w8.w8a8_matmul}
+    counters = kernel_wrappers()
     results: dict = {}
     checks = {"encoder_layer": lambda: check_encoder_layer(results, dev),
               "encoder_layer_prebias": lambda: check_encoder_layer_prebias(
@@ -6684,7 +7544,7 @@ def main() -> None:
             torch.cuda.empty_cache()
     if profile:
         profile_serve(dev)
-    if only is not None and not context_only:
+    if only is not None and not (context_only or soft_train_only):
         emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
@@ -6694,6 +7554,8 @@ def main() -> None:
     emit({"phase": "checkpoints", "write_s": time.perf_counter() - t0,
           **ckpt})
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    reads = contextlib.ExitStack()  # closed with the run's files below
+    reads.enter_context(shared_checkpoint_reads())
     by_path: dict = {}
     int8_by_mode: dict = {}
     bias_launches: dict = {}
@@ -6744,6 +7606,22 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     try:
+        if soft_train_only:
+            gen = torch.Generator(device=dev).manual_seed(18)
+            drive_provence_train(
+                ckpt, root, lambda *shape, std=0.02: (torch.randn(
+                    *shape, generator=gen, device=dev) * std).bfloat16().cpu(),
+                drive)
+            ckpt["mistral_7b"] = write_mistral_7b(root, dev,
+                                                  SMOKE_NEW_PATH_LAYERS)
+            drive_soft_train_paths(ckpt, root, dev, drive)
+            check_soft_train_launches(by_path, steps)
+            check_soft_train_kernels(results, dev, steps)
+            emit({"phase": "done", "soft_train": True,
+                  "script_s": time.perf_counter() - started,
+                  "launches": {p: by_path[p] for p in
+                               SOFT_TRAIN_PATHS + ("provence_train",)}})
+            return
         if context_only:
             drive("ut1_eval", run_main_path)
             drive_context_paths(ckpt, root, dev, drive, results, runs)
@@ -6804,15 +7682,15 @@ def main() -> None:
                                          "judge_logits.npy"))
         emit({"phase": "reference_check_judge",
               "check_s": time.perf_counter() - t0, **judge_check})
-        emit({"phase": "reference_check", **check_against_cpu(ckpt)})
+        emit({"phase": "reference_check", **timed(check_against_cpu, ckpt)})
         emit({"phase": "reference_check_remote",
-              **check_remote_against_cpu(ckpt)})
+              **timed(check_remote_against_cpu, ckpt)})
         emit({"phase": "reference_check_int4",
-              **check_int4_against_cpu(ckpt)})
+              **timed(check_int4_against_cpu, ckpt)})
         emit({"phase": "reference_check_splade",
-              **check_splade_against_cpu(ckpt)})
+              **timed(check_splade_against_cpu, ckpt)})
         emit({"phase": "splade_encode_split", "card": card,
-              **time_splade_encode(ckpt)})
+              **timed(time_splade_encode, ckpt)})
         for name in SEVEN_B[:2] + REPLLAMA_CKPTS:  # room for the next 7B
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         t0 = time.perf_counter()
@@ -6824,7 +7702,10 @@ def main() -> None:
             drive(path, lambda c, w, kv=kv: run_ut1_serve_mistral(c, w, kv))
         drive("ut1_serve_chunked_mistral", run_ut1_serve_chunked_mistral)
         emit({"phase": "reference_check_serve",
-              **check_serve_against_cpu(ckpt)})
+              **timed(check_serve_against_cpu, ckpt)})
+        # COCOM and xRAG on the same Mistral-7B checkpoint's first layers,
+        # then LoRA training on TinyLlama
+        drive_soft_train_paths(ckpt, root, dev, drive)
         for name in SEVEN_B[:4]:  # room on the disk for the next models
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         # the Llama-3.x / Qwen2.x paths: Llama-3.2-3B static (groups of 3),
@@ -6849,7 +7730,7 @@ def main() -> None:
             for path, run in paths:
                 drive(path, run)
         emit({"phase": "reference_check_llama32_qwen25",
-              **check_new_generators_against_cpu(ckpt)})
+              **timed(check_new_generators_against_cpu, ckpt)})
         for name in SEVEN_B:  # room on the disk for the next models
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         # the Gemma, Gemma-2, Phi-3 and Command-R paths, one checkpoint at a
@@ -6898,7 +7779,7 @@ def main() -> None:
                 drive(path, run)
             if check:
                 emit({"phase": f"reference_check_{key}",
-                      **check_family_against_cpu(ckpt, key)})
+                      **timed(check_family_against_cpu, ckpt, key)})
             for gone in (name, name + "-2layers"):
                 shutil.rmtree(os.path.join(root, gone), ignore_errors=True)
         judge = f"LLMeval_{JUDGE_NAME}"
@@ -6916,6 +7797,7 @@ def main() -> None:
         if idle:
             fail(f"kernels never launched where the path runs them: {idle}")
         check_context_launches(by_path, bias_launches, runs)
+        check_soft_train_launches(by_path, steps)
         # each int8 path in its modes alone (no other path launches int8)
         for path, got in int8_by_mode.items():
             modes = PATH_INT8_MODES.get(path, ())
@@ -7007,7 +7889,8 @@ def main() -> None:
                  SMOKE_NEW_PATH_LAYERS),
                 ("kilt_nq_local", 0, tiny, 0),
                 ("judge_pairwise", 0, tiny, tiny),
-                *((path, 0, tiny, 0) for path in CONTEXT_PATHS)):
+                *((path, 0, tiny, 0) for path in CONTEXT_PATHS),
+                *SOFT_TRAIN_STEP_RULES):
             bad = [st for st in steps[path] if st[1:4] != (
                 per4, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
             n_dec = sum(1 for st in steps[path] if st[0] == 1)
@@ -7115,9 +7998,12 @@ def main() -> None:
                      f"{by_path[path]['decode_attention']} times in the "
                      "paged server's decode")
     finally:
+        reads.close()
         shutil.rmtree(work, ignore_errors=True)
-        for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS + CONTEXT_CKPTS:
+        for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS + CONTEXT_CKPTS \
+                + ("xrag-7b-random",):
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    check_soft_train_kernels(results, dev, steps)
 
     # the redesigned kernels: launches per call as measured in their checks,
     # and per decode step of ut1_int4_llama2 as counted there: the launches
@@ -7193,6 +8079,14 @@ def main() -> None:
             for r in results[name] if r.get("context_path")]
         if new:
             extra["context_rows"] = new
+        # the COCOM, xRAG and context paths' decode shapes, xRAG's encodes
+        new = [{key: r[key] for key in (
+            "soft_train_path", "B", "L", "S", "H", "KH", "head_dim", "padded",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms") if key in r}
+            for r in results[name] if r.get("soft_train_path")]
+        if new:
+            extra["soft_train_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

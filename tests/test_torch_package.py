@@ -87,9 +87,10 @@ def test_every_rewriting_config_resolves(group):
 def test_unported_target_raises_with_its_name():
     from bergen_tpu_torch import confy
 
-    with pytest.raises(NotImplementedError, match="COCOM"):
+    with pytest.raises(NotImplementedError, match="OpenAIGenerator"):
         confy.instantiate({
-            "_target_": "bergen_tpu.models.generators.llm_cocom.COCOM"})
+            "_target_":
+            "bergen_tpu.models.generators.llm_openai.OpenAIGenerator"})
 
 
 def test_config_is_not_rewritten():

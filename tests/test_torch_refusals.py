@@ -1,0 +1,111 @@
+"""Every ``config/generator/`` and ``config/train/`` file either runs on
+the port or raises naming the ROADMAP.md Queue 1 item that will lift its
+refusal: tensor parallelism #10, Mixtral #5 (``xrag_mixtral``, the two
+mixtral generators, ``mixtral-8x7b-instruct`` by its ``tp``), sampling and
+beam search #6, the OpenAI generators plain Queue 1.  ``train=no_train``
+raises optax's error, as JAX's trainer does (0 epochs leave the schedule's
+cosine part no steps); the other train configs build and take a step on a
+tiny llama.  A Mixtral checkpoint is stood in for by the tiny llama with
+its config's ``model_type`` set to mixtral.
+"""
+
+import json
+import os
+import shutil
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests: the suite runs several
+    workers on the host's cores, and torch's default of a thread a core
+    then oversubscribes them (tens of times slower at these tiny shapes)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GEN_DIR = os.path.join(REPO, "config", "generator")
+TRAIN_DIR = os.path.join(REPO, "config", "train")
+
+
+@pytest.fixture(scope="module")
+def ckpts(tmp_path_factory):
+    from tiny_models import build_tiny_llama
+
+    root = tmp_path_factory.mktemp("refusals")
+    llama_dir = build_tiny_llama(str(root / "llama"))
+    mixtral = str(root / "mixtral")
+    shutil.copytree(llama_dir, mixtral)
+    with open(os.path.join(mixtral, "config.json")) as f:
+        cfg = json.load(f)
+    cfg.update(model_type="mixtral", num_local_experts=8)
+    with open(os.path.join(mixtral, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return {"llama": llama_dir, "mixtral": mixtral}
+
+
+def _expected(name: str, args: dict):
+    """The Queue 1 item a generator config must name, or None (runs)."""
+    target = args["_target_"]
+    if "llm_openai" in target:
+        return "Queue 1"
+    if args.get("tp", 1) != 1:
+        return "#10"
+    if "mixtral" in name or "moe" in (args.get("model_name") or ""):
+        return "#5"
+    if args.get("temperature", 0) or args.get("use_beam_search"):
+        return "#6"
+    return None
+
+
+@pytest.mark.parametrize("name", sorted(
+    f[:-5] for f in os.listdir(GEN_DIR) if f.endswith(".yaml")))
+def test_generator_config_runs_or_names_its_item(name, ckpts):
+    from bergen_tpu_torch import confy
+
+    args = dict(confy.load_yaml(os.path.join(GEN_DIR, f"{name}.yaml"))
+                ["init_args"])
+    want = _expected(name, args)
+    if want is None:
+        confy.resolve_target(args["_target_"])  # the port has the class
+        return
+    if want == "Queue 1":
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            confy.resolve_target(args["_target_"])
+        return
+    args["model_name"] = ckpts["mixtral" if want == "#5" else "llama"]
+    if "retriever_name" in args:
+        args["retriever_name"] = None
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {want}"):
+        confy.instantiate(args, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(
+    f[:-5] for f in os.listdir(TRAIN_DIR) if f.endswith(".yaml")))
+def test_train_config_runs_or_refuses_as_jax(name, ckpts, tmp_path):
+    from bergen_tpu_torch import confy
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.train.trainer import SFTTrainer
+
+    tc = confy.load_yaml(os.path.join(TRAIN_DIR, f"{name}.yaml"))
+    gen = LLM(ckpts["llama"], max_length=64, max_new_tokens=2, device="cpu")
+    rows = [{"formatted_instruction": f"question : capital {i} answer : "
+             "ashford", "label_start_index": 4} for i in range(24)]
+    if name == "no_train":
+        with pytest.raises(ValueError, match="positive decay_steps"):
+            SFTTrainer(gen, rows, rows[:2], tc, str(tmp_path))
+        return
+    trainer = SFTTrainer(gen, rows, rows[:2], tc, str(tmp_path))
+    batch = next(trainer.batches(rows, trainer.batch_size, True))
+    assert trainer.train_step(batch) > 0
+    assert bool(trainer.trainable) and (
+        all(p.rsplit(".", 1)[-1] in ("lora_a", "lora_b")
+            for p, _ in trainer.trainable) == ("lora" in tc))
