@@ -14,6 +14,11 @@ folder), the judge prompts from ``config/evaluator``.
         --llm tinyllama-chat tiny [--device cpu]
     python -m bergen_tpu_torch.evaluate --folder experiments/<run> --lid
 
+A judge whose generator config sets ``tp`` > 1 (the default, SOLAR-107B,
+sets 4) runs under ``torchrun --nproc-per-node <tp>``: every rank judges
+the same rows and rank 0 alone writes the files (``--dist_backend gloo
+--device cuda:0`` puts every rank on one card).
+
 ``--gpt`` and ``--llm_ollama`` call remote services and are not ported.
 """
 
@@ -21,6 +26,8 @@ import argparse
 import json
 import os
 import shutil
+
+from bergen_tpu_torch.parallel import mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENERATOR_CONFIG_DIR = os.path.join(REPO, "config", "generator")
@@ -85,6 +92,8 @@ def eval_single(experiment_folder, folder, split, model, metric_name,
                 questions=questions, opponent_predictions=opponent,
             )
 
+        if mesh.rank() != 0:
+            continue  # rank 0 writes what every rank computed
         for r, s in zip(rows, scores):
             r[metric_name] = s
         out_file = input_file if nb_samples <= 0 else f"{exp}/eval_{split}_out_{nb_samples}.json"
@@ -185,8 +194,14 @@ def main(argv=None):
     parser.add_argument("--force", action="store_true")
     parser.add_argument("--llm_prompt", type=str, default="default_qa")
     parser.add_argument("--device", type=str, default="cuda",
-                        choices=["cpu", "cuda"])
+                        help="cpu, cuda, or cuda:N (every rank on card N: "
+                        "--dist_backend gloo)")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        choices=["nccl", "gloo"])
     args = parser.parse_args(argv)
+    device = args.device
+    if mesh.world_size() > 1:  # under torchrun: this rank's device
+        device = mesh.init(device, args.dist_backend).device
 
     if args.opponent_folder is not None:
         if args.llm is None:
@@ -205,7 +220,7 @@ def main(argv=None):
         llm_batch_size=args.llm_batch_size, llm_prompt=args.llm_prompt,
         force=args.force, nb_samples=args.sample,
         opponent_folder=args.opponent_folder, opponent_name=args.opponent_name,
-        device=args.device,
+        device=device,
     )
 
 

@@ -17,6 +17,7 @@ leaves) across unchanged, so both packages can be fed identical weights.
 from __future__ import annotations
 
 import json
+import mmap as _mmap
 import os
 import struct
 from types import SimpleNamespace
@@ -47,11 +48,16 @@ NORM_KEYS = ("ln", "scale", "bias", "attn_norm", "mlp_norm", "final_norm",
 
 
 def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Every tensor of one ``.safetensors`` file, on the CPU."""
+    """Every tensor of one ``.safetensors`` file, on the CPU: views of a
+    private (copy-on-write) mapping of the file, so that only the bytes a
+    caller reads are read (a tensor-parallel rank copies out its slice).
+    ``save_safetensors`` replaces a file rather than rewrite it, so a
+    mapping stays valid while its tensors live."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        data = _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_COPY)
+    base = 8 + n
     out = {}
     for name, meta in header.items():
         if name == "__metadata__":
@@ -61,7 +67,8 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
             raise NotImplementedError(f"safetensors dtype {meta['dtype']!r}")
         start, end = meta["data_offsets"]
         count = (end - start) // torch.empty((), dtype=dtype).element_size()
-        t = torch.frombuffer(data, dtype=dtype, count=count, offset=start) \
+        t = torch.frombuffer(data, dtype=dtype, count=count,
+                             offset=base + start) \
             if count else torch.empty(0, dtype=dtype)
         out[name] = t.reshape(meta["shape"])
     return out
@@ -78,15 +85,18 @@ def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
         offset += len(raw)
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
         for raw in chunks:
             f.write(raw)
+    os.replace(tmp, path)
 
 
 def load_checkpoint(model_dir: str):
-    """(config namespace, state dict) of a local HF checkpoint directory."""
+    """(config namespace, state dict) of a local HF checkpoint directory:
+    views of the mapped files (``load_safetensors``)."""
     with open(os.path.join(model_dir, "config.json")) as f:
         cfg = SimpleNamespace(**json.load(f))
     single = os.path.join(model_dir, "model.safetensors")
@@ -520,8 +530,19 @@ def quantize_int4_packed(kernel: torch.Tensor, group: int = 128):
     return packed.to(torch.int8), scale
 
 
-def quantize_tree_int4(params, min_size: int = 1 << 16, group: int = 128,
-                       packed: bool = True, device=None):
+INT4_GROUP = 128  # quantize_tree_int4's rows a group
+INT4_MIN_SIZE = 1 << 16  # and the fewest elements of a kernel it packs
+
+
+def int4_quantizes(K: int, N: int, min_size: int = INT4_MIN_SIZE,
+                   group: int = INT4_GROUP) -> bool:
+    """Whether ``quantize_tree_int4`` packs a whole [K, N] kernel."""
+    return K * N >= min_size and K % group == 0
+
+
+def quantize_tree_int4(params, min_size: int = INT4_MIN_SIZE,
+                       group: int = INT4_GROUP, packed: bool = True,
+                       device=None):
     """Replace every 2-D ``kernel`` leaf of at least ``min_size`` elements
     whose d_in divides into groups by ``kernel_q4p`` + ``kernel_scale4``
     (``quantize_int4_packed``), in place, as the JAX package's
@@ -531,7 +552,9 @@ def quantize_tree_int4(params, min_size: int = 1 << 16, group: int = 128,
     embedding is no ``kernel`` and is never quantized.  A quantized
     kernel's ``bias`` (qwen2's q/k/v) stays dense, in f32, beside it: the
     port adds it in the int4 product's epilogue, where JAX's int4
-    projection drops it."""
+    projection drops it.  A tensor-parallel slice (``tp_shape``: its whole
+    [K, N]) is quantized where the whole leaf would be, so that its codes
+    and scales are the whole leaf's slice."""
     if not packed:
         raise NotImplementedError(
             "quantize_tree_int4(packed=False): the jnp.int4 storage form is "
@@ -540,8 +563,14 @@ def quantize_tree_int4(params, min_size: int = 1 << 16, group: int = 128,
     def visit(node):
         if isinstance(node, dict):
             k = node.get("kernel")
+            K, N = node.get("tp_shape") or (k.shape if isinstance(
+                k, torch.Tensor) and k.dim() == 2 else (0, 0))
             if isinstance(k, torch.Tensor) and k.dim() == 2 \
-                    and k.numel() >= min_size and k.shape[0] % group == 0:
+                    and int4_quantizes(K, N, min_size, group):
+                if k.shape[0] % group:
+                    raise ValueError(
+                        f"a row-parallel slice of {k.shape[0]} of {K} rows "
+                        f"is no whole number of int4 groups of {group}")
                 if k.shape[0] % 2:
                     raise ValueError(
                         f"packed int4 needs an even d_in, got {k.shape[0]} "

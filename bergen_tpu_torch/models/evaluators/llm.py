@@ -32,6 +32,7 @@ from bergen_tpu_torch.models.evaluators.utils import (
     process_llm_outputs_assess_scores,
     unswitch_switched_scores,
 )
+from bergen_tpu_torch.parallel import mesh
 
 
 def _load_eval_config(config: str):
@@ -157,6 +158,9 @@ class LLMeval:
             predictions=predictions, references=references, questions=questions,
             opponent_predictions=opponent_predictions,
         )
+        # a tensor-parallel judge: every rank prompts as rank 0 drew the
+        # pairwise switches
+        inputs = mesh.broadcast_object(inputs)
         scores, weirds = [], []
         for s in range(0, len(inputs), self.batch_size):
             batch = inputs[s : s + self.batch_size]

@@ -14,7 +14,16 @@ warning; ``quantization_route`` and ``outlier_ratio`` record what
 happened), and ``serve: true`` (``jax_llm.py:216-247``): generation through
 the continuous-batching ``serve.GenerationServer`` (``kv_cache: uniform``,
 its epoch drain) or ``serve.PagedGenerationServer`` (``kv_cache: paged``).
-Sampling, beam search and tensor parallelism are not ported yet and raise.
+``tp`` > 1 is tensor parallelism over ``torch.distributed``, one process a
+card under ``torchrun --nproc-per-node tp``: each rank reads its slice of
+the checkpoint (``convert.load_checkpoint`` maps the files,
+``parallel/shard.py`` copies the slice out) and runs the same steps on its
+heads and MLP columns, the row-parallel products meeting in an all-reduce
+of f32 partial sums and the head's logits in an all-gather, so that every
+rank makes the same decisions from the same tokens; bf16 and int4 (an int4
+head whose slice is outside the int4 kernel's shapes stays whole; the
+int8 and W8A8 routes raise, ROADMAP.md Queue 1 #10).  Sampling and beam search are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -30,7 +39,31 @@ from bergen_tpu_torch.models import convert, llama
 from bergen_tpu_torch.models.core import length_bucket, make_buckets
 from bergen_tpu_torch.models.generators.base import Generator
 from bergen_tpu_torch.models.tokenizer import Tokenizer
+from bergen_tpu_torch.parallel import mesh as _mesh
+from bergen_tpu_torch.parallel import shard as _shard
 from bergen_tpu_torch.serve import GenerationServer, PagedGenerationServer
+
+
+def check_world(tp: int, quantization: str | None = None) -> None:
+    """The tensor-parallel rules on this process's world, before anything
+    is read: ``tp`` ranks, one process a card, and bf16 or int4 weights."""
+    if tp > 1 and quantization in ("int8", "int8_mxu", "w8a8"):
+        raise NotImplementedError(
+            f"quantization {quantization!r} with tp={tp}: the int8 and W8A8 "
+            "routes are not sharded (W8A8's per-row activation scale spans "
+            "the whole row a row-parallel slice does not hold; ROADMAP.md "
+            "Queue 1 #10, multi-GPU)")
+    world = _mesh.world_size()
+    if tp > world:
+        raise RuntimeError(
+            f"tp={tp} needs {tp} ranks, one process a card: run under "
+            f"`torchrun --nproc-per-node {tp} -m bergen_tpu_torch ...` (this "
+            f"process's world is {world})")
+    if world > tp:
+        raise NotImplementedError(
+            f"a world of {world} ranks over tp={tp}: the data axis (ranks "
+            "beyond the model axis) is not ported (ROADMAP.md Queue 1 #10, "
+            "multi-GPU)")
 
 
 class LLM(Generator):
@@ -61,10 +94,7 @@ class LLM(Generator):
     ):
         if quantization not in (None, "int4", "int8", "int8_mxu", "w8a8"):
             raise ValueError(f"unknown quantization: {quantization!r}")
-        if tp != 1:
-            raise NotImplementedError(
-                f"LLM tp={tp}: tensor parallelism is not ported yet "
-                "(ROADMAP.md Queue 1 #10, multi-GPU)")
+        check_world(tp, quantization)
         decoding = {"temperature": temperature != 0,
                     "beam search": use_beam_search or (num_beams or 1) > 1
                     or best_of > 1}
@@ -81,7 +111,12 @@ class LLM(Generator):
             max_new_tokens=max_new_tokens, max_doc_len=max_doc_len,
             max_length=max_length, use_middle_truncation=use_middle_truncation,
         )
-        self.device = _device.resolve(device)
+        self.tp = tp
+        if tp > 1:  # one rank of tp (check_world): its card, its slice
+            self.device = _mesh.init(device).device
+            grid = _mesh.get_mesh(model=tp)
+        else:
+            self.device = _device.resolve(device)
         self.dtype = _device.default_dtype(self.device, dtype)
         self.prompt = prompt
         self.tokenizer = Tokenizer.from_pretrained(model_name)
@@ -102,6 +137,10 @@ class LLM(Generator):
             # JAX's tree comes from transformers' state dict, which lists a
             # tied head as lm_head: that head is quantized too
             params["lm_head"] = {"kernel": params["embed"].T}
+        if tp > 1:
+            # this rank's slice, copied out of the mapped files
+            params, self.cfg = _shard.shard_llama(
+                params, self.cfg, tp, grid.rank, int4=quantization == "int4")
         self.outlier_ratio = None
         if quantization in ("int8_mxu", "w8a8"):
             # JAX places the tree in the compute dtype, calibrates on one

@@ -54,6 +54,7 @@ from bergen_tpu_torch.ops.decode_attention import decode_attention
 from bergen_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_band_rows)
 from bergen_tpu_torch.ops.w8a8_matmul import w8a8_matmul
+from bergen_tpu_torch.parallel import mesh as _mesh
 
 Params = Dict[str, Any]
 
@@ -174,6 +175,17 @@ class LlamaConfig:
             rope_original_max_pos=int(
                 rs.get("original_max_position_embeddings", 8192)),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(LlamaConfig):
+    """A tensor-parallel rank's config (``parallel/shard.py::
+    local_config``): its heads and MLP width in the fields above, the
+    model axis's width ``tp``, and the KV heads it reads when tp does not
+    divide them (its k and v projections are whole, as JAX replicates
+    them)."""
+    tp: int = 1
+    kv_heads_kept: tuple[int, ...] | None = None
 
 
 def sliding(cfg: LlamaConfig, li: int) -> bool:
@@ -298,8 +310,13 @@ def init_paged_cache(cfg: LlamaConfig, n_pages: int, slots: int,
 
 def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W (+ the LoRA branch) (+ the f32 bias), rounded once to x's
-    dtype."""
+    dtype.  A row-parallel slice (``parallel/shard.py``: its rows fewer
+    than its ``tp_shape``'s) sums its f32 partials over the model axis
+    before the bias and the one rounding."""
     bias = p.get("bias")
+    if "tp_shape" in p and _rows(p) != p["tp_shape"][0]:
+        y = _mesh.all_reduce_sum(_partial_f32(p, x))
+        return (y if bias is None else y + bias).to(x.dtype)
     if "lora_a" in p and "kernel" not in p:
         # JAX's quantized branches return before its LoRA branch, so an
         # adapter there would be dropped unseen (and its init_lora attaches
@@ -333,13 +350,46 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
         # drops it (ROADMAP.md Queue 3)
         wp, sc = p["kernel_q4p"], p["kernel_scale4"]
         K, N = wp.shape[0] * 2, wp.shape[1]
-        if int4_matmul.supports(K, N, sc.shape[0]):
+        if _int4_kernel_route(p):
             y = int4_matmul.matmul_int4_packed(x.reshape(-1, K), wp, sc,
                                                bias)
             return y.reshape(*x.shape[:-1], N).to(x.dtype)
         return _int4_dequant_proj(wp, sc, x, bias)
     # dense (llama.py:353-362): f32 sums plus the f32 bias, one rounding
     return dense(p, x)
+
+
+def _rows(p: Params) -> int:
+    return p["kernel"].shape[0] if "kernel" in p \
+        else p["kernel_q4p"].shape[0] * 2
+
+
+def _int4_kernel_route(p: Params) -> bool:
+    """The JAX package's shape rule (``int4_matmul.supports``) on the
+    whole projection: a tensor-parallel slice takes the route JAX's model
+    code takes on the whole shape it sees, and launches at its own."""
+    K, N = _rows(p), p["kernel_q4p"].shape[1]
+    groups = p["kernel_scale4"].shape[0]
+    if "tp_shape" in p:
+        group = K // groups
+        K, N = p["tp_shape"]
+        groups = K // group
+    return int4_matmul.supports(K, N, groups)
+
+
+def _partial_f32(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel slice's f32 sums x @ W, no bias: the int4 kernel's
+    f32 output, or the dequantized product's f32 sums."""
+    if "kernel_q4p" in p:
+        wp, sc = p["kernel_q4p"], p["kernel_scale4"]
+        K, N = wp.shape[0] * 2, wp.shape[1]
+        if _int4_kernel_route(p):
+            y = int4_matmul.matmul_int4_packed(x.reshape(-1, K), wp, sc)
+            return y.reshape(*x.shape[:-1], N)
+        _int4_dequant_proj.calls += 1
+        return matmul_f32(x, convert.dequantize_int4(
+            convert.unpack_int4(wp), sc, x.dtype))
+    return matmul_f32(x, p["kernel"])
 
 
 def _lora_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -391,9 +441,17 @@ def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = apply_rope(_proj(layer["attn"]["q"], x).reshape(B, S, H, Dh),
                    positions, inv_freq, cfg.rope_interleaved)
-    k = apply_rope(_proj(layer["attn"]["k"], x).reshape(B, S, KH, Dh),
-                   positions, inv_freq, cfg.rope_interleaved)
-    return q, k, _proj(layer["attn"]["v"], x).reshape(B, S, KH, Dh)
+    k, v = _proj(layer["attn"]["k"], x), _proj(layer["attn"]["v"], x)
+    kept = getattr(cfg, "kv_heads_kept", None)
+    if kept is not None:
+        # whole k and v projections (tp does not divide the KV heads):
+        # this rank's query heads read these
+        keep = torch.tensor(kept, device=x.device)
+        k = k.reshape(B, S, -1, Dh).index_select(2, keep)
+        v = v.reshape(B, S, -1, Dh).index_select(2, keep)
+    k = apply_rope(k.reshape(B, S, KH, Dh), positions, inv_freq,
+                   cfg.rope_interleaved)
+    return q, k, v.reshape(B, S, KH, Dh)
 
 
 def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -690,6 +748,8 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
         logits = _tied_head(x, params["embed"])
     else:
         logits = _proj(lm_head, x).float()
+        if "tp_shape" in lm_head:  # a column-parallel head: every logit
+            logits = _mesh.all_gather_last(logits)
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap:

@@ -5,12 +5,16 @@ shared library with a plain C interface, loaded through ``ctypes``.  All
 sources build together (one nvcc process each, started at once) on the first
 CUDA launch of any kernel, into ``bergen_tpu_torch/_build/<hash>/``, keyed by
 a hash of every source; importing the package builds nothing, so the CPU
-path needs no CUDA toolkit.
+path needs no CUDA toolkit.  A build holds a file lock beside its folder,
+so that the ranks of a tensor-parallel run, which reach their first launch
+together, build once: one process compiles, the others wait and load.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -88,15 +92,38 @@ def _nvcc() -> str:
                        "kernels need the CUDA toolkit to build")
 
 
+@contextlib.contextmanager
+def _locked(folder: str):
+    """An exclusive lock on ``<folder>.lock`` (across processes) while the
+    block runs."""
+    os.makedirs(os.path.dirname(folder), exist_ok=True)
+    with open(folder + ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> str:
     """Compile every ``csrc/*.cu`` not yet built, in parallel; returns the
     build directory.  nvcc's resource report (-Xptxas -v) for each source is
-    kept beside its library as ``<name>.log``."""
+    kept beside its library as ``<name>.log``.  Processes that call it
+    together build once (``_locked``)."""
     out = os.path.join(BUILD_ROOT, _digest())
+    if all(os.path.exists(os.path.join(out, os.path.basename(s)[:-3]
+                                       + ".so")) for s in _sources()):
+        return out
+    with _locked(out):
+        _build_missing(out)
+    return out
+
+
+def _build_missing(out: str) -> None:
     todo = [s for s in _sources() if not os.path.exists(
         os.path.join(out, os.path.basename(s)[:-3] + ".so"))]
     if not todo:
-        return out
+        return
     os.makedirs(out, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -119,7 +146,6 @@ def build_all() -> str:
         logs = "\n".join(open(os.path.join(out, f"{n}.log")).read()[-4000:]
                          for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    return out
 
 
 def host_library(src: str, flags: list[str], stem: str) -> ctypes.CDLL:
@@ -133,14 +159,16 @@ def host_library(src: str, flags: list[str], stem: str) -> ctypes.CDLL:
     out = os.path.join(BUILD_ROOT, f"{stem}-{digest}")
     so = os.path.join(out, f"lib{stem}.so")
     if not os.path.exists(so):
-        os.makedirs(out, exist_ok=True)
-        tmp = os.path.join(out, f"lib{stem}.{os.getpid()}.tmp.so")
-        res = subprocess.run(["g++", *flags, "-o", tmp, src],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {src} failed:\n"
-                               f"{res.stderr[-4000:]}")
-        os.replace(tmp, so)
+        with _locked(out):
+            if not os.path.exists(so):
+                os.makedirs(out, exist_ok=True)
+                tmp = os.path.join(out, f"lib{stem}.{os.getpid()}.tmp.so")
+                res = subprocess.run(["g++", *flags, "-o", tmp, src],
+                                     capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(f"building {src} failed:\n"
+                                       f"{res.stderr[-4000:]}")
+                os.replace(tmp, so)
     return ctypes.CDLL(so)
 
 

@@ -57,6 +57,17 @@ def supports(K: int, N: int, n_groups: int) -> bool:
     return kb >= group and nb > 0 and (kb == K or (kb // 2) % 128 == 0)
 
 
+def launchable(K: int, N: int, n_groups: int) -> bool:
+    """The shapes the CUDA kernels take: N a multiple of 128, a group that
+    is a multiple of 16 up to ``MAX_GROUP``.  A tensor-parallel slice of a
+    projection inside ``supports`` may fall outside it
+    (``parallel/shard.py``)."""
+    if n_groups < 1 or K % 2 or K % n_groups:
+        return False
+    group = K // n_groups
+    return group % 16 == 0 and 16 <= group <= MAX_GROUP and N % 128 == 0
+
+
 def matmul_int4_packed_plain(x: torch.Tensor, wp: torch.Tensor,
                              scales: torch.Tensor,
                              bias: torch.Tensor | None = None
@@ -104,9 +115,8 @@ def matmul_int4_packed(x: torch.Tensor, wp: torch.Tensor,
     K2, N = wp.shape
     n_groups = scales.shape[0]
     group = K // n_groups if n_groups else 0
-    if (K2 * 2 != K or K % max(n_groups, 1) or group < 16 or group % 16
-            or group > MAX_GROUP or N % 128 or M < 1
-            or tuple(scales.shape) != (n_groups, N)):
+    if (K2 * 2 != K or M < 1 or tuple(scales.shape) != (n_groups, N)
+            or not launchable(K, N, n_groups)):
         raise ValueError(
             f"matmul_int4_packed kernel: needs wp [K/2, N] with N % 128 == 0 "
             f"and a group that is a multiple of 16 up to {MAX_GROUP}; got "

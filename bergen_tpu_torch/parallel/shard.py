@@ -1,0 +1,235 @@
+"""One rank's slice of a llama-family parameter tree (the port's
+counterpart of ``bergen_tpu/models/llama.py``'s ``_linear_specs`` :1349,
+``param_shardings`` :1376 and ``cache_shardings`` :259).
+
+Column-parallel (the output dimension split over the ``model`` axis): q,
+k, v, gate, up and ``lm_head``; row-parallel (the input dimension): o and
+down.  The embedding and the norms are replicated.  A packed int4 leaf is
+sliced as its dense kernel would be: ``kernel_q4p``'s K/2 rows (rank r's
+rows are the codes of its K/tp input rows, two a byte) and
+``kernel_scale4``'s groups; a bias follows ``_linear_specs``: split with a
+column-parallel output, whole beside a row-parallel one (added once, after
+the sum over ranks).  Every sliced node keeps its whole ``[K, N]`` as
+``tp_shape`` (Python ints), from which ``models/llama.py`` tells a
+row-parallel product (its partial sums meet in an all-reduce) and takes
+the JAX package's routing rule on the whole shape, as JAX's model code
+sees it.
+
+Dimensions that tp does not divide follow JAX's rule (``jax_llm.py
+:143-150``: the leaf is replicated) where that gives the same answer: an
+``lm_head`` whose vocabulary tp does not divide stays whole on every rank,
+and k and v stay whole when tp does not divide the KV heads (JAX's
+engines replicate that cache, ``bergen_tpu/serve/engine.py:110-121``);
+each rank then keeps the KV heads its query heads read
+(``ShardConfig.kv_heads_kept``).  Query heads, the MLP width and the int4
+groups of a row-parallel leaf must divide, or ``shard_llama`` raises.
+
+A packed int4 slice launches the int4 kernel wherever the whole
+projection takes it, so it must lie inside the kernels' shapes
+(``int4_matmul.launchable``: N a multiple of 128), and so must a dense
+slice that ``convert.quantize_tree_int4`` packs after slicing (``int4``,
+as ``LLM`` shards before it quantizes).  An int4 ``lm_head`` whose column
+slice does not (SOLAR's and Llama-2-70B's 32,000 columns over 4 or 8
+ranks: 8,000 or 4,000) stays whole, as a vocabulary tp does not divide
+does; any other such slice raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List
+
+import torch
+
+from bergen_tpu_torch.models import convert
+from bergen_tpu_torch.ops import int4_matmul
+
+Params = Dict[str, Any]
+
+ROW = ("o", "down")  # the row-parallel projections; the rest by columns
+_LINEAR_KEYS = {"kernel", "bias", "kernel_q4p", "kernel_scale4", "tp_shape"}
+
+
+def kept_kv_heads(num_heads: int, num_kv_heads: int, tp: int,
+                  model_rank: int) -> tuple[int, ...] | None:
+    """The KV heads rank ``model_rank`` reads when tp does not divide them
+    (None: they are sharded).  Its query heads are ``[r * H/tp, (r+1) *
+    H/tp)``, each reading KV head ``h // (H / KH)``: one head when those
+    query heads lie in one group, else one KV head a query head (a local
+    group of 1), so that every local group has one width."""
+    if num_kv_heads % tp == 0:
+        return None
+    per = num_heads // tp
+    group = num_heads // num_kv_heads
+    first = model_rank * per
+    if group % per == 0:
+        return (first // group,)
+    return tuple((first + h) // group for h in range(per))
+
+
+def local_config(cfg, tp: int, model_rank: int):
+    """``cfg`` as rank ``model_rank`` of ``tp`` sees it (a
+    ``llama.ShardConfig``): its query heads, its KV heads and its MLP
+    width, the head width kept, and ``tp``."""
+    H, KH, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+    if H % tp or I % tp:
+        raise ValueError(
+            f"tp={tp} must divide num_heads ({H}) and intermediate_size "
+            f"({I})")
+    from bergen_tpu_torch.models.llama import LlamaConfig, ShardConfig
+
+    kept = kept_kv_heads(H, KH, tp, model_rank)
+    whole = {f.name: getattr(cfg, f.name)
+             for f in dataclasses.fields(LlamaConfig)}
+    return ShardConfig(**dict(
+        whole, num_heads=H // tp,
+        num_kv_heads=KH // tp if kept is None else len(kept),
+        intermediate_size=I // tp, head_dim_override=cfg.head_dim),
+        tp=tp, kv_heads_kept=kept)
+
+
+def _whole(node: Params) -> tuple[int, int]:
+    if "kernel" in node:
+        return tuple(node["kernel"].shape)
+    return node["kernel_q4p"].shape[0] * 2, node["kernel_q4p"].shape[1]
+
+
+def _check_linear(node: Params, where: str) -> None:
+    extra = set(node) - _LINEAR_KEYS
+    if extra:
+        raise NotImplementedError(
+            f"{where}: leaves {sorted(extra)} under tensor parallelism (int8, "
+            "W8A8 and LoRA trees: ROADMAP.md Queue 1 #10, multi-GPU)")
+
+
+def _launches(node: Params, tp: int, int4: bool) -> bool:
+    """False where the whole int4 projection (packed, or dense and packed
+    after slicing: ``int4``) takes the kernel (``int4_matmul.supports`` on
+    the whole shape: the route its slices take, ``models/llama.py``) and
+    its column slice over tp ranks falls outside the kernels' shapes.  A
+    row slice of whole groups keeps the group and N, so it stays inside."""
+    K, N = _whole(node)
+    if "kernel_q4p" in node:
+        groups = node["kernel_scale4"].shape[0]
+    elif int4 and convert.int4_quantizes(K, N):
+        groups = K // convert.INT4_GROUP
+    else:
+        return True
+    return not int4_matmul.supports(K, N, groups) or \
+        int4_matmul.launchable(K, N // tp, groups)
+
+
+def _piece(t: torch.Tensor, dim: int, tp: int, r: int) -> torch.Tensor:
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def _column(node: Params, tp: int, r: int, where: str,
+            int4: bool = False) -> Params:
+    _check_linear(node, where)
+    K, N = _whole(node)
+    if not _launches(node, tp, int4):
+        raise ValueError(
+            f"{where}: its int4 slice of {N // tp} of {N} columns is outside "
+            "the int4 kernels' shapes (a multiple of 128 columns)")
+    out: Params = {"tp_shape": [K, N]}
+    for key, t in node.items():
+        if key != "tp_shape":
+            out[key] = _piece(t, t.dim() - 1, tp, r)
+    return out
+
+
+def _row(node: Params, tp: int, r: int, where: str) -> Params:
+    _check_linear(node, where)
+    K, N = _whole(node)
+    groups = node["kernel_scale4"].shape[0] if "kernel_scale4" in node else 0
+    if groups % tp:
+        raise ValueError(
+            f"{where}: tp={tp} does not divide its {groups} int4 groups")
+    out: Params = {"tp_shape": [K, N]}
+    for key, t in node.items():
+        if key in ("kernel", "kernel_q4p", "kernel_scale4"):
+            out[key] = _piece(t, 0, tp, r)
+        elif key == "bias":
+            out[key] = t.clone()
+    return out
+
+
+def _copy(tree):
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy(v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def shard_llama(params: Params, cfg, tp: int, model_rank: int,
+                int4: bool = False):
+    """(rank ``model_rank``'s slice of ``params``, its ``local_config``);
+    ``int4``: the slice is packed next (``convert.quantize_tree_int4``).
+    Each slice is a contiguous copy, so that a tree of views of the mapped
+    checkpoint (``convert.load_checkpoint``) copies only this rank's bytes
+    of a sharded leaf."""
+    local = local_config(cfg, tp, model_rank)
+    r = model_rank
+    out: Params = {"embed": params["embed"].clone(),
+                   "final_norm": _copy(params["final_norm"]), "layers": []}
+    for li, layer in enumerate(params["layers"]):
+        if "moe" in layer:
+            raise NotImplementedError(
+                "expert sharding (ROADMAP.md Queue 1 #5, Mixtral)")
+        entry = {k: _copy(v) for k, v in layer.items()
+                 if k not in ("attn", "mlp")}
+        attn = {}
+        for n in ("q", "k", "v", "o"):
+            where = f"layers.{li}.attn.{n}"
+            if n in ("k", "v") and local.kv_heads_kept is not None:
+                _check_linear(layer["attn"][n], where)
+                attn[n] = _copy(layer["attn"][n])  # replicated, as JAX
+            elif n == "o":
+                attn[n] = _row(layer["attn"][n], tp, r, where)
+            else:
+                attn[n] = _column(layer["attn"][n], tp, r, where, int4)
+        entry["attn"] = attn
+        mlp = layer["mlp"]
+        entry["mlp"] = {
+            n: _row(mlp[n], tp, r, f"layers.{li}.mlp.{n}") if n in ROW
+            else _column(mlp[n], tp, r, f"layers.{li}.mlp.{n}", int4)
+            for n in ("gate", "up", "down")}
+        out["layers"].append(entry)
+    if "lm_head" in params:
+        head = params["lm_head"]
+        if _whole(head)[1] % tp or not _launches(head, tp, int4):
+            _check_linear(head, "lm_head")
+            out["lm_head"] = _copy(head)  # replicated, as JAX
+        else:
+            out["lm_head"] = _column(head, tp, r, "lm_head", int4)
+    return out, local
+
+
+def unshard_llama(shards: List[Params]) -> Params:
+    """The whole tree back from every rank's slice, in rank order: each
+    sliced leaf joined along its split dimension, every other leaf rank
+    0's."""
+    def join(nodes):
+        first = nodes[0]
+        if isinstance(first, list):
+            return [join([n[i] for n in nodes]) for i in range(len(first))]
+        if not isinstance(first, dict):
+            return first
+        if "tp_shape" not in first:
+            return {k: join([n[k] for n in nodes]) for k in first}
+        K = _whole(first)[0]
+        row = K != first["tp_shape"][0]
+        out = {}
+        for key, t in first.items():
+            if key == "tp_shape":
+                continue
+            if row and key == "bias":
+                out[key] = t
+            else:
+                out[key] = torch.cat([n[key] for n in nodes],
+                                     dim=0 if row else t.dim() - 1)
+        return out
+
+    return join(shards)

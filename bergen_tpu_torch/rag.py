@@ -9,6 +9,13 @@ evaluates rankings against qrels, and writes the per-experiment
 context processing and generation, and ``train()``: generator fine-tuning
 over the retrieved contexts (``train/trainer.py``).  Every stage runs on
 ``device`` (default ``cuda``).
+
+Under ``torchrun`` (a tensor-parallel generator, ``tp`` ranks) rank 0 runs
+every stage before generation, unsharded, and writes their artifacts; the
+other ranks build the generator alone.  Rank 0 then hands the generation
+rows to every rank (a broadcast, which is also the barrier), all ranks
+generate together, and rank 0 alone writes ``eval_*_out.json``, the
+metrics and the experiment folder, named as in one process.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from bergen_tpu_torch import confy, utils
 from bergen_tpu_torch import device as _device
 from bergen_tpu_torch.data.processor import ProcessDatasets
 from bergen_tpu_torch.metrics import RAGMetrics
+from bergen_tpu_torch.parallel import mesh as _mesh
 from bergen_tpu_torch.pipeline.generate_query import GenerateQueries
 from bergen_tpu_torch.pipeline.process_context import ProcessContext
 from bergen_tpu_torch.pipeline.rerank import Rerank
@@ -85,6 +93,12 @@ class RAG:
 
         self.training_config = train
         self.device = _device.resolve(device)
+        # under torchrun, rank 0 runs the stages; every rank generates
+        self.rank = _mesh.rank()
+        if train is not None and _mesh.world_size() > 1:
+            raise NotImplementedError(
+                "the train stage under torchrun: LoRA and full SFT with tp > "
+                "1 are not ported (ROADMAP.md Queue 1 #10, multi-GPU)")
         self.debug = debug
         self.dataset_folder = dataset_folder
         self.experiments_folder = experiments_folder
@@ -108,6 +122,12 @@ class RAG:
 
         assert self.generation_top_k <= self.rerank_top_k <= self.retrieve_top_k
 
+        if self.rank != 0:
+            self.generator = (
+                confy.instantiate(generator["init_args"], prompt=prompt,
+                                  device=self.device)
+                if generator is not None else None)
+            return
         self.run_name, self.experiment_folder = utils.init_experiment(
             config, experiments_folder, index_folder, runs_folder, run_name,
             overwrite_exp=overwrite_exp, continue_batch=continue_batch,
@@ -149,6 +169,12 @@ class RAG:
         self.query_generator = GenerateQueries(
             generator=self.generator, **query_generator, device=self.device
         )
+        if hasattr(self.query_generator.model, "set_generator") and \
+                _mesh.world_size() > 1:
+            raise NotImplementedError(
+                "a query generator that rewrites with the tensor-parallel "
+                "generator runs on rank 0 alone (ROADMAP.md Queue 1 #10, "
+                "multi-GPU)")
         self.context_processor = (
             ProcessContext(**context_processor, device=self.device)
             if context_processor is not None
@@ -158,6 +184,12 @@ class RAG:
     # ------------------------------------------------------------------ #
 
     def eval(self, dataset_split: str) -> None:
+        if self.rank != 0:
+            # rank 0's generation rows, then this rank's part of generating
+            gen_dataset = _mesh.broadcast_object(None)
+            if self.generator is not None:
+                self.generator.eval(gen_dataset)
+            return
         dataset = self.datasets[dataset_split]
         query_dataset_name = dataset["query"].name
         doc_dataset_name = (
@@ -200,6 +232,7 @@ class RAG:
                         gen_dataset, query_dataset_name, doc_dataset_name,
                         dataset_split,
                     )
+            gen_dataset = _mesh.broadcast_object(gen_dataset)
 
             if self.generator is not None:
                 with timer.track("generate"):

@@ -51,6 +51,10 @@ def init_lora(params: Dict[str, Any], rank: int, alpha: float,
     for path, node in _walk(params):
         if path.split(".")[0] == "lm_head":
             continue  # peft's 'all-linear' excludes the output head
+        if "tp_shape" in node:
+            raise NotImplementedError(
+                f"LoRA on {path}, a tensor-parallel slice (ROADMAP.md Queue "
+                "1 #10, multi-GPU)")
         d_in, d_out = node["kernel"].shape
         dev = node["kernel"].device
         a = torch.randn(d_in, rank, generator=generator, dtype=dtype)

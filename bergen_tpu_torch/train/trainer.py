@@ -40,6 +40,11 @@ class SFTTrainer:
         output_dir: str,
         seed: int = 42,
     ):
+        if getattr(generator, "tp", 1) > 1:
+            raise NotImplementedError(
+                f"training a tp={generator.tp} generator: LoRA and full SFT "
+                "under tensor parallelism are not ported (ROADMAP.md Queue 1 "
+                "#10, multi-GPU)")
         if getattr(generator, "quantization_route", None) is not None:
             raise NotImplementedError(
                 f"training a {generator.quantization_route} generator: its "

@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only int4_matmul,...  # build + those checks
     python3 chip_smoke.py --profile-serve         # build + serving profile
     python3 chip_smoke.py --context               # build + the context paths
+    python3 chip_smoke.py --tp                    # build + the tp paths
     python3 chip_smoke.py --context-kernels SHAPES ROWS  # (run by the
         # script itself) the context paths' kernel checks at SHAPES, the
         # rows written to ROWS
@@ -20,7 +21,7 @@ Phases (each prints one JSON line):
      layouts), Llama-2-7b-chat (13.5 GB of sharded safetensors) and
      Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
      then Llama-3.2-3B-Instruct (llama3 rope scaling, tied embeddings)
-     and Qwen2.5-7B-Instruct (seeded q/k/v biases), both at 8 of their 28
+     and Qwen2.5-7B-Instruct (seeded q/k/v biases), both at 4 of their 28
      layers (``SMOKE_LLAMA3_QWEN2_LAYERS``),
      with byte-level BPE tokenizers in the layouts of their published
      files (the port's trainer on the ut1 text, seeded random byte tokens
@@ -61,7 +62,9 @@ Phases (each prints one JSON line):
      TinyLlama's, Qwen2.5-7B's and Phi-3's head shapes), the int8
      quantizer on the card against the CPU, flash at head width 96
      (Phi-3) and on right-padded rows (RepLlama), and Phi-3's paged decode
-     step with its window against the slot-pool attention;
+     step with its window against the slot-pool attention; decode
+     attention, the paged partial and the int4 product at the
+     tensor-parallel paths' per-rank shapes (``check_tp_shards``);
   4. the main path, ``python -m bergen_tpu_torch`` (the rag_ut1 config) on
      dataset ut1, each part in a fresh folder: the dense eval (retriever,
      TinyLlama generator), the same with the nomic-embed retriever and with
@@ -149,6 +152,19 @@ The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 before it.  Kernel launch counts are zeroed just before each part of the
 main path and read just after it, so the comparisons of phase 3 do not
 count; a kernel that a part runs must show launches there.
+
+Tensor parallelism, last of phase 4 (``--tp`` runs only it, after the
+build and the small checkpoints): Llama-2-13B, SOLAR-10.7B and
+Llama-2-70B at their published widths and 2 layers, each path as
+``torchrun --standalone`` ranks that all share this card over gloo (NCCL
+refuses two ranks on one device), each rank counting its own launches
+(``tp_rank_main``): rag_ut1 with ``generator=llama-2-13b-chat`` on 2 ranks,
+static and served paged (``ut1_tp2_llama2_13b``, ``_paged``), the default
+judge in logits mode on 4 (``judge_tp4_solar``), the 70B generator alone
+on 8 (``gen_tp8_llama2_70b``); then each against tp 1 on this card
+(``check_tp_against_tp1``). The ranks time-slice the card, so no time of
+these paths is a tensor-parallel speed.  Every phase line is also written
+to ``chiprun_out/chip_smoke_phases.jsonl``.
 """
 
 from __future__ import annotations
@@ -289,6 +305,13 @@ PATH_KERNELS = {
     "ut1_xrag": ("encoder_layer", "flash_attention", "decode_attention"),
     "ut1_train_lora": ("encoder_layer", "decode_attention"),
     "provence_train": (),
+    # tensor parallelism, the ranks' launches summed: the 13B generator's
+    # static and served paged evals (rank 0 retrieves), the SOLAR judge's
+    # logits prefills (flash prefill on), the 70B generator alone
+    "ut1_tp2_llama2_13b": ("encoder_layer", "decode_attention"),
+    "ut1_tp2_llama2_13b_paged": ("encoder_layer", "paged_attention"),
+    "judge_tp4_solar": ("flash_attention",),
+    "gen_tp8_llama2_70b": ("decode_attention",),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
@@ -324,8 +347,17 @@ PREBIAS_SHAPES = ((256, 512), (256, 128), (256, 64), (244, 64), (256, 32))
 DEBERTA_SPLIT_SHAPES = ((256, 512), (256, 128))
 
 
+# every phase line is also appended here: the whole record, where a
+# caller may keep only the end of the script's output
+PHASE_LOG = os.path.join(REPO, "chiprun_out", "chip_smoke_phases.jsonl")
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(PHASE_LOG), exist_ok=True)
+    with open(PHASE_LOG, "a") as f:
+        f.write(line + "\n")
 
 
 # host bytes of checkpoint shards that ``shared_checkpoint_reads`` keeps
@@ -334,17 +366,20 @@ SHARED_READ_BYTES = 24e9
 
 @contextlib.contextmanager
 def shared_checkpoint_reads():
-    """``convert.load_safetensors`` memoized by file (real path, size,
-    mtime) while the block runs, least recently used files dropped past
-    ``SHARED_READ_BYTES``: each checkpoint shard is read once for all the phases
-    and card-against-CPU checks that load it (``first_layers`` links the
-    shards of its source).  Every reader copies what it keeps (a cast, a
-    transpose made contiguous, or a move to the card)."""
+    """``convert.load_safetensors`` (views of the mapped file) memoized by
+    file (real path, size, mtime) while the block runs, least recently
+    used files dropped past ``SHARED_READ_BYTES`` and deleted files at the
+    next load: each checkpoint shard is mapped and paged in once for all
+    the phases and card-against-CPU checks that load it (``first_layers``
+    links the shards of its source).  Every reader copies what it keeps (a
+    cast, a transpose made contiguous, or a move to the card)."""
     from bergen_tpu_torch.models import convert
 
     read, cache = convert.load_safetensors, {}
 
     def load(path):
+        for key in [k for k in cache if not os.path.exists(k[0])]:
+            cache.pop(key)  # a deleted checkpoint's mapping goes with it
         st = os.stat(path)
         key = (os.path.realpath(path), st.st_size, st.st_mtime_ns)
         if key in cache:
@@ -3497,7 +3532,7 @@ def write_byte_level_tokenizer(path: str, family: str, seed: int) -> dict:
 # each), cut since the Gemma, Phi-3 and Command-R paths joined the run
 # (to 4 when the context paths did; back to 8 since each checkpoint shard
 # is read once, ``shared_checkpoint_reads``)
-SMOKE_LLAMA3_QWEN2_LAYERS = 8
+SMOKE_LLAMA3_QWEN2_LAYERS = 4  # 8 before the tp paths, cut for their time
 
 
 def write_llama32_3b(root: str, dev) -> str:
@@ -3571,11 +3606,11 @@ COMMAND_R = dict(model_type="cohere", vocab_size=256000, hidden_size=8192,
                  torch_dtype="bfloat16")
 # the depth each path runs (full published widths), cut so that the script
 # stays within its time (PERF.md section 4)
-SMOKE_GEMMA7B_LAYERS = 8  # 4 with the context paths, before shared reads
-SMOKE_GEMMA2B_LAYERS = 8
-SMOKE_GEMMA2_9B_LAYERS = 4
-SMOKE_PHI3_LAYERS = 4
-SMOKE_COMMAND_R_LAYERS = 4  # 2 with the context paths, before shared reads
+SMOKE_GEMMA7B_LAYERS = 4  # 8 before the tp paths, cut for their time
+SMOKE_GEMMA2B_LAYERS = 4  # 8 before the tp paths, cut for their time
+SMOKE_GEMMA2_9B_LAYERS = 2  # 4 before the tp paths, cut for their time
+SMOKE_PHI3_LAYERS = 2  # 4 before the tp paths, cut for their time
+SMOKE_COMMAND_R_LAYERS = 2  # 4 before the tp paths, cut for their time
 # gemma-7b-it's chat template (no system role: the generator folds the
 # system prompt into the user turn on its raise_exception)
 GEMMA_CHAT_TEMPLATE = (
@@ -7419,6 +7454,756 @@ def drive_soft_train_paths(ckpt: dict, root: str, dev, drive) -> None:
           **timed(check_train_step_against_cpu, ckpt)})
 
 
+# --------------------------------------------------------------------------- #
+# tensor parallelism: T ranks on the one card over gloo
+# --------------------------------------------------------------------------- #
+
+# the published config.json of the checkpoints the tp > 1 generator configs
+# name: meta-llama/Llama-2-13b-chat-hf (llama-2-13b-chat, tp 2),
+# upstage/SOLAR-10.7B-Instruct-v1.0 (SOLAR-107B, the judge's default, tp 4)
+# and meta-llama/Llama-2-70b-chat-hf (llama-2-70b-chat, tp 8)
+LLAMA2_13B = dict(LLAMA2_7B, hidden_size=5120, num_hidden_layers=40,
+                  num_attention_heads=40, num_key_value_heads=40,
+                  intermediate_size=13824)
+SOLAR_10_7B = dict(LLAMA2_7B, hidden_size=4096, num_hidden_layers=48,
+                   num_attention_heads=32, num_key_value_heads=8,
+                   intermediate_size=14336)
+LLAMA2_70B = dict(LLAMA2_7B, hidden_size=8192, num_hidden_layers=80,
+                  num_attention_heads=64, num_key_value_heads=8,
+                  intermediate_size=28672)
+# SOLAR-10.7B-Instruct's tokenizer_config.json chat template
+SOLAR_CHAT_TEMPLATE = (
+    "{% for message in messages %}{% if message['role'] == 'system' %}"
+    "{% if message['content']%}{{'### System:\n' + message['content']"
+    "+'\n\n'}}{% endif %}{% elif message['role'] == 'user' %}"
+    "{{'### User:\n' + message['content']+'\n\n'}}"
+    "{% elif message['role'] == 'assistant' %}"
+    "{{'### Assistant:\n'  + message['content']}}{% endif %}"
+    "{% if loop.last and add_generation_prompt %}{{ '### Assistant:\n' }}"
+    "{% endif %}{% endfor %}")
+# (key, directory, config, chat template, seed, ranks): each at
+# TP_LAYERS of its layers, at its published widths
+TP_CKPTS = (("llama2_13b", "llama-2-13b-chat-random", LLAMA2_13B,
+             LLAMA2_CHAT_TEMPLATE, 21, 2),
+            ("solar", "solar-10.7b-instruct-random", SOLAR_10_7B,
+             SOLAR_CHAT_TEMPLATE, 22, 4),
+            ("llama2_70b", "llama-2-70b-chat-random", LLAMA2_70B,
+             LLAMA2_CHAT_TEMPLATE, 23, 8))
+TP_LAYERS = SMOKE_NEW_PATH_LAYERS
+TP_NEW_TOKENS = 16
+# every rank on this one card (gloo between them: NCCL refuses two ranks on
+# one device), and the tp 1 references on the card
+TP_DEVICE, TP_REF_DEVICE = "cuda:0", "cuda"
+TP_PATHS = ("ut1_tp2_llama2_13b", "ut1_tp2_llama2_13b_paged",
+            "judge_tp4_solar", "gen_tp8_llama2_70b")
+# tp against tp 1 on the card, both bf16: the row-parallel sums meet in
+# f32 in another order, which moves a bf16 rounding of a hidden value now
+# and then; the logits (|l| < 8 at random weights, bf16 ulp 1/32 there)
+# are held to 4 such ulps, and tp 1, forced along the tp run's tokens,
+# must find each of them within two such margins of its largest logit (a
+# near-tie: bf16 logits at random weights tie often)
+TP_LOGITS_TOL = 0.125
+TP_PROB_TOL = 0.01  # the judge's option probabilities (JUDGE_SCORE_TOL)
+# rank 0's greedy tokens at every forward step of each tp path, for
+# check_tp_against_tp1 (kept out of the phase lines)
+TP_TOPS: dict = {}
+# phase 3 at the per-rank shapes of those paths: decode attention and the
+# paged partial at Llama-2-13B over 2 ranks (H 20 = KH 20), SOLAR over 4
+# (H 8, KH 2) and Llama-2-70B over 8 (H 8, KH 1), head width 128; decode
+# at the generators' batch and a 512 bucket + 16 new tokens, paged at 32
+# slots of max_length 4,096 + 16 new tokens (34 pages a slot, a pool of
+# 544); the int4 product at every per-rank projection of the three
+# (``tp_int4_shards``), 8 decode rows
+TP_DECODE = ((32, 20, 20, 528), (8, 8, 2, 528), (8, 8, 1, 528))
+TP_PAGED = tuple(dict(S=32, H=H, KH=KH, Dh=128, maxP=34, NP=544)
+                 for _, H, KH, _ in TP_DECODE)
+# (B, S, H, KH): flash prefill at the SOLAR judge's per-rank heads over 4
+# ranks, its batch of 32 at the 128 bucket, left-padded
+TP_FLASH = ((32, 128, 8, 2),)
+
+
+def tp_int4_shards() -> list:
+    """``(K, N, whole K, whole N)`` of every int4 projection that a rank of
+    each ``TP_CKPTS`` config launches at ``quantization: int4`` (its
+    ``tp``), once each: as ``LLM`` does, the port's ``shard.shard_llama``
+    on a one-layer dense tree (meta tensors), then the leaves
+    ``convert.quantize_tree_int4`` packs.  Llama-2-13B over 2 ranks: q/k/v,
+    o, gate/up, down (54 groups) and the head's 16,000 columns; SOLAR over
+    4 and Llama-2-70B over 8 keep their 32,000-column head whole (8,000
+    and 4,000 columns are outside the kernels' shapes)."""
+    import types
+
+    import torch
+    from bergen_tpu_torch.models import convert, llama
+    from bergen_tpu_torch.parallel import shard
+
+    def dense(K, N):
+        return {"kernel": torch.empty(K, N, dtype=torch.bfloat16,
+                                      device="meta")}
+
+    def leaves(node):
+        if isinstance(node, list):
+            for v in node:
+                yield from leaves(v)
+        elif isinstance(node, dict):
+            if "kernel" in node:
+                K, N = node["kernel"].shape
+                Kw, Nw = node.get("tp_shape") or (K, N)
+                if convert.int4_quantizes(Kw, Nw, group=INT4_GROUP):
+                    yield K, N, Kw, Nw
+            else:
+                for v in node.values():
+                    yield from leaves(v)
+
+    out = []
+    for _, _, c, _, _, tp in TP_CKPTS:
+        cfg = llama.LlamaConfig.from_hf(types.SimpleNamespace(
+            **dict(c, num_hidden_layers=1)))
+        d, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+        qn, kn = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        norm = {"scale": torch.empty(d, device="meta")}
+        tree = {"embed": torch.empty(V, d, device="meta"),
+                "final_norm": norm, "lm_head": dense(d, V),
+                "layers": [{"attn_norm": norm, "mlp_norm": norm,
+                            "attn": {"q": dense(d, qn), "k": dense(d, kn),
+                                     "v": dense(d, kn), "o": dense(qn, d)},
+                            "mlp": {"gate": dense(d, I), "up": dense(d, I),
+                                    "down": dense(I, d)}}]}
+        for shape in leaves(shard.shard_llama(tree, cfg, tp, 0,
+                                              int4=True)[0]):
+            if shape not in out:
+                out.append(shape)
+    return out
+
+
+def check_tp_shards(results: dict, dev) -> None:
+    """Decode attention, the paged partial, the int4 product and flash
+    prefill against their plain versions at the tensor-parallel paths'
+    per-rank shapes (``TP_DECODE``, ``TP_PAGED``, ``tp_int4_shards``,
+    ``TP_FLASH``), with the library call on the same inputs; rows join each
+    kernel's results, marked ``tp_shard``."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.models.convert import (dequantize_int4,
+                                                 quantize_int4_packed,
+                                                 unpack_int4)
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import flash_attention as fa
+    from bergen_tpu_torch.ops import int4_matmul as im
+    from bergen_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rnd = _rnd(gen, dev)
+    Dh, scale = 128, 1.0 / math.sqrt(128)
+    for B, H, KH, L in TP_DECODE:
+        q = rnd(B, H, Dh).bfloat16()
+        kc, vc = rnd(B, L, KH * Dh).bfloat16(), rnd(B, L, KH * Dh).bfloat16()
+        pos = torch.arange(L, device=dev)[None, :]
+        start = torch.randint(0, L // 2, (B, 1), generator=gen, device=dev)
+        valid = pos >= start
+
+        def call():
+            return da.decode_attention(q, kc, vc, valid, kv_heads=KH,
+                                       sm_scale=scale)
+
+        def plain():
+            return da.decode_attention_plain(q, kc, vc, valid, kv_heads=KH,
+                                             sm_scale=scale)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kc.view(B, L, KH, Dh).transpose(1, 2),
+                vc.view(B, L, KH, Dh).transpose(1, 2),
+                attn_mask=valid[:, None, None, :], scale=scale,
+                enable_gqa=True)
+
+        err = _errors(call(), plain())
+        nbytes = 2 * B * L * KH * Dh * 2 + 2 * B * H * Dh * 2 + B * L
+        b_ms, b_by = bound(4 * B * H * L * Dh, nbytes, PEAK_F32_FLOPS)
+        row = {"tp_shard": True, "B": B, "L": L, "H": H, "KH": KH,
+               "head_dim": Dh, "max_abs_err": err[0], "tol": DECODE_TOL,
+               "launches_per_call": launches_per_call(da.decode_attention,
+                                                      call),
+               "ms": cuda_time_ms(call, iters=50),
+               "plain_ms": cuda_time_ms(plain, iters=10),
+               "library_ms": cuda_time_ms(library, iters=50),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_check", "kernel": "decode_attention", **row})
+        if err[0] > DECODE_TOL or row["launches_per_call"] != 1:
+            fail(f"decode_attention at the tp shard H{H} KH{KH}: {row}")
+        results.setdefault("decode_attention", []).append(row)
+    for g in TP_PAGED:
+        S, H, KH, maxP = g["S"], g["H"], g["KH"], g["maxP"]
+        c = _paged_case(gen, dev, False, g)
+        args = (c["q"], c["kp"], c["vp"], c["tables"], c["n"], c["scale"],
+                c["starts"])
+        live = (c["n"].long() * pa.PAGE > c["starts"].long())
+        _, _, ctx_err = _paged_errors(pa.paged_partial(*args),
+                                      pa.paged_partial_plain(*args),
+                                      live[:, None].expand(S, H))
+        T = maxP * pa.PAGE
+        pos = torch.arange(T, device=dev)[None, :]
+        valid = (pos < c["n"][:, None] * pa.PAGE) \
+            & (pos >= c["starts"][:, None])
+        idx = c["tables"].long()
+
+        def library():
+            kg = c["kp"][idx].transpose(1, 2).reshape(S, KH, T, Dh)
+            vg = c["vp"][idx].transpose(1, 2).reshape(S, KH, T, Dh)
+            return F.scaled_dot_product_attention(
+                c["q"][:, :, None, :], kg, vg,
+                attn_mask=valid[:, None, None, :], scale=c["scale"],
+                enable_gqa=True)
+
+        keys = int(valid.sum().item())
+        nbytes = (2 * keys * KH * Dh * 2 + S * H * Dh * 2 + S * H * Dh * 4
+                  + 2 * S * H * 4 + S * maxP * 4 + 2 * S * 4)
+        b_ms, b_by = bound(4 * keys * H * Dh, nbytes)
+        row = {"tp_shard": True, "case": "ut1", "S": S, "H": H, "KH": KH,
+               "head_dim": Dh, "keys": keys, "max_abs_err": ctx_err,
+               "tol": PAGED_CTX_TOL,
+               "launches_per_call": launches_per_call(
+                   pa.paged_partial, lambda: pa.paged_partial(*args)),
+               "ms": cuda_time_ms(lambda: pa.paged_partial(*args), iters=50),
+               "plain_ms": cuda_time_ms(
+                   lambda: pa.paged_partial_plain(*args), iters=3),
+               "library_ms": cuda_time_ms(library, iters=20),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_check", "kernel": "paged_attention", **row})
+        if ctx_err > PAGED_CTX_TOL or row["launches_per_call"] != 1:
+            fail(f"paged_attention at the tp shard H{H} KH{KH}: {row}")
+        results.setdefault("paged_attention", []).append(row)
+        torch.cuda.empty_cache()
+    M = 8
+    for K, N, Kw, Nw in tp_int4_shards():
+        if not im.supports(Kw, Nw, Kw // INT4_GROUP):
+            fail(f"int4_matmul: the whole {Kw} x {Nw} of the shard {K} x {N} "
+                 "is outside the kernel's shape rule")
+        wp, sc = quantize_int4_packed((rnd(K, N) * 0.02).bfloat16(),
+                                      INT4_GROUP)
+        w_bf = dequantize_int4(unpack_int4(wp), sc, torch.bfloat16)
+        x = rnd(M, K).bfloat16()
+        err = _errors(im.matmul_int4_packed(x, wp, sc),
+                      im.matmul_int4_packed_plain(x, wp, sc))
+        b_ms, b_by = bound(2 * M * K * N, K * N // 2 + K // INT4_GROUP * N * 4
+                           + M * K * 2 + M * N * 4)
+        row = {"tp_shard": True, "M": M, "K": K, "N": N, "whole": [Kw, Nw],
+               "group": INT4_GROUP,
+               "max_abs_err": err[0], "tol": INT4_TOL,
+               "launches_per_call": launches_per_call(
+                   im.matmul_int4_packed,
+                   lambda: im.matmul_int4_packed(x, wp, sc)),
+               "ms": cuda_time_ms(lambda: im.matmul_int4_packed(x, wp, sc),
+                                  iters=50),
+               "plain_ms": cuda_time_ms(
+                   lambda: im.matmul_int4_packed_plain(x, wp, sc), iters=1,
+                   warmup=1),
+               "library_ms": cuda_time_ms(lambda: torch.matmul(x, w_bf),
+                                          iters=50),
+               "library": "bf16 torch.matmul on the dequantized weight",
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_check", "kernel": "int4_matmul", **row})
+        if err[0] > INT4_TOL or row["launches_per_call"] != 1:
+            fail(f"int4_matmul at the tp shard K{K} N{N}: {row}")
+        results.setdefault("int4_matmul", []).append(row)
+        del wp, sc, w_bf, x
+        torch.cuda.empty_cache()
+    for B, S, H, KH in TP_FLASH:
+        q = rnd(B, S, H, Dh).bfloat16()
+        k4, v4 = rnd(B, S, KH, Dh).bfloat16(), rnd(B, S, KH, Dh).bfloat16()
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        pos = torch.arange(S, device=dev)
+        valid = pos[None, :] >= (S - lens)[:, None]  # left padding
+        causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+        amask = (causal[None] & valid[:, None, :])[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k4, v4))
+        err = _errors(fa.flash_attention(q, k4, v4, valid),
+                      fa.flash_attention_plain(q, k4, v4, valid))
+        ops = 4 * H * Dh * int(amask.sum().item())
+        b_ms, b_by = bound(ops, 2 * B * S * H * Dh * 2
+                           + 2 * B * S * KH * Dh * 2 + B * S)
+        row = {"tp_shard": True, "B": B, "S": S, "H": H, "KH": KH,
+               "head_dim": Dh, "max_abs_err": err[0], "tol": FLASH_TOL,
+               "launches_per_call": launches_per_call(
+                   fa.flash_attention,
+                   lambda: fa.flash_attention(q, k4, v4, valid)),
+               "ms": cuda_time_ms(lambda: fa.flash_attention(q, k4, v4,
+                                                             valid)),
+               "plain_ms": cuda_time_ms(
+                   lambda: fa.flash_attention_plain(q, k4, v4, valid),
+                   iters=2, warmup=1),
+               "library_ms": cuda_time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=amask, enable_gqa=True)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_check", "kernel": "flash_attention", **row})
+        if err[0] > FLASH_TOL or row["launches_per_call"] != 1:
+            fail(f"flash_attention at the tp shard H{H} KH{KH}: {row}")
+        results.setdefault("flash_attention", []).append(row)
+
+
+def write_tp_checkpoint(root: str, dev, key: str) -> str:
+    """One of ``TP_CKPTS`` at its published widths and ``TP_LAYERS``
+    layers, with a word-level tokenizer over the fixture words whose last
+    ids are ``JUDGE_WORDS`` (the judge's options) and its chat template."""
+    from bergen_tpu_torch.models.tokenizer import write_tokenizer
+
+    _, name, c, template, seed, _ = next(t for t in TP_CKPTS if t[0] == key)
+
+    def tokenizer(path):
+        V = c["vocab_size"]
+        vocab = _vocab({"<unk>": 0, "<s>": 1, "</s>": 2}, V, "<extra_{}>")
+        for i, word in enumerate(JUDGE_WORDS, start=V - len(JUDGE_WORDS)):
+            vocab[word] = vocab.pop(f"<extra_{i}>")
+        write_tokenizer(path, "WordLevel", vocab,
+                        {"bos_token": "<s>", "eos_token": "</s>",
+                         "unk_token": "<unk>"},
+                        lowercase=True, chat_template=template)
+
+    return _write_sharded_llama(os.path.join(root, name), dev,
+                                dict(c, num_hidden_layers=TP_LAYERS),
+                                template, seed, tokenizer=tokenizer)
+
+
+def tp_rank_main(spec_file: str) -> None:
+    """One rank of the tensor-parallel paths, started by ``torchrun`` from
+    ``run_tp``: for each of the spec's runs, in turn, every kernel's
+    launches and every ``llama.forward`` step of this process counted from
+    0 (S, rows, and the decode, paged and flash attentions in it), then the
+    run's entry point, as a user runs it: the CLI (``python -m
+    bergen_tpu_torch``), the judge (``python -m bergen_tpu_torch.evaluate``)
+    or ``LLM.generate``.  Rank 0 keeps every step's greedy tokens and the
+    first step's last logits."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.ops import decode_attention as da
+    from bergen_tpu_torch.ops import flash_attention as fa
+    from bergen_tpu_torch.ops import paged_attention as pa
+
+    with open(spec_file) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    counters = kernel_wrappers()
+    forward = llama.forward
+    for k, run in enumerate(spec["runs"]):
+        for fn in counters.values():
+            fn.launches = 0
+        steps, tops = [], []
+
+        def counted(params, cfg, input_ids, positions, cache, *a,
+                    steps=steps, tops=tops, k=k, **kw):
+            before = (da.decode_attention.launches,
+                      pa.paged_partial.launches, fa.flash_attention.launches)
+            out = forward(params, cfg, input_ids, positions, cache, *a, **kw)
+            after = (da.decode_attention.launches, pa.paged_partial.launches,
+                     fa.flash_attention.launches)
+            steps.append([input_ids.shape[1], input_ids.shape[0],
+                          *(x - y for x, y in zip(after, before))])
+            if rank == 0:
+                last = out[:, -1].float()
+                if not tops:
+                    np.save(os.path.join(spec["out"],
+                                         f"first_logits{k}.npy"),
+                            last.cpu().numpy())
+                tops.append(last.argmax(dim=-1).tolist())
+            return out
+
+        llama.forward = counted
+        llama.USE_FLASH_PREFILL = run.get("flash_prefill") or None
+        os.chdir(run["cwd"])
+        result = {"rank": rank}
+        t0 = time.perf_counter()
+        if run["entry"] == "cli":
+            from bergen_tpu_torch import __main__ as cli
+
+            os.environ["CONFIG"] = "rag_ut1"
+            cli.cli(run["argv"])
+        elif run["entry"] == "evaluate":
+            from bergen_tpu_torch import evaluate
+
+            evaluate.main(run["argv"])
+        else:
+            from bergen_tpu_torch.models.generators.llm import LLM
+            from bergen_tpu_torch.parallel import mesh
+
+            mesh.init(run["device"], "gloo")
+            llm = LLM(run["model"], tp=run["tp"], device=run["device"],
+                      **run["llm"])
+            result["texts"] = llm.generate(run["prompts"])
+        cuda = torch.cuda.is_available()
+        if cuda:
+            torch.cuda.synchronize()
+        result.update(wall_s=time.perf_counter() - t0, steps=steps,
+                      launches={n: fn.launches for n, fn in counters.items()},
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
+                      else None, tops=tops if rank == 0 else None)
+        with open(os.path.join(spec["out"], f"rank{rank}.{k}.json"),
+                  "w") as f:
+            json.dump(result, f)
+
+
+def run_tp(ranks: int, runs: list, workdir: str,
+           timeout: float = 420) -> tuple[list, float]:
+    """``torchrun --standalone --nproc-per-node ranks chip_smoke.py
+    --tp-rank SPEC`` (every rank on ``cuda:0``, gloo between them) over the
+    spec's ``runs``, one after another in the same ranks; returns (each
+    run's records, a list over the ranks; wall seconds).  The whole process
+    group is killed if it outlives ``timeout``."""
+    import signal
+
+    out = os.path.join(workdir, "ranks")
+    os.makedirs(out, exist_ok=True)
+    spec_file = os.path.join(out, "spec.json")
+    with open(spec_file, "w") as f:
+        json.dump({"runs": runs, "out": out}, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO, os.environ.get("PYTHONPATH", "")]).rstrip(
+                       os.pathsep))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={ranks}", os.path.abspath(__file__),
+         "--tp-rank", spec_file], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{workdir}: {ranks} ranks outlived {timeout} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{workdir}: torchrun over {ranks} ranks exited "
+             f"{proc.returncode}:\n{log[-6000:]}")
+    recs = []
+    for k in range(len(runs)):
+        recs.append([])
+        for r in range(ranks):
+            with open(os.path.join(out, f"rank{r}.{k}.json")) as f:
+                recs[k].append(json.load(f))
+    return recs, wall
+
+
+def _tp_launches(path: str, recs: list, rule: tuple) -> dict:
+    """Every rank's forward steps against ``rule`` = (decode, paged, flash
+    attentions a decode step, flash attentions a prefill): exact, on every
+    rank.  Returns the launches summed over the ranks and the counts."""
+    dec, paged, flash_dec, flash_pre = rule
+    for rec in recs:
+        st = rec["steps"]
+        bad = [s for s in st if tuple(s[2:]) != (
+            (dec, paged, flash_dec) if s[0] == 1 else (0, 0, flash_pre))]
+        if bad or not st:
+            fail(f"{path} rank {rec['rank']}: {len(st)} forward steps, "
+                 f"{len(bad)} off the rule (S, rows, decode, paged, flash) "
+                 f"{bad[:3]}: (1, _, {dec}, {paged}, {flash_dec}) or "
+                 f"(S, _, 0, 0, {flash_pre})")
+    if len({len(rec["steps"]) for rec in recs}) != 1:
+        fail(f"{path}: the ranks took {[len(r['steps']) for r in recs]} "
+             "forward steps")
+    total = {n: sum(rec["launches"][n] for rec in recs)
+             for n in recs[0]["launches"]}
+    st = recs[0]["steps"]
+    return {"launches": total,
+            "rank_launches": [{n: v for n, v in rec["launches"].items() if v}
+                              for rec in recs],
+            "forward_steps": len(st),
+            "decode_steps": sum(1 for s in st if s[0] == 1),
+            "prefill_shapes": sorted({(s[1], s[0]) for s in st if s[0] > 1}),
+            "rank_wall_s": [rec["wall_s"] for rec in recs],
+            "rank_peak_gb": [rec["peak_gb"] for rec in recs]}
+
+
+# the served paged 13B eval's ranks' records, taken in the same torchrun as
+# the static eval's (the ranks' start-up and retrieval model load once)
+TP_PAGED_RECS: dict = {}
+
+
+def _tp_argv(ckpt: dict, extra: list[str]) -> list[str]:
+    """rag_ut1 with the Llama-2-13B generator (tp 2) through the CLI."""
+    return ["retriever=bge-base-en-v1.5",
+            f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+            "generator=llama-2-13b-chat",
+            f"generator.init_args.model_name={_local(ckpt, 'llama2_13b')}",
+            f"generator.init_args.max_new_tokens={TP_NEW_TOKENS}", *extra,
+            f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}",
+            f"device={TP_DEVICE}", "dist_backend=gloo"]
+
+
+def _tp_13b_result(path: str, recs: list, wall: float, workdir: str,
+                   paged: bool) -> dict:
+    exp = _experiment(workdir)
+    TP_TOPS[path] = recs[0]["tops"]
+    rule = (0, TP_LAYERS, 0, 0) if paged else (TP_LAYERS, 0, 0, 0)
+    return {"wall_s": wall, "exp": exp, "ranks": len(recs),
+            **_tp_launches(path, recs, rule), **_check_outputs(exp)}
+
+
+def run_ut1_tp2_llama2_13b(ckpt: dict, workdir: str) -> dict:
+    """``torchrun --nproc-per-node 2 -m bergen_tpu_torch`` on rag_ut1 with
+    ``generator=llama-2-13b-chat`` (tp 2, Llama-2-13B's widths), static,
+    then in the same ranks served from the page pool in a folder of its own
+    (``ut1_tp2_llama2_13b_paged``); each rank one decode (or paged)
+    attention a layer and decode step, rank 0 alone retrieving and
+    writing."""
+    paged_dir = workdir + "_paged"
+    for d in (workdir, paged_dir):
+        os.makedirs(d, exist_ok=True)
+        os.symlink(os.path.dirname(ckpt["bert"]), os.path.join(d, "ckpt"))
+    (static, paged), wall = run_tp(2, [
+        {"entry": "cli", "cwd": workdir, "argv": _tp_argv(ckpt, [])},
+        {"entry": "cli", "cwd": paged_dir, "argv": _tp_argv(ckpt, [
+            "+generator.init_args.serve=true",
+            "+generator.init_args.kv_cache=paged"])}], workdir)
+    TP_PAGED_RECS["recs"] = paged
+    return {**_tp_13b_result("ut1_tp2_llama2_13b", static,
+                             max(r["wall_s"] for r in static), workdir,
+                             False), "torchrun_wall_s": wall}
+
+
+def run_ut1_tp2_llama2_13b_paged(ckpt: dict, workdir: str) -> dict:
+    """The served paged run of ``run_ut1_tp2_llama2_13b``'s ranks."""
+    recs = TP_PAGED_RECS.pop("recs")
+    return _tp_13b_result("ut1_tp2_llama2_13b_paged", recs,
+                          max(r["wall_s"] for r in recs), workdir, True)
+
+
+def run_judge_tp4_solar(ckpt: dict, workdir: str, exp: str) -> dict:
+    """``torchrun --nproc-per-node 4 -m bergen_tpu_torch.evaluate --llm``
+    (the default judge: config/generator/SOLAR-107B.yaml, tp 4, its
+    checkpoint at SOLAR-10.7B's widths linked where the config names it) in
+    logits mode on a copy of ``exp``, flash prefill on: one flash attention
+    a layer and prefill on each rank, no decode."""
+    folder = os.path.join(workdir, "judged")
+    shutil.copytree(exp, folder)
+    os.makedirs(os.path.join(workdir, "upstage"))
+    os.symlink(ckpt["solar"], os.path.join(
+        workdir, "upstage", "SOLAR-10.7B-Instruct-v1.0"))
+    (recs,), wall = run_tp(4, [{
+        "entry": "evaluate", "cwd": workdir, "flash_prefill": True,
+        "argv": ["--llm", "--folder", folder, "--device", TP_DEVICE,
+                 "--dist_backend", "gloo"]}], workdir)
+    name = "LLMeval_SOLAR-107B_logits"
+    metrics = _json(folder, "eval_dev_metrics.json")
+    scores = [r.get(name) for r in _json(folder, "eval_dev_out.json")]
+    if name not in metrics or not all(isinstance(x, float) and 0 <= x <= 1
+                                      for x in scores):
+        fail(f"judge_tp4_solar: metrics {sorted(metrics)}, {scores[:4]}")
+    return {"wall_s": wall, "folder": folder, "ranks": 4,
+            **_tp_launches("judge_tp4_solar", recs, (0, 0, 0, TP_LAYERS)),
+            name: metrics[name], "rows": len(scores),
+            "score_range": [min(scores), max(scores)]}
+
+
+def _tp_prompts(n: int = 8) -> list[str]:
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        return [line.split("\t")[1] for line in f.read().splitlines()[:n]]
+
+
+TP_70B_LLM = dict(max_new_tokens=TP_NEW_TOKENS, max_length=4096,
+                  batch_size=8)
+
+
+def run_gen_tp8_llama2_70b(ckpt: dict, workdir: str) -> dict:
+    """``LLM(tp=8).generate`` at Llama-2-70B's widths on 8 ranks: 8 ut1
+    questions, 16 new tokens; each rank one decode attention a layer and
+    decode step."""
+    os.makedirs(workdir, exist_ok=True)
+    (recs,), wall = run_tp(8, [{"entry": "generate", "cwd": workdir,
+                                "device": TP_DEVICE,
+                                "model": ckpt["llama2_70b"], "tp": 8,
+                                "llm": TP_70B_LLM,
+                                "prompts": _tp_prompts()}], workdir)
+    TP_TOPS["gen_tp8_llama2_70b"] = recs[0]["tops"]
+    return {"wall_s": wall, "ranks": 8,
+            **_tp_launches("gen_tp8_llama2_70b", recs, (TP_LAYERS, 0, 0, 0)),
+            "texts": recs[0]["texts"]}
+
+
+def _forced(run, chosen: list | None = None):
+    """``run()`` with every ``llama.forward`` step recorded: (its value, each
+    step's greedy tokens a row, the first step's last logits, and with
+    ``chosen`` each step's gap a row).  ``chosen`` (a tensor-parallel run's
+    greedy tokens, step by step) is forced: each step's last logits get that
+    row's token raised past the largest, after the gap between the largest
+    logit and the forced token's is kept, so that this run follows the
+    other's tokens and its steps meet the same histories."""
+    import torch
+    from bergen_tpu_torch.models import llama
+
+    forward, tokens, first, gaps = llama.forward, [], [], []
+
+    def step(*a, **k):
+        out = forward(*a, **k)
+        last = out[:, -1]
+        if not first:
+            first.append(last.float().cpu().clone())
+        tokens.append(last.argmax(dim=-1).tolist())
+        if chosen is not None:
+            want = torch.tensor(chosen[len(gaps)], device=last.device)
+            top = last.float().max(dim=-1).values
+            rows = torch.arange(last.shape[0], device=last.device)
+            gaps.append((top - last[rows, want].float()).tolist())
+            last[rows, want] = (top + 1).to(last.dtype)
+        return out
+
+    llama.forward = step
+    try:
+        return run(), tokens, first[0], gaps
+    finally:
+        llama.forward = forward
+
+
+def _tp_same_tokens(path: str, got: list, want: list, tokens_tp: list,
+                    tokens_1: list, gaps: list) -> dict:
+    """tp 1 forced along the tp run's tokens (``_forced``): the same forward
+    steps and answers, and at every step and row the tp run's token within
+    ``2 * TP_LOGITS_TOL`` of tp 1's largest logit on the same history (two
+    logits apart by at most TP_LOGITS_TOL each: a near-tie where tp 1's
+    own choice differs)."""
+    if len(tokens_tp) != len(tokens_1) or [len(t) for t in tokens_tp] != [
+            len(t) for t in tokens_1] or got != want:
+        fail(f"{path}: tp 1 forced along the tp run took {len(tokens_1)} "
+             f"steps against {len(tokens_tp)}, answers equal: {got == want}")
+    worst = max(max(g) for g in gaps)
+    ties = sum(a != b for ca, cb in zip(tokens_tp, tokens_1)
+               for a, b in zip(ca, cb))
+    if worst > 2 * TP_LOGITS_TOL:
+        fail(f"{path}: a tp token {worst} below tp 1's largest logit on the "
+             f"same history (tol {2 * TP_LOGITS_TOL})")
+    return {"rows": len(got), "forward_steps": len(tokens_tp),
+            "near_ties": ties, "max_gap": worst,
+            "gap_tol": 2 * TP_LOGITS_TOL}
+
+
+def _first_logits_close(path: str, out_dir: str, ref) -> dict:
+    import numpy as np
+
+    got = np.load(os.path.join(out_dir, "ranks", "first_logits0.npy"))
+    ref = ref.float().cpu().numpy()
+    diff = float(np.abs(got - ref).max())
+    cos = float((got * ref).sum() / np.sqrt((got * got).sum()
+                                            * (ref * ref).sum()))
+    if got.shape != ref.shape or diff > TP_LOGITS_TOL:
+        fail(f"{path}: first-step logits {got.shape} {diff} from tp 1's "
+             f"{ref.shape} (tol {TP_LOGITS_TOL})")
+    return {"first_logits_max_abs_diff": diff, "first_logits_cos": cos,
+            "tol": TP_LOGITS_TOL}
+
+
+def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
+    """Each tensor-parallel path against tp 1 on the card, from the same
+    checkpoint: the 13B generator static and served paged on the
+    instructions the tp run wrote, in its batches of 32; the SOLAR judge on
+    a copy of the same folder (the config at tp 1, flash prefill on), its
+    option probabilities within ``TP_PROB_TOL``; the 70B generator on the
+    same 8 questions.  Tokens by ``_tp_same_tokens``, the first step's
+    logits within ``TP_LOGITS_TOL``."""
+    import random
+
+    import torch
+    import yaml
+    from bergen_tpu_torch import evaluate
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    out = {}
+    for path, kv in (("ut1_tp2_llama2_13b", None),
+                     ("ut1_tp2_llama2_13b_paged", "paged")):
+        rows = _json(runs[path]["exp"], "eval_dev_out.json")
+        llm = LLM(ckpt["llama2_13b"], tp=1, max_new_tokens=TP_NEW_TOKENS,
+                  max_length=4096, batch_size=32, device=TP_REF_DEVICE,
+                  **({"serve": True, "kv_cache": kv} if kv else {}))
+        instr = [r["instruction"] for r in rows]
+        texts, tokens, first, gaps = _forced(lambda: [
+            t for i in range(0, len(instr), 32)
+            for t in llm.generate(instr[i:i + 32])], TP_TOPS[path])
+        out[path] = _tp_same_tokens(path, [r["response"] for r in rows],
+                                    texts, TP_TOPS[path], tokens, gaps)
+        if kv is None:  # the first prefill: the same 32 prompts
+            out[path].update(_first_logits_close(
+                path, os.path.join(work, path), first))
+        del llm
+        torch.cuda.empty_cache()
+    # the judge at tp 1 on its own copy of the judged folder
+    jrun = runs["judge_tp4_solar"]
+    folder = jrun["folder"] + "-tp1"
+    shutil.copytree(runs["ut1_tp2_llama2_13b"]["exp"], folder)
+    gen_dir = os.path.join(work, "judge_tp1_config")
+    os.makedirs(gen_dir)
+    with open(os.path.join(REPO, "config", "generator",
+                           "SOLAR-107B.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["init_args"].update(model_name=ckpt["solar"], tp=1)
+    with open(os.path.join(gen_dir, "SOLAR-107B.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    llama.USE_FLASH_PREFILL = True
+    random.seed(0)
+    try:
+        _, _, first, _ = _forced(lambda: evaluate.run_eval(
+            llm=[], folder=folder, generator_config_dir=gen_dir,
+            device=TP_REF_DEVICE))
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    name = "LLMeval_SOLAR-107B_logits"
+    got = [r[name] for r in _json(jrun["folder"], "eval_dev_out.json")]
+    want = [r[name] for r in _json(folder, "eval_dev_out.json")]
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    if len(got) != len(want) or diff > TP_PROB_TOL:
+        fail(f"judge_tp4_solar: option probabilities {diff} from tp 1's "
+             f"(tol {TP_PROB_TOL})")
+    out["judge_tp4_solar"] = {
+        "rows": len(got), "max_prob_diff": diff, "prob_tol": TP_PROB_TOL,
+        **_first_logits_close("judge_tp4_solar",
+                              os.path.dirname(jrun["folder"]), first)}
+    torch.cuda.empty_cache()
+    # the 70B generator alone
+    llm = LLM(ckpt["llama2_70b"], tp=1, device=TP_REF_DEVICE, **TP_70B_LLM)
+    run = runs["gen_tp8_llama2_70b"]
+    tp_tokens = TP_TOPS["gen_tp8_llama2_70b"]
+    texts, tokens, first, gaps = _forced(
+        lambda: llm.generate(_tp_prompts()), tp_tokens)
+    out["gen_tp8_llama2_70b"] = {
+        **_tp_same_tokens("gen_tp8_llama2_70b", run["texts"], texts,
+                          tp_tokens, tokens, gaps),
+        **_first_logits_close("gen_tp8_llama2_70b",
+                              os.path.join(work, "gen_tp8_llama2_70b"),
+                              first)}
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
+                   work: str) -> None:
+    """Each ``TP_CKPTS`` checkpoint written, its paths driven (the 13B
+    static and served paged, the SOLAR judge on the 13B static run's
+    folder, the 70B generator alone), then all of them against tp 1 on the
+    card, the checkpoints deleted after."""
+    paths = {"llama2_13b": (
+                ("ut1_tp2_llama2_13b", run_ut1_tp2_llama2_13b),
+                ("ut1_tp2_llama2_13b_paged", run_ut1_tp2_llama2_13b_paged)),
+             "solar": (("judge_tp4_solar", lambda c, w: run_judge_tp4_solar(
+                 c, w, runs["ut1_tp2_llama2_13b"]["exp"])),),
+             "llama2_70b": (("gen_tp8_llama2_70b", run_gen_tp8_llama2_70b),)}
+    for key, name, *_ in TP_CKPTS:
+        t0 = time.perf_counter()
+        ckpt[key] = write_tp_checkpoint(root, dev, key)
+        emit({"phase": f"checkpoint_{key}",
+              "write_s": time.perf_counter() - t0, "path": ckpt[key],
+              "layers": TP_LAYERS})
+        for path, run in paths[key]:
+            drive(path, run)
+    emit({"phase": "reference_check_tp",
+          **timed(check_tp_against_tp1, ckpt, work, runs)})
+    for _, name, *_ in TP_CKPTS:
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7436,7 +8221,7 @@ PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "paged_attention", "encoder_attention", "bin_topk_int8",
                  "flash_attention_band", "attention_block", "pallas_score",
                  "bin_topk_int8_splade", "w8a8_matmul", "int8_quantizer",
-                 "paged_window")
+                 "paged_window", "tp_shards")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers",
            "llama-3.2-3b-instruct-random",
@@ -7473,8 +8258,11 @@ def main() -> None:
     profile = sys.argv[1:] == ["--profile-serve"]
     context_only = sys.argv[1:] == ["--context"]
     soft_train_only = sys.argv[1:] == ["--soft-train"]
+    tp_only = sys.argv[1:] == ["--tp"]
     if profile or context_only or soft_train_only:
         only = []
+    elif tp_only:
+        only = ["tp_shards"]
     elif sys.argv[1:2] == ["--context-kernels"] and len(sys.argv) == 4:
         only = []  # a child of the context paths: their kernel checks only
     elif sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
@@ -7487,6 +8275,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
+    if sys.argv[1:2] != ["--context-kernels"]:  # a child appends
+        os.makedirs(os.path.dirname(PHASE_LOG), exist_ok=True)
+        open(PHASE_LOG, "w").close()
     started = t0 = time.perf_counter()
     _build.build_all()
     if sys.argv[1:2] == ["--context-kernels"]:
@@ -7537,14 +8328,16 @@ def main() -> None:
                   results, dev),
               "w8a8_matmul": lambda: check_w8a8_matmul(results, dev),
               "int8_quantizer": lambda: check_int8_quantizer(results, dev),
-              "paged_window": lambda: check_paged_window(results, dev)}
+              "paged_window": lambda: check_paged_window(results, dev),
+              "tp_shards": lambda: check_tp_shards(results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
             torch.cuda.empty_cache()
     if profile:
         profile_serve(dev)
-    if only is not None and not (context_only or soft_train_only):
+    if only is not None and not (context_only or soft_train_only
+                                 or tp_only):
         emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
@@ -7598,7 +8391,9 @@ def main() -> None:
             runs[path] = run(ckpt, os.path.join(work, path))
         finally:
             llama.forward = forward
-        by_path[path] = {n: fn.launches for n, fn in counters.items()}
+        # a tensor-parallel path's launches are its ranks' (run_tp)
+        by_path[path] = runs[path].get("launches") or {
+            n: fn.launches for n, fn in counters.items()}
         int8_by_mode[path] = dict(ft.bin_scores_int8.launches_by_mode)
         bias_launches[path] = ea.encoder_attention.bias_launches
         emit({"phase": path, "path_s": time.perf_counter() - t0,
@@ -7621,6 +8416,17 @@ def main() -> None:
                   "script_s": time.perf_counter() - started,
                   "launches": {p: by_path[p] for p in
                                SOFT_TRAIN_PATHS + ("provence_train",)}})
+            return
+        if tp_only:
+            drive_tp_paths(ckpt, root, dev, drive, runs, work)
+            idle = [f"{n} on {path}" for path in TP_PATHS
+                    for n in PATH_KERNELS[path] if by_path[path][n] == 0]
+            if idle:
+                fail(f"kernels never launched where the path runs them: "
+                     f"{idle}")
+            emit({"phase": "done", "tp": True,
+                  "script_s": time.perf_counter() - started,
+                  "launches": {p: by_path[p] for p in TP_PATHS}})
             return
         if context_only:
             drive("ut1_eval", run_main_path)
@@ -7782,6 +8588,8 @@ def main() -> None:
                       **timed(check_family_against_cpu, ckpt, key)})
             for gone in (name, name + "-2layers"):
                 shutil.rmtree(os.path.join(root, gone), ignore_errors=True)
+        # tensor parallelism: 2, 4 and 8 ranks on this card over gloo
+        drive_tp_paths(ckpt, root, dev, drive, runs, work)
         judge = f"LLMeval_{JUDGE_NAME}"
         table = run_print_results(work, {
             "kilt_nq_local": [f"{judge}_logits"],
@@ -8001,7 +8809,7 @@ def main() -> None:
         reads.close()
         shutil.rmtree(work, ignore_errors=True)
         for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS + CONTEXT_CKPTS \
-                + ("xrag-7b-random",):
+                + ("xrag-7b-random",) + tuple(t[1] for t in TP_CKPTS):
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     check_soft_train_kernels(results, dev, steps)
 
@@ -8087,6 +8895,14 @@ def main() -> None:
             for r in results[name] if r.get("soft_train_path")]
         if new:
             extra["soft_train_rows"] = new
+        # the tensor-parallel paths' per-rank shapes
+        new = [{key: r[key] for key in (
+            "B", "L", "S", "M", "K", "N", "H", "KH", "head_dim", "keys",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms") if key in r}
+            for r in results[name] if r.get("tp_shard")]
+        if new:
+            extra["tp_shard_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,
@@ -8105,4 +8921,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 3:
+        tp_rank_main(sys.argv[2])  # one rank, started by run_tp
+    else:
+        main()

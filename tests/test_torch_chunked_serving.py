@@ -25,6 +25,19 @@ from bergen_tpu_torch.models import convert, llama as tl
 from bergen_tpu_torch.ops import flash_attention as tfa
 from bergen_tpu_torch.serve import GenerationServer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests: the suite runs several
+    workers on the host's cores, and torch's default of a thread a core
+    oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 PAD = 0
 BUCKETS = (8, 16, 32, 64)
 VOCAB = 96

@@ -384,7 +384,8 @@ def test_llm_quantization_options(tiny_llama_256):
                           quantization=q).params["layers"][0]["attn"]["q"]
     with pytest.raises(ValueError, match="nf4"):
         LLM(tiny_llama_256, device="cpu", quantization="nf4")
-    for kw, name in (({"tp": 2}, "tp"), ({"temperature": 0.7},
-                                         "temperature")):
-        with pytest.raises(NotImplementedError, match=name):
+    for kw, name, error in (({"tp": 2}, "torchrun", RuntimeError),
+                            ({"temperature": 0.7}, "temperature",
+                             NotImplementedError)):
+        with pytest.raises(error, match=name):
             LLM(tiny_llama_256, device="cpu", quantization="int4", **kw)

@@ -20,6 +20,19 @@ from test_torch_slice_llama3_qwen2 import _assert_same_eval  # noqa: E402
 from test_torch_w8a8_generation import assert_w8a8_tokens_match  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny_llama(tmp_path_factory):
     from tiny_models import build_tiny_llama

@@ -1,8 +1,10 @@
 """Every ``config/generator/`` and ``config/train/`` file either runs on
 the port or raises naming the ROADMAP.md Queue 1 item that will lift its
-refusal: tensor parallelism #10, Mixtral #5 (``xrag_mixtral``, the two
-mixtral generators, ``mixtral-8x7b-instruct`` by its ``tp``), sampling and
-beam search #6, the OpenAI generators plain Queue 1.  ``train=no_train``
+refusal: Mixtral #5 (``xrag_mixtral``, the mixtral generators), sampling and
+beam search #6, the OpenAI generators plain Queue 1.  A config with ``tp``
+> 1 (``mixtral-8x7b-instruct`` among them) raises in one process, naming
+``torchrun``: it runs as ``tp`` ranks.  Under ranks, a world larger than
+``tp`` and the int8 and W8A8 routes with ``tp`` > 1 raise naming #10.  ``train=no_train``
 raises optax's error, as JAX's trainer does (0 epochs leave the schedule's
 cosine part no steps); the other train configs build and take a step on a
 tiny llama.  A Mixtral checkpoint is stood in for by the tiny llama with
@@ -58,7 +60,7 @@ def _expected(name: str, args: dict):
     if "llm_openai" in target:
         return "Queue 1"
     if args.get("tp", 1) != 1:
-        return "#10"
+        return "torchrun"
     if "mixtral" in name or "moe" in (args.get("model_name") or ""):
         return "#5"
     if args.get("temperature", 0) or args.get("use_beam_search"):
@@ -80,6 +82,12 @@ def test_generator_config_runs_or_names_its_item(name, ckpts):
     if want == "Queue 1":
         with pytest.raises(NotImplementedError, match="Queue 1"):
             confy.resolve_target(args["_target_"])
+        return
+    if want == "torchrun":  # tp > 1 in one process: tp > world
+        args["model_name"] = ckpts["llama"]
+        with pytest.raises(RuntimeError, match=f"torchrun --nproc-per-node "
+                           f"{args['tp']}"):
+            confy.instantiate(args, device="cpu")
         return
     args["model_name"] = ckpts["mixtral" if want == "#5" else "llama"]
     if "retriever_name" in args:
@@ -109,3 +117,24 @@ def test_train_config_runs_or_refuses_as_jax(name, ckpts, tmp_path):
     assert bool(trainer.trainable) and (
         all(p.rsplit(".", 1)[-1] in ("lora_a", "lora_b")
             for p, _ in trainer.trainable) == ("lora" in tc))
+
+
+@pytest.mark.parametrize("quantization", ["int8", "int8_mxu", "w8a8"])
+def test_int8_and_w8a8_with_tp_raise_naming_item_10(quantization, ckpts):
+    """Checked before the world: W8A8's per-row activation scale spans the
+    whole row, which a row-parallel slice does not hold."""
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
+        LLM(ckpts["llama"], tp=2, quantization=quantization, device="cpu")
+
+
+def test_world_larger_than_tp_raises_naming_item_10(ckpts, tmp_path):
+    """Two ranks over gloo and a tp 1 generator: the data axis is not
+    ported."""
+    import tp_ranks
+
+    msg = tp_ranks.spawn(2, "llm_error", str(tmp_path),
+                         model_name=ckpts["llama"], tp=1)
+    assert msg.startswith("NotImplementedError") and "Queue 1 #10" in msg \
+        and "world of 2 ranks" in msg, msg

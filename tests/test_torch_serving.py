@@ -173,7 +173,7 @@ def test_llm_serve_matches_static_and_jax(tmp_path):
 
 @pytest.mark.parametrize("kwargs,error", [
     ({"serve": True, "temperature": 0.7}, NotImplementedError),
-    ({"serve": True, "tp": 2}, NotImplementedError),
+    ({"serve": True, "tp": 2}, RuntimeError),  # one process: torchrun
     ({"serve": True, "kv_cache": "bogus"}, ValueError),
 ])
 def test_llm_refuses_what_is_not_ported(tmp_path, kwargs, error):

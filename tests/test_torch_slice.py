@@ -57,6 +57,19 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 SCORE_ATOL = 1e-6
 
 
@@ -153,7 +166,8 @@ def _run_both(tmp_path, overrides):
     bergen.main(confy.compose(os.path.join(REPO, "config"), "rag_ut1",
                               overrides(jroot)))
     os.makedirs(troot)
-    env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO)
+    env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "bergen_tpu_torch", *overrides(troot),
          "device=cpu"],

@@ -25,6 +25,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_slice import REPO, _overrides, _run_both  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def config_overrides(group: str, option: str, **replace) -> list[str]:
     """``config/<group>/<option>.yaml``'s init_args as ``+group.init_args``
     overrides (the root configs have no such group), with ``replace``'s

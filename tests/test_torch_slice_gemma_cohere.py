@@ -29,6 +29,19 @@ from test_torch_slice_llama3_qwen2 import (_assert_same_eval,  # noqa: E402
 from test_torch_tokenizer_gemma_cohere import (_ut1_texts,  # noqa: E402
                                                _write)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 COMMAND_R_TEMPLATE = (
     "{{ bos_token }}{% if messages[0]['role'] == 'system' %}"
     "{% set loop_messages = messages[1:] %}"

@@ -25,6 +25,19 @@ from test_torch_tokenizer_gemma_cohere import (_ut1_texts,  # noqa: E402
                                                _write)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _checkpoint(out_dir: str, family: str, seed: int, **kw) -> str:
     from transformers import AutoTokenizer
 
@@ -59,7 +72,8 @@ def models(tmp_path_factory):
 
 def _port(root, overrides):
     os.makedirs(root)
-    env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO)
+    env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "bergen_tpu_torch", *overrides, "device=cpu"],
         cwd=root, env=env, capture_output=True, text=True, timeout=300)

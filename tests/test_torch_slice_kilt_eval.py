@@ -30,9 +30,24 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 SCORE_ATOL = 1e-6
 JUDGE_ATOL = 1e-4
 JUDGE = "_tiny_judge"
@@ -110,7 +125,7 @@ def _root_evaluate(monkeypatch, judge_yaml):
 
 
 def _print_results(script_args, folder, cwd):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, *script_args, "--folder", folder,
                           "--format", "full"], capture_output=True,
                          text=True, env=env, cwd=cwd, timeout=300)
@@ -139,7 +154,8 @@ def test_kilt_nq_eval_judge_and_results_match_jax(tmp_path, monkeypatch):
     _serve_exports(monkeypatch, str(troot / "datasets" / "hub"))
     bergen.main(jconfy.compose(os.path.join(REPO, "config"), "rag",
                                _overrides(jroot, models)))
-    env = dict(os.environ, CONFIG="rag", PYTHONPATH=REPO)
+    env = dict(os.environ, CONFIG="rag", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "bergen_tpu_torch",
          *_overrides(troot, models), "device=cpu"],

@@ -31,6 +31,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_slice import REPO, _run_both  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def build_generator(out_dir: str, family: str, hidden: int, heads: int,
                     kv_heads: int, seed: int, bias_std: float = 0.5) -> str:
     """A tiny HF generator checkpoint with its family's byte-level

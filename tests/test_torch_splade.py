@@ -32,6 +32,19 @@ import jax.numpy as jnp
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One torch thread for this module's tests (and OMP_NUM_THREADS=1 in
+    the CLI subprocesses): the suite runs several workers on the host's
+    cores, and torch's default of a thread a core oversubscribes them."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 TEXTS = ["the quick brown fox", "what is the capital of france",
          "alpha beta gamma delta epsilon zeta", "x", "love",
          "splade document about things and other things"] * 2
@@ -235,7 +248,8 @@ def test_rag_ut1_splade_matches_jax(tmp_path, models, monkeypatch, extra):
     bergen.main(confy.compose(os.path.join(REPO, "config"), "rag_ut1",
                               _overrides(jroot, models, extra)))
     os.makedirs(troot)
-    env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO)
+    env = dict(os.environ, CONFIG="rag_ut1", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "bergen_tpu_torch",
          *_overrides(troot, models, extra), "device=cpu"],
