@@ -317,14 +317,16 @@ def deberta_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
 def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
     """HF LlamaForCausalLM / MistralForCausalLM / Qwen2ForCausalLM /
     GemmaForCausalLM / Gemma2ForCausalLM / Phi3ForCausalLM /
-    CohereForCausalLM state dict -> llama tree (JAX ``convert.py:
-    273-380``): qwen2's q/k/v biases as ``bias`` leaves (kept f32 by
-    ``to_device``); Phi-3's fused ``qkv_proj`` split at o_proj's in-width
+    CohereForCausalLM / MixtralForCausalLM state dict -> llama tree (JAX
+    ``convert.py:273-380``): qwen2's q/k/v biases as ``bias`` leaves (kept
+    f32 by ``to_device``); Phi-3's fused ``qkv_proj`` split at o_proj's in-width
     (q) and evenly after it (k, v), and its fused ``gate_up_proj`` split in
     half; gemma-2's sandwich norms (``post_attention_layernorm`` norms the
     attention output, ``pre_feedforward`` and ``post_feedforward`` wrap the
-    MLP); cohere's single ``input_layernorm`` (no ``mlp_norm``).  Tied
-    embeddings have no lm_head."""
+    MLP); cohere's single ``input_layernorm`` (no ``mlp_norm``);
+    mixtral's ``block_sparse_moe`` as a ``moe`` node (``_moe_experts``:
+    each projection's experts a list of views until ``stack`` or
+    ``stack_experts``).  Tied embeddings have no lm_head."""
     sd = _strip_prefix(state_dict, candidates=("model.",))
     p: Dict[str, Any] = {
         "embed": sd["embed_tokens.weight"],
@@ -369,13 +371,62 @@ def llama_from_hf(state_dict: Mapping, num_layers: int) -> Dict[str, Any]:
                             "up": {"kernel": gu[:, half:]},
                             "down": {"kernel":
                                      sd[f"{pre}.mlp.down_proj.weight"].T}}
-        else:
+        elif f"{pre}.mlp.gate_proj.weight" in sd:
             entry["mlp"] = {n: {"kernel": sd[f"{pre}.mlp.{n}_proj.weight"].T}
                             for n in ("gate", "up", "down")}
+        else:
+            entry["moe"] = _moe_experts(sd, f"{pre}.block_sparse_moe")
         p["layers"].append(entry)
     if "lm_head.weight" in state_dict:
         p["lm_head"] = {"kernel": state_dict["lm_head.weight"].T}
     return p
+
+
+def _moe_experts(sd: Mapping, pre: str) -> Dict[str, Any]:
+    """Mixtral's sparse MoE block (JAX ``convert.py:351-371``): the router
+    ``gate`` [D, E] and, for w1 (gate), w3 (up) and w2 (down), the list of
+    the E experts' [d_in, d_out] views of the checkpoint, in expert order.
+    JAX stacks them here; the port stacks only the experts a rank keeps
+    (``stack``), so that a tensor-parallel rank reads no other rank's
+    experts out of the mapped files."""
+    n = 0
+    while f"{pre}.experts.{n}.w1.weight" in sd:
+        n += 1
+    return {"router": {"kernel": sd[f"{pre}.gate.weight"].T},
+            **{name: {"kernel": [sd[f"{pre}.experts.{e}.{w}.weight"].T
+                                 for e in range(n)]}
+               for name, w in (("gate", "w1"), ("up", "w3"),
+                               ("down", "w2"))}}
+
+
+def stack(experts: list, first: int = 0, count: int | None = None,
+          dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
+    """Experts ``[first, first + count)`` (all from ``first`` by default)
+    of a list of [d_in, d_out] views as one [count, d_in, d_out] tensor in
+    ``dtype`` on ``device`` (default: the views' dtype, the CPU), each
+    copied into it from its view: no expert outside the range is read, and
+    no second copy of the stack is made.  A view (a checkpoint's [d_out,
+    d_in] transposed) crosses to another device as it lies and is
+    transposed there, where the copy into the stack would transpose it on
+    the host."""
+    n = len(experts) - first if count is None else count
+    out = torch.empty((n, *experts[first].shape),
+                      dtype=dtype or experts[first].dtype, device=device)
+    for j in range(n):
+        out[j].copy_(experts[first + j].to(out.device))
+    return out
+
+
+def stack_experts(params, dtype: torch.dtype | None = None, device=None):
+    """Every ``moe`` node's expert lists stacked whole (``stack``), in
+    place; a stacked node is left as it is."""
+    for layer in params["layers"]:
+        for name in ("gate", "up", "down"):
+            node = layer.get("moe", {}).get(name)
+            if node is not None and isinstance(node["kernel"], list):
+                node["kernel"] = stack(node["kernel"], dtype=dtype,
+                                       device=device)
+    return params
 
 
 # --------------------------------------------------------------------------- #
@@ -438,7 +489,10 @@ def quantize_tree_int8(params, min_size: int = 1 << 16, mxu: bool = False,
     (weight-only int8), or with ``mxu`` under ``kernel_scale_a8`` (W8A8;
     ``prepare_w8a8`` then lays the codes out for the int8 GEMM).  Each leaf
     is quantized on ``device`` (default: where it lies), one at a time.  A
-    bias stays beside the codes, in f32."""
+    bias stays beside the codes, in f32.  Mixtral's experts (3-D stacks, or
+    lists before ``stack_experts``) stay dense, as JAX's 2-D rule leaves
+    them, and so does its router, under ``min_size`` at every published
+    width."""
     scale_key = "kernel_scale_a8" if mxu else "kernel_scale"
 
     def visit(node):
@@ -554,7 +608,9 @@ def quantize_tree_int4(params, min_size: int = INT4_MIN_SIZE,
     port adds it in the int4 product's epilogue, where JAX's int4
     projection drops it.  A tensor-parallel slice (``tp_shape``: its whole
     [K, N]) is quantized where the whole leaf would be, so that its codes
-    and scales are the whole leaf's slice."""
+    and scales are the whole leaf's slice.  Mixtral's experts and router
+    stay dense, as in ``quantize_tree_int8``: an "int4" Mixtral keeps its
+    experts in the compute dtype in both packages."""
     if not packed:
         raise NotImplementedError(
             "quantize_tree_int4(packed=False): the jnp.int4 storage form is "

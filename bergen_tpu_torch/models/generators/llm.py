@@ -1,6 +1,6 @@
 """LLM generator (the PyTorch port's counterpart of
 ``bergen_tpu/models/generators/jax_llm.py``): greedy decoding of a
-llama, mistral, qwen2, gemma, gemma2, phi3 or cohere checkpoint
+llama, mistral, qwen2, gemma, gemma2, phi3, cohere or mixtral checkpoint
 (``models/llama.py``) read from a local HF directory with the port's own
 tokenizer and safetensors readers.
 
@@ -22,8 +22,14 @@ heads and MLP columns, the row-parallel products meeting in an all-reduce
 of f32 partial sums and the head's logits in an all-gather, so that every
 rank makes the same decisions from the same tokens; bf16 and int4 (an int4
 head whose slice is outside the int4 kernel's shapes stays whole; the
-int8 and W8A8 routes raise, ROADMAP.md Queue 1 #10).  Sampling and beam search are not
-ported yet and raise.
+int8 and W8A8 routes raise, ROADMAP.md Queue 1 #10).  A Mixtral's experts
+are stacked on the card at tp 1, or a rank's own experts under tp
+(``parallel/shard.py``: the expert axis split, JAX's expert parallelism).
+Before any weight is read onto a card, ``weight_bytes`` reckons a rank's
+tree from the config and the quantization route, and a tree larger than
+the card raises naming the ``tp`` to run it at (``check_fits``).
+Sampling and beam search are not ported yet and raise, and so does a GGUF
+checkpoint (``gguf_file``: ROADMAP.md Queue 1 #11).
 """
 
 from __future__ import annotations
@@ -66,6 +72,67 @@ def check_world(tp: int, quantization: str | None = None) -> None:
             "multi-GPU)")
 
 
+def _linear_bytes(K: int, N: int, quantization: str | None,
+                  item: int) -> int:
+    """Bytes of one [K, N] projection as the route stores it."""
+    if quantization == "int4" and convert.int4_quantizes(K, N):
+        return K * N // 2 + K // convert.INT4_GROUP * N * 4
+    if quantization in ("int8", "int8_mxu", "w8a8") and K * N >= 1 << 16:
+        return K * N + N * 4
+    return K * N * item
+
+
+def weight_bytes(cfg, quantization: str | None = None, tp: int = 1,
+                 dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of one rank's parameter tree (of ``tp``), reckoned from the
+    config: the embedding whole, the head (quantized with the tree; a
+    quantized tied head is a copy, as in JAX) split over tp where it
+    divides the vocabulary, each layer's attention and MLP split over tp
+    (k and v whole where tp does not divide the KV heads), a MoE layer's
+    experts dense in ``dtype`` (as both packages' quantizers leave them)
+    and split over tp where it divides them, and the f32 norms."""
+    item = torch.finfo(dtype).bits // 8
+    D, V, Dh = cfg.hidden_size, cfg.vocab_size, cfg.head_dim
+    H, KH, I, E = (cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size,
+                   cfg.num_experts)
+    kv = KH * Dh // tp if KH % tp == 0 else KH * Dh
+    layer = (_linear_bytes(D, H * Dh // tp, quantization, item)
+             + 2 * _linear_bytes(D, kv, quantization, item)
+             + _linear_bytes(H * Dh // tp, D, quantization, item)
+             + 2 * D * 4)
+    if E:
+        count = E // tp if E % tp == 0 else E
+        layer += D * E * item + 3 * count * D * I * item
+    else:
+        layer += (2 * _linear_bytes(D, I // tp, quantization, item)
+                  + _linear_bytes(I // tp, D, quantization, item))
+    total = V * D * item + cfg.num_layers * layer + D * 4
+    if not cfg.tie_word_embeddings or quantization is not None:
+        total += _linear_bytes(D, V // tp if V % tp == 0 else V,
+                               quantization, item)
+    return total
+
+
+def check_fits(cfg, quantization: str | None, tp: int, dtype: torch.dtype,
+               card_bytes: int, card: str = "the card") -> None:
+    """Raise where a rank's tree (``weight_bytes``) is larger than the
+    card's ``card_bytes``, naming the smallest tp that divides the heads
+    and fits it."""
+    need = weight_bytes(cfg, quantization, tp, dtype)
+    if need <= card_bytes:
+        return
+    fits = [t for t in range(tp + 1, cfg.num_heads + 1)
+            if cfg.num_heads % t == 0
+            and weight_bytes(cfg, quantization, t, dtype) <= card_bytes]
+    hint = (f"set tp={fits[0]} (the generator's init_args) and run it "
+            f"over {fits[0]} cards under `torchrun --nproc-per-node "
+            f"{fits[0]}`" if fits else "no tp that divides its heads fits it")
+    raise RuntimeError(
+        f"the generator's weights take {need / 1e9:.1f} GB a card at "
+        f"tp={tp} (quantization {quantization!r}), more than {card}'s "
+        f"{card_bytes / 1e9:.1f} GB: {hint}")
+
+
 class LLM(Generator):
     def __init__(
         self,
@@ -90,8 +157,13 @@ class LLM(Generator):
         w8a8_outlier_threshold: float = 10.0,  # max per-token absmax/rms
         # on the calibration batch before w8a8 falls back to int8
         device: str | torch.device | None = None,
+        gguf_file: str | None = None,
         **_ignored,
     ):
+        if gguf_file is not None:
+            raise NotImplementedError(
+                f"gguf_file {gguf_file!r}: the port reads no GGUF checkpoint "
+                "yet (ROADMAP.md Queue 1 #11, GGUF checkpoints)")
         if quantization not in (None, "int4", "int8", "int8_mxu", "w8a8"):
             raise ValueError(f"unknown quantization: {quantization!r}")
         check_world(tp, quantization)
@@ -131,8 +203,15 @@ class LLM(Generator):
         )
         hf_cfg, sd = convert.load_checkpoint(model_name)
         self.cfg = llama.LlamaConfig.from_hf(hf_cfg)
+        if self.device.type == "cuda":  # before any weight is read
+            check_fits(self.cfg, quantization, tp, self.dtype,
+                       torch.cuda.get_device_properties(
+                           self.device).total_memory,
+                       torch.cuda.get_device_name(self.device))
         params = convert.llama_from_hf(sd, self.cfg.num_layers)
         del sd
+        if tp == 1:  # a Mixtral's experts, stacked where they are placed
+            convert.stack_experts(params, self.dtype, self.device)
         if quantization is not None and "lm_head" not in params:
             # JAX's tree comes from transformers' state dict, which lists a
             # tied head as lm_head: that head is quantized too

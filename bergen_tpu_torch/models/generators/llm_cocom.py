@@ -37,8 +37,9 @@ def load_llama(model_name: str, dtype, device):
     a llama-family checkpoint read with the port's own readers."""
     hf_cfg, sd = convert.load_checkpoint(model_name)
     cfg = llama.LlamaConfig.from_hf(hf_cfg)
-    params = convert.to_device(convert.llama_from_hf(sd, cfg.num_layers),
-                               dtype, device)
+    params = convert.to_device(convert.stack_experts(
+        convert.llama_from_hf(sd, cfg.num_layers), dtype, device), dtype,
+        device)
     return cfg, params, sd
 
 

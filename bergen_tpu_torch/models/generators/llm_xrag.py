@@ -15,8 +15,9 @@ Mistral``) is encoded on the llama trunk with mean pooling
 (``retrievers.repllama.LlamaMeanEncoder``): JAX builds it with
 ``DenseRetriever``, whose ``BertConfig.from_hf`` has no llama or mistral
 branch, so the shipped configs cannot load their retriever there
-(ROADMAP.md, faults of the reference).  ``Hannibal046/xrag-moe`` is a
-Mixtral and is refused by ``LlamaConfig.from_hf``.
+(ROADMAP.md, faults of the reference).  ``Hannibal046/xrag-moe``
+(``xrag_mixtral``) is a Mixtral: its decoder runs the MoE block of
+``models/llama.py``.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def build_retriever(name: str, dtype: str | None, device):
     for a llama-family config, else ``DenseRetriever``."""
     with open(os.path.join(name, "config.json")) as f:
         model_type = json.load(f).get("model_type", "")
-    if model_type in llama.FAMILIES or model_type == "mixtral":
+    if model_type in llama.FAMILIES:
         from bergen_tpu_torch.models.retrievers.repllama import \
             LlamaMeanEncoder
 

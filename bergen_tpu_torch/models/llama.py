@@ -1,11 +1,14 @@
 """Llama-family decoder (the PyTorch port's counterpart of
-``bergen_tpu/models/llama.py``; llama, mistral, qwen2, gemma, gemma2, phi3
-and cohere configurations, with ``rope_scaling`` llama3 or linear).
+``bergen_tpu/models/llama.py``; llama, mistral, qwen2, gemma, gemma2, phi3,
+cohere and mixtral configurations, with ``rope_scaling`` llama3 or
+linear).
 
 Plain functions over the JAX package's parameter tree: RoPE (split-half,
 or cohere's interleaved pairs), GQA, RMSNorm (gemma's ``scale + 1``) or
 cohere's bias-free LayerNorm, SwiGLU or GeGLU, q/k/v biases (qwen2),
-gemma's scaled embeddings and head width, gemma-2's logit softcaps, query
+mixtral's sparse mixture of experts (``_moe``: JAX's dense form, every
+expert on every token, one expert at a time), gemma's scaled embeddings
+and head width, gemma-2's logit softcaps, query
 scale, sandwich norms and sliding-window even layers, cohere's parallel
 block and logit scale, and a flat KV cache ``[n_layers, B, L, KH*Dh]``
 written at a cursor (one per row in the serving slot pool), or the paged
@@ -59,9 +62,9 @@ from bergen_tpu_torch.parallel import mesh as _mesh
 Params = Dict[str, Any]
 
 
-# the families the port reads (mixtral's experts are refused: ROADMAP.md
-# Queue 1, generation breadth part 3)
-FAMILIES = ("llama", "mistral", "qwen2", "gemma", "gemma2", "phi3", "cohere")
+# the families the port reads
+FAMILIES = ("llama", "mistral", "qwen2", "gemma", "gemma2", "phi3", "cohere",
+            "mixtral")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +95,9 @@ class LlamaConfig:
     use_layernorm: bool = False       # mean-centred LayerNorm, no bias
     logit_scale: float = 0.0          # multiplies the logits (0 = off)
     rope_interleaved: bool = False    # rope pairs the (even, odd) dims
+    # mixtral's mixture of experts (0 experts: the dense MLP)
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
     # rope scaling (JAX llama.py:89-97): llama-3.1/3.2 band interpolation
     # or linear position scaling
     rope_scaling_type: str | None = None  # None | "llama3" | "linear"
@@ -109,13 +115,11 @@ class LlamaConfig:
     @classmethod
     def from_hf(cls, hf_cfg) -> "LlamaConfig":
         model_type = getattr(hf_cfg, "model_type", "llama")
-        if model_type not in FAMILIES or (
-                getattr(hf_cfg, "num_local_experts", 0) or 0) > 0:
+        if model_type not in FAMILIES:
             raise NotImplementedError(
                 f"generator model_type {model_type!r}: only "
-                f"{', '.join(FAMILIES)} are ported; mixture-of-experts "
-                "models are not (ROADMAP.md Queue 1 #5, generation "
-                "breadth)")
+                f"{', '.join(FAMILIES)} are ported (ROADMAP.md Queue 1, "
+                "generation breadth)")
         rs = getattr(hf_cfg, "rope_scaling", None) or {}
         rs_type = rs.get("rope_type", rs.get("type"))
         if rs_type == "default":
@@ -168,6 +172,10 @@ class LlamaConfig:
             use_layernorm=cohere,
             logit_scale=getattr(hf_cfg, "logit_scale", None) or 0.0,
             rope_interleaved=cohere,
+            # mixtral (JAX reads these for every family; its window is read
+            # for gemma2 alone, and so here)
+            num_experts=getattr(hf_cfg, "num_local_experts", 0) or 0,
+            num_experts_per_tok=getattr(hf_cfg, "num_experts_per_tok", 2),
             rope_scaling_type=rs_type,
             rope_scaling_factor=float(rs.get("factor", 1.0)),
             rope_low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
@@ -181,11 +189,14 @@ class LlamaConfig:
 class ShardConfig(LlamaConfig):
     """A tensor-parallel rank's config (``parallel/shard.py::
     local_config``): its heads and MLP width in the fields above, the
-    model axis's width ``tp``, and the KV heads it reads when tp does not
+    model axis's width ``tp``, the KV heads it reads when tp does not
     divide them (its k and v projections are whole, as JAX replicates
-    them)."""
+    them), and its experts ``[expert_first, expert_first + expert_count)``
+    of ``num_experts`` (all of them where tp does not divide them)."""
     tp: int = 1
     kv_heads_kept: tuple[int, ...] | None = None
+    expert_first: int = 0
+    expert_count: int = 0
 
 
 def sliding(cfg: LlamaConfig, li: int) -> bool:
@@ -639,6 +650,49 @@ def _mlp(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return _proj(layer["mlp"]["down"], g * _proj(layer["mlp"]["up"], x))
 
 
+def route_weights(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The router's dense per-token expert weights [..., E] in f32 from its
+    f32 logits (JAX ``_moe``, ``llama.py:859-870``): a softmax, the top
+    ``k`` probabilities renormalised to sum to 1, zeros elsewhere.  Of
+    equal probabilities the lower expert index wins, as ``lax.top_k``
+    picks (a stable descending sort; ``torch.topk`` promises no order)."""
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[..., :k], top_i[..., :k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return torch.zeros_like(probs).scatter(-1, top_i, top_p)
+
+
+def _moe(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mixtral's sparse MoE block in JAX's dense form (``llama.py:
+    850-885``): the router's f32 logits x @ router, ``route_weights`` cast
+    to x's dtype; every expert e on every token, one at a time, so that the
+    transient is one expert's [B, S, F]: g and u as f32 sums rounded to x's
+    dtype, act(g) * u, the down product rounded likewise; the weighted sum
+    w[..., e] * h_e accumulated in f32 and rounded once.  The experts are
+    stacked [E', d_in, d_out] weights (``convert.stack_experts``); a
+    tensor-parallel rank holds experts ``[expert_first, expert_first +
+    expert_count)`` and its f32 partial meets the other ranks' in an
+    all-reduce before the rounding (where tp does not divide the experts,
+    every rank holds them all and none is summed).  Plain products: JAX's
+    block reaches no Pallas kernel."""
+    moe = layer["moe"]
+    w = route_weights(matmul_f32(x, moe["router"]["kernel"]),
+                      cfg.num_experts_per_tok).to(x.dtype)
+    act = ACT_FNS[cfg.hidden_act]
+    gate, up, down = (moe[n]["kernel"] for n in ("gate", "up", "down"))
+    first = getattr(cfg, "expert_first", 0)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(gate.shape[0]):
+        g = act(matmul_f32(x, gate[j]).to(x.dtype))
+        u = matmul_f32(x, up[j]).to(x.dtype)
+        h = matmul_f32(g * u, down[j]).to(x.dtype)
+        acc = acc + w[..., first + j, None].float() * h.float()
+    if gate.shape[0] < cfg.num_experts:
+        acc = _mesh.all_reduce_sum(acc)
+    return acc.to(x.dtype)
+
+
 def _norm(p: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """JAX ``llama.py:831-841``: cohere's mean-centred, bias-free LayerNorm
     in f32, or RMSNorm with gemma's ``scale + 1``.  The 1 is added in the
@@ -793,7 +847,8 @@ def _decoder_layer(layer: Params, cfg: LlamaConfig, x: torch.Tensor, *,
     h = _norm(layer["mlp_norm"], x, cfg)
     if stats is not None:
         stats.append(outlier_ratio(h))
-    m = _mlp(layer, h, cfg.hidden_act)
+    m = _moe(layer, cfg, h) if "moe" in layer else \
+        _mlp(layer, h, cfg.hidden_act)
     if cfg.post_norms:
         m = _norm(layer["post_mlp_norm"], m, cfg)
     return x + m

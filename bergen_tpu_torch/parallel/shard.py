@@ -24,6 +24,18 @@ each rank then keeps the KV heads its query heads read
 (``ShardConfig.kv_heads_kept``).  Query heads, the MLP width and the int4
 groups of a row-parallel leaf must divide, or ``shard_llama`` raises.
 
+Mixtral's experts (JAX ``llama.py:1400-1409``): the expert axis is split,
+never an expert.  Rank r keeps experts ``[r * E/tp, (r+1) * E/tp)``, each
+whole, and the whole router, whose top-k stays over all E experts; its
+MoE block's f32 partial over its experts meets the other ranks' in an
+all-reduce (``models/llama.py::_moe``).  Where tp does not divide E, JAX
+replicates the expert stacks (``jax_llm.py:143-150``), so every rank
+keeps every expert and sums nothing.  The experts arrive as lists of views
+of the mapped checkpoint (``convert.llama_from_hf``) and a rank stacks only
+its own (``convert.stack``).  Attention is sliced as for llama;
+a MoE layer has no ``mlp`` node, and its ``intermediate_size`` (an
+expert's width) is not divided.
+
 A packed int4 slice launches the int4 kernel wherever the whole
 projection takes it, so it must lie inside the kernels' shapes
 (``int4_matmul.launchable``: N a multiple of 128), and so must a dense
@@ -67,25 +79,40 @@ def kept_kv_heads(num_heads: int, num_kv_heads: int, tp: int,
     return tuple((first + h) // group for h in range(per))
 
 
+def expert_range(num_experts: int, tp: int,
+                 model_rank: int) -> tuple[int, int]:
+    """(first expert, expert count) of rank ``model_rank``: its E/tp
+    experts, or all of them where tp does not divide E (JAX replicates)."""
+    if num_experts % tp:
+        return 0, num_experts
+    per = num_experts // tp
+    return model_rank * per, per
+
+
 def local_config(cfg, tp: int, model_rank: int):
     """``cfg`` as rank ``model_rank`` of ``tp`` sees it (a
     ``llama.ShardConfig``): its query heads, its KV heads and its MLP
-    width, the head width kept, and ``tp``."""
+    width (a MoE config's expert width whole, its experts in
+    ``expert_first`` / ``expert_count``), the head width kept, and
+    ``tp``."""
     H, KH, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
-    if H % tp or I % tp:
+    E = cfg.num_experts
+    if H % tp or (not E and I % tp):
         raise ValueError(
             f"tp={tp} must divide num_heads ({H}) and intermediate_size "
             f"({I})")
     from bergen_tpu_torch.models.llama import LlamaConfig, ShardConfig
 
     kept = kept_kv_heads(H, KH, tp, model_rank)
+    first, count = expert_range(E, tp, model_rank) if E else (0, 0)
     whole = {f.name: getattr(cfg, f.name)
              for f in dataclasses.fields(LlamaConfig)}
     return ShardConfig(**dict(
         whole, num_heads=H // tp,
         num_kv_heads=KH // tp if kept is None else len(kept),
-        intermediate_size=I // tp, head_dim_override=cfg.head_dim),
-        tp=tp, kv_heads_kept=kept)
+        intermediate_size=I if E else I // tp,
+        head_dim_override=cfg.head_dim),
+        tp=tp, kv_heads_kept=kept, expert_first=first, expert_count=count)
 
 
 def _whole(node: Params) -> tuple[int, int]:
@@ -163,6 +190,21 @@ def _copy(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
+def _experts(moe: Params, local, where: str) -> Params:
+    """A rank's MoE node: the whole router, and its experts stacked out of
+    the checkpoint's views (``convert.stack``), or sliced out of stacks
+    already made."""
+    _check_linear(moe["router"], f"{where}.router")
+    first, count = local.expert_first, local.expert_count
+    out: Params = {"router": _copy(moe["router"])}
+    for name in ("gate", "up", "down"):
+        experts = moe[name]["kernel"]
+        out[name] = {"kernel": convert.stack(experts, first, count)
+                     if isinstance(experts, list)
+                     else experts[first:first + count].clone()}
+    return out
+
+
 def shard_llama(params: Params, cfg, tp: int, model_rank: int,
                 int4: bool = False):
     """(rank ``model_rank``'s slice of ``params``, its ``local_config``);
@@ -175,11 +217,8 @@ def shard_llama(params: Params, cfg, tp: int, model_rank: int,
     out: Params = {"embed": params["embed"].clone(),
                    "final_norm": _copy(params["final_norm"]), "layers": []}
     for li, layer in enumerate(params["layers"]):
-        if "moe" in layer:
-            raise NotImplementedError(
-                "expert sharding (ROADMAP.md Queue 1 #5, Mixtral)")
         entry = {k: _copy(v) for k, v in layer.items()
-                 if k not in ("attn", "mlp")}
+                 if k not in ("attn", "mlp", "moe")}
         attn = {}
         for n in ("q", "k", "v", "o"):
             where = f"layers.{li}.attn.{n}"
@@ -191,6 +230,10 @@ def shard_llama(params: Params, cfg, tp: int, model_rank: int,
             else:
                 attn[n] = _column(layer["attn"][n], tp, r, where, int4)
         entry["attn"] = attn
+        if "moe" in layer:
+            entry["moe"] = _experts(layer["moe"], local, f"layers.{li}.moe")
+            out["layers"].append(entry)
+            continue
         mlp = layer["mlp"]
         entry["mlp"] = {
             n: _row(mlp[n], tp, r, f"layers.{li}.mlp.{n}") if n in ROW
@@ -217,6 +260,13 @@ def unshard_llama(shards: List[Params]) -> Params:
             return [join([n[i] for n in nodes]) for i in range(len(first))]
         if not isinstance(first, dict):
             return first
+        if "router" in first:  # a MoE node: the experts joined, if split
+            E = first["router"]["kernel"].shape[-1]
+            return {name: {"kernel": torch.cat(
+                        [n[name]["kernel"] for n in nodes])
+                        if first[name]["kernel"].shape[0] < E
+                        else first[name]["kernel"]}
+                    if name != "router" else first[name] for name in first}
         if "tp_shape" not in first:
             return {k: join([n[k] for n in nodes]) for k in first}
         K = _whole(first)[0]

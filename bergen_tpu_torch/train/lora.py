@@ -47,7 +47,14 @@ def init_lora(params: Dict[str, Any], rank: int, alpha: float,
     """Attach adapters to every linear but ``lm_head``, in place: A ~
     N(0, 1/rank) drawn on the host from ``generator`` (so the card and the
     CPU draw the same values), B = 0, scale alpha / rank, all in ``dtype``
-    (f32, as JAX keeps them over bf16 weights)."""
+    (f32, as JAX keeps them over bf16 weights).  A mixture-of-experts
+    tree is refused: its experts are [E, d_in, d_out] stacks, on which
+    JAX's ``init_lora`` fails (ROADMAP.md, faults of the reference)."""
+    if any("moe" in layer for layer in params["layers"]):
+        raise NotImplementedError(
+            "LoRA on a mixture-of-experts generator: adapters on the stacked "
+            "[E, d_in, d_out] experts are not defined (JAX's init_lora "
+            "fails on them); train it with train=full")
     for path, node in _walk(params):
         if path.split(".")[0] == "lm_head":
             continue  # peft's 'all-linear' excludes the output head

@@ -181,6 +181,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
@@ -312,6 +313,17 @@ PATH_KERNELS = {
     "ut1_tp2_llama2_13b_paged": ("encoder_layer", "paged_attention"),
     "judge_tp4_solar": ("flash_attention",),
     "gen_tp8_llama2_70b": ("decode_attention",),
+    # Mixtral (2 layers): rag_ut1 static (flash prefill on), served from
+    # the page pool, int4 (the attention and the head packed, the experts
+    # bf16), xRAG on the Mixtral decoder with the Mistral-7B trunk as the
+    # retriever, and LLM(tp=8) alone, one expert a rank
+    "ut1_mixtral": ("encoder_layer", "flash_attention", "decode_attention"),
+    "ut1_mixtral_paged": ("encoder_layer", "paged_attention"),
+    "ut1_int4_mixtral": ("encoder_layer", "int4_matmul", "flash_attention",
+                         "decode_attention"),
+    "ut1_xrag_mixtral": ("encoder_layer", "flash_attention",
+                         "decode_attention"),
+    "gen_tp8_mixtral": ("decode_attention",),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
@@ -3239,7 +3251,7 @@ def _llama_layer_shapes(c: dict) -> dict:
     """{tensor name: shape} of one decoder layer's linear weights, in the
     family's published layout: the head width from ``head_dim`` (gemma's)
     or the hidden width over the heads; Phi-3's fused ``qkv_proj`` and
-    ``gate_up_proj``."""
+    ``gate_up_proj``; Mixtral's router and experts."""
     D, I = c["hidden_size"], c["intermediate_size"]
     H = c["num_attention_heads"]
     Dh = c.get("head_dim") if c["model_type"] in ("gemma", "gemma2") \
@@ -3249,6 +3261,14 @@ def _llama_layer_shapes(c: dict) -> dict:
         return {"self_attn.qkv_proj": (Q + 2 * KV, D),
                 "self_attn.o_proj": (D, Q), "mlp.gate_up_proj": (2 * I, D),
                 "mlp.down_proj": (D, I)}
+    if c["model_type"] == "mixtral":  # the router and each expert's w1-w3
+        E, moe = c["num_local_experts"], "block_sparse_moe"
+        return {"self_attn.q_proj": (Q, D), "self_attn.k_proj": (KV, D),
+                "self_attn.v_proj": (KV, D), "self_attn.o_proj": (D, Q),
+                f"{moe}.gate": (E, D),
+                **{f"{moe}.experts.{e}.{w}": shape for e in range(E)
+                   for w, shape in (("w1", (I, D)), ("w3", (I, D)),
+                                    ("w2", (D, I)))}}
     return {"self_attn.q_proj": (Q, D), "self_attn.k_proj": (KV, D),
             "self_attn.v_proj": (KV, D), "self_attn.o_proj": (D, Q),
             "mlp.gate_proj": (I, D), "mlp.up_proj": (I, D),
@@ -4067,7 +4087,8 @@ def run_ut1_int4_llama2(ckpt: dict, workdir: str,
 
 def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
                             key: str, flash: bool = True,
-                            head_dequant: bool = False) -> dict:
+                            head_dequant: bool = False,
+                            extra: tuple = ()) -> dict:
     """The dense eval with ``generator`` on checkpoint ``key``, with flash
     prefill on (``USE_FLASH_PREFILL``, as on ut1_int4_llama2) unless
     ``flash`` is off: the Llama-3.2-3B (bf16, group 3), int4 Qwen2.5-7B
@@ -4076,7 +4097,7 @@ def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
     by default) and int4 Command-R paths.  Every int4 projection must take
     the kernel, but for the head where ``head_dequant`` (Phi-3's N 32,064,
     outside the kernel's shape rule): the dequantized product's calls are
-    returned."""
+    returned.  ``extra``: more overrides (a cut decode length)."""
     from bergen_tpu_torch.models import llama
 
     llama._int4_dequant_proj.calls = 0
@@ -4086,8 +4107,8 @@ def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
             "retriever=bge-base-en-v1.5",
             f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
             f"generator={generator}",
-            f"generator.init_args.model_name={_local(ckpt, key)}"], workdir,
-            ckpt)
+            f"generator.init_args.model_name={_local(ckpt, key)}", *extra],
+            workdir, ckpt)
     finally:
         llama.USE_FLASH_PREFILL = None
     if llama._int4_dequant_proj.calls and not head_dequant:
@@ -4103,17 +4124,19 @@ def run_ut1_flash_generator(ckpt: dict, workdir: str, generator: str,
 def run_ut1_serve_mistral(ckpt: dict, workdir: str,
                           kv_cache: str = "uniform",
                           generator: str = "vllm_mistral-7b-chat",
-                          key: str = "mistral_7b") -> dict:
+                          key: str = "mistral_7b", extra: tuple = (),
+                          new_tokens: int = MISTRAL_NEW_TOKENS) -> dict:
     """The dense eval with ``generator=vllm_mistral-7b-chat`` (``serve:
     true``: 50 requests into 32 slots through the epoch drain, or with
     ``kv_cache=paged`` the paged server), or another served ``generator``
-    on checkpoint ``key``.  On the paged path every decode layer must take
-    the paged kernel: the gather composition must not run on the card."""
+    on checkpoint ``key`` (``extra`` overrides, its decode length
+    ``new_tokens``).  On the paged path every decode layer must take the
+    paged kernel: the gather composition must not run on the card."""
     from bergen_tpu_torch.ops import paged_attention as pa
     from bergen_tpu_torch.serve import GenerationServer
 
-    extra = [] if kv_cache == "uniform" else [
-        f"+generator.init_args.kv_cache={kv_cache}"]
+    extra = [*extra] if kv_cache == "uniform" else [
+        *extra, f"+generator.init_args.kv_cache={kv_cache}"]
     pa.paged_partial_gather.calls = 0
     GenerationServer.decode_steps = 0
     exp, wall = _run_cli([
@@ -4130,7 +4153,7 @@ def run_ut1_serve_mistral(ckpt: dict, workdir: str,
     steps = GenerationServer.decode_steps
     return {"wall_s": wall, "stage_s": stages, "kv_cache": kv_cache,
             "generator": generator, "exp": exp,
-            "slots": MISTRAL_SLOTS, "max_new_tokens": MISTRAL_NEW_TOKENS,
+            "slots": MISTRAL_SLOTS, "max_new_tokens": new_tokens,
             "decode_steps": steps,
             "decode_steps_per_generate_s": steps / stages["generate"],
             "gather_compositions": pa.paged_partial_gather.calls,
@@ -6782,15 +6805,17 @@ def _record(cls, name: str, record: list):
     return orig
 
 
-def write_xrag_checkpoint(root: str, dev, base: str) -> str:
+def write_xrag_checkpoint(root: str, dev, base: str,
+                          name: str = "xrag-7b-random") -> str:
     """The xRAG decoder: ``base`` (the Mistral-7B checkpoint cut to its
-    first layers) with the projector xRAG checkpoints carry, retrieval
-    width 4,096 to 4,096 to the hidden width, seeded bf16 N(0, 0.02) in a
-    shard of its own; the tokenizer has no ``<xRAG>`` (the port adds it)."""
+    first layers, or the Mixtral one) with the projector xRAG checkpoints
+    carry, retrieval width 4,096 to 4,096 to the hidden width, seeded bf16
+    N(0, 0.02) in a shard of its own; the tokenizer has no ``<xRAG>`` (the
+    port adds it)."""
     import torch
     from bergen_tpu_torch.models.convert import save_safetensors
 
-    out = os.path.join(root, "xrag-7b-random")
+    out = os.path.join(root, name)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(base, "model.safetensors.index.json")) as f:
         weight_map = json.load(f)["weight_map"]
@@ -6801,7 +6826,8 @@ def write_xrag_checkpoint(root: str, dev, base: str) -> str:
     for name in ("config.json", "tokenizer.json", "tokenizer_config.json"):
         shutil.copy(os.path.join(base, name), os.path.join(out, name))
     gen = torch.Generator(device=dev).manual_seed(19)
-    D = MISTRAL_7B["hidden_size"]
+    with open(os.path.join(base, "config.json")) as f:
+        D = json.load(f)["hidden_size"]
 
     def w(*shape):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.02
@@ -6868,13 +6894,18 @@ def run_ut1_cocom(ckpt: dict, workdir: str) -> dict:
             **_check_outputs(exp)}
 
 
-def run_ut1_xrag(ckpt: dict, workdir: str) -> dict:
+def run_ut1_xrag(ckpt: dict, workdir: str, generator: str = "xrag-mistral",
+                 key: str = "xrag", path: str = "ut1_xrag",
+                 extra: tuple = ()) -> dict:
     """``generator=xrag-mistral`` (batches of 4) on the Mistral-7B decoder
     with a projector, its retriever the Mistral-7B trunk (the shipped
     config's SFR-Embedding-Mistral is a Mistral-7B) with mean pooling,
     both at SMOKE_NEW_PATH_LAYERS layers, 16 new tokens, flash prefill on:
     the retriever's right-padded encode batches and the decoder's
-    left-padded prefills through the flash kernel."""
+    left-padded prefills through the flash kernel; or ``generator`` on
+    the decoder ``key`` (``xrag_mixtral`` on the Mixtral, as ``path``).
+    The first batch's rows, documents and injected rows are kept for the
+    card-against-CPU check (``KEPT[path]``)."""
     import torch
     from bergen_tpu_torch.models import llama
     from bergen_tpu_torch.models.generators.llm_xrag import XRAG
@@ -6886,10 +6917,10 @@ def run_ut1_xrag(ckpt: dict, workdir: str) -> dict:
         exp, wall = _run_cli([
             "retriever=bge-base-en-v1.5",
             f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
-            "generator=xrag-mistral",
-            f"generator.init_args.model_name={_local(ckpt, 'xrag')}",
+            f"generator={generator}",
+            f"generator.init_args.model_name={_local(ckpt, key)}",
             f"generator.init_args.retriever_name={_local(ckpt, 'mistral_2l')}",
-            "generator.init_args.max_new_tokens=16"], workdir, ckpt)
+            "generator.init_args.max_new_tokens=16", *extra], workdir, ckpt)
     finally:
         llama.USE_FLASH_PREFILL = None
         XRAG.embed_prompts = o_embed
@@ -6898,9 +6929,9 @@ def run_ut1_xrag(ckpt: dict, workdir: str) -> dict:
              for r in range(len(batch))]
     if not all(len(s) == len(batch[r].get("doc") or [])
                for r, s in enumerate(slots)) or not slots[0]:
-        fail(f"ut1_xrag: <xRAG> slots {slots} do not match the documents")
+        fail(f"{path}: <xRAG> slots {slots} do not match the documents")
     n = SOFT_CHECK_ROWS
-    KEPT["ut1_xrag"] = {
+    KEPT[path] = {
         "batch": [dict(r) for r in batch[:n]], "prompts": prompts[:n],
         "slots": slots[:n], "rows": torch.stack([
             embeds[r, s].float().cpu() for r, ss in enumerate(slots[:n])
@@ -7514,9 +7545,12 @@ TP_TOPS: dict = {}
 # slots of max_length 4,096 + 16 new tokens (34 pages a slot, a pool of
 # 544); the int4 product at every per-rank projection of the three
 # (``tp_int4_shards``), 8 decode rows
-TP_DECODE = ((32, 20, 20, 528), (8, 8, 2, 528), (8, 8, 1, 528))
+TP_DECODE = ((32, 20, 20, 528), (8, 8, 2, 528), (8, 8, 1, 528),
+             # Mixtral-8x7B over 8 ranks (gen_tp8_mixtral): H 4, KH 1,
+             # the 8 questions' 32 bucket + 16 new tokens
+             (8, 4, 1, 48))
 TP_PAGED = tuple(dict(S=32, H=H, KH=KH, Dh=128, maxP=34, NP=544)
-                 for _, H, KH, _ in TP_DECODE)
+                 for _, H, KH, _ in TP_DECODE[:3])
 # (B, S, H, KH): flash prefill at the SOLAR judge's per-rank heads over 4
 # ranks, its batch of 32 at the 128 bucket, left-padded
 TP_FLASH = ((32, 128, 8, 2),)
@@ -7773,7 +7807,8 @@ def tp_rank_main(spec_file: str) -> None:
     run's entry point, as a user runs it: the CLI (``python -m
     bergen_tpu_torch``), the judge (``python -m bergen_tpu_torch.evaluate``)
     or ``LLM.generate``.  Rank 0 keeps every step's greedy tokens and the
-    first step's last logits."""
+    first step's last logits, and with ``routes`` its router's choices
+    (``Routes``)."""
     import numpy as np
     import torch
 
@@ -7815,6 +7850,9 @@ def tp_rank_main(spec_file: str) -> None:
         llama.USE_FLASH_PREFILL = run.get("flash_prefill") or None
         os.chdir(run["cwd"])
         result = {"rank": rank}
+        # rank 0's router choices, every call in order (a MoE generator)
+        routes = Routes() if run.get("routes") and rank == 0 \
+            else contextlib.nullcontext()
         t0 = time.perf_counter()
         if run["entry"] == "cli":
             from bergen_tpu_torch import __main__ as cli
@@ -7830,9 +7868,15 @@ def tp_rank_main(spec_file: str) -> None:
             from bergen_tpu_torch.parallel import mesh
 
             mesh.init(run["device"], "gloo")
-            llm = LLM(run["model"], tp=run["tp"], device=run["device"],
-                      **run["llm"])
-            result["texts"] = llm.generate(run["prompts"])
+            with routes:
+                llm = LLM(run["model"], tp=run["tp"], device=run["device"],
+                          **run["llm"])
+                result["texts"] = llm.generate(run["prompts"])
+            result["experts"] = [getattr(llm.cfg, "expert_first", 0),
+                                 getattr(llm.cfg, "expert_count", 0)]
+            if isinstance(routes, Routes):
+                torch.save(routes.record, os.path.join(
+                    spec["out"], f"routes{k}.pt"))
         cuda = torch.cuda.is_available()
         if cuda:
             torch.cuda.synchronize()
@@ -8008,20 +8052,44 @@ TP_70B_LLM = dict(max_new_tokens=TP_NEW_TOKENS, max_length=4096,
                   batch_size=8)
 
 
+# each 8-rank generator path's (records, run index, ranks folder, torchrun
+# wall seconds), filled by the first of them that is driven
+TP8_RUNS: dict = {}
+
+
+def _tp8_run(ckpt: dict, workdir: str, path: str) -> tuple:
+    """``path``'s records of ``LLM(tp=8).generate`` on 8 ranks: 8 ut1
+    questions, 16 new tokens, at Llama-2-70B's widths
+    (``gen_tp8_llama2_70b``) and Mixtral-8x7B's (``gen_tp8_mixtral``, one
+    expert a rank, rank 0 recording its router's choices), each whose
+    checkpoint is written, one after the other in the same 8 ranks (one
+    torchrun: they reach the card once)."""
+    if path not in TP8_RUNS:
+        os.makedirs(workdir, exist_ok=True)
+        specs = [(p, {"entry": "generate", "cwd": workdir,
+                      "device": TP_DEVICE, "model": ckpt[key], "tp": 8,
+                      "llm": llm, "prompts": _tp_prompts(), **extra})
+                 for p, key, llm, extra in (
+                     ("gen_tp8_llama2_70b", "llama2_70b", TP_70B_LLM, {}),
+                     ("gen_tp8_mixtral", "mixtral", MIXTRAL_TP8_LLM,
+                      {"routes": True}))
+                 if key in ckpt]
+        recs, wall = run_tp(8, [spec for _, spec in specs], workdir)
+        for k, (p, _) in enumerate(specs):
+            TP8_RUNS[p] = (recs[k], k, os.path.join(workdir, "ranks"), wall)
+    return TP8_RUNS.pop(path)
+
+
 def run_gen_tp8_llama2_70b(ckpt: dict, workdir: str) -> dict:
-    """``LLM(tp=8).generate`` at Llama-2-70B's widths on 8 ranks: 8 ut1
-    questions, 16 new tokens; each rank one decode attention a layer and
-    decode step."""
-    os.makedirs(workdir, exist_ok=True)
-    (recs,), wall = run_tp(8, [{"entry": "generate", "cwd": workdir,
-                                "device": TP_DEVICE,
-                                "model": ckpt["llama2_70b"], "tp": 8,
-                                "llm": TP_70B_LLM,
-                                "prompts": _tp_prompts()}], workdir)
+    """``LLM(tp=8).generate`` at Llama-2-70B's widths on 8 ranks
+    (``_tp8_run``); each rank one decode attention a layer and decode
+    step."""
+    recs, k, out, wall = _tp8_run(ckpt, workdir, "gen_tp8_llama2_70b")
     TP_TOPS["gen_tp8_llama2_70b"] = recs[0]["tops"]
     return {"wall_s": wall, "ranks": 8,
             **_tp_launches("gen_tp8_llama2_70b", recs, (TP_LAYERS, 0, 0, 0)),
-            "texts": recs[0]["texts"]}
+            "texts": recs[0]["texts"],
+            "first_logits": os.path.join(out, f"first_logits{k}.npy")}
 
 
 def _forced(run, chosen: list | None = None):
@@ -8080,10 +8148,12 @@ def _tp_same_tokens(path: str, got: list, want: list, tokens_tp: list,
             "gap_tol": 2 * TP_LOGITS_TOL}
 
 
-def _first_logits_close(path: str, out_dir: str, ref) -> dict:
+def _first_logits_close(path: str, npy: str, ref) -> dict:
+    """Rank 0's first-step logits (``npy``, written by ``tp_rank_main``)
+    against tp 1's ``ref``."""
     import numpy as np
 
-    got = np.load(os.path.join(out_dir, "ranks", "first_logits0.npy"))
+    got = np.load(npy)
     ref = ref.float().cpu().numpy()
     diff = float(np.abs(got - ref).max())
     cos = float((got * ref).sum() / np.sqrt((got * got).sum()
@@ -8126,7 +8196,8 @@ def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
                                     texts, TP_TOPS[path], tokens, gaps)
         if kv is None:  # the first prefill: the same 32 prompts
             out[path].update(_first_logits_close(
-                path, os.path.join(work, path), first))
+                path, os.path.join(work, path, "ranks", "first_logits0.npy"),
+                first))
         del llm
         torch.cuda.empty_cache()
     # the judge at tp 1 on its own copy of the judged folder
@@ -8158,8 +8229,9 @@ def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
              f"(tol {TP_PROB_TOL})")
     out["judge_tp4_solar"] = {
         "rows": len(got), "max_prob_diff": diff, "prob_tol": TP_PROB_TOL,
-        **_first_logits_close("judge_tp4_solar",
-                              os.path.dirname(jrun["folder"]), first)}
+        **_first_logits_close("judge_tp4_solar", os.path.join(
+            os.path.dirname(jrun["folder"]), "ranks", "first_logits0.npy"),
+            first)}
     torch.cuda.empty_cache()
     # the 70B generator alone
     llm = LLM(ckpt["llama2_70b"], tp=1, device=TP_REF_DEVICE, **TP_70B_LLM)
@@ -8170,8 +8242,7 @@ def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
     out["gen_tp8_llama2_70b"] = {
         **_tp_same_tokens("gen_tp8_llama2_70b", run["texts"], texts,
                           tp_tokens, tokens, gaps),
-        **_first_logits_close("gen_tp8_llama2_70b",
-                              os.path.join(work, "gen_tp8_llama2_70b"),
+        **_first_logits_close("gen_tp8_llama2_70b", run["first_logits"],
                               first)}
     del llm
     torch.cuda.empty_cache()
@@ -8182,8 +8253,9 @@ def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
                    work: str) -> None:
     """Each ``TP_CKPTS`` checkpoint written, its paths driven (the 13B
     static and served paged, the SOLAR judge on the 13B static run's
-    folder, the 70B generator alone), then all of them against tp 1 on the
-    card, the checkpoints deleted after."""
+    folder, the 70B generator, with gen_tp8_mixtral in the same ranks
+    where the Mixtral checkpoint is written), then all of them against tp
+    1 on the card, the checkpoints deleted after."""
     paths = {"llama2_13b": (
                 ("ut1_tp2_llama2_13b", run_ut1_tp2_llama2_13b),
                 ("ut1_tp2_llama2_13b_paged", run_ut1_tp2_llama2_13b_paged)),
@@ -8200,8 +8272,448 @@ def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
             drive(path, run)
     emit({"phase": "reference_check_tp",
           **timed(check_tp_against_tp1, ckpt, work, runs)})
+    if "mixtral" in ckpt:  # its 8-rank run shared the 70B's ranks
+        drive_gen_tp8_mixtral(ckpt, root, drive, runs)
     for _, name, *_ in TP_CKPTS:
         shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
+# --------------------------------------------------------------------------- #
+# Mixtral: the mixture-of-experts generators
+# --------------------------------------------------------------------------- #
+
+# mistralai/Mixtral-8x7B-Instruct-v0.1's published config.json (the
+# checkpoint the four mixtral generator configs name): Mistral-7B's widths,
+# 8 experts a layer, 2 a token
+MIXTRAL_8X7B = dict(MISTRAL_7B, model_type="mixtral", num_local_experts=8,
+                    num_experts_per_tok=2, router_aux_loss_coef=0.02)
+MIXTRAL_LAYERS = SMOKE_NEW_PATH_LAYERS
+MIXTRAL_NEW_TOKENS = 16
+MIXTRAL_PATHS = ("ut1_mixtral", "ut1_mixtral_paged", "ut1_int4_mixtral",
+                 "ut1_xrag_mixtral", "gen_tp8_mixtral")
+MIXTRAL_CKPTS = ("mixtral-8x7b-instruct-random", "xrag-moe-random")
+# a router choice of one run that another run (tp 1 against tp 8, the f32
+# CPU against the bf16 card) follows where its own differs must be a
+# near-tie: the forced expert's router logit within this of its own k-th
+# (the router logits' spread at random weights is 1.28; a few bf16 ulps of
+# the hidden state move one by about 0.01)
+ROUTER_TIE_TOL = 0.0625
+MIXTRAL_TP8_LLM = dict(max_new_tokens=TP_NEW_TOKENS, max_length=4096,
+                       batch_size=16)  # mixtral-8x7b-instruct's, 16 tokens
+# the MoE block timed at B 16 decode (where nearly every expert is read)
+MOE_DECODE_ROWS = 16
+MIXTRAL_CARD = "cuda"  # the card side of check_mixtral_against_cpu
+
+
+class Routes:
+    """``llama.route_weights`` watched: every call's top-k experts recorded
+    (``record``, CPU tensors, in call order), or, given ``forced`` (another
+    run's record), followed: each token weighted over the forced experts'
+    renormalised probabilities as the router weights its own, and the gap by
+    which the forced set's lowest router logit falls below this run's own
+    k-th kept (0 where the sets agree; ``flips`` counts the tokens where
+    they do not)."""
+
+    def __init__(self, forced: list | None = None):
+        self.forced, self.record, self.gaps, self.flips = forced, [], [], 0
+
+    def __enter__(self):
+        import torch
+        from bergen_tpu_torch.models import llama
+
+        self.orig = orig = llama.route_weights
+
+        def routed(logits, k):
+            if self.forced is None:
+                w = orig(logits, k)
+                self.record.append(w.topk(k, dim=-1).indices.cpu())
+                return w
+            idx = self.forced[len(self.gaps)].to(logits.device)
+            if idx.shape != (*logits.shape[:-1], k):
+                fail(f"forced routes {tuple(idx.shape)} at a router call of "
+                     f"{tuple(logits.shape)}: the runs took other steps")
+            probs = torch.softmax(logits, dim=-1)
+            top = probs.gather(-1, idx)
+            w = torch.zeros_like(probs).scatter(
+                -1, idx, top / top.sum(dim=-1, keepdim=True))
+            kth = logits.topk(k, dim=-1).values[..., -1]
+            gap = (kth - logits.gather(-1, idx).min(dim=-1).values
+                   ).clamp_min(0)
+            self.gaps.append(float(gap.max()))
+            self.flips += int((gap > 0).sum())
+            return w
+
+        llama.route_weights = routed
+        return self
+
+    def __exit__(self, *exc):
+        from bergen_tpu_torch.models import llama
+
+        llama.route_weights = self.orig
+
+    def summary(self, what: str) -> dict:
+        worst = max(self.gaps, default=0.0)
+        if worst > ROUTER_TIE_TOL:
+            fail(f"{what}: a forced router choice {worst} below its own "
+                 f"k-th logit (tol {ROUTER_TIE_TOL})")
+        return {"router_calls": len(self.gaps), "router_flips": self.flips,
+                "router_max_gap": worst, "router_gap_tol": ROUTER_TIE_TOL}
+
+
+def write_mixtral(root: str, dev) -> str:
+    """Mixtral-8x7B-Instruct-v0.1 at its published widths and
+    MIXTRAL_LAYERS of its 32 layers (6.33 GB; 93.4 GB whole), the experts'
+    w1, w3 and w2 as HF stores them, with Mistral-7B's word-level
+    tokenizer and chat template (``write_mistral_7b``'s)."""
+    return _write_sharded_llama(
+        os.path.join(root, MIXTRAL_CKPTS[0]), dev,
+        dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS),
+        MISTRAL_CHAT_TEMPLATE, 24)
+
+
+def run_ut1_mixtral(ckpt: dict, workdir: str) -> dict:
+    """rag_ut1 with ``generator=vllm_mixtral-moe-7b-chat`` (bf16, static:
+    the config's ``serve: false``), flash prefill on, 16 new tokens."""
+    return run_ut1_flash_generator(
+        ckpt, workdir, "vllm_mixtral-moe-7b-chat", "mixtral",
+        extra=(f"generator.init_args.max_new_tokens={MIXTRAL_NEW_TOKENS}",))
+
+
+def run_ut1_mixtral_paged(ckpt: dict, workdir: str) -> dict:
+    """The same config served from the page pool (``serve=true
+    kv_cache=paged``): one paged partial a layer and decode step."""
+    return run_ut1_serve_mistral(
+        ckpt, workdir, "paged", "vllm_mixtral-moe-7b-chat", "mixtral",
+        extra=("generator.init_args.serve=true",
+               f"generator.init_args.max_new_tokens={MIXTRAL_NEW_TOKENS}"),
+        new_tokens=MIXTRAL_NEW_TOKENS)
+
+
+def run_ut1_int4_mixtral(ckpt: dict, workdir: str) -> dict:
+    """rag_ut1 with ``generator=mixtral-moe-7b-chat`` (int4: q, k, v, o and
+    the head packed, the experts and the router bf16 as in JAX), flash
+    prefill on, 16 new tokens."""
+    return run_ut1_flash_generator(
+        ckpt, workdir, "mixtral-moe-7b-chat", "mixtral",
+        extra=(f"generator.init_args.max_new_tokens={MIXTRAL_NEW_TOKENS}",))
+
+
+def run_ut1_xrag_mixtral(ckpt: dict, workdir: str) -> dict:
+    """``generator=xrag_mixtral`` on the Mixtral decoder with a projector
+    and the 2-layer Mistral-7B trunk as its retriever, batches of 4 (the
+    config's 1 cut, as ``ut1_xrag``'s), 16 new tokens."""
+    return run_ut1_xrag(ckpt, workdir, "xrag_mixtral", "xrag_mixtral",
+                        "ut1_xrag_mixtral",
+                        extra=("generator.init_args.batch_size=4",))
+
+
+def run_gen_tp8_mixtral(ckpt: dict, workdir: str) -> dict:
+    """``LLM(tp=8).generate`` with ``mixtral-8x7b-instruct``'s options at
+    Mixtral's widths on 8 ranks (``_tp8_run``: one expert a rank, the
+    router whole); each rank one decode attention a layer and decode step
+    (H 4, KH 1)."""
+    recs, k, out, wall = _tp8_run(ckpt, workdir, "gen_tp8_mixtral")
+    experts = [rec["experts"] for rec in recs]
+    if experts != [[r, 1] for r in range(8)]:
+        fail(f"gen_tp8_mixtral: the ranks' (first expert, experts) "
+             f"{experts}, not one expert a rank")
+    TP_TOPS["gen_tp8_mixtral"] = recs[0]["tops"]
+    return {"torchrun_wall_s": wall, "ranks": 8, "rank_experts": experts,
+            **_tp_launches("gen_tp8_mixtral", recs,
+                           (MIXTRAL_LAYERS, 0, 0, 0)),
+            "texts": recs[0]["texts"],
+            "first_logits": os.path.join(out, f"first_logits{k}.npy"),
+            "routes": os.path.join(out, f"routes{k}.pt")}
+
+
+def _prefill_decode(params, cfg, ii, am, dtype, device, tok=None,
+                    embeds=None):
+    """(last prefill logits [B, V], one decode step's logits, the decoded
+    token) of ``params`` on left-padded ``ii`` / ``am`` (numpy), with
+    ``embeds`` as the prompt's input rows where given; the decode step
+    takes ``tok`` (another device's), else the prefill's greedy token."""
+    import torch
+    from bergen_tpu_torch.models import llama
+
+    ids = torch.from_numpy(ii).to(device)
+    mask = torch.from_numpy(am).to(device).bool()
+    B, S = ii.shape
+    cache = llama.init_cache(cfg, B, S + 1, dtype=dtype, device=device)
+    pos = (mask.long().cumsum(1) - 1).clamp_min(0)
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=device))
+    with torch.inference_mode():
+        pre = llama.forward(params, cfg, ids, pos, cache,
+                            causal[None] & mask[:, None, :], last_only=True,
+                            input_embeds=None if embeds is None
+                            else embeds.to(device, dtype))[:, -1]
+        if tok is None:
+            tok = pre.argmax(dim=-1).cpu()
+        valid = torch.cat([mask, torch.ones(B, 1, dtype=torch.bool,
+                                            device=device)], dim=1)
+        step = llama.forward(params, cfg, tok[:, None].to(device),
+                             pos[:, -1:] + 1, cache, valid[:, None, :])[:, -1]
+    return pre.float().cpu().numpy(), step.float().cpu().numpy(), tok
+
+
+def _xrag_on(cfg, params, ckpt: dict, device, dtype: str | None):
+    """The xRAG generator on the Mixtral decoder's tree already placed
+    (``params``), its projector read from the checkpoint, the 2-layer
+    Mistral-7B trunk as its retriever."""
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.models.generators import llm_xrag
+
+    load = llm_xrag.load_llama
+    llm_xrag.load_llama = lambda name, dt, dev: (
+        cfg, params, convert.load_checkpoint(name)[1])
+    try:
+        return llm_xrag.XRAG(ckpt["xrag_mixtral"],
+                             retriever_name=ckpt["mistral_2l"],
+                             max_length=4096, dtype=dtype, device=device)
+    finally:
+        llm_xrag.load_llama = load
+
+
+def _mixtral_side(ckpt: dict, device: str, dtype: str | None,
+                  forced: dict | None, toks: dict | None):
+    """Each tp 1 path's first-step logits on one device, from one Mixtral
+    tree (``LLM``): the static batch of two ut1 questions (prefill and one
+    decode step, flash prefill on), the same two served from the page pool
+    (``_served_logits``), xRAG's first two rows of ``ut1_xrag_mixtral``'s
+    first batch (its injected rows too), then the tree quantized to int4
+    in place (as ``LLM`` quantizes) and the static batch again.  With
+    ``forced`` (the card's records) each follows the card's router
+    choices and decodes the card's tokens (``toks``)."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.serve import PagedGenerationServer
+
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1] for ln in f][:2]
+    llm = LLM(ckpt["mixtral"], device=device, dtype=dtype, max_length=4096)
+    args = (llm.dtype, llm.device)
+    out, routes, tok_out = {}, {}, {}
+
+    def watched(name, fn):
+        with Routes(None if forced is None else forced[name]) as r:
+            got = fn((toks or {}).get(name))
+        routes[name] = r
+        return got
+
+    ii, am = llm._tokenize_left_pad(questions)
+    pre, dec, tok = watched("static", lambda t: _prefill_decode(
+        llm.params, llm.cfg, ii, am, *args, tok=t))
+    out["static"], tok_out["static"] = (pre, dec), tok
+    server = SimpleNamespace(server=PagedGenerationServer(
+        params=llm.params, cfg=llm.cfg, eos_token_id=llm.tokenizer
+        .eos_token_id, pad_token_id=llm.tokenizer.pad_token_id,
+        max_slots=MISTRAL_SLOTS, max_len=4096 + 3, dtype=llm.dtype,
+        device=llm.device))
+    ids = llm.tokenizer(questions, truncation=True,
+                        max_length=4096)["input_ids"]
+    pre, dec, dec_ids = watched("paged", lambda t: _served_logits(
+        server, ids, decode_ids=t))
+    out["paged"], tok_out["paged"] = (pre, dec), dec_ids
+    del server
+    kept = KEPT["ut1_xrag_mixtral"]
+    xrag = _xrag_on(llm.cfg, llm.params, ckpt, llm.device, dtype)
+    xi, xa, embeds = xrag.embed_prompts(kept["batch"], kept["prompts"])
+    out["xrag_rows"] = torch.stack([embeds[r, s].float().cpu() for r, ss in
+                                    enumerate(kept["slots"]) for s in ss])
+    pre, dec, tok = watched("xrag", lambda t: _prefill_decode(
+        llm.params, llm.cfg, xi, xa, *args, tok=t, embeds=embeds))
+    out["xrag"], tok_out["xrag"] = (pre, dec), tok
+    del xrag, embeds
+    # the int4 route on the same weights: LLM quantizes the checkpoint's
+    # bf16 leaves, and the CPU's f32 leaves hold the same values
+    convert.quantize_tree_int4(llm.params, packed=True, device=llm.device)
+    pre, dec, tok = watched("int4", lambda t: _prefill_decode(
+        llm.params, llm.cfg, ii, am, *args, tok=t))
+    out["int4"], tok_out["int4"] = (pre, dec), tok
+    del llm
+    torch.cuda.empty_cache()
+    return out, routes, tok_out
+
+
+def check_mixtral_against_cpu(ckpt: dict) -> dict:
+    """Each tp 1 Mixtral path's first-step logits on the card (bf16, the
+    kernels) against an f32 forward of the same checkpoint on the CPU (the
+    kernels' plain versions; 2 layers in f32 take 12.7 GB of host memory)
+    on two rows, the CPU following the card's router choices and tokens
+    (``Routes``; each flip a near-tie within ROUTER_TIE_TOL): the static
+    path, the paged server, int4 and xRAG (its injected rows too, as
+    ``check_soft_prompts_against_cpu``).  The family checks' cosine limit
+    of 0.99."""
+    from bergen_tpu_torch.models import llama
+
+    tol = 0.99  # min row cosine of the logits, bf16 against f32
+    llama.USE_FLASH_PREFILL = True
+    try:
+        card, card_routes, toks = _mixtral_side(ckpt, MIXTRAL_CARD, None,
+                                                 None, None)
+        cpu, cpu_routes, _ = _mixtral_side(
+            ckpt, "cpu", "f32", {k: r.record for k, r in card_routes.items()},
+            toks)
+    finally:
+        llama.USE_FLASH_PREFILL = None
+    out = {"reference": "cpu f32", "layers": MIXTRAL_LAYERS, "tol": tol}
+    for name in ("static", "paged", "int4", "xrag"):
+        out[name] = {
+            "prefill_logits_min_cos": _cos_rows(card[name][0], cpu[name][0]),
+            "decode_logits_min_cos": _cos_rows(card[name][1], cpu[name][1]),
+            **cpu_routes[name].summary(f"mixtral {name} on the CPU")}
+    out["xrag_rows"] = _soft_rows_check(card["xrag_rows"], cpu["xrag_rows"])
+    bad = [(name, k) for name in ("static", "paged", "int4", "xrag")
+           for k in ("prefill_logits_min_cos", "decode_logits_min_cos")
+           if not out[name][k] >= tol]
+    r = out["xrag_rows"]
+    if bad or not (r["min_cos"] >= SOFT_COS_TOL
+                   and r["max_rel_err"] <= SOFT_REL_TOL):
+        fail(f"Mixtral card vs CPU reference: {bad} below {tol}: {out}")
+    return out
+
+
+def check_mixtral_tp_against_tp1(ckpt: dict, runs: dict) -> dict:
+    """gen_tp8_mixtral against tp 1 on the card (bf16 both): tp 1 forced
+    along the tp run's tokens (``_tp_same_tokens``) and its router choices
+    (``Routes``: each flip a near-tie), the first step's logits within
+    TP_LOGITS_TOL."""
+    import torch
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    run = runs["gen_tp8_mixtral"]
+    forced = torch.load(run["routes"])
+    llm = LLM(ckpt["mixtral"], tp=1, device=TP_REF_DEVICE, **MIXTRAL_TP8_LLM)
+    tp_tokens = TP_TOPS["gen_tp8_mixtral"]
+    with Routes(forced) as routes:
+        texts, tokens, first, gaps = _forced(
+            lambda: llm.generate(_tp_prompts()), tp_tokens)
+    if len(routes.gaps) != len(forced):
+        fail(f"gen_tp8_mixtral: tp 1 made {len(routes.gaps)} router calls, "
+             f"the tp run {len(forced)}")
+    out = {**_tp_same_tokens("gen_tp8_mixtral", run["texts"], texts,
+                             tp_tokens, tokens, gaps),
+           **_first_logits_close("gen_tp8_mixtral", run["first_logits"],
+                                 first),
+           **routes.summary("gen_tp8_mixtral against tp 1")}
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_moe_block(ckpt: dict, dev, steps: dict) -> dict:
+    """One Mixtral MoE block (``llama._moe``: the router, every expert on
+    every token, the f32 sum) on layer 0's weights, CUDA events, at B 16
+    decode and at ut1_mixtral's most frequent prefill shape (rows, S),
+    beside its bound: the router's and the 8 experts' bf16 weights read
+    once and x written once over 3.35 TB/s, or the dense products'
+    operations over the bf16 peak, whichever is larger; and the
+    operations top-2 routing would do."""
+    import torch
+    from bergen_tpu_torch.models import convert, llama
+
+    _, sd = convert.load_checkpoint(ckpt["mixtral"])
+    layer = convert.llama_from_hf(sd, 1)["layers"][0]
+    moe = {"router": {"kernel": layer["moe"]["router"]["kernel"].to(
+        dev, torch.bfloat16).contiguous()}}
+    for name in ("gate", "up", "down"):
+        moe[name] = {"kernel": convert.stack(layer["moe"][name]["kernel"],
+                                             dtype=torch.bfloat16,
+                                             device=dev)}
+    cfg = llama.LlamaConfig.from_hf(SimpleNamespace(**MIXTRAL_8X7B))
+    D, I, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    gen = torch.Generator(device=dev).manual_seed(25)
+    prefill = _common_shapes([(st[4], st[0]) for st in steps["ut1_mixtral"]
+                              if st[0] > 1], n=1)
+    out = {"card": card_line()}
+    for name, (B, S) in (("decode", (MOE_DECODE_ROWS, 1)),
+                         ("prefill", prefill[0])):
+        x = torch.randn(B, S, D, generator=gen, device=dev).bfloat16()
+        tokens = B * S
+        ops = 2 * 3 * D * I * E * tokens + 2 * D * E * tokens
+        nbytes = 2 * (3 * E * D * I + D * E) + 2 * 2 * tokens * D
+        b_ms, b_by = bound(ops, nbytes)
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: llama._moe({"moe": moe}, cfg, x),
+                              iters=20, warmup=3)
+        out[name] = {"B": B, "S": S, "ms": ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "dense_gflop": ops / 1e9,
+                     "top2_gflop": (2 * 3 * D * I * cfg.num_experts_per_tok
+                                    + 2 * D * E) * tokens / 1e9,
+                     "weight_gb": 2 * (3 * E * D * I + D * E) / 1e9}
+    del moe
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mixtral_launches(by_path: dict, steps: dict, runs: dict) -> None:
+    """Every Mixtral path's launches, exact: each forward step of the
+    static, int4 and xRAG paths (the retriever trunk's encodes and the
+    decoder's prefills through flash) one decode attention a layer and
+    decode step and one flash attention a layer and prefill, the int4 path
+    9 int4 products a step (q, k, v and o at 2 layers, the head; the
+    experts bf16, the dequantized product never); the paged path one paged
+    partial a layer and decode step and no flat decode attention; each
+    kernel of PATH_KERNELS launched (the tp path's rule is checked on its
+    ranks, ``_tp_launches``)."""
+    n = MIXTRAL_LAYERS
+    for path, per4 in (("ut1_mixtral", 0), ("ut1_int4_mixtral", 4 * n + 1),
+                       ("ut1_xrag_mixtral", 0)):
+        bad = [st for st in steps[path] if st[1:4] != (
+            per4, n if st[0] == 1 else 0, n if st[0] > 1 else 0)]
+        n_dec = sum(1 for st in steps[path] if st[0] == 1)
+        want = (per4 * len(steps[path]), n * n_dec)
+        got = (by_path[path]["int4_matmul"], by_path[path]["decode_attention"])
+        if bad or not n_dec or got != want:
+            fail(f"{path}: forward steps off (S, int4, decode, flash) = (S, "
+                 f"{per4}, {n}, {n}): {bad[:3]} ({len(bad)} in all); "
+                 f"(int4, decode) launches {got}, not {want}")
+    path = "ut1_mixtral_paged"
+    want = n * runs[path]["decode_steps"]
+    if by_path[path]["paged_attention"] != want or \
+            by_path[path]["decode_attention"]:
+        fail(f"{path}: {by_path[path]['paged_attention']} paged partials "
+             f"(not {n} x {runs[path]['decode_steps']} decode steps), "
+             f"{by_path[path]['decode_attention']} decode attentions")
+    idle = [f"{k} on {p}" for p in MIXTRAL_PATHS for k in PATH_KERNELS[p]
+            if by_path[p][k] == 0]
+    if idle:
+        fail(f"kernels never launched where the path runs them: {idle}")
+
+
+def drive_mixtral_paths(ckpt: dict, root: str, dev, drive,
+                        steps: dict) -> None:
+    """The Mixtral checkpoint (MIXTRAL_LAYERS layers) and its xRAG decoder
+    written, the four tp 1 paths driven, the MoE block timed and the tp 1
+    paths against the CPU; the xRAG decoder deleted after, the Mixtral
+    kept for gen_tp8_mixtral (``drive_gen_tp8_mixtral``).  Needs
+    ``ckpt["mistral_2l"]`` (the xRAG retriever)."""
+    t0 = time.perf_counter()
+    ckpt["mixtral"] = write_mixtral(root, dev)
+    ckpt["xrag_mixtral"] = write_xrag_checkpoint(root, dev, ckpt["mixtral"],
+                                                 MIXTRAL_CKPTS[1])
+    emit({"phase": "checkpoint_mixtral", "write_s": time.perf_counter() - t0,
+          "path": ckpt["mixtral"], "layers": MIXTRAL_LAYERS})
+    for path, run in (("ut1_mixtral", run_ut1_mixtral),
+                      ("ut1_mixtral_paged", run_ut1_mixtral_paged),
+                      ("ut1_int4_mixtral", run_ut1_int4_mixtral),
+                      ("ut1_xrag_mixtral", run_ut1_xrag_mixtral)):
+        drive(path, run)
+    emit({"phase": "moe_block_time",
+          **timed(time_moe_block, ckpt, dev, steps)})
+    emit({"phase": "reference_check_mixtral",
+          **timed(check_mixtral_against_cpu, ckpt)})
+    KEPT.pop("ut1_xrag_mixtral", None)
+    shutil.rmtree(ckpt.pop("xrag_mixtral"), ignore_errors=True)
+
+
+def drive_gen_tp8_mixtral(ckpt: dict, root: str, drive, runs: dict) -> None:
+    """gen_tp8_mixtral (in the 8 ranks of gen_tp8_llama2_70b where that
+    runs too) and its check against tp 1; the Mixtral checkpoint deleted
+    after."""
+    drive("gen_tp8_mixtral", run_gen_tp8_mixtral)
+    emit({"phase": "reference_check_mixtral_tp",
+          **timed(check_mixtral_tp_against_tp1, ckpt, runs)})
+    shutil.rmtree(ckpt.pop("mixtral"), ignore_errors=True)
 
 
 def card_line() -> str:
@@ -8253,15 +8765,19 @@ def main() -> None:
     # COCOM, xRAG, LoRA-training and Provence-training paths with their
     # checks (Mistral-7B at SMOKE_NEW_PATH_LAYERS), then stop;
     # --context-kernels: the context paths' kernel checks alone, in a
-    # child; no argument: every phase
+    # child; --mixtral: build, the tp shard checks, the Mixtral paths with
+    # their checks (their xRAG retriever, Mistral-7B at
+    # SMOKE_NEW_PATH_LAYERS, written first), then stop; no argument: every
+    # phase
     only = None
     profile = sys.argv[1:] == ["--profile-serve"]
     context_only = sys.argv[1:] == ["--context"]
     soft_train_only = sys.argv[1:] == ["--soft-train"]
     tp_only = sys.argv[1:] == ["--tp"]
+    mixtral_only = sys.argv[1:] == ["--mixtral"]
     if profile or context_only or soft_train_only:
         only = []
-    elif tp_only:
+    elif tp_only or mixtral_only:
         only = ["tp_shards"]
     elif sys.argv[1:2] == ["--context-kernels"] and len(sys.argv) == 4:
         only = []  # a child of the context paths: their kernel checks only
@@ -8337,7 +8853,7 @@ def main() -> None:
     if profile:
         profile_serve(dev)
     if only is not None and not (context_only or soft_train_only
-                                 or tp_only):
+                                 or tp_only or mixtral_only):
         emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
@@ -8416,6 +8932,18 @@ def main() -> None:
                   "script_s": time.perf_counter() - started,
                   "launches": {p: by_path[p] for p in
                                SOFT_TRAIN_PATHS + ("provence_train",)}})
+            return
+        if mixtral_only:
+            ckpt["mistral_7b"] = write_mistral_7b(root, dev,
+                                                  SMOKE_NEW_PATH_LAYERS)
+            ckpt["mistral_2l"] = first_layers(ckpt["mistral_7b"],
+                                              SMOKE_NEW_PATH_LAYERS)
+            drive_mixtral_paths(ckpt, root, dev, drive, steps)
+            drive_gen_tp8_mixtral(ckpt, root, drive, runs)
+            check_mixtral_launches(by_path, steps, runs)
+            emit({"phase": "done", "mixtral": True,
+                  "script_s": time.perf_counter() - started,
+                  "launches": {p: by_path[p] for p in MIXTRAL_PATHS}})
             return
         if tp_only:
             drive_tp_paths(ckpt, root, dev, drive, runs, work)
@@ -8512,6 +9040,9 @@ def main() -> None:
         # COCOM and xRAG on the same Mistral-7B checkpoint's first layers,
         # then LoRA training on TinyLlama
         drive_soft_train_paths(ckpt, root, dev, drive)
+        # the Mixtral paths at tp 1 (xRAG's retriever: the Mistral-7B's
+        # first layers); gen_tp8_mixtral runs in the 70B's 8 ranks below
+        drive_mixtral_paths(ckpt, root, dev, drive, steps)
         for name in SEVEN_B[:4]:  # room on the disk for the next models
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
         # the Llama-3.x / Qwen2.x paths: Llama-3.2-3B static (groups of 3),
@@ -8606,6 +9137,7 @@ def main() -> None:
             fail(f"kernels never launched where the path runs them: {idle}")
         check_context_launches(by_path, bias_launches, runs)
         check_soft_train_launches(by_path, steps)
+        check_mixtral_launches(by_path, steps, runs)
         # each int8 path in its modes alone (no other path launches int8)
         for path, got in int8_by_mode.items():
             modes = PATH_INT8_MODES.get(path, ())
@@ -8809,7 +9341,8 @@ def main() -> None:
         reads.close()
         shutil.rmtree(work, ignore_errors=True)
         for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS + CONTEXT_CKPTS \
-                + ("xrag-7b-random",) + tuple(t[1] for t in TP_CKPTS):
+                + ("xrag-7b-random",) + tuple(t[1] for t in TP_CKPTS) \
+                + MIXTRAL_CKPTS:
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     check_soft_train_kernels(results, dev, steps)
 

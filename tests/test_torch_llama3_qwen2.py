@@ -2,8 +2,8 @@
 the CPU, on HF checkpoints made here with seeded random weights:
 
 * ``LlamaConfig.from_hf`` field for field with JAX's (qwen2; rope_scaling
-  llama3 and linear; the families still refused, by name: mixtral and
-  model types no package reads);
+  llama3 and linear; the families still refused, by name: model types no
+  package reads; mixtral read with its experts);
 * ``rope_frequencies`` bit for bit (llama3 at Llama-3.1's and 3.2's
   settings, linear, none);
 * a tiny Qwen2 (group 7: 14 heads on 2 KV heads, seeded q/k/v biases) and a
@@ -140,6 +140,17 @@ def test_from_hf_matches_jax(case):
 @pytest.mark.parametrize("family", ["phi", "starcoder2", "olmo", "gpt2",
                                     "mixtral"])
 def test_from_hf_still_refuses_other_families(family):
+    """Model types no package reads are refused by name; mixtral, ported
+    since, is read with its experts."""
+    if family == "mixtral":
+        cfg = tllama.LlamaConfig.from_hf(SimpleNamespace(
+            model_type=family, vocab_size=64, hidden_size=64,
+            num_hidden_layers=2, num_attention_heads=8,
+            num_key_value_heads=2, intermediate_size=96,
+            max_position_embeddings=128, num_local_experts=8,
+            num_experts_per_tok=2))
+        assert (cfg.num_experts, cfg.num_experts_per_tok) == (8, 2)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{family}.*generation breadth"):
         tllama.LlamaConfig.from_hf(SimpleNamespace(model_type=family))

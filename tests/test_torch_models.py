@@ -289,10 +289,13 @@ def test_dense_retriever_matches_jax(tiny, tmp_path, kind):
 
 
 def test_llama_config_refuses_other_families():
+    """A model type outside ``FAMILIES`` is refused by name; mixtral is in
+    them since its experts were ported."""
     from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="mixtral"):
-        tllama.LlamaConfig.from_hf(SimpleNamespace(model_type="mixtral"))
+    assert "mixtral" in tllama.FAMILIES
+    with pytest.raises(NotImplementedError, match="gpt_neox"):
+        tllama.LlamaConfig.from_hf(SimpleNamespace(model_type="gpt_neox"))
 
 
 TEXTS = ["What is the capital of Avaria?", "Héllo d_gold_0 wörld!! it's",

@@ -1,19 +1,20 @@
 """Every ``config/generator/`` and ``config/train/`` file either runs on
 the port or raises naming the ROADMAP.md Queue 1 item that will lift its
-refusal: Mixtral #5 (``xrag_mixtral``, the mixtral generators), sampling and
+refusal: GGUF checkpoints #11 (``gorilla-7b-hf-v1-gguf``), sampling and
 beam search #6, the OpenAI generators plain Queue 1.  A config with ``tp``
 > 1 (``mixtral-8x7b-instruct`` among them) raises in one process, naming
 ``torchrun``: it runs as ``tp`` ranks.  Under ranks, a world larger than
-``tp`` and the int8 and W8A8 routes with ``tp`` > 1 raise naming #10.  ``train=no_train``
-raises optax's error, as JAX's trainer does (0 epochs leave the schedule's
-cosine part no steps); the other train configs build and take a step on a
-tiny llama.  A Mixtral checkpoint is stood in for by the tiny llama with
-its config's ``model_type`` set to mixtral.
+``tp`` and the int8 and W8A8 routes with ``tp`` > 1 raise naming #10.  The
+other Mixtral configs (``mixtral-moe-7b-chat``, int4;
+``vllm_mixtral-moe-7b-chat``; ``xrag_mixtral``, with the tiny llama as its
+llama-family retriever) instantiate on a tiny Mixtral and generate.
+``train=no_train`` raises optax's error, as JAX's trainer does (0 epochs
+leave the schedule's cosine part no steps); the other train configs build
+and take a step on a tiny llama, ``full-47b`` (a Mixtral-size run) on the
+tiny Mixtral.
 """
 
-import json
 import os
-import shutil
 import sys
 
 import pytest
@@ -40,29 +41,26 @@ TRAIN_DIR = os.path.join(REPO, "config", "train")
 
 @pytest.fixture(scope="module")
 def ckpts(tmp_path_factory):
+    from tiny_mixtral import build_tiny_mixtral
     from tiny_models import build_tiny_llama
 
     root = tmp_path_factory.mktemp("refusals")
-    llama_dir = build_tiny_llama(str(root / "llama"))
-    mixtral = str(root / "mixtral")
-    shutil.copytree(llama_dir, mixtral)
-    with open(os.path.join(mixtral, "config.json")) as f:
-        cfg = json.load(f)
-    cfg.update(model_type="mixtral", num_local_experts=8)
-    with open(os.path.join(mixtral, "config.json"), "w") as f:
-        json.dump(cfg, f)
-    return {"llama": llama_dir, "mixtral": mixtral}
+    return {"llama": build_tiny_llama(str(root / "llama")),
+            "mixtral": build_tiny_mixtral(str(root / "mixtral"))}
 
 
 def _expected(name: str, args: dict):
-    """The Queue 1 item a generator config must name, or None (runs)."""
+    """The Queue 1 item a generator config must name, ``mixtral`` (runs on
+    the tiny Mixtral), or None (runs)."""
     target = args["_target_"]
     if "llm_openai" in target:
         return "Queue 1"
     if args.get("tp", 1) != 1:
         return "torchrun"
+    if args.get("gguf_file"):
+        return "#11"
     if "mixtral" in name or "moe" in (args.get("model_name") or ""):
-        return "#5"
+        return "mixtral"
     if args.get("temperature", 0) or args.get("use_beam_search"):
         return "#6"
     return None
@@ -89,7 +87,23 @@ def test_generator_config_runs_or_names_its_item(name, ckpts):
                            f"{args['tp']}"):
             confy.instantiate(args, device="cpu")
         return
-    args["model_name"] = ckpts["mixtral" if want == "#5" else "llama"]
+    if want == "mixtral":
+        args.update(model_name=ckpts["mixtral"], max_new_tokens=3)
+        if "retriever_name" in args:  # a llama-family retriever (SFR)
+            args["retriever_name"] = ckpts["llama"]
+        gen = confy.instantiate(args, device="cpu")
+        assert "moe" in gen.params["layers"][0]
+        assert gen.cfg.num_experts == 4
+        if "retriever_name" in args:  # a document through the retriever
+            out = gen.eval([{"q_id": "0", "query": "what is the capital",
+                             "doc": ["the capital of avaria is ashford"],
+                             "label": ["ashford"]}])
+            assert len(out[3]) == 1 and isinstance(out[3][0], str)
+        else:
+            out = gen.generate(["user : what is the capital \n assistant : "])
+            assert len(out) == 1 and isinstance(out[0], str)
+        return
+    args["model_name"] = ckpts["llama"]
     if "retriever_name" in args:
         args["retriever_name"] = None
     with pytest.raises(NotImplementedError, match=f"Queue 1 {want}"):
@@ -104,7 +118,9 @@ def test_train_config_runs_or_refuses_as_jax(name, ckpts, tmp_path):
     from bergen_tpu_torch.train.trainer import SFTTrainer
 
     tc = confy.load_yaml(os.path.join(TRAIN_DIR, f"{name}.yaml"))
-    gen = LLM(ckpts["llama"], max_length=64, max_new_tokens=2, device="cpu")
+    # full-47b names a Mixtral-size run: the tiny Mixtral trains in full
+    model = ckpts["mixtral" if name == "full-47b" else "llama"]
+    gen = LLM(model, max_length=64, max_new_tokens=2, device="cpu")
     rows = [{"formatted_instruction": f"question : capital {i} answer : "
              "ashford", "label_start_index": 4} for i in range(24)]
     if name == "no_train":

@@ -79,6 +79,23 @@ def generation(model_name: str, prompts: list, tp: int, ids: list,
     return out
 
 
+def mixtral(model_name: str, replicated_model: str, prompts: list, tp: int,
+            ids: list, **kw) -> dict:
+    """``generation`` on a Mixtral whose experts tp divides, and the static
+    tokens and first-step logits of one whose experts it does not
+    (replicated on every rank), with each rank's expert slices."""
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    out = generation(model_name, prompts, tp, ids, **kw)
+    llm = LLM(replicated_model, tp=tp, device="cpu", **kw)
+    out["replicated"] = {
+        "static": llm.generate(prompts),
+        "logits": llm.first_token_logits(prompts), "cfg": llm.cfg,
+        "experts": tuple(llm.params["layers"][0]["moe"]["gate"]["kernel"]
+                         .shape)}
+    return out
+
+
 def llm_error(model_name: str, tp: int, **kw) -> str:
     """The message ``LLM`` raises on every rank (rank 0's)."""
     from bergen_tpu_torch.models.generators.llm import LLM
@@ -111,5 +128,5 @@ def judge(seed: int = 0, **kwargs) -> None:
     evaluate.run_eval(**kwargs)
 
 
-JOBS = {"generation": generation, "llm_error": llm_error, "cli": cli,
-        "judge": judge}
+JOBS = {"generation": generation, "mixtral": mixtral,
+        "llm_error": llm_error, "cli": cli, "judge": judge}
