@@ -28,8 +28,18 @@ are stacked on the card at tp 1, or a rank's own experts under tp
 Before any weight is read onto a card, ``weight_bytes`` reckons a rank's
 tree from the config and the quantization route, and a tree larger than
 the card raises naming the ``tp`` to run it at (``check_fits``).
-Sampling and beam search are not ported yet and raise, and so does a GGUF
-checkpoint (``gguf_file``: ROADMAP.md Queue 1 #11).
+``gguf_file`` names a GGUF checkpoint in the model folder
+(``models/gguf.py``: the config, the tokenizer and the tree dequantized
+tensor by tensor on the device), which composes with every option above as
+a safetensors folder does.  ``generate`` dispatches in JAX's order
+(``jax_llm.py:304-357``): beam search (``use_beam_search`` with
+``best_of`` > 1, or ``num_beams``; static, even with ``serve``;
+``length_penalty``), then the server, then static temperature / nucleus
+sampling (``temperature`` > 0, ``top_p``; ``seed`` advances by one each
+call, as JAX's does, and seeds that call's ``torch.Generator``), then
+greedy.  The servers sample inside their steps with the same options.
+Under tp every rank draws from an identically seeded generator over the
+same gathered logits, so the ranks pick the same tokens.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ import numpy as np
 import torch
 
 from bergen_tpu_torch import device as _device
-from bergen_tpu_torch.models import convert, llama
+from bergen_tpu_torch.models import convert, gguf, llama
 from bergen_tpu_torch.models.core import length_bucket, make_buckets
 from bergen_tpu_torch.models.generators.base import Generator
 from bergen_tpu_torch.models.tokenizer import Tokenizer
@@ -150,9 +160,12 @@ class LLM(Generator):
         max_slots: int = 32,
         kv_cache: str = "uniform",  # 'paged' = the page-pool server
         temperature: float = 0.0,
+        top_p: float = 1.0,
         use_beam_search: bool = False,
-        num_beams: int | None = None,
         best_of: int = 1,
+        num_beams: int | None = None,  # alias for best_of with beam search
+        length_penalty: float = 1.0,
+        seed: int = 0,
         dtype: str | None = None,  # 'f32'/'bf16' force; None = bf16 on cuda
         w8a8_outlier_threshold: float = 10.0,  # max per-token absmax/rms
         # on the calibration batch before w8a8 falls back to int8
@@ -160,22 +173,17 @@ class LLM(Generator):
         gguf_file: str | None = None,
         **_ignored,
     ):
-        if gguf_file is not None:
-            raise NotImplementedError(
-                f"gguf_file {gguf_file!r}: the port reads no GGUF checkpoint "
-                "yet (ROADMAP.md Queue 1 #11, GGUF checkpoints)")
         if quantization not in (None, "int4", "int8", "int8_mxu", "w8a8"):
             raise ValueError(f"unknown quantization: {quantization!r}")
         check_world(tp, quantization)
-        decoding = {"temperature": temperature != 0,
-                    "beam search": use_beam_search or (num_beams or 1) > 1
-                    or best_of > 1}
-        if any(decoding.values()):
-            raise NotImplementedError(
-                f"LLM options not ported yet: "
-                f"{[k for k, v in decoding.items() if v]}: sampling and beam "
-                "search (ROADMAP.md Queue 1 #6, generation breadth and "
-                "serving)")
+        if num_beams is not None:
+            use_beam_search, best_of = num_beams > 1, num_beams
+        if use_beam_search and temperature != 0:
+            raise ValueError(
+                f"beam search requires temperature = 0, not {temperature}")
+        self.temperature, self.top_p = temperature, top_p
+        self.use_beam_search, self.best_of = use_beam_search, best_of
+        self.length_penalty, self.seed = length_penalty, seed
         if serve and kv_cache not in ("uniform", "paged"):
             raise ValueError(f"unknown kv_cache mode: {kv_cache!r}")
         super().__init__(
@@ -191,7 +199,12 @@ class LLM(Generator):
             self.device = _device.resolve(device)
         self.dtype = _device.default_dtype(self.device, dtype)
         self.prompt = prompt
-        self.tokenizer = Tokenizer.from_pretrained(model_name)
+        gf = None
+        if gguf_file is not None:
+            gf = gguf.GGUFFile(gguf.find(model_name, gguf_file))
+            self.tokenizer = Tokenizer.from_gguf(gf.metadata)
+        else:
+            self.tokenizer = Tokenizer.from_pretrained(model_name)
         # pad priority: bos > pad > eos (reference llm.py:86-92): Qwen2 has
         # no bos, so it pads with its pad token <|endoftext|>.  EOS is the
         # tokenizer's one id, as in JAX (Llama-3.1's config.json lists
@@ -201,13 +214,19 @@ class LLM(Generator):
             or self.tokenizer.pad_token
             or self.tokenizer.eos_token
         )
-        hf_cfg, sd = convert.load_checkpoint(model_name)
+        if gf is not None:
+            hf_cfg = gguf.hf_config(gf)
+        else:
+            hf_cfg, sd = convert.load_checkpoint(model_name)
         self.cfg = llama.LlamaConfig.from_hf(hf_cfg)
         if self.device.type == "cuda":  # before any weight is read
             check_fits(self.cfg, quantization, tp, self.dtype,
                        torch.cuda.get_device_properties(
                            self.device).total_memory,
                        torch.cuda.get_device_name(self.device))
+        if gf is not None:  # dequantized tensor by tensor on the device
+            sd = gguf.state_dict(gf, hf_cfg, self.dtype, self.device)
+            del gf
         params = convert.llama_from_hf(sd, self.cfg.num_layers)
         del sd
         if tp == 1:  # a Mixtral's experts, stacked where they are placed
@@ -257,7 +276,8 @@ class LLM(Generator):
                 max_slots=max_slots,
                 # headroom for the generated tokens past the prompt bucket
                 max_len=(max_length or 2048) + max_new_tokens + 1,
-                dtype=self.dtype, device=self.device)
+                dtype=self.dtype, device=self.device,
+                temperature=temperature, top_p=top_p, seed=seed)
             if kv_cache == "paged":
                 self.server = PagedGenerationServer(**common)
             else:
@@ -325,6 +345,16 @@ class LLM(Generator):
         return logits[:, -1].cpu().numpy()
 
     def generate(self, prompts: List[str]) -> List[str]:
+        if self.use_beam_search and self.best_of > 1:
+            ii, am = self._tokenize_left_pad(prompts)
+            toks = llama.beam_generate(
+                self.params, self.cfg, torch.from_numpy(ii).to(self.device),
+                torch.from_numpy(am).to(self.device), self.max_new_tokens,
+                self.best_of, self.tokenizer.eos_token_id,
+                self.tokenizer.pad_token_id, self.length_penalty,
+                cache_dtype=self.dtype)
+            return self.tokenizer.batch_decode(toks.cpu().numpy(),
+                                               skip_special_tokens=True)
         if self.server is not None:
             # the offline batch drains through the server's run_workload on
             # unpadded prompt ids
@@ -334,6 +364,17 @@ class LLM(Generator):
                 enc["input_ids"], max_new_tokens=self.max_new_tokens)
             return self.tokenizer.batch_decode(out, skip_special_tokens=True)
         ii, am = self._tokenize_left_pad(prompts)
+        if self.temperature > 0:
+            self.seed += 1  # a fresh stream a call, the same run after run
+            toks = llama.sample_generate(
+                self.params, self.cfg, torch.from_numpy(ii).to(self.device),
+                torch.from_numpy(am).to(self.device), self.max_new_tokens,
+                self.tokenizer.eos_token_id, self.tokenizer.pad_token_id,
+                self.temperature, self.top_p,
+                torch.Generator(device=self.device).manual_seed(self.seed),
+                cache_dtype=self.dtype)
+            return self.tokenizer.batch_decode(toks.cpu().numpy(),
+                                               skip_special_tokens=True)
         toks = llama.greedy_generate(
             self.params, self.cfg, torch.from_numpy(ii).to(self.device),
             torch.from_numpy(am).to(self.device), self.max_new_tokens,

@@ -33,6 +33,11 @@ tree the dequantized product, as in JAX.  ``collect_stats`` returns the
 W8A8 calibration's outlier ratios, ``head=False`` the trunk's output
 (RepLlama).
 The cache is updated in place, where the JAX function returns a new one.
+The static decoders over left-padded prompts are ``greedy_generate``,
+``sample_generate`` (temperature and nucleus sampling, ``sample_token``:
+Gumbel-max from a ``torch.Generator``) and ``beam_generate`` (the flat
+cache reordered by each step's surviving beams, so the decode kernel reads
+it), each in JAX's step order.
 
 Phi-3's ``sliding_window`` is applied (all layers, slot-based like
 gemma-2's), where the JAX package reads the window for gemma2 only
@@ -650,15 +655,22 @@ def _mlp(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return _proj(layer["mlp"]["down"], g * _proj(layer["mlp"]["up"], x))
 
 
+def top_k_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest along the last axis, ties to
+    the lower index, as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order among equal values)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]
+
+
 def route_weights(logits: torch.Tensor, k: int) -> torch.Tensor:
     """The router's dense per-token expert weights [..., E] in f32 from its
     f32 logits (JAX ``_moe``, ``llama.py:859-870``): a softmax, the top
     ``k`` probabilities renormalised to sum to 1, zeros elsewhere.  Of
     equal probabilities the lower expert index wins, as ``lax.top_k``
-    picks (a stable descending sort; ``torch.topk`` promises no order)."""
+    picks (``top_k_stable``)."""
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_i = top_p[..., :k], top_i[..., :k]
+    top_p, top_i = top_k_stable(probs, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     return torch.zeros_like(probs).scatter(-1, top_i, top_p)
 
@@ -865,6 +877,27 @@ def outlier_ratio(h: torch.Tensor) -> torch.Tensor:
     return (absmax / rms).max()
 
 
+def _prefill(params, cfg, input_ids, attention_mask, max_new_tokens,
+             cache_dtype, input_embeds=None):
+    """The static paths' prefill over LEFT-padded prompts: (the last row's
+    logits [B, V], the cache of length S + max_new_tokens, the key mask
+    [B, S + max_new_tokens], the next positions [B])."""
+    B, S = input_ids.shape
+    dev = input_ids.device
+    cache = init_cache(cfg, B, S + max_new_tokens, dtype=cache_dtype,
+                       device=dev)
+    am = attention_mask.bool()
+    positions = (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp_min(0)
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+    logits = forward(params, cfg, input_ids, positions, cache,
+                     causal[None] & am[:, None, :], last_only=True,
+                     input_embeds=input_embeds)
+    key_valid = torch.cat(
+        [am, torch.zeros(B, max_new_tokens, dtype=torch.bool, device=dev)],
+        dim=1)
+    return logits[:, -1], cache, key_valid, positions[:, -1] + 1
+
+
 @torch.inference_mode()
 def greedy_generate(params: Params, cfg: LlamaConfig,
                     input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -876,21 +909,11 @@ def greedy_generate(params: Params, cfg: LlamaConfig,
     ``input_embeds`` [B, S, D] (soft prompts) replaces the prompt's
     embedding lookup in the prefill; decode steps embed their tokens."""
     B, S = input_ids.shape
-    dev = input_ids.device
-    L = S + max_new_tokens
-    cache = init_cache(cfg, B, L, dtype=cache_dtype, device=dev)
-    am = attention_mask.bool()
-    positions = (torch.cumsum(attention_mask.long(), dim=1) - 1).clamp_min(0)
-    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
-    prefill_mask = causal[None] & am[:, None, :]
-    logits = forward(params, cfg, input_ids, positions, cache, prefill_mask,
-                     last_only=True, input_embeds=input_embeds)
-    tok = logits[:, -1].argmax(dim=-1)
-    key_valid = torch.cat(
-        [am, torch.zeros(B, max_new_tokens, dtype=torch.bool, device=dev)],
-        dim=1)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    pos = positions[:, -1] + 1
+    last, cache, key_valid, pos = _prefill(params, cfg, input_ids,
+                                           attention_mask, max_new_tokens,
+                                           cache_dtype, input_embeds)
+    tok = last.argmax(dim=-1)
+    done = torch.zeros(B, dtype=torch.bool, device=input_ids.device)
     out = []
     for t in range(max_new_tokens):
         out.append(torch.where(done, pad_token_id, tok))
@@ -904,3 +927,147 @@ def greedy_generate(params: Params, cfg: LlamaConfig,
         tok = logits[:, -1].argmax(dim=-1)
         pos = pos + 1
     return torch.stack(out, dim=1)
+
+
+def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel draws, ``-log(-log(u))`` with u uniform in [tiny,
+    1) as JAX's ``random.gumbel`` (its default mode), from ``generator``
+    on ``device``.  Not JAX's threefry stream: the same distribution, not
+    the same draws."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def nucleus_logits(logits: torch.Tensor, temperature: float,
+                   top_p: float = 1.0) -> torch.Tensor:
+    """[B, V] logits -> f32 logits over ``max(temperature, 1e-6)`` with
+    JAX's nucleus mask (``bergen_tpu/models/llama.py:1152-1170``): sorted
+    descending, softmax and cumulative sum, ``keep_n = sum(cum < top_p) +
+    1``, and every logit at or above the keep_n-th kept (so ties at the
+    cut-off stay), the rest -inf."""
+    lg = logits.float() / max(temperature, 1e-6)
+    if top_p < 1.0:
+        sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_lg, dim=-1), dim=-1)
+        last = (cum < top_p).sum(dim=-1, keepdim=True)  # keep_n - 1
+        cutoff = sorted_lg.gather(-1, last.clamp_max(lg.shape[-1] - 1))
+        lg = torch.where(lg >= cutoff, lg, float("-inf"))
+    return lg
+
+
+def sample_token(logits: torch.Tensor, temperature: float, top_p: float,
+                 generator: torch.Generator | None = None,
+                 noise: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, V] logits -> [B] token ids by temperature and nucleus sampling
+    (JAX ``sample_token``): Gumbel-max, ``argmax(lg + g)``, which is what
+    ``jax.random.categorical`` computes; ``g`` is ``noise`` where given
+    (the tests pass JAX's own draws) or drawn from ``generator``."""
+    lg = nucleus_logits(logits, temperature, top_p)
+    if noise is None:
+        noise = gumbel(lg.shape, generator, lg.device)
+    return (noise.to(lg.device) + lg).argmax(dim=-1)
+
+
+@torch.inference_mode()
+def sample_generate(params: Params, cfg: LlamaConfig,
+                    input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                    max_new_tokens: int, eos_token_id: int,
+                    pad_token_id: int, temperature: float = 1.0,
+                    top_p: float = 1.0,
+                    generator: torch.Generator | None = None,
+                    cache_dtype=torch.bfloat16) -> torch.Tensor:
+    """Temperature / nucleus sampling over LEFT-padded prompts (JAX
+    ``sample_generate``, ``llama.py:1173-1232``), in its step order: the
+    first token drawn from the prefill's last row, then one draw a decode
+    step; done rows are fed pad and emit pad after their EOS.  Returns [B,
+    max_new_tokens]."""
+    B, S = input_ids.shape
+    last, cache, key_valid, pos = _prefill(params, cfg, input_ids,
+                                           attention_mask, max_new_tokens,
+                                           cache_dtype)
+    tok = sample_token(last, temperature, top_p, generator)
+    done = torch.zeros(B, dtype=torch.bool, device=input_ids.device)
+    out = []
+    for t in range(max_new_tokens):
+        out.append(torch.where(done, pad_token_id, tok))
+        if t + 1 == max_new_tokens:
+            break  # the last step's draw would be discarded
+        tok_in = torch.where(done, pad_token_id, tok)
+        done = done | (tok == eos_token_id)
+        key_valid[:, S + t] = True
+        logits = forward(params, cfg, tok_in[:, None], pos[:, None], cache,
+                         key_valid[:, None, :])
+        tok = sample_token(logits[:, -1], temperature, top_p, generator)
+        pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+@torch.inference_mode()
+def beam_generate(params: Params, cfg: LlamaConfig,
+                  input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                  max_new_tokens: int, num_beams: int, eos_token_id: int,
+                  pad_token_id: int, length_penalty: float = 1.0,
+                  cache_dtype=torch.bfloat16,
+                  return_scores: bool = False):
+    """Batched beam search over LEFT-padded prompts (JAX
+    ``beam_generate``, ``llama.py:1235-1346``): one prefill at [B, S], the
+    cache and key mask tiled to B x W rows (a batch's beams contiguous),
+    the first W tokens the prefill's top W, then per step the top W of the
+    W x V continuations of each batch, the flat cache and key mask
+    reordered by the parents (so every step still reads the flat cache
+    through ``decode_attention``), finished beams frozen to a pad
+    continuation at an unchanged score, and the best beam ranked by
+    ``cum / gen_len ** length_penalty``.  Returns [B, max_new_tokens], and
+    with ``return_scores`` also the best beams' cumulative
+    log-probabilities [B]."""
+    B, S = input_ids.shape
+    W = num_beams
+    dev = input_ids.device
+    last, cache, key_valid, pos = _prefill(params, cfg, input_ids,
+                                           attention_mask, max_new_tokens,
+                                           cache_dtype)
+    cache["k"] = cache["k"].repeat_interleave(W, dim=1)
+    cache["v"] = cache["v"].repeat_interleave(W, dim=1)
+    key_valid = key_valid.repeat_interleave(W, dim=0)
+    pos = pos.repeat_interleave(W)
+    logp0 = torch.log_softmax(last.float(), dim=-1)
+    V = logp0.shape[-1]
+    cum, tok = top_k_stable(logp0, W)                       # [B, W]
+    seqs = torch.full((B, W, max_new_tokens), pad_token_id, dtype=tok.dtype,
+                      device=dev)
+    seqs[:, :, 0] = tok
+    finished = tok == eos_token_id
+    gen_len = torch.ones(B, W, dtype=torch.int32, device=dev)
+    base = (torch.arange(B, device=dev) * W)[:, None]
+    pad_only = torch.full((V,), float("-inf"), device=dev)
+    pad_only[pad_token_id] = 0.0
+    for t in range(max_new_tokens - 1):
+        tok_in = torch.where(finished, pad_token_id, tok).reshape(B * W)
+        key_valid[:, S + t] = True
+        logits = forward(params, cfg, tok_in[:, None], pos[:, None], cache,
+                         key_valid[:, None, :])
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1) \
+            .reshape(B, W, V)
+        logp = torch.where(finished[:, :, None], pad_only, logp)
+        cum, flat = top_k_stable((cum[:, :, None] + logp).reshape(B, W * V),
+                                 W)
+        parent, tok = flat // V, flat % V
+        rows = (base + parent).reshape(-1)
+        cache["k"] = cache["k"].index_select(1, rows)
+        cache["v"] = cache["v"].index_select(1, rows)
+        key_valid = key_valid.index_select(0, rows)
+        seqs = seqs.gather(1, parent[:, :, None].expand(-1, -1,
+                                                        max_new_tokens))
+        finished = finished.gather(1, parent)
+        gen_len = gen_len.gather(1, parent)
+        seqs[:, :, t + 1] = torch.where(finished, pad_token_id, tok)
+        gen_len = gen_len + (~finished).int()
+        finished = finished | (tok == eos_token_id)
+        pos = pos + 1
+    norm = cum / gen_len.float() ** length_penalty
+    best = norm.argmax(dim=1)
+    out = seqs[torch.arange(B, device=dev), best]
+    if return_scores:
+        return out, cum[torch.arange(B, device=dev), best]
+    return out

@@ -1093,6 +1093,76 @@ class Tokenizer:
                 template = f.read()
         return cls(spec, config, template)
 
+    @classmethod
+    def from_gguf(cls, meta: dict) -> "Tokenizer":
+        """The tokenizer of a llama GGUF file's metadata ``meta``
+        (``tokenizer.ggml.*``), as transformers builds it for
+        ``AutoTokenizer.from_pretrained(gguf_file=...)``:
+        ``GGUFLlamaConverter`` (``transformers/integrations/ggml.py``) gives
+        a BPE over the token list with byte fallback and ``fuse_unk``, its
+        merges from the file or, where it has none, from the tokens and
+        scores (``gguf_merges``); every token of type 3 special (without
+        types: unk, bos and eos); the legacy Llama normalizer (``▁``
+        prepended unless ``add_space_prefix`` is false, spaces replaced)
+        and the GGUF decoder chain (ByteFallback, Fuse, ``▁`` to space,
+        the leading space stripped).  ``LlamaTokenizerFast`` then adds bos
+        before every sequence (its default: transformers maps neither
+        ``add_bos_token`` nor ``add_eos_token`` from the file).  The
+        converter sets the eos token to ``tokens[bos_token_id]`` and the
+        bos token to the same string (``ggml.py:403-404``, applied after
+        the file's own ids), so both are the bos string, and the pad token
+        is unset; the port keeps that (ROADMAP.md, the reference's own
+        semantics)."""
+        if meta.get("tokenizer.ggml.model") != "llama":
+            raise NotImplementedError(
+                f"GGUF tokenizer model {meta.get('tokenizer.ggml.model')!r}"
+                ": the port reads the llama (sentencepiece BPE) vocabulary")
+        tokens = meta["tokenizer.ggml.tokens"]
+        merges = meta.get("tokenizer.ggml.merges")
+        merges = ([tuple(m.split(" ")) for m in merges] if merges is not None
+                  else gguf_merges(tokens, meta["tokenizer.ggml.scores"]))
+        vocab = {t: i for i, t in enumerate(tokens)}
+
+        def tok(key):
+            i = meta.get(f"tokenizer.ggml.{key}")
+            return None if i is None else tokens[i]
+
+        unk = tok("unknown_token_id")
+        # the converter's swap: eos <- bos's string, bos <- the "eos"
+        # variable, which is also bos's string
+        bos = tok("bos_token_id") if "tokenizer.ggml.eos_token_id" in meta \
+            else None
+        eos = tok("bos_token_id")
+        # the converter's type-3 tokens, and LlamaTokenizerFast's (unk, bos,
+        # eos: all the converter adds for a file without token types)
+        types = meta.get("tokenizer.ggml.token_type") or []
+        added = {t: vocab[t] for t in
+                 [t for t, k in zip(tokens, types) if k == 3]
+                 + [t for t in (unk, bos, eos) if t is not None]}
+        prefix = bool(meta.get("tokenizer.ggml.add_space_prefix", True))
+        spec = {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added_spec(added),
+            "normalizer": {"type": "Sequence", "normalizers": (
+                [{"type": "Prepend", "prepend": "▁"}] if prefix else [])
+                + [{"type": "Replace", "pattern": {"String": " "},
+                    "content": "▁"}]},
+            "pre_tokenizer": None,
+            "post_processor": None if bos is None else _template_spec(
+                (bos, None), added),
+            "decoder": {"type": "Sequence", "decoders": [
+                {"type": "ByteFallback"}, {"type": "Fuse"},
+                {"type": "Replace", "pattern": {"String": "▁"},
+                 "content": " "}] + ([{"type": "Strip", "content": " ",
+                                       "start": 1, "stop": 0}]
+                                     if prefix else [])},
+            "model": {"type": "BPE", "dropout": None, "unk_token": unk,
+                      "fuse_unk": True, "byte_fallback": True,
+                      "vocab": vocab, "merges": merges}}
+        config = {"bos_token": bos, "eos_token": eos, "unk_token": unk,
+                  "clean_up_tokenization_spaces": False}
+        return cls(spec, config, meta.get("tokenizer.chat_template"))
+
     # ----- special tokens --------------------------------------------------
 
     def token_to_id(self, token: str | None) -> int | None:
@@ -1402,6 +1472,24 @@ class Tokenizer:
         if tokenize:
             return self.encode(text, add_special_tokens=add_special_tokens)
         return text
+
+
+def gguf_merges(tokens: list[str], scores: list[float]) -> list[tuple]:
+    """The merges transformers' ``GGUFTokenizerSkeleton`` builds for a GGUF
+    vocabulary without them: every split of every token whose two halves
+    are tokens, sorted within the token by the halves' scores and then,
+    stably, by the token's score, highest first.  Membership is a set here
+    (transformers tests ``in`` on the list); the order is the same."""
+    vocab = {t: scores[i] for i, t in enumerate(tokens)}
+    known = set(tokens)
+    merges = []
+    for merge, score in vocab.items():
+        local = [(merge[:i], merge[i:], score) for i in range(1, len(merge))
+                 if merge[:i] in known and merge[i:] in known]
+        local.sort(key=lambda x: (vocab[x[0]], vocab[x[1]]), reverse=True)
+        merges.extend(local)
+    merges.sort(key=lambda m: m[2], reverse=True)
+    return [(a, b) for a, b, _ in merges]
 
 
 def _clean_up(text: str) -> str:

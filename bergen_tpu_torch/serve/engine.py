@@ -1,5 +1,6 @@
 """Continuous-batching generation engine (the PyTorch port's counterpart of
-``bergen_tpu/serve/engine.py``; greedy decoding).
+``bergen_tpu/serve/engine.py``): greedy decoding, or temperature and
+nucleus sampling inside every step that picks a token.
 
 * A pool of **slots**, each owning a region of a KV cache
   ``[layers, slots + 1, max_len, KH*Dh]`` (the port's flat layout; row
@@ -31,6 +32,14 @@
   does); the decode steps' attention is ``ops.decode_attention`` and the
   chunk rows' ``ops.flash_attention.flash_attention_band`` (the kernels on
   the card) where ``llama.kernel_attention_ok`` holds.
+* With ``temperature`` > 0 every token (a prefill's first, a decode
+  step's, a chunked pipe's first) is drawn by ``llama.sample_token`` at
+  ``top_p`` from one seeded ``torch.Generator`` a run (``run`` or
+  ``run_workload``), seeded from ``seed`` and the server's count of runs:
+  JAX folds its step count into ``PRNGKey(seed)``
+  (``engine.py:188-191``), so a server's next run draws afresh and a new
+  server with the same seed repeats its draws.  The draws are the port's
+  own, not JAX's threefry stream.
 """
 
 from __future__ import annotations
@@ -110,9 +119,13 @@ class GenerationServer:
         prompt_buckets: tuple = (32, 64, 128, 256),
         dtype: torch.dtype | None = None,  # None = bf16 on cuda, f32 on cpu
         device: str | torch.device | None = None,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        seed: int = 0,
     ):
         self.device = _device.resolve(device)
         self.dtype = dtype or _device.default_dtype(self.device, None)
+        self._sampling(temperature, top_p, seed)
         self.params = params
         self.cfg = cfg
         self.eos = eos_token_id
@@ -133,6 +146,26 @@ class GenerationServer:
         self._queue: List[_Request] = []
 
     # ------------------------------------------------------------------ #
+
+    def _sampling(self, temperature: float, top_p: float, seed: int) -> None:
+        self.temperature, self.top_p, self.seed = temperature, top_p, seed
+        self._runs = 0
+        self._gen = None
+
+    def _new_run(self) -> None:
+        """The run's generator, seeded from (seed, the run's count)."""
+        self._runs += 1
+        if self.temperature > 0:
+            self._gen = torch.Generator(device=self.device).manual_seed(
+                (int(self.seed) << 32) + self._runs)
+
+    def _pick(self, logits: torch.Tensor) -> np.ndarray:
+        """[B, V] logits -> the next tokens on the host: the argmax, or a
+        draw from the run's generator."""
+        if self.temperature > 0:
+            return llama.sample_token(logits, self.temperature, self.top_p,
+                                      self._gen).cpu().numpy()
+        return logits.argmax(dim=-1).cpu().numpy()
 
     def _tensor(self, a) -> torch.Tensor:
         """A copy of host array ``a`` on the server's device (never a view
@@ -161,7 +194,7 @@ class GenerationServer:
         self.v_cache[:, rows, :P] = cache["v"]
         last = logits[torch.arange(B, device=self.device),
                       self._tensor(valid_len - 1)]
-        return last.argmax(dim=-1).cpu().numpy()
+        return self._pick(last)
 
     def _step(self, tokens: np.ndarray, cursors: np.ndarray,
               active_mask: np.ndarray) -> np.ndarray:
@@ -176,7 +209,7 @@ class GenerationServer:
         logits = llama.forward(self.params, self.cfg,
                                self._tensor(tokens)[:, None], cur[:, None],
                                cache, mask)
-        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        nxt = self._pick(logits[:, 0])
         return np.where(active_mask, nxt, tokens)
 
     def submit(self, prompt_ids: List[int], max_new_tokens: int = 64) -> int:
@@ -241,6 +274,7 @@ class GenerationServer:
         """Host-driven drain: one decode step per token (online / streaming
         use; ``run_workload`` is the offline batch path)."""
         self._finished: List[_Request] = getattr(self, "_finished", [])
+        self._new_run()
         self._admit()
         pool = self.S + 1
         while self.active:
@@ -338,7 +372,7 @@ class GenerationServer:
             v[:, rows, g - Pb:g] = cache["v"]
             pos = np.arange(Lc)[None, :]
             valid[slots] = (pos >= (g - vl)[:, None]) & (pos < g)
-            nxt = logits[:, -1].argmax(dim=-1).cpu().numpy()
+            nxt = self._pick(logits[:, -1])
             done_now = (nxt == self.eos) | (max_news[reqs] <= 1)
             out[reqs, 0] = nxt
             n_out[reqs] = 1
@@ -364,7 +398,7 @@ class GenerationServer:
                                    self._tensor(cur_tok)[:, None],
                                    self._tensor(tok_pos)[:, None], cache,
                                    self._tensor(mask)[:, None, :])
-            nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+            nxt = self._pick(logits[:, 0])
             # position g joins the sequences of ACTIVE slots only
             valid[:, g] = active
             g += 1
@@ -548,7 +582,7 @@ class GenerationServer:
                                    {"k": k, "v": v, "cursor": g},
                                    self._tensor(mask)[:, None, :],
                                    chunk=chunk)
-            nxt_all = logits[:, 0].argmax(dim=-1).cpu().numpy()
+            nxt_all = self._pick(logits[:, 0])
             nxt, ftok = nxt_all[:pool], nxt_all[pool:]
             # decode bookkeeping (the epoch drain's)
             valid[:, g] = active
@@ -637,6 +671,7 @@ class GenerationServer:
             runner, args = self.plan_workload(prompt_ids_list, max_new_tokens)
         else:
             raise ValueError(f"run_workload: unknown mode {mode!r}")
+        self._new_run()
         out, n_out, _ = runner(*args)
         return [out[r, : n_out[r]].tolist()
                 for r in range(len(prompt_ids_list))]

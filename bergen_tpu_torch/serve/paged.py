@@ -14,6 +14,8 @@ actual length.
   keys past it in the pages and the tail; the JAX package's paged server
   applies no window.
 * Admission blocks while the pool is dry (no preemption).
+* ``temperature``, ``top_p`` and ``seed`` sample as the uniform server
+  does (one seeded generator a ``run``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ class PagedGenerationServer(GenerationServer):
                  pad_token_id: int, max_slots: int = 32, max_len: int = 2048,
                  n_pages: int | None = None,
                  dtype: torch.dtype | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: int = 0):
         if getattr(cfg, "attn_logit_softcap", None) or (
                 getattr(cfg, "post_norms", False)
                 and getattr(cfg, "sliding_window", None)):
@@ -44,6 +48,7 @@ class PagedGenerationServer(GenerationServer):
                 "layers — use GenerationServer")
         self.device = _device.resolve(device)
         self.dtype = dtype or _device.default_dtype(self.device, None)
+        self._sampling(temperature, top_p, seed)
         self.params = params
         self.cfg = cfg
         self.eos = eos_token_id
@@ -107,7 +112,7 @@ class PagedGenerationServer(GenerationServer):
         self.k_pool[:, dst] = pages(cache["k"])[:, src]
         self.v_pool[:, dst] = pages(cache["v"])[:, src]
         # left-padded: the last row is each prompt's last token
-        return logits[:, -1].argmax(dim=-1).cpu().numpy()
+        return self._pick(logits[:, -1])
 
     def _step(self, active_mask: np.ndarray) -> np.ndarray:
         GenerationServer.decode_steps += 1
@@ -121,7 +126,7 @@ class PagedGenerationServer(GenerationServer):
                                self._tensor(self.cur_tok)[:, None],
                                self._tensor(self.tok_pos)[:, None], cache,
                                None)
-        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        nxt = self._pick(logits[:, 0])
         return np.where(active_mask, nxt, self.cur_tok)
 
     def _admit(self) -> None:
@@ -201,6 +206,7 @@ class PagedGenerationServer(GenerationServer):
     @torch.inference_mode()
     def run(self) -> Dict[int, List[int]]:
         self._finished: List[_Request] = getattr(self, "_finished", [])
+        self._new_run()
         self._admit()
         while self.active:
             self._grow_tables()

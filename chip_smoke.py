@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile-serve         # build + serving profile
     python3 chip_smoke.py --context               # build + the context paths
     python3 chip_smoke.py --tp                    # build + the tp paths
+    python3 chip_smoke.py --decoding              # build + GGUF, sampling
+        # and beam search
     python3 chip_smoke.py --context-kernels SHAPES ROWS  # (run by the
         # script itself) the context paths' kernel checks at SHAPES, the
         # rows written to ROWS
@@ -21,7 +23,7 @@ Phases (each prints one JSON line):
      layouts), Llama-2-7b-chat (13.5 GB of sharded safetensors) and
      Mistral-7B-Instruct-v0.2 (14.5 GB), each 7B deleted after its paths;
      then Llama-3.2-3B-Instruct (llama3 rope scaling, tied embeddings)
-     and Qwen2.5-7B-Instruct (seeded q/k/v biases), both at 4 of their 28
+     and Qwen2.5-7B-Instruct (seeded q/k/v biases), both at 2 of their 28
      layers (``SMOKE_LLAMA3_QWEN2_LAYERS``),
      with byte-level BPE tokenizers in the layouts of their published
      files (the port's trainer on the ut1 text, seeded random byte tokens
@@ -135,6 +137,18 @@ Phases (each prints one JSON line):
      on TinyLlama whole through the train stage (no kernel in a train step,
      a grad-requiring tensor refused by the wrappers, steps 2 and 3
      against the CPU, the merged generator's dev eval on the kernels);
+     then ``generator=gorilla-7b-hf-v1-gguf`` on a GGUF file the script
+     writes (gorilla-7b-hf-v1's widths at 2 layers, seeded random Q6_K
+     blocks, q and k in llama.cpp's order, a llama-layout vocabulary): the
+     card's dequantized tree bit for bit against the numpy dequantizer of
+     ``tests/gguf_files.py``, its load time, the card against the f32 CPU;
+     ``generator=tinyllama-chat`` sampled (twice at one seed, the same
+     answers; at top_p 1e-9, greedy's) and at ``num_beams=4`` (the best
+     beam rescored by one teacher-forced prefill, beam width 1 against
+     greedy); the served Mistral-7B's first two layers greedy, at top_p
+     1e-9 and sampled in the epoch drain, the paged server and the
+     chunked drain; the kernels at those paths' shapes and at the Mixtral
+     prefills (``check_decoding_kernels``);
   5. retrieval at scale: ``Retrieve.retrieve`` over 262,144 synthetic
      unit-norm fp16 shards with topk_method auto (takes the fused kernel),
      over a bf16 corpus and over int8 codes with per-bin scales; and over
@@ -324,6 +338,17 @@ PATH_KERNELS = {
     "ut1_xrag_mixtral": ("encoder_layer", "flash_attention",
                          "decode_attention"),
     "gen_tp8_mixtral": ("decode_attention",),
+    # the GGUF generator (gorilla-7b-hf-v1-gguf at 2 layers, flash prefill
+    # on), TinyLlama sampled and beam-searched through the CLI, and the
+    # served Mistral-7B's first 2 layers sampled in each drain
+    "ut1_gguf_gorilla": ("encoder_layer", "flash_attention",
+                         "decode_attention"),
+    "ut1_sample_tinyllama": ("encoder_layer", "decode_attention"),
+    "ut1_beam_tinyllama": ("encoder_layer", "decode_attention"),
+    "ut1_serve_sample_mistral": ("decode_attention",),
+    "ut1_serve_sample_paged_mistral": ("paged_attention",),
+    "ut1_serve_sample_chunked_mistral": ("flash_attention_band",
+                                         "decode_attention"),
 }
 # the paths whose config no attention kernel serves (Gemma-2's softcaps and
 # query scale; Phi-3's head width 96, flash prefill off as by default)
@@ -3552,7 +3577,9 @@ def write_byte_level_tokenizer(path: str, family: str, seed: int) -> dict:
 # each), cut since the Gemma, Phi-3 and Command-R paths joined the run
 # (to 4 when the context paths did; back to 8 since each checkpoint shard
 # is read once, ``shared_checkpoint_reads``)
-SMOKE_LLAMA3_QWEN2_LAYERS = 4  # 8 before the tp paths, cut for their time
+# 8 before the tp paths and 4 before the GGUF, sampling and beam paths,
+# each cut for the new paths' time
+SMOKE_LLAMA3_QWEN2_LAYERS = 2
 
 
 def write_llama32_3b(root: str, dev) -> str:
@@ -3626,8 +3653,8 @@ COMMAND_R = dict(model_type="cohere", vocab_size=256000, hidden_size=8192,
                  torch_dtype="bfloat16")
 # the depth each path runs (full published widths), cut so that the script
 # stays within its time (PERF.md section 4)
-SMOKE_GEMMA7B_LAYERS = 4  # 8 before the tp paths, cut for their time
-SMOKE_GEMMA2B_LAYERS = 4  # 8 before the tp paths, cut for their time
+SMOKE_GEMMA7B_LAYERS = 2  # 8, then 4 (as SMOKE_LLAMA3_QWEN2_LAYERS)
+SMOKE_GEMMA2B_LAYERS = 2  # 8, then 4 (as SMOKE_LLAMA3_QWEN2_LAYERS)
 SMOKE_GEMMA2_9B_LAYERS = 2  # 4 before the tp paths, cut for their time
 SMOKE_PHI3_LAYERS = 2  # 4 before the tp paths, cut for their time
 SMOKE_COMMAND_R_LAYERS = 2  # 4 before the tp paths, cut for their time
@@ -8716,6 +8743,572 @@ def drive_gen_tp8_mixtral(ckpt: dict, root: str, drive, runs: dict) -> None:
     shutil.rmtree(ckpt.pop("mixtral"), ignore_errors=True)
 
 
+# --------------------------------------------------------------------------- #
+# GGUF checkpoints, sampling and beam search
+# --------------------------------------------------------------------------- #
+
+# gorilla-llm/gorilla-7b-hf-v1's widths (a Llama-1 7B: the config that
+# config/generator/gorilla-7b-hf-v1-gguf.yaml names), written as one GGUF
+# file of seeded random Q6_K blocks (its file's type) at GGUF_LAYERS layers
+GORILLA_7B = dict(LLAMA2_7B, max_position_embeddings=2048, rms_norm_eps=1e-6)
+GGUF_FILE = "gorilla-7b-hf-v1-q6_K.gguf"
+GGUF_LAYERS = SMOKE_NEW_PATH_LAYERS
+GGUF_COS_TOL = 0.99   # min row cosine of the logits, card bf16 against f32
+# the sampled paths' options (the CLI's +generator.init_args.*); top_p
+# NUCLEUS_ONE keeps only the largest logit (and its exact ties)
+SAMPLE_ARGS = (("temperature", "0.8"), ("top_p", "0.9"), ("seed", "7"))
+NUCLEUS_ONE, NUCLEUS_ONE_ARG = 1e-9, "1.0e-9"
+BEAMS = 4
+# the best beam's cumulative log-probability against one teacher-forced
+# prefill of the same tokens on the card, nats a generated token: bf16
+# decode (the decode kernel over the reordered cache) against a bf16
+# prefill; a wrong reorder conditions the tokens on another beam's history
+BEAM_RESCORE_TOL = 0.05
+BEAM_RESCORE_ROWS = 8
+SERVE_SAMPLE_NEW_TOKENS = 32
+SERVE_SAMPLE_PATHS = {"epoch": "ut1_serve_sample_mistral",
+                      "paged": "ut1_serve_sample_paged_mistral",
+                      "chunked": "ut1_serve_sample_chunked_mistral"}
+DECODING_PATHS = ("ut1_gguf_gorilla", "ut1_sample_tinyllama",
+                  "ut1_beam_tinyllama", *SERVE_SAMPLE_PATHS.values())
+# row 8's Mixtral prefills (ut1_mixtral's batches of 32 and 18 at S 256)
+FLASH_MIXTRAL_SHAPES = ((32, 256, 32, 8, 128), (18, 256, 32, 8, 128))
+DECODING_CARD = "cuda"  # the card side of the decoding paths' checks
+
+
+def _card_sync() -> None:
+    import torch
+
+    if DECODING_CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def _gguf_files():
+    """The repository's GGUF writer and numpy dequantizer
+    (``tests/gguf_files.py``)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import gguf_files
+
+    return gguf_files
+
+
+def write_gorilla_gguf(root: str, seed: int = 22) -> str:
+    """A folder holding ``GGUF_FILE``: gorilla-7b-hf-v1's widths (D 4,096,
+    32 heads on 32, I 11,008, V 32,000) at GGUF_LAYERS layers, every 2-D
+    tensor seeded random Q6_K blocks, the norms F32, the q and k rows in
+    llama.cpp's permuted order (the reader must undo it), and a
+    llama-layout vocabulary (``<unk>``, ``<s>``, ``</s>``, the byte
+    tokens, sentencepiece BPE pieces learnt from the ut1 text scored by
+    rank, seeded random pieces to 32,000) with token types and no merges."""
+    import numpy as np
+    from bergen_tpu_torch.models import tokenizer as T
+
+    G = _gguf_files()
+    c = dict(GORILLA_7B, num_hidden_layers=GGUF_LAYERS)
+    chars, _ = T.train_sentencepiece_bpe(_ut1_texts(), 1 << 20, 259)
+    tokens, scores, types = G.llama_vocab(sorted(chars, key=chars.get),
+                                          c["vocab_size"], seed=seed)
+    folder = os.path.join(root, "gorilla-7b-hf-v1-gguf-random")
+    os.makedirs(folder, exist_ok=True)
+    path = G.write_gguf(
+        os.path.join(folder, GGUF_FILE),
+        G.llama_metadata(c, tokens, scores, types, name="gorilla-7b-hf-v1"),
+        G.llama_tensors(c, np.random.default_rng(seed), G.Q6_K))
+    G.WRITTEN.pop(path)
+    return folder
+
+
+def run_ut1_gguf_gorilla(ckpt: dict, workdir: str) -> dict:
+    """``generator=gorilla-7b-hf-v1-gguf`` (its ``gguf_file`` in the model
+    folder) with flash prefill on, as the other 7B generators' paths."""
+    return run_ut1_flash_generator(ckpt, workdir, "gorilla-7b-hf-v1-gguf",
+                                   "gorilla")
+
+
+def check_gguf(ckpt: dict) -> dict:
+    """The card's dequantized tree bit for bit (f32) against the numpy
+    dequantizer of ``tests/gguf_files.py`` on every tensor of the file;
+    the LLM's load time from the file on the card; its first-step logits
+    (and one decode step's) against the f32 CPU forward of the same tree
+    by row cosine."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.models import gguf
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    G = _gguf_files()
+    path = os.path.join(ckpt["gorilla"], GGUF_FILE)
+    gf = gguf.GGUFFile(path)
+    t0 = time.perf_counter()
+    bad, n = [], 0
+    with ThreadPoolExecutor(os.cpu_count()) as pool:  # numpy's side
+        refs = {name: pool.submit(G.dequantize_np, gf.raw(name), t.type)
+                for name, t in gf.tensors.items()}
+        for name in list(refs):
+            card = gf.dequantize(name, DECODING_CARD).cpu().numpy()
+            ref = refs.pop(name).result()
+            n += card.size
+            if not np.array_equal(card.reshape(-1).view(np.uint32),
+                                  ref.view(np.uint32)):
+                bad.append(name)
+            del card, ref
+    out = {"tensors": len(gf.tensors), "weights": n,
+           "file_gb": os.path.getsize(path) / 1e9,
+           "types": sorted({gguf.TYPE_NAMES[t.type]
+                            for t in gf.tensors.values()}),
+           "bit_equal_s": time.perf_counter() - t0}
+    if bad:
+        fail(f"GGUF dequantized on the card differs from numpy: {bad}")
+    del gf
+    load = {}
+
+    def make(dev, dtype):
+        _card_sync()
+        t = time.perf_counter()
+        llm = LLM(ckpt["gorilla"], gguf_file=GGUF_FILE, device=dev,
+                  dtype=dtype)
+        _card_sync()
+        load[dev] = time.perf_counter() - t
+        return llm
+
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1] for ln in f][:2]
+    logits = _generator_logits(make, questions)
+    out.update({"load_s": load, "tol": GGUF_COS_TOL, "card": card_line(),
+                "prefill_logits_min_cos": _cos_rows(logits["cuda"][0],
+                                                    logits["cpu"][0]),
+                "decode_logits_min_cos": _cos_rows(logits["cuda"][1],
+                                                   logits["cpu"][1])})
+    low = [k for k in ("prefill_logits_min_cos", "decode_logits_min_cos")
+           if not out[k] >= GGUF_COS_TOL]
+    if low:
+        fail(f"gorilla GGUF card vs CPU: {low} below {GGUF_COS_TOL}: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def nucleus_one_picks():
+    """Count every ``llama.sample_token`` call at top_p NUCLEUS_ONE made
+    inside: its rows, the rows whose pick is outside the nucleus (none may
+    be) and the rows whose nucleus holds more than one token (the largest
+    logit tied, bf16 logits at random weights: the nucleus keeps ties, as
+    JAX's, and the draw may pick any of them)."""
+    import torch
+    from bergen_tpu_torch.models import llama
+
+    orig = llama.sample_token
+    rec = {"calls": 0, "rows": 0, "outside": 0, "tied": 0}
+
+    def spy(logits, temperature, top_p, generator=None, noise=None):
+        tok = orig(logits, temperature, top_p, generator, noise)
+        if top_p == NUCLEUS_ONE:
+            kept = torch.isfinite(llama.nucleus_logits(logits, temperature,
+                                                       top_p))
+            rec["calls"] += 1
+            rec["rows"] += kept.shape[0]
+            rec["outside"] += int((~kept.gather(-1, tok[:, None])).sum())
+            rec["tied"] += int((kept.sum(-1) > 1).sum())
+        return tok
+
+    llama.sample_token = spy
+    try:
+        yield rec
+    finally:
+        llama.sample_token = orig
+
+
+def _nucleus_one_against_greedy(what: str, picks: dict, same: float) -> None:
+    """At top_p NUCLEUS_ONE every pick is in the nucleus, and where no
+    largest logit was tied every answer is greedy's."""
+    if picks["outside"] or not picks["calls"] or (not picks["tied"]
+                                                  and same < 1.0):
+        fail(f"{what} at top_p {NUCLEUS_ONE}: picks {picks}, share of "
+             f"answers equal to greedy's {same}")
+
+
+def _tinyllama_cli(ckpt: dict, workdir: str, extra: list[str]):
+    """ut1's dense eval with ``generator=tinyllama-chat`` at
+    SECOND_EVAL_NEW_TOKENS and ``extra`` overrides."""
+    return _run_cli([
+        "retriever=bge-base-en-v1.5",
+        f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+        "generator=tinyllama-chat",
+        f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+        SECOND_EVAL_NEW_TOKENS, *extra], workdir, ckpt)
+
+
+def run_ut1_sample_tinyllama(ckpt: dict, workdir: str) -> dict:
+    """TinyLlama sampled through the CLI: twice at SAMPLE_ARGS (the same
+    answers both times), then at top_p NUCLEUS_ONE (every pick in the
+    nucleus; its answers against the start of ut1_eval's greedy ones,
+    ``_nucleus_one_against_greedy``), each with its decode attention
+    launches.  ``check_decoding_on_card`` holds the top_p NUCLEUS_ONE
+    tokens to greedy's token by token."""
+    from bergen_tpu_torch.ops import decode_attention as da
+
+    sampled = [f"+generator.init_args.{k}={v}" for k, v in SAMPLE_ARGS]
+    out = {}
+    for name, extra in (
+            ("sampled", sampled), ("sampled_again", sampled),
+            ("nucleus_one", ["+generator.init_args.temperature=0.8",
+                             f"+generator.init_args.top_p={NUCLEUS_ONE_ARG}"]
+             )):
+        n0 = da.decode_attention.launches
+        with nucleus_one_picks() as picks:
+            exp, wall = _tinyllama_cli(ckpt, os.path.join(workdir, name),
+                                       extra)
+        out[name] = {"wall_s": wall, "picks": picks,
+                     "decode_attention": da.decode_attention.launches - n0,
+                     "responses": [r["response"] for r in _json(
+                         exp, "eval_dev_out.json")], **_check_outputs(exp)}
+    if out["sampled"]["responses"] != out["sampled_again"]["responses"]:
+        fail("ut1_sample_tinyllama: two runs of one seed answered "
+             "differently")
+    greedy = [r["response"] for r in _json(_experiment(os.path.join(
+        os.path.dirname(workdir), "ut1_eval")), "eval_dev_out.json")]
+    one = out["nucleus_one"]
+    # ut1_eval decodes 64 tokens, these runs 16: a word-level answer's
+    # first 16 tokens are the start of its text
+    one["same_as_greedy"] = sum(b.startswith(a) for a, b in zip(
+        one["responses"], greedy)) / len(greedy)
+    _nucleus_one_against_greedy("ut1_sample_tinyllama", one["picks"],
+                                one["same_as_greedy"])
+    out["sampled_same_as_greedy"] = sum(b.startswith(a) for a, b in zip(
+        out["sampled"]["responses"], greedy)) / len(greedy)
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("responses")
+    return out
+
+
+def run_ut1_beam_tinyllama(ckpt: dict, workdir: str) -> dict:
+    """TinyLlama at ``num_beams`` BEAMS through the CLI."""
+    exp, wall = _tinyllama_cli(ckpt, workdir,
+                               [f"+generator.init_args.num_beams={BEAMS}"])
+    return {"wall_s": wall, "exp": exp, "beams": BEAMS,
+            "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            **_check_outputs(exp)}
+
+
+def check_decoding_on_card(ckpt: dict, exp: str) -> dict:
+    """On the first BEAM_RESCORE_ROWS of ut1_beam_tinyllama's instructions,
+    TinyLlama on the card, SECOND_EVAL_NEW_TOKENS new tokens: the best beam
+    (``beam_generate(return_scores=True)``) rescored by one teacher-forced
+    prefill of the prompt and its tokens (up to its EOS), held to the
+    reported cumulative log-probability within BEAM_RESCORE_TOL nats a
+    token; beam width 1 against greedy, token for token; sampling at top_p
+    NUCLEUS_ONE against greedy, token for token up to each row's first
+    tied largest logit (every row without one exactly)."""
+    import torch
+    from bergen_tpu_torch.models import llama
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    T = int(SECOND_EVAL_NEW_TOKENS.rsplit("=", 1)[1])
+    rows = _json(exp, "eval_dev_out.json")[:BEAM_RESCORE_ROWS]
+    llm = LLM(ckpt["llama"], max_new_tokens=T, device=DECODING_CARD)
+    ii, am = llm._tokenize_left_pad([r["instruction"] for r in rows])
+    ids = torch.from_numpy(ii).to(llm.device)
+    mask = torch.from_numpy(am).to(llm.device)
+    eos, pad = llm.tokenizer.eos_token_id, llm.tokenizer.pad_token_id
+    args = (llm.params, llm.cfg, ids, mask, T)
+    toks, cum = llama.beam_generate(*args, BEAMS, eos, pad, 1.0,
+                                    cache_dtype=llm.dtype,
+                                    return_scores=True)
+    is_eos = toks == eos
+    last = torch.where(is_eos.any(1), is_eos.int().argmax(1),
+                       torch.full_like(cum, T - 1, dtype=torch.long))
+    gen = torch.arange(T, device=ids.device)[None] <= last[:, None]
+    full = torch.cat([ids, toks], 1)
+    valid = torch.cat([mask.bool(), gen], 1)
+    B, L = full.shape
+    S = ids.shape[1]
+    pos = (valid.long().cumsum(1) - 1).clamp_min(0)
+    causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=ids.device))
+    orig, tied = llama.sample_token, []
+
+    def spy(logits, temperature, top_p, generator=None, noise=None):
+        kept = torch.isfinite(llama.nucleus_logits(logits, temperature,
+                                                   top_p))
+        tied.append((kept.sum(-1) > 1).cpu())
+        return orig(logits, temperature, top_p, generator, noise)
+
+    with torch.inference_mode():
+        cache = llama.init_cache(llm.cfg, B, L, dtype=llm.dtype,
+                                 device=ids.device)
+        logits = llama.forward(llm.params, llm.cfg, full, pos, cache,
+                               causal[None] & valid[:, None, :])
+        logp = torch.log_softmax(logits[:, S - 1:S + T - 1].float(), -1)
+        rescored = (logp.gather(-1, toks[..., None])[..., 0] * gen).sum(1)
+        del logits, logp
+        greedy = llama.greedy_generate(*args, eos, pad,
+                                       cache_dtype=llm.dtype)
+        width1 = llama.beam_generate(*args, 1, eos, pad, 1.0,
+                                     cache_dtype=llm.dtype)
+        llama.sample_token = spy
+        try:
+            one = llama.sample_generate(
+                *args, eos, pad, 0.8, NUCLEUS_ONE,
+                torch.Generator(device=ids.device).manual_seed(7),
+                cache_dtype=llm.dtype)
+        finally:
+            llama.sample_token = orig
+    tied = torch.stack(tied, 1)                            # [B, T]
+    first_tie = torch.where(tied.any(1), tied.int().argmax(1),
+                            torch.full((B,), T, dtype=torch.long))
+    agree = (one.cpu() == greedy.cpu()).int().cumprod(1).sum(1)
+    per_token = ((rescored - cum).abs() / gen.sum(1)).max().item()
+    out = {"rows": B, "beams": BEAMS, "new_tokens": T,
+           "tol": BEAM_RESCORE_TOL, "max_err_per_token": per_token,
+           "cum_logprob": cum.tolist(), "rescored": rescored.tolist(),
+           "generated": gen.sum(1).tolist(),
+           "width1_equals_greedy": bool(torch.equal(width1, greedy)),
+           "nucleus_one_first_tie": first_tie.tolist(),
+           "nucleus_one_agrees_for": agree.tolist()}
+    if not (per_token <= BEAM_RESCORE_TOL and out["width1_equals_greedy"]
+            and bool((agree >= first_tie).all())):
+        fail(f"TinyLlama decoding on the card: {out}")
+    del llm
+    return out
+
+
+def run_ut1_serve_sample(ckpt: dict, workdir: str, mode: str) -> dict:
+    """Mistral-7B's first SMOKE_NEW_PATH_LAYERS layers served
+    (vllm_mistral-7b-chat's 32 slots; ``mode`` epoch, paged or chunked)
+    on ut1_eval's 50 instructions, SERVE_SAMPLE_NEW_TOKENS new tokens,
+    three times on one server: greedy, at top_p NUCLEUS_ONE (held to the
+    greedy tokens, ``_nucleus_one_against_greedy``), then sampled at
+    SAMPLE_ARGS; the decode steps (and the chunked drain's pipe-steps) of
+    all three."""
+    import torch
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.serve import GenerationServer
+
+    exp = _experiment(os.path.join(os.path.dirname(workdir), "ut1_eval"))
+    instructions = [r["instruction"] for r in _json(exp, "eval_dev_out.json")]
+    llm = LLM(ckpt["mistral_2l"], batch_size=64,
+              max_new_tokens=SERVE_SAMPLE_NEW_TOKENS, max_length=4096,
+              serve=True, max_slots=MISTRAL_SLOTS,
+              kv_cache="paged" if mode == "paged" else "uniform",
+              device=DECODING_CARD)
+    ids = llm.tokenizer(instructions, truncation=True,
+                        max_length=4096)["input_ids"]
+    srv = llm.server
+    GenerationServer.decode_steps = GenerationServer.chunk_pipe_steps = 0
+    sample = dict(SAMPLE_ARGS)
+    out, tokens = {"mode": mode, "requests": len(ids),
+                   "layers": SMOKE_NEW_PATH_LAYERS}, {}
+    for name, (temp, top_p, seed) in (
+            ("greedy", (0.0, 1.0, 0)),
+            ("nucleus_one", (0.8, NUCLEUS_ONE, 7)),
+            ("sampled", (float(sample["temperature"]),
+                         float(sample["top_p"]), int(sample["seed"])))):
+        srv.temperature, srv.top_p, srv.seed = temp, top_p, seed
+        with nucleus_one_picks() as picks:
+            _card_sync()
+            t0 = time.perf_counter()
+            tokens[name] = (srv.run_workload(ids, SERVE_SAMPLE_NEW_TOKENS,
+                                             mode="chunked")
+                            if mode == "chunked" else
+                            srv.run_workload(ids, SERVE_SAMPLE_NEW_TOKENS))
+            _card_sync()
+            wall = time.perf_counter() - t0
+        n_new = sum(map(len, tokens[name]))
+        out[name] = {"wall_s": wall, "new_tokens": n_new,
+                     "new_tokens_per_s": n_new / wall, "picks": picks,
+                     "tokens_sha256": hashlib.sha256(json.dumps(
+                         [list(map(int, t)) for t in tokens[name]])
+                         .encode()).hexdigest()}
+    same = sum(list(map(int, a)) == list(map(int, b)) for a, b in zip(
+        tokens["nucleus_one"], tokens["greedy"])) / len(ids)
+    out["nucleus_one"]["same_as_greedy"] = same
+    _nucleus_one_against_greedy(SERVE_SAMPLE_PATHS[mode],
+                                out["nucleus_one"]["picks"], same)
+    out["decode_steps"] = GenerationServer.decode_steps
+    out["pipe_steps"] = GenerationServer.chunk_pipe_steps
+    if not all(len(t) >= 1 for t in tokens["sampled"]):
+        fail(f"{SERVE_SAMPLE_PATHS[mode]}: a request got no token")
+    del llm, srv
+    return out
+
+
+def drive_decoding_paths(ckpt: dict, root: str, drive, runs: dict) -> None:
+    """The GGUF path (its file written, checked and deleted), the sampled
+    and beam TinyLlama paths (with the beam rescore) and the three sampled
+    served paths on the Mistral-7B checkpoint's first layers.  Needs
+    ut1_eval's run and ``ckpt["mistral_7b"]``."""
+    t0 = time.perf_counter()
+    ckpt["gorilla"] = write_gorilla_gguf(root)
+    emit({"phase": "checkpoint_gorilla_gguf",
+          "write_s": time.perf_counter() - t0, "path": ckpt["gorilla"],
+          "layers": GGUF_LAYERS})
+    drive("ut1_gguf_gorilla", run_ut1_gguf_gorilla)
+    emit({"phase": "reference_check_gguf", **timed(check_gguf, ckpt)})
+    shutil.rmtree(ckpt.pop("gorilla"), ignore_errors=True)
+    drive("ut1_sample_tinyllama", run_ut1_sample_tinyllama)
+    drive("ut1_beam_tinyllama", run_ut1_beam_tinyllama)
+    emit({"phase": "reference_check_decoding",
+          **timed(check_decoding_on_card, ckpt,
+                  runs["ut1_beam_tinyllama"]["exp"])})
+    ckpt["mistral_2l"] = first_layers(ckpt["mistral_7b"],
+                                      SMOKE_NEW_PATH_LAYERS)
+    for mode, path in SERVE_SAMPLE_PATHS.items():
+        drive(path, lambda c, w, m=mode: run_ut1_serve_sample(c, w, m))
+
+
+def check_decoding_launches(by_path: dict, steps: dict, runs: dict) -> None:
+    """The new paths' launches, exact: the GGUF path's forward steps one
+    flash attention a layer and prefill and one decode attention a layer
+    and decode step; the TinyLlama paths' decode steps one decode attention
+    a layer (each sampled run as many as a greedy run of its length), the
+    beam path's at BEAMS times its prefills' rows; the served
+    paths one decode attention (epoch), paged partial (paged, no flat
+    decode attention) or decode and band attention (chunked) a layer and
+    decode step or pipe-step; every kernel of PATH_KERNELS launched."""
+    tiny, n = TINYLLAMA["num_hidden_layers"], SMOKE_NEW_PATH_LAYERS
+    for path, dec, flash in (("ut1_gguf_gorilla", GGUF_LAYERS, GGUF_LAYERS),
+                             ("ut1_sample_tinyllama", tiny, 0),
+                             ("ut1_beam_tinyllama", tiny, 0)):
+        bad = [st for st in steps[path] if st[1:4] != (
+            0, dec if st[0] == 1 else 0, flash if st[0] > 1 else 0)]
+        n_dec = sum(1 for st in steps[path] if st[0] == 1)
+        if bad or not n_dec or by_path[path]["decode_attention"] != \
+                dec * n_dec:
+            fail(f"{path}: forward steps off (S, int4, decode, flash) = "
+                 f"(S, 0, {dec}, {flash}): {bad[:3]} ({len(bad)} in all); "
+                 f"{by_path[path]['decode_attention']} decode attentions "
+                 f"for {n_dec} decode steps")
+    # every run of the sampled path as many decode attentions as a greedy
+    # run of its length: 22 a step, 15 steps a batch of ut1's 7
+    sample = runs["ut1_sample_tinyllama"]
+    new = int(SECOND_EVAL_NEW_TOKENS.rsplit("=", 1)[1])
+    want = tiny * (new - 1) * -(-50 // 8)
+    got = [sample[r]["decode_attention"]
+           for r in ("sampled", "sampled_again", "nucleus_one")]
+    if got != [want] * 3:
+        fail(f"ut1_sample_tinyllama: decode attentions {got}, not {want} "
+             "each (greedy's at its length)")
+    st = steps["ut1_beam_tinyllama"]
+    prefill_rows = {s[4] for s in st if s[0] > 1}
+    decode_rows = {s[4] for s in st if s[0] == 1}
+    if decode_rows != {BEAMS * b for b in prefill_rows}:
+        fail(f"ut1_beam_tinyllama: decode rows {sorted(decode_rows)}, not "
+             f"{BEAMS} x the prefills' {sorted(prefill_rows)}")
+    for mode, path in SERVE_SAMPLE_PATHS.items():
+        r, c = runs[path], by_path[path]
+        if mode == "paged":
+            got = (c["paged_attention"], c["decode_attention"])
+            want = (n * r["decode_steps"], 0)
+        elif mode == "chunked":
+            got = (c["decode_attention"], c["flash_attention_band"])
+            want = (n * r["decode_steps"], n * r["pipe_steps"])
+        else:
+            got, want = c["decode_attention"], n * r["decode_steps"]
+        if got != want or not r["decode_steps"]:
+            fail(f"{path}: launches {got}, not {want} ({r['decode_steps']} "
+                 f"decode steps, {r['pipe_steps']} pipe-steps)")
+    idle = [f"{k} on {p}" for p in DECODING_PATHS for k in PATH_KERNELS[p]
+            if by_path[p][k] == 0]
+    if idle:
+        fail(f"kernels never launched where the path runs them: {idle}")
+
+
+def _decode_row(dev, gen, B: int, L: int, H: int, KH: int, Dh: int,
+                **tag) -> dict:
+    """``decode_attention`` at (B, L, H, KH, Dh) on a left-padded key mask
+    against its plain version, with SDPA beside it (``_timed_row``)."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import decode_attention as da
+
+    q = torch.randn(B, H, Dh, generator=gen, device=dev).bfloat16()
+    kc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(B, L, KH * Dh, generator=gen, device=dev).bfloat16()
+    start = torch.randint(0, L // 2, (B,), generator=gen, device=dev)
+    valid = torch.arange(L, device=dev)[None] >= start[:, None]
+    scale = 1.0 / math.sqrt(Dh)
+    nbytes = 2 * B * L * KH * Dh * 2 + 2 * B * H * Dh * 2 + B * L
+    row = _timed_row(
+        "decode_attention", da.decode_attention,
+        lambda: da.decode_attention(q, kc, vc, valid, kv_heads=KH,
+                                    sm_scale=scale),
+        lambda: da.decode_attention_plain(q, kc, vc, valid, kv_heads=KH,
+                                          sm_scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc.view(B, L, KH, Dh).transpose(1, 2),
+            vc.view(B, L, KH, Dh).transpose(1, 2),
+            attn_mask=valid[:, None, None, :], scale=scale, enable_gqa=True),
+        bound(4 * B * H * L * Dh, nbytes, PEAK_F32_FLOPS),
+        B=B, L=L, H=H, KH=KH, head_dim=Dh, **tag)
+    if row["max_abs_err"] > DECODE_TOL or row["launches_per_call"] != 1:
+        fail(f"decode_attention at B{B} L{L} H{H} KH{KH}: {row}")
+    return row
+
+
+def _flash_row(dev, gen, B: int, S: int, H: int, KH: int, Dh: int,
+               **tag) -> dict:
+    """``flash_attention`` at (B, S, H, KH, Dh) over left-padded rows
+    against its plain version, with SDPA beside it; the bound counts each
+    query row against the valid keys at or before it."""
+    import torch
+    import torch.nn.functional as F
+    from bergen_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn(B, S, H, Dh, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, S, KH, Dh, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, S, KH, Dh, generator=gen, device=dev).bfloat16()
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lens[0] = S
+    valid = torch.arange(S, device=dev)[None] >= (S - lens)[:, None]
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=dev))
+    seen = causal[None] & valid[:, None, :]
+    ops = 4 * H * Dh * int(seen.sum())
+    nbytes = 2 * B * S * H * Dh * 2 + 2 * B * S * KH * Dh * 2 + B * S
+    row = _timed_row(
+        "flash_attention", fa.flash_attention,
+        lambda: fa.flash_attention(q, k, v, valid),
+        lambda: fa.flash_attention_plain(q, k, v, valid),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=seen[:, None], enable_gqa=True),
+        bound(ops, nbytes), B=B, S=S, H=H, KH=KH, head_dim=Dh, **tag)
+    if row["max_abs_err"] > FLASH_TOL or row["mean_abs_err"] > \
+            FLASH_MEAN_TOL or row["launches_per_call"] != 1:
+        fail(f"flash_attention at B{B} S{S} H{H} KH{KH}: {row}")
+    return row
+
+
+def check_decoding_kernels(results: dict, dev, steps: dict) -> None:
+    """``decode_attention`` at the beam path's decode rows (B x BEAMS:
+    TinyLlama's H 32, KH 4, Dh 64) and at the GGUF path's (Llama-1 7B: H
+    32 on 32, Dh 128), ``flash_attention`` at the GGUF path's prefills and
+    at ut1_mixtral's (FLASH_MIXTRAL_SHAPES: H 32, KH 8, Dh 128), each
+    against its plain version with SDPA beside it.  Rows go to
+    ``results`` with ``decoding_path`` set."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for path, (H, KH, Dh) in (("ut1_beam_tinyllama", (32, 4, 64)),
+                              ("ut1_gguf_gorilla", (32, 32, 128))):
+        for B, L in _common_shapes([st[4:6] for st in steps[path]
+                                    if st[0] == 1]):
+            rows.append(_decode_row(dev, gen, B, L, H, KH, Dh,
+                                    decoding_path=path))
+    for B, S in _common_shapes([(st[4], st[0]) for st in
+                                steps["ut1_gguf_gorilla"] if st[0] > 1]):
+        rows.append(_flash_row(dev, gen, B, S, 32, 32, 128,
+                               decoding_path="ut1_gguf_gorilla"))
+    for B, S, H, KH, Dh in FLASH_MIXTRAL_SHAPES:
+        rows.append(_flash_row(dev, gen, B, S, H, KH, Dh,
+                               decoding_path="ut1_mixtral"))
+    for row in rows:
+        emit({"phase": "kernel_check", **row})
+        results.setdefault(row["kernel"], []).append(row)
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8767,15 +9360,18 @@ def main() -> None:
     # --context-kernels: the context paths' kernel checks alone, in a
     # child; --mixtral: build, the tp shard checks, the Mixtral paths with
     # their checks (their xRAG retriever, Mistral-7B at
-    # SMOKE_NEW_PATH_LAYERS, written first), then stop; no argument: every
-    # phase
+    # SMOKE_NEW_PATH_LAYERS, written first), then stop; --decoding: build,
+    # ut1_eval, the GGUF, sampled and beam paths with their checks (the
+    # served ones on Mistral-7B at SMOKE_NEW_PATH_LAYERS), then stop; no
+    # argument: every phase
     only = None
     profile = sys.argv[1:] == ["--profile-serve"]
     context_only = sys.argv[1:] == ["--context"]
     soft_train_only = sys.argv[1:] == ["--soft-train"]
     tp_only = sys.argv[1:] == ["--tp"]
     mixtral_only = sys.argv[1:] == ["--mixtral"]
-    if profile or context_only or soft_train_only:
+    decoding_only = sys.argv[1:] == ["--decoding"]
+    if profile or context_only or soft_train_only or decoding_only:
         only = []
     elif tp_only or mixtral_only:
         only = ["tp_shards"]
@@ -8853,7 +9449,8 @@ def main() -> None:
     if profile:
         profile_serve(dev)
     if only is not None and not (context_only or soft_train_only
-                                 or tp_only or mixtral_only):
+                                 or tp_only or mixtral_only
+                                 or decoding_only):
         emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
@@ -8932,6 +9529,17 @@ def main() -> None:
                   "script_s": time.perf_counter() - started,
                   "launches": {p: by_path[p] for p in
                                SOFT_TRAIN_PATHS + ("provence_train",)}})
+            return
+        if decoding_only:
+            ckpt["mistral_7b"] = write_mistral_7b(root, dev,
+                                                  SMOKE_NEW_PATH_LAYERS)
+            drive("ut1_eval", run_main_path)
+            drive_decoding_paths(ckpt, root, drive, runs)
+            check_decoding_launches(by_path, steps, runs)
+            check_decoding_kernels(results, dev, steps)
+            emit({"phase": "done", "decoding": True,
+                  "script_s": time.perf_counter() - started,
+                  "launches": {p: by_path[p] for p in DECODING_PATHS}})
             return
         if mixtral_only:
             ckpt["mistral_7b"] = write_mistral_7b(root, dev,
@@ -9037,6 +9645,9 @@ def main() -> None:
         drive("ut1_serve_chunked_mistral", run_ut1_serve_chunked_mistral)
         emit({"phase": "reference_check_serve",
               **timed(check_serve_against_cpu, ckpt)})
+        # GGUF, sampling and beam search (the served paths on the
+        # Mistral-7B checkpoint's first layers)
+        drive_decoding_paths(ckpt, root, drive, runs)
         # COCOM and xRAG on the same Mistral-7B checkpoint's first layers,
         # then LoRA training on TinyLlama
         drive_soft_train_paths(ckpt, root, dev, drive)
@@ -9138,6 +9749,7 @@ def main() -> None:
         check_context_launches(by_path, bias_launches, runs)
         check_soft_train_launches(by_path, steps)
         check_mixtral_launches(by_path, steps, runs)
+        check_decoding_launches(by_path, steps, runs)
         # each int8 path in its modes alone (no other path launches int8)
         for path, got in int8_by_mode.items():
             modes = PATH_INT8_MODES.get(path, ())
@@ -9342,9 +9954,10 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
         for name in SEVEN_B + FAMILY_CKPTS + REPLLAMA_CKPTS + CONTEXT_CKPTS \
                 + ("xrag-7b-random",) + tuple(t[1] for t in TP_CKPTS) \
-                + MIXTRAL_CKPTS:
+                + MIXTRAL_CKPTS + ("gorilla-7b-hf-v1-gguf-random",):
             shutil.rmtree(os.path.join(root, name), ignore_errors=True)
     check_soft_train_kernels(results, dev, steps)
+    check_decoding_kernels(results, dev, steps)
 
     # the redesigned kernels: launches per call as measured in their checks,
     # and per decode step of ut1_int4_llama2 as counted there: the launches
@@ -9436,6 +10049,14 @@ def main() -> None:
             for r in results[name] if r.get("tp_shard")]
         if new:
             extra["tp_shard_rows"] = new
+        # the GGUF, beam and Mixtral prefill shapes
+        new = [{key: r[key] for key in (
+            "decoding_path", "B", "L", "S", "H", "KH", "head_dim",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms") if key in r}
+            for r in results[name] if r.get("decoding_path")]
+        if new:
+            extra["decoding_rows"] = new
         line.append({"name": name, **meta,
                      "launches": sum(per_path.values()),
                      "launches_by_path": per_path,

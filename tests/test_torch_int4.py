@@ -385,7 +385,7 @@ def test_llm_quantization_options(tiny_llama_256):
     with pytest.raises(ValueError, match="nf4"):
         LLM(tiny_llama_256, device="cpu", quantization="nf4")
     for kw, name, error in (({"tp": 2}, "torchrun", RuntimeError),
-                            ({"temperature": 0.7}, "temperature",
-                             NotImplementedError)):
+                            ({"use_beam_search": True, "temperature": 0.7},
+                             "temperature", ValueError)):
         with pytest.raises(error, match=name):
             LLM(tiny_llama_256, device="cpu", quantization="int4", **kw)

@@ -339,13 +339,6 @@ def test_weight_bytes_at_the_published_config():
     llm.check_fits(cfg, None, 8, torch.bfloat16, card)
 
 
-def test_gguf_file_raises_naming_item_11(ckpts):
-    from bergen_tpu_torch.models.generators.llm import LLM
-
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        LLM(ckpts["mixtral"], gguf_file="model-q6_K.gguf", device="cpu")
-
-
 def _rows(n: int = 12):
     rng = np.random.default_rng(0)
     words = ("the capital of avaria is ashford what borundi blackwell river "

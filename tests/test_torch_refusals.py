@@ -1,7 +1,7 @@
 """Every ``config/generator/`` and ``config/train/`` file either runs on
 the port or raises naming the ROADMAP.md Queue 1 item that will lift its
-refusal: GGUF checkpoints #11 (``gorilla-7b-hf-v1-gguf``), sampling and
-beam search #6, the OpenAI generators plain Queue 1.  A config with ``tp``
+refusal: the OpenAI generators plain Queue 1.  ``gorilla-7b-hf-v1-gguf``
+instantiates on a tiny GGUF file of its ``gguf_file`` name and generates.  A config with ``tp``
 > 1 (``mixtral-8x7b-instruct`` among them) raises in one process, naming
 ``torchrun``: it runs as ``tp`` ranks.  Under ranks, a world larger than
 ``tp`` and the int8 and W8A8 routes with ``tp`` > 1 raise naming #10.  The
@@ -44,25 +44,39 @@ def ckpts(tmp_path_factory):
     from tiny_mixtral import build_tiny_mixtral
     from tiny_models import build_tiny_llama
 
+    import gguf_files as G
+    import numpy as np
+
     root = tmp_path_factory.mktemp("refusals")
+    gguf = root / "gguf"
+    gguf.mkdir()
+    cfg = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=1,
+               num_attention_heads=4, num_key_value_heads=2)
+    tokens, scores, types = G.llama_vocab(["▁what", "▁is", "▁the"])
+    G.write_gguf(str(gguf / "gorilla-7b-hf-v1-q6_K.gguf"),
+                 G.llama_metadata(dict(cfg, vocab_size=len(tokens)), tokens,
+                                  scores, types),
+                 G.llama_tensors(dict(cfg, vocab_size=len(tokens)),
+                                 np.random.default_rng(0),
+                                 G.Q8_0))
     return {"llama": build_tiny_llama(str(root / "llama")),
-            "mixtral": build_tiny_mixtral(str(root / "mixtral"))}
+            "mixtral": build_tiny_mixtral(str(root / "mixtral")),
+            "gguf": str(gguf)}
 
 
 def _expected(name: str, args: dict):
     """The Queue 1 item a generator config must name, ``mixtral`` (runs on
-    the tiny Mixtral), or None (runs)."""
+    the tiny Mixtral), ``gguf`` (runs on the tiny GGUF file), or None
+    (runs)."""
     target = args["_target_"]
     if "llm_openai" in target:
         return "Queue 1"
     if args.get("tp", 1) != 1:
         return "torchrun"
     if args.get("gguf_file"):
-        return "#11"
+        return "gguf"
     if "mixtral" in name or "moe" in (args.get("model_name") or ""):
         return "mixtral"
-    if args.get("temperature", 0) or args.get("use_beam_search"):
-        return "#6"
     return None
 
 
@@ -86,6 +100,13 @@ def test_generator_config_runs_or_names_its_item(name, ckpts):
         with pytest.raises(RuntimeError, match=f"torchrun --nproc-per-node "
                            f"{args['tp']}"):
             confy.instantiate(args, device="cpu")
+        return
+    if want == "gguf":
+        args.update(model_name=ckpts["gguf"], max_new_tokens=3)
+        gen = confy.instantiate(args, device="cpu")
+        assert gen.cfg.hidden_size == 64
+        out = gen.generate(["what is the capital"])
+        assert len(out) == 1 and isinstance(out[0], str)
         return
     if want == "mixtral":
         args.update(model_name=ckpts["mixtral"], max_new_tokens=3)

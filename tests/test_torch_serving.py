@@ -172,7 +172,7 @@ def test_llm_serve_matches_static_and_jax(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    ({"serve": True, "temperature": 0.7}, NotImplementedError),
+    ({"serve": True, "num_beams": 2, "temperature": 0.7}, ValueError),
     ({"serve": True, "tp": 2}, RuntimeError),  # one process: torchrun
     ({"serve": True, "kv_cache": "bogus"}, ValueError),
 ])

@@ -96,6 +96,36 @@ def mixtral(model_name: str, replicated_model: str, prompts: list, tp: int,
     return out
 
 
+def decoding(model_name: str, prompts: list, tp: int, ids: list,
+             **kw) -> list:
+    """Sampled (static, the epoch and chunked drains, paged) and beam
+    answers, each rank's: the list of every rank's results, in rank
+    order."""
+    import torch.distributed as dist
+
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.parallel import mesh
+
+    sample = dict(temperature=0.8, top_p=0.9, seed=3)
+    out = {"sampled": LLM(model_name, tp=tp, device="cpu", **sample, **kw)
+           .generate(prompts),
+           "beam": LLM(model_name, tp=tp, device="cpu", num_beams=3,
+                       length_penalty=0.6, **kw).generate(prompts)}
+    served = LLM(model_name, tp=tp, device="cpu", serve=True, max_slots=3,
+                 **sample, **kw)
+    out["epoch"] = served.generate(prompts)
+    out["chunked"] = served.server.run_workload(ids, 5, mode="chunked",
+                                                chunk_size=8)
+    out["paged"] = LLM(model_name, tp=tp, device="cpu", serve=True,
+                       max_slots=3, kv_cache="paged", **sample,
+                       **kw).generate(prompts)
+    if mesh.world_size() == 1:
+        return [out]
+    every = [None] * mesh.world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
 def llm_error(model_name: str, tp: int, **kw) -> str:
     """The message ``LLM`` raises on every rank (rank 0's)."""
     from bergen_tpu_torch.models.generators.llm import LLM
@@ -128,5 +158,5 @@ def judge(seed: int = 0, **kwargs) -> None:
     evaluate.run_eval(**kwargs)
 
 
-JOBS = {"generation": generation, "mixtral": mixtral,
+JOBS = {"generation": generation, "mixtral": mixtral, "decoding": decoding,
         "llm_error": llm_error, "cli": cli, "judge": judge}
