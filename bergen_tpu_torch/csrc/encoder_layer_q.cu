@@ -47,11 +47,21 @@
 // * x and the context come from outside a GEMM or span heads, so they keep
 //   a row quantization of their own: one warp a row, 16-byte loads, the
 //   codes written once.
+//
+// The generators' W8A8 projection (ops/w8a8_matmul.py) runs two of these
+// launches, the row quantization and the GEMM's QEPI_BF16.  A row-parallel
+// slice under tensor parallelism holds K / tp columns of each row, while
+// the row's scale spans all K (bergen_tpu/models/llama.py:313-321): its
+// rank takes its rows' largest |x| (rowmax_kernel), the ranks share them
+// by a max all-reduce, and the row quantization reads the shared maxima as
+// one partial (n_part 1).  QEPI_S32 then writes the exact int32 sums, which
+// the ranks add as integers before the scales are applied, once, so the
+// result is the one-rank product's bit for bit.
 #include "wgmma.cuh"
 
 namespace {
 
-enum { QEPI_BF16 = 0, QEPI_RES = 1, QEPI_ACT_MAX = 2 };
+enum { QEPI_BF16 = 0, QEPI_RES = 1, QEPI_ACT_MAX = 2, QEPI_S32 = 3 };
 
 // FFN-in's row maxima: one a row for each MAX_COLS columns, whatever the
 // tile's width, so that their layout [N / MAX_COLS, M] is fixed.
@@ -160,6 +170,28 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) scale[row] = s;
 }
 
+// One warp per row of x [M, K] bf16 (K % 8 == 0, 16-byte rows): the row's
+// largest |x| (a max has no order: exact), each 16-byte chunk read once.
+__global__ void __launch_bounds__(256)
+    rowmax_kernel(const bf16* __restrict__ x, float* __restrict__ out, int M,
+                  int K) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * K);
+  float m = 0.f;
+  for (int i = lane; i < K / 8; i += 32) {
+    float v[8];
+    chunk_f32<bf16>(xr[i], v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) out[row] = m;
+}
+
 // LN1 of the W8A8 layer: encoder_layer.cu's row LayerNorm (one warp per
 // row, D % 128 == 0, D <= 1024, the same arithmetic) writing y f32 and,
 // from the same registers, y's codes and row scale.
@@ -240,6 +272,7 @@ __global__ void __launch_bounds__(256)
 //   QEPI_ACT_MAX: act(v) [M, N] f32, and each row's largest |act(v)| in
 //                 each MAX_COLS columns (out_scale [N / MAX_COLS, M]:
 //                 exact, a max has no order), which rowquant_kernel reduces
+//   QEPI_S32:     the int32 sums themselves, no scale   [M, N] int32
 // The tile's consumers write C a pass at a time into one of two shared
 // staging boxes of 128 rows x 128 bytes (64 bf16 or 32 f32 columns) in the
 // 128-byte swizzle, and one thread stores the box with TMA, which drops
@@ -340,7 +373,8 @@ struct QGemmEpi {
     }
   }
 
-  // f32 out: act(v) (QEPI_ACT_MAX) or v + the residual (QEPI_RES)
+  // 4-byte out: act(v) (QEPI_ACT_MAX), v + the residual (QEPI_RES) or the
+  // sums' int32 bits (QEPI_S32)
   template <int H, int ACT>
   __device__ __forceinline__ void store_f32(const int (&acc)[H][BN / 2],
                                             int mt, int nt, int r0, int t,
@@ -384,8 +418,15 @@ struct QGemmEpi {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int r = r0 + 64 * h + 8 * half;
-            float2 v = value(acc[h], j, half, s[h][half], w, b);
-            if constexpr (EPI == QEPI_RES) {
+            float2 v;
+            if constexpr (EPI == QEPI_S32) {
+              v = make_float2(__int_as_float(acc[h][4 * j + 2 * half]),
+                              __int_as_float(acc[h][4 * j + 2 * half + 1]));
+            } else {
+              v = value(acc[h], j, half, s[h][half], w, b);
+            }
+            if constexpr (EPI == QEPI_S32) {
+            } else if constexpr (EPI == QEPI_RES) {
               v.x = __fadd_rn(v.x, rv[h][jj][half].x);
               v.y = __fadd_rn(v.y, rv[h][jj][half].y);
             } else {
@@ -439,7 +480,7 @@ struct QGemmEpi {
       }
     if constexpr (EPI == QEPI_BF16) {
       store_bf16<H>(acc, mt, nt, r0, t, s, ctid, tm, stage);
-    } else if constexpr (EPI == QEPI_RES) {
+    } else if constexpr (EPI == QEPI_RES || EPI == QEPI_S32) {
       store_f32<H, -1>(acc, mt, nt, r0, t, s, ctid, tm, stage);
     } else {
       switch (act) {
@@ -540,6 +581,16 @@ int encoder_rowquant(const void* x, int x_f32, void* q, void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x [M, K] bf16 -> out [M] f32, each row's largest |x|; K % 8 == 0.
+int encoder_rowmax(const void* x, void* out, int M, int K, void* stream) {
+  if (K % 8 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  rowmax_kernel<<<dim3((M + 7) / 8), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<float*>(out), M, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // LN1 of the W8A8 layer: x [M, D] f32 -> out_f [M, D] f32 and its codes
 // q [M, D] int8 and scales [M]; D % 128 == 0, D <= 1024.
 int encoder_layernorm_q(const void* x, const void* gamma, const void* beta,
@@ -558,15 +609,16 @@ int encoder_layernorm_q(const void* x, const void* gamma, const void* beta,
 
 // C[M, N] = (A[M, K] . Bt[N, K]^T) * sa[row] * sw[col] + bias[col] with
 // epilogue epi (QEPI_*; res: the QEPI_RES residual, bf16 or f32 by
-// res_f32; out_scale: QEPI_ACT_MAX's row maxima [N / 128, M]), A and Bt
-// int8, K-contiguous.  Needs N % 128 == 0 and K % 16 == 0 (16-byte rows
+// res_f32; out_scale: QEPI_ACT_MAX's row maxima [N / 128, M]; QEPI_S32:
+// the int32 sums alone, sa, sw and bias read but unused), A and Bt int8,
+// K-contiguous.  Needs N % 128 == 0 and K % 16 == 0 (16-byte rows
 // for TMA); k past K reads as zero.
 int encoder_qgemm(const void* A, const void* Bt, const void* sa,
                   const void* sw, const void* bias, const void* res, void* out,
                   void* out_scale, int M, int N, int K, int epi, int act,
                   int res_f32, void* stream) {
   if (N % MAX_COLS || K % 16 || M < 0 || K < 1 || epi < 0 ||
-      epi > QEPI_ACT_MAX)
+      epi > QEPI_S32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const int bn = epi == QEPI_ACT_MAX ? act_tile_n(M, N) : 128;
@@ -589,6 +641,8 @@ int encoder_qgemm(const void* A, const void* Bt, const void* sa,
     return launch_qgemm<QEPI_BF16, 128, true>(ta, tb, a, st);
   if (epi == QEPI_RES)
     return launch_qgemm<QEPI_RES, 128, true>(ta, tb, a, st);
+  if (epi == QEPI_S32)
+    return launch_qgemm<QEPI_S32, 128, true>(ta, tb, a, st);
   return bn == 256 ? launch_qgemm<QEPI_ACT_MAX, 256, false>(ta, tb, a, st)
                    : launch_qgemm<QEPI_ACT_MAX, 128, false>(ta, tb, a, st);
 }

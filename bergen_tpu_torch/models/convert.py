@@ -492,23 +492,40 @@ def quantize_tree_int8(params, min_size: int = 1 << 16, mxu: bool = False,
     bias stays beside the codes, in f32.  Mixtral's experts (3-D stacks, or
     lists before ``stack_experts``) stay dense, as JAX's 2-D rule leaves
     them, and so does its router, under ``min_size`` at every published
-    width."""
+    width.
+
+    A tensor-parallel slice (``parallel/shard.py``: ``tp_shape`` its whole
+    [K, N]) is quantized as JAX quantizes the whole tree before placing it:
+    ``min_size`` holds for the whole shape, and a row-parallel slice (K /
+    tp of each column) takes each column's largest |w| over the model axis
+    (``mesh.all_reduce_max``), so that its codes and scales are the slice
+    of the whole leaf's."""
     scale_key = "kernel_scale_a8" if mxu else "kernel_scale"
 
     def visit(node):
         if isinstance(node, dict):
             k = node.get("kernel")
+            whole = node.get("tp_shape")
+            size = whole[0] * whole[1] if whole else (
+                k.numel() if isinstance(k, torch.Tensor) else 0)
             if isinstance(k, torch.Tensor) and k.dim() == 2 \
-                    and k.numel() >= min_size:
-                q = quantize_linear_w8a8(
-                    {"kernel": k if device is None else k.to(device),
-                     "bias": torch.zeros(0)})
-                node["kernel_q"], node[scale_key] = \
-                    q["kernel_q"], q["kernel_scale_a8"]
-                del node["kernel"]
+                    and size >= min_size:
+                kf = (k if device is None else k.to(device)).float()
+                m = kf.abs().amax(dim=0)
+                if whole and whole[0] != k.shape[0]:
+                    from bergen_tpu_torch.parallel import mesh
+
+                    m = mesh.all_reduce_max(m, whole[0] // k.shape[0])
+                # a tensor divisor: PyTorch's CUDA division by a Python
+                # scalar multiplies by its reciprocal, which rounds
+                # differently
+                scale = (m / torch.full_like(m, 127.0)).clamp_min(1e-8)
+                node["kernel_q"] = torch.round(kf / scale).to(torch.int8)
+                node[scale_key] = scale
+                del node["kernel"], kf
                 if "bias" in node:
                     node["bias"] = node["bias"].to(
-                        device=q["kernel_q"].device, dtype=torch.float32)
+                        device=node["kernel_q"].device, dtype=torch.float32)
             for v in node.values():
                 visit(v)
         elif isinstance(node, list):

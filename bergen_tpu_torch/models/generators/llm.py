@@ -20,9 +20,15 @@ the checkpoint (``convert.load_checkpoint`` maps the files,
 ``parallel/shard.py`` copies the slice out) and runs the same steps on its
 heads and MLP columns, the row-parallel products meeting in an all-reduce
 of f32 partial sums and the head's logits in an all-gather, so that every
-rank makes the same decisions from the same tokens; bf16 and int4 (an int4
-head whose slice is outside the int4 kernel's shapes stays whole; the
-int8 and W8A8 routes raise, ROADMAP.md Queue 1 #10).  A Mixtral's experts
+rank makes the same decisions from the same tokens; bf16, int4 (an int4
+head whose slice is outside the int4 kernel's shapes stays whole), int8
+and W8A8 (each slice quantized as the slice of the whole tree's codes:
+``convert.quantize_tree_int8``; a row-parallel W8A8 product quantizes at
+the whole rows' scales and sums int32 partials, ``llama.
+_w8a8_row_parallel``; the calibration ratio is rank 0's).  A world larger
+than tp is JAX's ``get_mesh(model=tp)``, ``data = world / tp`` model rows,
+each generating the same batch (JAX puts the inputs in unsharded).  A
+Mixtral's experts
 are stacked on the card at tp 1, or a rank's own experts under tp
 (``parallel/shard.py``: the expert axis split, JAX's expert parallelism).
 Before any weight is read onto a card, ``weight_bytes`` reckons a rank's
@@ -62,24 +68,18 @@ from bergen_tpu_torch.serve import GenerationServer, PagedGenerationServer
 
 def check_world(tp: int, quantization: str | None = None) -> None:
     """The tensor-parallel rules on this process's world, before anything
-    is read: ``tp`` ranks, one process a card, and bf16 or int4 weights."""
-    if tp > 1 and quantization in ("int8", "int8_mxu", "w8a8"):
-        raise NotImplementedError(
-            f"quantization {quantization!r} with tp={tp}: the int8 and W8A8 "
-            "routes are not sharded (W8A8's per-row activation scale spans "
-            "the whole row a row-parallel slice does not hold; ROADMAP.md "
-            "Queue 1 #10, multi-GPU)")
+    is read: at least ``tp`` ranks, one process a card, in whole model
+    rows of ``tp`` (JAX's ``get_mesh(model=tp)`` assert)."""
     world = _mesh.world_size()
     if tp > world:
         raise RuntimeError(
             f"tp={tp} needs {tp} ranks, one process a card: run under "
             f"`torchrun --nproc-per-node {tp} -m bergen_tpu_torch ...` (this "
             f"process's world is {world})")
-    if world > tp:
-        raise NotImplementedError(
-            f"a world of {world} ranks over tp={tp}: the data axis (ranks "
-            "beyond the model axis) is not ported (ROADMAP.md Queue 1 #10, "
-            "multi-GPU)")
+    if world % tp:
+        raise ValueError(
+            f"a world of {world} ranks is not whole model rows of tp={tp}: "
+            f"run a multiple of {tp} ranks")
 
 
 def _linear_bytes(K: int, N: int, quantization: str | None,
@@ -192,7 +192,7 @@ class LLM(Generator):
             max_length=max_length, use_middle_truncation=use_middle_truncation,
         )
         self.tp = tp
-        if tp > 1:  # one rank of tp (check_world): its card, its slice
+        if tp > 1:  # one rank of a model row (check_world): its slice
             self.device = _mesh.init(device).device
             grid = _mesh.get_mesh(model=tp)
         else:
@@ -238,13 +238,18 @@ class LLM(Generator):
         if tp > 1:
             # this rank's slice, copied out of the mapped files
             params, self.cfg = _shard.shard_llama(
-                params, self.cfg, tp, grid.rank, int4=quantization == "int4")
+                params, self.cfg, tp, grid.model_rank,
+                int4=quantization == "int4")
         self.outlier_ratio = None
         if quantization in ("int8_mxu", "w8a8"):
             # JAX places the tree in the compute dtype, calibrates on one
             # real forward pass and quantizes the placed weights
             params = convert.to_device(params, self.dtype, self.device)
-            self.outlier_ratio = self._calibrate_outliers(params)
+            # under tp every rank measures the replicated residual stream;
+            # rank 0's ratio decides for all, so the fallback is one
+            # decision
+            self.outlier_ratio = _mesh.broadcast_object(
+                self._calibrate_outliers(params))
             if self.outlier_ratio > w8a8_outlier_threshold:
                 logging.getLogger(__name__).warning(
                     "w8a8 calibration: activation outlier ratio %.1f > "

@@ -61,6 +61,7 @@ from bergen_tpu_torch.ops import paged_attention as _pa
 from bergen_tpu_torch.ops.decode_attention import decode_attention
 from bergen_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_band_rows)
+from bergen_tpu_torch.ops import w8a8_matmul as _w8
 from bergen_tpu_torch.ops.w8a8_matmul import w8a8_matmul
 from bergen_tpu_torch.parallel import mesh as _mesh
 
@@ -328,10 +329,15 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W (+ the LoRA branch) (+ the f32 bias), rounded once to x's
     dtype.  A row-parallel slice (``parallel/shard.py``: its rows fewer
     than its ``tp_shape``'s) sums its f32 partials over the model axis
-    before the bias and the one rounding."""
+    before the bias and the one rounding; a W8A8 slice quantizes its rows
+    at the whole rows' scales and sums its int32 partials
+    (``_w8a8_row_parallel``)."""
     bias = p.get("bias")
     if "tp_shape" in p and _rows(p) != p["tp_shape"][0]:
-        y = _mesh.all_reduce_sum(_partial_f32(p, x))
+        tp = p["tp_shape"][0] // _rows(p)
+        if "kernel_scale_a8" in p:
+            return _w8a8_row_parallel(p, x, tp)
+        y = _mesh.all_reduce_sum(_partial_f32(p, x), tp)
         return (y if bias is None else y + bias).to(x.dtype)
     if "lora_a" in p and "kernel" not in p:
         # JAX's quantized branches return before its LoRA branch, so an
@@ -376,8 +382,32 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _rows(p: Params) -> int:
-    return p["kernel"].shape[0] if "kernel" in p \
-        else p["kernel_q4p"].shape[0] * 2
+    """The input rows K of a (sliced) projection, whatever its leaves."""
+    if "kernel" in p:
+        return p["kernel"].shape[0]
+    if "kernel_q" in p:
+        return p["kernel_q"].shape[0]
+    if "kernel_q_t" in p:
+        return p["kernel_q_t"].shape[1]
+    return p["kernel_q4p"].shape[0] * 2
+
+
+def _w8a8_row_parallel(p: Params, x: torch.Tensor, tp: int) -> torch.Tensor:
+    """A row-parallel W8A8 slice (JAX ``llama.py:306-322`` on the whole
+    row, which XLA partitions): each row's scale from the largest |x| of
+    the whole row (the rank's row maxima, their max over the model axis),
+    the rank's codes against its rows of the weight in exact int32 sums,
+    those summed over the model axis as integers, then ``* sx * scale_a8
+    (+ bias)`` and one rounding: the one-rank product bit for bit."""
+    w_t = p["kernel_q_t"]
+    K = w_t.shape[1]
+    x2 = x.reshape(-1, K)
+    sums, sx = _w8.w8a8_tp_sums(
+        x2, w_t, lambda m: _mesh.all_reduce_max(m, tp))
+    sums = _mesh.all_reduce_sum(sums, tp)
+    y = _w8.w8a8_finish(sums, sx, p["kernel_scale_a8"], p.get("bias"),
+                        p.get("n_out"), x.dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _int4_kernel_route(p: Params) -> bool:
@@ -395,7 +425,11 @@ def _int4_kernel_route(p: Params) -> bool:
 
 def _partial_f32(p: Params, x: torch.Tensor) -> torch.Tensor:
     """A row-parallel slice's f32 sums x @ W, no bias: the int4 kernel's
-    f32 output, or the dequantized product's f32 sums."""
+    f32 output, or the dequantized product's f32 sums (int4, or int8
+    weight-only: the weight dequantized to x's dtype, as on one rank)."""
+    if "kernel_q" in p:
+        return matmul_f32(x, p["kernel_q"].to(x.dtype)
+                          * p["kernel_scale"].to(x.dtype))
     if "kernel_q4p" in p:
         wp, sc = p["kernel_q4p"], p["kernel_scale4"]
         K, N = wp.shape[0] * 2, wp.shape[1]
@@ -701,7 +735,7 @@ def _moe(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
         h = matmul_f32(g * u, down[j]).to(x.dtype)
         acc = acc + w[..., first + j, None].float() * h.float()
     if gate.shape[0] < cfg.num_experts:
-        acc = _mesh.all_reduce_sum(acc)
+        acc = _mesh.all_reduce_sum(acc, cfg.tp)
     return acc.to(x.dtype)
 
 
@@ -815,7 +849,7 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
     else:
         logits = _proj(lm_head, x).float()
         if "tp_shape" in lm_head:  # a column-parallel head: every logit
-            logits = _mesh.all_gather_last(logits)
+            logits = _mesh.all_gather_last(logits, cfg.tp)
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap:

@@ -11,7 +11,10 @@ BERT-family encoder (``models.bert``, ``encoder_layer``, or
 position tables are cached under the JAX package's byte budget, so the same
 buckets take the same bias formulation.  The W8A8 Spearman guard is the JAX
 package's quality rule: the first batch is scored by both trees, and below
-``w8a8_guard`` the run scores with the unquantized one.
+``w8a8_guard`` the run scores with the unquantized one.  Under ``torchrun``
+each tokenized batch's rows are scored data-parallel over every rank and
+gathered in row order (``mesh.data_rows``), the guard's two scorings too,
+so every rank takes the same decision.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from bergen_tpu_torch.models import bert, convert, deberta
 from bergen_tpu_torch.models.core import length_bucket, make_buckets
 from bergen_tpu_torch.models.rerankers.base import Reranker
 from bergen_tpu_torch.models.tokenizer import Tokenizer
+from bergen_tpu_torch.parallel import mesh
 
 log = logging.getLogger("bergen_tpu_torch.rerank")
 
@@ -97,8 +101,18 @@ class CrossEncoder(Reranker):
         self._table_spent += need
         return tabs
 
-    @torch.inference_mode()
     def _score(self, params, ii, am, tt, tables=None) -> np.ndarray:
+        """[B] f32 scores of one tokenized batch (numpy), its rows split
+        over the data axis and gathered in row order (``mesh.data_rows``,
+        JAX ``crossencoder.py:150-165``)."""
+        return mesh.data_rows(
+            lambda *rows: self._score_rows(params, *rows, tables), ii, am,
+            tt)
+
+    @torch.inference_mode()
+    def _score_rows(self, params, ii, am, tt, tables=None) -> np.ndarray:
+        ii, am, tt = (torch.from_numpy(a).to(self.device)
+                      for a in (ii, am, tt))
         kw = {"pos_tables": tables} if self._deberta else {}
         logits = self._classify(params, self.cfg, ii, am, tt, **kw)
         return logits[:, 0].float().cpu().numpy()
@@ -119,8 +133,6 @@ class CrossEncoder(Reranker):
             am[r, : len(ids)] = 1
             t = enc["token_type_ids"][r][:bucket]
             tt[r, : len(t)] = t
-        ii, am, tt = (torch.from_numpy(a).to(self.device) for a in (ii, am,
-                                                                     tt))
         if self._w8a8_guard_pending:
             self._w8a8_check(ii, am, tt)
         return self._score(self.score_params, ii, am, tt,

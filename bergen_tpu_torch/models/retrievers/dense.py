@@ -10,6 +10,14 @@ asymmetric query encoder work as in the JAX package, and so does
 (``encoder_layer_q``), queries stay unquantized, and the first document
 batch is encoded both ways; below ``w8a8_guard`` mean cosine the run
 encodes its documents unquantized (the JAX package's quality rule).
+
+Under ``torchrun`` the encoder runs data-parallel over every rank, as
+JAX's runs over its mesh (``dense.py:127``, :159-166): each bucketed
+batch is tokenized and padded to its bucket whole, padded to the rank
+count by repeating its last row, each rank encodes its contiguous rows,
+and the embeddings are gathered in rank order (``mesh.data_rows``).  The
+W8A8 guard's two encodes are gathered the same way, so every rank measures
+the same cosine on the same batch and takes the same decision.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from bergen_tpu_torch.models import bert, convert
 from bergen_tpu_torch.models.core import length_bucket, make_buckets
 from bergen_tpu_torch.models.retrievers.base import Retriever
 from bergen_tpu_torch.models.tokenizer import Tokenizer
+from bergen_tpu_torch.parallel import mesh
 
 
 def _load_encoder(model_name: str, dtype, device):
@@ -101,8 +110,14 @@ class DenseRetriever(Retriever):
             am[r, : len(ids)] = 1
         return ii, am
 
-    @torch.inference_mode()
     def _encode_batch(self, params, ii: np.ndarray, am: np.ndarray):
+        """[B, D] f32 embeddings of one tokenized batch, its rows split
+        over the data axis."""
+        return mesh.data_rows(
+            lambda ii, am: self._encode_rows(params, ii, am), ii, am)
+
+    @torch.inference_mode()
+    def _encode_rows(self, params, ii: np.ndarray, am: np.ndarray):
         input_ids = torch.from_numpy(ii).to(self.device)
         mask = torch.from_numpy(am).to(self.device)
         hidden = bert.encode(params, self.cfg, input_ids, mask)

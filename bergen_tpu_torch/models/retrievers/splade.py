@@ -10,7 +10,9 @@ dense [V]; documents are stored fixed-width, their top ``nnz`` terms
 encoder (``query_encoder_name``) encodes the queries, and
 ``quantization="w8a8"`` encodes the documents through the W8A8 layer,
 guarded by a dual encode of the first document batch, as in the JAX
-package.
+package.  Under ``torchrun`` each batch's rows run data-parallel over every
+rank (``mesh.data_rows``), the guard's two encodes gathered alike, so every
+rank takes the same decision.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from bergen_tpu_torch.models.retrievers.base import Retriever
 from bergen_tpu_torch.models.retrievers.dense import _load_encoder
 from bergen_tpu_torch.models.tokenizer import Tokenizer
 from bergen_tpu_torch.ops import sparse as sparse_ops
+from bergen_tpu_torch.parallel import mesh
 
 
 class SpladeRetriever(Retriever):
@@ -81,8 +84,22 @@ class SpladeRetriever(Retriever):
     def embedding_dim(self) -> int:
         return self.cfg.vocab_size
 
-    @torch.inference_mode()
     def _run_batch(self, texts: list[str], params) -> np.ndarray:
+        """[B, V] f32 activations of one batch: tokenized and padded to its
+        bucket whole, its rows split over the data axis
+        (``mesh.data_rows``, JAX ``splade.py:115-125``)."""
+        ii, am = self._tokenize(texts)
+        return mesh.data_rows(
+            lambda ii, am: self._encode_rows(params, ii, am), ii, am)
+
+    @torch.inference_mode()
+    def _encode_rows(self, params, ii: np.ndarray, am: np.ndarray):
+        out = bert.splade_encode(params, self.cfg,
+                                 torch.from_numpy(ii).to(self.device),
+                                 torch.from_numpy(am).to(self.device))
+        return out.cpu().numpy()
+
+    def _tokenize(self, texts: list[str]):
         enc = self.tokenizer(texts, truncation=True, max_length=self.max_len)
         lens = [len(x) for x in enc["input_ids"]]
         bucket = length_bucket(max(lens), self.buckets)
@@ -93,10 +110,7 @@ class SpladeRetriever(Retriever):
             ids = ids[:bucket]
             ii[r, : len(ids)] = ids
             am[r, : len(ids)] = 1
-        out = bert.splade_encode(params, self.cfg,
-                                 torch.from_numpy(ii).to(self.device),
-                                 torch.from_numpy(am).to(self.device))
-        return out.cpu().numpy()
+        return ii, am
 
     def encode(self, texts: list[str], query_or_doc: str) -> np.ndarray:
         """Dense [B, V] f32 sparse-activation vectors, encoded in

@@ -46,6 +46,7 @@ SIGNATURES = {
     "encoder_rowquant": ("encoder_layer_q", [_P, _I, _P, _P, _P] + [_I] * 3
                          + [_P]),
     "encoder_layernorm_q": ("encoder_layer_q", [_P] * 6 + [_I, _I, _F, _P]),
+    "encoder_rowmax": ("encoder_layer_q", [_P, _P, _I, _I, _P]),
     "encoder_qgemm": ("encoder_layer_q", [_P] * 8 + [_I] * 6 + [_P]),
     "bin_topk_bins": ("bin_topk", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "bin_topk_bins_i8": ("bin_topk", [_P] * 5 + [_I] * 5 + [_P]),

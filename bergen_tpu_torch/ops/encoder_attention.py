@@ -52,7 +52,7 @@ HEAD_DIMS = (32, 64)  # head widths the CUDA attention kernel is built for
 ATT_TILE_Q = 128  # encoder_attention's query tile at head width 64
 ACT_IDS = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 _EPI_BIAS, _EPI_BIAS_ACT, _EPI_BIAS_RES = 0, 1, 2
-_QEPI = {"bf16": 0, "res": 1, "act_max": 2}
+_QEPI = {"bf16": 0, "res": 1, "act_max": 2, "s32": 3}
 Q_TILE_M = 128  # the int8 GEMM's output tile rows
 Q_STAGE_K = 128  # int8 k of one stage of its ring
 Q_STEP_K = 32  # k of one s8 wgmma
@@ -663,11 +663,14 @@ def qgemm(a_codes: torch.Tensor, sa: torch.Tensor, w_t: torch.Tensor,
     w_t, sw, bias)`` on a_codes [M, K] and w_t [N, K] int8 with f32 row,
     column and bias vectors, then by ``epi``: "bf16" bf16(v); "res" v + res
     (bf16 or f32 [M, N]) f32; "act_max" (act(v) f32, the rows' largest
-    |act(v)| in each ``Q_TILE_N`` columns [N / Q_TILE_N, M]).  On a CPU
-    tensor the plain version."""
+    |act(v)| in each ``Q_TILE_N`` columns [N / Q_TILE_N, M]); "s32" the
+    exact int32 sums alone (the scales and bias unused).  On a CPU tensor
+    the plain version."""
     if epi not in _QEPI:
         raise ValueError(f"qgemm: epi {epi!r} not in {tuple(_QEPI)}")
     if a_codes.device.type == "cpu":
+        if epi == "s32":
+            return (a_codes.double() @ w_t.double().t()).to(torch.int32)
         v = qgemm_plain(a_codes, sa, w_t, sw, bias, res)
         if epi == "act_max":
             h = act_fn(v, act)
@@ -699,7 +702,8 @@ def _qgemm_cuda(a_codes, sa, w_t, sw, bias, epi: str, act_id: int, res,
     M, K = a_codes.shape
     N, dev = w_t.shape[0], a_codes.device
     out = torch.empty(M, N, device=dev, dtype=torch.bfloat16
-                      if epi == "bf16" else torch.float32)
+                      if epi == "bf16" else torch.int32 if epi == "s32"
+                      else torch.float32)
     maxima = torch.empty(N // Q_TILE_N, M, dtype=torch.float32, device=dev) \
         if epi == "act_max" else None
     _build.check(_build.function("encoder_qgemm")(

@@ -18,6 +18,18 @@ docs in one bin lose one candidate (the JAX kernel's semantics): the
 pipeline's recall guard measures that against an exact host reference.
 ``quantize_bins_int8`` and ``shard_corpus_rows`` make the int8 layout on
 the host (numpy, as JAX), so the codes are JAX's bit for bit.
+
+The row layout lives sharded over the mesh's ``data`` axis, as in JAX
+(``sharded_bin_topk`` :413, ``sharded_exact_topk_rows`` :356,
+``shard_corpus_rows`` :439): the rows pad to a multiple of ``data x BIN``,
+so a rank's first bin is a global bin and the per-bin scales and bin ids
+mean the same on every rank; each rank runs the search on its own rows
+with ``local_valid = clip(valid_n - offset, 0, shard_n)``, and the ranks'
+[Q, k] values and global ids merge in one all-gather
+(``scoring.merge_topk``).  A rank whose shard holds fewer valid bins than
+k (or none) pads its list with (-inf, id 0 + offset), where JAX's local
+``bin_topk`` returns phantom -inf bins past its rows: every finite entry,
+and so every id JAX's merge gives a finite value, is the same.
 """
 
 from __future__ import annotations
@@ -26,8 +38,10 @@ import numpy as np
 import torch
 
 from bergen_tpu_torch.ops import _build
-from bergen_tpu_torch.ops.scoring import (quantize_rows_int8, topk_blocked,
+from bergen_tpu_torch.ops.scoring import (local_rows, merge_topk,
+                                          quantize_rows_int8, topk_blocked,
                                           topk_lowest_index)
+from bergen_tpu_torch.parallel import mesh
 
 BIN = 128
 I32_MIN = -(1 << 31) + 1  # a masked doc's int32 sum in mode 'bin'
@@ -51,30 +65,40 @@ def quantize_bins_int8(x: np.ndarray, bin_: int = BIN):
     return codes[:N], scales
 
 
-def shard_corpus_rows(corpus: np.ndarray, device, granularity: str = "bin"):
-    """Host [N, D] -> the int8 row layout on ``device``: (codes [N', D],
-    scales, per-doc scales [N'], N), N' = N padded with zero rows to whole
-    bins.  ``scales`` is per bin ([N' / 128], granularity 'bin', the fused
-    kernel's fast path) or per doc ([N'], the exact path's layout of
-    ``scoring.shard_corpus``); the per-doc expansion feeds the guard's
-    exact rung (``fused_topk.shard_corpus_rows`` on one device)."""
-    N, D = corpus.shape
-    Np = -(-N // BIN) * BIN
+def shard_corpus_rows(corpus: np.ndarray, device, granularity: str = "bin",
+                      dtype: torch.dtype = torch.int8):
+    """Host [N, D] -> this data rank's rows of the row layout on
+    ``device``, N padded with zero rows to a multiple of ``data x 128``.
+    int8: (codes [N' / data, D], scales, per-doc scales [N' / data], N);
+    ``scales`` is per bin ([N' / data / 128], granularity 'bin', the fused
+    kernel's fast path) or per doc (granularity 'doc', the exact path's
+    layout of ``scoring.shard_corpus``), the per-doc expansion feeding the
+    guard's exact rung.  A float ``dtype``: (rows, N).  The codes and
+    scales are JAX's ``shard_corpus_rows``' for the rank's rows (its bins
+    and rows are whole on every rank)."""
+    rows, N = local_rows(corpus, BIN)
+    if dtype != torch.int8:
+        return torch.from_numpy(rows).to(device, dtype).contiguous(), N
+    return (*rows_int8(rows, device, granularity), N)
+
+
+def rows_int8(rows: np.ndarray, device, granularity: str = "bin"):
+    """(codes, scales, per-doc scales) on ``device`` of rows already laid
+    out (a multiple of ``BIN`` rows, zero rows past the corpus): the int8
+    half of ``shard_corpus_rows``."""
+    per = rows.shape[0]
     if granularity == "bin":
-        codes, scales = quantize_bins_int8(corpus.astype(np.float32))
-        sc = np.zeros((Np // BIN,), dtype=np.float32)
-        sc[: scales.shape[0]] = scales
+        codes, sc = quantize_bins_int8(rows.astype(np.float32))
+        sc = sc.astype(np.float32)
         per_doc = np.repeat(sc, BIN)
     else:
-        codes, scales = (t.numpy() for t in quantize_rows_int8(
-            torch.from_numpy(corpus.astype(np.float32))))
-        sc = np.zeros((Np,), dtype=np.float32)
-        sc[:N] = scales
+        codes, sc = (t.numpy() for t in quantize_rows_int8(
+            torch.from_numpy(rows.astype(np.float32))))
         per_doc = sc
-    rows = np.zeros((Np, D), dtype=np.int8)
-    rows[:N] = codes
-    return (torch.from_numpy(rows).to(device), torch.from_numpy(sc).to(device),
-            torch.from_numpy(per_doc).to(device), N)
+    assert codes.shape[0] == per
+    return (torch.from_numpy(np.ascontiguousarray(codes)).to(device),
+            torch.from_numpy(sc).to(device),
+            torch.from_numpy(per_doc).to(device))
 
 
 def bin_scores_plain(queries: torch.Tensor, corpus: torch.Tensor,
@@ -248,17 +272,41 @@ def bin_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     return v, i
 
 
-def search_int8(queries: torch.Tensor, corpus: torch.Tensor, k: int,
-                valid_n: int, doc_scales: torch.Tensor, method: str):
-    """f32 queries over an int8 corpus: the queries are quantized per row,
-    scored by ``bin_topk`` (method 'fused', per-bin or per-doc scales) or
-    exactly by ``scoring.topk_blocked`` (per-doc scales: JAX's int8
-    ``topk_blocked`` and ``exact_topk_rows``, the guard's rungs), and the
-    values times the query scales after the top-k, as the JAX
-    ``sharded_bin_topk`` / ``sharded_topk`` / ``sharded_exact_topk_rows``
-    do."""
-    q_i8, q_scale = quantize_rows_int8(queries)
-    fn = bin_topk if method == "fused" else topk_blocked
-    v, i = fn(q_i8, corpus, k, valid_n=valid_n, doc_scales=doc_scales)
-    return v * q_scale[:, None], i
+def _sharded(search, queries: torch.Tensor, shard: torch.Tensor, k: int,
+             valid_n: int, doc_scales: torch.Tensor | None):
+    """``search`` (``bin_topk`` or ``topk_blocked``) on this rank's rows
+    at its ``local_valid``, then the merge over the data axis; an int8
+    shard takes f32 queries, quantized per row here, and the values are
+    scaled after the merge (JAX's ``_sharded_fn`` / ``_sharded_exact_fn``)."""
+    per = shard.shape[0]
+    offset = mesh.data_rank() * per
+    local_valid = min(max(valid_n - offset, 0), per)
+    q_scale = None
+    if shard.dtype == torch.int8:
+        queries, q_scale = quantize_rows_int8(queries.float())
+    else:
+        queries = queries.to(shard.dtype).contiguous()
+    v, i = search(queries, shard, k, valid_n=local_valid,
+                  doc_scales=doc_scales)
+    v, gi = merge_topk(v, i + offset, k)
+    if q_scale is not None:
+        v = v * q_scale[:, None]
+    return v, gi
 
+
+def sharded_bin_topk(queries: torch.Tensor, shard: torch.Tensor, k: int,
+                     valid_n: int, doc_scales: torch.Tensor | None = None):
+    """The fused top-k over the corpus sharded over the data axis (JAX's
+    ``sharded_bin_topk``): one ``bin_topk`` (one kernel launch) on each
+    rank's ``shard_corpus_rows`` rows, one merge.  Returns ([Q, k] f32,
+    [Q, k] int64 global ids), the same on every rank."""
+    return _sharded(bin_topk, queries, shard, k, valid_n, doc_scales)
+
+
+def sharded_exact_topk_rows(queries: torch.Tensor, shard: torch.Tensor,
+                            k: int, valid_n: int,
+                            doc_scales: torch.Tensor | None = None):
+    """The exact top-k over the same sharded rows (JAX's
+    ``sharded_exact_topk_rows``, the guard's first rung): ``topk_blocked``
+    on each rank's rows, one merge."""
+    return _sharded(topk_blocked, queries, shard, k, valid_n, doc_scales)

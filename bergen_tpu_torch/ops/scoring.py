@@ -11,6 +11,17 @@ top-k.  The JAX package leaves this path to XLA, so the port leaves it to
 product on the CPU); it is the retrieval path below the fused kernel's
 corpus-size threshold and the recall guard's fallback rung.
 
+The corpus lives sharded over the mesh's ``data`` axis, as in JAX
+(``sharded_topk`` and ``shard_corpus``, :268-380): ``shard_corpus`` pads
+the rows to a multiple of ``data x 128`` and places a rank's contiguous
+N' / data rows (the row layout, where JAX stores them transposed for its
+XLA dot; the ids are the same), and ``sharded_topk`` takes each rank's
+top ``k + pad_total`` unmasked (JAX's static overfetch: the zero pad rows
+score too, and at most ``pad_total`` of them exist), sets the pad
+candidates to -inf, gathers every rank's [Q, k2] values and global ids in
+rank order (``merge_topk``) and takes the top k, ties to the lowest joined
+place, as ``lax.top_k`` does.  At world 1 it is the one-device search.
+
 ``pallas_score`` is the counterpart of the JAX package's ``pallas_score``
 (:58), a tiled bf16 Q . C^T with f32 output over a pre-transposed corpus:
 the hand-written kernel of ``csrc/score.cu`` on the card,
@@ -20,9 +31,11 @@ only when ``_use_pallas()`` is true, and that is never: no path takes it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from bergen_tpu_torch.ops import _build
+from bergen_tpu_torch.parallel import mesh
 
 SCORE_ALIGN = 8  # TMA's 16-byte rows: D and N in multiples of 8 bf16
 
@@ -162,3 +175,69 @@ def topk_blocked(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                           dim=1)
         run_i = torch.cat([run_i, run_i.new_zeros((Q, pad))], dim=1)
     return run_v, run_i
+
+
+# --------------------------------------------------------------------------- #
+# the corpus sharded over the mesh's data axis (JAX scoring.py:268-380)
+# --------------------------------------------------------------------------- #
+
+SHARD_ALIGN = 128  # rows a shard's length is a multiple of (JAX's pad)
+
+
+def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """Every data rank's [Q, k2] (values, global ids) joined along dim 1 in
+    rank order (one all-gather each) and the top min(k, joined) taken, ties
+    to the lowest joined place, as JAX's merge ``lax.top_k`` breaks them."""
+    av = mesh.all_gather_rows(vals, dim=1)
+    ai = mesh.all_gather_rows(ids, dim=1)
+    mv, mi = topk_lowest_index(av, min(k, av.shape[1]))
+    return mv, torch.gather(ai, 1, mi)
+
+
+def local_rows(corpus: np.ndarray, align: int = SHARD_ALIGN):
+    """(this data rank's rows of ``corpus`` padded with zero rows to a
+    multiple of ``data x align`` [N' / data, ...], N)."""
+    N = corpus.shape[0]
+    Np, lo, per = mesh.data_shard(N, align)
+    out = np.zeros((per,) + corpus.shape[1:], dtype=corpus.dtype)
+    hi = min(N, lo + per)
+    if hi > lo:
+        out[:hi - lo] = corpus[lo:hi]
+    return out, N
+
+
+def shard_corpus(corpus: np.ndarray, device, dtype=torch.float32):
+    """Host [N, D] -> this data rank's rows on ``device``, N padded to a
+    multiple of ``data x 128`` (JAX's ``shard_corpus``): (rows [N' / data,
+    D] in ``dtype``, N), or for int8 (per-doc codes, their scales [N' /
+    data] f32, N), the codes and scales JAX's ``quantize_rows_int8`` gives
+    the whole corpus (a row's quantization is its own)."""
+    rows, N = local_rows(corpus)
+    if dtype == torch.int8:
+        codes, scales = quantize_rows_int8(
+            torch.from_numpy(rows.astype(np.float32)))
+        return codes.to(device), scales.to(device), N
+    return torch.from_numpy(rows).to(device, dtype).contiguous(), N
+
+
+def sharded_topk(queries: torch.Tensor, shard: torch.Tensor, k: int,
+                 valid_n: int, doc_scales: torch.Tensor | None = None,
+                 block: int = 1 << 17):
+    """JAX's ``sharded_topk`` on this rank's ``shard_corpus`` rows:
+    ([Q, k] f32 values, [Q, k] int64 global doc ids), the same on every
+    rank.  An int8 shard takes f32 queries, quantized per row here, and
+    its per-doc ``doc_scales``; the values are scaled after the merge."""
+    per = shard.shape[0]
+    N = per * mesh.data_world()
+    pad_total = min(N - valid_n, per - 1)
+    q_scale = None
+    if shard.dtype == torch.int8:
+        queries, q_scale = quantize_rows_int8(queries.float())
+    v, i = topk_blocked(queries, shard, k + pad_total, block=min(block, per),
+                        doc_scales=doc_scales)
+    gi = i + mesh.data_rank() * per
+    v = torch.where(gi < valid_n, v, float("-inf"))
+    v, gi = merge_topk(v, gi, k)
+    if q_scale is not None:
+        v = v * q_scale[:, None]
+    return v, gi

@@ -15,9 +15,12 @@ dense [Q, V] queries, keeping a running top-k, as the JAX function does:
 
 The JAX package leaves both products to XLA outside any Pallas kernel, so
 the port leaves them to plain PyTorch.  ``shard_sparse_corpus`` and
-``search_sparse`` are the one-device counterparts of JAX's
-``shard_sparse_corpus`` and ``sharded_sparse_topk``; the corpus pads to
-whole 128-doc bins, so its rows line up with a ``SketchIndex``'s.
+``search_sparse`` are JAX's ``shard_sparse_corpus`` and
+``sharded_sparse_topk`` (:151-250): the rows pad to a multiple of ``data
+x 128`` (so they line up with a ``SketchIndex``'s), a rank holds its
+contiguous N' / data of them, takes its top k unmasked, sets the pad rows'
+candidates to -inf and merges with the other ranks in one all-gather
+(``scoring.merge_topk``).
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ import numpy as np
 import torch
 
 from bergen_tpu_torch.ops.fused_topk import BIN
-from bergen_tpu_torch.ops.scoring import (quantize_rows_int8, score_int8,
+from bergen_tpu_torch.ops.scoring import (local_rows, merge_topk,
+                                          quantize_rows_int8, score_int8,
                                           topk_lowest_index)
+from bergen_tpu_torch.parallel import mesh
 
 INT8_ALIGN = 8  # torch._int_mm's inner and outer widths
 
@@ -128,20 +133,20 @@ def sparse_topk_blocked(q_dense: torch.Tensor, doc_vals: torch.Tensor,
 def search_sparse(q_dense: torch.Tensor, doc_vals: torch.Tensor,
                   doc_idx: torch.Tensor, k: int, vocab: int, valid_n: int,
                   block: int = 8192, doc_scales: torch.Tensor | None = None):
-    """The one-device ``sharded_sparse_topk``: the blocked top-k over the
-    padded corpus, rows at or past ``valid_n`` then -inf and the k re-ranked
-    (stable), as JAX masks each shard's top-k before its merge.  An int8
-    corpus quantizes the f32 queries per row and scales the values after
-    the top-k."""
+    """JAX's ``sharded_sparse_topk`` on this rank's ``shard_sparse_corpus``
+    rows: the blocked top-k over them, global ids at or past ``valid_n``
+    then -inf, and the merge over the data axis (at world 1, the k
+    re-ranked, stable).  An int8 corpus quantizes the f32 queries per row
+    and scales the values after the merge."""
     q_scale = None
     if doc_vals.dtype == torch.int8:
         q_dense, q_scale = quantize_rows_int8(q_dense.float())
+    per = doc_vals.shape[0]
     v, i = sparse_topk_blocked(q_dense, doc_vals, doc_idx, k, vocab,
-                               block=min(block, doc_vals.shape[0]),
-                               doc_scales=doc_scales)
+                               block=min(block, per), doc_scales=doc_scales)
+    i = i + mesh.data_rank() * per
     v = torch.where(i < valid_n, v, float("-inf"))
-    v, sel = topk_lowest_index(v, k)
-    i = torch.gather(i, 1, sel)
+    v, i = merge_topk(v, i, k)
     if q_scale is not None:
         v = v * q_scale[:, None]
     return v, i
@@ -149,19 +154,17 @@ def search_sparse(q_dense: torch.Tensor, doc_vals: torch.Tensor,
 
 def shard_sparse_corpus(vals: np.ndarray, idx: np.ndarray, device,
                         dtype: torch.dtype = torch.float32):
-    """Host fixed-width corpus -> ``device``, the doc rows padded with zeros
-    to whole 128-doc bins.  A float ``dtype`` gives (vals, idx, N); int8
-    gives (codes, idx, scales [N'], N) with per-doc codes
-    (``quantize_sparse_int8``)."""
-    N = vals.shape[0]
-    Np = -(-N // BIN) * BIN
+    """Host fixed-width corpus -> this data rank's rows on ``device``, the
+    doc rows padded with zeros to a multiple of ``data x 128``.  A float
+    ``dtype`` gives (vals, idx, N); int8 gives (codes, idx, scales [N' /
+    data], N) with per-doc codes (``quantize_sparse_int8``, a row's own)."""
+    vals, N = local_rows(np.asarray(vals), BIN)
+    idx, _ = local_rows(np.asarray(idx, np.int32), BIN)
     int8 = dtype == torch.int8
     if int8:
         vals, scales = quantize_sparse_int8(vals)
-    pad = ((0, Np - N), (0, 0))
-    vals_dev = torch.from_numpy(np.pad(vals, pad)).to(device, dtype)
-    idx_dev = torch.from_numpy(np.pad(idx.astype(np.int32), pad)).to(device)
+    vals_dev = torch.from_numpy(vals).to(device, dtype)
+    idx_dev = torch.from_numpy(idx).to(device)
     if int8:
-        sc = torch.from_numpy(np.pad(scales, (0, Np - N))).to(device)
-        return vals_dev, idx_dev, sc, N
+        return vals_dev, idx_dev, torch.from_numpy(scales).to(device), N
     return vals_dev, idx_dev, N

@@ -14,8 +14,14 @@ PyTorch port's counterpart of ``bergen_tpu/ops/sparse_sketch.py``).
    masked or padded slots come back -inf with meaningless ids; their mask
    (``cand_ok``) is carried through the rescore, so no doc fills two places.
 
-The JAX engine nominates candidates per mesh shard and merges over the
-mesh; the port runs on one device (one shard).
+4. **Merge** (JAX :173-300): the corpus is sharded over the mesh's
+   ``data`` axis (both row sets padded to a multiple of ``data x 128``,
+   a rank holding its contiguous N' / data rows of each); each rank
+   nominates and rescores its own candidates, with its rows' global ids,
+   and the ranks' top k merge in one all-gather (``scoring.merge_topk``).
+   The doc sketches are a row's own, so a rank sketches only its rows;
+   the cache of the whole corpus's is read by every rank where it exists
+   and written by a one-rank run.
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ import numpy as np
 import torch
 
 from bergen_tpu_torch.ops import fused_topk
-from bergen_tpu_torch.ops.scoring import quantize_rows_int8, topk_lowest_index
+from bergen_tpu_torch.ops.scoring import (local_rows, merge_topk,
+                                          quantize_rows_int8,
+                                          topk_lowest_index)
+from bergen_tpu_torch.parallel import mesh
 
 
 def sketch_map(vocab: int, d: int, seed: int = 0,
@@ -122,9 +131,9 @@ def rescore_candidates(q_dense: torch.Tensor, cand: torch.Tensor,
 
 
 class SketchIndex:
-    """Device-resident SPLADE corpus: the int8 sketch rows (stage 1) and the
-    fixed-width sparse rows (stage 2), padded alike to whole 128-doc
-    bins."""
+    """Device-resident SPLADE corpus, this data rank's rows of it: the int8
+    sketch rows (stage 1) and the fixed-width sparse rows (stage 2), padded
+    alike to a multiple of ``data x 128`` rows."""
 
     def __init__(self, vals: np.ndarray, idx: np.ndarray, vocab: int,
                  device, d: int = 1024, candidates: int = 512, seed: int = 0,
@@ -147,49 +156,56 @@ class SketchIndex:
             np.bitwise_xor.reduce(self.bucket.view(np.uint32).astype(
                 np.uint64) * np.uint64(0x9E3779B97F4A7C15))
             ^ np.uint64((self.sign < 0).sum())))
+        _, lo, per = mesh.data_shard(N, fused_topk.BIN)
+        hi = max(lo, min(N, lo + per))
         sk = None
         if cache_path is not None:
             cache_path = cache_path.replace(".npy", f"_{map_tag:016x}.npy")
             if os.path.exists(cache_path):
-                sk = np.load(cache_path)
+                sk = np.load(cache_path, mmap_mode="r")
                 if sk.shape != (N, d):
                     sk = None
-        if sk is None:
-            sk = sketch_docs(vals, idx, self.bucket, self.sign, d)
-            if cache_path is not None:
+            if sk is None and mesh.data_world() == 1:
+                sk = sketch_docs(vals, idx, self.bucket, self.sign, d)
                 np.save(cache_path, sk)
-        self.sk_dev, self.sk_scales, _, _ = fused_topk.shard_corpus_rows(
-            sk, device)
-        Np = self.sk_dev.shape[0]
+        # a row's sketch is its own: without the cache, this rank's rows
+        local = np.zeros((per, d), np.float32)
+        local[:hi - lo] = sk[lo:hi] if sk is not None else sketch_docs(
+            vals[lo:hi], idx[lo:hi], self.bucket, self.sign, d)
+        self.sk_dev, self.sk_scales, _ = fused_topk.rows_int8(local, device)
         if vals_dev is not None and idx_dev is not None \
-                and vals_dev.shape[0] == Np:
+                and vals_dev.shape[0] == per:
             self.vals_dev, self.idx_dev = vals_dev, idx_dev
         else:
             # bf16 values, as JAX stores them on any backend
-            pad = ((0, Np - N), (0, 0))
-            self.vals_dev = torch.from_numpy(np.pad(vals, pad)).to(
-                device, torch.bfloat16)
-            self.idx_dev = torch.from_numpy(
-                np.pad(idx.astype(np.int32), pad)).to(device)
+            self.vals_dev = torch.from_numpy(
+                local_rows(np.asarray(vals), fused_topk.BIN)[0]).to(
+                    device, torch.bfloat16)
+            self.idx_dev = torch.from_numpy(local_rows(
+                np.asarray(idx, np.int32), fused_topk.BIN)[0]).to(device)
 
     def search(self, q_dense: np.ndarray, k: int, q_block: int = 128
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[Q, V] dense queries -> exact-rescored ([Q, k'] f32 scores,
-        [Q, k'] int64 ids), k' = min(k, candidates)."""
+        [Q, k'] int64 global ids), k' = min(k, data x candidates a rank),
+        the same on every rank."""
         qs = sketch_queries(q_dense, self.bucket, self.sign, self.d)
         q_i8, _ = quantize_rows_int8(torch.from_numpy(qs).to(self.device))
-        Np = self.sk_dev.shape[0]
-        cand = max(k, min(self.candidates, Np))
-        cv1, cidx = fused_topk.bin_topk(q_i8, self.sk_dev, cand,
-                                        valid_n=self.valid_n,
-                                        doc_scales=self.sk_scales)
+        per = self.sk_dev.shape[0]
+        offset = mesh.data_rank() * per
+        cand = max(k, min(self.candidates, per))
+        cv1, cidx = fused_topk.bin_topk(
+            q_i8, self.sk_dev, cand,
+            valid_n=min(max(self.valid_n - offset, 0), per),
+            doc_scales=self.sk_scales)
         # masked or padded slots are -inf, their ids meaningless
         cand_ok = cv1 > float("-inf")
-        cidx = cidx.clamp(0, Np - 1)
+        cidx = cidx.clamp(0, per - 1)
         q32 = torch.from_numpy(np.asarray(q_dense, np.float32)).to(
             self.device)
         s = rescore_candidates(q32, cidx, self.vals_dev, self.idx_dev,
                                q_block)
-        s = torch.where(cand_ok & (cidx < self.valid_n), s, float("-inf"))
+        gid = cidx + offset
+        s = torch.where(cand_ok & (gid < self.valid_n), s, float("-inf"))
         v, i = topk_lowest_index(s, min(k, cand))
-        return v, torch.gather(cidx, 1, i)
+        return merge_topk(v, torch.gather(gid, 1, i), k)

@@ -9,7 +9,7 @@ PyTorch port's counterpart of ``bergen_tpu/ops/sparse_slab.py``).
 * **Stage 1**: the slab is an int8 row-layout corpus with per-doc scales,
   so queries take the fused top-k on the card (``fused_topk.bin_topk``,
   mode 'doc': the CUDA kernel), and the exact int8 top-k over the same
-  codes elsewhere (``fused_topk.search_int8`` method 'exact', JAX's
+  codes elsewhere (``fused_topk.sharded_exact_topk_rows``, JAX's
   ``exact_topk_rows``).  Stage 1 nominates ``rescore * k`` candidates.
 * **Stage 2**: the candidates are rescored exactly from the fixed-width
   corpus on the host by ``native/rescore/rescore.cpp``, built with g++
@@ -17,6 +17,15 @@ PyTorch port's counterpart of ``bergen_tpu/ops/sparse_slab.py``).
   failed build raises).  On the card the query batch is cut into chunks
   whose stage 1 is queued up front, so the card scores chunk j + 1 while
   the host rescores chunk j.
+
+The slab lives sharded over the mesh's ``data`` axis, as in JAX
+(:228-340): its rows pad to a multiple of ``data x 128``, a rank holds its
+contiguous N' / data rows (a row's codes and scale are its own, so without
+the cache a rank builds only its rows; the cache of the whole is read by
+every rank where it exists and written by a one-rank run), stage 1 is ``fused_topk.sharded_bin_topk`` (mode 'doc') or
+``sharded_exact_topk_rows`` on each rank's rows with one merge, and the
+host rescore runs where JAX runs it, on the merged candidates, on rank 0,
+which then hands the result to every rank.
 
 Stage 1 pads with (-inf, id 0) when the candidates outnumber the corpus's
 bins.  JAX's search treats every id below ``valid_n`` as a doc, so each
@@ -39,6 +48,7 @@ import torch
 from bergen_tpu_torch.ops import _build, fused_topk
 from bergen_tpu_torch.ops.fused_topk import BIN
 from bergen_tpu_torch.ops.sparse_sketch import sketch_map, term_impact_mass
+from bergen_tpu_torch.parallel import mesh
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESCORE_SRC = os.path.join(os.path.dirname(_PKG), "native", "rescore",
@@ -185,8 +195,9 @@ def queries_to_slab(q_dense: np.ndarray, bucket: np.ndarray,
 
 
 class SlabIndex:
-    """Device-resident wide-slab SPLADE corpus: int8 codes and per-doc
-    scales, padded with zero rows to whole 128-doc bins."""
+    """Device-resident wide-slab SPLADE corpus, this data rank's rows of
+    it: int8 codes and per-doc scales, padded with zero rows to a multiple
+    of ``data x 128`` rows."""
 
     def __init__(self, vals: np.ndarray, idx: np.ndarray, vocab: int,
                  device, d: int | None = None, head_frac: float = 0.8,
@@ -212,6 +223,8 @@ class SlabIndex:
         if self.col_scale is not None:
             tag_src += self.col_scale.tobytes()
         map_tag = zlib.crc32(tag_src) | (len(tag_src) << 32)
+        _, lo, per = mesh.data_shard(N, BIN)
+        hi = max(lo, min(N, lo + per))
         codes = scales = None
         if cache_path is not None:
             cache_path = cache_path.replace(".npz", "") \
@@ -219,28 +232,33 @@ class SlabIndex:
             if os.path.exists(cache_path):
                 with np.load(cache_path) as z:
                     if z["codes"].shape == (N, d):
-                        codes, scales = z["codes"], z["scales"]
-        if codes is None:
-            codes, scales = build_slab_int8(vals, idx, self.bucket,
-                                            self.sign, d,
-                                            col_scale=self.col_scale)
-            if cache_path is not None:
+                        codes, scales = z["codes"][lo:hi], z["scales"][lo:hi]
+            if codes is None and mesh.data_world() == 1:
+                codes, scales = build_slab_int8(vals, idx, self.bucket,
+                                                self.sign, d,
+                                                col_scale=self.col_scale)
                 np.savez(cache_path, codes=codes, scales=scales)
+                codes, scales = codes[lo:hi], scales[lo:hi]
+        if codes is None:  # a row's codes are its own: this rank's rows
+            codes, scales = build_slab_int8(vals[lo:hi], idx[lo:hi],
+                                            self.bucket, self.sign, d,
+                                            col_scale=self.col_scale)
         # the fused kernel's bin granularity; the codes are final (passing
         # them through shard_corpus_rows would quantize them again)
-        Np = -(-N // BIN) * BIN
-        self.codes_dev = torch.zeros(Np, d, dtype=torch.int8,
+        self.codes_dev = torch.zeros(per, d, dtype=torch.int8,
                                      device=self.device)
-        self.codes_dev[:N] = torch.from_numpy(codes).to(self.device)
-        self.scales_dev = torch.zeros(Np, dtype=torch.float32,
+        self.codes_dev[:hi - lo] = torch.from_numpy(
+            np.ascontiguousarray(codes)).to(self.device)
+        self.scales_dev = torch.zeros(per, dtype=torch.float32,
                                       device=self.device)
-        self.scales_dev[:N] = torch.from_numpy(scales).to(self.device)
+        self.scales_dev[:hi - lo] = torch.from_numpy(
+            np.ascontiguousarray(scales)).to(self.device)
 
     def _stage1(self, qs: np.ndarray, c: int, fused: bool):
         q = torch.from_numpy(qs).to(self.device)
-        return fused_topk.search_int8(q, self.codes_dev, c, self.valid_n,
-                                      self.scales_dev,
-                                      "fused" if fused else "exact")
+        fn = (fused_topk.sharded_bin_topk if fused
+              else fused_topk.sharded_exact_topk_rows)
+        return fn(q, self.codes_dev, c, self.valid_n, self.scales_dev)
 
     def search(self, q_dense: np.ndarray, k: int, fused: bool | None = None,
                rescore: int = 4, pipeline_chunks: int | None = None
@@ -253,7 +271,9 @@ class SlabIndex:
         nominates ``rescore * k`` candidates and rescores them exactly; 0
         returns stage 1's slab scores.  ``pipeline_chunks`` (default 4 when
         rescoring a batch of at least 512 that 4 divides, else 1) cuts the
-        batch for the card / host overlap."""
+        batch for the card / host overlap.  Under a data axis of several
+        ranks every rank runs stage 1, rank 0 alone rescores, and every
+        rank returns rank 0's result."""
         if fused is None:
             fused = self.device.type == "cuda"
         c = min(max(k, rescore * k), self.valid_n) if rescore else k
@@ -286,6 +306,8 @@ class SlabIndex:
                 pending.append((hv, hi, done))
             else:
                 pending.append((v, i, None))
+        if mesh.data_rank() != 0:
+            return mesh.broadcast_object(None)
         q32 = np.asarray(q_dense, np.float32)
         out_s = np.empty((Q, k), np.float32)
         out_i = np.empty((Q, k), np.int64)
@@ -303,4 +325,4 @@ class SlabIndex:
             order = np.argsort(-s, axis=1, kind="stable")[:, :k]
             out_s[s0:s0 + step] = np.take_along_axis(s, order, axis=1)
             out_i[s0:s0 + step] = np.take_along_axis(cand, order, axis=1)
-        return out_s, out_i
+        return mesh.broadcast_object((out_s, out_i))

@@ -1,23 +1,38 @@
-"""Process groups for tensor parallelism (the PyTorch port's counterpart of
-``bergen_tpu/parallel/mesh.py``).
+"""Process groups for the ``('data', 'model')`` grid (the PyTorch port's
+counterpart of ``bergen_tpu/parallel/mesh.py``).
 
 The JAX package puts every device of one host in a ``('data', 'model')``
 mesh and lets XLA insert the collectives.  The port runs one process per
 card, launched by ``torchrun``, which sets ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK``: ``init`` joins those processes into one
 ``torch.distributed`` group (NCCL on the cards, each rank on
-``cuda:LOCAL_RANK``; gloo on the CPU), ``get_mesh`` checks the
-``('data', 'model')`` grid asked for with JAX's asserts, and the
-collectives below run over the ``model`` axis, where the generator's
-tensor-parallel products meet.  Only the grid of one ``model`` row that
-spans every rank is ported: the ``data`` axis is ROADMAP.md Queue 1 #10,
-part 2.
+``cuda:LOCAL_RANK``; gloo on the CPU), and ``get_mesh(data, model)``
+builds JAX's grid over them with JAX's asserts: ``devices.reshape(data,
+model)``, so model row ``d`` is ranks ``d * model ... d * model + model -
+1`` and data column ``m`` the ranks with ``rank % model == m``.  Each grid
+carries one process group for its rank's model row and one for its data
+column (``dist.new_group``: every group made on every rank, in the same
+order, the first time the grid is asked for).
 
-Without a ``torchrun`` environment the world is 1: no process group is
-made and every path runs as in one process.  Placing every rank on one
-card (``device='cuda:0'``) needs ``backend='gloo'`` from the caller; NCCL
-refuses two ranks on one device, and ``init`` raises rather than fall back.
-On gloo a collective on a CUDA tensor moves through host memory.
+Two kinds of collective run over them:
+
+* over the ``model`` axis, where the generator's tensor-parallel products
+  meet (``all_reduce_sum``, ``all_reduce_max``, ``all_gather_last``): the
+  rank's model row of the grid whose model axis is ``tp``;
+* over the ``data`` axis of ``get_mesh()`` (data = every rank), where the
+  encoders, the reranker and the retrieval engines run data-parallel:
+  ``all_gather_rows`` (equal shards joined in rank order), ``data_rows``
+  (a batch padded to the ranks, each rank's contiguous rows run, the
+  outputs gathered), ``data_shard`` (a rank's rows of a padded corpus) and
+  ``broadcast_object``.
+
+A grid with ``data * model`` below the world passes JAX's assert, but no
+call site builds one: it raises.  Without a ``torchrun`` environment the
+world is 1: no process group is made and every path runs as in one
+process.  Placing every rank on one card (``device='cuda:0'``) needs
+``backend='gloo'`` from the caller; NCCL refuses two ranks on one device,
+and ``init`` raises rather than fall back.  On gloo a collective on a CUDA
+tensor moves through host memory.
 """
 
 from __future__ import annotations
@@ -25,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -35,18 +51,32 @@ from bergen_tpu_torch import device as _device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the ``('data', 'model')`` grid (one ``model`` row
-    of every rank): ``rank`` and ``world`` over all processes, its device
-    and the process group's backend."""
+    """One rank's view of a ``('data', 'model')`` grid: ``rank`` and
+    ``world`` over all processes, its device, the process group's backend,
+    and the groups of its model row and data column (None: the whole
+    world, or the rank alone where that axis has size 1)."""
     data: int
     model: int
     rank: int
     world: int
     device: torch.device
     backend: str | None = None
+    model_group: Any = None
+    data_group: Any = None
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's place along the data axis (its model row)."""
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's place along the model axis (its data column)."""
+        return self.rank % self.model
 
 
 _WORLD: Mesh | None = None   # set by init when the world is larger than 1
+_GRIDS: dict = {}            # (data, model) -> this rank's Mesh
 
 
 def world_size() -> int:
@@ -99,7 +129,8 @@ def init(device=None, backend: str | None = None,
          init_method: str | None = None, rank: int | None = None,
          world: int | None = None,
          timeout: datetime.timedelta | None = None) -> Mesh:
-    """This rank's ``Mesh`` over every process (a one-row grid: data 1).
+    """This rank's ``Mesh`` over every process (the grid of one model row
+    of every rank).
 
     World 1 (no ``torchrun`` environment, no arguments): no process group,
     the device resolved as every entry point resolves it.  Otherwise the
@@ -120,8 +151,9 @@ def init(device=None, backend: str | None = None,
         if backend == "nccl" and dev.type != "cuda":
             raise ValueError("an NCCL process group with CPU ranks")
     else:
-        # the other ranks wait in a collective while rank 0 runs the stages
-        # before generation (rag.py), which can take hours at scale
+        # the other ranks wait in a collective while rank 0 alone runs a
+        # host stage (dataset or context processing, rag.py), which can
+        # take hours at scale
         dist.init_process_group(
             backend, init_method=init_method or "env://", rank=rank,
             world_size=world, timeout=timeout or datetime.timedelta(hours=12))
@@ -134,54 +166,148 @@ def init(device=None, backend: str | None = None,
 def get_mesh(data: int | None = None, model: int = 1) -> Mesh:
     """The ``('data', 'model')`` grid over every rank, with JAX's asserts
     (``bergen_tpu/parallel/mesh.py:26-40``): ``data=None`` takes every
-    rank over ``model``.  Only one ``model`` row of every rank is ported;
-    any other grid raises."""
+    rank over ``model``.  The first call for a grid makes its groups, so
+    every rank makes it, in the same order; a grid that leaves ranks out
+    raises.  At world 1 (no process group) the one-rank grid, its device
+    unresolved."""
+    if _WORLD is None and world_size() == 1:
+        assert model == 1 and data in (None, 1), \
+            f"mesh {data}x{model} > 1 ranks"
+        return Mesh(1, 1, 0, 1, None)
     base = init()
     n = base.world
     if data is None:
         assert n % model == 0, f"{n} ranks not divisible by model={model}"
         data = n // model
     assert data * model <= n, f"mesh {data}x{model} > {n} ranks"
-    if (data, model) != (1, n):
+    if data * model != n:
         raise NotImplementedError(
-            f"a {data}x{model} grid over {n} ranks: only one model row of "
-            "every rank is ported; the data axis is ROADMAP.md Queue 1 #10, "
-            "multi-GPU")
-    return base
+            f"a {data}x{model} grid over {n} ranks leaves ranks out of the "
+            "mesh; no call site builds one (ROADMAP.md Queue 1 #10, "
+            "multi-GPU)")
+    if model == n:
+        return base
+    if (data, model) not in _GRIDS:
+        _GRIDS[data, model] = _grid(base, data, model)
+    return _GRIDS[data, model]
 
 
-def _model_axis() -> Mesh:
+def _grid(base: Mesh, data: int, model: int) -> Mesh:
+    """``base``'s rank in a ``data x model`` grid of every rank: one group
+    a model row and one a data column (the whole world for data = world),
+    each made on every rank in the same order."""
+    rows = [dist.new_group(list(range(d * model, (d + 1) * model)))
+            for d in range(data)] if model > 1 else [None] * data
+    cols = [dist.new_group(list(range(m, data * model, model)))
+            for m in range(model)] if model > 1 else [None]
+    r = base.rank
+    return Mesh(data, model, r, base.world, base.device, base.backend,
+                rows[r // model], cols[r % model])
+
+
+def _model_axis(tp: int | None) -> Mesh:
+    """The grid whose model axis is ``tp`` (None: the world's one row)."""
     if _WORLD is None:
         raise RuntimeError("no process group: the collectives run on a "
                            "world of ranks (mesh.init under torchrun)")
-    return _WORLD
+    return _WORLD if tp is None or tp == _WORLD.world else get_mesh(model=tp)
 
 
 def _through_host(t: torch.Tensor, m: Mesh) -> bool:
     return m.backend == "gloo" and t.is_cuda
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ``model`` axis, in place (every rank holds the
-    same sum); returns ``t``."""
-    m = _model_axis()
+def _on_backend(t: torch.Tensor, m: Mesh) -> torch.Tensor:
+    """``t`` where the backend takes it: host memory on gloo, the rank's
+    card on NCCL."""
     if _through_host(t, m):
-        host = t.cpu()
-        dist.all_reduce(host)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t)
+        return t.contiguous().cpu()
+    if m.backend == "nccl" and not t.is_cuda:
+        return t.contiguous().to(m.device)
+    return t.contiguous()
+
+
+def _all_reduce(t: torch.Tensor, op, tp: int | None) -> torch.Tensor:
+    m = _model_axis(tp)
+    src = _on_backend(t, m)
+    dist.all_reduce(src, op=op, group=m.model_group)
+    if src.data_ptr() != t.data_ptr():
+        t.copy_(src)
     return t
 
 
-def all_gather_last(t: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, tp: int | None = None) -> torch.Tensor:
+    """``t`` summed over the ``model`` axis of the grid of model ``tp``
+    (default: one row of every rank), in place (every rank of the row holds
+    the same sum); returns ``t``."""
+    return _all_reduce(t, dist.ReduceOp.SUM, tp)
+
+
+def all_reduce_max(t: torch.Tensor, tp: int | None = None) -> torch.Tensor:
+    """``t``'s largest values over the ``model`` axis of the grid of model
+    ``tp`` (exact: a max has no order), in place; returns ``t``."""
+    return _all_reduce(t, dist.ReduceOp.MAX, tp)
+
+
+def all_gather_last(t: torch.Tensor, tp: int | None = None) -> torch.Tensor:
     """Every ``model`` rank's ``t`` joined along the last dimension, in
     rank order."""
-    m = _model_axis()
-    src = t.contiguous().cpu() if _through_host(t, m) else t.contiguous()
+    m = _model_axis(tp)
+    src = _on_backend(t, m)
     parts = [torch.empty_like(src) for _ in range(m.model)]
-    dist.all_gather(parts, src)
+    dist.all_gather(parts, src, group=m.model_group)
     return torch.cat(parts, dim=-1).to(t.device)
+
+
+def data_world() -> int:
+    """The ranks of ``get_mesh()``'s data axis: every rank."""
+    return world_size() if _WORLD is not None or dist.is_initialized() \
+        else 1
+
+
+def data_rank() -> int:
+    """This rank's place on ``get_mesh()``'s data axis."""
+    return rank() if data_world() > 1 else 0
+
+
+def all_gather_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every data rank's ``t`` (equal shapes) joined along ``dim`` in rank
+    order, on ``t``'s device; ``t`` itself at world 1."""
+    if data_world() == 1:
+        return t
+    m = get_mesh()
+    src = _on_backend(t, m)
+    parts = [torch.empty_like(src) for _ in range(m.data)]
+    dist.all_gather(parts, src, group=m.data_group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def data_shard(n_rows: int, align: int = 1) -> tuple[int, int, int]:
+    """(padded rows N', this rank's first row, its row count) of ``n_rows``
+    padded to a multiple of ``data x align`` (JAX's corpus layouts), each
+    data rank holding N' / data contiguous rows."""
+    n = data_world()
+    Np = -(-n_rows // (n * align)) * n * align
+    per = Np // n
+    return Np, data_rank() * per, per
+
+
+def data_rows(fn, *arrays: np.ndarray) -> np.ndarray:
+    """``fn(*rows)`` data-parallel over every rank, as the JAX encoders
+    shard a batch: the arrays' leading dimension padded to the rank count
+    by repeating the last row (``pad_batch_to_devices``), each rank
+    running ``fn`` on its contiguous B' / world rows, and the outputs
+    (numpy, rows first) gathered in rank order and cut back to B.  At
+    world 1, ``fn(*arrays)``."""
+    n = data_world()
+    if n == 1:
+        return fn(*arrays)
+    padded = [pad_batch_to_devices(a, n)[0] for a in arrays]
+    B = arrays[0].shape[0]
+    per = padded[0].shape[0] // n
+    lo = data_rank() * per
+    out = np.ascontiguousarray(fn(*(a[lo:lo + per] for a in padded)))
+    return all_gather_rows(torch.from_numpy(out)).numpy()[:B]
 
 
 def broadcast_object(obj, src: int = 0):

@@ -36,6 +36,18 @@ its own (``convert.stack``).  Attention is sliced as for llama;
 a MoE layer has no ``mlp`` node, and its ``intermediate_size`` (an
 expert's width) is not divided.
 
+An int8 or W8A8 leaf (``convert.quantize_tree_int8``: ``kernel_q`` [K,
+N] and the per-column ``kernel_scale`` or ``kernel_scale_a8``; or
+``convert.prepare_w8a8``'s ``kernel_q_t`` [N', K] with the scales and bias
+padded to N' and ``n_out`` = N) is sliced as its dense kernel would be:
+by columns the codes, scales and bias (a W8A8 slice re-padded to whole
+128-column tiles of its own N / tp), by rows the codes alone, each
+column's scale whole.  The scale spans the whole column (JAX quantizes the
+whole tree, ``bergen_tpu/models/convert.py:427``), so a slice of a
+quantized tree is what ``quantize_tree_int8`` gives on the slice of the
+dense tree, which takes the column maxima over the model axis for a
+row-parallel slice.
+
 A packed int4 slice launches the int4 kernel wherever the whole
 projection takes it, so it must lie inside the kernels' shapes
 (``int4_matmul.launchable``: N a multiple of 128), and so must a dense
@@ -59,7 +71,10 @@ from bergen_tpu_torch.ops import int4_matmul
 Params = Dict[str, Any]
 
 ROW = ("o", "down")  # the row-parallel projections; the rest by columns
-_LINEAR_KEYS = {"kernel", "bias", "kernel_q4p", "kernel_scale4", "tp_shape"}
+_LINEAR_KEYS = {"kernel", "bias", "kernel_q4p", "kernel_scale4", "tp_shape",
+                "kernel_q", "kernel_scale", "kernel_scale_a8", "kernel_q_t",
+                "n_out"}
+_COLUMN_SCALES = ("kernel_scale", "kernel_scale_a8")
 
 
 def kept_kv_heads(num_heads: int, num_kv_heads: int, tp: int,
@@ -116,8 +131,13 @@ def local_config(cfg, tp: int, model_rank: int):
 
 
 def _whole(node: Params) -> tuple[int, int]:
-    if "kernel" in node:
-        return tuple(node["kernel"].shape)
+    """The [K, N] of a node's own leaves (a slice's, if sliced)."""
+    for key in ("kernel", "kernel_q"):
+        if key in node:
+            return tuple(node[key].shape)
+    if "kernel_q_t" in node:
+        Np, K = node["kernel_q_t"].shape
+        return K, node.get("n_out", Np)
     return node["kernel_q4p"].shape[0] * 2, node["kernel_q4p"].shape[1]
 
 
@@ -125,8 +145,8 @@ def _check_linear(node: Params, where: str) -> None:
     extra = set(node) - _LINEAR_KEYS
     if extra:
         raise NotImplementedError(
-            f"{where}: leaves {sorted(extra)} under tensor parallelism (int8, "
-            "W8A8 and LoRA trees: ROADMAP.md Queue 1 #10, multi-GPU)")
+            f"{where}: leaves {sorted(extra)} under tensor parallelism (LoRA "
+            "trees: ROADMAP.md Queue 1 #10, multi-GPU)")
 
 
 def _launches(node: Params, tp: int, int4: bool) -> bool:
@@ -160,9 +180,34 @@ def _column(node: Params, tp: int, r: int, where: str,
             f"{where}: its int4 slice of {N // tp} of {N} columns is outside "
             "the int4 kernels' shapes (a multiple of 128 columns)")
     out: Params = {"tp_shape": [K, N]}
+    if "kernel_q_t" in node:
+        return _w8a8_column(node, out, K, N, tp, r, where)
     for key, t in node.items():
         if key != "tp_shape":
             out[key] = _piece(t, t.dim() - 1, tp, r)
+    return out
+
+
+def _w8a8_column(node: Params, out: Params, K: int, N: int, tp: int, r: int,
+                 where: str) -> Params:
+    """A column slice of a prepared W8A8 leaf: rank r's N / tp rows of
+    ``kernel_q_t`` and entries of its scale and bias, re-padded with zeros
+    to whole 128-column tiles (``convert.prepare_w8a8`` on the slice)."""
+    if N % tp:
+        raise ValueError(f"{where}: tp={tp} does not divide its {N} columns")
+    n = N // tp
+    Np = convert.w8a8_rows(n)
+    lo = r * n
+    w_t = node["kernel_q_t"]
+    piece = torch.zeros(Np, K, dtype=w_t.dtype, device=w_t.device)
+    piece[:n] = w_t[lo:lo + n]
+    out["kernel_q_t"] = piece
+    for key in ("kernel_scale_a8", "bias"):
+        if key in node:
+            v = node[key]
+            out[key] = torch.cat([v[lo:lo + n], v.new_zeros(Np - n)])
+    if Np != n:
+        out["n_out"] = n
     return out
 
 
@@ -175,10 +220,12 @@ def _row(node: Params, tp: int, r: int, where: str) -> Params:
             f"{where}: tp={tp} does not divide its {groups} int4 groups")
     out: Params = {"tp_shape": [K, N]}
     for key, t in node.items():
-        if key in ("kernel", "kernel_q4p", "kernel_scale4"):
+        if key in ("kernel", "kernel_q4p", "kernel_scale4", "kernel_q"):
             out[key] = _piece(t, 0, tp, r)
-        elif key == "bias":
-            out[key] = t.clone()
+        elif key == "kernel_q_t":  # [N', K]: the input rows are columns
+            out[key] = _piece(t, 1, tp, r)
+        elif key in ("bias", "n_out") + _COLUMN_SCALES:
+            out[key] = t.clone() if isinstance(t, torch.Tensor) else t
     return out
 
 
@@ -271,11 +318,17 @@ def unshard_llama(shards: List[Params]) -> Params:
             return {k: join([n[k] for n in nodes]) for k in first}
         K = _whole(first)[0]
         row = K != first["tp_shape"][0]
+        if "kernel_q_t" in first and not row:
+            raise NotImplementedError(
+                "unshard_llama: a column-sliced prepared W8A8 leaf (join "
+                "the kernel_q slices before convert.prepare_w8a8)")
         out = {}
         for key, t in first.items():
             if key == "tp_shape":
                 continue
-            if row and key == "bias":
+            if key == "kernel_q_t":
+                out[key] = torch.cat([n[key] for n in nodes], dim=1)
+            elif row and key in ("bias", "n_out") + _COLUMN_SCALES:
                 out[key] = t
             else:
                 out[key] = torch.cat([n[key] for n in nodes],

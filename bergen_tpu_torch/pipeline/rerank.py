@@ -1,7 +1,8 @@
 """Rerank stage (the PyTorch port's counterpart of
 ``bergen_tpu/pipeline/rerank.py``; reference ``modules/rerank.py``):
 length-sorted batches of (query, doc) pairs scored by a cross-encoder, then
-a per-query sort by score."""
+a per-query sort by score.  Under ``torchrun`` every rank runs ``eval``
+on the same pairs: the cross-encoder splits each batch over the ranks."""
 
 from __future__ import annotations
 

@@ -31,6 +31,18 @@ card for corpora of 131,072 docs or more, else exact).  The sketch and the
 slab are guarded against the exact engine on probe batches, and the guard's
 ladder falls back to int8 exact (under int8 scoring), then exact, and
 records the terminal exact rung, as JAX's.
+
+Under ``torchrun`` the stage runs on every rank over the mesh's ``data``
+axis, as JAX's runs over ``get_mesh()``: the encoders split each batch
+over the ranks, every engine's corpus lives sharded over them (a rank
+holding its rows of the padded corpus) and each query batch merges the
+ranks' top-k.  What touches the host's files or decides a route is rank
+0's: it alone decides whether an index is complete, writes the index
+shards (from the gathered embeddings, the bytes of a one-rank run) and
+runs the recall guard's host reference; every probe's overlap is rank
+0's, handed to every rank, so the ranks climb the guard's ladder together
+and score the same method on every batch.  BM25 searches on rank 0 alone,
+as JAX's never touches the mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from bergen_tpu_torch import confy
 from bergen_tpu_torch import device as _device
 from bergen_tpu_torch.ops import fused_topk, scoring
 from bergen_tpu_torch.ops import sparse as sparse_ops
+from bergen_tpu_torch.parallel import mesh
 
 CHUNK_DOCS = 150_000  # shard granularity on disk (reference retrieve.py:111)
 FUSED_MIN_DOCS = 1 << 17  # 'auto' takes the fused kernel (sparse: the slab)
@@ -153,11 +166,15 @@ class Retrieve:
         sparse retriever's docs fixed-width ``sparse_chunk_{i}.npz`` (vals,
         idx) shards, under index_path; skips when the index is already
         complete."""
-        if self._index_complete(index_path, len(dataset)):
+        lead = mesh.data_rank() == 0
+        if mesh.broadcast_object(
+                lead and self._index_complete(index_path, len(dataset))):
             return
-        if os.path.exists(index_path) and self.continue_batch is None:
+        if lead and os.path.exists(index_path) \
+                and self.continue_batch is None:
             shutil.rmtree(index_path)  # partial/corrupt index → rebuild
-        os.makedirs(index_path, exist_ok=True)
+        if lead:
+            os.makedirs(index_path, exist_ok=True)
         field = (
             "generated_query"
             if query_or_doc == "query" and "generated_query" in dataset.features
@@ -180,17 +197,19 @@ class Retrieve:
                 buf.append(emb.astype(np.float16))
                 buf_rows += emb.shape[0]
             if buf_rows >= chunk_rows or s + self.batch_size >= n:
-                if sparse:
+                # rank 0 writes every rank's gathered rows
+                if lead and sparse:
                     np.savez(os.path.join(index_path,
                                           f"sparse_chunk_{chunk_id}.npz"),
                              vals=np.concatenate([b[0] for b in buf]),
                              idx=np.concatenate([b[1] for b in buf]))
-                else:
+                elif lead:
                     np.save(os.path.join(index_path,
                                          f"embedding_chunk_{chunk_id}.npy"),
                             np.concatenate(buf, axis=0))
                 buf, buf_rows = [], 0
                 chunk_id += 1
+        mesh.barrier()  # the files whole before any rank reads them
 
     @staticmethod
     def _shard_files(index_path: str) -> list[str]:
@@ -280,11 +299,14 @@ class Retrieve:
         if hasattr(self.model, "search"):
             # BM25-style models search raw text over their own index, built
             # in the doc index folder if absent (JAX retrieve.py:249-255)
+            if mesh.data_rank() != 0:
+                return mesh.broadcast_object(None)
             index_file = os.path.join(doc_index_path, "bm25.idx")
             if not os.path.exists(index_file):
                 self.model.build_index(list(docs["content"]), index_file)
             self.model.open_index(index_file)
-            return self.model.search(queries, docs, top_k)
+            return mesh.broadcast_object(
+                self.model.search(queries, docs, top_k))
         self.index(queries, "query", query_index_path)
         self.index(docs, "doc", doc_index_path)
         q_emb = self.load_index(query_index_path, len(queries))
@@ -325,6 +347,7 @@ class Retrieve:
                 dtype = torch.bfloat16  # the kernel's corpus type
         elif method == "approx":
             method = "exact"  # exact top-k meets any approximate target
+        # this rank's rows of the corpus (the data axis; JAX's layouts)
         dscales = exact_scales = None
         if int8_scoring and use_fused:
             # per-bin scales feed the kernel's int32 epilogue; the per-doc
@@ -332,28 +355,27 @@ class Retrieve:
             corpus, dscales, exact_scales, valid_n = \
                 fused_topk.shard_corpus_rows(d_emb, self.device)
         elif int8_scoring:
-            corpus, dscales, _, valid_n = fused_topk.shard_corpus_rows(
-                d_emb, self.device, granularity="doc")
+            corpus, dscales, valid_n = scoring.shard_corpus(
+                d_emb, self.device, torch.int8)
+        elif use_fused:
+            corpus, valid_n = fused_topk.shard_corpus_rows(
+                d_emb, self.device, dtype=dtype)
         else:
-            corpus = torch.from_numpy(d_emb).to(self.device, dtype) \
-                .contiguous()
-            valid_n = n_docs
+            corpus, valid_n = scoring.shard_corpus(d_emb, self.device, dtype)
         k = min(top_k, valid_n)
 
         def score_batch(q_np, method):
-            if int8_scoring:
-                q = torch.from_numpy(q_np).to(self.device, torch.float32)
-                v, i = fused_topk.search_int8(
-                    q, corpus, k, valid_n,
-                    exact_scales if method == "exact_rows" else dscales,
-                    method)
+            q = torch.from_numpy(q_np).to(self.device, torch.float32)
+            if method == "fused":
+                v, i = fused_topk.sharded_bin_topk(q, corpus, k, valid_n,
+                                                   dscales)
+            elif method == "exact_rows":
+                v, i = fused_topk.sharded_exact_topk_rows(
+                    q, corpus, k, valid_n, exact_scales)
             else:
-                q = torch.from_numpy(q_np).to(self.device, dtype).contiguous()
-                if method == "fused":
-                    v, i = fused_topk.bin_topk(q, corpus, k, valid_n=valid_n)
-                else:
-                    v, i = scoring.topk_blocked(q, corpus, k,
-                                                valid_n=valid_n)
+                if not int8_scoring:
+                    q = q.to(dtype).contiguous()
+                v, i = scoring.sharded_topk(q, corpus, k, valid_n, dscales)
             return v.cpu().numpy(), i.cpu().numpy()
 
         # recall guard on probe batches: the fused path is approximate (two
@@ -362,6 +384,7 @@ class Retrieve:
         fidelity: list[dict] = []
         guard_live = method == "fused" or int8_scoring
         guard_every, guard_max_q = self._guard_schedule(n_docs)
+        lead = mesh.data_rank() == 0
 
         all_vals, all_idx = [], []
         for bi, s in enumerate(range(0, q_emb.shape[0], self.batch_size_sim)):
@@ -369,8 +392,14 @@ class Retrieve:
             vals, idxs = score_batch(q_np, method)
             if guard_live and bi % guard_every == 0:
                 nq = min(guard_max_q, q_np.shape[0])
-                _, ref_idx = _host_exact_topk(q_np[:nq], d_emb, k)
-                overlap = _topk_overlap(idxs[:nq], ref_idx, k)
+                ref_idx = _host_exact_topk(q_np[:nq], d_emb, k)[1] \
+                    if lead else None
+
+                def overlap_of(idxs):  # rank 0's, on every rank
+                    return mesh.broadcast_object(_topk_overlap(
+                        idxs[:nq], ref_idx, k) if lead else None)
+
+                overlap = overlap_of(idxs)
                 fidelity.append({"batch": bi, "method": method,
                                  "overlap": overlap})
                 if overlap < self.approx_recall_guard \
@@ -384,7 +413,7 @@ class Retrieve:
                         self.approx_recall_guard, fb)
                     method = fb
                     vals, idxs = score_batch(q_np, method)
-                    overlap = _topk_overlap(idxs[:nq], ref_idx, k)
+                    overlap = overlap_of(idxs)
                     fidelity.append({"batch": bi, "method": method,
                                      "overlap": overlap})
                 if overlap < self.approx_recall_guard and int8_scoring:
@@ -395,11 +424,12 @@ class Retrieve:
                         "exact int8 overlap %.4f still < guard — re-loading "
                         "the corpus unquantized (%s exact)", overlap, name)
                     int8_scoring = False
-                    corpus = torch.from_numpy(d_emb).to(
-                        self.device, dtype).contiguous()
+                    corpus, valid_n = scoring.shard_corpus(
+                        d_emb, self.device, dtype)
+                    dscales = None
                     method = "exact"
                     vals, idxs = score_batch(q_np, method)
-                    overlap = _topk_overlap(idxs[:nq], ref_idx, k)
+                    overlap = overlap_of(idxs)
                     fidelity.append({"batch": bi, "method": "exact_" + name,
                                      "overlap": overlap})
                 guard_live = method not in ("exact", "exact_rows") \
@@ -479,7 +509,9 @@ class Retrieve:
                 # quantization error alike
                 nq = min(guard_max_q, q_np.shape[0])
                 _, ref_idx = score_sparse(q_np[:nq], "exact")
-                overlap = _found_overlap(vals[:nq], idxs[:nq], ref_idx, k)
+                # rank 0's overlap on every rank: one ladder for all
+                overlap = mesh.broadcast_object(
+                    _found_overlap(vals[:nq], idxs[:nq], ref_idx, k))
                 fidelity.append({"batch": bi, "method": smethod,
                                  "overlap": overlap})
                 if overlap < self.approx_recall_guard:
@@ -493,8 +525,8 @@ class Retrieve:
                     smethod = fb
                     vals, idxs = score_sparse(q_np, smethod)
                     if smethod != "exact":
-                        overlap = _found_overlap(vals[:nq], idxs[:nq],
-                                                 ref_idx, k)
+                        overlap = mesh.broadcast_object(_found_overlap(
+                            vals[:nq], idxs[:nq], ref_idx, k))
                         fidelity.append({"batch": bi, "method": smethod,
                                          "overlap": overlap})
                         if overlap < self.approx_recall_guard:

@@ -10,16 +10,26 @@ context processing and generation, and ``train()``: generator fine-tuning
 over the retrieved contexts (``train/trainer.py``).  Every stage runs on
 ``device`` (default ``cuda``).
 
-Under ``torchrun`` (a tensor-parallel generator, ``tp`` ranks) rank 0 runs
-every stage before generation, unsharded, and writes their artifacts; the
-other ranks build the generator alone.  Rank 0 then hands the generation
-rows to every rank (a broadcast, which is also the barrier), all ranks
-generate together, and rank 0 alone writes ``eval_*_out.json``, the
-metrics and the experiment folder, named as in one process.
+Under ``torchrun`` every rank builds the retriever, the reranker, the
+query generator and the generator, and joins the retrieve and rerank
+stages, which run data-parallel over the mesh's ``data`` axis (the
+encoders split each batch, the corpus is sharded, ``pipeline/
+retrieve.py``); the generator runs on its model rows (``tp`` ranks each,
+``world / tp`` rows generating the same batch, as JAX's generator takes
+its inputs unsharded).  Every rank also builds the context processor and
+joins the context stage, whose encoders (RECOMP's, DSLR's) split their
+batches over the ranks too.  Rank 0 alone processes the datasets (the
+other ranks then read the columns it wrote: a processor is never re-run,
+as MKQA's rows and ASQA's labels follow the hash seed), decides whether a
+cached run, index or processed-context file is used, runs the query
+rewrite (handing its output to every rank), and writes every file: runs,
+indexes, metrics, ``eval_*_out.json`` and the experiment folder, named
+as in one process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -93,7 +103,7 @@ class RAG:
 
         self.training_config = train
         self.device = _device.resolve(device)
-        # under torchrun, rank 0 runs the stages; every rank generates
+        # under torchrun every rank joins the stages; rank 0 writes
         self.rank = _mesh.rank()
         if train is not None and _mesh.world_size() > 1:
             raise NotImplementedError(
@@ -122,30 +132,30 @@ class RAG:
 
         assert self.generation_top_k <= self.rerank_top_k <= self.retrieve_top_k
 
-        if self.rank != 0:
-            self.generator = (
-                confy.instantiate(generator["init_args"], prompt=prompt,
-                                  device=self.device)
-                if generator is not None else None)
-            return
-        self.run_name, self.experiment_folder = utils.init_experiment(
-            config, experiments_folder, index_folder, runs_folder, run_name,
-            overwrite_exp=overwrite_exp, continue_batch=continue_batch,
-        )
+        lead = self.rank == 0
+        self.run_name, self.experiment_folder = _mesh.broadcast_object(
+            utils.init_experiment(
+                config, experiments_folder, index_folder, runs_folder,
+                run_name, overwrite_exp=overwrite_exp,
+                continue_batch=continue_batch) if lead else None)
 
         shuffle_labels = (
             generator is not None
             and generator["init_args"].get("model_name") == "random_answer"
         )
+        if not lead:  # the columns rank 0 processed and wrote
+            _mesh.barrier()
         self.datasets = ProcessDatasets.process(
             dataset,
             out_folder=dataset_folder,
             num_proc=processing_num_proc,
-            overwrite=overwrite_datasets,
+            overwrite=overwrite_datasets and lead,
             debug=debug,
             shuffle_labels=shuffle_labels,
             oracle_provenance=self.oracle_provenance,
         )
+        if lead:
+            _mesh.barrier()
         self.metrics = {"train": RAGMetrics, "dev": RAGMetrics, "test": None}
 
         self.retriever = (
@@ -184,12 +194,7 @@ class RAG:
     # ------------------------------------------------------------------ #
 
     def eval(self, dataset_split: str) -> None:
-        if self.rank != 0:
-            # rank 0's generation rows, then this rank's part of generating
-            gen_dataset = _mesh.broadcast_object(None)
-            if self.generator is not None:
-                self.generator.eval(gen_dataset)
-            return
+        lead = self.rank == 0
         dataset = self.datasets[dataset_split]
         query_dataset_name = dataset["query"].name
         doc_dataset_name = (
@@ -197,7 +202,8 @@ class RAG:
         )
         timer = utils.StageTimer()
 
-        with utils.maybe_profile(self.experiment_folder):
+        with (utils.maybe_profile(self.experiment_folder) if lead
+              else contextlib.nullcontext()):
             if self.retriever is not None:
                 with timer.track("generate_query"):
                     dataset = self.generate_query(
@@ -232,9 +238,14 @@ class RAG:
                         gen_dataset, query_dataset_name, doc_dataset_name,
                         dataset_split,
                     )
-            gen_dataset = _mesh.broadcast_object(gen_dataset)
+            # every rank generates from rank 0's rows
+            gen_dataset = _mesh.broadcast_object(gen_dataset if lead
+                                                 else None)
 
-            if self.generator is not None:
+            if self.generator is not None and not lead:
+                # this rank's part of generating; rank 0 writes
+                self.generator.eval(gen_dataset)
+            elif self.generator is not None:
                 with timer.track("generate"):
                     questions, _, predictions, references = self.generate(
                         gen_dataset, dataset_split
@@ -244,8 +255,9 @@ class RAG:
                         dataset_split, questions, predictions, references
                     )
 
-        timer.write(self.experiment_folder, dataset_split)
-        utils.move_finished_experiment(self.experiment_folder)
+        if lead:
+            timer.write(self.experiment_folder, dataset_split)
+            utils.move_finished_experiment(self.experiment_folder)
 
     # ------------------------------------------------------------------ #
 
@@ -260,21 +272,23 @@ class RAG:
                 self.generated_query_folder, query_dataset_name,
                 self.query_generator.get_clean_model_name(), dataset_split,
             )
-            if not os.path.exists(fname) or self.overwrite_exp or self.overwrite_index:
+            # rank 0 rewrites, or reads its file, for every rank
+            lead, generated = self.rank == 0, None
+            if lead and (not os.path.exists(fname) or self.overwrite_exp
+                         or self.overwrite_index):
                 generated = self.query_generator.eval(dataset["query"])
                 os.makedirs(self.generated_query_folder, exist_ok=True)
                 with open(fname, "w") as fp:
                     json.dump({"generated_queries": generated}, fp)
-            else:
+            elif lead:
                 with open(fname) as fp:
                     generated = json.load(fp)["generated_queries"]
             dataset["query"] = dataset["query"].add_column(
-                "generated_query", generated
+                "generated_query", _mesh.broadcast_object(generated)
             )
-            shutil.copyfile(
-                fname,
-                os.path.join(self.experiment_folder, os.path.basename(fname)),
-            )
+            if lead:
+                shutil.copyfile(fname, os.path.join(
+                    self.experiment_folder, os.path.basename(fname)))
         dataset["query"].id2index = id2index
         return dataset
 
@@ -298,14 +312,19 @@ class RAG:
             dataset_split=dataset_split,
             query_generator_name=self.query_generator.get_clean_model_name(),
         )
-        if not os.path.exists(ranking_file) or self.overwrite_exp or self.overwrite_index:
+        lead = self.rank == 0
+        # rank 0 decides, for every rank, whether the run file serves
+        if _mesh.broadcast_object(lead and (
+                not os.path.exists(ranking_file) or self.overwrite_exp
+                or self.overwrite_index)):
             out = self.retriever.retrieve(
                 dataset, query_path, doc_path, retrieve_top_k
             )
             query_ids, doc_ids, scores = out["q_id"], out["doc_id"], out["score"]
             scores = scores.tolist() if hasattr(scores, "tolist") else scores
-            utils.write_trec(ranking_file, query_ids, doc_ids, scores)
-            if "fidelity" in out:
+            if lead:
+                utils.write_trec(ranking_file, query_ids, doc_ids, scores)
+            if "fidelity" in out and lead:
                 # every approximate/quantized run documents its own measured
                 # approximation error (top-k overlap vs host fp32 exact)
                 with open(os.path.join(
@@ -314,7 +333,10 @@ class RAG:
                 ), "w") as f:
                     json.dump(out["fidelity"], f, indent=2)
         else:
-            query_ids, doc_ids, scores = utils.load_trec(ranking_file)
+            query_ids, doc_ids, scores = _mesh.broadcast_object(
+                utils.load_trec(ranking_file) if lead else None)
+        if not lead:
+            return query_ids, doc_ids, scores
         shutil.copyfile(
             ranking_file,
             os.path.join(self.experiment_folder, os.path.basename(ranking_file)),
@@ -345,16 +367,19 @@ class RAG:
             self.retrieve_top_k, self.reranker.get_clean_model_name(),
             self.rerank_top_k, self.query_generator.get_clean_model_name(),
         )
-        if not os.path.exists(reranking_file) or self.overwrite_exp:
+        lead = self.rank == 0
+        if _mesh.broadcast_object(lead and (
+                not os.path.exists(reranking_file) or self.overwrite_exp)):
             rerank_dataset = utils.prepare_dataset_from_ids(
                 dataset, query_ids, doc_ids, multi_doc=False,
                 query_field="generated_query",
             )
             out = self.reranker.eval(rerank_dataset)
             query_ids, doc_ids, scores = out["q_id"], out["doc_id"], out["score"]
-            utils.write_trec(reranking_file, query_ids, doc_ids, scores)
+            if lead:
+                utils.write_trec(reranking_file, query_ids, doc_ids, scores)
             rr_fid = getattr(self.reranker.model, "w8a8_fidelity", None)
-            if rr_fid is not None:
+            if rr_fid is not None and lead:
                 # every quantized run documents its measured approximation
                 # error (the W8A8 reranker guard)
                 with open(os.path.join(
@@ -363,7 +388,10 @@ class RAG:
                 ), "w") as f:
                     json.dump(rr_fid, f, indent=2)
         else:
-            query_ids, doc_ids, scores = utils.load_trec(reranking_file)
+            query_ids, doc_ids, scores = _mesh.broadcast_object(
+                utils.load_trec(reranking_file) if lead else None)
+        if not lead:
+            return query_ids, doc_ids, scores
         shutil.copyfile(
             reranking_file,
             os.path.join(self.experiment_folder, os.path.basename(reranking_file)),
@@ -393,38 +421,46 @@ class RAG:
             self.query_generator.get_clean_model_name(),
             self.context_processor.get_clean_model_name(),
         )
-        if not os.path.exists(fname) or self.overwrite_exp or self.overwrite_index:
+        lead = self.rank == 0
+        # rank 0 decides, for every rank, whether the saved file serves
+        if _mesh.broadcast_object(lead and (
+                not os.path.exists(fname) or self.overwrite_exp
+                or self.overwrite_index)):
             contexts = [list(d) for d in gen_dataset["doc"]]
             queries = list(gen_dataset["query"])
             processed, context_metrics = self.context_processor.eval(
                 contexts, queries
             )
-            os.makedirs(self.processed_context_folder, exist_ok=True)
-            with open(fname, "w") as fp:
-                json.dump(
-                    {
-                        "processed_contexts": processed,
-                        "context_metrics": context_metrics,
-                        "original_contexts": contexts,
-                        "queries": queries,
-                    },
-                    fp,
-                )
+            if lead:
+                os.makedirs(self.processed_context_folder, exist_ok=True)
+                with open(fname, "w") as fp:
+                    json.dump(
+                        {
+                            "processed_contexts": processed,
+                            "context_metrics": context_metrics,
+                            "original_contexts": contexts,
+                            "queries": queries,
+                        },
+                        fp,
+                    )
         else:
-            with open(fname) as fp:
-                saved = json.load(fp)
+            saved = None
+            if lead:
+                with open(fname) as fp:
+                    saved = json.load(fp)
+            saved = _mesh.broadcast_object(saved)
             processed = saved["processed_contexts"]
             context_metrics = saved["context_metrics"]
         gen_dataset = gen_dataset.remove_columns("doc")
         gen_dataset = gen_dataset.add_column("doc", processed)
-        shutil.copyfile(
-            fname, os.path.join(self.experiment_folder, os.path.basename(fname))
-        )
-        utils.write_dict(
-            self.experiment_folder,
-            f"eval_{dataset_split}_context_metrics.json",
-            context_metrics,
-        )
+        if lead:
+            shutil.copyfile(fname, os.path.join(self.experiment_folder,
+                                                os.path.basename(fname)))
+            utils.write_dict(
+                self.experiment_folder,
+                f"eval_{dataset_split}_context_metrics.json",
+                context_metrics,
+            )
         return gen_dataset
 
     def generate(self, gen_dataset, dataset_split):

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --tp                    # build + the tp paths
     python3 chip_smoke.py --decoding              # build + GGUF, sampling
         # and beam search
+    python3 chip_smoke.py --data-parallel         # build + the data axis
     python3 chip_smoke.py --context-kernels SHAPES ROWS  # (run by the
         # script itself) the context paths' kernel checks at SHAPES, the
         # rows written to ROWS
@@ -129,7 +130,7 @@ Phases (each prints one JSON line):
      shapes (XLM-R-large and DeBERTa-v3-large layers, T5's biased
      attention at a ragged S) and the card against the CPU, then Provence
      training (``python -m bergen_tpu_torch.train.provence``, 80 steps on
-     DeBERTa-v3-large whole, 24 layers, on its unfused route, no kernel
+     DeBERTa-v3-large at 12 of its 24 layers, on its unfused route, no kernel
      launched; step 2 against the CPU);
      after the served Mistral paths, COCOM and xRAG on the Mistral-7B
      checkpoint's first two layers (the memory at the CPU rule's slots;
@@ -177,8 +178,21 @@ static and served paged (``ut1_tp2_llama2_13b``, ``_paged``), the default
 judge in logits mode on 4 (``judge_tp4_solar``), the 70B generator alone
 on 8 (``gen_tp8_llama2_70b``); then each against tp 1 on this card
 (``check_tp_against_tp1``). The ranks time-slice the card, so no time of
-these paths is a tensor-parallel speed.  Every phase line is also written
-to ``chiprun_out/chip_smoke_phases.jsonl``.
+these paths is a tensor-parallel speed.
+
+The mesh's data axis, after them on the same 13B checkpoint
+(``--data-parallel`` runs only it, after the build, its kernel checks
+``w8a8_tp`` and ``dp_shards`` and the world-1 references): one torchrun
+of 4 ranks on this card over gloo runs rag_ut1 with the stages over
+data 4 and the W8A8 13B on 2 model rows of tp 2 (``ut1_dp4_tp2_w8a8``:
+its index and TREC files against world 1's ``ut1_rerank_minilm``, each
+rank's encoder launches world 1's, both rows the same tokens), the
+at-scale engines sharded over 4 (``retrieval_at_scale_dp4`` / ``_int8``,
+``retrieval_at_scale_splade_dp4``: ids against world 1's), and the int8
+13B on 2 rows (``ut1_tp2_int8``); then both generators against tp 1
+(``check_dp_against_tp1``).  No time there is a data-parallel speed.
+Every phase line is also written to
+``chiprun_out/chip_smoke_phases.jsonl``.
 """
 
 from __future__ import annotations
@@ -246,6 +260,11 @@ KERNELS = {
     # the generators' W8A8 product: encoder_layer_q's row quantization and
     # s8 GEMM (the JAX package computes it in XLA, llama.py:306-322)
     "w8a8_matmul": {
+        "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer_q.cu",
+        "replaces": "bergen_tpu/ops/encoder_attention.py:477"},
+    # its row-parallel route under tp: the row maxima, the quantization at
+    # the model axis's shared maxima, the GEMM's int32 sums
+    "w8a8_matmul_tp": {
         "route": "cuda", "source": "bergen_tpu_torch/csrc/encoder_layer_q.cu",
         "replaces": "bergen_tpu/ops/encoder_attention.py:477"},
 }
@@ -320,8 +339,17 @@ PATH_KERNELS = {
     "ut1_xrag": ("encoder_layer", "flash_attention", "decode_attention"),
     "ut1_train_lora": ("encoder_layer", "decode_attention"),
     "provence_train": (),
+    # the data axis (PR 23), the ranks' launches summed: rag_ut1 on 4 ranks
+    # (the stages over all 4, the W8A8 13B on 2 model rows), the at-scale
+    # engines sharded over 4, int8 Llama-2-13B at tp 2 on 2 rows
+    "ut1_dp4_tp2_w8a8": ("encoder_layer", "w8a8_matmul", "w8a8_matmul_tp",
+                         "decode_attention"),
+    "retrieval_at_scale_dp4": ("bin_topk",),
+    "retrieval_at_scale_dp4_int8": ("bin_topk_int8",),
+    "retrieval_at_scale_splade_dp4": ("bin_topk_int8",),
+    "ut1_tp2_int8": ("decode_attention",),
     # tensor parallelism, the ranks' launches summed: the 13B generator's
-    # static and served paged evals (rank 0 retrieves), the SOLAR judge's
+    # static and served paged evals (both ranks retrieve), the SOLAR judge's
     # logits prefills (flash prefill on), the 70B generator alone
     "ut1_tp2_llama2_13b": ("encoder_layer", "decode_attention"),
     "ut1_tp2_llama2_13b_paged": ("encoder_layer", "paged_attention"),
@@ -3384,7 +3412,7 @@ def _write_sharded_llama(path: str, dev, c: dict, chat_template: str,
 # Mistral-7B: 32 published layers each), cut so that the whole run stays
 # within its time with the later paths; their widths, and so every
 # kernel's shapes, are the published ones
-SMOKE_7B_LAYERS = 4
+SMOKE_7B_LAYERS = 2  # 4 until PR 23
 
 
 def write_llama2_7b(root: str, dev, layers: int | None = None) -> str:
@@ -3899,6 +3927,15 @@ def _run_cli(overrides: list[str], workdir: str, ckpt: dict,
             os.environ["CONFIG"] = old[2]
     wall = time.perf_counter() - t0
     return _experiment(workdir, config), wall
+
+
+def _config_folder(config: str, key: str) -> str:
+    """A folder the root config ``config`` names (relative to a run's
+    working directory)."""
+    from bergen_tpu_torch import confy
+
+    return confy.load_yaml(os.path.join(REPO, "config",
+                                        f"{config}.yaml"))[key]
 
 
 def _experiments_root(workdir: str, config: str) -> str:
@@ -5165,65 +5202,14 @@ def check_serve_against_cpu(ckpt: dict) -> dict:
 def run_retrieval_at_scale(ckpt: dict, workdir: str,
                            scoring_dtype: str = "auto") -> dict:
     """Retrieve.retrieve over 262,144 unit-norm fp16 doc shards (D 768)
-    with topk_method auto: 2,048 queries, each a noisy copy of one doc.
-    With ``scoring_dtype`` int8 the corpus is int8 codes with per-bin
-    scales (the kernel's mode 'bin'); the guard's first record is the fused
-    path's overlap with the host f32 exact top-k, whatever its ladder did
-    after."""
-    import numpy as np
-    from bergen_tpu_torch.data.dataset import Dataset
-    from bergen_tpu_torch.pipeline.retrieve import CHUNK_DOCS, Retrieve
-
-    N, D, Q, k = 262_144, 768, 2_048, 50
-    rng = np.random.default_rng(5)
-    docs = rng.standard_normal((N, D), dtype=np.float32)
-    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
-    src = rng.choice(N, size=Q, replace=False)
-    qry = docs[src] + 0.05 * rng.standard_normal((Q, D), dtype=np.float32)
-    qry /= np.linalg.norm(qry, axis=1, keepdims=True)
-    d_path = os.path.join(workdir, "doc")
-    q_path = os.path.join(workdir, "query")
-    os.makedirs(d_path)
-    os.makedirs(q_path)
-    for c, s in enumerate(range(0, N, CHUNK_DOCS)):
-        np.save(os.path.join(d_path, f"embedding_chunk_{c}.npy"),
-                docs[s:s + CHUNK_DOCS].astype(np.float16))
-    np.save(os.path.join(q_path, "embedding_chunk_0.npy"),
-            qry.astype(np.float16))
-    dataset = {
-        "query": Dataset.from_dict({"id": [f"q{i}" for i in range(Q)],
-                                    "content": ["-"] * Q}),
-        "doc": Dataset.from_dict({"id": [f"d{i}" for i in range(N)],
-                                  "content": ["-"] * N}),
-    }
-    init_args = {
-        "_target_": "bergen_tpu.models.retrievers.dense.DenseRetriever",
-        "model_name": ckpt["bert"], "max_len": 512, "pooler": "cls",
-        "similarity": "cos"}
-    ret = Retrieve(init_args=init_args, batch_size=512, batch_size_sim=2048,
-                   topk_method="auto", scoring_dtype=scoring_dtype)
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = ret.retrieve(dataset, q_path, d_path, k)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fid = out.get("fidelity", [])
-    if not fid or fid[0]["method"] != "fused" or (
-            scoring_dtype != "int8" and any(f["method"] != "fused"
-                                            for f in fid)):
-        fail(f"retrieval at scale: a batch left the fused path ({fid})")
-    top1 = np.array([int(row[0][1:]) for row in out["doc_id"]])
-    top1_hit = float(np.mean(top1 == src))
-    scores = np.asarray(out["score"])
-    if scores.shape != (Q, k) or not np.isfinite(scores).all():
-        fail(f"retrieval at scale: scores {scores.shape} not finite")
-    if top1_hit < 0.99:
-        fail(f"retrieval at scale: top-1 is the source doc for only "
-             f"{top1_hit:.4f} of queries")
-    return {"N": N, "D": D, "Q": Q, "k": k, "wall_s": wall,
-            "fidelity": fid, "top1_is_source": top1_hit}
+    with topk_method auto: 2,048 queries, each a noisy copy of one doc
+    (``at_scale_dense`` in this one process; its ids kept in the path's
+    folder for the data-parallel paths).  With ``scoring_dtype`` int8 the
+    corpus is int8 codes with per-bin scales (the kernel's mode 'bin'); the
+    guard's first record is the fused path's overlap with the host f32
+    exact top-k, whatever its ladder did after."""
+    os.makedirs(workdir, exist_ok=True)
+    return at_scale_dense(ckpt["bert"], workdir, scoring_dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -5535,6 +5521,9 @@ def run_retrieval_at_scale_splade(ckpt: dict, workdir: str) -> dict:
             fail(f"retrieval_at_scale_splade {method}: scores "
                  f"{scores.shape} not finite")
         got = np.array([[int(d[1:]) for d in row] for row in res["doc_id"]])
+        # world 1's ids, for retrieval_at_scale_splade_dp4
+        engine = "slab" if method == "auto" else "sketch"
+        np.save(os.path.join(workdir, f"ids_{engine}.npy"), got)
         # the slab rescores the f16 values on the host; the sketch holds
         # them on the card in bf16, the exact engine its queries too
 
@@ -6746,6 +6735,9 @@ TRAIN_OVERRIDES = [
     "dataset.train.query={init_args: {_target_: "
     "bergen_tpu.data.processors.ut.UT1Queries, split: dev}}"]
 PROVENCE_TRAIN_ROWS = 48
+# provence_train's depth: 12 of DeBERTa-v3-large's 24 layers since PR 23
+# (24 before), at full width, for the whole script's time
+PROVENCE_TRAIN_LAYERS = 12
 # 80 steps at the root script's learning rate, 1e-5, with its warmup of
 # a twentieth of the steps (Adam's first real step moves every parameter
 # by the learning rate: with one warmup step of 20 it sent the
@@ -6787,7 +6779,8 @@ def kernel_wrappers() -> dict:
             "flash_attention_band": fa.flash_attention_band,
             "attention_block": ea.attention_block,
             "pallas_score": sc.pallas_score,
-            "w8a8_matmul": w8.w8a8_matmul}
+            "w8a8_matmul": w8.w8a8_matmul,
+            "w8a8_matmul_tp": w8.w8a8_tp_sums}
 
 
 def _counts() -> dict:
@@ -7258,7 +7251,8 @@ def _provence_silver(folder: str, n: int) -> tuple[str, str]:
 
 def run_provence_train(ckpt: dict, workdir: str) -> dict:
     """``python -m bergen_tpu_torch.train.provence`` on the Provence
-    checkpoint (DeBERTa-v3-large whole: its published widths, 24 layers)
+    checkpoint (DeBERTa-v3-large at its published widths,
+    PROVENCE_TRAIN_LAYERS of its 24 layers)
     over silver labels on ut1's texts: 80 steps in f32 on DeBERTa's
     unfused route.  No kernel counter may move in a train step; the mean
     loss of the last three steps must be under that of the first two
@@ -7479,14 +7473,14 @@ def check_soft_train_launches(by_path: dict, steps: dict) -> None:
 
 
 def drive_provence_train(ckpt: dict, root: str, w, drive) -> None:
-    """provence_train on a Provence checkpoint at full depth (24 layers,
-    written here and deleted after), then its step-2 check."""
+    """provence_train on a Provence checkpoint at PROVENCE_TRAIN_LAYERS of
+    its 24 layers (written here and deleted after), then its step-2
+    check."""
     t0 = time.perf_counter()
-    ckpt["provence_train"] = write_provence(root, w,
-                                            PROVENCE["num_hidden_layers"])
+    ckpt["provence_train"] = write_provence(root, w, PROVENCE_TRAIN_LAYERS)
     emit({"phase": "checkpoint_provence_train",
           "write_s": time.perf_counter() - t0,
-          "layers": PROVENCE["num_hidden_layers"]})
+          "layers": PROVENCE_TRAIN_LAYERS})
     drive("provence_train", run_provence_train)
     with tempfile.TemporaryDirectory() as d:
         emit({"phase": "reference_check_provence_step",
@@ -7833,7 +7827,8 @@ def tp_rank_main(spec_file: str) -> None:
     0 (S, rows, and the decode, paged and flash attentions in it), then the
     run's entry point, as a user runs it: the CLI (``python -m
     bergen_tpu_torch``), the judge (``python -m bergen_tpu_torch.evaluate``)
-    or ``LLM.generate``.  Rank 0 keeps every step's greedy tokens and the
+    or ``LLM.generate``, or (``call``) a function of this script.  Rank 0
+    keeps every step's greedy tokens (with ``all_tops`` every rank) and the
     first step's last logits, and with ``routes`` its router's choices
     (``Routes``)."""
     import numpy as np
@@ -7864,9 +7859,11 @@ def tp_rank_main(spec_file: str) -> None:
                      fa.flash_attention.launches)
             steps.append([input_ids.shape[1], input_ids.shape[0],
                           *(x - y for x, y in zip(after, before))])
-            if rank == 0:
+            if kw.get("collect_stats"):  # a W8A8 calibration pass
+                return out
+            if rank == 0 or run.get("all_tops"):
                 last = out[:, -1].float()
-                if not tops:
+                if not tops and rank == 0:
                     np.save(os.path.join(spec["out"],
                                          f"first_logits{k}.npy"),
                             last.cpu().numpy())
@@ -7890,6 +7887,11 @@ def tp_rank_main(spec_file: str) -> None:
             from bergen_tpu_torch import evaluate
 
             evaluate.main(run["argv"])
+        elif run["entry"] == "call":  # a function of this script
+            from bergen_tpu_torch.parallel import mesh
+
+            mesh.init(TP_DEVICE, "gloo")
+            result["result"] = globals()[run["fn"]](**run["kwargs"])
         else:
             from bergen_tpu_torch.models.generators.llm import LLM
             from bergen_tpu_torch.parallel import mesh
@@ -7910,7 +7912,8 @@ def tp_rank_main(spec_file: str) -> None:
         result.update(wall_s=time.perf_counter() - t0, steps=steps,
                       launches={n: fn.launches for n, fn in counters.items()},
                       peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
-                      else None, tops=tops if rank == 0 else None)
+                      else None, tops=tops if rank == 0 or run.get(
+                          "all_tops") else None)
         with open(os.path.join(spec["out"], f"rank{rank}.{k}.json"),
                   "w") as f:
             json.dump(result, f)
@@ -8019,8 +8022,8 @@ def run_ut1_tp2_llama2_13b(ckpt: dict, workdir: str) -> dict:
     ``generator=llama-2-13b-chat`` (tp 2, Llama-2-13B's widths), static,
     then in the same ranks served from the page pool in a folder of its own
     (``ut1_tp2_llama2_13b_paged``); each rank one decode (or paged)
-    attention a layer and decode step, rank 0 alone retrieving and
-    writing."""
+    attention a layer and decode step, both ranks retrieving, rank 0
+    alone writing."""
     paged_dir = workdir + "_paged"
     for d in (workdir, paged_dir):
         os.makedirs(d, exist_ok=True)
@@ -8277,7 +8280,7 @@ def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
 
 
 def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
-                   work: str) -> None:
+                   work: str, after=None) -> None:
     """Each ``TP_CKPTS`` checkpoint written, its paths driven (the 13B
     static and served paged, the SOLAR judge on the 13B static run's
     folder, the 70B generator, with gen_tp8_mixtral in the same ranks
@@ -8301,8 +8304,757 @@ def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
           **timed(check_tp_against_tp1, ckpt, work, runs)})
     if "mixtral" in ckpt:  # its 8-rank run shared the 70B's ranks
         drive_gen_tp8_mixtral(ckpt, root, drive, runs)
+    if after is not None:  # the data-parallel paths, on the 13B checkpoint
+        after()
     for _, name, *_ in TP_CKPTS:
         shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
+# --------------------------------------------------------------------------- #
+# the mesh's data axis: data-parallel stages, a world larger than tp, and
+# int8 / W8A8 generation under tp, every rank on this one card over gloo
+# (no time here is a data-parallel or tp speed)
+# --------------------------------------------------------------------------- #
+
+DP_RANKS = 4
+DP_TP = 2
+# the W8A8 product at Llama-2-13B's per-rank shapes over 2 ranks: (name, K,
+# N, row-parallel), at W8A8_ROWS rows
+W8A8_TP_SHAPES = (("q/k/v", 5120, 2560, False), ("o", 2560, 5120, True),
+                  ("gate/up", 5120, 6912, False),
+                  ("down", 6912, 5120, True))
+DP_PATHS = ("ut1_dp4_tp2_w8a8", "retrieval_at_scale_dp4",
+            "retrieval_at_scale_dp4_int8", "retrieval_at_scale_splade_dp4",
+            "ut1_tp2_int8")
+# each data-parallel path's ranks, taken in one torchrun (they reach the
+# card once) by the first of them that is driven
+DP_RECS: dict = {}
+
+
+def _rowquant_shared_kernel(x, row_max):
+    """The row quantization kernel reading the whole rows' maxima
+    (``row_max`` [M], one partial): (codes, scales) of bf16 x [M, K]."""
+    import torch
+    from bergen_tpu_torch.ops import _build
+
+    M, K = x.shape
+    codes = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, dtype=torch.float32, device=x.device)
+    _build.check(_build.function("encoder_rowquant")(
+        x.data_ptr(), 0, codes.data_ptr(), sx.data_ptr(),
+        row_max.contiguous().data_ptr(), 1, M, K,
+        _build.stream_ptr(x.device)), "row quantize (shared)")
+    return codes, sx
+
+
+def check_w8a8_tp(results: dict, dev) -> None:
+    """The W8A8 product at ``W8A8_TP_SHAPES`` x ``W8A8_ROWS`` on one rank's
+    slice: the tp route (``w8a8_tp_sums``: row maxima, the quantization at
+    the shared maxima, the GEMM's int32 sums; then ``w8a8_finish``), with
+    the rank's own maxima standing for the shared ones, against the
+    one-rank product (``w8a8_matmul``, bit for bit) and the plain version
+    (bit for bit), timed with and without the shared maxima, beside
+    ``torch._int_mm`` (M > 16) and the bound.  At each row-parallel shape
+    and 32 rows, the whole 2K row split over two ranks: each half's codes
+    at the shared maxima are the whole row's codes of its columns, its
+    scales the whole row's, and the halves' int32 sums, added, give the
+    one-rank product bit for bit."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.ops import w8a8_matmul as w8
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rows = []
+    same = lambda m: m  # noqa: E731  (one rank: its maxima are the row's)
+    for name, K, N, row_par in W8A8_TP_SHAPES:
+        w = (torch.randn(K, N, generator=gen, device=dev) * 0.02).bfloat16()
+        leaf = convert.prepare_w8a8(convert.quantize_tree_int8(
+            {"x": {"kernel": w}}, min_size=1, mxu=True))["x"]
+        del w
+        w_t, sw = leaf["kernel_q_t"], leaf["kernel_scale_a8"]
+        for M in W8A8_ROWS:
+            x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+
+            def call():
+                sums, sx = w8.w8a8_tp_sums(x, w_t, same)
+                return w8.w8a8_finish(sums, sx, sw, None, N, x.dtype)
+
+            out = call()
+            one = w8.w8a8_matmul(x, w_t, sw, None, N)
+            ps, psx = w8.w8a8_sums_plain(x, w_t, w8.row_absmax(x.cpu())
+                                         .to(dev))
+            plain = w8.w8a8_finish(ps, psx, sw, None, N, x.dtype)
+            err = float((out.float() - plain.float()).abs().max())
+            row = {"model": "llama-2-13b tp 2", "proj": name, "M": M,
+                   "K": K, "N": N, "row_parallel": row_par,
+                   "bit_equal_one_rank": bool(torch.equal(out, one)),
+                   "bit_equal_plain": bool(torch.equal(out, plain)),
+                   "max_abs_err": err}
+            del ps, psx, plain, one
+            row["ms"] = cuda_time_ms(call)
+            row["unshared_ms"] = cuda_time_ms(
+                lambda: w8.w8a8_matmul(x, w_t, sw, None, N))
+            row["plain_ms"] = cuda_time_ms(
+                lambda: w8.w8a8_finish(*w8.w8a8_sums_plain(
+                    x, w_t, w8.row_absmax(x.cpu()).to(dev)), sw, None, N,
+                    x.dtype), iters=1, warmup=1)
+            row["library_ms"] = None
+            if M > 16:
+                codes, _ = _rowquant_kernel(x)
+                wk = w_t[:N].t()
+                row["library_ms"] = cuda_time_ms(
+                    lambda: torch._int_mm(codes, wk))
+                del codes
+            nbytes = M * K * 2 + w_t.numel() + N * 4 + M * N * 4 + M * N * 2
+            row["bound_ms"], row["bound_by"] = bound(2 * M * N * K, nbytes,
+                                                     PEAK_INT8_OPS)
+            if COUNT_KERNELS and M == 8:
+                row["kernels_per_call"] = launches_per_call(
+                    w8.w8a8_tp_sums, lambda: w8.w8a8_tp_sums(x, w_t, same),
+                    3)
+            if row_par and M == 32:
+                row.update(_w8a8_split_check(x, K, N, gen, dev))
+            emit({"phase": "kernel_check", "kernel": "w8a8_matmul_tp", **row})
+            rows.append(row)
+            if not (row["bit_equal_one_rank"] and row["bit_equal_plain"]
+                    and row.get("kernels_per_call") in (3, None)
+                    and row.get("split_ok", True)):
+                fail(f"w8a8_matmul_tp {name} M{M}: {row}")
+            del x, out
+        del leaf, w_t, sw
+        torch.cuda.empty_cache()
+    results["w8a8_matmul_tp"] = rows
+
+
+def _w8a8_split_check(x, K: int, N: int, gen, dev) -> dict:
+    """``x`` [M, K] as the second half of a [M, 2K] row over two ranks (the
+    first half drawn anew): each half's codes and scales at the shared
+    maxima against the whole row's, the halves' sums against the whole
+    product, bit for bit, on the card."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.ops import w8a8_matmul as w8
+
+    M = x.shape[0]
+    whole = torch.cat([torch.randn(M, K, generator=gen, device=dev)
+                       .bfloat16() * 4, x], dim=1)
+    w = (torch.randn(2 * K, N, generator=gen, device=dev) * 0.02).bfloat16()
+    leaf = convert.prepare_w8a8(convert.quantize_tree_int8(
+        {"x": {"kernel": w}}, min_size=1, mxu=True))["x"]
+    w_t, sw = leaf["kernel_q_t"], leaf["kernel_scale_a8"]
+    halves = [whole[:, :K].contiguous(), whole[:, K:].contiguous()]
+    parts = [w_t[:, :K].contiguous(), w_t[:, K:].contiguous()]
+    shared = torch.maximum(w8.row_absmax(halves[0]),
+                           w8.row_absmax(halves[1]))
+    codes, sx = _rowquant_kernel(whole)
+    codes_equal = True
+    for h, half in enumerate(halves):
+        hc, hs = _rowquant_shared_kernel(half, shared)
+        codes_equal &= bool(torch.equal(hc, codes[:, h * K:(h + 1) * K])
+                            and torch.equal(hs, sx))
+    sums = None
+    for half, part in zip(halves, parts):
+        s, hsx = w8.w8a8_tp_sums(half, part, lambda m: shared)
+        sums = s if sums is None else sums + s
+    got = w8.w8a8_finish(sums, hsx, sw, None, N, whole.dtype)
+    ok = bool(torch.equal(got, w8.w8a8_matmul(whole, w_t, sw, None, N)))
+    return {"split_codes_equal": codes_equal, "split_sums_bit_equal": ok,
+            "split_ok": codes_equal and ok}
+
+
+def check_dp_shards(results: dict, dev) -> None:
+    """The data-parallel paths' per-rank shapes over 4 ranks, against the
+    plain versions, timed, with bounds and library times; rows join each
+    kernel's results, marked ``dp_shard``: the BERT-base layer at ut1's
+    doc batch (512 at bucket 64 over 4: B 128) and query batch (50 padded
+    to 52: B 13, S 32); DeBERTa-v3-base's layer at a quarter of
+    PREBIAS_SHAPES' first two; the rope/ALiBi attention at a quarter of
+    the retrievers' batch (B 128 at S 256 and 64); the bin top-k over a
+    quarter of retrieval_at_scale's corpus (N 65,536, D 768, Q 2,048), bf16
+    and int8 in modes 'bin' and 'doc'."""
+    import torch
+    from bergen_tpu_torch.ops import encoder_attention as ea
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops.scoring import quantize_rows_int8
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rnd = _rnd(gen, dev)
+    w = ea.fuse_layer(_random_layer(rnd, 768, 3072))
+    library = library_encoder_layer(w, 12, 1e-12)
+    for B, S in ((128, 64), (13, 32)):
+        row, _ = _layer_row(ea, w, library, 12, B, S, 1e-12, "gelu", gen,
+                            dev, rnd)
+        row["dp_shard"] = True
+        emit({"phase": "kernel_check", "kernel": "encoder_layer", **row})
+        results.setdefault("encoder_layer", []).append(row)
+    tail = library_tail(w, 1e-7)
+    for B, S in ((64, 512), (64, 128)):
+        row, _ = _prebias_row(ea, w, tail, 12, B, S, 1e-7,
+                              1.0 / math.sqrt(64 * 3), gen, dev, rnd)
+        row["dp_shard"] = True
+        emit({"phase": "kernel_check", "kernel": "encoder_layer_prebias",
+              **row})
+        results.setdefault("encoder_layer_prebias", []).append(row)
+    del w, library, tail
+    for B, S in ((128, 256), (128, 64)):
+        q, k, v = (rnd(B, S, 768).bfloat16() for _ in range(3))
+        row = _attention_row(ea, q, k, v, _padded_mask(gen, dev, B, S), 12,
+                             None, None)
+        row["dp_shard"] = True
+        emit({"phase": "kernel_check", "kernel": "encoder_attention", **row})
+        results.setdefault("encoder_attention", []).append(row)
+        if not (row["max_abs_err"] <= ATT_TOL
+                and row["mean_abs_err"] <= ATT_MEAN_TOL):
+            fail(f"encoder_attention B{B} S{S}: {row}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    N, D, Q = 65_536, 768, 2_048
+    docs = torch.nn.functional.normalize(
+        torch.randn(N, D, generator=gen, device=dev), dim=1)
+    qry = torch.nn.functional.normalize(
+        torch.randn(Q, D, generator=gen, device=dev), dim=1)
+    c16, q16 = docs.bfloat16(), qry.bfloat16()
+    n_bins = N // ft.BIN
+    vals, idx = ft.bin_scores(q16, c16, N)
+    rv, _ = ft.bin_scores_plain(q16, c16, N)
+    err = float((vals - rv).abs().max())
+
+    def lib16():
+        sc = torch.matmul(c16, q16.T).view(-1, ft.BIN, Q)
+        return sc.amax(dim=1), sc.argmax(dim=1)
+
+    b_ms, b_by = bound(2 * N * Q * D, N * D * 2 + Q * D * 2 + n_bins * Q * 8)
+    row = {"N": N, "D": D, "Q": Q, "dp_shard": True, "max_abs_err": err,
+           "ms": cuda_time_ms(lambda: ft.bin_scores(q16, c16, N)),
+           "plain_ms": cuda_time_ms(lambda: ft.bin_scores_plain(q16, c16, N),
+                                    iters=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_time_ms(lib16, iters=5)}
+    emit({"phase": "kernel_check", "kernel": "bin_topk", **row})
+    results.setdefault("bin_topk", []).append(row)
+    if err > 1e-4:
+        fail(f"bin_topk at the per-rank shard: {row}")
+    del c16, q16, vals, idx, rv
+    q_i8, _ = quantize_rows_int8(qry)
+    codes, scales = ft.quantize_bins_int8(docs.cpu().numpy())
+    for mode, (c8, sc) in (("bin", (torch.from_numpy(codes).to(dev),
+                                    torch.from_numpy(scales).to(dev))),
+                           ("doc", quantize_rows_int8(docs))):
+        vals, idx = ft.bin_scores_int8(q_i8, c8, N, sc)
+        rv, ri = ft.bin_scores_int8_plain(q_i8, c8, N, sc)
+        equal = bool(torch.equal(vals, rv) and torch.equal(idx, ri))
+
+        def lib8():
+            s = torch._int_mm(c8, q_i8.T.contiguous()).view(-1, ft.BIN, Q)
+            return s.amax(dim=1), s.argmax(dim=1)
+
+        b_ms, b_by = bound(2 * N * Q * D, N * D + Q * D + N * 4
+                           + n_bins * Q * 8, PEAK_INT8_OPS)
+        row = {"N": N, "D": D, "Q": Q, "mode": mode, "dp_shard": True,
+               "bit_equal": equal,
+               "max_abs_err": float((vals - rv).abs().max()),
+               "ms": cuda_time_ms(lambda: ft.bin_scores_int8(q_i8, c8, N,
+                                                             sc)),
+               "plain_ms": cuda_time_ms(lambda: ft.bin_scores_int8_plain(
+                   q_i8, c8, N, sc), iters=2, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_time_ms(lib8, iters=5)}
+        emit({"phase": "kernel_check", "kernel": "bin_topk_int8", **row})
+        results.setdefault("bin_topk_int8", []).append(row)
+        if not equal:
+            fail(f"bin_topk_int8 {mode} at the per-rank shard: {row}")
+        del vals, idx, rv, ri, c8, sc
+    del docs, qry, q_i8
+    torch.cuda.empty_cache()
+
+
+def _dp_rank() -> tuple[int, int]:
+    from bergen_tpu_torch.parallel import mesh
+
+    return mesh.data_rank(), mesh.data_world()
+
+
+def at_scale_dense(bert: str, workdir: str, scoring_dtype: str = "auto",
+                   doc_mode: bool = False) -> dict:
+    """``Retrieve.retrieve`` over retrieval_at_scale's 262,144 docs and
+    2,048 queries (``run_retrieval_at_scale``), on every rank of the world
+    (rank 0 writes the index files, every rank reads them and holds its
+    shard); returns the run's record with its ids (``ids.npy`` in
+    ``workdir``, rank 0's).  With ``doc_mode`` (int8), one more search of
+    the same queries through ``fused_topk.sharded_bin_topk`` over per-doc
+    codes (the kernel's mode 'doc'), its ids in ``ids_doc.npy``."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.data.dataset import Dataset
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.parallel import mesh
+    from bergen_tpu_torch.pipeline.retrieve import CHUNK_DOCS, Retrieve
+
+    rank, world = _dp_rank()
+    N, D, Q, k = 262_144, 768, 2_048, 50
+    rng = np.random.default_rng(5)
+    docs = rng.standard_normal((N, D), dtype=np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    src = rng.choice(N, size=Q, replace=False)
+    qry = docs[src] + 0.05 * rng.standard_normal((Q, D), dtype=np.float32)
+    qry /= np.linalg.norm(qry, axis=1, keepdims=True)
+    d_path = os.path.join(workdir, "doc")
+    q_path = os.path.join(workdir, "query")
+    if rank == 0:
+        os.makedirs(d_path)
+        os.makedirs(q_path)
+        for c, s in enumerate(range(0, N, CHUNK_DOCS)):
+            np.save(os.path.join(d_path, f"embedding_chunk_{c}.npy"),
+                    docs[s:s + CHUNK_DOCS].astype(np.float16))
+        np.save(os.path.join(q_path, "embedding_chunk_0.npy"),
+                qry.astype(np.float16))
+    mesh.barrier()
+    dataset = {
+        "query": Dataset.from_dict({"id": [f"q{i}" for i in range(Q)],
+                                    "content": ["-"] * Q}),
+        "doc": Dataset.from_dict({"id": [f"d{i}" for i in range(N)],
+                                  "content": ["-"] * N}),
+    }
+    init_args = {
+        "_target_": "bergen_tpu.models.retrievers.dense.DenseRetriever",
+        "model_name": bert, "max_len": 512, "pooler": "cls",
+        "similarity": "cos"}
+    ret = Retrieve(init_args=init_args, batch_size=512, batch_size_sim=2048,
+                   topk_method="auto", scoring_dtype=scoring_dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ret.retrieve(dataset, q_path, d_path, k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fid = out.get("fidelity", [])
+    if not fid or fid[0]["method"] != "fused" or (
+            scoring_dtype != "int8" and any(f["method"] != "fused"
+                                            for f in fid)):
+        fail(f"retrieval at scale ({world} ranks): a batch left the fused "
+             f"path ({fid})")
+    ids = np.array([[int(d[1:]) for d in row] for row in out["doc_id"]])
+    scores = np.asarray(out["score"])
+    if scores.shape != (Q, k) or not np.isfinite(scores).all():
+        fail(f"retrieval at scale ({world} ranks): scores {scores.shape} "
+             "not finite")
+    top1_hit = float(np.mean(ids[:, 0] == src))
+    if top1_hit < 0.99:
+        fail(f"retrieval at scale ({world} ranks): top-1 is the source doc "
+             f"for only {top1_hit:.4f} of queries")
+    rec = {"N": N, "D": D, "Q": Q, "k": k, "wall_s": wall, "fidelity": fid,
+           "top1_is_source": top1_hit, "ranks": world}
+    if rank == 0:
+        np.save(os.path.join(workdir, "ids.npy"), ids)
+    if doc_mode:
+        codes, _, per_doc, n = ft.shard_corpus_rows(docs, ret.device, "doc")
+        q = torch.from_numpy(qry).to(ret.device)
+        _, i = ft.sharded_bin_topk(q, codes, k, n, per_doc)
+        if rank == 0:
+            np.save(os.path.join(workdir, "ids_doc.npy"), i.cpu().numpy())
+    return rec
+
+
+def at_scale_splade(splade: str, workdir: str) -> dict:
+    """``Retrieve.retrieve`` over ``splade_corpus``'s 131,072 docs on every
+    rank, the slab (``sparse_method`` auto) then the sketch, as
+    ``run_retrieval_at_scale_splade`` drives them in one process; rank 0
+    writes the index files and each engine's ids (``ids_slab.npy``,
+    ``ids_sketch.npy``).  Returns each engine's guard records and wall."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.data.dataset import Dataset
+    from bergen_tpu_torch.parallel import mesh
+    from bergen_tpu_torch.pipeline.retrieve import Retrieve
+
+    rank, world = _dp_rank()
+    c = SPLADE_SCALE
+    vals, idx, q, src = splade_corpus()
+    N, Q, k = c["N"], c["Q"], c["k"]
+    dataset = {
+        "query": Dataset.from_dict({"id": [f"q{i}" for i in range(Q)],
+                                    "content": ["-"] * Q}),
+        "doc": Dataset.from_dict({"id": [f"d{i}" for i in range(N)],
+                                  "content": ["-"] * N}),
+    }
+    init_args = {
+        "_target_": "bergen_tpu.models.retrievers.splade.SpladeRetriever",
+        "model_name": splade, "max_len": 256}
+    out = {"N": N, "Q": Q, "k": k, "ranks": world}
+    for method, engine in (("auto", "slab"), ("sketch", "sketch")):
+        wd = os.path.join(workdir, method)
+        d_path, q_path = os.path.join(wd, "doc"), os.path.join(wd, "query")
+        if rank == 0:
+            os.makedirs(d_path)
+            os.makedirs(q_path)
+            np.savez(os.path.join(d_path, "sparse_chunk_0.npz"), vals=vals,
+                     idx=idx)
+            np.save(os.path.join(q_path, "embedding_chunk_0.npy"),
+                    q.astype(np.float16))
+        mesh.barrier()
+        ret = Retrieve(init_args=init_args, batch_size=128,
+                       batch_size_sim=8192, sparse_method=method)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ret.retrieve(dataset, q_path, d_path, k)
+        torch.cuda.synchronize()
+        ids = np.array([[int(d[1:]) for d in row] for row in res["doc_id"]])
+        if rank == 0:
+            np.save(os.path.join(workdir, f"ids_{engine}.npy"), ids)
+            np.save(os.path.join(workdir, f"scores_{engine}.npy"),
+                    np.asarray(res["score"]))
+        fid = res.get("fidelity", [])
+        out[engine] = {"retrieve_wall_s": time.perf_counter() - t0,
+                       "fidelity": fid, "rung": fid[-1]["method"] if fid
+                       else None}
+        del ret, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_runs(ckpt: dict, work: str) -> list:
+    """The data-parallel torchrun's runs, one after another in the same
+    ``DP_RANKS`` ranks: rag_ut1 through the CLI (data 4 for the stages, 2
+    model rows of the W8A8 Llama-2-13B at tp 2), retrieval at scale bf16
+    and int8 (with a mode 'doc' search), the SPLADE engines at scale, and
+    ``LLM(tp=2, quantization='int8').generate`` on 8 ut1 questions."""
+    return [
+        {"entry": "cli", "cwd": os.path.join(work, "ut1_dp4_tp2_w8a8"),
+         "all_tops": True, "argv": [
+             "retriever=bge-base-en-v1.5",
+             f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
+             "reranker=minilm6",
+             f"reranker.init_args.model_name={_local(ckpt, 'minilm')}",
+             "generator=llama-2-13b-chat",
+             f"generator.init_args.model_name={_local(ckpt, 'llama2_13b')}",
+             f"generator.init_args.max_new_tokens={TP_NEW_TOKENS}",
+             "+generator.init_args.quantization=w8a8",
+             f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}",
+             f"device={TP_DEVICE}", "dist_backend=gloo"]},
+        {"entry": "call", "fn": "at_scale_dense", "cwd": work,
+         "kwargs": {"bert": ckpt["bert"], "workdir": os.path.join(
+             work, "retrieval_at_scale_dp4")}},
+        {"entry": "call", "fn": "at_scale_dense", "cwd": work,
+         "kwargs": {"bert": ckpt["bert"], "scoring_dtype": "int8",
+                    "doc_mode": True, "workdir": os.path.join(
+                        work, "retrieval_at_scale_dp4_int8")}},
+        {"entry": "call", "fn": "at_scale_splade", "cwd": work,
+         "kwargs": {"splade": ckpt["splade"], "workdir": os.path.join(
+             work, "retrieval_at_scale_splade_dp4")}},
+        {"entry": "generate", "cwd": work, "device": TP_DEVICE,
+         "model": ckpt["llama2_13b"], "tp": DP_TP, "all_tops": True,
+         "llm": dict(TP_70B_LLM, quantization="int8"),
+         "prompts": _tp_prompts()}]
+
+
+def _dp_recs(ckpt: dict, work: str, path: str) -> tuple:
+    """``path``'s rank records from the one data-parallel torchrun."""
+    if path not in DP_RECS:
+        for p in DP_PATHS[:4]:
+            d = os.path.join(work, p)
+            os.makedirs(d, exist_ok=True)
+            if p == "ut1_dp4_tp2_w8a8":
+                os.symlink(os.path.dirname(ckpt["bert"]),
+                           os.path.join(d, "ckpt"))
+        recs, wall = run_tp(DP_RANKS, _dp_runs(ckpt, work),
+                            os.path.join(work, "dp_ranks"), timeout=900)
+        for p, r in zip(DP_PATHS, recs):
+            DP_RECS[p] = (r, wall)
+    return DP_RECS.pop(path)
+
+
+def _rank_records(recs: list) -> dict:
+    return {"rank_launches": [{n: v for n, v in r["launches"].items() if v}
+                              for r in recs],
+            "rank_wall_s": [r["wall_s"] for r in recs],
+            "rank_peak_gb": [r["peak_gb"] for r in recs]}
+
+
+def _fp16_files_diff(a: str, b: str) -> dict:
+    """Two fp16 index files: byte-identical, or the count of differing
+    entries and their largest gap in fp16 ulps."""
+    import numpy as np
+
+    x, y = np.load(a), np.load(b)
+    if x.shape != y.shape or x.dtype != y.dtype:
+        fail(f"{a}: {x.shape} {x.dtype} against {y.shape} {y.dtype}")
+    diff = x != y
+    ulp = np.spacing(np.maximum(np.abs(x), np.abs(y)).astype(np.float16))
+    gap = np.abs(x.astype(np.float32) - y.astype(np.float32)) / \
+        ulp.astype(np.float32)
+    return {"entries": int(x.size), "differing": int(diff.sum()),
+            "max_ulp_gap": float(gap.max()) if diff.any() else 0.0}
+
+
+def _trec_lines(exp: str, prefix: str) -> list:
+    runs = [n for n in os.listdir(exp) if n.startswith(prefix)]
+    if len(runs) != 1:
+        fail(f"{exp}: expected one {prefix} run, got {runs}")
+    with open(os.path.join(exp, runs[0])) as f:
+        return [ln.split("\t") for ln in f.read().splitlines()]
+
+
+def run_ut1_dp4_tp2_w8a8(ckpt: dict, workdir: str) -> dict:
+    """rag_ut1 through ``python -m bergen_tpu_torch`` on 4 ranks
+    (``_dp_runs``): the retrieve and rerank stages data-parallel over all 4,
+    the W8A8 Llama-2-13B generating on 2 model rows of tp 2.  Against the
+    world-1 ``ut1_rerank_minilm`` run (same retriever and reranker): its
+    index shards and both TREC runs byte for byte, or the count of fp16
+    entries and TREC scores that differ, with ids and ranks identical;
+    each rank runs every encode batch on its rows, so its encoder launches
+    are that run's; every rank's forward steps launch one decode attention
+    a layer and decode step; both model rows take the same tokens."""
+    recs, wall = _dp_recs(ckpt, os.path.dirname(workdir), "ut1_dp4_tp2_w8a8")
+    exp = _experiment(workdir)
+    ref_root = os.path.join(os.path.dirname(workdir), "ut1_rerank_minilm")
+    ref = _experiment(ref_root)
+    out = {"wall_s": wall, "exp": exp, "ranks": len(recs),
+           **_tp_launches("ut1_dp4_tp2_w8a8", recs, (TP_LAYERS, 0, 0, 0)),
+           **_check_outputs(exp)}
+    TP_TOPS["ut1_dp4_tp2_w8a8"] = recs[0]["tops"]
+    # both model rows' tokens: rank 0 and rank DP_TP
+    if recs[0]["tops"] != recs[DP_TP]["tops"]:
+        fail("ut1_dp4_tp2_w8a8: the two model rows took different tokens")
+    index = {}
+    for root, run in ((workdir, "dp"), (ref_root, "ref")):
+        folder = os.path.join(root, _config_folder("rag_ut1", "index_folder"))
+        index[run] = {os.path.relpath(os.path.join(d, n), folder):
+                      os.path.join(d, n) for d, _, ns in os.walk(folder)
+                      for n in ns if n.endswith(".npy")}
+    if index["dp"].keys() != index["ref"].keys() or not index["dp"]:
+        fail(f"ut1_dp4_tp2_w8a8: index files {sorted(index['dp'])} against "
+             f"world 1's {sorted(index['ref'])}")
+    idx_diff = {rel: _fp16_files_diff(path, index["ref"][rel])
+                for rel, path in index["dp"].items()}
+    trec = {}
+    for prefix in ("run.retrieve.", "run.rerank."):
+        got, want = _trec_lines(exp, prefix), _trec_lines(ref, prefix)
+        if [ln[:4] for ln in got] != [ln[:4] for ln in want]:
+            fail(f"ut1_dp4_tp2_w8a8: {prefix} ids or ranks differ from "
+                 "world 1's")
+        gaps = [abs(float(a[4]) - float(b[4])) for a, b in zip(got, want)]
+        trec[prefix] = {"lines": len(got), "byte_equal": got == want,
+                        "differing_scores": sum(g > 0 for g in gaps),
+                        "max_score_gap": max(gaps)}
+    # every rank runs every encode batch (on its rows): world 1's launches
+    want = {n: RUNS_FOR_DP["ut1_rerank_minilm"][n] for n in (
+        "encoder_layer", "encoder_attention", "encoder_layer_q")}
+    bad = [r["rank"] for r in recs if any(r["launches"][n] != v
+                                          for n, v in want.items())]
+    if bad:
+        fail(f"ut1_dp4_tp2_w8a8: ranks {bad} launched encoder kernels "
+             f"{[{n: r['launches'][n] for n in want} for r in recs]}, not "
+             f"world 1's {want} each")
+    w8 = [r["launches"]["w8a8_matmul"] for r in recs]
+    w8tp = [r["launches"]["w8a8_matmul_tp"] for r in recs]
+    if not all(w8) or not all(w8tp):
+        fail(f"ut1_dp4_tp2_w8a8: W8A8 launches a rank {w8}, row-parallel "
+             f"{w8tp}: the W8A8 route did not run on every rank")
+    out.update(index_files=idx_diff, trec=trec, encoder_launches_world1=want,
+               **_rank_records(recs))
+    return out
+
+
+RUNS_FOR_DP: dict = {}  # world 1's launches of the reference paths
+
+
+def run_retrieval_at_scale_dp(ckpt: dict, workdir: str, path: str,
+                              ref_path: str) -> dict:
+    """The at-scale dense retrieval on 4 ranks (``at_scale_dense``): its
+    ids against the world-1 path's, one bin top-k launch a rank and query
+    batch (2,048 queries: one batch)."""
+    import numpy as np
+
+    recs, wall = _dp_recs(ckpt, os.path.dirname(workdir), path)
+    rec = recs[0]["result"]
+    ids = np.load(os.path.join(workdir, "ids.npy"))
+    ref = np.load(os.path.join(os.path.dirname(workdir), ref_path,
+                               "ids.npy"))
+    if not np.array_equal(ids, ref):
+        fail(f"{path}: {int((ids != ref).sum())} ids differ from "
+             f"{ref_path}'s")
+    kernel = "bin_topk_int8" if path.endswith("int8") else "bin_topk"
+    per_rank = [r["launches"][kernel] for r in recs]
+    doc = None
+    if path.endswith("int8"):
+        doc = _doc_mode_check(ckpt, workdir, recs)
+        # one mode-'bin' launch a rank from the retrieve stage, one
+        # mode-'doc' launch a rank from the per-doc search
+        want = 2
+    else:
+        want = 1
+    if per_rank != [want] * len(recs):
+        fail(f"{path}: {kernel} launches a rank {per_rank}, not {want}")
+    return {"wall_s": wall, "ranks": len(recs), "ids_equal_world1": True,
+            "fidelity": rec["fidelity"], "top1_is_source":
+            rec["top1_is_source"], "doc_mode": doc,
+            "launches": {n: sum(r["launches"][n] for r in recs)
+                         for n in recs[0]["launches"]},
+            **_rank_records(recs)}
+
+
+def _doc_mode_check(ckpt: dict, workdir: str, recs: list) -> dict:
+    """The ranks' mode-'doc' ids against one ``bin_topk`` over the whole
+    per-doc codes on this card (world 1)."""
+    import numpy as np
+    import torch
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops.scoring import quantize_rows_int8
+
+    N, D, Q, k = 262_144, 768, 2_048, 50
+    rng = np.random.default_rng(5)
+    docs = rng.standard_normal((N, D), dtype=np.float32)
+    docs /= np.linalg.norm(docs, axis=1, keepdims=True)
+    src = rng.choice(N, size=Q, replace=False)
+    qry = docs[src] + 0.05 * rng.standard_normal((Q, D), dtype=np.float32)
+    qry /= np.linalg.norm(qry, axis=1, keepdims=True)
+    codes, _, per_doc, n = ft.shard_corpus_rows(docs, "cuda", "doc")
+    q_i8, _ = quantize_rows_int8(torch.from_numpy(qry).cuda())
+    counted = ft.bin_scores_int8.launches, dict(
+        ft.bin_scores_int8.launches_by_mode)
+    _, ref = ft.bin_topk(q_i8, codes, k, valid_n=n, doc_scales=per_doc)
+    ft.bin_scores_int8.launches = counted[0]  # a check: not the path's
+    ft.bin_scores_int8.launches_by_mode = counted[1]
+    ids = np.load(os.path.join(workdir, "ids_doc.npy"))
+    if not np.array_equal(ids, ref.cpu().numpy()):
+        fail(f"retrieval_at_scale_dp4_int8: mode 'doc' ids differ from "
+             f"world 1's in {int((ids != ref.cpu().numpy()).sum())} places")
+    return {"ids_equal_world1": True}
+
+
+def run_retrieval_at_scale_splade_dp4(ckpt: dict, workdir: str) -> dict:
+    """The SPLADE engines at scale on 4 ranks (``at_scale_splade``).  The
+    slab's stage 1 merges the ranks' candidates into world 1's list, so its
+    ids are world 1's.  The sketch nominates 512 candidates a rank (JAX's
+    per-shard nominations), a superset of world 1's 512: where both runs
+    end on the same rung its ids are world 1's; where the wider nominations
+    keep the sketch over the guard that world 1 fell below, its top-k
+    overlap with world 1's (exact) ids is at least the guard's 0.97."""
+    import numpy as np
+
+    recs, wall = _dp_recs(ckpt, os.path.dirname(workdir),
+                          "retrieval_at_scale_splade_dp4")
+    rec = recs[0]["result"]
+    ref_dir = os.path.join(os.path.dirname(workdir),
+                           "retrieval_at_scale_splade")
+    out = {"wall_s": wall, "ranks": len(recs), **_rank_records(recs)}
+    for engine in ("slab", "sketch"):
+        ids = np.load(os.path.join(workdir, f"ids_{engine}.npy"))
+        ref = np.load(os.path.join(ref_dir, f"ids_{engine}.npy"))
+        rung, ref_rung = rec[engine]["rung"], RUNS_FOR_DP[
+            "retrieval_at_scale_splade"][engine]["rung"]
+        equal = int((ids == ref).all(axis=1).sum())
+        overlap = float(np.mean([len(set(a) & set(b)) / len(a)
+                                 for a, b in zip(ids, ref)]))
+        out[engine] = {"rung": rung, "world1_rung": ref_rung,
+                       "rows_equal_world1": equal, "rows": len(ids),
+                       "overlap_world1": overlap,
+                       "fidelity": rec[engine]["fidelity"],
+                       "retrieve_wall_s": rec[engine]["retrieve_wall_s"]}
+        if (rung == ref_rung and equal != len(ids)) or overlap < 0.97:
+            fail(f"retrieval_at_scale_splade_dp4 {engine}: {out[engine]}")
+    per_rank = [r["launches"]["bin_topk_int8"] for r in recs]
+    if not all(per_rank):
+        fail(f"retrieval_at_scale_splade_dp4: int8 bin top-k launches a "
+             f"rank {per_rank}")
+    out["launches"] = {n: sum(r["launches"][n] for r in recs)
+                       for n in recs[0]["launches"]}
+    return out
+
+
+def run_ut1_tp2_int8(ckpt: dict, workdir: str) -> dict:
+    """``LLM(tp=2, quantization='int8').generate`` on 8 ut1 questions over
+    the same 4 ranks (two model rows): weight-only int8 slices, the
+    row-parallel products' f32 partials summed; one decode attention a
+    layer and decode step on every rank, both rows the same tokens."""
+    recs, wall = _dp_recs(ckpt, os.path.dirname(workdir), "ut1_tp2_int8")
+    TP_TOPS["ut1_tp2_int8"] = recs[0]["tops"]
+    if recs[0]["tops"] != recs[DP_TP]["tops"]:
+        fail("ut1_tp2_int8: the two model rows took different tokens")
+    return {"wall_s": wall, "ranks": len(recs),
+            **_tp_launches("ut1_tp2_int8", recs, (TP_LAYERS, 0, 0, 0)),
+            "texts": recs[0]["texts"], "first_logits": os.path.join(
+                os.path.dirname(workdir), "dp_ranks", "ranks",
+                "first_logits4.npy")}
+
+
+def check_dp_against_tp1(ckpt: dict, runs: dict) -> dict:
+    """The W8A8 and int8 Llama-2-13B at tp 1 on the card, forced along the
+    tp runs' tokens (``_forced``): the W8A8 generator on the instructions
+    ut1_dp4_tp2_w8a8 wrote, in its batches of 32, and the int8 one on the
+    8 questions; the same answers, every tp token within the near-tie
+    margin of tp 1's largest logit, the int8 run's first logits within
+    ``TP_LOGITS_TOL``."""
+    import torch
+    from bergen_tpu_torch.models.generators.llm import LLM
+
+    out = {}
+    rows = _json(runs["ut1_dp4_tp2_w8a8"]["exp"], "eval_dev_out.json")
+    llm = LLM(ckpt["llama2_13b"], tp=1, max_new_tokens=TP_NEW_TOKENS,
+              max_length=4096, batch_size=32, device=TP_REF_DEVICE,
+              quantization="w8a8")
+    if llm.quantization_route != "w8a8":
+        fail(f"ut1_dp4_tp2_w8a8 at tp 1: route {llm.quantization_route}")
+    instr = [r["instruction"] for r in rows]
+    texts, tokens, _, gaps = _forced(lambda: [
+        t for i in range(0, len(instr), 32)
+        for t in llm.generate(instr[i:i + 32])],
+        TP_TOPS["ut1_dp4_tp2_w8a8"])
+    out["ut1_dp4_tp2_w8a8"] = _tp_same_tokens(
+        "ut1_dp4_tp2_w8a8", [r["response"] for r in rows], texts,
+        TP_TOPS["ut1_dp4_tp2_w8a8"], tokens, gaps)
+    out["ut1_dp4_tp2_w8a8"]["outlier_ratio_tp1"] = llm.outlier_ratio
+    del llm
+    torch.cuda.empty_cache()
+    llm = LLM(ckpt["llama2_13b"], tp=1, device=TP_REF_DEVICE,
+              **dict(TP_70B_LLM, quantization="int8"))
+    run = runs["ut1_tp2_int8"]
+    texts, tokens, first, gaps = _forced(
+        lambda: llm.generate(_tp_prompts()), TP_TOPS["ut1_tp2_int8"])
+    out["ut1_tp2_int8"] = {
+        **_tp_same_tokens("ut1_tp2_int8", run["texts"], texts,
+                          TP_TOPS["ut1_tp2_int8"], tokens, gaps),
+        **_first_logits_close("ut1_tp2_int8", run["first_logits"], first)}
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_data_parallel_paths(ckpt: dict, root: str, dev, drive, runs: dict,
+                              by_path: dict, work: str) -> None:
+    """The data-parallel phase: the world-1 references it needs driven
+    first where they are not (``ut1_rerank_minilm``, the at-scale paths),
+    the Llama-2-13B checkpoint written where it is not, then the five
+    ``DP_PATHS`` (one torchrun of ``DP_RANKS`` ranks) and their check
+    against tp 1."""
+    for path, run in (("ut1_rerank_minilm", run_ut1_rerank_minilm),
+                      ("retrieval_at_scale", run_retrieval_at_scale),
+                      ("retrieval_at_scale_int8",
+                       lambda c, w: run_retrieval_at_scale(c, w, "int8")),
+                      ("retrieval_at_scale_splade",
+                       run_retrieval_at_scale_splade)):
+        if path not in runs:
+            drive(path, run)
+        RUNS_FOR_DP[path] = by_path[path] if path == "ut1_rerank_minilm" \
+            else runs[path]
+    if "llama2_13b" not in ckpt or not os.path.isdir(ckpt["llama2_13b"]):
+        t0 = time.perf_counter()
+        ckpt["llama2_13b"] = write_tp_checkpoint(root, dev, "llama2_13b")
+        emit({"phase": "checkpoint_llama2_13b",
+              "write_s": time.perf_counter() - t0,
+              "path": ckpt["llama2_13b"], "layers": TP_LAYERS})
+    for path, run in (
+            ("ut1_dp4_tp2_w8a8", run_ut1_dp4_tp2_w8a8),
+            ("retrieval_at_scale_dp4", lambda c, w: run_retrieval_at_scale_dp(
+                c, w, "retrieval_at_scale_dp4", "retrieval_at_scale")),
+            ("retrieval_at_scale_dp4_int8",
+             lambda c, w: run_retrieval_at_scale_dp(
+                 c, w, "retrieval_at_scale_dp4_int8",
+                 "retrieval_at_scale_int8")),
+            ("retrieval_at_scale_splade_dp4",
+             run_retrieval_at_scale_splade_dp4),
+            ("ut1_tp2_int8", run_ut1_tp2_int8)):
+        drive(path, run)
+    emit({"phase": "reference_check_dp",
+          **timed(check_dp_against_tp1, ckpt, runs)})
 
 # --------------------------------------------------------------------------- #
 # Mixtral: the mixture-of-experts generators
@@ -9326,7 +10078,7 @@ PHASE3_CHECKS = ("encoder_layer", "encoder_layer_prebias", "deberta_layer",
                  "paged_attention", "encoder_attention", "bin_topk_int8",
                  "flash_attention_band", "attention_block", "pallas_score",
                  "bin_topk_int8_splade", "w8a8_matmul", "int8_quantizer",
-                 "paged_window", "tp_shards")
+                 "paged_window", "tp_shards", "w8a8_tp", "dp_shards")
 SEVEN_B = ("llama-2-7b-chat-random", "llama-2-7b-chat-random-2layers",
            "mistral-7b-instruct-random", "mistral-7b-instruct-random-2layers",
            "llama-3.2-3b-instruct-random",
@@ -9362,8 +10114,10 @@ def main() -> None:
     # their checks (their xRAG retriever, Mistral-7B at
     # SMOKE_NEW_PATH_LAYERS, written first), then stop; --decoding: build,
     # ut1_eval, the GGUF, sampled and beam paths with their checks (the
-    # served ones on Mistral-7B at SMOKE_NEW_PATH_LAYERS), then stop; no
-    # argument: every phase
+    # served ones on Mistral-7B at SMOKE_NEW_PATH_LAYERS), then stop;
+    # --data-parallel: build, the W8A8 tp and per-rank shard checks, the
+    # world-1 references, the data-parallel paths with their checks, then
+    # stop; no argument: every phase
     only = None
     profile = sys.argv[1:] == ["--profile-serve"]
     context_only = sys.argv[1:] == ["--context"]
@@ -9371,8 +10125,11 @@ def main() -> None:
     tp_only = sys.argv[1:] == ["--tp"]
     mixtral_only = sys.argv[1:] == ["--mixtral"]
     decoding_only = sys.argv[1:] == ["--decoding"]
+    dp_only = sys.argv[1:] == ["--data-parallel"]
     if profile or context_only or soft_train_only or decoding_only:
         only = []
+    elif dp_only:
+        only = ["w8a8_tp", "dp_shards"]
     elif tp_only or mixtral_only:
         only = ["tp_shards"]
     elif sys.argv[1:2] == ["--context-kernels"] and len(sys.argv) == 4:
@@ -9441,7 +10198,9 @@ def main() -> None:
               "w8a8_matmul": lambda: check_w8a8_matmul(results, dev),
               "int8_quantizer": lambda: check_int8_quantizer(results, dev),
               "paged_window": lambda: check_paged_window(results, dev),
-              "tp_shards": lambda: check_tp_shards(results, dev)}
+              "tp_shards": lambda: check_tp_shards(results, dev),
+              "w8a8_tp": lambda: check_w8a8_tp(results, dev),
+              "dp_shards": lambda: check_dp_shards(results, dev)}
     for name in PHASE3_CHECKS:
         if only is None or name in only:
             checks[name]()
@@ -9450,7 +10209,7 @@ def main() -> None:
         profile_serve(dev)
     if only is not None and not (context_only or soft_train_only
                                  or tp_only or mixtral_only
-                                 or decoding_only):
+                                 or decoding_only or dp_only):
         emit({"phase": "done", "only": only, "profile_serve": profile})
         return
 
@@ -9552,6 +10311,18 @@ def main() -> None:
             emit({"phase": "done", "mixtral": True,
                   "script_s": time.perf_counter() - started,
                   "launches": {p: by_path[p] for p in MIXTRAL_PATHS}})
+            return
+        if dp_only:
+            drive_data_parallel_paths(ckpt, root, dev, drive, runs, by_path,
+                                      work)
+            idle = [f"{n} on {path}" for path in DP_PATHS
+                    for n in PATH_KERNELS[path] if by_path[path][n] == 0]
+            if idle:
+                fail(f"kernels never launched where the path runs them: "
+                     f"{idle}")
+            emit({"phase": "done", "data_parallel": True,
+                  "script_s": time.perf_counter() - started,
+                  "launches": {p: by_path[p] for p in DP_PATHS}})
             return
         if tp_only:
             drive_tp_paths(ckpt, root, dev, drive, runs, work)
@@ -9730,8 +10501,11 @@ def main() -> None:
                       **timed(check_family_against_cpu, ckpt, key)})
             for gone in (name, name + "-2layers"):
                 shutil.rmtree(os.path.join(root, gone), ignore_errors=True)
-        # tensor parallelism: 2, 4 and 8 ranks on this card over gloo
-        drive_tp_paths(ckpt, root, dev, drive, runs, work)
+        # tensor parallelism: 2, 4 and 8 ranks on this card over gloo; then
+        # the data axis (4 ranks) on the 13B checkpoint
+        drive_tp_paths(ckpt, root, dev, drive, runs, work,
+                       after=lambda: drive_data_parallel_paths(
+                           ckpt, root, dev, drive, runs, by_path, work))
         judge = f"LLMeval_{JUDGE_NAME}"
         table = run_print_results(work, {
             "kilt_nq_local": [f"{judge}_logits"],
@@ -9875,7 +10649,8 @@ def main() -> None:
             fail(f"ut1_w8a8_tinyllama: {by_path['ut1_w8a8_tinyllama']} "
                  f"launches, not {per_w8} x {len(rest)} forward steps")
         other = {p: c["w8a8_matmul"] for p, c in by_path.items()
-                 if c["w8a8_matmul"] and p != "ut1_w8a8_tinyllama"}
+                 if c["w8a8_matmul"] and p not in ("ut1_w8a8_tinyllama",
+                                                   "ut1_dp4_tp2_w8a8")}
         if other:
             fail(f"w8a8_matmul launched on other paths: {other}")
         # RepLlama: every trunk forward (a right-padded encode batch) one
@@ -10049,6 +10824,20 @@ def main() -> None:
             for r in results[name] if r.get("tp_shard")]
         if new:
             extra["tp_shard_rows"] = new
+        # the data-parallel paths' per-rank shapes; the W8A8 tp route's
+        # rows (with and without the shared maxima)
+        new = [{key: r.get(key) for key in (
+            "B", "S", "D", "H", "N", "Q", "mode", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms") if key in r}
+            for r in results[name] if r.get("dp_shard")]
+        if new:
+            extra["dp_shard_rows"] = new
+        if name == "w8a8_matmul_tp":
+            extra["rows"] = [{key: r.get(key) for key in (
+                "proj", "M", "K", "N", "row_parallel", "bit_equal_one_rank",
+                "split_codes_equal", "split_sums_bit_equal", "max_abs_err",
+                "ms", "unshared_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for r in results[name]]
         # the GGUF, beam and Mixtral prefill shapes
         new = [{key: r[key] for key in (
             "decoding_path", "B", "L", "S", "H", "KH", "head_dim",

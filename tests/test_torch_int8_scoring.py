@@ -198,8 +198,9 @@ def test_topk_blocked_int8_matches_jax(valid_n):
                               method="exact", valid_upto=jnp.int32(valid_n),
                               doc_scales=jnp.asarray(scales))
     jv = np.asarray(jv * q_scale[:, None])
-    tv, ti = tft.search_int8(torch.from_numpy(q), torch.from_numpy(codes), 9,
-                             valid_n, torch.from_numpy(scales), "auto")
+    tv, ti = tft.sharded_exact_topk_rows(
+        torch.from_numpy(q), torch.from_numpy(codes), 9, valid_n,
+        torch.from_numpy(scales))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tv.numpy(), jv, rtol=RTOL, atol=0)
 

@@ -4,7 +4,8 @@ refusal: the OpenAI generators plain Queue 1.  ``gorilla-7b-hf-v1-gguf``
 instantiates on a tiny GGUF file of its ``gguf_file`` name and generates.  A config with ``tp``
 > 1 (``mixtral-8x7b-instruct`` among them) raises in one process, naming
 ``torchrun``: it runs as ``tp`` ranks.  Under ranks, a world larger than
-``tp`` and the int8 and W8A8 routes with ``tp`` > 1 raise naming #10.  The
+``tp`` (whole model rows) and the int8 and W8A8 routes with ``tp`` > 1
+run; a world that is not whole model rows raises.  The
 other Mixtral configs (``mixtral-moe-7b-chat``, int4;
 ``vllm_mixtral-moe-7b-chat``; ``xrag_mixtral``, with the tiny llama as its
 llama-family retriever) instantiate on a tiny Mixtral and generate.
@@ -157,21 +158,30 @@ def test_train_config_runs_or_refuses_as_jax(name, ckpts, tmp_path):
 
 
 @pytest.mark.parametrize("quantization", ["int8", "int8_mxu", "w8a8"])
-def test_int8_and_w8a8_with_tp_raise_naming_item_10(quantization, ckpts):
-    """Checked before the world: W8A8's per-row activation scale spans the
-    whole row, which a row-parallel slice does not hold."""
+def test_int8_and_w8a8_with_tp_raise_naming_item_10(quantization, ckpts,
+                                                    tmp_path):
+    """Queue 1 #10 part 2 lifted this refusal: in one process tp 2 raises
+    naming torchrun, as every tp config does, and over 2 ranks the
+    quantized generator builds and generates."""
+    import tp_ranks
+
     from bergen_tpu_torch.models.generators.llm import LLM
 
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         LLM(ckpts["llama"], tp=2, quantization=quantization, device="cpu")
+    assert tp_ranks.spawn(2, "llm_error", str(tmp_path),
+                          model_name=ckpts["llama"], tp=2,
+                          quantization=quantization) == "no error"
 
 
 def test_world_larger_than_tp_raises_naming_item_10(ckpts, tmp_path):
-    """Two ranks over gloo and a tp 1 generator: the data axis is not
-    ported."""
+    """Two ranks over gloo and a tp 1 generator: two model rows of one rank
+    each, which generate (the data axis, Queue 1 #10 part 2); three ranks
+    at tp 2 are not whole model rows and raise."""
     import tp_ranks
 
-    msg = tp_ranks.spawn(2, "llm_error", str(tmp_path),
-                         model_name=ckpts["llama"], tp=1)
-    assert msg.startswith("NotImplementedError") and "Queue 1 #10" in msg \
-        and "world of 2 ranks" in msg, msg
+    assert tp_ranks.spawn(2, "llm_error", str(tmp_path / "two"),
+                          model_name=ckpts["llama"], tp=1) == "no error"
+    msg = tp_ranks.spawn(3, "llm_error", str(tmp_path / "three"),
+                         model_name=ckpts["llama"], tp=2)
+    assert msg.startswith("ValueError") and "model rows" in msg, msg

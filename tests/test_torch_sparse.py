@@ -290,7 +290,7 @@ def test_rescore_library_matches_plain_and_jax(slab_data):
 ])
 def test_slab_index_matches_jax(slab_data, mesh, case):
     """Stage 1 over the exact int8 rows (JAX's ``sharded_exact_topk_rows``;
-    the port's ``search_int8`` 'exact'), then the host rescore: identical
+    the port's ``sharded_exact_topk_rows``), then the host rescore: identical
     ids, scores within 1e-5."""
     q, docs, vals, idx, V = slab_data
     case = dict(case)

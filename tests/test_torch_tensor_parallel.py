@@ -288,9 +288,10 @@ def test_build_lock_builds_each_source_once(tmp_path):
 def test_mesh_rules_without_ranks(monkeypatch):
     """World 1 makes no process group; every rank on one named card needs
     gloo (NCCL refuses two ranks on one device); NCCL needs CUDA ranks;
-    ``get_mesh`` keeps JAX's asserts and takes only one model row of every
-    rank (the data axis is not ported); ``pad_batch_to_devices`` is
-    JAX's."""
+    ``get_mesh`` keeps JAX's asserts, builds JAX's ``reshape(data,
+    model)`` grid (model row d: ranks d*model..; data column m: the ranks
+    with rank % model == m; a group each) and refuses a grid that leaves
+    ranks out, naming Queue 1 #10; ``pad_batch_to_devices`` is JAX's."""
     import torch.distributed as dist
 
     from bergen_tpu.parallel import mesh as jmesh
@@ -307,13 +308,31 @@ def test_mesh_rules_without_ranks(monkeypatch):
                                                  "gloo")
     four = mesh.Mesh(1, 4, 0, 4, mesh.torch.device("cpu"), "gloo")
     monkeypatch.setattr(mesh, "_WORLD", four)
+    monkeypatch.setattr(mesh, "_GRIDS", {})
+    monkeypatch.setattr(mesh.dist, "new_group", tuple)  # its ranks
+    monkeypatch.setattr(mesh.dist, "get_world_size", lambda: 4)
+    monkeypatch.setattr(mesh.dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(mesh.dist, "is_initialized", lambda: True)
     assert mesh.get_mesh(model=4) is four is mesh.get_mesh(data=1, model=4)
     for data, model, err in ((None, 3, AssertionError),
                              (3, 2, AssertionError),
-                             (None, 2, NotImplementedError),
-                             (1, 2, NotImplementedError)):
-        with pytest.raises(err):
+                             (1, 2, NotImplementedError),
+                             (3, 1, NotImplementedError)):
+        with pytest.raises(err, match=None if err is AssertionError
+                           else "Queue 1 #10"):
             mesh.get_mesh(data, model)
+    grid = mesh.get_mesh(model=2)
+    assert grid is mesh.get_mesh(data=2, model=2)
+    assert (grid.data, grid.model, grid.data_rank, grid.model_rank) == (
+        2, 2, 0, 0)
+    assert (grid.model_group, grid.data_group) == ((0, 1), (0, 2))
+    three = mesh._grid(mesh.Mesh(1, 4, 3, 4, four.device, "gloo"), 2, 2)
+    assert (three.data_rank, three.model_rank) == (1, 1)
+    assert (three.model_group, three.data_group) == ((2, 3), (1, 3))
+    data = mesh.get_mesh()  # the encoders' and retrieval's grid
+    assert (data.data, data.model, data.model_group, data.data_group) == (
+        4, 1, None, None)
+    assert mesh.data_shard(1000, 128) == (1024, 0, 256)
     for n, shards in ((5, 4), (8, 4), (1, 3)):
         x = np.arange(n * 3).reshape(n, 3)
         got, gn = mesh.pad_batch_to_devices(x, shards)

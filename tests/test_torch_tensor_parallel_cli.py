@@ -3,7 +3,7 @@
 * ``python -m bergen_tpu_torch`` (``tests/tp_ranks.py``'s ``cli`` job: the
   CLI's ``cli`` on every rank of 2 and of 4 spawned over gloo) on rag_ut1
   with a tiny BERT retriever and the tiny llama at
-  ``+generator.init_args.tp``: rank 0 alone retrieves and writes; the one
+  ``+generator.init_args.tp``: every rank retrieves, rank 0 alone writes; the one
   experiment folder is named as the JAX package's run of the same config
   (``bergen.main`` at the same tp on its host mesh), its ``config.yaml``
   is JAX's up to the folder roots, and ``eval_dev_out.json`` and the

@@ -127,11 +127,13 @@ def decoding(model_name: str, prompts: list, tp: int, ids: list,
 
 
 def llm_error(model_name: str, tp: int, **kw) -> str:
-    """The message ``LLM`` raises on every rank (rank 0's)."""
+    """The message ``LLM`` raises on every rank (rank 0's), or "no error"
+    once it has built and generated an answer."""
     from bergen_tpu_torch.models.generators.llm import LLM
 
     try:
-        LLM(model_name, tp=tp, device="cpu", **kw)
+        LLM(model_name, tp=tp, device="cpu", max_new_tokens=2,
+            **kw).generate(["user : hello \n assistant : "])
     except (NotImplementedError, RuntimeError, ValueError) as e:
         return f"{type(e).__name__}: {e}"
     return "no error"
@@ -158,5 +160,207 @@ def judge(seed: int = 0, **kwargs) -> None:
     evaluate.run_eval(**kwargs)
 
 
-JOBS = {"generation": generation, "mixtral": mixtral, "decoding": decoding,
+def quantized(model_name: str, prompts: list, tp: int, routes: list,
+              **kw) -> list:
+    """Each rank's ``LLM(tp=tp, quantization=q)`` for each q of ``routes``:
+    greedy tokens, first-step logits, the route taken and the calibration
+    ratio, the leaves of layer 0's o and q projections, and the row codes
+    and scales of the first W8A8 product that quantizes a row-parallel
+    slice (layer 0's o input); the list of every rank's, in rank order."""
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.ops import w8a8_matmul as w8
+
+    out = {}
+    for q in routes:
+        rows = []
+        plain = w8.quantize_rows_shared_plain
+        whole = w8.quantize_rows_plain
+
+        def shared(x, row_max, rows=rows):
+            r = plain(x, row_max)
+            rows.append(("shared", r[0].clone(), r[1].clone()))
+            return r
+
+        def own(x, rows=rows):
+            r = whole(x)
+            rows.append(("whole", r[0].clone(), r[1].clone()))
+            return r
+
+        w8.quantize_rows_shared_plain, w8.quantize_rows_plain = shared, own
+        try:
+            llm = LLM(model_name, tp=tp, device="cpu", quantization=q, **kw)
+            layer = llm.params["layers"][0]
+            out[q] = {"static": llm.generate(prompts),
+                      "logits": llm.first_token_logits(prompts),
+                      "route": llm.quantization_route,
+                      "ratio": llm.outlier_ratio,
+                      "o": {k: v for k, v in layer["attn"]["o"].items()},
+                      "q": sorted(layer["attn"]["q"]),
+                      "rows": rows[:4]}
+        finally:
+            w8.quantize_rows_shared_plain, w8.quantize_rows_plain = \
+                plain, whole
+    if tp > 1:
+        out["slice_first"] = _slice_then_quantize(model_name, tp)
+    return _every_rank(out)
+
+
+def _slice_then_quantize(model_name: str, tp: int) -> dict:
+    """Whether this rank's slice of the dense tree, quantized (the column
+    maxima of a row slice over the model axis), equals its slice of the
+    whole quantized tree, bit for bit, for int8 (``kernel_scale``) and
+    W8A8 (``kernel_scale_a8`` and ``prepare_w8a8``'s layout)."""
+    import torch
+
+    from bergen_tpu_torch.models import convert, llama
+    from bergen_tpu_torch.parallel import mesh, shard
+
+    hf, _ = convert.load_checkpoint(model_name)
+    cfg = llama.LlamaConfig.from_hf(hf)
+    r = mesh.get_mesh(model=tp).model_rank
+
+    def tree():
+        t = convert.llama_from_hf(convert.load_checkpoint(model_name)[1],
+                                  cfg.num_layers)
+        t["lm_head"] = t.get("lm_head") or {"kernel": t["embed"].T}
+        return t
+
+    def equal(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(map(equal, a, b))
+        if isinstance(a, torch.Tensor):
+            return a.dtype == b.dtype and torch.equal(a, b)
+        return a == b
+
+    out = {}
+    for name, mxu in (("int8", False), ("w8a8", True)):
+        first = convert.quantize_tree_int8(
+            shard.shard_llama(tree(), cfg, tp, r)[0], mxu=mxu)
+        whole = shard.shard_llama(convert.quantize_tree_int8(
+            tree(), mxu=mxu), cfg, tp, r)[0]
+        out[name] = equal(first, whole)
+        if mxu:
+            out["w8a8_prepared"] = equal(
+                convert.prepare_w8a8(first), shard.shard_llama(
+                    convert.prepare_w8a8(convert.quantize_tree_int8(
+                        tree(), mxu=True)), cfg, tp, r)[0])
+    return out
+
+
+def _every_rank(out):
+    """Every rank's ``out``, in rank order."""
+    import torch.distributed as dist
+
+    from bergen_tpu_torch.parallel import mesh
+
+    if mesh.world_size() == 1:
+        return [out]
+    every = [None] * mesh.world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def sharded_op(case: dict):
+    """(values, ids) numpy of one ``case`` of the port's sharded engines
+    on this rank's shard (``tests/test_torch_data_parallel.py``)."""
+    import torch
+
+    from bergen_tpu_torch.ops import fused_topk as ft
+    from bergen_tpu_torch.ops import scoring as sc
+    from bergen_tpu_torch.ops import sparse as sp
+    from bergen_tpu_torch.ops.sparse_sketch import SketchIndex
+    from bergen_tpu_torch.ops.sparse_slab import SlabIndex
+
+    cpu = torch.device("cpu")
+    op, k = case["op"], case["k"]
+    q = torch.from_numpy(case["q"])
+    corpus = case.get("corpus")
+    if op in ("topk", "topk_int8"):
+        if op == "topk":
+            rows, n = sc.shard_corpus(corpus, cpu, torch.float32)
+            v, i = sc.sharded_topk(q, rows, k, n)
+        else:
+            rows, scales, n = sc.shard_corpus(corpus, cpu, torch.int8)
+            v, i = sc.sharded_topk(q, rows, k, n, scales)
+    elif op in ("bin_none", "exact_rows"):
+        rows, n = ft.shard_corpus_rows(corpus, cpu, dtype=torch.bfloat16)
+        fn = ft.sharded_bin_topk if op == "bin_none" \
+            else ft.sharded_exact_topk_rows
+        v, i = fn(q, rows, k, n)
+    elif op in ("bin_bin", "bin_doc", "exact_rows_int8"):
+        codes, scales, per_doc, n = ft.shard_corpus_rows(
+            corpus, cpu, "doc" if op == "bin_doc" else "bin")
+        if op == "exact_rows_int8":
+            v, i = ft.sharded_exact_topk_rows(q, codes, k, n, per_doc)
+        else:
+            v, i = ft.sharded_bin_topk(q, codes, k, n, scales)
+    elif op in ("sparse", "sparse_int8"):
+        if op == "sparse":
+            vals, idx, n = sp.shard_sparse_corpus(case["vals"], case["idx"],
+                                                  cpu)
+            v, i = sp.search_sparse(q, vals, idx, k, case["vocab"], n,
+                                    block=64)
+        else:
+            codes, idx, scales, n = sp.shard_sparse_corpus(
+                case["vals"], case["idx"], cpu, torch.int8)
+            v, i = sp.search_sparse(q, codes, idx, k, case["vocab"], n,
+                                    doc_scales=scales)
+    elif op == "sketch":
+        index = SketchIndex(case["vals"], case["idx"], case["vocab"], cpu,
+                            **case["kw"])
+        v, i = index.search(case["q"], k)
+    elif op == "slab":
+        index = SlabIndex(case["vals"], case["idx"], case["vocab"], cpu,
+                          **case["kw"])
+        return index.search(case["q"], k, fused=False,
+                            rescore=case["rescore"])
+    else:
+        raise ValueError(op)
+    return v.numpy(), i.numpy()
+
+
+def sharded_ops(cases: list) -> list:
+    """Every rank's ``sharded_op`` results, case by case, in rank order."""
+    return _every_rank([sharded_op(c) for c in cases])
+
+
+def encoders(models: dict, texts: list, queries: list, docs: list) -> list:
+    """Every rank's encodes and scores (``tests/test_torch_data_parallel
+    .py``): the dense retriever's query and doc embeddings (bf16 and W8A8
+    docs, its guard's record), SPLADE's doc vectors (W8A8, its guard's
+    record), and the BERT (also W8A8) and DeBERTa cross-encoders' scores,
+    with ``batch_size`` 8, so that the last batch is ragged."""
+    from bergen_tpu_torch.models.rerankers.crossencoder import CrossEncoder
+    from bergen_tpu_torch.models.retrievers.dense import DenseRetriever
+    from bergen_tpu_torch.models.retrievers.splade import SpladeRetriever
+
+    out = {}
+    dense = DenseRetriever(models["bert"], max_len=64, batch_size=8,
+                           device="cpu", pooler="mean", similarity="cos")
+    out["dense_query"] = dense.encode(texts, "query")
+    out["dense_doc"] = dense.encode(texts, "doc")
+    q8 = DenseRetriever(models["bert"], max_len=64, batch_size=8,
+                        device="cpu", quantization="w8a8", w8a8_guard=0.0)
+    out["dense_w8a8"] = q8.encode(texts, "doc")
+    out["dense_guard"] = q8.w8a8_fidelity
+    splade = SpladeRetriever(models["splade"], max_len=64, nnz=32,
+                             batch_size=8, device="cpu",
+                             quantization="w8a8", w8a8_guard=2.0)
+    out["splade_w8a8"] = splade.encode(texts, "doc")
+    out["splade_guard"] = splade.w8a8_fidelity
+    for name, kw in (("ce_bert", {}), ("ce_w8a8", {"quantization": "w8a8",
+                                                    "w8a8_guard": 0.0}),
+                     ("ce_deberta", {})):
+        ce = CrossEncoder(models["deberta" if name == "ce_deberta"
+                                 else "ce"], max_len=64, device="cpu", **kw)
+        out[name] = [ce.score_pairs(queries[s:s + 8], docs[s:s + 8])
+                     for s in range(0, len(queries), 8)]
+        out[name + "_guard"] = ce.w8a8_fidelity
+    return _every_rank(out)
+
+
+JOBS = {"sharded_ops": sharded_ops, "encoders": encoders,
+        "quantized": quantized, "generation": generation, "mixtral": mixtral, "decoding": decoding,
         "llm_error": llm_error, "cli": cli, "judge": judge}
