@@ -17,6 +17,9 @@ A generator with ``tp`` > 1 runs under ``torchrun``, one process a card:
 
 ``dist_backend=gloo device=cuda:0`` (also kept out of the config) puts
 every rank on one card, which NCCL refuses; ``device=cpu`` takes gloo.
+A ``train=`` config trains the tp generator there too (every rank its
+slice, rank 0 writing), and a query generator that rewrites with the
+generator runs on its ranks.
 """
 
 from __future__ import annotations

@@ -64,6 +64,7 @@ from bergen_tpu_torch.ops.flash_attention import (flash_attention,
 from bergen_tpu_torch.ops import w8a8_matmul as _w8
 from bergen_tpu_torch.ops.w8a8_matmul import w8a8_matmul
 from bergen_tpu_torch.parallel import mesh as _mesh
+from bergen_tpu_torch.parallel import shard as _shard
 
 Params = Dict[str, Any]
 
@@ -333,12 +334,6 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
     at the whole rows' scales and sums its int32 partials
     (``_w8a8_row_parallel``)."""
     bias = p.get("bias")
-    if "tp_shape" in p and _rows(p) != p["tp_shape"][0]:
-        tp = p["tp_shape"][0] // _rows(p)
-        if "kernel_scale_a8" in p:
-            return _w8a8_row_parallel(p, x, tp)
-        y = _mesh.all_reduce_sum(_partial_f32(p, x), tp)
-        return (y if bias is None else y + bias).to(x.dtype)
     if "lora_a" in p and "kernel" not in p:
         # JAX's quantized branches return before its LoRA branch, so an
         # adapter there would be dropped unseen (and its init_lora attaches
@@ -348,6 +343,12 @@ def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
             "generator")
     if "lora_a" in p:
         return _lora_dense(p, x)
+    if "tp_shape" in p and _rows(p) != p["tp_shape"][0]:
+        tp = p["tp_shape"][0] // _rows(p)
+        if "kernel_scale_a8" in p:
+            return _w8a8_row_parallel(p, x, tp)
+        y = _mesh.reduce_out(_partial_f32(p, x), tp)
+        return (y if bias is None else y + bias).to(x.dtype)
     if "kernel_scale_a8" in p:
         # W8A8 (bergen_tpu/models/llama.py:306-322): per-row int8
         # activations, int32 sums, * sx * scale (+ bias), one rounding; the
@@ -446,11 +447,25 @@ def _lora_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """JAX ``llama.py:353-362`` with adapters (``train/lora.py``): f32 sums
     of x @ W, plus ((x @ A in f32, rounded to x's dtype) @ B in f32) times
     the f32 scale, plus the bias, rounded once; A and B are cast to x's
-    dtype for their products."""
+    dtype for their products.
+
+    A tensor-parallel slice (JAX's ``_linear_specs``: ``lora_a`` split as
+    the kernel's rows, ``lora_b`` as its columns): a row-parallel slice
+    sums its f32 partials of x @ W and of x @ A over the model axis, the
+    latter before the rounding, so that the whole product's rounding is
+    kept; a column-parallel slice holds A whole, whose gradient on a rank
+    covers only its columns of B and is summed over the model axis in the
+    backward (``mesh.copy_in``)."""
     dt = x.dtype
+    a = p["lora_a"]
+    dim, tp = _shard.split_of(p)
+    if tp > 1 and dim == 1:
+        a = _mesh.copy_in(a, tp)
     y = matmul_f32(x, p["kernel"])
-    h = matmul_f32(x, p["lora_a"].to(dt)).to(dt)
-    y = y + matmul_f32(h, p["lora_b"].to(dt)) * p["lora_scale"]
+    h = matmul_f32(x, a.to(dt))
+    if tp > 1 and dim == 0:
+        y, h = _mesh.reduce_out(y, tp), _mesh.reduce_out(h, tp)
+    y = y + matmul_f32(h.to(dt), p["lora_b"].to(dt)) * p["lora_scale"]
     if "bias" in p:
         y = y + p["bias"]
     return y.to(dt)
@@ -486,14 +501,22 @@ def _flash_enabled(S: int) -> bool:
 
 def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
          positions: torch.Tensor, inv_freq: torch.Tensor):
-    """q and k with RoPE, and v: [B, S, H | KH, Dh]."""
+    """q and k with RoPE, and v: [B, S, H | KH, Dh].  Under autograd at
+    tp > 1 the column-parallel slices read ``_copy_in(x)``; whole k and v
+    projections (tp does not divide the KV heads) read x itself and pass
+    their outputs through the copy-in instead, so that their weights'
+    gradients (a rank's heads' share) are summed and x's is summed once."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(_proj(layer["attn"]["q"], x).reshape(B, S, H, Dh),
-                   positions, inv_freq, cfg.rope_interleaved)
-    k, v = _proj(layer["attn"]["k"], x), _proj(layer["attn"]["v"], x)
     kept = getattr(cfg, "kv_heads_kept", None)
-    if kept is not None:
+    xc = _copy_in(x, cfg)
+    q = apply_rope(_proj(layer["attn"]["q"], xc).reshape(B, S, H, Dh),
+                   positions, inv_freq, cfg.rope_interleaved)
+    if kept is None:
+        k, v = _proj(layer["attn"]["k"], xc), _proj(layer["attn"]["v"], xc)
+    else:
+        k = _copy_in(_proj(layer["attn"]["k"], x), cfg)
+        v = _copy_in(_proj(layer["attn"]["v"], x), cfg)
         # whole k and v projections (tp does not divide the KV heads):
         # this rank's query heads read these
         keep = torch.tensor(kept, device=x.device)
@@ -684,7 +707,18 @@ def _attention_paged(layer: Params, cfg: LlamaConfig, x: torch.Tensor,
     return _proj(layer["attn"]["o"], ctx.reshape(B, 1, H * Dh))
 
 
-def _mlp(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def _copy_in(x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """``x`` as the input of a rank's column-parallel slices
+    (``mesh.copy_in``: under autograd its gradient is summed over the model
+    axis); x itself at tp 1 or without autograd."""
+    tp = getattr(cfg, "tp", 1)
+    return _mesh.copy_in(x, tp) if tp > 1 else x
+
+
+def _mlp(layer: Params, x: torch.Tensor, act: str = "silu",
+         cfg: LlamaConfig | None = None) -> torch.Tensor:
+    if cfg is not None:
+        x = _copy_in(x, cfg)
     g = ACT_FNS[act](_proj(layer["mlp"]["gate"], x))
     return _proj(layer["mlp"]["down"], g * _proj(layer["mlp"]["up"], x))
 
@@ -721,21 +755,28 @@ def _moe(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
     expert_count)`` and its f32 partial meets the other ranks' in an
     all-reduce before the rounding (where tp does not divide the experts,
     every rank holds them all and none is summed).  Plain products: JAX's
-    block reaches no Pallas kernel."""
+    block reaches no Pallas kernel.  Under autograd a rank's gradients of
+    the route weights and of the experts' input cover only its experts:
+    both pass through ``_copy_in`` (summed in the backward), the router's
+    input does not (its gradient, from the summed route weights, is
+    whole)."""
     moe = layer["moe"]
     w = route_weights(matmul_f32(x, moe["router"]["kernel"]),
                       cfg.num_experts_per_tok).to(x.dtype)
     act = ACT_FNS[cfg.hidden_act]
     gate, up, down = (moe[n]["kernel"] for n in ("gate", "up", "down"))
     first = getattr(cfg, "expert_first", 0)
+    split = gate.shape[0] < cfg.num_experts
+    if split:
+        w, x = _copy_in(w, cfg), _copy_in(x, cfg)
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for j in range(gate.shape[0]):
         g = act(matmul_f32(x, gate[j]).to(x.dtype))
         u = matmul_f32(x, up[j]).to(x.dtype)
         h = matmul_f32(g * u, down[j]).to(x.dtype)
         acc = acc + w[..., first + j, None].float() * h.float()
-    if gate.shape[0] < cfg.num_experts:
-        acc = _mesh.all_reduce_sum(acc, cfg.tp)
+    if split:
+        acc = _mesh.reduce_out(acc, cfg.tp)
     return acc.to(x.dtype)
 
 
@@ -846,10 +887,11 @@ def forward(params: Params, cfg: LlamaConfig, input_ids: torch.Tensor,
     lm_head = params.get("lm_head")
     if lm_head is None:  # tied embeddings
         logits = _tied_head(x, params["embed"])
-    else:
+    elif "tp_shape" in lm_head:  # a column-parallel head: every logit
+        logits = _mesh.gather_last(
+            _proj(lm_head, _copy_in(x, cfg)).float(), cfg.tp)
+    else:  # whole (a tied head is whole too: the embedding is replicated)
         logits = _proj(lm_head, x).float()
-        if "tp_shape" in lm_head:  # a column-parallel head: every logit
-            logits = _mesh.all_gather_last(logits, cfg.tp)
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
     if cfg.final_logit_softcap:
@@ -886,7 +928,7 @@ def _decoder_layer(layer: Params, cfg: LlamaConfig, x: torch.Tensor, *,
                        attn_mask, chunk)
     if cfg.parallel_block:
         # cohere: attention and MLP read the same normed input
-        return x + a + _mlp(layer, h, cfg.hidden_act)
+        return x + a + _mlp(layer, h, cfg.hidden_act, cfg)
     if cfg.post_norms:  # gemma-2's sandwich: norm the sublayer output
         a = _norm(layer["post_attn_norm"], a, cfg)
     x = x + a
@@ -894,7 +936,7 @@ def _decoder_layer(layer: Params, cfg: LlamaConfig, x: torch.Tensor, *,
     if stats is not None:
         stats.append(outlier_ratio(h))
     m = _moe(layer, cfg, h) if "moe" in layer else \
-        _mlp(layer, h, cfg.hidden_act)
+        _mlp(layer, h, cfg.hidden_act, cfg)
     if cfg.post_norms:
         m = _norm(layer["post_mlp_norm"], m, cfg)
     return x + m

@@ -18,7 +18,14 @@ Two kinds of collective run over them:
 
 * over the ``model`` axis, where the generator's tensor-parallel products
   meet (``all_reduce_sum``, ``all_reduce_max``, ``all_gather_last``): the
-  rank's model row of the grid whose model axis is ``tp``;
+  rank's model row of the grid whose model axis is ``tp``.  Training
+  differentiates through three of them, each an autograd Function that
+  works out of place (an in-place ``copy_`` back into a tensor of the
+  graph would cut its gradient): ``copy_in`` (forward the identity,
+  backward the sum), ``reduce_out`` (forward the sum, backward the
+  identity) and ``gather_last`` (forward the all-gather, backward the
+  rank's slice).  Without autograd they are the identity, the in-place
+  ``all_reduce_sum`` and ``all_gather_last``;
 * over the ``data`` axis of ``get_mesh()`` (data = every rank), where the
   encoders, the reranker and the retrieval engines run data-parallel:
   ``all_gather_rows`` (equal shards joined in rank order), ``data_rows``
@@ -249,14 +256,94 @@ def all_reduce_max(t: torch.Tensor, tp: int | None = None) -> torch.Tensor:
     return _all_reduce(t, dist.ReduceOp.MAX, tp)
 
 
-def all_gather_last(t: torch.Tensor, tp: int | None = None) -> torch.Tensor:
-    """Every ``model`` rank's ``t`` joined along the last dimension, in
-    rank order."""
+def all_gather_last(t: torch.Tensor, tp: int | None = None,
+                    dim: int = -1) -> torch.Tensor:
+    """Every ``model`` rank's ``t`` joined along the last dimension (or
+    ``dim``), in rank order."""
     m = _model_axis(tp)
     src = _on_backend(t, m)
     parts = [torch.empty_like(src) for _ in range(m.model)]
     dist.all_gather(parts, src, group=m.model_group)
-    return torch.cat(parts, dim=-1).to(t.device)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _summed(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the model axis (``t`` untouched)."""
+    m = _model_axis(tp)
+    src = _on_backend(t, m)
+    if src.data_ptr() == t.data_ptr():
+        src = src.clone()
+    dist.all_reduce(src, op=dist.ReduceOp.SUM, group=m.model_group)
+    return src.to(t.device)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Forward the identity, backward the sum over the model axis: the
+    input of column-parallel slices, whose gradients on each rank cover
+    only its columns.  The partials meet in f32 and the sum is rounded
+    once to the gradient's dtype, as the forward's row-parallel partials
+    are."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g.float(), ctx.tp).to(g.dtype), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Forward the sum over the model axis (out of place), backward the
+    identity: the partials of row-parallel slices and of the MoE block."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _summed(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward the all-gather along the last dimension, backward the
+    rank's slice of the gradient: the column-parallel head."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.n = tp, x.shape[-1]
+        return all_gather_last(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = _model_axis(ctx.tp).model_rank
+        return g.narrow(-1, r * ctx.n, ctx.n).contiguous(), None
+
+
+def copy_in(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """``x`` as the input of a column-parallel slice: itself, and under
+    autograd its gradient summed over the model axis of ``tp`` in the
+    backward (each rank's covers its own columns)."""
+    return _CopyIn.apply(x, tp) if torch.is_grad_enabled() else x
+
+
+def reduce_out(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """``x`` summed over the model axis of ``tp``: in place under
+    ``no_grad`` (``all_reduce_sum``, inference), else a new tensor whose
+    gradient passes to every rank's partial unchanged."""
+    if torch.is_grad_enabled():
+        return _ReduceOut.apply(x, tp)
+    return all_reduce_sum(x, tp)
+
+
+def gather_last(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """``all_gather_last``; under autograd the gradient's slice of this
+    rank flows back to ``x``."""
+    if torch.is_grad_enabled():
+        return _GatherLast.apply(x, tp)
+    return all_gather_last(x, tp)
 
 
 def data_world() -> int:

@@ -24,6 +24,12 @@ each rank then keeps the KV heads its query heads read
 (``ShardConfig.kv_heads_kept``).  Query heads, the MLP width and the int4
 groups of a row-parallel leaf must divide, or ``shard_llama`` raises.
 
+LoRA adapters follow ``_linear_specs`` (JAX ``llama.py:1367-1370``):
+``lora_a`` [d_in, r] is split by rows beside a row-parallel kernel and
+whole beside a column-parallel one, ``lora_b`` [r, d_out] split by
+columns beside a column-parallel kernel and whole beside a row-parallel
+one, ``lora_scale`` whole (``adapter_piece``).
+
 Mixtral's experts (JAX ``llama.py:1400-1409``): the expert axis is split,
 never an expert.  Rank r keeps experts ``[r * E/tp, (r+1) * E/tp)``, each
 whole, and the whole router, whose top-k stays over all E experts; its
@@ -73,7 +79,7 @@ Params = Dict[str, Any]
 ROW = ("o", "down")  # the row-parallel projections; the rest by columns
 _LINEAR_KEYS = {"kernel", "bias", "kernel_q4p", "kernel_scale4", "tp_shape",
                 "kernel_q", "kernel_scale", "kernel_scale_a8", "kernel_q_t",
-                "n_out"}
+                "n_out", "lora_a", "lora_b", "lora_scale"}
 _COLUMN_SCALES = ("kernel_scale", "kernel_scale_a8")
 
 
@@ -145,8 +151,63 @@ def _check_linear(node: Params, where: str) -> None:
     extra = set(node) - _LINEAR_KEYS
     if extra:
         raise NotImplementedError(
-            f"{where}: leaves {sorted(extra)} under tensor parallelism (LoRA "
-            "trees: ROADMAP.md Queue 1 #10, multi-GPU)")
+            f"{where}: leaves {sorted(extra)} under tensor parallelism")
+
+
+def split_of(node: Params) -> tuple[int | None, int]:
+    """(the kernel's split dimension: 0 for a row-parallel slice, 1 for a
+    column-parallel one, None for a whole leaf; tp) of a linear node."""
+    if "tp_shape" not in node:
+        return None, 1
+    K, N = _whole(node)
+    tK, tN = node["tp_shape"]
+    return (0, tK // K) if K != tK else (1, tN // N)
+
+
+def adapter_piece(key: str, t: torch.Tensor, dim: int | None, tp: int,
+                  r: int) -> torch.Tensor:
+    """Rank ``r``'s slice of a whole LoRA leaf of a node split along
+    ``dim`` (JAX's ``_linear_specs``): ``lora_a`` [d_in, rank] by rows
+    with a row-parallel kernel, ``lora_b`` [rank, d_out] by columns with a
+    column-parallel one; otherwise (and ``lora_scale``) whole."""
+    if key == "lora_a" and dim == 0:
+        return _piece(t, 0, tp, r)
+    if key == "lora_b" and dim == 1:
+        return _piece(t, 1, tp, r)
+    return t.clone()
+
+
+def replicated_paths(tree: Params) -> List[str]:
+    """The dotted paths (``convert.flatten_paths``) of a rank's tensor
+    leaves that every rank of its model row holds whole: the embedding,
+    the norms, the router, a whole node's leaves (a head tp does not
+    divide, k and v when tp does not divide the KV heads), a row-parallel
+    slice's bias and ``lora_b``, a column-parallel slice's ``lora_a``,
+    every ``lora_scale``, and expert stacks tp does not divide."""
+    out: List[str] = []
+
+    def walk(node, path):
+        if isinstance(node, torch.Tensor):
+            out.append(path)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}.{i}")
+        elif isinstance(node, dict) and "router" in node:  # a MoE node
+            E = node["router"]["kernel"].shape[-1]
+            walk(node["router"], f"{path}.router")
+            out.extend(f"{path}.{n}.kernel" for n in ("gate", "up", "down")
+                       if node[n]["kernel"].shape[0] == E)
+        elif isinstance(node, dict) and "tp_shape" in node:
+            dim, _ = split_of(node)
+            whole = {"lora_scale"} | ({"bias", "lora_b", *_COLUMN_SCALES}
+                                      if dim == 0 else {"lora_a"})
+            out.extend(f"{path}.{k}" for k in node if k in whole)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+
+    walk(tree, "")
+    return out
 
 
 def _launches(node: Params, tp: int, int4: bool) -> bool:
@@ -183,7 +244,9 @@ def _column(node: Params, tp: int, r: int, where: str,
     if "kernel_q_t" in node:
         return _w8a8_column(node, out, K, N, tp, r, where)
     for key, t in node.items():
-        if key != "tp_shape":
+        if key.startswith("lora_"):
+            out[key] = adapter_piece(key, t, 1, tp, r)
+        elif key != "tp_shape":
             out[key] = _piece(t, t.dim() - 1, tp, r)
     return out
 
@@ -220,7 +283,9 @@ def _row(node: Params, tp: int, r: int, where: str) -> Params:
             f"{where}: tp={tp} does not divide its {groups} int4 groups")
     out: Params = {"tp_shape": [K, N]}
     for key, t in node.items():
-        if key in ("kernel", "kernel_q4p", "kernel_scale4", "kernel_q"):
+        if key.startswith("lora_"):
+            out[key] = adapter_piece(key, t, 0, tp, r)
+        elif key in ("kernel", "kernel_q4p", "kernel_scale4", "kernel_q"):
             out[key] = _piece(t, 0, tp, r)
         elif key == "kernel_q_t":  # [N', K]: the input rows are columns
             out[key] = _piece(t, 1, tp, r)
@@ -326,7 +391,9 @@ def unshard_llama(shards: List[Params]) -> Params:
         for key, t in first.items():
             if key == "tp_shape":
                 continue
-            if key == "kernel_q_t":
+            if key == "lora_scale" or key == ("lora_b" if row else "lora_a"):
+                out[key] = t  # whole on every rank
+            elif key == "kernel_q_t":
                 out[key] = torch.cat([n[key] for n in nodes], dim=1)
             elif row and key in ("bias", "n_out") + _COLUMN_SCALES:
                 out[key] = t

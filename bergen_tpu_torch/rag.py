@@ -21,10 +21,14 @@ joins the context stage, whose encoders (RECOMP's, DSLR's) split their
 batches over the ranks too.  Rank 0 alone processes the datasets (the
 other ranks then read the columns it wrote: a processor is never re-run,
 as MKQA's rows and ASQA's labels follow the hash seed), decides whether a
-cached run, index or processed-context file is used, runs the query
-rewrite (handing its output to every rank), and writes every file: runs,
-indexes, metrics, ``eval_*_out.json`` and the experiment folder, named
-as in one process.
+cached run, index, rewritten-query or processed-context file is used,
+runs a query rewrite on a model of its own (NLLB; a rewrite on the
+pipeline's generator runs on every rank, as the generator's slices do)
+and hands its output to every rank, and writes every file: runs,
+indexes, metrics, ``eval_*_out.json``, ``train_history.json`` and the
+experiment folder, named as in one process.  The train stage runs on
+every rank (``train/trainer.py``: a tensor-parallel generator trains its
+slices).
 """
 
 from __future__ import annotations
@@ -105,10 +109,6 @@ class RAG:
         self.device = _device.resolve(device)
         # under torchrun every rank joins the stages; rank 0 writes
         self.rank = _mesh.rank()
-        if train is not None and _mesh.world_size() > 1:
-            raise NotImplementedError(
-                "the train stage under torchrun: LoRA and full SFT with tp > "
-                "1 are not ported (ROADMAP.md Queue 1 #10, multi-GPU)")
         self.debug = debug
         self.dataset_folder = dataset_folder
         self.experiments_folder = experiments_folder
@@ -179,12 +179,6 @@ class RAG:
         self.query_generator = GenerateQueries(
             generator=self.generator, **query_generator, device=self.device
         )
-        if hasattr(self.query_generator.model, "set_generator") and \
-                _mesh.world_size() > 1:
-            raise NotImplementedError(
-                "a query generator that rewrites with the tensor-parallel "
-                "generator runs on rank 0 alone (ROADMAP.md Queue 1 #10, "
-                "multi-GPU)")
         self.context_processor = (
             ProcessContext(**context_processor, device=self.device)
             if context_processor is not None
@@ -272,11 +266,18 @@ class RAG:
                 self.generated_query_folder, query_dataset_name,
                 self.query_generator.get_clean_model_name(), dataset_split,
             )
-            # rank 0 rewrites, or reads its file, for every rank
+            # rank 0 decides whether to rewrite or read its file, for every
+            # rank; a rewrite on the pipeline's generator (set_generator)
+            # runs on every rank, as that generator's slices do; one on a
+            # model of its own (NLLB) on rank 0 alone; rank 0 writes
             lead, generated = self.rank == 0, None
-            if lead and (not os.path.exists(fname) or self.overwrite_exp
-                         or self.overwrite_index):
+            rewrite = _mesh.broadcast_object(lead and (
+                not os.path.exists(fname) or self.overwrite_exp
+                or self.overwrite_index))
+            shared = hasattr(self.query_generator.model, "set_generator")
+            if rewrite and (lead or shared):
                 generated = self.query_generator.eval(dataset["query"])
+            if rewrite and lead:
                 os.makedirs(self.generated_query_folder, exist_ok=True)
                 with open(fname, "w") as fp:
                     json.dump({"generated_queries": generated}, fp)
@@ -496,7 +497,9 @@ class RAG:
         processing where configured, JAX's train/test split with seed 42,
         the trainer (LoRA or full), ``train_history.json``, then the move of
         the finished experiment.  The merged generator stays on
-        ``self.generator``."""
+        ``self.generator``.  Under ``torchrun`` every rank joins every
+        stage and trains its slice of a tensor-parallel generator (each
+        model row the same batches); rank 0 writes."""
         dataset_split = "train"
         dataset = self.datasets[dataset_split]
         query_dataset_name = dataset["query"].name
@@ -553,10 +556,13 @@ class RAG:
         pre_loss = trainer.evaluate()
         result = trainer.train()
         result["pre_train_eval_loss"] = pre_loss
-        utils.write_dict(self.experiment_folder, "train_history.json", result)
-        self.experiment_folder = utils.move_finished_experiment(
-            self.experiment_folder
-        )
+        lead = self.rank == 0
+        if lead:
+            utils.write_dict(self.experiment_folder, "train_history.json",
+                             result)
+        self.experiment_folder = _mesh.broadcast_object(
+            utils.move_finished_experiment(self.experiment_folder) if lead
+            else None)
         return result
 
     def eval_metrics(self, dataset_split, questions, predictions, references):

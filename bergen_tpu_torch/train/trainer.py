@@ -13,6 +13,18 @@ JAX's on its accelerator: the generator's weights in its compute dtype
 moments in each trained leaf's dtype.  ``adapters_best.npz`` has JAX's key
 names and shapes.  The loss's forward reaches no kernel (``step.py``); the
 eval after training does.
+
+A tensor-parallel generator (``LLM(tp=...)`` under ``torchrun``) trains
+its rank's slice, as XLA partitions JAX's one jitted step over the
+``model`` axis: the forward's collectives are differentiable
+(``mesh.copy_in`` / ``reduce_out`` / ``gather_last``), so each rank's
+gradients are those of the whole tree's step on its leaves, and AdamW
+acts element-wise on them.  The replicated leaves (norms, embedding,
+router, a row-parallel slice's bias, a slice's whole adapter factor) get
+the same gradients on every rank and stay equal.  Every model row of a
+world larger than tp trains the same batches (JAX's trainer takes its
+inputs unsharded).  Rank 0 alone writes ``adapters_best.npz``, gathered
+whole over its model row.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import torch
 
 from bergen_tpu_torch.models import convert
 from bergen_tpu_torch.models.core import length_bucket
+from bergen_tpu_torch.parallel import mesh as _mesh
 from bergen_tpu_torch.train import lora as lora_lib
 from bergen_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from bergen_tpu_torch.train.step import causal_lm_loss
@@ -40,11 +53,6 @@ class SFTTrainer:
         output_dir: str,
         seed: int = 42,
     ):
-        if getattr(generator, "tp", 1) > 1:
-            raise NotImplementedError(
-                f"training a tp={generator.tp} generator: LoRA and full SFT "
-                "under tensor parallelism are not ported (ROADMAP.md Queue 1 "
-                "#10, multi-GPU)")
         if getattr(generator, "quantization_route", None) is not None:
             raise NotImplementedError(
                 f"training a {generator.quantization_route} generator: its "
@@ -57,7 +65,9 @@ class SFTTrainer:
         self.eval_rows = eval_rows
         self.tc = training_config
         self.output_dir = output_dir
-        os.makedirs(output_dir, exist_ok=True)
+        self.lead = _mesh.rank() == 0  # under torchrun rank 0 writes
+        if self.lead:
+            os.makedirs(output_dir, exist_ok=True)
         self.rng = np.random.default_rng(seed)
 
         t = training_config.get("trainer", {})
@@ -79,8 +89,10 @@ class SFTTrainer:
         else:
             mask = {p: True for p in convert.flatten_paths(params)}
         self.params = params
+        # tensor leaves only (a slice's tp_shape is two ints)
         self.trainable = [(p, t) for p, t in
-                          convert.flatten_paths(params).items() if mask[p]]
+                          convert.flatten_paths(params).items()
+                          if mask[p] and isinstance(t, torch.Tensor)]
 
         n_steps = max(1, (len(train_rows) // self.batch_size) * self.epochs)
         schedule = warmup_cosine_decay_schedule(
@@ -192,9 +204,10 @@ class SFTTrainer:
                         best["loss"] = eval_loss
                         best["adapters"] = lora_lib.extract_adapters(
                             self.params)
-                        np.savez(os.path.join(self.output_dir,
-                                              "adapters_best.npz"),
-                                 **best["adapters"])
+                        if self.lead:
+                            np.savez(os.path.join(self.output_dir,
+                                                  "adapters_best.npz"),
+                                     **best["adapters"])
         # the best adapters (reference: load_best_model_at_end=True), then
         # merged into the generator for inference
         if best["adapters"]:

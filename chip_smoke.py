@@ -135,9 +135,10 @@ Phases (each prints one JSON line):
      after the served Mistral paths, COCOM and xRAG on the Mistral-7B
      checkpoint's first two layers (the memory at the CPU rule's slots;
      the memory and the injected rows against the CPU) and ``train=lora``
-     on TinyLlama whole through the train stage (no kernel in a train step,
-     a grad-requiring tensor refused by the wrappers, steps 2 and 3
-     against the CPU, the merged generator's dev eval on the kernels);
+     on TinyLlama's first 8 layers through the train stage (no kernel in
+     a train step, a grad-requiring tensor refused by the wrappers, steps
+     2 and 3 against the CPU, the merged generator's dev eval on the
+     kernels);
      then ``generator=gorilla-7b-hf-v1-gguf`` on a GGUF file the script
      writes (gorilla-7b-hf-v1's widths at 2 layers, seeded random Q6_K
      blocks, q and k in llama.cpp's order, a llama-layout vocabulary): the
@@ -174,11 +175,18 @@ Llama-2-70B at their published widths and 2 layers, each path as
 ``torchrun --standalone`` ranks that all share this card over gloo (NCCL
 refuses two ranks on one device), each rank counting its own launches
 (``tp_rank_main``): rag_ut1 with ``generator=llama-2-13b-chat`` on 2 ranks,
-static and served paged (``ut1_tp2_llama2_13b``, ``_paged``), the default
-judge in logits mode on 4 (``judge_tp4_solar``), the 70B generator alone
-on 8 (``gen_tp8_llama2_70b``); then each against tp 1 on this card
-(``check_tp_against_tp1``). The ranks time-slice the card, so no time of
-these paths is a tensor-parallel speed.
+static and served paged (``ut1_tp2_llama2_13b``, ``_paged``), trained
+with ``train=lora`` and its merged generator's dev eval
+(``ut1_tp2_train_lora``) and rewriting the questions with
+``unfold_api_query`` (``ut1_tp2_unfold``), the default judge in logits
+mode on 4 (``judge_tp4_solar``), the 70B generator alone on 8
+(``gen_tp8_llama2_70b``); then each against tp 1 on this card
+(``check_tp_against_tp1``) and the LoRA steps 2 and 3 against the f32
+CPU (``check_tp_train_against_cpu``).  The Mixtral's
+``train=full-47b`` at tp 8 (``gen_tp8_mixtral_train_full``) runs in the
+8 ranks, its steps against tp 1 on the card and the CPU too.  The ranks
+time-slice the card, so no time of these paths is a tensor-parallel
+speed.
 
 The mesh's data axis, after them on the same 13B checkpoint
 (``--data-parallel`` runs only it, after the build, its kernel checks
@@ -208,6 +216,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from types import SimpleNamespace
 
@@ -355,6 +364,14 @@ PATH_KERNELS = {
     "ut1_tp2_llama2_13b_paged": ("encoder_layer", "paged_attention"),
     "judge_tp4_solar": ("flash_attention",),
     "gen_tp8_llama2_70b": ("decode_attention",),
+    # fine-tuning under tp (PR 24): train=lora on the 13B at tp 2 (both
+    # ranks retrieve; its steps launch nothing; the merged generator's dev
+    # eval decodes), the rewrite with the 13B at tp 2 (its retrieval
+    # encodes the rewritten queries), train=full-47b on the Mixtral at tp 8
+    # (no retriever, no eval: no kernel)
+    "ut1_tp2_train_lora": ("encoder_layer", "decode_attention"),
+    "ut1_tp2_unfold": ("encoder_layer", "decode_attention"),
+    "gen_tp8_mixtral_train_full": (),
     # Mixtral (2 layers): rag_ut1 static (flash prefill on), served from
     # the page pool, int4 (the attention and the head packed, the experts
     # bf16), xRAG on the Mixtral decoder with the Mistral-7B trunk as the
@@ -474,6 +491,30 @@ def timed(fn, *args) -> dict:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+class Background:
+    """``timed(fn, *args)`` in a thread (a CPU reference check while the
+    card runs the next phase's ranks, which leave this process idle);
+    ``result()`` joins it and re-raises what it raised, ``fail``'s exit
+    included."""
+
+    def __init__(self, fn, *args):
+        self.out = self.err = None
+        self.thread = threading.Thread(target=self._run, args=(fn, args))
+        self.thread.start()
+
+    def _run(self, fn, args) -> None:
+        try:
+            self.out = timed(fn, *args)
+        except BaseException as e:  # re-raised in the caller by result()
+            self.err = e
+
+    def result(self) -> dict:
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
 
 
 def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1723,11 +1764,13 @@ INT4_TOL = 1e-3
 # (M, K, N): Llama-2-7B's projections (q/k/v/o 4,096 x 4,096, gate/up
 # 4,096 x 11,008, down 11,008 x 4,096, lm_head 4,096 x 32,000) at decode
 # (batch 8) and at the prefill of the int4 path's batch (8 x its bucket),
-# then the prefill shape that crashed the TPU path
+# then the prefill shape that crashed the TPU path, then the int4
+# Mixtral's (and Mistral-7B's) k and v, 4,096 x 1,024, at decode
 INT4_KN = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 INT4_PREFILL_M = 8 * 256
 INT4_SHAPES = tuple((8, K, N) for K, N in INT4_KN) + tuple(
-    (INT4_PREFILL_M, K, N) for K, N in INT4_KN) + ((8192, 4096, 32000),)
+    (INT4_PREFILL_M, K, N) for K, N in INT4_KN) + ((8192, 4096, 32000),
+                                                   (8, 4096, 1024))
 INT4_GROUP = 128
 INT4_EXACT_SHAPES = ((8, 11008, 4096, 128), (12, 4096, 1024, 128),
                      (2048, 4096, 1024, 128), (300, 4096, 384, 128),
@@ -3850,20 +3893,28 @@ def first_layers(path: str, n_layers: int = 2) -> str:
     """A checkpoint directory beside ``path`` that is its first ``n_layers``
     layers (embedding, final norm and lm_head included): config and
     tokenizer copied, the shards that hold those tensors linked, and an
-    index over them."""
+    index over them (a one-file checkpoint linked whole)."""
     out = path + f"-{n_layers}layers"
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(path, "model.safetensors.index.json")) as f:
-        weight_map = json.load(f)["weight_map"]
-    keep = {k: v for k, v in weight_map.items()
-            if not k.startswith("model.layers.")
-            or int(k.split(".")[2]) < n_layers}
-    for name in set(keep.values()):
-        link = os.path.join(out, name)
+    index = os.path.join(path, "model.safetensors.index.json")
+    if not os.path.exists(index):  # one file: linked whole (the config's
+        # layers are the ones read)
+        link = os.path.join(out, "model.safetensors")
         if not os.path.exists(link):
-            os.symlink(os.path.join(path, name), link)
-    with open(os.path.join(out, "model.safetensors.index.json"), "w") as f:
-        json.dump({"weight_map": keep}, f)
+            os.symlink(os.path.join(path, "model.safetensors"), link)
+    else:
+        with open(index) as f:
+            weight_map = json.load(f)["weight_map"]
+        keep = {k: v for k, v in weight_map.items()
+                if not k.startswith("model.layers.")
+                or int(k.split(".")[2]) < n_layers}
+        for name in set(keep.values()):
+            link = os.path.join(out, name)
+            if not os.path.exists(link):
+                os.symlink(os.path.join(path, name), link)
+        with open(os.path.join(out, "model.safetensors.index.json"),
+                  "w") as f:
+            json.dump({"weight_map": keep}, f)
     with open(os.path.join(path, "config.json")) as f:
         cfg = json.load(f)
     with open(os.path.join(out, "config.json"), "w") as f:
@@ -6734,10 +6785,13 @@ TRAIN_OVERRIDES = [
     "bergen_tpu.data.processors.ut.UT1Docs, split: dev}}",
     "dataset.train.query={init_args: {_target_: "
     "bergen_tpu.data.processors.ut.UT1Queries, split: dev}}"]
+# ut1_train_lora's depth: TinyLlama's first 8 of its 22 layers since PR
+# 24 (whole before), at full width, for the whole script's time
+TRAIN_LLAMA_LAYERS = 8
 PROVENCE_TRAIN_ROWS = 48
-# provence_train's depth: 12 of DeBERTa-v3-large's 24 layers since PR 23
-# (24 before), at full width, for the whole script's time
-PROVENCE_TRAIN_LAYERS = 12
+# provence_train's depth: 6 of DeBERTa-v3-large's 24 layers since PR 24
+# (12 in PR 23, 24 before), at full width, for the whole script's time
+PROVENCE_TRAIN_LAYERS = 6
 # 80 steps at the root script's learning rate, 1e-5, with its warmup of
 # a twentieth of the steps (Adam's first real step moves every parameter
 # by the learning rate: with one warmup step of 20 it sent the
@@ -7026,8 +7080,9 @@ def _grad_kernel_refusals(dev) -> dict:
 
 
 def run_ut1_train_lora(ckpt: dict, workdir: str) -> dict:
-    """``train=lora`` on ``tinyllama-chat`` (TinyLlama whole: 22 layers at
-    its published widths) through the train stage, ut1's dev rows as the
+    """``train=lora`` on ``tinyllama-chat`` (TinyLlama's first
+    TRAIN_LLAMA_LAYERS of its 22 layers at its published widths,
+    ``first_layers``) through the train stage, ut1's dev rows as the
     train split: retrieval, 20 LoRA steps with evals, then the dev eval of
     the merged generator (16 new tokens).  Checks: no kernel counter moves
     in a train step or an eval loss; the held-out loss falls, and the last
@@ -7084,7 +7139,7 @@ def run_ut1_train_lora(ckpt: dict, workdir: str) -> dict:
             "retriever=bge-base-en-v1.5",
             f"retriever.init_args.model_name={_local(ckpt, 'bert')}",
             "generator=tinyllama-chat",
-            f"generator.init_args.model_name={_local(ckpt, 'llama')}",
+            f"generator.init_args.model_name={_local(ckpt, 'llama_train')}",
             *TRAIN_OVERRIDES], workdir, ckpt)
     finally:
         SFTTrainer.__init__, SFTTrainer.train_step, SFTTrainer.eval_loss = (
@@ -7185,7 +7240,7 @@ def check_train_step_against_cpu(ckpt: dict) -> dict:
     tc = confy.load_yaml(os.path.join(REPO, "config", "train", "lora.yaml"))
     trainers = {}
     for where, dtype in (("cpu", None), ("cuda", "f32")):
-        gen = LLM(ckpt["llama"], device=where, dtype=dtype)
+        gen = LLM(ckpt["llama_train"], device=where, dtype=dtype)
         trainers[where] = SFTTrainer(gen, [{}] * 16, [], tc,
                                      tempfile.mkdtemp())
         trainers[where].remat = False
@@ -7447,7 +7502,7 @@ def check_soft_train_kernels(results: dict, dev, steps: dict) -> None:
 SOFT_TRAIN_STEP_RULES = (
     ("ut1_cocom", 0, SMOKE_NEW_PATH_LAYERS, 0),
     ("ut1_xrag", 0, SMOKE_NEW_PATH_LAYERS, SMOKE_NEW_PATH_LAYERS),
-    ("ut1_train_lora", 0, TINYLLAMA["num_hidden_layers"], 0))
+    ("ut1_train_lora", 0, TRAIN_LLAMA_LAYERS, 0))
 
 
 def check_soft_train_launches(by_path: dict, steps: dict) -> None:
@@ -7501,6 +7556,7 @@ def drive_soft_train_paths(ckpt: dict, root: str, dev, drive) -> None:
     emit({"phase": "reference_check_soft_prompts",
           **timed(check_soft_prompts_against_cpu, ckpt)})
     shutil.rmtree(ckpt.pop("xrag"), ignore_errors=True)
+    ckpt["llama_train"] = first_layers(ckpt["llama"], TRAIN_LLAMA_LAYERS)
     drive("ut1_train_lora", run_ut1_train_lora)
     emit({"phase": "reference_check_train_step",
           **timed(check_train_step_against_cpu, ckpt)})
@@ -7547,7 +7603,8 @@ TP_NEW_TOKENS = 16
 # one device), and the tp 1 references on the card
 TP_DEVICE, TP_REF_DEVICE = "cuda:0", "cuda"
 TP_PATHS = ("ut1_tp2_llama2_13b", "ut1_tp2_llama2_13b_paged",
-            "judge_tp4_solar", "gen_tp8_llama2_70b")
+            "ut1_tp2_train_lora", "ut1_tp2_unfold", "judge_tp4_solar",
+            "gen_tp8_llama2_70b")
 # tp against tp 1 on the card, both bf16: the row-parallel sums meet in
 # f32 in another order, which moves a bf16 rounding of a hidden value now
 # and then; the logits (|l| < 8 at random weights, bf16 ulp 1/32 there)
@@ -7569,7 +7626,11 @@ TP_TOPS: dict = {}
 TP_DECODE = ((32, 20, 20, 528), (8, 8, 2, 528), (8, 8, 1, 528),
              # Mixtral-8x7B over 8 ranks (gen_tp8_mixtral): H 4, KH 1,
              # the 8 questions' 32 bucket + 16 new tokens
-             (8, 4, 1, 48))
+             (8, 4, 1, 48),
+             # the 13B over 2 ranks (PR 24): the merged generator's dev eval
+             # after ut1_tp2_train_lora (the questions alone: a 32 bucket)
+             # and ut1_tp2_unfold's rewrite (a 64 bucket), + 16 new tokens
+             (32, 20, 20, 48), (32, 20, 20, 80))
 TP_PAGED = tuple(dict(S=32, H=H, KH=KH, Dh=128, maxP=34, NP=544)
                  for _, H, KH, _ in TP_DECODE[:3])
 # (B, S, H, KH): flash prefill at the SOLAR judge's per-rank heads over 4
@@ -7820,6 +7881,617 @@ def write_tp_checkpoint(root: str, dev, key: str) -> str:
                                 template, seed, tokenizer=tokenizer)
 
 
+# --------------------------------------------------------------------------- #
+# fine-tuning under tensor parallelism: the train stage on the ranks
+# --------------------------------------------------------------------------- #
+
+# ut1_tp2_train_lora: train=lora (r 32) on Llama-2-13B at tp 2, ut1's dev
+# rows as the train split with one retrieved doc a prompt (as
+# TRAIN_OVERRIDES), 38 held out (a fraction: an int is capped at half the
+# rows), batches of 4: 3 steps (step 1 and those of TRAIN_CHECK_STEPS, no
+# more, for the whole script's time), one eval at step 3
+TP_TRAIN_OVERRIDES = [
+    "retrieve_top_k=4", "rerank_top_k=4", "generation_top_k=1",
+    "train=lora", "train.test_size=0.76",
+    "train.trainer.per_device_train_batch_size=4",
+    "train.trainer.per_device_eval_batch_size=13",
+    "train.trainer.learning_rate=0.002", "+train.num_saving_steps=1",
+    *TRAIN_OVERRIDES[-2:]]
+# gen_tp8_mixtral_train_full: train=full-47b (its batches of 2 and
+# learning rate 5e-5) on Mixtral-8x7B at tp 8, one expert a rank, on the
+# Mixtral checkpoint's first MIXTRAL_TRAIN_LAYERS layers (``first_layers``;
+# cut from the 2 the other Mixtral paths run for the whole script's time:
+# its f32 CPU check trains every expert of every layer), no retriever (the
+# questions alone), 42 of ut1's 50 rows held out (a fraction: an int is
+# capped at half the rows): 4 steps, one eval at step 4
+MIXTRAL_TRAIN_LAYERS = 1
+MIXTRAL_TRAIN_OVERRIDES = [
+    "train=full-47b", "train.test_size=0.84",
+    "train.trainer.per_device_eval_batch_size=14",
+    "+train.num_saving_steps=1", *TRAIN_OVERRIDES[-2:]]
+# the leaves whose gradients a dropped collective would zero (the partial
+# sums of o, down and the experts): o's and down's must be non-zero on
+# every rank; an expert's is zero where no token of the batch routes to it,
+# so the experts' are held to the CPU's (``_sketches_against``: non-zero
+# wherever the CPU's is)
+TRAIN_LIVE_LEAVES = (".attn.o.", ".mlp.down.", ".moe.gate.", ".moe.up.",
+                     ".moe.down.")
+# the Mixtral's bf16 tp 8 step against the same step at tp 1 in bf16 on
+# the card (``check_tp_train_against_tp1``): each gradient sketch's norm
+# within 5% (a partial of the 8 missing or summed twice moves one by
+# 12.5% or more; bf16 against the f32 CPU moved them by under 1% at 1
+# layer on an H100)
+TP_TRAIN_NORM_RTOL = 0.05
+
+
+def _weights(n: int, device):
+    """n seeded N(0, 1) weights (the seed is n: the same on every
+    process)."""
+    import torch
+
+    return torch.randn(n, generator=torch.Generator().manual_seed(n)).to(
+        device)
+
+
+def _grad_sketch(g) -> dict:
+    """A gradient's f32 norm and its row and column sums under seeded
+    random weights (its leading dimensions flattened into rows: plain sums
+    cancel, the router's gradient rows sum to 0 over the experts), or a
+    1-D gradient itself: what a full-SFT step's card gradients are held
+    to the CPU's by, without moving every leaf off the ranks."""
+    import torch
+
+    g = g.detach().float()
+    if g.dim() < 2:
+        return {"v": g.cpu()}
+    g2 = g.reshape(-1, g.shape[-1])
+    return {"norm": float(torch.linalg.vector_norm(g2,
+                                                   dtype=torch.float64)),
+            "rows": (g2 @ _weights(g2.shape[1], g2.device)).cpu(),
+            "cols": (_weights(g2.shape[0], g2.device) @ g2).cpu()}
+
+
+class TrainWatch:
+    """``SFTTrainer`` watched in a rank of ``tp_rank_main`` (a run with
+    ``train``): each train step's wall time, loss and the kernel launches
+    in it (and in each eval loss: 0 required).  At each of
+    TRAIN_CHECK_STEPS the step's batch and start are kept, and its
+    gradients, also of the same step in f32 on the card (``_f32_step``):
+    LoRA's gathered whole (``lora.extract_adapters``), full SFT's as this
+    rank's sketches (``_grad_sketch``), with its start (this rank's slice,
+    the replicated leaves on rank 0 alone) saved at step 3 (step 2 starts
+    from the checkpoint: step 1's learning rate is 0) and rank 0's router
+    choices in both steps of a MoE tree (``Routes``).  The
+    leaves of TRAIN_LIVE_LEAVES whose gradient is zero are listed (LoRA's
+    at step 3: at step 2 its A's gradients are 0, B being 0).  After each
+    step, one digest of the trained replicated leaves
+    (``shard.replicated_paths``), so that the parent holds them equal
+    across the ranks."""
+
+    def __init__(self, out: str, rank: int):
+        self.out, self.rank = out, rank
+        self.trainers, self.rec = [], {"ms": [], "losses": [], "moved": [],
+                                       "tokens": 0, "zero": {},
+                                       "digests": []}
+
+    def __enter__(self):
+        from bergen_tpu_torch.train.trainer import SFTTrainer
+
+        self.orig = (SFTTrainer.__init__, SFTTrainer.train_step,
+                     SFTTrainer.eval_loss)
+        o_init, _, o_eval = self.orig
+
+        def init(t, *a, **k):
+            o_init(t, *a, **k)
+            self.trainers.append(t)
+
+        def eval_loss(t, batch):
+            before = _counts()
+            out = o_eval(t, batch)
+            self.rec["moved"].append(_moved(before))
+            return out
+
+        SFTTrainer.__init__, SFTTrainer.eval_loss = init, eval_loss
+        SFTTrainer.train_step = lambda t, batch: self.step(t, batch)
+        return self
+
+    def __exit__(self, *exc):
+        from bergen_tpu_torch.train.trainer import SFTTrainer
+
+        (SFTTrainer.__init__, SFTTrainer.train_step,
+         SFTTrainer.eval_loss) = self.orig
+
+    def step(self, t, batch) -> float:
+        import torch
+        from bergen_tpu_torch.train import lora as lora_lib
+
+        rec = self.rec
+        lora = "lora" in t.tc
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        before, t0 = _counts(), time.perf_counter()
+        n = len(rec["losses"]) + 1
+        if n not in TRAIN_CHECK_STEPS:
+            loss = self.orig[1](t, batch)
+        else:
+            kept = {"batch": {k: v.cpu() for k, v in batch.items()}}
+            if lora:
+                kept["adapters"] = {p: torch.from_numpy(v) for p, v in
+                                    lora_lib.extract_adapters(
+                                        t.params).items()}
+            elif n == 2 and float(t.optimizer.schedule(0)) != 0.0:
+                fail("the full-SFT step 2 check needs step 1's learning "
+                     "rate 0 (its start is the checkpoint)")
+            elif n > 2:
+                self._save_start(t, n)
+            # the same step in f32 on this card first
+            kept["f32_loss"], kept["f32_grads" if lora else "f32_sketch"], \
+                kept["routes"] = self._f32_step(t, batch)
+            routes = Routes() if self.rank == 0 and t.cfg.num_experts \
+                else contextlib.nullcontext()
+            with routes:
+                loss, grads = t.loss_and_grads(batch)
+            kept["bf16_routes"] = getattr(routes, "record", None)
+            g = {p: x for (p, _), x in zip(t.trainable, grads)}
+            if n > 2 or not lora:
+                rec["zero"][n] = [p for p, x in g.items() if any(
+                    s in p for s in TRAIN_LIVE_LEAVES) and not torch.any(x)]
+            if lora:
+                kept["grads"] = {p: torch.from_numpy(v) for p, v in
+                                 lora_lib.extract_adapters(t.params,
+                                                           g).items()}
+            else:
+                kept["sketch"] = {p: _grad_sketch(x) for p, x in g.items()}
+            kept["loss"] = float(loss)
+            t.optimizer.step(grads)
+            loss = float(loss)
+            torch.save(kept, os.path.join(
+                self.out, f"train_step{n}.rank{self.rank}.pt"))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["moved"].append(_moved(before))
+        rec["losses"].append(loss)
+        rec["tokens"] += int(batch["attention_mask"].sum())
+        rec["digests"].append(self._digest(t))
+        return loss
+
+    def _f32_step(self, t, batch) -> tuple:
+        """(the loss, the gradients, rank 0's router choices of a MoE tree,
+        ``Routes``) of a train step in f32 on the card (TF32 off): an f32
+        copy of this rank's slice (exact: bf16 to f32), the bf16 AdamW
+        moments held in host memory meanwhile, so that eight ranks' copies
+        fit one card.  LoRA's gradients gathered whole
+        (``lora.extract_adapters``), full SFT's as sketches
+        (``_grad_sketch``)."""
+        import torch
+        from bergen_tpu_torch.models import convert
+        from bergen_tpu_torch.train import lora as lora_lib
+        from bergen_tpu_torch.train.step import causal_lm_loss
+
+        opt = t.optimizer
+        dev = opt.mu[0].device
+        held = [[m.cpu() for m in ms] for ms in (opt.mu, opt.nu)]
+        opt.mu = opt.nu = None
+        torch.cuda.empty_cache()
+        leaves = {p: x.detach().float().requires_grad_(True)
+                  for p, x in t.trainable}
+        frozen = {p: x.float() for p, x in
+                  convert.flatten_paths(t.params).items()
+                  if p not in leaves and isinstance(x, torch.Tensor)
+                  and x.is_floating_point()}
+        routes = Routes() if self.rank == 0 and t.cfg.num_experts \
+            else contextlib.nullcontext()
+        with torch.enable_grad(), routes:
+            loss = causal_lm_loss(_tree_with(t.params, {**frozen, **leaves}),
+                                  t.cfg, batch["input_ids"],
+                                  batch["attention_mask"],
+                                  batch["loss_mask"], t.remat)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        if "lora" in t.tc:
+            out = {p: torch.from_numpy(v) for p, v in
+                   lora_lib.extract_adapters(
+                       t.params, dict(zip(leaves, grads))).items()}
+        else:
+            out = {p: _grad_sketch(g) for p, g in zip(leaves, grads)}
+        del leaves, frozen, grads
+        torch.cuda.empty_cache()
+        opt.mu, opt.nu = ([m.to(dev) for m in ms] for ms in held)
+        return float(loss), out, getattr(routes, "record", None)
+
+    def _save_start(self, t, n: int) -> None:
+        """This rank's tree before step ``n`` (bf16 as trained), its
+        replicated leaves on rank 0 alone (``shard.unshard_llama`` takes
+        rank 0's)."""
+        import torch
+        from bergen_tpu_torch.parallel import shard
+
+        shared = set(shard.replicated_paths(t.params)) if self.rank else ()
+
+        def strip(node, path):
+            if isinstance(node, dict):
+                return {k: strip(v, f"{path}.{k}" if path else k)
+                        for k, v in node.items()}
+            if isinstance(node, list):
+                return [strip(v, f"{path}.{i}") for i, v in enumerate(node)]
+            if path in shared:
+                return None
+            return node.detach().cpu() if hasattr(node, "detach") else node
+
+        torch.save(strip(t.params, ""), os.path.join(
+            self.out, f"train_start{n}.rank{self.rank}.pt"))
+
+    def _digest(self, t) -> str:
+        """One sha256 over the bytes of every trained replicated leaf, in
+        the tree's order (their count kept in ``replicated``)."""
+        import torch
+        from bergen_tpu_torch.parallel import shard
+
+        trained = dict(t.trainable)
+        paths = [p for p in shard.replicated_paths(t.params) if p in trained]
+        h = hashlib.sha256()
+        for p in paths:
+            h.update(trained[p].detach().flatten().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+        self.rec["replicated"] = len(paths)
+        return h.hexdigest()
+
+
+def _merged_dev_eval(gen) -> dict:
+    """The merged generator's dev eval after a train run: ut1's 50 dev
+    questions without documents, 16 new tokens (``run_ut1_train_lora``'s),
+    on every rank."""
+    from bergen_tpu_torch.data.dataset import Dataset
+
+    rows = []
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        for ln in f:
+            q_id, query, answer = ln.rstrip("\n").split("\t")[:3]
+            rows.append({"q_id": q_id, "query": query, "label": [answer],
+                         "ranking_labels": None})
+    gen.max_new_tokens = 16
+    t0 = time.perf_counter()
+    _, _, _, answers, _, _ = gen.eval(Dataset.from_list(rows))
+    if len(answers) != len(rows) or not all(isinstance(a, str)
+                                            for a in answers):
+        fail("the merged tp generator's dev eval failed")
+    return {"eval_s": time.perf_counter() - t0, "answers": len(answers),
+            "example": answers[0][:60]}
+
+
+# the tp paths' records that share a torchrun with another path: by path,
+# (records, ranks folder, torchrun wall seconds)
+TP_SHARED_RECS: dict = {}
+
+
+def _tp_train_result(path: str, recs: list, out: str, wall: float,
+                     workdir: str, rule: tuple) -> dict:
+    """A tp train run's checks on its ranks' records: no kernel launched in
+    a train step or an eval loss, no o or down gradient zero
+    (TRAIN_LIVE_LEAVES; the zero experts' counted, for the CPU check),
+    after every step every replicated leaf equal on the ranks of each
+    model row (its digest), the forward steps' launches by ``rule``
+    (``_tp_launches``), ``train_history.json`` written; the steps' times,
+    tokens/s and losses."""
+    exp = _experiment(workdir)
+    hist = _json(exp, "train_history.json")
+    moved = [m for rec in recs for m in rec["train"]["moved"] if m]
+    zero = {rec["rank"]: ps for rec in recs
+            if (ps := [p for n in rec["train"]["zero"].values() for p in n
+                       if ".moe." not in p])}
+    unrouted = {rec["rank"]: {n: len(ps) for n, ps in
+                              rec["train"]["zero"].items() if ps}
+                for rec in recs}
+    rows = {}
+    for rec in recs:  # one model row a tp of ranks, in rank order
+        rows.setdefault(rec["row"], []).append(rec["train"]["digests"])
+    unequal = sorted({(row, s + 1) for row, ds in rows.items() for d in ds
+                      for s in range(len(d)) if d[s] != ds[0][s]})
+    if moved or zero or unequal or not recs[0]["train"]["replicated"]:
+        fail(f"{path}: kernels launched in train steps or eval losses "
+             f"{moved[:3]}, zero gradients on live leaves {zero}, "
+             f"replicated leaves differing across a row's ranks after "
+             f"(row, step) {unequal[:5]}")
+    tr = recs[0]["train"]
+    ms = sorted(tr["ms"][3:] or tr["ms"])
+    return {"wall_s": max(r["wall_s"] for r in recs), "torchrun_wall_s": wall,
+            "exp": exp, "out": out, "ranks": len(recs),
+            **_tp_launches(path, recs, rule),
+            "steps": hist["steps"], "history": hist["history"],
+            "pre_train_eval_loss": hist["pre_train_eval_loss"],
+            "best_eval_loss": hist["best_eval_loss"],
+            "train_losses": tr["losses"], "step_ms": tr["ms"],
+            "median_step_ms": ms[len(ms) // 2],
+            "tokens_per_s": tr["tokens"] / (sum(tr["ms"]) / 1e3),
+            "replicated_leaves": recs[0]["train"]["replicated"],
+            "zero_expert_grads": {r: n for r, n in unrouted.items() if n},
+            "eval": recs[0].get("eval")}
+
+
+def run_ut1_tp2_train_lora(ckpt: dict, workdir: str) -> dict:
+    """``train=lora`` on ``llama-2-13b-chat`` (tp 2, Llama-2-13B's widths
+    at TP_LAYERS layers) through the CLI in ``run_ut1_tp2_llama2_13b``'s
+    ranks (TP_TRAIN_OVERRIDES: 3 steps), then the merged generator's dev
+    eval on both ranks (one decode attention a layer and decode step at
+    the per-rank heads); ``adapters_best.npz`` whole, with JAX's keys."""
+    import numpy as np
+
+    recs, out, wall = TP_SHARED_RECS.pop("ut1_tp2_train_lora")
+    res = _tp_train_result("ut1_tp2_train_lora", recs, out, wall, workdir,
+                           (TP_LAYERS, 0, 0, 0))
+    npz = np.load(os.path.join(res["exp"], "train", "adapters_best.npz"))
+    D, I = LLAMA2_13B["hidden_size"], LLAMA2_13B["intermediate_size"]
+    whole = {"q": (D, D), "k": (D, D), "v": (D, D), "o": (D, D),
+             "gate": (D, I), "up": (D, I), "down": (I, D)}
+    r = 32  # config/train/lora.yaml
+    want = {f"layers.{li}.{g}.{n}.{k}": (d_in, r) if k == "lora_a"
+            else (r, d_out)
+            for li in range(TP_LAYERS) for n, (d_in, d_out) in whole.items()
+            for g in (("attn",) if n in ("q", "k", "v", "o") else ("mlp",))
+            for k in ("lora_a", "lora_b")}
+    got = {k: npz[k].shape for k in npz.files}
+    if got != want:
+        fail(f"ut1_tp2_train_lora: adapters_best.npz {sorted(got.items())[:4]}"
+             f" not JAX's keys and whole shapes {sorted(want.items())[:4]}")
+    if not res["eval"] or res["eval"]["answers"] != 50:
+        fail(f"ut1_tp2_train_lora: the merged dev eval {res['eval']}")
+    return {**res, "adapters": len(got)}
+
+
+def run_ut1_tp2_unfold(ckpt: dict, workdir: str) -> dict:
+    """rag_ut1 with ``query_generator`` unfold_api_query rewriting with the
+    13B generator at tp 2 (``run_ut1_tp2_llama2_13b``'s ranks): every rank
+    rewrites, rank 0 writes the queries; one decode attention a layer and
+    decode step on each rank, through the rewrite and the answers."""
+    recs, out, wall = TP_SHARED_RECS.pop("ut1_tp2_unfold")
+    exp = _experiment(workdir)
+    names = [n for n in os.listdir(exp) if n.startswith("generated_queries.")]
+    if len(names) != 1:
+        fail(f"ut1_tp2_unfold: generated-queries files {names}")
+    queries = _json(exp, names[0])["generated_queries"]
+    if len(queries) != 50 or not all(isinstance(q, str) for q in queries):
+        fail(f"ut1_tp2_unfold: {len(queries)} rewritten queries")
+    TP_TOPS["ut1_tp2_unfold"] = recs[0]["tops"]
+    return {"wall_s": max(r["wall_s"] for r in recs),
+            "torchrun_wall_s": wall, "exp": exp, "file": names[0],
+            "ranks": len(recs), **_tp_launches("ut1_tp2_unfold", recs,
+                                               (TP_LAYERS, 0, 0, 0)),
+            "stage_s": _json(exp, "eval_dev_stage_times.json"),
+            "example_query": queries[0][:80], **_check_outputs(exp)}
+
+
+def run_gen_tp8_mixtral_train_full(ckpt: dict, workdir: str) -> dict:
+    """``train=full-47b`` on ``mixtral-8x7b-instruct`` (tp 8, one expert a
+    rank, MIXTRAL_TRAIN_LAYERS layers) through the CLI in the 8 ranks of
+    ``_tp8_run`` (MIXTRAL_TRAIN_OVERRIDES: 4 steps, no retriever): no
+    kernel launched (no decode: the train stage alone)."""
+    recs, k, out, wall = _tp8_run(ckpt, workdir, "gen_tp8_mixtral_train_full")
+    return _tp_train_result("gen_tp8_mixtral_train_full", recs, out, wall,
+                            workdir, (0, 0, 0, 0))
+
+
+def _tree_with(tree, flat: dict, path: str = ""):
+    """``tree`` with the leaves at ``flat``'s dotted paths replaced."""
+    if isinstance(tree, dict):
+        return {k: _tree_with(v, flat, f"{path}.{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_with(v, flat, f"{path}.{i}") for i, v in enumerate(tree)]
+    return flat.get(path, tree)
+
+
+def _cpu_sketches(cpu_grads: dict, cfg, tp: int, card: list) -> list:
+    """The CPU's whole gradients' sketches (``_grad_sketch``) of each rank's
+    slice (``shard.shard_llama`` on the gradient tree), for the leaves of
+    that rank's card sketches (``card``, in rank order)."""
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.parallel import shard
+
+    out = []
+    for r, sketch in enumerate(card):
+        ref = convert.flatten_paths(shard.shard_llama(cpu_grads, cfg, tp,
+                                                      r)[0])
+        out.append({p: _grad_sketch(ref[p]) for p in sketch})
+        del ref
+    return out
+
+
+def _sketches_against(cpu: list, card: list) -> dict:
+    """Each rank's full-SFT gradient sketches (``card``) against the CPU's
+    (``_cpu_sketches``): the least cosine of the weighted row sums, column
+    sums and 1-D gradients and the largest norm error (a 1-D gradient's
+    too), with where they fall, and the leaves zero on one side only (an
+    expert no token routes to is zero on both)."""
+    worst = {"rows": (2.0, ""), "cols": (2.0, ""), "v": (2.0, "")}
+    far, n, zero, card_zero, both = (0.0, ""), 0, [], [], 0
+    for r, (sketch, ref) in enumerate(zip(card, cpu)):
+        for p, got in sketch.items():
+            want = ref[p]
+            n += 1
+            for key in ("rows", "cols", "v"):
+                if key in want and want[key].any():
+                    c = _cos(got[key], want[key])
+                    if c < worst[key][0]:
+                        worst[key] = (c, f"rank {r} {p}")
+                elif key in want and got[key].any():
+                    zero.append(f"rank {r} {p}")
+            if "v" in want:  # a 1-D gradient's norm, from itself
+                want = {"norm": float(want["v"].double().norm())}
+                got = {"norm": float(got["v"].double().norm())}
+            if "norm" in want and want["norm"] > 0:
+                e = got["norm"] / want["norm"] - 1
+                if abs(e) > abs(far[0]):
+                    far = (e, f"rank {r} {p}")
+                if got["norm"] == 0:
+                    card_zero.append(f"rank {r} {p}")
+            elif "norm" in want:
+                both += got["norm"] == 0
+    return {"leaves_compared": n,
+            **{f"min_{k}_cos": v[0] for k, v in worst.items()},
+            **{f"min_{k}_cos_at": v[1] for k, v in worst.items()},
+            "max_norm_rel_err": far[0], "max_norm_rel_err_at": far[1],
+            "zero_on_cpu_only": zero, "zero_on_card_only": card_zero,
+            "zero_on_both": both}
+
+
+def _tp_train_reference(ckpt: dict, path: str, device: str):
+    """(the trainer, tp, whether LoRA) of ``path``'s config on its
+    checkpoint at tp 1 on ``device`` (f32 on the CPU, bf16 on the card),
+    remat off (the same sums: remat recomputes the forward)."""
+    from bergen_tpu_torch import confy
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.train.trainer import SFTTrainer
+
+    lora = path == "ut1_tp2_train_lora"
+    key, tp = ("llama2_13b", 2) if lora else ("mixtral_train", 8)
+    tc = confy.load_yaml(os.path.join(REPO, "config", "train",
+                                      "lora.yaml" if lora else
+                                      "full-47b.yaml"))
+    t = SFTTrainer(LLM(ckpt[key], device=device), [{}] * 16, [], tc,
+                   tempfile.mkdtemp())
+    t.remat = False
+    return t, tp, lora
+
+
+def _tp_train_step_ref(t, out: str, n: int, tp: int, lora: bool,
+                       routes_key: str) -> tuple:
+    """Step ``n`` of a tp train run (``TrainWatch``'s records under
+    ``out``) taken by the tp 1 trainer ``t`` from the same start and batch:
+    LoRA's adapters as they were, full SFT's checkpoint at step 2 and the
+    ranks' saved start, joined, at step 3; a MoE tree follows rank 0's
+    router choices of its ``routes_key`` run (its forward's: a checkpointed
+    layer calls the router again in the backward, after them).  Returns
+    (the ranks' records, the loss, {path: gradient}, the ``Routes`` or
+    None)."""
+    import torch
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.parallel import shard
+    from bergen_tpu_torch.train import lora as lora_lib
+
+    card = [torch.load(os.path.join(out, f"train_step{n}.rank{r}.pt"))
+            for r in range(1 if lora else tp)]
+    if lora:
+        lora_lib.load_adapters(t.params, card[0]["adapters"])
+    elif n > 2:  # the ranks' start, joined (rank 0's replicated leaves)
+        start = convert.flatten_paths(shard.unshard_llama([
+            torch.load(os.path.join(out, f"train_start{n}.rank{r}.pt"))
+            for r in range(tp)]))
+        with torch.no_grad():
+            for p, x in t.trainable:
+                x.copy_(start[p])
+        del start
+    routes = None if lora else Routes(
+        forced=card[0][routes_key][:t.cfg.num_layers])
+    with routes or contextlib.nullcontext():
+        loss, grads = t.loss_and_grads(
+            {k: v.to(t.device) for k, v in card[0]["batch"].items()})
+    g = {p: x for (p, _), x in zip(t.trainable, grads)}
+    return card, float(loss), g, routes
+
+
+def check_tp_train_against_cpu(ckpt: dict, runs: dict, path: str) -> dict:
+    """Each of TRAIN_CHECK_STEPS of a tp train path against the same step
+    in f32 on the CPU at tp 1, from the same start and batch
+    (``_tp_train_step_ref``), with ``check_train_step_against_cpu``'s
+    tolerances.  The path's bf16 step: its loss within TRAIN_LOSS_RTOL;
+    LoRA's whole adapter gradients at cosine TRAIN_GRAD_COS or more
+    (``_grads_against``: at step 2 only B's are non-zero), full SFT's
+    sketches reported (bf16 gradients of small leaves, norm scales and k
+    at random weights, move by several percent; the tp error of that step
+    is held by ``check_tp_train_against_tp1``).  The same step in f32 on
+    the card: its loss within TRAIN_F32_LOSS_RTOL, each gradient (LoRA's
+    whole; full SFT's as each rank's sketches against the CPU's slice,
+    ``_sketches_against``, the norms summed in f64: the CPU's f32 norm of a
+    58.7M-entry expert was 0.79% off) at cosine TRAIN_F32_GRAD_COS and its
+    norm within TRAIN_F32_NORM_RTOL, so that a gradient scaled by tp
+    fails; the CPU following the card's f32 router choices (``Routes``:
+    each flip a near-tie within ROUTER_TIE_TOL).  Every leaf zero on one
+    side only fails."""
+    t0 = time.perf_counter()
+    t, tp, lora = _tp_train_reference(ckpt, path, "cpu")
+    out = {"load_s": time.perf_counter() - t0}
+    for n in TRAIN_CHECK_STEPS:
+        t0 = time.perf_counter()
+        card, cpu_loss, g, routes = _tp_train_step_ref(
+            t, runs[path]["out"], n, tp, lora, "routes")
+        if lora:
+            bf16 = _grads_against(g, card[0]["grads"], cpu_loss,
+                                  card[0]["loss"])
+            f32 = _grads_against(g, card[0]["f32_grads"], cpu_loss,
+                                 card[0]["f32_loss"])
+            zero_ok = all(not r["zero_on_cpu_only"] and (
+                r["grads_zero"] == 0 if n > 2 else
+                r["grads_zero"] == r["grads_compared"]) for r in (bf16, f32))
+            ok = zero_ok and bf16["min_grad_cos"] >= TRAIN_GRAD_COS
+            f32_cos = f32["min_grad_cos"]
+        else:
+            cpu = _cpu_sketches(_tree_with(t.params, g), t.cfg, tp,
+                                [c["f32_sketch"] for c in card])
+            bf16 = _sketches_against(cpu, [c["sketch"] for c in card])
+            f32 = _sketches_against(cpu, [c["f32_sketch"] for c in card])
+            f32.update(routes.summary(f"{path} step {n}"))
+            del cpu
+            ok = not any(r["zero_on_cpu_only"] or r["zero_on_card_only"]
+                         for r in (bf16, f32))
+            f32_cos = min(f32[f"min_{k}_cos"] for k in ("rows", "cols", "v"))
+        bf16["loss_rel_err"] = abs(card[0]["loss"] - cpu_loss) / cpu_loss
+        f32["loss_rel_err"] = abs(card[0]["f32_loss"] - cpu_loss) / cpu_loss
+        out[f"step{n}"] = {"cpu_loss": cpu_loss, "card_loss": card[0]["loss"],
+                           "card_f32_loss": card[0]["f32_loss"],
+                           "bf16": bf16, "f32": f32,
+                           "step_s": time.perf_counter() - t0}
+        if not (ok and bf16["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                and f32["loss_rel_err"] <= TRAIN_F32_LOSS_RTOL
+                and f32_cos >= TRAIN_F32_GRAD_COS
+                and abs(f32["max_norm_rel_err"]) <= TRAIN_F32_NORM_RTOL
+                and all(c["loss"] == card[0]["loss"] for c in card)):
+            fail(f"{path} step {n}: the card against the CPU "
+                 f"{out[f'step{n}']}")
+        del g
+    return out
+
+
+def check_tp_train_against_tp1(ckpt: dict, runs: dict) -> dict:
+    """gen_tp8_mixtral_train_full's bf16 steps (TRAIN_CHECK_STEPS) against
+    the same steps at tp 1 in bf16 on the card, from the same start and
+    batch (``_tp_train_step_ref``), following rank 0's bf16 router choices
+    (each flip a near-tie within ROUTER_TIE_TOL): the loss within
+    TRAIN_LOSS_RTOL, each rank's gradient sketches against tp 1's slice
+    (``_sketches_against``) at cosine TRAIN_GRAD_COS or more and norm
+    within TP_TRAIN_NORM_RTOL, no leaf zero on one side only.  Both sides
+    round to bf16 alike, so what differs is tp's own (each rank's backward
+    partials rounded to bf16 before they meet, the f32 order): a missing
+    or doubled partial moves a norm by 1/8 or more."""
+    import torch
+
+    path = "gen_tp8_mixtral_train_full"
+    t0 = time.perf_counter()
+    t, tp, _ = _tp_train_reference(ckpt, path, TP_REF_DEVICE)
+    out = {"load_s": time.perf_counter() - t0}
+    for n in TRAIN_CHECK_STEPS:
+        t0 = time.perf_counter()
+        card, ref_loss, g, routes = _tp_train_step_ref(
+            t, runs[path]["out"], n, tp, False, "bf16_routes")
+        ref = _cpu_sketches(_tree_with(t.params, g), t.cfg, tp,
+                            [c["sketch"] for c in card])
+        del g
+        res = _sketches_against(ref, [c["sketch"] for c in card])
+        res.update(routes.summary(f"{path} step {n} against tp 1"))
+        res["loss_rel_err"] = abs(card[0]["loss"] - ref_loss) / ref_loss
+        out[f"step{n}"] = {"tp1_loss": ref_loss, "card_loss": card[0]["loss"],
+                           **res, "step_s": time.perf_counter() - t0}
+        if (res["zero_on_cpu_only"] or res["zero_on_card_only"]
+                or res["loss_rel_err"] > TRAIN_LOSS_RTOL
+                or min(res[f"min_{k}_cos"] for k in ("rows", "cols", "v"))
+                < TRAIN_GRAD_COS
+                or abs(res["max_norm_rel_err"]) > TP_TRAIN_NORM_RTOL):
+            fail(f"{path} step {n}: tp 8 against tp 1 in bf16 "
+                 f"{out[f'step{n}']}")
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank_main(spec_file: str) -> None:
     """One rank of the tensor-parallel paths, started by ``torchrun`` from
     ``run_tp``: for each of the spec's runs, in turn, every kernel's
@@ -7830,7 +8502,10 @@ def tp_rank_main(spec_file: str) -> None:
     or ``LLM.generate``, or (``call``) a function of this script.  Rank 0
     keeps every step's greedy tokens (with ``all_tops`` every rank) and the
     first step's last logits, and with ``routes`` its router's choices
-    (``Routes``)."""
+    (``Routes``).  A run with ``train`` watches its trainer (``TrainWatch``:
+    each step's launches, time and loss, the checked steps' inputs and
+    gradients under ``out``, the replicated leaves' digests) and, with
+    ``train.eval``, runs the merged generator's dev eval after it."""
     import numpy as np
     import torch
 
@@ -7848,6 +8523,8 @@ def tp_rank_main(spec_file: str) -> None:
     for k, run in enumerate(spec["runs"]):
         for fn in counters.values():
             fn.launches = 0
+        if torch.cuda.is_available():  # each run's own peak
+            torch.cuda.reset_peak_memory_stats()
         steps, tops = [], []
 
         def counted(params, cfg, input_ids, positions, cache, *a,
@@ -7862,7 +8539,7 @@ def tp_rank_main(spec_file: str) -> None:
             if kw.get("collect_stats"):  # a W8A8 calibration pass
                 return out
             if rank == 0 or run.get("all_tops"):
-                last = out[:, -1].float()
+                last = out[:, -1].detach().float()  # a train step's too
                 if not tops and rank == 0:
                     np.save(os.path.join(spec["out"],
                                          f"first_logits{k}.npy"),
@@ -7878,11 +8555,21 @@ def tp_rank_main(spec_file: str) -> None:
         routes = Routes() if run.get("routes") and rank == 0 \
             else contextlib.nullcontext()
         t0 = time.perf_counter()
+        # a train run's trainer watched (TrainWatch)
+        watch = TrainWatch(spec["out"], rank) if "train" in run else None
         if run["entry"] == "cli":
             from bergen_tpu_torch import __main__ as cli
 
             os.environ["CONFIG"] = "rag_ut1"
-            cli.cli(run["argv"])
+            with watch or contextlib.nullcontext():
+                cli.cli(run["argv"])
+            if watch is not None:
+                gen = watch.trainers[-1].gen
+                result.update(train=watch.rec, row=rank // gen.tp)
+                if run["train"].get("eval"):  # the merged generator's
+                    result["eval"] = _merged_dev_eval(gen)
+                del gen
+                watch.trainers.clear()
         elif run["entry"] == "evaluate":
             from bergen_tpu_torch import evaluate
 
@@ -7909,6 +8596,9 @@ def tp_rank_main(spec_file: str) -> None:
         cuda = torch.cuda.is_available()
         if cuda:
             torch.cuda.synchronize()
+        llm = None  # the next run's memory
+        if cuda:
+            torch.cuda.empty_cache()
         result.update(wall_s=time.perf_counter() - t0, steps=steps,
                       launches={n: fn.launches for n, fn in counters.items()},
                       peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
@@ -8021,19 +8711,31 @@ def run_ut1_tp2_llama2_13b(ckpt: dict, workdir: str) -> dict:
     """``torchrun --nproc-per-node 2 -m bergen_tpu_torch`` on rag_ut1 with
     ``generator=llama-2-13b-chat`` (tp 2, Llama-2-13B's widths), static,
     then in the same ranks served from the page pool in a folder of its own
-    (``ut1_tp2_llama2_13b_paged``); each rank one decode (or paged)
+    (``ut1_tp2_llama2_13b_paged``), trained (``ut1_tp2_train_lora``) and
+    with the rewrite (``ut1_tp2_unfold``); each rank one decode (or paged)
     attention a layer and decode step, both ranks retrieving, rank 0
     alone writing."""
     paged_dir = workdir + "_paged"
-    for d in (workdir, paged_dir):
+    train_dir, unfold_dir = (os.path.join(os.path.dirname(workdir), p)
+                             for p in ("ut1_tp2_train_lora",
+                                       "ut1_tp2_unfold"))
+    for d in (workdir, paged_dir, train_dir, unfold_dir):
         os.makedirs(d, exist_ok=True)
         os.symlink(os.path.dirname(ckpt["bert"]), os.path.join(d, "ckpt"))
-    (static, paged), wall = run_tp(2, [
+    (static, paged, train, unfold), wall = run_tp(2, [
         {"entry": "cli", "cwd": workdir, "argv": _tp_argv(ckpt, [])},
         {"entry": "cli", "cwd": paged_dir, "argv": _tp_argv(ckpt, [
             "+generator.init_args.serve=true",
-            "+generator.init_args.kv_cache=paged"])}], workdir)
+            "+generator.init_args.kv_cache=paged"])},
+        {"entry": "cli", "cwd": train_dir, "train": {"eval": True},
+         "argv": _tp_argv(ckpt, TP_TRAIN_OVERRIDES)},
+        {"entry": "cli", "cwd": unfold_dir, "argv": _tp_argv(
+            ckpt, group_overrides("query_generator", "unfold_api_query"))}],
+        workdir, timeout=900)
     TP_PAGED_RECS["recs"] = paged
+    out = os.path.join(workdir, "ranks")
+    TP_SHARED_RECS.update(ut1_tp2_train_lora=(train, out, wall),
+                          ut1_tp2_unfold=(unfold, out, wall))
     return {**_tp_13b_result("ut1_tp2_llama2_13b", static,
                              max(r["wall_s"] for r in static), workdir,
                              False), "torchrun_wall_s": wall}
@@ -8092,8 +8794,9 @@ def _tp8_run(ckpt: dict, workdir: str, path: str) -> tuple:
     questions, 16 new tokens, at Llama-2-70B's widths
     (``gen_tp8_llama2_70b``) and Mixtral-8x7B's (``gen_tp8_mixtral``, one
     expert a rank, rank 0 recording its router's choices), each whose
-    checkpoint is written, one after the other in the same 8 ranks (one
-    torchrun: they reach the card once)."""
+    checkpoint is written, and ``train=full-47b`` on the Mixtral through
+    the CLI (``gen_tp8_mixtral_train_full``), one after the other in the
+    same 8 ranks (one torchrun: they reach the card once)."""
     if path not in TP8_RUNS:
         os.makedirs(workdir, exist_ok=True)
         specs = [(p, {"entry": "generate", "cwd": workdir,
@@ -8104,7 +8807,24 @@ def _tp8_run(ckpt: dict, workdir: str, path: str) -> tuple:
                      ("gen_tp8_mixtral", "mixtral", MIXTRAL_TP8_LLM,
                       {"routes": True}))
                  if key in ckpt]
-        recs, wall = run_tp(8, [spec for _, spec in specs], workdir)
+        if "mixtral" in ckpt:  # full-47b through the CLI, in its folder
+            ckpt["mixtral_train"] = first_layers(ckpt["mixtral"],
+                                                 MIXTRAL_TRAIN_LAYERS)
+            d = os.path.join(os.path.dirname(workdir),
+                             "gen_tp8_mixtral_train_full")
+            os.makedirs(d, exist_ok=True)
+            os.symlink(os.path.dirname(ckpt["mixtral"]),
+                       os.path.join(d, "ckpt"))
+            specs.append(("gen_tp8_mixtral_train_full", {
+                "entry": "cli", "cwd": d, "train": {}, "argv": [
+                    "generator=mixtral-8x7b-instruct",
+                    f"generator.init_args.model_name="
+                    f"{_local(ckpt, 'mixtral_train')}",
+                    *MIXTRAL_TRAIN_OVERRIDES,
+                    f"qrels_folder={os.path.join(REPO, 'tests', 'utdata')}",
+                    f"device={TP_DEVICE}", "dist_backend=gloo"]}))
+        recs, wall = run_tp(8, [spec for _, spec in specs], workdir,
+                            timeout=900)
         for k, (p, _) in enumerate(specs):
             TP8_RUNS[p] = (recs[k], k, os.path.join(workdir, "ranks"), wall)
     return TP8_RUNS.pop(path)
@@ -8195,10 +8915,36 @@ def _first_logits_close(path: str, npy: str, ref) -> dict:
             "tol": TP_LOGITS_TOL}
 
 
+def _unfold_against_tp1(llm, run: dict) -> dict:
+    """ut1_tp2_unfold's rewritten queries against ``UnfoldAPIQuery`` on the
+    13B at tp 1 (``llm``, with the run's basic prompt) over ut1's 50 dev
+    questions, forced along the tp run's first steps (``_forced``: the
+    rewrite is the eval's first generation)."""
+    from bergen_tpu_torch import confy
+    from bergen_tpu_torch.models.query_generators.unfold_api_query import (
+        UnfoldAPIQuery)
+
+    llm.prompt = confy.load_yaml(os.path.join(REPO, "config", "prompt",
+                                              "basic.yaml"))
+    uq = UnfoldAPIQuery(prompt=confy.load_yaml(os.path.join(
+        REPO, "config", "query_generator", "unfold_api_query.yaml"))
+        ["init_args"]["prompt"])
+    uq.set_generator(llm)
+    with open(os.path.join(REPO, "tests", "utdata", "ut1_queries.tsv")) as f:
+        questions = [ln.split("\t")[1].strip() for ln in f]
+    tops = TP_TOPS["ut1_tp2_unfold"]
+    texts, tokens, _, gaps = _forced(lambda: uq.generate(questions), tops)
+    got = _json(run["exp"], run["file"])["generated_queries"]
+    return _tp_same_tokens("ut1_tp2_unfold", got, texts,
+                           tops[:len(tokens)], tokens, gaps)
+
+
 def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
     """Each tensor-parallel path against tp 1 on the card, from the same
     checkpoint: the 13B generator static and served paged on the
-    instructions the tp run wrote, in its batches of 32; the SOLAR judge on
+    instructions the tp run wrote, in its batches of 32, and the static
+    one's rewrite of ut1's questions (``_unfold_against_tp1``); the SOLAR
+    judge on
     a copy of the same folder (the config at tp 1, flash prefill on), its
     option probabilities within ``TP_PROB_TOL``; the 70B generator on the
     same 8 questions.  Tokens by ``_tp_same_tokens``, the first step's
@@ -8228,6 +8974,9 @@ def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
             out[path].update(_first_logits_close(
                 path, os.path.join(work, path, "ranks", "first_logits0.npy"),
                 first))
+        if kv is None and "ut1_tp2_unfold" in runs:
+            out["ut1_tp2_unfold"] = _unfold_against_tp1(
+                llm, runs["ut1_tp2_unfold"])
         del llm
         torch.cuda.empty_cache()
     # the judge at tp 1 on its own copy of the judged folder
@@ -8282,13 +9031,16 @@ def check_tp_against_tp1(ckpt: dict, work: str, runs: dict) -> dict:
 def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
                    work: str, after=None) -> None:
     """Each ``TP_CKPTS`` checkpoint written, its paths driven (the 13B
-    static and served paged, the SOLAR judge on the 13B static run's
-    folder, the 70B generator, with gen_tp8_mixtral in the same ranks
-    where the Mixtral checkpoint is written), then all of them against tp
-    1 on the card, the checkpoints deleted after."""
+    static, served paged, trained and rewriting, the SOLAR judge on the
+    13B static run's folder, the 70B generator, with gen_tp8_mixtral and
+    gen_tp8_mixtral_train_full in the same ranks where the Mixtral
+    checkpoint is written), then all of them against tp 1 on the card and
+    the train steps against the CPU, the checkpoints deleted after."""
     paths = {"llama2_13b": (
                 ("ut1_tp2_llama2_13b", run_ut1_tp2_llama2_13b),
-                ("ut1_tp2_llama2_13b_paged", run_ut1_tp2_llama2_13b_paged)),
+                ("ut1_tp2_llama2_13b_paged", run_ut1_tp2_llama2_13b_paged),
+                ("ut1_tp2_train_lora", run_ut1_tp2_train_lora),
+                ("ut1_tp2_unfold", run_ut1_tp2_unfold)),
              "solar": (("judge_tp4_solar", lambda c, w: run_judge_tp4_solar(
                  c, w, runs["ut1_tp2_llama2_13b"]["exp"])),),
              "llama2_70b": (("gen_tp8_llama2_70b", run_gen_tp8_llama2_70b),)}
@@ -8302,12 +9054,18 @@ def drive_tp_paths(ckpt: dict, root: str, dev, drive, runs: dict,
             drive(path, run)
     emit({"phase": "reference_check_tp",
           **timed(check_tp_against_tp1, ckpt, work, runs)})
-    if "mixtral" in ckpt:  # its 8-rank run shared the 70B's ranks
-        drive_gen_tp8_mixtral(ckpt, root, drive, runs)
-    if after is not None:  # the data-parallel paths, on the 13B checkpoint
+    emit({"phase": "reference_check_tp_train_lora",
+          **timed(check_tp_train_against_cpu, ckpt, runs,
+                  "ut1_tp2_train_lora")})
+    if "mixtral" in ckpt:  # its 8-rank run shared the 70B's ranks; the
+        # data-parallel paths (after, on the 13B checkpoint) run beside
+        # its CPU check
+        drive_gen_tp8_mixtral(ckpt, root, drive, runs, after)
+    elif after is not None:
         after()
     for _, name, *_ in TP_CKPTS:
         shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
 
 # --------------------------------------------------------------------------- #
 # the mesh's data axis: data-parallel stages, a world larger than tp, and
@@ -9117,7 +9875,7 @@ class Routes:
             kth = logits.topk(k, dim=-1).values[..., -1]
             gap = (kth - logits.gather(-1, idx).min(dim=-1).values
                    ).clamp_min(0)
-            self.gaps.append(float(gap.max()))
+            self.gaps.append(float(gap.max().detach()))
             self.flips += int((gap > 0).sum())
             return w
 
@@ -9485,14 +10243,28 @@ def drive_mixtral_paths(ckpt: dict, root: str, dev, drive,
     shutil.rmtree(ckpt.pop("xrag_mixtral"), ignore_errors=True)
 
 
-def drive_gen_tp8_mixtral(ckpt: dict, root: str, drive, runs: dict) -> None:
-    """gen_tp8_mixtral (in the 8 ranks of gen_tp8_llama2_70b where that
-    runs too) and its check against tp 1; the Mixtral checkpoint deleted
-    after."""
+def drive_gen_tp8_mixtral(ckpt: dict, root: str, drive, runs: dict,
+                          after=None) -> None:
+    """gen_tp8_mixtral and gen_tp8_mixtral_train_full (in the 8 ranks of
+    gen_tp8_llama2_70b where that runs too), each against tp 1 on the card,
+    then the second's train steps against the CPU (in a ``Background``
+    thread, over the card's next work: ``after``, the data-parallel phase
+    in a whole run, which runs no MoE block in this process: ``Routes``
+    patches the module); the Mixtral checkpoint deleted after."""
     drive("gen_tp8_mixtral", run_gen_tp8_mixtral)
+    drive("gen_tp8_mixtral_train_full", run_gen_tp8_mixtral_train_full)
     emit({"phase": "reference_check_mixtral_tp",
           **timed(check_mixtral_tp_against_tp1, ckpt, runs)})
-    shutil.rmtree(ckpt.pop("mixtral"), ignore_errors=True)
+    emit({"phase": "reference_check_tp_train_mixtral_tp1",
+          **timed(check_tp_train_against_tp1, ckpt, runs)})
+    train_check = Background(check_tp_train_against_cpu, ckpt, runs,
+                             "gen_tp8_mixtral_train_full")
+    if after is not None:
+        after()
+    emit({"phase": "reference_check_tp_train_mixtral",
+          **train_check.result()})
+    for key in ("mixtral_train", "mixtral"):
+        shutil.rmtree(ckpt.pop(key), ignore_errors=True)
 
 
 # --------------------------------------------------------------------------- #

@@ -149,6 +149,12 @@ def cli(argv: list, cwd: str, config: str = "rag_ut1") -> str:
     return cwd
 
 
+def clis(runs: list, config: str = "rag_ut1") -> list:
+    """``cli`` for each (argv, cwd) of ``runs``, one after another in the
+    same ranks."""
+    return [cli(argv, cwd, config) for argv, cwd in runs]
+
+
 def judge(seed: int = 0, **kwargs) -> None:
     """``bergen_tpu_torch.evaluate.run_eval(**kwargs)`` after
     ``random.seed(seed)`` (the pairwise switches rank 0 draws)."""
@@ -361,6 +367,222 @@ def encoders(models: dict, texts: list, queries: list, docs: list) -> list:
     return _every_rank(out)
 
 
+def _function_errors(tp: int) -> dict:
+    """The differentiable collectives (``mesh.copy_in``, ``reduce_out``,
+    ``gather_last``) over the model row of ``tp``, each forward and
+    gradient against the one-process math on the whole tensors (seeded,
+    the same on every rank): the largest error of each over the largest
+    magnitude of its reference."""
+    import torch
+
+    from bergen_tpu_torch.parallel import mesh
+
+    def rel(got, want):
+        return float((got.detach() - want).abs().max() / want.abs().max())
+
+    r = mesh.get_mesh(model=tp).model_rank
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(3, 5, 8, generator=g)
+    w = torch.randn(8, 4 * tp, generator=g)
+    out = torch.randn(3, 5, 4 * tp, generator=g)
+    parts = torch.randn(tp, 3, 5, 8, generator=g)
+    err = {}
+    # copy-in before a column slice: dx is the whole product's
+    xi = x.clone().requires_grad_(True)
+    y = mesh.copy_in(xi, tp) @ w[:, 4 * r:4 * r + 4]
+    (y * out[..., 4 * r:4 * r + 4]).sum().backward()
+    err["copy_in"] = max(rel(y, (x @ w)[..., 4 * r:4 * r + 4]),
+                         rel(xi.grad, out @ w.T))
+    # a bf16 gradient's partials meet in f32 and are rounded once (exact
+    # here: the f32 sum of a few bf16 values is)
+    gb = (parts * 3).bfloat16()
+    xi = x.bfloat16().requires_grad_(True)
+    (mesh.copy_in(xi, tp) * gb[r]).sum().backward()
+    err["copy_in_bf16"] = rel(xi.grad.float(),
+                              gb.float().sum(0).bfloat16().float())
+    # reduce-out of the partials: every rank the sum, dx the identity
+    pi = parts[r].clone().requires_grad_(True)
+    y = mesh.reduce_out(pi, tp)
+    (y * x).sum().backward()
+    err["reduce_out"] = max(rel(y, parts.sum(0)), rel(pi.grad, x))
+    # gather-last of a column slice's outputs: dx the rank's slice
+    xi = (x @ w)[..., 4 * r:4 * r + 4].clone().requires_grad_(True)
+    y = mesh.gather_last(xi, tp)
+    (y * out).sum().backward()
+    err["gather_last"] = max(rel(y, x @ w),
+                             rel(xi.grad, out[..., 4 * r:4 * r + 4]))
+    return err
+
+
+def _whole(params, flat: dict) -> dict:
+    """Every rank's leaves of ``flat`` ({path: tensor} on this rank's slice
+    of ``params``), joined whole in rank order (``shard.unshard_llama``)
+    over the model row: {path: tensor} on every rank."""
+    import torch.distributed as dist
+
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.parallel import mesh, shard
+
+    def subst(node, path):
+        if isinstance(node, dict):
+            return {k: subst(v, f"{path}.{k}" if path else k)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [subst(v, f"{path}.{i}") for i, v in enumerate(node)]
+        return flat.get(path, node)
+
+    tree = subst(params, "")
+    if mesh.world_size() == 1:
+        trees = [tree]
+    else:
+        m = mesh.get_mesh(model=_params_tp(params))
+        trees = [None] * m.model
+        dist.all_gather_object(trees, tree, group=m.model_group)
+    whole = convert.flatten_paths(shard.unshard_llama(trees))
+    return {p: whole[p] for p in flat}
+
+
+def _params_tp(params) -> int:
+    """The tp of a rank's tree (1: a whole tree)."""
+    from bergen_tpu_torch.parallel import shard
+
+    for layer in params["layers"]:
+        for node in layer["attn"].values():
+            if "tp_shape" in node:
+                return shard.split_of(node)[1]
+    return 1
+
+
+def _equal_on_row(flat: dict, tp: int) -> bool:
+    """Whether every tensor of ``flat`` is bit for bit rank 0's of this
+    rank's model row (of ``tp``)."""
+    import torch
+    import torch.distributed as dist
+
+    from bergen_tpu_torch.parallel import mesh
+
+    m = mesh.get_mesh(model=tp)
+    every = [None] * m.model
+    dist.all_gather_object(every, flat, group=m.model_group)
+    return all(torch.equal(o[p], every[0][p]) for o in every for p in flat)
+
+
+def _replicated_equal(params) -> bool:
+    """Whether every replicated leaf (``shard.replicated_paths``) is bit
+    for bit rank 0's of its model row on every rank of every row."""
+    import torch.distributed as dist
+
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.parallel import mesh, shard
+
+    tp = _params_tp(params)
+    if tp == 1:
+        return True
+    flat = convert.flatten_paths(params)
+    same = _equal_on_row({p: flat[p].detach().clone()
+                          for p in shard.replicated_paths(params)}, tp)
+    flags = [None] * mesh.world_size()
+    dist.all_gather_object(flags, same)
+    return all(flags)
+
+
+def _loss_and_grads(gen, batch, lora, remat: bool) -> dict:
+    """``causal_lm_loss`` and the gradients of the trainable leaves (every
+    leaf, or the adapters) on ``gen``'s tree, the gradients gathered whole
+    and those of the replicated leaves compared across the ranks."""
+    import torch
+
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.parallel import mesh, shard
+    from bergen_tpu_torch.train.step import causal_lm_loss
+
+    params = gen.params
+    leaves = {p: t for p, t in convert.flatten_paths(params).items()
+              if isinstance(t, torch.Tensor) and (
+                  not lora or p.endswith(("lora_a", "lora_b")))}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    ii, am, lm = (torch.from_numpy(b) for b in batch)
+    loss = causal_lm_loss(params, gen.cfg, ii, am, lm, remat)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    for t in leaves.values():
+        t.requires_grad_(False)
+    replicated = [p for p in shard.replicated_paths(params) if p in grads]
+    same = mesh.world_size() == 1 or _equal_on_row(
+        {p: grads[p] for p in replicated}, _params_tp(params))
+    return {"loss": float(loss.detach()),
+            "grads": {p: g.numpy() for p, g in _whole(params, grads).items()},
+            "replicated_grads_equal": same, "replicated": len(replicated)}
+
+
+def trainings(tps: list, out: str, **kw) -> dict:
+    """{tp: ``training`` at tp} for each of ``tps``, in the same ranks."""
+    return {tp: training(tp=tp, out=os.path.join(out, str(tp)), **kw)
+            for tp in tps}
+
+
+def training(llama: str, mixtral: str, tp: int, batch: tuple,
+             adapters: dict, rows: list, tc: dict, steps: int,
+             out: str) -> list:
+    """Tensor-parallel training on every rank (``tests/
+    test_torch_tensor_parallel_train.py``): the collectives' errors
+    (``_function_errors``); the loss and the whole gradients on ``batch``
+    of the llama with ``adapters`` (LoRA) and without (full), remat on and
+    off, and of the Mixtral (full); then ``steps`` ``SFTTrainer`` steps on
+    ``rows`` (LoRA from ``adapters``, full, the Mixtral full): each step's
+    loss, whether the replicated leaves stayed equal after every step, the
+    eval loss, and the trained leaves gathered whole.  Every rank's
+    results, in rank order."""
+    import copy
+
+    from bergen_tpu_torch.models import convert
+    from bergen_tpu_torch.models.generators.llm import LLM
+    from bergen_tpu_torch.train import lora as lora_lib
+    from bergen_tpu_torch.train.trainer import SFTTrainer
+
+    res = {"functions": _function_errors(tp) if tp > 1 else {}}
+    base = LLM(llama, tp=tp, device="cpu", max_length=64)
+    moe = LLM(mixtral, tp=tp, device="cpu", max_length=64)
+    res["experts"] = (getattr(moe.cfg, "expert_first", 0),
+                      getattr(moe.cfg, "expert_count", 0))
+    start = {"full": base.params, "moe": moe.params}
+    lc = tc["lora"]
+    start["lora"] = lora_lib.load_adapters(lora_lib.init_lora(
+        copy.deepcopy(base.params), lc["r"], lc["lora_alpha"]), adapters)
+    gens = {}
+    for mode, params in start.items():
+        gen = copy.copy(moe if mode == "moe" else base)
+        gen.params = copy.deepcopy(params)
+        gens[mode] = gen
+        for remat in (True, False):
+            res[f"grads_{mode}_{int(remat)}"] = _loss_and_grads(
+                gen, batch, mode == "lora", remat)
+    for mode in ("lora", "full", "moe"):
+        gen = copy.copy(gens[mode])
+        gen.params = copy.deepcopy(base.params if mode != "moe"
+                                   else moe.params)
+        cfg = {k: v for k, v in tc.items() if k != "lora" or mode == "lora"}
+        t = SFTTrainer(gen, rows[:40], rows[40:], cfg, os.path.join(
+            out, mode))
+        if mode == "lora":
+            lora_lib.load_adapters(t.params, adapters)
+        rec = {"losses": [], "equal": [], "eval": t.evaluate()}
+        for i, b in enumerate(t.batches(t.train_rows, 4, True)):
+            if i == steps:
+                break
+            rec["losses"].append(t.train_step(b))
+            rec["equal"].append(_replicated_equal(t.params))
+        trained = {p: x for p, x in convert.flatten_paths(t.params).items()
+                   if p in dict(t.trainable)}
+        rec["trained"] = (lora_lib.extract_adapters(t.params)
+                          if mode == "lora" else
+                          {p: x.numpy() for p, x in
+                           _whole(t.params, trained).items()})
+        res[f"steps_{mode}"] = rec
+    return _every_rank(res)
+
+
 JOBS = {"sharded_ops": sharded_ops, "encoders": encoders,
         "quantized": quantized, "generation": generation, "mixtral": mixtral, "decoding": decoding,
-        "llm_error": llm_error, "cli": cli, "judge": judge}
+        "llm_error": llm_error, "cli": cli, "judge": judge,
+        "trainings": trainings, "clis": clis}
